@@ -1,0 +1,104 @@
+"""Build the hand-written CUDA kernels at first use and bind them with ctypes.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface (no PyTorch headers: seconds, not minutes).
+The library goes to ``kernels/_build/<hash of the sources and flags>/``, so
+an edit to a source rebuilds it and an unchanged tree reuses it. Every C
+entry point returns a cudaError_t; ``check`` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib: ctypes.CDLL | None = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _sources() -> tuple[list[str], str]:
+    files = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")) + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in files:
+        h.update(os.path.basename(f).encode())
+        with open(f, "rb") as fp:
+            h.update(fp.read())
+    return [f for f in files if f.endswith(".cu")], h.hexdigest()[:16]
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; returns the ctypes handle."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    cu_files, digest = _sources()
+    out_dir = os.path.join(BUILD_DIR, digest)
+    so_path = os.path.join(out_dir, "libnst_kernels.so")
+    log_path = os.path.join(out_dir, "build.log")
+    t0 = time.perf_counter()
+    built = False
+    if not os.path.exists(so_path):
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu_files]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with open(log_path, "w") as fp:
+            fp.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        os.replace(tmp, so_path)
+        built = True
+    lib = ctypes.CDLL(so_path)
+    ptrs, i64, i32, u32, f32, vp = (
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_uint, ctypes.c_float, ctypes.c_void_p,
+    )
+    lib.nst_depth_net_forward.argtypes = [ptrs, i32, i64, i32, i32, f32, f32, vp]
+    lib.nst_depth_net_forward.restype = i32
+    lib.nst_render_around_depth.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, f32, i32, vp]
+    lib.nst_render_around_depth.restype = i32
+    build_info.update(
+        path=so_path, log=log_path, built=built, seconds=time.perf_counter() - t0
+    )
+    _lib = lib
+    return lib
+
+
+def pointer_array(tensors: list[torch.Tensor]):
+    """(ctypes void* array of the tensors' device pointers, its length)."""
+    arr = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    return arr, len(tensors)
+
+
+def current_stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")

@@ -1,0 +1,98 @@
+// Shared building block of the port's MLP kernels: one dense layer over a
+// tile of rows whose activations live in shared memory as bf16.
+//
+//   out[16*MT, N] = act(sum_op A_op @ W_op + bias),   N = kWarps * NT * 16
+//
+// A_op is a bf16 tile in shared memory (row-major, stride lda); W_op is a
+// bf16 [K, N] row-major matrix in device memory. The MLP weights (a few MB)
+// stay resident in the 50 MB L2, so every block streams them from L2 while
+// its activations never leave the SM. A concatenation in the reference
+// (skip inputs, embeddings) is a second operand accumulated into the same
+// fp32 sum, with zero-padded weight rows where an operand is wider than its
+// logical input.
+//
+// Products run on the tensor cores through nvcuda::wmma 16x16x16 bf16
+// fragments with fp32 accumulation. Warp w owns output columns
+// [w*NT*16, (w+1)*NT*16) for every row; the epilogue adds the fp32 bias,
+// applies the activation and rounds to bf16, the rounding points of the
+// TPU kernels (bf16 activations, fp32 accumulation).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <mma.h>
+
+namespace nst {
+
+using bf16 = __nv_bfloat16;
+namespace wmma = nvcuda::wmma;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+// fp32 floats of per-warp epilogue scratch (one 16x16 accumulator tile)
+constexpr int kScratchPerWarp = 256;
+
+enum Act { kNone = 0, kRelu = 1, kLeaky = 2 };
+
+struct Operand {
+  const bf16* a;  // shared-memory tile, row-major
+  int lda;        // its row stride in elements (a multiple of 8)
+  const bf16* w;  // device [k, N] row-major
+  int k;          // depth of the product, a multiple of 16
+};
+
+// Comparisons keep a NaN where fmaxf would drop it: a ray that misses the
+// bounding sphere must stay NaN end to end, as in the reference.
+__device__ __forceinline__ float activate(float v, int act) {
+  if (act == kRelu) return v < 0.f ? 0.f : v;
+  if (act == kLeaky) return v > 0.f ? v : 0.01f * v;
+  return v;
+}
+
+template <int MT, int NT>
+__device__ void dense(const Operand* ops, int n_ops, const float* __restrict__ bias,
+                      bf16* out, int ldo, int act, float* scratch) {
+  constexpr int N = kWarps * NT * 16;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int col0 = warp * NT * 16;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT][NT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int o = 0; o < n_ops; ++o) {
+    const Operand op = ops[o];
+    for (int k = 0; k < op.k; k += 16) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        wmma::load_matrix_sync(b[j], op.w + (size_t)k * N + col0 + j * 16, N);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::load_matrix_sync(a, op.a + i * 16 * op.lda + k, op.lda);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
+      }
+    }
+  }
+
+  float* s = scratch + warp * kScratchPerWarp;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      wmma::store_matrix_sync(s, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int r = e >> 4, col = col0 + j * 16 + (e & 15);
+        out[(i * 16 + r) * ldo + col] = __float2bfloat16(activate(s[e] + bias[col], act));
+      }
+      __syncwarp();
+    }
+  }
+}
+
+}  // namespace nst
