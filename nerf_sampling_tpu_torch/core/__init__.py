@@ -8,7 +8,12 @@ from nerf_sampling_tpu_torch.core.geometry import (
 )
 from nerf_sampling_tpu_torch.core.metrics import img2mse, mse2psnr, psnr_np, to8b
 from nerf_sampling_tpu_torch.core.rays import get_rays, get_rays_np
-from nerf_sampling_tpu_torch.core.sampling import sample_points_around_mean, z_to_points
+from nerf_sampling_tpu_torch.core.sampling import (
+    sample_pdf,
+    sample_points_around_mean,
+    stratified_z_vals,
+    z_to_points,
+)
 
 __all__ = [
     "Embedder",
@@ -22,8 +27,10 @@ __all__ = [
     "psnr_np",
     "raw2alpha",
     "raw2outputs",
+    "sample_pdf",
     "sample_points_around_mean",
     "solve_quadratic_equation",
+    "stratified_z_vals",
     "to8b",
     "z_to_points",
 ]

@@ -1,6 +1,12 @@
-"""Depth-population sampling (nerf_sampling_tpu/core/sampling.py:137-173).
+"""Ray sampling (nerf_sampling_tpu/core/sampling.py).
 
-``stratified_z_vals`` and ``sample_pdf`` are not ported yet (ROADMAP S2).
+- ``stratified_z_vals``: coarse z, jittered within each stratum (:30-61);
+- ``sample_pdf``: inverse-CDF fine z from coarse weights (:64-113);
+- ``sample_points_around_mean``: the DepthNet's depth population (:137-173).
+
+Random draws come from an explicit ``torch.Generator`` or are injected
+(``t_rand=``, ``u=``, ``noise=``), as the JAX functions take a key or the
+same injection parameters.
 """
 
 from __future__ import annotations
@@ -13,6 +19,98 @@ def z_to_points(
 ) -> torch.Tensor:
     """[N, 3] rays and [N, S] depths -> [N, S, 3] points o + d * z."""
     return rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+
+
+def linspace01(n: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """linspace(0, 1, n) in fp32 as jnp.linspace computes it, bit for bit:
+    i * fl(1/(n-1)) with the last entry exactly 1 (torch.linspace rounds
+    some entries the other way)."""
+    if n == 1:
+        return torch.zeros(1, device=device)
+    t = torch.arange(n, dtype=torch.float32, device=device) * torch.tensor(
+        1.0 / (n - 1), dtype=torch.float32, device=device)
+    t[-1] = 1.0
+    return t
+
+
+def stratified_z_vals(
+    near: torch.Tensor,
+    far: torch.Tensor,
+    N_samples: int,
+    *,
+    generator: torch.Generator | None = None,
+    perturb: float = 0.0,
+    lindisp: bool = False,
+    t_rand: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Coarse z [N, N_samples] between near and far [N, 1], jittered within
+    each stratum when ``perturb > 0`` (reference Trainer.py:604-626)."""
+    t_vals = linspace01(N_samples, near.device)
+    if not lindisp:
+        z_vals = near * (1.0 - t_vals) + far * t_vals
+    else:
+        z_vals = 1.0 / (1.0 / near * (1.0 - t_vals) + 1.0 / far * t_vals)
+    z_vals = z_vals.expand(near.shape[0], N_samples)
+    if perturb > 0.0:
+        mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        upper = torch.cat([mids, z_vals[..., -1:]], -1)
+        lower = torch.cat([z_vals[..., :1], mids], -1)
+        if t_rand is None:
+            if generator is None:
+                raise ValueError("perturb > 0 requires a torch.Generator or t_rand")
+            t_rand = torch.rand(z_vals.shape, generator=generator, device=near.device)
+        z_vals = lower + (upper - lower) * t_rand
+    return z_vals
+
+
+def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum along the last axis, added left to right: the rounding
+    of XLA's CPU sum and cumsum and of K6's per-ray loop (torch.sum and
+    torch.cumsum round otherwise, and the inverse CDF amplifies a last-bit
+    difference by bin width / bin mass)."""
+    acc = x[..., 0]
+    out = [acc]
+    for k in range(1, x.shape[-1]):
+        acc = acc + x[..., k]
+        out.append(acc)
+    return torch.stack(out, -1)
+
+
+def sample_pdf(
+    bins: torch.Tensor,
+    weights: torch.Tensor,
+    N_samples: int,
+    *,
+    generator: torch.Generator | None = None,
+    det: bool = False,
+    u: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Fine z [N, N_samples] by inverting the CDF of ``weights`` [N, B-1]
+    over the bin edges ``bins`` [N, B] (reference run_nerf_helpers.py:250-293)."""
+    weights = weights + 1e-5  # prevent nans
+    pdf = weights / _sequential_cumsum(weights)[..., -1:]
+    cdf = _sequential_cumsum(pdf)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)  # [N, B]
+    if u is None:
+        shape = (*cdf.shape[:-1], N_samples)
+        if det:
+            u = linspace01(N_samples, cdf.device).expand(shape)
+        else:
+            if generator is None:
+                raise ValueError("stochastic sample_pdf requires a torch.Generator or u")
+            u = torch.rand(shape, generator=generator, device=cdf.device)
+    u = u.contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_below = torch.gather(cdf, -1, below)
+    cdf_above = torch.gather(cdf, -1, above)
+    bins_below = torch.gather(bins, -1, below)
+    bins_above = torch.gather(bins, -1, above)
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_below) / denom
+    return bins_below + t * (bins_above - bins_below)
 
 
 def sample_points_around_mean(
@@ -43,7 +141,7 @@ def sample_points_around_mean(
                 (mean.shape[0], n_samples - 1), generator=generator,
                 device=mean.device, dtype=mean.dtype,
             )
-        z_vals = torch.sort(torch.cat([mean + std * noise, mean], -1), -1).values
+        z_vals = torch.sort(torch.cat([mean + std * noise, mean], -1), dim=-1, stable=True).values
     elif mode == "uniform":
         grid = torch.linspace(-std, std, n_samples - 1, device=mean.device)
         z_vals = torch.sort(torch.cat([mean + grid[None, :], mean], -1), -1).values

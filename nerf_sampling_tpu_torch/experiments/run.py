@@ -1,0 +1,130 @@
+"""Train the depth net from the command line (nerf_sampling_tpu/experiments/run.py).
+
+    python3 -m nerf_sampling_tpu_torch.experiments.run -d example \\
+        -m recommended_depth_net_module --mlp_impl cuda --ft_path NERF.npz --n_iters 2500
+
+The JAX CLI's flag surface and hard overrides (reference run.py:101-109:
+depth_net_lr 1e-4, a 10x256 DepthNet, train_depth_net_only, sphere_radius
+2), with argparse in place of click. The reference-parity flags (-si, -sr,
+-ip, -w) always set the config; the extension flags set it only when typed
+or when the YAML entry does not set the field. ``-d example`` generates
+the procedural example scene (800x800) on first use. Flags whose options
+are not ported (--mode nerf/joint, --n_devices, --multihost, -w online,
+...) reach the Trainer, which raises naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from nerf_sampling_tpu_torch.definitions import DATASET_DIR, REFERENCE_CONFIG, ROOT_DIR
+from nerf_sampling_tpu_torch.utils.config import load_trainer_config, override_config
+
+# extension flags: (config field, default); None on the command line means "not typed"
+_EXTENSION_DEFAULTS = {
+    "train_mode": "depth_net",
+    "basedir": "./logs",
+    "matmul_precision": "highest",
+    "mlp_impl": "plain",
+    "seed": 42,
+    "joint_depth_warmup": 0,
+    "i_testset": 20000,
+    "n_devices": 1,
+    "steps_per_dispatch": 0,
+    "multihost": False,
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="Run sampling-network training with the provided configuration.")
+    ap.add_argument("-c", "--config", default=REFERENCE_CONFIG, help="Path to configuration file.")
+    ap.add_argument("-dp", "--dataset_path", help="Path to dataset folder.")
+    ap.add_argument("-d", "--dataset", help="Name of the dataset to train on.")
+    ap.add_argument("-m", "--model", default="lego_depth_net_module", help="Model key in the YAML config.")
+    ap.add_argument("-w", "--wandb", dest="wandb_mode", default="disabled",
+                    choices=["online", "offline", "disabled"], help="wandb logging mode.")
+    ap.add_argument("-si", "--single_image", action="store_true", help="Train on a single image.")
+    ap.add_argument("-sr", "--single_ray", action="store_true", help="Train on a single ray.")
+    ap.add_argument("-ip", "--i_print", type=int, default=1000, help="Frequency of log printing.")
+    ap.add_argument("--n_iters", type=int, default=100_000, help="Training iterations.")
+    ap.add_argument("--mode", dest="train_mode", choices=["depth_net", "nerf", "joint"], default=None)
+    ap.add_argument("--basedir", default=None)
+    ap.add_argument("--precision", dest="matmul_precision", choices=["highest", "high", "default"],
+                    default=None)
+    ap.add_argument("--mlp_impl", choices=["plain", "cuda", "xla", "pallas", "pallas_int8"], default=None,
+                    help="plain: fp32 PyTorch; cuda: the hand-written kernels (K6 oracle, K1/K3 "
+                         "evals). The JAX names xla and pallas map onto them.")
+    ap.add_argument("--joint_depth_warmup", type=int, default=None)
+    ap.add_argument("--i_testset", type=int, default=None, help="Frequency of test-set evals.")
+    ap.add_argument("--n_devices", type=int, default=None)
+    ap.add_argument("--steps_per_dispatch", type=int, default=None)
+    ap.add_argument("--multihost", action="store_true", default=None)
+    ap.add_argument("--ft_path", default=None, help="Explicit NeRF checkpoint (.npz) to load.")
+    ap.add_argument("--testskip", type=int, default=None, help="Load every Nth test/val image.")
+    ap.add_argument("--seed", type=int, default=None, help="Init and sampling seed.")
+    return ap
+
+
+def main(argv: list[str] | None = None):
+    """Parse ``argv``, train, print the final PSNR; returns the Trainer."""
+    from nerf_sampling_tpu_torch.train.trainer import Trainer
+
+    kw = vars(build_parser().parse_args(argv))
+    cfg = load_trainer_config(kw["config"], kw["model"])
+    cfg.single_image = kw["single_image"]
+    cfg.single_ray = kw["single_ray"]
+    cfg.i_print = kw["i_print"]
+    cfg.wandb_mode = kw["wandb_mode"]
+    for field, default in _EXTENSION_DEFAULTS.items():
+        if kw[field] is not None:
+            setattr(cfg, field, kw[field])
+        elif field not in cfg.explicit_keys:
+            setattr(cfg, field, default)
+    if kw["testskip"] is not None:
+        cfg.testskip = kw["testskip"]
+
+    datadir = kw["dataset_path"]
+    ft_path = None
+    name = kw["dataset"]
+    if name is not None:
+        datadir = os.path.join(DATASET_DIR, name)
+        if not os.path.exists(datadir):
+            if name != "example":
+                raise NotImplementedError(
+                    f"-d {name}: only the 'example' scene is ported (the others: ROADMAP S6)")
+            from nerf_sampling_tpu_torch.data.example import generate_example_dataset
+
+            print(f"Generating example dataset at {datadir}")
+            generate_example_dataset(datadir, H=800, W=800)
+        candidate = os.path.join(ROOT_DIR, "pretrained", "nerf", name, "200000.tar")
+        if cfg.train_mode == "depth_net" and os.path.exists(candidate):
+            ft_path = candidate
+        print(f"dataset_name={name!r}")
+    if datadir is None:
+        print("Please specify the name of the dataset or provide the path to the folder")
+        return None
+
+    override_config(cfg.__dict__, {  # hard overrides (reference run.py:101-109)
+        "depth_net_lr": 1e-4,
+        "n_layers": 10,
+        "layer_width": 256,
+        "train_depth_net_only": True,
+        "sphere_radius": 2,
+    })
+    cfg.ft_path = kw["ft_path"] or ft_path
+    cfg.datadir = datadir
+    cfg.expname = f"{name or 'custom'}_{'depth_net' if cfg.train_mode == 'depth_net' else 'nerf'}"
+    # reference run.py:148 renders the train-time DepthNet sample alone;
+    # a model entry that sets sampling_mode keeps its eval population
+    if "sampling_mode" not in cfg.explicit_keys:
+        cfg.sampling_mode = "depth_only"
+
+    trainer = Trainer(cfg)
+    psnr = trainer.train(N_iters=kw["n_iters"] + 1)
+    print(f"Final psnr: {psnr}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

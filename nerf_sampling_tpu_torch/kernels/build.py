@@ -1,10 +1,12 @@
 """Build the hand-written CUDA kernels at first use and bind them with ctypes.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface (no PyTorch headers: seconds, not minutes).
-The library goes to ``kernels/_build/<hash of the sources and flags>/``, so
-an edit to a source rebuilds it and an unchanged tree reuses it. Every C
-entry point returns a cudaError_t; ``check`` raises on anything but 0.
+Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into an
+object, all of them at once in parallel, and the objects link into one
+shared library with a plain C interface (no PyTorch headers: seconds, not
+minutes). The library goes to ``kernels/_build/<hash of the sources and
+flags>/``, so an edit to a source rebuilds it and an unchanged tree reuses
+it. Every C entry point returns a cudaError_t; ``check`` raises on anything
+but 0.
 """
 
 from __future__ import annotations
@@ -22,10 +24,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
@@ -64,13 +64,34 @@ def load_library() -> ctypes.CDLL:
     built = False
     if not os.path.exists(so_path):
         os.makedirs(out_dir, exist_ok=True)
+        nvcc = _nvcc()
+        logs = []
+        jobs = []
+        for src in cu_files:  # one nvcc per source, all started together
+            obj = os.path.join(out_dir, os.path.basename(src) + f".{os.getpid()}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            out, err = proc.communicate()
+            logs.append(" ".join(cmd) + "\n" + out + err)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(cmd[-3])} ({proc.returncode}):\n{err[-4000:]}")
         tmp = f"{so_path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu_files]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if not failed:
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *[obj for _, obj, _ in jobs]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        for _, obj, _ in jobs:
+            if os.path.exists(obj):
+                os.remove(obj)
         with open(log_path, "w") as fp:
-            fp.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            fp.write("\n".join(logs))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp, so_path)
         built = True
     lib = ctypes.CDLL(so_path)
@@ -82,6 +103,13 @@ def load_library() -> ctypes.CDLL:
     lib.nst_depth_net_forward.restype = i32
     lib.nst_render_around_depth.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, f32, i32, vp]
     lib.nst_render_around_depth.restype = i32
+    lib.nst_render_gaussian.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, u32, i32, vp]
+    lib.nst_render_gaussian.restype = i32
+    lib.nst_render_hier.argtypes = [ptrs, i32, i64, i32, i32, i32, u32, i32, u32, f32, f32,
+                                    i32, i32, u32, vp]
+    lib.nst_render_hier.restype = i32
+    lib.nst_render_hier_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.nst_render_hier_occupancy.restype = i32
     build_info.update(
         path=so_path, log=log_path, built=built, seconds=time.perf_counter() - t0
     )
@@ -89,9 +117,10 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def pointer_array(tensors: list[torch.Tensor]):
-    """(ctypes void* array of the tensors' device pointers, its length)."""
-    arr = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+def pointer_array(tensors: list[torch.Tensor | None]):
+    """(ctypes void* array of the tensors' device pointers, its length);
+    None passes a null pointer."""
+    arr = (ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr() for t in tensors])
     return arr, len(tensors)
 
 

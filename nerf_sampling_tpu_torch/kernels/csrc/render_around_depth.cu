@@ -1,98 +1,71 @@
-// K2: DepthNet populate-and-shade, rays + predicted depth -> composited maps.
+// K2 and K3: DepthNet populate-and-shade, rays + predicted depth -> composited maps.
 //
 // Replaces nerf_sampling_tpu/kernels/fused_render.py::_call (the
-// pl.pallas_call at :390) with z_source="around_center" (_kernel,
-// :203-344), the uniform population of fused_render_around_depth. Per ray:
-//   z_s = clip(depth + offsets[s], near, far)    offsets = std * sorted(
-//         linspace(-1, 1, S-1) U {0}), a NaN depth stays NaN;
-//   fp32 positional encoding of o + z*d and of the unit view direction,
-//   rounded to bf16; the 8x256 NeRF MLP with the layer-5 input skip, the
-//   feature layer, the views layer and the rgb/alpha heads (bf16 operands,
-//   fp32 accumulation); then compositing in sample order with dists
-//   z[s+1]-z[s] and a 1e10 tail, both scaled by |d|, alpha =
-//   1-exp(-relu(sigma)*dist), the exclusive product of 1-alpha+1e-10, and
-//   a white background.
+// pl.pallas_call at :390) in two of its populate modes (_kernel, :203-344):
+//   K2, z_source="around_center" (fused_render_around_depth):
+//     z_s = clip(depth + offsets[s], near, far), offsets = std * sorted(
+//     linspace(-1, 1, S-1) U {0}); a NaN depth stays NaN; already sorted.
+//   K3, z_source="gaussian" (fused_render_gaussian, :558-610):
+//     z_s = depth + std * noise_s for s < S-1 and z_{S-1} = depth, with no
+//     clip; noise is Box-Muller over Philox keyed by (seed, ray)
+//     (philox.cuh), or injected. Each ray's z is sorted (stable, NaN last)
+//     before shading, so the in-order compositing below is the reference's
+//     sort-then-composite. The TPU kernel composited in storage order with
+//     an order-free O(S^2) product instead; here the sort is one rank pass.
+// Then, for both: fp32 positional encoding of o + z*d and of the unit view
+// direction, rounded to bf16; the 8x256 NeRF MLP (nerf_mlp.cuh: bf16
+// operands, fp32 accumulation); compositing in sample order with dists
+// z[s+1]-z[s] and a 1e10 tail, both scaled by |d|, alpha =
+// 1-exp(-relu(sigma)*dist), the exclusive product of 1-alpha+1e-10, and a
+// white background.
 //
 // What bounds it on the H100: about 1.2 MFLOP per sample on the tensor
 // cores, 12 TFLOP per 400x400 frame at 64 samples, against 1.2 MB of bf16
-// weights that stay in L2; device-memory traffic is 40 bytes per ray. The
-// matrix products bound it. This first version streams the weights from L2
-// per 64-row chunk through wmma fragments (no TMA, no wgmma): simple and
-// right first, fast in a later change.
+// weights that stay in L2; device-memory traffic is 40 bytes per ray (plus
+// 4(S-1) with injected noise). The matrix products bound it. This version
+// streams the weights from L2 per 64-row chunk through wmma fragments (no
+// TMA, no wgmma): simple and right first, fast in a later change.
 //
-// Design: one block per group of R rays (R*S <= 1024 sample rows). The
-// block walks its rows in chunks of 64: the positional encoding of the
-// chunk (accurate sinf/cosf: the argument reaches 2^9*|x|, so __sinf is
-// not acceptable) goes to a bf16 tile, the MLP runs layer by layer between
-// two bf16 activation tiles in shared memory, and sigmoid(rgb) and sigma
-// land in per-row fp32 planes. Compositing then walks each ray's samples
-// in order, one thread per ray. None of the TPU kernel's Mosaic devices
-// (affine-in-z S matrix, rotation PE, ones-row reductions) is needed here.
+// Design: one block per group of R rays (R*S <= 1024 sample rows), two
+// blocks per SM. Compositing walks each ray's samples in order, one thread
+// per ray. None of the TPU kernel's Mosaic devices (affine-in-z S matrix,
+// rotation PE, ones-row reductions, order-free compositor) is needed here.
 
 #include <cuda_runtime.h>
 
-#include "mlp_tile.cuh"
+#include "nerf_mlp.cuh"
+#include "philox.cuh"
 
 namespace nst {
 namespace {
 
-constexpr int kW = 256;          // NeRF width the kernel is built for
-constexpr int kWv = kW / 2;      // views-layer width
-constexpr int kChunk = 64;       // sample rows per MLP pass
-constexpr int kLdx = kW + 8;     // padded activation stride
-constexpr int kPeCols = 96;      // [pts emb 63 | 0 | view emb 27 | 0 x5]
-constexpr int kPeViews = 64;     // first column of the view embedding
-constexpr int kLdpe = kPeCols + 8;
-constexpr int kPtsCh = 63;       // 3 * (1 + 2 * 10)
-constexpr int kViewCh = 27;      // 3 * (1 + 2 * 4)
 constexpr int kMaxRows = 1024;   // sample rows per block
 constexpr int kMaxRays = 64;     // rays per block
-constexpr int kMaxD = 16;
 
 struct RenderParams {
   const float* rays_o;   // [n, 3]
   const float* rays_d;   // [n, 3]
   const float* depth;    // [n]
-  const float* offsets;  // [S], std-scaled, sorted
+  const float* offsets;  // uniform: [S], std-scaled, sorted
+  const float* noise;    // gaussian: [n, S-1] injected draws, or null
   float* out;            // [6, n]: r, g, b, disp, acc, depth
   long long n;
-  int S, R, D;
-  unsigned skip_mask;    // bit i: layer i also reads the point embedding
-  float near_, far_;
+  int S, R;
+  int gaussian;          // 0: uniform (K2), 1: gaussian (K3)
+  float near_, far_;     // uniform clip
+  float std_;            // gaussian
+  unsigned seed;         // gaussian, when noise is null
   int white_bkgd;
-  const bf16* w0;               // [64, W] point-embedding rows, zero-padded
-  const bf16* tw[kMaxD];        // layers >= 1: [W, W]
-  const float* tb[kMaxD];       // [W]
-  const bf16* skip_w[kMaxD];    // [64, W] for the layers in skip_mask
-  const bf16* feat_w;           // [W, W]
-  const float* feat_b;          // [W]
-  const bf16* alpha_w;          // [W]
-  const float* alpha_b;         // [1]
-  const bf16* views_wf;         // [W, W/2]
-  const bf16* views_ws;         // [32, W/2] view-embedding rows, zero-padded
-  const float* views_b;         // [W/2]
-  const bf16* rgb_w;            // [3, W/2]
-  const float* rgb_b;           // [3]
+  NerfWeights w;
 };
 
-constexpr size_t kSmemBytes = (2 * kChunk * kLdx + kChunk * kLdpe) * sizeof(bf16) +
-                              (kWarps * kScratchPerWarp + 5 * kMaxRows + 8 * kMaxRays) * sizeof(float);
+constexpr size_t kSmemBytes = kTileBytes + (5 * kMaxRows + 8 * kMaxRays) * sizeof(float);
 
-// Column col of the reference embedding [x, sin(x f0), cos(x f0), ...]
-// of a 3-vector x (x = v[0..2]).
-__device__ __forceinline__ float embed(const float* v, int col) {
-  if (col < 3) return v[col];
-  const int c = col - 3, f = c / 6, k = c % 6;
-  const float a = v[k % 3] * (float)(1 << f);
-  return k < 3 ? sinf(a) : cosf(a);
-}
-
-__global__ void __launch_bounds__(kThreads, 2) render_around_depth_kernel(const RenderParams p) {
+__global__ void __launch_bounds__(kThreads, 2)
+    render_around_depth_kernel(const __grid_constant__ RenderParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* x[2] = {reinterpret_cast<bf16*>(smem), reinterpret_cast<bf16*>(smem) + kChunk * kLdx};
-  bf16* pe = x[1] + kChunk * kLdx;
-  float* scratch = reinterpret_cast<float*>(pe + kChunk * kLdpe);
-  float* zp = scratch + kWarps * kScratchPerWarp;
+  const Tiles t = carve_tiles(smem);
+  float* zp = reinterpret_cast<float*>(smem + kTileBytes);
   float* sigma = zp + kMaxRows;
   float* plane[3] = {sigma + kMaxRows, sigma + 2 * kMaxRows, sigma + 3 * kMaxRows};
   float* ray = sigma + 4 * kMaxRows;  // per ray: o[3], d[3], |d|, depth
@@ -113,72 +86,31 @@ __global__ void __launch_bounds__(kThreads, 2) render_around_depth_kernel(const 
     q[7] = p.depth[ray0 + r];
   }
   __syncthreads();
-  for (int row = tid; row < rows; row += kThreads) {
-    const float v = ray[8 * (row / S) + 7] + p.offsets[row % S];
-    zp[row] = isnan(v) ? v : fminf(fmaxf(v, p.near_), p.far_);
+  if (!p.gaussian) {
+    for (int row = tid; row < rows; row += kThreads) {
+      const float v = ray[8 * (row / S) + 7] + p.offsets[row % S];
+      zp[row] = isnan(v) ? v : fminf(fmaxf(v, p.near_), p.far_);
+    }
+  } else {
+    // the population, unsorted, in the sigma plane (free until the MLP)
+    for (int row = tid; row < rows; row += kThreads) {
+      const int r = row / S, s = row - r * S;
+      const float c = ray[8 * r + 7];
+      float v = c;
+      if (s < S - 1) {
+        const long long g = ray0 + r;
+        const float nz = p.noise ? p.noise[g * (S - 1) + s]
+                                 : gaussian_normal(p.seed, (uint32_t)g, (uint32_t)s);
+        v = __fadd_rn(c, __fmul_rn(p.std_, nz));  // as the plain version: no FMA
+      }
+      sigma[row] = v;
+    }
+    __syncthreads();
+    sort_rows(sigma, zp, nr, S);
   }
   __syncthreads();
 
-  for (int c0 = 0; c0 < rows; c0 += kChunk) {
-    // positional encoding of the chunk; rows past the block's rays are zero
-    for (int e = tid; e < kChunk * kPeCols; e += kThreads) {
-      const int rr = e / kPeCols, col = e % kPeCols, row = c0 + rr;
-      float v = 0.f;
-      if (row < rows && (col < kPtsCh || (col >= kPeViews && col < kPeViews + kViewCh))) {
-        const float* q = ray + 8 * (row / S);
-        float u[3];
-        if (col < kPtsCh) {
-          const float z = zp[row];
-          // o + d*z rounded like the plain version: no fused multiply-add
-          for (int k = 0; k < 3; ++k) u[k] = __fadd_rn(q[k], __fmul_rn(q[3 + k], z));
-          v = embed(u, col);
-        } else {
-          for (int k = 0; k < 3; ++k) u[k] = __fdiv_rn(q[3 + k], q[6]);
-          v = embed(u, col - kPeViews);
-        }
-      }
-      pe[rr * kLdpe + col] = __float2bfloat16(v);
-    }
-    __syncthreads();
-
-    const Operand op0 = {pe, kLdpe, p.w0, 64};
-    dense<kChunk / 16, kW / (16 * kWarps)>(&op0, 1, p.tb[0], x[0], kLdx, kRelu, scratch);
-    __syncthreads();
-    int cur = 0;
-    for (int i = 1; i < p.D; ++i) {
-      const Operand ops[2] = {{x[cur], kLdx, p.tw[i], kW}, {pe, kLdpe, p.skip_w[i], 64}};
-      dense<kChunk / 16, kW / (16 * kWarps)>(ops, ((p.skip_mask >> i) & 1u) ? 2 : 1, p.tb[i],
-                                             x[cur ^ 1], kLdx, kRelu, scratch);
-      __syncthreads();
-      cur ^= 1;
-    }
-
-    {  // sigma = h @ alpha_w + alpha_b: four threads per row
-      const int rr = tid >> 2, part = tid & 3;
-      const bf16* h = x[cur] + rr * kLdx;
-      float s = 0.f;
-      for (int c = part * (kW / 4); c < (part + 1) * (kW / 4); ++c)
-        s += __bfloat162float(h[c]) * __bfloat162float(p.alpha_w[c]);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (part == 0 && c0 + rr < rows) sigma[c0 + rr] = s + p.alpha_b[0];
-    }
-    const Operand opf = {x[cur], kLdx, p.feat_w, kW};
-    dense<kChunk / 16, kW / (16 * kWarps)>(&opf, 1, p.feat_b, x[cur ^ 1], kLdx, kNone, scratch);
-    __syncthreads();
-    const Operand opv[2] = {{x[cur ^ 1], kLdx, p.views_wf, kW}, {pe + kPeViews, kLdpe, p.views_ws, 32}};
-    dense<kChunk / 16, kWv / (16 * kWarps)>(opv, 2, p.views_b, x[cur], kLdx, kRelu, scratch);
-    __syncthreads();
-
-    for (int e = tid; e < kChunk * 3; e += kThreads) {
-      const int rr = e / 3, ch = e % 3;
-      const bf16* hv = x[cur] + rr * kLdx;
-      float s = 0.f;
-      for (int c = 0; c < kWv; ++c) s += __bfloat162float(hv[c]) * __bfloat162float(p.rgb_w[ch * kWv + c]);
-      if (c0 + rr < rows) plane[ch][c0 + rr] = 1.f / (1.f + expf(-(s + p.rgb_b[ch])));
-    }
-    __syncthreads();
-  }
+  nerf_rows(p.w, t, ray, zp, rows, S, false, sigma, plane);
 
   // compositing in sample order, one thread per ray
   for (int r = tid; r < nr; r += kThreads) {
@@ -205,50 +137,24 @@ __global__ void __launch_bounds__(kThreads, 2) render_around_depth_kernel(const 
   }
 }
 
-}  // namespace
-}  // namespace nst
-
-// ptrs, in order: rays_o, rays_d, depth, offsets, out; w0; tw[1..D-1];
-// tb[0..D-1]; skip_w[i] for each set bit i of skip_mask, ascending; feat_w,
-// feat_b, alpha_w, alpha_b, views_wf, views_ws, views_b, rgb_w, rgb_b.
-// Returns a cudaError_t (0 on success).
-extern "C" int nst_render_around_depth(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
-                                       unsigned skip_mask, float near_, float far_, int white_bkgd,
-                                       void* stream) {
-  using namespace nst;
-  if (S < 1 || S > 512 || D < 1 || D > kMaxD || (skip_mask & 1u) || (skip_mask >> D))
-    return (int)cudaErrorInvalidValue;
-  const int n_skip = __builtin_popcount(skip_mask);
-  if (n_ptrs != 5 + 1 + (D - 1) + D + n_skip + 9) return (int)cudaErrorInvalidValue;
-  RenderParams p = {};
-  int k = 0;
-  p.rays_o = static_cast<const float*>(ptrs[k++]);
-  p.rays_d = static_cast<const float*>(ptrs[k++]);
-  p.depth = static_cast<const float*>(ptrs[k++]);
-  p.offsets = static_cast<const float*>(ptrs[k++]);
-  p.out = static_cast<float*>(const_cast<void*>(ptrs[k++]));
+// ptrs, in order: rays_o, rays_d, depth, z_arg (offsets or noise, may be
+// null for noise), out; then the NeRF's weights (nerf_mlp.cuh::read_weights).
+int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
+           RenderParams p, void* stream) {
+  if (S < 1 || S > 512) return (int)cudaErrorInvalidValue;
+  p.rays_o = static_cast<const float*>(ptrs[0]);
+  p.rays_d = static_cast<const float*>(ptrs[1]);
+  p.depth = static_cast<const float*>(ptrs[2]);
+  if (p.gaussian)
+    p.noise = static_cast<const float*>(ptrs[3]);
+  else
+    p.offsets = static_cast<const float*>(ptrs[3]);
+  p.out = static_cast<float*>(const_cast<void*>(ptrs[4]));
+  const int k = read_weights(ptrs + 5, D, skip_mask, false, &p.w);
+  if (k < 0 || n_ptrs != 5 + k) return (int)cudaErrorInvalidValue;
   p.n = n;
   p.S = S;
   p.R = kMaxRows / S < kMaxRays ? kMaxRows / S : kMaxRays;  // >= 2 for S <= 512
-  p.D = D;
-  p.skip_mask = skip_mask;
-  p.near_ = near_;
-  p.far_ = far_;
-  p.white_bkgd = white_bkgd;
-  p.w0 = static_cast<const bf16*>(ptrs[k++]);
-  for (int i = 1; i < D; ++i) p.tw[i] = static_cast<const bf16*>(ptrs[k++]);
-  for (int i = 0; i < D; ++i) p.tb[i] = static_cast<const float*>(ptrs[k++]);
-  for (int i = 1; i < D; ++i)
-    if ((skip_mask >> i) & 1u) p.skip_w[i] = static_cast<const bf16*>(ptrs[k++]);
-  p.feat_w = static_cast<const bf16*>(ptrs[k++]);
-  p.feat_b = static_cast<const float*>(ptrs[k++]);
-  p.alpha_w = static_cast<const bf16*>(ptrs[k++]);
-  p.alpha_b = static_cast<const float*>(ptrs[k++]);
-  p.views_wf = static_cast<const bf16*>(ptrs[k++]);
-  p.views_ws = static_cast<const bf16*>(ptrs[k++]);
-  p.views_b = static_cast<const float*>(ptrs[k++]);
-  p.rgb_w = static_cast<const bf16*>(ptrs[k++]);
-  p.rgb_b = static_cast<const float*>(ptrs[k++]);
 
   cudaError_t err = cudaFuncSetAttribute(render_around_depth_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
@@ -257,4 +163,33 @@ extern "C" int nst_render_around_depth(const void* const* ptrs, int n_ptrs, long
   const unsigned grid = (unsigned)((n + p.R - 1) / p.R);
   render_around_depth_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace nst
+
+// K2. Returns a cudaError_t (0 on success).
+extern "C" int nst_render_around_depth(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
+                                       unsigned skip_mask, float near_, float far_, int white_bkgd,
+                                       void* stream) {
+  nst::RenderParams p = {};
+  p.gaussian = 0;
+  p.near_ = near_;
+  p.far_ = far_;
+  p.white_bkgd = white_bkgd;
+  return nst::launch(ptrs, n_ptrs, n, S, D, skip_mask, p, stream);
+}
+
+// K3: ptrs[3] is the injected noise [n, S-1] or null (Philox draws keyed by
+// (seed, ray)). Returns a cudaError_t (0 on success).
+extern "C" int nst_render_gaussian(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
+                                   unsigned skip_mask, float std_, unsigned seed, int white_bkgd,
+                                   void* stream) {
+  if (S < 2) return (int)cudaErrorInvalidValue;
+  nst::RenderParams p = {};
+  p.gaussian = 1;
+  p.std_ = std_;
+  p.seed = seed;
+  p.white_bkgd = white_bkgd;
+  return nst::launch(ptrs, n_ptrs, n, S, D, skip_mask, p, stream);
 }

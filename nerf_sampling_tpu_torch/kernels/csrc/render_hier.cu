@@ -1,0 +1,248 @@
+// K6: the seeded hierarchical pass, rays -> composited maps + argmax target.
+//
+// Replaces nerf_sampling_tpu/kernels/fused_hier.py::_call (the
+// pl.pallas_call at :255) run with a seed (_kernel with stochastic=True,
+// :104-221): the frozen-NeRF target pass of the depth-net train step
+// (nerf_sampling_tpu/train/steps.py:127-161). Per ray, with Nc coarse and
+// Nf fine samples:
+//   1. coarse z = lower + (upper - lower) * t_rand over the strata of the
+//      [near, far] linspace (or lindisp) grid (Trainer.py:604-626);
+//   2. the coarse NeRF, trunk and alpha head only (no rgb is read), then
+//      the coarse weights: |d|-scaled dists with a 1e10 tail, alpha =
+//      1-exp(-relu(sigma)*dist), the exclusive product of 1-alpha+1e-10;
+//   3. the CDF of weights[1:-1] + 1e-5 (a leading 0, over the Nc-1 coarse
+//      midpoints); each u inverted by a right-sided binary search, a denom
+//      below 1e-5 taken as 1 (sample_pdf, run_nerf_helpers.py:250-293);
+//   4. the Nc + Nf union sorted stably, ties coarse first (the reference's
+//      sort(cat([z_c, z_f]))), by one rank pass;
+//   5. the full fine NeRF over the union, compositing in order on a white
+//      background, and the argmax of the weights: the FIRST maximum in
+//      sorted order, as the XLA path's argmax (the TPU kernel took the
+//      first in storage order, fused_hier.py:211-213).
+// The draws t_rand (Nc) and u (Nf) of a ray are Philox uniforms keyed by
+// (seed, global ray index) (philox.cuh), or read from injected draws.
+//
+// What bounds it on the H100: the two MLP passes, Nc sigma-only queries
+// (~0.98 MFLOP each) and Nc+Nf full queries (~1.19 MFLOP) a ray, on the
+// tensor cores, with the weights (2 x 1.2 MB bf16) streamed from L2. Device
+// memory traffic is 24 bytes in and 44 out per ray. At the train step's
+// 1024 rays it is ~205 blocks of 5 rays, about one wave of 2 blocks per SM.
+//
+// Design: one block per R = min(1024 / (Nc+Nf), 16) rays, so the union
+// planes hold R*(Nc+Nf) <= 1024 rows. Six fp32 planes in shared memory:
+// U (unsorted union; coarse z first, in concat order), zs (coarse z, then
+// the sorted union), sg (coarse then fine sigma) and three planes that
+// hold the coarse weights, CDF and midpoints until the fine pass writes
+// rgb there. The MLP is nerf_mlp.cuh's, shared with K2/K3.
+
+#include <cuda_runtime.h>
+
+#include "nerf_mlp.cuh"
+#include "philox.cuh"
+
+namespace nst {
+namespace {
+
+constexpr int kMaxRows = 1024;  // union rows per block
+constexpr int kMaxRays = 16;    // rays per block
+
+struct HierParams {
+  const float* rays_o;  // [n, 3]
+  const float* rays_d;  // [n, 3]
+  const float* draws;   // [n, Nc + Nf] injected uniforms, or null
+  float* out;           // [11, n]: r g b disp acc depth max_z max_w max_r max_g max_b
+  long long n;
+  int Nc, Nf, R;
+  float near_, far_;
+  int lindisp, white_bkgd;
+  unsigned seed;
+  NerfWeights wc, wf;
+};
+
+constexpr size_t kSmemBytes = kTileBytes + (6 * kMaxRows + 8 * kMaxRays) * sizeof(float);
+
+__device__ __forceinline__ float draw(const HierParams& p, long long g, int k) {
+  return p.draws ? p.draws[g * (p.Nc + p.Nf) + k] : hier_uniform(p.seed, (uint32_t)g, (uint32_t)k);
+}
+
+__device__ __forceinline__ float grid_z(const HierParams& p, int s) {
+  // i * fl(1/(n-1)) and exactly 1 at the end, as the plain version (jnp.linspace)
+  const float t = s == p.Nc - 1 ? 1.f : (float)s * (1.f / (float)(p.Nc - 1));
+  if (p.lindisp) return 1.f / (1.f / p.near_ * (1.f - t) + 1.f / p.far_ * t);
+  return p.near_ * (1.f - t) + p.far_ * t;
+}
+
+__global__ void __launch_bounds__(kThreads, 2) render_hier_kernel(const __grid_constant__ HierParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Tiles t = carve_tiles(smem);
+  float* U = reinterpret_cast<float*>(smem + kTileBytes);
+  float* zs = U + kMaxRows;
+  float* sg = zs + kMaxRows;
+  float* plane[3] = {sg + kMaxRows, sg + 2 * kMaxRows, sg + 3 * kMaxRows};
+  float* ray = sg + 4 * kMaxRows;  // per ray: o[3], d[3], |d|, spare
+  float* wts = plane[0];           // coarse weights [r*Nc + s]
+  float* cdf = plane[1];           // [r*(Nc-1) + k]
+  float* mids = plane[2];          // [r*(Nc-1) + k]
+
+  const int tid = threadIdx.x;
+  const int Nc = p.Nc, Nf = p.Nf, Su = Nc + Nf, B = Nc - 1;
+  const long long ray0 = (long long)blockIdx.x * p.R;
+  const int nr = (int)min((long long)p.R, p.n - ray0);
+
+  for (int r = tid; r < nr; r += kThreads) {
+    float* q = ray + 8 * r;
+    for (int c = 0; c < 3; ++c) {
+      q[c] = p.rays_o[(ray0 + r) * 3 + c];
+      q[3 + c] = p.rays_d[(ray0 + r) * 3 + c];
+    }
+    q[6] = sqrtf(q[3] * q[3] + q[4] * q[4] + q[5] * q[5]);
+    q[7] = 0.f;
+  }
+  // 1. jittered coarse z: contiguous in zs for the coarse pass, and the
+  // first Nc entries of each ray's union in U
+  for (int e = tid; e < nr * Nc; e += kThreads) {
+    const int r = e / Nc, s = e - r * Nc;
+    const float zc = grid_z(p, s);
+    const float lower = s == 0 ? zc : 0.5f * (zc + grid_z(p, s - 1));
+    const float upper = s == Nc - 1 ? zc : 0.5f * (grid_z(p, s + 1) + zc);
+    const float tr = draw(p, ray0 + r, s);
+    const float z = __fadd_rn(lower, __fmul_rn(__fsub_rn(upper, lower), tr));
+    zs[e] = z;
+    U[r * Su + s] = z;
+  }
+  __syncthreads();
+
+  // 2. coarse sigma, then the coarse weights, CDF and midpoints per ray
+  nerf_rows(p.wc, t, ray, zs, nr * Nc, Nc, true, sg, plane);
+  for (int r = tid; r < nr; r += kThreads) {
+    const float dn = ray[8 * r + 6];
+    const float* z = zs + r * Nc;
+    float T = 1.f;
+    for (int s = 0; s < Nc; ++s) {
+      const float dist = (s < Nc - 1 ? z[s + 1] - z[s] : 1e10f) * dn;
+      const float sgm = sg[r * Nc + s] < 0.f ? 0.f : sg[r * Nc + s];
+      const float alpha = 1.f - expf(-sgm * dist);
+      wts[r * Nc + s] = alpha * T;
+      T *= 1.f - alpha + 1e-10f;
+    }
+    float sum = 0.f;
+    for (int k = 1; k < Nc - 1; ++k) sum += wts[r * Nc + k] + 1e-5f;
+    float run = 0.f;
+    cdf[r * B] = 0.f;
+    for (int k = 1; k < B; ++k) {
+      run += (wts[r * Nc + k] + 1e-5f) / sum;
+      cdf[r * B + k] = run;
+    }
+    for (int k = 0; k < B; ++k) mids[r * B + k] = 0.5f * (z[k + 1] + z[k]);
+  }
+  __syncthreads();
+
+  // 3. fine z by inverse CDF, after the coarse z of each ray's union
+  for (int e = tid; e < nr * Nf; e += kThreads) {
+    const int r = e / Nf, j = e - r * Nf;
+    const float u = draw(p, ray0 + r, Nc + j);
+    const float* c = cdf + r * B;
+    const float* m = mids + r * B;
+    int lo = 0, hi = B;  // number of CDF entries <= u (searchsorted, right)
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (c[mid] <= u) lo = mid + 1; else hi = mid;
+    }
+    const int below = lo - 1 < 0 ? 0 : lo - 1;
+    const int above = lo > B - 1 ? B - 1 : lo;
+    float denom = __fsub_rn(c[above], c[below]);
+    if (denom < 1e-5f) denom = 1.f;
+    const float tt = __fdiv_rn(__fsub_rn(u, c[below]), denom);
+    U[r * Su + Nc + j] = __fadd_rn(m[below], __fmul_rn(tt, __fsub_rn(m[above], m[below])));
+  }
+  __syncthreads();
+
+  // 4. the union, sorted stably per ray (coarse first on ties)
+  sort_rows(U, zs, nr, Su);
+  __syncthreads();
+
+  // 5. the fine NeRF over the union, then compositing and the argmax
+  nerf_rows(p.wf, t, ray, zs, nr * Su, Su, false, sg, plane);
+  for (int r = tid; r < nr; r += kThreads) {
+    const float dn = ray[8 * r + 6];
+    float T = 1.f, acc = 0.f, dep = 0.f, c[3] = {0.f, 0.f, 0.f};
+    float best_w = 0.f;
+    int best = 0;
+    for (int s = 0; s < Su; ++s) {
+      const int row = r * Su + s;
+      const float z = zs[row];
+      const float dist = (s < Su - 1 ? zs[row + 1] - z : 1e10f) * dn;
+      const float sgm = sg[row] < 0.f ? 0.f : sg[row];
+      const float alpha = 1.f - expf(-sgm * dist);
+      const float w = alpha * T;
+      if (s == 0 || w > best_w) {  // first maximum in sorted order
+        best_w = w;
+        best = s;
+      }
+      acc += w;
+      dep += w * z;
+      for (int k = 0; k < 3; ++k) c[k] += w * plane[k][row];
+      T *= 1.f - alpha + 1e-10f;
+    }
+    const float q = dep / (acc + 1e-10f);
+    const long long g = ray0 + r;
+    const long long n = p.n;
+    for (int k = 0; k < 3; ++k) p.out[k * n + g] = p.white_bkgd ? c[k] + (1.f - acc) : c[k];
+    p.out[3 * n + g] = 1.f / (q < 1e-10f ? 1e-10f : q);
+    p.out[4 * n + g] = acc;
+    p.out[5 * n + g] = dep;
+    p.out[6 * n + g] = zs[r * Su + best];
+    p.out[7 * n + g] = best_w;
+    for (int k = 0; k < 3; ++k) p.out[(8 + k) * n + g] = plane[k][r * Su + best];
+  }
+}
+
+}  // namespace
+}  // namespace nst
+
+// ptrs, in order: rays_o, rays_d, draws (or null), out; the coarse NeRF's
+// trunk and alpha head; the fine NeRF's weights (nerf_mlp.cuh::read_weights).
+// Returns a cudaError_t (0 on success).
+extern "C" int nst_render_hier(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf,
+                               int Dc, unsigned skip_c, int Df, unsigned skip_f, float near_,
+                               float far_, int lindisp, int white_bkgd, unsigned seed,
+                               void* stream) {
+  using namespace nst;
+  if (Nc < 4 || Nf < 1 || Nc + Nf > 512) return (int)cudaErrorInvalidValue;
+  HierParams p = {};
+  p.rays_o = static_cast<const float*>(ptrs[0]);
+  p.rays_d = static_cast<const float*>(ptrs[1]);
+  p.draws = static_cast<const float*>(ptrs[2]);
+  p.out = static_cast<float*>(const_cast<void*>(ptrs[3]));
+  const int kc = read_weights(ptrs + 4, Dc, skip_c, true, &p.wc);
+  if (kc < 0) return (int)cudaErrorInvalidValue;
+  const int kf = read_weights(ptrs + 4 + kc, Df, skip_f, false, &p.wf);
+  if (kf < 0 || n_ptrs != 4 + kc + kf) return (int)cudaErrorInvalidValue;
+  p.n = n;
+  p.Nc = Nc;
+  p.Nf = Nf;
+  p.R = kMaxRows / (Nc + Nf) < kMaxRays ? kMaxRows / (Nc + Nf) : kMaxRays;  // >= 2
+  p.near_ = near_;
+  p.far_ = far_;
+  p.lindisp = lindisp;
+  p.white_bkgd = white_bkgd;
+  p.seed = seed;
+
+  cudaError_t err = cudaFuncSetAttribute(render_hier_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return 0;
+  const unsigned grid = (unsigned)((n + p.R - 1) / p.R);
+  render_hier_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of K6 at its launch configuration (occupancy).
+extern "C" int nst_render_hier_occupancy(int* blocks_per_sm) {
+  using namespace nst;
+  cudaError_t err = cudaFuncSetAttribute(render_hier_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, render_hier_kernel, kThreads,
+                                                            kSmemBytes);
+}

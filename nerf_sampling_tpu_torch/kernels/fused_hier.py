@@ -1,0 +1,218 @@
+"""K6: the seeded hierarchical pass as a hand-written CUDA kernel, with its plain version.
+
+Replaces nerf_sampling_tpu/kernels/fused_hier.py::_call run with a seed
+(``fused_render_hier(..., seed=)``), the frozen-NeRF target pass of every
+depth-net train step. The kernel source is ``csrc/render_hier.cu``. Per ray:
+
+1. coarse z: the [near, far] linspace (or lindisp) grid, jittered within
+   each stratum by ``t_rand``;
+2. the coarse NeRF's trunk and alpha head at those z (no rgb: only the
+   weights are read), then the coarse weights;
+3. ``u`` inverted through the CDF of ``weights[1:-1] + 1e-5`` over the
+   coarse midpoints (``sample_pdf``);
+4. the union of coarse and fine z, sorted stably (ties: coarse first), the
+   full fine NeRF over it, compositing over a white background;
+5. the argmax of the fine weights, first maximum in sorted order (the XLA
+   path's rule, ``render/engine.py::_argmax_depth``): max_z, max_w, max_rgb.
+
+``render_hier_plain`` computes the same in plain PyTorch: fp32 is the
+reference, bf16 rounds where the kernel rounds. With draws of ``None`` it
+runs det mode (linspace grid, det u), the JAX kernel's eval mode, which the
+tests hold against the Pallas kernel. The kernel itself always draws, from
+Philox keyed by (seed, ray) (``philox.hier_draws``), or reads injected draws.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nerf_sampling_tpu_torch.core.compositing import raw2outputs
+from nerf_sampling_tpu_torch.core.sampling import sample_pdf, stratified_z_vals
+from nerf_sampling_tpu_torch.kernels import build, philox
+from nerf_sampling_tpu_torch.kernels.fused_render import (
+    MAX_SAMPLES,
+    _check_cuda,
+    _check_rays,
+    _flat_weights,
+    nerf_raw_plain,
+    pack_nerf,
+)
+from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
+
+launches = 0  # kernel launches since the last reset (see chip_smoke.py)
+
+_SIGMA_KEYS = ("w0", "trunk_w", "trunk_b", "skip_w", "alpha_w", "alpha_b")
+HIER_OUTPUTS = ("rgb_map", "disp_map", "acc_map", "depth_map", "max_z", "max_w", "max_rgb")
+
+
+def pack_hier(coarse: NeRF, fine: NeRF | None, dtype=torch.bfloat16) -> dict:
+    """Both NeRFs in ``pack_nerf``'s layout: the coarse trunk and alpha head
+    only, the whole fine net (the coarse net again when ``fine`` is None)."""
+    c = pack_nerf(coarse, dtype)
+    return {
+        "coarse": {k: c[k] for k in _SIGMA_KEYS},
+        "fine": pack_nerf(fine if fine is not None else coarse, dtype),
+    }
+
+
+def _check_envelope(n_coarse: int, n_importance: int) -> None:
+    if n_coarse < 4:
+        raise ValueError("the hierarchical pass needs n_coarse >= 4")
+    if not 1 <= n_importance <= MAX_SAMPLES - n_coarse:
+        raise ValueError(f"n_importance must be in [1, {MAX_SAMPLES - n_coarse}]")
+
+
+def render_hier_plain(
+    packed: dict,
+    cfg_c: NeRFConfig,
+    cfg_f: NeRFConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    *,
+    n_coarse: int = 64,
+    n_importance: int = 128,
+    near: float = 2.0,
+    far: float = 6.0,
+    white_bkgd: bool = True,
+    lindisp: bool = False,
+    t_rand: torch.Tensor | None = None,
+    u: torch.Tensor | None = None,
+    multires: int = 10,
+    multires_views: int = 4,
+    dtype=torch.bfloat16,
+) -> dict[str, torch.Tensor]:
+    """K6's computation in plain PyTorch; ``t_rand`` [N, Nc] and ``u`` [N, Nf]
+    are the draws (None: det mode). Returns the maps and argmax diagnostics."""
+    _check_envelope(n_coarse, n_importance)
+    if (t_rand is None) != (u is None):
+        raise ValueError("give both draws (t_rand and u) or neither (det mode)")
+    kw = dict(multires=multires, multires_views=multires_views, dtype=dtype)
+    near_t = torch.full_like(rays_o[:, :1], near)
+    far_t = torch.full_like(rays_o[:, :1], far)
+    z_c = stratified_z_vals(near_t, far_t, n_coarse, perturb=1.0 if t_rand is not None else 0.0,
+                            lindisp=lindisp, t_rand=t_rand)
+    sigma_c = nerf_raw_plain(packed["coarse"], cfg_c, rays_o, rays_d, z_c, sigma_only=True, **kw)
+    # raw2outputs reads only the sigma channel for the weights
+    raw_c = torch.cat([torch.zeros_like(sigma_c)[..., None].expand(*sigma_c.shape, 3),
+                       sigma_c[..., None]], -1)
+    weights_c = raw2outputs(raw_c, z_c, rays_d, 0.0, white_bkgd).weights
+    mids = 0.5 * (z_c[..., 1:] + z_c[..., :-1])
+    z_f = sample_pdf(mids, weights_c[..., 1:-1], n_importance, det=u is None, u=u)
+    z = torch.sort(torch.cat([z_c, z_f], -1), dim=-1, stable=True).values
+    raw = nerf_raw_plain(packed["fine"], cfg_f, rays_o, rays_d, z, **kw)
+    out = raw2outputs(raw, z, rays_d, 0.0, white_bkgd)
+    top = torch.argmax(out.weights, dim=1, keepdim=True)  # first maximum in sorted order
+    rgb = torch.sigmoid(raw[..., :3])
+    return {
+        "rgb_map": out.rgb_map,
+        "disp_map": out.disp_map,
+        "acc_map": out.acc_map,
+        "depth_map": out.depth_map,
+        "max_z": torch.gather(z, 1, top)[:, 0],
+        "max_w": torch.gather(out.weights, 1, top)[:, 0],
+        "max_rgb": torch.gather(rgb, 1, top[..., None].expand(-1, 1, 3))[:, 0],
+    }
+
+
+def render_hier_kernel(
+    packed: dict,
+    cfg_c: NeRFConfig,
+    cfg_f: NeRFConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    *,
+    n_coarse: int = 64,
+    n_importance: int = 128,
+    near: float = 2.0,
+    far: float = 6.0,
+    white_bkgd: bool = True,
+    lindisp: bool = False,
+    seed: int = 0,
+    draws: torch.Tensor | None = None,
+    multires: int = 10,
+    multires_views: int = 4,
+) -> dict[str, torch.Tensor]:
+    """K6 over N rays [N, 3]: draws from Philox keyed by (``seed``, ray), or
+    the injected ``draws`` [N, Nc + Nf] (t_rand, then u).
+
+    On a CPU tensor this runs ``render_hier_plain`` at bf16 with the same
+    draws; on a CUDA tensor it launches the kernel, or raises on what it
+    does not take.
+    """
+    global launches
+    _check_envelope(n_coarse, n_importance)
+    n = rays_o.shape[0]
+    n_draws = n_coarse + n_importance
+    per_ray = {} if draws is None else {"draws": (draws, (n, n_draws))}
+    _check_rays(rays_o, rays_d, **per_ray)
+    w_c = _flat_weights(packed["coarse"], sigma_only=True)
+    w_f = _flat_weights(packed["fine"])
+    if rays_o.device.type == "cpu":
+        if draws is None:
+            draws = philox.hier_draws(seed, n, n_draws)
+        return render_hier_plain(
+            packed, cfg_c, cfg_f, rays_o, rays_d, n_coarse=n_coarse, n_importance=n_importance,
+            near=near, far=far, white_bkgd=white_bkgd, lindisp=lindisp,
+            t_rand=draws[:, :n_coarse], u=draws[:, n_coarse:],
+            multires=multires, multires_views=multires_views, dtype=torch.bfloat16,
+        )
+    inputs = (rays_o, rays_d) + ((draws,) if draws is not None else ())
+    _check_cuda(cfg_c, multires, multires_views, inputs, w_c)
+    _check_cuda(cfg_f, multires, multires_views, inputs, w_f)
+    lib = build.load_library()
+    out = torch.empty((11, n), dtype=torch.float32, device=rays_o.device)
+    arr, count = build.pointer_array([rays_o, rays_d, draws, out] + w_c + w_f)
+    rc = lib.nst_render_hier(
+        arr, count, n, n_coarse, n_importance,
+        cfg_c.D, sum(1 << i for i in packed["coarse"]["skip_w"]),
+        cfg_f.D, sum(1 << i for i in packed["fine"]["skip_w"]),
+        float(near), float(far), int(bool(lindisp)), int(bool(white_bkgd)),
+        int(seed) & 0xFFFFFFFF, build.current_stream(rays_o.device),
+    )
+    build.check(rc, "render_hier_kernel")
+    launches += 1
+    return {
+        "rgb_map": out[0:3].T, "disp_map": out[3], "acc_map": out[4], "depth_map": out[5],
+        "max_z": out[6], "max_w": out[7], "max_rgb": out[8:11].T,
+    }
+
+
+def kernel_occupancy() -> dict[str, int]:
+    """K6's resident blocks per SM, its rays per block at the production
+    64 + 128 samples, and the card's SM count (for the wave count)."""
+    import ctypes
+
+    lib = build.load_library()
+    blocks = ctypes.c_int(0)
+    build.check(lib.nst_render_hier_occupancy(ctypes.byref(blocks)), "nst_render_hier_occupancy")
+    props = torch.cuda.get_device_properties(0)
+    return {"blocks_per_sm": blocks.value, "rays_per_block": min(1024 // 192, 16),
+            "sms": props.multi_processor_count}
+
+
+def fused_render_hier(
+    packed: dict,
+    cfg_c: NeRFConfig,
+    cfg_f: NeRFConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    *,
+    seed: int,
+    n_coarse: int = 64,
+    n_importance: int = 128,
+    near: float = 2.0,
+    far: float = 6.0,
+    white_bkgd: bool = True,
+    lindisp: bool = False,
+    multires: int = 10,
+    multires_views: int = 4,
+    draws: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """The seeded hierarchical pass of [N, 3] rays through K6
+    (nerf_sampling_tpu/kernels/fused_hier.py::fused_render_hier); ``packed``
+    is ``pack_hier(coarse, fine)``, made once for the frozen NeRF."""
+    return render_hier_kernel(
+        packed, cfg_c, cfg_f, rays_o.contiguous(), rays_d.contiguous(), n_coarse=n_coarse,
+        n_importance=n_importance, near=near, far=far, white_bkgd=white_bkgd, lindisp=lindisp,
+        seed=seed, draws=draws, multires=multires, multires_views=multires_views,
+    )

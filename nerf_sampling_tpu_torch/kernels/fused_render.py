@@ -1,17 +1,24 @@
-"""K2: DepthNet populate-and-shade as a hand-written CUDA kernel, with its plain version.
+"""K2 and K3: DepthNet populate-and-shade as a hand-written CUDA kernel, with plain versions.
 
 Replaces nerf_sampling_tpu/kernels/fused_render.py::_call with
-z_source="around_center" (``fused_render_around_depth``). The kernel source
-is ``csrc/render_around_depth.cu``. For every ray it shades the uniform
-population z = clip(depth + offsets, near, far) with the NeRF MLP and
-composites the samples in order over a white background.
+z_source="around_center" (K2, ``fused_render_around_depth``) and
+z_source="gaussian" (K3, ``fused_render_gaussian``). Both are populate
+modes of one kernel source, ``csrc/render_around_depth.cu``. For every ray
+it shades a population of depths with the NeRF MLP and composites the
+samples in order over a white background:
+
+- uniform (K2): z = clip(depth + offsets, near, far), already sorted;
+- gaussian (K3): depth + std * N(0, 1) for S-1 samples plus the depth
+  itself, no clip, sorted per ray before shading. The draws come from
+  Philox keyed by (seed, ray) (``philox.gaussian_noise``) or are injected.
 
 ``pack_nerf`` lays the NeRF's weights out as [in, out] matrices over one
 positional-encoding row of 96 columns: the 63 point-embedding columns
 (padded to 64) and the 27 view-embedding columns (padded to 32), so each
 concatenation of the reference is one more zero-padded operand of the same
-sum. ``render_around_depth_plain`` computes the same thing in plain PyTorch:
-fp32 is the reference, bf16 rounds where the kernel rounds.
+sum. ``render_around_depth_plain`` and ``render_gaussian_plain`` compute the
+same things in plain PyTorch: fp32 is the reference, bf16 rounds where the
+kernel rounds.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import torch
 
 from nerf_sampling_tpu_torch.core.compositing import raw2outputs
 from nerf_sampling_tpu_torch.core.encoding import positional_encoding
-from nerf_sampling_tpu_torch.kernels import build
+from nerf_sampling_tpu_torch.kernels import build, philox
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
 from nerf_sampling_tpu_torch.utils.precision import strict_fp32
 
@@ -29,7 +36,9 @@ MAX_SAMPLES = 512
 PTS_ROWS, VIEW_ROWS = 64, 32  # padded embedding widths of the kernel's PE row
 KERNEL_WIDTH = 256  # NeRF width the CUDA kernel is built for
 
-launches = 0  # kernel launches since the last reset (see chip_smoke.py)
+# kernel launches since the last reset (see chip_smoke.py): K2 and K3
+launches = 0
+gaussian_launches = 0
 
 
 def uniform_population_offsets(n_samples: int, std: float) -> np.ndarray:
@@ -90,6 +99,58 @@ def pack_nerf(model: NeRF, dtype=torch.bfloat16) -> dict:
     }
 
 
+def nerf_raw_plain(
+    packed: dict,
+    cfg: NeRFConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    z: torch.Tensor,
+    *,
+    multires: int = 10,
+    multires_views: int = 4,
+    dtype=torch.bfloat16,
+    sigma_only: bool = False,
+) -> torch.Tensor:
+    """The kernels' NeRF MLP over the points o + z*d of [N, S] depths, in
+    plain PyTorch: raw [N, S, 4] (sigmoid not applied), or sigma [N, S] with
+    ``sigma_only`` (trunk and alpha head only, as K6's coarse pass)."""
+    strict_fp32()
+    f32 = torch.float32
+    Cp, Cv = cfg.input_ch, cfg.input_ch_views
+
+    def rnd(x: torch.Tensor) -> torch.Tensor:
+        return x.to(dtype).to(f32)
+
+    def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return x @ w.to(f32)
+
+    n, S = z.shape
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+    x_pts = rnd(positional_encoding(pts, multires)).reshape(n * S, Cp)
+    h = rnd(torch.relu(mm(x_pts, packed["w0"][:Cp]) + packed["trunk_b"][0]))
+    for i in range(1, cfg.D):
+        zi = mm(h, packed["trunk_w"][i - 1])
+        if i in packed["skip_w"]:
+            zi = zi + mm(x_pts, packed["skip_w"][i][:Cp])
+        h = rnd(torch.relu(zi + packed["trunk_b"][i]))
+    sigma = mm(h, packed["alpha_w"][:, None]) + packed["alpha_b"]
+    if sigma_only:
+        return sigma.reshape(n, S)
+    vd = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    x_v = rnd(positional_encoding(vd, multires_views))[:, None, :].expand(n, S, Cv).reshape(n * S, Cv)
+    feature = rnd(mm(h, packed["feature_w"]) + packed["feature_b"])
+    hv = rnd(torch.relu(
+        mm(feature, packed["views_wf"]) + mm(x_v, packed["views_ws"][:Cv]) + packed["views_b"]
+    ))
+    rgb_logits = mm(hv, packed["rgb_w"].T) + packed["rgb_b"]
+    return torch.cat([rgb_logits, sigma], -1).reshape(n, S, 4)
+
+
+def _maps(out) -> dict[str, torch.Tensor]:
+    return {"rgb_map": out.rgb_map, "disp_map": out.disp_map,
+            "acc_map": out.acc_map, "depth_map": out.depth_map}
+
+
 def render_around_depth_plain(
     packed: dict,
     cfg: NeRFConfig,
@@ -105,57 +166,95 @@ def render_around_depth_plain(
     multires_views: int = 4,
     dtype=torch.bfloat16,
 ) -> dict[str, torch.Tensor]:
-    """The kernel's computation in plain PyTorch -> rgb/disp/acc/depth maps."""
-    strict_fp32()
-    f32 = torch.float32
-    Cp, Cv = cfg.input_ch, cfg.input_ch_views
-
-    def rnd(x: torch.Tensor) -> torch.Tensor:
-        return x.to(dtype).to(f32)
-
-    def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return x @ w.to(f32)
-
-    n, S = rays_o.shape[0], offsets.shape[0]
+    """K2's computation in plain PyTorch -> rgb/disp/acc/depth maps."""
+    n = rays_o.shape[0]
     z = torch.clamp(depth.reshape(n, 1) + offsets[None, :], near, far)  # keeps NaN
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
-    vd = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    x_pts = rnd(positional_encoding(pts, multires)).reshape(n * S, Cp)
-    x_v = rnd(positional_encoding(vd, multires_views))[:, None, :].expand(n, S, Cv).reshape(n * S, Cv)
-
-    h = rnd(torch.relu(mm(x_pts, packed["w0"][:Cp]) + packed["trunk_b"][0]))
-    for i in range(1, cfg.D):
-        zi = mm(h, packed["trunk_w"][i - 1])
-        if i in packed["skip_w"]:
-            zi = zi + mm(x_pts, packed["skip_w"][i][:Cp])
-        h = rnd(torch.relu(zi + packed["trunk_b"][i]))
-    sigma = mm(h, packed["alpha_w"][:, None]) + packed["alpha_b"]
-    feature = rnd(mm(h, packed["feature_w"]) + packed["feature_b"])
-    hv = rnd(torch.relu(
-        mm(feature, packed["views_wf"]) + mm(x_v, packed["views_ws"][:Cv]) + packed["views_b"]
-    ))
-    rgb_logits = mm(hv, packed["rgb_w"].T) + packed["rgb_b"]
-    raw = torch.cat([rgb_logits, sigma], -1).reshape(n, S, 4)
-    out = raw2outputs(raw, z, rays_d, 0.0, white_bkgd)
-    return {"rgb_map": out.rgb_map, "disp_map": out.disp_map,
-            "acc_map": out.acc_map, "depth_map": out.depth_map}
+    raw = nerf_raw_plain(packed, cfg, rays_o, rays_d, z, multires=multires,
+                         multires_views=multires_views, dtype=dtype)
+    return _maps(raw2outputs(raw, z, rays_d, 0.0, white_bkgd))
 
 
-def _flat_weights(packed: dict) -> list[torch.Tensor]:
-    """Weights in the order nst_render_around_depth reads them, after checking
-    that they are the kernel's layout: bf16 matrices and fp32 biases."""
+def gaussian_population(depth: torch.Tensor, noise: torch.Tensor, std: float) -> torch.Tensor:
+    """z [N, S]: depth + std*noise [N, S-1] and the depth itself, sorted
+    (stable) per ray, with no clip (reference utils.py:228-236)."""
+    d = depth.reshape(-1, 1)
+    return torch.sort(torch.cat([d + std * noise, d], -1), dim=-1, stable=True).values
+
+
+def render_gaussian_plain(
+    packed: dict,
+    cfg: NeRFConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    depth: torch.Tensor,
+    noise: torch.Tensor,
+    *,
+    std: float = 0.5,
+    white_bkgd: bool = True,
+    multires: int = 10,
+    multires_views: int = 4,
+    dtype=torch.bfloat16,
+) -> dict[str, torch.Tensor]:
+    """K3's computation in plain PyTorch: the gaussian population around
+    depth [N] from ``noise`` [N, S-1], sorted, shaded and composited."""
+    z = gaussian_population(depth, noise, std)
+    raw = nerf_raw_plain(packed, cfg, rays_o, rays_d, z, multires=multires,
+                         multires_views=multires_views, dtype=dtype)
+    return _maps(raw2outputs(raw, z, rays_d, 0.0, white_bkgd))
+
+
+def _flat_weights(packed: dict, sigma_only: bool = False) -> list[torch.Tensor]:
+    """Weights in the order the C entry points read them, after checking
+    that they are the kernels' layout: bf16 matrices and fp32 biases.
+    ``sigma_only``: the trunk and alpha head (K6's coarse net)."""
     bf16, f32 = torch.bfloat16, torch.float32
     flat = [(packed["w0"], bf16)] + [(w, bf16) for w in packed["trunk_w"]]
     flat += [(b, f32) for b in packed["trunk_b"]]
     flat += [(packed["skip_w"][i], bf16) for i in sorted(packed["skip_w"])]
-    flat += [(packed[k], f32 if k.endswith("_b") else bf16)
-             for k in ("feature_w", "feature_b", "alpha_w", "alpha_b",
-                       "views_wf", "views_ws", "views_b", "rgb_w", "rgb_b")]
+    heads = ("alpha_w", "alpha_b") if sigma_only else (
+        "feature_w", "feature_b", "alpha_w", "alpha_b",
+        "views_wf", "views_ws", "views_b", "rgb_w", "rgb_b")
+    flat += [(packed[k], f32 if k.endswith("_b") else bf16) for k in heads]
     for w, dtype in flat:
         if w.dtype != dtype:
             raise TypeError("packed weights must be pack_nerf(model, torch.bfloat16): "
                             f"bf16 matrices and fp32 biases, got a {w.dtype} {dtype} slot")
     return [w for w, _ in flat]
+
+
+def _check_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, **per_ray) -> int:
+    """Shapes, types and device of N rays [N, 3] and per-ray fp32 tensors
+    {name: (tensor, expected shape)}; returns N."""
+    n = rays_o.shape[0]
+    items = {"rays_o": (rays_o, (n, 3)), "rays_d": (rays_d, (n, 3)), **per_ray}
+    for name, (t, shape) in items.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be fp32")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != rays_o.device:
+            raise ValueError("all inputs must be on one device")
+    return n
+
+
+def _check_cuda(cfg: NeRFConfig, multires: int, multires_views: int, tensors, weights) -> None:
+    """What the CUDA kernels take beyond the plain version: contiguous
+    inputs, the 8x256-class NeRF with the production encodings, and packed
+    weights on the rays' device."""
+    device = tensors[0].device
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("inputs must be contiguous")
+    if (cfg.W, cfg.input_ch, cfg.input_ch_views, multires, multires_views) != (
+        KERNEL_WIDTH, 63, 27, 10, 4
+    ):
+        raise ValueError("the CUDA kernel is built for W=256, multires 10 and multires_views 4")
+    if cfg.D > 16 or any(not 0 <= s < cfg.D - 1 for s in cfg.skips):
+        raise ValueError("the CUDA kernel takes D <= 16 and skips inside the trunk")
+    for w in weights:
+        if w.device != device or not w.is_contiguous():
+            raise ValueError("packed weights must be contiguous and on the rays' device")
 
 
 def render_around_depth_kernel(
@@ -172,21 +271,14 @@ def render_around_depth_kernel(
     multires: int = 10,
     multires_views: int = 4,
 ) -> dict[str, torch.Tensor]:
-    """Maps of N rays [N, 3] around depth [N] at the std-scaled offsets [S].
+    """K2: maps of N rays [N, 3] around depth [N] at the std-scaled offsets [S].
 
     On a CPU tensor this runs ``render_around_depth_plain`` at bf16; on a
     CUDA tensor it launches the kernel, or raises on what it does not take.
     """
     global launches
-    n, S = rays_o.shape[0], offsets.shape[0]
-    for name, t, shape in (("rays_o", rays_o, (n, 3)), ("rays_d", rays_d, (n, 3)),
-                           ("depth", depth, (n,)), ("offsets", offsets, (S,))):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be fp32")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-        if t.device != rays_o.device:
-            raise ValueError("all inputs must be on one device")
+    S = offsets.shape[0]
+    n = _check_rays(rays_o, rays_d, depth=(depth, (rays_o.shape[0],)), offsets=(offsets, (S,)))
     if not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"n_samples must be in [1, {MAX_SAMPLES}], got {S}")
     weights = _flat_weights(packed)
@@ -195,19 +287,7 @@ def render_around_depth_kernel(
     if rays_o.device.type == "cpu":
         return render_around_depth_plain(packed, cfg, rays_o, rays_d, depth, offsets,
                                          dtype=torch.bfloat16, **kw)
-    if rays_o.device.type != "cuda":
-        raise ValueError(f"unsupported device {rays_o.device}")
-    if not all(t.is_contiguous() for t in (rays_o, rays_d, depth, offsets)):
-        raise ValueError("inputs must be contiguous")
-    if (cfg.W, cfg.input_ch, cfg.input_ch_views, multires, multires_views) != (
-        KERNEL_WIDTH, 63, 27, 10, 4
-    ):
-        raise ValueError("the CUDA kernel is built for W=256, multires 10 and multires_views 4")
-    if cfg.D > 16 or any(not 0 <= s < cfg.D - 1 for s in cfg.skips):
-        raise ValueError("the CUDA kernel takes D <= 16 and skips inside the trunk")
-    for w in weights:
-        if w.device != rays_o.device or not w.is_contiguous():
-            raise ValueError("packed weights must be contiguous and on the rays' device")
+    _check_cuda(cfg, multires, multires_views, (rays_o, rays_d, depth, offsets), weights)
     skip_mask = sum(1 << i for i in packed["skip_w"])
     lib = build.load_library()
     out = torch.empty((6, n), dtype=torch.float32, device=rays_o.device)
@@ -243,4 +323,80 @@ def fused_render_around_depth(
         packed, cfg, rays_o, rays_d, depth.reshape(-1), offsets,
         near=clip_near, far=clip_far, white_bkgd=white_bkgd,
         multires=multires, multires_views=multires_views,
+    )
+
+
+def render_gaussian_kernel(
+    packed: dict,
+    cfg: NeRFConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    depth: torch.Tensor,
+    *,
+    n_samples: int,
+    std: float,
+    seed: int = 0,
+    noise: torch.Tensor | None = None,
+    white_bkgd: bool = True,
+    multires: int = 10,
+    multires_views: int = 4,
+) -> dict[str, torch.Tensor]:
+    """K3: maps of N rays [N, 3] over the gaussian population around depth [N].
+
+    The kernel draws its noise from Philox keyed by (``seed``, ray index);
+    ``noise`` [N, S-1] replaces the draws (the kernel check on the card).
+    On a CPU tensor this runs ``render_gaussian_plain`` at bf16 with the
+    same draws (``philox.gaussian_noise``) unless ``noise`` is given; on a
+    CUDA tensor it launches the kernel, or raises on what it does not take.
+    """
+    global gaussian_launches
+    S = n_samples
+    n = rays_o.shape[0]
+    per_ray = {"depth": (depth, (n,))}
+    if noise is not None:
+        per_ray["noise"] = (noise, (n, S - 1))
+    _check_rays(rays_o, rays_d, **per_ray)
+    if not 2 <= S <= MAX_SAMPLES:
+        raise ValueError(f"n_samples must be in [2, {MAX_SAMPLES}], got {S}")
+    weights = _flat_weights(packed)
+    if rays_o.device.type == "cpu":
+        if noise is None:
+            noise = philox.gaussian_noise(seed, n, S - 1)
+        return render_gaussian_plain(packed, cfg, rays_o, rays_d, depth, noise, std=std,
+                                     white_bkgd=white_bkgd, multires=multires,
+                                     multires_views=multires_views, dtype=torch.bfloat16)
+    inputs = (rays_o, rays_d, depth) + ((noise,) if noise is not None else ())
+    _check_cuda(cfg, multires, multires_views, inputs, weights)
+    skip_mask = sum(1 << i for i in packed["skip_w"])
+    lib = build.load_library()
+    out = torch.empty((6, n), dtype=torch.float32, device=rays_o.device)
+    arr, count = build.pointer_array([rays_o, rays_d, depth, noise, out] + weights)
+    rc = lib.nst_render_gaussian(
+        arr, count, n, S, cfg.D, skip_mask, float(std), int(seed) & 0xFFFFFFFF,
+        int(bool(white_bkgd)), build.current_stream(rays_o.device),
+    )
+    build.check(rc, "render_gaussian_kernel")
+    gaussian_launches += 1
+    return {"rgb_map": out[0:3].T, "disp_map": out[3], "acc_map": out[4], "depth_map": out[5]}
+
+
+def fused_render_gaussian(
+    packed: dict,
+    cfg: NeRFConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    depth: torch.Tensor,
+    *,
+    seed: int,
+    n_samples: int = 64,
+    std: float = 0.5,
+    white_bkgd: bool = True,
+    multires: int = 10,
+    multires_views: int = 4,
+) -> dict[str, torch.Tensor]:
+    """Gaussian populate-and-shade of [N, 3] rays around depth [N] through K3
+    (nerf_sampling_tpu/kernels/fused_render.py::fused_render_gaussian)."""
+    return render_gaussian_kernel(
+        packed, cfg, rays_o, rays_d, depth.reshape(-1), n_samples=n_samples, std=std,
+        seed=seed, white_bkgd=white_bkgd, multires=multires, multires_views=multires_views,
     )

@@ -1,4 +1,4 @@
-"""Eval rendering: the DEPTH_NET engine and the pose-path harness."""
+"""Rendering: the DEPTH_NET eval engine, the train-time renderer and the pose-path harness."""
 
 from nerf_sampling_tpu_torch.render.engine import (
     EvalMode,
@@ -11,6 +11,9 @@ from nerf_sampling_tpu_torch.render.engine import (
     render_flat_rays,
     render_image,
     render_rays_eval,
+    render_rays_train,
+    repack_depth,
+    sample_as_in_nerf,
 )
 from nerf_sampling_tpu_torch.render.path import render_path
 
@@ -26,4 +29,7 @@ __all__ = [
     "render_image",
     "render_path",
     "render_rays_eval",
+    "render_rays_train",
+    "repack_depth",
+    "sample_as_in_nerf",
 ]

@@ -1,18 +1,21 @@
-"""DepthNet render path (nerf_sampling_tpu/render/engine.py).
+"""DepthNet render and train paths (nerf_sampling_tpu/render/engine.py).
 
 Two implementations of one eval render, chosen by ``Pipeline.mlp_impl``:
 
 - ``"plain"``: the fp32 PyTorch path. DepthNet module -> uniform (or
   gaussian) population -> NeRF module -> ``raw2outputs``, over ray chunks,
   with per-sample outputs. It is the CPU path and the kernels' oracle.
-- ``"cuda"``: the hand-written kernels, K1 (DepthNet) then K2
-  (populate-and-shade), over all rays at once, with map-level outputs. On
-  CPU tensors their wrappers run the kernels' plain versions at bf16.
+- ``"cuda"``: the hand-written kernels, K1 (DepthNet) then K2 (uniform
+  populate-and-shade) or K3 (gaussian), over all rays at once, with
+  map-level outputs. On CPU tensors their wrappers run the kernels' plain
+  versions at bf16.
 
-The JAX names map onto these ("xla" -> "plain", "pallas" -> "cuda");
-"pallas_int8" is not ported. Only EvalMode.DEPTH_NET is ported; the other
-modes and the fused gaussian population raise NotImplementedError naming
-their ROADMAP item, and nothing falls back quietly to the plain path.
+The train path (``sample_as_in_nerf``, ``render_rays_train``) is plain
+autograd PyTorch; the depth-net step puts its frozen-NeRF pass on K6
+(``train/steps.py``). The JAX names map onto these ("xla" -> "plain",
+"pallas" -> "cuda"); "pallas_int8" is not ported. Only EvalMode.DEPTH_NET
+is ported; the other modes raise NotImplementedError naming their ROADMAP
+item, and nothing falls back quietly to the plain path.
 """
 
 from __future__ import annotations
@@ -23,11 +26,16 @@ from typing import NamedTuple
 
 import torch
 
-from nerf_sampling_tpu_torch.core.compositing import raw2outputs
+from nerf_sampling_tpu_torch.core.compositing import RenderOutputs, raw2outputs
 from nerf_sampling_tpu_torch.core.encoding import positional_encoding
 from nerf_sampling_tpu_torch.core.rays import get_rays
-from nerf_sampling_tpu_torch.core.sampling import sample_points_around_mean
-from nerf_sampling_tpu_torch.kernels import fused_depth_net, fused_render
+from nerf_sampling_tpu_torch.core.sampling import (
+    sample_pdf,
+    sample_points_around_mean,
+    stratified_z_vals,
+    z_to_points,
+)
+from nerf_sampling_tpu_torch.kernels import fused_depth_net, fused_hier, fused_render
 from nerf_sampling_tpu_torch.models.depth_net import DepthNet, DepthNetConfig
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
 from nerf_sampling_tpu_torch.utils.precision import strict_fp32
@@ -46,10 +54,11 @@ class EvalMode(enum.Enum):
 
 
 class KernelWeights(NamedTuple):
-    """The bf16 weight layouts that K1 and K2 read (``pack_kernel_weights``)."""
+    """The bf16 weight layouts that the kernels read (``pack_kernel_weights``)."""
 
-    depth: dict  # fused_depth_net.pack_depth_net of the DepthNet
-    nerf: dict  # fused_render.pack_nerf of the NeRF that renders: fine, else coarse
+    depth: dict | None  # fused_depth_net.pack_depth_net of the DepthNet (K1)
+    nerf: dict  # fused_render.pack_nerf of the NeRF that renders: fine, else coarse (K2, K3)
+    hier: dict | None = None  # fused_hier.pack_hier of coarse and fine (K6)
 
 
 class NeRFParams(NamedTuple):
@@ -65,14 +74,28 @@ class NeRFParams(NamedTuple):
     kernels: KernelWeights | None = None
 
 
-def pack_kernel_weights(params: NeRFParams) -> NeRFParams:
-    """``params`` with the kernels' packed weights, made once from the modules
-    as they are now (pack again after changing their weights)."""
+def pack_kernel_weights(params: NeRFParams, with_hier: bool = False) -> NeRFParams:
+    """``params`` with the kernels' packed weights: bf16 copies of the
+    modules' weights as they are at this call.
+
+    A pack does not follow later changes to the modules. Pack again (or
+    ``repack_depth``) after any change to their weights: the Trainer repacks
+    the DepthNet before every eval, since training steps change it; the
+    frozen NeRF's packs are made once. ``with_hier`` adds K6's pack.
+    """
     model = params.fine if params.fine is not None else params.coarse
+    depth = params.depth
     return params._replace(kernels=KernelWeights(
-        depth=fused_depth_net.pack_depth_net(params.depth, torch.bfloat16),
+        depth=fused_depth_net.pack_depth_net(depth, torch.bfloat16) if depth is not None else None,
         nerf=fused_render.pack_nerf(model, torch.bfloat16),
+        hier=fused_hier.pack_hier(params.coarse, params.fine) if with_hier else None,
     ))
+
+
+def repack_depth(params: NeRFParams) -> NeRFParams:
+    """``params`` with the DepthNet's pack made anew and the NeRF's packs kept."""
+    return params._replace(kernels=params.kernels._replace(
+        depth=fused_depth_net.pack_depth_net(params.depth, torch.bfloat16)))
 
 
 class RayBatch(NamedTuple):
@@ -87,9 +110,9 @@ class RayBatch(NamedTuple):
 class Pipeline:
     """Static rendering configuration (field names as in the JAX Pipeline).
 
-    Only the fields that the DEPTH_NET eval render reads are here; the JAX
-    Pipeline's coarse-sampling fields (N_samples, N_importance, perturb,
-    raw_noise_std, lindisp) come with the modes that read them (ROADMAP S4).
+    The fields that the DEPTH_NET eval render and the depth-net train step
+    read; the JAX Pipeline's NDC geometry (H, W, focal), quant_calib and
+    joint_depth_warmup come with the slices that read them (S6, S8, S3).
     """
 
     nerf: NeRFConfig
@@ -98,7 +121,12 @@ class Pipeline:
     multires: int = 10
     multires_views: int = 4
     i_embed: int = 0  # -1 disables positional encoding
+    N_samples: int = 64
+    N_importance: int = 128
+    perturb: float = 1.0
+    raw_noise_std: float = 0.0
     white_bkgd: bool = True
+    lindisp: bool = False
     use_viewdirs: bool = True
     ndc: bool = False
     near: float = 2.0
@@ -106,6 +134,9 @@ class Pipeline:
     n_depth_samples: int = 2
     sampling_mode: str = "uniform"
     distance: float = 0.01
+    # down-weights the depth MSE of background rays (hierarchical acc <=
+    # 0.5) in depth-net training; 1.0 is the reference objective
+    bg_depth_loss_weight: float = 1.0
     # "plain" (fp32 PyTorch) or "cuda" (the hand-written kernels)
     mlp_impl: str = PLAIN
     netchunk: int = 1024 * 64
@@ -158,6 +189,116 @@ def query_nerf(
     return raw.reshape(*pts.shape[:-1], raw.shape[-1])
 
 
+class HierarchicalResult(NamedTuple):
+    """Coarse + fine sampling outputs (reference sample_as_in_NeRF returns)."""
+
+    coarse: RenderOutputs
+    coarse_z_vals: torch.Tensor  # [N, Nc]
+    fine: RenderOutputs  # == coarse when N_importance == 0
+    fine_z_vals: torch.Tensor  # [N, Nc+Nf]
+    fine_pts: torch.Tensor  # [N, Nc+Nf, 3]
+    fine_raw: torch.Tensor  # [N, Nc+Nf, 4]
+
+
+def sample_as_in_nerf(
+    pipeline: Pipeline,
+    params: NeRFParams,
+    rays: RayBatch,
+    generator: torch.Generator | None = None,
+    *,
+    perturb: float | None = None,
+    raw_noise_std: float | None = None,
+    t_rand: torch.Tensor | None = None,
+    u: torch.Tensor | None = None,
+) -> HierarchicalResult:
+    """Hierarchical coarse + fine sampling (reference nerf_utils.py:497-611).
+
+    perturb / raw_noise_std default to the pipeline's values. The draws come
+    from ``generator`` or are injected: ``t_rand`` [N, Nc] (stratified
+    jitter) and ``u`` [N, Nf] (the inverse-CDF uniforms).
+    """
+    perturb = pipeline.perturb if perturb is None else perturb
+    raw_noise_std = pipeline.raw_noise_std if raw_noise_std is None else raw_noise_std
+    z_vals = stratified_z_vals(
+        rays.near, rays.far, pipeline.N_samples, generator=generator,
+        perturb=perturb, lindisp=pipeline.lindisp, t_rand=t_rand,
+    )
+    pts = z_to_points(rays.rays_o, rays.rays_d, z_vals)
+    raw = query_nerf(pipeline, params.coarse, pts, rays.viewdirs)
+    coarse = raw2outputs(raw, z_vals, rays.rays_d, raw_noise_std, pipeline.white_bkgd,
+                         generator=generator)
+    if pipeline.N_importance <= 0:
+        return HierarchicalResult(coarse, z_vals, coarse, z_vals, pts, raw)
+    z_mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    z_samples = sample_pdf(
+        z_mids, coarse.weights[..., 1:-1], pipeline.N_importance,
+        generator=generator, det=(perturb == 0.0), u=u,
+    ).detach()  # reference detaches (Trainer.py:572)
+    # stable: ties keep coarse samples first, as jnp.sort does
+    fine_z = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1, stable=True).values
+    fine_pts = z_to_points(rays.rays_o, rays.rays_d, fine_z)
+    fine_model = params.fine if params.fine is not None else params.coarse
+    fine_raw = query_nerf(pipeline, fine_model, fine_pts, rays.viewdirs)
+    fine = raw2outputs(fine_raw, fine_z, rays.rays_d, raw_noise_std, pipeline.white_bkgd,
+                       generator=generator)
+    return HierarchicalResult(coarse, z_vals, fine, fine_z, fine_pts, fine_raw)
+
+
+def _argmax_depth(
+    fine: RenderOutputs, fine_z: torch.Tensor, rays: RayBatch
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(max_z [N, 1], max_pts [N, 1, 3], max_weights [N, 1]) at the first
+    maximum weight in sorted order (reference nerf_utils.py:689-691)."""
+    top = torch.argmax(fine.weights, dim=1, keepdim=True)
+    max_z = torch.gather(fine_z, 1, top)
+    max_w = torch.gather(fine.weights, 1, top)
+    return max_z, z_to_points(rays.rays_o, rays.rays_d, max_z), max_w
+
+
+def _query_fine_or_coarse(
+    pipeline: Pipeline, params: NeRFParams, pts: torch.Tensor, rays: RayBatch
+) -> torch.Tensor:
+    """NeRF query preferring the fine network (reference nerf_utils.py:696-699),
+    in plain autograd: its gradient w.r.t. the points trains the DepthNet."""
+    model = params.fine if params.fine is not None else params.coarse
+    return query_nerf(pipeline, model, pts, rays.viewdirs)
+
+
+def render_rays_train(
+    pipeline: Pipeline,
+    params: NeRFParams,
+    rays: RayBatch,
+    generator: torch.Generator | None = None,
+    *,
+    t_rand: torch.Tensor | None = None,
+    u: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """Train-time renderer (reference render_rays, nerf_utils.py:614-733).
+
+    Full hierarchical NeRF -> argmax-weight depth target -> DepthNet predicts
+    one depth -> NeRF queried at that single point -> composited maps. The
+    hierarchical pass carries no gradient; the depth point's query does.
+    """
+    with torch.no_grad():
+        hier = sample_as_in_nerf(pipeline, params, rays, generator, t_rand=t_rand, u=u)
+        max_z, max_pts, _ = _argmax_depth(hier.fine, hier.fine_z_vals, rays)
+    depth_z = params.depth(rays.rays_o, rays.rays_d)
+    depth_pts = z_to_points(rays.rays_o, rays.rays_d, depth_z)
+    depth_raw = _query_fine_or_coarse(pipeline, params, depth_pts, rays)
+    out = raw2outputs(depth_raw, depth_z, rays.rays_d, pipeline.raw_noise_std,
+                      pipeline.white_bkgd, generator=generator)
+    return {
+        "depth_net_rgb_map": out.rgb_map,
+        "depth_net_disp_map": out.disp_map,
+        "depth_net_z_vals": depth_z,
+        "max_z_vals": max_z,
+        "depth_net_pts": depth_pts,
+        "max_pts": max_pts,
+        "raw": depth_raw,
+        "acc_map": hier.fine.acc_map,
+    }
+
+
 def _unported_mode(mode: EvalMode) -> NotImplementedError:
     return NotImplementedError(
         f"EvalMode.{mode.name} needs the hierarchical sampler and its kernels "
@@ -200,33 +341,39 @@ def _fused_fast_paths(
     rays_o: torch.Tensor,
     rays_d: torch.Tensor,
     mode: EvalMode,
+    generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
-    """DEPTH_NET uniform through K1 and K2; flat [N, ...] map-level outputs."""
+    """DEPTH_NET through K1 then K2 (uniform) or K3 (gaussian); flat [N, ...]
+    map-level outputs. K3's seed is drawn from ``generator``."""
     p = pipeline
     if mode != EvalMode.DEPTH_NET:
         raise _unported_mode(mode)
-    if p.sampling_mode == "gaussian":
-        raise NotImplementedError(
-            "the fused gaussian population (K3, in-kernel Philox) is not ported: ROADMAP S4"
-        )
-    if p.sampling_mode != "uniform" or not 1 < p.n_depth_samples <= fused_render.MAX_SAMPLES:
+    if p.sampling_mode not in ("uniform", "gaussian") or not 1 < p.n_depth_samples <= fused_render.MAX_SAMPLES:
         raise ValueError(
-            "mlp_impl='cuda' renders the uniform population with 2.."
+            "mlp_impl='cuda' renders the uniform or gaussian population with 2.."
             f"{fused_render.MAX_SAMPLES} samples; got {p.sampling_mode}/{p.n_depth_samples}"
         )
     if not p.use_viewdirs or p.i_embed == -1:
         raise ValueError("mlp_impl='cuda' needs use_viewdirs and positional encoding")
     if p.ndc:
         raise NotImplementedError("NDC rays are not ported yet: ROADMAP S6")
+    if p.sampling_mode == "gaussian" and generator is None:
+        raise ValueError("the gaussian population requires a torch.Generator")
     ro, rd = rays_o.reshape(-1, 3).contiguous(), rays_d.reshape(-1, 3).contiguous()
     if params.kernels is None:
         params = pack_kernel_weights(params)
     depth = fused_depth_net.fused_depth_net_apply(params.kernels.depth, params.depth.cfg, ro, rd)
     model = params.fine if params.fine is not None else params.coarse
-    maps = fused_render.fused_render_around_depth(
-        params.kernels.nerf, model.cfg, ro, rd, depth, n_samples=p.n_depth_samples, std=p.distance,
-        white_bkgd=p.white_bkgd, multires=p.multires, multires_views=p.multires_views,
-    )
+    common = dict(n_samples=p.n_depth_samples, std=p.distance, white_bkgd=p.white_bkgd,
+                  multires=p.multires, multires_views=p.multires_views)
+    if p.sampling_mode == "uniform":
+        maps = fused_render.fused_render_around_depth(
+            params.kernels.nerf, model.cfg, ro, rd, depth, **common)
+    else:
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                                 device=generator.device))
+        maps = fused_render.fused_render_gaussian(
+            params.kernels.nerf, model.cfg, ro, rd, depth, seed=seed, **common)
     return {
         "depth_net_rgb_map": maps["rgb_map"],
         "depth_net_disp_map": maps["disp_map"],
@@ -252,7 +399,7 @@ def render_flat_rays(
     ``"plain"`` renders ``chunk`` rays at a time.
     """
     if pipeline.mlp_impl == CUDA:
-        return _fused_fast_paths(pipeline, params, rays_o, rays_d, mode)
+        return _fused_fast_paths(pipeline, params, rays_o, rays_d, mode, generator)
     strict_fp32()
     rays = make_ray_batch(pipeline, rays_o, rays_d)
     n = rays.rays_o.shape[0]

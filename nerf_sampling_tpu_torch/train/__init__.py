@@ -1,5 +1,29 @@
-"""Checkpoint reading and weight conversion (training itself is ROADMAP S2/S3)."""
+"""Depth-net training: checkpoints, sampler, train state, the train step and the Trainer."""
 
-from nerf_sampling_tpu_torch.train.checkpoint import params_from_jax, read_npz_tree
+from nerf_sampling_tpu_torch.train.checkpoint import (
+    find_checkpoints,
+    load_checkpoint,
+    params_from_jax,
+    params_to_jax,
+    read_npz_tree,
+    save_checkpoint,
+)
+from nerf_sampling_tpu_torch.train.sampler import RaySampler, SamplerConfig
+from nerf_sampling_tpu_torch.train.state import TrainState, init_state, make_depth_optimizer
+from nerf_sampling_tpu_torch.train.steps import StepDraws, make_depth_net_train_step
 
-__all__ = ["params_from_jax", "read_npz_tree"]
+__all__ = [
+    "RaySampler",
+    "SamplerConfig",
+    "StepDraws",
+    "TrainState",
+    "find_checkpoints",
+    "init_state",
+    "load_checkpoint",
+    "make_depth_net_train_step",
+    "make_depth_optimizer",
+    "params_from_jax",
+    "params_to_jax",
+    "read_npz_tree",
+    "save_checkpoint",
+]

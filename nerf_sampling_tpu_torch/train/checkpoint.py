@@ -1,17 +1,25 @@
-"""Read the JAX package's ``tree:``-keyed .npz checkpoints into torch modules.
+"""The JAX package's ``tree:``-keyed .npz checkpoints, read and written.
 
 The JAX package saves every pytree leaf under "tree:" + its key path, e.g.
 ``tree:['params'].coarse['pts_linears'][0]['weight']``
-(nerf_sampling_tpu/train/checkpoint.py:32-66). The reader parses those key
-strings back into nested dicts and lists; ``params_from_jax`` converts the
-parameter pytrees ([in, out] weights, fp16 storage allowed) into state dicts
-of the port's modules ([out, in], fp32), with the reference's key names.
+(nerf_sampling_tpu/train/checkpoint.py:32-90). ``read_npz_tree`` parses
+those key strings back into nested dicts and lists; ``params_from_jax``
+converts the parameter pytrees ([in, out] weights, fp16 storage allowed)
+into state dicts of the port's modules ([out, in], fp32), with the
+reference's key names, and ``params_to_jax`` is its inverse.
+
+``save_checkpoint`` writes the same layout: a depth-net checkpoint holds
+``params`` (the JAX NeRFParams: coarse, fine, depth) and ``opt_state``,
+the DepthNet's Adam moments in optax.adam's layout
+(``[0].count``, ``[0].mu[...]``, ``[0].nu[...]``), so a resume is exact
+and the JAX package's ``load_checkpoint`` reads both.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -106,6 +114,153 @@ def params_from_jax(tree: dict) -> dict:
         if tree.get(name) is not None:
             out[name] = fn(tree[name])
     return out
+
+
+def _linear_to_jax(sd: dict, prefix: str) -> dict:
+    """torch Linear [out, in] -> JAX {"weight": [in, out], "bias": [out]} fp32."""
+    return {
+        "weight": np.ascontiguousarray(_np(sd[f"{prefix}.weight"]).T),
+        "bias": _np(sd[f"{prefix}.bias"]),
+    }
+
+
+def _np(t) -> np.ndarray:
+    return np.asarray(t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t, np.float32)
+
+
+def _count(sd: dict, prefix: str) -> int:
+    return len({k[len(prefix):].split(".")[0] for k in sd if k.startswith(prefix)})
+
+
+def nerf_params_to_jax(sd: dict) -> dict:
+    params: dict = {
+        "pts_linears": [_linear_to_jax(sd, f"pts_linears.{i}") for i in range(_count(sd, "pts_linears."))]
+    }
+    if "feature_linear.weight" in sd:
+        params["feature_linear"] = _linear_to_jax(sd, "feature_linear")
+        params["alpha_linear"] = _linear_to_jax(sd, "alpha_linear")
+        params["views_linears"] = [
+            _linear_to_jax(sd, f"views_linears.{i}") for i in range(_count(sd, "views_linears."))
+        ]
+        params["rgb_linear"] = _linear_to_jax(sd, "rgb_linear")
+    else:
+        params["output_linear"] = _linear_to_jax(sd, "output_linear")
+    return params
+
+
+def depth_net_params_to_jax(sd: dict) -> dict:
+    params = {
+        name: [_linear_to_jax(sd, f"{name}.{i}") for i in range(_count(sd, f"{name}."))]
+        for name in ("origin_layers", "direction_layers", "intersection_layers")
+    }
+    n_cat = _count(sd, "cat_layers.")  # Linear at the even indices
+    params["cat_layers"] = [_linear_to_jax(sd, f"cat_layers.{2 * i}") for i in range(n_cat)]
+    params["to_depth"] = _linear_to_jax(sd, "to_depth.0")
+    return params
+
+
+def params_to_jax(sds: dict) -> dict:
+    """{"coarse", "fine", "depth"} torch state dicts -> JAX parameter pytrees
+    (the inverse of ``params_from_jax``); missing or None entries are skipped."""
+    out = {}
+    for name, fn in (
+        ("coarse", nerf_params_to_jax),
+        ("fine", nerf_params_to_jax),
+        ("depth", depth_net_params_to_jax),
+    ):
+        if sds.get(name) is not None:
+            out[name] = fn(sds[name])
+    return out
+
+
+class JaxNeRFParams(NamedTuple):
+    """The JAX NeRFParams' key layout (``.coarse``, ``.fine``, ``.depth``)."""
+
+    coarse: Any = None
+    fine: Any = None
+    depth: Any = None
+
+
+class JaxAdamState(NamedTuple):
+    """optax ScaleByAdamState's key layout (``.count``, ``.mu``, ``.nu``)."""
+
+    count: Any
+    mu: Any
+    nu: Any
+
+
+def adam_state_to_jax(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> tuple:
+    """A torch Adam's moments of a DepthNet as optax.adam's state pytree
+    (ScaleByAdamState, then the EmptyState of its learning-rate scale)."""
+    mu, nu, step = {}, {}, 0
+    for name, p in model.named_parameters():
+        st = optimizer.state.get(p, {})
+        mu[name] = st.get("exp_avg", torch.zeros_like(p))
+        nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+        step = int(st["step"]) if "step" in st else step
+    return (JaxAdamState(np.asarray(step, np.int32), depth_net_params_to_jax(mu),
+                         depth_net_params_to_jax(nu)),)
+
+
+def adam_state_from_jax(opt_tree, model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> int:
+    """Load optax.adam moments (``opt_state`` as read by ``read_npz_tree``)
+    into ``optimizer``'s state for ``model``; returns the step count."""
+    adam = opt_tree[0]
+    count = int(adam["count"])
+    mu, nu = depth_net_state_dict(adam["mu"]), depth_net_state_dict(adam["nu"])
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device).reshape(p.shape).clone(),
+            "exp_avg_sq": nu[name].to(p.device).reshape(p.shape).clone(),
+        }
+    return count
+
+
+def _flatten(node: Any, path: str, out: dict) -> None:
+    """JAX keystr paths of a pytree of dicts, lists/tuples, NamedTuples and
+    array leaves; None is an empty subtree, as in jax.tree_util."""
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _flatten(node[k], f"{path}[{k!r}]", out)
+    elif isinstance(node, tuple) and hasattr(node, "_fields"):
+        for k in node._fields:
+            _flatten(getattr(node, k), f"{path}.{k}", out)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _flatten(v, f"{path}[{i}]", out)
+    else:
+        out["tree:" + path] = node.detach().cpu().numpy() if isinstance(node, torch.Tensor) else np.asarray(node)
+
+
+def save_checkpoint(path: str, tree: dict, step: int) -> None:
+    """Save a pytree + step to .npz under the JAX package's ``tree:`` keys."""
+    arrays: dict = {}
+    _flatten(tree, "", arrays)
+    arrays["global_step"] = np.asarray(step)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **arrays)
+
+
+def load_checkpoint(path: str) -> tuple[dict, int]:
+    """(nested tree, global_step) of a ``tree:``-keyed .npz."""
+    return read_npz_tree(path)
+
+
+def find_checkpoints(dirpath: str, pattern: str = r"\.(npz|tar)$") -> list[str]:
+    """Sorted checkpoint paths in a directory (zero-padded step names sort by
+    step); at one step the ``.npz`` sorts after the ``.tar``."""
+    if not os.path.isdir(dirpath):
+        return []
+    return [
+        os.path.join(dirpath, f)
+        for f in sorted(
+            (f for f in os.listdir(dirpath) if re.search(pattern, f)),
+            key=lambda f: (os.path.splitext(f)[0], f.endswith(".npz")),
+        )
+    ]
 
 
 def load_render_params(path: str, pipeline, device: torch.device | str):

@@ -1,0 +1,184 @@
+"""The depth-net train step (nerf_sampling_tpu/train/steps.py:43-231).
+
+The reference (Trainer.core_optimization_loop, Trainer.py:506-544) steps
+only the sampling optimizer on ``img_loss + mse(depth_z, max_z)``: the
+DepthNet gets the sum of both gradients and the frozen NeRF none. Here the
+NeRF modules are frozen (``requires_grad_(False)``), gradients still flow
+through the query points to the DepthNet, and the differentiable part runs
+in strict fp32 (no TF32), as the JAX package pins Precision.HIGHEST.
+
+Two branches, chosen by ``Pipeline.mlp_impl``:
+
+- ``"cuda"``: the frozen-NeRF target pass (about 98% of the step's FLOPs)
+  is K6, ``fused_render_hier`` with the step's seed, under no_grad; then
+  the DepthNet and the single depth-point fine-NeRF query in plain
+  autograd, as the JAX step's oracle branch with ``force_xla=True``. A
+  config outside K6's envelope raises; it does not drop to the plain path.
+- ``"plain"``: ``render_rays_train`` (hierarchical pass in plain PyTorch).
+
+The draws of a step come from its seed, or are injected (``StepDraws``),
+which is how the tests feed both packages the same numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+from torch.profiler import record_function
+
+from nerf_sampling_tpu_torch.core.compositing import raw2outputs
+from nerf_sampling_tpu_torch.core.metrics import img2mse, mse2psnr
+from nerf_sampling_tpu_torch.core.sampling import z_to_points
+from nerf_sampling_tpu_torch.kernels import fused_hier
+from nerf_sampling_tpu_torch.models.depth_net import DepthNet
+from nerf_sampling_tpu_torch.render.engine import (
+    CUDA,
+    NeRFParams,
+    Pipeline,
+    RayBatch,
+    _query_fine_or_coarse,
+    make_ray_batch,
+    render_rays_train,
+)
+from nerf_sampling_tpu_torch.train.state import TrainState
+from nerf_sampling_tpu_torch.utils.precision import strict_fp32
+
+
+class StepDraws(NamedTuple):
+    """Injected draws of one step: stratified jitter and inverse-CDF uniforms."""
+
+    t_rand: torch.Tensor  # [N, N_samples]
+    u: torch.Tensor  # [N, N_importance]
+
+
+def check_hier_oracle(p: Pipeline) -> bool:
+    """True when the step's target pass runs on K6 (``mlp_impl="cuda"``).
+
+    The JAX step checks the same envelope (``_can_use_hier_oracle``) and
+    drops to its XLA path outside it; here a "cuda" config outside it
+    raises, naming what is missing.
+    """
+    if p.mlp_impl != CUDA:
+        return False
+    if p.ndc:
+        raise NotImplementedError("NDC rays are not ported yet: ROADMAP S6")
+    if not p.use_viewdirs or p.i_embed == -1:
+        raise ValueError("mlp_impl='cuda' (K6) needs use_viewdirs and positional encoding")
+    if p.raw_noise_std != 0.0:
+        raise ValueError("mlp_impl='cuda' (K6) takes raw_noise_std=0 only")
+    if p.N_samples < 4 or p.N_importance < 1 or p.N_samples + p.N_importance > 512:
+        raise ValueError(
+            "mlp_impl='cuda' (K6) takes N_samples >= 4, N_importance >= 1 and at most 512 "
+            f"samples in all; got {p.N_samples} + {p.N_importance}"
+        )
+    return True
+
+
+def _weighted_depth_loss(depth_z, max_z, acc, bg_weight: float) -> torch.Tensor:
+    """Depth MSE with background rays (acc <= 0.5) weighted by ``bg_weight``."""
+    fg = (acc.reshape(-1, 1) > 0.5).to(depth_z.dtype)
+    w = fg + bg_weight * (1.0 - fg)
+    return torch.mean(w * (depth_z - max_z) ** 2)
+
+
+def _fg_bg_depth_diagnostics(depth_z, max_z, acc, thresh: float = 0.5) -> dict[str, torch.Tensor]:
+    """The depth loss split into foreground and background rays (metrics only)."""
+    acc = acc.reshape(-1, 1)
+    se = (depth_z - max_z) ** 2
+    fg = (acc > thresh).to(se.dtype)
+    n_fg = torch.sum(fg)
+    n = torch.tensor(float(se.shape[0]), dtype=se.dtype, device=se.device)
+    return {
+        "depth_loss_fg": torch.sum(se * fg) / torch.clamp(n_fg, min=1.0),
+        "depth_loss_bg": torch.sum(se * (1.0 - fg)) / torch.clamp(n - n_fg, min=1.0),
+        "fg_frac": n_fg / n,
+    }
+
+
+def depth_net_loss(
+    pipeline: Pipeline,
+    frozen: NeRFParams,
+    depth: DepthNet,
+    rays: RayBatch,
+    target: torch.Tensor,
+    seed: int,
+    draws: StepDraws | None = None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """(img_loss + depth_loss, detached metrics) of one batch; backward()
+    on the loss leaves the DepthNet's gradients in its parameters."""
+    p = pipeline
+    strict_fp32()
+    if check_hier_oracle(p):
+        hier = frozen.kernels.hier if frozen.kernels is not None else None
+        if hier is None:
+            raise ValueError("the K6 branch needs frozen.kernels.hier (pack_kernel_weights(with_hier=True))")
+        fine = frozen.fine if frozen.fine is not None else frozen.coarse
+        with torch.no_grad(), record_function("oracle_k6"):
+            hm = fused_hier.fused_render_hier(
+                hier, frozen.coarse.cfg, fine.cfg, rays.rays_o, rays.rays_d,
+                n_coarse=p.N_samples, n_importance=p.N_importance, near=p.near, far=p.far,
+                white_bkgd=p.white_bkgd, lindisp=p.lindisp, seed=seed,
+                draws=None if draws is None else torch.cat([draws.t_rand, draws.u], -1).contiguous(),
+                multires=p.multires, multires_views=p.multires_views,
+            )
+        max_z = hm["max_z"].reshape(-1, 1)
+        acc = hm["acc_map"].reshape(-1, 1)
+        with record_function("depth_net_forward"):
+            depth_z = depth(rays.rays_o, rays.rays_d)
+            depth_pts = z_to_points(rays.rays_o, rays.rays_d, depth_z)
+            depth_raw = _query_fine_or_coarse(p, frozen, depth_pts, rays)
+            rgb = raw2outputs(depth_raw, depth_z, rays.rays_d, 0.0, p.white_bkgd).rgb_map
+    else:
+        generator = None
+        if draws is None:
+            generator = torch.Generator(device=rays.rays_o.device).manual_seed(seed)
+        with record_function("depth_net_forward"):
+            out = render_rays_train(
+                p, frozen._replace(depth=depth), rays, generator,
+                t_rand=None if draws is None else draws.t_rand,
+                u=None if draws is None else draws.u,
+            )
+        depth_z, rgb = out["depth_net_z_vals"], out["depth_net_rgb_map"]
+        max_z, acc = out["max_z_vals"].detach(), out["acc_map"].detach()
+    img_loss = img2mse(rgb, target)
+    if p.bg_depth_loss_weight != 1.0:
+        depth_loss = _weighted_depth_loss(depth_z, max_z, acc, p.bg_depth_loss_weight)
+    else:  # reference objective (Trainer.py:537-543)
+        depth_loss = img2mse(depth_z, max_z)
+    with torch.no_grad():
+        metrics = {
+            "loss": img_loss.detach(),
+            "depth_net_loss": depth_loss.detach(),
+            "psnr": mse2psnr(img_loss.detach()),
+            **_fg_bg_depth_diagnostics(depth_z.detach(), max_z, acc),
+        }
+    return img_loss + depth_loss, metrics
+
+
+def make_depth_net_train_step(pipeline: Pipeline, frozen: NeRFParams) -> Callable:
+    """The depth-net-only train step against the frozen NeRF ``frozen``.
+
+    Freezes the NeRF modules in place. The returned
+    ``step(state, (rays_o, rays_d, target), seed, draws=None)`` updates
+    ``state.model`` with ``state.optimizer`` and returns (state with the
+    step count advanced, detached metrics).
+    """
+    for model in (frozen.coarse, frozen.fine):
+        if model is not None:
+            model.requires_grad_(False)
+    check_hier_oracle(pipeline)
+
+    def step(state: TrainState, batch, seed: int, draws: StepDraws | None = None):
+        rays_o, rays_d, target = batch
+        rays = make_ray_batch(pipeline, rays_o, rays_d)
+        loss, metrics = depth_net_loss(pipeline, frozen, state.model, rays, target, seed, draws)
+        state.optimizer.zero_grad(set_to_none=True)
+        with record_function("backward"):
+            loss.backward()
+        with record_function("adam"):
+            state.optimizer.step()
+        state.step += 1
+        return state, metrics
+
+    return step

@@ -1,0 +1,286 @@
+"""Depth-net training on one device (nerf_sampling_tpu/train/trainer.py).
+
+``Trainer`` with ``train_mode="depth_net"``: load the blender scene, write
+``args.txt``, restore the frozen NeRF (``ft_path`` or the newest NeRF
+checkpoint of the experiment) and the DepthNet (``depth_net_path``, the
+newest ``depth_*.npz``, a DepthNet inside an ``.npz`` ``ft_path``, or a
+fresh one from ``seed``), then run the per-step loop with the periodic
+checkpoint, test-set eval, ``keep_best`` and early stop of the JAX Trainer
+(:729-831). Checkpoints are the JAX package's ``.npz`` layout, readable by
+both packages, with the Adam moments, so a resume is exact.
+
+The seed of step i is a pure function of (``cfg.seed``, i), as JAX's
+``fold_in(base_key, i)``, so a resumed run draws what an unbroken run
+draws at the same step. With ``mlp_impl="cuda"`` the frozen NeRF's kernel
+packs are made once and the DepthNet's pack anew before every eval (the
+training steps change it).
+
+Options this slice does not port raise NotImplementedError naming their
+ROADMAP item; nothing falls back quietly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from nerf_sampling_tpu_torch.data.types import SceneData
+from nerf_sampling_tpu_torch.models import DepthNet, NeRF
+from nerf_sampling_tpu_torch.render.engine import (
+    CUDA,
+    NeRFParams,
+    pack_kernel_weights,
+    repack_depth,
+)
+from nerf_sampling_tpu_torch.render.path import render_path
+from nerf_sampling_tpu_torch.train import checkpoint as ckpt_lib
+from nerf_sampling_tpu_torch.train.sampler import RaySampler, SamplerConfig
+from nerf_sampling_tpu_torch.train.state import TrainState, init_state
+from nerf_sampling_tpu_torch.train.steps import make_depth_net_train_step
+from nerf_sampling_tpu_torch.utils.config import TrainerConfig
+from nerf_sampling_tpu_torch.utils.logging import MetricsLogger
+from nerf_sampling_tpu_torch.utils.profiling import StepTimer
+
+
+def step_seed(seed: int, i: int) -> int:
+    """The seed of train step ``i``: a pure function of (seed, i) in [0, 2^31)."""
+    return int(np.random.SeedSequence([seed, i]).generate_state(1)[0] >> 1)
+
+
+def _unported(cfg: TrainerConfig) -> list[str]:
+    """What ``cfg`` asks for that this port does not do, with its ROADMAP item."""
+    found = []
+    if cfg.train_mode != "depth_net":
+        found.append(f"train_mode={cfg.train_mode!r} (NeRF and joint training: ROADMAP S3)")
+    if cfg.n_devices != 1 or cfg.multihost or cfg.steps_per_dispatch > 1:
+        found.append("n_devices != 1, multihost and steps_per_dispatch > 1 (scale-out: ROADMAP S7)")
+    if cfg.dataset_type != "blender":
+        found.append(f"dataset_type={cfg.dataset_type!r} (other loaders: ROADMAP S6)")
+    if cfg.render_only or cfg.save_train_set_render:
+        found.append("render_only and save_train_set_render (ROADMAP S4)")
+    if cfg.compare_nerf or cfg.use_nerf_max_pts or cfg.use_full_nerf:
+        found.append("the COMPARE_NERF, NERF_MAX and FULL_NERF eval modes (ROADMAP S4)")
+    if cfg.export_torch_ckpt:
+        found.append("export_torch_ckpt (the reference-format .tar: ROADMAP S5)")
+    if cfg.profile_dir is not None or cfg.debug_nans:
+        found.append("profile_dir and debug_nans (ROADMAP S5)")
+    return found
+
+
+def _seeded(module_cls, cfg, seed: int):
+    """A module initialized from ``seed`` without touching the global RNG."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return module_cls(cfg)
+
+
+class Trainer:
+    """Trains the DepthNet against a frozen NeRF on one device."""
+
+    def __init__(self, cfg: TrainerConfig, device: torch.device | str | None = None):
+        unported = _unported(cfg)
+        if unported:
+            raise NotImplementedError("not ported: " + "; ".join(unported))
+        self.cfg = cfg
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        self.global_step = 0
+        self.start = 0
+        self.scene: SceneData | None = None
+        self.pipeline = None
+        self.params: NeRFParams | None = None
+        self.eval_params: NeRFParams | None = None  # what the last eval rendered
+        self.logger: MetricsLogger | None = None
+        self._resume_tree: dict | None = None
+        self._avg_eval_psnr = 0.0
+        self._best_psnr = -float("inf")
+        self._evals_since_best = 0
+        self._stop_early = False
+
+    @property
+    def expdir(self) -> str:
+        return os.path.join(self.cfg.basedir, self.cfg.expname)
+
+    def load_data(self) -> SceneData:
+        from nerf_sampling_tpu_torch.data.blender import load_blender_data
+
+        cfg = self.cfg
+        scene = load_blender_data(cfg.datadir, cfg.half_res, cfg.testskip)
+        if cfg.white_bkgd:
+            scene.composite_white_background()
+        else:
+            scene.drop_alpha()
+        scene.near, scene.far = cfg.near, cfg.far
+        return scene
+
+    def create_log_dir_and_dump_config(self) -> None:
+        """args.txt and a copy of the config file (reference Trainer.py:148-160)."""
+        os.makedirs(self.expdir, exist_ok=True)
+        with open(os.path.join(self.expdir, "args.txt"), "w") as f:
+            for k, v in dataclasses.asdict(self.cfg).items():
+                f.write(f"{k} = {v}\n")
+        if self.cfg.config_path is not None and os.path.exists(self.cfg.config_path):
+            with open(self.cfg.config_path) as src, open(
+                os.path.join(self.expdir, "config.txt"), "w"
+            ) as dst:
+                dst.write(src.read())
+
+    def setup_models(self) -> None:
+        """The frozen NeRF and the DepthNet, restored as the JAX Trainer
+        restores them (:170-281), and the step to resume from."""
+        cfg = self.cfg
+        p = self.pipeline = cfg.pipeline(with_depth=True)
+        coarse = _seeded(NeRF, p.nerf, cfg.seed)
+        fine = _seeded(NeRF, p.fine, cfg.seed + 1) if p.fine is not None else None
+        depth = _seeded(DepthNet, p.depth, cfg.seed + 2)
+        explicit_depth = cfg.depth_net_path not in (None, "None")
+
+        if cfg.ft_path not in (None, "None"):
+            if not os.path.exists(cfg.ft_path):
+                raise FileNotFoundError(f"ft_path {cfg.ft_path} does not exist")
+            nerf_ckpts = [cfg.ft_path]
+        else:
+            nerf_ckpts = ckpt_lib.find_checkpoints(self.expdir, r"^(?!depth_).*\.(npz|tar)$")
+        if nerf_ckpts and not cfg.no_reload:
+            path = nerf_ckpts[-1]
+            if path.endswith(".tar"):
+                raise NotImplementedError(f"{path}: .tar checkpoints are not ported (ROADMAP S5)")
+            print(f"Reloading NeRF from {path}")
+            sds = ckpt_lib.params_from_jax(ckpt_lib.load_checkpoint(path)[0]["params"])
+            coarse.load_state_dict(sds["coarse"], strict=True)
+            if fine is not None:
+                fine.load_state_dict(sds["fine"], strict=True)
+            if "depth" in sds and not explicit_depth:  # a joint checkpoint carries the DepthNet
+                depth.load_state_dict(sds["depth"], strict=True)
+                print(f"Reloading DepthNet from {path} (joint checkpoint)")
+
+        if explicit_depth:
+            if not os.path.exists(cfg.depth_net_path):
+                raise FileNotFoundError(f"depth_net_path {cfg.depth_net_path} does not exist")
+            depth_ckpts = [cfg.depth_net_path]
+        else:
+            depth_ckpts = ckpt_lib.find_checkpoints(self.expdir, r"^depth_.*\.npz$")
+        self.start = 0
+        if depth_ckpts and not cfg.no_reload:
+            path = depth_ckpts[-1]
+            print(f"Reloading DepthNet from {path}")
+            tree, self.start = ckpt_lib.load_checkpoint(path)
+            depth.load_state_dict(ckpt_lib.params_from_jax(tree["params"])["depth"], strict=True)
+            self._resume_tree = tree
+        self.global_step = self.start
+
+        dev = self.device
+        params = NeRFParams(coarse.to(dev).eval(), fine.to(dev).eval() if fine is not None else None,
+                            depth.to(dev))
+        if p.mlp_impl == CUDA:  # the frozen NeRF's packs, once
+            params = pack_kernel_weights(params, with_hier=True)
+        self.params = params
+
+    def train(self, N_iters: int = 200001) -> float:
+        cfg = self.cfg
+        if N_iters - 1 >= cfg.i_video:
+            raise NotImplementedError(
+                f"the spiral video at step {cfg.i_video} is not ported (ROADMAP S4); "
+                "set i_video above the last step"
+            )
+        self.scene = self.load_data()
+        self.create_log_dir_and_dump_config()
+        self.setup_models()
+        self.logger = MetricsLogger(self.expdir, cfg.wandb_mode)
+        sampler = RaySampler(
+            self.scene,
+            SamplerConfig(N_rand=cfg.N_rand, use_batching=not cfg.no_batching,
+                          precrop_iters=cfg.precrop_iters, precrop_frac=cfg.precrop_frac,
+                          single_image=cfg.single_image, single_ray=cfg.single_ray),
+            seed=cfg.seed,
+        )
+        state = init_state(self.params.depth, cfg.depth_net_lr, self.start)
+        if self._resume_tree is not None and "opt_state" in self._resume_tree:
+            ckpt_lib.adam_state_from_jax(self._resume_tree["opt_state"], state.model, state.optimizer)
+            print("Restored optimizer state")
+        step_fn = make_depth_net_train_step(self.pipeline, self.params)
+        timer = StepTimer(rays_per_step=cfg.N_rand, device=self.device)
+        metrics: dict = {}
+        try:
+            for i in range(self.start + 1, N_iters):
+                batch = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+                              for x in sampler.sample(i))
+                state, metrics = step_fn(state, batch, step_seed(cfg.seed, i))
+                timer.tick()
+                self.global_step = i
+                self.log(i, metrics, state, timer)
+                if self._stop_early:
+                    break
+        finally:
+            self.logger.close()
+        return float(metrics["psnr"]) if metrics else 0.0
+
+    def eval_testset(self, savedir: str | None) -> float:
+        """Render the test views with the DepthNet as it is now; average PSNR."""
+        scene = self.scene
+        params = self.params
+        if self.pipeline.mlp_impl == CUDA:
+            params = repack_depth(params)  # the steps changed the DepthNet
+        self.eval_params = params
+        _, _, avg = render_path(
+            self.pipeline, params, scene.poses[scene.i_test], scene.hwf, scene.intrinsics(),
+            device=self.device, chunk=self.cfg.chunk, gt_imgs=scene.images[scene.i_test],
+            savedir=savedir, verbose=False,
+            generator=torch.Generator(device=self.device).manual_seed(0),
+        )
+        return avg
+
+    def log(self, i: int, metrics: dict, state: TrainState, timer: StepTimer | None = None) -> None:
+        cfg, scene = self.cfg, self.scene
+        if i % cfg.i_weights == 0:
+            self.save_checkpoint(i, state)
+        if i % cfg.i_testset == 0 and i > 0 and len(scene.i_test) > 0:
+            testsavedir = os.path.join(self.expdir, f"testset_{i:06d}")
+            os.makedirs(testsavedir, exist_ok=True)
+            avg_psnr = self.eval_testset(testsavedir)
+            self._avg_eval_psnr = avg_psnr
+            self.logger.log({"test_psnr": avg_psnr}, i)
+            print(f"Saved test set (avg PSNR {avg_psnr:.3f})")
+            if avg_psnr > self._best_psnr + 1e-6:
+                self._best_psnr = avg_psnr
+                self._evals_since_best = 0
+                if cfg.keep_best:
+                    self.save_checkpoint(i, state, subdir="best")
+            else:
+                self._evals_since_best += 1
+                if 0 < cfg.early_stop_patience <= self._evals_since_best:
+                    print(f"Early stop at iter {i}: eval PSNR has not improved for "
+                          f"{self._evals_since_best} evals (best {self._best_psnr:.3f})")
+                    self._stop_early = True
+        if i % cfg.i_print == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            info = f"Iter: {i} Loss: {m['loss']}, Depth Net Loss: {m['depth_net_loss']}, PSNR: {m['psnr']:.5f}"
+            scalars = {"Loss": m["loss"], "Depth net PSNR": m["psnr"],
+                       "Depth net loss": m["depth_net_loss"]}
+            for k in ("depth_loss_fg", "depth_loss_bg", "fg_frac"):
+                scalars[k] = m[k]
+            if timer is not None:
+                scalars.update(timer.metrics())
+            self.logger.log(scalars, i)
+            self.logger.print_line(info)
+
+    def save_checkpoint(self, i: int, state: TrainState, subdir: str = "") -> None:
+        """``depth_{i:06d}.npz`` with the three nets and the DepthNet's Adam
+        moments; subdir="best" keeps the keep_best snapshot out of the
+        resume scan's way."""
+        p = self.params
+        sds = {"coarse": p.coarse.state_dict(), "depth": p.depth.state_dict()}
+        if p.fine is not None:
+            sds["fine"] = p.fine.state_dict()
+        tree = {
+            "params": ckpt_lib.JaxNeRFParams(**ckpt_lib.params_to_jax(sds)),
+            "opt_state": ckpt_lib.adam_state_to_jax(state.model, state.optimizer),
+        }
+        outdir = os.path.join(self.expdir, subdir) if subdir else self.expdir
+        path = os.path.join(outdir, f"depth_{i:06d}.npz")
+        ckpt_lib.save_checkpoint(path, tree, i)
+        print("Saved checkpoints at", path)

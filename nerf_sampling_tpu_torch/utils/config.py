@@ -1,4 +1,4 @@
-"""The render path's part of the trainer config (nerf_sampling_tpu/utils/config.py).
+"""The trainer config (nerf_sampling_tpu/utils/config.py).
 
 ``TrainerConfig`` keeps every field of the JAX dataclass, so the same YAML
 configs load into it; ``nerf_config``, ``depth_net_config`` and ``pipeline``
@@ -20,13 +20,14 @@ from nerf_sampling_tpu_torch.render.engine import Pipeline
 @dataclasses.dataclass
 class TrainerConfig:
     """Every trainer knob of the JAX TrainerConfig, with the same defaults
-    except ``mlp_impl`` (the port's "plain" is the JAX "xla").
+    except ``mlp_impl`` (the port's "plain" is the JAX "xla") and
+    ``export_torch_ckpt`` (off: the ``.tar`` export is ROADMAP S5, and the
+    Trainer raises when it is asked for).
 
     A config file loads to the same fields in both packages. ``pipeline()``
-    passes on only what the DEPTH_NET eval render reads; the knobs of the
-    trainer and of the unported modes (N_rand, N_samples, perturb,
-    raw_noise_std, lindisp, ...) are kept here and read by nothing yet,
-    as the JAX DEPTH_NET eval render reads none of them either.
+    passes on what the DEPTH_NET eval render and the depth-net train step
+    read; the knobs of the unported modes are kept here, and the Trainer
+    raises on those it does not port.
     """
 
     # identity / io
@@ -98,7 +99,7 @@ class TrainerConfig:
     # checkpoints
     ft_path: str | None = None
     no_reload: bool = False
-    export_torch_ckpt: bool = True
+    export_torch_ckpt: bool = False
 
     # logging / eval cadence
     i_print: int = 100
@@ -173,7 +174,12 @@ class TrainerConfig:
             multires=self.multires,
             multires_views=self.multires_views,
             i_embed=self.i_embed,
+            N_samples=self.N_samples,
+            N_importance=self.N_importance,
+            perturb=self.perturb,
+            raw_noise_std=self.raw_noise_std,
             white_bkgd=self.white_bkgd,
+            lindisp=self.lindisp,
             use_viewdirs=self.use_viewdirs,
             ndc=self.dataset_type == "llff" and not self.no_ndc,
             near=self.near,
@@ -181,6 +187,7 @@ class TrainerConfig:
             n_depth_samples=self.n_depth_samples,
             sampling_mode=self.sampling_mode,
             distance=self.distance,
+            bg_depth_loss_weight=self.bg_depth_loss_weight,
             mlp_impl=self.mlp_impl,
             netchunk=self.netchunk,
         )
