@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's render and training paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's render and three training paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -31,6 +31,31 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    DepthNet's under the same eval. Then one step on both paths from one
    state, batch and draws, the median step time on both paths, and one
    profiled kernel-path step with its phases.
+6. NeRF and joint training, kernels first, on the committed checkpoint's
+   NeRFs at the train step's shapes (1024 rays, 64 + 128 samples):
+   [k4] K4 (the point-query MLP) on the coarse and fine queries against
+   its plain bf16 version: at least as close to it as that version is to
+   fp32; [k5] K5 (its recompute backward) on the fine queries with a real
+   step's cotangent: per-tensor error against its plain bf16 version, the
+   param grads identical with and without dx and across launches, cosine
+   to fp32 autograd of each NeRF; [k7] K7 (the deterministic hierarchical
+   pass) over the 160,000 rays of test view 0 in one launch against its
+   plain version, the FULL_NERF PSNR of view 0 within FULL_PSNR_TOL of the
+   plain fp32 path, all 4 views and the frame time on both paths; [step]
+   one nerf step and one joint step from one state, batch and draws, cuda
+   against plain, their median times and a profiled kernel-path nerf step;
+   [nerf] the CLI from scratch, --mode nerf for NERF_ITERS steps on both
+   paths (K4, K5 and K7 must launch; the loss must fall over the center-
+   crop phase; the kernel run's
+   FULL_NERF eval within NERF_EVAL_TOL dB of the plain run's); [joint] the
+   CLI, --mode joint from the committed checkpoint (NeRFs and DepthNet)
+   with a warmup, on both paths: the DepthNet bit for bit unchanged
+   through the warmup and trained after it, depth_live 0 then 1, the
+   kernel run's eval within NERF_EVAL_TOL dB of the plain run's. Both are
+   printed beside the committed pair's under the same eval: the recipe
+   restarts the NeRF's Adam at lrate (the checkpoint carries no optimizer
+   state), and a converged NeRF loses about 2 dB in 300 such steps on
+   either path (PERF.md).
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line.
@@ -55,6 +80,11 @@ OUT_DIR = os.path.join(HERE, "logs", "chip_smoke")  # renders and psnr.txt (giti
 TRAIN_DIR = os.path.join(HERE, "logs", "chip_smoke_train")  # the training run (gitignored)
 TRAIN_ITERS = EVAL_STEP = 2500  # the recipe's first eval (i_testset) and checkpoint
 TRAIN_PRINT = 100  # i_print of the training run
+NERF_DIR = os.path.join(HERE, "logs", "chip_smoke_nerf")  # the nerf-mode CLI runs (gitignored)
+JOINT_DIR = os.path.join(HERE, "logs", "chip_smoke_joint")  # the joint-mode CLI run (gitignored)
+NERF_ITERS = 500  # --mode nerf from scratch: the center-crop phase, then the eval
+JOINT_ITERS, JOINT_WARMUP = 300, 100  # --mode joint: eval at the last step
+NERF_PRINT = 100  # i_print of the nerf and joint runs
 
 # kernel vs its plain version at bf16 rounding (same inputs, same weights):
 # the two differ only in fp32 summation order and the few bf16 roundings
@@ -69,6 +99,17 @@ K6_Z_MEAN_TOL, K6_Z_P99_TOL = 2e-3, 2e-2  # |max_z| on rays with acc > 0.5
 K6_MEAN_RGB_TOL = 1e-3  # in-kernel draws vs torch draws over 64 batches
 PSNR_TOL, STD_TOL, PLAIN_PSNR_TOL = 0.10, 0.003, 0.05
 EVAL_GAP_TOL = 0.5  # dB the trained DepthNet may eval below the committed one
+# K5 against its plain bf16 version: the two differ in fp32 summation order
+# and the bf16 roundings of d_z16 that order flips (tests/
+# test_torch_nerf_train.py holds the plain version to JAX at 2e-2 of each
+# tensor's largest grad at bf16)
+K5_REL_TOL = 2e-2
+K5_COS_TOL = 0.999  # K5's grads against fp32 autograd of each NeRF
+K7_MEAN_TOL, K7_P999_TOL = 1e-3, 2e-2  # |rgb| against the plain bf16 version (K6's bounds)
+FULL_PSNR_TOL = 0.05  # FULL_NERF view 0: kernels against the plain fp32 path
+# one nerf or joint step, cuda vs plain, same state, batch and draws
+NSTEP_IMG_TOL, NSTEP_COS_TOL = 1e-2, 0.995
+NERF_EVAL_TOL = 0.5  # dB between the kernel and plain runs' evals (nerf and joint mode)
 # one step, cuda vs plain, same state, batch and draws: img_loss is the same
 # fp32 code on both; the depth target comes from bf16 (K6) vs fp32, so the
 # bound of tests/test_train_pallas.py:41
@@ -511,6 +552,10 @@ def profile_frame(fn, what: str = "one frame", top: int = 12):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a first device op inside the profiler, so that fn's first kernel is
+        # recorded like the rest (one run dropped the depth step's K6 row)
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -719,6 +764,421 @@ def phase_times(state, frozen, pipe, batch) -> None:
         + f"; host wall {np.mean(walls):.3f} ms")
 
 
+def step_queries(params, scene, device):
+    """The NeRF queries of one 1024-ray train step, as the nerf step makes
+    them (plain sampling, injected draws): (rays, target, coarse points
+    [65,536, 3], fine points [196,608, 3], fine z [1024, 192])."""
+    import dataclasses
+
+    from nerf_sampling_tpu_torch.render import make_ray_batch, sample_as_in_nerf
+
+    (ro, rd, target), = train_batches(scene, device, 1, seed=77)
+    pipe = dataclasses.replace(production_pipeline("plain"), depth=None)
+    rays = make_ray_batch(pipe, ro, rd)
+    g = torch.Generator(device=device).manual_seed(4)
+    with torch.no_grad():
+        hier = sample_as_in_nerf(pipe, params, rays, t_rand=torch.rand((ro.shape[0], 64), generator=g, device=device),
+                                 u=torch.rand((ro.shape[0], 128), generator=g, device=device))
+    coarse_pts = (rays.rays_o[:, None, :] + rays.rays_d[:, None, :] * hier.coarse_z_vals[..., None]).reshape(-1, 3)
+    return rays, target, coarse_pts.contiguous(), hier.fine_pts.reshape(-1, 3).contiguous(), hier.fine_z_vals
+
+
+def check_k4(params, queries) -> dict:
+    """K4 on the coarse (65,536) and fine (196,608) queries of a step,
+    against its plain bf16 version, which is held against fp32."""
+    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
+    from nerf_sampling_tpu_torch.kernels.fused_render import pack_nerf
+
+    rays, _, coarse_pts, fine_pts, _ = queries
+    dirs = rays.viewdirs.contiguous()
+    rec = {}
+    for name, model, pts in (("coarse", params.coarse, coarse_pts), ("fine", params.fine, fine_pts)):
+        packed, packed32 = pack_nerf(model), pack_nerf(model, torch.float32)
+        got = k4.nerf_points_kernel(packed, model.cfg, pts, dirs)
+        torch.cuda.synchronize()
+        plain = k4.nerf_points_plain(packed, model.cfg, pts, dirs)
+        ref32 = k4.nerf_points_plain(packed32, model.cfg, pts, dirs, dtype=torch.float32)
+        mean, mx = errors(got, plain)
+        mean32, mx32 = errors(plain, ref32)
+        log(f"[k4] {name} NeRF, {pts.shape[0]} points: |raw| kernel vs plain bf16 mean {mean:.3e} max {mx:.3e}; "
+            f"plain bf16 vs plain fp32 mean {mean32:.3e} max {mx32:.3e}")
+        require(bool(torch.isfinite(got).all()), f"K4 {name}: non-finite raw")
+        require(mean <= mean32 and mx <= mx32, f"K4 {name}: further from its plain bf16 version than bf16 is from fp32")
+        ms = cuda_ms(lambda: k4.nerf_points_kernel(packed, model.cfg, pts, dirs), 10)
+        plain_ms = cuda_ms(lambda: k4.nerf_points_plain(packed, model.cfg, pts, dirs), 3)
+        log(f"[k4] {name}: {ms:.3f} ms per launch; plain bf16 version {plain_ms:.3f} ms "
+            f"({2 * 0.593e6 * pts.shape[0] / ms / 1e9:.1f} TFLOP/s at 2 x 593K MAC per row)")
+        rec = {"name": "nerf_points_kernel", "route": "cuda",
+               "source": "nerf_sampling_tpu_torch/kernels/csrc/nerf_points.cu",
+               "replaces": "nerf_sampling_tpu/kernels/fused_nerf.py:301",
+               "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms}
+    return rec  # the fine query's numbers
+
+
+def step_cotangent(params, queries) -> torch.Tensor:
+    """dL/draw [196,608, 4] of the fine query under a step's loss
+    (img2mse of the composited fine rgb), from the fp32 plain path."""
+    from nerf_sampling_tpu_torch.core.compositing import raw2outputs
+    from nerf_sampling_tpu_torch.core.metrics import img2mse
+    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
+    from nerf_sampling_tpu_torch.kernels.fused_render import pack_nerf
+
+    rays, target, _, fine_pts, fine_z = queries
+    raw = k4.nerf_points_plain(pack_nerf(params.fine, torch.float32), params.fine.cfg, fine_pts,
+                               rays.viewdirs.contiguous(), dtype=torch.float32).requires_grad_(True)
+    out = raw2outputs(raw.reshape(*fine_z.shape, 4), fine_z, rays.rays_d, 0.0, True)
+    img2mse(out.rgb_map, target).backward()
+    return raw.grad.contiguous()
+
+
+def check_k5(params, queries) -> dict:
+    """K5 on the fine query with a real step's cotangent: against its plain
+    bf16 version (per-tensor error, both want_dx settings), bits across
+    launches and across want_dx, cosine to fp32 autograd of the module;
+    then the coarse NeRF's cosine on its own query."""
+    from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
+    from nerf_sampling_tpu_torch.kernels.fused_render import pack_nerf
+    from nerf_sampling_tpu_torch.render.engine import Pipeline, query_nerf
+
+    rays, _, coarse_pts, fine_pts, _ = queries
+    dirs = rays.viewdirs.contiguous()
+    g_fine = step_cotangent(params, queries)
+
+    def flat(grads):
+        return torch.cat([x.flatten().float() for x in grads])
+
+    def autograd_fp32(model, pts, g):
+        model.zero_grad(set_to_none=True)
+        raw = query_nerf(Pipeline(nerf=model.cfg), model, pts.reshape(dirs.shape[0], -1, 3), dirs)
+        (raw.reshape(-1, 4) * g).sum().backward()
+        out = flat([q.grad for q in model.parameters()])
+        model.zero_grad(set_to_none=True)
+        return out
+
+    model = params.fine
+    packed = pack_nerf(model)
+    worst = 0.0
+    grads = {}
+    for want_dx in (False, True):
+        d, dpts, ddirs = k5.nerf_points_bwd_kernel(packed, model.cfg, fine_pts, dirs, g_fine, want_dx=want_dx)
+        torch.cuda.synchronize()
+        dp, dpts_p, ddirs_p = k5.nerf_points_bwd_plain(packed, model.cfg, fine_pts, dirs, g_fine, want_dx=want_dx)
+        got, want = k5.grads_to_params(model, d), k5.grads_to_params(model, dp)
+        rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(got, want))
+        msg = f"[k5] want_dx={want_dx}: worst per-tensor max|d grad| / max|grad| vs plain bf16 {rel:.3e} (tol {K5_REL_TOL:g})"
+        if want_dx:
+            for name, a, b in (("d pts", dpts, dpts_p), ("d dirs", ddirs, ddirs_p)):
+                r = float((a - b).abs().max()) / float(b.abs().max())
+                msg += f"; {name} {r:.3e}"
+                rel = max(rel, r)
+        log(msg)
+        require(rel <= K5_REL_TOL, f"K5 (want_dx={want_dx}) disagrees with its plain version")
+        worst = max(worst, rel)
+        grads[want_dx] = flat(got)
+    again = flat(k5.grads_to_params(model, k5.nerf_points_bwd_kernel(packed, model.cfg, fine_pts, dirs, g_fine,
+                                                                     want_dx=False)[0]))
+    require(torch.equal(grads[False], grads[True]), "K5: param grads differ with want_dx on and off")
+    require(torch.equal(grads[False], again), "K5: two launches on the same inputs gave different bits")
+    cos_fine = float(torch.nn.functional.cosine_similarity(grads[False], autograd_fp32(model, fine_pts, g_fine), dim=0))
+    g_coarse = torch.randn(coarse_pts.shape[0], 4, generator=torch.Generator(device=dirs.device).manual_seed(6),
+                           device=dirs.device) * float(g_fine.abs().mean())
+    d_c, _, _ = k5.nerf_points_bwd_kernel(pack_nerf(params.coarse), params.coarse.cfg, coarse_pts, dirs, g_coarse,
+                                          want_dx=False)
+    cos_coarse = float(torch.nn.functional.cosine_similarity(
+        flat(k5.grads_to_params(params.coarse, d_c)), autograd_fp32(params.coarse, coarse_pts, g_coarse), dim=0))
+    log(f"[k5] param grads identical with want_dx off and on and across two launches; cosine to fp32 autograd: "
+        f"fine {cos_fine:.6f} (step cotangent), coarse {cos_coarse:.6f} (random cotangent) (tol {K5_COS_TOL})")
+    require(cos_fine >= K5_COS_TOL and cos_coarse >= K5_COS_TOL, "K5 gradients point away from fp32 autograd")
+    ms = cuda_ms(lambda: k5.nerf_points_bwd_kernel(packed, model.cfg, fine_pts, dirs, g_fine, want_dx=False), 5)
+    ms_dx = cuda_ms(lambda: k5.nerf_points_bwd_kernel(packed, model.cfg, fine_pts, dirs, g_fine, want_dx=True), 3)
+    plain_ms = cuda_ms(lambda: k5.nerf_points_bwd_plain(packed, model.cfg, fine_pts, dirs, g_fine, want_dx=False), 3)
+    log(f"[k5] {fine_pts.shape[0]} rows: {ms:.3f} ms per launch (want_dx off), {ms_dx:.3f} ms (on); plain bf16 "
+        f"version {plain_ms:.3f} ms ({3 * 2 * 0.593e6 * fine_pts.shape[0] / ms / 1e9:.1f} TFLOP/s at 3 x 2 x 593K "
+        "MAC per row: recompute, d_h chain, weight grads)")
+    return {"name": "nerf_points_bwd_kernel", "route": "cuda",
+            "source": "nerf_sampling_tpu_torch/kernels/csrc/nerf_points_bwd.cu",
+            "replaces": "nerf_sampling_tpu/kernels/fused_nerf_vjp.py:272",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_k7(params, scene, K, device) -> dict:
+    """K7 over the 160,000 rays of test view 0 in one launch against its
+    plain bf16 version; FULL_NERF of view 0 on the kernels against the
+    plain fp32 path; the 4 test views on the kernels; frame times."""
+    import dataclasses
+
+    from nerf_sampling_tpu_torch.core.rays import get_rays
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k67
+    from nerf_sampling_tpu_torch.render import EvalMode, render_image
+
+    H, W, Kc, c2w = view0_camera()
+    ro, rd = get_rays(H, W, Kc, c2w, device)
+    ro, rd = ro.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
+    packed = params.kernels.hier
+    cfg_c, cfg_f = params.coarse.cfg, params.fine.cfg
+    got = k67.render_hier_kernel(packed, cfg_c, cfg_f, ro, rd)
+    torch.cuda.synchronize()
+    chunk = 16384
+    parts = [k67.render_hier_plain(packed, cfg_c, cfg_f, ro[s:s + chunk], rd[s:s + chunk])
+             for s in range(0, ro.shape[0], chunk)]
+    plain = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    d = (got["rgb_map"] - plain["rgb_map"]).abs()
+    mean, p999, mx = float(d.mean()), quantile(d, 0.999), float(d.max())
+    log(f"[k7] {ro.shape[0]} rays, one launch: |rgb| vs plain bf16 mean {mean:.3e} p99.9 {p999:.3e} max {mx:.3e} "
+        f"(tol {K7_MEAN_TOL:g}/{K7_P999_TOL:g})")
+    require(mean <= K7_MEAN_TOL and p999 <= K7_P999_TOL, "K7 disagrees with its plain version")
+
+    pipe = dataclasses.replace(production_pipeline("cuda"), depth=None)
+    plain_pipe = dataclasses.replace(pipe, mlp_impl="plain")
+    gts = scene.images[scene.i_test]
+    poses = [scene.poses[i][:3, :4] for i in scene.i_test]
+
+    Hs, Ws, _ = scene.hwf
+
+    def render(p, c2w_):
+        return render_image(p, params, Hs, Ws, K, c2w_, device=device, mode=EvalMode.FULL_NERF)
+
+    def psnr(img, gt):
+        return float(-10 * np.log10(np.mean((img["depth_net_rgb_map"].float().cpu().numpy() - gt) ** 2)))
+
+    k67.det_launches = 0
+    psnrs = [psnr(render(pipe, c), gt) for c, gt in zip(poses, gts)]
+    require(k67.det_launches == len(poses), "the FULL_NERF kernel path did not launch K7 once per view")
+    psnr_plain = psnr(render(plain_pipe, poses[0]), gts[0])
+    log(f"[k7] FULL_NERF on the kernels, per test view {['%.4f' % p for p in psnrs]}; view 0 on the plain fp32 "
+        f"path {psnr_plain:.4f} dB (|delta| {abs(psnrs[0] - psnr_plain):.4f}, tol {FULL_PSNR_TOL})")
+    require(abs(psnrs[0] - psnr_plain) <= FULL_PSNR_TOL, "FULL_NERF: kernel and plain fp32 paths disagree")
+    ms = cuda_ms(lambda: k67.render_hier_kernel(packed, cfg_c, cfg_f, ro, rd), 3)
+    plain_ms = cuda_ms(lambda: [k67.render_hier_plain(packed, cfg_c, cfg_f, ro[s:s + chunk], rd[s:s + chunk])
+                                for s in range(0, ro.shape[0], chunk)], 1)
+    frame_k = frame_ms(lambda: render(pipe, poses[0]), 3)
+    frame_p = frame_ms(lambda: render(plain_pipe, poses[0]), 1)
+    log(f"[k7] {ms:.3f} ms per launch; plain bf16 version {plain_ms:.3f} ms (chunks of {chunk} rays); FULL_NERF "
+        f"400x400 frame {frame_k:.2f} ms on the kernels, {frame_p:.2f} ms on the plain fp32 path")
+    return {"name": "render_hier_kernel_det", "route": "cuda",
+            "source": "nerf_sampling_tpu_torch/kernels/csrc/render_hier.cu",
+            "replaces": "nerf_sampling_tpu/kernels/fused_hier.py:255",
+            "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_nerf_steps(scene, device) -> None:
+    """One nerf step and one joint step from one state, batch and draws,
+    cuda against plain; the median step time of both paths; one profiled
+    kernel-path nerf step."""
+    import copy
+    import dataclasses
+
+    from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
+    from nerf_sampling_tpu_torch.train.state import init_nerf_state, init_state, nerf_modules
+    from nerf_sampling_tpu_torch.train.steps import StepDraws, make_joint_train_step, make_nerf_train_step
+
+    base = load_render_params(CKPT, production_pipeline("plain"), device)
+    pipes = {impl: production_pipeline(impl) for impl in ("cuda", "plain")}
+    batch, = train_batches(scene, device, 1, seed=124)
+    n = batch[0].shape[0]
+    g = torch.Generator(device=device).manual_seed(10)
+    draws = StepDraws(torch.rand((n, 64), generator=g, device=device),
+                      torch.rand((n, 128), generator=g, device=device))
+
+    def states(joint):
+        nerf = init_nerf_state(nerf_modules(copy.deepcopy(base.coarse), copy.deepcopy(base.fine)), 5e-4, 500)
+        return (nerf, init_state(copy.deepcopy(base.depth), 1e-4)) if joint else (nerf,)
+
+    def net_grads(st, net):
+        return torch.cat([q.grad.flatten() for name, q in st.model.named_parameters() if name.startswith(net + ".")])
+
+    res = {}
+    for impl, pipe in pipes.items():
+        (nst,) = states(False)
+        _, m = make_nerf_train_step(pipe)(nst, batch, 0, draws)
+        jn, jd = states(True)
+        _, _, jm = make_joint_train_step(pipe)(jn, jd, batch, 0, draws)
+        grads = {f"nerf {net}": net_grads(nst, net) for net in ("coarse", "fine")}
+        grads.update({f"joint {net}": net_grads(jn, net) for net in ("coarse", "fine")})
+        grads["joint depth"] = torch.cat([q.grad.flatten() for q in jd.model.parameters()])
+        res[impl] = ({k: float(v) for k, v in m.items()}, {k: float(v) for k, v in jm.items()}, grads)
+    (mk, jmk, gk), (mp, jmp, gp) = res["cuda"], res["plain"]
+    for what, a, b in (("nerf", mk, mp), ("joint", jmk, jmp)):
+        rel = abs(a["img_loss"] - b["img_loss"]) / b["img_loss"]
+        log(f"[step] {what} step, cuda vs plain from one state, batch and draws: img_loss {a['img_loss']:.6e} vs "
+            f"{b['img_loss']:.6e} (rel {rel:.2e}, tol {NSTEP_IMG_TOL:g})")
+        require(rel <= NSTEP_IMG_TOL, f"the {what} steps' img_loss disagree")
+    for net in gk:
+        if float(gp[net].norm()) == 0.0:
+            log(f"[step] {net}: zero gradient on the plain path (no density on this batch); kernel path norm "
+                f"{float(gk[net].norm()):.3e}")
+            require(float(gk[net].norm()) == 0.0, f"{net}: the kernel path has a gradient where plain has none")
+            continue
+        cos = float(torch.nn.functional.cosine_similarity(gk[net], gp[net], dim=0))
+        log(f"[step] {net}: gradient cosine cuda vs plain {cos:.6f} (tol {NSTEP_COS_TOL})")
+        require(cos >= NSTEP_COS_TOL, f"{net}: the kernel and plain gradients disagree")
+
+    batches = train_batches(scene, device, 12, seed=322)
+    times = {}
+    for impl, reps in (("cuda", 10), ("plain", 3)):
+        (nst,) = states(False)
+        nstep = make_nerf_train_step(pipes[impl])
+        jn, jd = states(True)
+        jstep = make_joint_train_step(pipes[impl])
+        it = iter(range(100))
+        times[impl, "nerf"] = frame_ms(lambda: nstep(nst, batches[next(it) % 12], 1000), reps)
+        it2 = iter(range(100))
+        times[impl, "joint"] = frame_ms(lambda: jstep(jn, jd, batches[next(it2) % 12], 1000), reps)
+    log(f"[step] median ms per step (1024 rays, 64+128 samples): nerf {times['cuda', 'nerf']:.3f} on the kernels, "
+        f"{times['plain', 'nerf']:.3f} plain fp32; joint {times['cuda', 'joint']:.3f} on the kernels, "
+        f"{times['plain', 'joint']:.3f} plain fp32")
+    (nst,) = states(False)
+    nstep = make_nerf_train_step(pipes["cuda"])
+    nstep(nst, batches[0], 7)
+    wall, rows = profile_frame(lambda: nstep(nst, batches[1], 8), "one kernel-path nerf step", top=10)
+    k4_ms = sum(e.self_device_time_total for e in rows if "nerf_points_kernel" in e.key) / 1e3
+    k5_ms = sum(e.self_device_time_total for e in rows
+                if any(k in e.key for k in ("nerf_bwd_rows", "wgrad_kernel", "reduce_kernel"))) / 1e3
+    log(f"[profile] K4 {k4_ms:.3f} ms, K5 {k5_ms:.3f} ms: {100 * (k4_ms + k5_ms) / wall:.1f}% of the profiled "
+        f"{wall:.3f} ms step, {100 * (k4_ms + k5_ms) / times['cuda', 'nerf']:.1f}% of the median unprofiled step")
+
+
+def nerf_losses(expdir: str) -> list[tuple[int, float]]:
+    with open(os.path.join(expdir, "psnr.txt")) as fp:
+        return [(int(ln.split()[1]), float(ln.split("Loss: ")[1].split(",")[0])) for ln in fp if ln.startswith("Iter:")]
+
+
+def run_nerf_cli(device) -> dict[str, int]:
+    """--mode nerf from scratch through the CLI's main, on the kernels and
+    on the plain path, same seed, batches and draws; returns the kernel
+    run's launch counts."""
+    import shutil
+
+    from nerf_sampling_tpu_torch.experiments import run
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k67
+    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
+    from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
+
+    shutil.rmtree(NERF_DIR, ignore_errors=True)
+    evals, counts = {}, {}
+    for impl in ("cuda", "plain"):
+        argv = ["-d", "example", "--mode", "nerf", "--mlp_impl", impl, "--seed", "0", "--testskip", "1",
+                "--n_iters", str(NERF_ITERS), "--i_testset", str(NERF_ITERS), "-ip", str(NERF_PRINT),
+                "--basedir", os.path.join(NERF_DIR, impl)]
+        log(f"[nerf] python3 -m nerf_sampling_tpu_torch.experiments.run {' '.join(argv)}")
+        k4.launches = k5.launches = k67.det_launches = 0
+        t0 = time.perf_counter()
+        trainer = run.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # the center-crop phase's losses (precrop_iters): the later full-image batches see
+        # rays the crop never trained, so their loss is no measure of the fall
+        losses = [(i, v) for i, v in nerf_losses(trainer.expdir) if i < trainer.cfg.precrop_iters]
+        evals[impl] = trainer._avg_eval_psnr
+        log(f"[nerf] {impl}: {trainer.global_step} steps in {wall:.1f} s (the eval included); loss at step "
+            f"{losses[0][0]} {losses[0][1]:.6f}, at step {losses[-1][0]} {losses[-1][1]:.6f} (the center-crop "
+            f"phase, precrop_iters {trainer.cfg.precrop_iters}); FULL_NERF eval over "
+            f"{len(trainer.scene.i_test)} test views {evals[impl]:.4f} dB")
+        require(losses[-1][1] < losses[0][1], f"the {impl} nerf-mode loss did not fall")
+        if impl == "cuda":
+            counts = {"nerf_points_kernel": k4.launches, "nerf_points_bwd_kernel": k5.launches,
+                      "render_hier_kernel_det": k67.det_launches}
+            log(f"[nerf] launches during the kernel run: {counts}")
+            for name, count in counts.items():
+                require(count > 0, f"{name} was not launched by the nerf-mode run")
+    log(f"[nerf] eval: kernels {evals['cuda']:.4f} dB, plain {evals['plain']:.4f} dB, |delta| "
+        f"{abs(evals['cuda'] - evals['plain']):.4f} (tol {NERF_EVAL_TOL})")
+    require(abs(evals["cuda"] - evals["plain"]) <= NERF_EVAL_TOL, "the kernel and plain nerf-mode runs disagree")
+    return counts
+
+
+def write_full_checkpoint(path: str) -> None:
+    """The committed checkpoint's NeRFs and DepthNet, as a JAX-layout .npz at step 0."""
+    from nerf_sampling_tpu_torch.train import checkpoint as ck
+
+    tree, _ = ck.read_npz_tree(CKPT)
+    ck.save_checkpoint(path, {"params": ck.JaxNeRFParams(**ck.params_to_jax(ck.params_from_jax(tree["params"])))}, 0)
+
+
+def run_joint_cli(device, scene, K) -> dict[str, int]:
+    """--mode joint through the CLI's main from the committed NeRFs and
+    DepthNet with a warmup, on the kernels and on the plain path (same
+    seed, batches and draws); returns the kernel run's launch counts."""
+    import dataclasses
+    import shutil
+
+    import yaml
+
+    from nerf_sampling_tpu_torch.definitions import REFERENCE_CONFIG
+    from nerf_sampling_tpu_torch.experiments import run
+    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
+    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
+    from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
+    from nerf_sampling_tpu_torch.kernels import fused_render as k3
+    from nerf_sampling_tpu_torch.render import pack_kernel_weights, render_path
+    from nerf_sampling_tpu_torch.train import checkpoint as ck
+    from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
+
+    shutil.rmtree(JOINT_DIR, ignore_errors=True)
+    os.makedirs(JOINT_DIR)
+    ft_path = os.path.join(JOINT_DIR, "committed.npz")
+    write_full_checkpoint(ft_path)
+    # the recipe with a checkpoint every JOINT_WARMUP steps, to read the DepthNet at the warmup's end
+    with open(REFERENCE_CONFIG) as fp:
+        entry = yaml.safe_load(fp)["recommended_depth_net_module"]
+    entry["kwargs"]["i_weights"] = JOINT_WARMUP
+    config = os.path.join(JOINT_DIR, "joint.yaml")
+    with open(config, "w") as fp:
+        yaml.safe_dump({"recommended_depth_net_module": entry}, fp)
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, list):
+            return [x for v in tree for x in leaves(v)]
+        return [np.asarray(tree, np.float32)]
+
+    start = leaves(ck.read_npz_tree(ft_path)[0]["params"]["depth"])
+    evals, counts = {}, {}
+    for impl in ("cuda", "plain"):
+        argv = ["-c", config, "-m", "recommended_depth_net_module", "-d", "example", "--mode", "joint",
+                "--mlp_impl", impl, "--joint_depth_warmup", str(JOINT_WARMUP), "--n_iters", str(JOINT_ITERS),
+                "--i_testset", str(JOINT_ITERS), "-ip", str(NERF_PRINT), "--ft_path", ft_path, "--seed", "0",
+                "--testskip", "1", "--basedir", os.path.join(JOINT_DIR, impl)]
+        log(f"[joint] python3 -m nerf_sampling_tpu_torch.experiments.run {' '.join(argv)}")
+        k1.launches = k3.gaussian_launches = k4.launches = k5.launches = 0
+        t0 = time.perf_counter()
+        trainer = run.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        evals[impl] = trainer._avg_eval_psnr
+        log(f"[joint] {impl}: {trainer.global_step} steps in {wall:.1f} s (evals and checkpoints included); "
+            f"step-{JOINT_ITERS} eval ({trainer.pipeline.sampling_mode}/{trainer.pipeline.n_depth_samples}/"
+            f"{trainer.pipeline.distance}) {evals[impl]:.4f} dB")
+        at = {i: leaves(ck.read_npz_tree(os.path.join(trainer.expdir, f"{i:06d}.npz"))[0]["params"]["depth"])
+              for i in (JOINT_WARMUP, JOINT_ITERS)}
+        frozen = all(np.array_equal(a, b) for a, b in zip(at[JOINT_WARMUP], start))
+        moved = not all(np.array_equal(a, b) for a, b in zip(at[JOINT_ITERS], start))
+        with open(os.path.join(trainer.expdir, "metrics.jsonl")) as fp:
+            live = [(r["step"], r["depth_live"]) for r in map(json.loads, fp) if "depth_live" in r]
+        log(f"[joint] {impl}: DepthNet at step {JOINT_WARMUP} bit-identical to the start: {frozen}; at step "
+            f"{JOINT_ITERS} changed: {moved}; depth_live by step {live}")
+        require(frozen and moved, f"{impl}: the DepthNet was not held through the warmup and trained after it")
+        require(live[0][1] == 0.0 and live[-1][1] == 1.0, f"{impl}: depth_live did not go from 0 to 1")
+        if impl == "cuda":
+            counts = {"nerf_points_kernel": k4.launches, "nerf_points_bwd_kernel": k5.launches,
+                      "depth_net_kernel": k1.launches, "render_gaussian_kernel": k3.gaussian_launches}
+            log(f"[joint] launches during the kernel run: {counts}")
+            for name, count in counts.items():
+                require(count > 0, f"{name} was not launched by the joint run")
+    pipe = dataclasses.replace(trainer.pipeline, mlp_impl="cuda")
+    committed = pack_kernel_weights(load_render_params(CKPT, pipe, device))
+    _, _, ref_avg = render_path(pipe, committed, scene.poses[scene.i_test], scene.hwf, K, device=device,
+                                gt_imgs=scene.images[scene.i_test], verbose=False,
+                                generator=torch.Generator(device=device).manual_seed(0))
+    log(f"[joint] step-{JOINT_ITERS} eval: kernels {evals['cuda']:.4f} dB, plain {evals['plain']:.4f} dB "
+        f"(|delta| {abs(evals['cuda'] - evals['plain']):.4f}, tol {NERF_EVAL_TOL}); the committed pair under the "
+        f"same eval {ref_avg:.4f} dB: kernel run {evals['cuda'] - ref_avg:+.4f} dB, plain run "
+        f"{evals['plain'] - ref_avg:+.4f} dB")
+    require(abs(evals["cuda"] - evals["plain"]) <= NERF_EVAL_TOL, "the kernel and plain joint runs disagree")
+    return counts
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     if not torch.cuda.is_available():
@@ -753,13 +1213,22 @@ def main() -> int:
     scene, K = load_example_scene()
     kernels = [check_k1(params, device), check_k2(params, device), check_k3(params, device),
                check_k6(params, device, [b[:2] for b in train_batches(scene, device, 64)])]
+    queries = step_queries(params, scene, device)
+    kernels += [check_k4(params, queries), check_k5(params, queries), check_k7(params, scene, K, device)]
+    del queries
     torch.cuda.synchronize()
     render_counts = run_slice(device, scene, K)
     train_counts, trainer = run_training(device, scene, K)
     check_train_step(trainer, scene, device)
+    check_nerf_steps(scene, device)
+    nerf_counts = run_nerf_cli(device)
+    joint_counts = run_joint_cli(device, scene, K)
     torch.cuda.synchronize()
-    for rec in kernels:  # the count of the path each kernel serves: K2 renders, the rest train
-        rec["launches"] = train_counts.get(rec["name"], render_counts.get(rec["name"]))
+    # the count of the path each kernel serves: K2 renders, K1/K3/K6 train the
+    # DepthNet, K4/K5/K7 train and evaluate the NeRF (the joint run's counts are gated above)
+    for rec in kernels:
+        rec["launches"] = next(c[rec["name"]] for c in (nerf_counts, train_counts, render_counts, joint_counts)
+                               if rec["name"] in c)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,22 @@
-"""Train the depth net from the command line (nerf_sampling_tpu/experiments/run.py).
+"""Train from the command line (nerf_sampling_tpu/experiments/run.py).
 
     python3 -m nerf_sampling_tpu_torch.experiments.run -d example \\
         -m recommended_depth_net_module --mlp_impl cuda --ft_path NERF.npz --n_iters 2500
+    python3 -m nerf_sampling_tpu_torch.experiments.run -d example --mode nerf \\
+        --mlp_impl cuda --n_iters 500 --i_testset 500
+    python3 -m nerf_sampling_tpu_torch.experiments.run -d example --mode joint \\
+        -m recommended_depth_net_module --mlp_impl cuda --ft_path NERF.npz --joint_depth_warmup 100
 
 The JAX CLI's flag surface and hard overrides (reference run.py:101-109:
 depth_net_lr 1e-4, a 10x256 DepthNet, train_depth_net_only, sphere_radius
 2), with argparse in place of click. The reference-parity flags (-si, -sr,
 -ip, -w) always set the config; the extension flags set it only when typed
 or when the YAML entry does not set the field. ``-d example`` generates
-the procedural example scene (800x800) on first use. Flags whose options
-are not ported (--mode nerf/joint, --n_devices, --multihost, -w online,
-...) reach the Trainer, which raises naming their ROADMAP item.
+the procedural example scene (800x800) on first use. ``--mode nerf`` trains
+the first 500 steps on a center crop when the entry leaves
+``precrop_iters`` at 0, as the JAX CLI does. Flags whose options are not
+ported (--n_devices, --multihost, -w online, ...) reach the Trainer, which
+raises naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -53,8 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--precision", dest="matmul_precision", choices=["highest", "high", "default"],
                     default=None)
     ap.add_argument("--mlp_impl", choices=["plain", "cuda", "xla", "pallas", "pallas_int8"], default=None,
-                    help="plain: fp32 PyTorch; cuda: the hand-written kernels (K6 oracle, K1/K3 "
-                         "evals). The JAX names xla and pallas map onto them.")
+                    help="plain: fp32 PyTorch; cuda: the hand-written kernels (K4/K5 NeRF queries, "
+                         "K6 oracle, K1/K3 and K7 evals). The JAX names xla and pallas map onto them.")
     ap.add_argument("--joint_depth_warmup", type=int, default=None)
     ap.add_argument("--i_testset", type=int, default=None, help="Frequency of test-set evals.")
     ap.add_argument("--n_devices", type=int, default=None)
@@ -83,6 +89,10 @@ def main(argv: list[str] | None = None):
             setattr(cfg, field, default)
     if kw["testskip"] is not None:
         cfg.testskip = kw["testskip"]
+    if cfg.train_mode == "nerf" and cfg.precrop_iters == 0:
+        # reference blender configs train the first 500 iters on a center
+        # crop (configs/lego.txt:16-17) against density collapse
+        cfg.precrop_iters = 500
 
     datadir = kw["dataset_path"]
     ft_path = None

@@ -48,9 +48,13 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
-template <int MT, int NT>
-__device__ void dense(const Operand* ops, int n_ops, const float* __restrict__ bias,
-                      bf16* out, int ldo, int act, float* scratch) {
+// The product of dense(), handed to an epilogue: epi(row, col, v, j) for
+// every element, v the fp32 sum over the operands, j the warp's column
+// tile (0..NT-1; col = warp * NT * 16 + j * 16 + (col & 15)). Each element
+// goes to exactly one lane, always the same one, in a fixed order, so a
+// per-lane sum over the epilogue's calls is deterministic.
+template <int MT, int NT, typename Epi>
+__device__ __forceinline__ void gemm_rows(const Operand* ops, int n_ops, float* scratch, Epi epi) {
   constexpr int N = kWarps * NT * 16;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -86,13 +90,18 @@ __device__ void dense(const Operand* ops, int n_ops, const float* __restrict__ b
     for (int j = 0; j < NT; ++j) {
       wmma::store_matrix_sync(s, acc[i][j], 16, wmma::mem_row_major);
       __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e >> 4, col = col0 + j * 16 + (e & 15);
-        out[(i * 16 + r) * ldo + col] = __float2bfloat16(activate(s[e] + bias[col], act));
-      }
+      for (int e = lane; e < 256; e += 32) epi(i * 16 + (e >> 4), col0 + j * 16 + (e & 15), s[e], j);
       __syncwarp();
     }
   }
+}
+
+template <int MT, int NT>
+__device__ void dense(const Operand* ops, int n_ops, const float* __restrict__ bias,
+                      bf16* out, int ldo, int act, float* scratch) {
+  gemm_rows<MT, NT>(ops, n_ops, scratch, [&](int r, int col, float v, int) {
+    out[r * ldo + col] = __float2bfloat16(activate(v + bias[col], act));
+  });
 }
 
 }  // namespace nst

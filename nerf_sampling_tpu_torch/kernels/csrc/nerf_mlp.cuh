@@ -1,5 +1,5 @@
 // The NeRF MLP over a block's sample rows, shared by K2/K3
-// (render_around_depth.cu) and K6 (render_hier.cu).
+// (render_around_depth.cu), K6/K7 (render_hier.cu) and K4 (nerf_points.cu).
 //
 // A block holds, in shared memory, the per-ray data of its R rays (o, d,
 // |d|, one spare float each, 8 floats a ray) and a plane of depths z[row]
@@ -8,8 +8,10 @@
 // reaches 2^9*|x|, so __sinf is not acceptable) goes to a bf16 tile
 // [pts emb 63 | 0 | view emb 27 | 0 x5], the MLP runs layer by layer
 // between two bf16 activation tiles (mlp_tile.cuh::dense: wmma bf16, fp32
-// accumulation), and sigma and sigmoid(rgb) land in per-row fp32 planes.
-// sigma_only runs the trunk and the alpha head alone (JAX heads="sigma").
+// accumulation), and sigma and sigmoid(rgb) land in per-row fp32 planes
+// (mlp_chunk: one chunk, whatever filled its PE tile; K4 keeps the rgb
+// logits). sigma_only runs the trunk and the alpha head alone (JAX
+// heads="sigma").
 //
 // sort_rows is the stable per-ray sort of a plane, by rank, that K3 and K6
 // run before shading: ties keep index order and NaN goes last, compared
@@ -113,6 +115,61 @@ __device__ __forceinline__ float embed(const float* v, int col) {
   return k < 3 ? sinf(a) : cosf(a);
 }
 
+// The MLP over the 64 rows of one chunk whose PE tile t.pe is filled;
+// rows [0, valid) are written: sigma[r * stride] and, unless sigma_only,
+// rgb[ch][r * stride], the logits when raw_rgb, else sigmoid(logits).
+// Every thread of the block calls it; it ends on a barrier.
+__device__ __forceinline__ void mlp_chunk(const NerfWeights& w, const Tiles& t, int valid,
+                                          bool sigma_only, bool raw_rgb, float* sigma,
+                                          float* const* rgb, int stride) {
+  const int tid = threadIdx.x;
+  const Operand op0 = {t.pe, kLdpe, w.w0, 64};
+  dense<kChunk / 16, kW / (16 * kWarps)>(&op0, 1, w.tb[0], t.x[0], kLdx, kRelu, t.scratch);
+  __syncthreads();
+  int cur = 0;
+  for (int i = 1; i < w.D; ++i) {
+    const Operand ops[2] = {{t.x[cur], kLdx, w.tw[i], kW}, {t.pe, kLdpe, w.skip_w[i], 64}};
+    dense<kChunk / 16, kW / (16 * kWarps)>(ops, ((w.skip_mask >> i) & 1u) ? 2 : 1, w.tb[i],
+                                           t.x[cur ^ 1], kLdx, kRelu, t.scratch);
+    __syncthreads();
+    cur ^= 1;
+  }
+
+  {  // sigma = h @ alpha_w + alpha_b: four threads per row
+    const int rr = tid >> 2, part = tid & 3;
+    const bf16* h = t.x[cur] + rr * kLdx;
+    float s = 0.f;
+    for (int c = part * (kW / 4); c < (part + 1) * (kW / 4); ++c)
+      s += __bfloat162float(h[c]) * __bfloat162float(w.alpha_w[c]);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (part == 0 && rr < valid) sigma[rr * stride] = s + w.alpha_b[0];
+  }
+  if (sigma_only) {
+    __syncthreads();  // the next chunk's first layer overwrites x[cur]
+    return;
+  }
+  const Operand opf = {t.x[cur], kLdx, w.feat_w, kW};
+  dense<kChunk / 16, kW / (16 * kWarps)>(&opf, 1, w.feat_b, t.x[cur ^ 1], kLdx, kNone, t.scratch);
+  __syncthreads();
+  const Operand opv[2] = {{t.x[cur ^ 1], kLdx, w.views_wf, kW},
+                          {t.pe + kPeViews, kLdpe, w.views_ws, 32}};
+  dense<kChunk / 16, kWv / (16 * kWarps)>(opv, 2, w.views_b, t.x[cur], kLdx, kRelu, t.scratch);
+  __syncthreads();
+
+  for (int e = tid; e < kChunk * 3; e += kThreads) {
+    const int rr = e / 3, ch = e % 3;
+    const bf16* hv = t.x[cur] + rr * kLdx;
+    float s = 0.f;
+    for (int c = 0; c < kWv; ++c) s += __bfloat162float(hv[c]) * __bfloat162float(w.rgb_w[ch * kWv + c]);
+    if (rr < valid) {
+      const float logit = s + w.rgb_b[ch];
+      rgb[ch][rr * stride] = raw_rgb ? logit : 1.f / (1.f + expf(-logit));
+    }
+  }
+  __syncthreads();
+}
+
 // The MLP over rows [0, rows) of the plane z (row's ray: row / S); writes
 // sigma[row] and, unless sigma_only, sigmoid(rgb) to rgb[0..2][row].
 // Every thread of the block calls it; it ends on a barrier.
@@ -141,50 +198,41 @@ __device__ __forceinline__ void nerf_rows(const NerfWeights& w, const Tiles& t, 
       t.pe[rr * kLdpe + col] = __float2bfloat16(v);
     }
     __syncthreads();
-
-    const Operand op0 = {t.pe, kLdpe, w.w0, 64};
-    dense<kChunk / 16, kW / (16 * kWarps)>(&op0, 1, w.tb[0], t.x[0], kLdx, kRelu, t.scratch);
-    __syncthreads();
-    int cur = 0;
-    for (int i = 1; i < w.D; ++i) {
-      const Operand ops[2] = {{t.x[cur], kLdx, w.tw[i], kW}, {t.pe, kLdpe, w.skip_w[i], 64}};
-      dense<kChunk / 16, kW / (16 * kWarps)>(ops, ((w.skip_mask >> i) & 1u) ? 2 : 1, w.tb[i],
-                                             t.x[cur ^ 1], kLdx, kRelu, t.scratch);
-      __syncthreads();
-      cur ^= 1;
-    }
-
-    {  // sigma = h @ alpha_w + alpha_b: four threads per row
-      const int rr = tid >> 2, part = tid & 3;
-      const bf16* h = t.x[cur] + rr * kLdx;
-      float s = 0.f;
-      for (int c = part * (kW / 4); c < (part + 1) * (kW / 4); ++c)
-        s += __bfloat162float(h[c]) * __bfloat162float(w.alpha_w[c]);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (part == 0 && c0 + rr < rows) sigma[c0 + rr] = s + w.alpha_b[0];
-    }
-    if (sigma_only) {
-      __syncthreads();  // the next chunk's first layer overwrites x[cur]
-      continue;
-    }
-    const Operand opf = {t.x[cur], kLdx, w.feat_w, kW};
-    dense<kChunk / 16, kW / (16 * kWarps)>(&opf, 1, w.feat_b, t.x[cur ^ 1], kLdx, kNone, t.scratch);
-    __syncthreads();
-    const Operand opv[2] = {{t.x[cur ^ 1], kLdx, w.views_wf, kW},
-                            {t.pe + kPeViews, kLdpe, w.views_ws, 32}};
-    dense<kChunk / 16, kWv / (16 * kWarps)>(opv, 2, w.views_b, t.x[cur], kLdx, kRelu, t.scratch);
-    __syncthreads();
-
-    for (int e = tid; e < kChunk * 3; e += kThreads) {
-      const int rr = e / 3, ch = e % 3;
-      const bf16* hv = t.x[cur] + rr * kLdx;
-      float s = 0.f;
-      for (int c = 0; c < kWv; ++c) s += __bfloat162float(hv[c]) * __bfloat162float(w.rgb_w[ch * kWv + c]);
-      if (c0 + rr < rows) rgb[ch][c0 + rr] = 1.f / (1.f + expf(-(s + w.rgb_b[ch])));
-    }
-    __syncthreads();
+    float* rgb_c[3] = {nullptr, nullptr, nullptr};
+    if (!sigma_only)
+      for (int k = 0; k < 3; ++k) rgb_c[k] = rgb[k] + c0;
+    mlp_chunk(w, t, rows - c0, sigma_only, false, sigma + c0, rgb_c, 1);
   }
+}
+
+// The PE tile of one chunk of point queries: row r of the chunk is the
+// point pts[row0 + r] and the unit view direction dirs[(row0 + r) / S]
+// (given, not normalized here). q holds the chunk's inputs, 8 floats a row
+// (pts[3], dirs[3], 0, 0). Rows [valid, 64) are zero. Ends on a barrier.
+__device__ __forceinline__ void point_pe(const float* __restrict__ pts, const float* __restrict__ dirs,
+                                         long long row0, int valid, long long S, const Tiles& t,
+                                         float* q) {
+  const int tid = threadIdx.x;
+  for (int e = tid; e < kChunk * 8; e += kThreads) {
+    const int rr = e >> 3, c = e & 7;
+    float v = 0.f;
+    if (rr < valid && c < 6) {
+      const long long row = row0 + rr;
+      v = c < 3 ? pts[row * 3 + c] : dirs[(row / S) * 3 + (c - 3)];
+    }
+    q[e] = v;
+  }
+  __syncthreads();
+  for (int e = tid; e < kChunk * kPeCols; e += kThreads) {
+    const int rr = e / kPeCols, col = e % kPeCols;
+    float v = 0.f;
+    if (rr < valid) {
+      if (col < kPtsCh) v = embed(q + rr * 8, col);
+      else if (col >= kPeViews && col < kPeViews + kViewCh) v = embed(q + rr * 8 + 3, col - kPeViews);
+    }
+    t.pe[rr * kLdpe + col] = __float2bfloat16(v);
+  }
+  __syncthreads();
 }
 
 // a before b in the stable order: ascending, NaN last, ties by index

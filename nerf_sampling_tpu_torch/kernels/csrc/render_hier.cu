@@ -1,12 +1,17 @@
-// K6: the seeded hierarchical pass, rays -> composited maps + argmax target.
+// K6 and K7: the hierarchical pass, rays -> composited maps + argmax.
 //
 // Replaces nerf_sampling_tpu/kernels/fused_hier.py::_call (the
-// pl.pallas_call at :255) run with a seed (_kernel with stochastic=True,
-// :104-221): the frozen-NeRF target pass of the depth-net train step
-// (nerf_sampling_tpu/train/steps.py:127-161). Per ray, with Nc coarse and
-// Nf fine samples:
+// pl.pallas_call at :255) in both of its modes (_kernel, :104-221):
+//   K6, run with a seed (stochastic=True): the frozen-NeRF target pass of
+//     the depth-net train step (nerf_sampling_tpu/train/steps.py:127-161);
+//   K7, deterministic: the FULL_NERF eval render (render/engine.py:688-707),
+//     with no jitter and det u = linspace(0, 1, Nf) (fused_hier.py:76-80;
+//     here i * fl(1/(Nf-1)) with the end pinned to 1, jnp.linspace's
+//     rounding, as the plain version and the XLA path).
+// Per ray, with Nc coarse and Nf fine samples:
 //   1. coarse z = lower + (upper - lower) * t_rand over the strata of the
-//      [near, far] linspace (or lindisp) grid (Trainer.py:604-626);
+//      [near, far] linspace (or lindisp) grid (Trainer.py:604-626); in det
+//      mode the grid itself;
 //   2. the coarse NeRF, trunk and alpha head only (no rgb is read), then
 //      the coarse weights: |d|-scaled dists with a 1e10 tail, alpha =
 //      1-exp(-relu(sigma)*dist), the exclusive product of 1-alpha+1e-10;
@@ -20,7 +25,8 @@
 //      sorted order, as the XLA path's argmax (the TPU kernel took the
 //      first in storage order, fused_hier.py:211-213).
 // The draws t_rand (Nc) and u (Nf) of a ray are Philox uniforms keyed by
-// (seed, global ray index) (philox.cuh), or read from injected draws.
+// (seed, global ray index) (philox.cuh), or read from injected draws; det
+// mode draws nothing.
 //
 // What bounds it on the H100: the two MLP passes, Nc sigma-only queries
 // (~0.98 MFLOP each) and Nc+Nf full queries (~1.19 MFLOP) a ray, on the
@@ -54,7 +60,7 @@ struct HierParams {
   long long n;
   int Nc, Nf, R;
   float near_, far_;
-  int lindisp, white_bkgd;
+  int lindisp, white_bkgd, det;
   unsigned seed;
   NerfWeights wc, wf;
 };
@@ -105,8 +111,8 @@ __global__ void __launch_bounds__(kThreads, 2) render_hier_kernel(const __grid_c
     const float zc = grid_z(p, s);
     const float lower = s == 0 ? zc : 0.5f * (zc + grid_z(p, s - 1));
     const float upper = s == Nc - 1 ? zc : 0.5f * (grid_z(p, s + 1) + zc);
-    const float tr = draw(p, ray0 + r, s);
-    const float z = __fadd_rn(lower, __fmul_rn(__fsub_rn(upper, lower), tr));
+    const float z = p.det ? zc
+                          : __fadd_rn(lower, __fmul_rn(__fsub_rn(upper, lower), draw(p, ray0 + r, s)));
     zs[e] = z;
     U[r * Su + s] = z;
   }
@@ -140,7 +146,8 @@ __global__ void __launch_bounds__(kThreads, 2) render_hier_kernel(const __grid_c
   // 3. fine z by inverse CDF, after the coarse z of each ray's union
   for (int e = tid; e < nr * Nf; e += kThreads) {
     const int r = e / Nf, j = e - r * Nf;
-    const float u = draw(p, ray0 + r, Nc + j);
+    const float u = !p.det ? draw(p, ray0 + r, Nc + j)
+                    : (j == Nf - 1 ? 1.f : (float)j * (1.f / (float)(Nf - 1)));
     const float* c = cdf + r * B;
     const float* m = mids + r * B;
     int lo = 0, hi = B;  // number of CDF entries <= u (searchsorted, right)
@@ -202,10 +209,10 @@ __global__ void __launch_bounds__(kThreads, 2) render_hier_kernel(const __grid_c
 
 // ptrs, in order: rays_o, rays_d, draws (or null), out; the coarse NeRF's
 // trunk and alpha head; the fine NeRF's weights (nerf_mlp.cuh::read_weights).
-// Returns a cudaError_t (0 on success).
+// det: no draws (K7). Returns a cudaError_t (0 on success).
 extern "C" int nst_render_hier(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf,
                                int Dc, unsigned skip_c, int Df, unsigned skip_f, float near_,
-                               float far_, int lindisp, int white_bkgd, unsigned seed,
+                               float far_, int lindisp, int white_bkgd, unsigned seed, int det,
                                void* stream) {
   using namespace nst;
   if (Nc < 4 || Nf < 1 || Nc + Nf > 512) return (int)cudaErrorInvalidValue;
@@ -227,6 +234,8 @@ extern "C" int nst_render_hier(const void* const* ptrs, int n_ptrs, long long n,
   p.lindisp = lindisp;
   p.white_bkgd = white_bkgd;
   p.seed = seed;
+  p.det = det;
+  if (det && p.draws) return (int)cudaErrorInvalidValue;
 
   cudaError_t err = cudaFuncSetAttribute(render_hier_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);

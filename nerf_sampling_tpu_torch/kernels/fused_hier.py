@@ -1,8 +1,9 @@
-"""K6: the seeded hierarchical pass as a hand-written CUDA kernel, with its plain version.
+"""K6 and K7: the hierarchical pass as a hand-written CUDA kernel, with its plain version.
 
-Replaces nerf_sampling_tpu/kernels/fused_hier.py::_call run with a seed
-(``fused_render_hier(..., seed=)``), the frozen-NeRF target pass of every
-depth-net train step. The kernel source is ``csrc/render_hier.cu``. Per ray:
+Replaces nerf_sampling_tpu/kernels/fused_hier.py::_call in both modes of
+``fused_render_hier``: with a seed (K6), the frozen-NeRF target pass of
+every depth-net train step; without (K7), the deterministic FULL_NERF eval
+render. The kernel source is ``csrc/render_hier.cu``. Per ray:
 
 1. coarse z: the [near, far] linspace (or lindisp) grid, jittered within
    each stratum by ``t_rand``;
@@ -15,11 +16,12 @@ depth-net train step. The kernel source is ``csrc/render_hier.cu``. Per ray:
 5. the argmax of the fine weights, first maximum in sorted order (the XLA
    path's rule, ``render/engine.py::_argmax_depth``): max_z, max_w, max_rgb.
 
-``render_hier_plain`` computes the same in plain PyTorch: fp32 is the
-reference, bf16 rounds where the kernel rounds. With draws of ``None`` it
-runs det mode (linspace grid, det u), the JAX kernel's eval mode, which the
-tests hold against the Pallas kernel. The kernel itself always draws, from
-Philox keyed by (seed, ray) (``philox.hier_draws``), or reads injected draws.
+In det mode (K7) the coarse z is the grid itself and u is the det
+linspace; otherwise the draws come from Philox keyed by (seed, ray)
+(``philox.hier_draws``) or are injected. ``render_hier_plain`` computes the
+same in plain PyTorch: fp32 is the reference, bf16 rounds where the kernel
+rounds; with draws of ``None`` it runs det mode, which the tests hold
+against the Pallas kernel.
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ from nerf_sampling_tpu_torch.kernels.fused_render import (
 )
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
 
-launches = 0  # kernel launches since the last reset (see chip_smoke.py)
+# kernel launches since the last reset (see chip_smoke.py): K6 and K7
+launches = 0
+det_launches = 0
 
 _SIGMA_KEYS = ("w0", "trunk_w", "trunk_b", "skip_w", "alpha_w", "alpha_b")
 HIER_OUTPUTS = ("rgb_map", "disp_map", "acc_map", "depth_map", "max_z", "max_w", "max_rgb")
@@ -127,20 +131,22 @@ def render_hier_kernel(
     far: float = 6.0,
     white_bkgd: bool = True,
     lindisp: bool = False,
-    seed: int = 0,
+    seed: int | None = None,
     draws: torch.Tensor | None = None,
     multires: int = 10,
     multires_views: int = 4,
 ) -> dict[str, torch.Tensor]:
     """K6 over N rays [N, 3]: draws from Philox keyed by (``seed``, ray), or
-    the injected ``draws`` [N, Nc + Nf] (t_rand, then u).
+    the injected ``draws`` [N, Nc + Nf] (t_rand, then u); K7 (det mode)
+    when both are None.
 
     On a CPU tensor this runs ``render_hier_plain`` at bf16 with the same
     draws; on a CUDA tensor it launches the kernel, or raises on what it
     does not take.
     """
-    global launches
+    global launches, det_launches
     _check_envelope(n_coarse, n_importance)
+    det = seed is None and draws is None
     n = rays_o.shape[0]
     n_draws = n_coarse + n_importance
     per_ray = {} if draws is None else {"draws": (draws, (n, n_draws))}
@@ -148,12 +154,12 @@ def render_hier_kernel(
     w_c = _flat_weights(packed["coarse"], sigma_only=True)
     w_f = _flat_weights(packed["fine"])
     if rays_o.device.type == "cpu":
-        if draws is None:
+        if draws is None and not det:
             draws = philox.hier_draws(seed, n, n_draws)
         return render_hier_plain(
             packed, cfg_c, cfg_f, rays_o, rays_d, n_coarse=n_coarse, n_importance=n_importance,
             near=near, far=far, white_bkgd=white_bkgd, lindisp=lindisp,
-            t_rand=draws[:, :n_coarse], u=draws[:, n_coarse:],
+            t_rand=None if det else draws[:, :n_coarse], u=None if det else draws[:, n_coarse:],
             multires=multires, multires_views=multires_views, dtype=torch.bfloat16,
         )
     inputs = (rays_o, rays_d) + ((draws,) if draws is not None else ())
@@ -167,10 +173,13 @@ def render_hier_kernel(
         cfg_c.D, sum(1 << i for i in packed["coarse"]["skip_w"]),
         cfg_f.D, sum(1 << i for i in packed["fine"]["skip_w"]),
         float(near), float(far), int(bool(lindisp)), int(bool(white_bkgd)),
-        int(seed) & 0xFFFFFFFF, build.current_stream(rays_o.device),
+        0 if seed is None else int(seed) & 0xFFFFFFFF, int(det), build.current_stream(rays_o.device),
     )
     build.check(rc, "render_hier_kernel")
-    launches += 1
+    if det:
+        det_launches += 1
+    else:
+        launches += 1
     return {
         "rgb_map": out[0:3].T, "disp_map": out[3], "acc_map": out[4], "depth_map": out[5],
         "max_z": out[6], "max_w": out[7], "max_rgb": out[8:11].T,
@@ -197,7 +206,7 @@ def fused_render_hier(
     rays_o: torch.Tensor,
     rays_d: torch.Tensor,
     *,
-    seed: int,
+    seed: int | None,
     n_coarse: int = 64,
     n_importance: int = 128,
     near: float = 2.0,
@@ -208,9 +217,10 @@ def fused_render_hier(
     multires_views: int = 4,
     draws: torch.Tensor | None = None,
 ) -> dict[str, torch.Tensor]:
-    """The seeded hierarchical pass of [N, 3] rays through K6
-    (nerf_sampling_tpu/kernels/fused_hier.py::fused_render_hier); ``packed``
-    is ``pack_hier(coarse, fine)``, made once for the frozen NeRF."""
+    """The hierarchical pass of [N, 3] rays
+    (nerf_sampling_tpu/kernels/fused_hier.py::fused_render_hier): seeded
+    through K6, or deterministic through K7 with ``seed=None``; ``packed``
+    is ``pack_hier(coarse, fine)`` of the NeRFs as they are now."""
     return render_hier_kernel(
         packed, cfg_c, cfg_f, rays_o.contiguous(), rays_d.contiguous(), n_coarse=n_coarse,
         n_importance=n_importance, near=near, far=far, white_bkgd=white_bkgd, lindisp=lindisp,

@@ -23,6 +23,8 @@ kernel rounds.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -99,6 +101,56 @@ def pack_nerf(model: NeRF, dtype=torch.bfloat16) -> dict:
     }
 
 
+class MlpActs(NamedTuple):
+    """The activations of ``mlp_plain`` that the backward reads (as fp32
+    tensors holding the kernels' bf16 values)."""
+
+    h: list  # trunk layers 0..D-1, [M, W] each
+    feature: torch.Tensor | None  # [M, W]
+    zv: torch.Tensor | None  # the views layer before its ReLU, fp32 [M, W/2]
+    hv: torch.Tensor | None  # [M, W/2]
+
+
+def mlp_plain(
+    packed: dict,
+    cfg: NeRFConfig,
+    x_pts: torch.Tensor,
+    x_v: torch.Tensor | None,
+    dtype=torch.bfloat16,
+    sigma_only: bool = False,
+) -> tuple[torch.Tensor, MlpActs]:
+    """The kernels' NeRF MLP on rounded embeddings [M, Cp] and [M, Cv], in
+    plain PyTorch: (raw [M, 4] (rgb logits, sigma), or sigma [M] with
+    ``sigma_only``; the activations). Every activation is rounded to
+    ``dtype`` where the kernels round it; sums are fp32."""
+    strict_fp32()
+    f32 = torch.float32
+    Cp, Cv = cfg.input_ch, cfg.input_ch_views
+
+    def rnd(x: torch.Tensor) -> torch.Tensor:
+        return x.to(dtype).to(f32)
+
+    def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return x @ w.to(f32)
+
+    h = rnd(torch.relu(mm(x_pts, packed["w0"][:Cp]) + packed["trunk_b"][0]))
+    hs = [h]
+    for i in range(1, cfg.D):
+        zi = mm(h, packed["trunk_w"][i - 1])
+        if i in packed["skip_w"]:
+            zi = zi + mm(x_pts, packed["skip_w"][i][:Cp])
+        h = rnd(torch.relu(zi + packed["trunk_b"][i]))
+        hs.append(h)
+    sigma = mm(h, packed["alpha_w"][:, None]) + packed["alpha_b"]
+    if sigma_only:
+        return sigma[:, 0], MlpActs(hs, None, None, None)
+    feature = rnd(mm(h, packed["feature_w"]) + packed["feature_b"])
+    zv = mm(feature, packed["views_wf"]) + mm(x_v, packed["views_ws"][:Cv]) + packed["views_b"]
+    hv = rnd(torch.relu(zv))
+    rgb_logits = mm(hv, packed["rgb_w"].T) + packed["rgb_b"]
+    return torch.cat([rgb_logits, sigma], -1), MlpActs(hs, feature, zv, hv)
+
+
 def nerf_raw_plain(
     packed: dict,
     cfg: NeRFConfig,
@@ -114,36 +166,20 @@ def nerf_raw_plain(
     """The kernels' NeRF MLP over the points o + z*d of [N, S] depths, in
     plain PyTorch: raw [N, S, 4] (sigmoid not applied), or sigma [N, S] with
     ``sigma_only`` (trunk and alpha head only, as K6's coarse pass)."""
-    strict_fp32()
-    f32 = torch.float32
     Cp, Cv = cfg.input_ch, cfg.input_ch_views
 
     def rnd(x: torch.Tensor) -> torch.Tensor:
-        return x.to(dtype).to(f32)
-
-    def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return x @ w.to(f32)
+        return x.to(dtype).to(torch.float32)
 
     n, S = z.shape
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
     x_pts = rnd(positional_encoding(pts, multires)).reshape(n * S, Cp)
-    h = rnd(torch.relu(mm(x_pts, packed["w0"][:Cp]) + packed["trunk_b"][0]))
-    for i in range(1, cfg.D):
-        zi = mm(h, packed["trunk_w"][i - 1])
-        if i in packed["skip_w"]:
-            zi = zi + mm(x_pts, packed["skip_w"][i][:Cp])
-        h = rnd(torch.relu(zi + packed["trunk_b"][i]))
-    sigma = mm(h, packed["alpha_w"][:, None]) + packed["alpha_b"]
-    if sigma_only:
-        return sigma.reshape(n, S)
-    vd = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    x_v = rnd(positional_encoding(vd, multires_views))[:, None, :].expand(n, S, Cv).reshape(n * S, Cv)
-    feature = rnd(mm(h, packed["feature_w"]) + packed["feature_b"])
-    hv = rnd(torch.relu(
-        mm(feature, packed["views_wf"]) + mm(x_v, packed["views_ws"][:Cv]) + packed["views_b"]
-    ))
-    rgb_logits = mm(hv, packed["rgb_w"].T) + packed["rgb_b"]
-    return torch.cat([rgb_logits, sigma], -1).reshape(n, S, 4)
+    x_v = None
+    if not sigma_only:
+        vd = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        x_v = rnd(positional_encoding(vd, multires_views))[:, None, :].expand(n, S, Cv).reshape(n * S, Cv)
+    out, _ = mlp_plain(packed, cfg, x_pts, x_v, dtype, sigma_only)
+    return out.reshape(n, S) if sigma_only else out.reshape(n, S, 4)
 
 
 def _maps(out) -> dict[str, torch.Tensor]:

@@ -1,4 +1,4 @@
-"""Rendering: the DEPTH_NET eval engine, the train-time renderer and the pose-path harness."""
+"""Rendering: the DEPTH_NET and FULL_NERF eval engine, the train-time renderers and the pose-path harness."""
 
 from nerf_sampling_tpu_torch.render.engine import (
     EvalMode,
@@ -11,7 +11,9 @@ from nerf_sampling_tpu_torch.render.engine import (
     render_flat_rays,
     render_image,
     render_rays_eval,
+    render_rays_joint,
     render_rays_train,
+    render_rays_vanilla,
     repack_depth,
     sample_as_in_nerf,
 )
@@ -29,7 +31,9 @@ __all__ = [
     "render_image",
     "render_path",
     "render_rays_eval",
+    "render_rays_joint",
     "render_rays_train",
+    "render_rays_vanilla",
     "repack_depth",
     "sample_as_in_nerf",
 ]

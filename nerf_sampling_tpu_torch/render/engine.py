@@ -1,21 +1,27 @@
-"""DepthNet render and train paths (nerf_sampling_tpu/render/engine.py).
+"""Render and train paths (nerf_sampling_tpu/render/engine.py).
 
-Two implementations of one eval render, chosen by ``Pipeline.mlp_impl``:
+Two implementations of each eval render, chosen by ``Pipeline.mlp_impl``:
 
-- ``"plain"``: the fp32 PyTorch path. DepthNet module -> uniform (or
-  gaussian) population -> NeRF module -> ``raw2outputs``, over ray chunks,
-  with per-sample outputs. It is the CPU path and the kernels' oracle.
-- ``"cuda"``: the hand-written kernels, K1 (DepthNet) then K2 (uniform
-  populate-and-shade) or K3 (gaussian), over all rays at once, with
-  map-level outputs. On CPU tensors their wrappers run the kernels' plain
+- ``"plain"``: the fp32 PyTorch path, over ray chunks, with per-sample
+  outputs. DEPTH_NET: DepthNet module -> uniform (or gaussian) population
+  -> NeRF module -> ``raw2outputs``; FULL_NERF: the hierarchical pass at
+  perturb 0. It is the CPU path and the kernels' oracle.
+- ``"cuda"``: the hand-written kernels over all rays at once, with
+  map-level outputs. DEPTH_NET: K1 (DepthNet) then K2 (uniform
+  populate-and-shade) or K3 (gaussian); FULL_NERF: K7 (the deterministic
+  hierarchical pass). On CPU tensors their wrappers run the kernels' plain
   versions at bf16.
 
-The train path (``sample_as_in_nerf``, ``render_rays_train``) is plain
-autograd PyTorch; the depth-net step puts its frozen-NeRF pass on K6
-(``train/steps.py``). The JAX names map onto these ("xla" -> "plain",
-"pallas" -> "cuda"); "pallas_int8" is not ported. Only EvalMode.DEPTH_NET
-is ported; the other modes raise NotImplementedError naming their ROADMAP
-item, and nothing falls back quietly to the plain path.
+The train renderers (``sample_as_in_nerf``, ``render_rays_train``,
+``render_rays_vanilla``, ``render_rays_joint``) are autograd PyTorch; under
+``"cuda"`` every NeRF query of the hierarchical pass goes through K4 with
+K5 as its backward (``query_nerf``), and the depth-point query stays plain
+fp32 (its gradient w.r.t. the points trains the DepthNet). The depth-net
+step puts its frozen-NeRF pass on K6 (``train/steps.py``). The JAX names
+map onto these ("xla" -> "plain", "pallas" -> "cuda"); "pallas_int8" is not
+ported. COMPARE_NERF, NERF_MAX and FULL_NERF without fine samples (K8)
+raise NotImplementedError naming their ROADMAP item, and nothing falls back
+quietly to the plain path.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from nerf_sampling_tpu_torch.core.sampling import (
     stratified_z_vals,
     z_to_points,
 )
-from nerf_sampling_tpu_torch.kernels import fused_depth_net, fused_hier, fused_render
+from nerf_sampling_tpu_torch.kernels import fused_depth_net, fused_hier, fused_nerf_vjp, fused_render
 from nerf_sampling_tpu_torch.models.depth_net import DepthNet, DepthNetConfig
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
 from nerf_sampling_tpu_torch.utils.precision import strict_fp32
@@ -58,7 +64,7 @@ class KernelWeights(NamedTuple):
 
     depth: dict | None  # fused_depth_net.pack_depth_net of the DepthNet (K1)
     nerf: dict  # fused_render.pack_nerf of the NeRF that renders: fine, else coarse (K2, K3)
-    hier: dict | None = None  # fused_hier.pack_hier of coarse and fine (K6)
+    hier: dict | None = None  # fused_hier.pack_hier of coarse and fine (K6, K7)
 
 
 class NeRFParams(NamedTuple):
@@ -80,8 +86,9 @@ def pack_kernel_weights(params: NeRFParams, with_hier: bool = False) -> NeRFPara
 
     A pack does not follow later changes to the modules. Pack again (or
     ``repack_depth``) after any change to their weights: the Trainer repacks
-    the DepthNet before every eval, since training steps change it; the
-    frozen NeRF's packs are made once. ``with_hier`` adds K6's pack.
+    before every eval what its steps changed (the DepthNet in depth-net
+    mode; every pack in nerf and joint mode); a frozen NeRF's packs are made
+    once. ``with_hier`` adds the pack of K6 and K7.
     """
     model = params.fine if params.fine is not None else params.coarse
     depth = params.depth
@@ -110,9 +117,9 @@ class RayBatch(NamedTuple):
 class Pipeline:
     """Static rendering configuration (field names as in the JAX Pipeline).
 
-    The fields that the DEPTH_NET eval render and the depth-net train step
-    read; the JAX Pipeline's NDC geometry (H, W, focal), quant_calib and
-    joint_depth_warmup come with the slices that read them (S6, S8, S3).
+    The fields that the ported eval renders and train steps read; the JAX
+    Pipeline's NDC geometry (H, W, focal) and quant_calib come with the
+    slices that read them (S6, S8).
     """
 
     nerf: NeRFConfig
@@ -135,8 +142,11 @@ class Pipeline:
     sampling_mode: str = "uniform"
     distance: float = 0.01
     # down-weights the depth MSE of background rays (hierarchical acc <=
-    # 0.5) in depth-net training; 1.0 is the reference objective
+    # 0.5) in depth-net and joint training; 1.0 is the reference objective
     bg_depth_loss_weight: float = 1.0
+    # joint training: the DepthNet and its loss terms stay out of the step
+    # for the NeRF's first joint_depth_warmup steps (0: off)
+    joint_depth_warmup: int = 0
     # "plain" (fp32 PyTorch) or "cuda" (the hand-written kernels)
     mlp_impl: str = PLAIN
     netchunk: int = 1024 * 64
@@ -171,10 +181,21 @@ def make_ray_batch(pipeline: Pipeline, rays_o: torch.Tensor, rays_d: torch.Tenso
     return RayBatch(rays_o, rays_d, viewdirs, near, far)
 
 
-def query_nerf(
+def check_kernel_queries(p: Pipeline) -> None:
+    """What K4/K5 (and K6/K7) take of a "cuda" pipeline; raises, naming
+    what is missing (the JAX package drops to XLA outside its kernels'
+    envelope; the port does not fall back)."""
+    if p.ndc:
+        raise NotImplementedError("NDC rays are not ported yet: ROADMAP S6")
+    if not p.use_viewdirs or p.i_embed == -1:
+        raise ValueError("mlp_impl='cuda' needs use_viewdirs and positional encoding")
+
+
+def _query_plain(
     pipeline: Pipeline, model: NeRF, pts: torch.Tensor, viewdirs: torch.Tensor | None
 ) -> torch.Tensor:
-    """Embed [N, S, 3] points (+ dirs) and evaluate the NeRF, netchunk points at a time."""
+    """Embed [N, S, 3] points (+ dirs) and evaluate the NeRF module,
+    netchunk points at a time (fp32 autograd)."""
     if viewdirs is not None:
         flat_in = torch.cat([pts, viewdirs[:, None, :].expand(pts.shape)], -1).reshape(-1, 6)
     else:
@@ -187,6 +208,33 @@ def query_nerf(
         outs.append(model(emb))
     raw = torch.cat(outs, 0)
     return raw.reshape(*pts.shape[:-1], raw.shape[-1])
+
+
+def query_nerf(
+    pipeline: Pipeline,
+    model: NeRF,
+    pts: torch.Tensor,
+    viewdirs: torch.Tensor | None,
+    *,
+    input_grads: bool = True,
+) -> torch.Tensor:
+    """Raw [N, S, 4] of the NeRF at [N, S, 3] points with per-ray unit
+    viewdirs [N, 3] (reference run_network).
+
+    ``"plain"``: the module in fp32 autograd. ``"cuda"``: K4, with K5 as its
+    backward (``fused_nerf_train_apply``), over all points at once;
+    ``input_grads=False`` drops dL/d(points, viewdirs) from K5 and is right
+    only when the loss does not differentiate through them.
+    """
+    if pipeline.mlp_impl != CUDA:
+        return _query_plain(pipeline, model, pts, viewdirs)
+    check_kernel_queries(pipeline)
+    if viewdirs is None:
+        raise ValueError("mlp_impl='cuda' queries need view directions")
+    return fused_nerf_vjp.fused_nerf_train_apply(
+        model, model.cfg, pts, viewdirs[:, None, :], pipeline.multires, pipeline.multires_views,
+        input_grads=input_grads,
+    )
 
 
 class HierarchicalResult(NamedTuple):
@@ -224,7 +272,9 @@ def sample_as_in_nerf(
         perturb=perturb, lindisp=pipeline.lindisp, t_rand=t_rand,
     )
     pts = z_to_points(rays.rays_o, rays.rays_d, z_vals)
-    raw = query_nerf(pipeline, params.coarse, pts, rays.viewdirs)
+    # the hierarchical losses never differentiate through the sample points
+    # (z is detached, the rays are data): K5 drops its dL/dx chain
+    raw = query_nerf(pipeline, params.coarse, pts, rays.viewdirs, input_grads=False)
     coarse = raw2outputs(raw, z_vals, rays.rays_d, raw_noise_std, pipeline.white_bkgd,
                          generator=generator)
     if pipeline.N_importance <= 0:
@@ -238,7 +288,7 @@ def sample_as_in_nerf(
     fine_z = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1, stable=True).values
     fine_pts = z_to_points(rays.rays_o, rays.rays_d, fine_z)
     fine_model = params.fine if params.fine is not None else params.coarse
-    fine_raw = query_nerf(pipeline, fine_model, fine_pts, rays.viewdirs)
+    fine_raw = query_nerf(pipeline, fine_model, fine_pts, rays.viewdirs, input_grads=False)
     fine = raw2outputs(fine_raw, fine_z, rays.rays_d, raw_noise_std, pipeline.white_bkgd,
                        generator=generator)
     return HierarchicalResult(coarse, z_vals, fine, fine_z, fine_pts, fine_raw)
@@ -259,9 +309,10 @@ def _query_fine_or_coarse(
     pipeline: Pipeline, params: NeRFParams, pts: torch.Tensor, rays: RayBatch
 ) -> torch.Tensor:
     """NeRF query preferring the fine network (reference nerf_utils.py:696-699),
-    in plain autograd: its gradient w.r.t. the points trains the DepthNet."""
+    in plain fp32 autograd whatever ``mlp_impl`` says (the JAX
+    ``force_xla=True``): its gradient w.r.t. the points trains the DepthNet."""
     model = params.fine if params.fine is not None else params.coarse
-    return query_nerf(pipeline, model, pts, rays.viewdirs)
+    return _query_plain(pipeline, model, pts, rays.viewdirs)
 
 
 def render_rays_train(
@@ -299,10 +350,61 @@ def render_rays_train(
     }
 
 
+def render_rays_joint(
+    pipeline: Pipeline,
+    params: NeRFParams,
+    rays: RayBatch,
+    generator: torch.Generator | None = None,
+    *,
+    t_rand: torch.Tensor | None = None,
+    u: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """Joint renderer: one hierarchical pass feeding both objectives (the
+    vanilla NeRF maps, fine rgb and coarse rgb0, and the DepthNet's maps
+    and argmax target from the same pass)."""
+    hier = sample_as_in_nerf(pipeline, params, rays, generator, t_rand=t_rand, u=u)
+    max_z, _, _ = _argmax_depth(hier.fine, hier.fine_z_vals, rays)
+    depth_z = params.depth(rays.rays_o, rays.rays_d)
+    depth_pts = z_to_points(rays.rays_o, rays.rays_d, depth_z)
+    depth_raw = _query_fine_or_coarse(pipeline, params, depth_pts, rays)
+    out = raw2outputs(depth_raw, depth_z, rays.rays_d, pipeline.raw_noise_std,
+                      pipeline.white_bkgd, generator=generator)
+    return {
+        "rgb_map": hier.fine.rgb_map,
+        "rgb0": hier.coarse.rgb_map,
+        "depth_net_rgb_map": out.rgb_map,
+        "depth_net_z_vals": depth_z,
+        "max_z_vals": max_z.detach(),
+        "acc_map": hier.fine.acc_map,
+    }
+
+
+def render_rays_vanilla(
+    pipeline: Pipeline,
+    params: NeRFParams,
+    rays: RayBatch,
+    generator: torch.Generator | None = None,
+    *,
+    t_rand: torch.Tensor | None = None,
+    u: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """The vanilla hierarchical NeRF train renderer (no DepthNet): fine
+    maps and the coarse ones (rgb0, disp0, acc0)."""
+    hier = sample_as_in_nerf(pipeline, params, rays, generator, t_rand=t_rand, u=u)
+    return {
+        "rgb_map": hier.fine.rgb_map,
+        "disp_map": hier.fine.disp_map,
+        "acc_map": hier.fine.acc_map,
+        "rgb0": hier.coarse.rgb_map,
+        "disp0": hier.coarse.disp_map,
+        "acc0": hier.coarse.acc_map,
+    }
+
+
 def _unported_mode(mode: EvalMode) -> NotImplementedError:
     return NotImplementedError(
-        f"EvalMode.{mode.name} needs the hierarchical sampler and its kernels "
-        "(K6-K8): ROADMAP S4"
+        f"EvalMode.{mode.name} (its argmax diagnostics and the K6 variants that serve them) "
+        "is not ported: ROADMAP S4"
     )
 
 
@@ -313,8 +415,21 @@ def render_rays_eval(
     mode: EvalMode = EvalMode.DEPTH_NET,
     generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
-    """DEPTH_NET eval render of one ray batch on the plain path (reference
-    render_rays_test)."""
+    """DEPTH_NET or FULL_NERF eval render of one ray batch on the plain
+    path (reference render_rays_test), at perturb 0 and no raw noise."""
+    if mode == EvalMode.FULL_NERF:
+        hier = sample_as_in_nerf(pipeline, params, rays, generator, perturb=0.0, raw_noise_std=0.0)
+        max_z, max_pts, max_w = _argmax_depth(hier.fine, hier.fine_z_vals, rays)
+        return {
+            "max_z_vals": max_z,
+            "max_pts": max_pts,
+            "max_weights": max_w,
+            "depth_net_rgb_map": hier.fine.rgb_map,
+            "depth_net_disp_map": hier.fine.disp_map,
+            "depth_net_weights": hier.fine.weights,
+            "depth_net_pts": hier.fine_pts,
+            "depth_net_z_vals": hier.fine_z_vals,
+        }
     if mode != EvalMode.DEPTH_NET:
         raise _unported_mode(mode)
     depth_mean = params.depth(rays.rays_o, rays.rays_d)
@@ -343,9 +458,12 @@ def _fused_fast_paths(
     mode: EvalMode,
     generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
-    """DEPTH_NET through K1 then K2 (uniform) or K3 (gaussian); flat [N, ...]
-    map-level outputs. K3's seed is drawn from ``generator``."""
+    """DEPTH_NET through K1 then K2 (uniform) or K3 (gaussian), FULL_NERF
+    through K7; flat [N, ...] map-level outputs. K3's seed is drawn from
+    ``generator``."""
     p = pipeline
+    if mode == EvalMode.FULL_NERF:
+        return _full_nerf_kernel(p, params, rays_o, rays_d)
     if mode != EvalMode.DEPTH_NET:
         raise _unported_mode(mode)
     if p.sampling_mode not in ("uniform", "gaussian") or not 1 < p.n_depth_samples <= fused_render.MAX_SAMPLES:
@@ -353,10 +471,7 @@ def _fused_fast_paths(
             "mlp_impl='cuda' renders the uniform or gaussian population with 2.."
             f"{fused_render.MAX_SAMPLES} samples; got {p.sampling_mode}/{p.n_depth_samples}"
         )
-    if not p.use_viewdirs or p.i_embed == -1:
-        raise ValueError("mlp_impl='cuda' needs use_viewdirs and positional encoding")
-    if p.ndc:
-        raise NotImplementedError("NDC rays are not ported yet: ROADMAP S6")
+    check_kernel_queries(p)
     if p.sampling_mode == "gaussian" and generator is None:
         raise ValueError("the gaussian population requires a torch.Generator")
     ro, rd = rays_o.reshape(-1, 3).contiguous(), rays_d.reshape(-1, 3).contiguous()
@@ -374,6 +489,35 @@ def _fused_fast_paths(
                                  device=generator.device))
         maps = fused_render.fused_render_gaussian(
             params.kernels.nerf, model.cfg, ro, rd, depth, seed=seed, **common)
+    return {
+        "depth_net_rgb_map": maps["rgb_map"],
+        "depth_net_disp_map": maps["disp_map"],
+        "depth_net_weights": maps["acc_map"],
+        "depth_net_z_vals": maps["depth_map"],
+        "depth_net_pts": ro.new_zeros((ro.shape[0], 0, 3)),
+    }
+
+
+def _full_nerf_kernel(
+    p: Pipeline, params: NeRFParams, rays_o: torch.Tensor, rays_d: torch.Tensor
+) -> dict[str, torch.Tensor]:
+    """FULL_NERF through K7, the deterministic hierarchical pass."""
+    if p.N_importance <= 0:
+        raise NotImplementedError(
+            "FULL_NERF without fine samples (N_importance == 0) renders through K8 "
+            "(fused_render.py::fused_render), which is not ported: ROADMAP S4"
+        )
+    check_kernel_queries(p)
+    ro, rd = rays_o.reshape(-1, 3).contiguous(), rays_d.reshape(-1, 3).contiguous()
+    if params.kernels is None or params.kernels.hier is None:
+        params = pack_kernel_weights(params, with_hier=True)
+    fine = params.fine if params.fine is not None else params.coarse
+    maps = fused_hier.fused_render_hier(
+        params.kernels.hier, params.coarse.cfg, fine.cfg, ro, rd, seed=None,
+        n_coarse=p.N_samples, n_importance=p.N_importance, near=p.near, far=p.far,
+        white_bkgd=p.white_bkgd, lindisp=p.lindisp, multires=p.multires,
+        multires_views=p.multires_views,
+    )
     return {
         "depth_net_rgb_map": maps["rgb_map"],
         "depth_net_disp_map": maps["disp_map"],

@@ -1,4 +1,4 @@
-"""Depth-net training: checkpoints, sampler, train state, the train step and the Trainer."""
+"""Training: checkpoints, sampler, train state, the depth-net, nerf and joint steps and the Trainer."""
 
 from nerf_sampling_tpu_torch.train.checkpoint import (
     find_checkpoints,
@@ -9,8 +9,21 @@ from nerf_sampling_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from nerf_sampling_tpu_torch.train.sampler import RaySampler, SamplerConfig
-from nerf_sampling_tpu_torch.train.state import TrainState, init_state, make_depth_optimizer
-from nerf_sampling_tpu_torch.train.steps import StepDraws, make_depth_net_train_step
+from nerf_sampling_tpu_torch.train.state import (
+    TrainState,
+    init_nerf_state,
+    init_state,
+    make_depth_optimizer,
+    make_nerf_optimizer,
+    nerf_lr_schedule,
+    nerf_modules,
+)
+from nerf_sampling_tpu_torch.train.steps import (
+    StepDraws,
+    make_depth_net_train_step,
+    make_joint_train_step,
+    make_nerf_train_step,
+)
 
 __all__ = [
     "RaySampler",
@@ -18,10 +31,16 @@ __all__ = [
     "StepDraws",
     "TrainState",
     "find_checkpoints",
+    "init_nerf_state",
     "init_state",
     "load_checkpoint",
     "make_depth_net_train_step",
     "make_depth_optimizer",
+    "make_joint_train_step",
+    "make_nerf_optimizer",
+    "make_nerf_train_step",
+    "nerf_lr_schedule",
+    "nerf_modules",
     "params_from_jax",
     "params_to_jax",
     "read_npz_tree",

@@ -8,11 +8,18 @@ converts the parameter pytrees ([in, out] weights, fp16 storage allowed)
 into state dicts of the port's modules ([out, in], fp32), with the
 reference's key names, and ``params_to_jax`` is its inverse.
 
-``save_checkpoint`` writes the same layout: a depth-net checkpoint holds
-``params`` (the JAX NeRFParams: coarse, fine, depth) and ``opt_state``,
-the DepthNet's Adam moments in optax.adam's layout
-(``[0].count``, ``[0].mu[...]``, ``[0].nu[...]``), so a resume is exact
-and the JAX package's ``load_checkpoint`` reads both.
+``save_checkpoint`` writes the same layout, so a resume is exact and the
+JAX package's ``load_checkpoint`` reads every leaf:
+
+- a depth-net checkpoint (``depth_{i:06d}.npz``) holds ``params`` (the JAX
+  NeRFParams: coarse, fine, depth) and ``opt_state``, the DepthNet's Adam
+  moments in optax.adam's layout (``[0].count``, ``[0].mu[...]``,
+  ``[0].nu[...]``);
+- a nerf or joint checkpoint (``{i:06d}.npz``) holds ``params`` and
+  ``opt_state``, the NeRFs' Adam in the layout of optax.adam with a
+  schedule over NeRFParams(coarse, fine, None) (``[0].mu.coarse[...]``,
+  ..., and the schedule's ``[1].count``); joint mode adds
+  ``depth_opt_state``, the DepthNet's Adam.
 """
 
 from __future__ import annotations
@@ -213,6 +220,53 @@ def adam_state_from_jax(opt_tree, model: torch.nn.Module, optimizer: torch.optim
             "step": torch.tensor(float(count), dtype=torch.float32),
             "exp_avg": mu[name].to(p.device).reshape(p.shape).clone(),
             "exp_avg_sq": nu[name].to(p.device).reshape(p.shape).clone(),
+        }
+    return count
+
+
+class JaxScheduleState(NamedTuple):
+    """optax ScaleByScheduleState's key layout (``.count``)."""
+
+    count: Any
+
+
+def nerf_adam_state_to_jax(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> tuple:
+    """A torch Adam's moments of ``state.nerf_modules`` (coarse, fine) as
+    optax.adam-with-a-schedule's state over NeRFParams(coarse, fine, None)."""
+    from nerf_sampling_tpu_torch.train.state import adam_count
+
+    moments = {"exp_avg": {}, "exp_avg_sq": {}}
+    for name, p in model.named_parameters():
+        net, key = name.split(".", 1)
+        st = optimizer.state.get(p, {})
+        for k, tree in moments.items():
+            tree.setdefault(net, {})[key] = st.get(k, torch.zeros_like(p))
+
+    def as_jax(tree: dict) -> JaxNeRFParams:
+        return JaxNeRFParams(**{net: nerf_params_to_jax(sd) for net, sd in tree.items()})
+
+    count = np.asarray(adam_count(optimizer), np.int32)
+    return (JaxAdamState(count, as_jax(moments["exp_avg"]), as_jax(moments["exp_avg_sq"])),
+            JaxScheduleState(count))
+
+
+def nerf_adam_state_from_jax(opt_tree, model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> int | None:
+    """Load the NeRFs' optax moments (``opt_state`` as read by
+    ``read_npz_tree``) into ``optimizer``'s state for ``state.nerf_modules``;
+    returns the count, or None when ``opt_tree`` is not a NeRF optimizer's
+    state (a depth-net checkpoint's), which then restores nothing."""
+    adam = opt_tree[0]
+    if not isinstance(adam.get("mu"), dict) or "coarse" not in adam["mu"]:
+        return None
+    count = int(adam["count"])
+    mu = {net: nerf_state_dict(t) for net, t in adam["mu"].items()}
+    nu = {net: nerf_state_dict(t) for net, t in adam["nu"].items()}
+    for name, p in model.named_parameters():
+        net, key = name.split(".", 1)
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[net][key].to(p.device).reshape(p.shape).clone(),
+            "exp_avg_sq": nu[net][key].to(p.device).reshape(p.shape).clone(),
         }
     return count
 

@@ -1,23 +1,32 @@
-"""The depth-net train step (nerf_sampling_tpu/train/steps.py:43-231).
+"""The train steps (nerf_sampling_tpu/train/steps.py).
 
-The reference (Trainer.core_optimization_loop, Trainer.py:506-544) steps
-only the sampling optimizer on ``img_loss + mse(depth_z, max_z)``: the
-DepthNet gets the sum of both gradients and the frozen NeRF none. Here the
-NeRF modules are frozen (``requires_grad_(False)``), gradients still flow
-through the query points to the DepthNet, and the differentiable part runs
-in strict fp32 (no TF32), as the JAX package pins Precision.HIGHEST.
+- ``make_depth_net_train_step`` (:103-231): the reference's only working
+  step (Trainer.core_optimization_loop, Trainer.py:506-544). It steps only
+  the sampling optimizer on ``img_loss + mse(depth_z, max_z)``: the
+  DepthNet gets the sum of both gradients and the frozen NeRF none. Here the
+  NeRF modules are frozen (``requires_grad_(False)``), gradients still flow
+  through the query points to the DepthNet, and the differentiable part
+  runs in strict fp32 (no TF32), as the JAX package pins Precision.HIGHEST.
+  Under ``"cuda"`` the frozen-NeRF target pass (about 98% of the step's
+  FLOPs) is K6, ``fused_render_hier`` with the step's seed, under no_grad;
+  then the DepthNet and the single depth-point fine-NeRF query in plain
+  autograd (the JAX step's oracle branch with ``force_xla=True``).
+- ``make_nerf_train_step`` (:234-281): coarse and fine NeRFs trained
+  together on img2mse(fine) + img2mse(coarse) (the reference's NeRF
+  optimizer is created and decayed but never stepped, SURVEY.md defect #4).
+- ``make_joint_train_step`` (:383-490): the NeRFs and the DepthNet in one
+  step. The NeRFs' loss adds the DepthNet's photometric term (its gradient
+  reaches the fine NeRF through the depth-point query) and the DepthNet's
+  depth MSE; with ``joint_depth_warmup`` both depth terms stay out, and the
+  DepthNet's parameters and Adam state are left exactly as they were, until
+  the NeRF's step count reaches it.
 
-Two branches, chosen by ``Pipeline.mlp_impl``:
-
-- ``"cuda"``: the frozen-NeRF target pass (about 98% of the step's FLOPs)
-  is K6, ``fused_render_hier`` with the step's seed, under no_grad; then
-  the DepthNet and the single depth-point fine-NeRF query in plain
-  autograd, as the JAX step's oracle branch with ``force_xla=True``. A
-  config outside K6's envelope raises; it does not drop to the plain path.
-- ``"plain"``: ``render_rays_train`` (hierarchical pass in plain PyTorch).
-
-The draws of a step come from its seed, or are injected (``StepDraws``),
-which is how the tests feed both packages the same numbers.
+Under ``"cuda"`` the NeRF queries of the nerf and joint steps' hierarchical
+pass run on K4 with K5 as their backward (``render.engine.query_nerf``); the
+depth-point query stays plain fp32. A "cuda" config outside a kernel's
+envelope raises; it does not drop to the plain path. The draws of a step
+come from its seed, or are injected (``StepDraws``), which is how the tests
+feed both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -38,10 +47,13 @@ from nerf_sampling_tpu_torch.render.engine import (
     Pipeline,
     RayBatch,
     _query_fine_or_coarse,
+    check_kernel_queries,
     make_ray_batch,
+    render_rays_joint,
     render_rays_train,
+    render_rays_vanilla,
 )
-from nerf_sampling_tpu_torch.train.state import TrainState
+from nerf_sampling_tpu_torch.train.state import TrainState, apply_update
 from nerf_sampling_tpu_torch.utils.precision import strict_fp32
 
 
@@ -61,10 +73,7 @@ def check_hier_oracle(p: Pipeline) -> bool:
     """
     if p.mlp_impl != CUDA:
         return False
-    if p.ndc:
-        raise NotImplementedError("NDC rays are not ported yet: ROADMAP S6")
-    if not p.use_viewdirs or p.i_embed == -1:
-        raise ValueError("mlp_impl='cuda' (K6) needs use_viewdirs and positional encoding")
+    check_kernel_queries(p)
     if p.raw_noise_std != 0.0:
         raise ValueError("mlp_impl='cuda' (K6) takes raw_noise_std=0 only")
     if p.N_samples < 4 or p.N_importance < 1 or p.N_samples + p.N_importance > 512:
@@ -180,5 +189,116 @@ def make_depth_net_train_step(pipeline: Pipeline, frozen: NeRFParams) -> Callabl
             state.optimizer.step()
         state.step += 1
         return state, metrics
+
+    return step
+
+
+def _step_generator(rays: RayBatch, seed: int, draws: StepDraws | None) -> dict:
+    """The sampling arguments of a step: its seeded generator, or the draws."""
+    if draws is not None:
+        return {"generator": None, "t_rand": draws.t_rand, "u": draws.u}
+    return {"generator": torch.Generator(device=rays.rays_o.device).manual_seed(seed)}
+
+
+def nerf_pair(model: torch.nn.Module) -> NeRFParams:
+    """The coarse and fine NeRFs of a ``state.nerf_modules``."""
+    return NeRFParams(model["coarse"], model["fine"] if "fine" in model else None)
+
+
+def make_nerf_train_step(pipeline: Pipeline) -> Callable:
+    """The vanilla hierarchical NeRF train step: coarse and fine optimized
+    together on img2mse(fine rgb) + img2mse(coarse rgb).
+
+    The returned ``step(state, (rays_o, rays_d, target), seed, draws=None)``
+    updates ``state.model`` (``state.nerf_modules``) with its decayed Adam
+    and returns (state with the step count advanced, detached metrics
+    ``loss``, ``img_loss``, ``psnr``, ``psnr0``).
+    """
+    p = pipeline
+    if p.mlp_impl == CUDA:
+        check_kernel_queries(p)
+
+    def step(state: TrainState, batch, seed: int, draws: StepDraws | None = None):
+        rays_o, rays_d, target = batch
+        strict_fp32()
+        rays = make_ray_batch(p, rays_o, rays_d)
+        with record_function("nerf_forward"):
+            out = render_rays_vanilla(p, nerf_pair(state.model), rays, **_step_generator(rays, seed, draws))
+            img_loss = img2mse(out["rgb_map"], target)
+            img_loss0 = img2mse(out["rgb0"], target)
+            loss = img_loss + img_loss0
+        state.optimizer.zero_grad(set_to_none=True)
+        with record_function("backward"):
+            loss.backward()
+        with record_function("adam"):
+            apply_update(state)
+        state.step += 1
+        with torch.no_grad():
+            metrics = {"loss": loss.detach(), "img_loss": img_loss.detach(),
+                       "psnr": mse2psnr(img_loss.detach()), "psnr0": mse2psnr(img_loss0.detach())}
+        return state, metrics
+
+    return step
+
+
+def make_joint_train_step(pipeline: Pipeline) -> Callable:
+    """The joint train step: NeRFs and DepthNet from one hierarchical pass.
+
+    Losses (the JAX step's): the NeRFs take img2mse(fine) + img2mse(coarse)
+    + img2mse(depth rgb) + depth MSE, the DepthNet the last two (max_z is
+    detached). While ``nerf_state.step < joint_depth_warmup`` the depth
+    terms leave the loss and the DepthNet is not stepped: its parameters
+    and Adam state stay exactly as they were.
+
+    The returned ``step(nerf_state, depth_state, (rays_o, rays_d, target),
+    seed, draws=None)`` returns (nerf_state, depth_state, detached metrics:
+    ``loss`` = img_loss + depth rgb loss, ``img_loss``, ``depth_net_loss``,
+    ``psnr``, the fg/bg depth diagnostics and, with a warmup, ``depth_live``).
+    """
+    p = pipeline
+    if p.mlp_impl == CUDA:
+        check_kernel_queries(p)
+
+    def step(nerf_state: TrainState, depth_state: TrainState, batch, seed: int,
+             draws: StepDraws | None = None):
+        rays_o, rays_d, target = batch
+        strict_fp32()
+        rays = make_ray_batch(p, rays_o, rays_d)
+        live = nerf_state.step >= p.joint_depth_warmup
+        with record_function("joint_forward"):
+            params = nerf_pair(nerf_state.model)._replace(depth=depth_state.model)
+            out = render_rays_joint(p, params, rays, **_step_generator(rays, seed, draws))
+            img_loss = img2mse(out["rgb_map"], target)
+            img_loss0 = img2mse(out["rgb0"], target)
+            depth_img_loss = img2mse(out["depth_net_rgb_map"], target)
+            depth_z, max_z, acc = out["depth_net_z_vals"], out["max_z_vals"], out["acc_map"].detach()
+            if p.bg_depth_loss_weight != 1.0:
+                depth_loss = _weighted_depth_loss(depth_z, max_z, acc, p.bg_depth_loss_weight)
+            else:  # reference objective
+                depth_loss = img2mse(depth_z, max_z)
+            total = img_loss + img_loss0
+            if live:
+                total = total + (depth_img_loss + depth_loss)
+        nerf_state.optimizer.zero_grad(set_to_none=True)
+        depth_state.optimizer.zero_grad(set_to_none=True)
+        with record_function("backward"):
+            total.backward()
+        with record_function("adam"):
+            apply_update(nerf_state)
+            if live:
+                apply_update(depth_state)
+        nerf_state.step += 1
+        depth_state.step += 1
+        with torch.no_grad():
+            metrics = {
+                "loss": (img_loss + depth_img_loss).detach(),
+                "img_loss": img_loss.detach(),
+                "depth_net_loss": depth_loss.detach(),
+                "psnr": mse2psnr(img_loss.detach()),
+                **_fg_bg_depth_diagnostics(depth_z.detach(), max_z, acc),
+            }
+            if p.joint_depth_warmup:
+                metrics["depth_live"] = torch.tensor(float(live))
+        return nerf_state, depth_state, metrics
 
     return step

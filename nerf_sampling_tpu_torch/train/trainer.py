@@ -1,19 +1,30 @@
-"""Depth-net training on one device (nerf_sampling_tpu/train/trainer.py).
+"""Training on one device (nerf_sampling_tpu/train/trainer.py).
 
-``Trainer`` with ``train_mode="depth_net"``: load the blender scene, write
-``args.txt``, restore the frozen NeRF (``ft_path`` or the newest NeRF
-checkpoint of the experiment) and the DepthNet (``depth_net_path``, the
-newest ``depth_*.npz``, a DepthNet inside an ``.npz`` ``ft_path``, or a
-fresh one from ``seed``), then run the per-step loop with the periodic
+``Trainer`` runs the three train modes of the JAX Trainer:
+
+- ``"depth_net"``: the DepthNet against a frozen NeRF (``ft_path`` or the
+  newest NeRF checkpoint of the experiment); the DepthNet from
+  ``depth_net_path``, the newest ``depth_*.npz``, a DepthNet inside an
+  ``.npz`` ``ft_path``, or a fresh one from ``seed``. Checkpoints
+  ``depth_{i:06d}.npz``; evals DEPTH_NET (FULL_NERF with ``use_full_nerf``).
+- ``"nerf"``: coarse and fine NeRFs from ``seed`` or restored (``ft_path``
+  or the newest ``{i:06d}.npz``, whose Adam moments and step come back
+  with them). Checkpoints ``{i:06d}.npz``; evals FULL_NERF.
+- ``"joint"``: the NeRFs and the DepthNet together, restored as in nerf
+  mode (a joint ``.npz`` carries the DepthNet and its Adam state), with
+  ``joint_depth_warmup``. Evals DEPTH_NET.
+
+Around the loop: the blender scene, ``args.txt``, the periodic
 checkpoint, test-set eval, ``keep_best`` and early stop of the JAX Trainer
 (:729-831). Checkpoints are the JAX package's ``.npz`` layout, readable by
 both packages, with the Adam moments, so a resume is exact.
 
 The seed of step i is a pure function of (``cfg.seed``, i), as JAX's
 ``fold_in(base_key, i)``, so a resumed run draws what an unbroken run
-draws at the same step. With ``mlp_impl="cuda"`` the frozen NeRF's kernel
-packs are made once and the DepthNet's pack anew before every eval (the
-training steps change it).
+draws at the same step. With ``mlp_impl="cuda"`` every kernel pack an eval
+reads is made anew before the eval (the DepthNet's in depth-net mode,
+where the NeRF is frozen; all of them in nerf and joint mode); the nerf
+and joint steps pack the live NeRF weights for K4/K5 on every query.
 
 Options this slice does not port raise NotImplementedError naming their
 ROADMAP item; nothing falls back quietly.
@@ -31,6 +42,7 @@ from nerf_sampling_tpu_torch.data.types import SceneData
 from nerf_sampling_tpu_torch.models import DepthNet, NeRF
 from nerf_sampling_tpu_torch.render.engine import (
     CUDA,
+    EvalMode,
     NeRFParams,
     pack_kernel_weights,
     repack_depth,
@@ -38,11 +50,17 @@ from nerf_sampling_tpu_torch.render.engine import (
 from nerf_sampling_tpu_torch.render.path import render_path
 from nerf_sampling_tpu_torch.train import checkpoint as ckpt_lib
 from nerf_sampling_tpu_torch.train.sampler import RaySampler, SamplerConfig
-from nerf_sampling_tpu_torch.train.state import TrainState, init_state
-from nerf_sampling_tpu_torch.train.steps import make_depth_net_train_step
+from nerf_sampling_tpu_torch.train.state import TrainState, init_nerf_state, init_state, nerf_modules
+from nerf_sampling_tpu_torch.train.steps import (
+    make_depth_net_train_step,
+    make_joint_train_step,
+    make_nerf_train_step,
+)
 from nerf_sampling_tpu_torch.utils.config import TrainerConfig
 from nerf_sampling_tpu_torch.utils.logging import MetricsLogger
 from nerf_sampling_tpu_torch.utils.profiling import StepTimer
+
+TRAIN_MODES = ("depth_net", "nerf", "joint")
 
 
 def step_seed(seed: int, i: int) -> int:
@@ -53,16 +71,16 @@ def step_seed(seed: int, i: int) -> int:
 def _unported(cfg: TrainerConfig) -> list[str]:
     """What ``cfg`` asks for that this port does not do, with its ROADMAP item."""
     found = []
-    if cfg.train_mode != "depth_net":
-        found.append(f"train_mode={cfg.train_mode!r} (NeRF and joint training: ROADMAP S3)")
+    if cfg.train_mode not in TRAIN_MODES:
+        raise ValueError(f"train_mode must be one of {TRAIN_MODES}, got {cfg.train_mode!r}")
     if cfg.n_devices != 1 or cfg.multihost or cfg.steps_per_dispatch > 1:
         found.append("n_devices != 1, multihost and steps_per_dispatch > 1 (scale-out: ROADMAP S7)")
     if cfg.dataset_type != "blender":
         found.append(f"dataset_type={cfg.dataset_type!r} (other loaders: ROADMAP S6)")
     if cfg.render_only or cfg.save_train_set_render:
         found.append("render_only and save_train_set_render (ROADMAP S4)")
-    if cfg.compare_nerf or cfg.use_nerf_max_pts or cfg.use_full_nerf:
-        found.append("the COMPARE_NERF, NERF_MAX and FULL_NERF eval modes (ROADMAP S4)")
+    if cfg.compare_nerf or cfg.use_nerf_max_pts:
+        found.append("the COMPARE_NERF and NERF_MAX eval modes (ROADMAP S4)")
     if cfg.export_torch_ckpt:
         found.append("export_torch_ckpt (the reference-format .tar: ROADMAP S5)")
     if cfg.profile_dir is not None or cfg.debug_nans:
@@ -78,7 +96,7 @@ def _seeded(module_cls, cfg, seed: int):
 
 
 class Trainer:
-    """Trains the DepthNet against a frozen NeRF on one device."""
+    """Trains the DepthNet, the NeRFs or both (``cfg.train_mode``) on one device."""
 
     def __init__(self, cfg: TrainerConfig, device: torch.device | str | None = None):
         unported = _unported(cfg)
@@ -95,7 +113,9 @@ class Trainer:
         self.params: NeRFParams | None = None
         self.eval_params: NeRFParams | None = None  # what the last eval rendered
         self.logger: MetricsLogger | None = None
-        self._resume_tree: dict | None = None
+        self._resume_tree: dict | None = None  # the checkpoint whose optimizer state resumes
+        self._nerf_state: TrainState | None = None
+        self._depth_state: TrainState | None = None
         self._avg_eval_psnr = 0.0
         self._best_psnr = -float("inf")
         self._evals_since_best = 0
@@ -130,13 +150,14 @@ class Trainer:
                 dst.write(src.read())
 
     def setup_models(self) -> None:
-        """The frozen NeRF and the DepthNet, restored as the JAX Trainer
-        restores them (:170-281), and the step to resume from."""
+        """The NeRFs and the DepthNet, restored as the JAX Trainer restores
+        them (:170-281), and the step to resume from."""
         cfg = self.cfg
-        p = self.pipeline = cfg.pipeline(with_depth=True)
+        with_depth = cfg.train_mode in ("depth_net", "joint")
+        p = self.pipeline = cfg.pipeline(with_depth=with_depth)
         coarse = _seeded(NeRF, p.nerf, cfg.seed)
         fine = _seeded(NeRF, p.fine, cfg.seed + 1) if p.fine is not None else None
-        depth = _seeded(DepthNet, p.depth, cfg.seed + 2)
+        depth = _seeded(DepthNet, p.depth, cfg.seed + 2) if with_depth else None
         explicit_depth = cfg.depth_net_path not in (None, "None")
 
         if cfg.ft_path not in (None, "None"):
@@ -145,40 +166,78 @@ class Trainer:
             nerf_ckpts = [cfg.ft_path]
         else:
             nerf_ckpts = ckpt_lib.find_checkpoints(self.expdir, r"^(?!depth_).*\.(npz|tar)$")
+        nerf_start = 0
         if nerf_ckpts and not cfg.no_reload:
             path = nerf_ckpts[-1]
             if path.endswith(".tar"):
                 raise NotImplementedError(f"{path}: .tar checkpoints are not ported (ROADMAP S5)")
             print(f"Reloading NeRF from {path}")
-            sds = ckpt_lib.params_from_jax(ckpt_lib.load_checkpoint(path)[0]["params"])
+            tree, nerf_start = ckpt_lib.load_checkpoint(path)
+            sds = ckpt_lib.params_from_jax(tree["params"])
             coarse.load_state_dict(sds["coarse"], strict=True)
             if fine is not None:
                 fine.load_state_dict(sds["fine"], strict=True)
-            if "depth" in sds and not explicit_depth:  # a joint checkpoint carries the DepthNet
+            if depth is not None and "depth" in sds and not explicit_depth:  # a joint checkpoint
                 depth.load_state_dict(sds["depth"], strict=True)
                 print(f"Reloading DepthNet from {path} (joint checkpoint)")
+            if cfg.train_mode in ("nerf", "joint"):
+                self._resume_tree = tree
 
-        if explicit_depth:
-            if not os.path.exists(cfg.depth_net_path):
-                raise FileNotFoundError(f"depth_net_path {cfg.depth_net_path} does not exist")
-            depth_ckpts = [cfg.depth_net_path]
-        else:
-            depth_ckpts = ckpt_lib.find_checkpoints(self.expdir, r"^depth_.*\.npz$")
-        self.start = 0
-        if depth_ckpts and not cfg.no_reload:
-            path = depth_ckpts[-1]
-            print(f"Reloading DepthNet from {path}")
-            tree, self.start = ckpt_lib.load_checkpoint(path)
-            depth.load_state_dict(ckpt_lib.params_from_jax(tree["params"])["depth"], strict=True)
-            self._resume_tree = tree
+        depth_start = 0
+        if with_depth:
+            if explicit_depth:
+                if not os.path.exists(cfg.depth_net_path):
+                    raise FileNotFoundError(f"depth_net_path {cfg.depth_net_path} does not exist")
+                depth_ckpts = [cfg.depth_net_path]
+            else:
+                depth_ckpts = ckpt_lib.find_checkpoints(self.expdir, r"^depth_.*\.npz$")
+            if depth_ckpts and not cfg.no_reload:
+                path = depth_ckpts[-1]
+                print(f"Reloading DepthNet from {path}")
+                tree, depth_start = ckpt_lib.load_checkpoint(path)
+                depth.load_state_dict(ckpt_lib.params_from_jax(tree["params"])["depth"], strict=True)
+                self._resume_tree = tree
+        self.start = depth_start if cfg.train_mode == "depth_net" else nerf_start
         self.global_step = self.start
 
         dev = self.device
-        params = NeRFParams(coarse.to(dev).eval(), fine.to(dev).eval() if fine is not None else None,
-                            depth.to(dev))
-        if p.mlp_impl == CUDA:  # the frozen NeRF's packs, once
+        if cfg.train_mode == "depth_net":
+            coarse.eval()
+            if fine is not None:
+                fine.eval()
+        params = NeRFParams(coarse.to(dev), fine.to(dev) if fine is not None else None,
+                            depth.to(dev) if depth is not None else None)
+        if p.mlp_impl == CUDA and cfg.train_mode == "depth_net":  # the frozen NeRF's packs, once
             params = pack_kernel_weights(params, with_hier=True)
         self.params = params
+
+    def _restored_opt(self, key: str) -> dict | None:
+        tree = self._resume_tree
+        return tree.get(key) if tree is not None else None
+
+    def _make_states(self):
+        """The train states of the mode, their optimizer state restored
+        from the resume checkpoint where it has one, and the step function."""
+        cfg, p = self.cfg, self.params
+        if cfg.train_mode == "depth_net":
+            state = init_state(p.depth, cfg.depth_net_lr, self.start)
+            opt = self._restored_opt("opt_state")
+            if opt is not None:
+                ckpt_lib.adam_state_from_jax(opt, state.model, state.optimizer)
+                print("Restored optimizer state")
+            return state, None, make_depth_net_train_step(self.pipeline, p)
+        nerf = init_nerf_state(nerf_modules(p.coarse, p.fine), cfg.lrate, cfg.lrate_decay, self.start)
+        opt = self._restored_opt("opt_state")
+        if opt is not None and ckpt_lib.nerf_adam_state_from_jax(opt, nerf.model, nerf.optimizer) is not None:
+            print("Restored optimizer state")
+        if cfg.train_mode == "nerf":
+            return nerf, None, make_nerf_train_step(self.pipeline)
+        depth = init_state(p.depth, cfg.depth_net_lr, self.start)
+        opt = self._restored_opt("depth_opt_state")
+        if opt is not None:
+            ckpt_lib.adam_state_from_jax(opt, depth.model, depth.optimizer)
+            print("Restored depth optimizer state")
+        return nerf, depth, make_joint_train_step(self.pipeline)
 
     def train(self, N_iters: int = 200001) -> float:
         cfg = self.cfg
@@ -198,46 +257,61 @@ class Trainer:
                           single_image=cfg.single_image, single_ray=cfg.single_ray),
             seed=cfg.seed,
         )
-        state = init_state(self.params.depth, cfg.depth_net_lr, self.start)
-        if self._resume_tree is not None and "opt_state" in self._resume_tree:
-            ckpt_lib.adam_state_from_jax(self._resume_tree["opt_state"], state.model, state.optimizer)
-            print("Restored optimizer state")
-        step_fn = make_depth_net_train_step(self.pipeline, self.params)
+        state, depth_state, step_fn = self._make_states()
+        if cfg.train_mode == "depth_net":
+            self._depth_state = state
+        else:
+            self._nerf_state, self._depth_state = state, depth_state
         timer = StepTimer(rays_per_step=cfg.N_rand, device=self.device)
         metrics: dict = {}
         try:
             for i in range(self.start + 1, N_iters):
                 batch = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
                               for x in sampler.sample(i))
-                state, metrics = step_fn(state, batch, step_seed(cfg.seed, i))
+                seed = step_seed(cfg.seed, i)
+                if cfg.train_mode == "joint":
+                    state, depth_state, metrics = step_fn(state, depth_state, batch, seed)
+                else:
+                    state, metrics = step_fn(state, batch, seed)
                 timer.tick()
                 self.global_step = i
-                self.log(i, metrics, state, timer)
+                self.log(i, metrics, timer)
                 if self._stop_early:
                     break
         finally:
             self.logger.close()
         return float(metrics["psnr"]) if metrics else 0.0
 
+    def _eval_mode(self) -> EvalMode:
+        cfg = self.cfg
+        if cfg.use_full_nerf or cfg.train_mode == "nerf":
+            return EvalMode.FULL_NERF
+        return EvalMode.DEPTH_NET
+
     def eval_testset(self, savedir: str | None) -> float:
-        """Render the test views with the DepthNet as it is now; average PSNR."""
+        """Render the test views with the models as they are now; average PSNR."""
         scene = self.scene
         params = self.params
-        if self.pipeline.mlp_impl == CUDA:
-            params = repack_depth(params)  # the steps changed the DepthNet
+        mode = self._eval_mode()
+        if self.pipeline.mlp_impl == CUDA:  # the steps changed what the packs copied
+            if self.cfg.train_mode == "depth_net":
+                params = repack_depth(params)
+            else:
+                params = pack_kernel_weights(params._replace(kernels=None),
+                                             with_hier=mode == EvalMode.FULL_NERF)
         self.eval_params = params
         _, _, avg = render_path(
             self.pipeline, params, scene.poses[scene.i_test], scene.hwf, scene.intrinsics(),
-            device=self.device, chunk=self.cfg.chunk, gt_imgs=scene.images[scene.i_test],
+            device=self.device, mode=mode, chunk=self.cfg.chunk, gt_imgs=scene.images[scene.i_test],
             savedir=savedir, verbose=False,
             generator=torch.Generator(device=self.device).manual_seed(0),
         )
         return avg
 
-    def log(self, i: int, metrics: dict, state: TrainState, timer: StepTimer | None = None) -> None:
+    def log(self, i: int, metrics: dict, timer: StepTimer | None = None) -> None:
         cfg, scene = self.cfg, self.scene
         if i % cfg.i_weights == 0:
-            self.save_checkpoint(i, state)
+            self.save_checkpoint(i)
         if i % cfg.i_testset == 0 and i > 0 and len(scene.i_test) > 0:
             testsavedir = os.path.join(self.expdir, f"testset_{i:06d}")
             os.makedirs(testsavedir, exist_ok=True)
@@ -249,7 +323,7 @@ class Trainer:
                 self._best_psnr = avg_psnr
                 self._evals_since_best = 0
                 if cfg.keep_best:
-                    self.save_checkpoint(i, state, subdir="best")
+                    self.save_checkpoint(i, subdir="best")
             else:
                 self._evals_since_best += 1
                 if 0 < cfg.early_stop_patience <= self._evals_since_best:
@@ -258,29 +332,43 @@ class Trainer:
                     self._stop_early = True
         if i % cfg.i_print == 0:
             m = {k: float(v) for k, v in metrics.items()}
-            info = f"Iter: {i} Loss: {m['loss']}, Depth Net Loss: {m['depth_net_loss']}, PSNR: {m['psnr']:.5f}"
-            scalars = {"Loss": m["loss"], "Depth net PSNR": m["psnr"],
-                       "Depth net loss": m["depth_net_loss"]}
-            for k in ("depth_loss_fg", "depth_loss_bg", "fg_frac"):
-                scalars[k] = m[k]
+            info = f"Iter: {i} Loss: {m['loss']}"
+            scalars = {"Loss": m["loss"], "Depth net PSNR": m["psnr"]}
+            # only the metrics the mode produces: nerf steps have no depth loss
+            if "depth_net_loss" in m:
+                info += f", Depth Net Loss: {m['depth_net_loss']}"
+                scalars["Depth net loss"] = m["depth_net_loss"]
+            for k in ("depth_loss_fg", "depth_loss_bg", "fg_frac", "depth_live"):
+                if k in m:
+                    scalars[k] = m[k]
+            info += f", PSNR: {m['psnr']:.5f}"
             if timer is not None:
                 scalars.update(timer.metrics())
             self.logger.log(scalars, i)
             self.logger.print_line(info)
 
-    def save_checkpoint(self, i: int, state: TrainState, subdir: str = "") -> None:
-        """``depth_{i:06d}.npz`` with the three nets and the DepthNet's Adam
-        moments; subdir="best" keeps the keep_best snapshot out of the
-        resume scan's way."""
+    def save_checkpoint(self, i: int, subdir: str = "") -> None:
+        """The models and their Adam moments in the JAX layout:
+        ``depth_{i:06d}.npz`` in depth-net mode, ``{i:06d}.npz`` in nerf and
+        joint mode (joint adds the DepthNet's moments); subdir="best" keeps
+        the keep_best snapshot out of the resume scan's way."""
         p = self.params
-        sds = {"coarse": p.coarse.state_dict(), "depth": p.depth.state_dict()}
+        sds = {"coarse": p.coarse.state_dict()}
         if p.fine is not None:
             sds["fine"] = p.fine.state_dict()
-        tree = {
-            "params": ckpt_lib.JaxNeRFParams(**ckpt_lib.params_to_jax(sds)),
-            "opt_state": ckpt_lib.adam_state_to_jax(state.model, state.optimizer),
-        }
+        if p.depth is not None:
+            sds["depth"] = p.depth.state_dict()
+        tree: dict = {"params": ckpt_lib.JaxNeRFParams(**ckpt_lib.params_to_jax(sds))}
         outdir = os.path.join(self.expdir, subdir) if subdir else self.expdir
-        path = os.path.join(outdir, f"depth_{i:06d}.npz")
+        if self.cfg.train_mode == "depth_net":
+            tree["opt_state"] = ckpt_lib.adam_state_to_jax(self._depth_state.model, self._depth_state.optimizer)
+            path = os.path.join(outdir, f"depth_{i:06d}.npz")
+        else:
+            tree["opt_state"] = ckpt_lib.nerf_adam_state_to_jax(self._nerf_state.model,
+                                                                 self._nerf_state.optimizer)
+            if self._depth_state is not None:
+                tree["depth_opt_state"] = ckpt_lib.adam_state_to_jax(self._depth_state.model,
+                                                                     self._depth_state.optimizer)
+            path = os.path.join(outdir, f"{i:06d}.npz")
         ckpt_lib.save_checkpoint(path, tree, i)
         print("Saved checkpoints at", path)

@@ -25,9 +25,9 @@ class TrainerConfig:
     Trainer raises when it is asked for).
 
     A config file loads to the same fields in both packages. ``pipeline()``
-    passes on what the DEPTH_NET eval render and the depth-net train step
-    read; the knobs of the unported modes are kept here, and the Trainer
-    raises on those it does not port.
+    passes on what the ported eval renders and train steps read; the knobs
+    of the unported modes are kept here, and the Trainer raises on those it
+    does not port.
     """
 
     # identity / io
@@ -188,6 +188,7 @@ class TrainerConfig:
             sampling_mode=self.sampling_mode,
             distance=self.distance,
             bg_depth_loss_weight=self.bg_depth_loss_weight,
+            joint_depth_warmup=self.joint_depth_warmup,
             mlp_impl=self.mlp_impl,
             netchunk=self.netchunk,
         )

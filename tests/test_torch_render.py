@@ -166,12 +166,23 @@ def test_mlp_impl_names():
 @pytest.mark.parametrize("mode", [EvalMode.FULL_NERF, EvalMode.COMPARE_NERF, EvalMode.NERF_MAX])
 @pytest.mark.parametrize("impl", ["plain", "cuda"])
 def test_unported_modes_raise(mode, impl):
+    """COMPARE_NERF and NERF_MAX raise on both paths. FULL_NERF is ported
+    but for K8: without fine samples the kernel path raises, naming it, and
+    the plain path renders the coarse pass (tests/test_torch_nerf_train.py
+    holds FULL_NERF with fine samples to the JAX package)."""
     jpipe, tpipe = small_configs()
     _, tparams = small_params(jpipe, tpipe)
     K, c2w = camera(4, 4)
+    pipe = dataclasses.replace(tpipe, mlp_impl=impl)
+    if mode == EvalMode.FULL_NERF:
+        pipe = dataclasses.replace(pipe, N_importance=0)
+        if impl == "plain":
+            out = render_image(pipe, tparams, 4, 4, K, c2w, device="cpu", mode=mode)
+            assert out["depth_net_rgb_map"].shape == (4, 4, 3)
+            assert torch.isfinite(out["depth_net_rgb_map"]).all()
+            return
     with pytest.raises(NotImplementedError, match="ROADMAP S4"):
-        render_image(dataclasses.replace(tpipe, mlp_impl=impl), tparams, 4, 4, K, c2w,
-                     device="cpu", mode=mode)
+        render_image(pipe, tparams, 4, 4, K, c2w, device="cpu", mode=mode)
 
 
 def test_fused_gaussian_raises_and_plain_gaussian_renders():
@@ -236,7 +247,7 @@ def test_trainer_config_matches_jax():
 
 def test_port_imports_no_jax():
     """Every module of the port imports without jax or the JAX package,
-    the training slice (train/*, experiments/run.py) included."""
+    the training slices (train/*, experiments/run.py, K4/K5) included."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import nerf_sampling_tpu_torch as p\n"
@@ -245,7 +256,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "need = ['train.trainer', 'train.steps', 'train.sampler', 'train.state', 'train.checkpoint',\n"
         "        'experiments.run', 'kernels.fused_hier', 'kernels.philox', 'utils.logging',\n"
-        "        'utils.profiling']\n"
+        "        'utils.profiling', 'kernels.fused_nerf', 'kernels.fused_nerf_vjp']\n"
         "missing = [m for m in need if 'nerf_sampling_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'nerf_sampling_tpu.')) or k == 'nerf_sampling_tpu')\n"

@@ -10,7 +10,8 @@
 - ``RaySampler`` batches bit-identical to the JAX sampler's.
 - Checkpoints both ways, and an exact resume.
 - The Trainer and the CLI end to end on a tiny scene, the DepthNet repack
-  before each eval, and the unported options that raise.
+  before each eval, and the unported options that raise (nerf and joint
+  training: tests/test_torch_nerf_train.py).
 """
 
 import dataclasses
@@ -367,7 +368,7 @@ def test_trainer_end_to_end_and_repack(tmp_path):
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("train_mode", "nerf", "S3"), ("train_mode", "joint", "S3"), ("n_devices", 2, "S7"),
+    ("compare_nerf", True, "S4"), ("use_nerf_max_pts", True, "S4"), ("n_devices", 2, "S7"),
     ("multihost", True, "S7"), ("steps_per_dispatch", 4, "S7"), ("dataset_type", "llff", "S6"),
     ("render_only", True, "S4"), ("export_torch_ckpt", True, "S5"),
 ])
@@ -399,5 +400,5 @@ def test_cli_trains_the_recipe(tmp_path):
     assert (cfg.sampling_mode, cfg.n_depth_samples, cfg.i_testset, cfg.seed) == ("gaussian", 64, 2500, 3)
     assert cfg.expname == "custom_depth_net" and tr.global_step == 2
     assert len(open(os.path.join(tr.expdir, "psnr.txt")).read().splitlines()) == 2
-    with pytest.raises(NotImplementedError, match="S3"):
-        run.main(["-dp", datadir, "--mode", "nerf", "--basedir", str(tmp_path / "logs")])
+    with pytest.raises(NotImplementedError, match="S7"):
+        run.main(["-dp", datadir, "--mode", "nerf", "--n_devices", "2", "--basedir", str(tmp_path / "logs")])
