@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's render and three training paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's render paths, its render CLI and three training paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -56,9 +56,32 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    restarts the NeRF's Adam at lrate (the checkpoint carries no optimizer
    state), and a converged NeRF loses about 2 dB in 300 such steps on
    either path (PERF.md).
+7. The other eval modes (run after [k7], before the render path of 4.):
+   [k8] K8 (the linspace render) over the 160,000 rays of view 0 in one
+   launch with the fine NeRF's pack, at 64 and 192 samples, against its
+   plain bf16 version (K2's bounds), fp32 on a slice against plain fp32,
+   and FULL_NERF at N_importance 0 through the engine (K8 on the coarse
+   NeRF) within FULL_PSNR_TOL of the plain fp32 path; [k9] K9 (shading
+   given z) at bf16 and fp32 on the uniform and a sorted gaussian
+   population of view 0 against its plain versions, and input_unsorted on
+   a per-ray shuffled copy equal to the sorted input (1e-6); [fp32] the
+   COMPARE mode's K1 (depth within 1e-4, the NaN mask equal) and K7
+   (max_z within 1e-3 on rays that hit the sphere, rgb FP32_RGB_TOL)
+   against their plain fp32 versions; [modes] COMPARE_NERF (PSNR within
+   0.01 dB, compare MSE within 1%, max_z 1e-3) and NERF_MAX (PSNR within
+   FULL_PSNR_TOL) over view 0, kernels against the plain fp32 path. After
+   the render path, [render]: experiments/render.py's main over the 4 test
+   views (a copy of the scene with one train view) in its default mode
+   (the render path's PSNRs to 1e-4), -nc, -nm and -nf, each with its
+   PNGs, psnr.txt (the MSE for -nc) and kernel launches; its -e grid on one
+   view (32 renders); one render_only render of the spiral path with its
+   video. Each phase prints its seconds.
 
-The last two lines of standard output are the kernels' JSON record and the
-device JSON line.
+Every kernel's record carries its bound from this run's shapes (the
+larger of its operations at the card's bf16 or fp32 peak and its bytes at
+the memory rate) and its launches on the path it serves. The last two
+lines of standard output are the kernels' JSON record and the device JSON
+line.
 """
 
 from __future__ import annotations
@@ -85,6 +108,7 @@ JOINT_DIR = os.path.join(HERE, "logs", "chip_smoke_joint")  # the joint-mode CLI
 NERF_ITERS = 500  # --mode nerf from scratch: the center-crop phase, then the eval
 JOINT_ITERS, JOINT_WARMUP = 300, 100  # --mode joint: eval at the last step
 NERF_PRINT = 100  # i_print of the nerf and joint runs
+RENDER_DIR = os.path.join(HERE, "logs", "chip_smoke_render")  # the render CLI's runs (gitignored)
 
 # kernel vs its plain version at bf16 rounding (same inputs, same weights):
 # the two differ only in fp32 summation order and the few bf16 roundings
@@ -107,6 +131,10 @@ K5_REL_TOL = 2e-2
 K5_COS_TOL = 0.999  # K5's grads against fp32 autograd of each NeRF
 K7_MEAN_TOL, K7_P999_TOL = 1e-3, 2e-2  # |rgb| against the plain bf16 version (K6's bounds)
 FULL_PSNR_TOL = 0.05  # FULL_NERF view 0: kernels against the plain fp32 path
+# the fp32 kernels (the COMPARE mode's) against their plain fp32 versions: the
+# two differ in fp32 summation order only; K7's max_z at ROADMAP's COMPARE budget
+FP32_RGB_TOL, K1_FP32_TOL, K7_FP32_Z_TOL = 3e-4, 1e-4, 1e-3
+MODE_COMPARE_PSNR_TOL, MODE_MSE_REL_TOL = 0.01, 0.01  # COMPARE view 0: kernels against plain fp32
 # one nerf or joint step, cuda vs plain, same state, batch and draws
 NSTEP_IMG_TOL, NSTEP_COS_TOL = 1e-2, 0.995
 NERF_EVAL_TOL = 0.5  # dB between the kernel and plain runs' evals (nerf and joint mode)
@@ -165,6 +193,47 @@ def errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return float(d.mean()), float(d.max())
 
 
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): the
+# bound of a kernel is the larger of its bytes over the memory rate and its
+# operations over the peak of their type
+PEAK = {"bf16": 989e12, "fp32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def module_macs(module, sigma_only: bool = False) -> int:
+    """Multiply-adds of one query of a NeRF or DepthNet module: the weights
+    of its linear layers (``sigma_only``: the NeRF's trunk and alpha head)."""
+    if sigma_only:
+        return sum(lin.weight.numel() for lin in module.pts_linears) + module.alpha_linear.weight.numel()
+    return sum(m.weight.numel() for m in module.modules() if isinstance(m, torch.nn.Linear))
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of tensors and of the tensors in nested dicts and lists."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, dict):
+            total += nbytes(*t.values())
+        elif isinstance(t, (list, tuple)):
+            total += nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def kernel_record(name: str, source: str, replaces: str, max_abs_err: float, ms: float, plain_ms: float,
+                  flop: float, moved: int, dtype: str = "bf16") -> dict:
+    """One kernel's entry of the JSON record, its bound from this run's
+    shapes: flop at the ``dtype`` peak against the bytes it must move
+    (inputs, weights and outputs once) at the memory rate. No single
+    PyTorch call computes any of these fused renders, so library_ms is null."""
+    t_ops, t_bytes = flop / PEAK[dtype] * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": f"nerf_sampling_tpu_torch/kernels/csrc/{source}",
+            "replaces": replaces, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
 def view0_camera():
     """Test view 0 of the example scene at half resolution (400x400)."""
     from nerf_sampling_tpu_torch.data.example import _CAMERA_ANGLE_X, _orbit_poses
@@ -213,18 +282,29 @@ def production_pipeline(mlp_impl: str):
     )
 
 
-def check_k1(params, device) -> dict:
+def view0_rays(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 160,000 rays of test view 0, [N, 3] each."""
     from nerf_sampling_tpu_torch.core.rays import get_rays
-    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
 
     H, W, K, c2w = view0_camera()
     ro, rd = get_rays(H, W, K, c2w, device)
-    ro, rd = ro.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
-    # 64 rays from the camera that miss the r=2 sphere: perpendicular to the origin
+    return ro.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
+
+
+def k1_rays(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """View 0's rays and 64 rays from the camera that miss the r=2 sphere
+    (perpendicular to the origin), last."""
+    ro, rd = view0_rays(device)
     g = torch.Generator().manual_seed(0)
     o = ro[:64]
     d = torch.cross(o, torch.randn(64, 3, generator=g).to(device), dim=1)
-    ro, rd = torch.cat([ro, o]), torch.cat([rd, d / d.norm(dim=1, keepdim=True)])
+    return torch.cat([ro, o]), torch.cat([rd, d / d.norm(dim=1, keepdim=True)])
+
+
+def check_k1(params, device) -> dict:
+    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
+
+    ro, rd = k1_rays(device)
     model, cfg = params.depth, params.depth.cfg
     packed = params.kernels.depth
     A, B = k1.depth_net_inputs(cfg, ro, rd, torch.bfloat16)
@@ -246,10 +326,8 @@ def check_k1(params, device) -> dict:
     ms = cuda_ms(lambda: k1.depth_net_kernel(packed, cfg, A, B), 10)
     plain_ms = cuda_ms(lambda: k1.depth_net_plain(packed, cfg, A, B, torch.bfloat16), 5)
     log(f"[K1] {ms:.3f} ms per launch at {got.numel()} rays; plain bf16 version {plain_ms:.3f} ms")
-    return {"name": "depth_net_kernel", "route": "cuda",
-            "source": "nerf_sampling_tpu_torch/kernels/csrc/depth_net.cu",
-            "replaces": "nerf_sampling_tpu/kernels/fused_depth_net.py:181",
-            "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms}
+    return kernel_record("depth_net_kernel", "depth_net.cu", "nerf_sampling_tpu/kernels/fused_depth_net.py:181",
+                         mx, ms, plain_ms, 2 * got.numel() * module_macs(model), nbytes(A, B, packed, got))
 
 
 def check_k2(params, device) -> dict:
@@ -304,10 +382,9 @@ def check_k2(params, device) -> dict:
     plain_ms = cuda_ms(lambda: plain_frame(packed, torch.bfloat16), 2)
     log(f"[K2] {n} rays x 64 samples, {int(nan_rows.sum())} with NaN depth; {ms:.3f} ms per "
         f"launch; plain bf16 version {plain_ms:.3f} ms (in chunks of {chunk} rays)")
-    return {"name": "render_around_depth_kernel", "route": "cuda",
-            "source": "nerf_sampling_tpu_torch/kernels/csrc/render_around_depth.cu",
-            "replaces": "nerf_sampling_tpu/kernels/fused_render.py:390",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return kernel_record("render_around_depth_kernel", "render_around_depth.cu",
+                         "nerf_sampling_tpu/kernels/fused_render.py:390", worst, ms, plain_ms,
+                         2 * n * 64 * module_macs(params.fine), nbytes(ro, rd, depth, offsets, packed, got))
 
 
 def same_bits(a: dict, b: dict) -> bool:
@@ -394,10 +471,9 @@ def check_k3(params, device) -> dict:
     plain_ms = cuda_ms(lambda: plain_frame(packed, torch.bfloat16, noise), 2)
     log(f"[K3] {n} rays x {S} samples: {ms:.3f} ms per launch (in-kernel draws); plain bf16 "
         f"version {plain_ms:.3f} ms (in chunks of {chunk} rays)")
-    return {"name": "render_gaussian_kernel", "route": "cuda",
-            "source": "nerf_sampling_tpu_torch/kernels/csrc/render_around_depth.cu",
-            "replaces": "nerf_sampling_tpu/kernels/fused_render.py:390",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return kernel_record("render_gaussian_kernel", "render_around_depth.cu",
+                         "nerf_sampling_tpu/kernels/fused_render.py:390", worst, ms, plain_ms,
+                         2 * n * S * module_macs(params.fine), nbytes(ro, rd, depth, packed, got))
 
 
 def check_k6(params, device, batches: list[tuple[torch.Tensor, torch.Tensor]]) -> dict:
@@ -479,15 +555,15 @@ def check_k6(params, device, batches: list[tuple[torch.Tensor, torch.Tensor]]) -
         log(f"[K6] occupancy at {n} rays: {blocks} blocks of {occ['rays_per_block']} rays, "
             f"{occ['blocks_per_sm']} resident per SM x {occ['sms']} SMs = {slots} slots, "
             f"{blocks / slots:.2f} waves")
-    return {"name": "render_hier_kernel", "route": "cuda",
-            "source": "nerf_sampling_tpu_torch/kernels/csrc/render_hier.cu",
-            "replaces": "nerf_sampling_tpu/kernels/fused_hier.py:255",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    flop = 2 * ro0.shape[0] * (Nc * module_macs(params.coarse, True) + (Nc + Nf) * module_macs(params.fine))
+    return kernel_record("render_hier_kernel", "render_hier.cu", "nerf_sampling_tpu/kernels/fused_hier.py:255",
+                         worst, ms, plain_ms, flop, nbytes(ro0, rd0, packed, a))
 
 
-def run_slice(device, scene, K) -> dict[str, int]:
+def run_slice(device, scene, K) -> tuple[dict[str, int], list[float]]:
     """The render path: the committed checkpoint's 4 test views through
-    render_path on K1 and K2; returns the launch counts of that run."""
+    render_path on K1 and K2; returns the launch counts of that run and the
+    per-view PSNRs."""
     import dataclasses
 
     from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
@@ -542,7 +618,328 @@ def run_slice(device, scene, K) -> dict[str, int]:
         f"({H * W / ms_kernel * 1e3:.0f} rays/s), plain fp32 {ms_plain:.2f} ms "
         f"({H * W / ms_plain * 1e3:.0f} rays/s)")
     profile_frame(lambda: render(pipe))
+    return counts, psnrs
+
+
+def plain_chunks(fn, n: int, chunk: int = 16384) -> dict[str, torch.Tensor]:
+    """fn(slice) over [0, n) in chunks of rays, the outputs concatenated."""
+    parts = [fn(slice(s, s + chunk)) for s in range(0, n, chunk)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def check_k8(params, scene, K, device) -> tuple[dict, dict[str, int]]:
+    """K8 over the 160,000 rays of view 0 in one launch, with the fine
+    NeRF's pack (the committed coarse NeRF renders little density), at 64
+    and 192 samples against its plain bf16 version; fp32 on a slice
+    against plain fp32; then FULL_NERF at N_importance 0 through the engine
+    (K8 on the coarse NeRF) against the plain fp32 path; returns K8's
+    record and its launches in that render."""
+    import dataclasses
+
+    from nerf_sampling_tpu_torch.kernels import fused_render as k89
+    from nerf_sampling_tpu_torch.render import EvalMode, render_image
+
+    t0 = time.perf_counter()
+    ro, rd = view0_rays(device)
+    n = ro.shape[0]
+    cfg, packed = params.fine.cfg, params.kernels.nerf
+
+    def plain(S, weights=packed, dtype=torch.bfloat16, rays=(ro, rd)):
+        return plain_chunks(lambda s: k89.render_linspace_plain(weights, cfg, rays[0][s], rays[1][s], n_samples=S,
+                                                                dtype=dtype), rays[0].shape[0])
+
+    worst = 0.0
+    for S in (64, 192):
+        got = k89.fused_render(packed, cfg, ro, rd, n_samples=S)
+        torch.cuda.synchronize()
+        want = plain(S)
+        require(all(bool(torch.isfinite(got[k]).all()) for k in got), f"K8 S={S}: non-finite maps")
+        for name, scale in (("rgb_map", 1.0), ("acc_map", 1.0), ("depth_map", 6.0)):
+            mean, mx = errors(got[name], want[name])
+            log(f"[k8] {n} rays x {S}: |{name}| vs plain bf16 mean {mean:.3e} max {mx:.3e} "
+                f"(tol {K2_MEAN_TOL * scale:g}/{K2_MAX_TOL * scale:g})")
+            require(mean <= K2_MEAN_TOL * scale and mx <= K2_MAX_TOL * scale, f"K8 {name} disagrees at S={S}")
+            if name == "rgb_map" and S == 64:
+                worst, got64 = mx, got
+    packed32 = k89.pack_nerf(params.fine, torch.float32)
+    sub = (ro[:16384], rd[:16384])
+    got32 = k89.fused_render(packed32, cfg, *sub, n_samples=64, dtype=torch.float32)
+    want32 = plain(64, packed32, torch.float32, sub)
+    mean32, mx32 = errors(got32["rgb_map"], want32["rgb_map"])
+    log(f"[k8] fp32 mode, {sub[0].shape[0]} rays x 64: |rgb| vs plain fp32 mean {mean32:.3e} max {mx32:.3e} "
+        f"(tol {FP32_RGB_TOL:g})")
+    require(mx32 <= FP32_RGB_TOL, "K8 in fp32 disagrees with its plain fp32 version")
+    ms = cuda_ms(lambda: k89.fused_render(packed, cfg, ro, rd, n_samples=64), 5)
+    ms192 = cuda_ms(lambda: k89.fused_render(packed, cfg, ro, rd, n_samples=192), 3)
+    plain_ms = cuda_ms(lambda: plain(64), 1)
+    log(f"[k8] {ms:.3f} ms per launch at {n} rays x 64 ({ms192:.3f} ms x 192); plain bf16 version {plain_ms:.3f} ms")
+
+    pipe = dataclasses.replace(production_pipeline("cuda"), depth=None, N_importance=0)
+    Hs, Ws, _ = scene.hwf
+    pose0, gt0 = scene.poses[int(scene.i_test[0])][:3, :4], scene.images[int(scene.i_test[0])]
+    k89.linspace_launches = 0
+    img = render_image(pipe, params, Hs, Ws, K, pose0, device=device, mode=EvalMode.FULL_NERF)
+    torch.cuda.synchronize()
+    counts = {"render_linspace_kernel": k89.linspace_launches}
+    img_p = render_image(dataclasses.replace(pipe, mlp_impl="plain"), params, Hs, Ws, K, pose0, device=device,
+                         mode=EvalMode.FULL_NERF)
+    psnrs = [float(-10 * np.log10(np.mean((m["depth_net_rgb_map"].float().cpu().numpy() - gt0) ** 2)))
+             for m in (img, img_p)]
+    log(f"[k8] FULL_NERF at N_importance 0 (the coarse NeRF, 64 samples), view 0: kernels {psnrs[0]:.4f} dB, "
+        f"plain fp32 {psnrs[1]:.4f} dB (|delta| {abs(psnrs[0] - psnrs[1]):.4f}, tol {FULL_PSNR_TOL}); "
+        f"launches {counts}")
+    require(counts["render_linspace_kernel"] == 1, "FULL_NERF at N_importance 0 did not launch K8 once")
+    require(abs(psnrs[0] - psnrs[1]) <= FULL_PSNR_TOL, "FULL_NERF at N_importance 0: kernel and plain disagree")
+    log(f"[k8] phase {time.perf_counter() - t0:.1f} s")
+    rec = kernel_record("render_linspace_kernel", "render_around_depth.cu",
+                        "nerf_sampling_tpu/kernels/fused_render.py:390", worst, ms, plain_ms,
+                        2 * n * 64 * module_macs(params.fine), nbytes(ro, rd, packed, got64))
+    return rec, counts
+
+
+def check_k9(params, device) -> dict:
+    """K9 over view 0 against its plain versions at bf16 and fp32: the
+    uniform population around K1's depth, a sorted gaussian population, and
+    input_unsorted on a per-ray shuffled copy of it, which must equal the
+    sorted input; returns the fp32 mode's record (COMPARE's)."""
+    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
+    from nerf_sampling_tpu_torch.kernels import fused_render as k89
+
+    t0 = time.perf_counter()
+    ro, rd = view0_rays(device)
+    n, S = ro.shape[0], 64
+    cfg = params.fine.cfg
+    depth = k1.fused_depth_net_apply(params.kernels.depth, params.depth.cfg, ro, rd).reshape(n, 1)
+    offsets = torch.from_numpy(k89.uniform_population_offsets(S, 1.0)).to(device)
+    g = torch.Generator(device=device).manual_seed(21)
+    pops = {
+        "uniform": torch.clamp(depth + offsets[None, :], 2.0, 6.0).contiguous(),
+        "gaussian": k89.gaussian_population(depth, torch.randn((n, S - 1), generator=g, device=device), 1.0),
+    }
+    perm = torch.argsort(torch.rand((n, S), generator=g, device=device), dim=1)
+    shuffled = torch.gather(pops["gaussian"], 1, perm).contiguous()
+    rec = None
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = k89.dtype_name(dtype)
+        packed = params.kernels.nerf if dtype == torch.bfloat16 else k89.pack_nerf(params.fine, torch.float32)
+        mean_tol, max_tol = (K2_MEAN_TOL, K2_MAX_TOL) if dtype == torch.bfloat16 else (FP32_RGB_TOL, FP32_RGB_TOL)
+        for pop, z in pops.items():
+            got = k89.fused_shade(packed, cfg, ro, rd, z, dtype=dtype)
+            torch.cuda.synchronize()
+            want = plain_chunks(lambda s: k89.shade_plain(packed, cfg, ro[s], rd[s], z[s], dtype=dtype), n)
+            require(all(bool(torch.isfinite(got[k]).all()) for k in got), f"K9 {tag} {pop}: non-finite maps")
+            for name, scale in (("rgb_map", 1.0), ("acc_map", 1.0), ("depth_map", 6.0)):
+                mean, mx = errors(got[name], want[name])
+                log(f"[k9] {tag} {pop}, {n} rays x {S}: |{name}| vs plain {tag} mean {mean:.3e} max {mx:.3e} "
+                    f"(tol {mean_tol * scale:g}/{max_tol * scale:g})")
+                require(mean <= mean_tol * scale and mx <= max_tol * scale, f"K9 {tag} {pop} {name} disagrees")
+            if pop == "uniform":
+                worst, got_u = errors(got["rgb_map"], want["rgb_map"])[1], got
+        unsorted = k89.fused_shade(packed, cfg, ro, rd, shuffled, assume_sorted=False, dtype=dtype)
+        d = max(float((unsorted[k] - got[k]).abs().max()) for k in got)
+        log(f"[k9] {tag} input_unsorted on a per-ray shuffled copy vs input on the sorted gaussian "
+            f"population: max |delta| over the maps {d:.3e} (tol 1e-6)")
+        require(d <= 1e-6, f"K9 {tag}: input_unsorted is not the sort of its input")
+        ms = cuda_ms(lambda: k89.fused_shade(packed, cfg, ro, rd, pops["uniform"], dtype=dtype), 3)
+        plain_ms = cuda_ms(lambda: plain_chunks(lambda s: k89.shade_plain(
+            packed, cfg, ro[s], rd[s], pops["uniform"][s], dtype=dtype), n), 1)
+        log(f"[k9] {tag}: {ms:.3f} ms per launch at {n} rays x {S}; plain {tag} version {plain_ms:.3f} ms")
+        if dtype == torch.float32:
+            rec = kernel_record("shade_kernel_fp32", "render_around_depth.cu",
+                                "nerf_sampling_tpu/kernels/fused_render.py:390", worst, ms, plain_ms,
+                                2 * n * S * module_macs(params.fine), nbytes(ro, rd, pops["uniform"], packed, got_u),
+                                "fp32")
+    log(f"[k9] phase {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+def check_fp32(params, device) -> list[dict]:
+    """The COMPARE mode's fp32 K1 and K7 against their plain fp32 versions:
+    K1 on view 0 and 64 rays that miss the sphere (depth within 1e-4, the
+    NaN mask equal), K7 over view 0 in one launch (max_z within 1e-3 on the
+    rays that hit the sphere, rgb within FP32_RGB_TOL)."""
+    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k7
+
+    t0 = time.perf_counter()
+    ro, rd = k1_rays(device)
+    model, cfg = params.depth, params.depth.cfg
+    packed = k1.pack_depth_net(model, torch.float32)
+    A, B = k1.depth_net_inputs(cfg, ro, rd, torch.float32)
+    got = k1.depth_net_kernel(packed, cfg, A, B)
+    torch.cuda.synchronize()
+    want = k1.depth_net_plain(packed, cfg, A, B, torch.float32)
+    require(bool(torch.equal(torch.isnan(got), torch.isnan(want))), "K1 fp32: NaN mask differs")
+    require(bool(torch.isnan(got[-64:]).all()) and not bool(torch.isnan(got[:-64]).any()),
+            "K1 fp32: NaN must mark exactly the 64 rays that miss the sphere")
+    mean, mx = errors(got, want)
+    log(f"[fp32] K1 fp32, {got.numel()} rays: |depth| vs plain fp32 mean {mean:.3e} max {mx:.3e} "
+        f"(tol {K1_FP32_TOL:g}); NaN mask equal")
+    require(mx <= K1_FP32_TOL, "K1 fp32 disagrees with its plain fp32 version")
+    ms = cuda_ms(lambda: k1.depth_net_kernel(packed, cfg, A, B), 5)
+    plain_ms = cuda_ms(lambda: k1.depth_net_plain(packed, cfg, A, B, torch.float32), 3)
+    log(f"[fp32] K1 fp32: {ms:.3f} ms per launch; plain fp32 version {plain_ms:.3f} ms")
+    recs = [kernel_record("depth_net_kernel_fp32", "depth_net.cu", "nerf_sampling_tpu/kernels/fused_depth_net.py:181",
+                          mx, ms, plain_ms, 2 * got.numel() * module_macs(model), nbytes(A, B, packed, got), "fp32")]
+
+    hit = ~torch.isnan(got[:-64])
+    ro, rd = ro[:-64], rd[:-64]
+    n = ro.shape[0]
+    hier = k7.pack_hier(params.coarse, params.fine, torch.float32)
+    cfg_c, cfg_f = params.coarse.cfg, params.fine.cfg
+    got = k7.render_hier_kernel(hier, cfg_c, cfg_f, ro, rd, dtype=torch.float32)
+    torch.cuda.synchronize()
+    want = plain_chunks(lambda s: k7.render_hier_plain(hier, cfg_c, cfg_f, ro[s], rd[s], dtype=torch.float32), n)
+    dz = (got["max_z"] - want["max_z"]).abs()[hit]
+    d = (got["rgb_map"] - want["rgb_map"]).abs()
+    mx_rgb, p999 = float(d.max()), quantile(d, 0.999)
+    log(f"[fp32] K7 fp32, {n} rays: |max_z| on the {int(hit.sum())} rays that hit the sphere max "
+        f"{float(dz.max()):.3e} mean {float(dz.mean()):.3e} (tol {K7_FP32_Z_TOL:g}); |rgb| mean {float(d.mean()):.3e} "
+        f"p99.9 {p999:.3e} max {mx_rgb:.3e} (tol {FP32_RGB_TOL:g})")
+    require(float(dz.max()) <= K7_FP32_Z_TOL, "K7 fp32: max_z disagrees with its plain fp32 version")
+    require(mx_rgb <= FP32_RGB_TOL, "K7 fp32: rgb disagrees with its plain fp32 version")
+    ms = cuda_ms(lambda: k7.render_hier_kernel(hier, cfg_c, cfg_f, ro, rd, dtype=torch.float32), 1)
+    plain_ms = cuda_ms(lambda: plain_chunks(lambda s: k7.render_hier_plain(
+        hier, cfg_c, cfg_f, ro[s], rd[s], dtype=torch.float32), n), 1)
+    flop = 2 * n * (64 * module_macs(params.coarse, True) + 192 * module_macs(params.fine))
+    log(f"[fp32] K7 fp32: {ms:.3f} ms per launch ({flop / ms / 1e9:.1f} TFLOP/s); plain fp32 version "
+        f"{plain_ms:.3f} ms")
+    recs.append(kernel_record("render_hier_kernel_det_fp32", "render_hier.cu",
+                              "nerf_sampling_tpu/kernels/fused_hier.py:255", mx_rgb, ms, plain_ms, flop,
+                              nbytes(ro, rd, hier, got), "fp32"))
+    log(f"[fp32] phase {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+def check_modes(params, scene, K, device) -> None:
+    """COMPARE_NERF and NERF_MAX over view 0 through render_image, kernels
+    against the plain fp32 path: COMPARE's PSNR within MODE_COMPARE_PSNR_TOL,
+    its compare MSE within 1% and max_z within 1e-3 on the rays that hit the
+    sphere; NERF_MAX's PSNR within FULL_PSNR_TOL."""
+    import dataclasses
+
+    from nerf_sampling_tpu_torch.render import EvalMode, render_image
+    from nerf_sampling_tpu_torch.render.path import compare_mse
+
+    t0 = time.perf_counter()
+    pipe = production_pipeline("cuda")
+    Hs, Ws, _ = scene.hwf
+    pose0, gt0 = scene.poses[int(scene.i_test[0])][:3, :4], scene.images[int(scene.i_test[0])]
+
+    def psnr(m):
+        return float(-10 * np.log10(np.mean((m["depth_net_rgb_map"].float().cpu().numpy() - gt0) ** 2)))
+
+    for mode in (EvalMode.COMPARE_NERF, EvalMode.NERF_MAX):
+        out = {impl: render_image(dataclasses.replace(pipe, mlp_impl=impl), params, Hs, Ws, K, pose0, device=device,
+                                  mode=mode) for impl in ("cuda", "plain")}
+        torch.cuda.synchronize()
+        pk, pp = psnr(out["cuda"]), psnr(out["plain"])
+        tol = MODE_COMPARE_PSNR_TOL if mode == EvalMode.COMPARE_NERF else FULL_PSNR_TOL
+        msg = (f"[modes] {mode.name} view 0: PSNR kernels {pk:.4f} dB, plain fp32 {pp:.4f} dB "
+               f"(|delta| {abs(pk - pp):.4f}, tol {tol})")
+        require(abs(pk - pp) <= tol, f"{mode.name}: kernel and plain PSNR disagree")
+        if mode == EvalMode.COMPARE_NERF:
+            mk, mp = compare_mse(out["cuda"]), compare_mse(out["plain"])
+            hit = torch.isfinite(out["plain"]["depth_net_z_vals"]).all(-1)
+            dz = (out["cuda"]["max_z_vals"] - out["plain"]["max_z_vals"]).abs()[..., 0][hit]
+            rel = abs(mk - mp) / abs(mp)
+            msg += (f"; compare MSE kernels {mk:.6e}, plain {mp:.6e} (rel {rel:.2e}, tol {MODE_MSE_REL_TOL:g}); "
+                    f"|max_z| on the {int(hit.sum())} rays that hit the sphere max {float(dz.max()):.3e} "
+                    f"(tol {K7_FP32_Z_TOL:g})")
+            require(rel <= MODE_MSE_REL_TOL, "COMPARE: the compare MSE of the kernels and plain disagree")
+            require(float(dz.max()) <= K7_FP32_Z_TOL, "COMPARE: max_z of the kernels and plain disagree")
+        log(msg)
+        ms_k = frame_ms(lambda: render_image(pipe, params, Hs, Ws, K, pose0, device=device, mode=mode), 1)
+        log(f"[modes] {mode.name}: {ms_k:.2f} ms per 400x400 frame on the kernels")
+    log(f"[modes] phase {time.perf_counter() - t0:.1f} s")
+
+
+def run_render_cli(device, slice_psnrs: list[float]) -> dict[str, int]:
+    """experiments/render.py's main on the card over the 4 test views (a
+    copy of the example scene with its test views and one train view):
+    the default DEPTH_NET (uniform/64/1.0, the render slice's setting: the
+    same PSNRs), -nc, -nm and -nf, each checked for its PNGs, psnr.txt and
+    kernel launches; then the -e grid on one view; then one render_only
+    render of the spiral path with its video. Returns the launches of the
+    four mode runs, by kernel."""
+    import shutil
+
+    from PIL import Image
+
+    from nerf_sampling_tpu_torch.data.example import generate_example_dataset
+    from nerf_sampling_tpu_torch.definitions import REFERENCE_CONFIG
+    from nerf_sampling_tpu_torch.experiments import render as rcli
+    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k7
+    from nerf_sampling_tpu_torch.kernels import fused_render as k89
+    from nerf_sampling_tpu_torch.train.trainer import Trainer
+    from nerf_sampling_tpu_torch.utils.config import load_trainer_config
+
+    t0 = time.perf_counter()
+    shutil.rmtree(RENDER_DIR, ignore_errors=True)
+    datadir = os.path.join(RENDER_DIR, "scene")
+    generate_example_dataset(datadir, H=800, W=800, n_train=1, n_val=1, n_test=4)
+    common = ["-dp", datadir, "-m", "recommended_depth_net_module", "--ft_path", CKPT, "--n_samples", "64",
+              "--distance", "1.0", "--device", torch.device(device).type]
+    base = common + ["--testskip", "1", "--basedir", RENDER_DIR]
+    counters = {"depth_net_kernel": (k1, "launches"), "depth_net_kernel_fp32": (k1, "fp32_launches"),
+                "render_around_depth_kernel": (k89, "launches"), "shade_kernel_fp32": (k89, "shade_fp32_launches"),
+                "render_hier_kernel_det": (k7, "det_launches"), "render_hier_kernel_det_fp32": (k7, "det_fp32_launches")}
+    runs = {"": ("depth_net_kernel", "render_around_depth_kernel"),
+            "-nc": ("depth_net_kernel_fp32", "shade_kernel_fp32", "render_hier_kernel_det_fp32"),
+            "-nm": ("render_hier_kernel_det",), "-nf": ("render_hier_kernel_det",)}
+    counts: dict[str, int] = {}
+    for flag, names in runs.items():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        argv = base + ([flag] if flag else [])
+        log(f"[render] python3 -m nerf_sampling_tpu_torch.experiments.render {' '.join(argv)}")
+        t1 = time.perf_counter()
+        tr = rcli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        run_counts = {k: getattr(*counters[k]) for k in names}
+        d = os.path.join(tr.expdir, "renderonly_test_000000")
+        lines = open(os.path.join(d, "psnr.txt")).read().splitlines()
+        psnrs = [float(ln.split("PSNR: ")[1].split(",")[0]) for ln in lines[:4]]
+        log(f"[render] {flag or 'DEPTH_NET'}: {wall:.1f} s, per-view PSNR {['%.4f' % p for p in psnrs]}, "
+            f"launches {run_counts}; psnr.txt: {lines[4:]}")
+        require(all(os.path.exists(os.path.join(d, f"{i:03d}.png")) for i in range(4)), f"{flag}: PNGs missing")
+        require(lines[4] == "Avg of 4 images:" and len(lines) == (7 if flag == "-nc" else 6),
+                f"{flag}: psnr.txt has the wrong lines")
+        require(all((", MSE: " in ln) == (flag == "-nc") for ln in lines[:4]), f"{flag}: psnr.txt MSE lines")
+        require(all(c > 0 for c in run_counts.values()), f"{flag}: a kernel of the mode was not launched")
+        if not flag:
+            require(max(abs(a - b) for a, b in zip(psnrs, slice_psnrs)) <= 1e-4,
+                    "the CLI's DEPTH_NET render differs from the render slice's")
+        counts.update(run_counts)
+
+    t1 = time.perf_counter()
+    grid_dir = os.path.join(RENDER_DIR, "grid")
+    rcli.main(common + ["--testskip", "4", "--basedir", grid_dir, "-e"])
+    torch.cuda.synchronize()
+    lines = open(os.path.join(grid_dir, "experiments", "experiments_results.txt")).read().splitlines()
+    grid = [float(ln.split("PSNR: ")[1]) for ln in lines if ln.startswith("    Distance: ")]
+    log(f"[render] -e grid, 1 view: {len(grid)} renders in {time.perf_counter() - t1:.1f} s; PSNR uniform "
+        f"{grid[:16]}, gaussian {grid[16:]}")
+    require(len(grid) == 32 and all(np.isfinite(grid)) and lines[0] == "Experiments", "the -e grid is incomplete")
+
+    t1 = time.perf_counter()
+    cfg = load_trainer_config(REFERENCE_CONFIG, "recommended_depth_net_module")
+    cfg.n_layers, cfg.layer_width, cfg.sphere_radius = 10, 256, 2
+    cfg.datadir, cfg.basedir, cfg.expname, cfg.ft_path = datadir, RENDER_DIR, "path", CKPT
+    cfg.render_only, cfg.render_test, cfg.mlp_impl = True, False, "cuda"
+    cfg.sampling_mode, cfg.n_depth_samples, cfg.distance = "uniform", 64, 1.0
+    tr = Trainer(cfg, device=device)
+    tr.train(N_iters=1)
+    video = os.path.join(tr.expdir, "renderonly_path_000000", "video.gif")
+    with Image.open(video) as im:
+        frames = im.n_frames
+    log(f"[render] render_only over the spiral path: {frames} frames in {time.perf_counter() - t1:.1f} s, {video}")
+    require(frames == len(tr.scene.render_poses), "the path video is missing frames")
+    log(f"[render] phase {time.perf_counter() - t0:.1f} s")
     return counts
+
 
 
 def profile_frame(fn, what: str = "one frame", top: int = 12):
@@ -808,10 +1205,8 @@ def check_k4(params, queries) -> dict:
         plain_ms = cuda_ms(lambda: k4.nerf_points_plain(packed, model.cfg, pts, dirs), 3)
         log(f"[k4] {name}: {ms:.3f} ms per launch; plain bf16 version {plain_ms:.3f} ms "
             f"({2 * 0.593e6 * pts.shape[0] / ms / 1e9:.1f} TFLOP/s at 2 x 593K MAC per row)")
-        rec = {"name": "nerf_points_kernel", "route": "cuda",
-               "source": "nerf_sampling_tpu_torch/kernels/csrc/nerf_points.cu",
-               "replaces": "nerf_sampling_tpu/kernels/fused_nerf.py:301",
-               "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms}
+        rec = kernel_record("nerf_points_kernel", "nerf_points.cu", "nerf_sampling_tpu/kernels/fused_nerf.py:301",
+                            mx, ms, plain_ms, 2 * pts.shape[0] * module_macs(model), nbytes(pts, dirs, packed, got))
     return rec  # the fine query's numbers
 
 
@@ -895,10 +1290,12 @@ def check_k5(params, queries) -> dict:
     log(f"[k5] {fine_pts.shape[0]} rows: {ms:.3f} ms per launch (want_dx off), {ms_dx:.3f} ms (on); plain bf16 "
         f"version {plain_ms:.3f} ms ({3 * 2 * 0.593e6 * fine_pts.shape[0] / ms / 1e9:.1f} TFLOP/s at 3 x 2 x 593K "
         "MAC per row: recompute, d_h chain, weight grads)")
-    return {"name": "nerf_points_bwd_kernel", "route": "cuda",
-            "source": "nerf_sampling_tpu_torch/kernels/csrc/nerf_points_bwd.cu",
-            "replaces": "nerf_sampling_tpu/kernels/fused_nerf_vjp.py:272",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # the recompute, the d_h chain and the weight grads: three products of the forward's size; the
+    # inputs, the weights and the grads (as many values as the weights) once each
+    return kernel_record("nerf_points_bwd_kernel", "nerf_points_bwd.cu",
+                         "nerf_sampling_tpu/kernels/fused_nerf_vjp.py:272", worst, ms, plain_ms,
+                         3 * 2 * fine_pts.shape[0] * module_macs(model),
+                         nbytes(fine_pts, dirs, g_fine, packed, packed))
 
 
 def check_k7(params, scene, K, device) -> dict:
@@ -955,10 +1352,9 @@ def check_k7(params, scene, K, device) -> dict:
     frame_p = frame_ms(lambda: render(plain_pipe, poses[0]), 1)
     log(f"[k7] {ms:.3f} ms per launch; plain bf16 version {plain_ms:.3f} ms (chunks of {chunk} rays); FULL_NERF "
         f"400x400 frame {frame_k:.2f} ms on the kernels, {frame_p:.2f} ms on the plain fp32 path")
-    return {"name": "render_hier_kernel_det", "route": "cuda",
-            "source": "nerf_sampling_tpu_torch/kernels/csrc/render_hier.cu",
-            "replaces": "nerf_sampling_tpu/kernels/fused_hier.py:255",
-            "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms}
+    flop = 2 * ro.shape[0] * (64 * module_macs(params.coarse, True) + 192 * module_macs(params.fine))
+    return kernel_record("render_hier_kernel_det", "render_hier.cu", "nerf_sampling_tpu/kernels/fused_hier.py:255",
+                         mx, ms, plain_ms, flop, nbytes(ro, rd, packed, got))
 
 
 def check_nerf_steps(scene, device) -> None:
@@ -1217,7 +1613,11 @@ def main() -> int:
     kernels += [check_k4(params, queries), check_k5(params, queries), check_k7(params, scene, K, device)]
     del queries
     torch.cuda.synchronize()
-    render_counts = run_slice(device, scene, K)
+    k8_rec, k8_counts = check_k8(params, scene, K, device)
+    kernels += [k8_rec, check_k9(params, device)] + check_fp32(params, device)
+    check_modes(params, scene, K, device)
+    render_counts, slice_psnrs = run_slice(device, scene, K)
+    cli_counts = run_render_cli(device, slice_psnrs)
     train_counts, trainer = run_training(device, scene, K)
     check_train_step(trainer, scene, device)
     check_nerf_steps(scene, device)
@@ -1225,10 +1625,12 @@ def main() -> int:
     joint_counts = run_joint_cli(device, scene, K)
     torch.cuda.synchronize()
     # the count of the path each kernel serves: K2 renders, K1/K3/K6 train the
-    # DepthNet, K4/K5/K7 train and evaluate the NeRF (the joint run's counts are gated above)
+    # DepthNet, K4/K5/K7 train and evaluate the NeRF, K8 renders FULL_NERF
+    # without fine samples, the fp32 K1/K7/K9 render COMPARE_NERF through the
+    # render CLI (the joint run's and the CLI's other counts are gated above)
     for rec in kernels:
-        rec["launches"] = next(c[rec["name"]] for c in (nerf_counts, train_counts, render_counts, joint_counts)
-                               if rec["name"] in c)
+        rec["launches"] = next(c[rec["name"]] for c in (nerf_counts, train_counts, render_counts, joint_counts,
+                                                        k8_counts, cli_counts) if rec["name"] in c)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,8 @@ the procedural example scene (800x800) on first use. ``--mode nerf`` trains
 the first 500 steps on a center crop when the entry leaves
 ``precrop_iters`` at 0, as the JAX CLI does. Flags whose options are not
 ported (--n_devices, --multihost, -w online, ...) reach the Trainer, which
-raises naming their ROADMAP item.
+raises naming their ROADMAP item. The Trainer runs on the card, and raises
+when there is none, unless ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -69,6 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ft_path", default=None, help="Explicit NeRF checkpoint (.npz) to load.")
     ap.add_argument("--testskip", type=int, default=None, help="Load every Nth test/val image.")
     ap.add_argument("--seed", type=int, default=None, help="Init and sampling seed.")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="Where the Trainer runs: the card (default) or the CPU.")
     return ap
 
 
@@ -130,7 +133,7 @@ def main(argv: list[str] | None = None):
     if "sampling_mode" not in cfg.explicit_keys:
         cfg.sampling_mode = "depth_only"
 
-    trainer = Trainer(cfg)
+    trainer = Trainer(cfg, device=kw["device"])
     psnr = trainer.train(N_iters=kw["n_iters"] + 1)
     print(f"Final psnr: {psnr}")
     return trainer

@@ -99,14 +99,18 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong, ctypes.c_int,
         ctypes.c_uint, ctypes.c_float, ctypes.c_void_p,
     )
-    lib.nst_depth_net_forward.argtypes = [ptrs, i32, i64, i32, i32, f32, f32, vp]
+    lib.nst_depth_net_forward.argtypes = [ptrs, i32, i64, i32, i32, f32, f32, i32, vp]
     lib.nst_depth_net_forward.restype = i32
     lib.nst_render_around_depth.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, f32, i32, vp]
     lib.nst_render_around_depth.restype = i32
     lib.nst_render_gaussian.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, u32, i32, vp]
     lib.nst_render_gaussian.restype = i32
+    lib.nst_render_linspace.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, f32, i32, i32, i32, vp]
+    lib.nst_render_linspace.restype = i32
+    lib.nst_shade.argtypes = [ptrs, i32, i64, i32, i32, u32, i32, i32, i32, vp]
+    lib.nst_shade.restype = i32
     lib.nst_render_hier.argtypes = [ptrs, i32, i64, i32, i32, i32, u32, i32, u32, f32, f32,
-                                    i32, i32, u32, i32, vp]
+                                    i32, i32, u32, i32, i32, vp]
     lib.nst_render_hier.restype = i32
     lib.nst_nerf_points.argtypes = [ptrs, i32, i64, i64, i32, u32, vp]
     lib.nst_nerf_points.restype = i32

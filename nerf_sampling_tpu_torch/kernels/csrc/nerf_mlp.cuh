@@ -1,4 +1,4 @@
-// The NeRF MLP over a block's sample rows, shared by K2/K3
+// The NeRF MLP over a block's sample rows, shared by K2/K3/K8/K9
 // (render_around_depth.cu), K6/K7 (render_hier.cu) and K4 (nerf_points.cu).
 //
 // A block holds, in shared memory, the per-ray data of its R rays (o, d,
@@ -11,7 +11,10 @@
 // accumulation), and sigma and sigmoid(rgb) land in per-row fp32 planes
 // (mlp_chunk: one chunk, whatever filled its PE tile; K4 keeps the rgb
 // logits). sigma_only runs the trunk and the alpha head alone (JAX
-// heads="sigma").
+// heads="sigma"). The weights, the PE tile and the activations are all of
+// one element type T: bf16 as above, or fp32 for the COMPARE mode's
+// kernels (no rounding anywhere; mlp_tile.cuh's fp32 dense). fp32 tiles
+// are twice the bytes, so an fp32 kernel runs one block per SM.
 //
 // sort_rows is the stable per-ray sort of a plane, by rank, that K3 and K6
 // run before shading: ties keep index order and NaN goes last, compared
@@ -35,74 +38,85 @@ constexpr int kPtsCh = 63;       // 3 * (1 + 2 * 10)
 constexpr int kViewCh = 27;      // 3 * (1 + 2 * 4)
 constexpr int kMaxD = 16;
 
-struct NerfWeights {
+template <typename T>
+struct NerfWeightsT {
   int D;
   unsigned skip_mask;           // bit i: layer i also reads the point embedding
-  const bf16* w0;               // [64, W] point-embedding rows, zero-padded
-  const bf16* tw[kMaxD];        // layers >= 1: [W, W]
+  const T* w0;                  // [64, W] point-embedding rows, zero-padded
+  const T* tw[kMaxD];           // layers >= 1: [W, W]
   const float* tb[kMaxD];       // [W]
-  const bf16* skip_w[kMaxD];    // [64, W] for the layers in skip_mask
-  const bf16* feat_w;           // [W, W]
+  const T* skip_w[kMaxD];       // [64, W] for the layers in skip_mask
+  const T* feat_w;              // [W, W]
   const float* feat_b;          // [W]
-  const bf16* alpha_w;          // [W]
+  const T* alpha_w;             // [W]
   const float* alpha_b;         // [1]
-  const bf16* views_wf;         // [W, W/2]
-  const bf16* views_ws;         // [32, W/2] view-embedding rows, zero-padded
+  const T* views_wf;            // [W, W/2]
+  const T* views_ws;            // [32, W/2] view-embedding rows, zero-padded
   const float* views_b;         // [W/2]
-  const bf16* rgb_w;            // [3, W/2]
+  const T* rgb_w;               // [3, W/2]
   const float* rgb_b;           // [3]
 };
+using NerfWeights = NerfWeightsT<bf16>;
 
 // Reads a pack_nerf layout from ptrs[k...] (see fused_render._flat_weights):
 // w0, tw[1..D-1], tb[0..D-1], skip_w[i] for each set bit of skip_mask,
 // then the alpha head alone (sigma_only) or all the heads. Returns the
 // number of pointers read, or -1 on a bad D / skip_mask.
+template <typename T>
 inline int read_weights(const void* const* ptrs, int D, unsigned skip_mask, bool sigma_only,
-                        NerfWeights* w) {
+                        NerfWeightsT<T>* w) {
   if (D < 1 || D > kMaxD || (skip_mask & 1u) || (skip_mask >> D)) return -1;
-  *w = NerfWeights{};
+  *w = NerfWeightsT<T>{};
   w->D = D;
   w->skip_mask = skip_mask;
   int k = 0;
-  w->w0 = static_cast<const bf16*>(ptrs[k++]);
-  for (int i = 1; i < D; ++i) w->tw[i] = static_cast<const bf16*>(ptrs[k++]);
+  w->w0 = static_cast<const T*>(ptrs[k++]);
+  for (int i = 1; i < D; ++i) w->tw[i] = static_cast<const T*>(ptrs[k++]);
   for (int i = 0; i < D; ++i) w->tb[i] = static_cast<const float*>(ptrs[k++]);
   for (int i = 1; i < D; ++i)
-    if ((skip_mask >> i) & 1u) w->skip_w[i] = static_cast<const bf16*>(ptrs[k++]);
+    if ((skip_mask >> i) & 1u) w->skip_w[i] = static_cast<const T*>(ptrs[k++]);
   if (sigma_only) {
-    w->alpha_w = static_cast<const bf16*>(ptrs[k++]);
+    w->alpha_w = static_cast<const T*>(ptrs[k++]);
     w->alpha_b = static_cast<const float*>(ptrs[k++]);
     return k;
   }
-  w->feat_w = static_cast<const bf16*>(ptrs[k++]);
+  w->feat_w = static_cast<const T*>(ptrs[k++]);
   w->feat_b = static_cast<const float*>(ptrs[k++]);
-  w->alpha_w = static_cast<const bf16*>(ptrs[k++]);
+  w->alpha_w = static_cast<const T*>(ptrs[k++]);
   w->alpha_b = static_cast<const float*>(ptrs[k++]);
-  w->views_wf = static_cast<const bf16*>(ptrs[k++]);
-  w->views_ws = static_cast<const bf16*>(ptrs[k++]);
+  w->views_wf = static_cast<const T*>(ptrs[k++]);
+  w->views_ws = static_cast<const T*>(ptrs[k++]);
   w->views_b = static_cast<const float*>(ptrs[k++]);
-  w->rgb_w = static_cast<const bf16*>(ptrs[k++]);
+  w->rgb_w = static_cast<const T*>(ptrs[k++]);
   w->rgb_b = static_cast<const float*>(ptrs[k++]);
   return k;
 }
 
-// Shared memory of the MLP: two activation tiles, the PE tile and the
-// per-warp epilogue scratch. Every offset is a multiple of 32 bytes (wmma).
-constexpr size_t kTileBytes =
-    (2 * kChunk * kLdx + kChunk * kLdpe) * sizeof(bf16) + kWarps * kScratchPerWarp * sizeof(float);
+// Shared memory of the MLP: two activation tiles, the PE tile and, for
+// bf16, the per-warp epilogue scratch of wmma. Every offset is a multiple
+// of 32 bytes (wmma).
+template <typename T>
+__host__ __device__ constexpr size_t tile_bytes() {
+  return (2 * kChunk * kLdx + kChunk * kLdpe) * sizeof(T) +
+         (sizeof(T) == sizeof(bf16) ? kWarps * kScratchPerWarp * sizeof(float) : 0);
+}
+constexpr size_t kTileBytes = tile_bytes<bf16>();
 
-struct Tiles {
-  bf16* x[2];
-  bf16* pe;
-  float* scratch;
+template <typename T>
+struct TilesT {
+  T* x[2];
+  T* pe;
+  float* scratch;  // bf16 only
 };
+using Tiles = TilesT<bf16>;
 
-__device__ __forceinline__ Tiles carve_tiles(unsigned char* smem) {
-  Tiles t;
-  t.x[0] = reinterpret_cast<bf16*>(smem);
+template <typename T = bf16>
+__device__ __forceinline__ TilesT<T> carve_tiles(unsigned char* smem) {
+  TilesT<T> t;
+  t.x[0] = reinterpret_cast<T*>(smem);
   t.x[1] = t.x[0] + kChunk * kLdx;
   t.pe = t.x[1] + kChunk * kLdx;
-  t.scratch = reinterpret_cast<float*>(t.pe + kChunk * kLdpe);
+  t.scratch = sizeof(T) == sizeof(bf16) ? reinterpret_cast<float*>(t.pe + kChunk * kLdpe) : nullptr;
   return t;
 }
 
@@ -119,16 +133,17 @@ __device__ __forceinline__ float embed(const float* v, int col) {
 // rows [0, valid) are written: sigma[r * stride] and, unless sigma_only,
 // rgb[ch][r * stride], the logits when raw_rgb, else sigmoid(logits).
 // Every thread of the block calls it; it ends on a barrier.
-__device__ __forceinline__ void mlp_chunk(const NerfWeights& w, const Tiles& t, int valid,
+template <typename T>
+__device__ __forceinline__ void mlp_chunk(const NerfWeightsT<T>& w, const TilesT<T>& t, int valid,
                                           bool sigma_only, bool raw_rgb, float* sigma,
                                           float* const* rgb, int stride) {
   const int tid = threadIdx.x;
-  const Operand op0 = {t.pe, kLdpe, w.w0, 64};
+  const OperandT<T> op0 = {t.pe, kLdpe, w.w0, 64};
   dense<kChunk / 16, kW / (16 * kWarps)>(&op0, 1, w.tb[0], t.x[0], kLdx, kRelu, t.scratch);
   __syncthreads();
   int cur = 0;
   for (int i = 1; i < w.D; ++i) {
-    const Operand ops[2] = {{t.x[cur], kLdx, w.tw[i], kW}, {t.pe, kLdpe, w.skip_w[i], 64}};
+    const OperandT<T> ops[2] = {{t.x[cur], kLdx, w.tw[i], kW}, {t.pe, kLdpe, w.skip_w[i], 64}};
     dense<kChunk / 16, kW / (16 * kWarps)>(ops, ((w.skip_mask >> i) & 1u) ? 2 : 1, w.tb[i],
                                            t.x[cur ^ 1], kLdx, kRelu, t.scratch);
     __syncthreads();
@@ -137,10 +152,9 @@ __device__ __forceinline__ void mlp_chunk(const NerfWeights& w, const Tiles& t, 
 
   {  // sigma = h @ alpha_w + alpha_b: four threads per row
     const int rr = tid >> 2, part = tid & 3;
-    const bf16* h = t.x[cur] + rr * kLdx;
+    const T* h = t.x[cur] + rr * kLdx;
     float s = 0.f;
-    for (int c = part * (kW / 4); c < (part + 1) * (kW / 4); ++c)
-      s += __bfloat162float(h[c]) * __bfloat162float(w.alpha_w[c]);
+    for (int c = part * (kW / 4); c < (part + 1) * (kW / 4); ++c) s += to_f(h[c]) * to_f(w.alpha_w[c]);
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
     if (part == 0 && rr < valid) sigma[rr * stride] = s + w.alpha_b[0];
@@ -149,19 +163,19 @@ __device__ __forceinline__ void mlp_chunk(const NerfWeights& w, const Tiles& t, 
     __syncthreads();  // the next chunk's first layer overwrites x[cur]
     return;
   }
-  const Operand opf = {t.x[cur], kLdx, w.feat_w, kW};
+  const OperandT<T> opf = {t.x[cur], kLdx, w.feat_w, kW};
   dense<kChunk / 16, kW / (16 * kWarps)>(&opf, 1, w.feat_b, t.x[cur ^ 1], kLdx, kNone, t.scratch);
   __syncthreads();
-  const Operand opv[2] = {{t.x[cur ^ 1], kLdx, w.views_wf, kW},
-                          {t.pe + kPeViews, kLdpe, w.views_ws, 32}};
+  const OperandT<T> opv[2] = {{t.x[cur ^ 1], kLdx, w.views_wf, kW},
+                              {t.pe + kPeViews, kLdpe, w.views_ws, 32}};
   dense<kChunk / 16, kWv / (16 * kWarps)>(opv, 2, w.views_b, t.x[cur], kLdx, kRelu, t.scratch);
   __syncthreads();
 
   for (int e = tid; e < kChunk * 3; e += kThreads) {
     const int rr = e / 3, ch = e % 3;
-    const bf16* hv = t.x[cur] + rr * kLdx;
+    const T* hv = t.x[cur] + rr * kLdx;
     float s = 0.f;
-    for (int c = 0; c < kWv; ++c) s += __bfloat162float(hv[c]) * __bfloat162float(w.rgb_w[ch * kWv + c]);
+    for (int c = 0; c < kWv; ++c) s += to_f(hv[c]) * to_f(w.rgb_w[ch * kWv + c]);
     if (rr < valid) {
       const float logit = s + w.rgb_b[ch];
       rgb[ch][rr * stride] = raw_rgb ? logit : 1.f / (1.f + expf(-logit));
@@ -173,7 +187,8 @@ __device__ __forceinline__ void mlp_chunk(const NerfWeights& w, const Tiles& t, 
 // The MLP over rows [0, rows) of the plane z (row's ray: row / S); writes
 // sigma[row] and, unless sigma_only, sigmoid(rgb) to rgb[0..2][row].
 // Every thread of the block calls it; it ends on a barrier.
-__device__ __forceinline__ void nerf_rows(const NerfWeights& w, const Tiles& t, const float* ray,
+template <typename T>
+__device__ __forceinline__ void nerf_rows(const NerfWeightsT<T>& w, const TilesT<T>& t, const float* ray,
                                           const float* z, int rows, int S, bool sigma_only,
                                           float* sigma, float* const* rgb) {
   const int tid = threadIdx.x;
@@ -195,7 +210,7 @@ __device__ __forceinline__ void nerf_rows(const NerfWeights& w, const Tiles& t, 
           v = embed(u, col - kPeViews);
         }
       }
-      t.pe[rr * kLdpe + col] = __float2bfloat16(v);
+      t.pe[rr * kLdpe + col] = from_f<T>(v);
     }
     __syncthreads();
     float* rgb_c[3] = {nullptr, nullptr, nullptr};

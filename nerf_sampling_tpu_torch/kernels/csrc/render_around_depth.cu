@@ -1,7 +1,7 @@
-// K2 and K3: DepthNet populate-and-shade, rays + predicted depth -> composited maps.
+// K2, K3, K8 and K9: populate-and-shade, rays (+ depths) -> composited maps.
 //
 // Replaces nerf_sampling_tpu/kernels/fused_render.py::_call (the
-// pl.pallas_call at :390) in two of its populate modes (_kernel, :203-344):
+// pl.pallas_call at :390) in its populate modes (_kernel, :203-344):
 //   K2, z_source="around_center" (fused_render_around_depth):
 //     z_s = clip(depth + offsets[s], near, far), offsets = std * sorted(
 //     linspace(-1, 1, S-1) U {0}); a NaN depth stays NaN; already sorted.
@@ -12,24 +12,41 @@
 //     before shading, so the in-order compositing below is the reference's
 //     sort-then-composite. The TPU kernel composited in storage order with
 //     an order-free O(S^2) product instead; here the sort is one rank pass.
-// Then, for both: fp32 positional encoding of o + z*d and of the unit view
-// direction, rounded to bf16; the 8x256 NeRF MLP (nerf_mlp.cuh: bf16
-// operands, fp32 accumulation); compositing in sample order with dists
-// z[s+1]-z[s] and a 1e10 tail, both scaled by |d|, alpha =
+//   K8, z_source="linspace" (fused_render, :447-488): the eval grid at
+//     perturb 0, the same for every ray, with the TPU kernel's rounding
+//     (:278-286), not jnp.linspace's: t = s / (S-1) as a true fp32 division
+//     (0 when S = 1), then v = a*(1-t) + b*t in four rounded fp32 steps, no
+//     fused multiply-add; z = v with (a, b) = (near, far), or z = 1/v with
+//     (a, b) = (1/near, 1/far) for lindisp (the wrapper rounds 1/near and
+//     1/far to fp32 once, as the JAX kernel's Python constants are). No
+//     rotation-recurrence PE: it drifts about 2e-4 in fp32 (:298-303).
+//   K9, z_source="input" / "input_unsorted" (fused_shade, :613-659): the
+//     caller's z [n, S]. "input" is taken as sorted; "input_unsorted" is
+//     sorted per ray by K3's rank pass first, which is the stable sort by
+//     (z, index) that the TPU kernel's order-free compositor reproduces
+//     (ops.unsorted_weights), NaN last.
+// Then, for all: fp32 positional encoding of o + z*d and of the unit view
+// direction; the 8x256 NeRF MLP (nerf_mlp.cuh); compositing in sample
+// order with dists z[s+1]-z[s] and a 1e10 tail, both scaled by |d|, alpha =
 // 1-exp(-relu(sigma)*dist), the exclusive product of 1-alpha+1e-10, and a
-// white background.
+// white background. Element type T: bf16 (bf16 PE, weights and
+// activations, fp32 accumulation), or fp32 throughout (K8 and K9 in the
+// COMPARE mode; K2 and K3 are bf16 only).
 //
-// What bounds it on the H100: about 1.2 MFLOP per sample on the tensor
-// cores, 12 TFLOP per 400x400 frame at 64 samples, against 1.2 MB of bf16
-// weights that stay in L2; device-memory traffic is 40 bytes per ray (plus
-// 4(S-1) with injected noise). The matrix products bound it. This version
-// streams the weights from L2 per 64-row chunk through wmma fragments (no
-// TMA, no wgmma): simple and right first, fast in a later change.
+// What bounds it on the H100: about 1.2 MFLOP per sample, 12 TFLOP per
+// 400x400 frame at 64 samples, against 1.2 MB of bf16 weights (2.4 MB
+// fp32) that stay in L2; device-memory traffic is 40 bytes per ray (plus
+// 4(S-1) with injected noise, 4S with input z). The matrix products bound
+// it: on the tensor cores in bf16 (989 TFLOP/s), on the FMA units in fp32
+// (67 TFLOP/s). This version streams the weights from L2 per 64-row chunk
+// through wmma fragments (bf16) or float4 loads (fp32), with no TMA and no
+// wgmma: simple and right first, fast in a later change.
 //
 // Design: one block per group of R rays (R*S <= 1024 sample rows), two
-// blocks per SM. Compositing walks each ray's samples in order, one thread
-// per ray. None of the TPU kernel's Mosaic devices (affine-in-z S matrix,
-// rotation PE, ones-row reductions, order-free compositor) is needed here.
+// blocks per SM in bf16 and one in fp32. Compositing walks each ray's
+// samples in order, one thread per ray. None of the TPU kernel's Mosaic
+// devices (affine-in-z S matrix, rotation PE, ones-row reductions,
+// order-free compositor) is needed here.
 
 #include <cuda_runtime.h>
 
@@ -42,30 +59,38 @@ namespace {
 constexpr int kMaxRows = 1024;   // sample rows per block
 constexpr int kMaxRays = 64;     // rays per block
 
+enum ZSource { kAroundCenter = 0, kGaussian = 1, kLinspace = 2, kInput = 3, kInputUnsorted = 4 };
+
+template <typename T>
 struct RenderParams {
   const float* rays_o;   // [n, 3]
   const float* rays_d;   // [n, 3]
-  const float* depth;    // [n]
-  const float* offsets;  // uniform: [S], std-scaled, sorted
-  const float* noise;    // gaussian: [n, S-1] injected draws, or null
+  const float* depth;    // around_center, gaussian: [n]
+  const float* z_arg;    // around_center: offsets [S], std-scaled, sorted;
+                         // gaussian: injected noise [n, S-1] or null; input: z [n, S]
   float* out;            // [6, n]: r, g, b, disp, acc, depth
   long long n;
   int S, R;
-  int gaussian;          // 0: uniform (K2), 1: gaussian (K3)
-  float near_, far_;     // uniform clip
+  int source;            // ZSource
+  float near_, far_;     // around_center: the clip; linspace: the grid ends a, b
+  int lindisp;           // linspace: z = 1/v
   float std_;            // gaussian
-  unsigned seed;         // gaussian, when noise is null
+  unsigned seed;         // gaussian, when the noise is null
   int white_bkgd;
-  NerfWeights w;
+  NerfWeightsT<T> w;
 };
 
-constexpr size_t kSmemBytes = kTileBytes + (5 * kMaxRows + 8 * kMaxRays) * sizeof(float);
+template <typename T>
+constexpr size_t smem_bytes() {
+  return tile_bytes<T>() + (5 * kMaxRows + 8 * kMaxRays) * sizeof(float);
+}
 
-__global__ void __launch_bounds__(kThreads, 2)
-    render_around_depth_kernel(const __grid_constant__ RenderParams p) {
+template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(bf16) ? 2 : 1)
+    render_around_depth_kernel(const __grid_constant__ RenderParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Tiles t = carve_tiles(smem);
-  float* zp = reinterpret_cast<float*>(smem + kTileBytes);
+  const TilesT<T> t = carve_tiles<T>(smem);
+  float* zp = reinterpret_cast<float*>(smem + tile_bytes<T>());
   float* sigma = zp + kMaxRows;
   float* plane[3] = {sigma + kMaxRows, sigma + 2 * kMaxRows, sigma + 3 * kMaxRows};
   float* ray = sigma + 4 * kMaxRows;  // per ray: o[3], d[3], |d|, depth
@@ -75,6 +100,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const long long ray0 = (long long)blockIdx.x * p.R;
   const int nr = (int)min((long long)p.R, p.n - ray0);
   const int rows = nr * S;
+  const bool centered = p.source == kAroundCenter || p.source == kGaussian;
 
   for (int r = tid; r < nr; r += kThreads) {
     float* q = ray + 8 * r;
@@ -83,25 +109,37 @@ __global__ void __launch_bounds__(kThreads, 2)
       q[3 + c] = p.rays_d[(ray0 + r) * 3 + c];
     }
     q[6] = sqrtf(q[3] * q[3] + q[4] * q[4] + q[5] * q[5]);
-    q[7] = p.depth[ray0 + r];
+    q[7] = centered ? p.depth[ray0 + r] : 0.f;
   }
   __syncthreads();
-  if (!p.gaussian) {
+  if (p.source == kAroundCenter) {
     for (int row = tid; row < rows; row += kThreads) {
-      const float v = ray[8 * (row / S) + 7] + p.offsets[row % S];
+      const float v = ray[8 * (row / S) + 7] + p.z_arg[row % S];
       zp[row] = isnan(v) ? v : fminf(fmaxf(v, p.near_), p.far_);
     }
-  } else {
-    // the population, unsorted, in the sigma plane (free until the MLP)
+  } else if (p.source == kLinspace) {
     for (int row = tid; row < rows; row += kThreads) {
-      const int r = row / S, s = row - r * S;
-      const float c = ray[8 * r + 7];
-      float v = c;
-      if (s < S - 1) {
-        const long long g = ray0 + r;
-        const float nz = p.noise ? p.noise[g * (S - 1) + s]
-                                 : gaussian_normal(p.seed, (uint32_t)g, (uint32_t)s);
-        v = __fadd_rn(c, __fmul_rn(p.std_, nz));  // as the plain version: no FMA
+      const float tv = __fdiv_rn((float)(row % S), (float)(S > 1 ? S - 1 : 1));
+      const float v = __fadd_rn(__fmul_rn(p.near_, __fsub_rn(1.f, tv)), __fmul_rn(p.far_, tv));
+      zp[row] = p.lindisp ? __fdiv_rn(1.f, v) : v;
+    }
+  } else if (p.source == kInput) {
+    for (int row = tid; row < rows; row += kThreads) zp[row] = p.z_arg[ray0 * S + row];
+  } else {
+    // the unsorted population in the sigma plane (free until the MLP)
+    for (int row = tid; row < rows; row += kThreads) {
+      float v;
+      if (p.source == kInputUnsorted) {
+        v = p.z_arg[ray0 * S + row];
+      } else {  // gaussian
+        const int r = row / S, s = row - r * S;
+        v = ray[8 * r + 7];
+        if (s < S - 1) {
+          const long long g = ray0 + r;
+          const float nz = p.z_arg ? p.z_arg[g * (S - 1) + s]
+                                   : gaussian_normal(p.seed, (uint32_t)g, (uint32_t)s);
+          v = __fadd_rn(v, __fmul_rn(p.std_, nz));  // as the plain version: no FMA
+        }
       }
       sigma[row] = v;
     }
@@ -115,18 +153,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   // compositing in sample order, one thread per ray
   for (int r = tid; r < nr; r += kThreads) {
     const float dn = ray[8 * r + 6];
-    float T = 1.f, acc = 0.f, dep = 0.f, c[3] = {0.f, 0.f, 0.f};
+    float T_ = 1.f, acc = 0.f, dep = 0.f, c[3] = {0.f, 0.f, 0.f};
     for (int s = 0; s < S; ++s) {
       const int row = r * S + s;
       const float z = zp[row];
       const float dist = (s < S - 1 ? zp[row + 1] - z : 1e10f) * dn;
       const float sg = sigma[row] < 0.f ? 0.f : sigma[row];
       const float alpha = 1.f - expf(-sg * dist);
-      const float w = alpha * T;
+      const float w = alpha * T_;
       acc += w;
       dep += w * z;
       for (int k = 0; k < 3; ++k) c[k] += w * plane[k][row];
-      T *= 1.f - alpha + 1e-10f;
+      T_ *= 1.f - alpha + 1e-10f;
     }
     const float q = dep / (acc + 1e-10f);
     const long long g = ray0 + r;
@@ -137,18 +175,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// ptrs, in order: rays_o, rays_d, depth, z_arg (offsets or noise, may be
-// null for noise), out; then the NeRF's weights (nerf_mlp.cuh::read_weights).
+// ptrs, in order: rays_o, rays_d, depth (may be null), z_arg (may be
+// null), out; then the NeRF's weights (nerf_mlp.cuh::read_weights).
+template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
-           RenderParams p, void* stream) {
+           RenderParams<T> p, void* stream) {
   if (S < 1 || S > 512) return (int)cudaErrorInvalidValue;
   p.rays_o = static_cast<const float*>(ptrs[0]);
   p.rays_d = static_cast<const float*>(ptrs[1]);
   p.depth = static_cast<const float*>(ptrs[2]);
-  if (p.gaussian)
-    p.noise = static_cast<const float*>(ptrs[3]);
-  else
-    p.offsets = static_cast<const float*>(ptrs[3]);
+  p.z_arg = static_cast<const float*>(ptrs[3]);
   p.out = static_cast<float*>(const_cast<void*>(ptrs[4]));
   const int k = read_weights(ptrs + 5, D, skip_mask, false, &p.w);
   if (k < 0 || n_ptrs != 5 + k) return (int)cudaErrorInvalidValue;
@@ -156,13 +192,26 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsig
   p.S = S;
   p.R = kMaxRows / S < kMaxRays ? kMaxRows / S : kMaxRays;  // >= 2 for S <= 512
 
-  cudaError_t err = cudaFuncSetAttribute(render_around_depth_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  constexpr size_t smem = smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(render_around_depth_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
   const unsigned grid = (unsigned)((n + p.R - 1) / p.R);
-  render_around_depth_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  render_around_depth_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_typed(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
+                 int source, float a, float b, int lindisp, int white_bkgd, void* stream) {
+  RenderParams<T> p = {};
+  p.source = source;
+  p.near_ = a;
+  p.far_ = b;
+  p.lindisp = lindisp;
+  p.white_bkgd = white_bkgd;
+  return launch(ptrs, n_ptrs, n, S, D, skip_mask, p, stream);
 }
 
 }  // namespace
@@ -172,12 +221,8 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsig
 extern "C" int nst_render_around_depth(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
                                        unsigned skip_mask, float near_, float far_, int white_bkgd,
                                        void* stream) {
-  nst::RenderParams p = {};
-  p.gaussian = 0;
-  p.near_ = near_;
-  p.far_ = far_;
-  p.white_bkgd = white_bkgd;
-  return nst::launch(ptrs, n_ptrs, n, S, D, skip_mask, p, stream);
+  return nst::launch_typed<nst::bf16>(ptrs, n_ptrs, n, S, D, skip_mask, nst::kAroundCenter, near_, far_,
+                                      0, white_bkgd, stream);
 }
 
 // K3: ptrs[3] is the injected noise [n, S-1] or null (Philox draws keyed by
@@ -186,10 +231,35 @@ extern "C" int nst_render_gaussian(const void* const* ptrs, int n_ptrs, long lon
                                    unsigned skip_mask, float std_, unsigned seed, int white_bkgd,
                                    void* stream) {
   if (S < 2) return (int)cudaErrorInvalidValue;
-  nst::RenderParams p = {};
-  p.gaussian = 1;
+  nst::RenderParams<nst::bf16> p = {};
+  p.source = nst::kGaussian;
   p.std_ = std_;
   p.seed = seed;
   p.white_bkgd = white_bkgd;
   return nst::launch(ptrs, n_ptrs, n, S, D, skip_mask, p, stream);
+}
+
+// K8: the grid ends (a, b) are (near, far), or (1/near, 1/far) rounded to
+// fp32 with lindisp; ptrs[2] and ptrs[3] are null. fp32: weights of
+// pack_nerf(model, torch.float32). Returns a cudaError_t (0 on success).
+extern "C" int nst_render_linspace(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
+                                   unsigned skip_mask, float a, float b, int lindisp, int white_bkgd,
+                                   int fp32, void* stream) {
+  if (ptrs[2] || ptrs[3]) return (int)cudaErrorInvalidValue;
+  return fp32 ? nst::launch_typed<float>(ptrs, n_ptrs, n, S, D, skip_mask, nst::kLinspace, a, b, lindisp,
+                                         white_bkgd, stream)
+              : nst::launch_typed<nst::bf16>(ptrs, n_ptrs, n, S, D, skip_mask, nst::kLinspace, a, b,
+                                             lindisp, white_bkgd, stream);
+}
+
+// K9: ptrs[3] is the caller's z [n, S] (ptrs[2] null); sorted: z is taken
+// as sorted per ray, else it is sorted first. Returns a cudaError_t.
+extern "C" int nst_shade(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
+                         int sorted, int white_bkgd, int fp32, void* stream) {
+  if (ptrs[2] || !ptrs[3]) return (int)cudaErrorInvalidValue;
+  const int source = sorted ? nst::kInput : nst::kInputUnsorted;
+  return fp32 ? nst::launch_typed<float>(ptrs, n_ptrs, n, S, D, skip_mask, source, 0.f, 0.f, 0, white_bkgd,
+                                         stream)
+              : nst::launch_typed<nst::bf16>(ptrs, n_ptrs, n, S, D, skip_mask, source, 0.f, 0.f, 0,
+                                             white_bkgd, stream);
 }

@@ -26,13 +26,17 @@
 //      first in storage order, fused_hier.py:211-213).
 // The draws t_rand (Nc) and u (Nf) of a ray are Philox uniforms keyed by
 // (seed, global ray index) (philox.cuh), or read from injected draws; det
-// mode draws nothing.
+// mode draws nothing. Element type T: bf16 (K6, and K7 in FULL_NERF and
+// NERF_MAX), or fp32 throughout (K7 in the COMPARE mode: the fp32 MLP of
+// nerf_mlp.cuh, one block per SM).
 //
 // What bounds it on the H100: the two MLP passes, Nc sigma-only queries
 // (~0.98 MFLOP each) and Nc+Nf full queries (~1.19 MFLOP) a ray, on the
 // tensor cores, with the weights (2 x 1.2 MB bf16) streamed from L2. Device
 // memory traffic is 24 bytes in and 44 out per ray. At the train step's
 // 1024 rays it is ~205 blocks of 5 rays, about one wave of 2 blocks per SM.
+// In fp32 the same products run on the FMA units (67 TFLOP/s), 46.5 TFLOP
+// per 400x400 frame at 64 + 128 samples: at least 0.7 s.
 //
 // Design: one block per R = min(1024 / (Nc+Nf), 16) rays, so the union
 // planes hold R*(Nc+Nf) <= 1024 rows. Six fp32 planes in shared memory:
@@ -52,6 +56,7 @@ namespace {
 constexpr int kMaxRows = 1024;  // union rows per block
 constexpr int kMaxRays = 16;    // rays per block
 
+template <typename T>
 struct HierParams {
   const float* rays_o;  // [n, 3]
   const float* rays_d;  // [n, 3]
@@ -62,26 +67,33 @@ struct HierParams {
   float near_, far_;
   int lindisp, white_bkgd, det;
   unsigned seed;
-  NerfWeights wc, wf;
+  NerfWeightsT<T> wc, wf;
 };
 
-constexpr size_t kSmemBytes = kTileBytes + (6 * kMaxRows + 8 * kMaxRays) * sizeof(float);
+template <typename T>
+constexpr size_t smem_bytes() {
+  return tile_bytes<T>() + (6 * kMaxRows + 8 * kMaxRays) * sizeof(float);
+}
 
-__device__ __forceinline__ float draw(const HierParams& p, long long g, int k) {
+template <typename T>
+__device__ __forceinline__ float draw(const HierParams<T>& p, long long g, int k) {
   return p.draws ? p.draws[g * (p.Nc + p.Nf) + k] : hier_uniform(p.seed, (uint32_t)g, (uint32_t)k);
 }
 
-__device__ __forceinline__ float grid_z(const HierParams& p, int s) {
+template <typename T>
+__device__ __forceinline__ float grid_z(const HierParams<T>& p, int s) {
   // i * fl(1/(n-1)) and exactly 1 at the end, as the plain version (jnp.linspace)
   const float t = s == p.Nc - 1 ? 1.f : (float)s * (1.f / (float)(p.Nc - 1));
   if (p.lindisp) return 1.f / (1.f / p.near_ * (1.f - t) + 1.f / p.far_ * t);
   return p.near_ * (1.f - t) + p.far_ * t;
 }
 
-__global__ void __launch_bounds__(kThreads, 2) render_hier_kernel(const __grid_constant__ HierParams p) {
+template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(bf16) ? 2 : 1)
+    render_hier_kernel(const __grid_constant__ HierParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Tiles t = carve_tiles(smem);
-  float* U = reinterpret_cast<float*>(smem + kTileBytes);
+  const TilesT<T> t = carve_tiles<T>(smem);
+  float* U = reinterpret_cast<float*>(smem + tile_bytes<T>());
   float* zs = U + kMaxRows;
   float* sg = zs + kMaxRows;
   float* plane[3] = {sg + kMaxRows, sg + 2 * kMaxRows, sg + 3 * kMaxRows};
@@ -123,13 +135,13 @@ __global__ void __launch_bounds__(kThreads, 2) render_hier_kernel(const __grid_c
   for (int r = tid; r < nr; r += kThreads) {
     const float dn = ray[8 * r + 6];
     const float* z = zs + r * Nc;
-    float T = 1.f;
+    float T_ = 1.f;
     for (int s = 0; s < Nc; ++s) {
       const float dist = (s < Nc - 1 ? z[s + 1] - z[s] : 1e10f) * dn;
       const float sgm = sg[r * Nc + s] < 0.f ? 0.f : sg[r * Nc + s];
       const float alpha = 1.f - expf(-sgm * dist);
-      wts[r * Nc + s] = alpha * T;
-      T *= 1.f - alpha + 1e-10f;
+      wts[r * Nc + s] = alpha * T_;
+      T_ *= 1.f - alpha + 1e-10f;
     }
     float sum = 0.f;
     for (int k = 1; k < Nc - 1; ++k) sum += wts[r * Nc + k] + 1e-5f;
@@ -172,7 +184,7 @@ __global__ void __launch_bounds__(kThreads, 2) render_hier_kernel(const __grid_c
   nerf_rows(p.wf, t, ray, zs, nr * Su, Su, false, sg, plane);
   for (int r = tid; r < nr; r += kThreads) {
     const float dn = ray[8 * r + 6];
-    float T = 1.f, acc = 0.f, dep = 0.f, c[3] = {0.f, 0.f, 0.f};
+    float T_ = 1.f, acc = 0.f, dep = 0.f, c[3] = {0.f, 0.f, 0.f};
     float best_w = 0.f;
     int best = 0;
     for (int s = 0; s < Su; ++s) {
@@ -181,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, 2) render_hier_kernel(const __grid_c
       const float dist = (s < Su - 1 ? zs[row + 1] - z : 1e10f) * dn;
       const float sgm = sg[row] < 0.f ? 0.f : sg[row];
       const float alpha = 1.f - expf(-sgm * dist);
-      const float w = alpha * T;
+      const float w = alpha * T_;
       if (s == 0 || w > best_w) {  // first maximum in sorted order
         best_w = w;
         best = s;
@@ -189,7 +201,7 @@ __global__ void __launch_bounds__(kThreads, 2) render_hier_kernel(const __grid_c
       acc += w;
       dep += w * z;
       for (int k = 0; k < 3; ++k) c[k] += w * plane[k][row];
-      T *= 1.f - alpha + 1e-10f;
+      T_ *= 1.f - alpha + 1e-10f;
     }
     const float q = dep / (acc + 1e-10f);
     const long long g = ray0 + r;
@@ -204,19 +216,14 @@ __global__ void __launch_bounds__(kThreads, 2) render_hier_kernel(const __grid_c
   }
 }
 
-}  // namespace
-}  // namespace nst
-
 // ptrs, in order: rays_o, rays_d, draws (or null), out; the coarse NeRF's
 // trunk and alpha head; the fine NeRF's weights (nerf_mlp.cuh::read_weights).
-// det: no draws (K7). Returns a cudaError_t (0 on success).
-extern "C" int nst_render_hier(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf,
-                               int Dc, unsigned skip_c, int Df, unsigned skip_f, float near_,
-                               float far_, int lindisp, int white_bkgd, unsigned seed, int det,
-                               void* stream) {
-  using namespace nst;
+template <typename T>
+int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int Dc, unsigned skip_c,
+           int Df, unsigned skip_f, float near_, float far_, int lindisp, int white_bkgd, unsigned seed,
+           int det, void* stream) {
   if (Nc < 4 || Nf < 1 || Nc + Nf > 512) return (int)cudaErrorInvalidValue;
-  HierParams p = {};
+  HierParams<T> p = {};
   p.rays_o = static_cast<const float*>(ptrs[0]);
   p.rays_d = static_cast<const float*>(ptrs[1]);
   p.draws = static_cast<const float*>(ptrs[2]);
@@ -237,21 +244,38 @@ extern "C" int nst_render_hier(const void* const* ptrs, int n_ptrs, long long n,
   p.det = det;
   if (det && p.draws) return (int)cudaErrorInvalidValue;
 
-  cudaError_t err = cudaFuncSetAttribute(render_hier_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  constexpr size_t smem = smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(render_hier_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
   const unsigned grid = (unsigned)((n + p.R - 1) / p.R);
-  render_hier_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  render_hier_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace nst
+
+// det: no draws (K7). fp32: the weights of pack_hier(..., torch.float32).
+// Returns a cudaError_t (0 on success).
+extern "C" int nst_render_hier(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf,
+                               int Dc, unsigned skip_c, int Df, unsigned skip_f, float near_,
+                               float far_, int lindisp, int white_bkgd, unsigned seed, int det,
+                               int fp32, void* stream) {
+  return fp32 ? nst::launch<float>(ptrs, n_ptrs, n, Nc, Nf, Dc, skip_c, Df, skip_f, near_, far_, lindisp,
+                                   white_bkgd, seed, det, stream)
+              : nst::launch<nst::bf16>(ptrs, n_ptrs, n, Nc, Nf, Dc, skip_c, Df, skip_f, near_, far_,
+                                       lindisp, white_bkgd, seed, det, stream);
 }
 
 // Resident blocks per SM of K6 at its launch configuration (occupancy).
 extern "C" int nst_render_hier_occupancy(int* blocks_per_sm) {
   using namespace nst;
-  cudaError_t err = cudaFuncSetAttribute(render_hier_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  constexpr size_t smem = smem_bytes<bf16>();
+  cudaError_t err = cudaFuncSetAttribute(render_hier_kernel<bf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, render_hier_kernel, kThreads,
-                                                            kSmemBytes);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, render_hier_kernel<bf16>,
+                                                            kThreads, smem);
 }

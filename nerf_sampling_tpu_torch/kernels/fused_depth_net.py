@@ -11,7 +11,9 @@ and every concatenation of the DepthNet becomes a sum of products with
 zero-padded weights (``pack_depth_net``). ``depth_net_plain`` computes the
 same sums in plain PyTorch: with ``dtype=torch.float32`` it is the fp32
 reference, with bf16 it rounds weights and activations where the kernel
-does, so the kernel can be held to it tightly on the card.
+does, so the kernel can be held to it tightly on the card. The kernel runs
+bf16 or, for the COMPARE mode, fp32 (fp32 buffers and weights, no
+rounding), chosen by the buffers' dtype.
 """
 
 from __future__ import annotations
@@ -22,13 +24,15 @@ from torch import nn
 from nerf_sampling_tpu_torch.core.encoding import positional_encoding
 from nerf_sampling_tpu_torch.core.geometry import find_intersection_points_with_sphere
 from nerf_sampling_tpu_torch.kernels import build
+from nerf_sampling_tpu_torch.kernels.fused_render import dtype_name
 from nerf_sampling_tpu_torch.models.depth_net import DepthNet, DepthNetConfig
 from nerf_sampling_tpu_torch.utils.precision import strict_fp32
 
 PAD = 128
 KERNEL_HIDDEN = 256  # hidden width the CUDA kernel is built for
 
-launches = 0  # kernel launches since the last reset (see chip_smoke.py)
+# kernel launches since the last reset (see chip_smoke.py), bf16 and fp32
+launches = fp32_launches = 0
 
 
 def _in_out(lin: nn.Linear) -> torch.Tensor:
@@ -141,42 +145,44 @@ def depth_net_plain(
     return cfg.near * (1 - depth) + cfg.far * depth
 
 
-def _flat_weights(packed: dict) -> list[torch.Tensor]:
+def _flat_weights(packed: dict, dtype=torch.bfloat16) -> list[torch.Tensor]:
     """Weights in the order nst_depth_net_forward reads them, after checking
-    that they are the kernel's layout: bf16 matrices and fp32 biases."""
-    bf16, f32 = torch.bfloat16, torch.float32
+    that they are the kernel's layout: ``dtype`` matrices and fp32 biases."""
+    f32 = torch.float32
     flat = []
     for t in ("o", "d", "i"):
-        flat += [(w, bf16) for w in packed[t]["e"] + packed[t]["h"]]
+        flat += [(w, dtype) for w in packed[t]["e"] + packed[t]["h"]]
         flat += [(b, f32) for b in packed[t]["b"]]
-    flat += [(w, bf16) for w in packed["cat0"] + packed["cat_w"]]
-    flat += [(b, f32) for b in packed["cat_b"]] + [(packed["head_w"], bf16), (packed["head_b"], f32)]
-    for w, dtype in flat:
-        if w.dtype != dtype:
-            raise TypeError("packed weights must be pack_depth_net(model, torch.bfloat16): "
-                            f"bf16 matrices and fp32 biases, got a {w.dtype} {dtype} slot")
+    flat += [(w, dtype) for w in packed["cat0"] + packed["cat_w"]]
+    flat += [(b, f32) for b in packed["cat_b"]] + [(packed["head_w"], dtype), (packed["head_b"], f32)]
+    for w, want in flat:
+        if w.dtype != want:
+            raise TypeError(f"packed weights must be pack_depth_net(model, {dtype}): {dtype_name(dtype)} "
+                            f"matrices and fp32 biases, got a {w.dtype} {want} slot")
     return [w for w, _ in flat]
 
 
 def depth_net_kernel(
     packed: dict, cfg: DepthNetConfig, A: torch.Tensor, B: torch.Tensor
 ) -> torch.Tensor:
-    """Depth [N] fp32 from bf16 buffers A, B [N, 128].
+    """Depth [N] fp32 from buffers A, B [N, 128], both bf16 or both fp32;
+    ``packed`` is ``pack_depth_net`` at the same dtype.
 
-    On a CPU tensor this runs ``depth_net_plain`` at bf16; on a CUDA tensor it
-    launches the kernel, or raises on what the kernel does not take.
+    On a CPU tensor this runs ``depth_net_plain`` at that dtype; on a CUDA
+    tensor it launches the kernel, or raises on what the kernel does not take.
     """
-    global launches
+    global launches, fp32_launches
     n = A.shape[0]
-    if A.dtype != torch.bfloat16 or B.dtype != torch.bfloat16:
-        raise TypeError("A and B must be bf16")
+    dtype = A.dtype
+    if dtype not in (torch.bfloat16, torch.float32) or B.dtype != dtype:
+        raise TypeError("A and B must be both bf16 or both fp32")
     if A.shape != (n, PAD) or B.shape != (n, PAD):
         raise ValueError(f"A and B must be [N, {PAD}], got {tuple(A.shape)} and {tuple(B.shape)}")
     if A.device != B.device:
         raise ValueError("A and B must be on one device")
-    weights = _flat_weights(packed)
+    weights = _flat_weights(packed, dtype)
     if A.device.type == "cpu":
-        return depth_net_plain(packed, cfg, A, B, torch.bfloat16)
+        return depth_net_plain(packed, cfg, A, B, dtype)
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
     if not (A.is_contiguous() and B.is_contiguous()):
@@ -189,19 +195,23 @@ def depth_net_kernel(
     lib = build.load_library()
     out = torch.empty(n, dtype=torch.float32, device=A.device)
     arr, count = build.pointer_array([A, B, out] + weights)
+    fp32 = dtype == torch.float32
     rc = lib.nst_depth_net_forward(
         arr, count, n, len(cfg.hidden_sizes), len(cfg.cat_hidden_sizes),
-        float(cfg.near), float(cfg.far), build.current_stream(A.device),
+        float(cfg.near), float(cfg.far), int(fp32), build.current_stream(A.device),
     )
     build.check(rc, "depth_net_kernel")
-    launches += 1
+    if fp32:
+        fp32_launches += 1
+    else:
+        launches += 1
     return out
 
 
 def fused_depth_net_apply(
-    packed: dict, cfg: DepthNetConfig, rays_o: torch.Tensor, rays_d: torch.Tensor
+    packed: dict, cfg: DepthNetConfig, rays_o: torch.Tensor, rays_d: torch.Tensor, dtype=torch.bfloat16
 ) -> torch.Tensor:
     """Depth [N] of [N, 3] rays through K1; ``packed`` is
-    ``pack_depth_net(model, torch.bfloat16)``, made once per set of weights."""
-    A, B = depth_net_inputs(cfg, rays_o, rays_d, torch.bfloat16)
+    ``pack_depth_net(model, dtype)``, made once per set of weights."""
+    A, B = depth_net_inputs(cfg, rays_o, rays_d, dtype)
     return depth_net_kernel(packed, cfg, A, B)

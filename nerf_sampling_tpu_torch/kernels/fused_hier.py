@@ -21,7 +21,8 @@ linspace; otherwise the draws come from Philox keyed by (seed, ray)
 (``philox.hier_draws``) or are injected. ``render_hier_plain`` computes the
 same in plain PyTorch: fp32 is the reference, bf16 rounds where the kernel
 rounds; with draws of ``None`` it runs det mode, which the tests hold
-against the Pallas kernel.
+against the Pallas kernel. K7 also runs fp32 (the COMPARE mode's kernels,
+``pack_hier(..., torch.float32)``); K6 runs bf16 only.
 """
 
 from __future__ import annotations
@@ -36,14 +37,16 @@ from nerf_sampling_tpu_torch.kernels.fused_render import (
     _check_cuda,
     _check_rays,
     _flat_weights,
+    dtype_name,
     nerf_raw_plain,
     pack_nerf,
 )
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
 
-# kernel launches since the last reset (see chip_smoke.py): K6 and K7
+# kernel launches since the last reset (see chip_smoke.py): K6, and K7 at
+# bf16 and fp32
 launches = 0
-det_launches = 0
+det_launches = det_fp32_launches = 0
 
 _SIGMA_KEYS = ("w0", "trunk_w", "trunk_b", "skip_w", "alpha_w", "alpha_b")
 HIER_OUTPUTS = ("rgb_map", "disp_map", "acc_map", "depth_map", "max_z", "max_w", "max_rgb")
@@ -135,24 +138,28 @@ def render_hier_kernel(
     draws: torch.Tensor | None = None,
     multires: int = 10,
     multires_views: int = 4,
+    dtype=torch.bfloat16,
 ) -> dict[str, torch.Tensor]:
     """K6 over N rays [N, 3]: draws from Philox keyed by (``seed``, ray), or
     the injected ``draws`` [N, Nc + Nf] (t_rand, then u); K7 (det mode)
-    when both are None.
+    when both are None, at ``dtype`` (``packed`` is ``pack_hier`` at it).
 
-    On a CPU tensor this runs ``render_hier_plain`` at bf16 with the same
-    draws; on a CUDA tensor it launches the kernel, or raises on what it
-    does not take.
+    On a CPU tensor this runs ``render_hier_plain`` at ``dtype`` with the
+    same draws; on a CUDA tensor it launches the kernel, or raises on what
+    it does not take.
     """
-    global launches, det_launches
+    global launches, det_launches, det_fp32_launches
     _check_envelope(n_coarse, n_importance)
     det = seed is None and draws is None
+    fp32 = dtype_name(dtype) == "fp32"
+    if fp32 and not det:
+        raise ValueError("the seeded hierarchical pass (K6) runs bf16 only; fp32 is K7's det mode")
     n = rays_o.shape[0]
     n_draws = n_coarse + n_importance
     per_ray = {} if draws is None else {"draws": (draws, (n, n_draws))}
     _check_rays(rays_o, rays_d, **per_ray)
-    w_c = _flat_weights(packed["coarse"], sigma_only=True)
-    w_f = _flat_weights(packed["fine"])
+    w_c = _flat_weights(packed["coarse"], sigma_only=True, dtype=dtype)
+    w_f = _flat_weights(packed["fine"], dtype=dtype)
     if rays_o.device.type == "cpu":
         if draws is None and not det:
             draws = philox.hier_draws(seed, n, n_draws)
@@ -160,7 +167,7 @@ def render_hier_kernel(
             packed, cfg_c, cfg_f, rays_o, rays_d, n_coarse=n_coarse, n_importance=n_importance,
             near=near, far=far, white_bkgd=white_bkgd, lindisp=lindisp,
             t_rand=None if det else draws[:, :n_coarse], u=None if det else draws[:, n_coarse:],
-            multires=multires, multires_views=multires_views, dtype=torch.bfloat16,
+            multires=multires, multires_views=multires_views, dtype=dtype,
         )
     inputs = (rays_o, rays_d) + ((draws,) if draws is not None else ())
     _check_cuda(cfg_c, multires, multires_views, inputs, w_c)
@@ -173,10 +180,13 @@ def render_hier_kernel(
         cfg_c.D, sum(1 << i for i in packed["coarse"]["skip_w"]),
         cfg_f.D, sum(1 << i for i in packed["fine"]["skip_w"]),
         float(near), float(far), int(bool(lindisp)), int(bool(white_bkgd)),
-        0 if seed is None else int(seed) & 0xFFFFFFFF, int(det), build.current_stream(rays_o.device),
+        0 if seed is None else int(seed) & 0xFFFFFFFF, int(det), int(fp32),
+        build.current_stream(rays_o.device),
     )
     build.check(rc, "render_hier_kernel")
-    if det:
+    if fp32:
+        det_fp32_launches += 1
+    elif det:
         det_launches += 1
     else:
         launches += 1
@@ -216,13 +226,14 @@ def fused_render_hier(
     multires: int = 10,
     multires_views: int = 4,
     draws: torch.Tensor | None = None,
+    dtype=torch.bfloat16,
 ) -> dict[str, torch.Tensor]:
     """The hierarchical pass of [N, 3] rays
     (nerf_sampling_tpu/kernels/fused_hier.py::fused_render_hier): seeded
     through K6, or deterministic through K7 with ``seed=None``; ``packed``
-    is ``pack_hier(coarse, fine)`` of the NeRFs as they are now."""
+    is ``pack_hier(coarse, fine, dtype)`` of the NeRFs as they are now."""
     return render_hier_kernel(
         packed, cfg_c, cfg_f, rays_o.contiguous(), rays_d.contiguous(), n_coarse=n_coarse,
         n_importance=n_importance, near=near, far=far, white_bkgd=white_bkgd, lindisp=lindisp,
-        seed=seed, draws=draws, multires=multires, multires_views=multires_views,
+        seed=seed, draws=draws, multires=multires, multires_views=multires_views, dtype=dtype,
     )

@@ -1,24 +1,32 @@
-"""K2 and K3: DepthNet populate-and-shade as a hand-written CUDA kernel, with plain versions.
+"""K2, K3, K8 and K9: populate-and-shade as a hand-written CUDA kernel, with plain versions.
 
-Replaces nerf_sampling_tpu/kernels/fused_render.py::_call with
-z_source="around_center" (K2, ``fused_render_around_depth``) and
-z_source="gaussian" (K3, ``fused_render_gaussian``). Both are populate
-modes of one kernel source, ``csrc/render_around_depth.cu``. For every ray
-it shades a population of depths with the NeRF MLP and composites the
-samples in order over a white background:
+Replaces nerf_sampling_tpu/kernels/fused_render.py::_call in four of its
+z sources, all modes of one kernel source, ``csrc/render_around_depth.cu``.
+For every ray it shades a population of depths with the NeRF MLP and
+composites the samples in order over a white background:
 
-- uniform (K2): z = clip(depth + offsets, near, far), already sorted;
-- gaussian (K3): depth + std * N(0, 1) for S-1 samples plus the depth
-  itself, no clip, sorted per ray before shading. The draws come from
-  Philox keyed by (seed, ray) (``philox.gaussian_noise``) or are injected.
+- uniform (K2, ``fused_render_around_depth``): z = clip(depth + offsets,
+  near, far), already sorted;
+- gaussian (K3, ``fused_render_gaussian``): depth + std * N(0, 1) for S-1
+  samples plus the depth itself, no clip, sorted per ray before shading.
+  The draws come from Philox keyed by (seed, ray)
+  (``philox.gaussian_noise``) or are injected;
+- linspace (K8, ``fused_render``): the eval grid at perturb 0 between near
+  and far (or linear in disparity), the same for every ray, with the TPU
+  kernel's rounding (``linspace_grid``); FULL_NERF without fine samples;
+- input (K9, ``fused_shade``): the caller's z [N, S], taken as sorted or
+  sorted per ray first (stable, NaN last); the COMPARE mode's shading.
+
+K2 and K3 run bf16; K8 and K9 run bf16 or fp32 (``dtype``: the COMPARE
+mode runs fp32 kernels).
 
 ``pack_nerf`` lays the NeRF's weights out as [in, out] matrices over one
 positional-encoding row of 96 columns: the 63 point-embedding columns
 (padded to 64) and the 27 view-embedding columns (padded to 32), so each
 concatenation of the reference is one more zero-padded operand of the same
-sum. ``render_around_depth_plain`` and ``render_gaussian_plain`` compute the
-same things in plain PyTorch: fp32 is the reference, bf16 rounds where the
-kernel rounds.
+sum. ``render_around_depth_plain``, ``render_gaussian_plain``,
+``render_linspace_plain`` and ``shade_plain`` compute the same things in
+plain PyTorch: fp32 is the reference, bf16 rounds where the kernel rounds.
 """
 
 from __future__ import annotations
@@ -38,9 +46,12 @@ MAX_SAMPLES = 512
 PTS_ROWS, VIEW_ROWS = 64, 32  # padded embedding widths of the kernel's PE row
 KERNEL_WIDTH = 256  # NeRF width the CUDA kernel is built for
 
-# kernel launches since the last reset (see chip_smoke.py): K2 and K3
+# kernel launches since the last reset (see chip_smoke.py): K2, K3, K8 and
+# K9 at bf16 and fp32
 launches = 0
 gaussian_launches = 0
+linspace_launches = linspace_fp32_launches = 0
+shade_launches = shade_fp32_launches = 0
 
 
 def uniform_population_offsets(n_samples: int, std: float) -> np.ndarray:
@@ -239,22 +250,30 @@ def render_gaussian_plain(
     return _maps(raw2outputs(raw, z, rays_d, 0.0, white_bkgd))
 
 
-def _flat_weights(packed: dict, sigma_only: bool = False) -> list[torch.Tensor]:
+def dtype_name(dtype: torch.dtype) -> str:
+    """"bf16" or "fp32": the kernels' two element types."""
+    names = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+    if dtype not in names:
+        raise TypeError(f"the kernels run bf16 or fp32, got {dtype}")
+    return names[dtype]
+
+
+def _flat_weights(packed: dict, sigma_only: bool = False, dtype=torch.bfloat16) -> list[torch.Tensor]:
     """Weights in the order the C entry points read them, after checking
-    that they are the kernels' layout: bf16 matrices and fp32 biases.
+    that they are the kernels' layout: ``dtype`` matrices and fp32 biases.
     ``sigma_only``: the trunk and alpha head (K6's coarse net)."""
-    bf16, f32 = torch.bfloat16, torch.float32
-    flat = [(packed["w0"], bf16)] + [(w, bf16) for w in packed["trunk_w"]]
+    f32 = torch.float32
+    flat = [(packed["w0"], dtype)] + [(w, dtype) for w in packed["trunk_w"]]
     flat += [(b, f32) for b in packed["trunk_b"]]
-    flat += [(packed["skip_w"][i], bf16) for i in sorted(packed["skip_w"])]
+    flat += [(packed["skip_w"][i], dtype) for i in sorted(packed["skip_w"])]
     heads = ("alpha_w", "alpha_b") if sigma_only else (
         "feature_w", "feature_b", "alpha_w", "alpha_b",
         "views_wf", "views_ws", "views_b", "rgb_w", "rgb_b")
-    flat += [(packed[k], f32 if k.endswith("_b") else bf16) for k in heads]
-    for w, dtype in flat:
-        if w.dtype != dtype:
-            raise TypeError("packed weights must be pack_nerf(model, torch.bfloat16): "
-                            f"bf16 matrices and fp32 biases, got a {w.dtype} {dtype} slot")
+    flat += [(packed[k], f32 if k.endswith("_b") else dtype) for k in heads]
+    for w, want in flat:
+        if w.dtype != want:
+            raise TypeError(f"packed weights must be pack_nerf(model, {dtype}): {dtype_name(dtype)} "
+                            f"matrices and fp32 biases, got a {w.dtype} {want} slot")
     return [w for w, _ in flat]
 
 
@@ -436,3 +455,166 @@ def fused_render_gaussian(
         packed, cfg, rays_o, rays_d, depth.reshape(-1), n_samples=n_samples, std=std,
         seed=seed, white_bkgd=white_bkgd, multires=multires, multires_views=multires_views,
     )
+
+
+def linspace_grid(n_samples: int, near: float, far: float, lindisp: bool = False,
+                  device: torch.device | str = "cpu") -> torch.Tensor:
+    """K8's z grid [S] in fp32, rounded as the TPU kernel rounds it
+    (nerf_sampling_tpu/kernels/fused_render.py:278-286), not as
+    ``jnp.linspace``: t = s / (S-1) by true division (0 when S = 1), then
+    a*(1-t) + b*t with (a, b) = (near, far), or its reciprocal with
+    (1/near, 1/far) for lindisp, the constants rounded to fp32 once."""
+    t = torch.arange(n_samples, dtype=torch.float32, device=device) / max(n_samples - 1, 1)
+    a, b = (1.0 / near, 1.0 / far) if lindisp else (near, far)
+    v = a * (1.0 - t) + b * t
+    return 1.0 / v if lindisp else v
+
+
+def render_linspace_plain(
+    packed: dict,
+    cfg: NeRFConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    *,
+    n_samples: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    lindisp: bool = False,
+    white_bkgd: bool = True,
+    multires: int = 10,
+    multires_views: int = 4,
+    dtype=torch.bfloat16,
+) -> dict[str, torch.Tensor]:
+    """K8's computation in plain PyTorch: every ray shaded at the
+    ``linspace_grid`` z and composited -> rgb/disp/acc/depth maps."""
+    z = linspace_grid(n_samples, near, far, lindisp, rays_o.device).expand(rays_o.shape[0], n_samples)
+    raw = nerf_raw_plain(packed, cfg, rays_o, rays_d, z, multires=multires,
+                         multires_views=multires_views, dtype=dtype)
+    return _maps(raw2outputs(raw, z, rays_d, 0.0, white_bkgd))
+
+
+def shade_plain(
+    packed: dict,
+    cfg: NeRFConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    z: torch.Tensor,
+    *,
+    assume_sorted: bool = True,
+    white_bkgd: bool = True,
+    multires: int = 10,
+    multires_views: int = 4,
+    dtype=torch.bfloat16,
+) -> dict[str, torch.Tensor]:
+    """K9's computation in plain PyTorch: the caller's z [N, S] (sorted per
+    ray first, stably with NaN last, unless ``assume_sorted``), shaded and
+    composited in order -> rgb/disp/acc/depth maps."""
+    if not assume_sorted:
+        z = torch.sort(z, dim=-1, stable=True).values
+    raw = nerf_raw_plain(packed, cfg, rays_o, rays_d, z, multires=multires,
+                         multires_views=multires_views, dtype=dtype)
+    return _maps(raw2outputs(raw, z, rays_d, 0.0, white_bkgd))
+
+
+def _launch(entry: str, packed: dict, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tensor,
+            z: torch.Tensor | None, weights: list[torch.Tensor], S: int, *args) -> dict[str, torch.Tensor]:
+    """One launch of K8 (``nst_render_linspace``) or K9 (``nst_shade``):
+    pointers rays_o, rays_d, no depth, z (or none), out and the weights;
+    then n, S, D, the skip mask, ``args`` and the stream."""
+    n = rays_o.shape[0]
+    out = torch.empty((6, n), dtype=torch.float32, device=rays_o.device)
+    arr, count = build.pointer_array([rays_o, rays_d, None, z, out] + weights)
+    rc = getattr(build.load_library(), entry)(
+        arr, count, n, S, cfg.D, sum(1 << i for i in packed["skip_w"]), *args,
+        build.current_stream(rays_o.device),
+    )
+    build.check(rc, entry)
+    return {"rgb_map": out[0:3].T, "disp_map": out[3], "acc_map": out[4], "depth_map": out[5]}
+
+
+def fused_render(
+    packed: dict,
+    cfg: NeRFConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    *,
+    n_samples: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    lindisp: bool = False,
+    white_bkgd: bool = True,
+    multires: int = 10,
+    multires_views: int = 4,
+    dtype=torch.bfloat16,
+) -> dict[str, torch.Tensor]:
+    """K8: the deterministic-eval render of N rays [N, 3] at ``n_samples``
+    grid samples (nerf_sampling_tpu/kernels/fused_render.py::fused_render);
+    ``packed`` is ``pack_nerf(model, dtype)``. It takes 2..512 samples: at
+    one sample the TPU kernel composites a 1e10 interval where
+    ``raw2outputs`` keeps the reference's empty one.
+
+    On a CPU tensor this runs ``render_linspace_plain`` at ``dtype``; on a
+    CUDA tensor it launches the kernel, or raises on what it does not take.
+    """
+    global linspace_launches, linspace_fp32_launches
+    n = _check_rays(rays_o, rays_d)
+    if not 2 <= n_samples <= MAX_SAMPLES:  # at 1, raw2outputs' reference quirk (no interval) differs
+        raise ValueError(f"n_samples must be in [2, {MAX_SAMPLES}], got {n_samples}")
+    weights = _flat_weights(packed, dtype=dtype)
+    kw = dict(white_bkgd=white_bkgd, multires=multires, multires_views=multires_views)
+    if rays_o.device.type == "cpu":
+        return render_linspace_plain(packed, cfg, rays_o, rays_d, n_samples=n_samples, near=near, far=far,
+                                     lindisp=lindisp, dtype=dtype, **kw)
+    _check_cuda(cfg, multires, multires_views, (rays_o, rays_d), weights)
+    a, b = (1.0 / near, 1.0 / far) if lindisp else (near, far)
+    fp32 = dtype == torch.float32
+    maps = _launch("nst_render_linspace", packed, cfg, rays_o, rays_d, None, weights, n_samples,
+                   float(a), float(b), int(bool(lindisp)), int(bool(white_bkgd)), int(fp32))
+    if fp32:
+        linspace_fp32_launches += 1
+    else:
+        linspace_launches += 1
+    return maps
+
+
+def fused_shade(
+    packed: dict,
+    cfg: NeRFConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    z_vals: torch.Tensor,
+    *,
+    assume_sorted: bool = True,
+    white_bkgd: bool = True,
+    multires: int = 10,
+    multires_views: int = 4,
+    dtype=torch.bfloat16,
+) -> dict[str, torch.Tensor]:
+    """K9: shade the caller's z [N, S] of N rays [N, 3]
+    (nerf_sampling_tpu/kernels/fused_render.py::fused_shade); unless
+    ``assume_sorted`` each ray's z is sorted first (the stable sort by
+    (z, index) that the TPU kernel's order-free compositor reproduces).
+    ``packed`` is ``pack_nerf(model, dtype)``.
+
+    On a CPU tensor this runs ``shade_plain`` at ``dtype``; on a CUDA tensor
+    it launches the kernel, or raises on what it does not take.
+    """
+    global shade_launches, shade_fp32_launches
+    n = rays_o.shape[0]
+    S = z_vals.shape[-1] if z_vals.dim() == 2 else 0
+    _check_rays(rays_o, rays_d, z_vals=(z_vals, (n, S)))
+    if not 1 <= S <= MAX_SAMPLES:
+        raise ValueError(f"z_vals must be [N, S] with S in [1, {MAX_SAMPLES}], got {tuple(z_vals.shape)}")
+    weights = _flat_weights(packed, dtype=dtype)
+    kw = dict(white_bkgd=white_bkgd, multires=multires, multires_views=multires_views)
+    if rays_o.device.type == "cpu":
+        return shade_plain(packed, cfg, rays_o, rays_d, z_vals, assume_sorted=assume_sorted, dtype=dtype, **kw)
+    _check_cuda(cfg, multires, multires_views, (rays_o, rays_d, z_vals), weights)
+    fp32 = dtype == torch.float32
+    maps = _launch("nst_shade", packed, cfg, rays_o, rays_d, z_vals, weights, S, int(bool(assume_sorted)),
+                   int(bool(white_bkgd)), int(fp32))
+    if fp32:
+        shade_fp32_launches += 1
+    else:
+        shade_launches += 1
+    return maps

@@ -1,4 +1,4 @@
-"""Rendering: the DEPTH_NET and FULL_NERF eval engine, the train-time renderers and the pose-path harness."""
+"""Rendering: the four eval modes, the train-time renderers and the pose-path harness."""
 
 from nerf_sampling_tpu_torch.render.engine import (
     EvalMode,
@@ -6,6 +6,7 @@ from nerf_sampling_tpu_torch.render.engine import (
     NeRFParams,
     Pipeline,
     RayBatch,
+    eval_packs,
     make_ray_batch,
     pack_kernel_weights,
     render_flat_rays,
@@ -25,6 +26,7 @@ __all__ = [
     "NeRFParams",
     "Pipeline",
     "RayBatch",
+    "eval_packs",
     "make_ray_batch",
     "pack_kernel_weights",
     "render_flat_rays",

@@ -5,12 +5,19 @@ Two implementations of each eval render, chosen by ``Pipeline.mlp_impl``:
 - ``"plain"``: the fp32 PyTorch path, over ray chunks, with per-sample
   outputs. DEPTH_NET: DepthNet module -> uniform (or gaussian) population
   -> NeRF module -> ``raw2outputs``; FULL_NERF: the hierarchical pass at
-  perturb 0. It is the CPU path and the kernels' oracle.
+  perturb 0; NERF_MAX: its argmax sample alone; COMPARE_NERF: both, the
+  argmax diagnostics beside the DepthNet's render. It is the CPU path and
+  the kernels' oracle.
 - ``"cuda"``: the hand-written kernels over all rays at once, with
   map-level outputs. DEPTH_NET: K1 (DepthNet) then K2 (uniform
   populate-and-shade) or K3 (gaussian); FULL_NERF: K7 (the deterministic
-  hierarchical pass). On CPU tensors their wrappers run the kernels' plain
-  versions at bf16.
+  hierarchical pass), or K8 (the linspace render of the coarse NeRF) when
+  N_importance is 0; NERF_MAX: K7's argmax sample; COMPARE_NERF, the
+  diagnostic mode: K7, K1 and K9 (shading the population drawn on the
+  plain side), all in fp32. On CPU tensors their wrappers run the kernels'
+  plain versions at the kernels' dtype. Outside the kernels' envelope the
+  JAX package drops to its composable path; the port raises ValueError
+  naming the envelope.
 
 The train renderers (``sample_as_in_nerf``, ``render_rays_train``,
 ``render_rays_vanilla``, ``render_rays_joint``) are autograd PyTorch; under
@@ -19,9 +26,7 @@ K5 as its backward (``query_nerf``), and the depth-point query stays plain
 fp32 (its gradient w.r.t. the points trains the DepthNet). The depth-net
 step puts its frozen-NeRF pass on K6 (``train/steps.py``). The JAX names
 map onto these ("xla" -> "plain", "pallas" -> "cuda"); "pallas_int8" is not
-ported. COMPARE_NERF, NERF_MAX and FULL_NERF without fine samples (K8)
-raise NotImplementedError naming their ROADMAP item, and nothing falls back
-quietly to the plain path.
+ported. Nothing falls back quietly to the plain path.
 """
 
 from __future__ import annotations
@@ -60,11 +65,14 @@ class EvalMode(enum.Enum):
 
 
 class KernelWeights(NamedTuple):
-    """The bf16 weight layouts that the kernels read (``pack_kernel_weights``)."""
+    """The weight layouts that the kernels read (``pack_kernel_weights``):
+    bf16, and the COMPARE mode's fp32 packs in ``fp32``."""
 
     depth: dict | None  # fused_depth_net.pack_depth_net of the DepthNet (K1)
-    nerf: dict  # fused_render.pack_nerf of the NeRF that renders: fine, else coarse (K2, K3)
+    nerf: dict  # fused_render.pack_nerf of the NeRF that renders: fine, else coarse (K2, K3, K9)
     hier: dict | None = None  # fused_hier.pack_hier of coarse and fine (K6, K7)
+    coarse: dict | None = None  # fused_render.pack_nerf of the coarse NeRF (K8)
+    fp32: KernelWeights | None = None  # depth, nerf and hier at fp32 (COMPARE_NERF: K1, K9, K7)
 
 
 class NeRFParams(NamedTuple):
@@ -80,29 +88,54 @@ class NeRFParams(NamedTuple):
     kernels: KernelWeights | None = None
 
 
-def pack_kernel_weights(params: NeRFParams, with_hier: bool = False) -> NeRFParams:
+def _packs(params: NeRFParams, dtype: torch.dtype, with_hier: bool) -> KernelWeights:
+    model = params.fine if params.fine is not None else params.coarse
+    depth = params.depth
+    return KernelWeights(
+        depth=fused_depth_net.pack_depth_net(depth, dtype) if depth is not None else None,
+        nerf=fused_render.pack_nerf(model, dtype),
+        hier=fused_hier.pack_hier(params.coarse, params.fine, dtype) if with_hier else None,
+    )
+
+
+def pack_kernel_weights(params: NeRFParams, with_hier: bool = False, with_coarse: bool = False,
+                        with_fp32: bool = False) -> NeRFParams:
     """``params`` with the kernels' packed weights: bf16 copies of the
     modules' weights as they are at this call.
 
     A pack does not follow later changes to the modules. Pack again (or
     ``repack_depth``) after any change to their weights: the Trainer repacks
-    before every eval what its steps changed (the DepthNet in depth-net
-    mode; every pack in nerf and joint mode); a frozen NeRF's packs are made
-    once. ``with_hier`` adds the pack of K6 and K7.
+    before every eval what its steps changed (the DepthNets' packs in
+    depth-net mode; every pack in nerf and joint mode); a frozen NeRF's
+    packs are made once. ``with_hier`` adds the pack of K6 and K7,
+    ``with_coarse`` the coarse NeRF's for K8 and ``with_fp32`` the fp32
+    packs of COMPARE_NERF (``eval_packs`` names what an eval mode reads).
     """
-    model = params.fine if params.fine is not None else params.coarse
-    depth = params.depth
-    return params._replace(kernels=KernelWeights(
-        depth=fused_depth_net.pack_depth_net(depth, torch.bfloat16) if depth is not None else None,
-        nerf=fused_render.pack_nerf(model, torch.bfloat16),
-        hier=fused_hier.pack_hier(params.coarse, params.fine) if with_hier else None,
+    return params._replace(kernels=_packs(params, torch.bfloat16, with_hier)._replace(
+        coarse=fused_render.pack_nerf(params.coarse, torch.bfloat16) if with_coarse else None,
+        fp32=_packs(params, torch.float32, True) if with_fp32 else None,
     ))
 
 
+def eval_packs(pipeline: Pipeline, mode: EvalMode) -> dict[str, bool]:
+    """The ``pack_kernel_weights`` flags of what the kernel path of ``mode`` reads."""
+    hier = pipeline.N_importance > 0
+    return {
+        "with_hier": mode in (EvalMode.FULL_NERF, EvalMode.NERF_MAX) and hier,
+        "with_coarse": mode == EvalMode.FULL_NERF and not hier,
+        "with_fp32": mode == EvalMode.COMPARE_NERF,
+    }
+
+
 def repack_depth(params: NeRFParams) -> NeRFParams:
-    """``params`` with the DepthNet's pack made anew and the NeRF's packs kept."""
-    return params._replace(kernels=params.kernels._replace(
-        depth=fused_depth_net.pack_depth_net(params.depth, torch.bfloat16)))
+    """``params`` with the DepthNet's packs (bf16, and fp32 where there are
+    fp32 packs) made anew and the NeRF's packs kept."""
+    k = params.kernels
+    fp32 = k.fp32
+    if fp32 is not None:
+        fp32 = fp32._replace(depth=fused_depth_net.pack_depth_net(params.depth, torch.float32))
+    return params._replace(kernels=k._replace(
+        depth=fused_depth_net.pack_depth_net(params.depth, torch.bfloat16), fp32=fp32))
 
 
 class RayBatch(NamedTuple):
@@ -401,13 +434,6 @@ def render_rays_vanilla(
     }
 
 
-def _unported_mode(mode: EvalMode) -> NotImplementedError:
-    return NotImplementedError(
-        f"EvalMode.{mode.name} (its argmax diagnostics and the K6 variants that serve them) "
-        "is not ported: ROADMAP S4"
-    )
-
-
 def render_rays_eval(
     pipeline: Pipeline,
     params: NeRFParams,
@@ -415,23 +441,29 @@ def render_rays_eval(
     mode: EvalMode = EvalMode.DEPTH_NET,
     generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
-    """DEPTH_NET or FULL_NERF eval render of one ray batch on the plain
-    path (reference render_rays_test), at perturb 0 and no raw noise."""
-    if mode == EvalMode.FULL_NERF:
+    """Test-time render of one ray batch on the plain path, 4 modes
+    (reference render_rays_test, nerf_utils.py:736-876; JAX
+    ``render_rays_eval``), at perturb 0 and no raw noise."""
+    ret: dict[str, torch.Tensor] = {}
+    if mode in (EvalMode.COMPARE_NERF, EvalMode.NERF_MAX, EvalMode.FULL_NERF):
         hier = sample_as_in_nerf(pipeline, params, rays, generator, perturb=0.0, raw_noise_std=0.0)
         max_z, max_pts, max_w = _argmax_depth(hier.fine, hier.fine_z_vals, rays)
-        return {
-            "max_z_vals": max_z,
-            "max_pts": max_pts,
-            "max_weights": max_w,
-            "depth_net_rgb_map": hier.fine.rgb_map,
-            "depth_net_disp_map": hier.fine.disp_map,
-            "depth_net_weights": hier.fine.weights,
-            "depth_net_pts": hier.fine_pts,
-            "depth_net_z_vals": hier.fine_z_vals,
-        }
-    if mode != EvalMode.DEPTH_NET:
-        raise _unported_mode(mode)
+        ret.update(max_z_vals=max_z, max_pts=max_pts, max_weights=max_w)
+    if mode == EvalMode.NERF_MAX:
+        # render from the argmax sample only (reference :824-829); disp is
+        # the reference's zeros shaped like rgb
+        rgb = torch.sigmoid(hier.fine_raw[..., :3])
+        top = torch.argmax(hier.fine.weights, dim=1, keepdim=True)
+        max_rgb = torch.gather(rgb, 1, top[..., None].expand(-1, 1, 3))[:, 0]
+        ret.update(depth_net_rgb_map=max_rgb, depth_net_disp_map=torch.zeros_like(max_rgb),
+                   depth_net_weights=max_w, depth_net_pts=max_pts, depth_net_z_vals=max_z)
+        return ret
+    if mode == EvalMode.FULL_NERF:
+        ret.update(depth_net_rgb_map=hier.fine.rgb_map, depth_net_disp_map=hier.fine.disp_map,
+                   depth_net_weights=hier.fine.weights, depth_net_pts=hier.fine_pts,
+                   depth_net_z_vals=hier.fine_z_vals)
+        return ret
+    # DEPTH_NET, and the depth-net half of COMPARE_NERF (:837-865)
     depth_mean = params.depth(rays.rays_o, rays.rays_d)
     depth_pts, depth_z = sample_points_around_mean(
         rays.rays_o, rays.rays_d, depth_mean,
@@ -441,13 +473,33 @@ def render_rays_eval(
     model = params.fine if params.fine is not None else params.coarse
     depth_raw = query_nerf(pipeline, model, depth_pts, rays.viewdirs)
     out = raw2outputs(depth_raw, depth_z, rays.rays_d, 0.0, pipeline.white_bkgd)
-    return {
-        "depth_net_rgb_map": out.rgb_map,
-        "depth_net_disp_map": out.disp_map,
-        "depth_net_weights": out.weights,
-        "depth_net_pts": depth_pts,
-        "depth_net_z_vals": depth_z,
-    }
+    ret.update(depth_net_rgb_map=out.rgb_map, depth_net_disp_map=out.disp_map,
+               depth_net_weights=out.weights, depth_net_pts=depth_pts, depth_net_z_vals=depth_z)
+    return ret
+
+
+def check_eval_envelope(p: Pipeline, mode: EvalMode) -> None:
+    """What the kernel path of ``mode`` takes of a "cuda" pipeline; raises
+    ValueError naming the envelope where the JAX package drops to its
+    composable path (nerf_sampling_tpu/render/engine.py:631-650)."""
+    check_kernel_queries(p)
+    S_max = fused_render.MAX_SAMPLES
+    if mode in (EvalMode.COMPARE_NERF, EvalMode.NERF_MAX) and p.N_importance <= 0:
+        raise ValueError(f"mlp_impl='cuda' renders {mode.name} through K7's argmax, which needs "
+                         "N_importance > 0")
+    if mode != EvalMode.DEPTH_NET and p.N_importance > 0 and not (
+            4 <= p.N_samples and p.N_samples + p.N_importance <= S_max):
+        raise ValueError(f"mlp_impl='cuda' runs the hierarchical pass (K7) with N_samples >= 4 and "
+                         f"N_samples + N_importance <= {S_max}; got {p.N_samples} + {p.N_importance}")
+    if mode == EvalMode.FULL_NERF and p.N_importance <= 0 and not 2 <= p.N_samples <= S_max:
+        raise ValueError(f"mlp_impl='cuda' renders FULL_NERF without fine samples (K8) with "
+                         f"2..{S_max} samples; got {p.N_samples}")
+    if mode in (EvalMode.DEPTH_NET, EvalMode.COMPARE_NERF) and (
+            p.sampling_mode not in ("uniform", "gaussian") or not 1 < p.n_depth_samples <= S_max):
+        raise ValueError(
+            "mlp_impl='cuda' renders the uniform or gaussian population with 2.."
+            f"{S_max} samples; got {p.sampling_mode}/{p.n_depth_samples}"
+        )
 
 
 def _fused_fast_paths(
@@ -458,73 +510,76 @@ def _fused_fast_paths(
     mode: EvalMode,
     generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
-    """DEPTH_NET through K1 then K2 (uniform) or K3 (gaussian), FULL_NERF
-    through K7; flat [N, ...] map-level outputs. K3's seed is drawn from
-    ``generator``."""
+    """The four eval modes on the kernels, routed as the JAX package routes
+    them (nerf_sampling_tpu/render/engine.py:607-814); flat [N, ...]
+    map-level outputs. The gaussian population (K3's seed, COMPARE's
+    draws) comes from ``generator``. Packs the ``mode`` reads that
+    ``params`` lacks are made for this call."""
     p = pipeline
-    if mode == EvalMode.FULL_NERF:
-        return _full_nerf_kernel(p, params, rays_o, rays_d)
-    if mode != EvalMode.DEPTH_NET:
-        raise _unported_mode(mode)
-    if p.sampling_mode not in ("uniform", "gaussian") or not 1 < p.n_depth_samples <= fused_render.MAX_SAMPLES:
-        raise ValueError(
-            "mlp_impl='cuda' renders the uniform or gaussian population with 2.."
-            f"{fused_render.MAX_SAMPLES} samples; got {p.sampling_mode}/{p.n_depth_samples}"
-        )
-    check_kernel_queries(p)
-    if p.sampling_mode == "gaussian" and generator is None:
+    check_eval_envelope(p, mode)
+    population = mode in (EvalMode.DEPTH_NET, EvalMode.COMPARE_NERF)
+    if population and p.sampling_mode == "gaussian" and generator is None:
         raise ValueError("the gaussian population requires a torch.Generator")
     ro, rd = rays_o.reshape(-1, 3).contiguous(), rays_d.reshape(-1, 3).contiguous()
-    if params.kernels is None:
-        params = pack_kernel_weights(params)
-    depth = fused_depth_net.fused_depth_net_apply(params.kernels.depth, params.depth.cfg, ro, rd)
+    n = ro.shape[0]
+    need = eval_packs(p, mode)
+    k = params.kernels
+    if k is None or (need["with_hier"] and k.hier is None) or (need["with_coarse"] and k.coarse is None) \
+            or (need["with_fp32"] and k.fp32 is None):
+        params = pack_kernel_weights(params, **need)
     model = params.fine if params.fine is not None else params.coarse
-    common = dict(n_samples=p.n_depth_samples, std=p.distance, white_bkgd=p.white_bkgd,
-                  multires=p.multires, multires_views=p.multires_views)
-    if p.sampling_mode == "uniform":
-        maps = fused_render.fused_render_around_depth(
-            params.kernels.nerf, model.cfg, ro, rd, depth, **common)
-    else:
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                                 device=generator.device))
-        maps = fused_render.fused_render_gaussian(
-            params.kernels.nerf, model.cfg, ro, rd, depth, seed=seed, **common)
-    return {
-        "depth_net_rgb_map": maps["rgb_map"],
-        "depth_net_disp_map": maps["disp_map"],
-        "depth_net_weights": maps["acc_map"],
-        "depth_net_z_vals": maps["depth_map"],
-        "depth_net_pts": ro.new_zeros((ro.shape[0], 0, 3)),
-    }
+    common = dict(white_bkgd=p.white_bkgd, multires=p.multires, multires_views=p.multires_views)
+    # COMPARE is the parity-diagnostic mode: its kernels run fp32 (JAX :657-661)
+    dtype, packs = (torch.float32, params.kernels.fp32) if mode == EvalMode.COMPARE_NERF \
+        else (torch.bfloat16, params.kernels)
 
+    def map_outputs(maps, z=None):
+        return {
+            "depth_net_rgb_map": maps["rgb_map"],
+            "depth_net_disp_map": maps["disp_map"],
+            "depth_net_weights": maps["acc_map"],
+            "depth_net_z_vals": maps["depth_map"] if z is None else z,
+            "depth_net_pts": ro.new_zeros((n, 0, 3)),
+        }
 
-def _full_nerf_kernel(
-    p: Pipeline, params: NeRFParams, rays_o: torch.Tensor, rays_d: torch.Tensor
-) -> dict[str, torch.Tensor]:
-    """FULL_NERF through K7, the deterministic hierarchical pass."""
-    if p.N_importance <= 0:
-        raise NotImplementedError(
-            "FULL_NERF without fine samples (N_importance == 0) renders through K8 "
-            "(fused_render.py::fused_render), which is not ported: ROADMAP S4"
+    diag: dict[str, torch.Tensor] = {}
+    if mode != EvalMode.DEPTH_NET and p.N_importance > 0:
+        hmaps = fused_hier.fused_render_hier(
+            packs.hier, params.coarse.cfg, model.cfg, ro, rd, seed=None, n_coarse=p.N_samples,
+            n_importance=p.N_importance, near=p.near, far=p.far, lindisp=p.lindisp, dtype=dtype, **common,
         )
-    check_kernel_queries(p)
-    ro, rd = rays_o.reshape(-1, 3).contiguous(), rays_d.reshape(-1, 3).contiguous()
-    if params.kernels is None or params.kernels.hier is None:
-        params = pack_kernel_weights(params, with_hier=True)
-    fine = params.fine if params.fine is not None else params.coarse
-    maps = fused_hier.fused_render_hier(
-        params.kernels.hier, params.coarse.cfg, fine.cfg, ro, rd, seed=None,
-        n_coarse=p.N_samples, n_importance=p.N_importance, near=p.near, far=p.far,
-        white_bkgd=p.white_bkgd, lindisp=p.lindisp, multires=p.multires,
-        multires_views=p.multires_views,
-    )
-    return {
-        "depth_net_rgb_map": maps["rgb_map"],
-        "depth_net_disp_map": maps["disp_map"],
-        "depth_net_weights": maps["acc_map"],
-        "depth_net_z_vals": maps["depth_map"],
-        "depth_net_pts": ro.new_zeros((ro.shape[0], 0, 3)),
-    }
+        if mode == EvalMode.FULL_NERF:
+            return map_outputs(hmaps)
+        max_z = hmaps["max_z"].reshape(-1, 1)
+        diag = {"max_z_vals": max_z, "max_pts": z_to_points(ro, rd, max_z),
+                "max_weights": hmaps["max_w"].reshape(-1, 1)}
+        if mode == EvalMode.NERF_MAX:
+            max_rgb = hmaps["max_rgb"]
+            return {**diag, "depth_net_rgb_map": max_rgb, "depth_net_disp_map": torch.zeros_like(max_rgb),
+                    "depth_net_weights": diag["max_weights"], "depth_net_pts": diag["max_pts"],
+                    "depth_net_z_vals": max_z}
+    elif mode == EvalMode.FULL_NERF:
+        return map_outputs(fused_render.fused_render(
+            params.kernels.coarse, params.coarse.cfg, ro, rd, n_samples=p.N_samples, near=p.near,
+            far=p.far, lindisp=p.lindisp, **common))
+
+    # DEPTH_NET populate-and-shade, and the depth-net half of COMPARE
+    depth = fused_depth_net.fused_depth_net_apply(packs.depth, params.depth.cfg, ro, rd, dtype)
+    pop = dict(n_samples=p.n_depth_samples, std=p.distance, **common)
+    if mode == EvalMode.COMPARE_NERF:
+        # the diagnostic keeps the exact [N, S] z values: drawn here, shaded by K9
+        _, z_vals = sample_points_around_mean(
+            ro, rd, depth.reshape(-1, 1), n_samples=p.n_depth_samples, mode=p.sampling_mode,
+            std=p.distance, generator=generator)
+        maps = fused_render.fused_shade(packs.nerf, model.cfg, ro, rd, z_vals.contiguous(),
+                                        dtype=dtype, **common)
+        return {**diag, **map_outputs(maps, z_vals)}
+    if p.sampling_mode == "uniform":
+        maps = fused_render.fused_render_around_depth(packs.nerf, model.cfg, ro, rd, depth, **pop)
+    else:
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device))
+        maps = fused_render.fused_render_gaussian(packs.nerf, model.cfg, ro, rd, depth, seed=seed, **pop)
+    return map_outputs(maps)
 
 
 @torch.no_grad()
@@ -536,12 +591,19 @@ def render_flat_rays(
     mode: EvalMode = EvalMode.DEPTH_NET,
     chunk: int = 1024 * 32,
     generator: torch.Generator | None = None,
+    full_outputs: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Render flat [N, 3] rays -> dict of flat [N, ...] maps.
 
-    ``mlp_impl="cuda"`` takes the kernels over all rays at once;
-    ``"plain"`` renders ``chunk`` rays at a time.
+    ``mlp_impl="cuda"`` takes the kernels over all rays at once, with
+    map-level outputs; ``"plain"`` renders ``chunk`` rays at a time, with
+    per-sample ones. ``full_outputs`` is the caller's request for the
+    per-sample points and weights (the scene-data export): it renders on
+    the plain path whatever ``mlp_impl`` says, as the JAX package's
+    composable path does.
     """
+    if full_outputs:
+        pipeline = dataclasses.replace(pipeline, mlp_impl=PLAIN)
     if pipeline.mlp_impl == CUDA:
         return _fused_fast_paths(pipeline, params, rays_o, rays_d, mode, generator)
     strict_fp32()
@@ -567,11 +629,12 @@ def render_image(
     mode: EvalMode = EvalMode.DEPTH_NET,
     chunk: int = 1024 * 32,
     generator: torch.Generator | None = None,
+    full_outputs: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Render a full image on ``device``: rays -> render_flat_rays -> [H, W, ...] maps."""
     rays_o, rays_d = get_rays(H, W, K, c2w, device)
     flat = render_flat_rays(
         pipeline, params, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
-        mode=mode, chunk=chunk, generator=generator,
+        mode=mode, chunk=chunk, generator=generator, full_outputs=full_outputs,
     )
     return {name: v.reshape(H, W, *v.shape[1:]) for name, v in flat.items()}

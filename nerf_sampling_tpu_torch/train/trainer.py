@@ -15,16 +15,21 @@
   ``joint_depth_warmup``. Evals DEPTH_NET.
 
 Around the loop: the blender scene, ``args.txt``, the periodic
-checkpoint, test-set eval, ``keep_best`` and early stop of the JAX Trainer
-(:729-831). Checkpoints are the JAX package's ``.npz`` layout, readable by
-both packages, with the Adam moments, so a resume is exact.
+checkpoint, test-set eval (in the eval mode the config names: DEPTH_NET,
+FULL_NERF, COMPARE_NERF or NERF_MAX), ``keep_best``, early stop, the
+train-set render and the spiral video of the JAX Trainer (:719-831,
+:922-945); ``render_only`` renders the test views or the spiral path
+instead of training (:951-993). Checkpoints are the JAX package's ``.npz``
+layout, readable by both packages, with the Adam moments, so a resume is
+exact. The Trainer runs on the card unless it is given ``device="cpu"``.
 
 The seed of step i is a pure function of (``cfg.seed``, i), as JAX's
 ``fold_in(base_key, i)``, so a resumed run draws what an unbroken run
 draws at the same step. With ``mlp_impl="cuda"`` every kernel pack an eval
-reads is made anew before the eval (the DepthNet's in depth-net mode,
-where the NeRF is frozen; all of them in nerf and joint mode); the nerf
-and joint steps pack the live NeRF weights for K4/K5 on every query.
+reads is made anew before the eval, fp32 ones included (the DepthNet's in
+depth-net mode, where the NeRF is frozen and its packs are made once; all
+of them in nerf and joint mode); the nerf and joint steps pack the live
+NeRF weights for K4/K5 on every query.
 
 Options this slice does not port raise NotImplementedError naming their
 ROADMAP item; nothing falls back quietly.
@@ -38,12 +43,14 @@ import os
 import numpy as np
 import torch
 
+from nerf_sampling_tpu_torch.core.metrics import to8b
 from nerf_sampling_tpu_torch.data.types import SceneData
 from nerf_sampling_tpu_torch.models import DepthNet, NeRF
 from nerf_sampling_tpu_torch.render.engine import (
     CUDA,
     EvalMode,
     NeRFParams,
+    eval_packs,
     pack_kernel_weights,
     repack_depth,
 )
@@ -59,6 +66,7 @@ from nerf_sampling_tpu_torch.train.steps import (
 from nerf_sampling_tpu_torch.utils.config import TrainerConfig
 from nerf_sampling_tpu_torch.utils.logging import MetricsLogger
 from nerf_sampling_tpu_torch.utils.profiling import StepTimer
+from nerf_sampling_tpu_torch.utils.video import write_video
 
 TRAIN_MODES = ("depth_net", "nerf", "joint")
 
@@ -77,10 +85,6 @@ def _unported(cfg: TrainerConfig) -> list[str]:
         found.append("n_devices != 1, multihost and steps_per_dispatch > 1 (scale-out: ROADMAP S7)")
     if cfg.dataset_type != "blender":
         found.append(f"dataset_type={cfg.dataset_type!r} (other loaders: ROADMAP S6)")
-    if cfg.render_only or cfg.save_train_set_render:
-        found.append("render_only and save_train_set_render (ROADMAP S4)")
-    if cfg.compare_nerf or cfg.use_nerf_max_pts:
-        found.append("the COMPARE_NERF and NERF_MAX eval modes (ROADMAP S4)")
     if cfg.export_torch_ckpt:
         found.append("export_torch_ckpt (the reference-format .tar: ROADMAP S5)")
     if cfg.profile_dir is not None or cfg.debug_nans:
@@ -96,16 +100,19 @@ def _seeded(module_cls, cfg, seed: int):
 
 
 class Trainer:
-    """Trains the DepthNet, the NeRFs or both (``cfg.train_mode``) on one device."""
+    """Trains the DepthNet, the NeRFs or both (``cfg.train_mode``) on one
+    device: the card (``device=None``: "cuda", and a RuntimeError when no
+    card is found), or the device given, such as "cpu"."""
 
     def __init__(self, cfg: TrainerConfig, device: torch.device | str | None = None):
         unported = _unported(cfg)
         if unported:
             raise NotImplementedError("not ported: " + "; ".join(unported))
         self.cfg = cfg
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device found: the Trainer runs on the card unless it is "
+                               "given device='cpu' (--device cpu on the command line)")
         self.global_step = 0
         self.start = 0
         self.scene: SceneData | None = None
@@ -208,7 +215,7 @@ class Trainer:
         params = NeRFParams(coarse.to(dev), fine.to(dev) if fine is not None else None,
                             depth.to(dev) if depth is not None else None)
         if p.mlp_impl == CUDA and cfg.train_mode == "depth_net":  # the frozen NeRF's packs, once
-            params = pack_kernel_weights(params, with_hier=True)
+            params = pack_kernel_weights(params, **{**eval_packs(p, self._eval_mode()), "with_hier": True})
         self.params = params
 
     def _restored_opt(self, key: str) -> dict | None:
@@ -240,16 +247,18 @@ class Trainer:
         return nerf, depth, make_joint_train_step(self.pipeline)
 
     def train(self, N_iters: int = 200001) -> float:
+        """Train to step N_iters - 1 and return the last step's PSNR; with
+        ``render_only``, render instead and return the average PSNR."""
         cfg = self.cfg
-        if N_iters - 1 >= cfg.i_video:
-            raise NotImplementedError(
-                f"the spiral video at step {cfg.i_video} is not ported (ROADMAP S4); "
-                "set i_video above the last step"
-            )
         self.scene = self.load_data()
         self.create_log_dir_and_dump_config()
         self.setup_models()
         self.logger = MetricsLogger(self.expdir, cfg.wandb_mode)
+        if cfg.render_only:
+            try:
+                return self.render_only_path()
+            finally:
+                self.logger.close()
         sampler = RaySampler(
             self.scene,
             SamplerConfig(N_rand=cfg.N_rand, use_batching=not cfg.no_batching,
@@ -284,28 +293,70 @@ class Trainer:
 
     def _eval_mode(self) -> EvalMode:
         cfg = self.cfg
+        if cfg.use_nerf_max_pts:
+            return EvalMode.NERF_MAX
         if cfg.use_full_nerf or cfg.train_mode == "nerf":
             return EvalMode.FULL_NERF
+        if cfg.compare_nerf:
+            return EvalMode.COMPARE_NERF
         return EvalMode.DEPTH_NET
 
-    def eval_testset(self, savedir: str | None) -> float:
-        """Render the test views with the models as they are now; average PSNR."""
-        scene = self.scene
+    def _eval_params(self) -> NeRFParams:
+        """The models with every kernel pack the eval mode reads made from
+        their weights as they are now (the steps changed what the packs
+        copied): the DepthNet's packs in depth-net mode, where the frozen
+        NeRF's were made at setup; all of them in nerf and joint mode."""
         params = self.params
-        mode = self._eval_mode()
-        if self.pipeline.mlp_impl == CUDA:  # the steps changed what the packs copied
+        if self.pipeline.mlp_impl == CUDA:
             if self.cfg.train_mode == "depth_net":
                 params = repack_depth(params)
             else:
                 params = pack_kernel_weights(params._replace(kernels=None),
-                                             with_hier=mode == EvalMode.FULL_NERF)
+                                             **eval_packs(self.pipeline, self._eval_mode()))
         self.eval_params = params
-        _, _, avg = render_path(
-            self.pipeline, params, scene.poses[scene.i_test], scene.hwf, scene.intrinsics(),
-            device=self.device, mode=mode, chunk=self.cfg.chunk, gt_imgs=scene.images[scene.i_test],
-            savedir=savedir, verbose=False,
-            generator=torch.Generator(device=self.device).manual_seed(0),
+        return params
+
+    def _render(self, poses, seed: int = 0, **kw):
+        """render_path of ``poses`` with the eval mode and fresh packs."""
+        return render_path(
+            self.pipeline, self._eval_params(), poses, self.scene.hwf, self.scene.intrinsics(),
+            device=self.device, mode=self._eval_mode(), chunk=self.cfg.chunk,
+            generator=torch.Generator(device=self.device).manual_seed(seed), **kw,
         )
+
+    def eval_testset(self, savedir: str | None) -> float:
+        """Render the test views with the models as they are now; average PSNR."""
+        scene = self.scene
+        _, _, avg = self._render(scene.poses[scene.i_test], gt_imgs=scene.images[scene.i_test],
+                                 savedir=savedir, verbose=False)
+        return avg
+
+    def save_spiral_video(self, i: int) -> None:
+        """The spiral path rendered in the eval mode, as rgb and disparity
+        videos ``{expname}_spiral_{i:06d}_{rgb,disp}`` (utils/video.py)."""
+        rgbs, disps, _ = self._render(self.scene.render_poses, verbose=False)
+        moviebase = os.path.join(self.expdir, f"{self.cfg.expname}_spiral_{i:06d}_")
+        print("video:", write_video(moviebase + "rgb", to8b(rgbs)))
+        if disps.ndim == 3:  # NERF_MAX's disparity is already [P, H, W, 3] (its zeros)
+            disps = np.repeat(disps[..., None], 3, -1)
+        print("video:", write_video(moviebase + "disp", to8b(disps / max(np.max(disps), 1e-8))))
+
+    def render_only_path(self) -> float:
+        """Render the test views (``render_test``) or the spiral path into
+        ``renderonly_{test|path}_{step:06d}/`` (PNGs, psnr.txt, the scene
+        data, a video); returns the average PSNR (0 without ground truth)."""
+        cfg, scene = self.cfg, self.scene
+        if cfg.render_test:
+            poses, gt = scene.poses[scene.i_test], scene.images[scene.i_test]
+        else:
+            poses, gt = scene.render_poses, None
+        savedir = os.path.join(
+            self.expdir, f"renderonly_{'test' if cfg.render_test else 'path'}_{self.global_step:06d}")
+        os.makedirs(savedir, exist_ok=True)
+        rgbs, _, avg = self._render(poses, seed=cfg.seed, gt_imgs=gt, savedir=savedir,
+                                    render_factor=cfg.render_factor, save_scene_data=cfg.save_scene_data)
+        print("Done rendering", savedir)
+        print("video:", write_video(os.path.join(savedir, "video"), to8b(rgbs)))
         return avg
 
     def log(self, i: int, metrics: dict, timer: StepTimer | None = None) -> None:
@@ -330,6 +381,12 @@ class Trainer:
                     print(f"Early stop at iter {i}: eval PSNR has not improved for "
                           f"{self._evals_since_best} evals (best {self._best_psnr:.3f})")
                     self._stop_early = True
+            if cfg.save_train_set_render:
+                trainsavedir = os.path.join(self.expdir, f"trainset_{i:06d}")
+                os.makedirs(trainsavedir, exist_ok=True)
+                self._render(scene.poses[scene.i_train[:10]], savedir=trainsavedir, verbose=False)
+        if i % cfg.i_video == 0 and i > 0:
+            self.save_spiral_video(i)
         if i % cfg.i_print == 0:
             m = {k: float(v) for k, v in metrics.items()}
             info = f"Iter: {i} Loss: {m['loss']}"

@@ -682,7 +682,7 @@ def test_cli_nerf_mode_defaults(tmp_path):
         "    i_weights: 100\n    precrop_iters: 0\n")
     tr = run.main(["-c", str(config), "-m", "small", "-dp", datadir, "--mode", "nerf", "--mlp_impl", "cuda",
                    "--n_iters", "2", "-ip", "1", "--basedir", str(tmp_path / "logs"), "--testskip", "1",
-                   "--i_testset", "2", "--seed", "0"])
+                   "--i_testset", "2", "--seed", "0", "--device", "cpu"])
     cfg = tr.cfg
     assert (cfg.train_mode, cfg.precrop_iters, cfg.expname) == ("nerf", 500, "custom_nerf")
     assert tr.pipeline.depth is None and tr.global_step == 2 and tr._avg_eval_psnr > 0

@@ -166,23 +166,32 @@ def test_mlp_impl_names():
 @pytest.mark.parametrize("mode", [EvalMode.FULL_NERF, EvalMode.COMPARE_NERF, EvalMode.NERF_MAX])
 @pytest.mark.parametrize("impl", ["plain", "cuda"])
 def test_unported_modes_raise(mode, impl):
-    """COMPARE_NERF and NERF_MAX raise on both paths. FULL_NERF is ported
-    but for K8: without fine samples the kernel path raises, naming it, and
-    the plain path renders the coarse pass (tests/test_torch_nerf_train.py
-    holds FULL_NERF with fine samples to the JAX package)."""
+    """The three modes beside DEPTH_NET on the coarse-only pipeline
+    (N_importance 0). The plain path renders each as the JAX XLA path does
+    (1e-4 per pixel; tests/test_torch_eval_modes.py holds the hierarchical
+    ones). The kernel path renders FULL_NERF through K8 (bf16, within bf16
+    noise of the plain fp32 render) and raises ValueError for COMPARE_NERF
+    and NERF_MAX, whose argmax comes from K7 only: the JAX package drops to
+    its composable path there, the port names the envelope instead."""
     jpipe, tpipe = small_configs()
-    _, tparams = small_params(jpipe, tpipe)
+    jparams, tparams = small_params(jpipe, tpipe)
     K, c2w = camera(4, 4)
     pipe = dataclasses.replace(tpipe, mlp_impl=impl)
-    if mode == EvalMode.FULL_NERF:
-        pipe = dataclasses.replace(pipe, N_importance=0)
-        if impl == "plain":
-            out = render_image(pipe, tparams, 4, 4, K, c2w, device="cpu", mode=mode)
-            assert out["depth_net_rgb_map"].shape == (4, 4, 3)
-            assert torch.isfinite(out["depth_net_rgb_map"]).all()
-            return
-    with pytest.raises(NotImplementedError, match="ROADMAP S4"):
-        render_image(pipe, tparams, 4, 4, K, c2w, device="cpu", mode=mode)
+    if impl == "cuda" and mode != EvalMode.FULL_NERF:
+        with pytest.raises(ValueError, match="N_importance > 0"):
+            render_image(pipe, tparams, 4, 4, K, c2w, device="cpu", mode=mode)
+        return
+    out = render_image(pipe, tparams, 4, 4, K, c2w, device="cpu", mode=mode)
+    if impl == "cuda":
+        plain = render_image(tpipe, tparams, 4, 4, K, c2w, device="cpu", mode=mode)
+        err = (out["depth_net_rgb_map"] - plain["depth_net_rgb_map"]).abs()
+        assert float(err.mean()) < 1e-2 and float(err.max()) < 5e-2, float(err.max())
+        return
+    want = jengine.render_image(jpipe, jparams, 4, 4, jnp.asarray(K), jnp.asarray(c2w), jax.random.PRNGKey(0),
+                                getattr(jengine.EvalMode, mode.name))
+    assert set(out) == set(want)
+    for name in out:
+        np.testing.assert_allclose(out[name].numpy(), np.asarray(want[name]), rtol=1e-4, atol=1e-4, err_msg=name)
 
 
 def test_fused_gaussian_raises_and_plain_gaussian_renders():
@@ -247,7 +256,8 @@ def test_trainer_config_matches_jax():
 
 def test_port_imports_no_jax():
     """Every module of the port imports without jax or the JAX package,
-    the training slices (train/*, experiments/run.py, K4/K5) included."""
+    the training slices (train/*, experiments/run.py, K4/K5) and the render
+    CLI and video writer included."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import nerf_sampling_tpu_torch as p\n"
@@ -256,7 +266,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "need = ['train.trainer', 'train.steps', 'train.sampler', 'train.state', 'train.checkpoint',\n"
         "        'experiments.run', 'kernels.fused_hier', 'kernels.philox', 'utils.logging',\n"
-        "        'utils.profiling', 'kernels.fused_nerf', 'kernels.fused_nerf_vjp']\n"
+        "        'utils.profiling', 'kernels.fused_nerf', 'kernels.fused_nerf_vjp', 'experiments.render',\n"
+        "        'utils.video']\n"
         "missing = [m for m in need if 'nerf_sampling_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'nerf_sampling_tpu.')) or k == 'nerf_sampling_tpu')\n"

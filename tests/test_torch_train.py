@@ -368,9 +368,9 @@ def test_trainer_end_to_end_and_repack(tmp_path):
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("compare_nerf", True, "S4"), ("use_nerf_max_pts", True, "S4"), ("n_devices", 2, "S7"),
+    ("profile_dir", "profile", "S5"), ("debug_nans", True, "S5"), ("n_devices", 2, "S7"),
     ("multihost", True, "S7"), ("steps_per_dispatch", 4, "S7"), ("dataset_type", "llff", "S6"),
-    ("render_only", True, "S4"), ("export_torch_ckpt", True, "S5"),
+    ("dataset_type", "deepvoxels", "S6"), ("export_torch_ckpt", True, "S5"),
 ])
 def test_trainer_unported_options_raise(field, value, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -394,7 +394,7 @@ def test_cli_trains_the_recipe(tmp_path):
     generate_example_dataset(datadir, H=64, W=64, n_train=2, n_val=1, n_test=1)
     tr = run.main(["-dp", datadir, "-m", "recommended_depth_net_module", "--mlp_impl", "cuda",
                    "--n_iters", "2", "-ip", "1", "--basedir", str(tmp_path / "logs"), "--testskip", "1",
-                   "--seed", "3"])
+                   "--seed", "3", "--device", "cpu"])
     cfg = tr.cfg
     assert (cfg.n_layers, cfg.layer_width, cfg.depth_net_lr, cfg.sphere_radius) == (10, 256, 1e-4, 2)
     assert (cfg.sampling_mode, cfg.n_depth_samples, cfg.i_testset, cfg.seed) == ("gaussian", 64, 2500, 3)
