@@ -73,9 +73,30 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    the render path, [render]: experiments/render.py's main over the 4 test
    views (a copy of the scene with one train view) in its default mode
    (the render path's PSNRs to 1e-4), -nc, -nm and -nf, each with its
-   PNGs, psnr.txt (the MSE for -nc) and kernel launches; its -e grid on one
-   view (32 renders); one render_only render of the spiral path with its
-   video. Each phase prints its seconds.
+   PNGs, psnr.txt (the MSE for -nc) and kernel launches, then the default
+   mode and -nf again with --mlp_impl pallas_int8 (the int8 kernels must
+   launch; PSNRs beside the bf16 ones); its -e grid on one view (32
+   renders); one render_only render of the spiral path with its video.
+   Each phase prints its seconds.
+8. The int8 mode (W8A8, K10), after [modes]: [k10] calibrates the
+   committed checkpoint's NeRFs on the example scene (the calib printed),
+   then holds each int8 mode of the kernels to its plain int8 version on
+   the card (K10_MEAN_TOL / K10_P999_TOL, percentiles: an int8 rounding
+   that the fp32 summation order flips moves a sample): K2, K3 (injected
+   noise), K8 and K9 over view 0's 160,000 rays at 64 samples with 16 NaN
+   depths (NaN exactly there), K7 over view 0, K6 on 1024-ray train
+   batches with injected draws, K7's and K6's max_z and depth_map also on
+   the rays with acc > 0.5 (K10_Z_MEAN_TOL / K10_Z_P99_TOL); K6-int8's
+   max_z against bf16 K6 on those rays (median within a coarse spacing,
+   tests/test_quant.py's bound); fault_check.py shows that a planted
+   requant fault fails these gates; FULL_NERF at N_importance 0 through the engine (K8 int8 once);
+   the DEPTH_NET view 0 PSNR in int8 beside bf16 (no gate) and the int8
+   frame's time and profile. After the training path, [int8-train]: the
+   CLI with --mlp_impl pallas_int8 runs the same recipe and seed for
+   TRAIN_ITERS steps (K6 and K3 in int8 must launch, bf16 K6 must not, the
+   loss must fall); its best DepthNet evaluated under the bf16 protocol
+   within INT8_EVAL_TOL dB of the bf16 run's eval; --mode nerf with int8
+   must raise.
 
 Every kernel's record carries its bound from this run's shapes (the
 larger of its operations at the card's bf16 or fp32 peak and its bytes at
@@ -109,6 +130,7 @@ NERF_ITERS = 500  # --mode nerf from scratch: the center-crop phase, then the ev
 JOINT_ITERS, JOINT_WARMUP = 300, 100  # --mode joint: eval at the last step
 NERF_PRINT = 100  # i_print of the nerf and joint runs
 RENDER_DIR = os.path.join(HERE, "logs", "chip_smoke_render")  # the render CLI's runs (gitignored)
+INT8_TRAIN_DIR = os.path.join(HERE, "logs", "chip_smoke_int8_train")  # the int8 training run (gitignored)
 
 # kernel vs its plain version at bf16 rounding (same inputs, same weights):
 # the two differ only in fp32 summation order and the few bf16 roundings
@@ -142,6 +164,17 @@ NERF_EVAL_TOL = 0.5  # dB between the kernel and plain runs' evals (nerf and joi
 # fp32 code on both; the depth target comes from bf16 (K6) vs fp32, so the
 # bound of tests/test_train_pallas.py:41
 STEP_IMG_TOL, STEP_DEPTH_TOL, STEP_COS_TOL = 1e-5, 0.05, 0.99
+# the int8 kernels against their plain int8 versions (same inputs, weights
+# and calib): the two differ in the fp32 summation order of the bf16
+# products, which flips an int8 rounding now and then, and a flip moves
+# what follows it; held by mean and percentile, as K6, with bounds between
+# the sound kernels' largest readings (mean 4.3e-6, p99.9 1.7e-5 on rgb) and
+# a planted requant fault's (PERF.md)
+K10_MEAN_TOL, K10_P999_TOL = 1e-4, 1e-3  # |rgb|, |acc|; depth and disp scaled by 6
+# K6/K7-int8's |max_z| and |depth_map| on rays with acc > 0.5: sound, max_z equal
+# and depth_map p99 1.2e-6; the planted fault, mean 1.8e-3 and p99 5.6e-2 and up
+K10_Z_MEAN_TOL, K10_Z_P99_TOL = 1e-4, 1e-3
+INT8_EVAL_TOL = 0.3  # dB: the int8-oracle DepthNet under the bf16 eval against the bf16 run's (RESULTS.md A/B)
 # View 0 as the JAX package renders it through its own fp32 path
 # (mlp_impl="xla") from the committed checkpoint: `python3 reference_psnr.py`
 # prints it (33.6077 dB on an NVIDIA H100 80GB HBM3 at 700 W, jax 0.9.0).
@@ -196,7 +229,7 @@ def errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): the
 # bound of a kernel is the larger of its bytes over the memory rate and its
 # operations over the peak of their type
-PEAK = {"bf16": 989e12, "fp32": 67e12}
+PEAK = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -206,6 +239,15 @@ def module_macs(module, sigma_only: bool = False) -> int:
     if sigma_only:
         return sum(lin.weight.numel() for lin in module.pts_linears) + module.alpha_linear.weight.numel()
     return sum(m.weight.numel() for m in module.modules() if isinstance(m, torch.nn.Linear))
+
+
+def int8_macs(module, sigma_only: bool = False) -> int:
+    """The multiply-adds of one NeRF query that the int8 MLP runs in int8:
+    the h rows of trunk layers 1..D-1 and, unless ``sigma_only``, the
+    feature layer and the feature rows of the views layer (the rest, on
+    the embeddings and the heads, runs in bf16)."""
+    W = module.cfg.W
+    return (module.cfg.D - 1) * W * W + (0 if sigma_only else W * W + W * (W // 2))
 
 
 def nbytes(*tensors) -> int:
@@ -222,12 +264,14 @@ def nbytes(*tensors) -> int:
 
 
 def kernel_record(name: str, source: str, replaces: str, max_abs_err: float, ms: float, plain_ms: float,
-                  flop: float, moved: int, dtype: str = "bf16") -> dict:
+                  flop: float, moved: int, dtype: str = "bf16", int8_flop: float = 0.0) -> dict:
     """One kernel's entry of the JSON record, its bound from this run's
-    shapes: flop at the ``dtype`` peak against the bytes it must move
-    (inputs, weights and outputs once) at the memory rate. No single
-    PyTorch call computes any of these fused renders, so library_ms is null."""
-    t_ops, t_bytes = flop / PEAK[dtype] * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    shapes: flop at the ``dtype`` peak (``int8_flop`` of them at the int8
+    peak) against the bytes it must move (inputs, weights and outputs once)
+    at the memory rate. No single PyTorch call computes any of these fused
+    renders, so library_ms is null."""
+    t_ops = (int8_flop / PEAK["int8"] + (flop - int8_flop) / PEAK[dtype]) * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
     return {"name": name, "route": "cuda", "source": f"nerf_sampling_tpu_torch/kernels/csrc/{source}",
             "replaces": replaces, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -854,6 +898,203 @@ def check_modes(params, scene, K, device) -> None:
     log(f"[modes] phase {time.perf_counter() - t0:.1f} s")
 
 
+def hold_int8(tag: str, got: dict, want: dict, names, nan_rows=None) -> float:
+    """An int8 kernel's maps against its plain int8 version: the NaN mask
+    equal (exactly nan_rows where given), then mean and p99.9 of |delta|
+    within K10_MEAN_TOL / K10_P999_TOL (x scale); returns rgb's max."""
+    worst = 0.0
+    for name, scale in names:
+        a, b = got[name], want[name]
+        require(bool(torch.equal(torch.isnan(a), torch.isnan(b))), f"{tag} {name}: NaN mask differs")
+        if nan_rows is not None:
+            nan_a = torch.isnan(a).reshape(nan_rows.shape[0], -1)
+            require(bool(nan_a[nan_rows].all()) and not bool(nan_a[~nan_rows].any()),
+                    f"{tag} {name}: NaN must mark exactly the NaN-depth rays")
+        d = (a - b).abs()
+        d = d[~torch.isnan(d)]
+        mean, p999, mx = float(d.mean()), quantile(d, 0.999), float(d.max())
+        log(f"[k10] {tag} {name}: vs plain int8 mean {mean:.3e} p99.9 {p999:.3e} max {mx:.3e} "
+            f"(tol {K10_MEAN_TOL * scale:g}/{K10_P999_TOL * scale:g})")
+        require(mean <= K10_MEAN_TOL * scale and p999 <= K10_P999_TOL * scale, f"{tag} {name} disagrees with "
+                "its plain int8 version")
+        if name == "rgb_map":
+            worst = mx
+    return worst
+
+
+def hold_int8_z(tag: str, got: dict, want: dict) -> None:
+    """K6/K7-int8's max_z (what the depth step and NERF_MAX read) and
+    depth_map against the plain int8 version's on the rays with acc > 0.5
+    there (the argmax is noise on background rays): mean and p99 of |delta|
+    within K10_Z_MEAN_TOL / K10_Z_P99_TOL."""
+    fg = want["acc_map"] > 0.5
+    for name in ("max_z", "depth_map"):
+        d = (got[name] - want[name]).abs()[fg]
+        mean, p99 = float(d.mean()), quantile(d, 0.99)
+        log(f"[k10] {tag} {name} on the {int(fg.sum())} rays with acc > 0.5: vs plain int8 mean {mean:.3e} "
+            f"p99 {p99:.3e} max {float(d.max()):.3e}, {int((d > 0).sum())} rays differ "
+            f"(tol {K10_Z_MEAN_TOL:g}/{K10_Z_P99_TOL:g})")
+        require(mean <= K10_Z_MEAN_TOL and p99 <= K10_Z_P99_TOL, f"{tag} {name} disagrees with its plain int8 version")
+
+
+def check_k10(params, scene, K, device, batches) -> tuple[list[dict], dict[str, int]]:
+    """The int8 mode: calibration of the committed NeRFs on the example
+    scene, then every int8 kernel against its plain int8 version on the
+    card, K6-int8 against bf16 K6, FULL_NERF at N_importance 0 in int8
+    through the engine, and the int8 DEPTH_NET frame beside the bf16 one;
+    returns the int8 records (K9-int8, on no path, only printed) and K8
+    int8's launches in the engine render."""
+    import dataclasses
+
+    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k67
+    from nerf_sampling_tpu_torch.kernels import fused_render as k289
+    from nerf_sampling_tpu_torch.render import EvalMode, pack_kernel_weights, render_image
+    from nerf_sampling_tpu_torch.render.quantize import calibrate_pipeline
+
+    t0 = time.perf_counter()
+    pipe = calibrate_pipeline(production_pipeline("cuda_int8"), params, scene)
+    qc, qf = pipe.quant_calib
+    log(f"[k10] calibration of the coarse NeRF on the first train view (512 rays x 17 z): {qc}")
+    log(f"[k10] calibration of the fine NeRF: {qf}")
+    q = pack_kernel_weights(params, with_hier=True, with_coarse=True, quant_pair=(qc, qf)).kernels
+    ro, rd = view0_rays(device)
+    n, S = ro.shape[0], 64
+    depth = k1.fused_depth_net_apply(params.kernels.depth, params.depth.cfg, ro, rd)
+    nan_idx = torch.linspace(0, n - 1, 16, device=device).long()
+    depth[nan_idx] = float("nan")
+    nan_rows = torch.zeros(n, dtype=torch.bool, device=device)
+    nan_rows[nan_idx] = True
+    cfg = params.fine.cfg
+    offsets = torch.from_numpy(k289.uniform_population_offsets(S, 1.0)).to(device)
+    noise = torch.randn((n, S - 1), generator=torch.Generator(device=device).manual_seed(3), device=device)
+    pop = torch.clamp(depth.reshape(n, 1) + offsets[None, :], 2.0, 6.0).contiguous()  # NaN rows stay NaN
+    names = (("rgb_map", 1.0), ("acc_map", 1.0), ("depth_map", 6.0), ("disp_map", 6.0))
+    flop, iflop = 2 * n * S * module_macs(params.fine), 2 * n * S * int8_macs(params.fine)
+    cases = [  # name, kernel, plain version over a slice of rays, the NaN rows, the inputs it reads
+        ("render_around_depth_kernel_int8", lambda: k289.render_around_depth_kernel(q.nerf, cfg, ro, rd, depth, offsets),
+         lambda s: k289.render_around_depth_plain(q.nerf, cfg, ro[s], rd[s], depth[s], offsets), nan_rows,
+         (ro, rd, depth, offsets)),
+        ("render_gaussian_kernel_int8", lambda: k289.render_gaussian_kernel(q.nerf, cfg, ro, rd, depth, n_samples=S,
+                                                                             std=1.0, noise=noise),
+         lambda s: k289.render_gaussian_plain(q.nerf, cfg, ro[s], rd[s], depth[s], noise[s], std=1.0), nan_rows,
+         (ro, rd, depth, noise)),
+        ("render_linspace_kernel_int8", lambda: k289.fused_render(q.nerf, cfg, ro, rd, n_samples=S),
+         lambda s: k289.render_linspace_plain(q.nerf, cfg, ro[s], rd[s], n_samples=S), None, (ro, rd)),
+        ("shade_kernel_int8", lambda: k289.fused_shade(q.nerf, cfg, ro, rd, pop),
+         lambda s: k289.shade_plain(q.nerf, cfg, ro[s], rd[s], pop[s]), nan_rows, (ro, rd, pop)),
+    ]
+    recs, k9 = [], None
+    for name, kernel, plain, nans, inputs in cases:
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain_chunks(plain, n)
+        tag = name.replace("_kernel_int8", "")
+        worst = hold_int8(tag, got, want, names if nans is not None else names[:3], nans)
+        ms = cuda_ms(kernel, 3)
+        plain_ms = cuda_ms(lambda: plain_chunks(plain, n), 1)
+        rec = kernel_record(name, "render_around_depth.cu", "nerf_sampling_tpu/kernels/quant.py:353", worst, ms,
+                            plain_ms, flop, nbytes(*inputs, q.nerf, got), int8_flop=iflop)
+        log(f"[k10] {tag}: {ms:.3f} ms per launch at {n} rays x {S}; plain int8 version {plain_ms:.3f} ms; "
+            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+        if name == "shade_kernel_int8":
+            k9 = rec  # no card path launches K9 in int8 (JAX: only under interpret)
+        else:
+            recs.append(rec)
+    bf16 = k289.render_around_depth_kernel(params.kernels.nerf, cfg, ro, rd, depth, offsets)
+    int8 = k289.render_around_depth_kernel(q.nerf, cfg, ro, rd, depth, offsets)
+    d = (int8["rgb_map"] - bf16["rgb_map"]).abs()
+    log(f"[k10] K2 int8 against K2 bf16 over view 0: |rgb| mean {float(d[~torch.isnan(d)].mean()):.3e} "
+        f"max {float(d[~torch.isnan(d)].max()):.3e} (not gated); K9-int8 record (on no path): {json.dumps(k9)}")
+
+    # K7 over view 0, one launch
+    cfg_c = params.coarse.cfg
+    ro, rd = view0_rays(device)
+    got = k67.render_hier_kernel(q.hier, cfg_c, cfg, ro, rd)
+    torch.cuda.synchronize()
+    want = plain_chunks(lambda s: k67.render_hier_plain(q.hier, cfg_c, cfg, ro[s], rd[s]), n)
+    worst = hold_int8("render_hier_det", got, want, names[:2])
+    hold_int8_z("render_hier_det", got, want)
+    ms = cuda_ms(lambda: k67.render_hier_kernel(q.hier, cfg_c, cfg, ro, rd), 2)
+    plain_ms = cuda_ms(lambda: plain_chunks(lambda s: k67.render_hier_plain(q.hier, cfg_c, cfg, ro[s], rd[s]), n), 1)
+    flop = 2 * n * (64 * module_macs(params.coarse, True) + 192 * module_macs(params.fine))
+    iflop = 2 * n * (64 * int8_macs(params.coarse, True) + 192 * int8_macs(params.fine))
+    recs.append(kernel_record("render_hier_kernel_det_int8", "render_hier.cu", "nerf_sampling_tpu/kernels/quant.py:353",
+                              worst, ms, plain_ms, flop, nbytes(ro, rd, q.hier, got), int8_flop=iflop))
+    log(f"[k10] render_hier_det (K7): {ms:.3f} ms per launch over view 0; plain int8 version {plain_ms:.3f} ms; "
+        f"bound {recs[-1]['bound_ms']:.3f} ms")
+
+    # K6 on train batches with injected draws, against its plain version and bf16 K6
+    Nc, Nf = 64, 128
+    g = torch.Generator(device=device).manual_seed(5)
+    got, want, ref16 = [], [], []
+    for bro, brd in batches[:8]:
+        draws = torch.rand((bro.shape[0], Nc + Nf), generator=g, device=device)
+        got.append(k67.render_hier_kernel(q.hier, cfg_c, cfg, bro, brd, n_coarse=Nc, n_importance=Nf, draws=draws))
+        want.append(k67.render_hier_plain(q.hier, cfg_c, cfg, bro, brd, n_coarse=Nc, n_importance=Nf,
+                                          t_rand=draws[:, :Nc], u=draws[:, Nc:]))
+        ref16.append(k67.render_hier_kernel(params.kernels.hier, cfg_c, cfg, bro, brd, n_coarse=Nc, n_importance=Nf,
+                                            draws=draws))
+    torch.cuda.synchronize()
+    cat = {k: torch.cat([o[k] for o in got]) for k in got[0]}
+    ref = {k: torch.cat([o[k] for o in want]) for k in want[0]}
+    worst = hold_int8("render_hier (K6)", cat, ref, names[:2])
+    hold_int8_z("render_hier (K6)", cat, ref)
+    r16 = {k: torch.cat([o[k] for o in ref16]) for k in ref16[0]}
+    fg = r16["acc_map"] > 0.5
+    dz = (cat["max_z"] - r16["max_z"]).abs()[fg]
+    med = float(dz.median())
+    log(f"[k10] K6 int8 against bf16 K6, same draws, max_z on the {int(fg.sum())} rays with acc > 0.5: median "
+        f"{med:.3e} mean {float(dz.mean()):.3e} p90 {quantile(dz, 0.9):.3e} (gate: median < (far - near)/Nc = "
+        f"{4.0 / Nc:g}); |acc| mean {float((cat['acc_map'] - r16['acc_map']).abs().mean()):.3e}")
+    require(med < 4.0 / Nc, "K6 int8's max_z strays from bf16 K6's")
+    bro, brd = batches[0][:2]
+    ms = cuda_ms(lambda: k67.render_hier_kernel(q.hier, cfg_c, cfg, bro, brd, n_coarse=Nc, n_importance=Nf, seed=1), 20)
+    ms16 = cuda_ms(lambda: k67.render_hier_kernel(params.kernels.hier, cfg_c, cfg, bro, brd, n_coarse=Nc,
+                                                  n_importance=Nf, seed=1), 20)
+    draws0 = torch.rand((bro.shape[0], Nc + Nf), generator=g, device=device)
+    plain_ms = cuda_ms(lambda: k67.render_hier_plain(q.hier, cfg_c, cfg, bro, brd, n_coarse=Nc, n_importance=Nf,
+                                                     t_rand=draws0[:, :Nc], u=draws0[:, Nc:]), 5)
+    m = bro.shape[0]
+    flop = 2 * m * (Nc * module_macs(params.coarse, True) + (Nc + Nf) * module_macs(params.fine))
+    iflop = 2 * m * (Nc * int8_macs(params.coarse, True) + (Nc + Nf) * int8_macs(params.fine))
+    recs.append(kernel_record("render_hier_kernel_int8", "render_hier.cu", "nerf_sampling_tpu/kernels/quant.py:353",
+                              worst, ms, plain_ms, flop, nbytes(bro, brd, q.hier, got[0]), int8_flop=iflop))
+    log(f"[k10] render_hier (K6): {ms:.3f} ms per launch at {m} rays (bf16 K6 {ms16:.3f} ms, same call); plain int8 "
+        f"version {plain_ms:.3f} ms; bound {recs[-1]['bound_ms']:.3f} ms")
+
+    # FULL_NERF at N_importance 0 through the engine: K8 int8 on the coarse NeRF
+    Hs, Ws, _ = scene.hwf
+    pose0, gt0 = scene.poses[int(scene.i_test[0])][:3, :4], scene.images[int(scene.i_test[0])]
+
+    def psnr(m_):
+        return float(-10 * np.log10(np.mean((m_["depth_net_rgb_map"].float().cpu().numpy() - gt0) ** 2)))
+
+    k289.linspace_int8_launches = 0
+    img = render_image(dataclasses.replace(pipe, depth=None, N_importance=0), params, Hs, Ws, K, pose0,
+                       device=device, mode=EvalMode.FULL_NERF)
+    torch.cuda.synchronize()
+    counts = {"render_linspace_kernel_int8": k289.linspace_int8_launches}
+    log(f"[k10] FULL_NERF at N_importance 0 in int8 (K8 on the coarse NeRF), view 0: {psnr(img):.4f} dB; "
+        f"launches {counts}")
+    require(counts["render_linspace_kernel_int8"] == 1, "FULL_NERF at N_importance 0 did not launch K8-int8 once")
+
+    # the DEPTH_NET frame in int8 beside bf16 (no gate: JAX's TPU record is -8.8 dB on trained fields)
+    params_q = pack_kernel_weights(params, quant_pair=(qc, qf))
+    pipe16 = production_pipeline("cuda")
+
+    def frame(p, prm):
+        return render_image(p, prm, Hs, Ws, K, pose0, device=device)
+
+    p8, p16 = psnr(frame(pipe, params_q)), psnr(frame(pipe16, params))
+    ms8, ms16 = frame_ms(lambda: frame(pipe, params_q), 5), frame_ms(lambda: frame(pipe16, params), 5)
+    log(f"[k10] DEPTH_NET view 0 (uniform/64/1.0): int8 {p8:.4f} dB, bf16 {p16:.4f} dB ({p8 - p16:+.4f} dB, not "
+        f"gated); median frame int8 {ms8:.2f} ms, bf16 {ms16:.2f} ms")
+    profile_frame(lambda: frame(pipe, params_q), "one int8 DEPTH_NET frame")
+    log(f"[k10] phase {time.perf_counter() - t0:.1f} s")
+    return recs, counts
+
+
 def run_render_cli(device, slice_psnrs: list[float]) -> dict[str, int]:
     """experiments/render.py's main on the card over the 4 test views (a
     copy of the example scene with its test views and one train view):
@@ -884,15 +1125,21 @@ def run_render_cli(device, slice_psnrs: list[float]) -> dict[str, int]:
     base = common + ["--testskip", "1", "--basedir", RENDER_DIR]
     counters = {"depth_net_kernel": (k1, "launches"), "depth_net_kernel_fp32": (k1, "fp32_launches"),
                 "render_around_depth_kernel": (k89, "launches"), "shade_kernel_fp32": (k89, "shade_fp32_launches"),
-                "render_hier_kernel_det": (k7, "det_launches"), "render_hier_kernel_det_fp32": (k7, "det_fp32_launches")}
-    runs = {"": ("depth_net_kernel", "render_around_depth_kernel"),
-            "-nc": ("depth_net_kernel_fp32", "shade_kernel_fp32", "render_hier_kernel_det_fp32"),
-            "-nm": ("render_hier_kernel_det",), "-nf": ("render_hier_kernel_det",)}
+                "render_hier_kernel_det": (k7, "det_launches"), "render_hier_kernel_det_fp32": (k7, "det_fp32_launches"),
+                "render_around_depth_kernel_int8": (k89, "int8_launches"),
+                "render_hier_kernel_det_int8": (k7, "det_int8_launches")}
+    int8 = ["--mlp_impl", "pallas_int8", "--basedir", os.path.join(RENDER_DIR, "int8")]
+    runs = {"": ([], ("depth_net_kernel", "render_around_depth_kernel")),
+            "-nc": (["-nc"], ("depth_net_kernel_fp32", "shade_kernel_fp32", "render_hier_kernel_det_fp32")),
+            "-nm": (["-nm"], ("render_hier_kernel_det",)), "-nf": (["-nf"], ("render_hier_kernel_det",)),
+            "int8": (int8, ("depth_net_kernel", "render_around_depth_kernel_int8")),
+            "-nf int8": (["-nf"] + int8, ("render_hier_kernel_det_int8",))}
     counts: dict[str, int] = {}
-    for flag, names in runs.items():
+    psnrs_of: dict[str, list[float]] = {}
+    for flag, (extra, names) in runs.items():
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
-        argv = base + ([flag] if flag else [])
+        argv = base + extra
         log(f"[render] python3 -m nerf_sampling_tpu_torch.experiments.render {' '.join(argv)}")
         t1 = time.perf_counter()
         tr = rcli.main(argv)
@@ -904,6 +1151,12 @@ def run_render_cli(device, slice_psnrs: list[float]) -> dict[str, int]:
         psnrs = [float(ln.split("PSNR: ")[1].split(",")[0]) for ln in lines[:4]]
         log(f"[render] {flag or 'DEPTH_NET'}: {wall:.1f} s, per-view PSNR {['%.4f' % p for p in psnrs]}, "
             f"launches {run_counts}; psnr.txt: {lines[4:]}")
+        psnrs_of[flag] = psnrs
+        if flag.endswith("int8"):
+            base16 = psnrs_of[flag.replace("int8", "").strip()]
+            require(tr.pipeline.mlp_impl == "cuda_int8", f"{flag}: the render did not run cuda_int8")
+            log(f"[render] {flag}: int8 average {np.mean(psnrs):.4f} dB against bf16 {np.mean(base16):.4f} dB "
+                f"({np.mean(psnrs) - np.mean(base16):+.4f} dB, not gated)")
         require(all(os.path.exists(os.path.join(d, f"{i:03d}.png")) for i in range(4)), f"{flag}: PNGs missing")
         require(lines[4] == "Avg of 4 images:" and len(lines) == (7 if flag == "-nc" else 6),
                 f"{flag}: psnr.txt has the wrong lines")
@@ -1056,6 +1309,71 @@ def run_training(device, scene, K) -> tuple[dict[str, int], object]:
         f"(gate: at most {EVAL_GAP_TOL} dB below)")
     require(trained >= ref_avg - EVAL_GAP_TOL, "the trained DepthNet evaluates too far below the committed one")
     return counts, trainer
+
+
+def run_int8_training(device, scene, K, bf16_eval: float) -> dict[str, int]:
+    """[int8-train]: the CLI with --mlp_impl pallas_int8, the training
+    slice's recipe and seed against the same NeRF-only copy: K6 and K3 in
+    int8 must launch and bf16 K6 must not; the loss must fall; the best
+    DepthNet under the bf16 protocol (the bf16 kernels, the recipe's eval)
+    within INT8_EVAL_TOL dB of the bf16 run's step-TRAIN_ITERS eval; then
+    --mode nerf with int8 must raise. Returns the int8 launches."""
+    import dataclasses
+    import shutil
+
+    from nerf_sampling_tpu_torch.experiments import run
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
+    from nerf_sampling_tpu_torch.kernels import fused_render as k3
+    from nerf_sampling_tpu_torch.render import pack_kernel_weights, render_path
+    from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
+
+    t0 = time.perf_counter()
+    shutil.rmtree(INT8_TRAIN_DIR, ignore_errors=True)
+    os.makedirs(INT8_TRAIN_DIR)
+    ft_path = os.path.join(INT8_TRAIN_DIR, "nerf_only.npz")
+    write_nerf_only_checkpoint(ft_path)
+    argv = ["-d", "example", "-m", "recommended_depth_net_module", "--mlp_impl", "pallas_int8",
+            "--ft_path", ft_path, "--n_iters", str(TRAIN_ITERS), "-ip", str(TRAIN_PRINT), "--seed", "42",
+            "--basedir", INT8_TRAIN_DIR, "--testskip", "1"]
+    log(f"[int8-train] python3 -m nerf_sampling_tpu_torch.experiments.run {' '.join(argv)}")
+    k3.gaussian_launches = k3.gaussian_int8_launches = k6.launches = k6.int8_launches = 0
+    trainer = run.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"render_hier_kernel_int8": k6.int8_launches, "render_gaussian_kernel_int8": k3.gaussian_int8_launches}
+    log(f"[int8-train] {trainer.global_step} steps in {wall:.1f} s (evals and checkpoints included); launches: "
+        f"{counts}, bf16 K6 {k6.launches}, bf16 K3 {k3.gaussian_launches}; calib {trainer.pipeline.quant_calib}")
+    for name, count in counts.items():
+        require(count > 0, f"{name} was not launched by the int8 training run")
+    require(k6.launches == 0, "the int8 training run launched bf16 K6")
+    with open(os.path.join(trainer.expdir, "psnr.txt")) as fp:
+        lines = [ln for ln in fp if ln.startswith("Iter:")]
+    losses = [float(ln.split("Depth Net Loss: ")[1].split(",")[0]) for ln in lines]
+    log(f"[int8-train] Depth Net Loss at step {lines[0].split()[1]}: {losses[0]:.6f}, at step "
+        f"{lines[-1].split()[1]}: {losses[-1]:.6f}")
+    require(losses[-1] < losses[0], "the int8 run's depth-net loss did not fall")
+    best = os.path.join(trainer.expdir, "best", f"depth_{EVAL_STEP:06d}.npz")
+    require(os.path.exists(best), f"{best} was not written")
+    pipe = dataclasses.replace(trainer.pipeline, mlp_impl="cuda", quant_calib=None)
+    params = pack_kernel_weights(load_render_params(best, pipe, device))
+    _, _, avg = render_path(pipe, params, scene.poses[scene.i_test], scene.hwf, K, device=device,
+                            gt_imgs=scene.images[scene.i_test], verbose=False,
+                            generator=torch.Generator(device=device).manual_seed(0))
+    log(f"[int8-train] step-{EVAL_STEP} eval ({pipe.sampling_mode}/{pipe.n_depth_samples}/{pipe.distance}, "
+        f"{len(scene.i_test)} test views): the int8 run's own (int8 kernels) {trainer._avg_eval_psnr:.4f} dB; its best "
+        f"DepthNet under the bf16 protocol {avg:.4f} dB, the bf16 run's {bf16_eval:.4f} dB (delta "
+        f"{avg - bf16_eval:+.4f}, tol {INT8_EVAL_TOL})")
+    require(abs(avg - bf16_eval) <= INT8_EVAL_TOL, "the int8-oracle DepthNet is off the bf16 run's")
+    try:
+        run.main(["-d", "example", "--mode", "nerf", "--mlp_impl", "pallas_int8", "--n_iters", "1",
+                  "--basedir", os.path.join(INT8_TRAIN_DIR, "nerf")])
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    log(f"[int8-train] --mode nerf --mlp_impl pallas_int8 raises: {raised[:100]!r}")
+    require("frozen NeRF" in raised, "--mode nerf with int8 did not raise the frozen-NeRF guard")
+    log(f"[int8-train] phase {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 def check_train_step(trainer, scene, device) -> None:
@@ -1601,14 +1919,15 @@ def main() -> int:
     if info["built"]:
         with open(info["log"]) as fp:
             for line in fp:
-                if "registers" in line or "spill" in line or "smem" in line:
-                    log("[build] " + line.rstrip())
+                if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
+                    log("[build] " + line.rstrip()[:160])
 
     params = pack_kernel_weights(load_render_params(CKPT, production_pipeline("cuda"), device),
                                  with_hier=True)
     scene, K = load_example_scene()
+    batches = [b[:2] for b in train_batches(scene, device, 64)]
     kernels = [check_k1(params, device), check_k2(params, device), check_k3(params, device),
-               check_k6(params, device, [b[:2] for b in train_batches(scene, device, 64)])]
+               check_k6(params, device, batches)]
     queries = step_queries(params, scene, device)
     kernels += [check_k4(params, queries), check_k5(params, queries), check_k7(params, scene, K, device)]
     del queries
@@ -1616,9 +1935,13 @@ def main() -> int:
     k8_rec, k8_counts = check_k8(params, scene, K, device)
     kernels += [k8_rec, check_k9(params, device)] + check_fp32(params, device)
     check_modes(params, scene, K, device)
+    k10_recs, k10_counts = check_k10(params, scene, K, device, batches)
+    kernels += k10_recs
+    del batches
     render_counts, slice_psnrs = run_slice(device, scene, K)
     cli_counts = run_render_cli(device, slice_psnrs)
     train_counts, trainer = run_training(device, scene, K)
+    int8_train_counts = run_int8_training(device, scene, K, trainer._avg_eval_psnr)
     check_train_step(trainer, scene, device)
     check_nerf_steps(scene, device)
     nerf_counts = run_nerf_cli(device)
@@ -1627,10 +1950,13 @@ def main() -> int:
     # the count of the path each kernel serves: K2 renders, K1/K3/K6 train the
     # DepthNet, K4/K5/K7 train and evaluate the NeRF, K8 renders FULL_NERF
     # without fine samples, the fp32 K1/K7/K9 render COMPARE_NERF through the
-    # render CLI (the joint run's and the CLI's other counts are gated above)
+    # render CLI; in int8, K3/K6 train the DepthNet, K2 and K7 render through
+    # the CLI, K8 FULL_NERF without fine samples (the joint run's and the
+    # CLI's other counts are gated above)
     for rec in kernels:
         rec["launches"] = next(c[rec["name"]] for c in (nerf_counts, train_counts, render_counts, joint_counts,
-                                                        k8_counts, cli_counts) if rec["name"] in c)
+                                                        k8_counts, cli_counts, int8_train_counts, k10_counts)
+                               if rec["name"] in c)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

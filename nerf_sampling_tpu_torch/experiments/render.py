@@ -15,7 +15,9 @@ The JAX CLI's flags and defaults, with argparse in place of click (-c -dp
 reference render.py:208-212), and ``--device`` (the card unless ``cpu``).
 It renders the test views through the Trainer's ``render_only`` path.
 ``--mlp_impl`` defaults to ``cuda``, the hand-written kernels, as the JAX
-CLI defaults to its Pallas kernels; ``pallas_int8`` (K10) is not ported.
+CLI defaults to its Pallas kernels; ``cuda_int8`` (or ``pallas_int8``) runs
+DEPTH_NET, FULL_NERF and NERF_MAX through their int8 (W8A8) kernels,
+calibrated on the loaded NeRFs (COMPARE_NERF stays fp32).
 The ``-e`` grid renders n_samples [2, 32, 64, 128] x distance [0.1, 0.3,
 0.5, 1] x [uniform, gaussian] with one Trainer each, in one process: the
 kernel library builds once, the NeRF packs are made once per Trainer.
@@ -27,7 +29,7 @@ import argparse
 import os
 
 from nerf_sampling_tpu_torch.definitions import DATASET_DIR, REFERENCE_CONFIG, ROOT_DIR
-from nerf_sampling_tpu_torch.utils.config import load_trainer_config, override_config
+from nerf_sampling_tpu_torch.utils.config import INT8_HELP, load_trainer_config, override_config
 
 N_SAMPLES_GRID = (2, 32, 64, 128)
 DISTANCE_GRID = (0.1, 0.3, 0.5, 1)
@@ -55,9 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-tmp", "--temporary", action="store_true", help="Use temporary folder for experiment.")
     ap.add_argument("-ip", "--i_print", type=int, default=1000)
     ap.add_argument("--basedir", default=None, help="Override output dir.")
-    ap.add_argument("--mlp_impl", choices=["plain", "cuda", "xla", "pallas", "pallas_int8"], default="cuda",
-                    help="cuda: the hand-written kernels; plain: the fp32 PyTorch path. The JAX names "
-                         "xla and pallas map onto them.")
+    ap.add_argument("--mlp_impl", choices=["plain", "cuda", "cuda_int8", "xla", "pallas", "pallas_int8"],
+                    default="cuda",
+                    help="cuda: the hand-written kernels; plain: the fp32 PyTorch path; " + INT8_HELP
+                         + " The JAX names xla, pallas and pallas_int8 map onto them.")
     ap.add_argument("--testskip", type=int, default=None, help="Load every Nth test/val image.")
     ap.add_argument("--ft_path", default=None, help="Explicit NeRF checkpoint to load.")
     ap.add_argument("--depth_net_path", default=None, help="Explicit DepthNet checkpoint to load.")
@@ -75,8 +78,6 @@ def main(argv: list[str] | None = None):
     from nerf_sampling_tpu_torch.train.trainer import Trainer
 
     kw = vars(build_parser().parse_args(argv))
-    if kw["mlp_impl"] == "pallas_int8":
-        raise NotImplementedError("mlp_impl='pallas_int8' (the W8A8 kernels, K10) is not ported: ROADMAP S8")
     cfg = load_trainer_config(kw["config"], kw["model"])
     cfg.single_image = kw["single_image"]
     cfg.single_ray = kw["single_ray"]

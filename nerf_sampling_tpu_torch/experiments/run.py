@@ -26,7 +26,7 @@ import argparse
 import os
 
 from nerf_sampling_tpu_torch.definitions import DATASET_DIR, REFERENCE_CONFIG, ROOT_DIR
-from nerf_sampling_tpu_torch.utils.config import load_trainer_config, override_config
+from nerf_sampling_tpu_torch.utils.config import INT8_HELP, load_trainer_config, override_config
 
 # extension flags: (config field, default); None on the command line means "not typed"
 _EXTENSION_DEFAULTS = {
@@ -59,9 +59,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--basedir", default=None)
     ap.add_argument("--precision", dest="matmul_precision", choices=["highest", "high", "default"],
                     default=None)
-    ap.add_argument("--mlp_impl", choices=["plain", "cuda", "xla", "pallas", "pallas_int8"], default=None,
+    ap.add_argument("--mlp_impl", choices=["plain", "cuda", "cuda_int8", "xla", "pallas", "pallas_int8"],
+                    default=None,
                     help="plain: fp32 PyTorch; cuda: the hand-written kernels (K4/K5 NeRF queries, "
-                         "K6 oracle, K1/K3 and K7 evals). The JAX names xla and pallas map onto them.")
+                         "K6 oracle, K1/K3 and K7 evals); " + INT8_HELP + " depth_net mode only (the "
+                         "int8 K6 oracle and evals). The JAX names xla, pallas and pallas_int8 map onto them.")
     ap.add_argument("--joint_depth_warmup", type=int, default=None)
     ap.add_argument("--i_testset", type=int, default=None, help="Frequency of test-set evals.")
     ap.add_argument("--n_devices", type=int, default=None)

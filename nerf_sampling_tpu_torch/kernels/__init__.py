@@ -8,6 +8,8 @@
   and ``fused_nerf_train_apply``, the differentiable query.
 - ``fused_hier``: K6 and K7, the hierarchical pass, seeded and
   deterministic (csrc/render_hier.cu).
+- ``quant``: K10, the W8A8 int8 MLP that K2/K3/K8/K9 and K6/K7 run in
+  their int8 mode: calibration, the int8 pack and the plain int8 chain.
 
 A wrapper runs its plain PyTorch version for CPU tensors and launches its
 CUDA kernel for CUDA tensors; ``build`` compiles the sources at first use.

@@ -101,16 +101,18 @@ def load_library() -> ctypes.CDLL:
     )
     lib.nst_depth_net_forward.argtypes = [ptrs, i32, i64, i32, i32, f32, f32, i32, vp]
     lib.nst_depth_net_forward.restype = i32
-    lib.nst_render_around_depth.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, f32, i32, vp]
+    # the vp before the stream of the render entries: the int8 plan, a host
+    # int32 array (quant.quant_plan), or null for bf16 and fp32
+    lib.nst_render_around_depth.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, f32, i32, vp, vp]
     lib.nst_render_around_depth.restype = i32
-    lib.nst_render_gaussian.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, u32, i32, vp]
+    lib.nst_render_gaussian.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, u32, i32, vp, vp]
     lib.nst_render_gaussian.restype = i32
-    lib.nst_render_linspace.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, f32, i32, i32, i32, vp]
+    lib.nst_render_linspace.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, f32, i32, i32, i32, vp, vp]
     lib.nst_render_linspace.restype = i32
-    lib.nst_shade.argtypes = [ptrs, i32, i64, i32, i32, u32, i32, i32, i32, vp]
+    lib.nst_shade.argtypes = [ptrs, i32, i64, i32, i32, u32, i32, i32, i32, vp, vp]
     lib.nst_shade.restype = i32
     lib.nst_render_hier.argtypes = [ptrs, i32, i64, i32, i32, i32, u32, i32, u32, f32, f32,
-                                    i32, i32, u32, i32, i32, vp]
+                                    i32, i32, u32, i32, i32, vp, vp, vp]
     lib.nst_render_hier.restype = i32
     lib.nst_nerf_points.argtypes = [ptrs, i32, i64, i64, i32, u32, vp]
     lib.nst_nerf_points.restype = i32
@@ -132,6 +134,12 @@ def pointer_array(tensors: list[torch.Tensor | None]):
     None passes a null pointer."""
     arr = (ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr() for t in tensors])
     return arr, len(tensors)
+
+
+def host_pointer(array) -> int | None:
+    """The address of a host numpy array for a ``const`` pointer argument
+    (the caller keeps the array alive across the call), or None for null."""
+    return None if array is None else array.ctypes.data
 
 
 def current_stream(device: torch.device) -> int:

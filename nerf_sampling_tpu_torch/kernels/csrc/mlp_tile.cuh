@@ -23,6 +23,14 @@
 // rows' activations from shared memory (one address per warp: a
 // broadcast) and one float4 of the weight row per step of k from L2, and
 // sums k in order over the operands, so the result is deterministic.
+//
+// int8 (the W8A8 MLP, K10): gemm_rows_q runs an int8 x int8 product with
+// int32 accumulation on the tensor cores (IMMA: mma.sync.m16n8k32 s8 in
+// inline PTX, its fragments loaded by hand with aligned 8-byte loads; the
+// int8 weights are [N, k], k contiguous), optionally beside a bf16
+// operand's fp32 product (wmma, as above; the skip and views layers merge
+// both), and hands each element's int32 and fp32 sums to an epilogue,
+// which requantizes in the integer domain or in fp32 (nerf_mlp.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -111,6 +119,119 @@ __device__ __forceinline__ void gemm_rows(const Operand* ops, int n_ops, float* 
       for (int e = lane; e < 256; e += 32) epi(i * 16 + (e >> 4), col0 + j * 16 + (e & 15), s[e], j);
       __syncwarp();
     }
+  }
+}
+
+// An int8 operand: a [rows, k] tile in shared memory (row-major, stride lda
+// bytes, a multiple of 8) against an int8 matrix w [N, k] in device memory,
+// each output column's k weights contiguous (nn.Linear's [out, in]).
+struct QOperand {
+  const signed char* a;
+  int lda;
+  const signed char* w;
+  int k;  // a multiple of 32
+};
+
+// acc += A @ B over one k32 step on the tensor cores (IMMA,
+// mma.sync.m16n8k32 s8 x s8 -> s32): A 16x32 as four registers of four
+// int8 each, B 32x8 as two (PTX ISA, "Matrix Fragments for mma.m16n8k32").
+__device__ __forceinline__ void mma_s8(int (&acc)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Rows [row0, row0 + 16*MT) of the int8 product q (int32 sums) and, with
+// WithF, of the bf16 operand f (fp32 sums) over the same output columns:
+// epi(row, col, zi, zf) for every element, once, always from the same lane
+// (zf is 0 without WithF). scratch holds kWarps fp32 16x16 tiles (WithF).
+//
+// Lane l of a warp (g = l / 4, t = l % 4) holds, of each 16x8 output tile,
+// rows g and g + 8 at columns 2t and 2t + 1. Its A and B registers are
+// 8-byte loads of k [8t, 8t + 8) of each k32 step, the first four bytes in
+// the fragment's k [4t, 4t + 4), the last four in [16 + 4t, 16 + 4t + 4):
+// one permutation of k, the same for A and B, which leaves the integer sum
+// as it is. Every load is 8-byte aligned and no fragment pointer needs more.
+template <int MT, int NT, bool WithF, typename Epi>
+__device__ __forceinline__ void gemm_rows_q(const QOperand& q, const Operand& f, int row0, float* scratch,
+                                            Epi epi) {
+  constexpr int NB = 2 * NT;  // 8-column tiles of the warp
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = warp * NT * 16;
+
+  int acc[MT][NB][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  for (int k = 0; k < q.k; k += 32) {
+    unsigned b[NB][2];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(q.w + (size_t)(col0 + j * 8 + g) * q.k + k + 8 * t));
+      b[j][0] = v.x;
+      b[j][1] = v.y;
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const signed char* ar = q.a + (row0 + i * 16 + g) * q.lda + k + 8 * t;
+      const uint2 lo = *reinterpret_cast<const uint2*>(ar);
+      const uint2 hi = *reinterpret_cast<const uint2*>(ar + 8 * q.lda);
+      const unsigned a[4] = {lo.x, hi.x, lo.y, hi.y};
+#pragma unroll
+      for (int j = 0; j < NB; ++j) mma_s8(acc[i][j], a, b[j]);
+    }
+  }
+  if constexpr (WithF) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> accf[MT][NT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) wmma::fill_fragment(accf[i][j], 0.f);
+    for (int k = 0; k < f.k; k += 16) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[NT];
+      constexpr int N = kWarps * NT * 16;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) wmma::load_matrix_sync(b[j], f.w + (size_t)k * N + col0 + j * 16, N);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::load_matrix_sync(a, f.a + (row0 + i * 16) * f.lda + k, f.lda);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) wmma::mma_sync(accf[i][j], a, b[j], accf[i][j]);
+      }
+    }
+    float* sf = scratch + warp * kScratchPerWarp;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        wmma::store_matrix_sync(sf, accf[i][j], 16, wmma::mem_row_major);
+        __syncwarp();
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = g + 8 * (e >> 1), c = h * 8 + 2 * t + (e & 1);
+            epi(row0 + i * 16 + r, col0 + j * 16 + c, acc[i][2 * j + h][e], sf[r * 16 + c]);
+          }
+        __syncwarp();
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          epi(row0 + i * 16 + g + 8 * (e >> 1), col0 + j * 8 + 2 * t + (e & 1), acc[i][j][e], 0.f);
   }
 }
 

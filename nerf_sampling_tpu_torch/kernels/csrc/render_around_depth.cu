@@ -30,20 +30,24 @@
 // order with dists z[s+1]-z[s] and a 1e10 tail, both scaled by |d|, alpha =
 // 1-exp(-relu(sigma)*dist), the exclusive product of 1-alpha+1e-10, and a
 // white background. Element type T: bf16 (bf16 PE, weights and
-// activations, fp32 accumulation), or fp32 throughout (K8 and K9 in the
-// COMPARE mode; K2 and K3 are bf16 only).
+// activations, fp32 accumulation), fp32 throughout (K8 and K9 in the
+// COMPARE mode), or int8 for all four modes: the W8A8 MLP of
+// kernels/quant.py (K10, nerf_mlp.cuh's int8 chunk), selected by an int8
+// plan; the z sources and the compositing are the same in every type.
 //
 // What bounds it on the H100: about 1.2 MFLOP per sample, 12 TFLOP per
 // 400x400 frame at 64 samples, against 1.2 MB of bf16 weights (2.4 MB
-// fp32) that stay in L2; device-memory traffic is 40 bytes per ray (plus
-// 4(S-1) with injected noise, 4S with input z). The matrix products bound
-// it: on the tensor cores in bf16 (989 TFLOP/s), on the FMA units in fp32
-// (67 TFLOP/s). This version streams the weights from L2 per 64-row chunk
-// through wmma fragments (bf16) or float4 loads (fp32), with no TMA and no
-// wgmma: simple and right first, fast in a later change.
+// fp32, 0.6 MB int8) that stay in L2; device-memory traffic is 40 bytes
+// per ray (plus 4(S-1) with injected noise, 4S with input z). The matrix
+// products bound it: on the tensor cores in bf16 (989 TFLOP/s), in int8
+// for 557,056 of a query's 593,408 multiply-adds (1,979 TOP/s), on the FMA
+// units in fp32 (67 TFLOP/s). This version streams the weights from L2
+// per 64-row chunk through wmma fragments (bf16), mma.sync fragments
+// (int8) or float4 loads (fp32), with no TMA and no wgmma: simple and
+// right first, fast in a later change.
 //
 // Design: one block per group of R rays (R*S <= 1024 sample rows), two
-// blocks per SM in bf16 and one in fp32. Compositing walks each ray's
+// blocks per SM in bf16 and int8 and one in fp32. Compositing walks each ray's
 // samples in order, one thread per ray. None of the TPU kernel's Mosaic
 // devices (affine-in-z S matrix, rotation PE, ones-row reductions,
 // order-free compositor) is needed here.
@@ -86,7 +90,7 @@ constexpr size_t smem_bytes() {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(bf16) ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 1 : 2)
     render_around_depth_kernel(const __grid_constant__ RenderParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const TilesT<T> t = carve_tiles<T>(smem);
@@ -176,17 +180,18 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(bf16) ? 2 : 1)
 }
 
 // ptrs, in order: rays_o, rays_d, depth (may be null), z_arg (may be
-// null), out; then the NeRF's weights (nerf_mlp.cuh::read_weights).
+// null), out; then the NeRF's weights (nerf_mlp.cuh::read_pack; plan: the
+// int8 constants, null for bf16 and fp32).
 template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
-           RenderParams<T> p, void* stream) {
+           RenderParams<T> p, const int* plan, void* stream) {
   if (S < 1 || S > 512) return (int)cudaErrorInvalidValue;
   p.rays_o = static_cast<const float*>(ptrs[0]);
   p.rays_d = static_cast<const float*>(ptrs[1]);
   p.depth = static_cast<const float*>(ptrs[2]);
   p.z_arg = static_cast<const float*>(ptrs[3]);
   p.out = static_cast<float*>(const_cast<void*>(ptrs[4]));
-  const int k = read_weights(ptrs + 5, D, skip_mask, false, &p.w);
+  const int k = read_pack(ptrs + 5, D, skip_mask, false, plan, &p.w);
   if (k < 0 || n_ptrs != 5 + k) return (int)cudaErrorInvalidValue;
   p.n = n;
   p.S = S;
@@ -204,62 +209,76 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsig
 
 template <typename T>
 int launch_typed(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
-                 int source, float a, float b, int lindisp, int white_bkgd, void* stream) {
+                 int source, float a, float b, int lindisp, int white_bkgd, float std_, unsigned seed,
+                 const int* plan, void* stream) {
   RenderParams<T> p = {};
   p.source = source;
   p.near_ = a;
   p.far_ = b;
   p.lindisp = lindisp;
   p.white_bkgd = white_bkgd;
-  return launch(ptrs, n_ptrs, n, S, D, skip_mask, p, stream);
+  p.std_ = std_;
+  p.seed = seed;
+  return launch(ptrs, n_ptrs, n, S, D, skip_mask, p, plan, stream);
+}
+
+// The bf16 kernel, or the int8 one when an int8 plan is given (fp32 takes none).
+int launch_mode(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
+                int source, float a, float b, int lindisp, int white_bkgd, float std_, unsigned seed, int fp32,
+                const int* plan, void* stream) {
+  if (fp32 && plan) return (int)cudaErrorInvalidValue;
+  if (fp32)
+    return launch_typed<float>(ptrs, n_ptrs, n, S, D, skip_mask, source, a, b, lindisp, white_bkgd, std_, seed,
+                               nullptr, stream);
+  if (plan)
+    return launch_typed<int8_t>(ptrs, n_ptrs, n, S, D, skip_mask, source, a, b, lindisp, white_bkgd, std_,
+                                seed, plan, stream);
+  return launch_typed<bf16>(ptrs, n_ptrs, n, S, D, skip_mask, source, a, b, lindisp, white_bkgd, std_, seed,
+                            nullptr, stream);
 }
 
 }  // namespace
 }  // namespace nst
 
-// K2. Returns a cudaError_t (0 on success).
+// Every entry: plan is the int8 pack's constants (kernels/quant.py::
+// quant_plan, a host array read at launch) for the int8 kernel, null for
+// bf16 (and fp32). Each returns a cudaError_t (0 on success).
+
+// K2.
 extern "C" int nst_render_around_depth(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
                                        unsigned skip_mask, float near_, float far_, int white_bkgd,
-                                       void* stream) {
-  return nst::launch_typed<nst::bf16>(ptrs, n_ptrs, n, S, D, skip_mask, nst::kAroundCenter, near_, far_,
-                                      0, white_bkgd, stream);
+                                       const int* plan, void* stream) {
+  return nst::launch_mode(ptrs, n_ptrs, n, S, D, skip_mask, nst::kAroundCenter, near_, far_, 0, white_bkgd,
+                          0.f, 0u, 0, plan, stream);
 }
 
 // K3: ptrs[3] is the injected noise [n, S-1] or null (Philox draws keyed by
-// (seed, ray)). Returns a cudaError_t (0 on success).
+// (seed, ray)).
 extern "C" int nst_render_gaussian(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
                                    unsigned skip_mask, float std_, unsigned seed, int white_bkgd,
-                                   void* stream) {
+                                   const int* plan, void* stream) {
   if (S < 2) return (int)cudaErrorInvalidValue;
-  nst::RenderParams<nst::bf16> p = {};
-  p.source = nst::kGaussian;
-  p.std_ = std_;
-  p.seed = seed;
-  p.white_bkgd = white_bkgd;
-  return nst::launch(ptrs, n_ptrs, n, S, D, skip_mask, p, stream);
+  return nst::launch_mode(ptrs, n_ptrs, n, S, D, skip_mask, nst::kGaussian, 0.f, 0.f, 0, white_bkgd, std_,
+                          seed, 0, plan, stream);
 }
 
 // K8: the grid ends (a, b) are (near, far), or (1/near, 1/far) rounded to
 // fp32 with lindisp; ptrs[2] and ptrs[3] are null. fp32: weights of
-// pack_nerf(model, torch.float32). Returns a cudaError_t (0 on success).
+// pack_nerf(model, torch.float32).
 extern "C" int nst_render_linspace(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
                                    unsigned skip_mask, float a, float b, int lindisp, int white_bkgd,
-                                   int fp32, void* stream) {
+                                   int fp32, const int* plan, void* stream) {
   if (ptrs[2] || ptrs[3]) return (int)cudaErrorInvalidValue;
-  return fp32 ? nst::launch_typed<float>(ptrs, n_ptrs, n, S, D, skip_mask, nst::kLinspace, a, b, lindisp,
-                                         white_bkgd, stream)
-              : nst::launch_typed<nst::bf16>(ptrs, n_ptrs, n, S, D, skip_mask, nst::kLinspace, a, b,
-                                             lindisp, white_bkgd, stream);
+  return nst::launch_mode(ptrs, n_ptrs, n, S, D, skip_mask, nst::kLinspace, a, b, lindisp, white_bkgd, 0.f,
+                          0u, fp32, plan, stream);
 }
 
 // K9: ptrs[3] is the caller's z [n, S] (ptrs[2] null); sorted: z is taken
-// as sorted per ray, else it is sorted first. Returns a cudaError_t.
+// as sorted per ray, else it is sorted first.
 extern "C" int nst_shade(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
-                         int sorted, int white_bkgd, int fp32, void* stream) {
+                         int sorted, int white_bkgd, int fp32, const int* plan, void* stream) {
   if (ptrs[2] || !ptrs[3]) return (int)cudaErrorInvalidValue;
   const int source = sorted ? nst::kInput : nst::kInputUnsorted;
-  return fp32 ? nst::launch_typed<float>(ptrs, n_ptrs, n, S, D, skip_mask, source, 0.f, 0.f, 0, white_bkgd,
-                                         stream)
-              : nst::launch_typed<nst::bf16>(ptrs, n_ptrs, n, S, D, skip_mask, source, 0.f, 0.f, 0,
-                                             white_bkgd, stream);
+  return nst::launch_mode(ptrs, n_ptrs, n, S, D, skip_mask, source, 0.f, 0.f, 0, white_bkgd, 0.f, 0u, fp32,
+                          plan, stream);
 }

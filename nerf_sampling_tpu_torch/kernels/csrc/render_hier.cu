@@ -27,8 +27,10 @@
 // The draws t_rand (Nc) and u (Nf) of a ray are Philox uniforms keyed by
 // (seed, global ray index) (philox.cuh), or read from injected draws; det
 // mode draws nothing. Element type T: bf16 (K6, and K7 in FULL_NERF and
-// NERF_MAX), or fp32 throughout (K7 in the COMPARE mode: the fp32 MLP of
-// nerf_mlp.cuh, one block per SM).
+// NERF_MAX), fp32 throughout (K7 in the COMPARE mode: the fp32 MLP of
+// nerf_mlp.cuh, one block per SM), or int8 (K6 and K7 under cuda_int8: the
+// W8A8 MLP of kernels/quant.py, K10; the coarse pass on the coarse NeRF's
+// int8 pack and plan, the fine pass on the fine NeRF's).
 //
 // What bounds it on the H100: the two MLP passes, Nc sigma-only queries
 // (~0.98 MFLOP each) and Nc+Nf full queries (~1.19 MFLOP) a ray, on the
@@ -89,7 +91,7 @@ __device__ __forceinline__ float grid_z(const HierParams<T>& p, int s) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(bf16) ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 1 : 2)
     render_hier_kernel(const __grid_constant__ HierParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const TilesT<T> t = carve_tiles<T>(smem);
@@ -217,20 +219,21 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(bf16) ? 2 : 1)
 }
 
 // ptrs, in order: rays_o, rays_d, draws (or null), out; the coarse NeRF's
-// trunk and alpha head; the fine NeRF's weights (nerf_mlp.cuh::read_weights).
+// trunk and alpha head; the fine NeRF's weights (nerf_mlp.cuh::read_pack,
+// with the int8 plans plan_c and plan_f, null for bf16 and fp32).
 template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int Dc, unsigned skip_c,
            int Df, unsigned skip_f, float near_, float far_, int lindisp, int white_bkgd, unsigned seed,
-           int det, void* stream) {
+           int det, const int* plan_c, const int* plan_f, void* stream) {
   if (Nc < 4 || Nf < 1 || Nc + Nf > 512) return (int)cudaErrorInvalidValue;
   HierParams<T> p = {};
   p.rays_o = static_cast<const float*>(ptrs[0]);
   p.rays_d = static_cast<const float*>(ptrs[1]);
   p.draws = static_cast<const float*>(ptrs[2]);
   p.out = static_cast<float*>(const_cast<void*>(ptrs[3]));
-  const int kc = read_weights(ptrs + 4, Dc, skip_c, true, &p.wc);
+  const int kc = read_pack(ptrs + 4, Dc, skip_c, true, plan_c, &p.wc);
   if (kc < 0) return (int)cudaErrorInvalidValue;
-  const int kf = read_weights(ptrs + 4 + kc, Df, skip_f, false, &p.wf);
+  const int kf = read_pack(ptrs + 4 + kc, Df, skip_f, false, plan_f, &p.wf);
   if (kf < 0 || n_ptrs != 4 + kc + kf) return (int)cudaErrorInvalidValue;
   p.n = n;
   p.Nc = Nc;
@@ -258,15 +261,22 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int
 }  // namespace nst
 
 // det: no draws (K7). fp32: the weights of pack_hier(..., torch.float32).
-// Returns a cudaError_t (0 on success).
+// plan_c, plan_f: both int8 packs' constants (kernels/quant.py::quant_plan,
+// host arrays read at launch) for the int8 kernel, or both null. Returns a
+// cudaError_t (0 on success).
 extern "C" int nst_render_hier(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf,
                                int Dc, unsigned skip_c, int Df, unsigned skip_f, float near_,
                                float far_, int lindisp, int white_bkgd, unsigned seed, int det,
-                               int fp32, void* stream) {
-  return fp32 ? nst::launch<float>(ptrs, n_ptrs, n, Nc, Nf, Dc, skip_c, Df, skip_f, near_, far_, lindisp,
-                                   white_bkgd, seed, det, stream)
-              : nst::launch<nst::bf16>(ptrs, n_ptrs, n, Nc, Nf, Dc, skip_c, Df, skip_f, near_, far_,
-                                       lindisp, white_bkgd, seed, det, stream);
+                               int fp32, const int* plan_c, const int* plan_f, void* stream) {
+  if ((plan_c == nullptr) != (plan_f == nullptr) || (fp32 && plan_c)) return (int)cudaErrorInvalidValue;
+  if (fp32)
+    return nst::launch<float>(ptrs, n_ptrs, n, Nc, Nf, Dc, skip_c, Df, skip_f, near_, far_, lindisp, white_bkgd,
+                              seed, det, nullptr, nullptr, stream);
+  if (plan_c)
+    return nst::launch<int8_t>(ptrs, n_ptrs, n, Nc, Nf, Dc, skip_c, Df, skip_f, near_, far_, lindisp,
+                               white_bkgd, seed, det, plan_c, plan_f, stream);
+  return nst::launch<nst::bf16>(ptrs, n_ptrs, n, Nc, Nf, Dc, skip_c, Df, skip_f, near_, far_, lindisp,
+                                white_bkgd, seed, det, nullptr, nullptr, stream);
 }
 
 // Resident blocks per SM of K6 at its launch configuration (occupancy).

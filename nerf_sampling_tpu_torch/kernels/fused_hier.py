@@ -22,7 +22,11 @@ linspace; otherwise the draws come from Philox keyed by (seed, ray)
 same in plain PyTorch: fp32 is the reference, bf16 rounds where the kernel
 rounds; with draws of ``None`` it runs det mode, which the tests hold
 against the Pallas kernel. K7 also runs fp32 (the COMPARE mode's kernels,
-``pack_hier(..., torch.float32)``); K6 runs bf16 only.
+``pack_hier(..., torch.float32)``); K6 runs bf16 only. Both run int8 (W8A8,
+K10) with ``qpack_hier``'s packs: the coarse sigma-only pass on the coarse
+NeRF's int8 pack under its calib, the fine pass on the fine NeRF's under
+its own (JAX ``fused_hier.py:136-139``); the plain version then runs
+``quant.mlp_plain_q``.
 """
 
 from __future__ import annotations
@@ -31,24 +35,26 @@ import torch
 
 from nerf_sampling_tpu_torch.core.compositing import raw2outputs
 from nerf_sampling_tpu_torch.core.sampling import sample_pdf, stratified_z_vals
-from nerf_sampling_tpu_torch.kernels import build, philox
+from nerf_sampling_tpu_torch.kernels import build, philox, quant
 from nerf_sampling_tpu_torch.kernels.fused_render import (
     MAX_SAMPLES,
     _check_cuda,
     _check_rays,
     _flat_weights,
+    _plan,
     dtype_name,
     nerf_raw_plain,
     pack_nerf,
 )
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
 
-# kernel launches since the last reset (see chip_smoke.py): K6, and K7 at
-# bf16 and fp32
-launches = 0
-det_launches = det_fp32_launches = 0
+# kernel launches since the last reset (see chip_smoke.py): K6 at bf16 and
+# int8, and K7 at bf16, fp32 and int8
+launches = int8_launches = 0
+det_launches = det_fp32_launches = det_int8_launches = 0
 
 _SIGMA_KEYS = ("w0", "trunk_w", "trunk_b", "skip_w", "alpha_w", "alpha_b")
+_SIGMA_KEYS_Q = ("w0", "b0", "trunk_wq", "trunk_row", "skip_w", "skip_b", "alpha_w", "alpha_b", "calib")
 HIER_OUTPUTS = ("rgb_map", "disp_map", "acc_map", "depth_map", "max_z", "max_w", "max_rgb")
 
 
@@ -59,6 +65,19 @@ def pack_hier(coarse: NeRF, fine: NeRF | None, dtype=torch.bfloat16) -> dict:
     return {
         "coarse": {k: c[k] for k in _SIGMA_KEYS},
         "fine": pack_nerf(fine if fine is not None else coarse, dtype),
+    }
+
+
+def qpack_hier(coarse: NeRF, fine: NeRF | None, calib: tuple) -> dict:
+    """``pack_hier``'s int8 counterpart: the coarse NeRF's trunk and alpha
+    head under the coarse calib, the whole fine NeRF (the coarse one again
+    when ``fine`` is None) under the fine calib; ``calib`` is the
+    (coarse, fine) pair of ``quant.QuantCalib``s."""
+    qc, qf = calib
+    c = quant.qpack_nerf(coarse, qc)
+    return {
+        "coarse": {k: c[k] for k in _SIGMA_KEYS_Q},
+        "fine": quant.qpack_nerf(fine if fine is not None else coarse, qf),
     }
 
 
@@ -142,16 +161,20 @@ def render_hier_kernel(
 ) -> dict[str, torch.Tensor]:
     """K6 over N rays [N, 3]: draws from Philox keyed by (``seed``, ray), or
     the injected ``draws`` [N, Nc + Nf] (t_rand, then u); K7 (det mode)
-    when both are None, at ``dtype`` (``packed`` is ``pack_hier`` at it).
+    when both are None, at ``dtype`` (``packed`` is ``pack_hier`` at it), or
+    in int8 when ``packed`` is ``qpack_hier``'s (with the default dtype).
 
     On a CPU tensor this runs ``render_hier_plain`` at ``dtype`` with the
     same draws; on a CUDA tensor it launches the kernel, or raises on what
     it does not take.
     """
-    global launches, det_launches, det_fp32_launches
+    global launches, int8_launches, det_launches, det_fp32_launches, det_int8_launches
     _check_envelope(n_coarse, n_importance)
     det = seed is None and draws is None
     fp32 = dtype_name(dtype) == "fp32"
+    int8 = quant.is_int8(packed["fine"])
+    if int8 != quant.is_int8(packed["coarse"]):
+        raise TypeError("the coarse and fine packs must both be int8 (qpack_hier) or neither")
     if fp32 and not det:
         raise ValueError("the seeded hierarchical pass (K6) runs bf16 only; fp32 is K7's det mode")
     n = rays_o.shape[0]
@@ -172,6 +195,7 @@ def render_hier_kernel(
     inputs = (rays_o, rays_d) + ((draws,) if draws is not None else ())
     _check_cuda(cfg_c, multires, multires_views, inputs, w_c)
     _check_cuda(cfg_f, multires, multires_views, inputs, w_f)
+    plan_c, plan_f = _plan(packed["coarse"], cfg_c), _plan(packed["fine"], cfg_f)
     lib = build.load_library()
     out = torch.empty((11, n), dtype=torch.float32, device=rays_o.device)
     arr, count = build.pointer_array([rays_o, rays_d, draws, out] + w_c + w_f)
@@ -181,13 +205,18 @@ def render_hier_kernel(
         cfg_f.D, sum(1 << i for i in packed["fine"]["skip_w"]),
         float(near), float(far), int(bool(lindisp)), int(bool(white_bkgd)),
         0 if seed is None else int(seed) & 0xFFFFFFFF, int(det), int(fp32),
-        build.current_stream(rays_o.device),
+        build.host_pointer(plan_c), build.host_pointer(plan_f), build.current_stream(rays_o.device),
     )
     build.check(rc, "render_hier_kernel")
     if fp32:
         det_fp32_launches += 1
     elif det:
-        det_launches += 1
+        if int8:
+            det_int8_launches += 1
+        else:
+            det_launches += 1
+    elif int8:
+        int8_launches += 1
     else:
         launches += 1
     return {
@@ -231,7 +260,8 @@ def fused_render_hier(
     """The hierarchical pass of [N, 3] rays
     (nerf_sampling_tpu/kernels/fused_hier.py::fused_render_hier): seeded
     through K6, or deterministic through K7 with ``seed=None``; ``packed``
-    is ``pack_hier(coarse, fine, dtype)`` of the NeRFs as they are now."""
+    is ``pack_hier(coarse, fine, dtype)`` of the NeRFs as they are now, or
+    ``qpack_hier`` for int8."""
     return render_hier_kernel(
         packed, cfg_c, cfg_f, rays_o.contiguous(), rays_d.contiguous(), n_coarse=n_coarse,
         n_importance=n_importance, near=near, far=far, white_bkgd=white_bkgd, lindisp=lindisp,

@@ -18,7 +18,10 @@ composites the samples in order over a white background:
   sorted per ray first (stable, NaN last); the COMPARE mode's shading.
 
 K2 and K3 run bf16; K8 and K9 run bf16 or fp32 (``dtype``: the COMPARE
-mode runs fp32 kernels).
+mode runs fp32 kernels). All four also run int8 (W8A8, K10): given a
+``quant.qpack_nerf`` pack instead of a ``pack_nerf`` one, the kernel's MLP is
+the int8 tensor-core chain of ``kernels/quant.py`` (the int8 eval renders of
+``mlp_impl="cuda_int8"``), and the plain versions run ``quant.mlp_plain_q``.
 
 ``pack_nerf`` lays the NeRF's weights out as [in, out] matrices over one
 positional-encoding row of 96 columns: the 63 point-embedding columns
@@ -38,7 +41,7 @@ import torch
 
 from nerf_sampling_tpu_torch.core.compositing import raw2outputs
 from nerf_sampling_tpu_torch.core.encoding import positional_encoding
-from nerf_sampling_tpu_torch.kernels import build, philox
+from nerf_sampling_tpu_torch.kernels import build, philox, quant
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
 from nerf_sampling_tpu_torch.utils.precision import strict_fp32
 
@@ -47,11 +50,11 @@ PTS_ROWS, VIEW_ROWS = 64, 32  # padded embedding widths of the kernel's PE row
 KERNEL_WIDTH = 256  # NeRF width the CUDA kernel is built for
 
 # kernel launches since the last reset (see chip_smoke.py): K2, K3, K8 and
-# K9 at bf16 and fp32
-launches = 0
-gaussian_launches = 0
-linspace_launches = linspace_fp32_launches = 0
-shade_launches = shade_fp32_launches = 0
+# K9 at bf16, fp32 and int8
+launches = int8_launches = 0
+gaussian_launches = gaussian_int8_launches = 0
+linspace_launches = linspace_fp32_launches = linspace_int8_launches = 0
+shade_launches = shade_fp32_launches = shade_int8_launches = 0
 
 
 def uniform_population_offsets(n_samples: int, std: float) -> np.ndarray:
@@ -176,8 +179,13 @@ def nerf_raw_plain(
 ) -> torch.Tensor:
     """The kernels' NeRF MLP over the points o + z*d of [N, S] depths, in
     plain PyTorch: raw [N, S, 4] (sigmoid not applied), or sigma [N, S] with
-    ``sigma_only`` (trunk and alpha head only, as K6's coarse pass)."""
+    ``sigma_only`` (trunk and alpha head only, as K6's coarse pass). An int8
+    pack (``quant.qpack_nerf``) runs ``quant.mlp_plain_q`` on the bf16
+    embeddings, whatever ``dtype`` says."""
     Cp, Cv = cfg.input_ch, cfg.input_ch_views
+    int8 = quant.is_int8(packed)
+    if int8:
+        dtype = torch.bfloat16
 
     def rnd(x: torch.Tensor) -> torch.Tensor:
         return x.to(dtype).to(torch.float32)
@@ -189,7 +197,10 @@ def nerf_raw_plain(
     if not sigma_only:
         vd = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         x_v = rnd(positional_encoding(vd, multires_views))[:, None, :].expand(n, S, Cv).reshape(n * S, Cv)
-    out, _ = mlp_plain(packed, cfg, x_pts, x_v, dtype, sigma_only)
+    if int8:
+        out = quant.mlp_plain_q(packed, cfg, x_pts, x_v, sigma_only)
+    else:
+        out, _ = mlp_plain(packed, cfg, x_pts, x_v, dtype, sigma_only)
     return out.reshape(n, S) if sigma_only else out.reshape(n, S, 4)
 
 
@@ -258,10 +269,35 @@ def dtype_name(dtype: torch.dtype) -> str:
     return names[dtype]
 
 
+def _flat_qweights(packed: dict, sigma_only: bool = False) -> list[torch.Tensor]:
+    """An int8 pack's tensors in the order the C entry points read them
+    (nerf_mlp.cuh::read_weights_q), after checking their types."""
+    f32, bf16, i8, i32 = torch.float32, torch.bfloat16, torch.int8, torch.int32
+    calib = packed["calib"]
+    flat = [(packed["w0"], bf16), (packed["b0"], f32)] + [(w, i8) for w in packed["trunk_wq"]]
+    flat += [(r, f32 if s[0] == "skip" else i32) for r, s in zip(packed["trunk_row"], calib.steps)]
+    for i in sorted(packed["skip_w"]):
+        flat += [(packed["skip_w"][i], bf16), (packed["skip_b"][i], f32)]
+    flat += [(packed["alpha_w"], bf16), (packed["alpha_b"], f32)]
+    if not sigma_only:
+        flat = flat[:-2] + [(packed["feature_wq"], i8), (packed["feature_bz"], i32)] + flat[-2:]
+        flat += [(packed["views_wq"], i8), (packed["views_sw"], f32), (packed["views_ws"], bf16),
+                 (packed["views_b"], f32), (packed["rgb_w"], bf16), (packed["rgb_b"], f32)]
+    for w, want in flat:
+        if w.dtype != want:
+            raise TypeError(f"int8 weights must be quant.qpack_nerf(model, calib): got a {w.dtype} {want} slot")
+    return [w for w, _ in flat]
+
+
 def _flat_weights(packed: dict, sigma_only: bool = False, dtype=torch.bfloat16) -> list[torch.Tensor]:
     """Weights in the order the C entry points read them, after checking
     that they are the kernels' layout: ``dtype`` matrices and fp32 biases.
-    ``sigma_only``: the trunk and alpha head (K6's coarse net)."""
+    ``sigma_only``: the trunk and alpha head (K6's coarse net). An int8 pack
+    (``quant.qpack_nerf``) goes with the default ``dtype`` only."""
+    if quant.is_int8(packed):
+        if dtype != torch.bfloat16:
+            raise TypeError(f"an int8 pack runs with the default dtype, not {dtype}")
+        return _flat_qweights(packed, sigma_only)
     f32 = torch.float32
     flat = [(packed["w0"], dtype)] + [(w, dtype) for w in packed["trunk_w"]]
     flat += [(b, f32) for b in packed["trunk_b"]]
@@ -312,6 +348,15 @@ def _check_cuda(cfg: NeRFConfig, multires: int, multires_views: int, tensors, we
             raise ValueError("packed weights must be contiguous and on the rays' device")
 
 
+def _plan(packed: dict, cfg: NeRFConfig) -> np.ndarray | None:
+    """The int8 kernels' scalar constants of an int8 pack (``quant.quant_plan``),
+    after checking its calib against ``cfg``; None for a bf16 or fp32 pack."""
+    if not quant.is_int8(packed):
+        return None
+    quant.check_calib(packed["calib"], cfg)
+    return quant.quant_plan(packed, cfg.D)
+
+
 def render_around_depth_kernel(
     packed: dict,
     cfg: NeRFConfig,
@@ -326,12 +371,14 @@ def render_around_depth_kernel(
     multires: int = 10,
     multires_views: int = 4,
 ) -> dict[str, torch.Tensor]:
-    """K2: maps of N rays [N, 3] around depth [N] at the std-scaled offsets [S].
+    """K2: maps of N rays [N, 3] around depth [N] at the std-scaled offsets [S];
+    int8 with a ``quant.qpack_nerf`` pack.
 
-    On a CPU tensor this runs ``render_around_depth_plain`` at bf16; on a
-    CUDA tensor it launches the kernel, or raises on what it does not take.
+    On a CPU tensor this runs ``render_around_depth_plain`` at bf16 (or its
+    int8 chain); on a CUDA tensor it launches the kernel, or raises on what
+    it does not take.
     """
-    global launches
+    global launches, int8_launches
     S = offsets.shape[0]
     n = _check_rays(rays_o, rays_d, depth=(depth, (rays_o.shape[0],)), offsets=(offsets, (S,)))
     if not 1 <= S <= MAX_SAMPLES:
@@ -344,15 +391,19 @@ def render_around_depth_kernel(
                                          dtype=torch.bfloat16, **kw)
     _check_cuda(cfg, multires, multires_views, (rays_o, rays_d, depth, offsets), weights)
     skip_mask = sum(1 << i for i in packed["skip_w"])
+    plan = _plan(packed, cfg)
     lib = build.load_library()
     out = torch.empty((6, n), dtype=torch.float32, device=rays_o.device)
     arr, count = build.pointer_array([rays_o, rays_d, depth, offsets, out] + weights)
     rc = lib.nst_render_around_depth(
         arr, count, n, S, cfg.D, skip_mask, float(near), float(far), int(bool(white_bkgd)),
-        build.current_stream(rays_o.device),
+        build.host_pointer(plan), build.current_stream(rays_o.device),
     )
     build.check(rc, "render_around_depth_kernel")
-    launches += 1
+    if plan is not None:
+        int8_launches += 1
+    else:
+        launches += 1
     return {"rgb_map": out[0:3].T, "disp_map": out[3], "acc_map": out[4], "depth_map": out[5]}
 
 
@@ -372,7 +423,8 @@ def fused_render_around_depth(
     multires_views: int = 4,
 ) -> dict[str, torch.Tensor]:
     """Uniform populate-and-shade of [N, 3] rays around depth [N] through K2;
-    ``packed`` is ``pack_nerf(model, torch.bfloat16)``, made once per set of weights."""
+    ``packed`` is ``pack_nerf(model, torch.bfloat16)`` (or ``quant.qpack_nerf``
+    for int8), made once per set of weights."""
     offsets = torch.from_numpy(uniform_population_offsets(n_samples, std)).to(rays_o.device)
     return render_around_depth_kernel(
         packed, cfg, rays_o, rays_d, depth.reshape(-1), offsets,
@@ -396,7 +448,8 @@ def render_gaussian_kernel(
     multires: int = 10,
     multires_views: int = 4,
 ) -> dict[str, torch.Tensor]:
-    """K3: maps of N rays [N, 3] over the gaussian population around depth [N].
+    """K3: maps of N rays [N, 3] over the gaussian population around depth [N];
+    int8 with a ``quant.qpack_nerf`` pack.
 
     The kernel draws its noise from Philox keyed by (``seed``, ray index);
     ``noise`` [N, S-1] replaces the draws (the kernel check on the card).
@@ -404,7 +457,7 @@ def render_gaussian_kernel(
     same draws (``philox.gaussian_noise``) unless ``noise`` is given; on a
     CUDA tensor it launches the kernel, or raises on what it does not take.
     """
-    global gaussian_launches
+    global gaussian_launches, gaussian_int8_launches
     S = n_samples
     n = rays_o.shape[0]
     per_ray = {"depth": (depth, (n,))}
@@ -423,15 +476,19 @@ def render_gaussian_kernel(
     inputs = (rays_o, rays_d, depth) + ((noise,) if noise is not None else ())
     _check_cuda(cfg, multires, multires_views, inputs, weights)
     skip_mask = sum(1 << i for i in packed["skip_w"])
+    plan = _plan(packed, cfg)
     lib = build.load_library()
     out = torch.empty((6, n), dtype=torch.float32, device=rays_o.device)
     arr, count = build.pointer_array([rays_o, rays_d, depth, noise, out] + weights)
     rc = lib.nst_render_gaussian(
         arr, count, n, S, cfg.D, skip_mask, float(std), int(seed) & 0xFFFFFFFF,
-        int(bool(white_bkgd)), build.current_stream(rays_o.device),
+        int(bool(white_bkgd)), build.host_pointer(plan), build.current_stream(rays_o.device),
     )
     build.check(rc, "render_gaussian_kernel")
-    gaussian_launches += 1
+    if plan is not None:
+        gaussian_int8_launches += 1
+    else:
+        gaussian_launches += 1
     return {"rgb_map": out[0:3].T, "disp_map": out[3], "acc_map": out[4], "depth_map": out[5]}
 
 
@@ -520,13 +577,15 @@ def _launch(entry: str, packed: dict, cfg: NeRFConfig, rays_o: torch.Tensor, ray
             z: torch.Tensor | None, weights: list[torch.Tensor], S: int, *args) -> dict[str, torch.Tensor]:
     """One launch of K8 (``nst_render_linspace``) or K9 (``nst_shade``):
     pointers rays_o, rays_d, no depth, z (or none), out and the weights;
-    then n, S, D, the skip mask, ``args`` and the stream."""
+    then n, S, D, the skip mask, ``args``, the int8 plan (or null) and the
+    stream."""
     n = rays_o.shape[0]
+    plan = _plan(packed, cfg)
     out = torch.empty((6, n), dtype=torch.float32, device=rays_o.device)
     arr, count = build.pointer_array([rays_o, rays_d, None, z, out] + weights)
     rc = getattr(build.load_library(), entry)(
         arr, count, n, S, cfg.D, sum(1 << i for i in packed["skip_w"]), *args,
-        build.current_stream(rays_o.device),
+        build.host_pointer(plan), build.current_stream(rays_o.device),
     )
     build.check(rc, entry)
     return {"rgb_map": out[0:3].T, "disp_map": out[3], "acc_map": out[4], "depth_map": out[5]}
@@ -549,14 +608,15 @@ def fused_render(
 ) -> dict[str, torch.Tensor]:
     """K8: the deterministic-eval render of N rays [N, 3] at ``n_samples``
     grid samples (nerf_sampling_tpu/kernels/fused_render.py::fused_render);
-    ``packed`` is ``pack_nerf(model, dtype)``. It takes 2..512 samples: at
+    ``packed`` is ``pack_nerf(model, dtype)``, or ``quant.qpack_nerf`` for
+    int8 (with the default dtype). It takes 2..512 samples: at
     one sample the TPU kernel composites a 1e10 interval where
     ``raw2outputs`` keeps the reference's empty one.
 
     On a CPU tensor this runs ``render_linspace_plain`` at ``dtype``; on a
     CUDA tensor it launches the kernel, or raises on what it does not take.
     """
-    global linspace_launches, linspace_fp32_launches
+    global linspace_launches, linspace_fp32_launches, linspace_int8_launches
     n = _check_rays(rays_o, rays_d)
     if not 2 <= n_samples <= MAX_SAMPLES:  # at 1, raw2outputs' reference quirk (no interval) differs
         raise ValueError(f"n_samples must be in [2, {MAX_SAMPLES}], got {n_samples}")
@@ -572,6 +632,8 @@ def fused_render(
                    float(a), float(b), int(bool(lindisp)), int(bool(white_bkgd)), int(fp32))
     if fp32:
         linspace_fp32_launches += 1
+    elif quant.is_int8(packed):
+        linspace_int8_launches += 1
     else:
         linspace_launches += 1
     return maps
@@ -594,12 +656,13 @@ def fused_shade(
     (nerf_sampling_tpu/kernels/fused_render.py::fused_shade); unless
     ``assume_sorted`` each ray's z is sorted first (the stable sort by
     (z, index) that the TPU kernel's order-free compositor reproduces).
-    ``packed`` is ``pack_nerf(model, dtype)``.
+    ``packed`` is ``pack_nerf(model, dtype)``, or ``quant.qpack_nerf`` for
+    int8 (with the default dtype).
 
     On a CPU tensor this runs ``shade_plain`` at ``dtype``; on a CUDA tensor
     it launches the kernel, or raises on what it does not take.
     """
-    global shade_launches, shade_fp32_launches
+    global shade_launches, shade_fp32_launches, shade_int8_launches
     n = rays_o.shape[0]
     S = z_vals.shape[-1] if z_vals.dim() == 2 else 0
     _check_rays(rays_o, rays_d, z_vals=(z_vals, (n, S)))
@@ -615,6 +678,8 @@ def fused_shade(
                    int(bool(white_bkgd)), int(fp32))
     if fp32:
         shade_fp32_launches += 1
+    elif quant.is_int8(packed):
+        shade_int8_launches += 1
     else:
         shade_launches += 1
     return maps

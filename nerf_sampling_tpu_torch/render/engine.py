@@ -18,22 +18,30 @@ Two implementations of each eval render, chosen by ``Pipeline.mlp_impl``:
   plain versions at the kernels' dtype. Outside the kernels' envelope the
   JAX package drops to its composable path; the port raises ValueError
   naming the envelope.
+- ``"cuda_int8"``: the same kernels with the W8A8 int8 MLP (K10) in the
+  NeRF passes of DEPTH_NET (K1 bf16, then K2/K3 int8), FULL_NERF (K7
+  int8, or K8 int8 on the coarse NeRF) and NERF_MAX (K7 int8), under the
+  per-checkpoint calibration in ``Pipeline.quant_calib``
+  (``render/quantize.py``). COMPARE_NERF stays exactly the fp32 path of
+  "cuda", and the train queries stay on K4/K5 in bf16 (JAX
+  ``render/engine.py:209-232, 662-667``).
 
 The train renderers (``sample_as_in_nerf``, ``render_rays_train``,
 ``render_rays_vanilla``, ``render_rays_joint``) are autograd PyTorch; under
 ``"cuda"`` every NeRF query of the hierarchical pass goes through K4 with
 K5 as its backward (``query_nerf``), and the depth-point query stays plain
 fp32 (its gradient w.r.t. the points trains the DepthNet). The depth-net
-step puts its frozen-NeRF pass on K6 (``train/steps.py``). The JAX names
-map onto these ("xla" -> "plain", "pallas" -> "cuda"); "pallas_int8" is not
-ported. Nothing falls back quietly to the plain path.
+step puts its frozen-NeRF pass on K6 (``train/steps.py``), int8 under
+"cuda_int8". The JAX names map onto these ("xla" -> "plain", "pallas" ->
+"cuda", "pallas_int8" -> "cuda_int8"). Nothing falls back quietly to the
+plain path or to bf16.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -46,13 +54,14 @@ from nerf_sampling_tpu_torch.core.sampling import (
     stratified_z_vals,
     z_to_points,
 )
-from nerf_sampling_tpu_torch.kernels import fused_depth_net, fused_hier, fused_nerf_vjp, fused_render
+from nerf_sampling_tpu_torch.kernels import fused_depth_net, fused_hier, fused_nerf_vjp, fused_render, quant
 from nerf_sampling_tpu_torch.models.depth_net import DepthNet, DepthNetConfig
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
 from nerf_sampling_tpu_torch.utils.precision import strict_fp32
 
-PLAIN, CUDA = "plain", "cuda"
-_JAX_IMPL_NAMES = {"xla": PLAIN, "pallas": CUDA}
+PLAIN, CUDA, CUDA_INT8 = "plain", "cuda", "cuda_int8"
+KERNEL_IMPLS = (CUDA, CUDA_INT8)  # the impls that run the hand-written kernels
+_JAX_IMPL_NAMES = {"xla": PLAIN, "pallas": CUDA, "pallas_int8": CUDA_INT8}
 
 
 class EvalMode(enum.Enum):
@@ -66,9 +75,12 @@ class EvalMode(enum.Enum):
 
 class KernelWeights(NamedTuple):
     """The weight layouts that the kernels read (``pack_kernel_weights``):
-    bf16, and the COMPARE mode's fp32 packs in ``fp32``."""
+    bf16, or int8 NeRF packs under "cuda_int8" (``quant.qpack_nerf`` and
+    ``fused_hier.qpack_hier``; each pack says which it is, and the kernel
+    wrappers run the int8 kernels on int8 packs), and the COMPARE mode's
+    fp32 packs in ``fp32``."""
 
-    depth: dict | None  # fused_depth_net.pack_depth_net of the DepthNet (K1)
+    depth: dict | None  # fused_depth_net.pack_depth_net of the DepthNet (K1, bf16 under cuda_int8 too)
     nerf: dict  # fused_render.pack_nerf of the NeRF that renders: fine, else coarse (K2, K3, K9)
     hier: dict | None = None  # fused_hier.pack_hier of coarse and fine (K6, K7)
     coarse: dict | None = None  # fused_render.pack_nerf of the coarse NeRF (K8)
@@ -88,18 +100,27 @@ class NeRFParams(NamedTuple):
     kernels: KernelWeights | None = None
 
 
-def _packs(params: NeRFParams, dtype: torch.dtype, with_hier: bool) -> KernelWeights:
+def _packs(params: NeRFParams, dtype: torch.dtype, with_hier: bool, with_coarse: bool = False,
+           quant_pair: tuple[quant.QuantCalib, quant.QuantCalib] | None = None) -> KernelWeights:
     model = params.fine if params.fine is not None else params.coarse
     depth = params.depth
+    if quant_pair is not None:
+        qc, qf = quant_pair
+        nerf, coarse = quant.qpack_nerf(model, qf), quant.qpack_nerf(params.coarse, qc) if with_coarse else None
+        hier = fused_hier.qpack_hier(params.coarse, params.fine, quant_pair) if with_hier else None
+    else:
+        nerf = fused_render.pack_nerf(model, dtype)
+        coarse = fused_render.pack_nerf(params.coarse, dtype) if with_coarse else None
+        hier = fused_hier.pack_hier(params.coarse, params.fine, dtype) if with_hier else None
     return KernelWeights(
         depth=fused_depth_net.pack_depth_net(depth, dtype) if depth is not None else None,
-        nerf=fused_render.pack_nerf(model, dtype),
-        hier=fused_hier.pack_hier(params.coarse, params.fine, dtype) if with_hier else None,
+        nerf=nerf, hier=hier, coarse=coarse,
     )
 
 
 def pack_kernel_weights(params: NeRFParams, with_hier: bool = False, with_coarse: bool = False,
-                        with_fp32: bool = False) -> NeRFParams:
+                        with_fp32: bool = False,
+                        quant_pair: tuple[quant.QuantCalib, quant.QuantCalib] | None = None) -> NeRFParams:
     """``params`` with the kernels' packed weights: bf16 copies of the
     modules' weights as they are at this call.
 
@@ -110,21 +131,41 @@ def pack_kernel_weights(params: NeRFParams, with_hier: bool = False, with_coarse
     packs are made once. ``with_hier`` adds the pack of K6 and K7,
     ``with_coarse`` the coarse NeRF's for K8 and ``with_fp32`` the fp32
     packs of COMPARE_NERF (``eval_packs`` names what an eval mode reads).
+    ``quant_pair``, the (coarse, fine) QuantCalibs, makes the NeRFs' packs
+    int8 under them (the DepthNet's stays bf16).
     """
-    return params._replace(kernels=_packs(params, torch.bfloat16, with_hier)._replace(
-        coarse=fused_render.pack_nerf(params.coarse, torch.bfloat16) if with_coarse else None,
-        fp32=_packs(params, torch.float32, True) if with_fp32 else None,
-    ))
+    return params._replace(kernels=_packs(params, torch.bfloat16, with_hier, with_coarse, quant_pair)._replace(
+        fp32=_packs(params, torch.float32, True) if with_fp32 else None))
 
 
-def eval_packs(pipeline: Pipeline, mode: EvalMode) -> dict[str, bool]:
-    """The ``pack_kernel_weights`` flags of what the kernel path of ``mode`` reads."""
+def quant_pair(pipeline: Pipeline, params: NeRFParams) -> tuple[quant.QuantCalib, quant.QuantCalib] | None:
+    """The (coarse, fine) QuantCalibs of a "cuda_int8" pipeline, else None
+    (JAX ``_quant_pair``); without a fine NeRF the fine slot reuses the
+    coarse calib."""
+    if pipeline.mlp_impl != CUDA_INT8:
+        return None
+    if pipeline.quant_calib is None:
+        raise ValueError(
+            "mlp_impl='cuda_int8' needs pipeline.quant_calib: calibrate the checkpoint first "
+            "(render.quantize.calibrate_pipeline)"
+        )
+    qc, qf = pipeline.quant_calib
+    return (qc, qc) if params.fine is None else (qc, qf)
+
+
+def eval_packs(pipeline: Pipeline, mode: EvalMode, params: NeRFParams | None = None) -> dict[str, Any]:
+    """The ``pack_kernel_weights`` arguments of what the kernel path of
+    ``mode`` reads; under "cuda_int8" (COMPARE_NERF aside) also the
+    ``quant_pair`` of ``params``."""
     hier = pipeline.N_importance > 0
-    return {
+    packs: dict[str, Any] = {
         "with_hier": mode in (EvalMode.FULL_NERF, EvalMode.NERF_MAX) and hier,
         "with_coarse": mode == EvalMode.FULL_NERF and not hier,
         "with_fp32": mode == EvalMode.COMPARE_NERF,
     }
+    if pipeline.mlp_impl == CUDA_INT8 and mode != EvalMode.COMPARE_NERF and params is not None:
+        packs["quant_pair"] = quant_pair(pipeline, params)
+    return packs
 
 
 def repack_depth(params: NeRFParams) -> NeRFParams:
@@ -151,8 +192,8 @@ class Pipeline:
     """Static rendering configuration (field names as in the JAX Pipeline).
 
     The fields that the ported eval renders and train steps read; the JAX
-    Pipeline's NDC geometry (H, W, focal) and quant_calib come with the
-    slices that read them (S6, S8).
+    Pipeline's NDC geometry (H, W, focal) comes with the slice that reads
+    it (S6).
     """
 
     nerf: NeRFConfig
@@ -180,18 +221,18 @@ class Pipeline:
     # joint training: the DepthNet and its loss terms stay out of the step
     # for the NeRF's first joint_depth_warmup steps (0: off)
     joint_depth_warmup: int = 0
-    # "plain" (fp32 PyTorch) or "cuda" (the hand-written kernels)
+    # "plain" (fp32 PyTorch), "cuda" (the hand-written kernels) or
+    # "cuda_int8" (their W8A8 int8 MLP in the eval renders and the oracle)
     mlp_impl: str = PLAIN
     netchunk: int = 1024 * 64
+    # "cuda_int8": the (coarse, fine) kernels.quant.QuantCalibs
+    # (render.quantize.calibrate_pipeline); tied to the calibrated checkpoint
+    quant_calib: tuple[quant.QuantCalib, quant.QuantCalib] | None = None
 
     def __post_init__(self):
         impl = _JAX_IMPL_NAMES.get(self.mlp_impl, self.mlp_impl)
-        if impl == "pallas_int8":
-            raise NotImplementedError(
-                "mlp_impl='pallas_int8' (the W8A8 kernels, K10) is not ported: ROADMAP S8"
-            )
-        if impl not in (PLAIN, CUDA):
-            raise ValueError(f"mlp_impl must be '{PLAIN}' or '{CUDA}', got {self.mlp_impl!r}")
+        if impl not in (PLAIN,) + KERNEL_IMPLS:
+            raise ValueError(f"mlp_impl must be '{PLAIN}', '{CUDA}' or '{CUDA_INT8}', got {self.mlp_impl!r}")
         object.__setattr__(self, "mlp_impl", impl)
 
     def embed_pts(self, pts: torch.Tensor) -> torch.Tensor:
@@ -215,7 +256,7 @@ def make_ray_batch(pipeline: Pipeline, rays_o: torch.Tensor, rays_d: torch.Tenso
 
 
 def check_kernel_queries(p: Pipeline) -> None:
-    """What K4/K5 (and K6/K7) take of a "cuda" pipeline; raises, naming
+    """What K4/K5 (and K6/K7) take of a "cuda" or "cuda_int8" pipeline; raises, naming
     what is missing (the JAX package drops to XLA outside its kernels'
     envelope; the port does not fall back)."""
     if p.ndc:
@@ -254,12 +295,13 @@ def query_nerf(
     """Raw [N, S, 4] of the NeRF at [N, S, 3] points with per-ray unit
     viewdirs [N, 3] (reference run_network).
 
-    ``"plain"``: the module in fp32 autograd. ``"cuda"``: K4, with K5 as its
-    backward (``fused_nerf_train_apply``), over all points at once;
+    ``"plain"``: the module in fp32 autograd. ``"cuda"`` and ``"cuda_int8"``
+    (train queries stay bf16): K4, with K5 as its backward
+    (``fused_nerf_train_apply``), over all points at once;
     ``input_grads=False`` drops dL/d(points, viewdirs) from K5 and is right
     only when the loss does not differentiate through them.
     """
-    if pipeline.mlp_impl != CUDA:
+    if pipeline.mlp_impl not in KERNEL_IMPLS:
         return _query_plain(pipeline, model, pts, viewdirs)
     check_kernel_queries(pipeline)
     if viewdirs is None:
@@ -514,18 +556,20 @@ def _fused_fast_paths(
     them (nerf_sampling_tpu/render/engine.py:607-814); flat [N, ...]
     map-level outputs. The gaussian population (K3's seed, COMPARE's
     draws) comes from ``generator``. Packs the ``mode`` reads that
-    ``params`` lacks are made for this call."""
+    ``params`` lacks are made for this call. Under "cuda_int8" the NeRF
+    passes of every mode but COMPARE_NERF run the int8 kernels."""
     p = pipeline
     check_eval_envelope(p, mode)
+    int8 = p.mlp_impl == CUDA_INT8 and mode != EvalMode.COMPARE_NERF
     population = mode in (EvalMode.DEPTH_NET, EvalMode.COMPARE_NERF)
     if population and p.sampling_mode == "gaussian" and generator is None:
         raise ValueError("the gaussian population requires a torch.Generator")
     ro, rd = rays_o.reshape(-1, 3).contiguous(), rays_d.reshape(-1, 3).contiguous()
     n = ro.shape[0]
-    need = eval_packs(p, mode)
+    need = eval_packs(p, mode, params)
     k = params.kernels
     if k is None or (need["with_hier"] and k.hier is None) or (need["with_coarse"] and k.coarse is None) \
-            or (need["with_fp32"] and k.fp32 is None):
+            or (need["with_fp32"] and k.fp32 is None) or (not need["with_fp32"] and quant.is_int8(k.nerf) != int8):
         params = pack_kernel_weights(params, **need)
     model = params.fine if params.fine is not None else params.coarse
     common = dict(white_bkgd=p.white_bkgd, multires=p.multires, multires_views=p.multires_views)
@@ -560,7 +604,7 @@ def _fused_fast_paths(
                     "depth_net_z_vals": max_z}
     elif mode == EvalMode.FULL_NERF:
         return map_outputs(fused_render.fused_render(
-            params.kernels.coarse, params.coarse.cfg, ro, rd, n_samples=p.N_samples, near=p.near,
+            packs.coarse, params.coarse.cfg, ro, rd, n_samples=p.N_samples, near=p.near,
             far=p.far, lindisp=p.lindisp, **common))
 
     # DEPTH_NET populate-and-shade, and the depth-net half of COMPARE
@@ -595,7 +639,7 @@ def render_flat_rays(
 ) -> dict[str, torch.Tensor]:
     """Render flat [N, 3] rays -> dict of flat [N, ...] maps.
 
-    ``mlp_impl="cuda"`` takes the kernels over all rays at once, with
+    ``mlp_impl="cuda"`` (and "cuda_int8") takes the kernels over all rays at once, with
     map-level outputs; ``"plain"`` renders ``chunk`` rays at a time, with
     per-sample ones. ``full_outputs`` is the caller's request for the
     per-sample points and weights (the scene-data export): it renders on
@@ -604,7 +648,7 @@ def render_flat_rays(
     """
     if full_outputs:
         pipeline = dataclasses.replace(pipeline, mlp_impl=PLAIN)
-    if pipeline.mlp_impl == CUDA:
+    if pipeline.mlp_impl in KERNEL_IMPLS:
         return _fused_fast_paths(pipeline, params, rays_o, rays_d, mode, generator)
     strict_fp32()
     rays = make_ray_batch(pipeline, rays_o, rays_d)

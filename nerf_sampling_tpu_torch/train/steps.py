@@ -10,7 +10,9 @@
   Under ``"cuda"`` the frozen-NeRF target pass (about 98% of the step's
   FLOPs) is K6, ``fused_render_hier`` with the step's seed, under no_grad;
   then the DepthNet and the single depth-point fine-NeRF query in plain
-  autograd (the JAX step's oracle branch with ``force_xla=True``).
+  autograd (the JAX step's oracle branch with ``force_xla=True``). Under
+  ``"cuda_int8"`` that pass is K6 in int8 (W8A8), on the frozen NeRFs'
+  int8 packs (JAX ``steps.py:127-159``).
 - ``make_nerf_train_step`` (:234-281): coarse and fine NeRFs trained
   together on img2mse(fine) + img2mse(coarse) (the reference's NeRF
   optimizer is created and decayed but never stepped, SURVEY.md defect #4).
@@ -39,10 +41,11 @@ from torch.profiler import record_function
 from nerf_sampling_tpu_torch.core.compositing import raw2outputs
 from nerf_sampling_tpu_torch.core.metrics import img2mse, mse2psnr
 from nerf_sampling_tpu_torch.core.sampling import z_to_points
-from nerf_sampling_tpu_torch.kernels import fused_hier
+from nerf_sampling_tpu_torch.kernels import fused_hier, quant
 from nerf_sampling_tpu_torch.models.depth_net import DepthNet
 from nerf_sampling_tpu_torch.render.engine import (
-    CUDA,
+    CUDA_INT8,
+    KERNEL_IMPLS,
     NeRFParams,
     Pipeline,
     RayBatch,
@@ -65,13 +68,14 @@ class StepDraws(NamedTuple):
 
 
 def check_hier_oracle(p: Pipeline) -> bool:
-    """True when the step's target pass runs on K6 (``mlp_impl="cuda"``).
+    """True when the step's target pass runs on K6 (``mlp_impl="cuda"``, or
+    in int8 under "cuda_int8").
 
     The JAX step checks the same envelope (``_can_use_hier_oracle``) and
     drops to its XLA path outside it; here a "cuda" config outside it
     raises, naming what is missing.
     """
-    if p.mlp_impl != CUDA:
+    if p.mlp_impl not in KERNEL_IMPLS:
         return False
     check_kernel_queries(p)
     if p.raw_noise_std != 0.0:
@@ -120,8 +124,9 @@ def depth_net_loss(
     strict_fp32()
     if check_hier_oracle(p):
         hier = frozen.kernels.hier if frozen.kernels is not None else None
-        if hier is None:
-            raise ValueError("the K6 branch needs frozen.kernels.hier (pack_kernel_weights(with_hier=True))")
+        if hier is None or quant.is_int8(hier["fine"]) != (p.mlp_impl == CUDA_INT8):
+            raise ValueError(f"the K6 branch of mlp_impl={p.mlp_impl!r} needs the frozen NeRFs' hier packs "
+                             "(pack_kernel_weights(with_hier=True), with the quant_pair under cuda_int8)")
         fine = frozen.fine if frozen.fine is not None else frozen.coarse
         with torch.no_grad(), record_function("oracle_k6"):
             hm = fused_hier.fused_render_hier(
@@ -215,7 +220,7 @@ def make_nerf_train_step(pipeline: Pipeline) -> Callable:
     ``loss``, ``img_loss``, ``psnr``, ``psnr0``).
     """
     p = pipeline
-    if p.mlp_impl == CUDA:
+    if p.mlp_impl in KERNEL_IMPLS:
         check_kernel_queries(p)
 
     def step(state: TrainState, batch, seed: int, draws: StepDraws | None = None):
@@ -256,7 +261,7 @@ def make_joint_train_step(pipeline: Pipeline) -> Callable:
     ``psnr``, the fg/bg depth diagnostics and, with a warmup, ``depth_live``).
     """
     p = pipeline
-    if p.mlp_impl == CUDA:
+    if p.mlp_impl in KERNEL_IMPLS:
         check_kernel_queries(p)
 
     def step(nerf_state: TrainState, depth_state: TrainState, batch, seed: int,

@@ -29,7 +29,12 @@ draws at the same step. With ``mlp_impl="cuda"`` every kernel pack an eval
 reads is made anew before the eval, fp32 ones included (the DepthNet's in
 depth-net mode, where the NeRF is frozen and its packs are made once; all
 of them in nerf and joint mode); the nerf and joint steps pack the live
-NeRF weights for K4/K5 on every query.
+NeRF weights for K4/K5 on every query. ``mlp_impl="cuda_int8"`` (the JAX
+"pallas_int8") calibrates the restored NeRFs once on the scene's first
+train view (``render/quantize.py``) and packs them in int8 (the
+DepthNet's pack stays bf16): the depth-net step's K6 oracle and the evals
+then run the int8 kernels. It needs a frozen NeRF: nerf and joint training raise, as the JAX
+Trainer does, unless they only render (``render_only``).
 
 Options this slice does not port raise NotImplementedError naming their
 ROADMAP item; nothing falls back quietly.
@@ -47,14 +52,17 @@ from nerf_sampling_tpu_torch.core.metrics import to8b
 from nerf_sampling_tpu_torch.data.types import SceneData
 from nerf_sampling_tpu_torch.models import DepthNet, NeRF
 from nerf_sampling_tpu_torch.render.engine import (
-    CUDA,
+    CUDA_INT8,
+    KERNEL_IMPLS,
     EvalMode,
     NeRFParams,
     eval_packs,
     pack_kernel_weights,
+    quant_pair,
     repack_depth,
 )
 from nerf_sampling_tpu_torch.render.path import render_path
+from nerf_sampling_tpu_torch.render.quantize import calibrate_pipeline
 from nerf_sampling_tpu_torch.train import checkpoint as ckpt_lib
 from nerf_sampling_tpu_torch.train.sampler import RaySampler, SamplerConfig
 from nerf_sampling_tpu_torch.train.state import TrainState, init_nerf_state, init_state, nerf_modules
@@ -108,6 +116,15 @@ class Trainer:
         unported = _unported(cfg)
         if unported:
             raise NotImplementedError("not ported: " + "; ".join(unported))
+        if cfg.mlp_impl in (CUDA_INT8, "pallas_int8") and cfg.train_mode in ("nerf", "joint") \
+                and not cfg.render_only:
+            # the calibration is made once, on the restored NeRF: modes that then
+            # update it would eval (and pick keep_best) through stale scales
+            raise ValueError(
+                f"mlp_impl={cfg.mlp_impl!r} requires a frozen NeRF (its activation calibration is "
+                f"per-checkpoint); train_mode={cfg.train_mode!r} updates the NeRF. Use mlp_impl='cuda' "
+                "for nerf/joint training; int8 is for depth_net training and render-only evaluation."
+            )
         self.cfg = cfg
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -214,8 +231,12 @@ class Trainer:
                 fine.eval()
         params = NeRFParams(coarse.to(dev), fine.to(dev) if fine is not None else None,
                             depth.to(dev) if depth is not None else None)
-        if p.mlp_impl == CUDA and cfg.train_mode == "depth_net":  # the frozen NeRF's packs, once
-            params = pack_kernel_weights(params, **{**eval_packs(p, self._eval_mode()), "with_hier": True})
+        # int8: the static calibration of the NeRFs restored here (a no-op otherwise)
+        p = self.pipeline = calibrate_pipeline(p, params, self.scene)
+        if p.mlp_impl in KERNEL_IMPLS and cfg.train_mode == "depth_net":  # the frozen NeRF's packs, once
+            # the oracle (K6) reads the hier packs, int8 ones under cuda_int8 whatever the eval mode
+            params = pack_kernel_weights(params, **{**eval_packs(p, self._eval_mode(), params), "with_hier": True,
+                                                    "quant_pair": quant_pair(p, params)})
         self.params = params
 
     def _restored_opt(self, key: str) -> dict | None:
@@ -307,12 +328,12 @@ class Trainer:
         copied): the DepthNet's packs in depth-net mode, where the frozen
         NeRF's were made at setup; all of them in nerf and joint mode."""
         params = self.params
-        if self.pipeline.mlp_impl == CUDA:
+        if self.pipeline.mlp_impl in KERNEL_IMPLS:
             if self.cfg.train_mode == "depth_net":
                 params = repack_depth(params)
             else:
                 params = pack_kernel_weights(params._replace(kernels=None),
-                                             **eval_packs(self.pipeline, self._eval_mode()))
+                                             **eval_packs(self.pipeline, self._eval_mode(), params))
         self.eval_params = params
         return params
 

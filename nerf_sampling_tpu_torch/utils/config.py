@@ -125,7 +125,8 @@ class TrainerConfig:
     use_nerf_max_pts: bool = False
     use_full_nerf: bool = False
 
-    # "plain" (fp32 PyTorch) | "cuda" (hand-written kernels); JAX names map
+    # "plain" (fp32 PyTorch) | "cuda" (hand-written kernels) | "cuda_int8"
+    # (their W8A8 int8 MLP for a frozen NeRF); the JAX names map onto them
     mlp_impl: str = "plain"
     steps_per_dispatch: int = 0
     matmul_precision: str = "highest"  # accepted for compatibility; the plain path is fp32
@@ -192,6 +193,15 @@ class TrainerConfig:
             mlp_impl=self.mlp_impl,
             netchunk=self.netchunk,
         )
+
+
+# the CLIs' --mlp_impl help for the int8 mode (the JAX CLIs' warning)
+INT8_HELP = (
+    "cuda_int8 (the JAX pallas_int8): the W8A8 int8 kernels, auto-calibrated on the loaded checkpoint; "
+    "NOT recommended for final renders: the JAX package measured trained fields losing about 8.8 dB "
+    "under int8 activations (RESULTS.md); it is quality-safe as the frozen-NeRF oracle of depth-net "
+    "training."
+)
 
 
 def override_config(config: dict, update: dict) -> None:

@@ -537,8 +537,12 @@ def test_render_cli_modes(tmp_path):
         assert (", MSE: " in lines[0]) == (flag == ["-nc"])
         assert {"000.png", "001.png", "video.gif"} <= set(os.listdir(d))
     assert (k1.launches, k1.fp32_launches, k89.launches, k89.shade_fp32_launches, k7.det_launches) == counts
-    with pytest.raises(NotImplementedError, match="S8"):
-        render_cli.main(base + ["--mlp_impl", "pallas_int8"])
+    # the int8 mode (K10): calibrated on the loaded NeRFs, the int8 kernels' plain versions on CPU
+    tr = render_cli.main(base + ["--mlp_impl", "pallas_int8"])
+    assert tr.pipeline.mlp_impl == "cuda_int8" and len(tr.pipeline.quant_calib) == 2
+    assert tr.eval_params.kernels.nerf["trunk_wq"][0].dtype == torch.int8
+    lines = open(os.path.join(tr.expdir, "renderonly_test_000000", "psnr.txt")).read().splitlines()
+    assert lines[0].startswith("000.png, PSNR: ") and lines[2] == "Avg of 2 images:"
 
 
 def test_render_cli_experiment_grid(tmp_path):

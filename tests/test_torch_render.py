@@ -157,8 +157,9 @@ def test_mlp_impl_names():
     jpipe, tpipe = small_configs()
     assert dataclasses.replace(tpipe, mlp_impl="xla").mlp_impl == "plain"
     assert dataclasses.replace(tpipe, mlp_impl="cuda").mlp_impl == "cuda"
-    with pytest.raises(NotImplementedError, match="S8"):
-        dataclasses.replace(tpipe, mlp_impl="pallas_int8")
+    # the int8 mode (K10): the JAX name maps onto the port's
+    assert dataclasses.replace(tpipe, mlp_impl="pallas_int8").mlp_impl == "cuda_int8"
+    assert dataclasses.replace(tpipe, mlp_impl="cuda_int8").mlp_impl == "cuda_int8"
     with pytest.raises(ValueError):
         dataclasses.replace(tpipe, mlp_impl="bogus")
 
@@ -267,7 +268,7 @@ def test_port_imports_no_jax():
         "need = ['train.trainer', 'train.steps', 'train.sampler', 'train.state', 'train.checkpoint',\n"
         "        'experiments.run', 'kernels.fused_hier', 'kernels.philox', 'utils.logging',\n"
         "        'utils.profiling', 'kernels.fused_nerf', 'kernels.fused_nerf_vjp', 'experiments.render',\n"
-        "        'utils.video']\n"
+        "        'utils.video', 'kernels.quant', 'render.quantize']\n"
         "missing = [m for m in need if 'nerf_sampling_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'nerf_sampling_tpu.')) or k == 'nerf_sampling_tpu')\n"
