@@ -5,7 +5,12 @@
 Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. Device: a CUDA device is required; prints nvidia-smi's name and power limit.
-2. Build: compiles the hand-written kernels from ``nerf_sampling_tpu_torch/kernels/csrc``.
+2. Build: compiles the hand-written kernels from ``nerf_sampling_tpu_torch/kernels/csrc``
+   and prints each kernel's registers, spills and shared memory.
+   [core]: one dense layer of the wgmma MLP core (csrc/mlp_wgmma.cuh, through
+   csrc/wg_dense.cu) against torch.matmul of the same bf16 operands with fp32
+   accumulation, at 64, 128 and ragged row counts, with and without a skip
+   operand (CORE_ULP_TOL, CORE_FLIP_TOL); it fails before any NeRF kernel runs.
 3. Kernel vs plain, on the committed checkpoint's weights, each held to
    its plain version at bf16 rounding with the tolerances below:
    K1 (DepthNet) on the 160,000 rays of test view 0 plus 64 rays that miss
@@ -98,6 +103,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    within INT8_EVAL_TOL dB of the bf16 run's eval; --mode nerf with int8
    must raise.
 
+K6/K7 in bf16 and K5's row pass run on the wgmma core: their records name
+it under "core", K6's launch shape (blocks, rays per block, occupancy) and
+K5's time by pass (CUDA events; its library_ms is torch.matmul of pass (b)'s
+weight-grad products on the same shapes) are printed.
+
 Every kernel's record carries its bound from this run's shapes (the
 larger of its operations at the card's bf16 or fp32 peak and its bytes at
 the memory rate) and its launches on the path it serves. The last two
@@ -150,6 +160,12 @@ EVAL_GAP_TOL = 0.5  # dB the trained DepthNet may eval below the committed one
 # test_torch_nerf_train.py holds the plain version to JAX at 2e-2 of each
 # tensor's largest grad at bf16)
 K5_REL_TOL = 2e-2
+# the [core] layer against torch.matmul of the same bf16 operands: both sum in
+# fp32 and round once to bf16, in other orders, so an element may differ by
+# the two fp32 sums' reordering bound (K * 2^-24 * sum |a w|, which near zero
+# is several bf16 steps of the tiny result) plus CORE_ULP_TOL bf16 steps of
+# its magnitude, and only rarely (CORE_FLIP_TOL of the elements)
+CORE_ULP_TOL, CORE_FLIP_TOL = 1.0, 2e-2
 K5_COS_TOL = 0.999  # K5's grads against fp32 autograd of each NeRF
 K7_MEAN_TOL, K7_P999_TOL = 1e-3, 2e-2  # |rgb| against the plain bf16 version (K6's bounds)
 FULL_PSNR_TOL = 0.05  # FULL_NERF view 0: kernels against the plain fp32 path
@@ -263,19 +279,67 @@ def nbytes(*tensors) -> int:
     return total
 
 
+CORE = "nerf_sampling_tpu_torch/kernels/csrc/mlp_wgmma.cuh"  # the wgmma MLP core of K5, K6 and K7 (bf16)
+
+
 def kernel_record(name: str, source: str, replaces: str, max_abs_err: float, ms: float, plain_ms: float,
-                  flop: float, moved: int, dtype: str = "bf16", int8_flop: float = 0.0) -> dict:
+                  flop: float, moved: int, dtype: str = "bf16", int8_flop: float = 0.0,
+                  library_ms: float | None = None, core: str | None = None) -> dict:
     """One kernel's entry of the JSON record, its bound from this run's
     shapes: flop at the ``dtype`` peak (``int8_flop`` of them at the int8
     peak) against the bytes it must move (inputs, weights and outputs once)
-    at the memory rate. No single PyTorch call computes any of these fused
-    renders, so library_ms is null."""
+    at the memory rate. No single PyTorch call computes any of the fused
+    renders, so their library_ms is null; K5's is the weight-grad matmuls.
+    ``core`` names the MLP core the kernel runs on, where it is the wgmma one."""
     t_ops = (int8_flop / PEAK["int8"] + (flop - int8_flop) / PEAK[dtype]) * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    return {"name": name, "route": "cuda", "source": f"nerf_sampling_tpu_torch/kernels/csrc/{source}",
-            "replaces": replaces, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None}
+    rec = {"name": name, "route": "cuda", "source": f"nerf_sampling_tpu_torch/kernels/csrc/{source}",
+           "replaces": replaces, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": library_ms}
+    if core:
+        rec["core"] = core
+    return rec
+
+
+def check_core(device) -> None:
+    """[core]: one dense layer of the wgmma core against torch.matmul of the
+    same bf16 operands (fp32 accumulation, one bf16 rounding), at 64, 128
+    and ragged row counts, with and without a skip operand; every launch
+    counted."""
+    from nerf_sampling_tpu_torch.kernels import fused_render as fr
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(9)
+    fr.wgmma_dense_launches = 0
+    cases = ((64, 64, 256, False), (128, 256, 256, True), (300, 192, 128, True), (1000, 256, 256, False),
+             (4133, 256, 256, True))
+    for M, K, N, skip in cases:
+        a = (torch.randn(M, K, generator=g, device=device) * 0.5).bfloat16()
+        w = (torch.randn(K, N, generator=g, device=device) / K ** 0.5).bfloat16()
+        b = torch.randn(N, generator=g, device=device) * 0.1
+        a2 = torch.randn(M, 64, generator=g, device=device).bfloat16() if skip else None
+        w2 = (torch.randn(64, N, generator=g, device=device) / 8).bfloat16() if skip else None
+        got = fr.wgmma_dense(a, w, b, a2=a2, w2=w2, act=1).float()
+        torch.cuda.synchronize()
+        z = torch.matmul(a.float(), w.float()) + b
+        if skip:
+            z = z + torch.matmul(a2.float(), w2.float())
+        ref = torch.relu(z).bfloat16().float()
+        mag = torch.matmul(a.float().abs(), w.float().abs())
+        if skip:
+            mag = mag + torch.matmul(a2.float().abs(), w2.float().abs())
+        reorder = (K + (64 if skip else 0)) * 2.0 ** -24 * mag  # two fp32 sums of the same terms
+        ulp = ref.abs() * 2.0 ** -7
+        steps = float(((got - ref).abs() - reorder).clamp_min(0).div(ulp.clamp_min(2.0 ** -126)).max())
+        flips = float((got != ref).float().mean())
+        log(f"[core] {M} x {K} @ {K} x {N}{' + skip 64' if skip else ''}: max |got - ref| "
+            f"{float((got - ref).abs().max()):.3e}, beyond the fp32 reordering bound {steps:.2f} bf16 steps "
+            f"(tol {CORE_ULP_TOL:g}); {flips:.2e} of the elements differ (tol {CORE_FLIP_TOL:g})")
+        require(bool(torch.isfinite(got).all()) and steps <= CORE_ULP_TOL and flips <= CORE_FLIP_TOL,
+                f"[core] the wgmma layer disagrees with torch.matmul at {M} x {K} x {N}")
+    require(fr.wgmma_dense_launches == len(cases), "[core] wgmma_dense did not launch its kernel")
+    log(f"[core] phase {time.perf_counter() - t0:.1f} s")
 
 
 def view0_camera():
@@ -585,23 +649,26 @@ def check_k6(params, device, batches: list[tuple[torch.Tensor, torch.Tensor]]) -
 
     big_o = torch.cat([b[0] for b in batches[:16]])
     big_d = torch.cat([b[1] for b in batches[:16]])
+    occ = k6.kernel_occupancy(Nc, Nf)
     ms = cuda_ms(lambda: kernel(ro0, rd0, seed=1), 20)
     ms_big = cuda_ms(lambda: kernel(big_o, big_d, seed=1), 5)
+    one = occ["rays_per_block"]  # one block alone: no other SM competes for L2
+    ms_one = cuda_ms(lambda: kernel(ro0[:one], rd0[:one], seed=1), 20)
     draws0 = torch.rand((ro0.shape[0], Nc + Nf), generator=g, device=device)
     plain_ms = cuda_ms(lambda: plain(ro0, rd0, draws0), 5)
     log(f"[K6] {ro0.shape[0]} rays x ({Nc} sigma-only + {Nc + Nf} full) samples: {ms:.3f} ms per "
-        f"launch; {big_o.shape[0]} rays: {ms_big:.3f} ms; plain bf16 version at "
-        f"{ro0.shape[0]} rays {plain_ms:.3f} ms")
-    occ = k6.kernel_occupancy()
+        f"launch; {big_o.shape[0]} rays: {ms_big:.3f} ms; one block of {one} rays alone: {ms_one:.3f} ms; "
+        f"plain bf16 version at {ro0.shape[0]} rays {plain_ms:.3f} ms")
     slots = occ["blocks_per_sm"] * occ["sms"]
     for n in (ro0.shape[0], big_o.shape[0]):
         blocks = -(-n // occ["rays_per_block"])
-        log(f"[K6] occupancy at {n} rays: {blocks} blocks of {occ['rays_per_block']} rays, "
+        log(f"[K6] occupancy at {n} rays: {blocks} blocks of {occ['rays_per_block']} rays "
+            f"({occ['threads']} threads, {occ['smem_bytes']} bytes of shared memory), "
             f"{occ['blocks_per_sm']} resident per SM x {occ['sms']} SMs = {slots} slots, "
             f"{blocks / slots:.2f} waves")
     flop = 2 * ro0.shape[0] * (Nc * module_macs(params.coarse, True) + (Nc + Nf) * module_macs(params.fine))
     return kernel_record("render_hier_kernel", "render_hier.cu", "nerf_sampling_tpu/kernels/fused_hier.py:255",
-                         worst, ms, plain_ms, flop, nbytes(ro0, rd0, packed, a))
+                         worst, ms, plain_ms, flop, nbytes(ro0, rd0, packed, a), core=CORE)
 
 
 def run_slice(device, scene, K) -> tuple[dict[str, int], list[float]]:
@@ -1605,15 +1672,51 @@ def check_k5(params, queries) -> dict:
     ms = cuda_ms(lambda: k5.nerf_points_bwd_kernel(packed, model.cfg, fine_pts, dirs, g_fine, want_dx=False), 5)
     ms_dx = cuda_ms(lambda: k5.nerf_points_bwd_kernel(packed, model.cfg, fine_pts, dirs, g_fine, want_dx=True), 3)
     plain_ms = cuda_ms(lambda: k5.nerf_points_bwd_plain(packed, model.cfg, fine_pts, dirs, g_fine, want_dx=False), 3)
-    log(f"[k5] {fine_pts.shape[0]} rows: {ms:.3f} ms per launch (want_dx off), {ms_dx:.3f} ms (on); plain bf16 "
-        f"version {plain_ms:.3f} ms ({3 * 2 * 0.593e6 * fine_pts.shape[0] / ms / 1e9:.1f} TFLOP/s at 3 x 2 x 593K "
+    passes = [0.0, 0.0, 0.0]
+    reps = 5
+    for _ in range(reps):  # each pass between CUDA events recorded on the launching stream
+        events = []
+        k5.nerf_points_bwd_kernel(packed, model.cfg, fine_pts, dirs, g_fine, want_dx=False, events=events)
+        torch.cuda.synchronize()
+        for k in range(3):
+            passes[k] += events[k].elapsed_time(events[k + 1]) / reps
+    library_ms = k5_library_ms(model, fine_pts.shape[0], dirs.device)
+    rows = fine_pts.shape[0]
+    log(f"[k5] {rows} rows: {ms:.3f} ms per launch (want_dx off), {ms_dx:.3f} ms (on); plain bf16 "
+        f"version {plain_ms:.3f} ms ({3 * 2 * 0.593e6 * rows / ms / 1e9:.1f} TFLOP/s at 3 x 2 x 593K "
         "MAC per row: recompute, d_h chain, weight grads)")
+    log(f"[k5] by pass (CUDA events, mean of {reps}): (a) row pass on the wgmma core {passes[0]:.3f} ms "
+        f"({2 * 2 * 0.593e6 * rows / passes[0] / 1e9:.1f} TFLOP/s at 2 x 2 x 593K MAC per row), (b) weight-grad "
+        f"GEMMs {passes[1]:.3f} ms ({2 * 0.593e6 * rows / passes[1] / 1e9:.1f} TFLOP/s), (c) reductions "
+        f"{passes[2]:.3f} ms; torch.matmul of (b)'s products on the same shapes {library_ms:.3f} ms")
     # the recompute, the d_h chain and the weight grads: three products of the forward's size; the
     # inputs, the weights and the grads (as many values as the weights) once each
     return kernel_record("nerf_points_bwd_kernel", "nerf_points_bwd.cu",
                          "nerf_sampling_tpu/kernels/fused_nerf_vjp.py:272", worst, ms, plain_ms,
                          3 * 2 * fine_pts.shape[0] * module_macs(model),
-                         nbytes(fine_pts, dirs, g_fine, packed, packed))
+                         nbytes(fine_pts, dirs, g_fine, packed, packed), library_ms=library_ms, core=CORE)
+
+
+def k5_library_ms(model, rows: int, device) -> float:
+    """The yardstick of K5's pass (b): torch.matmul of its weight-grad
+    products A^T @ dZ (bf16 operands [rows, K] and [rows, N], one call each,
+    fp32 accumulation inside cuBLAS) on random data of the same shapes;
+    timed here, used nowhere in the port."""
+    from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
+    from nerf_sampling_tpu_torch.kernels.fused_render import pack_nerf
+
+    g = torch.Generator(device=device).manual_seed(12)
+    ops = [(torch.randn(rows, K, generator=g, device=device).bfloat16(),
+            torch.randn(rows, N, generator=g, device=device).bfloat16())
+           for _, _, K, N in k5.grad_jobs(pack_nerf(model))]
+
+    def products():
+        for a, b in ops:
+            torch.matmul(a.T, b)
+
+    ms = cuda_ms(products, 5)
+    del ops
+    return ms
 
 
 def check_k7(params, scene, K, device) -> dict:
@@ -1672,7 +1775,7 @@ def check_k7(params, scene, K, device) -> dict:
         f"400x400 frame {frame_k:.2f} ms on the kernels, {frame_p:.2f} ms on the plain fp32 path")
     flop = 2 * ro.shape[0] * (64 * module_macs(params.coarse, True) + 192 * module_macs(params.fine))
     return kernel_record("render_hier_kernel_det", "render_hier.cu", "nerf_sampling_tpu/kernels/fused_hier.py:255",
-                         mx, ms, plain_ms, flop, nbytes(ro, rd, packed, got))
+                         mx, ms, plain_ms, flop, nbytes(ro, rd, packed, got), core=CORE)
 
 
 def check_nerf_steps(scene, device) -> None:
@@ -1921,6 +2024,7 @@ def main() -> int:
             for line in fp:
                 if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
                     log("[build] " + line.rstrip()[:160])
+    check_core(device)
 
     params = pack_kernel_weights(load_render_params(CKPT, production_pipeline("cuda"), device),
                                  with_hier=True)

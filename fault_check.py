@@ -1,17 +1,21 @@
-"""Plant faults in copies of the int8 MLP core and run chip_smoke.py's [k10] gates on each.
+"""Plant faults in copies of the MLP cores and run chip_smoke.py's gates on each.
 
     python3 fault_check.py        # on a machine with a CUDA card, from the repo root
 
-The gates that hold the int8 kernels to their plain int8 versions
-(chip_smoke.py: K10_MEAN_TOL / K10_P999_TOL on the maps, K10_Z_MEAN_TOL /
-K10_Z_P99_TOL on K6/K7's max_z and depth_map) must pass on the sound source
-and fail on a wrong one. This runs ``chip_smoke.check_k10`` first on the
-checkout as it is, then on one copy per fault below (the port, chip_smoke.py,
-the checkpoint and the experiment configs, under logs/fault_check/, with one
-edit to the copy's kernels/csrc/nerf_mlp.cuh), with the gates logged instead
-of raised, and prints each run's [k10] readings and the gates it failed.
-The last line is a JSON object {variant: [failed gates]}. Exits 0 when the
-sound source fails no gate and every fault fails at least one.
+Two sets of gates must pass on the sound source and fail on a wrong one:
+- the int8 core's (chip_smoke.py [k10]: K10_MEAN_TOL / K10_P999_TOL on the
+  maps, K10_Z_MEAN_TOL / K10_Z_P99_TOL on K6/K7's max_z and depth_map),
+  against faults in kernels/csrc/nerf_mlp.cuh's requant;
+- the wgmma core's ([core], [K6] and [k5]: CORE_ULP_TOL, the K6 map, max_z
+  and draw gates, K5_REL_TOL, K5_COS_TOL and the bits across launches),
+  against a fault in kernels/csrc/mlp_wgmma.cuh's producer.
+This runs the gates first on the checkout as it is, then on one copy per
+fault below (the port, chip_smoke.py, the checkpoint and the experiment
+configs, under logs/fault_check/, with one edit to the copy's source), with
+the gates logged instead of raised, and prints each run's readings and the
+gates it failed. The last line is a JSON object {variant: [failed gates]}.
+Exits 0 when the sound source fails no gate and every fault fails at least
+one.
 """
 
 from __future__ import annotations
@@ -24,20 +28,27 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "logs", "fault_check")
-SOURCE = os.path.join("nerf_sampling_tpu_torch", "kernels", "csrc", "nerf_mlp.cuh")
+CSRC = os.path.join("nerf_sampling_tpu_torch", "kernels", "csrc")
 
-# name: (text of nerf_mlp.cuh, its faulty replacement)
+# name: (source in CSRC, its text, the faulty replacement, the gates that must catch it)
 FAULTS = {
     # the integer requant's round bit dropped: every shift truncates
-    "round_bit": ("if (p > 0) a = (a >> p) + ((a >> (p - 1)) & 1);", "if (p > 0) a = a >> p;"),
+    "round_bit": ("nerf_mlp.cuh", "if (p > 0) a = (a >> p) + ((a >> (p - 1)) & 1);", "if (p > 0) a = a >> p;",
+                  "k10"),
     # h*inv + 0.5 contracted into one rounding (an FMA) at the fp32 requants
-    "fma": ("const float x = __fadd_rn(__fmul_rn(h, inv), 0.5f);", "const float x = fmaf(h, inv, 0.5f);"),
+    "fma": ("nerf_mlp.cuh", "const float x = __fadd_rn(__fmul_rn(h, inv), 0.5f);",
+            "const float x = fmaf(h, inv, 0.5f);", "k10"),
     # the +-2^15 clamp before the multiply dropped: t*m may wrap in int32
-    "no_clamp": ("a = min(max(a, -(1 << 15)), (1 << 15) - 1) * m;", "a = a * m;"),
+    "no_clamp": ("nerf_mlp.cuh", "a = min(max(a, -(1 << 15)), (1 << 15) - 1) * m;", "a = a * m;", "k10"),
+    # the producer hands the consumers the ring's previous slice for one layer
+    # (slices 2-9 of every tile's stream: trunk layer 1, or the [core] product)
+    "stale_slice": ("mlp_wgmma.cuh", "const bf16* src = segs[g].slices + (size_t)s * (kSliceBytes / 2);",
+                    "const bf16* src = segs[g].slices + (size_t)(s >= 2 && s < 10 ? s - 1 : s) * (kSliceBytes / 2);",
+                    "wgmma"),
 }
 
-# run in the checkout or copy: chip_smoke's [k10] with its gates recorded
-RUN_K10 = r"""
+# run in the checkout or copy: chip_smoke's checks of the named gate sets, gates recorded
+RUN = r"""
 import json, sys, traceback
 import torch
 import chip_smoke as c
@@ -56,17 +67,25 @@ from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
 device = torch.device("cuda", 0)
 params = pack_kernel_weights(load_render_params(c.CKPT, c.production_pipeline("cuda"), device), with_hier=True)
 scene, K = c.load_example_scene()
-try:
-    c.check_k10(params, scene, K, device, [b[:2] for b in c.train_batches(scene, device, 8)])
-except Exception:
-    traceback.print_exc()
-    failed.append("raised")
+batches = [b[:2] for b in c.train_batches(scene, device, 8)]
+checks = {
+    "k10": [lambda: c.check_k10(params, scene, K, device, batches)],
+    "wgmma": [lambda: c.check_core(device), lambda: c.check_k6(params, device, batches),
+              lambda: c.check_k5(params, c.step_queries(params, scene, device))],
+}
+for name in sys.argv[1:]:
+    for check in checks[name]:
+        try:
+            check()
+        except Exception:
+            traceback.print_exc()
+            failed.append("raised")
 print("FAILED " + json.dumps(failed), flush=True)
 """
 
 
-def make_copy(name: str, old: str, new: str) -> str:
-    """The files [k10] reads, copied under OUT/name, with old -> new in nerf_mlp.cuh."""
+def make_copy(name: str, source: str, old: str, new: str) -> str:
+    """The files the checks read, copied under OUT/name, with old -> new in CSRC/source."""
     root = os.path.join(OUT, name)
     shutil.rmtree(root, ignore_errors=True)
     ignore = shutil.ignore_patterns("_build", "__pycache__")
@@ -76,22 +95,22 @@ def make_copy(name: str, old: str, new: str) -> str:
     configs = os.path.join("nerf_sampling_tpu", "experiments", "configs")
     shutil.copytree(os.path.join(HERE, configs), os.path.join(root, configs))
     shutil.copy(os.path.join(HERE, "chip_smoke.py"), root)
-    path = os.path.join(root, SOURCE)
+    path = os.path.join(root, CSRC, source)
     with open(path) as fp:
         text = fp.read()
     if text.count(old) != 1:
-        raise RuntimeError(f"fault {name}: the line to replace is not in {SOURCE} exactly once")
+        raise RuntimeError(f"fault {name}: the line to replace is not in {source} exactly once")
     with open(path, "w") as fp:
         fp.write(text.replace(old, new))
     return root
 
 
-def run_k10(cwd: str) -> list[str]:
-    """chip_smoke.check_k10 in ``cwd``; its output passes through, and the
-    gates it failed come back."""
-    proc = subprocess.run([sys.executable, "-c", RUN_K10], cwd=cwd, capture_output=True, text=True)
+def run_checks(cwd: str, gates: list[str]) -> list[str]:
+    """chip_smoke's checks of ``gates`` in ``cwd``; their output passes
+    through, and the gates they failed come back."""
+    proc = subprocess.run([sys.executable, "-c", RUN, *gates], cwd=cwd, capture_output=True, text=True)
     for line in proc.stdout.splitlines():
-        if line.startswith(("[k10]", "[build]", "[fault_check]")):
+        if line.startswith(("[k10]", "[core]", "[K6]", "[k5]", "[build]", "[fault_check]")):
             print(line, flush=True)
     if proc.returncode != 0 or not proc.stdout.rstrip().splitlines()[-1].startswith("FAILED "):
         print(proc.stderr[-4000:], file=sys.stderr)
@@ -108,10 +127,11 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     result = {}
     print("[fault_check] sound source", flush=True)
-    result["sound"] = run_k10(HERE)  # generates the example scene the copies take along
-    for name, (old, new) in FAULTS.items():
-        print(f"[fault_check] fault {name}: {old!r} -> {new!r}", flush=True)
-        result[name] = run_k10(make_copy(name, old, new))
+    # generates the example scene the copies take along
+    result["sound"] = run_checks(HERE, sorted({gates for *_, gates in FAULTS.values()}))
+    for name, (source, old, new, gates) in FAULTS.items():
+        print(f"[fault_check] fault {name} in {source}: {old!r} -> {new!r}", flush=True)
+        result[name] = run_checks(make_copy(name, source, old, new), [gates])
         print(f"[fault_check] fault {name}: {len(result[name])} gates failed", flush=True)
     print(json.dumps(result))
     return 0 if not result["sound"] and all(result[n] for n in FAULTS) else 1

@@ -116,12 +116,14 @@ def load_library() -> ctypes.CDLL:
     lib.nst_render_hier.restype = i32
     lib.nst_nerf_points.argtypes = [ptrs, i32, i64, i64, i32, u32, vp]
     lib.nst_nerf_points.restype = i32
-    lib.nst_nerf_points_bwd_sizes.argtypes = [i64, i32, i64, i32, ctypes.POINTER(ctypes.c_longlong)]
+    lib.nst_nerf_points_bwd_sizes.argtypes = [i64, i32, u32, i64, i32, ctypes.POINTER(ctypes.c_longlong)]
     lib.nst_nerf_points_bwd_sizes.restype = i32
-    lib.nst_nerf_points_bwd.argtypes = [ptrs, i32, i64, i64, i32, u32, i64, i32, vp]
+    lib.nst_nerf_points_bwd.argtypes = [ptrs, i32, i64, i64, i32, u32, i64, i32, i32, vp]
     lib.nst_nerf_points_bwd.restype = i32
-    lib.nst_render_hier_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.nst_render_hier_occupancy.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.nst_render_hier_occupancy.restype = i32
+    lib.nst_wg_dense.argtypes = [ptrs, i32, i64, i32, i32, i32, vp]
+    lib.nst_wg_dense.restype = i32
     build_info.update(
         path=so_path, log=log_path, built=built, seconds=time.perf_counter() - t0
     )

@@ -1,5 +1,6 @@
 // Shared building block of the port's MLP kernels: one dense layer over a
 // tile of rows whose activations live in shared memory, as bf16 or fp32.
+// (bf16 K5, K6 and K7 run the wgmma core of mlp_wgmma.cuh instead.)
 //
 //   out[16*MT, N] = act(sum_op A_op @ W_op + bias),   N = kWarps * NT * 16
 //

@@ -1,0 +1,473 @@
+// The Hopper bf16 MLP core: dense layers over 128-row tiles on wgmma, with
+// the weights streamed through a ring of shared-memory slices by a producer
+// warp. Used by K6/K7 in bf16 (render_hier.cu), K5's row pass
+// (nerf_points_bwd.cu) and the [core] check (wg_dense.cu); the other
+// kernels keep mlp_tile.cuh::gemm_rows.
+//
+//   acc[64 rows of a warpgroup, NH * 128] = sum_op A_op @ B_op
+//
+// followed, in each kernel, by a register epilogue: fp32 bias, activate()
+// (NaN kept), a bf16 round, written straight into the activation tile the
+// next layer reads. Rounding points are mlp_tile.cuh's: bf16 activations,
+// fp32 accumulation; only the order of the fp32 sums differs.
+//
+// Block: two consumer warpgroups (threads 0-255) and one producer warp
+// (256-287) whose first lane issues the copies. Warpgroup g owns rows
+// [64g, 64g + 64) of every 128-row tile,
+// so each staged slice feeds 128 rows: half the L2 weight bytes per FLOP of
+// the 64-row wmma core, and no fp32 scratch round trip.
+//
+// Shared-memory layouts (all 128-byte swizzled, K-major, 1024-byte aligned;
+// what wgmma's descriptor with layout SWIZZLE_128B and SBO = 1024 reads):
+// - an activation tile: 128 rows x 64k columns as k panels of 16 KB, panel
+//   p holding columns [64p, 64p + 64); element (r, c) at tile_offset(r, c).
+//   Warpgroup g's A operand starts 8 KB into each panel.
+// - a weight slice: 128 output columns x 64 of depth, 16 KB, element (n, k)
+//   at n * 128 + ((k / 8) ^ (n % 8)) * 16 + (k % 8) * 2. The host writes
+//   that byte image of every slice (kernels/fused_render.py::wgmma_slices),
+//   in the order a tile consumes them, so the producer moves each with one
+//   cp.async.bulk and an mbarrier completion.
+// A product of depth K and width N reads ceil(K/64) * ceil(N/128) slices,
+// k panels outer, 128-column halves inner; zero-padded rows and columns
+// add exact zeros to the fp32 sums.
+//
+// The weight sequence of a pass does not depend on the activations, so the
+// producer runs ahead across layers and tiles, bounded by free ring stages
+// (full/empty mbarrier pairs; each consumer warp releases a stage after its
+// own wgmma.wait_group). What bounds it on the H100: L2 -> SM bandwidth for
+// the slices (128 FLOP per byte at 128 rows) and the tensor-core rate.
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include <cstdint>
+
+#include "nerf_mlp.cuh"
+
+namespace nst {
+namespace wg {
+
+constexpr int kRows = 128;                    // rows per weight pass
+constexpr int kConsumers = 256;               // two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;     // and one producer warp
+constexpr int kSliceBytes = 128 * 64 * 2;     // one staged weight slice
+constexpr int kPanelBytes = kRows * 128;      // one 64-column panel of a tile
+constexpr int kHalfPanel = kPanelBytes / 2;   // warpgroup 1's rows in a panel
+constexpr int kBarConsumers = 1;              // named barrier of threads 0-255; warpgroup g: 2 + g
+
+// byte offset of element (row, col) of a swizzled 128-row tile
+__host__ __device__ constexpr uint32_t tile_offset(int row, int col) {
+  return (uint32_t)((col >> 6) * kPanelBytes + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4) +
+                    ((col & 7) << 1));
+}
+
+// Slices of one tile's pass over a NeRF: the forward (trunk; unless
+// sigma_only the feature and views layers) and K5's backward (the views and
+// feature layers' d_h, the trunk chain, and with want_dx the dL/dPE hops).
+// kernels/fused_render.py::wgmma_program lists the same matrices in order.
+__host__ __device__ inline int popcount_u(unsigned v) {
+  int n = 0;
+  for (; v; v &= v - 1) ++n;
+  return n;
+}
+__host__ __device__ inline int forward_slices(int D, unsigned skip_mask, bool sigma_only) {
+  return 2 + 8 * (D - 1) + 2 * popcount_u(skip_mask) + (sigma_only ? 0 : 8 + 4 + 1);
+}
+__host__ __device__ inline int backward_slices(int D, unsigned skip_mask, bool want_dx) {
+  return 4 + 8 * D + (want_dx ? 2 + 4 * popcount_u(skip_mask) + 4 : 0);
+}
+
+// ---- PTX
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void consumers_sync() { bar_sync(kBarConsumers, kConsumers); }
+__device__ __forceinline__ void group_sync() { bar_sync(2 + (threadIdx.x >> 7), 128); }
+// generic-proxy writes of shared memory -> visible to wgmma's async proxy
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+// returns once the phase of parity `parity` has completed; a wait of more
+// than 2^35 cycles (about 20 s) traps, so a broken stream fails the launch
+// instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 35)) __trap();
+  }
+}
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator registers that an in-flight wgmma writes
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: groups of 8 rows of 128
+// bytes, 1024 bytes apart (SBO). K-major (the rule here): a row holds 64 k
+// of one m or n. MN-major (pass (b) of K5): a row holds 64 m or n of one k,
+// and `lbo` bytes separate the 64-wide blocks of m or n.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo = 16) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d[64 x 128] += A[64 x 16] @ B[16 x 128], bf16 in, fp32 accumulate; both
+// operands K-major, or both MN-major with kMN = 1
+template <int kMN = 0>
+__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(kMN));
+}
+
+// ---- the ring
+
+// S stages of kSliceBytes, then the full and empty mbarriers (8 bytes each)
+template <int S>
+struct Ring {
+  uint32_t data;  // shared address of stage 0
+  __device__ __forceinline__ uint32_t full(int s) const { return data + S * kSliceBytes + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const { return data + S * kSliceBytes + 8 * (S + s); }
+  static constexpr int kBytes = S * kSliceBytes + 16 * S;
+  // one thread, before the role split and a block-wide barrier
+  __device__ void init() const {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers / 32);  // every consumer warp releases
+    }
+    mbar_fence_init();
+  }
+};
+
+// A consumer's position in the slice stream.
+struct Cursor {
+  int stage = 0;
+  uint32_t phase = 0;
+};
+
+// One run of the slice stream: n slices from `slices`, `repeat` times over.
+struct Segment {
+  const bf16* slices;
+  int n, repeat;
+};
+
+// The producer: every slice of the segments into the ring, in order, each
+// as soon as its stage is free. The warp's first lane issues; the others
+// return at once.
+template <int S>
+__device__ void produce(const Ring<S>& ring, const Segment* segs, int n_segs) {
+  if (threadIdx.x != kConsumers) return;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int g = 0; g < n_segs; ++g)
+    for (int rep = 0; rep < segs[g].repeat; ++rep)
+      for (int s = 0; s < segs[g].n; ++s) {
+        const bf16* src = segs[g].slices + (size_t)s * (kSliceBytes / 2);
+        mbar_wait(ring.empty(stage), phase ^ 1);  // the first round passes at once
+        mbar_expect_tx(ring.full(stage), kSliceBytes);
+        bulk_g2s(ring.data + stage * kSliceBytes, src, kSliceBytes, ring.full(stage));
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+}
+
+// An A operand: `panels` 64-column panels of a 128-row tile at shared
+// address `tile`; the product reads this warpgroup's 64 rows.
+struct Src {
+  uint32_t tile;
+  int panels;
+};
+
+// acc = sum over src of A @ B, B the next slices of the stream; every
+// consumer thread of the warpgroup calls it. Ends with every slice released.
+template <int NH, int S>
+__device__ __forceinline__ void gemm(float (&acc)[NH][64], const Src* src, int n_src, const Ring<S>& ring,
+                                     Cursor& cur) {
+  const uint32_t row_off = (threadIdx.x >> 7) * kHalfPanel;
+  const bool lead = (threadIdx.x & 31) == 0;
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+    fence_regs(acc[h]);
+  }
+  int prev = -1;
+  for (int o = 0; o < n_src; ++o)
+    for (int kp = 0; kp < src[o].panels; ++kp) {
+      const uint32_t a = src[o].tile + kp * kPanelBytes + row_off;
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        mbar_wait(ring.full(cur.stage), cur.phase);
+        const uint32_t b = ring.data + cur.stage * kSliceBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_m64n128k16(acc[h], sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous slice's products are done
+        if (prev >= 0 && lead) mbar_arrive(ring.empty(prev));
+        prev = cur.stage;
+        if (++cur.stage == S) {
+          cur.stage = 0;
+          cur.phase ^= 1;
+        }
+      }
+    }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < NH; ++h) fence_regs(acc[h]);
+  if (prev >= 0 && lead) mbar_arrive(ring.empty(prev));
+}
+
+// ---- the register epilogue
+
+// Calls f(row, col, h, i) for each pair acc[h][i], acc[h][i + 1] the thread
+// holds, at columns col and col + 1 of row `row` of its warpgroup's 64:
+// col = h * 128 + 8 j + 2 (lane % 4), row = 16 (warp % 4) + lane / 4 + 8 hh,
+// i = 4 j + 2 hh.
+template <int NH, typename F>
+__device__ __forceinline__ void for_pairs(F f) {
+  const int lane = threadIdx.x & 31;
+  const int r = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2), c = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) f(r + 8 * hh, h * 128 + 8 * j + c, h, 4 * j + 2 * hh);
+}
+
+// acc <- bf16(activate(acc + bias)), held as floats
+template <int NH>
+__device__ __forceinline__ void bias_act(float (&acc)[NH][64], const float* __restrict__ bias, int act) {
+  for_pairs<NH>([&](int, int col, int h, int i) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col));
+    const __nv_bfloat162 v = __floats2bfloat162_rn(activate(acc[h][i] + b.x, act), activate(acc[h][i + 1] + b.y, act));
+    acc[h][i] = __low2float(v);
+    acc[h][i + 1] = __high2float(v);
+  });
+}
+
+// The byte offsets of the thread's pairs in a swizzled 128-row tile:
+// tile_offset(row, col) = base(hh) + pair_offset(h, j) with the row parts
+// hoisted (the thread's two rows share row % 8, so one XOR serves both).
+struct PairAddr {
+  uint32_t row_base[2];  // rows r and r + 8 of the thread, in this warpgroup
+  uint32_t sw;           // row % 8, the swizzle of both rows
+  uint32_t c;            // 2 * (lane % 4): the pair's column within its 8
+  __device__ __forceinline__ PairAddr() {
+    const int lane = threadIdx.x & 31;
+    const int r = 64 * (threadIdx.x >> 7) + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+    row_base[0] = r * 128;
+    row_base[1] = (r + 8) * 128;
+    sw = r & 7;
+    c = 2 * (lane & 3);
+  }
+  // pair (h, i = 4j + 2hh): column h * 128 + 8 j + c
+  __device__ __forceinline__ uint32_t at(int h, int i) const {
+    const int j = i >> 2, col8 = h * 16 + j;  // the 8-column group
+    return (col8 >> 3) * kPanelBytes + row_base[(i >> 1) & 1] + (((col8 & 7) ^ sw) << 4) + (c << 1);
+  }
+};
+
+// acc (bf16 values) into a 128-row tile at this warpgroup's rows. The
+// caller has synced the warpgroup after its last product reading the tile;
+// this ends with the tile visible to the warpgroup's next wgmma.
+template <int NH>
+__device__ __forceinline__ void store_tile(const float (&acc)[NH][64], unsigned char* tile) {
+  const PairAddr pa;
+  for_pairs<NH>([&](int, int, int h, int i) {
+    *reinterpret_cast<__nv_bfloat162*>(tile + pa.at(h, i)) = __floats2bfloat162_rn(acc[h][i], acc[h][i + 1]);
+  });
+  fence_async_smem();
+  group_sync();
+}
+
+// The per-row dot products of acc with CH rows of bf16 weights w[ch * ld
+// + col]: out[2 ch + hh] for the thread's rows (hh = 0, 1), the sum over all
+// columns, in every lane of the row's quad.
+template <int NH, int CH>
+__device__ __forceinline__ void row_dots(const float (&acc)[NH][64], const bf16* __restrict__ w, int ld,
+                                         float (&out)[2 * CH]) {
+#pragma unroll
+  for (int k = 0; k < 2 * CH; ++k) out[k] = 0.f;
+  for_pairs<NH>([&](int, int col, int h, int i) {
+    const int hh = (i >> 1) & 1;
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) {
+      const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + ch * ld + col));
+      out[2 * ch + hh] += acc[h][i] * wv.x + acc[h][i + 1] * wv.y;
+    }
+  });
+#pragma unroll
+  for (int k = 0; k < 2 * CH; ++k) {
+    out[k] += __shfl_xor_sync(0xffffffffu, out[k], 1);
+    out[k] += __shfl_xor_sync(0xffffffffu, out[k], 2);
+  }
+}
+
+// Rows [64g + 0, 64g + 64) of a swizzled tile's first `cols` columns (this
+// warpgroup's rows) to rows row0 + 64g + ... of a row-major bf16 plane, in
+// 16-byte stores. The caller has synced the warpgroup after writing them.
+__device__ __forceinline__ void copy_rows(const unsigned char* tile, int cols, bf16* plane, long long row0) {
+  const int g = threadIdx.x >> 7, per_row = cols / 8;
+  for (int e = threadIdx.x & 127; e < 64 * per_row; e += 128) {
+    const int r = 64 * g + e / per_row, c = (e % per_row) * 8;
+    *reinterpret_cast<uint4*>(plane + (row0 + r) * cols + c) =
+        *reinterpret_cast<const uint4*>(tile + tile_offset(r, c));
+  }
+}
+
+// ---- the NeRF on the core (K6/K7 in bf16)
+
+// Shared memory of the NeRF passes: the activation tile (four panels), the
+// PE tile (two panels: [pts emb 63 | 0] and [view emb 27 | 0 x 37]) and the
+// ring, from a 1024-byte aligned base.
+template <int S>
+struct Tiles {
+  unsigned char* x;
+  unsigned char* pe;
+  Ring<S> ring;
+  static constexpr int kBytes = 4 * kPanelBytes + 2 * kPanelBytes + Ring<S>::kBytes;
+};
+template <int S>
+__device__ __forceinline__ Tiles<S> carve(unsigned char* base) {
+  Tiles<S> t;
+  t.x = base;
+  t.pe = base + 4 * kPanelBytes;
+  t.ring.data = smem_u32(base + 6 * kPanelBytes);
+  return t;
+}
+
+// The forward over one 128-row tile whose PE tile is filled: the per-row
+// sigma (alpha head) and, unless sigma_only, the sigmoid(rgb) of this
+// warpgroup's valid rows, into sigma[row] and rgb[ch][row] (row within the
+// 128). Consumes forward_slices() of the stream.
+template <int S>
+__device__ void nerf_forward(const NerfWeights& w, const Tiles<S>& t, Cursor& cur, int valid, bool sigma_only,
+                             float* sigma, float* const* rgb) {
+  const uint32_t x = smem_u32(t.x), pe = smem_u32(t.pe);
+  const int lane = threadIdx.x & 31;
+  const int r0 = 64 * (threadIdx.x >> 7) + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows r0, r0 + 8
+  float acc[2][64];
+  for (int i = 0; i < w.D; ++i) {
+    const Src ops[2] = {{i == 0 ? pe : x, i == 0 ? 1 : 4}, {pe, 1}};
+    gemm(acc, ops, (i > 0 && ((w.skip_mask >> i) & 1u)) ? 2 : 1, t.ring, cur);
+    bias_act(acc, w.tb[i], kRelu);
+    if (i == w.D - 1) {  // sigma = h @ alpha_w + alpha_b
+      float s[2];
+      row_dots<2, 1>(acc, w.alpha_w, 0, s);
+      if ((lane & 3) == 0)
+        for (int hh = 0; hh < 2; ++hh)
+          if (r0 + 8 * hh < valid) sigma[r0 + 8 * hh] = s[hh] + w.alpha_b[0];
+      if (sigma_only) return;
+    }
+    group_sync();  // the warpgroup's products read x no more
+    store_tile(acc, t.x);
+  }
+  {
+    const Src op = {x, 4};
+    gemm(acc, &op, 1, t.ring, cur);
+    bias_act(acc, w.feat_b, kNone);
+    group_sync();
+    store_tile(acc, t.x);
+  }
+  float accv[1][64];
+  const Src opv[2] = {{x, 4}, {pe + kPanelBytes, 1}};
+  gemm(accv, opv, 2, t.ring, cur);
+  bias_act(accv, w.views_b, kRelu);
+  float s[6];
+  row_dots<1, 3>(accv, w.rgb_w, kWv, s);
+  if ((lane & 3) == 0)
+    for (int ch = 0; ch < 3; ++ch)
+      for (int hh = 0; hh < 2; ++hh)
+        if (r0 + 8 * hh < valid) rgb[ch][r0 + 8 * hh] = 1.f / (1.f + expf(-(s[2 * ch + hh] + w.rgb_b[ch])));
+}
+
+// The MLP over rows [0, rows) of the plane z (row's ray: row / S), on the
+// core, as nerf_mlp.cuh::nerf_rows: sigma[row] and, unless sigma_only,
+// sigmoid(rgb) into rgb[0..2][row]. Consumer threads only; ends without a
+// block-wide barrier (the caller syncs the consumers).
+template <int S>
+__device__ void nerf_rows(const NerfWeights& w, const Tiles<S>& t, Cursor& cur, const float* ray, const float* z,
+                          int rows, int Sr, bool sigma_only, float* sigma, float* const* rgb) {
+  const int g = threadIdx.x >> 7, lt = threadIdx.x & 127;
+  for (int c0 = 0; c0 < rows; c0 += kRows) {
+    group_sync();  // the previous tile's products read the PE tile no more
+    for (int e = lt; e < 64 * 128; e += 128) {
+      const int rr = 64 * g + (e >> 7), col = e & 127, row = c0 + rr;
+      float v = 0.f;
+      if (row < rows && (col < kPtsCh || (col >= kPeViews && col < kPeViews + kViewCh))) {
+        const float* q = ray + 8 * (row / Sr);
+        float u[3];
+        if (col < kPtsCh) {
+          const float zr = z[row];
+          // o + d*z rounded like the plain version: no fused multiply-add
+          for (int k = 0; k < 3; ++k) u[k] = __fadd_rn(q[k], __fmul_rn(q[3 + k], zr));
+          v = embed(u, col);
+        } else {
+          for (int k = 0; k < 3; ++k) u[k] = __fdiv_rn(q[3 + k], q[6]);
+          v = embed(u, col - kPeViews);
+        }
+      }
+      *reinterpret_cast<bf16*>(t.pe + tile_offset(rr, col)) = __float2bfloat16(v);
+    }
+    fence_async_smem();
+    group_sync();
+    float* rgb_c[3] = {nullptr, nullptr, nullptr};
+    if (!sigma_only)
+      for (int k = 0; k < 3; ++k) rgb_c[k] = rgb[k] + c0;
+    nerf_forward(w, t, cur, rows - c0, sigma_only, sigma + c0, rgb_c);
+  }
+}
+
+}  // namespace wg
+}  // namespace nst

@@ -17,17 +17,20 @@
 //     d/dx sin(2^f x) = 2^f cos(2^f x), d/dx cos(2^f x) = -2^f sin(2^f x).
 // What it does not carry over: the TPU grid's sequential accumulation of
 // the weight grads in VMEM. On Hopper the blocks run in no order, and a
-// 64-row tile's activations (10 x 64 x 256 bf16) do not fit in shared
-// memory beside the weights' traffic, so it runs in three passes, all
+// tile's activations (10 x 128 x 256 bf16) do not fit in shared memory
+// beside the weights' traffic, so it runs in three passes, all
 // deterministic (no float atomics: two launches give the same bits, and
 // want_dx does not change the weight grads):
-//   (a) nerf_bwd_rows_kernel, one block per 64-row tile: recompute the
-//       forward, writing the PE row and every bf16 activation to a device
-//       workspace; then the d_h chain, layer by layer, through the
-//       transposed weights, writing every bf16 d_z (and g16) beside them,
-//       and the tile's fp32 bias-grad column sums; dx when asked;
-//   (b) wgrad_kernel: every weight grad A^T @ dZ over the rows, as wmma
-//       GEMMs (bf16, fp32 accumulation) of 64x64 output tiles, each over
+//   (a) nerf_bwd_rows_kernel, one block per 128-row tile, on the wgmma core
+//       (mlp_wgmma.cuh): recompute the forward from the forward slices,
+//       writing the PE row and every bf16 activation to a device workspace
+//       (16-byte stores from the swizzled tile) and the trunk's ReLU masks
+//       (a bit per element, in the thread's own words); then the d_h chain
+//       from the backward slices, layer by layer, writing every bf16 d_z
+//       (and g16) beside them and the tile's fp32 bias-grad column sums
+//       (a fixed shuffle tree, then the 8 warps in order); dx when asked;
+//   (b) wgrad_kernel: every weight grad A^T @ dZ over the rows, as wgmma
+//       GEMMs (bf16, fp32 accumulation) of 128x128 output tiles, each over
 //       one slice of rows, into fp32 partials per slice;
 //   (c) reduce_kernel: the slices' partials (and the tiles' bias sums)
 //       added in slice order, matrix grads rounded to bf16.
@@ -35,28 +38,23 @@
 // What bounds it on the H100: the recompute (1.19 MFLOP a row), the d_h
 // chain (about as much) and the weight grads (as much again), all on the
 // tensor cores, plus the workspace: 10 KB a row written and read once
-// (2 GB at the fine query's 196,608 rows). The GEMMs stage their operands
-// through shared memory; no TMA or wgmma yet.
+// (2 GB at the fine query's 196,608 rows). The row pass streams 141 weight
+// slices (2.3 MB) per 128-row tile from L2; pass (b) reads each workspace
+// plane once per 128 output columns it meets, mostly from L2.
 
 #include <cuda_runtime.h>
 
+#include "mlp_wgmma.cuh"
 #include "nerf_mlp.cuh"
 
 namespace nst {
 namespace {
 
-constexpr int kG16 = 16;  // width of the g16 plane: r, g, b, sigma, 0 x 12
+constexpr int kG16 = 16;    // width of the g16 plane: r, g, b, sigma, 0 x 12
+constexpr int kTile = wg::kRows;
+constexpr int kStages = 6;  // weight ring stages of the row pass
 
-struct BwdWeights {        // transposed copies, [out, in] row-major
-  const bf16* twT[kMaxD];  // [W, W] for layers 1..D-1
-  const bf16* featT;       // [W, W]
-  const bf16* views_wfT;   // [W/2, W]
-  const bf16* views_wsT;   // [W/2, 32]  (want_dx)
-  const bf16* w0T;         // [W, 64]    (want_dx)
-  const bf16* skipT[kMaxD];  // [W, 64]  (want_dx)
-};
-
-struct Workspace {  // bf16 planes of Mp rows (Mp = M rounded up to 64)
+struct Workspace {  // bf16 planes of Mp rows (Mp = M rounded up to 128)
   bf16* pe;         // [Mp, 96]
   bf16* h;          // [D][Mp, W]
   bf16* feat;       // [Mp, W]
@@ -80,211 +78,245 @@ struct RowParams {
   const float* dirs;  // [M / S, 3]
   const float* g;     // [M, 4] cotangent of raw
   float* dx;          // [M, 6]: d pts, d dirs (per row), or null
-  float* bias_part;   // [Mp / 64, bias_elems]
+  float* dP;          // [Mp, 96] fp32 dL/dPE (want_dx), or null
+  float* bias_part;   // [Mp / 128, bias_elems]
+  unsigned* masks;    // [Mp / 128][D][4][256]: the trunk's ReLU masks, by thread
   long long M, S, Mp;
   NerfWeights w;
-  BwdWeights wt;
+  const bf16* slices;  // forward then backward slices of one tile
+  int n_slices;
   Workspace ws;
 };
 
-constexpr size_t kRowSmem = kTileBytes + (kChunk * 8 + kChunk * 4 + kThreads) * sizeof(float) +
-                            kChunk * kWv;                          // + the zv > 0 mask
-constexpr size_t kDxSmem = kChunk * kPeCols * sizeof(float);      // dL/dPE, want_dx only
+constexpr size_t kRowSmem = 1024 + wg::Tiles<kStages>::kBytes +
+                            (kTile * 8 + kTile * 4 + 8 * kW) * sizeof(float);  // + q, gt, column-sum partials
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
-// a [64, cols] bf16 tile of shared memory to rows [row0, row0+64) of a plane
-__device__ __forceinline__ void store_tile(const bf16* src, int lds, bf16* plane, int ldp,
-                                           long long row0, int cols) {
-  const int per_row = cols / 8;
-  for (int e = threadIdx.x; e < kChunk * per_row; e += kThreads) {
-    const int r = e / per_row, c = (e - r * per_row) * 8;
-    *reinterpret_cast<uint4*>(plane + (row0 + r) * ldp + c) =
-        *reinterpret_cast<const uint4*>(src + r * lds + c);
-  }
-}
-
-// lanes l and l^16 hold the even and odd rows of the same columns: their
-// sum, written by lanes 0..15, is the column sum over the tile's 64 rows
-template <int NT>
-__device__ __forceinline__ void write_colsums(const float (&part)[NT], float* out) {
+// The column sums over the tile's 128 rows of acc (fp32, every consumer
+// thread's part): the thread's two rows, a shuffle tree over the 8 row
+// groups of the warp, then the 8 warps in order into out[0, NH * 128).
+template <int NH>
+__device__ __forceinline__ void colsums(const float (&acc)[NH][64], float* red, float* out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const float v = part[j] + __shfl_xor_sync(0xffffffffu, part[j], 16);
-    if (lane < 16) out[warp * NT * 16 + j * 16 + lane] = v;
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = acc[h][4 * j + e] + acc[h][4 * j + 2 + e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (lane < 4) red[warp * kW + h * 128 + 8 * j + 2 * lane + e] = v;
+      }
+  wg::consumers_sync();
+  for (int col = threadIdx.x; col < NH * 128; col += wg::kConsumers) {
+    float s = 0.f;
+    for (int w = 0; w < 8; ++w) s += red[w * kW + col];
+    out[col] = s;
   }
+  wg::consumers_sync();  // red is free again
 }
 
-// dP[:, 0..N) += a [64, K] @ w [K, N] (N = 32 or 64): the dL/dPE hops of
-// want_dx; warps take the 16x16 output tiles in turn
-__device__ void gemm_small(const bf16* a, int lda, const bf16* w, int K, int N, float* dP,
-                           float* scratch) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* s = scratch + warp * kScratchPerWarp;
-  const int tiles = (kChunk / 16) * (N / 16);
-  for (int tile = warp; tile < tiles; tile += kWarps) {
-    const int i = tile % (kChunk / 16), j = tile / (kChunk / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, a + i * 16 * lda + k, lda);
-      wmma::load_matrix_sync(fb, w + (size_t)k * N + j * 16, N);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(s, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) dP[(i * 16 + (e >> 4)) * kPeCols + j * 16 + (e & 15)] += s[e];
-    __syncwarp();
-  }
+// dP[row][col0 + col] += acc for the columns below `cols` (this thread's own elements)
+__device__ __forceinline__ void add_dP(const float (&acc)[1][64], float* dP, long long row0, int col0, int cols) {
+  const long long r0 = row0 + 64 * (threadIdx.x >> 7);
+  wg::for_pairs<1>([&](int r, int col, int h, int i) {
+    float* d = dP + (r0 + r) * kPeCols + col0 + col;
+    if (col < cols) d[0] += acc[h][i];
+    if (col + 1 < cols) d[1] += acc[h][i + 1];
+  });
 }
 
-__global__ void __launch_bounds__(kThreads, 2) nerf_bwd_rows_kernel(const __grid_constant__ RowParams p) {
+__global__ void __launch_bounds__(wg::kThreads, 1) nerf_bwd_rows_kernel(const __grid_constant__ RowParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Tiles t = carve_tiles(smem);
-  float* q = reinterpret_cast<float*>(smem + kTileBytes);  // [64, 8] inputs
-  float* gt = q + kChunk * 8;                              // [64, 4] fp32 cotangent
-  float* red = gt + kChunk * 4;                            // [256] partial sums
-  unsigned char* vmask = reinterpret_cast<unsigned char*>(red + kThreads);  // [64, W/2]
-  float* dP = p.dx ? reinterpret_cast<float*>(vmask + kChunk * kWv) : nullptr;  // [64, 96]
+  unsigned char* base = smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023);
+  const wg::Tiles<kStages> t = wg::carve<kStages>(base);
+  float* q = reinterpret_cast<float*>(base + wg::Tiles<kStages>::kBytes);  // [128, 8] inputs
+  float* gt = q + kTile * 8;                                               // [128, 4] fp32 cotangent
+  float* red = gt + kTile * 4;                                             // [8 warps, 256]
+  if (threadIdx.x == 0) t.ring.init();
+  __syncthreads();
+  if (threadIdx.x >= wg::kConsumers) {  // the producer warp
+    const wg::Segment seg = {p.slices, p.n_slices, 1};
+    wg::produce(t.ring, &seg, 1);
+    return;
+  }
 
   const NerfWeights& w = p.w;
   const int tid = threadIdx.x, D = w.D;
-  const long long tile = blockIdx.x, row0 = tile * kChunk, Mp = p.Mp;
-  const int valid = (int)min((long long)kChunk, p.M - row0);
+  const long long tile = blockIdx.x, row0 = tile * kTile, Mp = p.Mp;
+  const int valid = (int)min((long long)kTile, p.M - row0);
   float* bp = p.bias_part + tile * bias_elems(D);
+  unsigned* masks = p.masks + tile * D * 4 * wg::kConsumers + tid;  // word k of layer i: [(4i + k) * 256]
+  const uint32_t x = wg::smem_u32(t.x), pe = wg::smem_u32(t.pe);
+  const int lane = tid & 31;
+  const int rw = 64 * (tid >> 7) + ((tid >> 5) & 3) * 16 + (lane >> 2);  // the thread's rows rw, rw + 8
   auto H = [&](int i) { return p.ws.h + (size_t)i * Mp * kW; };
   auto DZ = [&](int i) { return p.ws.dz + (size_t)i * Mp * kW; };
+  wg::Cursor cur;
+  float acc[2][64];
+  float accn[1][64];
 
-  // ---- forward recompute: PE and every activation to the workspace
-  point_pe(p.pts, p.dirs, row0, valid, p.S, t, q);
-  store_tile(t.pe, kLdpe, p.ws.pe, kPeCols, row0, kPeCols);
-  const Operand op0 = {t.pe, kLdpe, w.w0, 64};
-  dense<kChunk / 16, kW / (16 * kWarps)>(&op0, 1, w.tb[0], t.x[0], kLdx, kRelu, t.scratch);
-  __syncthreads();
-  store_tile(t.x[0], kLdx, H(0), kW, row0, kW);
-  int cur = 0;
-  for (int i = 1; i < D; ++i) {
-    const Operand ops[2] = {{t.x[cur], kLdx, w.tw[i], kW}, {t.pe, kLdpe, w.skip_w[i], 64}};
-    dense<kChunk / 16, kW / (16 * kWarps)>(ops, ((w.skip_mask >> i) & 1u) ? 2 : 1, w.tb[i],
-                                           t.x[cur ^ 1], kLdx, kRelu, t.scratch);
-    __syncthreads();
-    cur ^= 1;
-    store_tile(t.x[cur], kLdx, H(i), kW, row0, kW);
+  // ---- inputs and the PE tile
+  for (int e = tid; e < kTile * 8; e += wg::kConsumers) {
+    const int rr = e >> 3, c = e & 7;
+    float v = 0.f;
+    if (rr < valid && c < 6) {
+      const long long row = row0 + rr;
+      v = c < 3 ? p.pts[row * 3 + c] : p.dirs[(row / p.S) * 3 + (c - 3)];
+    }
+    q[e] = v;
   }
-  bf16* A = t.x[cur];      // h_{D-1}, then hv, then d_feature16, then every other d_z16
-  bf16* B = t.x[cur ^ 1];  // the feature, then d_zv16, then every other d_z16
-  const Operand opf = {A, kLdx, w.feat_w, kW};
-  dense<kChunk / 16, kW / (16 * kWarps)>(&opf, 1, w.feat_b, B, kLdx, kNone, t.scratch);
-  __syncthreads();
-  store_tile(B, kLdx, p.ws.feat, kW, row0, kW);
-  {
-    const Operand opv[2] = {{B, kLdx, w.views_wf, kW}, {t.pe + kPeViews, kLdpe, w.views_ws, 32}};
-    gemm_rows<kChunk / 16, kWv / (16 * kWarps)>(opv, 2, t.scratch, [&](int r, int col, float v, int) {
-      const float zv = v + w.views_b[col];
-      vmask[r * kWv + col] = zv > 0.f;
-      A[r * kLdx + col] = __float2bfloat16(activate(zv, kRelu));
-    });
-  }
-  for (int e = tid; e < kChunk * 4; e += kThreads)
+  for (int e = tid; e < kTile * 4; e += wg::kConsumers)
     gt[e] = (e >> 2) < valid ? p.g[(row0 + (e >> 2)) * 4 + (e & 3)] : 0.f;
-  __syncthreads();
-  store_tile(A, kLdx, p.ws.hv, kWv, row0, kWv);
+  if (p.dP)
+    for (int e = tid; e < kTile * kPeCols; e += wg::kConsumers) p.dP[row0 * kPeCols + e] = 0.f;
+  wg::consumers_sync();
+  for (int e = tid; e < kTile * 128; e += wg::kConsumers) {
+    const int rr = e >> 7, col = e & 127;
+    float v = 0.f;
+    if (rr < valid) {
+      if (col < kPtsCh) v = embed(q + rr * 8, col);
+      else if (col >= kPeViews && col < kPeViews + kViewCh) v = embed(q + rr * 8 + 3, col - kPeViews);
+    }
+    *reinterpret_cast<bf16*>(t.pe + wg::tile_offset(rr, col)) = __float2bfloat16(v);
+  }
+  wg::fence_async_smem();
+  wg::consumers_sync();
+  wg::copy_rows(t.pe, kPeCols, p.ws.pe, row0);
+
+  // ---- forward recompute: every activation to the workspace, the ReLU masks
+  for (int i = 0; i < D; ++i) {
+    const wg::Src ops[2] = {{i == 0 ? pe : x, i == 0 ? 1 : 4}, {pe, 1}};
+    wg::gemm(acc, ops, (i > 0 && ((w.skip_mask >> i) & 1u)) ? 2 : 1, t.ring, cur);
+    wg::bias_act(acc, w.tb[i], kRelu);
+    unsigned m[4] = {0u, 0u, 0u, 0u};  // bit 64h + k: acc[h][k] > 0 (on the bf16 value)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < 64; ++k) m[(64 * h + k) >> 5] |= (acc[h][k] > 0.f ? 1u : 0u) << (k & 31);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) masks[(4 * i + k) * wg::kConsumers] = m[k];
+    wg::group_sync();
+    wg::store_tile(acc, t.x);
+    wg::copy_rows(t.x, kW, H(i), row0);
+  }
+  {
+    const wg::Src op = {x, 4};
+    wg::gemm(acc, &op, 1, t.ring, cur);
+    wg::bias_act(acc, w.feat_b, kNone);
+    wg::group_sync();
+    wg::store_tile(acc, t.x);
+    wg::copy_rows(t.x, kW, p.ws.feat, row0);
+  }
+  {  // views: hv = relu(zv) to the workspace; d_zv = (zv > 0) * g16[:, :3] @ rgb_w in its place
+    const wg::Src opv[2] = {{x, 4}, {pe + wg::kPanelBytes, 1}};
+    wg::gemm(accn, opv, 2, t.ring, cur);
+    float dzv[1][64];
+    wg::for_pairs<1>([&](int r, int col, int h, int i) {
+      const float* gr = gt + (64 * (tid >> 7) + r) * 4;
+      const float g0 = rnd(gr[0]), g1 = rnd(gr[1]), g2 = rnd(gr[2]);
+      for (int e = 0; e < 2; ++e) {
+        const float zv = accn[h][i + e] + w.views_b[col + e];
+        const float d = g0 * bf(w.rgb_w[col + e]) + g1 * bf(w.rgb_w[kWv + col + e]) + g2 * bf(w.rgb_w[2 * kWv + col + e]);
+        dzv[h][i + e] = zv > 0.f ? d : 0.f;
+        accn[h][i + e] = rnd(activate(zv, kRelu));
+      }
+    });
+    wg::group_sync();
+    wg::store_tile(accn, t.x);
+    wg::copy_rows(t.x, kWv, p.ws.hv, row0);
+    colsums(dzv, red, bp + D * kW + kW);  // views_b; its barriers also end the copy's reads of x
+    wg::store_tile(dzv, t.x);             // d_zv16
+    wg::copy_rows(t.x, kWv, p.ws.dzv, row0);
+  }
 
   // ---- backward: the heads
-  for (int e = tid; e < kChunk * kG16; e += kThreads) {
+  for (int e = tid; e < kTile * kG16; e += wg::kConsumers) {
     const int r = e / kG16, c = e % kG16;
     p.ws.g16[(row0 + r) * kG16 + c] = __float2bfloat16(c < 4 ? gt[r * 4 + c] : 0.f);
   }
   if (tid < 4) {  // rgb_b and alpha_b: column sums of the fp32 cotangent
-    float s = 0.f;
-    for (int r = 0; r < kChunk; ++r) s += gt[r * 4 + tid];
-    bp[D * kW + kW + kWv + tid] = s;
+    float sum = 0.f;
+    for (int r = 0; r < kTile; ++r) sum += gt[r * 4 + tid];
+    bp[D * kW + kW + kWv + tid] = sum;
   }
-  {  // d_zv = (zv > 0) * g16[:, :3] @ rgb_w: two threads per column, 32 rows each
-    const int col = tid % kWv, half = tid / kWv;
-    const float w0 = bf(w.rgb_w[col]), w1 = bf(w.rgb_w[kWv + col]), w2 = bf(w.rgb_w[2 * kWv + col]);
-    float s = 0.f;
-    for (int r = half * 32; r < half * 32 + 32; ++r) {
-      const float d = rnd(gt[r * 4]) * w0 + rnd(gt[r * 4 + 1]) * w1 + rnd(gt[r * 4 + 2]) * w2;
-      const float dz = vmask[r * kWv + col] ? d : 0.f;
-      s += dz;
-      B[r * kLdx + col] = __float2bfloat16(dz);
-    }
-    red[tid] = s;
-  }
-  __syncthreads();
-  if (tid < kWv) bp[D * kW + kW + tid] = red[tid] + red[tid + kWv];
-  store_tile(B, kLdx, p.ws.dzv, kWv, row0, kWv);
-  if (dP) {
-    for (int e = tid; e < kChunk * kPeCols; e += kThreads) dP[e] = 0.f;
-    __syncthreads();
-    gemm_small(B, kLdx, p.wt.views_wsT, kWv, 32, dP + kPeViews, t.scratch);
+  const wg::Src dzv16 = {x, 2}, dz16 = {x, 4};
+  if (p.dP) {  // the view embedding's share of dL/dPE: d_zv16 @ views_ws^T
+    wg::gemm(accn, &dzv16, 1, t.ring, cur);
+    add_dP(accn, p.dP, row0, kPeViews, 32);
   }
   {  // d_feature = d_zv16 @ views_wf^T; its fp32 column sums are feature_b's grad
-    const Operand op = {B, kLdx, p.wt.views_wfT, kWv};
-    float part[kW / (16 * kWarps)] = {};
-    gemm_rows<kChunk / 16, kW / (16 * kWarps)>(&op, 1, t.scratch, [&](int r, int col, float v, int j) {
-      part[j] += v;
-      A[r * kLdx + col] = __float2bfloat16(v);
-    });
-    write_colsums(part, bp + D * kW);
+    wg::gemm(acc, &dzv16, 1, t.ring, cur);
+    colsums(acc, red, bp + D * kW);
+    wg::store_tile(acc, t.x);
+    wg::copy_rows(t.x, kW, p.ws.dfeat, row0);
   }
-  __syncthreads();
-  store_tile(A, kLdx, p.ws.dfeat, kW, row0, kW);
 
   // ---- the trunk: d_h of the last layer is the alpha head's part plus the
   // feature layer's; then d_h_{i-1} = d_z16_i @ tw[i]^T down the layers
   for (int i = D - 1; i >= 0; --i) {
-    // A holds the operand (d_feature16, then d_z16_{i+1}); B receives d_z16_i
-    const bf16* hm = H(i) + row0 * kW;
+    wg::gemm(acc, &dz16, 1, t.ring, cur);  // x: d_feature16, then d_z16_{i+1}
+    unsigned m[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) m[k] = masks[(4 * i + k) * wg::kConsumers];
     const bool last = i == D - 1;
-    const Operand op = {A, kLdx, last ? p.wt.featT : p.wt.twT[i + 1], kW};
-    float part[kW / (16 * kWarps)] = {};
-    gemm_rows<kChunk / 16, kW / (16 * kWarps)>(&op, 1, t.scratch, [&](int r, int col, float v, int j) {
-      if (last) v += rnd(gt[r * 4 + 3]) * bf(w.alpha_w[col]);
-      const float dz = bf(hm[r * kW + col]) > 0.f ? v : 0.f;
-      part[j] += dz;
-      B[r * kLdx + col] = __float2bfloat16(dz);
+    const float ga = last ? rnd(gt[rw * 4 + 3]) : 0.f, gb = last ? rnd(gt[(rw + 8) * 4 + 3]) : 0.f;
+    wg::for_pairs<2>([&](int r, int col, int h, int k) {
+      for (int e = 0; e < 2; ++e) {
+        float v = acc[h][k + e];
+        if (last) v += ((k >> 1) & 1 ? gb : ga) * bf(w.alpha_w[col + e]);
+        const int bit = 64 * h + k + e;
+        acc[h][k + e] = (m[bit >> 5] >> (bit & 31)) & 1u ? v : 0.f;
+      }
     });
-    write_colsums(part, bp + i * kW);
-    __syncthreads();
-    store_tile(B, kLdx, DZ(i), kW, row0, kW);
-    if (dP) {  // the point embedding's share: the skip layer's rows, then w0's
-      if (i > 0 && ((w.skip_mask >> i) & 1u)) gemm_small(B, kLdx, p.wt.skipT[i], kW, 64, dP, t.scratch);
-      if (i == 0) gemm_small(B, kLdx, p.wt.w0T, kW, 64, dP, t.scratch);
+    colsums(acc, red, bp + i * kW);
+    wg::store_tile(acc, t.x);  // d_z16_i
+    wg::copy_rows(t.x, kW, DZ(i), row0);
+    if (p.dP && (i == 0 || ((w.skip_mask >> i) & 1u))) {  // the point embedding's share: skip_w[i]^T, w0^T
+      wg::gemm(accn, &dz16, 1, t.ring, cur);
+      add_dP(accn, p.dP, row0, 0, 64);
     }
-    bf16* tmp = A;
-    A = B;
-    B = tmp;
   }
 
-  if (dP) {  // dL/dx through the PE, in fp32
-    __syncthreads();
-    for (int e = tid; e < kChunk * 6; e += kThreads) {
+  if (p.dx) {  // dL/dx through the PE, in fp32
+    wg::consumers_sync();
+    for (int e = tid; e < kTile * 6; e += wg::kConsumers) {
       const int r = e / 6, c = e % 6;
       if (r >= valid) continue;
-      const int base = c < 3 ? 0 : kPeViews, k = c % 3, L = c < 3 ? (kPtsCh - 3) / 6 : (kViewCh - 3) / 6;
+      const int off = c < 3 ? 0 : kPeViews, k = c % 3, L = c < 3 ? (kPtsCh - 3) / 6 : (kViewCh - 3) / 6;
       const float u = q[r * 8 + c];
-      const float* d = dP + r * kPeCols + base;
-      float s = d[k];
+      const float* d = p.dP + (row0 + r) * kPeCols + off;
+      float sum = d[k];
       for (int f = 0; f < L; ++f) {
         const float sc = (float)(1 << f), a = u * sc;
-        s += sc * (d[3 + 6 * f + k] * cosf(a) - d[6 + 6 * f + k] * sinf(a));
+        sum += sc * (d[3 + 6 * f + k] * cosf(a) - d[6 + 6 * f + k] * sinf(a));
       }
-      p.dx[(row0 + r) * 6 + c] = s;
+      p.dx[(row0 + r) * 6 + c] = sum;
     }
   }
 }
 
 // ---- (b) the weight grads: C[K, N] = sum over rows of A[m, k] * B[m, n]
+//
+// One block per 128 x 128 output tile of a job and slice of rows, on
+// wgmma: warpgroup g owns output rows [64g, 64g + 64) (k of the job), all
+// 128 columns (n). The row dimension is the product's depth, so both
+// operands are read as they lie in the workspace, rows of 64 k or n: the
+// MN-major 128-byte swizzled layout (sw128_desc's lbo: the 8 KB between a
+// tile's two 64-column panels). cp.async moves them, 16 bytes a thread,
+// into a ring of kWgStages stages of 64 rows, kWgStages - 2 ahead of the
+// products; columns past the job's K or N load as zeros.
 
 constexpr int kMaxJobs = 40;
-constexpr int kGemmThreads = 128;  // 4 warps, 32x32 of the 64x64 output tile each
-constexpr int kLds = 64 + 8;       // staged tile stride (bf16)
+constexpr int kWgStages = 4;
+constexpr int kWgStage = 2 * 2 * 64 * 128;  // A and B: two 64-column panels of 64 rows each
+constexpr int kWgradThreads = wg::kConsumers;
+constexpr size_t kWgradSmem = 1024 + kWgStages * kWgStage;
 
 struct GemmJob {
   const bf16* a;  // [rows, lda], columns [0, K)
@@ -303,75 +335,75 @@ struct WgradParams {
   float* part;      // [n_slices, total]
 };
 
-__global__ void __launch_bounds__(kGemmThreads) wgrad_kernel(const __grid_constant__ WgradParams p) {
-  __shared__ __align__(128) bf16 As[64 * kLds];
-  __shared__ __align__(128) bf16 Bs[64 * kLds];
-  __shared__ __align__(128) float stage[4 * 256];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 64 rows from m0 of columns [c0, c0 + 128) of a [rows, ld] plane into a
+// stage's two swizzled 64-column panels; columns at or past `cols` are zero
+__device__ __forceinline__ void load_panels(uint32_t dst, const bf16* src, int ld, int c0, int cols, long long m0) {
+  for (int e = threadIdx.x; e < 64 * 16; e += kWgradThreads) {
+    const int r = e >> 4, c = (e & 15) * 8;  // row, first of the chunk's 8 columns
+    const bool valid = c0 + c < cols;
+    const uint32_t off = (c >> 6) * (64 * 128) + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4);
+    cp_async16(dst + off, valid ? src + (m0 + r) * ld + c0 + c : src, valid);
+  }
+}
+
+__global__ void __launch_bounds__(kWgradThreads, 1) wgrad_kernel(const __grid_constant__ WgradParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = (wg::smem_u32(smem) + 1023) & ~1023u;
   int jid = 0;
   while (jid + 1 < p.n_jobs && p.job[jid + 1].tile0 <= (int)blockIdx.x) ++jid;
   const GemmJob& J = p.job[jid];
-  const int local = blockIdx.x - J.tile0, tn = (J.N + 63) / 64;
-  const int k0 = (local / tn) * 64, n0 = (local % tn) * 64;
+  const int local = blockIdx.x - J.tile0, tn = (J.N + 127) / 128;
+  const int k0 = (local / tn) * 128, n0 = (local % tn) * 128;
   const long long m_begin = (long long)blockIdx.y * p.slice_rows;
-  const long long m_end = min(p.rows, m_begin + p.slice_rows);
-  const int wk = warp >> 1, wn = warp & 1;
-  bool ok_k[2], ok_n[2];
-#pragma unroll
-  for (int f = 0; f < 2; ++f) {
-    ok_k[f] = k0 + wk * 32 + f * 16 < J.K;
-    ok_n[f] = n0 + wn * 32 + f * 16 < J.N;
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int fi = 0; fi < 2; ++fi)
-#pragma unroll
-    for (int fj = 0; fj < 2; ++fj) wmma::fill_fragment(acc[fi][fj], 0.f);
-
-  for (long long m0 = m_begin; m0 < m_end; m0 += 64) {
-    for (int e = tid; e < 64 * 8; e += kGemmThreads) {
-      const int r = e >> 3, c = (e & 7) * 8;
-      const bool row_ok = m0 + r < m_end;
-      uint4 va = make_uint4(0, 0, 0, 0), vb = make_uint4(0, 0, 0, 0);
-      if (row_ok && k0 + c < J.K) va = *reinterpret_cast<const uint4*>(J.a + (m0 + r) * J.lda + k0 + c);
-      if (row_ok && n0 + c < J.N) vb = *reinterpret_cast<const uint4*>(J.b + (m0 + r) * J.ldb + n0 + c);
-      *reinterpret_cast<uint4*>(As + r * kLds + c) = va;
-      *reinterpret_cast<uint4*>(Bs + r * kLds + c) = vb;
+  const int steps = (int)((min(p.rows, m_begin + p.slice_rows) - m_begin) / 64);
+  const int g = threadIdx.x >> 7;
+  auto a_at = [&](int s) { return base + (s % kWgStages) * kWgStage; };
+  auto load = [&](int s) {
+    if (s < steps) {
+      load_panels(a_at(s), J.a, J.lda, k0, J.K, m_begin + 64LL * s);
+      load_panels(a_at(s) + kWgStage / 2, J.b, J.ldb, n0, J.N, m_begin + 64LL * s);
     }
-    __syncthreads();
-    for (int kk = 0; kk < 64; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        if (ok_k[f]) wmma::load_matrix_sync(fa[f], As + kk * kLds + wk * 32 + f * 16, kLds);
-        if (ok_n[f]) wmma::load_matrix_sync(fb[f], Bs + kk * kLds + wn * 32 + f * 16, kLds);
-      }
-#pragma unroll
-      for (int fi = 0; fi < 2; ++fi)
-#pragma unroll
-        for (int fj = 0; fj < 2; ++fj)
-          if (ok_k[fi] && ok_n[fj]) wmma::mma_sync(acc[fi][fj], fa[fi], fb[fj], acc[fi][fj]);
-    }
-    __syncthreads();
-  }
+    cp_async_commit();  // one group a step, empty or not, keeps the count
+  };
 
-  float* s = stage + warp * 256;
+  float acc[1][64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[0][i] = 0.f;
+  wg::fence_regs(acc[0]);
+  constexpr int kAhead = kWgStages - 2;
+  for (int s = 0; s < kAhead; ++s) load(s);
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kAhead - 1>();  // step s has landed (this thread's copies)
+    wg::fence_async_smem();
+    __syncthreads();              // everyone's copies; every warp's products of step s - 2 are done
+    load(s + kAhead);             // into the stage of step s - 2
+    const uint32_t a = a_at(s) + g * (64 * 128), b = a_at(s) + kWgStage / 2;
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // 16 rows a product
+      wg::mma_m64n128k16<1>(acc[0], wg::sw128_desc(a + 2048 * kk, 64 * 128), wg::sw128_desc(b + 2048 * kk, 64 * 128));
+    wg::wgmma_commit();
+    wg::wgmma_wait<1>();
+  }
+  wg::wgmma_wait<0>();
+  wg::fence_regs(acc[0]);
+
   float* part = p.part + (long long)blockIdx.y * p.total + J.out;
-#pragma unroll
-  for (int fi = 0; fi < 2; ++fi)
-#pragma unroll
-    for (int fj = 0; fj < 2; ++fj) {
-      if (!(ok_k[fi] && ok_n[fj])) continue;
-      wmma::store_matrix_sync(s, acc[fi][fj], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int k = k0 + wk * 32 + fi * 16 + (e >> 4), n = n0 + wn * 32 + fj * 16 + (e & 15);
-        part[(long long)k * J.N + n] = s[e];
-      }
-      __syncwarp();
-    }
+  wg::for_pairs<1>([&](int r, int col, int h, int i) {
+    const int k = k0 + 64 * g + r, n = n0 + col;
+    if (k < J.K && n < J.N)
+      *reinterpret_cast<float2*>(part + (long long)k * J.N + n) = make_float2(acc[h][i], acc[h][i + 1]);
+  });
 }
 
 // ---- (c) out[j] = sum over s of part[s * total + j], added in slice order
@@ -389,36 +421,47 @@ __global__ void reduce_kernel(const float* part, long long total, int n_slices, 
 // Sizes of the buffers the caller allocates, for M rows of a D-layer net:
 // out[0] bf16 workspace elements, out[1] bias partials (fp32), out[2]
 // weight-grad partials (fp32) at slice_rows rows a slice, out[3] bias-grad
-// elements. The weight-grad result has `total` elements, the sum over the
-// jobs (see nst_nerf_points_bwd).
-extern "C" int nst_nerf_points_bwd_sizes(long long M, int D, long long total, int slice_rows,
+// elements, out[4] ReLU-mask words (uint32), out[5] dL/dPE floats (want_dx),
+// out[6] the weight slices of one tile without and out[7] with want_dx.
+// The weight-grad result has `total` elements, the sum over the jobs (see
+// nst_nerf_points_bwd).
+extern "C" int nst_nerf_points_bwd_sizes(long long M, int D, unsigned skip_mask, long long total, int slice_rows,
                                          long long* out) {
   using namespace nst;
-  if (D < 1 || D > kMaxD || slice_rows < 64 || slice_rows % 64) return (int)cudaErrorInvalidValue;
-  const long long Mp = (M + kChunk - 1) / kChunk * kChunk;
+  if (D < 1 || D > kMaxD || (skip_mask & 1u) || (skip_mask >> D) || slice_rows < kTile || slice_rows % kTile)
+    return (int)cudaErrorInvalidValue;
+  const long long Mp = (M + kTile - 1) / kTile * kTile;
   out[0] = Mp * ws_elems_per_row(D);
-  out[1] = Mp / kChunk * bias_elems(D);
+  out[1] = Mp / kTile * bias_elems(D);
   out[2] = (Mp + slice_rows - 1) / slice_rows * total;
   out[3] = bias_elems(D);
+  out[4] = Mp / kTile * D * 4 * wg::kConsumers;
+  out[5] = Mp * kPeCols;
+  out[6] = wg::forward_slices(D, skip_mask, false) + wg::backward_slices(D, skip_mask, false);
+  out[7] = wg::forward_slices(D, skip_mask, false) + wg::backward_slices(D, skip_mask, true);
   return 0;
 }
 
 // ptrs, in order: pts, dirs, g, dx (or null: want_dx off), the bf16
 // workspace, the bias partials, the weight-grad partials, dw (fp32 [total]:
-// the matrix grads, bf16-rounded, in job order), db (fp32, bias_elems);
-// then the NeRF's weights (nerf_mlp.cuh::read_weights, all heads); then
-// the transposed copies: tw[i]^T for i = 1..D-1, feature_w^T, views_wf^T,
-// and with dx also views_ws^T, w0^T and skip_w[i]^T for each skip layer.
+// the matrix grads, bf16-rounded, in job order), db (fp32, bias_elems), the
+// ReLU masks, dL/dPE (or null with dx), the weight slices of one tile
+// (fused_render.wgmma_slices of wgmma_program(..., backward=True)); then
+// the NeRF's weights (nerf_mlp.cuh::read_weights, all heads: the biases and
+// heads the epilogues read).
 // The jobs of dw, each [K, N] row-major: w0 [64, W], tw[i] [W, W] for
 // i = 1..D-1, skip_w[i] [64, W] for each skip layer, feature_w [W, W],
 // views_wf [W, W/2], views_ws [32, W/2], then h_{D-1}^T g16 [W, 16] (the
 // alpha head's grad in column 3) and hv^T g16 [W/2, 16] (the rgb head's in
-// columns 0..2). Returns a cudaError_t.
+// columns 0..2). pass: 0 the row pass, 1 the weight-grad GEMMs, 2 the
+// reductions; the caller launches them in that order on one stream.
+// Returns a cudaError_t.
 extern "C" int nst_nerf_points_bwd(const void* const* ptrs, int n_ptrs, long long M, long long S, int D,
-                                   unsigned skip_mask, long long total, int slice_rows, void* stream) {
+                                   unsigned skip_mask, long long total, int slice_rows, int pass, void* stream) {
   using namespace nst;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S < 1 || M % S != 0 || slice_rows < 64 || slice_rows % 64) return (int)cudaErrorInvalidValue;
+  if (S < 1 || M % S != 0 || slice_rows < kTile || slice_rows % kTile || pass < 0 || pass > 2)
+    return (int)cudaErrorInvalidValue;
   RowParams p = {};
   p.pts = static_cast<const float*>(ptrs[0]);
   p.dirs = static_cast<const float*>(ptrs[1]);
@@ -429,22 +472,15 @@ extern "C" int nst_nerf_points_bwd(const void* const* ptrs, int n_ptrs, long lon
   float* wpart = static_cast<float*>(const_cast<void*>(ptrs[6]));
   float* dw = static_cast<float*>(const_cast<void*>(ptrs[7]));
   float* db = static_cast<float*>(const_cast<void*>(ptrs[8]));
-  int k = 9;
-  const int kw = read_weights(ptrs + k, D, skip_mask, false, &p.w);
-  if (kw < 0) return (int)cudaErrorInvalidValue;
-  k += kw;
-  for (int i = 1; i < D; ++i) p.wt.twT[i] = static_cast<const bf16*>(ptrs[k++]);
-  p.wt.featT = static_cast<const bf16*>(ptrs[k++]);
-  p.wt.views_wfT = static_cast<const bf16*>(ptrs[k++]);
-  if (p.dx) {
-    p.wt.views_wsT = static_cast<const bf16*>(ptrs[k++]);
-    p.wt.w0T = static_cast<const bf16*>(ptrs[k++]);
-    for (int i = 1; i < D; ++i)
-      if ((skip_mask >> i) & 1u) p.wt.skipT[i] = static_cast<const bf16*>(ptrs[k++]);
-  }
-  if (k != n_ptrs) return (int)cudaErrorInvalidValue;
+  p.masks = static_cast<unsigned*>(const_cast<void*>(ptrs[9]));
+  p.dP = static_cast<float*>(const_cast<void*>(ptrs[10]));
+  p.slices = static_cast<const bf16*>(ptrs[11]);
+  const int kw = read_weights(ptrs + 12, D, skip_mask, false, &p.w);
+  if (kw < 0 || 12 + kw != n_ptrs || (p.dx == nullptr) != (p.dP == nullptr) || !p.slices || !p.masks)
+    return (int)cudaErrorInvalidValue;
+  p.n_slices = wg::forward_slices(D, skip_mask, false) + wg::backward_slices(D, skip_mask, p.dx != nullptr);
 
-  const long long Mp = (M + kChunk - 1) / kChunk * kChunk;
+  const long long Mp = (M + kTile - 1) / kTile * kTile;
   p.M = M;
   p.S = S;
   p.Mp = Mp;
@@ -470,7 +506,7 @@ extern "C" int nst_nerf_points_bwd(const void* const* ptrs, int n_ptrs, long lon
     GemmJob& j = q.job[q.n_jobs++];
     j = GemmJob{a, b, lda, ldb, K, N, off, tiles};
     off += (long long)K * N;
-    tiles += ((K + 63) / 64) * ((N + 63) / 64);
+    tiles += ((K + 127) / 128) * ((N + 127) / 128);
   };
   auto Hp = [&](int i) { return p.ws.h + (size_t)i * Mp * kW; };
   auto DZp = [&](int i) { return p.ws.dz + (size_t)i * Mp * kW; };
@@ -488,23 +524,25 @@ extern "C" int nst_nerf_points_bwd(const void* const* ptrs, int n_ptrs, long lon
   q.slice_rows = slice_rows;
   q.total = total;
   q.part = wpart;
-
-  const size_t smem = kRowSmem + (p.dx ? kDxSmem : 0);
-  cudaError_t err = cudaFuncSetAttribute(nerf_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
   if (M == 0) return 0;
-  nerf_bwd_rows_kernel<<<(unsigned)(Mp / kChunk), kThreads, smem, st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+
   const int n_slices = (int)((Mp + slice_rows - 1) / slice_rows);
-  wgrad_kernel<<<dim3((unsigned)tiles, (unsigned)n_slices), kGemmThreads, 0, st>>>(q);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(wpart, total, n_slices, dw, 1);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nb = bias_elems(D);
-  reduce_kernel<<<(unsigned)((nb + 255) / 256), 256, 0, st>>>(p.bias_part, nb, (int)(Mp / kChunk), db, 0);
+  if (pass == 0) {
+    cudaError_t err = cudaFuncSetAttribute(nerf_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)kRowSmem);
+    if (err != cudaSuccess) return (int)err;
+    nerf_bwd_rows_kernel<<<(unsigned)(Mp / kTile), wg::kThreads, kRowSmem, st>>>(p);
+  } else if (pass == 1) {
+    cudaError_t err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)kWgradSmem);
+    if (err != cudaSuccess) return (int)err;
+    wgrad_kernel<<<dim3((unsigned)tiles, (unsigned)n_slices), kWgradThreads, kWgradSmem, st>>>(q);
+  } else {
+    reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(wpart, total, n_slices, dw, 1);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int nb = bias_elems(D);
+    reduce_kernel<<<(unsigned)((nb + 255) / 256), 256, 0, st>>>(p.bias_part, nb, (int)(Mp / kTile), db, 0);
+  }
   return (int)cudaGetLastError();
 }

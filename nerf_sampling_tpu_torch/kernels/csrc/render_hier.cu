@@ -35,28 +35,42 @@
 // What bounds it on the H100: the two MLP passes, Nc sigma-only queries
 // (~0.98 MFLOP each) and Nc+Nf full queries (~1.19 MFLOP) a ray, on the
 // tensor cores, with the weights (2 x 1.2 MB bf16) streamed from L2. Device
-// memory traffic is 24 bytes in and 44 out per ray. At the train step's
-// 1024 rays it is ~205 blocks of 5 rays, about one wave of 2 blocks per SM.
-// In fp32 the same products run on the FMA units (67 TFLOP/s), 46.5 TFLOP
-// per 400x400 frame at 64 + 128 samples: at least 0.7 s.
+// memory traffic is 24 bytes in and 44 out per ray. In fp32 the same
+// products run on the FMA units (67 TFLOP/s), 46.5 TFLOP per 400x400 frame
+// at 64 + 128 samples: at least 0.7 s.
 //
-// Design: one block per R = min(1024 / (Nc+Nf), 16) rays, so the union
-// planes hold R*(Nc+Nf) <= 1024 rows. Six fp32 planes in shared memory:
+// Design: one block per R rays, R = min(rows / (Nc+Nf), 16), so the union
+// planes hold R*(Nc+Nf) <= rows rows. Six fp32 planes in shared memory:
 // U (unsorted union; coarse z first, in concat order), zs (coarse z, then
 // the sorted union), sg (coarse then fine sigma) and three planes that
 // hold the coarse weights, CDF and midpoints until the fine pass writes
-// rgb there. The MLP is nerf_mlp.cuh's, shared with K2/K3.
+// rgb there. bf16 runs the MLP on the wgmma core (mlp_wgmma.cuh): 288
+// threads, the producer warp streaming both NeRFs' weight slices for the
+// whole block (coarse pass, then fine) while the two consumer warpgroups
+// run everything else; rows = 1536, so 8 rays a block at 64 + 128 samples
+// and the train step's 1024 rays fill 128 of the 132 SMs in one wave at
+// one block per SM. fp32 and int8 keep nerf_mlp.cuh's cores (256 threads,
+// rows = 1024, 64-row chunks).
 
 #include <cuda_runtime.h>
 
+#include "mlp_wgmma.cuh"
 #include "nerf_mlp.cuh"
 #include "philox.cuh"
 
 namespace nst {
 namespace {
 
-constexpr int kMaxRows = 1024;  // union rows per block
-constexpr int kMaxRays = 16;    // rays per block
+constexpr int kMaxRays = 16;  // rays per block
+constexpr int kStages = 5;    // weight ring stages of the bf16 kernel
+
+// the bf16 kernel runs the wgmma core; fp32 and int8 keep their cores
+template <typename T>
+constexpr bool kOnCore = std::is_same_v<T, bf16>;
+template <typename T>
+constexpr int kBlockThreads = kOnCore<T> ? wg::kThreads : kThreads;
+template <typename T>
+constexpr int kMaxRows = kOnCore<T> ? 1536 : 1024;  // union rows per block
 
 template <typename T>
 struct HierParams {
@@ -70,11 +84,19 @@ struct HierParams {
   int lindisp, white_bkgd, det;
   unsigned seed;
   NerfWeightsT<T> wc, wf;
+  const bf16* slices_c;  // bf16: the coarse net's forward slices (sigma_only), then the fine net's
+  const bf16* slices_f;
+  int n_slices_c, n_slices_f;
 };
 
 template <typename T>
+__host__ __device__ constexpr size_t mlp_bytes() {
+  if constexpr (kOnCore<T>) return 1024 + wg::Tiles<kStages>::kBytes;  // + the 1024-byte alignment
+  else return tile_bytes<T>();
+}
+template <typename T>
 constexpr size_t smem_bytes() {
-  return tile_bytes<T>() + (6 * kMaxRows + 8 * kMaxRays) * sizeof(float);
+  return mlp_bytes<T>() + (6 * kMaxRows<T> + 8 * kMaxRays) * sizeof(float);
 }
 
 template <typename T>
@@ -91,23 +113,52 @@ __device__ __forceinline__ float grid_z(const HierParams<T>& p, int s) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 1 : 2)
+__global__ void __launch_bounds__(kBlockThreads<T>, kOnCore<T> || sizeof(T) == 4 ? 1 : 2)
     render_hier_kernel(const __grid_constant__ HierParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const TilesT<T> t = carve_tiles<T>(smem);
-  float* U = reinterpret_cast<float*>(smem + tile_bytes<T>());
-  float* zs = U + kMaxRows;
-  float* sg = zs + kMaxRows;
-  float* plane[3] = {sg + kMaxRows, sg + 2 * kMaxRows, sg + 3 * kMaxRows};
-  float* ray = sg + 4 * kMaxRows;  // per ray: o[3], d[3], |d|, spare
-  float* wts = plane[0];           // coarse weights [r*Nc + s]
-  float* cdf = plane[1];           // [r*(Nc-1) + k]
-  float* mids = plane[2];          // [r*(Nc-1) + k]
+  float* U = reinterpret_cast<float*>(smem + mlp_bytes<T>());
+  float* zs = U + kMaxRows<T>;
+  float* sg = zs + kMaxRows<T>;
+  float* plane[3] = {sg + kMaxRows<T>, sg + 2 * kMaxRows<T>, sg + 3 * kMaxRows<T>};
+  float* ray = sg + 4 * kMaxRows<T>;  // per ray: o[3], d[3], |d|, spare
+  float* wts = plane[0];              // coarse weights [r*Nc + s]
+  float* cdf = plane[1];              // [r*(Nc-1) + k]
+  float* mids = plane[2];             // [r*(Nc-1) + k]
+  const long long ray0 = (long long)blockIdx.x * p.R;
+  const int nr = (int)min((long long)p.R, p.n - ray0);
+
+  using TilesK = std::conditional_t<kOnCore<T>, wg::Tiles<kStages>, TilesT<T>>;
+  TilesK t;
+  wg::Cursor cur;
+  if constexpr (kOnCore<T>) {
+    t = wg::carve<kStages>(smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023));
+    if (threadIdx.x == 0) t.ring.init();
+    __syncthreads();
+    if (threadIdx.x >= wg::kConsumers) {  // the producer: both passes' slices, tile by tile
+      const wg::Segment segs[2] = {{p.slices_c, p.n_slices_c, (nr * p.Nc + wg::kRows - 1) / wg::kRows},
+                                   {p.slices_f, p.n_slices_f, (nr * (p.Nc + p.Nf) + wg::kRows - 1) / wg::kRows}};
+      wg::produce(t.ring, segs, 2);
+      return;
+    }
+  } else {
+    t = carve_tiles<T>(smem);
+  }
+  // the consumers' barrier: threads 0-255 (the producer warp never joins)
+  auto sync = [] {
+    if constexpr (kOnCore<T>) wg::consumers_sync();
+    else __syncthreads();
+  };
+  auto mlp = [&](const NerfWeightsT<T>& w, int rows, int S, bool sigma_only) {
+    if constexpr (kOnCore<T>) {
+      wg::nerf_rows(w, t, cur, ray, zs, rows, S, sigma_only, sg, plane);
+      sync();
+    } else {
+      nerf_rows(w, t, ray, zs, rows, S, sigma_only, sg, plane);
+    }
+  };
 
   const int tid = threadIdx.x;
   const int Nc = p.Nc, Nf = p.Nf, Su = Nc + Nf, B = Nc - 1;
-  const long long ray0 = (long long)blockIdx.x * p.R;
-  const int nr = (int)min((long long)p.R, p.n - ray0);
 
   for (int r = tid; r < nr; r += kThreads) {
     float* q = ray + 8 * r;
@@ -130,10 +181,10 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 1 : 2)
     zs[e] = z;
     U[r * Su + s] = z;
   }
-  __syncthreads();
+  sync();
 
   // 2. coarse sigma, then the coarse weights, CDF and midpoints per ray
-  nerf_rows(p.wc, t, ray, zs, nr * Nc, Nc, true, sg, plane);
+  mlp(p.wc, nr * Nc, Nc, true);
   for (int r = tid; r < nr; r += kThreads) {
     const float dn = ray[8 * r + 6];
     const float* z = zs + r * Nc;
@@ -155,7 +206,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 1 : 2)
     }
     for (int k = 0; k < B; ++k) mids[r * B + k] = 0.5f * (z[k + 1] + z[k]);
   }
-  __syncthreads();
+  sync();
 
   // 3. fine z by inverse CDF, after the coarse z of each ray's union
   for (int e = tid; e < nr * Nf; e += kThreads) {
@@ -176,14 +227,14 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 1 : 2)
     const float tt = __fdiv_rn(__fsub_rn(u, c[below]), denom);
     U[r * Su + Nc + j] = __fadd_rn(m[below], __fmul_rn(tt, __fsub_rn(m[above], m[below])));
   }
-  __syncthreads();
+  sync();
 
   // 4. the union, sorted stably per ray (coarse first on ties)
   sort_rows(U, zs, nr, Su);
-  __syncthreads();
+  sync();
 
   // 5. the fine NeRF over the union, then compositing and the argmax
-  nerf_rows(p.wf, t, ray, zs, nr * Su, Su, false, sg, plane);
+  mlp(p.wf, nr * Su, Su, false);
   for (int r = tid; r < nr; r += kThreads) {
     const float dn = ray[8 * r + 6];
     float T_ = 1.f, acc = 0.f, dep = 0.f, c[3] = {0.f, 0.f, 0.f};
@@ -218,9 +269,16 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 1 : 2)
   }
 }
 
+// Rays per block at Nc + Nf samples (>= 2 at 512).
+template <typename T>
+constexpr int rays_per_block(int Su) {
+  return kMaxRows<T> / Su < kMaxRays ? kMaxRows<T> / Su : kMaxRays;
+}
+
 // ptrs, in order: rays_o, rays_d, draws (or null), out; the coarse NeRF's
 // trunk and alpha head; the fine NeRF's weights (nerf_mlp.cuh::read_pack,
-// with the int8 plans plan_c and plan_f, null for bf16 and fp32).
+// with the int8 plans plan_c and plan_f, null for bf16 and fp32); for bf16
+// then the coarse and the fine net's weight slices (mlp_wgmma.cuh).
 template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int Dc, unsigned skip_c,
            int Df, unsigned skip_f, float near_, float far_, int lindisp, int white_bkgd, unsigned seed,
@@ -234,11 +292,20 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int
   const int kc = read_pack(ptrs + 4, Dc, skip_c, true, plan_c, &p.wc);
   if (kc < 0) return (int)cudaErrorInvalidValue;
   const int kf = read_pack(ptrs + 4 + kc, Df, skip_f, false, plan_f, &p.wf);
-  if (kf < 0 || n_ptrs != 4 + kc + kf) return (int)cudaErrorInvalidValue;
+  if (kf < 0) return (int)cudaErrorInvalidValue;
+  int k = 4 + kc + kf;
+  if constexpr (kOnCore<T>) {
+    p.slices_c = static_cast<const bf16*>(ptrs[k++]);
+    p.slices_f = static_cast<const bf16*>(ptrs[k++]);
+    p.n_slices_c = wg::forward_slices(Dc, skip_c, true);
+    p.n_slices_f = wg::forward_slices(Df, skip_f, false);
+    if (!p.slices_c || !p.slices_f) return (int)cudaErrorInvalidValue;
+  }
+  if (n_ptrs != k) return (int)cudaErrorInvalidValue;
   p.n = n;
   p.Nc = Nc;
   p.Nf = Nf;
-  p.R = kMaxRows / (Nc + Nf) < kMaxRays ? kMaxRows / (Nc + Nf) : kMaxRays;  // >= 2
+  p.R = rays_per_block<T>(Nc + Nf);
   p.near_ = near_;
   p.far_ = far_;
   p.lindisp = lindisp;
@@ -253,7 +320,7 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
   const unsigned grid = (unsigned)((n + p.R - 1) / p.R);
-  render_hier_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  render_hier_kernel<T><<<grid, kBlockThreads<T>, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -279,13 +346,17 @@ extern "C" int nst_render_hier(const void* const* ptrs, int n_ptrs, long long n,
                                 white_bkgd, seed, det, nullptr, nullptr, stream);
 }
 
-// Resident blocks per SM of K6 at its launch configuration (occupancy).
-extern "C" int nst_render_hier_occupancy(int* blocks_per_sm) {
+// K6's launch shape at Nc + Nf samples: resident blocks per SM, rays per
+// block, threads per block and dynamic shared memory.
+extern "C" int nst_render_hier_occupancy(int Nc, int Nf, int* out) {
   using namespace nst;
   constexpr size_t smem = smem_bytes<bf16>();
   cudaError_t err = cudaFuncSetAttribute(render_hier_kernel<bf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, render_hier_kernel<bf16>,
-                                                            kThreads, smem);
+  out[1] = rays_per_block<bf16>(Nc + Nf);
+  out[2] = kBlockThreads<bf16>;
+  out[3] = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, render_hier_kernel<bf16>, kBlockThreads<bf16>,
+                                                            smem);
 }

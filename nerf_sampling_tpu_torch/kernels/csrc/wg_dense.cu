@@ -1,0 +1,108 @@
+// One dense layer on the wgmma core (mlp_wgmma.cuh), for the [core] check
+// of chip_smoke.py: out = act(a @ w + a2 @ w2 + bias) in bf16, with fp32
+// accumulation, over M rows in 128-row tiles (the rows past M are zero).
+// It exercises the pieces the NeRF kernels build on, at a size the check
+// can hold against torch.matmul: the swizzled activation tile, the ring of
+// bulk-copied weight slices, both consumer warpgroups, a second operand
+// accumulated into the same sums, and the register epilogue.
+
+#include <cuda_runtime.h>
+
+#include "mlp_wgmma.cuh"
+
+namespace nst {
+namespace {
+
+constexpr int kStages = 4;
+
+struct DenseParams {
+  const bf16* a;       // [M, K]
+  const bf16* a2;      // [M, 64] or null
+  const bf16* slices;  // the product's slices (w, then w2)
+  const float* bias;   // [N]
+  bf16* out;           // [M, N]
+  long long M;
+  int K, N, act, n_slices;
+};
+
+constexpr size_t kDenseSmem = 1024 + 5 * wg::kPanelBytes + wg::Ring<kStages>::kBytes;
+
+// rows [row0, row0 + 128) of a [M, cols] bf16 matrix into a swizzled tile
+__device__ void load_rows(const bf16* src, long long M, int cols, long long row0, unsigned char* tile) {
+  const int per_row = cols / 8;
+  for (int e = threadIdx.x; e < wg::kRows * per_row; e += wg::kConsumers) {
+    const int r = e / per_row, c = (e - r * per_row) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (row0 + r < M) v = *reinterpret_cast<const uint4*>(src + (row0 + r) * cols + c);
+    *reinterpret_cast<uint4*>(tile + wg::tile_offset(r, c)) = v;
+  }
+}
+
+template <int NH>
+__device__ void dense_tile(const DenseParams& p, const wg::Src* ops, int n_ops, const wg::Ring<kStages>& ring,
+                           long long row0) {
+  wg::Cursor cur;
+  float acc[NH][64];
+  wg::gemm(acc, ops, n_ops, ring, cur);
+  wg::bias_act(acc, p.bias, p.act);
+  const long long r0 = row0 + 64 * (threadIdx.x >> 7);
+  wg::for_pairs<NH>([&](int r, int col, int h, int i) {
+    if (r0 + r < p.M)
+      *reinterpret_cast<__nv_bfloat162*>(p.out + (r0 + r) * p.N + col) =
+          __floats2bfloat162_rn(acc[h][i], acc[h][i + 1]);
+  });
+}
+
+__global__ void __launch_bounds__(wg::kThreads, 1) wg_dense_kernel(const __grid_constant__ DenseParams p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* x = base;
+  unsigned char* x2 = base + 4 * wg::kPanelBytes;
+  const wg::Ring<kStages> ring{wg::smem_u32(base + 5 * wg::kPanelBytes)};
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  if (threadIdx.x >= wg::kConsumers) {  // the producer warp
+    const wg::Segment seg = {p.slices, p.n_slices, 1};
+    wg::produce(ring, &seg, 1);
+    return;
+  }
+  const long long row0 = (long long)blockIdx.x * wg::kRows;
+  load_rows(p.a, p.M, p.K, row0, x);
+  if (p.a2) load_rows(p.a2, p.M, 64, row0, x2);
+  wg::fence_async_smem();
+  wg::consumers_sync();
+  const wg::Src ops[2] = {{wg::smem_u32(x), p.K / 64}, {wg::smem_u32(x2), 1}};
+  if (p.N == 256) dense_tile<2>(p, ops, p.a2 ? 2 : 1, ring, row0);
+  else dense_tile<1>(p, ops, p.a2 ? 2 : 1, ring, row0);
+}
+
+}  // namespace
+}  // namespace nst
+
+// ptrs: a [M, K], a2 [M, 64] or null, the slices of w [K, N] then (with
+// a2) of w2 [64, N] (fused_render.wgmma_slices), bias [N], out [M, N].
+// K in {64, 128, 192, 256}, N in {128, 256}. Returns a cudaError_t.
+extern "C" int nst_wg_dense(const void* const* ptrs, int n_ptrs, long long M, int K, int N, int act,
+                            void* stream) {
+  using namespace nst;
+  if (n_ptrs != 5 || K < 64 || K > 256 || K % 64 || (N != 128 && N != 256) || act < 0 || act > 2)
+    return (int)cudaErrorInvalidValue;
+  DenseParams p = {};
+  p.a = static_cast<const bf16*>(ptrs[0]);
+  p.a2 = static_cast<const bf16*>(ptrs[1]);
+  p.slices = static_cast<const bf16*>(ptrs[2]);
+  p.bias = static_cast<const float*>(ptrs[3]);
+  p.out = static_cast<bf16*>(const_cast<void*>(ptrs[4]));
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.act = act;
+  p.n_slices = (K / 64 + (p.a2 ? 1 : 0)) * (N / 128);
+  cudaError_t err = cudaFuncSetAttribute(wg_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kDenseSmem);
+  if (err != cudaSuccess) return (int)err;
+  if (M == 0) return 0;
+  wg_dense_kernel<<<(unsigned)((M + wg::kRows - 1) / wg::kRows), wg::kThreads, kDenseSmem,
+                    static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}

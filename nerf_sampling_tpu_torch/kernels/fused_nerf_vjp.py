@@ -15,9 +15,12 @@ dL/d(points, view directions) through the fp32 positional encoding:
   as the JAX package's grads are).
 
 The kernel's sums are deterministic (two launches give the same bits, and
-``want_dx`` does not change the weight grads). ``nerf_points_bwd_plain`` is
-the same backward written out in plain PyTorch, rounding where the kernel
-rounds (autograd of the bf16 forward would round elsewhere).
+``want_dx`` does not change the weight grads). Its row pass runs on the
+wgmma core (``csrc/mlp_wgmma.cuh``), fed the pack's forward and backward
+weight slices (``fused_render.wgmma_slices``), made on every call since
+the weights change every step. ``nerf_points_bwd_plain`` is the same
+backward written out in plain PyTorch, rounding where the kernel rounds
+(autograd of the bf16 forward would round elsewhere).
 
 ``fused_nerf_train_apply`` is a ``torch.autograd.Function``: K4 forward,
 K5 backward, the module's live weights packed on every call, and the
@@ -44,6 +47,8 @@ from nerf_sampling_tpu_torch.kernels.fused_render import (
     _flat_weights,
     mlp_plain,
     pack_nerf,
+    wgmma_program,
+    wgmma_slices,
 )
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
 
@@ -63,19 +68,6 @@ def grad_jobs(packed: dict) -> list[tuple[str, int | None, int, int]]:
              ("views_ws", None, VIEW_ROWS, W // 2), ("alpha_head", None, W, _HEAD_COLS),
              ("rgb_head", None, W // 2, _HEAD_COLS)]
     return jobs
-
-
-def transposed_weights(packed: dict, want_dx: bool) -> list[torch.Tensor]:
-    """The [out, in] copies the d_h chain reads, in the order the C entry
-    point takes them."""
-    def T(w: torch.Tensor) -> torch.Tensor:
-        return w.t().contiguous()
-
-    out = [T(w) for w in packed["trunk_w"]] + [T(packed["feature_w"]), T(packed["views_wf"])]
-    if want_dx:
-        out += [T(packed["views_ws"]), T(packed["w0"])]
-        out += [T(packed["skip_w"][i]) for i in sorted(packed["skip_w"])]
-    return out
 
 
 def _pe_backward(dP: torch.Tensor, x: torch.Tensor, L: int) -> torch.Tensor:
@@ -201,11 +193,15 @@ def nerf_points_bwd_kernel(
     want_dx: bool,
     multires: int = 10,
     multires_views: int = 4,
+    events: list | None = None,
 ) -> tuple[dict, torch.Tensor | None, torch.Tensor | None]:
     """K5: the grads of ``nerf_points_bwd_plain`` for the cotangent g [M, 4].
 
     On a CPU tensor this runs ``nerf_points_bwd_plain`` at bf16; on a CUDA
-    tensor it launches the kernel, or raises on what it does not take.
+    tensor it launches the kernel's three passes (the row pass, the
+    weight-grad GEMMs, the reductions), or raises on what it does not take.
+    ``events``, a list, receives four recorded CUDA events: before each
+    pass and after the last (the per-pass times of chip_smoke.py).
     """
     global launches
     S = _rows_per_dir(pts, viewdirs)
@@ -218,21 +214,35 @@ def nerf_points_bwd_kernel(
                                      multires_views=multires_views, dtype=torch.bfloat16)
     _check_cuda(cfg, multires, multires_views, (pts, viewdirs, g), weights)
     dev = pts.device
+    skip_mask = sum(1 << i for i in packed["skip_w"])
     total = sum(K * N for _, _, K, N in grad_jobs(packed))
     lib = build.load_library()
-    sizes = (ctypes.c_longlong * 4)()
-    build.check(lib.nst_nerf_points_bwd_sizes(m, cfg.D, total, SLICE_ROWS, sizes), "nst_nerf_points_bwd_sizes")
+    sizes = (ctypes.c_longlong * 8)()
+    build.check(lib.nst_nerf_points_bwd_sizes(m, cfg.D, skip_mask, total, SLICE_ROWS, sizes),
+                "nst_nerf_points_bwd_sizes")
+    slices = wgmma_slices(wgmma_program(packed, backward=True, want_dx=want_dx))
+    if slices.shape[0] != sizes[7 if want_dx else 6]:
+        raise ValueError("the weight slices do not match the kernel's program")
     ws = torch.empty(sizes[0], dtype=torch.bfloat16, device=dev)
     bias_part = torch.empty(sizes[1], dtype=torch.float32, device=dev)
     wpart = torch.empty(sizes[2], dtype=torch.float32, device=dev)
     dw = torch.empty(total, dtype=torch.float32, device=dev)
     db = torch.empty(sizes[3], dtype=torch.float32, device=dev)
+    masks = torch.empty(sizes[4], dtype=torch.int32, device=dev)
+    dP = torch.empty(sizes[5], dtype=torch.float32, device=dev) if want_dx else None
     dx = torch.empty((m, 6), dtype=torch.float32, device=dev) if want_dx else None
-    arr, count = build.pointer_array([pts, viewdirs, g, dx, ws, bias_part, wpart, dw, db] + weights
-                                     + transposed_weights(packed, want_dx))
-    rc = lib.nst_nerf_points_bwd(arr, count, m, S, cfg.D, sum(1 << i for i in packed["skip_w"]), total,
-                                 SLICE_ROWS, build.current_stream(dev))
-    build.check(rc, "nerf_points_bwd_kernel")
+    arr, count = build.pointer_array([pts, viewdirs, g, dx, ws, bias_part, wpart, dw, db, masks, dP, slices]
+                                     + weights)
+    stream = build.current_stream(dev)
+    for k in range(3):  # the row pass, the weight-grad GEMMs, the reductions
+        if events is not None:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        rc = lib.nst_nerf_points_bwd(arr, count, m, S, cfg.D, skip_mask, total, SLICE_ROWS, k, stream)
+        build.check(rc, "nerf_points_bwd_kernel")
+    if events is not None:
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
     launches += 1
     d = _unflatten_grads(packed, dw, db)
     if not want_dx:

@@ -30,6 +30,12 @@ concatenation of the reference is one more zero-padded operand of the same
 sum. ``render_around_depth_plain``, ``render_gaussian_plain``,
 ``render_linspace_plain`` and ``shade_plain`` compute the same things in
 plain PyTorch: fp32 is the reference, bf16 rounds where the kernel rounds.
+
+``wgmma_slices`` lays the same matrices out for the wgmma core that K5, K6
+and K7 run in bf16 (``csrc/mlp_wgmma.cuh``): the byte image of the
+shared-memory weight slices, in the order a tile consumes them
+(``wgmma_program``). ``wgmma_dense`` is one dense layer on that core, the
+first check of ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -113,6 +119,122 @@ def pack_nerf(model: NeRF, dtype=torch.bfloat16) -> dict:
         "rgb_w": cast(model.rgb_linear.weight.detach().float()),  # [3, W/2]
         "rgb_b": b(model.rgb_linear),
     }
+
+
+WG_SLICE_N, WG_SLICE_K = 128, 64  # a weight slice of the wgmma core: 128 output columns x 64 of depth
+_wg_index_cache: dict = {}
+
+
+def wgmma_program(packed: dict, *, sigma_only: bool = False, backward: bool = False,
+                  want_dx: bool = False) -> list[tuple[torch.Tensor, bool]]:
+    """The matrices a 128-row tile of ``csrc/mlp_wgmma.cuh`` multiplies by,
+    in the order it consumes their slices: (W, transposed) for each product
+    x @ W, or x @ W^T when transposed, of a ``pack_nerf`` pack (bf16).
+
+    The forward (K6/K7's passes, K5's recompute): w0, each trunk matrix and
+    its skip rows, then unless ``sigma_only`` feature_w, views_wf and
+    views_ws. ``backward`` appends K5's d_h chain: (with ``want_dx``
+    views_ws^T,) views_wf^T, feature_w^T and the trunk matrices^T down the
+    layers, each followed with ``want_dx`` by skip_w^T at a skip layer and
+    w0^T at layer 0. Counts: ``mlp_wgmma.cuh::forward_slices`` and
+    ``backward_slices``."""
+    D = len(packed["trunk_b"])
+    prog = [(packed["w0"], False)]
+    for i in range(1, D):
+        prog.append((packed["trunk_w"][i - 1], False))
+        if i in packed["skip_w"]:
+            prog.append((packed["skip_w"][i], False))
+    if sigma_only:
+        return prog
+    prog += [(packed["feature_w"], False), (packed["views_wf"], False), (packed["views_ws"], False)]
+    if not backward:
+        return prog
+    if want_dx:
+        prog.append((packed["views_ws"], True))
+    prog.append((packed["views_wf"], True))
+    for i in range(D - 1, -1, -1):
+        prog.append((packed["feature_w"] if i == D - 1 else packed["trunk_w"][i], True))
+        if want_dx and (i == 0 or i in packed["skip_w"]):
+            prog.append((packed["w0"] if i == 0 else packed["skip_w"][i], True))
+    return prog
+
+
+def _wg_index(shapes: tuple, device: torch.device) -> torch.Tensor:
+    """Gather index of ``wgmma_slices``: for each slice element in its byte
+    order, its position in the flat concatenation of the matrices (the last
+    position, one past them, holds a zero)."""
+    key = (shapes, str(device))
+    if key not in _wg_index_cache:
+        n = np.arange(WG_SLICE_N)[:, None]
+        k = np.arange(WG_SLICE_K)[None, :]
+        pos = n * WG_SLICE_K + ((k // 8) ^ (n % 8)) * 8 + k % 8  # the 128-byte swizzle
+        zero = sum(r * c for r, c, _ in shapes)
+        parts, off = [], 0
+        for rows, cols, transposed in shapes:
+            K, N = (cols, rows) if transposed else (rows, cols)
+            for kp in range(-(-K // WG_SLICE_K)):
+                for h in range(-(-N // WG_SLICE_N)):
+                    kk, nn = kp * WG_SLICE_K + k, h * WG_SLICE_N + n  # B[kk, nn]
+                    src = off + (nn * cols + kk if transposed else kk * cols + nn)
+                    src = np.where((kk < K) & (nn < N), src, zero)
+                    sl = np.empty(WG_SLICE_N * WG_SLICE_K, np.int64)
+                    sl[pos.reshape(-1)] = src.reshape(-1)
+                    parts.append(sl)
+            off += rows * cols
+        _wg_index_cache[key] = torch.from_numpy(np.concatenate(parts)).to(device)
+    return _wg_index_cache[key]
+
+
+def wgmma_slices(program: list[tuple[torch.Tensor, bool]]) -> torch.Tensor:
+    """The byte image of a program's weight slices, [n_slices, 128 * 64]
+    bf16: slice (kp, h) of a product x @ B (B = W, or W^T when transposed;
+    [K, N]) holds B[64 kp + k, 128 h + n] at n * 64 + ((k // 8) ^ (n % 8)) * 8
+    + k % 8, zero past K or N: the 128-byte swizzled K-major tile that
+    wgmma's shared-memory descriptor reads. Slices run k panels outer,
+    128-column halves inner, product after product; the kernels' producer
+    warp moves each as one bulk copy."""
+    mats = [w for w, _ in program]
+    for w in mats:
+        if w.dtype != torch.bfloat16 or w.dim() != 2:
+            raise TypeError("the wgmma core takes bf16 matrices")
+    shapes = tuple((w.shape[0], w.shape[1], bool(t)) for w, t in program)
+    flat = torch.cat([w.reshape(-1) for w in mats] + [mats[0].new_zeros(1)])
+    return flat[_wg_index(shapes, flat.device)].view(-1, WG_SLICE_N * WG_SLICE_K)
+
+
+wgmma_dense_launches = 0  # the [core] check's launches (chip_smoke.py)
+
+
+def wgmma_dense(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, a2: torch.Tensor | None = None,
+                w2: torch.Tensor | None = None, act: int = 1) -> torch.Tensor:
+    """One dense layer on the wgmma core (``csrc/wg_dense.cu``):
+    act(a @ w + a2 @ w2 + bias) as bf16, fp32 sums; a [M, K] and w [K, N]
+    bf16 with K in {64, 128, 192, 256} and N in {128, 256}, a2 [M, 64] and
+    w2 [64, N] optional, act 0 none, 1 relu, 2 leaky. On a CPU tensor this
+    runs the plain version (fp32 products of the bf16 operands)."""
+    global wgmma_dense_launches
+    if (a2 is None) != (w2 is None):
+        raise ValueError("give a2 and w2 together")
+    if a.device.type == "cpu":
+        z = a.float() @ w.float() + bias
+        if a2 is not None:
+            z = z + a2.float() @ w2.float()
+        z = torch.relu(z) if act == 1 else (torch.nn.functional.leaky_relu(z, 0.01) if act == 2 else z)
+        return z.to(torch.bfloat16)
+    M, K = a.shape
+    N = w.shape[1]
+    if K not in (64, 128, 192, 256) or N not in (128, 256) or tuple(w.shape) != (K, N):
+        raise ValueError("wgmma_dense takes a [M, K] @ w [K, N], K in {64..256} by 64, N in {128, 256}")
+    prog = [(w, False)] + ([(w2, False)] if w2 is not None else [])
+    slices = wgmma_slices(prog)
+    a, bias = a.contiguous(), bias.contiguous()
+    a2 = None if a2 is None else a2.contiguous()
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    arr, count = build.pointer_array([a, a2, slices, bias, out])
+    rc = build.load_library().nst_wg_dense(arr, count, M, K, N, int(act), build.current_stream(a.device))
+    build.check(rc, "wgmma_dense")
+    wgmma_dense_launches += 1
+    return out
 
 
 class MlpActs(NamedTuple):

@@ -56,6 +56,7 @@ from nerf_sampling_tpu_torch.render.engine import (
     KERNEL_IMPLS,
     EvalMode,
     NeRFParams,
+    check_eval_envelope,
     eval_packs,
     pack_kernel_weights,
     quant_pair,
@@ -126,6 +127,18 @@ class Trainer:
                 "for nerf/joint training; int8 is for depth_net training and render-only evaluation."
             )
         self.cfg = cfg
+        pipe = cfg.pipeline(with_depth=False)  # the envelope reads the NeRF side
+        if pipe.mlp_impl in KERNEL_IMPLS:
+            # the kernels' eval envelope, checked now: the first eval would
+            # otherwise raise after i_testset steps and a checkpoint
+            try:
+                check_eval_envelope(pipe, self._eval_mode())
+            except ValueError as err:
+                raise ValueError(
+                    f"{err}. This run's evals ({self._eval_mode().name}) cannot run on the kernels: use "
+                    "-m recommended_depth_net_module, a model entry with a uniform or gaussian sampling_mode, "
+                    "or --mlp_impl plain"
+                ) from err
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device found: the Trainer runs on the card unless it is "

@@ -402,3 +402,30 @@ def test_cli_trains_the_recipe(tmp_path):
     assert len(open(os.path.join(tr.expdir, "psnr.txt")).read().splitlines()) == 2
     with pytest.raises(NotImplementedError, match="S7"):
         run.main(["-dp", datadir, "--mode", "nerf", "--n_devices", "2", "--basedir", str(tmp_path / "logs")])
+
+
+def test_cli_default_recipe_on_kernels_raises_before_step_1(tmp_path):
+    """The default -m leaves sampling_mode unset, so run.py evaluates the
+    depth_only population, which the kernels do not render: the Trainer
+    raises at construction, naming the ways out, and writes no checkpoint
+    (before, the run trained i_testset steps and died at its first eval)."""
+    datadir = str(tmp_path / "scene")
+    generate_example_dataset(datadir, H=32, W=32, n_train=2, n_val=1, n_test=1)
+    basedir = tmp_path / "logs"
+    with pytest.raises(ValueError, match="recommended_depth_net_module.*sampling_mode.*--mlp_impl plain"):
+        run.main(["-dp", datadir, "--mlp_impl", "cuda", "--n_iters", "2", "--basedir", str(basedir),
+                  "--testskip", "1", "--device", "cpu"])
+    written = [f for _, _, files in os.walk(basedir) for f in files] if basedir.exists() else []
+    assert not [f for f in written if f.endswith(".npz")]
+
+
+@pytest.mark.parametrize("sampling_mode,ok", [("depth_only", False), ("uniform", True), ("gaussian", True)])
+def test_trainer_checks_the_kernel_eval_envelope_at_setup(sampling_mode, ok):
+    cfg = load_trainer_config(REFERENCE_CONFIG, "lego_depth_net_module")
+    cfg = dataclasses.replace(cfg, mlp_impl="cuda", sampling_mode=sampling_mode)
+    if ok:
+        Trainer(cfg, device="cpu")
+        Trainer(dataclasses.replace(cfg, mlp_impl="plain", sampling_mode="depth_only"), device="cpu")
+    else:
+        with pytest.raises(ValueError, match="depth_only"):
+            Trainer(cfg, device="cpu")

@@ -1,0 +1,197 @@
+"""The weight slices of the wgmma MLP core (csrc/mlp_wgmma.cuh), on CPU.
+
+``fused_render.wgmma_slices`` writes the byte image of every shared-memory
+slice the kernels' producer warp bulk-copies: 128 output columns x 64 of
+depth, 128-byte swizzled, K-major. The card reads that image blind, so these
+tests hold it here: unpacked by an index formula of their own, the slices
+give back every matrix of K6/K7's and K5's programs exactly, forward and
+transposed; their count and byte size are what the kernel header reads; an
+emulation of the kernel's forward over the unpacked slices agrees with the
+plain MLP; and ``pack_nerf``'s layout, which the other kernels read, is
+unchanged.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from nerf_sampling_tpu_torch.kernels import fused_render as fr
+from nerf_sampling_tpu_torch.kernels.fused_nerf import point_embeddings
+from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
+
+HEADER = os.path.join(os.path.dirname(fr.__file__), "csrc", "mlp_wgmma.cuh")
+W = 256
+
+
+def small_nerf(D: int = 4, skips=(1,), seed: int = 0) -> NeRF:
+    """A W=256 NeRF (the width the kernels take) with seeded weights."""
+    model = NeRF(NeRFConfig(D=D, W=W, input_ch=63, input_ch_views=27, skips=skips, use_viewdirs=True))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.from_numpy(rng.normal(0, 0.1, tuple(p.shape)).astype(np.float32)))
+    return model
+
+
+def unpack(image: torch.Tensor, program) -> list[torch.Tensor]:
+    """Each product's B ([K, N]: W, or W^T when transposed) from the slices,
+    walked as the kernel walks them: k panels outer, 128-column halves
+    inner; element (n, k) of a slice at n*64 + ((k//8) ^ (n%8))*8 + k%8."""
+    img = image.float().numpy().reshape(-1, 128, 64)
+    n = np.arange(128)[:, None]
+    chunk = np.arange(64)[None, :] // 8
+    logical_k = ((chunk ^ (n % 8)) * 8 + np.arange(64)[None, :] % 8)
+    s, out = 0, []
+    for w, transposed in program:
+        K, N = (w.shape[1], w.shape[0]) if transposed else tuple(w.shape)
+        kp_n, h_n = -(-K // 64), -(-N // 128)
+        B = np.zeros((kp_n * 64, h_n * 128), np.float32)
+        for kp in range(kp_n):
+            for h in range(h_n):
+                tile = np.zeros((64, 128), np.float32)  # [k, n]
+                tile[logical_k, n] = img[s]
+                B[kp * 64:(kp + 1) * 64, h * 128:(h + 1) * 128] = tile
+                s += 1
+        assert not B[K:].any() and not B[:, N:].any(), "padding of a slice is not zero"
+        out.append(torch.from_numpy(B[:K, :N]))
+    assert s == img.shape[0], "slices left over"
+    return out
+
+
+@pytest.mark.parametrize("kw", [dict(sigma_only=True), dict(), dict(backward=True),
+                                dict(backward=True, want_dx=True)],
+                         ids=["sigma_only", "forward", "backward", "backward_dx"])
+def test_slices_unpack_to_every_matrix(kw):
+    packed = fr.pack_nerf(small_nerf())
+    program = fr.wgmma_program(packed, **kw)
+    image = fr.wgmma_slices(program)
+    assert image.dtype == torch.bfloat16 and image.shape[1] == 128 * 64
+    for (w, transposed), B in zip(program, unpack(image, program)):
+        want = w.float().T if transposed else w.float()
+        assert torch.equal(B, want)
+
+
+def test_program_names_every_matrix_in_kernel_order():
+    """K5's row pass (nerf_points_bwd.cu): the forward, then d_zv16's two
+    products, then down the trunk d_z16_i = mask_i * (x @ next^T), each
+    followed at a skip layer and at layer 0 by its dL/dPE product."""
+    packed = fr.pack_nerf(small_nerf(D=4, skips=(1,)))
+    prog = fr.wgmma_program(packed, backward=True, want_dx=True)
+    names = {id(v): k for k, v in packed.items() if isinstance(v, torch.Tensor)}
+    names.update({id(w): f"trunk_w{i + 1}" for i, w in enumerate(packed["trunk_w"])})
+    names.update({id(w): f"skip_w{i}" for i, w in packed["skip_w"].items()})
+    got = [names[id(w)] + ("^T" if t else "") for w, t in prog]
+    assert got == ["w0", "trunk_w1", "trunk_w2", "skip_w2", "trunk_w3", "feature_w", "views_wf", "views_ws",
+                   "views_ws^T", "views_wf^T", "feature_w^T", "trunk_w3^T", "skip_w2^T", "trunk_w2^T",
+                   "trunk_w1^T", "w0^T"]
+
+
+def _header_formula(name: str):
+    """forward_slices / backward_slices of mlp_wgmma.cuh as a Python function."""
+    text = open(HEADER).read()
+    m = re.search(rf"inline int {name}\(int D, unsigned skip_mask, bool (\w+)\) \{{\s*return (.*?);", text, re.S)
+    flag, expr = m.group(1), " ".join(m.group(2).split())
+    expr = expr.replace("popcount_u(skip_mask)", "n_skips")
+    expr = re.sub(r"\((\w+) \? ([^:()]+) : ([^()]+)\)", r"((\2) if \1 else (\3))", expr)
+    return lambda D, skip_mask, value: eval(expr, {}, {"D": D, "n_skips": bin(skip_mask).count("1"), flag: value})
+
+
+@pytest.mark.parametrize("D,skips", [(1, ()), (4, (1,)), (8, (4,)), (8, (2, 5))])
+def test_slice_counts_and_sizes_match_the_kernel_header(D, skips):
+    fwd, bwd = _header_formula("forward_slices"), _header_formula("backward_slices")
+    packed = fr.pack_nerf(small_nerf(D=D, skips=skips))
+    mask = sum(1 << i for i in packed["skip_w"])
+    for sigma_only in (True, False):
+        n = fr.wgmma_slices(fr.wgmma_program(packed, sigma_only=sigma_only)).shape[0]
+        assert n == fwd(D, mask, sigma_only)
+    for want_dx in (False, True):
+        n = fr.wgmma_slices(fr.wgmma_program(packed, backward=True, want_dx=want_dx)).shape[0]
+        assert n == fwd(D, mask, False) + bwd(D, mask, want_dx)
+    text = open(HEADER).read()
+    slice_bytes = eval(re.search(r"kSliceBytes = ([\d *]+);", text).group(1))
+    assert slice_bytes == fr.WG_SLICE_N * fr.WG_SLICE_K * 2 == 16384
+    # every slice, ring stage and tile panel, and warpgroup 1's half of a
+    # panel, starts on the 1024 bytes over which the swizzle repeats
+    rows = int(re.search(r"kRows = (\d+);", text).group(1))
+    panel = eval(re.search(r"kPanelBytes = ([\w *]+);", text).group(1), {}, {"kRows": rows})
+    assert rows == 128 and panel == rows * 128
+    assert slice_bytes % 1024 == 0 and panel % 1024 == 0 and (panel // 2) % 1024 == 0
+
+
+def test_emulated_forward_over_the_slices_matches_mlp_plain():
+    """The kernel's forward (nerf_forward in mlp_wgmma.cuh) written over
+    the unpacked slices: PE panel 0 then the activation tile, the skip
+    rows as a second product into the same sums, the views layer reading
+    PE panel 1 through the zero-padded views_ws slice."""
+    model = small_nerf(D=4, skips=(1,))
+    packed = fr.pack_nerf(model)
+    cfg = model.cfg
+    program = fr.wgmma_program(packed)
+    Bs = iter(unpack(fr.wgmma_slices(program), program))
+    rng = np.random.default_rng(1)
+    pts = torch.from_numpy(rng.uniform(-1.5, 1.5, (96, 3)).astype(np.float32))
+    dirs = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(96, 3)).astype(np.float32)), dim=-1)
+    x_pts, x_v = point_embeddings(pts, dirs, 10, 4, torch.bfloat16)
+    pe0 = torch.cat([x_pts, torch.zeros(96, 1)], 1)  # [pts emb 63 | 0]
+    pe1 = torch.cat([x_v, torch.zeros(96, 5)], 1)  # [view emb 27 | 0 x 5]: the 32 rows views_ws has
+
+    def rnd(z):
+        return z.to(torch.bfloat16).float()
+
+    h = rnd(torch.relu(pe0 @ next(Bs) + packed["trunk_b"][0]))
+    for i in range(1, cfg.D):
+        z = h @ next(Bs)
+        if i in packed["skip_w"]:
+            z = z + pe0 @ next(Bs)
+        h = rnd(torch.relu(z + packed["trunk_b"][i]))
+    sigma = h @ packed["alpha_w"].float() + packed["alpha_b"]
+    feature = rnd(h @ next(Bs) + packed["feature_b"])
+    hv = rnd(torch.relu(feature @ next(Bs) + pe1 @ next(Bs) + packed["views_b"]))
+    rgb = hv @ packed["rgb_w"].float().T + packed["rgb_b"]
+    want, _ = fr.mlp_plain(packed, cfg, x_pts, x_v, torch.bfloat16)
+    torch.testing.assert_close(torch.cat([rgb, sigma[:, None]], -1), want, rtol=1e-5, atol=1e-5)
+
+
+def test_pack_nerf_layout_is_unchanged():
+    """pack_nerf's [in, out] layout, which K1-K4, K8, K9 and the fp32/int8
+    kernels read, is what it was; making slices leaves a pack as it is."""
+    model = small_nerf(D=8, skips=(4,))
+    packed = fr.pack_nerf(model)
+    shapes = {k: tuple(v.shape) for k, v in packed.items() if isinstance(v, torch.Tensor)}
+    assert shapes == {"w0": (64, W), "feature_w": (W, W), "feature_b": (W,), "alpha_w": (W,), "alpha_b": (1,),
+                      "views_wf": (W, W // 2), "views_ws": (32, W // 2), "views_b": (W // 2,),
+                      "rgb_w": (3, W // 2), "rgb_b": (3,)}
+    assert [tuple(w.shape) for w in packed["trunk_w"]] == [(W, W)] * 7
+    assert [tuple(b.shape) for b in packed["trunk_b"]] == [(W,)] * 8
+    assert {i: tuple(w.shape) for i, w in packed["skip_w"].items()} == {5: (64, W)}
+    lin = model.pts_linears
+    assert torch.equal(packed["trunk_w"][0], lin[1].weight.detach().T.bfloat16())
+    assert torch.equal(packed["skip_w"][5][:63], lin[5].weight.detach().T[:63].bfloat16())
+    assert torch.equal(packed["trunk_w"][4], lin[5].weight.detach().T[63:].bfloat16())
+    before = {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in packed.items()}
+    fr.wgmma_slices(fr.wgmma_program(packed, backward=True, want_dx=True))
+    assert packed.keys() == before.keys()
+    for k, v in before.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(packed[k], v)
+
+
+@pytest.mark.parametrize("K,N,skip", [(64, 256, False), (256, 128, True)])
+def test_wgmma_dense_plain_version_on_cpu(K, N, skip):
+    g = torch.Generator().manual_seed(2)
+    a = torch.randn(40, K, generator=g).bfloat16()
+    w = (torch.randn(K, N, generator=g) / 8).bfloat16()
+    b = torch.randn(N, generator=g)
+    a2 = torch.randn(40, 64, generator=g).bfloat16() if skip else None
+    w2 = (torch.randn(64, N, generator=g) / 8).bfloat16() if skip else None
+    got = fr.wgmma_dense(a, w, b, a2=a2, w2=w2)
+    want = a.float() @ w.float() + b + (a2.float() @ w2.float() if skip else 0)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, torch.relu(want).bfloat16())
+    with pytest.raises(ValueError, match="together"):
+        fr.wgmma_dense(a, w, b, a2=a2 if skip else a[:, :64])
