@@ -103,10 +103,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    within INT8_EVAL_TOL dB of the bf16 run's eval; --mode nerf with int8
    must raise.
 
-K6/K7 in bf16 and K5's row pass run on the wgmma core: their records name
-it under "core", K6's launch shape (blocks, rays per block, occupancy) and
-K5's time by pass (CUDA events; its library_ms is torch.matmul of pass (b)'s
-weight-grad products on the same shapes) are printed.
+K2, K3, K8 and K9 in bf16 (render_around_depth.cu), K6/K7 in bf16 and K5's
+row pass run on the wgmma core: their records name it under "core"; the
+launch shapes of K2's and K6's kernels (blocks, rays per block, occupancy),
+the registers and spills of render_around_depth_kernel<bf16> from the
+build log, one K2 block's time alone, and K5's time by pass (CUDA events;
+its library_ms is torch.matmul of pass (b)'s weight-grad products on the
+same shapes) are printed; [K2] also shows that a bf16 launch without the
+weight slices is refused.
 
 Every kernel's record carries its bound from this run's shapes (the
 larger of its operations at the card's bf16 or fp32 peak and its bytes at
@@ -279,7 +283,7 @@ def nbytes(*tensors) -> int:
     return total
 
 
-CORE = "nerf_sampling_tpu_torch/kernels/csrc/mlp_wgmma.cuh"  # the wgmma MLP core of K5, K6 and K7 (bf16)
+CORE = "nerf_sampling_tpu_torch/kernels/csrc/mlp_wgmma.cuh"  # the wgmma MLP core of K2, K3, K5-K9 (bf16)
 
 
 def kernel_record(name: str, source: str, replaces: str, max_abs_err: float, ms: float, plain_ms: float,
@@ -440,8 +444,10 @@ def check_k1(params, device) -> dict:
 
 def check_k2(params, device) -> dict:
     """K2 over all 160,000 rays of view 0, one launch as the main path makes
-    it, against its plain versions run over the same rays in chunks."""
+    it, against its plain versions run over the same rays in chunks; a bf16
+    launch without the weight slices must be refused; its launch shape."""
     from nerf_sampling_tpu_torch.core.rays import get_rays
+    from nerf_sampling_tpu_torch.kernels import build
     from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
     from nerf_sampling_tpu_torch.kernels import fused_render as k2
 
@@ -486,13 +492,35 @@ def check_k2(params, device) -> dict:
                 f"K2 {name} disagrees with its plain version")
         if name == "rgb_map":
             worst = mx
+    # the bf16 kernel runs the wgmma core only: a launch without the weight
+    # slices is refused, not run on another core
+    weights = k2._flat_weights(packed)
+    arr, count = build.pointer_array([ro, rd, depth, offsets, torch.empty((6, n), device=device)] + weights)
+    rc = build.load_library().nst_render_around_depth(
+        arr, count, n, 64, cfg.D, sum(1 << i for i in packed["skip_w"]), 2.0, 6.0, 1, None,
+        build.current_stream(device))
+    log(f"[K2] a bf16 launch without the weight slices: cudaError_t {rc} (refused)")
+    require(rc != 0, "K2: a bf16 launch without the weight slices was not refused")
+
+    occ = k2.kernel_occupancy(64)
     ms = cuda_ms(lambda: k2.render_around_depth_kernel(packed, cfg, ro, rd, depth, offsets), 5)
+    one = occ["rays_per_block"]  # one block alone: no other SM competes for L2
+    ms_one = cuda_ms(lambda: k2.render_around_depth_kernel(packed, cfg, ro[:one], rd[:one], depth[:one],
+                                                           offsets), 20)
     plain_ms = cuda_ms(lambda: plain_frame(packed, torch.bfloat16), 2)
     log(f"[K2] {n} rays x 64 samples, {int(nan_rows.sum())} with NaN depth; {ms:.3f} ms per "
-        f"launch; plain bf16 version {plain_ms:.3f} ms (in chunks of {chunk} rays)")
+        f"launch; one block of {one} rays alone {ms_one:.3f} ms; plain bf16 version {plain_ms:.3f} ms "
+        f"(in chunks of {chunk} rays)")
+    blocks, slots = -(-n // one), occ["blocks_per_sm"] * occ["sms"]
+    wide = {S: k2.kernel_occupancy(S)["rays_per_block"] for S in (192, 512)}
+    log(f"[K2] launch shape at {n} rays x 64 (wgmma core): {blocks} blocks of {one} rays "
+        f"({occ['threads']} threads, {occ['smem_bytes']} bytes of shared memory), {occ['blocks_per_sm']} "
+        f"resident per SM x {occ['sms']} SMs = {slots} slots, {blocks / slots:.2f} waves; rays per block "
+        f"at 192 and 512 samples: {wide[192]}, {wide[512]}")
     return kernel_record("render_around_depth_kernel", "render_around_depth.cu",
                          "nerf_sampling_tpu/kernels/fused_render.py:390", worst, ms, plain_ms,
-                         2 * n * 64 * module_macs(params.fine), nbytes(ro, rd, depth, offsets, packed, got))
+                         2 * n * 64 * module_macs(params.fine), nbytes(ro, rd, depth, offsets, packed, got),
+                         core=CORE)
 
 
 def same_bits(a: dict, b: dict) -> bool:
@@ -581,7 +609,7 @@ def check_k3(params, device) -> dict:
         f"version {plain_ms:.3f} ms (in chunks of {chunk} rays)")
     return kernel_record("render_gaussian_kernel", "render_around_depth.cu",
                          "nerf_sampling_tpu/kernels/fused_render.py:390", worst, ms, plain_ms,
-                         2 * n * S * module_macs(params.fine), nbytes(ro, rd, depth, packed, got))
+                         2 * n * S * module_macs(params.fine), nbytes(ro, rd, depth, packed, got), core=CORE)
 
 
 def check_k6(params, device, batches: list[tuple[torch.Tensor, torch.Tensor]]) -> dict:
@@ -804,7 +832,7 @@ def check_k8(params, scene, K, device) -> tuple[dict, dict[str, int]]:
     log(f"[k8] phase {time.perf_counter() - t0:.1f} s")
     rec = kernel_record("render_linspace_kernel", "render_around_depth.cu",
                         "nerf_sampling_tpu/kernels/fused_render.py:390", worst, ms, plain_ms,
-                        2 * n * 64 * module_macs(params.fine), nbytes(ro, rd, packed, got64))
+                        2 * n * 64 * module_macs(params.fine), nbytes(ro, rd, packed, got64), core=CORE)
     return rec, counts
 
 
@@ -854,7 +882,8 @@ def check_k9(params, device) -> dict:
         ms = cuda_ms(lambda: k89.fused_shade(packed, cfg, ro, rd, pops["uniform"], dtype=dtype), 3)
         plain_ms = cuda_ms(lambda: plain_chunks(lambda s: k89.shade_plain(
             packed, cfg, ro[s], rd[s], pops["uniform"][s], dtype=dtype), n), 1)
-        log(f"[k9] {tag}: {ms:.3f} ms per launch at {n} rays x {S}; plain {tag} version {plain_ms:.3f} ms")
+        core = " (wgmma core)" if dtype == torch.bfloat16 else ""
+        log(f"[k9] {tag}{core}: {ms:.3f} ms per launch at {n} rays x {S}; plain {tag} version {plain_ms:.3f} ms")
         if dtype == torch.float32:
             rec = kernel_record("shade_kernel_fp32", "render_around_depth.cu",
                                 "nerf_sampling_tpu/kernels/fused_render.py:390", worst, ms, plain_ms,
@@ -1996,6 +2025,23 @@ def run_joint_cli(device, scene, K) -> dict[str, int]:
     return counts
 
 
+def ptxas_usage(path: str, entry: str) -> str:
+    """The registers and spills that ptxas -v reported for the first entry
+    function whose mangled name contains ``entry``, from a build log."""
+    with open(path) as fp:
+        lines = fp.read().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            found = []
+            for nxt in lines[i + 1:i + 6]:
+                if "spill" in nxt or "registers" in nxt:
+                    found.append(nxt.split(":")[-1].strip() if "registers" in nxt else nxt.strip())
+                if "registers" in nxt:
+                    break
+            return "; ".join(found)
+    return "not found in the build log"
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     if not torch.cuda.is_available():
@@ -2024,6 +2070,8 @@ def main() -> int:
             for line in fp:
                 if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
                     log("[build] " + line.rstrip()[:160])
+        log(f"[build] render_around_depth_kernel<bf16> (K2, K3, K8, K9 on the wgmma core): "
+            f"{ptxas_usage(info['log'], 'render_around_depth_kernelI13__nv_bfloat16')}")
     check_core(device)
 
     params = pack_kernel_weights(load_render_params(CKPT, production_pipeline("cuda"), device),

@@ -6,9 +6,12 @@ Two sets of gates must pass on the sound source and fail on a wrong one:
 - the int8 core's (chip_smoke.py [k10]: K10_MEAN_TOL / K10_P999_TOL on the
   maps, K10_Z_MEAN_TOL / K10_Z_P99_TOL on K6/K7's max_z and depth_map),
   against faults in kernels/csrc/nerf_mlp.cuh's requant;
-- the wgmma core's ([core], [K6] and [k5]: CORE_ULP_TOL, the K6 map, max_z
-  and draw gates, K5_REL_TOL, K5_COS_TOL and the bits across launches),
-  against a fault in kernels/csrc/mlp_wgmma.cuh's producer.
+- the wgmma core's ([core], [K6], [k5], [K2], [K3] and the render path:
+  CORE_ULP_TOL, the K6 map, max_z and draw gates, K5_REL_TOL, K5_COS_TOL
+  and the bits across launches, K2's and K3's map and draw gates, view 0's
+  PSNR against the JAX reference and the plain fp32 path), against a fault
+  in kernels/csrc/mlp_wgmma.cuh's producer, which every kernel on the core
+  shares, the production render's K2 among them.
 This runs the gates first on the checkout as it is, then on one copy per
 fault below (the port, chip_smoke.py, the checkpoint and the experiment
 configs, under logs/fault_check/, with one edit to the copy's source), with
@@ -71,7 +74,9 @@ batches = [b[:2] for b in c.train_batches(scene, device, 8)]
 checks = {
     "k10": [lambda: c.check_k10(params, scene, K, device, batches)],
     "wgmma": [lambda: c.check_core(device), lambda: c.check_k6(params, device, batches),
-              lambda: c.check_k5(params, c.step_queries(params, scene, device))],
+              lambda: c.check_k5(params, c.step_queries(params, scene, device)),
+              lambda: c.check_k2(params, device), lambda: c.check_k3(params, device),
+              lambda: c.run_slice(device, scene, K)],
 }
 for name in sys.argv[1:]:
     for check in checks[name]:
@@ -110,7 +115,8 @@ def run_checks(cwd: str, gates: list[str]) -> list[str]:
     through, and the gates they failed come back."""
     proc = subprocess.run([sys.executable, "-c", RUN, *gates], cwd=cwd, capture_output=True, text=True)
     for line in proc.stdout.splitlines():
-        if line.startswith(("[k10]", "[core]", "[K6]", "[k5]", "[build]", "[fault_check]")):
+        if line.startswith(("[k10]", "[core]", "[K6]", "[k5]", "[K2]", "[K3]", "[slice]", "[build]",
+                            "[fault_check]")):
             print(line, flush=True)
     if proc.returncode != 0 or not proc.stdout.rstrip().splitlines()[-1].startswith("FAILED "):
         print(proc.stderr[-4000:], file=sys.stderr)

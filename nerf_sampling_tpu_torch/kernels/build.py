@@ -102,7 +102,8 @@ def load_library() -> ctypes.CDLL:
     lib.nst_depth_net_forward.argtypes = [ptrs, i32, i64, i32, i32, f32, f32, i32, vp]
     lib.nst_depth_net_forward.restype = i32
     # the vp before the stream of the render entries: the int8 plan, a host
-    # int32 array (quant.quant_plan), or null for bf16 and fp32
+    # int32 array (quant.quant_plan), or null for bf16 and fp32 (a bf16
+    # call ends ptrs with the pack's weight slices)
     lib.nst_render_around_depth.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, f32, i32, vp, vp]
     lib.nst_render_around_depth.restype = i32
     lib.nst_render_gaussian.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, u32, i32, vp, vp]
@@ -122,6 +123,8 @@ def load_library() -> ctypes.CDLL:
     lib.nst_nerf_points_bwd.restype = i32
     lib.nst_render_hier_occupancy.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.nst_render_hier_occupancy.restype = i32
+    lib.nst_render_around_depth_occupancy.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+    lib.nst_render_around_depth_occupancy.restype = i32
     lib.nst_wg_dense.argtypes = [ptrs, i32, i64, i32, i32, i32, vp]
     lib.nst_wg_dense.restype = i32
     build_info.update(
@@ -146,6 +149,16 @@ def host_pointer(array) -> int | None:
 
 def current_stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def occupancy(entry: str, *args: int) -> dict[str, int]:
+    """A kernel's launch shape from its C entry ``entry(*args, out)``:
+    resident blocks per SM, rays per block, threads per block, dynamic
+    shared memory (bytes), and the card's SM count (for the wave count)."""
+    out = (ctypes.c_int * 4)()
+    check(getattr(load_library(), entry)(*args, out), entry)
+    return {"blocks_per_sm": out[0], "rays_per_block": out[1], "threads": out[2], "smem_bytes": out[3],
+            "sms": torch.cuda.get_device_properties(0).multi_processor_count}
 
 
 def check(rc: int, name: str) -> None:

@@ -1,8 +1,8 @@
 // The Hopper bf16 MLP core: dense layers over 128-row tiles on wgmma, with
 // the weights streamed through a ring of shared-memory slices by a producer
-// warp. Used by K6/K7 in bf16 (render_hier.cu), K5's row pass
-// (nerf_points_bwd.cu) and the [core] check (wg_dense.cu); the other
-// kernels keep mlp_tile.cuh::gemm_rows.
+// warp. Used by K6/K7 in bf16 (render_hier.cu), K2/K3/K8/K9 in bf16
+// (render_around_depth.cu), K5's row pass (nerf_points_bwd.cu) and the
+// [core] check (wg_dense.cu); the other kernels keep mlp_tile.cuh::gemm_rows.
 //
 //   acc[64 rows of a warpgroup, NH * 128] = sum_op A_op @ B_op
 //
@@ -366,7 +366,7 @@ __device__ __forceinline__ void copy_rows(const unsigned char* tile, int cols, b
   }
 }
 
-// ---- the NeRF on the core (K6/K7 in bf16)
+// ---- the NeRF on the core (K2/K3/K6-K9 in bf16)
 
 // Shared memory of the NeRF passes: the activation tile (four panels), the
 // PE tile (two panels: [pts emb 63 | 0] and [view emb 27 | 0 x 37]) and the
@@ -467,6 +467,26 @@ __device__ void nerf_rows(const NerfWeights& w, const Tiles<S>& t, Cursor& cur, 
       for (int k = 0; k < 3; ++k) rgb_c[k] = rgb[k] + c0;
     nerf_forward(w, t, cur, rows - c0, sigma_only, sigma + c0, rgb_c);
   }
+}
+
+// ---- the render kernels' choice of core (render_hier.cu, render_around_depth.cu)
+
+// Their bf16 instantiation runs the NeRF on this core: 288 threads, a ring
+// of kRenderStages slices and the tiles from the first 1024-byte boundary
+// of shared memory. fp32 and int8 keep nerf_mlp.cuh's cores: 256 threads
+// and its tiles.
+constexpr int kRenderStages = 5;
+template <typename T>
+constexpr bool kOnCore = std::is_same_v<T, bf16>;
+template <typename T>
+constexpr int kBlockThreads = kOnCore<T> ? kThreads : nst::kThreads;
+template <typename T>
+using RenderTiles = std::conditional_t<kOnCore<T>, Tiles<kRenderStages>, TilesT<T>>;
+// the MLP's shared memory, ahead of the kernel's own planes
+template <typename T>
+__host__ __device__ constexpr size_t mlp_bytes() {
+  if constexpr (kOnCore<T>) return 1024 + Tiles<kRenderStages>::kBytes;  // + the 1024-byte alignment
+  else return tile_bytes<T>();
 }
 
 }  // namespace wg

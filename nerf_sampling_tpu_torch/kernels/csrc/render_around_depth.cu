@@ -26,7 +26,8 @@
 //     (z, index) that the TPU kernel's order-free compositor reproduces
 //     (ops.unsorted_weights), NaN last.
 // Then, for all: fp32 positional encoding of o + z*d and of the unit view
-// direction; the 8x256 NeRF MLP (nerf_mlp.cuh); compositing in sample
+// direction; the 8x256 NeRF MLP (mlp_wgmma.cuh in bf16, nerf_mlp.cuh in
+// fp32 and int8); compositing in sample
 // order with dists z[s+1]-z[s] and a 1e10 tail, both scaled by |d|, alpha =
 // 1-exp(-relu(sigma)*dist), the exclusive product of 1-alpha+1e-10, and a
 // white background. Element type T: bf16 (bf16 PE, weights and
@@ -41,27 +42,36 @@
 // per ray (plus 4(S-1) with injected noise, 4S with input z). The matrix
 // products bound it: on the tensor cores in bf16 (989 TFLOP/s), in int8
 // for 557,056 of a query's 593,408 multiply-adds (1,979 TOP/s), on the FMA
-// units in fp32 (67 TFLOP/s). This version streams the weights from L2
-// per 64-row chunk through wmma fragments (bf16), mma.sync fragments
-// (int8) or float4 loads (fp32), with no TMA and no wgmma: simple and
-// right first, fast in a later change.
+// units in fp32 (67 TFLOP/s).
 //
-// Design: one block per group of R rays (R*S <= 1024 sample rows), two
-// blocks per SM in bf16 and int8 and one in fp32. Compositing walks each ray's
-// samples in order, one thread per ray. None of the TPU kernel's Mosaic
-// devices (affine-in-z S matrix, rotation PE, ones-row reductions,
-// order-free compositor) is needed here.
+// Design: one block per group of R rays (R*S <= kMaxRows sample rows, at
+// most 64 rays). bf16 runs the MLP on the wgmma core (mlp_wgmma.cuh), as
+// K6/K7 do: 288 threads at one block per SM, the producer warp streaming
+// the NeRF's full-forward weight slices (cp.async.bulk into a 5-stage
+// mbarrier ring) once per 128-row tile, the two consumer warpgroups doing
+// everything else (the ray loads, the population, the sort, the PE, the
+// products' epilogues and the compositing); rows = 1536, so 24 rays a
+// block at S = 64 and 3 at S = 512. int8 and fp32 keep nerf_mlp.cuh's
+// cores (256 threads, rows = 1024, 64-row chunks: mma.sync fragments or
+// float4 loads from L2), two blocks per SM in int8 and one in fp32.
+// Compositing walks each ray's samples in order, one thread per ray. None
+// of the TPU kernel's Mosaic devices (affine-in-z S matrix, rotation PE,
+// ones-row reductions, order-free compositor) is needed here.
 
 #include <cuda_runtime.h>
 
+#include "mlp_wgmma.cuh"
 #include "nerf_mlp.cuh"
 #include "philox.cuh"
 
 namespace nst {
 namespace {
 
-constexpr int kMaxRows = 1024;   // sample rows per block
-constexpr int kMaxRays = 64;     // rays per block
+constexpr int kMaxRays = 64;  // rays per block
+
+// the bf16 kernel runs the wgmma core (wg::kOnCore); fp32 and int8 keep their cores
+template <typename T>
+constexpr int kMaxRows = wg::kOnCore<T> ? 1536 : 1024;  // sample rows per block
 
 enum ZSource { kAroundCenter = 0, kGaussian = 1, kLinspace = 2, kInput = 3, kInputUnsorted = 4 };
 
@@ -82,22 +92,29 @@ struct RenderParams {
   unsigned seed;         // gaussian, when the noise is null
   int white_bkgd;
   NerfWeightsT<T> w;
+  const bf16* slices;    // bf16: the NeRF's full-forward weight slices (mlp_wgmma.cuh)
+  int n_slices;
 };
 
 template <typename T>
 constexpr size_t smem_bytes() {
-  return tile_bytes<T>() + (5 * kMaxRows + 8 * kMaxRays) * sizeof(float);
+  return wg::mlp_bytes<T>() + (5 * kMaxRows<T> + 8 * kMaxRays) * sizeof(float);
+}
+
+// Rays per block at S samples (>= 2 at 512).
+template <typename T>
+constexpr int rays_per_block(int S) {
+  return kMaxRows<T> / S < kMaxRays ? kMaxRows<T> / S : kMaxRays;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 1 : 2)
+__global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> || sizeof(T) == 4 ? 1 : 2)
     render_around_depth_kernel(const __grid_constant__ RenderParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const TilesT<T> t = carve_tiles<T>(smem);
-  float* zp = reinterpret_cast<float*>(smem + tile_bytes<T>());
-  float* sigma = zp + kMaxRows;
-  float* plane[3] = {sigma + kMaxRows, sigma + 2 * kMaxRows, sigma + 3 * kMaxRows};
-  float* ray = sigma + 4 * kMaxRows;  // per ray: o[3], d[3], |d|, depth
+  float* zp = reinterpret_cast<float*>(smem + wg::mlp_bytes<T>());
+  float* sigma = zp + kMaxRows<T>;
+  float* plane[3] = {sigma + kMaxRows<T>, sigma + 2 * kMaxRows<T>, sigma + 3 * kMaxRows<T>};
+  float* ray = sigma + 4 * kMaxRows<T>;  // per ray: o[3], d[3], |d|, depth
 
   const int tid = threadIdx.x;
   const int S = p.S;
@@ -105,6 +122,26 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 1 : 2)
   const int nr = (int)min((long long)p.R, p.n - ray0);
   const int rows = nr * S;
   const bool centered = p.source == kAroundCenter || p.source == kGaussian;
+
+  wg::RenderTiles<T> t;
+  wg::Cursor cur;
+  if constexpr (wg::kOnCore<T>) {
+    t = wg::carve<wg::kRenderStages>(smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023));
+    if (tid == 0) t.ring.init();
+    __syncthreads();
+    if (tid >= wg::kConsumers) {  // the producer: the full forward's slices, tile by tile
+      const wg::Segment seg = {p.slices, p.n_slices, (rows + wg::kRows - 1) / wg::kRows};
+      wg::produce(t.ring, &seg, 1);
+      return;
+    }
+  } else {
+    t = carve_tiles<T>(smem);
+  }
+  // the consumers' barrier: threads 0-255 (the producer warp never joins)
+  auto sync = [] {
+    if constexpr (wg::kOnCore<T>) wg::consumers_sync();
+    else __syncthreads();
+  };
 
   for (int r = tid; r < nr; r += kThreads) {
     float* q = ray + 8 * r;
@@ -115,7 +152,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 1 : 2)
     q[6] = sqrtf(q[3] * q[3] + q[4] * q[4] + q[5] * q[5]);
     q[7] = centered ? p.depth[ray0 + r] : 0.f;
   }
-  __syncthreads();
+  sync();
   if (p.source == kAroundCenter) {
     for (int row = tid; row < rows; row += kThreads) {
       const float v = ray[8 * (row / S) + 7] + p.z_arg[row % S];
@@ -147,12 +184,17 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 1 : 2)
       }
       sigma[row] = v;
     }
-    __syncthreads();
+    sync();
     sort_rows(sigma, zp, nr, S);
   }
-  __syncthreads();
+  sync();
 
-  nerf_rows(p.w, t, ray, zp, rows, S, false, sigma, plane);
+  if constexpr (wg::kOnCore<T>) {
+    wg::nerf_rows(p.w, t, cur, ray, zp, rows, S, false, sigma, plane);
+    sync();
+  } else {
+    nerf_rows(p.w, t, ray, zp, rows, S, false, sigma, plane);
+  }
 
   // compositing in sample order, one thread per ray
   for (int r = tid; r < nr; r += kThreads) {
@@ -181,7 +223,8 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 1 : 2)
 
 // ptrs, in order: rays_o, rays_d, depth (may be null), z_arg (may be
 // null), out; then the NeRF's weights (nerf_mlp.cuh::read_pack; plan: the
-// int8 constants, null for bf16 and fp32).
+// int8 constants, null for bf16 and fp32); for bf16 then the NeRF's
+// full-forward weight slices (mlp_wgmma.cuh).
 template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
            RenderParams<T> p, const int* plan, void* stream) {
@@ -191,11 +234,18 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsig
   p.depth = static_cast<const float*>(ptrs[2]);
   p.z_arg = static_cast<const float*>(ptrs[3]);
   p.out = static_cast<float*>(const_cast<void*>(ptrs[4]));
-  const int k = read_pack(ptrs + 5, D, skip_mask, false, plan, &p.w);
-  if (k < 0 || n_ptrs != 5 + k) return (int)cudaErrorInvalidValue;
+  int k = read_pack(ptrs + 5, D, skip_mask, false, plan, &p.w);
+  if (k < 0) return (int)cudaErrorInvalidValue;
+  k += 5;
+  if constexpr (wg::kOnCore<T>) {
+    if (n_ptrs <= k || !ptrs[k]) return (int)cudaErrorInvalidValue;
+    p.slices = static_cast<const bf16*>(ptrs[k++]);
+    p.n_slices = wg::forward_slices(D, skip_mask, false);
+  }
+  if (n_ptrs != k) return (int)cudaErrorInvalidValue;
   p.n = n;
   p.S = S;
-  p.R = kMaxRows / S < kMaxRays ? kMaxRows / S : kMaxRays;  // >= 2 for S <= 512
+  p.R = rays_per_block<T>(S);
 
   constexpr size_t smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(render_around_depth_kernel<T>,
@@ -203,7 +253,7 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsig
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
   const unsigned grid = (unsigned)((n + p.R - 1) / p.R);
-  render_around_depth_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  render_around_depth_kernel<T><<<grid, wg::kBlockThreads<T>, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -242,7 +292,8 @@ int launch_mode(const void* const* ptrs, int n_ptrs, long long n, int S, int D, 
 
 // Every entry: plan is the int8 pack's constants (kernels/quant.py::
 // quant_plan, a host array read at launch) for the int8 kernel, null for
-// bf16 (and fp32). Each returns a cudaError_t (0 on success).
+// bf16 (and fp32); a bf16 call ends ptrs with the weight slices. Each
+// returns a cudaError_t (0 on success).
 
 // K2.
 extern "C" int nst_render_around_depth(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
@@ -281,4 +332,20 @@ extern "C" int nst_shade(const void* const* ptrs, int n_ptrs, long long n, int S
   const int source = sorted ? nst::kInput : nst::kInputUnsorted;
   return nst::launch_mode(ptrs, n_ptrs, n, S, D, skip_mask, source, 0.f, 0.f, 0, white_bkgd, 0.f, 0u, fp32,
                           plan, stream);
+}
+
+// The bf16 kernel's launch shape at S samples: resident blocks per SM, rays
+// per block, threads per block and dynamic shared memory.
+extern "C" int nst_render_around_depth_occupancy(int S, int* out) {
+  using namespace nst;
+  if (S < 1 || S > 512) return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = smem_bytes<bf16>();
+  cudaError_t err = cudaFuncSetAttribute(render_around_depth_kernel<bf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = rays_per_block<bf16>(S);
+  out[2] = wg::kBlockThreads<bf16>;
+  out[3] = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, render_around_depth_kernel<bf16>,
+                                                            wg::kBlockThreads<bf16>, smem);
 }

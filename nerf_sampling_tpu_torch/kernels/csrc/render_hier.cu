@@ -62,15 +62,10 @@ namespace nst {
 namespace {
 
 constexpr int kMaxRays = 16;  // rays per block
-constexpr int kStages = 5;    // weight ring stages of the bf16 kernel
 
-// the bf16 kernel runs the wgmma core; fp32 and int8 keep their cores
+// the bf16 kernel runs the wgmma core (wg::kOnCore); fp32 and int8 keep their cores
 template <typename T>
-constexpr bool kOnCore = std::is_same_v<T, bf16>;
-template <typename T>
-constexpr int kBlockThreads = kOnCore<T> ? wg::kThreads : kThreads;
-template <typename T>
-constexpr int kMaxRows = kOnCore<T> ? 1536 : 1024;  // union rows per block
+constexpr int kMaxRows = wg::kOnCore<T> ? 1536 : 1024;  // union rows per block
 
 template <typename T>
 struct HierParams {
@@ -90,13 +85,8 @@ struct HierParams {
 };
 
 template <typename T>
-__host__ __device__ constexpr size_t mlp_bytes() {
-  if constexpr (kOnCore<T>) return 1024 + wg::Tiles<kStages>::kBytes;  // + the 1024-byte alignment
-  else return tile_bytes<T>();
-}
-template <typename T>
 constexpr size_t smem_bytes() {
-  return mlp_bytes<T>() + (6 * kMaxRows<T> + 8 * kMaxRays) * sizeof(float);
+  return wg::mlp_bytes<T>() + (6 * kMaxRows<T> + 8 * kMaxRays) * sizeof(float);
 }
 
 template <typename T>
@@ -113,10 +103,10 @@ __device__ __forceinline__ float grid_z(const HierParams<T>& p, int s) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kBlockThreads<T>, kOnCore<T> || sizeof(T) == 4 ? 1 : 2)
+__global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> || sizeof(T) == 4 ? 1 : 2)
     render_hier_kernel(const __grid_constant__ HierParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* U = reinterpret_cast<float*>(smem + mlp_bytes<T>());
+  float* U = reinterpret_cast<float*>(smem + wg::mlp_bytes<T>());
   float* zs = U + kMaxRows<T>;
   float* sg = zs + kMaxRows<T>;
   float* plane[3] = {sg + kMaxRows<T>, sg + 2 * kMaxRows<T>, sg + 3 * kMaxRows<T>};
@@ -127,11 +117,10 @@ __global__ void __launch_bounds__(kBlockThreads<T>, kOnCore<T> || sizeof(T) == 4
   const long long ray0 = (long long)blockIdx.x * p.R;
   const int nr = (int)min((long long)p.R, p.n - ray0);
 
-  using TilesK = std::conditional_t<kOnCore<T>, wg::Tiles<kStages>, TilesT<T>>;
-  TilesK t;
+  wg::RenderTiles<T> t;
   wg::Cursor cur;
-  if constexpr (kOnCore<T>) {
-    t = wg::carve<kStages>(smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023));
+  if constexpr (wg::kOnCore<T>) {
+    t = wg::carve<wg::kRenderStages>(smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023));
     if (threadIdx.x == 0) t.ring.init();
     __syncthreads();
     if (threadIdx.x >= wg::kConsumers) {  // the producer: both passes' slices, tile by tile
@@ -145,11 +134,11 @@ __global__ void __launch_bounds__(kBlockThreads<T>, kOnCore<T> || sizeof(T) == 4
   }
   // the consumers' barrier: threads 0-255 (the producer warp never joins)
   auto sync = [] {
-    if constexpr (kOnCore<T>) wg::consumers_sync();
+    if constexpr (wg::kOnCore<T>) wg::consumers_sync();
     else __syncthreads();
   };
   auto mlp = [&](const NerfWeightsT<T>& w, int rows, int S, bool sigma_only) {
-    if constexpr (kOnCore<T>) {
+    if constexpr (wg::kOnCore<T>) {
       wg::nerf_rows(w, t, cur, ray, zs, rows, S, sigma_only, sg, plane);
       sync();
     } else {
@@ -294,7 +283,7 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int
   const int kf = read_pack(ptrs + 4 + kc, Df, skip_f, false, plan_f, &p.wf);
   if (kf < 0) return (int)cudaErrorInvalidValue;
   int k = 4 + kc + kf;
-  if constexpr (kOnCore<T>) {
+  if constexpr (wg::kOnCore<T>) {
     p.slices_c = static_cast<const bf16*>(ptrs[k++]);
     p.slices_f = static_cast<const bf16*>(ptrs[k++]);
     p.n_slices_c = wg::forward_slices(Dc, skip_c, true);
@@ -320,7 +309,7 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
   const unsigned grid = (unsigned)((n + p.R - 1) / p.R);
-  render_hier_kernel<T><<<grid, kBlockThreads<T>, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  render_hier_kernel<T><<<grid, wg::kBlockThreads<T>, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -355,8 +344,8 @@ extern "C" int nst_render_hier_occupancy(int Nc, int Nf, int* out) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   out[1] = rays_per_block<bf16>(Nc + Nf);
-  out[2] = kBlockThreads<bf16>;
+  out[2] = wg::kBlockThreads<bf16>;
   out[3] = (int)smem;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, render_hier_kernel<bf16>, kBlockThreads<bf16>,
-                                                            smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, render_hier_kernel<bf16>,
+                                                            wg::kBlockThreads<bf16>, smem);
 }

@@ -27,8 +27,9 @@ K10) with ``qpack_hier``'s packs: the coarse sigma-only pass on the coarse
 NeRF's int8 pack under its calib, the fine pass on the fine NeRF's under
 its own (JAX ``fused_hier.py:136-139``); the plain version then runs
 ``quant.mlp_plain_q``. In bf16 the kernel's MLP is the wgmma core
-(``csrc/mlp_wgmma.cuh``), fed each net's weight slices (``wgmma_slices``),
-made once per pack and kept in it under ``"wg_slices"``.
+(``csrc/mlp_wgmma.cuh``), fed each net's weight slices
+(``fused_render.pack_slices``: sigma-only for the coarse net, the full
+forward for the fine one), made once per pack and kept in it.
 """
 
 from __future__ import annotations
@@ -47,8 +48,7 @@ from nerf_sampling_tpu_torch.kernels.fused_render import (
     dtype_name,
     nerf_raw_plain,
     pack_nerf,
-    wgmma_program,
-    wgmma_slices,
+    pack_slices,
 )
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
 
@@ -200,7 +200,7 @@ def render_hier_kernel(
     _check_cuda(cfg_c, multires, multires_views, inputs, w_c)
     _check_cuda(cfg_f, multires, multires_views, inputs, w_f)
     plan_c, plan_f = _plan(packed["coarse"], cfg_c), _plan(packed["fine"], cfg_f)
-    slices = [] if int8 or fp32 else [_slices(packed["coarse"], True), _slices(packed["fine"], False)]
+    slices = [] if int8 or fp32 else [pack_slices(packed["coarse"], True), pack_slices(packed["fine"], False)]
     lib = build.load_library()
     out = torch.empty((11, n), dtype=torch.float32, device=rays_o.device)
     arr, count = build.pointer_array([rays_o, rays_d, draws, out] + w_c + w_f + slices)
@@ -230,27 +230,11 @@ def render_hier_kernel(
     }
 
 
-def _slices(sub: dict, sigma_only: bool) -> torch.Tensor:
-    """The wgmma core's weight slices of one net of a bf16 ``pack_hier``
-    pack, made on first use and kept in the pack (made once per set of
-    weights)."""
-    if "wg_slices" not in sub:
-        sub["wg_slices"] = wgmma_slices(wgmma_program(sub, sigma_only=sigma_only))
-    return sub["wg_slices"]
-
-
 def kernel_occupancy(n_coarse: int = 64, n_importance: int = 128) -> dict[str, int]:
     """K6's launch shape at ``n_coarse + n_importance`` samples: resident
     blocks per SM, rays per block, threads per block, dynamic shared memory
     (bytes), and the card's SM count (for the wave count)."""
-    import ctypes
-
-    lib = build.load_library()
-    out = (ctypes.c_int * 4)()
-    build.check(lib.nst_render_hier_occupancy(n_coarse, n_importance, out), "nst_render_hier_occupancy")
-    props = torch.cuda.get_device_properties(0)
-    return {"blocks_per_sm": out[0], "rays_per_block": out[1], "threads": out[2], "smem_bytes": out[3],
-            "sms": props.multi_processor_count}
+    return build.occupancy("nst_render_hier_occupancy", n_coarse, n_importance)
 
 
 def fused_render_hier(

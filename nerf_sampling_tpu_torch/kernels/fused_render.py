@@ -31,11 +31,14 @@ sum. ``render_around_depth_plain``, ``render_gaussian_plain``,
 ``render_linspace_plain`` and ``shade_plain`` compute the same things in
 plain PyTorch: fp32 is the reference, bf16 rounds where the kernel rounds.
 
-``wgmma_slices`` lays the same matrices out for the wgmma core that K5, K6
-and K7 run in bf16 (``csrc/mlp_wgmma.cuh``): the byte image of the
-shared-memory weight slices, in the order a tile consumes them
-(``wgmma_program``). ``wgmma_dense`` is one dense layer on that core, the
-first check of ``chip_smoke.py``.
+``wgmma_slices`` lays the same matrices out for the wgmma core that K2,
+K3, K8, K9, K5, K6 and K7 run in bf16 (``csrc/mlp_wgmma.cuh``): the byte
+image of the shared-memory weight slices, in the order a tile consumes them
+(``wgmma_program``). ``pack_slices`` makes a pack's slices once and keeps
+them in it; a bf16 launch hands them to the kernel after the weights, and
+int8 and fp32 launches, whose kernels keep their own cores, hand none.
+``wgmma_dense`` is one dense layer on that core, the first check of
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -200,6 +203,29 @@ def wgmma_slices(program: list[tuple[torch.Tensor, bool]]) -> torch.Tensor:
     shapes = tuple((w.shape[0], w.shape[1], bool(t)) for w, t in program)
     flat = torch.cat([w.reshape(-1) for w in mats] + [mats[0].new_zeros(1)])
     return flat[_wg_index(shapes, flat.device)].view(-1, WG_SLICE_N * WG_SLICE_K)
+
+
+def pack_slices(packed: dict, sigma_only: bool = False) -> torch.Tensor:
+    """The wgmma core's forward weight slices of a bf16 ``pack_nerf`` pack,
+    ``wgmma_slices(wgmma_program(packed, sigma_only=sigma_only))``: the full
+    forward (K2, K3, K8, K9 and K6/K7's fine pass) or the trunk and alpha
+    head (K6/K7's coarse pass). Made on first use and kept in the pack under
+    the program they hold, so one pack can serve both programs; a pack is
+    made anew for new weights (``render.pack_kernel_weights``), so its
+    slices are always its own weights'."""
+    cache = packed.setdefault("wg_slices", {})
+    key = "sigma_only" if sigma_only else "full"
+    if key not in cache:
+        cache[key] = wgmma_slices(wgmma_program(packed, sigma_only=sigma_only))
+    return cache[key]
+
+
+def _core_slices(packed: dict, dtype=torch.bfloat16) -> list[torch.Tensor]:
+    """The render entries' last pointer, after the weights: a bf16 pack's
+    full-forward slices (its kernel runs the wgmma core), or nothing for an
+    int8 or fp32 pack (their kernels keep nerf_mlp.cuh's cores). A bf16
+    launch without them is refused by the kernel's pointer count."""
+    return [] if dtype != torch.bfloat16 or quant.is_int8(packed) else [pack_slices(packed)]
 
 
 wgmma_dense_launches = 0  # the [core] check's launches (chip_smoke.py)
@@ -512,21 +538,20 @@ def render_around_depth_kernel(
         return render_around_depth_plain(packed, cfg, rays_o, rays_d, depth, offsets,
                                          dtype=torch.bfloat16, **kw)
     _check_cuda(cfg, multires, multires_views, (rays_o, rays_d, depth, offsets), weights)
-    skip_mask = sum(1 << i for i in packed["skip_w"])
-    plan = _plan(packed, cfg)
-    lib = build.load_library()
-    out = torch.empty((6, n), dtype=torch.float32, device=rays_o.device)
-    arr, count = build.pointer_array([rays_o, rays_d, depth, offsets, out] + weights)
-    rc = lib.nst_render_around_depth(
-        arr, count, n, S, cfg.D, skip_mask, float(near), float(far), int(bool(white_bkgd)),
-        build.host_pointer(plan), build.current_stream(rays_o.device),
-    )
-    build.check(rc, "render_around_depth_kernel")
-    if plan is not None:
+    maps = _launch("nst_render_around_depth", packed, cfg, rays_o, rays_d, depth, offsets, weights, S,
+                   float(near), float(far), int(bool(white_bkgd)))
+    if quant.is_int8(packed):
         int8_launches += 1
     else:
         launches += 1
-    return {"rgb_map": out[0:3].T, "disp_map": out[3], "acc_map": out[4], "depth_map": out[5]}
+    return maps
+
+
+def kernel_occupancy(n_samples: int = 64) -> dict[str, int]:
+    """The bf16 kernel's launch shape (K2, K3, K8, K9) at ``n_samples``:
+    resident blocks per SM, rays per block, threads per block, dynamic
+    shared memory (bytes), and the card's SM count."""
+    return build.occupancy("nst_render_around_depth_occupancy", n_samples)
 
 
 def fused_render_around_depth(
@@ -597,21 +622,13 @@ def render_gaussian_kernel(
                                      multires_views=multires_views, dtype=torch.bfloat16)
     inputs = (rays_o, rays_d, depth) + ((noise,) if noise is not None else ())
     _check_cuda(cfg, multires, multires_views, inputs, weights)
-    skip_mask = sum(1 << i for i in packed["skip_w"])
-    plan = _plan(packed, cfg)
-    lib = build.load_library()
-    out = torch.empty((6, n), dtype=torch.float32, device=rays_o.device)
-    arr, count = build.pointer_array([rays_o, rays_d, depth, noise, out] + weights)
-    rc = lib.nst_render_gaussian(
-        arr, count, n, S, cfg.D, skip_mask, float(std), int(seed) & 0xFFFFFFFF,
-        int(bool(white_bkgd)), build.host_pointer(plan), build.current_stream(rays_o.device),
-    )
-    build.check(rc, "render_gaussian_kernel")
-    if plan is not None:
+    maps = _launch("nst_render_gaussian", packed, cfg, rays_o, rays_d, depth, noise, weights, S,
+                   float(std), int(seed) & 0xFFFFFFFF, int(bool(white_bkgd)))
+    if quant.is_int8(packed):
         gaussian_int8_launches += 1
     else:
         gaussian_launches += 1
-    return {"rgb_map": out[0:3].T, "disp_map": out[3], "acc_map": out[4], "depth_map": out[5]}
+    return maps
 
 
 def fused_render_gaussian(
@@ -696,15 +713,18 @@ def shade_plain(
 
 
 def _launch(entry: str, packed: dict, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tensor,
-            z: torch.Tensor | None, weights: list[torch.Tensor], S: int, *args) -> dict[str, torch.Tensor]:
-    """One launch of K8 (``nst_render_linspace``) or K9 (``nst_shade``):
-    pointers rays_o, rays_d, no depth, z (or none), out and the weights;
-    then n, S, D, the skip mask, ``args``, the int8 plan (or null) and the
-    stream."""
+            depth: torch.Tensor | None, z: torch.Tensor | None, weights: list[torch.Tensor], S: int,
+            *args, dtype=torch.bfloat16) -> dict[str, torch.Tensor]:
+    """One launch of K2 (``nst_render_around_depth``), K3
+    (``nst_render_gaussian``), K8 (``nst_render_linspace``) or K9
+    (``nst_shade``): pointers rays_o, rays_d, depth (or none), the z
+    argument (or none), out, the ``dtype`` weights and, for a bf16 pack,
+    its slices (``_core_slices``); then n, S, D, the skip mask, ``args``,
+    the int8 plan (or null) and the stream."""
     n = rays_o.shape[0]
     plan = _plan(packed, cfg)
     out = torch.empty((6, n), dtype=torch.float32, device=rays_o.device)
-    arr, count = build.pointer_array([rays_o, rays_d, None, z, out] + weights)
+    arr, count = build.pointer_array([rays_o, rays_d, depth, z, out] + weights + _core_slices(packed, dtype))
     rc = getattr(build.load_library(), entry)(
         arr, count, n, S, cfg.D, sum(1 << i for i in packed["skip_w"]), *args,
         build.host_pointer(plan), build.current_stream(rays_o.device),
@@ -750,8 +770,8 @@ def fused_render(
     _check_cuda(cfg, multires, multires_views, (rays_o, rays_d), weights)
     a, b = (1.0 / near, 1.0 / far) if lindisp else (near, far)
     fp32 = dtype == torch.float32
-    maps = _launch("nst_render_linspace", packed, cfg, rays_o, rays_d, None, weights, n_samples,
-                   float(a), float(b), int(bool(lindisp)), int(bool(white_bkgd)), int(fp32))
+    maps = _launch("nst_render_linspace", packed, cfg, rays_o, rays_d, None, None, weights, n_samples,
+                   float(a), float(b), int(bool(lindisp)), int(bool(white_bkgd)), int(fp32), dtype=dtype)
     if fp32:
         linspace_fp32_launches += 1
     elif quant.is_int8(packed):
@@ -796,8 +816,8 @@ def fused_shade(
         return shade_plain(packed, cfg, rays_o, rays_d, z_vals, assume_sorted=assume_sorted, dtype=dtype, **kw)
     _check_cuda(cfg, multires, multires_views, (rays_o, rays_d, z_vals), weights)
     fp32 = dtype == torch.float32
-    maps = _launch("nst_shade", packed, cfg, rays_o, rays_d, z_vals, weights, S, int(bool(assume_sorted)),
-                   int(bool(white_bkgd)), int(fp32))
+    maps = _launch("nst_shade", packed, cfg, rays_o, rays_d, None, z_vals, weights, S, int(bool(assume_sorted)),
+                   int(bool(white_bkgd)), int(fp32), dtype=dtype)
     if fp32:
         shade_fp32_launches += 1
     elif quant.is_int8(packed):

@@ -9,6 +9,12 @@ transposed; their count and byte size are what the kernel header reads; an
 emulation of the kernel's forward over the unpacked slices agrees with the
 plain MLP; and ``pack_nerf``'s layout, which the other kernels read, is
 unchanged.
+
+The bf16 render kernels (K2, K3, K8, K9) take a pack's full-forward slices
+as their last pointer: the slices cached in the pack (``pack_slices``) are
+kept apart per program, follow a re-pack of new weights, reach only bf16
+launches, and, run through the emulated forward and composited as K2 and
+K3 composite, give the plain versions' maps.
 """
 
 from __future__ import annotations
@@ -21,8 +27,10 @@ import pytest
 import torch
 
 from nerf_sampling_tpu_torch.kernels import fused_render as fr
+from nerf_sampling_tpu_torch.kernels import quant
 from nerf_sampling_tpu_torch.kernels.fused_nerf import point_embeddings
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
+from nerf_sampling_tpu_torch.render import NeRFParams, pack_kernel_weights
 
 HEADER = os.path.join(os.path.dirname(fr.__file__), "csrc", "mlp_wgmma.cuh")
 W = 256
@@ -123,28 +131,23 @@ def test_slice_counts_and_sizes_match_the_kernel_header(D, skips):
     assert slice_bytes % 1024 == 0 and panel % 1024 == 0 and (panel // 2) % 1024 == 0
 
 
-def test_emulated_forward_over_the_slices_matches_mlp_plain():
+def emulated_forward(packed: dict, slices: torch.Tensor, x_pts: torch.Tensor, x_v: torch.Tensor) -> torch.Tensor:
     """The kernel's forward (nerf_forward in mlp_wgmma.cuh) written over
-    the unpacked slices: PE panel 0 then the activation tile, the skip
-    rows as a second product into the same sums, the views layer reading
-    PE panel 1 through the zero-padded views_ws slice."""
-    model = small_nerf(D=4, skips=(1,))
-    packed = fr.pack_nerf(model)
-    cfg = model.cfg
+    the unpacked full-forward ``slices`` of ``packed``: PE panel 0 then the
+    activation tile, the skip rows as a second product into the same sums,
+    the views layer reading PE panel 1 through the zero-padded views_ws
+    slice; raw [M, 4] (rgb logits, sigma)."""
     program = fr.wgmma_program(packed)
-    Bs = iter(unpack(fr.wgmma_slices(program), program))
-    rng = np.random.default_rng(1)
-    pts = torch.from_numpy(rng.uniform(-1.5, 1.5, (96, 3)).astype(np.float32))
-    dirs = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(96, 3)).astype(np.float32)), dim=-1)
-    x_pts, x_v = point_embeddings(pts, dirs, 10, 4, torch.bfloat16)
-    pe0 = torch.cat([x_pts, torch.zeros(96, 1)], 1)  # [pts emb 63 | 0]
-    pe1 = torch.cat([x_v, torch.zeros(96, 5)], 1)  # [view emb 27 | 0 x 5]: the 32 rows views_ws has
+    Bs = iter(unpack(slices, program))
+    M = x_pts.shape[0]
+    pe0 = torch.cat([x_pts, torch.zeros(M, 1)], 1)  # [pts emb 63 | 0]
+    pe1 = torch.cat([x_v, torch.zeros(M, 5)], 1)  # [view emb 27 | 0 x 5]: the 32 rows views_ws has
 
     def rnd(z):
         return z.to(torch.bfloat16).float()
 
     h = rnd(torch.relu(pe0 @ next(Bs) + packed["trunk_b"][0]))
-    for i in range(1, cfg.D):
+    for i in range(1, len(packed["trunk_b"])):
         z = h @ next(Bs)
         if i in packed["skip_w"]:
             z = z + pe0 @ next(Bs)
@@ -153,8 +156,172 @@ def test_emulated_forward_over_the_slices_matches_mlp_plain():
     feature = rnd(h @ next(Bs) + packed["feature_b"])
     hv = rnd(torch.relu(feature @ next(Bs) + pe1 @ next(Bs) + packed["views_b"]))
     rgb = hv @ packed["rgb_w"].float().T + packed["rgb_b"]
-    want, _ = fr.mlp_plain(packed, cfg, x_pts, x_v, torch.bfloat16)
-    torch.testing.assert_close(torch.cat([rgb, sigma[:, None]], -1), want, rtol=1e-5, atol=1e-5)
+    return torch.cat([rgb, sigma[:, None]], -1)
+
+
+def test_emulated_forward_over_the_slices_matches_mlp_plain():
+    model = small_nerf(D=4, skips=(1,))
+    packed = fr.pack_nerf(model)
+    rng = np.random.default_rng(1)
+    pts = torch.from_numpy(rng.uniform(-1.5, 1.5, (96, 3)).astype(np.float32))
+    dirs = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(96, 3)).astype(np.float32)), dim=-1)
+    x_pts, x_v = point_embeddings(pts, dirs, 10, 4, torch.bfloat16)
+    got = emulated_forward(packed, fr.wgmma_slices(fr.wgmma_program(packed)), x_pts, x_v)
+    want, _ = fr.mlp_plain(packed, model.cfg, x_pts, x_v, torch.bfloat16)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# --- the render kernels' slices (K2, K3, K8, K9 in bf16) ---------------------------------------
+
+
+def header_count(D: int, skips, sigma_only: bool = False) -> int:
+    return _header_formula("forward_slices")(D, sum(1 << i for i in skips), sigma_only)
+
+
+@pytest.mark.parametrize("D,skips", [(8, (4,)), (4, (1,))], ids=["production", "small"])
+def test_render_launch_takes_the_full_forward_slices(D, skips):
+    """What a bf16 render launch hands the kernel after the weights: one
+    image of the full forward, as many slices as the header's
+    forward_slices(D, skip_mask, false) reads, unpacking to every matrix,
+    made once and kept in the pack."""
+    packed = fr.pack_nerf(small_nerf(D=D, skips=skips))
+    (image,) = fr._core_slices(packed)
+    assert image.shape == (header_count(D, skips), fr.WG_SLICE_N * fr.WG_SLICE_K)
+    program = fr.wgmma_program(packed)
+    for (w, _), B in zip(program, unpack(image, program)):
+        assert torch.equal(B, w.float())
+    assert fr._core_slices(packed)[0] is image
+
+
+@pytest.mark.parametrize("first", ["sigma_only", "full"])
+def test_slice_cache_keeps_each_program_apart(first):
+    """One pack asked for both programs, in either order, keeps both: the
+    sigma-only image (K6/K7's coarse pass) and the full one (the render
+    kernels, K6/K7's fine pass) have their own counts and contents."""
+    packed = fr.pack_nerf(small_nerf(D=8, skips=(4,)))
+    order = (True, False) if first == "sigma_only" else (False, True)
+    got = {so: fr.pack_slices(packed, sigma_only=so) for so in order}
+    for so in (True, False):
+        assert got[so].shape[0] == header_count(8, (4,), so)
+        assert torch.equal(got[so], fr.wgmma_slices(fr.wgmma_program(packed, sigma_only=so)))
+        assert fr.pack_slices(packed, sigma_only=so) is got[so]
+    assert got[True].shape[0] < got[False].shape[0]
+
+
+def test_slices_follow_a_repack_of_new_weights():
+    """The Trainer re-packs before an eval (pack_kernel_weights on params
+    without kernels): the new packs' slices are the new weights', in the
+    render pack and in both nets of the hier pack."""
+    coarse, fine = small_nerf(D=4, skips=(1,), seed=3), small_nerf(D=4, skips=(1,), seed=4)
+    params = pack_kernel_weights(NeRFParams(coarse, fine), with_hier=True)
+    old = fr._core_slices(params.kernels.nerf)[0].clone()
+    fr.pack_slices(params.kernels.hier["coarse"], sigma_only=True)
+    fr.pack_slices(params.kernels.hier["fine"])
+    with torch.no_grad():
+        for m in (coarse, fine):
+            for p in m.parameters():
+                p.mul_(-0.5)
+    params = pack_kernel_weights(params._replace(kernels=None), with_hier=True)
+    new = fr._core_slices(params.kernels.nerf)[0]
+    assert torch.equal(new, fr.wgmma_slices(fr.wgmma_program(fr.pack_nerf(fine))))
+    assert not torch.equal(new, old)
+    hier = params.kernels.hier
+    assert torch.equal(fr.pack_slices(hier["coarse"], sigma_only=True),
+                       fr.wgmma_slices(fr.wgmma_program(fr.pack_nerf(coarse), sigma_only=True)))
+    assert torch.equal(fr.pack_slices(hier["fine"]), new)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "fp32", "int8"])
+def test_only_bf16_launches_take_slices(kind):
+    """The bf16 kernel runs the wgmma core and takes the slices; the fp32
+    (COMPARE) and int8 (K10) kernels keep nerf_mlp.cuh's cores and take
+    none, and making their arguments adds nothing to their packs."""
+    model = small_nerf(D=4, skips=(1,))
+    if kind == "int8":
+        rng = np.random.default_rng(2)
+        ro = torch.tensor([[0.0, 0.0, 4.0]]).repeat(64, 1)
+        rd = torch.from_numpy((rng.normal(size=(64, 3)) * 0.2).astype(np.float32))
+        rd[:, 2] = -1.0
+        packed = quant.qpack_nerf(model, quant.calibrate_nerf_quant(model, ro, rd, n_rays=64, n_z=9))
+    else:
+        packed = fr.pack_nerf(model, torch.float32 if kind == "fp32" else torch.bfloat16)
+    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+    args = fr._core_slices(packed, dtype)
+    if kind == "bf16":
+        assert len(args) == 1 and torch.equal(args[0], fr.wgmma_slices(fr.wgmma_program(packed)))
+    else:
+        assert args == [] and "wg_slices" not in packed
+
+
+def composite_in_order(raw: torch.Tensor, z: torch.Tensor, rays_d: torch.Tensor) -> dict[str, torch.Tensor]:
+    """K2's compositing as the kernel runs it: one ray's samples in order,
+    a running transmittance, a white background."""
+    dn = torch.sqrt((rays_d * rays_d).sum(-1))
+    n, S = z.shape
+    T = torch.ones(n)
+    acc, dep, c = torch.zeros(n), torch.zeros(n), torch.zeros(n, 3)
+    rgb = torch.sigmoid(raw[..., :3])
+    for s in range(S):
+        dist = ((z[:, s + 1] - z[:, s]) if s < S - 1 else torch.full((n,), 1e10)) * dn
+        alpha = 1.0 - torch.exp(-torch.relu(raw[:, s, 3]) * dist)
+        w = alpha * T
+        acc, dep, c = acc + w, dep + w * z[:, s], c + w[:, None] * rgb[:, s]
+        T = T * (1.0 - alpha + 1e-10)
+    q = dep / (acc + 1e-10)
+    disp = 1.0 / torch.where(q < 1e-10, torch.full_like(q, 1e-10), q)
+    return {"rgb_map": c + (1.0 - acc)[:, None], "disp_map": disp, "acc_map": acc, "depth_map": dep}
+
+
+def rank_sort(v: np.ndarray) -> np.ndarray:
+    """nerf_mlp.cuh::sort_rows: each element's rank in its ray, ascending,
+    NaN last, ties by index."""
+    out = np.empty_like(v)
+    for r in range(v.shape[0]):
+        for i, a in enumerate(v[r]):
+            def before(b, j):
+                if np.isnan(a) or np.isnan(b):
+                    return np.isnan(a) and (not np.isnan(b) or j < i)
+                return b < a or (b == a and j < i)
+            out[r, sum(before(b, j) for j, b in enumerate(v[r]))] = a
+    return out
+
+
+@pytest.mark.parametrize("population", ["uniform", "gaussian"])
+def test_emulated_render_over_the_slices_matches_the_plain_version(population):
+    """K2 (uniform, clipped to [2, 6]) and K3 (gaussian with injected noise,
+    rank-sorted) written as the bf16 kernel runs them: the population, the
+    fp32 PE of o + d*z, the forward over the pack's launch slices and the
+    in-order compositing give the plain versions' maps at bf16, NaN where
+    the depth is NaN."""
+    model = small_nerf(D=4, skips=(1,), seed=5)
+    packed = fr.pack_nerf(model)
+    rng = np.random.default_rng(6)
+    n, S, std = 12, 16, 0.5
+    ro = torch.tensor([[0.0, 0.0, 4.0]]).repeat(n, 1)
+    rd = torch.from_numpy((rng.normal(size=(n, 3)) * 0.3).astype(np.float32))
+    rd[:, 2] = -1.0
+    depth = torch.from_numpy(rng.uniform(3.0, 5.0, n).astype(np.float32))
+    depth[5] = float("nan")
+    if population == "uniform":
+        offsets = torch.from_numpy(fr.uniform_population_offsets(S, 1.0))
+        v = depth[:, None] + offsets[None, :]
+        z = torch.where(torch.isnan(v), v, v.clamp(2.0, 6.0))
+        want = fr.render_around_depth_plain(packed, model.cfg, ro, rd, depth, offsets, dtype=torch.bfloat16)
+    else:
+        noise = torch.from_numpy(rng.normal(size=(n, S - 1)).astype(np.float32))
+        v = torch.cat([depth[:, None] + std * noise, depth[:, None]], 1)
+        z = torch.from_numpy(rank_sort(v.numpy()))
+        want = fr.render_gaussian_plain(packed, model.cfg, ro, rd, depth, noise, std=std, dtype=torch.bfloat16)
+    pts = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(-1, 3)
+    dirs = rd / torch.sqrt((rd * rd).sum(-1, keepdim=True))
+    x_pts, x_v = point_embeddings(pts, dirs, 10, 4, torch.bfloat16)
+    raw = emulated_forward(packed, fr._core_slices(packed)[0], x_pts, x_v).reshape(n, S, 4)
+    got = composite_in_order(raw, z, rd)
+    ok = ~torch.isnan(depth)
+    assert float(want["acc_map"][ok].mean()) > 0.1  # a field with density: the maps say something
+    for name in ("rgb_map", "acc_map", "depth_map", "disp_map"):
+        torch.testing.assert_close(got[name], want[name], rtol=1e-4, atol=1e-5, equal_nan=True)
+        assert bool(torch.isnan(got[name]).reshape(n, -1).all(1).eq(~ok).all()), name
 
 
 def test_pack_nerf_layout_is_unchanged():
