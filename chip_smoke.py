@@ -10,7 +10,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    [core]: one dense layer of the wgmma MLP core (csrc/mlp_wgmma.cuh, through
    csrc/wg_dense.cu) against torch.matmul of the same bf16 operands with fp32
    accumulation, at 64, 128 and ragged row counts, with and without a skip
-   operand (CORE_ULP_TOL, CORE_FLIP_TOL); it fails before any NeRF kernel runs.
+   operand (CORE_ULP_TOL, CORE_FLIP_TOL); then one s8 layer (the int8 NeRF's
+   products) whose int32 sums must equal an fp64 matmul of the int8 values
+   exactly; it fails before any NeRF kernel runs.
 3. Kernel vs plain, on the committed checkpoint's weights, each held to
    its plain version at bf16 rounding with the tolerances below:
    K1 (DepthNet) on the 160,000 rays of test view 0 plus 64 rays that miss
@@ -94,7 +96,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    the rays with acc > 0.5 (K10_Z_MEAN_TOL / K10_Z_P99_TOL); K6-int8's
    max_z against bf16 K6 on those rays (median within a coarse spacing,
    tests/test_quant.py's bound); fault_check.py shows that a planted
-   requant fault fails these gates; FULL_NERF at N_importance 0 through the engine (K8 int8 once);
+   requant fault, and a wrong int8 swizzle of the wgmma core, fail these
+   gates; K6/K7-int8 run on the wgmma core with s8 products: the launch
+   shape of render_hier_kernel<int8_t> (it must be 288 threads, one block
+   per SM, 128 blocks for a 1024-ray step), one block's time alone, and an
+   int8 hierarchical launch without its weight slices must be refused;
+   FULL_NERF at N_importance 0 through the engine (K8 int8 once);
    the DEPTH_NET view 0 PSNR in int8 beside bf16 (no gate) and the int8
    frame's time and profile. After the training path, [int8-train]: the
    CLI with --mlp_impl pallas_int8 runs the same recipe and seed for
@@ -103,11 +110,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    within INT8_EVAL_TOL dB of the bf16 run's eval; --mode nerf with int8
    must raise.
 
-K2, K3, K8 and K9 in bf16 (render_around_depth.cu), K6/K7 in bf16 and K5's
-row pass run on the wgmma core: their records name it under "core"; the
-launch shapes of K2's and K6's kernels (blocks, rays per block, occupancy),
-the registers and spills of render_around_depth_kernel<bf16> from the
-build log, one K2 block's time alone, and K5's time by pass (CUDA events;
+K2, K3, K8 and K9 in bf16 (render_around_depth.cu), K6/K7 in bf16 and in
+int8 and K5's row pass run on the wgmma core: their records name it under
+"core"; the launch shapes of K2's and K6's kernels (blocks, rays per block,
+occupancy), the registers and spills of render_around_depth_kernel<bf16>
+and of render_hier_kernel in bf16 and int8 from the build log, one K2
+block's time alone, and K5's time by pass (CUDA events;
 its library_ms is torch.matmul of pass (b)'s weight-grad products on the
 same shapes) are printed; [K2] also shows that a bf16 launch without the
 weight slices is refused.
@@ -283,7 +291,7 @@ def nbytes(*tensors) -> int:
     return total
 
 
-CORE = "nerf_sampling_tpu_torch/kernels/csrc/mlp_wgmma.cuh"  # the wgmma MLP core of K2, K3, K5-K9 (bf16)
+CORE = "nerf_sampling_tpu_torch/kernels/csrc/mlp_wgmma.cuh"  # the wgmma MLP core of K2, K3, K5-K9 (bf16), K6/K7 (int8)
 
 
 def kernel_record(name: str, source: str, replaces: str, max_abs_err: float, ms: float, plain_ms: float,
@@ -309,8 +317,9 @@ def kernel_record(name: str, source: str, replaces: str, max_abs_err: float, ms:
 def check_core(device) -> None:
     """[core]: one dense layer of the wgmma core against torch.matmul of the
     same bf16 operands (fp32 accumulation, one bf16 rounding), at 64, 128
-    and ragged row counts, with and without a skip operand; every launch
-    counted."""
+    and ragged row counts, with and without a skip operand; then its s8
+    mode, whose int32 sums must equal an fp64 matmul of the int8 values
+    (exact: every sum is below 2^53); every launch counted."""
     from nerf_sampling_tpu_torch.kernels import fused_render as fr
 
     t0 = time.perf_counter()
@@ -343,6 +352,19 @@ def check_core(device) -> None:
         require(bool(torch.isfinite(got).all()) and steps <= CORE_ULP_TOL and flips <= CORE_FLIP_TOL,
                 f"[core] the wgmma layer disagrees with torch.matmul at {M} x {K} x {N}")
     require(fr.wgmma_dense_launches == len(cases), "[core] wgmma_dense did not launch its kernel")
+    fr.wgmma_dense_q_launches = 0
+    qcases = ((64, 256, 256), (300, 128, 128), (1000, 256, 128), (4133, 256, 256))
+    for M, K, N in qcases:
+        a = torch.randint(-128, 128, (M, K), generator=g, device=device).to(torch.int8)
+        wq = torch.randint(-128, 128, (N, K), generator=g, device=device).to(torch.int8)
+        got = fr.wgmma_dense_q(a, wq)
+        torch.cuda.synchronize()
+        ref = torch.matmul(a.double(), wq.double().T)
+        bad = int((got.double() != ref).sum())
+        log(f"[core] s8 {M} x {K} @ ({N} x {K})^T: {bad} of {M * N} int32 sums differ from the fp64 matmul "
+            f"(max |sum| {float(ref.abs().max()):.0f}; must be 0)")
+        require(bad == 0, f"[core] the s8 wgmma layer's int32 sums are not exact at {M} x {K} x {N}")
+    require(fr.wgmma_dense_q_launches == len(qcases), "[core] wgmma_dense_q did not launch its kernel")
     log(f"[core] phase {time.perf_counter() - t0:.1f} s")
 
 
@@ -1042,6 +1064,7 @@ def check_k10(params, scene, K, device, batches) -> tuple[list[dict], dict[str, 
     int8's launches in the engine render."""
     import dataclasses
 
+    from nerf_sampling_tpu_torch.kernels import build
     from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
     from nerf_sampling_tpu_torch.kernels import fused_hier as k67
     from nerf_sampling_tpu_torch.kernels import fused_render as k289
@@ -1116,7 +1139,7 @@ def check_k10(params, scene, K, device, batches) -> tuple[list[dict], dict[str, 
     flop = 2 * n * (64 * module_macs(params.coarse, True) + 192 * module_macs(params.fine))
     iflop = 2 * n * (64 * int8_macs(params.coarse, True) + 192 * int8_macs(params.fine))
     recs.append(kernel_record("render_hier_kernel_det_int8", "render_hier.cu", "nerf_sampling_tpu/kernels/quant.py:353",
-                              worst, ms, plain_ms, flop, nbytes(ro, rd, q.hier, got), int8_flop=iflop))
+                              worst, ms, plain_ms, flop, nbytes(ro, rd, q.hier, got), int8_flop=iflop, core=CORE))
     log(f"[k10] render_hier_det (K7): {ms:.3f} ms per launch over view 0; plain int8 version {plain_ms:.3f} ms; "
         f"bound {recs[-1]['bound_ms']:.3f} ms")
 
@@ -1155,9 +1178,31 @@ def check_k10(params, scene, K, device, batches) -> tuple[list[dict], dict[str, 
     flop = 2 * m * (Nc * module_macs(params.coarse, True) + (Nc + Nf) * module_macs(params.fine))
     iflop = 2 * m * (Nc * int8_macs(params.coarse, True) + (Nc + Nf) * int8_macs(params.fine))
     recs.append(kernel_record("render_hier_kernel_int8", "render_hier.cu", "nerf_sampling_tpu/kernels/quant.py:353",
-                              worst, ms, plain_ms, flop, nbytes(bro, brd, q.hier, got[0]), int8_flop=iflop))
+                              worst, ms, plain_ms, flop, nbytes(bro, brd, q.hier, got[0]), int8_flop=iflop, core=CORE))
     log(f"[k10] render_hier (K6): {ms:.3f} ms per launch at {m} rays (bf16 K6 {ms16:.3f} ms, same call); plain int8 "
         f"version {plain_ms:.3f} ms; bound {recs[-1]['bound_ms']:.3f} ms")
+    # the int8 kernel on the wgmma core: its launch shape, one block alone, and no launch without its slices
+    occ = k67.kernel_occupancy(Nc, Nf, int8=True)
+    one = occ["rays_per_block"]
+    blocks, slots = -(-m // one), occ["blocks_per_sm"] * occ["sms"]
+    ms_one = cuda_ms(lambda: k67.render_hier_kernel(q.hier, cfg_c, cfg, bro[:one], brd[:one], n_coarse=Nc,
+                                                    n_importance=Nf, seed=1), 20)
+    log(f"[k10] render_hier_kernel<int8_t> (wgmma core, s8) at {m} rays: {blocks} blocks of {one} rays "
+        f"({occ['threads']} threads, {occ['smem_bytes']} bytes of shared memory), {occ['blocks_per_sm']} resident "
+        f"per SM x {occ['sms']} SMs = {slots} slots, {blocks / slots:.2f} waves; one block of {one} rays alone "
+        f"{ms_one:.3f} ms")
+    require(occ["threads"] == 288 and occ["blocks_per_sm"] == 1 and blocks == 128,
+            "K6-int8 does not launch as the wgmma core's kernel (288 threads, one block per SM, 128 blocks)")
+    mask_c, mask_f = (sum(1 << i for i in q.hier[k]["skip_w"]) for k in ("coarse", "fine"))
+    plan_c, plan_f = k289._plan(q.hier["coarse"], cfg_c), k289._plan(q.hier["fine"], cfg)
+    arr, count = build.pointer_array([bro, brd, None, torch.empty((11, m), device=device)]
+                                     + k289._flat_weights(q.hier["coarse"], sigma_only=True)
+                                     + k289._flat_weights(q.hier["fine"]))
+    rc = build.load_library().nst_render_hier(
+        arr, count, m, Nc, Nf, cfg_c.D, mask_c, cfg.D, mask_f, 2.0, 6.0, 0, 1, 1, 0, 0,
+        build.host_pointer(plan_c), build.host_pointer(plan_f), build.current_stream(device))
+    log(f"[k10] an int8 hierarchical launch without the weight slices: cudaError_t {rc} (refused)")
+    require(rc != 0, "K6-int8: a launch without the weight slices was not refused")
 
     # FULL_NERF at N_importance 0 through the engine: K8 int8 on the coarse NeRF
     Hs, Ws, _ = scene.hwf
@@ -2072,6 +2117,9 @@ def main() -> int:
                     log("[build] " + line.rstrip()[:160])
         log(f"[build] render_around_depth_kernel<bf16> (K2, K3, K8, K9 on the wgmma core): "
             f"{ptxas_usage(info['log'], 'render_around_depth_kernelI13__nv_bfloat16')}")
+        for name, mangled in (("bf16", "render_hier_kernelI13__nv_bfloat16E"), ("int8_t", "render_hier_kernelIaE")):
+            log(f"[build] render_hier_kernel<{name}> (K6, K7 in {name[:4]} on the wgmma core): "
+                f"{ptxas_usage(info['log'], mangled)}")
     check_core(device)
 
     params = pack_kernel_weights(load_render_params(CKPT, production_pipeline("cuda"), device),

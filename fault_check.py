@@ -2,16 +2,23 @@
 
     python3 fault_check.py        # on a machine with a CUDA card, from the repo root
 
-Two sets of gates must pass on the sound source and fail on a wrong one:
-- the int8 core's (chip_smoke.py [k10]: K10_MEAN_TOL / K10_P999_TOL on the
-  maps, K10_Z_MEAN_TOL / K10_Z_P99_TOL on K6/K7's max_z and depth_map),
-  against faults in kernels/csrc/nerf_mlp.cuh's requant;
-- the wgmma core's ([core], [K6], [k5], [K2], [K3] and the render path:
-  CORE_ULP_TOL, the K6 map, max_z and draw gates, K5_REL_TOL, K5_COS_TOL
-  and the bits across launches, K2's and K3's map and draw gates, view 0's
-  PSNR against the JAX reference and the plain fp32 path), against a fault
-  in kernels/csrc/mlp_wgmma.cuh's producer, which every kernel on the core
-  shares, the production render's K2 among them.
+Three sets of gates must pass on the sound source and fail on a wrong one:
+- "k10", the int8 kernels' (chip_smoke.py [k10]: K10_MEAN_TOL / K10_P999_TOL
+  on the maps, K10_Z_MEAN_TOL / K10_Z_P99_TOL on K6/K7's max_z and
+  depth_map, K6-int8's max_z against bf16 K6), against faults in
+  kernels/csrc/nerf_mlp.cuh's requants, which K2/K3/K8/K9 in int8
+  (nerf_mlp.cuh's int8 core) and K6/K7 in int8 (the wgmma core's s8
+  forward) both call;
+- "core", the wgmma core's first check ([core]: one bf16 layer at
+  CORE_ULP_TOL, one s8 layer exact);
+- "wgmma", the kernels on the core ([K6], [k5], [K2], [K3] and the render
+  path: the K6 map, max_z and draw gates, K5_REL_TOL, K5_COS_TOL and the
+  bits across launches, K2's and K3's map and draw gates, view 0's PSNR
+  against the JAX reference and the plain fp32 path);
+against faults in the requants, in kernels/csrc/mlp_wgmma.cuh's producer,
+which every kernel on the core shares, the production render's K2 among
+them, and in its int8 tile swizzle, which [core]'s s8 layer and K6/K7 in
+int8 share.
 This runs the gates first on the checkout as it is, then on one copy per
 fault below (the port, chip_smoke.py, the checkpoint and the experiment
 configs, under logs/fault_check/, with one edit to the copy's source), with
@@ -33,21 +40,25 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "logs", "fault_check")
 CSRC = os.path.join("nerf_sampling_tpu_torch", "kernels", "csrc")
 
-# name: (source in CSRC, its text, the faulty replacement, the gates that must catch it)
+# name: (source in CSRC, its text, the faulty replacement, the gate sets that must catch it)
 FAULTS = {
     # the integer requant's round bit dropped: every shift truncates
     "round_bit": ("nerf_mlp.cuh", "if (p > 0) a = (a >> p) + ((a >> (p - 1)) & 1);", "if (p > 0) a = a >> p;",
-                  "k10"),
+                  ("k10",)),
     # h*inv + 0.5 contracted into one rounding (an FMA) at the fp32 requants
     "fma": ("nerf_mlp.cuh", "const float x = __fadd_rn(__fmul_rn(h, inv), 0.5f);",
-            "const float x = fmaf(h, inv, 0.5f);", "k10"),
+            "const float x = fmaf(h, inv, 0.5f);", ("k10",)),
     # the +-2^15 clamp before the multiply dropped: t*m may wrap in int32
-    "no_clamp": ("nerf_mlp.cuh", "a = min(max(a, -(1 << 15)), (1 << 15) - 1) * m;", "a = a * m;", "k10"),
+    "no_clamp": ("nerf_mlp.cuh", "a = min(max(a, -(1 << 15)), (1 << 15) - 1) * m;", "a = a * m;", ("k10",)),
     # the producer hands the consumers the ring's previous slice for one layer
     # (slices 2-9 of every tile's stream: trunk layer 1, or the [core] product)
     "stale_slice": ("mlp_wgmma.cuh", "const bf16* src = segs[g].slices + (size_t)s * (kSliceBytes / 2);",
                     "const bf16* src = segs[g].slices + (size_t)(s >= 2 && s < 10 ? s - 1 : s) * (kSliceBytes / 2);",
-                    "wgmma"),
+                    ("core", "wgmma")),
+    # the int8 tiles written unswizzled while wgmma reads them swizzled: every
+    # int8 activation the s8 products read lands in the wrong 16-byte chunk
+    "int8_swizzle": ("mlp_wgmma.cuh", "((((col & 127) >> 4) ^ (row & 7)) << 4)", "(((col & 127) >> 4) << 4)",
+                     ("core", "k10")),
 }
 
 # run in the checkout or copy: chip_smoke's checks of the named gate sets, gates recorded
@@ -72,8 +83,9 @@ params = pack_kernel_weights(load_render_params(c.CKPT, c.production_pipeline("c
 scene, K = c.load_example_scene()
 batches = [b[:2] for b in c.train_batches(scene, device, 8)]
 checks = {
+    "core": [lambda: c.check_core(device)],
     "k10": [lambda: c.check_k10(params, scene, K, device, batches)],
-    "wgmma": [lambda: c.check_core(device), lambda: c.check_k6(params, device, batches),
+    "wgmma": [lambda: c.check_k6(params, device, batches),
               lambda: c.check_k5(params, c.step_queries(params, scene, device)),
               lambda: c.check_k2(params, device), lambda: c.check_k3(params, device),
               lambda: c.run_slice(device, scene, K)],
@@ -134,10 +146,10 @@ def main() -> int:
     result = {}
     print("[fault_check] sound source", flush=True)
     # generates the example scene the copies take along
-    result["sound"] = run_checks(HERE, sorted({gates for *_, gates in FAULTS.values()}))
+    result["sound"] = run_checks(HERE, sorted({g for *_, gates in FAULTS.values() for g in gates}))
     for name, (source, old, new, gates) in FAULTS.items():
-        print(f"[fault_check] fault {name} in {source}: {old!r} -> {new!r}", flush=True)
-        result[name] = run_checks(make_copy(name, source, old, new), [gates])
+        print(f"[fault_check] fault {name} in {source}: {old!r} -> {new!r}, gates {', '.join(gates)}", flush=True)
+        result[name] = run_checks(make_copy(name, source, old, new), list(gates))
         print(f"[fault_check] fault {name}: {len(result[name])} gates failed", flush=True)
     print(json.dumps(result))
     return 0 if not result["sound"] and all(result[n] for n in FAULTS) else 1

@@ -103,7 +103,8 @@ def load_library() -> ctypes.CDLL:
     lib.nst_depth_net_forward.restype = i32
     # the vp before the stream of the render entries: the int8 plan, a host
     # int32 array (quant.quant_plan), or null for bf16 and fp32 (a bf16
-    # call ends ptrs with the pack's weight slices)
+    # call, and an int8 nst_render_hier call, ends ptrs with the packs'
+    # weight slices)
     lib.nst_render_around_depth.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, f32, i32, vp, vp]
     lib.nst_render_around_depth.restype = i32
     lib.nst_render_gaussian.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, u32, i32, vp, vp]
@@ -121,12 +122,14 @@ def load_library() -> ctypes.CDLL:
     lib.nst_nerf_points_bwd_sizes.restype = i32
     lib.nst_nerf_points_bwd.argtypes = [ptrs, i32, i64, i64, i32, u32, i64, i32, i32, vp]
     lib.nst_nerf_points_bwd.restype = i32
-    lib.nst_render_hier_occupancy.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.nst_render_hier_occupancy.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.nst_render_hier_occupancy.restype = i32
     lib.nst_render_around_depth_occupancy.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
     lib.nst_render_around_depth_occupancy.restype = i32
     lib.nst_wg_dense.argtypes = [ptrs, i32, i64, i32, i32, i32, vp]
     lib.nst_wg_dense.restype = i32
+    lib.nst_wg_dense_q.argtypes = [ptrs, i32, i64, i32, i32, vp]
+    lib.nst_wg_dense_q.restype = i32
     build_info.update(
         path=so_path, log=log_path, built=built, seconds=time.perf_counter() - t0
     )

@@ -1,6 +1,7 @@
 // Shared building block of the port's MLP kernels: one dense layer over a
 // tile of rows whose activations live in shared memory, as bf16 or fp32.
-// (bf16 K5, K6 and K7 run the wgmma core of mlp_wgmma.cuh instead.)
+// (K2, K3 and K5-K9 in bf16 and K6/K7 in int8 run the wgmma core of
+// mlp_wgmma.cuh instead.)
 //
 //   out[16*MT, N] = act(sum_op A_op @ W_op + bias),   N = kWarps * NT * 16
 //
@@ -25,7 +26,7 @@
 // broadcast) and one float4 of the weight row per step of k from L2, and
 // sums k in order over the operands, so the result is deterministic.
 //
-// int8 (the W8A8 MLP, K10): gemm_rows_q runs an int8 x int8 product with
+// int8 (the W8A8 MLP, K10, in K2/K3/K8/K9): gemm_rows_q runs an int8 x int8 product with
 // int32 accumulation on the tensor cores (IMMA: mma.sync.m16n8k32 s8 in
 // inline PTX, its fragments loaded by hand with aligned 8-byte loads; the
 // int8 weights are [N, k], k contiguous), optionally beside a bf16

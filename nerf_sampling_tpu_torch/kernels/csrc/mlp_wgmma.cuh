@@ -1,15 +1,17 @@
-// The Hopper bf16 MLP core: dense layers over 128-row tiles on wgmma, with
-// the weights streamed through a ring of shared-memory slices by a producer
-// warp. Used by K6/K7 in bf16 (render_hier.cu), K2/K3/K8/K9 in bf16
-// (render_around_depth.cu), K5's row pass (nerf_points_bwd.cu) and the
-// [core] check (wg_dense.cu); the other kernels keep mlp_tile.cuh::gemm_rows.
+// The Hopper MLP core: dense layers over 128-row tiles on wgmma, with the
+// weights streamed through a ring of shared-memory slices by a producer
+// warp. Used by K6/K7 in bf16 and int8 (render_hier.cu), K2/K3/K8/K9 in
+// bf16 (render_around_depth.cu), K5's row pass (nerf_points_bwd.cu) and the
+// [core] check (wg_dense.cu); the other kernels keep mlp_tile.cuh's cores.
 //
 //   acc[64 rows of a warpgroup, NH * 128] = sum_op A_op @ B_op
 //
-// followed, in each kernel, by a register epilogue: fp32 bias, activate()
-// (NaN kept), a bf16 round, written straight into the activation tile the
-// next layer reads. Rounding points are mlp_tile.cuh's: bf16 activations,
-// fp32 accumulation; only the order of the fp32 sums differs.
+// in bf16 (fp32 sums) or in int8 (s8 x s8 -> s32 sums, exact in any
+// order), followed, in each kernel, by a register epilogue: bf16, an fp32
+// bias, activate() (NaN kept), a bf16 round, written straight into the
+// activation tile the next layer reads; int8 (K10, kernels/quant.py), the
+// requants of nerf_mlp.cuh at JAX's rounding points. Rounding points are
+// mlp_tile.cuh's: only the order of the fp32 sums differs.
 //
 // Block: two consumer warpgroups (threads 0-255) and one producer warp
 // (256-287) whose first lane issues the copies. Warpgroup g owns rows
@@ -19,28 +21,37 @@
 //
 // Shared-memory layouts (all 128-byte swizzled, K-major, 1024-byte aligned;
 // what wgmma's descriptor with layout SWIZZLE_128B and SBO = 1024 reads):
-// - an activation tile: 128 rows x 64k columns as k panels of 16 KB, panel
-//   p holding columns [64p, 64p + 64); element (r, c) at tile_offset(r, c).
-//   Warpgroup g's A operand starts 8 KB into each panel.
-// - a weight slice: 128 output columns x 64 of depth, 16 KB, element (n, k)
-//   at n * 128 + ((k / 8) ^ (n % 8)) * 16 + (k % 8) * 2. The host writes
-//   that byte image of every slice (kernels/fused_render.py::wgmma_slices),
-//   in the order a tile consumes them, so the producer moves each with one
-//   cp.async.bulk and an mbarrier completion.
-// A product of depth K and width N reads ceil(K/64) * ceil(N/128) slices,
-// k panels outer, 128-column halves inner; zero-padded rows and columns
-// add exact zeros to the fp32 sums.
+// rows of 128 bytes, the 16-byte chunk c of row r at chunk c ^ (r % 8).
+// - a bf16 activation tile: 128 rows x 64k columns as k panels of 16 KB,
+//   panel p holding columns [64p, 64p + 64); element (r, c) at
+//   tile_offset(r, c). Warpgroup g's A operand starts 8 KB into each panel.
+// - an int8 activation tile: 128 rows x 128k columns as k panels of 16 KB,
+//   panel p holding columns [128p, 128p + 128); element (r, c) at
+//   qtile_offset(r, c).
+// - a weight slice, 16 KB: bf16, 128 output columns x 64 of depth, element
+//   (n, k) at n * 128 + ((k / 8) ^ (n % 8)) * 16 + (k % 8) * 2; int8, 128
+//   output columns x 128 of depth, element (n, k) at n * 128 + ((k / 16) ^
+//   (n % 8)) * 16 + k % 16. The host writes that byte image of every slice
+//   (kernels/fused_render.py::wgmma_slices, wgmma_qslices), in the order a
+//   tile consumes them, so the producer moves each with one cp.async.bulk
+//   and an mbarrier completion. One stream may mix both kinds.
+// A product of depth K and width N reads ceil(K/64) (int8: ceil(K/128)) *
+// ceil(N/128) slices, k panels outer, 128-column halves inner; zero-padded
+// rows and columns add exact zeros to the sums. Each k step of a product is
+// 32 bytes of depth (k16 bf16, k32 int8), so one descriptor walk serves both.
 //
 // The weight sequence of a pass does not depend on the activations, so the
 // producer runs ahead across layers and tiles, bounded by free ring stages
 // (full/empty mbarrier pairs; each consumer warp releases a stage after its
 // own wgmma.wait_group). What bounds it on the H100: L2 -> SM bandwidth for
-// the slices (128 FLOP per byte at 128 rows) and the tensor-core rate.
+// the slices (128 multiply-adds per byte at 128 rows in bf16, 256 in int8)
+// and the tensor-core rate; in int8 also the integer requant epilogue.
 #pragma once
 
 #include <cuda_bf16.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "nerf_mlp.cuh"
 
@@ -50,8 +61,8 @@ namespace wg {
 constexpr int kRows = 128;                    // rows per weight pass
 constexpr int kConsumers = 256;               // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;     // and one producer warp
-constexpr int kSliceBytes = 128 * 64 * 2;     // one staged weight slice
-constexpr int kPanelBytes = kRows * 128;      // one 64-column panel of a tile
+constexpr int kSliceBytes = 128 * 64 * 2;     // one staged weight slice (bf16 128 x 64 or int8 128 x 128)
+constexpr int kPanelBytes = kRows * 128;      // one panel of a tile: 64 bf16 or 128 int8 columns
 constexpr int kHalfPanel = kPanelBytes / 2;   // warpgroup 1's rows in a panel
 constexpr int kBarConsumers = 1;              // named barrier of threads 0-255; warpgroup g: 2 + g
 
@@ -59,6 +70,11 @@ constexpr int kBarConsumers = 1;              // named barrier of threads 0-255;
 __host__ __device__ constexpr uint32_t tile_offset(int row, int col) {
   return (uint32_t)((col >> 6) * kPanelBytes + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4) +
                     ((col & 7) << 1));
+}
+
+// byte offset of element (row, col) of a swizzled 128-row int8 tile
+__host__ __device__ constexpr uint32_t qtile_offset(int row, int col) {
+  return (uint32_t)((col >> 7) * kPanelBytes + row * 128 + ((((col & 127) >> 4) ^ (row & 7)) << 4) + (col & 15));
 }
 
 // Slices of one tile's pass over a NeRF: the forward (trunk; unless
@@ -75,6 +91,13 @@ __host__ __device__ inline int forward_slices(int D, unsigned skip_mask, bool si
 }
 __host__ __device__ inline int backward_slices(int D, unsigned skip_mask, bool want_dx) {
   return 4 + 8 * D + (want_dx ? 2 + 4 * popcount_u(skip_mask) + 4 : 0);
+}
+// The int8 forward (nerf_forward on NerfWeightsQ): layer 0's 2 bf16 slices,
+// 4 int8 slices a trunk layer, 2 bf16 more at a skip layer; unless
+// sigma_only the feature layer's 4, the views layer's 2 int8 and 1 bf16.
+// kernels/fused_render.py::wgmma_qprogram lists the same matrices in order.
+__host__ __device__ inline int forward_qslices(int D, unsigned skip_mask, bool sigma_only) {
+  return 2 + 4 * (D - 1) + 2 * popcount_u(skip_mask) + (sigma_only ? 0 : 4 + 2 + 1);
 }
 
 // ---- PTX
@@ -135,6 +158,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+__device__ __forceinline__ void fence_regs(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // Shared-memory matrix descriptor, 128-byte swizzle: groups of 8 rows of 128
 // bytes, 1024 bytes apart (SBO). K-major (the rule here): a row holds 64 k
@@ -167,6 +194,29 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da, uint
       : "l"(da), "l"(db), "r"(1), "n"(kMN));
 }
 
+// d[64 x 128] += A[64 x 32] @ B[32 x 128], s8 in, s32 accumulate; both
+// operands K-major (the only layout of 8-bit wgmma). An integer wgmma takes
+// no scale or transpose immediates; its accumulator fragment is laid out
+// as the fp32 one.
+__device__ __forceinline__ void mma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // ---- the ring
 
 // S stages of kSliceBytes, then the full and empty mbarriers (8 bytes each)
@@ -192,7 +242,8 @@ struct Cursor {
   uint32_t phase = 0;
 };
 
-// One run of the slice stream: n slices from `slices`, `repeat` times over.
+// One run of the slice stream: n slices from `slices`, `repeat` times over
+// (16 KB each, bf16 or int8 images; the pointer type is nominal).
 struct Segment {
   const bf16* slices;
   int n, repeat;
@@ -220,24 +271,26 @@ __device__ void produce(const Ring<S>& ring, const Segment* segs, int n_segs) {
       }
 }
 
-// An A operand: `panels` 64-column panels of a 128-row tile at shared
-// address `tile`; the product reads this warpgroup's 64 rows.
+// An A operand: `panels` 16 KB panels of a 128-row tile at shared address
+// `tile` (64 bf16 or 128 int8 columns each); the product reads this
+// warpgroup's 64 rows.
 struct Src {
   uint32_t tile;
   int panels;
 };
 
-// acc = sum over src of A @ B, B the next slices of the stream; every
-// consumer thread of the warpgroup calls it. Ends with every slice released.
-template <int NH, int S>
-__device__ __forceinline__ void gemm(float (&acc)[NH][64], const Src* src, int n_src, const Ring<S>& ring,
+// acc = sum over src of A @ B, B the next slices of the stream: bf16 with
+// float acc, int8 with int acc; every consumer thread of the warpgroup
+// calls it. Ends with every slice released.
+template <int NH, int S, typename Acc>
+__device__ __forceinline__ void gemm(Acc (&acc)[NH][64], const Src* src, int n_src, const Ring<S>& ring,
                                      Cursor& cur) {
   const uint32_t row_off = (threadIdx.x >> 7) * kHalfPanel;
   const bool lead = (threadIdx.x & 31) == 0;
 #pragma unroll
   for (int h = 0; h < NH; ++h) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0;
     fence_regs(acc[h]);
   }
   int prev = -1;
@@ -250,7 +303,12 @@ __device__ __forceinline__ void gemm(float (&acc)[NH][64], const Src* src, int n
         const uint32_t b = ring.data + cur.stage * kSliceBytes;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) mma_m64n128k16(acc[h], sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
+        for (int kk = 0; kk < 4; ++kk) {
+          if constexpr (std::is_same_v<Acc, int>)
+            mma_m64n128k32_s8(acc[h], sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
+          else
+            mma_m64n128k16(acc[h], sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
+        }
         wgmma_commit();
         wgmma_wait<1>();  // the previous slice's products are done
         if (prev >= 0 && lead) mbar_arrive(ring.empty(prev));
@@ -366,11 +424,12 @@ __device__ __forceinline__ void copy_rows(const unsigned char* tile, int cols, b
   }
 }
 
-// ---- the NeRF on the core (K2/K3/K6-K9 in bf16)
+// ---- the NeRF on the core (K2/K3/K6-K9 in bf16, K6/K7 in int8)
 
-// Shared memory of the NeRF passes: the activation tile (four panels), the
-// PE tile (two panels: [pts emb 63 | 0] and [view emb 27 | 0 x 37]) and the
-// ring, from a 1024-byte aligned base.
+// Shared memory of the NeRF passes: the activation tile (four panels: one
+// bf16 tile, or two int8 tiles of two panels), the PE tile (two bf16
+// panels: [pts emb 63 | 0] and [view emb 27 | 0 x 37]) and the ring, from a
+// 1024-byte aligned base.
 template <int S>
 struct Tiles {
   unsigned char* x;
@@ -432,12 +491,151 @@ __device__ void nerf_forward(const NerfWeights& w, const Tiles<S>& t, Cursor& cu
         if (r0 + 8 * hh < valid) rgb[ch][r0 + 8 * hh] = 1.f / (1.f + expf(-(s[2 * ch + hh] + w.rgb_b[ch])));
 }
 
+// Two int8 values into a swizzled int8 tile at (row, col) and (row, col + 1), col even
+__device__ __forceinline__ void store_q2(unsigned char* tile, int row, int col, int a, int b) {
+  *reinterpret_cast<uint16_t*>(tile + qtile_offset(row, col)) = (uint16_t)((a & 0xFF) | ((b & 0xFF) << 8));
+}
+
+// The int8 forward (K10: kernels/quant.py's chain, nerf_mlp.cuh's int8
+// mlp_chunk at its rounding points) over one 128-row tile whose bf16 PE
+// tile is filled; outputs as the bf16 nerf_forward. The activations are
+// int8 in two tiles of t.x (panels 0-1 and 2-3): a layer reads one and
+// writes the other. Consumes forward_qslices() of the stream:
+//   layer 0    bf16 PE @ w0, + b0, relu, quant_f32
+//   int layer  int8 @ tw, + bz, max 0, requant_int
+//   skip layer per 128-column half (the int32 and the fp32 sums of a half
+//              fit the registers together): int8 @ tw, then bf16 PE @
+//              skip_w in its own fp32 sums, z * sw + zf + b in rounded fp32
+//              steps, relu, quant_f32
+//   alpha head (float)hq . alpha_w from the last trunk layer's registers
+//   feature    int8 @ feat_w, + feat_b, requant_int down to -127
+//   views      int8 @ views_wf and bf16 PE views @ views_ws, merged as a
+//              skip half, relu, bf16; rgb = hv . rgb_w + rgb_b
+template <int S>
+__device__ void nerf_forward(const NerfWeightsQ& w, const Tiles<S>& t, Cursor& cur, int valid, bool sigma_only,
+                             float* sigma, float* const* rgb) {
+  const uint32_t pe = smem_u32(t.pe);
+  unsigned char* const xq[2] = {t.x, t.x + 2 * kPanelBytes};
+  const int lane = threadIdx.x & 31;
+  const int g64 = 64 * (threadIdx.x >> 7);
+  const int r0 = g64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows r0, r0 + 8
+  float sa[2] = {0.f, 0.f};  // the alpha head over the thread's columns, rows r0 and r0 + 8
+  // the pair (a, b) of row r (of the warpgroup's 64), columns col and col + 1,
+  // into tile x and, at the last trunk layer, into the alpha head
+  auto put = [&](unsigned char* x, bool last, int r, int col, int hh, int a, int b) {
+    if (last) {
+      const float2 aw = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w.alpha_w + col));
+      sa[hh] += (float)a * aw.x + (float)b * aw.y;  // exact products
+    }
+    if (!last || !sigma_only) store_q2(x, g64 + r, col, a, b);
+  };
+  // the fp32 merge of a half's int32 and fp32 sums: z * sw + zf + b, rounded step by step
+  auto merge = [](int z, float sw, float zf, float b) { return __fadd_rn(__fadd_rn(__fmul_rn((float)z, sw), zf), b); };
+
+  {  // layer 0
+    float acc[2][64];
+    const Src op = {pe, 1};
+    gemm(acc, &op, 1, t.ring, cur);
+    for_pairs<2>([&](int r, int col, int h, int i) {
+      const float2 b = __ldg(reinterpret_cast<const float2*>(w.b0 + col));
+      put(xq[0], w.D == 1, r, col, (i >> 1) & 1, quant_f32(activate(acc[h][i] + b.x, kRelu), w.inv_sh0),
+          quant_f32(activate(acc[h][i + 1] + b.y, kRelu), w.inv_sh0));
+    });
+    fence_async_smem();
+    group_sync();
+  }
+  int cx = 0;  // the tile holding the current layer's input
+  for (int i = 1; i < w.D; ++i) {
+    const Src op = {smem_u32(xq[cx]), 2};
+    unsigned char* out = xq[cx ^ 1];
+    const bool last = i == w.D - 1;
+    if ((w.skip_mask >> i) & 1u) {
+      const float* sw = static_cast<const float*>(w.trow[i]);
+      const float* b = w.skip_b[i];
+      const float inv = w.inv_sh[i];
+      const Src opf = {pe, 1};
+      for (int h = 0; h < 2; ++h) {
+        int zi[1][64];
+        float zf[1][64];
+        gemm(zi, &op, 1, t.ring, cur);
+        gemm(zf, &opf, 1, t.ring, cur);
+        for_pairs<1>([&](int r, int c, int, int j) {
+          const int col = 128 * h + c;
+          const float2 s2 = __ldg(reinterpret_cast<const float2*>(sw + col));
+          const float2 b2 = __ldg(reinterpret_cast<const float2*>(b + col));
+          put(out, last, r, col, (j >> 1) & 1, quant_f32(activate(merge(zi[0][j], s2.x, zf[0][j], b2.x), kRelu), inv),
+              quant_f32(activate(merge(zi[0][j + 1], s2.y, zf[0][j + 1], b2.y), kRelu), inv));
+        });
+      }
+    } else {
+      const int* bz = static_cast<const int*>(w.trow[i]);
+      const int p = w.p[i], q = w.q[i], m = w.m[i];
+      int acc[2][64];
+      gemm(acc, &op, 1, t.ring, cur);
+      for_pairs<2>([&](int r, int col, int h, int j) {
+        const int2 b2 = __ldg(reinterpret_cast<const int2*>(bz + col));
+        const int a0 = acc[h][j] + b2.x, a1 = acc[h][j + 1] + b2.y;
+        put(out, last, r, col, (j >> 1) & 1, requant_int(a0 < 0 ? 0 : a0, p, q, m, 0),
+            requant_int(a1 < 0 ? 0 : a1, p, q, m, 0));
+      });
+    }
+    fence_async_smem();
+    group_sync();
+    cx ^= 1;
+  }
+
+  // sigma = hq @ alpha_w + alpha_b, summed over the row's quad
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    sa[hh] += __shfl_xor_sync(0xffffffffu, sa[hh], 1);
+    sa[hh] += __shfl_xor_sync(0xffffffffu, sa[hh], 2);
+  }
+  if ((lane & 3) == 0)
+    for (int hh = 0; hh < 2; ++hh)
+      if (r0 + 8 * hh < valid) sigma[r0 + 8 * hh] = sa[hh] + w.alpha_b[0];
+  if (sigma_only) return;
+
+  {  // feature: a signed integer requant
+    int acc[2][64];
+    const Src op = {smem_u32(xq[cx]), 2};
+    gemm(acc, &op, 1, t.ring, cur);
+    for_pairs<2>([&](int r, int col, int h, int j) {
+      const int2 b2 = __ldg(reinterpret_cast<const int2*>(w.feat_b + col));
+      store_q2(xq[cx ^ 1], g64 + r, col, requant_int(acc[h][j] + b2.x, w.fp, w.fq, w.fm, -127),
+               requant_int(acc[h][j + 1] + b2.y, w.fp, w.fq, w.fm, -127));
+    });
+    fence_async_smem();
+    group_sync();
+    cx ^= 1;
+  }
+  int zi[1][64];
+  float zf[1][64];
+  const Src opq = {smem_u32(xq[cx]), 2}, opv = {pe + kPanelBytes, 1};
+  gemm(zi, &opq, 1, t.ring, cur);
+  gemm(zf, &opv, 1, t.ring, cur);
+  for_pairs<1>([&](int, int col, int, int j) {
+    const float2 s2 = __ldg(reinterpret_cast<const float2*>(w.views_sw + col));
+    const float2 b2 = __ldg(reinterpret_cast<const float2*>(w.views_b + col));
+    const __nv_bfloat162 v = __floats2bfloat162_rn(activate(merge(zi[0][j], s2.x, zf[0][j], b2.x), kRelu),
+                                                   activate(merge(zi[0][j + 1], s2.y, zf[0][j + 1], b2.y), kRelu));
+    zf[0][j] = __low2float(v);
+    zf[0][j + 1] = __high2float(v);
+  });
+  float s[6];
+  row_dots<1, 3>(zf, w.rgb_w, kWv, s);
+  if ((lane & 3) == 0)
+    for (int ch = 0; ch < 3; ++ch)
+      for (int hh = 0; hh < 2; ++hh)
+        if (r0 + 8 * hh < valid) rgb[ch][r0 + 8 * hh] = 1.f / (1.f + expf(-(s[2 * ch + hh] + w.rgb_b[ch])));
+}
+
 // The MLP over rows [0, rows) of the plane z (row's ray: row / S), on the
 // core, as nerf_mlp.cuh::nerf_rows: sigma[row] and, unless sigma_only,
-// sigmoid(rgb) into rgb[0..2][row]. Consumer threads only; ends without a
-// block-wide barrier (the caller syncs the consumers).
-template <int S>
-__device__ void nerf_rows(const NerfWeights& w, const Tiles<S>& t, Cursor& cur, const float* ray, const float* z,
+// sigmoid(rgb) into rgb[0..2][row]; bf16 or int8 by the weights' type.
+// Consumer threads only; ends without a block-wide barrier (the caller
+// syncs the consumers).
+template <int S, typename Weights>
+__device__ void nerf_rows(const Weights& w, const Tiles<S>& t, Cursor& cur, const float* ray, const float* z,
                           int rows, int Sr, bool sigma_only, float* sigma, float* const* rgb) {
   const int g = threadIdx.x >> 7, lt = threadIdx.x & 127;
   for (int c0 = 0; c0 < rows; c0 += kRows) {
@@ -471,21 +669,22 @@ __device__ void nerf_rows(const NerfWeights& w, const Tiles<S>& t, Cursor& cur, 
 
 // ---- the render kernels' choice of core (render_hier.cu, render_around_depth.cu)
 
-// Their bf16 instantiation runs the NeRF on this core: 288 threads, a ring
-// of kRenderStages slices and the tiles from the first 1024-byte boundary
-// of shared memory. fp32 and int8 keep nerf_mlp.cuh's cores: 256 threads
-// and its tiles.
+// A render kernel's element type T runs the NeRF on this core when OnCore:
+// 288 threads, a ring of kRenderStages slices and the tiles from the first
+// 1024-byte boundary of shared memory. Otherwise it keeps nerf_mlp.cuh's
+// cores: 256 threads and its tiles. bf16 is on the core in both kernels;
+// int8 in render_hier.cu only (Int8 = true), fp32 in neither.
 constexpr int kRenderStages = 5;
-template <typename T>
-constexpr bool kOnCore = std::is_same_v<T, bf16>;
-template <typename T>
-constexpr int kBlockThreads = kOnCore<T> ? kThreads : nst::kThreads;
-template <typename T>
-using RenderTiles = std::conditional_t<kOnCore<T>, Tiles<kRenderStages>, TilesT<T>>;
+template <typename T, bool Int8 = false>
+constexpr bool kOnCore = std::is_same_v<T, bf16> || (Int8 && std::is_same_v<T, int8_t>);
+template <typename T, bool Int8 = false>
+constexpr int kBlockThreads = kOnCore<T, Int8> ? kThreads : nst::kThreads;
+template <typename T, bool Int8 = false>
+using RenderTiles = std::conditional_t<kOnCore<T, Int8>, Tiles<kRenderStages>, TilesT<T>>;
 // the MLP's shared memory, ahead of the kernel's own planes
-template <typename T>
+template <typename T, bool Int8 = false>
 __host__ __device__ constexpr size_t mlp_bytes() {
-  if constexpr (kOnCore<T>) return 1024 + Tiles<kRenderStages>::kBytes;  // + the 1024-byte alignment
+  if constexpr (kOnCore<T, Int8>) return 1024 + Tiles<kRenderStages>::kBytes;  // + the 1024-byte alignment
   else return tile_bytes<T>();
 }
 

@@ -1,7 +1,8 @@
-// The NeRF MLP over a block's sample rows, shared by K2/K3/K8/K9 and K6/K7
-// in fp32 and int8 (render_around_depth.cu, render_hier.cu) and K4
-// (nerf_points.cu); their bf16 instantiations and K5 run mlp_wgmma.cuh's
-// core instead.
+// The NeRF MLP over a block's sample rows, shared by K2/K3/K8/K9 in fp32
+// and int8 (render_around_depth.cu), K7 in fp32 (render_hier.cu) and K4
+// (nerf_points.cu); the bf16 render kernels, K6/K7 in int8 and K5 run
+// mlp_wgmma.cuh's core instead, whose int8 epilogue calls quant_f32 and
+// requant_int below.
 //
 // A block holds, in shared memory, the per-ray data of its R rays (o, d,
 // |d|, one spare float each, 8 floats a ray) and a plane of depths z[row]

@@ -35,22 +35,26 @@
 // What bounds it on the H100: the two MLP passes, Nc sigma-only queries
 // (~0.98 MFLOP each) and Nc+Nf full queries (~1.19 MFLOP) a ray, on the
 // tensor cores, with the weights (2 x 1.2 MB bf16) streamed from L2. Device
-// memory traffic is 24 bytes in and 44 out per ray. In fp32 the same
-// products run on the FMA units (67 TFLOP/s), 46.5 TFLOP per 400x400 frame
-// at 64 + 128 samples: at least 0.7 s.
+// memory traffic is 24 bytes in and 44 out per ray. In int8 most of the
+// multiply-adds run at the s8 rate (1,979 TOP/s), from half the slice bytes
+// (a sigma-only pass at D = 8 with one skip: 32 slices against bf16's 60),
+// and every element of a layer passes an integer requant in registers. In
+// fp32 the same products run on the FMA units (67 TFLOP/s), 46.5 TFLOP per
+// 400x400 frame at 64 + 128 samples: at least 0.7 s.
 //
 // Design: one block per R rays, R = min(rows / (Nc+Nf), 16), so the union
 // planes hold R*(Nc+Nf) <= rows rows. Six fp32 planes in shared memory:
 // U (unsorted union; coarse z first, in concat order), zs (coarse z, then
 // the sorted union), sg (coarse then fine sigma) and three planes that
 // hold the coarse weights, CDF and midpoints until the fine pass writes
-// rgb there. bf16 runs the MLP on the wgmma core (mlp_wgmma.cuh): 288
+// rgb there. bf16 and int8 run the MLP on the wgmma core (mlp_wgmma.cuh;
+// int8 with s8 products and the integer requants in registers): 288
 // threads, the producer warp streaming both NeRFs' weight slices for the
 // whole block (coarse pass, then fine) while the two consumer warpgroups
 // run everything else; rows = 1536, so 8 rays a block at 64 + 128 samples
 // and the train step's 1024 rays fill 128 of the 132 SMs in one wave at
-// one block per SM. fp32 and int8 keep nerf_mlp.cuh's cores (256 threads,
-// rows = 1024, 64-row chunks).
+// one block per SM. fp32 keeps nerf_mlp.cuh's core (256 threads, rows =
+// 1024, 64-row chunks).
 
 #include <cuda_runtime.h>
 
@@ -63,9 +67,17 @@ namespace {
 
 constexpr int kMaxRays = 16;  // rays per block
 
-// the bf16 kernel runs the wgmma core (wg::kOnCore); fp32 and int8 keep their cores
+// the bf16 and int8 kernels run the wgmma core; fp32 keeps its core
 template <typename T>
-constexpr int kMaxRows = wg::kOnCore<T> ? 1536 : 1024;  // union rows per block
+constexpr bool kOnCore = wg::kOnCore<T, true>;
+template <typename T>
+constexpr int kBlockThreads = wg::kBlockThreads<T, true>;
+template <typename T>
+using RenderTiles = wg::RenderTiles<T, true>;
+template <typename T>
+constexpr size_t kMlpBytes = wg::mlp_bytes<T, true>();
+template <typename T>
+constexpr int kMaxRows = kOnCore<T> ? 1536 : 1024;  // union rows per block
 
 template <typename T>
 struct HierParams {
@@ -79,14 +91,14 @@ struct HierParams {
   int lindisp, white_bkgd, det;
   unsigned seed;
   NerfWeightsT<T> wc, wf;
-  const bf16* slices_c;  // bf16: the coarse net's forward slices (sigma_only), then the fine net's
-  const bf16* slices_f;
+  const bf16* slices_c;  // on the core: the coarse net's forward slices (sigma_only), then the fine net's
+  const bf16* slices_f;  // (int8: wgmma_qslices' images of bf16 and int8 slices)
   int n_slices_c, n_slices_f;
 };
 
 template <typename T>
 constexpr size_t smem_bytes() {
-  return wg::mlp_bytes<T>() + (6 * kMaxRows<T> + 8 * kMaxRays) * sizeof(float);
+  return kMlpBytes<T> + (6 * kMaxRows<T> + 8 * kMaxRays) * sizeof(float);
 }
 
 template <typename T>
@@ -103,10 +115,10 @@ __device__ __forceinline__ float grid_z(const HierParams<T>& p, int s) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> || sizeof(T) == 4 ? 1 : 2)
+__global__ void __launch_bounds__(kBlockThreads<T>, 1)
     render_hier_kernel(const __grid_constant__ HierParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* U = reinterpret_cast<float*>(smem + wg::mlp_bytes<T>());
+  float* U = reinterpret_cast<float*>(smem + kMlpBytes<T>);
   float* zs = U + kMaxRows<T>;
   float* sg = zs + kMaxRows<T>;
   float* plane[3] = {sg + kMaxRows<T>, sg + 2 * kMaxRows<T>, sg + 3 * kMaxRows<T>};
@@ -117,9 +129,9 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> || sizeof
   const long long ray0 = (long long)blockIdx.x * p.R;
   const int nr = (int)min((long long)p.R, p.n - ray0);
 
-  wg::RenderTiles<T> t;
+  RenderTiles<T> t;
   wg::Cursor cur;
-  if constexpr (wg::kOnCore<T>) {
+  if constexpr (kOnCore<T>) {
     t = wg::carve<wg::kRenderStages>(smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023));
     if (threadIdx.x == 0) t.ring.init();
     __syncthreads();
@@ -134,11 +146,11 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> || sizeof
   }
   // the consumers' barrier: threads 0-255 (the producer warp never joins)
   auto sync = [] {
-    if constexpr (wg::kOnCore<T>) wg::consumers_sync();
+    if constexpr (kOnCore<T>) wg::consumers_sync();
     else __syncthreads();
   };
   auto mlp = [&](const NerfWeightsT<T>& w, int rows, int S, bool sigma_only) {
-    if constexpr (wg::kOnCore<T>) {
+    if constexpr (kOnCore<T>) {
       wg::nerf_rows(w, t, cur, ray, zs, rows, S, sigma_only, sg, plane);
       sync();
     } else {
@@ -267,7 +279,9 @@ constexpr int rays_per_block(int Su) {
 // ptrs, in order: rays_o, rays_d, draws (or null), out; the coarse NeRF's
 // trunk and alpha head; the fine NeRF's weights (nerf_mlp.cuh::read_pack,
 // with the int8 plans plan_c and plan_f, null for bf16 and fp32); for bf16
-// then the coarse and the fine net's weight slices (mlp_wgmma.cuh).
+// and int8 then the coarse and the fine net's weight slices
+// (mlp_wgmma.cuh: forward_slices, or forward_qslices in int8). A launch on
+// the core without them is refused.
 template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int Dc, unsigned skip_c,
            int Df, unsigned skip_f, float near_, float far_, int lindisp, int white_bkgd, unsigned seed,
@@ -283,11 +297,13 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int
   const int kf = read_pack(ptrs + 4 + kc, Df, skip_f, false, plan_f, &p.wf);
   if (kf < 0) return (int)cudaErrorInvalidValue;
   int k = 4 + kc + kf;
-  if constexpr (wg::kOnCore<T>) {
+  if constexpr (kOnCore<T>) {
+    if (n_ptrs < k + 2) return (int)cudaErrorInvalidValue;
     p.slices_c = static_cast<const bf16*>(ptrs[k++]);
     p.slices_f = static_cast<const bf16*>(ptrs[k++]);
-    p.n_slices_c = wg::forward_slices(Dc, skip_c, true);
-    p.n_slices_f = wg::forward_slices(Df, skip_f, false);
+    constexpr bool q = std::is_same_v<T, int8_t>;
+    p.n_slices_c = q ? wg::forward_qslices(Dc, skip_c, true) : wg::forward_slices(Dc, skip_c, true);
+    p.n_slices_f = q ? wg::forward_qslices(Df, skip_f, false) : wg::forward_slices(Df, skip_f, false);
     if (!p.slices_c || !p.slices_f) return (int)cudaErrorInvalidValue;
   }
   if (n_ptrs != k) return (int)cudaErrorInvalidValue;
@@ -309,8 +325,22 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
   const unsigned grid = (unsigned)((n + p.R - 1) / p.R);
-  render_hier_kernel<T><<<grid, wg::kBlockThreads<T>, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  render_hier_kernel<T><<<grid, kBlockThreads<T>, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The launch shape at Nc + Nf samples: resident blocks per SM, rays per
+// block, threads per block and dynamic shared memory.
+template <typename T>
+int occupancy(int Nc, int Nf, int* out) {
+  constexpr size_t smem = smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(render_hier_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = rays_per_block<T>(Nc + Nf);
+  out[2] = kBlockThreads<T>;
+  out[3] = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, render_hier_kernel<T>, out[2], smem);
 }
 
 }  // namespace
@@ -335,17 +365,8 @@ extern "C" int nst_render_hier(const void* const* ptrs, int n_ptrs, long long n,
                                 white_bkgd, seed, det, nullptr, nullptr, stream);
 }
 
-// K6's launch shape at Nc + Nf samples: resident blocks per SM, rays per
-// block, threads per block and dynamic shared memory.
-extern "C" int nst_render_hier_occupancy(int Nc, int Nf, int* out) {
-  using namespace nst;
-  constexpr size_t smem = smem_bytes<bf16>();
-  cudaError_t err = cudaFuncSetAttribute(render_hier_kernel<bf16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  out[1] = rays_per_block<bf16>(Nc + Nf);
-  out[2] = wg::kBlockThreads<bf16>;
-  out[3] = (int)smem;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, render_hier_kernel<bf16>,
-                                                            wg::kBlockThreads<bf16>, smem);
+// K6's launch shape at Nc + Nf samples, bf16 or (int8 != 0) int8: resident
+// blocks per SM, rays per block, threads per block and dynamic shared memory.
+extern "C" int nst_render_hier_occupancy(int Nc, int Nf, int int8, int* out) {
+  return int8 ? nst::occupancy<int8_t>(Nc, Nf, out) : nst::occupancy<nst::bf16>(Nc, Nf, out);
 }

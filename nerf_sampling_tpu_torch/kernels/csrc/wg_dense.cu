@@ -1,10 +1,12 @@
 // One dense layer on the wgmma core (mlp_wgmma.cuh), for the [core] check
 // of chip_smoke.py: out = act(a @ w + a2 @ w2 + bias) in bf16, with fp32
-// accumulation, over M rows in 128-row tiles (the rows past M are zero).
-// It exercises the pieces the NeRF kernels build on, at a size the check
-// can hold against torch.matmul: the swizzled activation tile, the ring of
-// bulk-copied weight slices, both consumer warpgroups, a second operand
-// accumulated into the same sums, and the register epilogue.
+// accumulation, over M rows in 128-row tiles (the rows past M are zero);
+// and its s8 mode, out = a @ wq^T as int32 sums of int8 operands (the int8
+// NeRF's products, K10). It exercises the pieces the NeRF kernels build on,
+// at a size the check can hold against a matmul: the swizzled activation
+// tiles (bf16 and int8), the ring of bulk-copied weight slices, both
+// consumer warpgroups, a second operand accumulated into the same sums,
+// and the register epilogue.
 
 #include <cuda_runtime.h>
 
@@ -35,6 +37,17 @@ __device__ void load_rows(const bf16* src, long long M, int cols, long long row0
     uint4 v = make_uint4(0, 0, 0, 0);
     if (row0 + r < M) v = *reinterpret_cast<const uint4*>(src + (row0 + r) * cols + c);
     *reinterpret_cast<uint4*>(tile + wg::tile_offset(r, c)) = v;
+  }
+}
+
+// rows [row0, row0 + 128) of a [M, cols] int8 matrix into a swizzled int8 tile
+__device__ void load_rows_q(const int8_t* src, long long M, int cols, long long row0, unsigned char* tile) {
+  const int per_row = cols / 16;
+  for (int e = threadIdx.x; e < wg::kRows * per_row; e += wg::kConsumers) {
+    const int r = e / per_row, c = (e - r * per_row) * 16;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (row0 + r < M) v = *reinterpret_cast<const uint4*>(src + (row0 + r) * cols + c);
+    *reinterpret_cast<uint4*>(tile + wg::qtile_offset(r, c)) = v;
   }
 }
 
@@ -76,6 +89,46 @@ __global__ void __launch_bounds__(wg::kThreads, 1) wg_dense_kernel(const __grid_
   else dense_tile<1>(p, ops, p.a2 ? 2 : 1, ring, row0);
 }
 
+struct DenseQParams {
+  const int8_t* a;     // [M, K]
+  const bf16* slices;  // wq's int8 slices (fused_render.wgmma_qslices)
+  int* out;            // [M, N] int32
+  long long M;
+  int K, N, n_slices;
+};
+
+template <int NH>
+__device__ void dense_tile_q(const DenseQParams& p, const wg::Src& op, const wg::Ring<kStages>& ring,
+                             long long row0) {
+  wg::Cursor cur;
+  int acc[NH][64];
+  wg::gemm(acc, &op, 1, ring, cur);
+  const long long r0 = row0 + 64 * (threadIdx.x >> 7);
+  wg::for_pairs<NH>([&](int r, int col, int h, int i) {
+    if (r0 + r < p.M) *reinterpret_cast<int2*>(p.out + (r0 + r) * p.N + col) = make_int2(acc[h][i], acc[h][i + 1]);
+  });
+}
+
+__global__ void __launch_bounds__(wg::kThreads, 1) wg_dense_q_kernel(const __grid_constant__ DenseQParams p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  const wg::Ring<kStages> ring{wg::smem_u32(base + 5 * wg::kPanelBytes)};
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  if (threadIdx.x >= wg::kConsumers) {  // the producer warp
+    const wg::Segment seg = {p.slices, p.n_slices, 1};
+    wg::produce(ring, &seg, 1);
+    return;
+  }
+  const long long row0 = (long long)blockIdx.x * wg::kRows;
+  load_rows_q(p.a, p.M, p.K, row0, base);
+  wg::fence_async_smem();
+  wg::consumers_sync();
+  const wg::Src op = {wg::smem_u32(base), p.K / 128};
+  if (p.N == 256) dense_tile_q<2>(p, op, ring, row0);
+  else dense_tile_q<1>(p, op, ring, row0);
+}
+
 }  // namespace
 }  // namespace nst
 
@@ -104,5 +157,29 @@ extern "C" int nst_wg_dense(const void* const* ptrs, int n_ptrs, long long M, in
   if (M == 0) return 0;
   wg_dense_kernel<<<(unsigned)((M + wg::kRows - 1) / wg::kRows), wg::kThreads, kDenseSmem,
                     static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The s8 mode. ptrs: a [M, K] int8, wq's int8 slices (fused_render.
+// wgmma_qslices of wq [N, K], [out, in] as the int8 NeRF's matrices), out
+// [M, N] int32: the exact sums a @ wq^T. K in {128, 256}, N in {128, 256}.
+// Returns a cudaError_t.
+extern "C" int nst_wg_dense_q(const void* const* ptrs, int n_ptrs, long long M, int K, int N, void* stream) {
+  using namespace nst;
+  if (n_ptrs != 3 || (K != 128 && K != 256) || (N != 128 && N != 256)) return (int)cudaErrorInvalidValue;
+  DenseQParams p = {};
+  p.a = static_cast<const int8_t*>(ptrs[0]);
+  p.slices = static_cast<const bf16*>(ptrs[1]);
+  p.out = static_cast<int*>(const_cast<void*>(ptrs[2]));
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.n_slices = (K / 128) * (N / 128);
+  cudaError_t err = cudaFuncSetAttribute(wg_dense_q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kDenseSmem);
+  if (err != cudaSuccess) return (int)err;
+  if (M == 0) return 0;
+  wg_dense_q_kernel<<<(unsigned)((M + wg::kRows - 1) / wg::kRows), wg::kThreads, kDenseSmem,
+                      static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

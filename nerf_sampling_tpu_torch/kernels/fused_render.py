@@ -34,10 +34,13 @@ plain PyTorch: fp32 is the reference, bf16 rounds where the kernel rounds.
 ``wgmma_slices`` lays the same matrices out for the wgmma core that K2,
 K3, K8, K9, K5, K6 and K7 run in bf16 (``csrc/mlp_wgmma.cuh``): the byte
 image of the shared-memory weight slices, in the order a tile consumes them
-(``wgmma_program``). ``pack_slices`` makes a pack's slices once and keeps
-them in it; a bf16 launch hands them to the kernel after the weights, and
-int8 and fp32 launches, whose kernels keep their own cores, hand none.
-``wgmma_dense`` is one dense layer on that core, the first check of
+(``wgmma_program``); ``wgmma_qslices`` does the same for an int8 pack's
+forward (``wgmma_qprogram``: bf16 and int8 slices in one stream), which K6
+and K7 run in int8. ``pack_slices`` makes a pack's slices once and keeps
+them in it; a bf16 render launch hands them to the kernel after the
+weights, and int8 and fp32 render launches, whose kernels keep their own
+cores, hand none (``_core_slices``). ``wgmma_dense`` and ``wgmma_dense_q``
+are one dense layer on that core, bf16 and s8, the first check of
 ``chip_smoke.py``.
 """
 
@@ -125,6 +128,7 @@ def pack_nerf(model: NeRF, dtype=torch.bfloat16) -> dict:
 
 
 WG_SLICE_N, WG_SLICE_K = 128, 64  # a weight slice of the wgmma core: 128 output columns x 64 of depth
+WG_SLICE_BYTES = WG_SLICE_N * WG_SLICE_K * 2  # 16 KB; an int8 slice: 128 output columns x 128 of depth
 _wg_index_cache: dict = {}
 
 
@@ -162,61 +166,116 @@ def wgmma_program(packed: dict, *, sigma_only: bool = False, backward: bool = Fa
     return prog
 
 
-def _wg_index(shapes: tuple, device: torch.device) -> torch.Tensor:
-    """Gather index of ``wgmma_slices``: for each slice element in its byte
-    order, its position in the flat concatenation of the matrices (the last
-    position, one past them, holds a zero)."""
-    key = (shapes, str(device))
-    if key not in _wg_index_cache:
-        n = np.arange(WG_SLICE_N)[:, None]
-        k = np.arange(WG_SLICE_K)[None, :]
-        pos = n * WG_SLICE_K + ((k // 8) ^ (n % 8)) * 8 + k % 8  # the 128-byte swizzle
-        zero = sum(r * c for r, c, _ in shapes)
+def wgmma_qprogram(qpacked: dict, sigma_only: bool = False) -> list[tuple[torch.Tensor, bool, int | None]]:
+    """The int8 forward of ``csrc/mlp_wgmma.cuh`` (K6/K7 in int8) over a
+    ``quant.qpack_nerf`` pack: (W, transposed, half) for each product in
+    the order a 128-row tile consumes its slices, half None for all of the
+    product's output columns or 0/1 for one 128-column half. The bf16 w0
+    (x @ W); each trunk layer's int8 [out, in] matrix (x @ W^T), or at a
+    skip layer, per half, the int8 matrix's half then skip_w's half; then
+    unless ``sigma_only`` feature_wq, views_wq and the bf16 views_ws. Count:
+    ``mlp_wgmma.cuh::forward_qslices``."""
+    prog = [(qpacked["w0"], False, None)]
+    for i, wq in enumerate(qpacked["trunk_wq"], start=1):
+        if i in qpacked["skip_w"]:
+            for h in (0, 1):
+                prog += [(wq, True, h), (qpacked["skip_w"][i], False, h)]
+        else:
+            prog.append((wq, True, None))
+    if sigma_only:
+        return prog
+    return prog + [(qpacked["feature_wq"], True, None), (qpacked["views_wq"], True, None),
+                   (qpacked["views_ws"], False, None)]
+
+
+def _slice_index(rows: int, cols: int, transposed: bool, half: int | None, int8: bool) -> np.ndarray:
+    """For each element of one product's slices, in byte order, its
+    position in the row-major [rows, cols] matrix (rows * cols where the
+    slice pads with zero). B = W, or W^T when transposed, is [K, N]; its
+    slice (kp, h) holds B[Ks kp + k, 128 h + n] at n Ks + ((k // E) ^ (n %
+    8)) E + k % E, E elements to the 16-byte chunk (8 bf16, 16 int8) and Ks
+    = 8 E of depth: the 128-byte swizzled K-major tile. k panels outer,
+    128-column halves inner (only ``half`` where given)."""
+    E = 16 if int8 else 8
+    Ks = 8 * E
+    n = np.arange(WG_SLICE_N)[:, None]
+    k = np.arange(Ks)[None, :]
+    pos = (n * Ks + ((k // E) ^ (n % 8)) * E + k % E).reshape(-1)  # the 128-byte swizzle
+    K, N = (cols, rows) if transposed else (rows, cols)
+    halves = range(-(-N // WG_SLICE_N)) if half is None else (half,)
+    parts = []
+    for kp in range(-(-K // Ks)):
+        for h in halves:
+            kk, nn = kp * Ks + k, h * WG_SLICE_N + n  # B[kk, nn]
+            src = nn * cols + kk if transposed else kk * cols + nn
+            sl = np.empty(WG_SLICE_N * Ks, np.int64)
+            sl[pos] = np.where((kk < K) & (nn < N), src, rows * cols).reshape(-1)
+            parts.append(sl)
+    return np.concatenate(parts)
+
+
+def _program_index(key: tuple, device: torch.device) -> torch.Tensor:
+    """Byte gather index of a program's slices: for each byte of the image,
+    in order, its position in the bytes of the matrices laid end to end (one
+    past them, a zero byte, where a slice pads). ``key`` holds (rows, cols,
+    transposed, half, element size) of each product."""
+    if (key, str(device)) not in _wg_index_cache:
+        zero = sum(r * c * size for r, c, _, _, size in key)
         parts, off = [], 0
-        for rows, cols, transposed in shapes:
-            K, N = (cols, rows) if transposed else (rows, cols)
-            for kp in range(-(-K // WG_SLICE_K)):
-                for h in range(-(-N // WG_SLICE_N)):
-                    kk, nn = kp * WG_SLICE_K + k, h * WG_SLICE_N + n  # B[kk, nn]
-                    src = off + (nn * cols + kk if transposed else kk * cols + nn)
-                    src = np.where((kk < K) & (nn < N), src, zero)
-                    sl = np.empty(WG_SLICE_N * WG_SLICE_K, np.int64)
-                    sl[pos.reshape(-1)] = src.reshape(-1)
-                    parts.append(sl)
-            off += rows * cols
-        _wg_index_cache[key] = torch.from_numpy(np.concatenate(parts)).to(device)
-    return _wg_index_cache[key]
+        for rows, cols, transposed, half, size in key:
+            idx = _slice_index(rows, cols, transposed, half, size == 1)[:, None]
+            parts.append(np.where(idx == rows * cols, zero, off + idx * size + np.arange(size)).reshape(-1))
+            off += rows * cols * size
+        _wg_index_cache[(key, str(device))] = torch.from_numpy(np.concatenate(parts)).to(device)
+    return _wg_index_cache[(key, str(device))]
+
+
+def wgmma_qslices(program: list[tuple[torch.Tensor, bool, int | None]]) -> torch.Tensor:
+    """The byte image of a program's weight slices, [n_slices, 16384] uint8,
+    for a product x @ B of each (W, transposed, half) (B = W, or W^T when
+    transposed; [K, N]), slice after slice in the order a tile consumes
+    them: k panels outer, 128-column halves inner (only ``half`` where one
+    is given), product after product. A bf16 slice holds B[64 kp + k,
+    128 h + n] at element n * 64 + ((k // 8) ^ (n % 8)) * 8 + k % 8, an int8
+    slice B[128 kp + k, 128 h + n] at byte n * 128 + ((k // 16) ^ (n % 8)) *
+    16 + k % 16, zero past K or N: the 128-byte swizzled K-major tile that
+    wgmma's shared-memory descriptor reads. The kernels' producer warp moves
+    each slice as one bulk copy."""
+    for w, _, _ in program:
+        if w.dim() != 2 or w.dtype not in (torch.bfloat16, torch.int8):
+            raise TypeError("the wgmma core takes bf16 and int8 matrices")
+    key = tuple((w.shape[0], w.shape[1], bool(t), h, w.element_size()) for w, t, h in program)
+    flat = torch.cat([w.reshape(-1).view(torch.uint8) for w, _, _ in program]
+                     + [program[0][0].new_zeros(1, dtype=torch.uint8)])
+    return flat[_program_index(key, flat.device)].view(-1, WG_SLICE_BYTES)
 
 
 def wgmma_slices(program: list[tuple[torch.Tensor, bool]]) -> torch.Tensor:
-    """The byte image of a program's weight slices, [n_slices, 128 * 64]
-    bf16: slice (kp, h) of a product x @ B (B = W, or W^T when transposed;
-    [K, N]) holds B[64 kp + k, 128 h + n] at n * 64 + ((k // 8) ^ (n % 8)) * 8
-    + k % 8, zero past K or N: the 128-byte swizzled K-major tile that
-    wgmma's shared-memory descriptor reads. Slices run k panels outer,
-    128-column halves inner, product after product; the kernels' producer
-    warp moves each as one bulk copy."""
-    mats = [w for w, _ in program]
-    for w in mats:
-        if w.dtype != torch.bfloat16 or w.dim() != 2:
+    """``wgmma_qslices`` of a bf16 program (``wgmma_program``: every product
+    whole) as [n_slices, 128 * 64] bf16."""
+    for w, _ in program:
+        if w.dtype != torch.bfloat16:
             raise TypeError("the wgmma core takes bf16 matrices")
-    shapes = tuple((w.shape[0], w.shape[1], bool(t)) for w, t in program)
-    flat = torch.cat([w.reshape(-1) for w in mats] + [mats[0].new_zeros(1)])
-    return flat[_wg_index(shapes, flat.device)].view(-1, WG_SLICE_N * WG_SLICE_K)
+    return wgmma_qslices([(w, t, None) for w, t in program]).view(torch.bfloat16)
 
 
 def pack_slices(packed: dict, sigma_only: bool = False) -> torch.Tensor:
-    """The wgmma core's forward weight slices of a bf16 ``pack_nerf`` pack,
-    ``wgmma_slices(wgmma_program(packed, sigma_only=sigma_only))``: the full
-    forward (K2, K3, K8, K9 and K6/K7's fine pass) or the trunk and alpha
-    head (K6/K7's coarse pass). Made on first use and kept in the pack under
-    the program they hold, so one pack can serve both programs; a pack is
-    made anew for new weights (``render.pack_kernel_weights``), so its
-    slices are always its own weights'."""
+    """The wgmma core's forward weight slices of a pack: for a bf16
+    ``pack_nerf`` pack ``wgmma_slices(wgmma_program(packed, sigma_only=...))``,
+    for an int8 ``quant.qpack_nerf`` pack ``wgmma_qslices(wgmma_qprogram(
+    packed, sigma_only))``; the full forward (K2, K3, K8, K9 and K6/K7's
+    fine pass) or the trunk and alpha head (K6/K7's coarse pass). Made on
+    first use and kept in the pack under the program they hold, so one pack
+    can serve both programs; a pack is made anew for new weights
+    (``render.pack_kernel_weights``), so its slices are always its own
+    weights'."""
     cache = packed.setdefault("wg_slices", {})
     key = "sigma_only" if sigma_only else "full"
     if key not in cache:
-        cache[key] = wgmma_slices(wgmma_program(packed, sigma_only=sigma_only))
+        if quant.is_int8(packed):
+            cache[key] = wgmma_qslices(wgmma_qprogram(packed, sigma_only=sigma_only))
+        else:
+            cache[key] = wgmma_slices(wgmma_program(packed, sigma_only=sigma_only))
     return cache[key]
 
 
@@ -228,7 +287,7 @@ def _core_slices(packed: dict, dtype=torch.bfloat16) -> list[torch.Tensor]:
     return [] if dtype != torch.bfloat16 or quant.is_int8(packed) else [pack_slices(packed)]
 
 
-wgmma_dense_launches = 0  # the [core] check's launches (chip_smoke.py)
+wgmma_dense_launches = wgmma_dense_q_launches = 0  # the [core] check's launches (chip_smoke.py)
 
 
 def wgmma_dense(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, a2: torch.Tensor | None = None,
@@ -260,6 +319,30 @@ def wgmma_dense(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, a2: tor
     rc = build.load_library().nst_wg_dense(arr, count, M, K, N, int(act), build.current_stream(a.device))
     build.check(rc, "wgmma_dense")
     wgmma_dense_launches += 1
+    return out
+
+
+def wgmma_dense_q(a: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """One s8 layer on the wgmma core (``csrc/wg_dense.cu``): the int32
+    sums a @ wq^T of a [M, K] and wq [N, K] int8 ([out, in], as
+    ``quant.qpack_nerf``'s matrices), K and N in {128, 256}. On a CPU tensor
+    this runs the plain version (an int64 matmul)."""
+    global wgmma_dense_q_launches
+    if a.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise TypeError("wgmma_dense_q takes int8 operands")
+    if a.device.type == "cpu":
+        return (a.long() @ wq.long().T).int()
+    M, K = a.shape
+    N = wq.shape[0]
+    if K not in (128, 256) or N not in (128, 256) or tuple(wq.shape) != (N, K):
+        raise ValueError("wgmma_dense_q takes a [M, K] and wq [N, K], K and N in {128, 256}")
+    slices = wgmma_qslices([(wq, True, None)])
+    a = a.contiguous()
+    out = torch.empty((M, N), dtype=torch.int32, device=a.device)
+    arr, count = build.pointer_array([a, slices, out])
+    rc = build.load_library().nst_wg_dense_q(arr, count, M, K, N, build.current_stream(a.device))
+    build.check(rc, "wgmma_dense_q")
+    wgmma_dense_q_launches += 1
     return out
 
 

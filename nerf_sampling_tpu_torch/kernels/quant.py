@@ -3,10 +3,13 @@
 Replaces nerf_sampling_tpu/kernels/quant.py (``mlp_forward_affine_q``, the
 int8 body that the Pallas kernels ``fused_render._call`` and
 ``fused_hier._call`` run when they are given a ``QuantCalib``). Here the
-int8 body is a mode of the MLP core shared by K2/K3/K8/K9
-(``csrc/render_around_depth.cu``) and K6/K7 (``csrc/render_hier.cu``):
-``csrc/mlp_tile.cuh``'s int8 tensor-core layer and ``csrc/nerf_mlp.cuh``'s
-int8 chunk. This module holds what the host does around it:
+int8 body is a mode of the kernels' MLP cores: in K2/K3/K8/K9
+(``csrc/render_around_depth.cu``) ``csrc/mlp_tile.cuh``'s int8 tensor-core
+layer and ``csrc/nerf_mlp.cuh``'s int8 chunk; in K6/K7
+(``csrc/render_hier.cu``) the wgmma core's s8 forward
+(``csrc/mlp_wgmma.cuh``, fed ``fused_render.wgmma_qslices``), with the same
+requants (``nerf_mlp.cuh``'s ``quant_f32`` and ``requant_int``). This
+module holds what the host does around it:
 
 - ``calibrate_nerf_quant``: a host fp32 forward (numpy) over 512 rays x 17
   linspace z records the per-channel activation amaxes and walks the scale
@@ -301,10 +304,13 @@ def mlp_plain_q(
     x_pts: torch.Tensor,
     x_v: torch.Tensor | None,
     sigma_only: bool = False,
+    acts: list | None = None,
 ) -> torch.Tensor:
     """K10's computation in plain PyTorch on the bf16-rounded embeddings
     [M, Cp] and [M, Cv] (as fp32 tensors): raw [M, 4] (rgb logits, sigma),
-    or sigma [M] with ``sigma_only`` (trunk and alpha head only)."""
+    or sigma [M] with ``sigma_only`` (trunk and alpha head only). ``acts``,
+    where given, receives the int8 activations (fp32 tensors of int8
+    values): each trunk layer's hq, then unless ``sigma_only`` fq."""
     strict_fp32()
     f32, i64 = torch.float32, torch.int64
     Cp, Cv = cfg.input_ch, cfg.input_ch_views
@@ -316,7 +322,9 @@ def mlp_plain_q(
     def mm_int(x: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
         return mm(x, w_q.T).to(i64)  # w_q is [out, in]; exact: every partial sum is below 2^24
 
+    acts = [] if acts is None else acts
     hq = _requant_fp32(torch.relu(mm(x_pts, packed["w0"][:Cp]) + packed["b0"]), 1.0 / calib.sh0)
+    acts.append(hq)
     for i in range(1, cfg.D):
         step = calib.steps[i - 1]
         row = packed["trunk_row"][i - 1]
@@ -325,10 +333,12 @@ def mlp_plain_q(
             hq = _requant_fp32(torch.relu(zf), step[1])
         else:
             hq = _requant_int(torch.clamp(mm_int(hq, packed["trunk_wq"][i - 1]) + row.to(i64), min=0), step, 0)
+        acts.append(hq)
     sigma = mm(hq, packed["alpha_w"][:, None]) + packed["alpha_b"]
     if sigma_only:
         return sigma[:, 0]
     fq = _requant_int(mm_int(hq, packed["feature_wq"]) + packed["feature_bz"].to(i64), calib.feat, -127)
+    acts.append(fq)
     zv = mm(fq, packed["views_wq"].T) * packed["views_sw"] + mm(x_v, packed["views_ws"][:Cv]) + packed["views_b"]
     hv = torch.relu(zv).to(torch.bfloat16).to(f32)
     rgb_logits = mm(hv, packed["rgb_w"].T) + packed["rgb_b"]
