@@ -12,7 +12,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    accumulation, at 64, 128 and ragged row counts, with and without a skip
    operand (CORE_ULP_TOL, CORE_FLIP_TOL); then one s8 layer (the int8 NeRF's
    products) whose int32 sums must equal an fp64 matmul of the int8 values
-   exactly; it fails before any NeRF kernel runs.
+   exactly; then one fp32 layer (3xTF32 products, K7 fp32's) whose largest
+   error from an fp64 matmul must be at most CORE32_TOL times strict-fp32
+   torch.matmul's; it fails before any NeRF kernel runs.
 3. Kernel vs plain, on the committed checkpoint's weights, each held to
    its plain version at bf16 rounding with the tolerances below:
    K1 (DepthNet) on the 160,000 rays of test view 0 plus 64 rays that miss
@@ -40,9 +42,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    profiled kernel-path step with its phases.
 6. NeRF and joint training, kernels first, on the committed checkpoint's
    NeRFs at the train step's shapes (1024 rays, 64 + 128 samples):
-   [k4] K4 (the point-query MLP) on the coarse and fine queries against
-   its plain bf16 version: at least as close to it as that version is to
-   fp32; [k5] K5 (its recompute backward) on the fine queries with a real
+   [k4] K4 (the point-query MLP, on the wgmma core) on the coarse and fine
+   queries against its plain bf16 version: at least as close to it as that
+   version is to fp32; its launch shape (288 threads, one block per SM, one
+   wave), one block alone and its registers at both sizes; [k5] K5 (its recompute backward) on the fine queries with a real
    step's cotangent: per-tensor error against its plain bf16 version, the
    param grads identical with and without dx and across launches, cosine
    to fp32 autograd of each NeRF; [k7] K7 (the deterministic hierarchical
@@ -74,7 +77,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    a per-ray shuffled copy equal to the sorted input (1e-6); [fp32] the
    COMPARE mode's K1 (depth within 1e-4, the NaN mask equal) and K7
    (max_z within 1e-3 on rays that hit the sphere, rgb FP32_RGB_TOL)
-   against their plain fp32 versions; [modes] COMPARE_NERF (PSNR within
+   against their plain fp32 versions, K7 (3xTF32 on the wgmma core) with
+   its time against both bounds, launch shape (160 threads, one block per
+   SM), one block alone, registers, and a launch without its weight slices
+   refused; [modes] COMPARE_NERF (PSNR within
    0.01 dB, compare MSE within 1%, max_z 1e-3) and NERF_MAX (PSNR within
    FULL_PSNR_TOL) over view 0, kernels against the plain fp32 path. After
    the render path, [render]: experiments/render.py's main over the 4 test
@@ -111,8 +117,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    must raise.
 
 K2, K3, K8 and K9 in bf16 (render_around_depth.cu), K6/K7 in bf16 and in
-int8 and K5's row pass run on the wgmma core: their records name it under
-"core"; the launch shapes of K2's and K6's kernels (blocks, rays per block,
+int8, K7 in fp32 (3xTF32), K4 and K5's row pass run on the wgmma core:
+their records name it under "core"; the launch shapes of K2's and K6's kernels (blocks, rays per block,
 occupancy), the registers and spills of render_around_depth_kernel<bf16>
 and of render_hier_kernel in bf16 and int8 from the build log, one K2
 block's time alone, and K5's time by pass (CUDA events;
@@ -121,8 +127,9 @@ same shapes) are printed; [K2] also shows that a bf16 launch without the
 weight slices is refused.
 
 Every kernel's record carries its bound from this run's shapes (the
-larger of its operations at the card's bf16 or fp32 peak and its bytes at
-the memory rate) and its launches on the path it serves. The last two
+larger of its operations at the card's bf16, int8 or fp32 peak, K7 fp32's
+at three tf32 products per fp32 product, and its bytes at the memory
+rate) and its launches on the path it serves. The last two
 lines of standard output are the kernels' JSON record and the device JSON
 line.
 """
@@ -178,6 +185,10 @@ K5_REL_TOL = 2e-2
 # is several bf16 steps of the tiny result) plus CORE_ULP_TOL bf16 steps of
 # its magnitude, and only rarely (CORE_FLIP_TOL of the elements)
 CORE_ULP_TOL, CORE_FLIP_TOL = 1.0, 2e-2
+# the [core] fp32 layer (3xTF32 products, fp32 sums) against an fp64 matmul:
+# its largest error at most this many times strict-fp32 torch.matmul's on
+# the same inputs
+CORE32_TOL = 2.0
 K5_COS_TOL = 0.999  # K5's grads against fp32 autograd of each NeRF
 K7_MEAN_TOL, K7_P999_TOL = 1e-3, 2e-2  # |rgb| against the plain bf16 version (K6's bounds)
 FULL_PSNR_TOL = 0.05  # FULL_NERF view 0: kernels against the plain fp32 path
@@ -256,8 +267,9 @@ def errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): the
 # bound of a kernel is the larger of its bytes over the memory rate and its
-# operations over the peak of their type
-PEAK = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+# operations over the peak of their type; an fp32-accurate product on the
+# tensor cores (3xTF32) is three tf32 products
+PEAK = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12, "tf32x3": 494.7e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -291,7 +303,7 @@ def nbytes(*tensors) -> int:
     return total
 
 
-CORE = "nerf_sampling_tpu_torch/kernels/csrc/mlp_wgmma.cuh"  # the wgmma MLP core of K2, K3, K5-K9 (bf16), K6/K7 (int8)
+CORE = "nerf_sampling_tpu_torch/kernels/csrc/mlp_wgmma.cuh"  # the wgmma MLP core: K2-K9 (bf16), K6/K7 (int8), K7 (fp32)
 
 
 def kernel_record(name: str, source: str, replaces: str, max_abs_err: float, ms: float, plain_ms: float,
@@ -319,7 +331,9 @@ def check_core(device) -> None:
     same bf16 operands (fp32 accumulation, one bf16 rounding), at 64, 128
     and ragged row counts, with and without a skip operand; then its s8
     mode, whose int32 sums must equal an fp64 matmul of the int8 values
-    (exact: every sum is below 2^53); every launch counted."""
+    (exact: every sum is below 2^53); then its fp32 mode (3xTF32 products),
+    whose largest error from an fp64 matmul must be at most CORE32_TOL
+    times strict-fp32 torch.matmul's; every launch counted."""
     from nerf_sampling_tpu_torch.kernels import fused_render as fr
 
     t0 = time.perf_counter()
@@ -365,6 +379,23 @@ def check_core(device) -> None:
             f"(max |sum| {float(ref.abs().max()):.0f}; must be 0)")
         require(bad == 0, f"[core] the s8 wgmma layer's int32 sums are not exact at {M} x {K} x {N}")
     require(fr.wgmma_dense_q_launches == len(qcases), "[core] wgmma_dense_q did not launch its kernel")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick: torch.matmul in strict fp32
+    fr.wgmma_dense32_launches = 0
+    fcases = ((64, 256, 256), (128, 64, 128), (300, 192, 128), (4133, 256, 256), (100, 32, 256))
+    for M, K, N in fcases:
+        a = torch.randn(M, K, generator=g, device=device) * 0.5
+        w = torch.randn(K, N, generator=g, device=device) / K ** 0.5
+        b = torch.randn(N, generator=g, device=device) * 0.1
+        got = fr.wgmma_dense32(a, w, b, act=0)
+        torch.cuda.synchronize()
+        ref = a.double() @ w.double() + b.double()
+        e_got = float((got.double() - ref).abs().max())
+        e_f32 = float(((torch.matmul(a, w) + b).double() - ref).abs().max())
+        log(f"[core] fp32 (3xTF32) {M} x {K} @ {K} x {N}: max |got - fp64| {e_got:.3e}, strict-fp32 torch.matmul's "
+            f"{e_f32:.3e} ({e_got / e_f32:.2f}x, tol {CORE32_TOL:g}x)")
+        require(bool(torch.isfinite(got).all()) and e_got <= CORE32_TOL * e_f32,
+                f"[core] the 3xTF32 layer is further from fp64 than {CORE32_TOL:g}x fp32 at {M} x {K} x {N}")
+    require(fr.wgmma_dense32_launches == len(fcases), "[core] wgmma_dense32 did not launch its kernel")
     log(f"[core] phase {time.perf_counter() - t0:.1f} s")
 
 
@@ -919,9 +950,14 @@ def check_fp32(params, device) -> list[dict]:
     """The COMPARE mode's fp32 K1 and K7 against their plain fp32 versions:
     K1 on view 0 and 64 rays that miss the sphere (depth within 1e-4, the
     NaN mask equal), K7 over view 0 in one launch (max_z within 1e-3 on the
-    rays that hit the sphere, rgb within FP32_RGB_TOL)."""
+    rays that hit the sphere, rgb within FP32_RGB_TOL); K7 fp32 runs the
+    wgmma core's fp32 path (3xTF32): its time against both bounds (the FMA
+    units' and 3xTF32's, its record's), launch shape, one block alone,
+    registers, and a launch without its slices must be refused."""
+    from nerf_sampling_tpu_torch.kernels import build
     from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
     from nerf_sampling_tpu_torch.kernels import fused_hier as k7
+    from nerf_sampling_tpu_torch.kernels import fused_render as k289
 
     t0 = time.perf_counter()
     ro, rd = k1_rays(device)
@@ -964,11 +1000,33 @@ def check_fp32(params, device) -> list[dict]:
     plain_ms = cuda_ms(lambda: plain_chunks(lambda s: k7.render_hier_plain(
         hier, cfg_c, cfg_f, ro[s], rd[s], dtype=torch.float32), n), 1)
     flop = 2 * n * (64 * module_macs(params.coarse, True) + 192 * module_macs(params.fine))
-    log(f"[fp32] K7 fp32: {ms:.3f} ms per launch ({flop / ms / 1e9:.1f} TFLOP/s); plain fp32 version "
-        f"{plain_ms:.3f} ms")
+    fma_ms, tc_ms = flop / PEAK["fp32"] * 1e3, flop / PEAK["tf32x3"] * 1e3
+    log(f"[fp32] K7 fp32 (3xTF32 on the wgmma core): {ms:.3f} ms per launch ({flop / ms / 1e9:.1f} TFLOP/s of fp32 "
+        f"work); {100 * fma_ms / ms:.1f}% of the FMA-unit bound ({fma_ms:.3f} ms at 67 TFLOP/s), {100 * tc_ms / ms:.1f}% "
+        f"of the 3xTF32 bound ({tc_ms:.3f} ms at 494.7/3 TFLOP/s); plain fp32 version {plain_ms:.3f} ms")
+    # the kernel on the wgmma core: its launch shape, one block alone, its
+    # registers, and no launch without its slices
+    occ = k7.kernel_occupancy(64, 128, fp32=True)
+    one = occ["rays_per_block"]
+    blocks, slots = -(-n // one), occ["blocks_per_sm"] * occ["sms"]
+    ms_one = cuda_ms(lambda: k7.render_hier_kernel(hier, cfg_c, cfg_f, ro[:one], rd[:one], dtype=torch.float32), 20)
+    log(f"[fp32] render_hier_kernel<float> at {n} rays: {blocks} blocks of {one} rays ({occ['threads']} threads, "
+        f"{occ['smem_bytes']} bytes of shared memory), {occ['blocks_per_sm']} resident per SM x {occ['sms']} SMs = "
+        f"{slots} slots, {blocks / slots:.2f} waves; one block of {one} rays alone {ms_one:.3f} ms; "
+        f"{ptxas_usage(build.build_info['log'], 'render_hier_kernelIfE')}")
+    require(occ["threads"] == 160 and occ["blocks_per_sm"] == 1,
+            "K7 fp32 does not launch as the fp32 path of the wgmma core (160 threads, one block per SM)")
+    arr, count = build.pointer_array([ro, rd, None, torch.empty((11, n), device=device)]
+                                     + k289._flat_weights(hier["coarse"], sigma_only=True, dtype=torch.float32)
+                                     + k289._flat_weights(hier["fine"], dtype=torch.float32))
+    rc = build.load_library().nst_render_hier(
+        arr, count, n, 64, 128, cfg_c.D, sum(1 << i for i in hier["coarse"]["skip_w"]), cfg_f.D,
+        sum(1 << i for i in hier["fine"]["skip_w"]), 2.0, 6.0, 0, 1, 0, 1, 1, None, None, build.current_stream(device))
+    log(f"[fp32] an fp32 hierarchical launch without the weight slices: cudaError_t {rc} (refused)")
+    require(rc != 0, "K7 fp32: a launch without the weight slices was not refused")
     recs.append(kernel_record("render_hier_kernel_det_fp32", "render_hier.cu",
                               "nerf_sampling_tpu/kernels/fused_hier.py:255", mx_rgb, ms, plain_ms, flop,
-                              nbytes(ro, rd, hier, got), "fp32"))
+                              nbytes(ro, rd, hier, got), "tf32x3", core=CORE))
     log(f"[fp32] phase {time.perf_counter() - t0:.1f} s")
     return recs
 
@@ -1641,16 +1699,22 @@ def step_queries(params, scene, device):
 
 def check_k4(params, queries) -> dict:
     """K4 on the coarse (65,536) and fine (196,608) queries of a step,
-    against its plain bf16 version, which is held against fp32."""
+    against its plain bf16 version, which is held against fp32; K4 runs
+    the wgmma core: its launch shape, one block alone and its registers at
+    both sizes."""
+    from nerf_sampling_tpu_torch.kernels import build
     from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
-    from nerf_sampling_tpu_torch.kernels.fused_render import pack_nerf
+    from nerf_sampling_tpu_torch.kernels.fused_render import pack_nerf, pack_slices
 
     rays, _, coarse_pts, fine_pts, _ = queries
     dirs = rays.viewdirs.contiguous()
     rec = {}
+    build.load_library()
+    log(f"[k4] nerf_points_kernel (wgmma core): {ptxas_usage(build.build_info['log'], 'nerf_points_kernel')}")
     for name, model, pts in (("coarse", params.coarse, coarse_pts), ("fine", params.fine, fine_pts)):
         packed, packed32 = pack_nerf(model), pack_nerf(model, torch.float32)
-        got = k4.nerf_points_kernel(packed, model.cfg, pts, dirs)
+        sl = pack_slices(packed)
+        got = k4.nerf_points_kernel(packed, model.cfg, pts, dirs, slices=sl)
         torch.cuda.synchronize()
         plain = k4.nerf_points_plain(packed, model.cfg, pts, dirs)
         ref32 = k4.nerf_points_plain(packed32, model.cfg, pts, dirs, dtype=torch.float32)
@@ -1660,12 +1724,28 @@ def check_k4(params, queries) -> dict:
             f"plain bf16 vs plain fp32 mean {mean32:.3e} max {mx32:.3e}")
         require(bool(torch.isfinite(got).all()), f"K4 {name}: non-finite raw")
         require(mean <= mean32 and mx <= mx32, f"K4 {name}: further from its plain bf16 version than bf16 is from fp32")
-        ms = cuda_ms(lambda: k4.nerf_points_kernel(packed, model.cfg, pts, dirs), 10)
+        ms = cuda_ms(lambda: k4.nerf_points_kernel(packed, model.cfg, pts, dirs, slices=sl), 10)
         plain_ms = cuda_ms(lambda: k4.nerf_points_plain(packed, model.cfg, pts, dirs), 3)
+        occ = k4.kernel_occupancy(pts.shape[0])
+        # one block alone: its rows, walked as in the full launch (sized as for a card of one SM)
+        rows, S, sms = 128 * occ["tiles_per_block"], pts.shape[0] // dirs.shape[0], build.sm_count
+        build.sm_count = lambda device: 1
+        try:
+            ms_one = cuda_ms(lambda: k4.nerf_points_kernel(packed, model.cfg, pts[:rows], dirs[:rows // S], slices=sl),
+                             20)
+        finally:
+            build.sm_count = sms
         log(f"[k4] {name}: {ms:.3f} ms per launch; plain bf16 version {plain_ms:.3f} ms "
-            f"({2 * 0.593e6 * pts.shape[0] / ms / 1e9:.1f} TFLOP/s at 2 x 593K MAC per row)")
+            f"({2 * 0.593e6 * pts.shape[0] / ms / 1e9:.1f} TFLOP/s at 2 x 593K MAC per row); launch shape "
+            f"{occ['blocks']} blocks of {occ['tiles_per_block']} tiles of 128 rows ({occ['threads']} threads, "
+            f"{occ['smem_bytes']} bytes of shared memory), {occ['blocks_per_sm']} resident per SM x {occ['sms']} SMs, "
+            f"{occ['blocks'] / (occ['blocks_per_sm'] * occ['sms']):.2f} waves; one block of {rows} rows alone "
+            f"{ms_one:.3f} ms")
+        require(occ["threads"] == 288 and occ["blocks_per_sm"] == 1 and occ["blocks"] <= occ["sms"],
+                f"K4 {name}: not the wgmma core's launch (288 threads, one block per SM, one wave)")
         rec = kernel_record("nerf_points_kernel", "nerf_points.cu", "nerf_sampling_tpu/kernels/fused_nerf.py:301",
-                            mx, ms, plain_ms, 2 * pts.shape[0] * module_macs(model), nbytes(pts, dirs, packed, got))
+                            mx, ms, plain_ms, 2 * pts.shape[0] * module_macs(model), nbytes(pts, dirs, packed, got),
+                            core=CORE)
     return rec  # the fine query's numbers
 
 
@@ -2117,9 +2197,11 @@ def main() -> int:
                     log("[build] " + line.rstrip()[:160])
         log(f"[build] render_around_depth_kernel<bf16> (K2, K3, K8, K9 on the wgmma core): "
             f"{ptxas_usage(info['log'], 'render_around_depth_kernelI13__nv_bfloat16')}")
-        for name, mangled in (("bf16", "render_hier_kernelI13__nv_bfloat16E"), ("int8_t", "render_hier_kernelIaE")):
+        for name, mangled in (("bf16", "render_hier_kernelI13__nv_bfloat16E"), ("int8_t", "render_hier_kernelIaE"),
+                              ("float", "render_hier_kernelIfE")):
             log(f"[build] render_hier_kernel<{name}> (K6, K7 in {name[:4]} on the wgmma core): "
                 f"{ptxas_usage(info['log'], mangled)}")
+        log(f"[build] nerf_points_kernel (K4 on the wgmma core): {ptxas_usage(info['log'], 'nerf_points_kernel')}")
     check_core(device)
 
     params = pack_kernel_weights(load_render_params(CKPT, production_pipeline("cuda"), device),

@@ -2,7 +2,7 @@
 
     python3 fault_check.py        # on a machine with a CUDA card, from the repo root
 
-Three sets of gates must pass on the sound source and fail on a wrong one:
+Four sets of gates must pass on the sound source and fail on a wrong one:
 - "k10", the int8 kernels' (chip_smoke.py [k10]: K10_MEAN_TOL / K10_P999_TOL
   on the maps, K10_Z_MEAN_TOL / K10_Z_P99_TOL on K6/K7's max_z and
   depth_map, K6-int8's max_z against bf16 K6), against faults in
@@ -10,15 +10,22 @@ Three sets of gates must pass on the sound source and fail on a wrong one:
   (nerf_mlp.cuh's int8 core) and K6/K7 in int8 (the wgmma core's s8
   forward) both call;
 - "core", the wgmma core's first check ([core]: one bf16 layer at
-  CORE_ULP_TOL, one s8 layer exact);
-- "wgmma", the kernels on the core ([K6], [k5], [K2], [K3] and the render
-  path: the K6 map, max_z and draw gates, K5_REL_TOL, K5_COS_TOL and the
-  bits across launches, K2's and K3's map and draw gates, view 0's PSNR
-  against the JAX reference and the plain fp32 path);
+  CORE_ULP_TOL, one s8 layer exact, one fp32 (3xTF32) layer within
+  CORE32_TOL of strict fp32's error);
+- "wgmma", the kernels on the core ([K6], [k4], [k5], [K2], [K3] and the
+  render path: the K6 map, max_z and draw gates, K4 against its plain
+  version, K5_REL_TOL, K5_COS_TOL and the bits across launches, K2's and
+  K3's map and draw gates, view 0's PSNR against the JAX reference and the
+  plain fp32 path);
+- "fp32", the COMPARE mode's kernels ([fp32]: K1 and K7 fp32 against
+  their plain fp32 versions; [modes]: COMPARE_NERF and NERF_MAX over view
+  0, kernels against the plain fp32 path);
 against faults in the requants, in kernels/csrc/mlp_wgmma.cuh's producer,
-which every kernel on the core shares, the production render's K2 among
-them, and in its int8 tile swizzle, which [core]'s s8 layer and K6/K7 in
-int8 share.
+which every kernel on the core shares, the production render's K2, K4
+and K7 in fp32 among them, in its int8 tile swizzle, which [core]'s s8
+layer and K6/K7 in int8 share, and in its 3xTF32 product, which [core]'s
+fp32 layer and K7 in fp32 share: its two corrections dropped (the run
+says whether [fp32] and [modes] see that one), or its sums in one chain.
 This runs the gates first on the checkout as it is, then on one copy per
 fault below (the port, chip_smoke.py, the checkpoint and the experiment
 configs, under logs/fault_check/, with one edit to the copy's source), with
@@ -54,11 +61,24 @@ FAULTS = {
     # (slices 2-9 of every tile's stream: trunk layer 1, or the [core] product)
     "stale_slice": ("mlp_wgmma.cuh", "const bf16* src = segs[g].slices + (size_t)s * (kSliceBytes / 2);",
                     "const bf16* src = segs[g].slices + (size_t)(s >= 2 && s < 10 ? s - 1 : s) * (kSliceBytes / 2);",
-                    ("core", "wgmma")),
+                    ("core", "wgmma", "fp32")),
     # the int8 tiles written unswizzled while wgmma reads them swizzled: every
     # int8 activation the s8 products read lands in the wrong 16-byte chunk
     "int8_swizzle": ("mlp_wgmma.cuh", "((((col & 127) >> 4) ^ (row & 7)) << 4)", "(((col & 127) >> 4) << 4)",
                      ("core", "k10")),
+    # 3xTF32 without its two correction products: every fp32 product on the
+    # tensor cores keeps tf32's 10 mantissa bits
+    "tf32_single": ("mlp_wgmma.cuh",
+                    "for (int kk = 0; kk < 4; ++kk) mma_tf32_corrections(part, hi[kk], lo[kk], sw128_desc(b[0] + 32 * kk), "
+                    "sw128_desc(b[1] + 32 * kk));", "", ("core", "fp32")),
+    # the 3xTF32 sums in one chain of tensor-core accumulations: no panel
+    # sums joined in rounded fp32 ([core]'s fp32 layer reads how much
+    # further from fp64 that is)
+    "tf32_chain": ("mlp_wgmma.cuh",
+                   "for (int i = 0; i < 64; ++i) part[i] = 0.f;\n"
+                   "        auto join = [](float sum, float p) { return __fadd_rn(sum, p); };",
+                   "for (int i = 0; i < 64; ++i) part[i] = acc[h][i];\n"
+                   "        auto join = [](float, float p) { return p; };", ("core",)),
 }
 
 # run in the checkout or copy: chip_smoke's checks of the named gate sets, gates recorded
@@ -82,13 +102,16 @@ device = torch.device("cuda", 0)
 params = pack_kernel_weights(load_render_params(c.CKPT, c.production_pipeline("cuda"), device), with_hier=True)
 scene, K = c.load_example_scene()
 batches = [b[:2] for b in c.train_batches(scene, device, 8)]
+queries = []  # the step's queries, made once for K4 and K5
 checks = {
     "core": [lambda: c.check_core(device)],
     "k10": [lambda: c.check_k10(params, scene, K, device, batches)],
     "wgmma": [lambda: c.check_k6(params, device, batches),
-              lambda: c.check_k5(params, c.step_queries(params, scene, device)),
+              lambda: queries.append(c.step_queries(params, scene, device)),
+              lambda: c.check_k4(params, queries[0]), lambda: c.check_k5(params, queries[0]),
               lambda: c.check_k2(params, device), lambda: c.check_k3(params, device),
               lambda: c.run_slice(device, scene, K)],
+    "fp32": [lambda: c.check_fp32(params, device), lambda: c.check_modes(params, scene, K, device)],
 }
 for name in sys.argv[1:]:
     for check in checks[name]:
@@ -127,8 +150,8 @@ def run_checks(cwd: str, gates: list[str]) -> list[str]:
     through, and the gates they failed come back."""
     proc = subprocess.run([sys.executable, "-c", RUN, *gates], cwd=cwd, capture_output=True, text=True)
     for line in proc.stdout.splitlines():
-        if line.startswith(("[k10]", "[core]", "[K6]", "[k5]", "[K2]", "[K3]", "[slice]", "[build]",
-                            "[fault_check]")):
+        if line.startswith(("[k10]", "[core]", "[K6]", "[k4]", "[k5]", "[K2]", "[K3]", "[slice]", "[fp32]", "[modes]",
+                            "[build]", "[fault_check]")):
             print(line, flush=True)
     if proc.returncode != 0 or not proc.stdout.rstrip().splitlines()[-1].startswith("FAILED "):
         print(proc.stderr[-4000:], file=sys.stderr)

@@ -103,7 +103,7 @@ def load_library() -> ctypes.CDLL:
     lib.nst_depth_net_forward.restype = i32
     # the vp before the stream of the render entries: the int8 plan, a host
     # int32 array (quant.quant_plan), or null for bf16 and fp32 (a bf16
-    # call, and an int8 nst_render_hier call, ends ptrs with the packs'
+    # call, and every nst_render_hier call, ends ptrs with the packs'
     # weight slices)
     lib.nst_render_around_depth.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, f32, i32, vp, vp]
     lib.nst_render_around_depth.restype = i32
@@ -116,8 +116,10 @@ def load_library() -> ctypes.CDLL:
     lib.nst_render_hier.argtypes = [ptrs, i32, i64, i32, i32, i32, u32, i32, u32, f32, f32,
                                     i32, i32, u32, i32, i32, vp, vp, vp]
     lib.nst_render_hier.restype = i32
-    lib.nst_nerf_points.argtypes = [ptrs, i32, i64, i64, i32, u32, vp]
+    lib.nst_nerf_points.argtypes = [ptrs, i32, i64, i64, i32, u32, i32, vp]
     lib.nst_nerf_points.restype = i32
+    lib.nst_nerf_points_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.nst_nerf_points_occupancy.restype = i32
     lib.nst_nerf_points_bwd_sizes.argtypes = [i64, i32, u32, i64, i32, ctypes.POINTER(ctypes.c_longlong)]
     lib.nst_nerf_points_bwd_sizes.restype = i32
     lib.nst_nerf_points_bwd.argtypes = [ptrs, i32, i64, i64, i32, u32, i64, i32, i32, vp]
@@ -130,6 +132,8 @@ def load_library() -> ctypes.CDLL:
     lib.nst_wg_dense.restype = i32
     lib.nst_wg_dense_q.argtypes = [ptrs, i32, i64, i32, i32, vp]
     lib.nst_wg_dense_q.restype = i32
+    lib.nst_wg_dense32.argtypes = [ptrs, i32, i64, i32, i32, i32, vp]
+    lib.nst_wg_dense32.restype = i32
     build_info.update(
         path=so_path, log=log_path, built=built, seconds=time.perf_counter() - t0
     )
@@ -152,6 +156,11 @@ def host_pointer(array) -> int | None:
 
 def current_stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def occupancy(entry: str, *args: int) -> dict[str, int]:

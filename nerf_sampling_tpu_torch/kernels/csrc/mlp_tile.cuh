@@ -1,7 +1,7 @@
 // Shared building block of the port's MLP kernels: one dense layer over a
 // tile of rows whose activations live in shared memory, as bf16 or fp32.
-// (K2, K3 and K5-K9 in bf16 and K6/K7 in int8 run the wgmma core of
-// mlp_wgmma.cuh instead.)
+// (K2-K9 in bf16, K6/K7 in int8 and K7 in fp32 run the wgmma core of
+// mlp_wgmma.cuh instead; K1 and the fp32 and int8 K2/K3/K8/K9 stay here.)
 //
 //   out[16*MT, N] = act(sum_op A_op @ W_op + bias),   N = kWarps * NT * 16
 //
@@ -19,8 +19,10 @@
 // applies the activation and rounds to bf16, the rounding points of the
 // TPU kernels (bf16 activations, fp32 accumulation).
 //
-// fp32 (the COMPARE mode's kernels): wmma has no fp32 operands, and TF32
-// keeps 10 mantissa bits, so the product runs on the fp32 FMA units. Each
+// fp32 (the COMPARE mode's K1 and K9): wmma has no fp32 operands, and TF32
+// alone keeps 10 mantissa bits, so the product runs on the fp32 FMA units
+// (mlp_wgmma.cuh's 3xTF32 path, K7 fp32's since it moved there, is the
+// next step for these). Each
 // thread owns TM rows x 4 columns of the output in registers, reads its
 // rows' activations from shared memory (one address per warp: a
 // broadcast) and one float4 of the weight row per step of k from L2, and

@@ -1,8 +1,10 @@
 // The Hopper MLP core: dense layers over 128-row tiles on wgmma, with the
 // weights streamed through a ring of shared-memory slices by a producer
-// warp. Used by K6/K7 in bf16 and int8 (render_hier.cu), K2/K3/K8/K9 in
-// bf16 (render_around_depth.cu), K5's row pass (nerf_points_bwd.cu) and the
-// [core] check (wg_dense.cu); the other kernels keep mlp_tile.cuh's cores.
+// warp. Used by K6/K7 in bf16 and int8 and K7 in fp32 (render_hier.cu),
+// K2/K3/K8/K9 in bf16 (render_around_depth.cu), K4 (nerf_points.cu), K5's
+// row pass (nerf_points_bwd.cu) and the [core] check (wg_dense.cu); the
+// other kernels keep mlp_tile.cuh's cores. The fp32 path (3xTF32 products,
+// 64-row tiles, one consumer warpgroup) is described at its section below.
 //
 //   acc[64 rows of a warpgroup, NH * 128] = sum_op A_op @ B_op
 //
@@ -226,11 +228,12 @@ struct Ring {
   __device__ __forceinline__ uint32_t full(int s) const { return data + S * kSliceBytes + 8 * s; }
   __device__ __forceinline__ uint32_t empty(int s) const { return data + S * kSliceBytes + 8 * (S + s); }
   static constexpr int kBytes = S * kSliceBytes + 16 * S;
-  // one thread, before the role split and a block-wide barrier
-  __device__ void init() const {
+  // one thread, before the role split and a block-wide barrier; every
+  // consumer warp releases a stage
+  __device__ void init(int consumer_warps = kConsumers / 32) const {
     for (int s = 0; s < S; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), kConsumers / 32);  // every consumer warp releases
+      mbar_init(empty(s), consumer_warps);
     }
     mbar_fence_init();
   }
@@ -250,11 +253,11 @@ struct Segment {
 };
 
 // The producer: every slice of the segments into the ring, in order, each
-// as soon as its stage is free. The warp's first lane issues; the others
-// return at once.
+// as soon as its stage is free. The warp's first lane (thread `lead`, the
+// first after the consumers) issues; the others return at once.
 template <int S>
-__device__ void produce(const Ring<S>& ring, const Segment* segs, int n_segs) {
-  if (threadIdx.x != kConsumers) return;
+__device__ void produce(const Ring<S>& ring, const Segment* segs, int n_segs, int lead = kConsumers) {
+  if ((int)threadIdx.x != lead) return;
   int stage = 0;
   uint32_t phase = 0;
   for (int g = 0; g < n_segs; ++g)
@@ -389,11 +392,16 @@ __device__ __forceinline__ void store_tile(const float (&acc)[NH][64], unsigned 
   group_sync();
 }
 
-// The per-row dot products of acc with CH rows of bf16 weights w[ch * ld
-// + col]: out[2 ch + hh] for the thread's rows (hh = 0, 1), the sum over all
-// columns, in every lane of the row's quad.
-template <int NH, int CH>
-__device__ __forceinline__ void row_dots(const float (&acc)[NH][64], const bf16* __restrict__ w, int ld,
+__device__ __forceinline__ float2 pair_at(const bf16* __restrict__ w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w));
+}
+__device__ __forceinline__ float2 pair_at(const float* __restrict__ w) { return *reinterpret_cast<const float2*>(w); }
+
+// The per-row dot products of acc with CH rows of bf16 (or fp32) weights
+// w[ch * ld + col]: out[2 ch + hh] for the thread's rows (hh = 0, 1), the
+// sum over all columns, in every lane of the row's quad.
+template <int NH, int CH, typename Wt>
+__device__ __forceinline__ void row_dots(const float (&acc)[NH][64], const Wt* __restrict__ w, int ld,
                                          float (&out)[2 * CH]) {
 #pragma unroll
   for (int k = 0; k < 2 * CH; ++k) out[k] = 0.f;
@@ -401,7 +409,7 @@ __device__ __forceinline__ void row_dots(const float (&acc)[NH][64], const bf16*
     const int hh = (i >> 1) & 1;
 #pragma unroll
     for (int ch = 0; ch < CH; ++ch) {
-      const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + ch * ld + col));
+      const float2 wv = pair_at(w + ch * ld + col);
       out[2 * ch + hh] += acc[h][i] * wv.x + acc[h][i + 1] * wv.y;
     }
   });
@@ -447,12 +455,13 @@ __device__ __forceinline__ Tiles<S> carve(unsigned char* base) {
 }
 
 // The forward over one 128-row tile whose PE tile is filled: the per-row
-// sigma (alpha head) and, unless sigma_only, the sigmoid(rgb) of this
-// warpgroup's valid rows, into sigma[row] and rgb[ch][row] (row within the
-// 128). Consumes forward_slices() of the stream.
+// sigma (alpha head) and, unless sigma_only, the sigmoid(rgb) (the logits
+// with raw) of this warpgroup's valid rows, into sigma[row * stride] and
+// rgb[ch][row * stride] (row within the 128). Consumes forward_slices() of
+// the stream.
 template <int S>
 __device__ void nerf_forward(const NerfWeights& w, const Tiles<S>& t, Cursor& cur, int valid, bool sigma_only,
-                             float* sigma, float* const* rgb) {
+                             float* sigma, float* const* rgb, bool raw = false, int stride = 1) {
   const uint32_t x = smem_u32(t.x), pe = smem_u32(t.pe);
   const int lane = threadIdx.x & 31;
   const int r0 = 64 * (threadIdx.x >> 7) + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows r0, r0 + 8
@@ -466,7 +475,7 @@ __device__ void nerf_forward(const NerfWeights& w, const Tiles<S>& t, Cursor& cu
       row_dots<2, 1>(acc, w.alpha_w, 0, s);
       if ((lane & 3) == 0)
         for (int hh = 0; hh < 2; ++hh)
-          if (r0 + 8 * hh < valid) sigma[r0 + 8 * hh] = s[hh] + w.alpha_b[0];
+          if (r0 + 8 * hh < valid) sigma[(r0 + 8 * hh) * stride] = s[hh] + w.alpha_b[0];
       if (sigma_only) return;
     }
     group_sync();  // the warpgroup's products read x no more
@@ -488,7 +497,10 @@ __device__ void nerf_forward(const NerfWeights& w, const Tiles<S>& t, Cursor& cu
   if ((lane & 3) == 0)
     for (int ch = 0; ch < 3; ++ch)
       for (int hh = 0; hh < 2; ++hh)
-        if (r0 + 8 * hh < valid) rgb[ch][r0 + 8 * hh] = 1.f / (1.f + expf(-(s[2 * ch + hh] + w.rgb_b[ch])));
+        if (r0 + 8 * hh < valid) {
+          const float logit = s[2 * ch + hh] + w.rgb_b[ch];
+          rgb[ch][(r0 + 8 * hh) * stride] = raw ? logit : 1.f / (1.f + expf(-logit));
+        }
 }
 
 // Two int8 values into a swizzled int8 tile at (row, col) and (row, col + 1), col even
@@ -667,25 +679,376 @@ __device__ void nerf_rows(const Weights& w, const Tiles<S>& t, Cursor& cur, cons
   }
 }
 
+// The PE tile of one 128-row tile of point queries (K4, K5), this
+// warpgroup's 64 rows: row r is the point pts[row0 + r] and the unit view
+// direction dirs[(row0 + r) / S] (given, not normalized here); rows [valid,
+// 128) are zero. q holds the tile's inputs, 8 floats a row (pts[3],
+// dirs[3], 0, 0). Begins by waiting for the warpgroup's products of the
+// previous tile; ends with the PE tile visible to its next wgmma.
+__device__ __forceinline__ void point_pe(const float* __restrict__ pts, const float* __restrict__ dirs,
+                                         long long row0, int valid, long long S, float* q, unsigned char* pe) {
+  const int g = threadIdx.x >> 7, lt = threadIdx.x & 127;
+  group_sync();
+  for (int e = lt; e < 64 * 8; e += 128) {
+    const int rr = 64 * g + (e >> 3), c = e & 7;
+    float v = 0.f;
+    if (rr < valid && c < 6) {
+      const long long row = row0 + rr;
+      v = c < 3 ? pts[row * 3 + c] : dirs[(row / S) * 3 + (c - 3)];
+    }
+    q[rr * 8 + c] = v;
+  }
+  group_sync();
+  for (int e = lt; e < 64 * 128; e += 128) {
+    const int rr = 64 * g + (e >> 7), col = e & 127;
+    float v = 0.f;
+    if (rr < valid) {
+      if (col < kPtsCh) v = embed(q + rr * 8, col);
+      else if (col >= kPeViews && col < kPeViews + kViewCh) v = embed(q + rr * 8 + 3, col - kPeViews);
+    }
+    *reinterpret_cast<bf16*>(pe + tile_offset(rr, col)) = __float2bfloat16(v);
+  }
+  fence_async_smem();
+  group_sync();
+}
+
+// ---- the fp32 path: 3xTF32 products (K7 in fp32, [core]'s fp32 layer)
+//
+// An fp32 operand x runs on the tf32 tensor cores split in two, hi =
+// tf32(x) and lo = tf32(x - hi), both rounded to nearest (cvt.rna, ties
+// away from zero), and x @ w is summed as lo @ w_hi + hi @ w_lo + hi @ w_hi
+// in fp32: the lo @ w_lo term (about 2^-22 of a product) is the only one
+// dropped. The host writes the weights' hi and lo images
+// (kernels/fused_render.py::wgmma_slices32); the activations are split
+// here, in registers, one 8-deep k step at a time. The tensor cores' fp32
+// accumulation is not round-to-nearest: each wgmma adds into its
+// accumulators with an error of about an ulp of them, biased toward zero,
+// and 96 of them in one chain (three products per k step at K = 256) put
+// a layer several times further from an fp64 matmul than torch.matmul in
+// fp32 (fault_check.py's tf32_chain on an H100). So each 32-deep panel is
+// summed afresh, its 8 corrections first (while the sum is small) and its
+// 4 main products last, and the panel sums are added to the layer's in
+// rounded fp32: about 4 such errors per panel, at the panel's magnitude.
+//
+// Block: one consumer warpgroup (threads 0-127) on 64-row tiles and the
+// producer warp (128-159). The A operand comes from registers. wgmma's tf32
+// A fragment holds, in lane l of warp w, rows 16w + l/4 and 16w + l/4 + 8
+// at columns l%4 and l%4 + 4 of the k step's 8; its fp32 accumulator holds
+// the same rows at columns 2(l%4) and 2(l%4) + 1 of every 8. The host
+// writes each 8-deep k group of every weight slice permuted (depth s of the
+// group holds the weights' row 2s of it for s < 4, 2(s - 4) + 1 after:
+// fused_render.TF32_PERM), so that a layer's accumulator, as the thread
+// holds it, is the next layer's A fragment: an activation never leaves its
+// thread. Between layers it waits in shared
+// memory, thread-private: for each 8-column group g of the operand the
+// thread's float4 (row r col c, r c+1, r+8 c, r+8 c+1), c = 8g + 2(l%4),
+// at store[g * 128 + tid] (16-byte accesses, no bank conflicts, no
+// barriers). The PE is filled the same way, by the thread that reads it.
+// A weight slice, 16 KB: fp32, 128 output columns x 32 of depth, element
+// (n, k) at n * 128 + ((k / 4) ^ (n % 8)) * 16 + (k % 4) * 4 (the same
+// 128-byte swizzle; a k8 step is 32 bytes of depth, as bf16 k16 and s8
+// k32, so the descriptor walk, ring and producer are the bf16 path's). A
+// product of depth K and width N reads, per 32-deep k panel and 128-column
+// half (k panels outer, halves inner), the hi slice then the lo slice.
+//
+// Why this shape: 128 rows of fp32 activations (128 KB) and PE (48 KB)
+// do not fit beside a ring in 227 KB, and two consumer warpgroups get 168
+// registers a thread, too few for 128 fp32 accumulators and the split A
+// fragments; one warpgroup gets up to 255, and its tile's activations (64
+// KB) and PE (24 KB) leave room for a 6-stage ring.
+
+constexpr int kConsumers32 = 128;                 // one consumer warpgroup
+constexpr int kThreads32 = kConsumers32 + 32;     // and one producer warp
+constexpr int kRows32 = 64;                       // rows per weight pass
+constexpr int kStages32 = 6;
+constexpr int kXGroups32 = kW / 8, kPeGroups32 = kPeCols / 8;  // 8-column groups of the activations and PE
+
+// The fp32 forward's slices (nerf_forward on NerfWeightsT<float>): two (hi,
+// lo) per 32-deep panel and 128-column half of each product: w0 8, a trunk
+// layer 32, a skip matrix 8; unless sigma_only the feature layer's 32, the
+// views layer's 16 + 2. kernels/fused_render.py::wgmma_slices32 writes them.
+__host__ __device__ inline int forward_slices32(int D, unsigned skip_mask, bool sigma_only) {
+  return 8 + 32 * (D - 1) + 8 * popcount_u(skip_mask) + (sigma_only ? 0 : 32 + 16 + 2);
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d[64 x 128] += A[64 x 8] @ B[8 x 128], tf32 in (A: the thread's fragment
+// registers; B K-major, the only tf32 layout), fp32 accumulate
+__device__ __forceinline__ void mma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += lo @ B_hi + hi @ B_lo, the 3xTF32 corrections of one k step
+__device__ __forceinline__ void mma_tf32_corrections(float (&d)[64], const uint32_t (&hi)[4], const uint32_t (&lo)[4],
+                                                     uint64_t bh, uint64_t bl) {
+  mma_m64n128k8_tf32(d, lo, bh);
+  mma_m64n128k8_tf32(d, hi, bl);
+}
+
+// An A operand of the fp32 path: `groups` 8-column groups (a multiple of
+// 4: whole 32-deep panels) of a thread-private store.
+struct Src32 {
+  const float4* store;
+  int groups;
+};
+
+// acc = sum over src of A @ B, B the next slices of the stream (hi, lo per
+// panel and half); the consumer warpgroup calls it. Each panel and half is
+// one commit group into a fresh sum (corrections first), waited for and
+// added to acc in rounded fp32 before the next; its two stages are
+// released then. Ends with every slice released.
+template <int NH, int S>
+__device__ __forceinline__ void gemm_tf32(float (&acc)[NH][64], const Src32* src, int n_src, const Ring<S>& ring,
+                                          Cursor& cur) {
+  const int tid = threadIdx.x;
+  const bool lead = (tid & 31) == 0;
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+  for (int o = 0; o < n_src; ++o)
+    for (int kp = 0; kp < src[o].groups / 4; ++kp) {
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 v = src[o].store[(4 * kp + kk) * kConsumers32 + tid];
+        const float a[4] = {v.x, v.z, v.y, v.w};  // the fragment: (r, c), (r + 8, c), (r, c + 1), (r + 8, c + 1)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          hi[kk][j] = tf32_rna(a[j]);
+          lo[kk][j] = tf32_rna(a[j] - __uint_as_float(hi[kk][j]));
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        int used[2];
+        uint32_t b[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          mbar_wait(ring.full(cur.stage), cur.phase);
+          used[e] = cur.stage;
+          b[e] = ring.data + cur.stage * kSliceBytes;
+          if (++cur.stage == S) {
+            cur.stage = 0;
+            cur.phase ^= 1;
+          }
+        }
+        // the panel's sums start afresh and join the layer's in rounded fp32
+        float part[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) part[i] = 0.f;
+        auto join = [](float sum, float p) { return __fadd_rn(sum, p); };
+        fence_regs(part);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_tf32_corrections(part, hi[kk], lo[kk], sw128_desc(b[0] + 32 * kk), sw128_desc(b[1] + 32 * kk));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_m64n128k8_tf32(part, hi[kk], sw128_desc(b[0] + 32 * kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(part);
+        if (lead) {
+          mbar_arrive(ring.empty(used[0]));
+          mbar_arrive(ring.empty(used[1]));
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[h][i] = join(acc[h][i], part[i]);
+      }
+    }
+}
+
+// acc <- activate(acc + bias), in fp32
+template <int NH>
+__device__ __forceinline__ void bias_act32(float (&acc)[NH][64], const float* __restrict__ bias, int act) {
+  for_pairs<NH>([&](int, int col, int h, int i) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col));
+    acc[h][i] = activate(acc[h][i] + b.x, act);
+    acc[h][i + 1] = activate(acc[h][i + 1] + b.y, act);
+  });
+}
+
+// acc into the thread's store, the next product's A operand
+template <int NH>
+__device__ __forceinline__ void store32(const float (&acc)[NH][64], float4* store) {
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      store[(16 * h + j) * kConsumers32 + threadIdx.x] =
+          make_float4(acc[h][4 * j], acc[h][4 * j + 1], acc[h][4 * j + 2], acc[h][4 * j + 3]);
+}
+
+// Shared memory of the fp32 NeRF passes, from a 1024-byte aligned base: the
+// ring, the activation store (32 groups) and the PE store (12 groups).
+template <int S>
+struct Tiles32 {
+  float4* x;
+  float4* pe;
+  Ring<S> ring;
+  static constexpr int kBytes = Ring<S>::kBytes + (kXGroups32 + kPeGroups32) * kConsumers32 * 16;
+};
+template <int S>
+__device__ __forceinline__ Tiles32<S> carve32(unsigned char* base) {
+  Tiles32<S> t;
+  t.ring.data = smem_u32(base);
+  t.x = reinterpret_cast<float4*>(base + Ring<S>::kBytes);
+  t.pe = t.x + kXGroups32 * kConsumers32;
+  return t;
+}
+
+// The fp32 forward over one 64-row tile whose PE store is filled: sigma
+// and, unless sigma_only, sigmoid(rgb) of the valid rows into sigma[row]
+// and rgb[ch][row] (row within the 64), every sum and activation in fp32
+// (nerf_mlp.cuh's fp32 MLP, on the tensor cores). Consumes
+// forward_slices32() of the stream.
+template <int S>
+__device__ void nerf_forward(const NerfWeightsT<float>& w, const Tiles32<S>& t, Cursor& cur, int valid,
+                             bool sigma_only, float* sigma, float* const* rgb) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows r0, r0 + 8
+  float acc[2][64];
+  for (int i = 0; i < w.D; ++i) {
+    const Src32 ops[2] = {{i == 0 ? t.pe : t.x, i == 0 ? 8 : kXGroups32}, {t.pe, 8}};
+    gemm_tf32(acc, ops, (i > 0 && ((w.skip_mask >> i) & 1u)) ? 2 : 1, t.ring, cur);
+    bias_act32(acc, w.tb[i], kRelu);
+    if (i == w.D - 1) {  // sigma = h @ alpha_w + alpha_b
+      float s[2];
+      row_dots<2, 1>(acc, w.alpha_w, 0, s);
+      if ((lane & 3) == 0)
+        for (int hh = 0; hh < 2; ++hh)
+          if (r0 + 8 * hh < valid) sigma[r0 + 8 * hh] = s[hh] + w.alpha_b[0];
+      if (sigma_only) return;
+    }
+    store32(acc, t.x);
+  }
+  {
+    const Src32 op = {t.x, kXGroups32};
+    gemm_tf32(acc, &op, 1, t.ring, cur);
+    bias_act32(acc, w.feat_b, kNone);
+    store32(acc, t.x);
+  }
+  float accv[1][64];
+  const Src32 opv[2] = {{t.x, kXGroups32}, {t.pe + (kPeViews / 8) * kConsumers32, 4}};
+  gemm_tf32(accv, opv, 2, t.ring, cur);
+  bias_act32(accv, w.views_b, kRelu);
+  float s[6];
+  row_dots<1, 3>(accv, w.rgb_w, kWv, s);
+  if ((lane & 3) == 0)
+    for (int ch = 0; ch < 3; ++ch)
+      for (int hh = 0; hh < 2; ++hh)
+        if (r0 + 8 * hh < valid) rgb[ch][r0 + 8 * hh] = 1.f / (1.f + expf(-(s[2 * ch + hh] + w.rgb_b[ch])));
+}
+
+// The fp32 MLP over rows [0, rows) of the plane z (row's ray: row / S), as
+// nerf_mlp.cuh::nerf_rows: sigma[row] and, unless sigma_only, sigmoid(rgb)
+// into rgb[0..2][row]. Each thread fills the PE it reads (accurate
+// sinf/cosf, o + d*z and d/|d| rounded as the plain version), so no
+// barrier is needed between tiles; the consumer warpgroup only. Ends
+// without a barrier (the caller syncs).
+template <int S>
+__device__ void nerf_rows(const NerfWeightsT<float>& w, const Tiles32<S>& t, Cursor& cur, const float* ray,
+                          const float* z, int rows, int Sr, bool sigma_only, float* sigma, float* const* rgb) {
+  const int lane = threadIdx.x & 31, c = 2 * (lane & 3);
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows r0, r0 + 8 of the tile
+  for (int c0 = 0; c0 < rows; c0 += kRows32) {
+    float u[2][3], v[2][3];  // each row's point and unit direction
+    bool live[2];
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = c0 + r0 + 8 * hh;
+      live[hh] = row < rows;
+      if (!live[hh]) continue;
+      const float* q = ray + 8 * (row / Sr);
+      const float zr = z[row];
+      for (int k = 0; k < 3; ++k) {
+        u[hh][k] = __fadd_rn(q[k], __fmul_rn(q[3 + k], zr));  // no fused multiply-add
+        v[hh][k] = __fdiv_rn(q[3 + k], q[6]);
+      }
+    }
+    for (int g = 0; g < kPeGroups32; ++g) {
+      float e[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int hh = k >> 1, col = 8 * g + c + (k & 1);
+        e[k] = 0.f;
+        if (live[hh]) {
+          if (col < kPtsCh) e[k] = embed(u[hh], col);
+          else if (col >= kPeViews && col < kPeViews + kViewCh) e[k] = embed(v[hh], col - kPeViews);
+        }
+      }
+      t.pe[g * kConsumers32 + threadIdx.x] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+    float* rgb_c[3] = {nullptr, nullptr, nullptr};
+    if (!sigma_only)
+      for (int k = 0; k < 3; ++k) rgb_c[k] = rgb[k] + c0;
+    nerf_forward(w, t, cur, rows - c0, sigma_only, sigma + c0, rgb_c);
+  }
+}
+
 // ---- the render kernels' choice of core (render_hier.cu, render_around_depth.cu)
 
-// A render kernel's element type T runs the NeRF on this core when OnCore:
-// 288 threads, a ring of kRenderStages slices and the tiles from the first
-// 1024-byte boundary of shared memory. Otherwise it keeps nerf_mlp.cuh's
-// cores: 256 threads and its tiles. bf16 is on the core in both kernels;
-// int8 in render_hier.cu only (Int8 = true), fp32 in neither.
+// A render kernel's element type T runs the NeRF on this core when OnCore.
+// bf16 is on the core in both kernels, int8 and fp32 in render_hier.cu only
+// (Hier = true). On the core: bf16 and int8 with 288 threads (two consumer
+// warpgroups), 128-row tiles and a ring of kRenderStages slices; fp32 with
+// 160 threads (one consumer warpgroup), 64-row tiles and a ring of
+// kStages32, its tiles from the first 1024-byte boundary of shared memory.
+// Otherwise T keeps nerf_mlp.cuh's cores: 256 threads and its tiles.
 constexpr int kRenderStages = 5;
-template <typename T, bool Int8 = false>
-constexpr bool kOnCore = std::is_same_v<T, bf16> || (Int8 && std::is_same_v<T, int8_t>);
-template <typename T, bool Int8 = false>
-constexpr int kBlockThreads = kOnCore<T, Int8> ? kThreads : nst::kThreads;
-template <typename T, bool Int8 = false>
-using RenderTiles = std::conditional_t<kOnCore<T, Int8>, Tiles<kRenderStages>, TilesT<T>>;
+template <typename T, bool Hier = false>
+constexpr bool kOnCore = std::is_same_v<T, bf16> || (Hier && (std::is_same_v<T, int8_t> || std::is_same_v<T, float>));
+template <typename T, bool Hier = false>
+constexpr bool kCore32 = kOnCore<T, Hier> && std::is_same_v<T, float>;
+// the threads that do the kernel's work (the consumers, on the core)
+template <typename T, bool Hier = false>
+constexpr int kWorkers = kCore32<T, Hier> ? kConsumers32 : kOnCore<T, Hier> ? kConsumers : nst::kThreads;
+template <typename T, bool Hier = false>
+constexpr int kBlockThreads = kCore32<T, Hier> ? kThreads32 : kOnCore<T, Hier> ? kThreads : nst::kThreads;
+template <typename T, bool Hier = false>
+constexpr int kTileRows = kCore32<T, Hier> ? kRows32 : kRows;
+template <typename T, bool Hier = false>
+using RenderTiles = std::conditional_t<kCore32<T, Hier>, Tiles32<kStages32>,
+                                       std::conditional_t<kOnCore<T, Hier>, Tiles<kRenderStages>, TilesT<T>>>;
 // the MLP's shared memory, ahead of the kernel's own planes
-template <typename T, bool Int8 = false>
+template <typename T, bool Hier = false>
 __host__ __device__ constexpr size_t mlp_bytes() {
-  if constexpr (kOnCore<T, Int8>) return 1024 + Tiles<kRenderStages>::kBytes;  // + the 1024-byte alignment
+  if constexpr (kCore32<T, Hier>) return 1024 + Tiles32<kStages32>::kBytes;  // + the 1024-byte alignment
+  else if constexpr (kOnCore<T, Hier>) return 1024 + Tiles<kRenderStages>::kBytes;
   else return tile_bytes<T>();
+}
+// The core's tiles from the first 1024-byte boundary of smem, the ring's
+// barriers initialized (by thread 0; the caller syncs the block)
+template <typename T, bool Hier = false>
+__device__ __forceinline__ RenderTiles<T, Hier> carve_render(unsigned char* smem) {
+  unsigned char* base = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+  RenderTiles<T, Hier> t;
+  if constexpr (kCore32<T, Hier>) {
+    t = carve32<kStages32>(base);
+    if (threadIdx.x == 0) t.ring.init(kConsumers32 / 32);
+  } else {
+    t = carve<kRenderStages>(base);
+    if (threadIdx.x == 0) t.ring.init();
+  }
+  return t;
 }
 
 }  // namespace wg

@@ -1,23 +1,22 @@
-// The NeRF MLP over a block's sample rows, shared by K2/K3/K8/K9 in fp32
-// and int8 (render_around_depth.cu), K7 in fp32 (render_hier.cu) and K4
-// (nerf_points.cu); the bf16 render kernels, K6/K7 in int8 and K5 run
-// mlp_wgmma.cuh's core instead, whose int8 epilogue calls quant_f32 and
-// requant_int below.
+// The NeRF MLP over a block's sample rows of K2/K3/K8/K9 in fp32 and int8
+// (render_around_depth.cu); the bf16 render kernels, K6/K7 in every type,
+// K4 and K5 run mlp_wgmma.cuh's core instead, which reads the weights
+// through NerfWeightsT and read_pack below, whose PE calls embed, whose
+// int8 epilogue calls quant_f32 and requant_int, and whose render kernels
+// sort with sort_rows.
 //
 // A block holds, in shared memory, the per-ray data of its R rays (o, d,
 // |d|, one spare float each, 8 floats a ray) and a plane of depths z[row]
 // whose ray is row / S. nerf_rows walks the rows in chunks of 64: the fp32
 // positional encoding of the chunk (accurate sinf/cosf: the argument
-// reaches 2^9*|x|, so __sinf is not acceptable) goes to a bf16 tile
-// [pts emb 63 | 0 | view emb 27 | 0 x5], the MLP runs layer by layer
-// between two bf16 activation tiles (mlp_tile.cuh::dense: wmma bf16, fp32
-// accumulation), and sigma and sigmoid(rgb) land in per-row fp32 planes
-// (mlp_chunk: one chunk, whatever filled its PE tile; K4 keeps the rgb
-// logits). sigma_only runs the trunk and the alpha head alone (JAX
-// heads="sigma"). The weights, the PE tile and the activations are all of
-// one element type T: bf16 as above, or fp32 for the COMPARE mode's
-// kernels (no rounding anywhere; mlp_tile.cuh's fp32 dense). fp32 tiles
-// are twice the bytes, so an fp32 kernel runs one block per SM.
+// reaches 2^9*|x|, so __sinf is not acceptable) goes to a PE tile [pts emb
+// 63 | 0 | view emb 27 | 0 x5], the MLP runs layer by layer between two
+// activation tiles, and sigma and sigmoid(rgb) land in per-row fp32
+// planes (mlp_chunk: one chunk, whatever filled its PE tile). sigma_only
+// runs the trunk and the alpha head alone (JAX heads="sigma"). In fp32 (the
+// COMPARE mode's K8/K9) the weights, the PE tile and the activations are
+// all fp32, with no rounding anywhere (mlp_tile.cuh's fp32 dense); fp32
+// tiles are large, so an fp32 kernel runs one block per SM.
 //
 // T = int8_t is the W8A8 MLP (K10, kernels/quant.py): NerfWeightsQ holds
 // an int8 pack (qpack_nerf) and its requant constants, the activation tiles
@@ -218,26 +217,22 @@ struct PeType<int8_t> {
 };
 
 // Shared memory of the MLP: two activation tiles, the PE tile and, for
-// bf16 and int8, the per-warp fp32 epilogue scratch of wmma. Every offset
-// is a multiple of 32 bytes (wmma).
+// int8, the per-warp fp32 epilogue scratch of wmma. Every offset is a
+// multiple of 32 bytes (wmma).
 template <typename T>
 __host__ __device__ constexpr size_t tile_bytes() {
-  return (2 * kChunk * kLdx + kChunk * kLdpe) * sizeof(T) +
-         (sizeof(T) == sizeof(bf16) ? kWarps * kScratchPerWarp * sizeof(float) : 0);
+  return (2 * kChunk * kLdx + kChunk * kLdpe) * sizeof(T);
 }
 template <>
 __host__ __device__ constexpr size_t tile_bytes<int8_t>() {
   return 2 * kChunk * kLdq + kChunk * kLdpe * sizeof(bf16) + kWarps * kScratchPerWarp * sizeof(float);
 }
-constexpr size_t kTileBytes = tile_bytes<bf16>();
 
 template <typename T>
 struct TilesT {
   T* x[2];
   T* pe;
-  float* scratch;  // bf16 only
 };
-using Tiles = TilesT<bf16>;
 
 template <>
 struct TilesT<int8_t> {
@@ -247,13 +242,12 @@ struct TilesT<int8_t> {
 };
 static_assert(kChunk * kLdv * sizeof(bf16) <= kChunk * kLdq, "the views output must fit an int8 tile");
 
-template <typename T = bf16>
+template <typename T>
 __device__ __forceinline__ TilesT<T> carve_tiles(unsigned char* smem) {
   TilesT<T> t;
   t.x[0] = reinterpret_cast<T*>(smem);
   t.x[1] = t.x[0] + kChunk * kLdx;
   t.pe = t.x[1] + kChunk * kLdx;
-  t.scratch = sizeof(T) == sizeof(bf16) ? reinterpret_cast<float*>(t.pe + kChunk * kLdpe) : nullptr;
   return t;
 }
 template <>
@@ -275,57 +269,52 @@ __device__ __forceinline__ float embed(const float* v, int col) {
   return k < 3 ? sinf(a) : cosf(a);
 }
 
-// The MLP over the 64 rows of one chunk whose PE tile t.pe is filled;
-// rows [0, valid) are written: sigma[r * stride] and, unless sigma_only,
-// rgb[ch][r * stride], the logits when raw_rgb, else sigmoid(logits).
-// Every thread of the block calls it; it ends on a barrier.
-template <typename T>
-__device__ __forceinline__ void mlp_chunk(const NerfWeightsT<T>& w, const TilesT<T>& t, int valid,
-                                          bool sigma_only, bool raw_rgb, float* sigma,
-                                          float* const* rgb, int stride) {
+// The fp32 MLP over the 64 rows of one chunk whose PE tile t.pe is
+// filled; rows [0, valid) are written: sigma[r] and, unless sigma_only,
+// sigmoid(rgb logits) to rgb[ch][r]. Every thread of the block calls it; it
+// ends on a barrier.
+__device__ __forceinline__ void mlp_chunk(const NerfWeightsT<float>& w, const TilesT<float>& t, int valid,
+                                          bool sigma_only, float* sigma, float* const* rgb) {
   const int tid = threadIdx.x;
-  const OperandT<T> op0 = {t.pe, kLdpe, w.w0, 64};
-  dense<kChunk / 16, kW / (16 * kWarps)>(&op0, 1, w.tb[0], t.x[0], kLdx, kRelu, t.scratch);
+  const OperandT<float> op0 = {t.pe, kLdpe, w.w0, 64};
+  dense<kChunk / 16, kW / (16 * kWarps)>(&op0, 1, w.tb[0], t.x[0], kLdx, kRelu, nullptr);
   __syncthreads();
   int cur = 0;
   for (int i = 1; i < w.D; ++i) {
-    const OperandT<T> ops[2] = {{t.x[cur], kLdx, w.tw[i], kW}, {t.pe, kLdpe, w.skip_w[i], 64}};
+    const OperandT<float> ops[2] = {{t.x[cur], kLdx, w.tw[i], kW}, {t.pe, kLdpe, w.skip_w[i], 64}};
     dense<kChunk / 16, kW / (16 * kWarps)>(ops, ((w.skip_mask >> i) & 1u) ? 2 : 1, w.tb[i],
-                                           t.x[cur ^ 1], kLdx, kRelu, t.scratch);
+                                           t.x[cur ^ 1], kLdx, kRelu, nullptr);
     __syncthreads();
     cur ^= 1;
   }
 
   {  // sigma = h @ alpha_w + alpha_b: four threads per row
     const int rr = tid >> 2, part = tid & 3;
-    const T* h = t.x[cur] + rr * kLdx;
+    const float* h = t.x[cur] + rr * kLdx;
     float s = 0.f;
     for (int c = part * (kW / 4); c < (part + 1) * (kW / 4); ++c) s += to_f(h[c]) * to_f(w.alpha_w[c]);
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (part == 0 && rr < valid) sigma[rr * stride] = s + w.alpha_b[0];
+    if (part == 0 && rr < valid) sigma[rr] = s + w.alpha_b[0];
   }
   if (sigma_only) {
     __syncthreads();  // the next chunk's first layer overwrites x[cur]
     return;
   }
-  const OperandT<T> opf = {t.x[cur], kLdx, w.feat_w, kW};
-  dense<kChunk / 16, kW / (16 * kWarps)>(&opf, 1, w.feat_b, t.x[cur ^ 1], kLdx, kNone, t.scratch);
+  const OperandT<float> opf = {t.x[cur], kLdx, w.feat_w, kW};
+  dense<kChunk / 16, kW / (16 * kWarps)>(&opf, 1, w.feat_b, t.x[cur ^ 1], kLdx, kNone, nullptr);
   __syncthreads();
-  const OperandT<T> opv[2] = {{t.x[cur ^ 1], kLdx, w.views_wf, kW},
-                              {t.pe + kPeViews, kLdpe, w.views_ws, 32}};
-  dense<kChunk / 16, kWv / (16 * kWarps)>(opv, 2, w.views_b, t.x[cur], kLdx, kRelu, t.scratch);
+  const OperandT<float> opv[2] = {{t.x[cur ^ 1], kLdx, w.views_wf, kW},
+                                  {t.pe + kPeViews, kLdpe, w.views_ws, 32}};
+  dense<kChunk / 16, kWv / (16 * kWarps)>(opv, 2, w.views_b, t.x[cur], kLdx, kRelu, nullptr);
   __syncthreads();
 
   for (int e = tid; e < kChunk * 3; e += kThreads) {
     const int rr = e / 3, ch = e % 3;
-    const T* hv = t.x[cur] + rr * kLdx;
+    const float* hv = t.x[cur] + rr * kLdx;
     float s = 0.f;
     for (int c = 0; c < kWv; ++c) s += to_f(hv[c]) * to_f(w.rgb_w[ch * kWv + c]);
-    if (rr < valid) {
-      const float logit = s + w.rgb_b[ch];
-      rgb[ch][rr * stride] = raw_rgb ? logit : 1.f / (1.f + expf(-logit));
-    }
+    if (rr < valid) rgb[ch][rr] = 1.f / (1.f + expf(-(s + w.rgb_b[ch])));
   }
   __syncthreads();
 }
@@ -350,8 +339,7 @@ __device__ __forceinline__ int requant_int(int a, int p, int q, int m, int lo) {
 // The int8 MLP (K10) over the 64 rows of one chunk whose (bf16) PE tile is
 // filled; the outputs and the barrier as the mlp_chunk above.
 __device__ __forceinline__ void mlp_chunk(const NerfWeightsQ& w, const TilesT<int8_t>& t, int valid,
-                                          bool sigma_only, bool raw_rgb, float* sigma, float* const* rgb,
-                                          int stride) {
+                                          bool sigma_only, float* sigma, float* const* rgb) {
   constexpr int MT = kChunk / 16, NT = kW / (16 * kWarps), NTv = kWv / (16 * kWarps);
   const int tid = threadIdx.x;
   {  // layer 0: bf16 PE @ w0 + b0, relu, fp32 -> int8
@@ -397,7 +385,7 @@ __device__ __forceinline__ void mlp_chunk(const NerfWeightsQ& w, const TilesT<in
     for (int c = part * (kW / 4); c < (part + 1) * (kW / 4); ++c) s += (float)h[c] * to_f(w.alpha_w[c]);
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (part == 0 && rr < valid) sigma[rr * stride] = s + w.alpha_b[0];
+    if (part == 0 && rr < valid) sigma[rr] = s + w.alpha_b[0];
   }
   if (sigma_only) {
     __syncthreads();  // the next chunk's first layer overwrites x[0]
@@ -429,10 +417,7 @@ __device__ __forceinline__ void mlp_chunk(const NerfWeightsQ& w, const TilesT<in
     const bf16* h = hv + rr * kLdv;
     float s = 0.f;
     for (int c = 0; c < kWv; ++c) s += to_f(h[c]) * to_f(w.rgb_w[ch * kWv + c]);
-    if (rr < valid) {
-      const float logit = s + w.rgb_b[ch];
-      rgb[ch][rr * stride] = raw_rgb ? logit : 1.f / (1.f + expf(-logit));
-    }
+    if (rr < valid) rgb[ch][rr] = 1.f / (1.f + expf(-(s + w.rgb_b[ch])));
   }
   __syncthreads();
 }
@@ -469,38 +454,8 @@ __device__ __forceinline__ void nerf_rows(const NerfWeightsT<T>& w, const TilesT
     float* rgb_c[3] = {nullptr, nullptr, nullptr};
     if (!sigma_only)
       for (int k = 0; k < 3; ++k) rgb_c[k] = rgb[k] + c0;
-    mlp_chunk(w, t, rows - c0, sigma_only, false, sigma + c0, rgb_c, 1);
+    mlp_chunk(w, t, rows - c0, sigma_only, sigma + c0, rgb_c);
   }
-}
-
-// The PE tile of one chunk of point queries: row r of the chunk is the
-// point pts[row0 + r] and the unit view direction dirs[(row0 + r) / S]
-// (given, not normalized here). q holds the chunk's inputs, 8 floats a row
-// (pts[3], dirs[3], 0, 0). Rows [valid, 64) are zero. Ends on a barrier.
-__device__ __forceinline__ void point_pe(const float* __restrict__ pts, const float* __restrict__ dirs,
-                                         long long row0, int valid, long long S, const Tiles& t,
-                                         float* q) {
-  const int tid = threadIdx.x;
-  for (int e = tid; e < kChunk * 8; e += kThreads) {
-    const int rr = e >> 3, c = e & 7;
-    float v = 0.f;
-    if (rr < valid && c < 6) {
-      const long long row = row0 + rr;
-      v = c < 3 ? pts[row * 3 + c] : dirs[(row / S) * 3 + (c - 3)];
-    }
-    q[e] = v;
-  }
-  __syncthreads();
-  for (int e = tid; e < kChunk * kPeCols; e += kThreads) {
-    const int rr = e / kPeCols, col = e % kPeCols;
-    float v = 0.f;
-    if (rr < valid) {
-      if (col < kPtsCh) v = embed(q + rr * 8, col);
-      else if (col >= kPeViews && col < kPeViews + kViewCh) v = embed(q + rr * 8 + 3, col - kPeViews);
-    }
-    t.pe[rr * kLdpe + col] = __float2bfloat16(v);
-  }
-  __syncthreads();
 }
 
 // a before b in the stable order: ascending, NaN last, ties by index
@@ -511,9 +466,10 @@ __device__ __forceinline__ bool sorts_before(float a, int i, float b, int j) {
 }
 
 // Stable sort of each of nr rays' S values src[r*S ..] into dst[r*S ..]:
-// every element finds its rank in its ray (S compares, all threads busy).
-__device__ __forceinline__ void sort_rows(const float* src, float* dst, int nr, int S) {
-  for (int e = threadIdx.x; e < nr * S; e += kThreads) {
+// every element finds its rank in its ray (S compares, all `threads`
+// threads busy).
+__device__ __forceinline__ void sort_rows(const float* src, float* dst, int nr, int S, int threads = kThreads) {
+  for (int e = threadIdx.x; e < nr * S; e += threads) {
     const int base = (e / S) * S, i = e - base;
     const float v = src[e];
     int rank = 0;

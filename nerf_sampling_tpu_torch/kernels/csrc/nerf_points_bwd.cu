@@ -22,7 +22,9 @@
 // deterministic (no float atomics: two launches give the same bits, and
 // want_dx does not change the weight grads):
 //   (a) nerf_bwd_rows_kernel, one block per 128-row tile, on the wgmma core
-//       (mlp_wgmma.cuh): recompute the forward from the forward slices,
+//       (mlp_wgmma.cuh): recompute the forward from the forward slices
+//       (the ones K4 ran the step's forward from; the backward's own
+//       follow them in the stream),
 //       writing the PE row and every bf16 activation to a device workspace
 //       (16-byte stores from the swizzled tile) and the trunk's ReLU masks
 //       (a bit per element, in the thread's own words); then the d_h chain
@@ -83,8 +85,9 @@ struct RowParams {
   unsigned* masks;    // [Mp / 128][D][4][256]: the trunk's ReLU masks, by thread
   long long M, S, Mp;
   NerfWeights w;
-  const bf16* slices;  // forward then backward slices of one tile
-  int n_slices;
+  const bf16* slices_f;  // the forward's slices, then
+  const bf16* slices_b;  // the backward's, for each tile
+  int n_slices_f, n_slices_b;
   Workspace ws;
 };
 
@@ -141,8 +144,8 @@ __global__ void __launch_bounds__(wg::kThreads, 1) nerf_bwd_rows_kernel(const __
   if (threadIdx.x == 0) t.ring.init();
   __syncthreads();
   if (threadIdx.x >= wg::kConsumers) {  // the producer warp
-    const wg::Segment seg = {p.slices, p.n_slices, 1};
-    wg::produce(t.ring, &seg, 1);
+    const wg::Segment segs[2] = {{p.slices_f, p.n_slices_f, 1}, {p.slices_b, p.n_slices_b, 1}};
+    wg::produce(t.ring, segs, 2);
     return;
   }
 
@@ -162,30 +165,11 @@ __global__ void __launch_bounds__(wg::kThreads, 1) nerf_bwd_rows_kernel(const __
   float accn[1][64];
 
   // ---- inputs and the PE tile
-  for (int e = tid; e < kTile * 8; e += wg::kConsumers) {
-    const int rr = e >> 3, c = e & 7;
-    float v = 0.f;
-    if (rr < valid && c < 6) {
-      const long long row = row0 + rr;
-      v = c < 3 ? p.pts[row * 3 + c] : p.dirs[(row / p.S) * 3 + (c - 3)];
-    }
-    q[e] = v;
-  }
   for (int e = tid; e < kTile * 4; e += wg::kConsumers)
     gt[e] = (e >> 2) < valid ? p.g[(row0 + (e >> 2)) * 4 + (e & 3)] : 0.f;
   if (p.dP)
     for (int e = tid; e < kTile * kPeCols; e += wg::kConsumers) p.dP[row0 * kPeCols + e] = 0.f;
-  wg::consumers_sync();
-  for (int e = tid; e < kTile * 128; e += wg::kConsumers) {
-    const int rr = e >> 7, col = e & 127;
-    float v = 0.f;
-    if (rr < valid) {
-      if (col < kPtsCh) v = embed(q + rr * 8, col);
-      else if (col >= kPeViews && col < kPeViews + kViewCh) v = embed(q + rr * 8 + 3, col - kPeViews);
-    }
-    *reinterpret_cast<bf16*>(t.pe + wg::tile_offset(rr, col)) = __float2bfloat16(v);
-  }
-  wg::fence_async_smem();
+  wg::point_pe(p.pts, p.dirs, row0, valid, p.S, q, t.pe);
   wg::consumers_sync();
   wg::copy_rows(t.pe, kPeCols, p.ws.pe, row0);
 
@@ -422,7 +406,8 @@ __global__ void reduce_kernel(const float* part, long long total, int n_slices, 
 // out[0] bf16 workspace elements, out[1] bias partials (fp32), out[2]
 // weight-grad partials (fp32) at slice_rows rows a slice, out[3] bias-grad
 // elements, out[4] ReLU-mask words (uint32), out[5] dL/dPE floats (want_dx),
-// out[6] the weight slices of one tile without and out[7] with want_dx.
+// out[6] the backward's weight slices of one tile without and out[7] with
+// want_dx, out[8] the forward's.
 // The weight-grad result has `total` elements, the sum over the jobs (see
 // nst_nerf_points_bwd).
 extern "C" int nst_nerf_points_bwd_sizes(long long M, int D, unsigned skip_mask, long long total, int slice_rows,
@@ -437,17 +422,19 @@ extern "C" int nst_nerf_points_bwd_sizes(long long M, int D, unsigned skip_mask,
   out[3] = bias_elems(D);
   out[4] = Mp / kTile * D * 4 * wg::kConsumers;
   out[5] = Mp * kPeCols;
-  out[6] = wg::forward_slices(D, skip_mask, false) + wg::backward_slices(D, skip_mask, false);
-  out[7] = wg::forward_slices(D, skip_mask, false) + wg::backward_slices(D, skip_mask, true);
+  out[6] = wg::backward_slices(D, skip_mask, false);
+  out[7] = wg::backward_slices(D, skip_mask, true);
+  out[8] = wg::forward_slices(D, skip_mask, false);
   return 0;
 }
 
 // ptrs, in order: pts, dirs, g, dx (or null: want_dx off), the bf16
 // workspace, the bias partials, the weight-grad partials, dw (fp32 [total]:
 // the matrix grads, bf16-rounded, in job order), db (fp32, bias_elems), the
-// ReLU masks, dL/dPE (or null with dx), the weight slices of one tile
-// (fused_render.wgmma_slices of wgmma_program(..., backward=True)); then
-// the NeRF's weights (nerf_mlp.cuh::read_weights, all heads: the biases and
+// ReLU masks, dL/dPE (or null with dx), the weight slices of one tile:
+// the forward's (fused_render.pack_slices, K4's) and the backward's (the
+// tail of fused_render.wgmma_program(..., backward=True) past the forward);
+// then the NeRF's weights (nerf_mlp.cuh::read_weights, all heads: the biases and
 // heads the epilogues read).
 // The jobs of dw, each [K, N] row-major: w0 [64, W], tw[i] [W, W] for
 // i = 1..D-1, skip_w[i] [64, W] for each skip layer, feature_w [W, W],
@@ -474,11 +461,14 @@ extern "C" int nst_nerf_points_bwd(const void* const* ptrs, int n_ptrs, long lon
   float* db = static_cast<float*>(const_cast<void*>(ptrs[8]));
   p.masks = static_cast<unsigned*>(const_cast<void*>(ptrs[9]));
   p.dP = static_cast<float*>(const_cast<void*>(ptrs[10]));
-  p.slices = static_cast<const bf16*>(ptrs[11]);
-  const int kw = read_weights(ptrs + 12, D, skip_mask, false, &p.w);
-  if (kw < 0 || 12 + kw != n_ptrs || (p.dx == nullptr) != (p.dP == nullptr) || !p.slices || !p.masks)
+  p.slices_f = static_cast<const bf16*>(ptrs[11]);
+  p.slices_b = static_cast<const bf16*>(ptrs[12]);
+  const int kw = read_weights(ptrs + 13, D, skip_mask, false, &p.w);
+  if (kw < 0 || 13 + kw != n_ptrs || (p.dx == nullptr) != (p.dP == nullptr) || !p.slices_f || !p.slices_b ||
+      !p.masks)
     return (int)cudaErrorInvalidValue;
-  p.n_slices = wg::forward_slices(D, skip_mask, false) + wg::backward_slices(D, skip_mask, p.dx != nullptr);
+  p.n_slices_f = wg::forward_slices(D, skip_mask, false);
+  p.n_slices_b = wg::backward_slices(D, skip_mask, p.dx != nullptr);
 
   const long long Mp = (M + kTile - 1) / kTile * kTile;
   p.M = M;

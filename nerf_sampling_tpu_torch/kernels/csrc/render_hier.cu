@@ -27,8 +27,8 @@
 // The draws t_rand (Nc) and u (Nf) of a ray are Philox uniforms keyed by
 // (seed, global ray index) (philox.cuh), or read from injected draws; det
 // mode draws nothing. Element type T: bf16 (K6, and K7 in FULL_NERF and
-// NERF_MAX), fp32 throughout (K7 in the COMPARE mode: the fp32 MLP of
-// nerf_mlp.cuh, one block per SM), or int8 (K6 and K7 under cuda_int8: the
+// NERF_MAX), fp32 throughout (K7 in the COMPARE mode: fp32 sums and
+// activations, the products as 3xTF32 on the tensor cores), or int8 (K6 and K7 under cuda_int8: the
 // W8A8 MLP of kernels/quant.py, K10; the coarse pass on the coarse NeRF's
 // int8 pack and plan, the fine pass on the fine NeRF's).
 //
@@ -39,22 +39,35 @@
 // multiply-adds run at the s8 rate (1,979 TOP/s), from half the slice bytes
 // (a sigma-only pass at D = 8 with one skip: 32 slices against bf16's 60),
 // and every element of a layer passes an integer requant in registers. In
-// fp32 the same products run on the FMA units (67 TFLOP/s), 46.5 TFLOP per
-// 400x400 frame at 64 + 128 samples: at least 0.7 s.
+// fp32 the frame is 46.5 TFLOP at 64 + 128 samples over 400x400 rays: 0.69
+// s on the FMA units (67 TFLOP/s), 0.28 s as 3xTF32 on the tensor cores
+// (three tf32 products at 494.7 TFLOP/s), from four times bf16's slice
+// bytes (hi and lo images of fp32 weights).
 //
 // Design: one block per R rays, R = min(rows / (Nc+Nf), 16), so the union
 // planes hold R*(Nc+Nf) <= rows rows. Six fp32 planes in shared memory:
 // U (unsorted union; coarse z first, in concat order), zs (coarse z, then
 // the sorted union), sg (coarse then fine sigma) and three planes that
 // hold the coarse weights, CDF and midpoints until the fine pass writes
-// rgb there. bf16 and int8 run the MLP on the wgmma core (mlp_wgmma.cuh;
-// int8 with s8 products and the integer requants in registers): 288
-// threads, the producer warp streaming both NeRFs' weight slices for the
-// whole block (coarse pass, then fine) while the two consumer warpgroups
-// run everything else; rows = 1536, so 8 rays a block at 64 + 128 samples
-// and the train step's 1024 rays fill 128 of the 132 SMs in one wave at
-// one block per SM. fp32 keeps nerf_mlp.cuh's core (256 threads, rows =
-// 1024, 64-row chunks).
+// rgb there. Every type runs the MLP on the wgmma core (mlp_wgmma.cuh),
+// a producer warp streaming both NeRFs' weight slices for the whole block
+// (coarse pass, then fine) while the consumers run everything else:
+//   bf16 and int8 (int8 with s8 products and the integer requants in
+//     registers): 288 threads, two consumer warpgroups on 128-row tiles;
+//     rows = 1536, so 8 rays a block at 64 + 128 samples and the train
+//     step's 1024 rays fill 128 of the 132 SMs in one wave at one block
+//     per SM;
+//   fp32 (K7 in COMPARE): 160 threads, one consumer warpgroup on 64-row
+//     tiles with 3xTF32 products, rows = 1024 (5 rays a block at 64 +
+//     128), one block per SM. The shape is forced by fp32's bytes and
+//     registers: 128 rows of fp32 activations and PE (176 KB) leave no room
+//     for a ring in 227 KB of shared memory, and two consumer warpgroups
+//     get 168 registers a thread, too few for 128 fp32 accumulators beside
+//     the split A fragments. So the activations stay with the thread that
+//     computed them (a thread-private store, the next layer's register A
+//     fragment through a host permutation of the weights' depth), 64 KB,
+//     the PE 24 KB and a 6-stage ring 96 KB (mlp_wgmma.cuh, the fp32
+//     path).
 
 #include <cuda_runtime.h>
 
@@ -67,17 +80,18 @@ namespace {
 
 constexpr int kMaxRays = 16;  // rays per block
 
-// the bf16 and int8 kernels run the wgmma core; fp32 keeps its core
-template <typename T>
-constexpr bool kOnCore = wg::kOnCore<T, true>;
+// every type runs the wgmma core: bf16 and int8 on two consumer warpgroups,
+// fp32 on one (mlp_wgmma.cuh)
 template <typename T>
 constexpr int kBlockThreads = wg::kBlockThreads<T, true>;
 template <typename T>
-using RenderTiles = wg::RenderTiles<T, true>;
+constexpr int kWorkers = wg::kWorkers<T, true>;  // the consumer threads
+template <typename T>
+constexpr int kTileRows = wg::kTileRows<T, true>;
 template <typename T>
 constexpr size_t kMlpBytes = wg::mlp_bytes<T, true>();
 template <typename T>
-constexpr int kMaxRows = kOnCore<T> ? 1536 : 1024;  // union rows per block
+constexpr int kMaxRows = std::is_same_v<T, float> ? 1024 : 1536;  // union rows per block
 
 template <typename T>
 struct HierParams {
@@ -91,8 +105,8 @@ struct HierParams {
   int lindisp, white_bkgd, det;
   unsigned seed;
   NerfWeightsT<T> wc, wf;
-  const bf16* slices_c;  // on the core: the coarse net's forward slices (sigma_only), then the fine net's
-  const bf16* slices_f;  // (int8: wgmma_qslices' images of bf16 and int8 slices)
+  const bf16* slices_c;  // the coarse net's forward slices (sigma_only), then the fine net's
+  const bf16* slices_f;  // (int8: wgmma_qslices' images of bf16 and int8 slices; fp32: wgmma_slices32's)
   int n_slices_c, n_slices_f;
 };
 
@@ -129,39 +143,29 @@ __global__ void __launch_bounds__(kBlockThreads<T>, 1)
   const long long ray0 = (long long)blockIdx.x * p.R;
   const int nr = (int)min((long long)p.R, p.n - ray0);
 
-  RenderTiles<T> t;
+  const wg::RenderTiles<T, true> t = wg::carve_render<T, true>(smem);
   wg::Cursor cur;
-  if constexpr (kOnCore<T>) {
-    t = wg::carve<wg::kRenderStages>(smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023));
-    if (threadIdx.x == 0) t.ring.init();
-    __syncthreads();
-    if (threadIdx.x >= wg::kConsumers) {  // the producer: both passes' slices, tile by tile
-      const wg::Segment segs[2] = {{p.slices_c, p.n_slices_c, (nr * p.Nc + wg::kRows - 1) / wg::kRows},
-                                   {p.slices_f, p.n_slices_f, (nr * (p.Nc + p.Nf) + wg::kRows - 1) / wg::kRows}};
-      wg::produce(t.ring, segs, 2);
-      return;
-    }
-  } else {
-    t = carve_tiles<T>(smem);
+  __syncthreads();
+  if ((int)threadIdx.x >= kWorkers<T>) {  // the producer: both passes' slices, tile by tile
+    const wg::Segment segs[2] = {{p.slices_c, p.n_slices_c, (nr * p.Nc + kTileRows<T> - 1) / kTileRows<T>},
+                                 {p.slices_f, p.n_slices_f, (nr * (p.Nc + p.Nf) + kTileRows<T> - 1) / kTileRows<T>}};
+    wg::produce(t.ring, segs, 2, kWorkers<T>);
+    return;
   }
-  // the consumers' barrier: threads 0-255 (the producer warp never joins)
+  // the consumers' barrier (the producer warp never joins)
   auto sync = [] {
-    if constexpr (kOnCore<T>) wg::consumers_sync();
-    else __syncthreads();
+    if constexpr (std::is_same_v<T, float>) wg::group_sync();
+    else wg::consumers_sync();
   };
   auto mlp = [&](const NerfWeightsT<T>& w, int rows, int S, bool sigma_only) {
-    if constexpr (kOnCore<T>) {
-      wg::nerf_rows(w, t, cur, ray, zs, rows, S, sigma_only, sg, plane);
-      sync();
-    } else {
-      nerf_rows(w, t, ray, zs, rows, S, sigma_only, sg, plane);
-    }
+    wg::nerf_rows(w, t, cur, ray, zs, rows, S, sigma_only, sg, plane);
+    sync();
   };
 
   const int tid = threadIdx.x;
   const int Nc = p.Nc, Nf = p.Nf, Su = Nc + Nf, B = Nc - 1;
 
-  for (int r = tid; r < nr; r += kThreads) {
+  for (int r = tid; r < nr; r += kWorkers<T>) {
     float* q = ray + 8 * r;
     for (int c = 0; c < 3; ++c) {
       q[c] = p.rays_o[(ray0 + r) * 3 + c];
@@ -172,7 +176,7 @@ __global__ void __launch_bounds__(kBlockThreads<T>, 1)
   }
   // 1. jittered coarse z: contiguous in zs for the coarse pass, and the
   // first Nc entries of each ray's union in U
-  for (int e = tid; e < nr * Nc; e += kThreads) {
+  for (int e = tid; e < nr * Nc; e += kWorkers<T>) {
     const int r = e / Nc, s = e - r * Nc;
     const float zc = grid_z(p, s);
     const float lower = s == 0 ? zc : 0.5f * (zc + grid_z(p, s - 1));
@@ -186,7 +190,7 @@ __global__ void __launch_bounds__(kBlockThreads<T>, 1)
 
   // 2. coarse sigma, then the coarse weights, CDF and midpoints per ray
   mlp(p.wc, nr * Nc, Nc, true);
-  for (int r = tid; r < nr; r += kThreads) {
+  for (int r = tid; r < nr; r += kWorkers<T>) {
     const float dn = ray[8 * r + 6];
     const float* z = zs + r * Nc;
     float T_ = 1.f;
@@ -210,7 +214,7 @@ __global__ void __launch_bounds__(kBlockThreads<T>, 1)
   sync();
 
   // 3. fine z by inverse CDF, after the coarse z of each ray's union
-  for (int e = tid; e < nr * Nf; e += kThreads) {
+  for (int e = tid; e < nr * Nf; e += kWorkers<T>) {
     const int r = e / Nf, j = e - r * Nf;
     const float u = !p.det ? draw(p, ray0 + r, Nc + j)
                     : (j == Nf - 1 ? 1.f : (float)j * (1.f / (float)(Nf - 1)));
@@ -231,12 +235,12 @@ __global__ void __launch_bounds__(kBlockThreads<T>, 1)
   sync();
 
   // 4. the union, sorted stably per ray (coarse first on ties)
-  sort_rows(U, zs, nr, Su);
+  sort_rows(U, zs, nr, Su, kWorkers<T>);
   sync();
 
   // 5. the fine NeRF over the union, then compositing and the argmax
   mlp(p.wf, nr * Su, Su, false);
-  for (int r = tid; r < nr; r += kThreads) {
+  for (int r = tid; r < nr; r += kWorkers<T>) {
     const float dn = ray[8 * r + 6];
     float T_ = 1.f, acc = 0.f, dep = 0.f, c[3] = {0.f, 0.f, 0.f};
     float best_w = 0.f;
@@ -278,10 +282,10 @@ constexpr int rays_per_block(int Su) {
 
 // ptrs, in order: rays_o, rays_d, draws (or null), out; the coarse NeRF's
 // trunk and alpha head; the fine NeRF's weights (nerf_mlp.cuh::read_pack,
-// with the int8 plans plan_c and plan_f, null for bf16 and fp32); for bf16
-// and int8 then the coarse and the fine net's weight slices
-// (mlp_wgmma.cuh: forward_slices, or forward_qslices in int8). A launch on
-// the core without them is refused.
+// with the int8 plans plan_c and plan_f, null for bf16 and fp32); then the
+// coarse and the fine net's weight slices (mlp_wgmma.cuh: forward_slices,
+// forward_qslices in int8, forward_slices32 in fp32). A launch without them
+// is refused.
 template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int Dc, unsigned skip_c,
            int Df, unsigned skip_f, float near_, float far_, int lindisp, int white_bkgd, unsigned seed,
@@ -297,16 +301,17 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int
   const int kf = read_pack(ptrs + 4 + kc, Df, skip_f, false, plan_f, &p.wf);
   if (kf < 0) return (int)cudaErrorInvalidValue;
   int k = 4 + kc + kf;
-  if constexpr (kOnCore<T>) {
-    if (n_ptrs < k + 2) return (int)cudaErrorInvalidValue;
-    p.slices_c = static_cast<const bf16*>(ptrs[k++]);
-    p.slices_f = static_cast<const bf16*>(ptrs[k++]);
-    constexpr bool q = std::is_same_v<T, int8_t>;
-    p.n_slices_c = q ? wg::forward_qslices(Dc, skip_c, true) : wg::forward_slices(Dc, skip_c, true);
-    p.n_slices_f = q ? wg::forward_qslices(Df, skip_f, false) : wg::forward_slices(Df, skip_f, false);
-    if (!p.slices_c || !p.slices_f) return (int)cudaErrorInvalidValue;
-  }
-  if (n_ptrs != k) return (int)cudaErrorInvalidValue;
+  if (n_ptrs != k + 2) return (int)cudaErrorInvalidValue;
+  p.slices_c = static_cast<const bf16*>(ptrs[k++]);
+  p.slices_f = static_cast<const bf16*>(ptrs[k++]);
+  if (!p.slices_c || !p.slices_f) return (int)cudaErrorInvalidValue;
+  auto count = [](int D, unsigned skip, bool sigma_only) {
+    if constexpr (std::is_same_v<T, int8_t>) return wg::forward_qslices(D, skip, sigma_only);
+    else if constexpr (std::is_same_v<T, float>) return wg::forward_slices32(D, skip, sigma_only);
+    else return wg::forward_slices(D, skip, sigma_only);
+  };
+  p.n_slices_c = count(Dc, skip_c, true);
+  p.n_slices_f = count(Df, skip_f, false);
   p.n = n;
   p.Nc = Nc;
   p.Nf = Nf;
@@ -346,7 +351,8 @@ int occupancy(int Nc, int Nf, int* out) {
 }  // namespace
 }  // namespace nst
 
-// det: no draws (K7). fp32: the weights of pack_hier(..., torch.float32).
+// det: no draws (K7). fp32: the weights of pack_hier(..., torch.float32)
+// and their wgmma_slices32.
 // plan_c, plan_f: both int8 packs' constants (kernels/quant.py::quant_plan,
 // host arrays read at launch) for the int8 kernel, or both null. Returns a
 // cudaError_t (0 on success).
@@ -365,8 +371,10 @@ extern "C" int nst_render_hier(const void* const* ptrs, int n_ptrs, long long n,
                                 white_bkgd, seed, det, nullptr, nullptr, stream);
 }
 
-// K6's launch shape at Nc + Nf samples, bf16 or (int8 != 0) int8: resident
-// blocks per SM, rays per block, threads per block and dynamic shared memory.
-extern "C" int nst_render_hier_occupancy(int Nc, int Nf, int int8, int* out) {
-  return int8 ? nst::occupancy<int8_t>(Nc, Nf, out) : nst::occupancy<nst::bf16>(Nc, Nf, out);
+// The kernel's launch shape at Nc + Nf samples, kind 0 bf16 (K6, K7), 1
+// int8, 2 fp32 (K7 in COMPARE): resident blocks per SM, rays per block,
+// threads per block and dynamic shared memory.
+extern "C" int nst_render_hier_occupancy(int Nc, int Nf, int kind, int* out) {
+  if (kind == 2) return nst::occupancy<float>(Nc, Nf, out);
+  return kind == 1 ? nst::occupancy<int8_t>(Nc, Nf, out) : nst::occupancy<nst::bf16>(Nc, Nf, out);
 }

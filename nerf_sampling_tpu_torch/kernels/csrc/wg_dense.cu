@@ -1,12 +1,14 @@
 // One dense layer on the wgmma core (mlp_wgmma.cuh), for the [core] check
 // of chip_smoke.py: out = act(a @ w + a2 @ w2 + bias) in bf16, with fp32
 // accumulation, over M rows in 128-row tiles (the rows past M are zero);
-// and its s8 mode, out = a @ wq^T as int32 sums of int8 operands (the int8
-// NeRF's products, K10). It exercises the pieces the NeRF kernels build on,
-// at a size the check can hold against a matmul: the swizzled activation
-// tiles (bf16 and int8), the ring of bulk-copied weight slices, both
-// consumer warpgroups, a second operand accumulated into the same sums,
-// and the register epilogue.
+// its s8 mode, out = a @ wq^T as int32 sums of int8 operands (the int8
+// NeRF's products, K10); and its fp32 mode, out = act(a @ w + bias) in fp32
+// with 3xTF32 products (K7 in fp32) over 64-row tiles. It exercises the
+// pieces the NeRF kernels build on, at a size the check can hold against a
+// matmul: the swizzled activation tiles (bf16 and int8), the fp32 path's
+// thread-private A fragments and permuted hi/lo slices, the ring of
+// bulk-copied weight slices, the consumer warpgroups, a second operand
+// accumulated into the same sums, and the register epilogue.
 
 #include <cuda_runtime.h>
 
@@ -129,6 +131,56 @@ __global__ void __launch_bounds__(wg::kThreads, 1) wg_dense_q_kernel(const __gri
   else dense_tile_q<1>(p, op, ring, row0);
 }
 
+struct Dense32Params {
+  const float* a;      // [M, K]
+  const bf16* slices;  // w's hi and lo slices (fused_render.wgmma_slices32)
+  const float* bias;   // [N]
+  float* out;          // [M, N]
+  long long M;
+  int K, N, act, n_slices;
+};
+
+constexpr size_t kDense32Smem = 1024 + wg::Tiles32<wg::kStages32>::kBytes;
+
+template <int NH>
+__device__ void dense_tile32(const Dense32Params& p, const wg::Tiles32<wg::kStages32>& t, long long row0) {
+  wg::Cursor cur;
+  float acc[NH][64];
+  const wg::Src32 op = {t.x, p.K / 8};
+  wg::gemm_tf32(acc, &op, 1, t.ring, cur);
+  wg::bias_act32(acc, p.bias, p.act);
+  wg::for_pairs<NH>([&](int r, int col, int h, int i) {
+    if (row0 + r < p.M) *reinterpret_cast<float2*>(p.out + (row0 + r) * p.N + col) = make_float2(acc[h][i], acc[h][i + 1]);
+  });
+}
+
+__global__ void __launch_bounds__(wg::kThreads32, 1) wg_dense32_kernel(const __grid_constant__ Dense32Params p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  const wg::Tiles32<wg::kStages32> t = wg::carve32<wg::kStages32>(base);
+  if (threadIdx.x == 0) t.ring.init(wg::kConsumers32 / 32);
+  __syncthreads();
+  if (threadIdx.x >= wg::kConsumers32) {  // the producer warp
+    const wg::Segment seg = {p.slices, p.n_slices, 1};
+    wg::produce(t.ring, &seg, 1, wg::kConsumers32);
+    return;
+  }
+  // the thread's A values, read from the rows it holds into its store
+  const long long row0 = (long long)blockIdx.x * wg::kRows32;
+  const int lane = threadIdx.x & 31, c = 2 * (lane & 3);
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  for (int g = 0; g < p.K / 8; ++g) {
+    float e[4];
+    for (int k = 0; k < 4; ++k) {
+      const long long row = row0 + r0 + 8 * (k >> 1);
+      e[k] = row < p.M ? p.a[row * p.K + 8 * g + c + (k & 1)] : 0.f;
+    }
+    t.x[g * wg::kConsumers32 + threadIdx.x] = make_float4(e[0], e[1], e[2], e[3]);
+  }
+  if (p.N == 256) dense_tile32<2>(p, t, row0);
+  else dense_tile32<1>(p, t, row0);
+}
+
 }  // namespace
 }  // namespace nst
 
@@ -180,6 +232,34 @@ extern "C" int nst_wg_dense_q(const void* const* ptrs, int n_ptrs, long long M, 
   if (err != cudaSuccess) return (int)err;
   if (M == 0) return 0;
   wg_dense_q_kernel<<<(unsigned)((M + wg::kRows - 1) / wg::kRows), wg::kThreads, kDenseSmem,
+                      static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The fp32 mode. ptrs: a [M, K] fp32, w's hi and lo slices
+// (fused_render.wgmma_slices32 of w [K, N]), bias [N], out [M, N] fp32:
+// act(a @ w + bias) with 3xTF32 products and fp32 sums. K in {32, 64, ...,
+// 256}, N in {128, 256}. Returns a cudaError_t.
+extern "C" int nst_wg_dense32(const void* const* ptrs, int n_ptrs, long long M, int K, int N, int act,
+                              void* stream) {
+  using namespace nst;
+  if (n_ptrs != 4 || K < 32 || K > 256 || K % 32 || (N != 128 && N != 256) || act < 0 || act > 2)
+    return (int)cudaErrorInvalidValue;
+  Dense32Params p = {};
+  p.a = static_cast<const float*>(ptrs[0]);
+  p.slices = static_cast<const bf16*>(ptrs[1]);
+  p.bias = static_cast<const float*>(ptrs[2]);
+  p.out = static_cast<float*>(const_cast<void*>(ptrs[3]));
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.act = act;
+  p.n_slices = 2 * (K / 32) * (N / 128);
+  cudaError_t err = cudaFuncSetAttribute(wg_dense32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kDense32Smem);
+  if (err != cudaSuccess) return (int)err;
+  if (M == 0) return 0;
+  wg_dense32_kernel<<<(unsigned)((M + wg::kRows32 - 1) / wg::kRows32), wg::kThreads32, kDense32Smem,
                       static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -26,12 +26,13 @@ against the Pallas kernel. K7 also runs fp32 (the COMPARE mode's kernels,
 K10) with ``qpack_hier``'s packs: the coarse sigma-only pass on the coarse
 NeRF's int8 pack under its calib, the fine pass on the fine NeRF's under
 its own (JAX ``fused_hier.py:136-139``); the plain version then runs
-``quant.mlp_plain_q``. In bf16 and in int8 the kernel's MLP is the wgmma
-core (``csrc/mlp_wgmma.cuh``; int8 with s8 products), fed each net's
-weight slices (``fused_render.pack_slices``: sigma-only for the coarse
-net, the full forward for the fine one; an int8 pack's are
-``wgmma_qslices``' images), made once per pack and kept in it. A launch
-on the core without them is refused; only fp32 takes none.
+``quant.mlp_plain_q``. In every type the kernel's MLP is the wgmma core
+(``csrc/mlp_wgmma.cuh``; int8 with s8 products, fp32 with 3xTF32 products
+on one consumer warpgroup), fed each net's weight slices
+(``fused_render.pack_slices``: sigma-only for the coarse net, the full
+forward for the fine one; an int8 pack's are ``wgmma_qslices``' images, an
+fp32 pack's ``wgmma_slices32``' hi and lo images), made once per pack and
+kept in it. A launch without them is refused.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from nerf_sampling_tpu_torch.kernels.fused_render import (
     _check_rays,
     _flat_weights,
     _plan,
+    check_slices,
     dtype_name,
     nerf_raw_plain,
     pack_nerf,
@@ -202,7 +204,9 @@ def render_hier_kernel(
     _check_cuda(cfg_c, multires, multires_views, inputs, w_c)
     _check_cuda(cfg_f, multires, multires_views, inputs, w_f)
     plan_c, plan_f = _plan(packed["coarse"], cfg_c), _plan(packed["fine"], cfg_f)
-    slices = [] if fp32 else [pack_slices(packed["coarse"], True), pack_slices(packed["fine"], False)]
+    slices = [pack_slices(packed["coarse"], True), pack_slices(packed["fine"], False)]
+    check_slices(slices[0], packed["coarse"], True)
+    check_slices(slices[1], packed["fine"], False)
     lib = build.load_library()
     out = torch.empty((11, n), dtype=torch.float32, device=rays_o.device)
     arr, count = build.pointer_array([rays_o, rays_d, draws, out] + w_c + w_f + slices)
@@ -232,12 +236,16 @@ def render_hier_kernel(
     }
 
 
-def kernel_occupancy(n_coarse: int = 64, n_importance: int = 128, int8: bool = False) -> dict[str, int]:
-    """K6's launch shape (bf16, or the int8 kernel with ``int8``) at
-    ``n_coarse + n_importance`` samples: resident blocks per SM, rays per
-    block, threads per block, dynamic shared memory (bytes), and the card's
-    SM count (for the wave count)."""
-    return build.occupancy("nst_render_hier_occupancy", n_coarse, n_importance, int(bool(int8)))
+def kernel_occupancy(n_coarse: int = 64, n_importance: int = 128, int8: bool = False,
+                     fp32: bool = False) -> dict[str, int]:
+    """The launch shape of K6/K7 in bf16, of the int8 kernel with ``int8``
+    or of the fp32 one (K7 in COMPARE) with ``fp32``, at ``n_coarse +
+    n_importance`` samples: resident blocks per SM, rays per block, threads
+    per block, dynamic shared memory (bytes), and the card's SM count (for
+    the wave count)."""
+    if int8 and fp32:
+        raise ValueError("one kernel: int8 or fp32")
+    return build.occupancy("nst_render_hier_occupancy", n_coarse, n_importance, 1 if int8 else 2 if fp32 else 0)
 
 
 def fused_render_hier(

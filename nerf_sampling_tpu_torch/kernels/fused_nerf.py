@@ -5,8 +5,14 @@ Replaces nerf_sampling_tpu/kernels/fused_nerf.py::_fused_call
 for each row, the fp32 positional encoding of a point and of its unit view
 direction, rounded to bf16, then the viewdirs NeRF MLP (bf16 operands and
 activations, fp32 sums), returning the raw logits [M, 4] (rgb, sigma) with
-no sigmoid. The kernel source is ``csrc/nerf_points.cu``; the weights are
-``fused_render.pack_nerf``'s layout, shared with K2, K3, K6 and K7.
+no sigmoid. The kernel source is ``csrc/nerf_points.cu``, on the wgmma core
+(``csrc/mlp_wgmma.cuh``); the weights are ``fused_render.pack_nerf``'s
+layout, shared with K2, K3, K6 and K7, and their full-forward slices
+(``fused_render.pack_slices``), which the caller makes once per set of
+weights and hands to every launch (the train step's Function hands K5 the
+same ones); a launch without them is refused. A block walks
+``tiles_per_block`` 128-row tiles, sized from the rows and the card's SM
+count so that both of a step's queries fill the card.
 
 View directions are per row ([M, 3]) or per ray ([M / S, 3], row r's
 direction being dirs[r // S]): the train step's queries pass one direction
@@ -23,10 +29,20 @@ import torch
 
 from nerf_sampling_tpu_torch.core.encoding import positional_encoding
 from nerf_sampling_tpu_torch.kernels import build
-from nerf_sampling_tpu_torch.kernels.fused_render import _check_cuda, _flat_weights, mlp_plain
+from nerf_sampling_tpu_torch.kernels.fused_render import _check_cuda, _flat_weights, check_slices, mlp_plain
 from nerf_sampling_tpu_torch.models.nerf import NeRFConfig
 
 launches = 0  # kernel launches since the last reset (see chip_smoke.py)
+TILE_ROWS = 128  # rows of a tile of the wgmma core
+
+
+def tiles_per_block(m: int, sms: int) -> int:
+    """The 128-row tiles one K4 block walks for m rows on a card of ``sms``
+    SMs: the fewest that keep the grid within one wave at one block per SM
+    (4 for the coarse query's 65,536 rows and 12 for the fine query's
+    196,608 on 132 SMs: 128 blocks each)."""
+    tiles = -(-m // TILE_ROWS)
+    return max(1, -(-tiles // sms))
 
 
 def _rows_per_dir(pts: torch.Tensor, dirs: torch.Tensor) -> int:
@@ -80,13 +96,17 @@ def nerf_points_kernel(
     pts: torch.Tensor,
     viewdirs: torch.Tensor,
     *,
+    slices: torch.Tensor | None = None,
     multires: int = 10,
     multires_views: int = 4,
 ) -> torch.Tensor:
     """K4: raw [M, 4] of points [M, 3] with view directions [M / S, 3].
 
     On a CPU tensor this runs ``nerf_points_plain`` at bf16; on a CUDA
-    tensor it launches the kernel, or raises on what it does not take.
+    tensor it launches the kernel with the pack's full-forward ``slices``
+    (``fused_render.pack_slices(packed)``), or raises on what it does not
+    take, a launch without the slices included. A block walks
+    ``tiles_per_block`` of M and the card's SM count 128-row tiles.
     """
     global launches
     S = _rows_per_dir(pts, viewdirs)
@@ -95,15 +115,30 @@ def nerf_points_kernel(
         return nerf_points_plain(packed, cfg, pts, viewdirs, multires=multires,
                                  multires_views=multires_views, dtype=torch.bfloat16)
     _check_cuda(cfg, multires, multires_views, (pts, viewdirs), weights)
+    check_slices(slices, packed)
     m = pts.shape[0]
     lib = build.load_library()
     out = torch.empty((m, 4), dtype=torch.float32, device=pts.device)
-    arr, count = build.pointer_array([pts, viewdirs, out] + weights)
+    arr, count = build.pointer_array([pts, viewdirs, out] + weights + [slices])
     rc = lib.nst_nerf_points(arr, count, m, S, cfg.D, sum(1 << i for i in packed["skip_w"]),
-                             build.current_stream(pts.device))
+                             tiles_per_block(m, build.sm_count(pts.device)), build.current_stream(pts.device))
     build.check(rc, "nerf_points_kernel")
     launches += 1
     return out
+
+
+def kernel_occupancy(m: int) -> dict[str, int]:
+    """K4's launch shape for m rows: resident blocks per SM, threads per
+    block, dynamic shared memory (bytes), tiles per block, blocks, and the
+    card's SM count."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    build.check(build.load_library().nst_nerf_points_occupancy(out), "nst_nerf_points_occupancy")
+    sms = build.sm_count(torch.device("cuda", torch.cuda.current_device()))
+    tpb = tiles_per_block(m, sms)
+    return {"blocks_per_sm": out[0], "threads": out[1], "smem_bytes": out[2], "tiles_per_block": tpb,
+            "blocks": -(-(-(-m // TILE_ROWS)) // tpb), "sms": sms}
 
 
 def flat_queries(pts: torch.Tensor, viewdirs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

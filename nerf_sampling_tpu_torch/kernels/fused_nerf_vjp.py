@@ -16,14 +16,17 @@ dL/d(points, view directions) through the fp32 positional encoding:
 
 The kernel's sums are deterministic (two launches give the same bits, and
 ``want_dx`` does not change the weight grads). Its row pass runs on the
-wgmma core (``csrc/mlp_wgmma.cuh``), fed the pack's forward and backward
-weight slices (``fused_render.wgmma_slices``), made on every call since
-the weights change every step. ``nerf_points_bwd_plain`` is the same
+wgmma core (``csrc/mlp_wgmma.cuh``), fed the pack's forward slices (the
+ones K4 ran the forward from: ``fused_render.pack_slices``) and its
+backward slices (``fused_render.wgmma_slices`` of the backward part of
+``wgmma_program``), made on every step since the weights change every
+step. ``nerf_points_bwd_plain`` is the same
 backward written out in plain PyTorch, rounding where the kernel rounds
 (autograd of the bf16 forward would round elsewhere).
 
 ``fused_nerf_train_apply`` is a ``torch.autograd.Function``: K4 forward,
-K5 backward, the module's live weights packed on every call, and the
+K5 backward, the module's live weights packed on every call and their
+forward slices made once, in the forward, for both kernels; the
 packed-layout grads mapped back onto the module's parameters.
 """
 
@@ -45,8 +48,10 @@ from nerf_sampling_tpu_torch.kernels.fused_render import (
     VIEW_ROWS,
     _check_cuda,
     _flat_weights,
+    check_slices,
     mlp_plain,
     pack_nerf,
+    pack_slices,
     wgmma_program,
     wgmma_slices,
 )
@@ -191,6 +196,7 @@ def nerf_points_bwd_kernel(
     g: torch.Tensor,
     *,
     want_dx: bool,
+    fwd_slices: torch.Tensor | None = None,
     multires: int = 10,
     multires_views: int = 4,
     events: list | None = None,
@@ -200,6 +206,8 @@ def nerf_points_bwd_kernel(
     On a CPU tensor this runs ``nerf_points_bwd_plain`` at bf16; on a CUDA
     tensor it launches the kernel's three passes (the row pass, the
     weight-grad GEMMs, the reductions), or raises on what it does not take.
+    ``fwd_slices`` are the pack's forward slices that K4 ran from (made here
+    with ``pack_slices`` when None); the backward's are made here.
     ``events``, a list, receives four recorded CUDA events: before each
     pass and after the last (the per-pass times of chip_smoke.py).
     """
@@ -217,11 +225,15 @@ def nerf_points_bwd_kernel(
     skip_mask = sum(1 << i for i in packed["skip_w"])
     total = sum(K * N for _, _, K, N in grad_jobs(packed))
     lib = build.load_library()
-    sizes = (ctypes.c_longlong * 8)()
+    sizes = (ctypes.c_longlong * 9)()
     build.check(lib.nst_nerf_points_bwd_sizes(m, cfg.D, skip_mask, total, SLICE_ROWS, sizes),
                 "nst_nerf_points_bwd_sizes")
-    slices = wgmma_slices(wgmma_program(packed, backward=True, want_dx=want_dx))
-    if slices.shape[0] != sizes[7 if want_dx else 6]:
+    if fwd_slices is None:
+        fwd_slices = pack_slices(packed)
+    check_slices(fwd_slices, packed)
+    program = wgmma_program(packed, backward=True, want_dx=want_dx)
+    bwd_slices = wgmma_slices(program[len(wgmma_program(packed)):])
+    if fwd_slices.shape[0] != sizes[8] or bwd_slices.shape[0] != sizes[7 if want_dx else 6]:
         raise ValueError("the weight slices do not match the kernel's program")
     ws = torch.empty(sizes[0], dtype=torch.bfloat16, device=dev)
     bias_part = torch.empty(sizes[1], dtype=torch.float32, device=dev)
@@ -231,8 +243,8 @@ def nerf_points_bwd_kernel(
     masks = torch.empty(sizes[4], dtype=torch.int32, device=dev)
     dP = torch.empty(sizes[5], dtype=torch.float32, device=dev) if want_dx else None
     dx = torch.empty((m, 6), dtype=torch.float32, device=dev) if want_dx else None
-    arr, count = build.pointer_array([pts, viewdirs, g, dx, ws, bias_part, wpart, dw, db, masks, dP, slices]
-                                     + weights)
+    arr, count = build.pointer_array([pts, viewdirs, g, dx, ws, bias_part, wpart, dw, db, masks, dP, fwd_slices,
+                                      bwd_slices] + weights)
     stream = build.current_stream(dev)
     for k in range(3):  # the row pass, the weight-grad GEMMs, the reductions
         if events is not None:
@@ -286,10 +298,12 @@ class _FusedNeRF(torch.autograd.Function):
     @staticmethod
     def forward(ctx, model, multires, multires_views, input_grads, pts, dirs, *params):
         packed = pack_nerf(model, torch.bfloat16)  # the live weights: they change every step
-        ctx.model, ctx.packed, ctx.kw = model, packed, dict(multires=multires, multires_views=multires_views)
+        slices = pack_slices(packed)  # their forward slices, once: K4 runs from them and K5 recomputes from them
+        ctx.model, ctx.packed, ctx.slices = model, packed, slices
+        ctx.kw = dict(multires=multires, multires_views=multires_views)
         ctx.input_grads = input_grads
         ctx.save_for_backward(pts, dirs)
-        return nerf_points_kernel(packed, model.cfg, pts, dirs, **ctx.kw)
+        return nerf_points_kernel(packed, model.cfg, pts, dirs, slices=slices, **ctx.kw)
 
     @staticmethod
     def backward(ctx, g):
@@ -297,7 +311,7 @@ class _FusedNeRF(torch.autograd.Function):
         need_dx = ctx.needs_input_grad[4] or ctx.needs_input_grad[5]
         want_dx = ctx.input_grads and need_dx
         d, dpts, ddirs = nerf_points_bwd_kernel(ctx.packed, ctx.model.cfg, pts, dirs, g.contiguous(),
-                                                want_dx=want_dx, **ctx.kw)
+                                                want_dx=want_dx, fwd_slices=ctx.slices, **ctx.kw)
         if need_dx and not want_dx:  # input_grads=False: zero input cotangents, as JAX
             dpts, ddirs = torch.zeros_like(pts), torch.zeros_like(dirs)
         return (None, None, None, None, dpts, ddirs, *grads_to_params(ctx.model, d))

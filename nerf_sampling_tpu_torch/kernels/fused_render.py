@@ -31,16 +31,19 @@ sum. ``render_around_depth_plain``, ``render_gaussian_plain``,
 ``render_linspace_plain`` and ``shade_plain`` compute the same things in
 plain PyTorch: fp32 is the reference, bf16 rounds where the kernel rounds.
 
-``wgmma_slices`` lays the same matrices out for the wgmma core that K2,
-K3, K8, K9, K5, K6 and K7 run in bf16 (``csrc/mlp_wgmma.cuh``): the byte
-image of the shared-memory weight slices, in the order a tile consumes them
-(``wgmma_program``); ``wgmma_qslices`` does the same for an int8 pack's
-forward (``wgmma_qprogram``: bf16 and int8 slices in one stream), which K6
-and K7 run in int8. ``pack_slices`` makes a pack's slices once and keeps
-them in it; a bf16 render launch hands them to the kernel after the
-weights, and int8 and fp32 render launches, whose kernels keep their own
-cores, hand none (``_core_slices``). ``wgmma_dense`` and ``wgmma_dense_q``
-are one dense layer on that core, bf16 and s8, the first check of
+``wgmma_slices`` lays the same matrices out for the wgmma core that K2-K9
+run in bf16 (``csrc/mlp_wgmma.cuh``): the byte image of the shared-memory
+weight slices, in the order a tile consumes them (``wgmma_program``);
+``wgmma_qslices`` does the same for an int8 pack's forward
+(``wgmma_qprogram``: bf16 and int8 slices in one stream), which K6 and K7
+run in int8, and ``wgmma_slices32`` for an fp32 pack's (the hi and lo
+tf32 images of every slice, ``tf32_split``, each 8-deep k group permuted),
+which K7 runs in fp32 with 3xTF32 products. ``pack_slices`` makes a
+pack's slices once and keeps them in it; a bf16 render launch of this
+module hands them to the kernel after the weights, and its int8 and fp32
+launches, whose kernels keep their own cores, hand none (``_core_slices``).
+``wgmma_dense``, ``wgmma_dense_q`` and ``wgmma_dense32`` are one dense
+layer on that core, bf16, s8 and fp32, the first check of
 ``chip_smoke.py``.
 """
 
@@ -188,25 +191,32 @@ def wgmma_qprogram(qpacked: dict, sigma_only: bool = False) -> list[tuple[torch.
                    (qpacked["views_ws"], False, None)]
 
 
-def _slice_index(rows: int, cols: int, transposed: bool, half: int | None, int8: bool) -> np.ndarray:
+TF32_PERM = (0, 2, 4, 6, 1, 3, 5, 7)  # depth s of an fp32 slice's 8-deep k group holds row TF32_PERM[s] of it
+
+
+def _slice_index(rows: int, cols: int, transposed: bool, half: int | None, size: int) -> np.ndarray:
     """For each element of one product's slices, in byte order, its
     position in the row-major [rows, cols] matrix (rows * cols where the
     slice pads with zero). B = W, or W^T when transposed, is [K, N]; its
     slice (kp, h) holds B[Ks kp + k, 128 h + n] at n Ks + ((k // E) ^ (n %
-    8)) E + k % E, E elements to the 16-byte chunk (8 bf16, 16 int8) and Ks
-    = 8 E of depth: the 128-byte swizzled K-major tile. k panels outer,
+    8)) E + k % E, E = 16 // size elements to the 16-byte chunk (8 bf16, 16
+    int8, 4 fp32) and Ks = 8 E of depth: the 128-byte swizzled K-major
+    tile. fp32 slices hold, at depth k, B's row 8 (k // 8) + TF32_PERM[k %
+    8] of the panel (``csrc/mlp_wgmma.cuh``'s fp32 path: a layer's
+    accumulator fragment is the next layer's A fragment). k panels outer,
     128-column halves inner (only ``half`` where given)."""
-    E = 16 if int8 else 8
+    E = 16 // size
     Ks = 8 * E
     n = np.arange(WG_SLICE_N)[:, None]
     k = np.arange(Ks)[None, :]
     pos = (n * Ks + ((k // E) ^ (n % 8)) * E + k % E).reshape(-1)  # the 128-byte swizzle
+    depth = 8 * (k // 8) + np.asarray(TF32_PERM)[k % 8] if size == 4 else k
     K, N = (cols, rows) if transposed else (rows, cols)
     halves = range(-(-N // WG_SLICE_N)) if half is None else (half,)
     parts = []
     for kp in range(-(-K // Ks)):
         for h in halves:
-            kk, nn = kp * Ks + k, h * WG_SLICE_N + n  # B[kk, nn]
+            kk, nn = kp * Ks + depth, h * WG_SLICE_N + n  # B[kk, nn]
             src = nn * cols + kk if transposed else kk * cols + nn
             sl = np.empty(WG_SLICE_N * Ks, np.int64)
             sl[pos] = np.where((kk < K) & (nn < N), src, rows * cols).reshape(-1)
@@ -223,11 +233,20 @@ def _program_index(key: tuple, device: torch.device) -> torch.Tensor:
         zero = sum(r * c * size for r, c, _, _, size in key)
         parts, off = [], 0
         for rows, cols, transposed, half, size in key:
-            idx = _slice_index(rows, cols, transposed, half, size == 1)[:, None]
+            idx = _slice_index(rows, cols, transposed, half, size)[:, None]
             parts.append(np.where(idx == rows * cols, zero, off + idx * size + np.arange(size)).reshape(-1))
             off += rows * cols * size
         _wg_index_cache[(key, str(device))] = torch.from_numpy(np.concatenate(parts)).to(device)
     return _wg_index_cache[(key, str(device))]
+
+
+def _slice_image(program: list[tuple[torch.Tensor, bool, int | None]]) -> torch.Tensor:
+    """The byte image [n_slices, 16384] uint8 of a program's slices (see
+    ``wgmma_qslices``), any element size."""
+    key = tuple((w.shape[0], w.shape[1], bool(t), h, w.element_size()) for w, t, h in program)
+    flat = torch.cat([w.reshape(-1).view(torch.uint8) for w, _, _ in program]
+                     + [program[0][0].new_zeros(1, dtype=torch.uint8)])
+    return flat[_program_index(key, flat.device)].view(-1, WG_SLICE_BYTES)
 
 
 def wgmma_qslices(program: list[tuple[torch.Tensor, bool, int | None]]) -> torch.Tensor:
@@ -244,10 +263,7 @@ def wgmma_qslices(program: list[tuple[torch.Tensor, bool, int | None]]) -> torch
     for w, _, _ in program:
         if w.dim() != 2 or w.dtype not in (torch.bfloat16, torch.int8):
             raise TypeError("the wgmma core takes bf16 and int8 matrices")
-    key = tuple((w.shape[0], w.shape[1], bool(t), h, w.element_size()) for w, t, h in program)
-    flat = torch.cat([w.reshape(-1).view(torch.uint8) for w, _, _ in program]
-                     + [program[0][0].new_zeros(1, dtype=torch.uint8)])
-    return flat[_program_index(key, flat.device)].view(-1, WG_SLICE_BYTES)
+    return _slice_image(program)
 
 
 def wgmma_slices(program: list[tuple[torch.Tensor, bool]]) -> torch.Tensor:
@@ -259,24 +275,77 @@ def wgmma_slices(program: list[tuple[torch.Tensor, bool]]) -> torch.Tensor:
     return wgmma_qslices([(w, t, None) for w, t in program]).view(torch.bfloat16)
 
 
+def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of an fp32 tensor: hi = tf32(w) and lo = tf32(w - hi), each
+    rounded to the nearest tf32 (10 mantissa bits), ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds; w - hi - lo is within 2^-22 |w|."""
+    def rna(x: torch.Tensor) -> torch.Tensor:
+        return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(w.float())
+    return hi, rna(w.float() - hi)
+
+
+def wgmma_slices32(program: list[tuple[torch.Tensor, bool]]) -> torch.Tensor:
+    """The fp32 path's slices of a program of fp32 matrices
+    (``wgmma_program`` of a ``pack_nerf(..., torch.float32)`` pack), as
+    [n_slices, 128 * 32] fp32: for each 32-deep k panel and 128-column half
+    of each product (k panels outer, halves inner) the hi slice, then the lo
+    slice (``tf32_split``). A slice holds B[32 kp + 8 g + TF32_PERM[s], 128 h
+    + n] (depth k = 8 g + s) at element n * 32 + ((k // 4) ^ (n % 8)) * 4 +
+    k % 4, zero past K or N. Count: ``mlp_wgmma.cuh::forward_slices32``."""
+    for w, _ in program:
+        if w.dim() != 2 or w.dtype != torch.float32:
+            raise TypeError("the fp32 path takes fp32 matrices")
+    splits = [tf32_split(w) for w, _ in program]
+    hi = _slice_image([(h, t, None) for (h, _), (_, t) in zip(splits, program)])
+    lo = _slice_image([(lo, t, None) for (_, lo), (_, t) in zip(splits, program)])
+    return torch.stack([hi, lo], 1).reshape(-1, WG_SLICE_BYTES).view(torch.float32)
+
+
 def pack_slices(packed: dict, sigma_only: bool = False) -> torch.Tensor:
     """The wgmma core's forward weight slices of a pack: for a bf16
     ``pack_nerf`` pack ``wgmma_slices(wgmma_program(packed, sigma_only=...))``,
-    for an int8 ``quant.qpack_nerf`` pack ``wgmma_qslices(wgmma_qprogram(
-    packed, sigma_only))``; the full forward (K2, K3, K8, K9 and K6/K7's
-    fine pass) or the trunk and alpha head (K6/K7's coarse pass). Made on
-    first use and kept in the pack under the program they hold, so one pack
-    can serve both programs; a pack is made anew for new weights
-    (``render.pack_kernel_weights``), so its slices are always its own
-    weights'."""
+    for an fp32 one ``wgmma_slices32`` of that program, for an int8
+    ``quant.qpack_nerf`` pack ``wgmma_qslices(wgmma_qprogram(packed,
+    sigma_only))``; the full forward (K2, K3, K8, K9, K4 and K5's recompute,
+    K6/K7's fine pass) or the trunk and alpha head (K6/K7's coarse pass).
+    Made on first use and kept in the pack under the program they hold, so
+    one pack can serve both programs; a pack is made anew for new weights
+    (``render.pack_kernel_weights``, and every nerf step's), so its slices
+    are always its own weights'."""
     cache = packed.setdefault("wg_slices", {})
     key = "sigma_only" if sigma_only else "full"
     if key not in cache:
         if quant.is_int8(packed):
             cache[key] = wgmma_qslices(wgmma_qprogram(packed, sigma_only=sigma_only))
+        elif packed["w0"].dtype == torch.float32:
+            cache[key] = wgmma_slices32(wgmma_program(packed, sigma_only=sigma_only))
         else:
             cache[key] = wgmma_slices(wgmma_program(packed, sigma_only=sigma_only))
     return cache[key]
+
+
+def check_slices(slices: torch.Tensor, packed: dict, sigma_only: bool = False) -> None:
+    """Raise ValueError unless ``slices`` is the image ``pack_slices(packed,
+    sigma_only)`` makes: its element type and its count of 16 KB slices
+    (the kernels read as many as their header's forward_slices,
+    forward_qslices or forward_slices32 say, blind)."""
+    if quant.is_int8(packed):
+        prog, dtype = wgmma_qprogram(packed, sigma_only=sigma_only), torch.uint8
+    else:
+        prog = [(w, t, None) for w, t in wgmma_program(packed, sigma_only=sigma_only)]
+        dtype = packed["w0"].dtype
+    n = 0
+    for w, t, h in prog:
+        K, N = (w.shape[1], w.shape[0]) if t else tuple(w.shape)
+        depth = WG_SLICE_BYTES // (WG_SLICE_N * w.element_size())  # 128 int8, 64 bf16, 32 fp32 (hi and lo)
+        n += -(-K // depth) * (1 if h is not None else -(-N // WG_SLICE_N)) * (2 if w.element_size() == 4 else 1)
+    shape = (n, WG_SLICE_BYTES // torch.empty(0, dtype=dtype).element_size())
+    if slices is None or slices.dtype != dtype or tuple(slices.shape) != shape or not slices.is_contiguous():
+        got = None if slices is None else (slices.dtype, tuple(slices.shape))
+        raise ValueError(f"the weight slices must be the pack's {'sigma-only' if sigma_only else 'full'} forward "
+                         f"(fused_render.pack_slices): {dtype} {shape}, got {got}")
 
 
 def _core_slices(packed: dict, dtype=torch.bfloat16) -> list[torch.Tensor]:
@@ -287,7 +356,7 @@ def _core_slices(packed: dict, dtype=torch.bfloat16) -> list[torch.Tensor]:
     return [] if dtype != torch.bfloat16 or quant.is_int8(packed) else [pack_slices(packed)]
 
 
-wgmma_dense_launches = wgmma_dense_q_launches = 0  # the [core] check's launches (chip_smoke.py)
+wgmma_dense_launches = wgmma_dense_q_launches = wgmma_dense32_launches = 0  # the [core] check's launches
 
 
 def wgmma_dense(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, a2: torch.Tensor | None = None,
@@ -343,6 +412,33 @@ def wgmma_dense_q(a: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     rc = build.load_library().nst_wg_dense_q(arr, count, M, K, N, build.current_stream(a.device))
     build.check(rc, "wgmma_dense_q")
     wgmma_dense_q_launches += 1
+    return out
+
+
+def wgmma_dense32(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, act: int = 0) -> torch.Tensor:
+    """One fp32 layer on the wgmma core (``csrc/wg_dense.cu``): act(a @ w +
+    bias) in fp32, the products 3xTF32 (``wgmma_slices32``), the sums fp32;
+    a [M, K] and w [K, N] fp32 with K in {32, 64, ..., 256} and N in {128,
+    256}, act 0 none, 1 relu, 2 leaky. On a CPU tensor this runs the plain
+    version (an fp32 matmul)."""
+    global wgmma_dense32_launches
+    if a.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError("wgmma_dense32 takes fp32 operands")
+    if a.device.type == "cpu":
+        strict_fp32()
+        z = a @ w + bias
+        return torch.relu(z) if act == 1 else (torch.nn.functional.leaky_relu(z, 0.01) if act == 2 else z)
+    M, K = a.shape
+    N = w.shape[1]
+    if K % 32 or not 32 <= K <= 256 or N not in (128, 256) or tuple(w.shape) != (K, N):
+        raise ValueError("wgmma_dense32 takes a [M, K] @ w [K, N], K in {32..256} by 32, N in {128, 256}")
+    slices = wgmma_slices32([(w, False)])
+    a, bias = a.contiguous(), bias.contiguous()
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    arr, count = build.pointer_array([a, slices, bias, out])
+    rc = build.load_library().nst_wg_dense32(arr, count, M, K, N, int(act), build.current_stream(a.device))
+    build.check(rc, "wgmma_dense32")
+    wgmma_dense32_launches += 1
     return out
 
 
