@@ -12,9 +12,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    accumulation, at 64, 128 and ragged row counts, with and without a skip
    operand (CORE_ULP_TOL, CORE_FLIP_TOL); then one s8 layer (the int8 NeRF's
    products) whose int32 sums must equal an fp64 matmul of the int8 values
-   exactly; then one fp32 layer (3xTF32 products, K7 fp32's) whose largest
-   error from an fp64 matmul must be at most CORE32_TOL times strict-fp32
-   torch.matmul's; it fails before any NeRF kernel runs.
+   exactly; then one fp32 layer (3xTF32 products, those of K1, K7 and K9
+   in fp32) whose largest error from an fp64 matmul must be at most
+   CORE32_TOL times strict-fp32 torch.matmul's; it fails before any NeRF
+   kernel runs.
 3. Kernel vs plain, on the committed checkpoint's weights, each held to
    its plain version at bf16 rounding with the tolerances below:
    K1 (DepthNet) on the 160,000 rays of test view 0 plus 64 rays that miss
@@ -74,13 +75,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    NeRF) within FULL_PSNR_TOL of the plain fp32 path; [k9] K9 (shading
    given z) at bf16 and fp32 on the uniform and a sorted gaussian
    population of view 0 against its plain versions, and input_unsorted on
-   a per-ray shuffled copy equal to the sorted input (1e-6); [fp32] the
-   COMPARE mode's K1 (depth within 1e-4, the NaN mask equal) and K7
-   (max_z within 1e-3 on rays that hit the sphere, rgb FP32_RGB_TOL)
-   against their plain fp32 versions, K7 (3xTF32 on the wgmma core) with
-   its time against both bounds, launch shape (160 threads, one block per
-   SM), one block alone, registers, and a launch without its weight slices
-   refused; [modes] COMPARE_NERF (PSNR within
+   a per-ray shuffled copy equal to the sorted input (1e-6), K9 fp32
+   (3xTF32 on the wgmma core) with its time against both bounds, launch
+   shape (160 threads, one block per SM), one block alone against its
+   share of a wave, registers, and a launch without its weight slices
+   refused; [fp32] the COMPARE mode's K1 (depth within 1e-4, the NaN mask
+   equal) and K7 (max_z within 1e-3 on rays that hit the sphere, rgb
+   FP32_RGB_TOL) against their plain fp32 versions, both (3xTF32 on the
+   wgmma core) with their time against both bounds, launch shape (160
+   threads, one block per SM), one block alone, registers, and a launch
+   without the weight slices refused; [modes] COMPARE_NERF (PSNR within
    0.01 dB, compare MSE within 1%, max_z 1e-3) and NERF_MAX (PSNR within
    FULL_PSNR_TOL) over view 0, kernels against the plain fp32 path. After
    the render path, [render]: experiments/render.py's main over the 4 test
@@ -116,8 +120,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    within INT8_EVAL_TOL dB of the bf16 run's eval; --mode nerf with int8
    must raise.
 
-K2, K3, K8 and K9 in bf16 (render_around_depth.cu), K6/K7 in bf16 and in
-int8, K7 in fp32 (3xTF32), K4 and K5's row pass run on the wgmma core:
+K2, K3, K8 and K9 in bf16 and K8/K9 in fp32 (render_around_depth.cu), K6/K7
+in bf16 and in int8, K7 and K1 in fp32 (3xTF32), K4 and K5's row pass run on
+the wgmma core:
 their records name it under "core"; the launch shapes of K2's and K6's kernels (blocks, rays per block,
 occupancy), the registers and spills of render_around_depth_kernel<bf16>
 and of render_hier_kernel in bf16 and int8 from the build log, one K2
@@ -127,8 +132,8 @@ same shapes) are printed; [K2] also shows that a bf16 launch without the
 weight slices is refused.
 
 Every kernel's record carries its bound from this run's shapes (the
-larger of its operations at the card's bf16, int8 or fp32 peak, K7 fp32's
-at three tf32 products per fp32 product, and its bytes at the memory
+larger of its operations at the card's bf16, int8 or fp32 peak, the fp32
+kernels' (K1, K7, K9) at three tf32 products per fp32 product, and its bytes at the memory
 rate) and its launches on the path it serves. The last two
 lines of standard output are the kernels' JSON record and the device JSON
 line.
@@ -303,7 +308,8 @@ def nbytes(*tensors) -> int:
     return total
 
 
-CORE = "nerf_sampling_tpu_torch/kernels/csrc/mlp_wgmma.cuh"  # the wgmma MLP core: K2-K9 (bf16), K6/K7 (int8), K7 (fp32)
+# the wgmma MLP core: K2-K9 (bf16), K6/K7 (int8), K1, K7-K9 (fp32)
+CORE = "nerf_sampling_tpu_torch/kernels/csrc/mlp_wgmma.cuh"
 
 
 def kernel_record(name: str, source: str, replaces: str, max_abs_err: float, ms: float, plain_ms: float,
@@ -893,7 +899,11 @@ def check_k9(params, device) -> dict:
     """K9 over view 0 against its plain versions at bf16 and fp32: the
     uniform population around K1's depth, a sorted gaussian population, and
     input_unsorted on a per-ray shuffled copy of it, which must equal the
-    sorted input; returns the fp32 mode's record (COMPARE's)."""
+    sorted input; K9 fp32 runs the wgmma core's fp32 path (3xTF32): its time
+    against both bounds, launch shape, one block alone, registers, and a
+    launch without its slices must be refused. Returns the fp32 mode's
+    record (COMPARE's)."""
+    from nerf_sampling_tpu_torch.kernels import build
     from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
     from nerf_sampling_tpu_torch.kernels import fused_render as k89
 
@@ -935,23 +945,52 @@ def check_k9(params, device) -> dict:
         ms = cuda_ms(lambda: k89.fused_shade(packed, cfg, ro, rd, pops["uniform"], dtype=dtype), 3)
         plain_ms = cuda_ms(lambda: plain_chunks(lambda s: k89.shade_plain(
             packed, cfg, ro[s], rd[s], pops["uniform"][s], dtype=dtype), n), 1)
-        core = " (wgmma core)" if dtype == torch.bfloat16 else ""
-        log(f"[k9] {tag}{core}: {ms:.3f} ms per launch at {n} rays x {S}; plain {tag} version {plain_ms:.3f} ms")
+        log(f"[k9] {tag} (wgmma core): {ms:.3f} ms per launch at {n} rays x {S}; plain {tag} version {plain_ms:.3f} ms")
         if dtype == torch.float32:
+            flop = 2 * n * S * module_macs(params.fine)
+            fp32_bounds(f"[k9] {tag} (3xTF32 on the wgmma core)", ms, flop)
+            # the launch shape, one block alone, the registers, and no launch without the slices
+            occ = k89.kernel_occupancy(S, fp32=True)
+            one = occ["rays_per_block"]
+            blocks, slots = -(-n // one), occ["blocks_per_sm"] * occ["sms"]
+            ms_one = cuda_ms(lambda: k89.fused_shade(packed, cfg, ro[:one], rd[:one], pops["uniform"][:one],
+                                                     dtype=dtype), 20)
+            log(f"[k9] render_around_depth_kernel<float> at {n} rays: {blocks} blocks of {one} rays "
+                f"({occ['threads']} threads, {occ['smem_bytes']} bytes of shared memory), {occ['blocks_per_sm']} "
+                f"resident per SM x {occ['sms']} SMs = {slots} slots, {blocks / slots:.2f} waves; one block of {one} "
+                f"rays alone {ms_one:.3f} ms against a wave's share of the launch {ms * slots / blocks:.3f} ms; "
+                f"{ptxas_usage(build.build_info['log'], 'render_around_depth_kernelIfE')}")
+            require(occ["threads"] == 160 and occ["blocks_per_sm"] == 1,
+                    "K9 fp32 does not launch as the fp32 path of the wgmma core (160 threads, one block per SM)")
+            arr, count = build.pointer_array([ro, rd, None, pops["uniform"], torch.empty((6, n), device=device)]
+                                             + k89._flat_weights(packed, dtype=dtype))
+            rc = build.load_library().nst_shade(arr, count, n, S, cfg.D, sum(1 << i for i in packed["skip_w"]), 1, 1,
+                                                1, None, build.current_stream(device))
+            log(f"[k9] an fp32 shading launch without the weight slices: cudaError_t {rc} (refused)")
+            require(rc != 0, "K9 fp32: a launch without the weight slices was not refused")
             rec = kernel_record("shade_kernel_fp32", "render_around_depth.cu",
-                                "nerf_sampling_tpu/kernels/fused_render.py:390", worst, ms, plain_ms,
-                                2 * n * S * module_macs(params.fine), nbytes(ro, rd, pops["uniform"], packed, got_u),
-                                "fp32")
+                                "nerf_sampling_tpu/kernels/fused_render.py:390", worst, ms, plain_ms, flop,
+                                nbytes(ro, rd, pops["uniform"], packed, got_u), "tf32x3", core=CORE)
     log(f"[k9] phase {time.perf_counter() - t0:.1f} s")
     return rec
+
+
+def fp32_bounds(tag: str, ms: float, flop: float) -> None:
+    """An fp32 kernel's time against its two bounds: the FMA units' (67
+    TFLOP/s) and 3xTF32's on the tensor cores (three tf32 products at
+    494.7 TFLOP/s, its record's)."""
+    fma_ms, tc_ms = flop / PEAK["fp32"] * 1e3, flop / PEAK["tf32x3"] * 1e3
+    log(f"{tag}: {ms:.3f} ms per launch ({flop / ms / 1e9:.1f} TFLOP/s of fp32 work); {100 * fma_ms / ms:.1f}% of the "
+        f"FMA-unit bound ({fma_ms:.3f} ms at 67 TFLOP/s), {100 * tc_ms / ms:.1f}% of the 3xTF32 bound ({tc_ms:.3f} ms "
+        f"at 494.7/3 TFLOP/s)")
 
 
 def check_fp32(params, device) -> list[dict]:
     """The COMPARE mode's fp32 K1 and K7 against their plain fp32 versions:
     K1 on view 0 and 64 rays that miss the sphere (depth within 1e-4, the
     NaN mask equal), K7 over view 0 in one launch (max_z within 1e-3 on the
-    rays that hit the sphere, rgb within FP32_RGB_TOL); K7 fp32 runs the
-    wgmma core's fp32 path (3xTF32): its time against both bounds (the FMA
+    rays that hit the sphere, rgb within FP32_RGB_TOL); both run the wgmma
+    core's fp32 path (3xTF32): each one's time against both bounds (the FMA
     units' and 3xTF32's, its record's), launch shape, one block alone,
     registers, and a launch without its slices must be refused."""
     from nerf_sampling_tpu_torch.kernels import build
@@ -977,8 +1016,30 @@ def check_fp32(params, device) -> list[dict]:
     ms = cuda_ms(lambda: k1.depth_net_kernel(packed, cfg, A, B), 5)
     plain_ms = cuda_ms(lambda: k1.depth_net_plain(packed, cfg, A, B, torch.float32), 3)
     log(f"[fp32] K1 fp32: {ms:.3f} ms per launch; plain fp32 version {plain_ms:.3f} ms")
+    flop = 2 * got.numel() * module_macs(model)
+    fp32_bounds("[fp32] K1 fp32 (3xTF32 on the wgmma core)", ms, flop)
+    # the launch shape, one block alone, the registers, and no launch without the slices
+    n1 = got.numel()
+    occ = k1.kernel_occupancy(n1)
+    slots = occ["blocks_per_sm"] * occ["sms"]
+    one = k1.TILE_ROWS32  # one block of one tile
+    ms_one = cuda_ms(lambda: k1.depth_net_kernel(packed, cfg, A[:one], B[:one]), 10)
+    log(f"[fp32] depth_net_kernel<float> at {n1} rays: {occ['blocks']} blocks of {occ['tiles_per_block']} 64-row "
+        f"tiles ({occ['threads']} threads, {occ['smem_bytes']} bytes of shared memory), {occ['blocks_per_sm']} "
+        f"resident per SM x {occ['sms']} SMs = {slots} slots, {occ['blocks'] / slots:.2f} waves; one block of one "
+        f"tile ({one} rays) alone {ms_one:.3f} ms against the launch's time per tile of a block "
+        f"{ms / occ['tiles_per_block']:.3f} ms; {ptxas_usage(build.build_info['log'], 'depth_net_kernelIfE')}")
+    require(occ["threads"] == 160 and occ["blocks_per_sm"] == 1,
+            "K1 fp32 does not launch as the fp32 path of the wgmma core (160 threads, one block per SM)")
+    arr, count = build.pointer_array([k1.fragment_tiles(A), k1.fragment_tiles(B), torch.empty(n1, device=device)]
+                                     + k1._flat_weights(packed, torch.float32))
+    rc = build.load_library().nst_depth_net_forward(
+        arr, count, n1, len(cfg.hidden_sizes), len(cfg.cat_hidden_sizes), float(cfg.near), float(cfg.far), 1,
+        occ["tiles_per_block"], build.current_stream(device))
+    log(f"[fp32] an fp32 DepthNet launch without the weight slices: cudaError_t {rc} (refused)")
+    require(rc != 0, "K1 fp32: a launch without the weight slices was not refused")
     recs = [kernel_record("depth_net_kernel_fp32", "depth_net.cu", "nerf_sampling_tpu/kernels/fused_depth_net.py:181",
-                          mx, ms, plain_ms, 2 * got.numel() * module_macs(model), nbytes(A, B, packed, got), "fp32")]
+                          mx, ms, plain_ms, flop, nbytes(A, B, packed, got), "tf32x3", core=CORE)]
 
     hit = ~torch.isnan(got[:-64])
     ro, rd = ro[:-64], rd[:-64]
@@ -1000,10 +1061,8 @@ def check_fp32(params, device) -> list[dict]:
     plain_ms = cuda_ms(lambda: plain_chunks(lambda s: k7.render_hier_plain(
         hier, cfg_c, cfg_f, ro[s], rd[s], dtype=torch.float32), n), 1)
     flop = 2 * n * (64 * module_macs(params.coarse, True) + 192 * module_macs(params.fine))
-    fma_ms, tc_ms = flop / PEAK["fp32"] * 1e3, flop / PEAK["tf32x3"] * 1e3
-    log(f"[fp32] K7 fp32 (3xTF32 on the wgmma core): {ms:.3f} ms per launch ({flop / ms / 1e9:.1f} TFLOP/s of fp32 "
-        f"work); {100 * fma_ms / ms:.1f}% of the FMA-unit bound ({fma_ms:.3f} ms at 67 TFLOP/s), {100 * tc_ms / ms:.1f}% "
-        f"of the 3xTF32 bound ({tc_ms:.3f} ms at 494.7/3 TFLOP/s); plain fp32 version {plain_ms:.3f} ms")
+    fp32_bounds("[fp32] K7 fp32 (3xTF32 on the wgmma core)", ms, flop)
+    log(f"[fp32] K7 fp32: plain fp32 version {plain_ms:.3f} ms")
     # the kernel on the wgmma core: its launch shape, one block alone, its
     # registers, and no launch without its slices
     occ = k7.kernel_occupancy(64, 128, fp32=True)
@@ -2197,10 +2256,14 @@ def main() -> int:
                     log("[build] " + line.rstrip()[:160])
         log(f"[build] render_around_depth_kernel<bf16> (K2, K3, K8, K9 on the wgmma core): "
             f"{ptxas_usage(info['log'], 'render_around_depth_kernelI13__nv_bfloat16')}")
-        for name, mangled in (("bf16", "render_hier_kernelI13__nv_bfloat16E"), ("int8_t", "render_hier_kernelIaE"),
-                              ("float", "render_hier_kernelIfE")):
-            log(f"[build] render_hier_kernel<{name}> (K6, K7 in {name[:4]} on the wgmma core): "
-                f"{ptxas_usage(info['log'], mangled)}")
+        log(f"[build] render_around_depth_kernel<float> (K8, K9 in fp32 on the wgmma core, 3xTF32): "
+            f"{ptxas_usage(info['log'], 'render_around_depth_kernelIfE')}")
+        log(f"[build] depth_net_kernel<float> (K1 in fp32 on the wgmma core, 3xTF32): "
+            f"{ptxas_usage(info['log'], 'depth_net_kernelIfE')}")
+        for name, tag, mangled in (("bf16", "K6, K7 in bf16", "render_hier_kernelI13__nv_bfloat16E"),
+                                   ("int8_t", "K6, K7 in int8", "render_hier_kernelIaE"),
+                                   ("float", "K7 in fp32, 3xTF32", "render_hier_kernelIfE")):
+            log(f"[build] render_hier_kernel<{name}> ({tag} on the wgmma core): {ptxas_usage(info['log'], mangled)}")
         log(f"[build] nerf_points_kernel (K4 on the wgmma core): {ptxas_usage(info['log'], 'nerf_points_kernel')}")
     check_core(device)
 

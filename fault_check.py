@@ -17,15 +17,17 @@ Four sets of gates must pass on the sound source and fail on a wrong one:
   version, K5_REL_TOL, K5_COS_TOL and the bits across launches, K2's and
   K3's map and draw gates, view 0's PSNR against the JAX reference and the
   plain fp32 path);
-- "fp32", the COMPARE mode's kernels ([fp32]: K1 and K7 fp32 against
-  their plain fp32 versions; [modes]: COMPARE_NERF and NERF_MAX over view
-  0, kernels against the plain fp32 path);
+- "fp32", the COMPARE mode's kernels ([k9]: K9 at bf16 and fp32 against
+  its plain versions; [fp32]: K1 and K7 fp32 against their plain fp32
+  versions; [modes]: COMPARE_NERF and NERF_MAX over view 0, kernels
+  against the plain fp32 path);
 against faults in the requants, in kernels/csrc/mlp_wgmma.cuh's producer,
 which every kernel on the core shares, the production render's K2, K4
-and K7 in fp32 among them, in its int8 tile swizzle, which [core]'s s8
-layer and K6/K7 in int8 share, and in its 3xTF32 product, which [core]'s
-fp32 layer and K7 in fp32 share: its two corrections dropped (the run
-says whether [fp32] and [modes] see that one), or its sums in one chain.
+and K1, K7 and K9 in fp32 among them, in its int8 tile swizzle, which
+[core]'s s8 layer and K6/K7 in int8 share, and in its 3xTF32 product,
+which [core]'s fp32 layer and K1, K7 and K9 in fp32 share: its two
+corrections dropped, or its sums in one chain (the run says which of
+[k9], [fp32] and [modes] see each).
 This runs the gates first on the checkout as it is, then on one copy per
 fault below (the port, chip_smoke.py, the checkpoint and the experiment
 configs, under logs/fault_check/, with one edit to the copy's source), with
@@ -57,10 +59,15 @@ FAULTS = {
             "const float x = fmaf(h, inv, 0.5f);", ("k10",)),
     # the +-2^15 clamp before the multiply dropped: t*m may wrap in int32
     "no_clamp": ("nerf_mlp.cuh", "a = min(max(a, -(1 << 15)), (1 << 15) - 1) * m;", "a = a * m;", ("k10",)),
-    # the producer hands the consumers the ring's previous slice for one layer
-    # (slices 2-9 of every tile's stream: trunk layer 1, or the [core] product)
+    # the producer hands the consumers a stale slice, the one two back, for
+    # slices 2-9 of every tile's stream (trunk layer 1, the DepthNet's first
+    # layer, or the [core] product): in bf16 and int8 the previous half's or
+    # panel's, in fp32 the previous (hi, lo) pair's. (One back, an fp32
+    # stream's hi slot gets a lo image and its lo slot the right hi image,
+    # which 3xTF32 sums to within about 2^-11 of the product: K1 fp32's gate
+    # does not see that.)
     "stale_slice": ("mlp_wgmma.cuh", "const bf16* src = segs[g].slices + (size_t)s * (kSliceBytes / 2);",
-                    "const bf16* src = segs[g].slices + (size_t)(s >= 2 && s < 10 ? s - 1 : s) * (kSliceBytes / 2);",
+                    "const bf16* src = segs[g].slices + (size_t)(s >= 2 && s < 10 ? s - 2 : s) * (kSliceBytes / 2);",
                     ("core", "wgmma", "fp32")),
     # the int8 tiles written unswizzled while wgmma reads them swizzled: every
     # int8 activation the s8 products read lands in the wrong 16-byte chunk
@@ -73,12 +80,12 @@ FAULTS = {
                     "sw128_desc(b[1] + 32 * kk));", "", ("core", "fp32")),
     # the 3xTF32 sums in one chain of tensor-core accumulations: no panel
     # sums joined in rounded fp32 ([core]'s fp32 layer reads how much
-    # further from fp64 that is)
+    # further from fp64 that is; the fp32 set, whether the kernels' gates do)
     "tf32_chain": ("mlp_wgmma.cuh",
                    "for (int i = 0; i < 64; ++i) part[i] = 0.f;\n"
                    "        auto join = [](float sum, float p) { return __fadd_rn(sum, p); };",
                    "for (int i = 0; i < 64; ++i) part[i] = acc[h][i];\n"
-                   "        auto join = [](float, float p) { return p; };", ("core",)),
+                   "        auto join = [](float, float p) { return p; };", ("core", "fp32")),
 }
 
 # run in the checkout or copy: chip_smoke's checks of the named gate sets, gates recorded
@@ -111,7 +118,8 @@ checks = {
               lambda: c.check_k4(params, queries[0]), lambda: c.check_k5(params, queries[0]),
               lambda: c.check_k2(params, device), lambda: c.check_k3(params, device),
               lambda: c.run_slice(device, scene, K)],
-    "fp32": [lambda: c.check_fp32(params, device), lambda: c.check_modes(params, scene, K, device)],
+    "fp32": [lambda: c.check_k9(params, device), lambda: c.check_fp32(params, device),
+             lambda: c.check_modes(params, scene, K, device)],
 }
 for name in sys.argv[1:]:
     for check in checks[name]:
@@ -150,8 +158,8 @@ def run_checks(cwd: str, gates: list[str]) -> list[str]:
     through, and the gates they failed come back."""
     proc = subprocess.run([sys.executable, "-c", RUN, *gates], cwd=cwd, capture_output=True, text=True)
     for line in proc.stdout.splitlines():
-        if line.startswith(("[k10]", "[core]", "[K6]", "[k4]", "[k5]", "[K2]", "[K3]", "[slice]", "[fp32]", "[modes]",
-                            "[build]", "[fault_check]")):
+        if line.startswith(("[k10]", "[core]", "[K6]", "[k4]", "[k5]", "[K2]", "[K3]", "[slice]", "[k9]", "[fp32]",
+                            "[modes]", "[build]", "[fault_check]")):
             print(line, flush=True)
     if proc.returncode != 0 or not proc.stdout.rstrip().splitlines()[-1].startswith("FAILED "):
         print(proc.stderr[-4000:], file=sys.stderr)

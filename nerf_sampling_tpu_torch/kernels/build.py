@@ -99,11 +99,13 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong, ctypes.c_int,
         ctypes.c_uint, ctypes.c_float, ctypes.c_void_p,
     )
-    lib.nst_depth_net_forward.argtypes = [ptrs, i32, i64, i32, i32, f32, f32, i32, vp]
+    lib.nst_depth_net_forward.argtypes = [ptrs, i32, i64, i32, i32, f32, f32, i32, i32, vp]
     lib.nst_depth_net_forward.restype = i32
+    lib.nst_depth_net_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.nst_depth_net_occupancy.restype = i32
     # the vp before the stream of the render entries: the int8 plan, a host
-    # int32 array (quant.quant_plan), or null for bf16 and fp32 (a bf16
-    # call, and every nst_render_hier call, ends ptrs with the packs'
+    # int32 array (quant.quant_plan), or null for bf16 and fp32 (a bf16 or
+    # fp32 call, and every nst_render_hier call, ends ptrs with the packs'
     # weight slices)
     lib.nst_render_around_depth.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, f32, i32, vp, vp]
     lib.nst_render_around_depth.restype = i32
@@ -126,7 +128,7 @@ def load_library() -> ctypes.CDLL:
     lib.nst_nerf_points_bwd.restype = i32
     lib.nst_render_hier_occupancy.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.nst_render_hier_occupancy.restype = i32
-    lib.nst_render_around_depth_occupancy.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+    lib.nst_render_around_depth_occupancy.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.nst_render_around_depth_occupancy.restype = i32
     lib.nst_wg_dense.argtypes = [ptrs, i32, i64, i32, i32, i32, vp]
     lib.nst_wg_dense.restype = i32

@@ -1,32 +1,23 @@
-// Shared building block of the port's MLP kernels: one dense layer over a
-// tile of rows whose activations live in shared memory, as bf16 or fp32.
-// (K2-K9 in bf16, K6/K7 in int8 and K7 in fp32 run the wgmma core of
-// mlp_wgmma.cuh instead; K1 and the fp32 and int8 K2/K3/K8/K9 stay here.)
+// The MLP cores of K1 in bf16 (depth_net.cu) and of K2/K3/K8/K9 in int8
+// (nerf_mlp.cuh's int8 chunk): one dense layer over a tile of rows whose
+// activations live in shared memory. (K2-K9 in bf16, K8/K9 in fp32, K6/K7 in
+// every type, K4, K5 and K1 in fp32 run the wgmma core of mlp_wgmma.cuh.)
 //
 //   out[16*MT, N] = act(sum_op A_op @ W_op + bias),   N = kWarps * NT * 16
 //
-// A_op is a tile in shared memory (row-major, stride lda); W_op is a [K, N]
-// row-major matrix of the same type in device memory. The MLP weights (a
-// few MB) stay resident in the 50 MB L2, so every block streams them from
-// L2 while its activations never leave the SM. A concatenation in the
-// reference (skip inputs, embeddings) is a second operand accumulated into
-// the same fp32 sum, with zero-padded weight rows where an operand is wider
-// than its logical input.
+// A_op is a bf16 tile in shared memory (row-major, stride lda); W_op is a
+// [K, N] row-major bf16 matrix in device memory. The MLP weights (a few MB)
+// stay resident in the 50 MB L2, so every block streams them from L2 while
+// its activations never leave the SM. A concatenation in the reference
+// (skip inputs, embeddings) is a second operand accumulated into the same
+// fp32 sum, with zero-padded weight rows where an operand is wider than its
+// logical input.
 //
 // bf16: products run on the tensor cores through nvcuda::wmma 16x16x16
 // bf16 fragments with fp32 accumulation. Warp w owns output columns
 // [w*NT*16, (w+1)*NT*16) for every row; the epilogue adds the fp32 bias,
 // applies the activation and rounds to bf16, the rounding points of the
 // TPU kernels (bf16 activations, fp32 accumulation).
-//
-// fp32 (the COMPARE mode's K1 and K9): wmma has no fp32 operands, and TF32
-// alone keeps 10 mantissa bits, so the product runs on the fp32 FMA units
-// (mlp_wgmma.cuh's 3xTF32 path, K7 fp32's since it moved there, is the
-// next step for these). Each
-// thread owns TM rows x 4 columns of the output in registers, reads its
-// rows' activations from shared memory (one address per warp: a
-// broadcast) and one float4 of the weight row per step of k from L2, and
-// sums k in order over the operands, so the result is deterministic.
 //
 // int8 (the W8A8 MLP, K10, in K2/K3/K8/K9): gemm_rows_q runs an int8 x int8 product with
 // int32 accumulation on the tensor cores (IMMA: mma.sync.m16n8k32 s8 in
@@ -52,23 +43,14 @@ constexpr int kScratchPerWarp = 256;
 
 enum Act { kNone = 0, kRelu = 1, kLeaky = 2 };
 
-template <typename T>
-struct OperandT {
-  const T* a;  // shared-memory tile, row-major
-  int lda;     // its row stride in elements (a multiple of 8)
-  const T* w;  // device [k, N] row-major
-  int k;       // depth of the product, a multiple of 16
+struct Operand {
+  const bf16* a;  // shared-memory tile, row-major
+  int lda;        // its row stride in elements (a multiple of 8)
+  const bf16* w;  // device [k, N] row-major
+  int k;          // depth of the product, a multiple of 16
 };
-using Operand = OperandT<bf16>;
 
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(float v) { return v; }
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
 
 // Comparisons keep a NaN where fmaxf would drop it: a ray that misses the
 // bounding sphere must stay NaN end to end, as in the reference.
@@ -245,44 +227,6 @@ __device__ void dense(const Operand* ops, int n_ops, const float* __restrict__ b
   gemm_rows<MT, NT>(ops, n_ops, scratch, [&](int r, int col, float v, int) {
     out[r * ldo + col] = __float2bfloat16(activate(v + bias[col], act));
   });
-}
-
-// The fp32 layer: thread t owns rows [rg*TM, rg*TM + TM) and columns
-// [cg*4, cg*4 + 4), cg = t % (N/4), rg = t / (N/4); a warp shares its rows.
-template <int MT, int NT>
-__device__ void dense(const OperandT<float>* ops, int n_ops, const float* __restrict__ bias,
-                      float* out, int ldo, int act, float*) {
-  constexpr int R = 16 * MT, N = kWarps * NT * 16;
-  constexpr int CG = N / 4, RG = kThreads / CG, TM = R / RG;
-  static_assert(kThreads % CG == 0 && CG % 32 == 0 && R % RG == 0, "tile shape");
-  const int cg = threadIdx.x % CG, rg = threadIdx.x / CG;
-  const int col = cg * 4;
-  float acc[TM][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int o = 0; o < n_ops; ++o) {
-    const OperandT<float> op = ops[o];
-    const float* a = op.a + rg * TM * op.lda;
-#pragma unroll 4
-    for (int k = 0; k < op.k; ++k) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(op.w + (size_t)k * N + col));
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float x = a[i * op.lda + k];
-        acc[i][0] = fmaf(x, w.x, acc[i][0]);
-        acc[i][1] = fmaf(x, w.y, acc[i][1]);
-        acc[i][2] = fmaf(x, w.z, acc[i][2]);
-        acc[i][3] = fmaf(x, w.w, acc[i][3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[(rg * TM + i) * ldo + col + j] = activate(acc[i][j] + bias[col + j], act);
 }
 
 }  // namespace nst

@@ -1,10 +1,11 @@
 // The Hopper MLP core: dense layers over 128-row tiles on wgmma, with the
 // weights streamed through a ring of shared-memory slices by a producer
 // warp. Used by K6/K7 in bf16 and int8 and K7 in fp32 (render_hier.cu),
-// K2/K3/K8/K9 in bf16 (render_around_depth.cu), K4 (nerf_points.cu), K5's
-// row pass (nerf_points_bwd.cu) and the [core] check (wg_dense.cu); the
-// other kernels keep mlp_tile.cuh's cores. The fp32 path (3xTF32 products,
-// 64-row tiles, one consumer warpgroup) is described at its section below.
+// K2/K3/K8/K9 in bf16 and K8/K9 in fp32 (render_around_depth.cu), K1 in fp32
+// (depth_net.cu), K4 (nerf_points.cu), K5's row pass (nerf_points_bwd.cu)
+// and the [core] check (wg_dense.cu); K1 in bf16 and K2/K3/K8/K9 in int8
+// keep mlp_tile.cuh's cores. The fp32 path (3xTF32 products, 64-row tiles,
+// one consumer warpgroup) is described at its section below.
 //
 //   acc[64 rows of a warpgroup, NH * 128] = sum_op A_op @ B_op
 //
@@ -712,7 +713,7 @@ __device__ __forceinline__ void point_pe(const float* __restrict__ pts, const fl
   group_sync();
 }
 
-// ---- the fp32 path: 3xTF32 products (K7 in fp32, [core]'s fp32 layer)
+// ---- the fp32 path: 3xTF32 products (K7, K8/K9 and K1 in fp32, [core]'s fp32 layer)
 //
 // An fp32 operand x runs on the tf32 tensor cores split in two, hi =
 // tf32(x) and lo = tf32(x - hi), both rounded to nearest (cvt.rna, ties
@@ -743,7 +744,10 @@ __device__ __forceinline__ void point_pe(const float* __restrict__ pts, const fl
 // memory, thread-private: for each 8-column group g of the operand the
 // thread's float4 (row r col c, r c+1, r+8 c, r+8 c+1), c = 8g + 2(l%4),
 // at store[g * 128 + tid] (16-byte accesses, no bank conflicts, no
-// barriers). The PE is filled the same way, by the thread that reads it.
+// barriers). The PE is filled the same way, by the thread that reads it;
+// an operand in device memory (the DepthNet's embeddings A and B) is read
+// from a copy that the host wrote in this order (fused_depth_net.
+// fragment_tiles).
 // A weight slice, 16 KB: fp32, 128 output columns x 32 of depth, element
 // (n, k) at n * 128 + ((k / 4) ^ (n % 8)) * 16 + (k % 4) * 4 (the same
 // 128-byte swizzle; a k8 step is 32 bytes of depth, as bf16 k16 and s8
@@ -812,20 +816,22 @@ struct Src32 {
   int groups;
 };
 
-// acc = sum over src of A @ B, B the next slices of the stream (hi, lo per
-// panel and half); the consumer warpgroup calls it. Each panel and half is
-// one commit group into a fresh sum (corrections first), waited for and
-// added to acc in rounded fp32 before the next; its two stages are
-// released then. Ends with every slice released.
+// acc = sum over src of A @ B (with accumulate, acc += it), B the next
+// slices of the stream (hi, lo per panel and half); the consumer
+// warpgroup calls it. Each panel and half is one commit group into a fresh
+// sum (corrections first), waited for and added to acc in rounded fp32
+// before the next; its two stages are released then. Ends with every
+// slice released.
 template <int NH, int S>
 __device__ __forceinline__ void gemm_tf32(float (&acc)[NH][64], const Src32* src, int n_src, const Ring<S>& ring,
-                                          Cursor& cur) {
+                                          Cursor& cur, bool accumulate = false) {
   const int tid = threadIdx.x;
   const bool lead = (tid & 31) == 0;
+  if (!accumulate)
 #pragma unroll
-  for (int h = 0; h < NH; ++h)
+    for (int h = 0; h < NH; ++h)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+      for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
   for (int o = 0; o < n_src; ++o)
     for (int kp = 0; kp < src[o].groups / 4; ++kp) {
       uint32_t hi[4][4], lo[4][4];
@@ -896,6 +902,21 @@ __device__ __forceinline__ void store32(const float (&acc)[NH][64], float4* stor
     for (int j = 0; j < 16; ++j)
       store[(16 * h + j) * kConsumers32 + threadIdx.x] =
           make_float4(acc[h][4 * j], acc[h][4 * j + 1], acc[h][4 * j + 2], acc[h][4 * j + 3]);
+}
+
+// acc from the thread's store (store32's inverse)
+template <int NH>
+__device__ __forceinline__ void load32(float (&acc)[NH][64], const float4* store) {
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float4 v = store[(16 * h + j) * kConsumers32 + threadIdx.x];
+      acc[h][4 * j] = v.x;
+      acc[h][4 * j + 1] = v.y;
+      acc[h][4 * j + 2] = v.z;
+      acc[h][4 * j + 3] = v.w;
+    }
 }
 
 // Shared memory of the fp32 NeRF passes, from a 1024-byte aligned base: the
@@ -1004,20 +1025,108 @@ __device__ void nerf_rows(const NerfWeightsT<float>& w, const Tiles32<S>& t, Cur
   }
 }
 
+// ---- the DepthNet on the fp32 path (K1 in fp32, depth_net.cu)
+//
+// Per 64-row tile: three towers of n_layers layers with no activation, the
+// origin and direction towers reading the embedding A, the intersection
+// tower B (layer 0: emb @ te[0] + tb; layer l: emb @ te[l] + h @ th[l] + tb),
+// then a LeakyReLU(0.01) trunk whose layer 0 reads [o | d | i | A | B] and
+// the sigmoid head scaled to [near, far]. Shared memory holds one 64-row
+// activation store (64 KB) and no room for the three tower outputs that
+// trunk layer 0 reads, so each tower's share of it, out_t @ cat0[t], is
+// added to a partial sum (a second store, 64 KB) as soon as the tower ends;
+// trunk layer 0 then adds A @ cat0[3] and B @ cat0[4] to the partial, in
+// the same chain of rounded fp32 panel joins (o, d, i, A, B: the plain
+// version's order of the five products), and its bias. A and B are read
+// from device memory in the thread-fragment order (fused_depth_net.
+// fragment_tiles), each tile's 32 KB of them once per product.
+//
+// The slice stream of one tile (kernels/fused_depth_net.py::
+// wgmma_depth_program): per tower, layer by layer, te[l] then th[l], then
+// its cat0 operand; cat0's A and B operands; trunk layers 1..n_cat-1. At
+// 256 wide and 128-wide embeddings, two (hi, lo) per 32-deep panel and
+// 128-column half: a 128-deep product 16 slices, a 256-deep one 32.
+constexpr int kEmbGroups32 = 16;  // 8-column groups of a 128-wide embedding
+__host__ __device__ inline int depth_slices32(int n_layers, int n_cat) {
+  return 3 * (16 + 48 * (n_layers - 1) + 32) + 32 + 32 * (n_cat - 1);
+}
+
+// Shared memory of the fp32 DepthNet, from a 1024-byte aligned base: the
+// ring, the activation store and the trunk-layer-0 partial (32 groups each).
+template <int S>
+struct DepthTiles32 {
+  float4* x;
+  float4* part;
+  Ring<S> ring;
+  static constexpr int kBytes = Ring<S>::kBytes + 2 * kXGroups32 * kConsumers32 * 16;
+};
+template <int S>
+__device__ __forceinline__ DepthTiles32<S> carve_depth32(unsigned char* base) {
+  DepthTiles32<S> t;
+  t.ring.data = smem_u32(base);
+  t.x = reinterpret_cast<float4*>(base + Ring<S>::kBytes);
+  t.part = t.x + kXGroups32 * kConsumers32;
+  return t;
+}
+
+// The DepthNet over one 64-row tile: depth of rows [0, valid) into out[row].
+// a and b: the tile's embeddings in fragment order (16 groups each). P
+// holds n_layers, n_cat, the fp32 biases tb[3][l] and cb[l], head_w [256],
+// head_b [1], near_ and far_ (depth_net.cu's DepthNetParams<float>).
+// Consumes depth_slices32() of the stream.
+template <int S, typename P>
+__device__ void depth_forward32(const P& p, const DepthTiles32<S>& t, Cursor& cur, const float4* a,
+                                const float4* b, int valid, float* out) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows r0, r0 + 8
+  const Src32 x = {t.x, kXGroups32};
+  float acc[2][64];
+  for (int tw = 0; tw < 3; ++tw) {
+    const Src32 ops[2] = {{tw < 2 ? a : b, kEmbGroups32}, x};
+    for (int l = 0; l < p.n_layers; ++l) {
+      gemm_tf32(acc, ops, l > 0 ? 2 : 1, t.ring, cur);
+      bias_act32(acc, p.tb[tw][l], kNone);
+      store32(acc, t.x);
+    }
+    // the tower's share of trunk layer 0, added to the partial
+    if (tw > 0) load32(acc, t.part);
+    gemm_tf32(acc, &x, 1, t.ring, cur, tw > 0);
+    store32(acc, t.part);
+  }
+  load32(acc, t.part);
+  const Src32 emb[2] = {{a, kEmbGroups32}, {b, kEmbGroups32}};
+  gemm_tf32(acc, emb, 2, t.ring, cur, true);
+  bias_act32(acc, p.cb[0], kLeaky);
+  for (int l = 1; l < p.n_cat; ++l) {
+    store32(acc, t.x);
+    gemm_tf32(acc, &x, 1, t.ring, cur);
+    bias_act32(acc, p.cb[l], kLeaky);
+  }
+  float s[2];
+  row_dots<2, 1>(acc, p.head_w, 0, s);
+  if ((lane & 3) == 0)
+    for (int hh = 0; hh < 2; ++hh)
+      if (r0 + 8 * hh < valid) {
+        const float sg = 1.f / (1.f + expf(-(s[hh] + p.head_b[0])));
+        out[r0 + 8 * hh] = p.near_ * (1.f - sg) + p.far_ * sg;
+      }
+}
+
 // ---- the render kernels' choice of core (render_hier.cu, render_around_depth.cu)
 
-// A render kernel's element type T runs the NeRF on this core when OnCore.
-// bf16 is on the core in both kernels, int8 and fp32 in render_hier.cu only
-// (Hier = true). On the core: bf16 and int8 with 288 threads (two consumer
-// warpgroups), 128-row tiles and a ring of kRenderStages slices; fp32 with
-// 160 threads (one consumer warpgroup), 64-row tiles and a ring of
-// kStages32, its tiles from the first 1024-byte boundary of shared memory.
-// Otherwise T keeps nerf_mlp.cuh's cores: 256 threads and its tiles.
+// A render kernel's element type T runs the NeRF on this core when OnCore:
+// bf16 and fp32 in both kernels, int8 in render_hier.cu only (Hier = true).
+// On the core: bf16 and int8 with 288 threads (two consumer warpgroups),
+// 128-row tiles and a ring of kRenderStages slices; fp32 with 160 threads
+// (one consumer warpgroup), 64-row tiles and a ring of kStages32. The tiles
+// start at the first 1024-byte boundary of shared memory. Otherwise (int8
+// in render_around_depth.cu) T keeps nerf_mlp.cuh's int8 core: 256 threads
+// and its tiles.
 constexpr int kRenderStages = 5;
 template <typename T, bool Hier = false>
-constexpr bool kOnCore = std::is_same_v<T, bf16> || (Hier && (std::is_same_v<T, int8_t> || std::is_same_v<T, float>));
+constexpr bool kOnCore = std::is_same_v<T, bf16> || std::is_same_v<T, float> || (Hier && std::is_same_v<T, int8_t>);
 template <typename T, bool Hier = false>
-constexpr bool kCore32 = kOnCore<T, Hier> && std::is_same_v<T, float>;
+constexpr bool kCore32 = std::is_same_v<T, float>;
 // the threads that do the kernel's work (the consumers, on the core)
 template <typename T, bool Hier = false>
 constexpr int kWorkers = kCore32<T, Hier> ? kConsumers32 : kOnCore<T, Hier> ? kConsumers : nst::kThreads;
@@ -1027,13 +1136,13 @@ template <typename T, bool Hier = false>
 constexpr int kTileRows = kCore32<T, Hier> ? kRows32 : kRows;
 template <typename T, bool Hier = false>
 using RenderTiles = std::conditional_t<kCore32<T, Hier>, Tiles32<kStages32>,
-                                       std::conditional_t<kOnCore<T, Hier>, Tiles<kRenderStages>, TilesT<T>>>;
+                                       std::conditional_t<kOnCore<T, Hier>, Tiles<kRenderStages>, TilesQ>>;
 // the MLP's shared memory, ahead of the kernel's own planes
 template <typename T, bool Hier = false>
 __host__ __device__ constexpr size_t mlp_bytes() {
   if constexpr (kCore32<T, Hier>) return 1024 + Tiles32<kStages32>::kBytes;  // + the 1024-byte alignment
   else if constexpr (kOnCore<T, Hier>) return 1024 + Tiles<kRenderStages>::kBytes;
-  else return tile_bytes<T>();
+  else return tile_bytes_q();
 }
 // The core's tiles from the first 1024-byte boundary of smem, the ring's
 // barriers initialized (by thread 0; the caller syncs the block)

@@ -1,33 +1,30 @@
-// The NeRF MLP over a block's sample rows of K2/K3/K8/K9 in fp32 and int8
-// (render_around_depth.cu); the bf16 render kernels, K6/K7 in every type,
-// K4 and K5 run mlp_wgmma.cuh's core instead, which reads the weights
-// through NerfWeightsT and read_pack below, whose PE calls embed, whose
-// int8 epilogue calls quant_f32 and requant_int, and whose render kernels
-// sort with sort_rows.
+// The NeRF MLP over a block's sample rows of K2/K3/K8/K9 in int8
+// (render_around_depth.cu); the bf16 and fp32 render kernels, K6/K7 in
+// every type, K4 and K5 run mlp_wgmma.cuh's core instead, which reads the
+// weights through NerfWeightsT and read_pack below, whose PE calls embed,
+// whose int8 epilogue calls quant_f32 and requant_int, and whose render
+// kernels sort with sort_rows.
 //
 // A block holds, in shared memory, the per-ray data of its R rays (o, d,
 // |d|, one spare float each, 8 floats a ray) and a plane of depths z[row]
 // whose ray is row / S. nerf_rows walks the rows in chunks of 64: the fp32
 // positional encoding of the chunk (accurate sinf/cosf: the argument
-// reaches 2^9*|x|, so __sinf is not acceptable) goes to a PE tile [pts emb
-// 63 | 0 | view emb 27 | 0 x5], the MLP runs layer by layer between two
-// activation tiles, and sigma and sigmoid(rgb) land in per-row fp32
-// planes (mlp_chunk: one chunk, whatever filled its PE tile). sigma_only
-// runs the trunk and the alpha head alone (JAX heads="sigma"). In fp32 (the
-// COMPARE mode's K8/K9) the weights, the PE tile and the activations are
-// all fp32, with no rounding anywhere (mlp_tile.cuh's fp32 dense); fp32
-// tiles are large, so an fp32 kernel runs one block per SM.
+// reaches 2^9*|x|, so __sinf is not acceptable), rounded to bf16, goes to a
+// PE tile [pts emb 63 | 0 | view emb 27 | 0 x5], the MLP runs layer by layer
+// between two activation tiles, and sigma and sigmoid(rgb) land in per-row
+// fp32 planes (mlp_chunk: one chunk, whatever filled its PE tile).
+// sigma_only runs the trunk and the alpha head alone (JAX heads="sigma").
 //
-// T = int8_t is the W8A8 MLP (K10, kernels/quant.py): NerfWeightsQ holds
-// an int8 pack (qpack_nerf) and its requant constants, the activation tiles
-// hold int8 (stride kLdq), the PE tile stays bf16, and the int8 mlp_chunk
-// runs layer 0 in bf16 with an fp32 -> int8 requant, the int layers as
-// int8 x int8 -> int32 products with an integer requant, the skip layer and
-// the views layer as the int32 product dequantized plus a bf16 product of
-// the PE tile, and the alpha head on the int8 activations. The rounding
-// points are JAX's: h*inv_sh + 0.5 in two rounded fp32 steps
-// (__fmul_rn/__fadd_rn: no FMA) and a truncating float -> int8 cast; a NaN
-// activation quantizes to 0 (the plain version's choice).
+// The MLP is the W8A8 one (K10, kernels/quant.py): NerfWeightsQ holds an
+// int8 pack (qpack_nerf) and its requant constants, the activation tiles
+// hold int8 (stride kLdq), the PE tile bf16, and mlp_chunk runs layer 0 in
+// bf16 with an fp32 -> int8 requant, the int layers as int8 x int8 ->
+// int32 products with an integer requant, the skip layer and the views
+// layer as the int32 product dequantized plus a bf16 product of the PE
+// tile, and the alpha head on the int8 activations. The rounding points are
+// JAX's: h*inv_sh + 0.5 in two rounded fp32 steps (__fmul_rn/__fadd_rn: no
+// FMA) and a truncating float -> int8 cast; a NaN activation quantizes to 0
+// (the plain version's choice).
 //
 // sort_rows is the stable per-ray sort of a plane, by rank, that K3 and K6
 // run before shading: ties keep index order and NaN goes last, compared
@@ -47,7 +44,6 @@ namespace nst {
 constexpr int kW = 256;          // NeRF width the kernels are built for
 constexpr int kWv = kW / 2;      // views-layer width
 constexpr int kChunk = 64;       // sample rows per MLP pass
-constexpr int kLdx = kW + 8;     // padded activation stride
 constexpr int kPeCols = 96;      // [pts emb 63 | 0 | view emb 27 | 0 x5]
 constexpr int kPeViews = 64;     // first column of the view embedding
 constexpr int kLdpe = kPeCols + 8;
@@ -206,53 +202,22 @@ inline int read_pack(const void* const* ptrs, int D, unsigned skip_mask, bool si
   }
 }
 
-// The element type of the PE tile: T, but bf16 in the int8 MLP.
-template <typename T>
-struct PeType {
-  using type = T;
-};
-template <>
-struct PeType<int8_t> {
-  using type = bf16;
-};
-
-// Shared memory of the MLP: two activation tiles, the PE tile and, for
-// int8, the per-warp fp32 epilogue scratch of wmma. Every offset is a
+// Shared memory of the int8 MLP: two int8 activation tiles, the bf16 PE
+// tile and the per-warp fp32 epilogue scratch of wmma. Every offset is a
 // multiple of 32 bytes (wmma).
-template <typename T>
-__host__ __device__ constexpr size_t tile_bytes() {
-  return (2 * kChunk * kLdx + kChunk * kLdpe) * sizeof(T);
-}
-template <>
-__host__ __device__ constexpr size_t tile_bytes<int8_t>() {
+__host__ __device__ constexpr size_t tile_bytes_q() {
   return 2 * kChunk * kLdq + kChunk * kLdpe * sizeof(bf16) + kWarps * kScratchPerWarp * sizeof(float);
 }
 
-template <typename T>
-struct TilesT {
-  T* x[2];
-  T* pe;
-};
-
-template <>
-struct TilesT<int8_t> {
+struct TilesQ {
   int8_t* x[2];    // [64, kLdq] int8 activations; x[cur] also holds the views output, bf16 [64, kLdv]
   bf16* pe;
   float* scratch;  // kWarps fp32 16x16 tiles
 };
 static_assert(kChunk * kLdv * sizeof(bf16) <= kChunk * kLdq, "the views output must fit an int8 tile");
 
-template <typename T>
-__device__ __forceinline__ TilesT<T> carve_tiles(unsigned char* smem) {
-  TilesT<T> t;
-  t.x[0] = reinterpret_cast<T*>(smem);
-  t.x[1] = t.x[0] + kChunk * kLdx;
-  t.pe = t.x[1] + kChunk * kLdx;
-  return t;
-}
-template <>
-__device__ __forceinline__ TilesT<int8_t> carve_tiles<int8_t>(unsigned char* smem) {
-  TilesT<int8_t> t;
+__device__ __forceinline__ TilesQ carve_tiles(unsigned char* smem) {
+  TilesQ t;
   t.x[0] = reinterpret_cast<int8_t*>(smem);
   t.x[1] = t.x[0] + kChunk * kLdq;
   t.pe = reinterpret_cast<bf16*>(t.x[1] + kChunk * kLdq);
@@ -267,56 +232,6 @@ __device__ __forceinline__ float embed(const float* v, int col) {
   const int c = col - 3, f = c / 6, k = c % 6;
   const float a = v[k % 3] * (float)(1 << f);
   return k < 3 ? sinf(a) : cosf(a);
-}
-
-// The fp32 MLP over the 64 rows of one chunk whose PE tile t.pe is
-// filled; rows [0, valid) are written: sigma[r] and, unless sigma_only,
-// sigmoid(rgb logits) to rgb[ch][r]. Every thread of the block calls it; it
-// ends on a barrier.
-__device__ __forceinline__ void mlp_chunk(const NerfWeightsT<float>& w, const TilesT<float>& t, int valid,
-                                          bool sigma_only, float* sigma, float* const* rgb) {
-  const int tid = threadIdx.x;
-  const OperandT<float> op0 = {t.pe, kLdpe, w.w0, 64};
-  dense<kChunk / 16, kW / (16 * kWarps)>(&op0, 1, w.tb[0], t.x[0], kLdx, kRelu, nullptr);
-  __syncthreads();
-  int cur = 0;
-  for (int i = 1; i < w.D; ++i) {
-    const OperandT<float> ops[2] = {{t.x[cur], kLdx, w.tw[i], kW}, {t.pe, kLdpe, w.skip_w[i], 64}};
-    dense<kChunk / 16, kW / (16 * kWarps)>(ops, ((w.skip_mask >> i) & 1u) ? 2 : 1, w.tb[i],
-                                           t.x[cur ^ 1], kLdx, kRelu, nullptr);
-    __syncthreads();
-    cur ^= 1;
-  }
-
-  {  // sigma = h @ alpha_w + alpha_b: four threads per row
-    const int rr = tid >> 2, part = tid & 3;
-    const float* h = t.x[cur] + rr * kLdx;
-    float s = 0.f;
-    for (int c = part * (kW / 4); c < (part + 1) * (kW / 4); ++c) s += to_f(h[c]) * to_f(w.alpha_w[c]);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (part == 0 && rr < valid) sigma[rr] = s + w.alpha_b[0];
-  }
-  if (sigma_only) {
-    __syncthreads();  // the next chunk's first layer overwrites x[cur]
-    return;
-  }
-  const OperandT<float> opf = {t.x[cur], kLdx, w.feat_w, kW};
-  dense<kChunk / 16, kW / (16 * kWarps)>(&opf, 1, w.feat_b, t.x[cur ^ 1], kLdx, kNone, nullptr);
-  __syncthreads();
-  const OperandT<float> opv[2] = {{t.x[cur ^ 1], kLdx, w.views_wf, kW},
-                                  {t.pe + kPeViews, kLdpe, w.views_ws, 32}};
-  dense<kChunk / 16, kWv / (16 * kWarps)>(opv, 2, w.views_b, t.x[cur], kLdx, kRelu, nullptr);
-  __syncthreads();
-
-  for (int e = tid; e < kChunk * 3; e += kThreads) {
-    const int rr = e / 3, ch = e % 3;
-    const float* hv = t.x[cur] + rr * kLdx;
-    float s = 0.f;
-    for (int c = 0; c < kWv; ++c) s += to_f(hv[c]) * to_f(w.rgb_w[ch * kWv + c]);
-    if (rr < valid) rgb[ch][rr] = 1.f / (1.f + expf(-(s + w.rgb_b[ch])));
-  }
-  __syncthreads();
 }
 
 // Nonneg fp32 -> int8 by a scalar scale: trunc(min(h*inv + 0.5, 127)) in
@@ -337,8 +252,10 @@ __device__ __forceinline__ int requant_int(int a, int p, int q, int m, int lo) {
 }
 
 // The int8 MLP (K10) over the 64 rows of one chunk whose (bf16) PE tile is
-// filled; the outputs and the barrier as the mlp_chunk above.
-__device__ __forceinline__ void mlp_chunk(const NerfWeightsQ& w, const TilesT<int8_t>& t, int valid,
+// filled; rows [0, valid) are written: sigma[r] and, unless sigma_only,
+// sigmoid(rgb logits) to rgb[ch][r]. Every thread of the block calls it; it
+// ends on a barrier.
+__device__ __forceinline__ void mlp_chunk(const NerfWeightsQ& w, const TilesQ& t, int valid,
                                           bool sigma_only, float* sigma, float* const* rgb) {
   constexpr int MT = kChunk / 16, NT = kW / (16 * kWarps), NTv = kWv / (16 * kWarps);
   const int tid = threadIdx.x;
@@ -425,8 +342,7 @@ __device__ __forceinline__ void mlp_chunk(const NerfWeightsQ& w, const TilesT<in
 // The MLP over rows [0, rows) of the plane z (row's ray: row / S); writes
 // sigma[row] and, unless sigma_only, sigmoid(rgb) to rgb[0..2][row].
 // Every thread of the block calls it; it ends on a barrier.
-template <typename T>
-__device__ __forceinline__ void nerf_rows(const NerfWeightsT<T>& w, const TilesT<T>& t, const float* ray,
+__device__ __forceinline__ void nerf_rows(const NerfWeightsQ& w, const TilesQ& t, const float* ray,
                                           const float* z, int rows, int S, bool sigma_only,
                                           float* sigma, float* const* rgb) {
   const int tid = threadIdx.x;
@@ -448,7 +364,7 @@ __device__ __forceinline__ void nerf_rows(const NerfWeightsT<T>& w, const TilesT
           v = embed(u, col - kPeViews);
         }
       }
-      t.pe[rr * kLdpe + col] = from_f<typename PeType<T>::type>(v);
+      t.pe[rr * kLdpe + col] = __float2bfloat16(v);
     }
     __syncthreads();
     float* rgb_c[3] = {nullptr, nullptr, nullptr};

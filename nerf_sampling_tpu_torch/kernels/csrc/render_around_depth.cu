@@ -26,8 +26,8 @@
 //     (z, index) that the TPU kernel's order-free compositor reproduces
 //     (ops.unsorted_weights), NaN last.
 // Then, for all: fp32 positional encoding of o + z*d and of the unit view
-// direction; the 8x256 NeRF MLP (mlp_wgmma.cuh in bf16, nerf_mlp.cuh in
-// fp32 and int8); compositing in sample
+// direction; the 8x256 NeRF MLP (mlp_wgmma.cuh in bf16 and fp32,
+// nerf_mlp.cuh in int8); compositing in sample
 // order with dists z[s+1]-z[s] and a 1e10 tail, both scaled by |d|, alpha =
 // 1-exp(-relu(sigma)*dist), the exclusive product of 1-alpha+1e-10, and a
 // white background. Element type T: bf16 (bf16 PE, weights and
@@ -41,19 +41,25 @@
 // fp32, 0.6 MB int8) that stay in L2; device-memory traffic is 40 bytes
 // per ray (plus 4(S-1) with injected noise, 4S with input z). The matrix
 // products bound it: on the tensor cores in bf16 (989 TFLOP/s), in int8
-// for 557,056 of a query's 593,408 multiply-adds (1,979 TOP/s), on the FMA
-// units in fp32 (67 TFLOP/s).
+// for 557,056 of a query's 593,408 multiply-adds (1,979 TOP/s), in fp32 as
+// 3xTF32 on the tensor cores (three tf32 products at 494.7 TFLOP/s: 74 ms a
+// frame at 64 samples, against 181 ms on the FMA units' 67 TFLOP/s).
 //
 // Design: one block per group of R rays (R*S <= kMaxRows sample rows, at
-// most 64 rays). bf16 runs the MLP on the wgmma core (mlp_wgmma.cuh), as
-// K6/K7 do: 288 threads at one block per SM, the producer warp streaming
-// the NeRF's full-forward weight slices (cp.async.bulk into a 5-stage
-// mbarrier ring) once per 128-row tile, the two consumer warpgroups doing
-// everything else (the ray loads, the population, the sort, the PE, the
-// products' epilogues and the compositing); rows = 1536, so 24 rays a
-// block at S = 64 and 3 at S = 512. int8 and fp32 keep nerf_mlp.cuh's
-// cores (256 threads, rows = 1024, 64-row chunks: mma.sync fragments or
-// float4 loads from L2), two blocks per SM in int8 and one in fp32.
+// most 64 rays). bf16 and fp32 run the MLP on the wgmma core
+// (mlp_wgmma.cuh), as K6/K7 do, a producer warp streaming the NeRF's
+// full-forward weight slices (cp.async.bulk into an mbarrier ring) once per
+// tile while the consumers do everything else (the ray loads, the
+// population, the sort, the PE, the products' epilogues and the
+// compositing), one block per SM:
+//   bf16: 288 threads, two consumer warpgroups on 128-row tiles, a 5-stage
+//     ring; rows = 1536, so 24 rays a block at S = 64 and 3 at S = 512;
+//   fp32 (K8/K9 in COMPARE): 160 threads, one consumer warpgroup on 64-row
+//     tiles with 3xTF32 products and its activations in a thread-private
+//     store, a 6-stage ring (the fp32 path of mlp_wgmma.cuh, as K7 fp32);
+//     rows = 1024, so 16 rays a block at S = 64 and 2 at S = 512.
+// int8 keeps nerf_mlp.cuh's core (256 threads, rows = 1024, 64-row chunks
+// of mma.sync fragments), two blocks per SM.
 // Compositing walks each ray's samples in order, one thread per ray. None
 // of the TPU kernel's Mosaic devices (affine-in-z S matrix, rotation PE,
 // ones-row reductions, order-free compositor) is needed here.
@@ -69,9 +75,11 @@ namespace {
 
 constexpr int kMaxRays = 64;  // rays per block
 
-// the bf16 kernel runs the wgmma core (wg::kOnCore); fp32 and int8 keep their cores
+// bf16 and fp32 run the wgmma core (wg::kOnCore), int8 keeps nerf_mlp.cuh's
 template <typename T>
-constexpr int kMaxRows = wg::kOnCore<T> ? 1536 : 1024;  // sample rows per block
+constexpr int kMaxRows = std::is_same_v<T, bf16> ? 1536 : 1024;  // sample rows per block
+template <typename T>
+constexpr int kWorkers = wg::kWorkers<T>;  // the threads that do the kernel's work
 
 enum ZSource { kAroundCenter = 0, kGaussian = 1, kLinspace = 2, kInput = 3, kInputUnsorted = 4 };
 
@@ -92,7 +100,7 @@ struct RenderParams {
   unsigned seed;         // gaussian, when the noise is null
   int white_bkgd;
   NerfWeightsT<T> w;
-  const bf16* slices;    // bf16: the NeRF's full-forward weight slices (mlp_wgmma.cuh)
+  const bf16* slices;    // on the core: the NeRF's full-forward weight slices (mlp_wgmma.cuh; fp32: hi and lo)
   int n_slices;
 };
 
@@ -108,7 +116,7 @@ constexpr int rays_per_block(int S) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> || sizeof(T) == 4 ? 1 : 2)
+__global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> ? 1 : 2)
     render_around_depth_kernel(const __grid_constant__ RenderParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* zp = reinterpret_cast<float*>(smem + wg::mlp_bytes<T>());
@@ -126,24 +134,25 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> || sizeof
   wg::RenderTiles<T> t;
   wg::Cursor cur;
   if constexpr (wg::kOnCore<T>) {
-    t = wg::carve<wg::kRenderStages>(smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023));
-    if (tid == 0) t.ring.init();
+    t = wg::carve_render<T>(smem);
     __syncthreads();
-    if (tid >= wg::kConsumers) {  // the producer: the full forward's slices, tile by tile
-      const wg::Segment seg = {p.slices, p.n_slices, (rows + wg::kRows - 1) / wg::kRows};
-      wg::produce(t.ring, &seg, 1);
+    if (tid >= kWorkers<T>) {  // the producer: the full forward's slices, tile by tile
+      constexpr int tile = wg::kTileRows<T>;
+      const wg::Segment seg = {p.slices, p.n_slices, (rows + tile - 1) / tile};
+      wg::produce(t.ring, &seg, 1, kWorkers<T>);
       return;
     }
   } else {
-    t = carve_tiles<T>(smem);
+    t = carve_tiles(smem);
   }
-  // the consumers' barrier: threads 0-255 (the producer warp never joins)
+  // the workers' barrier (on the core the producer warp never joins)
   auto sync = [] {
-    if constexpr (wg::kOnCore<T>) wg::consumers_sync();
+    if constexpr (wg::kCore32<T>) wg::group_sync();
+    else if constexpr (wg::kOnCore<T>) wg::consumers_sync();
     else __syncthreads();
   };
 
-  for (int r = tid; r < nr; r += kThreads) {
+  for (int r = tid; r < nr; r += kWorkers<T>) {
     float* q = ray + 8 * r;
     for (int c = 0; c < 3; ++c) {
       q[c] = p.rays_o[(ray0 + r) * 3 + c];
@@ -154,21 +163,21 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> || sizeof
   }
   sync();
   if (p.source == kAroundCenter) {
-    for (int row = tid; row < rows; row += kThreads) {
+    for (int row = tid; row < rows; row += kWorkers<T>) {
       const float v = ray[8 * (row / S) + 7] + p.z_arg[row % S];
       zp[row] = isnan(v) ? v : fminf(fmaxf(v, p.near_), p.far_);
     }
   } else if (p.source == kLinspace) {
-    for (int row = tid; row < rows; row += kThreads) {
+    for (int row = tid; row < rows; row += kWorkers<T>) {
       const float tv = __fdiv_rn((float)(row % S), (float)(S > 1 ? S - 1 : 1));
       const float v = __fadd_rn(__fmul_rn(p.near_, __fsub_rn(1.f, tv)), __fmul_rn(p.far_, tv));
       zp[row] = p.lindisp ? __fdiv_rn(1.f, v) : v;
     }
   } else if (p.source == kInput) {
-    for (int row = tid; row < rows; row += kThreads) zp[row] = p.z_arg[ray0 * S + row];
+    for (int row = tid; row < rows; row += kWorkers<T>) zp[row] = p.z_arg[ray0 * S + row];
   } else {
     // the unsorted population in the sigma plane (free until the MLP)
-    for (int row = tid; row < rows; row += kThreads) {
+    for (int row = tid; row < rows; row += kWorkers<T>) {
       float v;
       if (p.source == kInputUnsorted) {
         v = p.z_arg[ray0 * S + row];
@@ -185,7 +194,7 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> || sizeof
       sigma[row] = v;
     }
     sync();
-    sort_rows(sigma, zp, nr, S);
+    sort_rows(sigma, zp, nr, S, kWorkers<T>);
   }
   sync();
 
@@ -197,7 +206,7 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> || sizeof
   }
 
   // compositing in sample order, one thread per ray
-  for (int r = tid; r < nr; r += kThreads) {
+  for (int r = tid; r < nr; r += kWorkers<T>) {
     const float dn = ray[8 * r + 6];
     float T_ = 1.f, acc = 0.f, dep = 0.f, c[3] = {0.f, 0.f, 0.f};
     for (int s = 0; s < S; ++s) {
@@ -223,8 +232,9 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> || sizeof
 
 // ptrs, in order: rays_o, rays_d, depth (may be null), z_arg (may be
 // null), out; then the NeRF's weights (nerf_mlp.cuh::read_pack; plan: the
-// int8 constants, null for bf16 and fp32); for bf16 then the NeRF's
-// full-forward weight slices (mlp_wgmma.cuh).
+// int8 constants, null for bf16 and fp32); for bf16 and fp32 then the
+// NeRF's full-forward weight slices (mlp_wgmma.cuh: forward_slices,
+// forward_slices32); a launch without them is refused.
 template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
            RenderParams<T> p, const int* plan, void* stream) {
@@ -240,7 +250,7 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsig
   if constexpr (wg::kOnCore<T>) {
     if (n_ptrs <= k || !ptrs[k]) return (int)cudaErrorInvalidValue;
     p.slices = static_cast<const bf16*>(ptrs[k++]);
-    p.n_slices = wg::forward_slices(D, skip_mask, false);
+    p.n_slices = wg::kCore32<T> ? wg::forward_slices32(D, skip_mask, false) : wg::forward_slices(D, skip_mask, false);
   }
   if (n_ptrs != k) return (int)cudaErrorInvalidValue;
   p.n = n;
@@ -292,8 +302,8 @@ int launch_mode(const void* const* ptrs, int n_ptrs, long long n, int S, int D, 
 
 // Every entry: plan is the int8 pack's constants (kernels/quant.py::
 // quant_plan, a host array read at launch) for the int8 kernel, null for
-// bf16 (and fp32); a bf16 call ends ptrs with the weight slices. Each
-// returns a cudaError_t (0 on success).
+// bf16 (and fp32); a bf16 or fp32 call ends ptrs with the weight slices.
+// Each returns a cudaError_t (0 on success).
 
 // K2.
 extern "C" int nst_render_around_depth(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
@@ -315,7 +325,7 @@ extern "C" int nst_render_gaussian(const void* const* ptrs, int n_ptrs, long lon
 
 // K8: the grid ends (a, b) are (near, far), or (1/near, 1/far) rounded to
 // fp32 with lindisp; ptrs[2] and ptrs[3] are null. fp32: weights of
-// pack_nerf(model, torch.float32).
+// pack_nerf(model, torch.float32) and their wgmma_slices32.
 extern "C" int nst_render_linspace(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
                                    unsigned skip_mask, float a, float b, int lindisp, int white_bkgd,
                                    int fp32, const int* plan, void* stream) {
@@ -334,18 +344,26 @@ extern "C" int nst_shade(const void* const* ptrs, int n_ptrs, long long n, int S
                           plan, stream);
 }
 
-// The bf16 kernel's launch shape at S samples: resident blocks per SM, rays
-// per block, threads per block and dynamic shared memory.
-extern "C" int nst_render_around_depth_occupancy(int S, int* out) {
-  using namespace nst;
-  if (S < 1 || S > 512) return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = smem_bytes<bf16>();
-  cudaError_t err = cudaFuncSetAttribute(render_around_depth_kernel<bf16>,
+// The launch shape at S samples of the bf16 kernel (K2, K3, K8, K9) or,
+// with fp32, of the fp32 one (K8/K9 in COMPARE): resident blocks per SM,
+// rays per block, threads per block and dynamic shared memory.
+namespace nst {
+namespace {
+template <typename T>
+int occupancy(int S, int* out) {
+  constexpr size_t smem = smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(render_around_depth_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  out[1] = rays_per_block<bf16>(S);
-  out[2] = wg::kBlockThreads<bf16>;
+  out[1] = rays_per_block<T>(S);
+  out[2] = wg::kBlockThreads<T>;
   out[3] = (int)smem;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, render_around_depth_kernel<bf16>,
-                                                            wg::kBlockThreads<bf16>, smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, render_around_depth_kernel<T>, out[2], smem);
+}
+}  // namespace
+}  // namespace nst
+
+extern "C" int nst_render_around_depth_occupancy(int S, int fp32, int* out) {
+  if (S < 1 || S > 512) return (int)cudaErrorInvalidValue;
+  return fp32 ? nst::occupancy<float>(S, out) : nst::occupancy<nst::bf16>(S, out);
 }

@@ -14,6 +14,14 @@ reference, with bf16 it rounds weights and activations where the kernel
 does, so the kernel can be held to it tightly on the card. The kernel runs
 bf16 or, for the COMPARE mode, fp32 (fp32 buffers and weights, no
 rounding), chosen by the buffers' dtype.
+
+In fp32 the kernel runs the fp32 path of the wgmma MLP core
+(``csrc/mlp_wgmma.cuh``: 3xTF32 products on the tensor cores, fp32 sums):
+``wgmma_depth_program`` lists the DepthNet's matrices in the order a 64-row
+tile consumes them, ``depth_slices`` writes their hi and lo slice image
+once per pack (``fused_render.wgmma_slices32``) and keeps it there, and
+``fragment_tiles`` copies A and B into the order in which each thread of
+the tile reads its share of them.
 """
 
 from __future__ import annotations
@@ -24,12 +32,13 @@ from torch import nn
 from nerf_sampling_tpu_torch.core.encoding import positional_encoding
 from nerf_sampling_tpu_torch.core.geometry import find_intersection_points_with_sphere
 from nerf_sampling_tpu_torch.kernels import build
-from nerf_sampling_tpu_torch.kernels.fused_render import dtype_name
+from nerf_sampling_tpu_torch.kernels.fused_render import dtype_name, wgmma_slices32
 from nerf_sampling_tpu_torch.models.depth_net import DepthNet, DepthNetConfig
 from nerf_sampling_tpu_torch.utils.precision import strict_fp32
 
 PAD = 128
 KERNEL_HIDDEN = 256  # hidden width the CUDA kernel is built for
+TILE_ROWS32 = 64  # rows of a tile of the fp32 kernel (csrc/mlp_wgmma.cuh's kRows32)
 
 # kernel launches since the last reset (see chip_smoke.py), bf16 and fp32
 launches = fp32_launches = 0
@@ -145,6 +154,92 @@ def depth_net_plain(
     return cfg.near * (1 - depth) + cfg.far * depth
 
 
+def wgmma_depth_program(packed: dict) -> list[tuple[torch.Tensor, bool]]:
+    """The matrices of a ``pack_depth_net(model, torch.float32)`` pack in the
+    order a 64-row tile of the fp32 kernel multiplies by them, as
+    ``fused_render.wgmma_program``'s (W, transposed) pairs (all x @ W): per
+    tower (origin, direction, intersection), layer by layer, its embedding
+    matrix then, past layer 0, its hidden one, then the tower's rows of
+    trunk layer 0 (added to the trunk's partial sum as the tower ends);
+    trunk layer 0's A and B rows; trunk layers 1..C-1. Count:
+    ``mlp_wgmma.cuh::depth_slices32`` (``depth_slices32``)."""
+    prog = []
+    for k, name in enumerate(("o", "d", "i")):
+        tower = packed[name]
+        for i, e in enumerate(tower["e"]):
+            prog.append((e, False))
+            if i > 0:
+                prog.append((tower["h"][i - 1], False))
+        prog.append((packed["cat0"][k], False))
+    prog += [(packed["cat0"][3], False), (packed["cat0"][4], False)]
+    return prog + [(w, False) for w in packed["cat_w"]]
+
+
+def depth_slices32(n_layers: int, n_cat: int) -> int:
+    """The fp32 kernel's slices of a 256-wide DepthNet (``mlp_wgmma.cuh::
+    depth_slices32``): two (hi, lo) per 32-deep panel and 128-column half,
+    16 for a 128-deep product, 32 for a 256-deep one."""
+    return 3 * (16 + 48 * (n_layers - 1) + 32) + 32 + 32 * (n_cat - 1)
+
+
+def depth_slices(packed: dict) -> torch.Tensor:
+    """The fp32 kernel's weight slices of an fp32 pack,
+    ``wgmma_slices32(wgmma_depth_program(packed))`` [n, 4096] fp32, made on
+    first use and kept in the pack (a pack is made anew for new weights)."""
+    cache = packed.setdefault("wg_slices", {})
+    if "depth" not in cache:
+        cache["depth"] = wgmma_slices32(wgmma_depth_program(packed))
+    return cache["depth"]
+
+
+def check_depth_slices(slices: torch.Tensor, packed: dict) -> None:
+    """Raise ValueError unless ``slices`` is the image ``depth_slices``
+    makes of ``packed``: fp32, as many 16 KB slices as the kernel reads
+    blind (``depth_slices32``)."""
+    shape = (depth_slices32(len(packed["o"]["b"]), len(packed["cat_b"])), 4096)
+    if slices is None or slices.dtype != torch.float32 or tuple(slices.shape) != shape \
+            or not slices.is_contiguous():
+        got = None if slices is None else (slices.dtype, tuple(slices.shape))
+        raise ValueError(f"the weight slices must be the pack's (fused_depth_net.depth_slices): "
+                         f"torch.float32 {shape}, got {got}")
+
+
+def fragment_tiles(x: torch.Tensor) -> torch.Tensor:
+    """[N, 128] fp32 rows in the order the fp32 kernel's threads read them:
+    [T, 16, 128, 4] for T = ceil(N / 64) tiles (zero rows past N), element
+    [t, g, i] the float4 of thread i (warp w = i // 32, lane l) in 8-column
+    group g: rows r = 16 w + l // 4 and r + 8 of tile t at columns c = 8 g +
+    2 (l % 4) and c + 1, as (r, c), (r, c + 1), (r + 8, c), (r + 8, c + 1)."""
+    n = x.shape[0]
+    t = -(-n // TILE_ROWS32)
+    padded = x.new_zeros((t * TILE_ROWS32, PAD))
+    padded[:n] = x
+    # rows as (tile, warp, r // 8 % 2, r % 8), columns as (group, lane % 4, pair)
+    v = padded.view(t, 4, 2, 8, PAD // 8, 4, 2)
+    return v.permute(0, 4, 1, 3, 5, 2, 6).reshape(t, PAD // 8, 128, 4).contiguous()
+
+
+def tiles_per_block(n: int, sms: int) -> int:
+    """The 64-row tiles one fp32 block walks for n rays on a card of ``sms``
+    SMs: the fewest that keep the grid within one wave at one block per SM
+    (19 at 160,064 rays on 132 SMs)."""
+    return max(1, -(-(-(-n // TILE_ROWS32)) // sms))
+
+
+def kernel_occupancy(n: int) -> dict[str, int]:
+    """The fp32 kernel's launch shape for n rays (K1 in COMPARE): resident
+    blocks per SM, threads per block, dynamic shared memory (bytes), tiles
+    per block, blocks, and the card's SM count."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    build.check(build.load_library().nst_depth_net_occupancy(out), "nst_depth_net_occupancy")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tpb = tiles_per_block(n, sms)
+    return {"blocks_per_sm": out[0], "threads": out[1], "smem_bytes": out[2], "tiles_per_block": tpb,
+            "blocks": -(-(-(-n // TILE_ROWS32)) // tpb), "sms": sms}
+
+
 def _flat_weights(packed: dict, dtype=torch.bfloat16) -> list[torch.Tensor]:
     """Weights in the order nst_depth_net_forward reads them, after checking
     that they are the kernel's layout: ``dtype`` matrices and fp32 biases."""
@@ -162,6 +257,21 @@ def _flat_weights(packed: dict, dtype=torch.bfloat16) -> list[torch.Tensor]:
     return [w for w, _ in flat]
 
 
+def _check_cuda(cfg: DepthNetConfig, A: torch.Tensor, B: torch.Tensor, weights: list[torch.Tensor]) -> None:
+    """What the CUDA kernel takes beyond the plain version: contiguous
+    buffers on the card, the 256-wide DepthNet, weights on the buffers'
+    device."""
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    if not (A.is_contiguous() and B.is_contiguous()):
+        raise ValueError("A and B must be contiguous")
+    if cfg.hidden_sizes[0] != KERNEL_HIDDEN or cfg.cat_hidden_sizes[0] != KERNEL_HIDDEN:
+        raise ValueError(f"the CUDA kernel is built for width {KERNEL_HIDDEN}")
+    for w in weights:
+        if w.device != A.device or not w.is_contiguous():
+            raise ValueError("packed weights must be contiguous and on the inputs' device")
+
+
 def depth_net_kernel(
     packed: dict, cfg: DepthNetConfig, A: torch.Tensor, B: torch.Tensor
 ) -> torch.Tensor:
@@ -170,6 +280,9 @@ def depth_net_kernel(
 
     On a CPU tensor this runs ``depth_net_plain`` at that dtype; on a CUDA
     tensor it launches the kernel, or raises on what the kernel does not take.
+    An fp32 launch hands the kernel A and B in fragment order
+    (``fragment_tiles``) and, after the weights, the pack's slices
+    (``depth_slices``), checked first.
     """
     global launches, fp32_launches
     n = A.shape[0]
@@ -183,22 +296,19 @@ def depth_net_kernel(
     weights = _flat_weights(packed, dtype)
     if A.device.type == "cpu":
         return depth_net_plain(packed, cfg, A, B, dtype)
-    if A.device.type != "cuda":
-        raise ValueError(f"unsupported device {A.device}")
-    if not (A.is_contiguous() and B.is_contiguous()):
-        raise ValueError("A and B must be contiguous")
-    if cfg.hidden_sizes[0] != KERNEL_HIDDEN or cfg.cat_hidden_sizes[0] != KERNEL_HIDDEN:
-        raise ValueError(f"the CUDA kernel is built for width {KERNEL_HIDDEN}")
-    for w in weights:
-        if w.device != A.device or not w.is_contiguous():
-            raise ValueError("packed weights must be contiguous and on the inputs' device")
-    lib = build.load_library()
-    out = torch.empty(n, dtype=torch.float32, device=A.device)
-    arr, count = build.pointer_array([A, B, out] + weights)
+    _check_cuda(cfg, A, B, weights)
     fp32 = dtype == torch.float32
+    out = torch.empty(n, dtype=torch.float32, device=A.device)
+    if fp32:
+        slices = depth_slices(packed)
+        check_depth_slices(slices, packed)
+        A, B = fragment_tiles(A), fragment_tiles(B)
+        weights = weights + [slices]
+    lib = build.load_library()
+    arr, count = build.pointer_array([A, B, out] + weights)
     rc = lib.nst_depth_net_forward(
-        arr, count, n, len(cfg.hidden_sizes), len(cfg.cat_hidden_sizes),
-        float(cfg.near), float(cfg.far), int(fp32), build.current_stream(A.device),
+        arr, count, n, len(cfg.hidden_sizes), len(cfg.cat_hidden_sizes), float(cfg.near), float(cfg.far),
+        int(fp32), tiles_per_block(n, build.sm_count(A.device)) if fp32 else 0, build.current_stream(A.device),
     )
     build.check(rc, "depth_net_kernel")
     if fp32:

@@ -38,10 +38,11 @@ weight slices, in the order a tile consumes them (``wgmma_program``);
 (``wgmma_qprogram``: bf16 and int8 slices in one stream), which K6 and K7
 run in int8, and ``wgmma_slices32`` for an fp32 pack's (the hi and lo
 tf32 images of every slice, ``tf32_split``, each 8-deep k group permuted),
-which K7 runs in fp32 with 3xTF32 products. ``pack_slices`` makes a
-pack's slices once and keeps them in it; a bf16 render launch of this
-module hands them to the kernel after the weights, and its int8 and fp32
-launches, whose kernels keep their own cores, hand none (``_core_slices``).
+which K7, K8 and K9 run in fp32 with 3xTF32 products. ``pack_slices``
+makes a pack's slices once and keeps them in it; a bf16 or fp32 render
+launch of this module hands them to the kernel after the weights, and its
+int8 launches, whose kernel keeps ``nerf_mlp.cuh``'s int8 core, hand none
+(``_core_slices``).
 ``wgmma_dense``, ``wgmma_dense_q`` and ``wgmma_dense32`` are one dense
 layer on that core, bf16, s8 and fp32, the first check of
 ``chip_smoke.py``.
@@ -348,12 +349,17 @@ def check_slices(slices: torch.Tensor, packed: dict, sigma_only: bool = False) -
                          f"(fused_render.pack_slices): {dtype} {shape}, got {got}")
 
 
-def _core_slices(packed: dict, dtype=torch.bfloat16) -> list[torch.Tensor]:
-    """The render entries' last pointer, after the weights: a bf16 pack's
-    full-forward slices (its kernel runs the wgmma core), or nothing for an
-    int8 or fp32 pack (their kernels keep nerf_mlp.cuh's cores). A bf16
-    launch without them is refused by the kernel's pointer count."""
-    return [] if dtype != torch.bfloat16 or quant.is_int8(packed) else [pack_slices(packed)]
+def _core_slices(packed: dict) -> list[torch.Tensor]:
+    """The render entries' last pointer, after the weights: a bf16 or fp32
+    pack's full-forward slices (its kernel runs the wgmma core), checked
+    against the pack (``check_slices``), or nothing for an int8 pack (its
+    kernel keeps nerf_mlp.cuh's int8 core). A bf16 or fp32 launch without
+    them is refused by the kernel's pointer count."""
+    if quant.is_int8(packed):
+        return []
+    slices = pack_slices(packed)
+    check_slices(slices, packed)
+    return [slices]
 
 
 wgmma_dense_launches = wgmma_dense_q_launches = wgmma_dense32_launches = 0  # the [core] check's launches
@@ -726,11 +732,12 @@ def render_around_depth_kernel(
     return maps
 
 
-def kernel_occupancy(n_samples: int = 64) -> dict[str, int]:
-    """The bf16 kernel's launch shape (K2, K3, K8, K9) at ``n_samples``:
-    resident blocks per SM, rays per block, threads per block, dynamic
-    shared memory (bytes), and the card's SM count."""
-    return build.occupancy("nst_render_around_depth_occupancy", n_samples)
+def kernel_occupancy(n_samples: int = 64, fp32: bool = False) -> dict[str, int]:
+    """The bf16 kernel's launch shape (K2, K3, K8, K9), or with ``fp32``
+    the fp32 one's (K8/K9 in COMPARE), at ``n_samples``: resident blocks per
+    SM, rays per block, threads per block, dynamic shared memory (bytes),
+    and the card's SM count."""
+    return build.occupancy("nst_render_around_depth_occupancy", n_samples, int(fp32))
 
 
 def fused_render_around_depth(
@@ -893,17 +900,17 @@ def shade_plain(
 
 def _launch(entry: str, packed: dict, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tensor,
             depth: torch.Tensor | None, z: torch.Tensor | None, weights: list[torch.Tensor], S: int,
-            *args, dtype=torch.bfloat16) -> dict[str, torch.Tensor]:
+            *args) -> dict[str, torch.Tensor]:
     """One launch of K2 (``nst_render_around_depth``), K3
     (``nst_render_gaussian``), K8 (``nst_render_linspace``) or K9
     (``nst_shade``): pointers rays_o, rays_d, depth (or none), the z
-    argument (or none), out, the ``dtype`` weights and, for a bf16 pack,
-    its slices (``_core_slices``); then n, S, D, the skip mask, ``args``,
-    the int8 plan (or null) and the stream."""
+    argument (or none), out, the weights and, for a bf16 or fp32 pack, its
+    slices (``_core_slices``); then n, S, D, the skip mask, ``args``, the
+    int8 plan (or null) and the stream."""
     n = rays_o.shape[0]
     plan = _plan(packed, cfg)
     out = torch.empty((6, n), dtype=torch.float32, device=rays_o.device)
-    arr, count = build.pointer_array([rays_o, rays_d, depth, z, out] + weights + _core_slices(packed, dtype))
+    arr, count = build.pointer_array([rays_o, rays_d, depth, z, out] + weights + _core_slices(packed))
     rc = getattr(build.load_library(), entry)(
         arr, count, n, S, cfg.D, sum(1 << i for i in packed["skip_w"]), *args,
         build.host_pointer(plan), build.current_stream(rays_o.device),
@@ -950,7 +957,7 @@ def fused_render(
     a, b = (1.0 / near, 1.0 / far) if lindisp else (near, far)
     fp32 = dtype == torch.float32
     maps = _launch("nst_render_linspace", packed, cfg, rays_o, rays_d, None, None, weights, n_samples,
-                   float(a), float(b), int(bool(lindisp)), int(bool(white_bkgd)), int(fp32), dtype=dtype)
+                   float(a), float(b), int(bool(lindisp)), int(bool(white_bkgd)), int(fp32))
     if fp32:
         linspace_fp32_launches += 1
     elif quant.is_int8(packed):
@@ -996,7 +1003,7 @@ def fused_shade(
     _check_cuda(cfg, multires, multires_views, (rays_o, rays_d, z_vals), weights)
     fp32 = dtype == torch.float32
     maps = _launch("nst_shade", packed, cfg, rays_o, rays_d, None, z_vals, weights, S, int(bool(assume_sorted)),
-                   int(bool(white_bkgd)), int(fp32), dtype=dtype)
+                   int(bool(white_bkgd)), int(fp32))
     if fp32:
         shade_fp32_launches += 1
     elif quant.is_int8(packed):

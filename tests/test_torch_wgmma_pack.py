@@ -233,9 +233,10 @@ def test_slices_follow_a_repack_of_new_weights():
 
 @pytest.mark.parametrize("kind", ["bf16", "fp32", "int8"])
 def test_only_bf16_launches_take_slices(kind):
-    """The bf16 kernel runs the wgmma core and takes the slices; the fp32
-    (COMPARE) and int8 (K10) kernels keep nerf_mlp.cuh's cores and take
-    none, and making their arguments adds nothing to their packs."""
+    """The bf16 and fp32 (COMPARE) kernels run the wgmma core and take their
+    pack's slices (bf16 images, or the fp32 path's hi and lo); the int8
+    (K10) kernel keeps nerf_mlp.cuh's core and takes none, and making its
+    arguments adds nothing to its pack."""
     model = small_nerf(D=4, skips=(1,))
     if kind == "int8":
         rng = np.random.default_rng(2)
@@ -245,10 +246,11 @@ def test_only_bf16_launches_take_slices(kind):
         packed = quant.qpack_nerf(model, quant.calibrate_nerf_quant(model, ro, rd, n_rays=64, n_z=9))
     else:
         packed = fr.pack_nerf(model, torch.float32 if kind == "fp32" else torch.bfloat16)
-    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
-    args = fr._core_slices(packed, dtype)
+    args = fr._core_slices(packed)
     if kind == "bf16":
         assert len(args) == 1 and torch.equal(args[0], fr.wgmma_slices(fr.wgmma_program(packed)))
+    elif kind == "fp32":
+        assert len(args) == 1 and torch.equal(args[0], fr.wgmma_slices32(fr.wgmma_program(packed)))
     else:
         assert args == [] and "wg_slices" not in packed
 
