@@ -19,7 +19,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 3. Kernel vs plain, on the committed checkpoint's weights, each held to
    its plain version at bf16 rounding with the tolerances below:
    K1 (DepthNet) on the 160,000 rays of test view 0 plus 64 rays that miss
-   the bounding sphere; K2 (uniform populate-and-shade) and K3 (gaussian)
+   the bounding sphere (its launch shape, 160 threads and one block per SM,
+   one tile alone and its registers printed); K2 (uniform populate-and-shade) and K3 (gaussian)
    on the same 160,000 rays in one launch at S=64, std=1.0, with 16 NaN
    depths spread among them (K3 with injected noise); K6 (the seeded
    hierarchical pass) on 1024-ray train batches with injected draws. K3
@@ -107,10 +108,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    max_z against bf16 K6 on those rays (median within a coarse spacing,
    tests/test_quant.py's bound); fault_check.py shows that a planted
    requant fault, and a wrong int8 swizzle of the wgmma core, fail these
-   gates; K6/K7-int8 run on the wgmma core with s8 products: the launch
-   shape of render_hier_kernel<int8_t> (it must be 288 threads, one block
-   per SM, 128 blocks for a 1024-ray step), one block's time alone, and an
-   int8 hierarchical launch without its weight slices must be refused;
+   gates; K2/K3/K8/K9-int8 and K6/K7-int8 run on the wgmma core with s8
+   products: the launch shapes of render_around_depth_kernel<int8_t> (288
+   threads, one block per SM) and render_hier_kernel<int8_t> (the same, 128
+   blocks for a 1024-ray step), one block's time alone, and an int8 render
+   or hierarchical launch without its weight slices must be refused;
    FULL_NERF at N_importance 0 through the engine (K8 int8 once);
    the DEPTH_NET view 0 PSNR in int8 beside bf16 (no gate) and the int8
    frame's time and profile. After the training path, [int8-train]: the
@@ -120,16 +122,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    within INT8_EVAL_TOL dB of the bf16 run's eval; --mode nerf with int8
    must raise.
 
-K2, K3, K8 and K9 in bf16 and K8/K9 in fp32 (render_around_depth.cu), K6/K7
-in bf16 and in int8, K7 and K1 in fp32 (3xTF32), K4 and K5's row pass run on
-the wgmma core:
-their records name it under "core"; the launch shapes of K2's and K6's kernels (blocks, rays per block,
-occupancy), the registers and spills of render_around_depth_kernel<bf16>
-and of render_hier_kernel in bf16 and int8 from the build log, one K2
-block's time alone, and K5's time by pass (CUDA events;
-its library_ms is torch.matmul of pass (b)'s weight-grad products on the
-same shapes) are printed; [K2] also shows that a bf16 launch without the
-weight slices is refused.
+Every kernel runs its MLP on the wgmma core (csrc/mlp_wgmma.cuh): K1 in
+bf16 and fp32 (depth_net.cu), K2, K3, K8 and K9 in bf16, int8 and fp32
+(render_around_depth.cu), K6/K7 in bf16, int8 and fp32 (render_hier.cu),
+K4 and K5's row pass. Their records name it under "core"; the launch
+shapes of K1's, K2's, K2-int8's and K6's kernels (blocks, rays or tiles per
+block, occupancy), the registers and spills of every kernel from the build
+log, one K1 tile's and one K2 block's time alone, and K5's time by pass
+(CUDA events; its library_ms is torch.matmul of pass (b)'s weight-grad
+products on the same shapes) are printed; [K1], [K2] and [k10] also show
+that a launch without the weight slices is refused.
 
 Every kernel's record carries its bound from this run's shapes (the
 larger of its operations at the card's bf16, int8 or fp32 peak, the fp32
@@ -308,7 +310,7 @@ def nbytes(*tensors) -> int:
     return total
 
 
-# the wgmma MLP core: K2-K9 (bf16), K6/K7 (int8), K1, K7-K9 (fp32)
+# the wgmma MLP core, which every kernel's MLP runs on
 CORE = "nerf_sampling_tpu_torch/kernels/csrc/mlp_wgmma.cuh"
 
 
@@ -472,7 +474,41 @@ def k1_rays(device) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.cat([ro, o]), torch.cat([rd, d / d.norm(dim=1, keepdim=True)])
 
 
+def check_k1_launch(tag: str, packed: dict, cfg, A: torch.Tensor, B: torch.Tensor, ms: float, device) -> None:
+    """K1's launch on the wgmma core (bf16, or fp32 by A's dtype): its shape
+    (160 threads, one block per SM), one block of one tile alone against
+    the launch's time per tile of a block (``ms``), its registers, and a
+    launch without the weight slices refused."""
+    from nerf_sampling_tpu_torch.kernels import build
+    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
+
+    fp32 = A.dtype == torch.float32
+    name, mangled = ("float", "depth_net_kernelIfE") if fp32 else ("bf16", "depth_net_kernelI13__nv_bfloat16E")
+    n = A.shape[0]
+    occ = k1.kernel_occupancy(n, fp32=fp32)
+    slots = occ["blocks_per_sm"] * occ["sms"]
+    one = k1.TILE_ROWS  # one block of one tile
+    ms_one = cuda_ms(lambda: k1.depth_net_kernel(packed, cfg, A[:one], B[:one]), 10)
+    log(f"{tag} depth_net_kernel<{name}> (wgmma core) at {n} rays: {occ['blocks']} blocks of {occ['tiles_per_block']} "
+        f"64-row tiles ({occ['threads']} threads, {occ['smem_bytes']} bytes of shared memory), {occ['blocks_per_sm']} "
+        f"resident per SM x {occ['sms']} SMs = {slots} slots, {occ['blocks'] / slots:.2f} waves; one block of one "
+        f"tile ({one} rays) alone {ms_one:.3f} ms against the launch's time per tile of a block "
+        f"{ms / occ['tiles_per_block']:.3f} ms; {ptxas_usage(build.build_info['log'], mangled)}")
+    require(occ["threads"] == 160 and occ["blocks_per_sm"] == 1,
+            f"K1 {name} does not launch as the wgmma core's DepthNet (160 threads, one block per SM)")
+    a, b = (k1.fragment_tiles(A), k1.fragment_tiles(B)) if fp32 else (A, B)
+    arr, count = build.pointer_array([a, b, torch.empty(n, device=device)] + k1._flat_weights(packed, A.dtype))
+    rc = build.load_library().nst_depth_net_forward(
+        arr, count, n, len(cfg.hidden_sizes), len(cfg.cat_hidden_sizes), float(cfg.near), float(cfg.far), int(fp32),
+        occ["tiles_per_block"], build.current_stream(device))
+    log(f"{tag} a {name} DepthNet launch without the weight slices: cudaError_t {rc} (refused)")
+    require(rc != 0, f"K1 {name}: a launch without the weight slices was not refused")
+
+
 def check_k1(params, device) -> dict:
+    """K1 in bf16 (the DepthNet program of the wgmma core) over view 0 and
+    64 rays that miss the sphere against its plain bf16 version, and its
+    launch (``check_k1_launch``)."""
     from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
 
     ro, rd = k1_rays(device)
@@ -497,8 +533,9 @@ def check_k1(params, device) -> dict:
     ms = cuda_ms(lambda: k1.depth_net_kernel(packed, cfg, A, B), 10)
     plain_ms = cuda_ms(lambda: k1.depth_net_plain(packed, cfg, A, B, torch.bfloat16), 5)
     log(f"[K1] {ms:.3f} ms per launch at {got.numel()} rays; plain bf16 version {plain_ms:.3f} ms")
+    check_k1_launch("[K1]", packed, cfg, A, B, ms, device)
     return kernel_record("depth_net_kernel", "depth_net.cu", "nerf_sampling_tpu/kernels/fused_depth_net.py:181",
-                         mx, ms, plain_ms, 2 * got.numel() * module_macs(model), nbytes(A, B, packed, got))
+                         mx, ms, plain_ms, 2 * got.numel() * module_macs(model), nbytes(A, B, packed, got), core=CORE)
 
 
 def check_k2(params, device) -> dict:
@@ -1018,26 +1055,7 @@ def check_fp32(params, device) -> list[dict]:
     log(f"[fp32] K1 fp32: {ms:.3f} ms per launch; plain fp32 version {plain_ms:.3f} ms")
     flop = 2 * got.numel() * module_macs(model)
     fp32_bounds("[fp32] K1 fp32 (3xTF32 on the wgmma core)", ms, flop)
-    # the launch shape, one block alone, the registers, and no launch without the slices
-    n1 = got.numel()
-    occ = k1.kernel_occupancy(n1)
-    slots = occ["blocks_per_sm"] * occ["sms"]
-    one = k1.TILE_ROWS32  # one block of one tile
-    ms_one = cuda_ms(lambda: k1.depth_net_kernel(packed, cfg, A[:one], B[:one]), 10)
-    log(f"[fp32] depth_net_kernel<float> at {n1} rays: {occ['blocks']} blocks of {occ['tiles_per_block']} 64-row "
-        f"tiles ({occ['threads']} threads, {occ['smem_bytes']} bytes of shared memory), {occ['blocks_per_sm']} "
-        f"resident per SM x {occ['sms']} SMs = {slots} slots, {occ['blocks'] / slots:.2f} waves; one block of one "
-        f"tile ({one} rays) alone {ms_one:.3f} ms against the launch's time per tile of a block "
-        f"{ms / occ['tiles_per_block']:.3f} ms; {ptxas_usage(build.build_info['log'], 'depth_net_kernelIfE')}")
-    require(occ["threads"] == 160 and occ["blocks_per_sm"] == 1,
-            "K1 fp32 does not launch as the fp32 path of the wgmma core (160 threads, one block per SM)")
-    arr, count = build.pointer_array([k1.fragment_tiles(A), k1.fragment_tiles(B), torch.empty(n1, device=device)]
-                                     + k1._flat_weights(packed, torch.float32))
-    rc = build.load_library().nst_depth_net_forward(
-        arr, count, n1, len(cfg.hidden_sizes), len(cfg.cat_hidden_sizes), float(cfg.near), float(cfg.far), 1,
-        occ["tiles_per_block"], build.current_stream(device))
-    log(f"[fp32] an fp32 DepthNet launch without the weight slices: cudaError_t {rc} (refused)")
-    require(rc != 0, "K1 fp32: a launch without the weight slices was not refused")
+    check_k1_launch("[fp32]", packed, cfg, A, B, ms, device)
     recs = [kernel_record("depth_net_kernel_fp32", "depth_net.cu", "nerf_sampling_tpu/kernels/fused_depth_net.py:181",
                           mx, ms, plain_ms, flop, nbytes(A, B, packed, got), "tf32x3", core=CORE)]
 
@@ -1230,7 +1248,7 @@ def check_k10(params, scene, K, device, batches) -> tuple[list[dict], dict[str, 
         ms = cuda_ms(kernel, 3)
         plain_ms = cuda_ms(lambda: plain_chunks(plain, n), 1)
         rec = kernel_record(name, "render_around_depth.cu", "nerf_sampling_tpu/kernels/quant.py:353", worst, ms,
-                            plain_ms, flop, nbytes(*inputs, q.nerf, got), int8_flop=iflop)
+                            plain_ms, flop, nbytes(*inputs, q.nerf, got), int8_flop=iflop, core=CORE)
         log(f"[k10] {tag}: {ms:.3f} ms per launch at {n} rays x {S}; plain int8 version {plain_ms:.3f} ms; "
             f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
         if name == "shade_kernel_int8":
@@ -1242,6 +1260,29 @@ def check_k10(params, scene, K, device, batches) -> tuple[list[dict], dict[str, 
     d = (int8["rgb_map"] - bf16["rgb_map"]).abs()
     log(f"[k10] K2 int8 against K2 bf16 over view 0: |rgb| mean {float(d[~torch.isnan(d)].mean()):.3e} "
         f"max {float(d[~torch.isnan(d)].max()):.3e} (not gated); K9-int8 record (on no path): {json.dumps(k9)}")
+    # the int8 render kernel on the wgmma core (s8): its launch shape, one block
+    # alone against its share of a wave, and no launch without its slices
+    occ = k289.kernel_occupancy(S, int8=True)
+    one = occ["rays_per_block"]
+    blocks, slots = -(-n // one), occ["blocks_per_sm"] * occ["sms"]
+    ms_one = cuda_ms(lambda: k289.render_around_depth_kernel(q.nerf, cfg, ro[:one], rd[:one], depth[:one], offsets),
+                     20)
+    ms2 = recs[0]["ms"]
+    log(f"[k10] render_around_depth_kernel<int8_t> (wgmma core, s8) at {n} rays x {S}: {blocks} blocks of {one} rays "
+        f"({occ['threads']} threads, {occ['smem_bytes']} bytes of shared memory), {occ['blocks_per_sm']} resident per "
+        f"SM x {occ['sms']} SMs = {slots} slots, {blocks / slots:.2f} waves; one block of {one} rays alone "
+        f"{ms_one:.3f} ms against a wave's share of the K2 launch {ms2 * slots / blocks:.3f} ms; "
+        f"bf16 K2 {cuda_ms(lambda: k289.render_around_depth_kernel(params.kernels.nerf, cfg, ro, rd, depth, offsets), 3):.3f} "
+        f"ms in the same call")
+    require(occ["threads"] == 288 and occ["blocks_per_sm"] == 1,
+            "K10 in K2 does not launch as the wgmma core's kernel (288 threads, one block per SM)")
+    arr, count = build.pointer_array([ro, rd, depth, offsets, torch.empty((6, n), device=device)]
+                                     + k289._flat_weights(q.nerf))
+    rc = build.load_library().nst_render_around_depth(
+        arr, count, n, S, cfg.D, sum(1 << i for i in q.nerf["skip_w"]), 2.0, 6.0, 1,
+        build.host_pointer(k289._plan(q.nerf, cfg)), build.current_stream(device))
+    log(f"[k10] an int8 render launch without the weight slices: cudaError_t {rc} (refused)")
+    require(rc != 0, "K10 in K2: an int8 launch without the weight slices was not refused")
 
     # K7 over view 0, one launch
     cfg_c = params.coarse.cfg
@@ -2258,6 +2299,10 @@ def main() -> int:
             f"{ptxas_usage(info['log'], 'render_around_depth_kernelI13__nv_bfloat16')}")
         log(f"[build] render_around_depth_kernel<float> (K8, K9 in fp32 on the wgmma core, 3xTF32): "
             f"{ptxas_usage(info['log'], 'render_around_depth_kernelIfE')}")
+        log(f"[build] render_around_depth_kernel<int8_t> (K10 in K2, K3, K8, K9 on the wgmma core, s8): "
+            f"{ptxas_usage(info['log'], 'render_around_depth_kernelIaE')}")
+        log(f"[build] depth_net_kernel<bf16> (K1 on the wgmma core): "
+            f"{ptxas_usage(info['log'], 'depth_net_kernelI13__nv_bfloat16E')}")
         log(f"[build] depth_net_kernel<float> (K1 in fp32 on the wgmma core, 3xTF32): "
             f"{ptxas_usage(info['log'], 'depth_net_kernelIfE')}")
         for name, tag, mangled in (("bf16", "K6, K7 in bf16", "render_hier_kernelI13__nv_bfloat16E"),

@@ -4,33 +4,34 @@
 
 Four sets of gates must pass on the sound source and fail on a wrong one:
 - "k10", the int8 kernels' (chip_smoke.py [k10]: K10_MEAN_TOL / K10_P999_TOL
-  on the maps, K10_Z_MEAN_TOL / K10_Z_P99_TOL on K6/K7's max_z and
-  depth_map, K6-int8's max_z against bf16 K6), against faults in
-  kernels/csrc/nerf_mlp.cuh's requants, which K2/K3/K8/K9 in int8
-  (nerf_mlp.cuh's int8 core) and K6/K7 in int8 (the wgmma core's s8
-  forward) both call;
+  on the maps of K2, K3, K8, K9 and K6/K7 in int8, K10_Z_MEAN_TOL /
+  K10_Z_P99_TOL on K6/K7's max_z and depth_map, K6-int8's max_z against
+  bf16 K6), against faults in kernels/csrc/nerf_mlp.cuh's requants, which
+  the wgmma core's s8 forward calls for every int8 kernel (K2/K3/K8/K9 and
+  K6/K7 in int8);
 - "core", the wgmma core's first check ([core]: one bf16 layer at
   CORE_ULP_TOL, one s8 layer exact, one fp32 (3xTF32) layer within
   CORE32_TOL of strict fp32's error);
-- "wgmma", the kernels on the core ([K6], [k4], [k5], [K2], [K3] and the
-  render path: the K6 map, max_z and draw gates, K4 against its plain
-  version, K5_REL_TOL, K5_COS_TOL and the bits across launches, K2's and
-  K3's map and draw gates, view 0's PSNR against the JAX reference and the
-  plain fp32 path);
+- "wgmma", the bf16 kernels on the core ([K1], [K6], [k4], [k5], [K2], [K3]
+  and the render path: K1 against its plain version, the K6 map, max_z and
+  draw gates, K4 against its plain version, K5_REL_TOL, K5_COS_TOL and the
+  bits across launches, K2's and K3's map and draw gates, view 0's PSNR
+  against the JAX reference and the plain fp32 path);
 - "fp32", the COMPARE mode's kernels ([k9]: K9 at bf16 and fp32 against
   its plain versions; [fp32]: K1 and K7 fp32 against their plain fp32
   versions; [modes]: COMPARE_NERF and NERF_MAX over view 0, kernels
   against the plain fp32 path);
 against faults in the requants, in kernels/csrc/mlp_wgmma.cuh's producer,
-which every kernel on the core shares, the production render's K2, K4
-and K1, K7 and K9 in fp32 among them, in its int8 tile swizzle, which
-[core]'s s8 layer and K6/K7 in int8 share, and in its 3xTF32 product,
-which [core]'s fp32 layer and K1, K7 and K9 in fp32 share: its two
-corrections dropped, or its sums in one chain (the run says which of
-[k9], [fp32] and [modes] see each).
+which every kernel shares (all of them run on the core: the production
+render's K1 and K2, K4, K6, and K1, K7 and K9 in fp32 among them), in its
+int8 tile swizzle, which [core]'s s8 layer and every int8 kernel (K2/K3/
+K8/K9 and K6/K7) share, and in its 3xTF32 product, which [core]'s fp32
+layer and K1, K7 and K9 in fp32 share: its two corrections dropped, or its
+sums in one chain (the run says which of [k9], [fp32] and [modes] see
+each).
 This runs the gates first on the checkout as it is, then on one copy per
-fault below (the port, chip_smoke.py, the checkpoint and the experiment
-configs, under logs/fault_check/, with one edit to the copy's source), with
+fault below (the port with its experiment configs, chip_smoke.py and the
+checkpoint, under logs/fault_check/, with one edit to the copy's source), with
 the gates logged instead of raised, and prints each run's readings and the
 gates it failed. The last line is a JSON object {variant: [failed gates]}.
 Exits 0 when the sound source fails no gate and every fault fails at least
@@ -60,14 +61,18 @@ FAULTS = {
     # the +-2^15 clamp before the multiply dropped: t*m may wrap in int32
     "no_clamp": ("nerf_mlp.cuh", "a = min(max(a, -(1 << 15)), (1 << 15) - 1) * m;", "a = a * m;", ("k10",)),
     # the producer hands the consumers a stale slice, the one two back, for
-    # slices 2-9 of every tile's stream (trunk layer 1, the DepthNet's first
-    # layer, or the [core] product): in bf16 and int8 the previous half's or
-    # panel's, in fp32 the previous (hi, lo) pair's. (One back, an fp32
-    # stream's hi slot gets a lo image and its lo slot the right hi image,
-    # which 3xTF32 sums to within about 2^-11 of the product: K1 fp32's gate
-    # does not see that.)
+    # slices 2-9 of every 16 of every tile's stream (the NeRF's trunk layers,
+    # every layer of the DepthNet's towers and trunk, or the [core]
+    # product): in bf16 and int8 the previous half's or panel's, in fp32 the
+    # previous (hi, lo) pair's. (One back, an fp32 stream's hi slot gets a
+    # lo image and its lo slot the right hi image, which 3xTF32 sums to
+    # within about 2^-11 of the product: K1 fp32's gate does not see that.
+    # Slices 2-9 of a tile alone touch only the DepthNet's origin tower,
+    # which bf16 K1's gate over view 0, whose rays share one origin, does
+    # not see.)
     "stale_slice": ("mlp_wgmma.cuh", "const bf16* src = segs[g].slices + (size_t)s * (kSliceBytes / 2);",
-                    "const bf16* src = segs[g].slices + (size_t)(s >= 2 && s < 10 ? s - 2 : s) * (kSliceBytes / 2);",
+                    "const bf16* src = segs[g].slices + (size_t)(s % 16 >= 2 && s % 16 < 10 ? s - 2 : s) * "
+                    "(kSliceBytes / 2);",
                     ("core", "wgmma", "fp32")),
     # the int8 tiles written unswizzled while wgmma reads them swizzled: every
     # int8 activation the s8 products read lands in the wrong 16-byte chunk
@@ -113,7 +118,7 @@ queries = []  # the step's queries, made once for K4 and K5
 checks = {
     "core": [lambda: c.check_core(device)],
     "k10": [lambda: c.check_k10(params, scene, K, device, batches)],
-    "wgmma": [lambda: c.check_k6(params, device, batches),
+    "wgmma": [lambda: c.check_k1(params, device), lambda: c.check_k6(params, device, batches),
               lambda: queries.append(c.step_queries(params, scene, device)),
               lambda: c.check_k4(params, queries[0]), lambda: c.check_k5(params, queries[0]),
               lambda: c.check_k2(params, device), lambda: c.check_k3(params, device),
@@ -140,8 +145,6 @@ def make_copy(name: str, source: str, old: str, new: str) -> str:
     shutil.copytree(os.path.join(HERE, "nerf_sampling_tpu_torch"), os.path.join(root, "nerf_sampling_tpu_torch"),
                     ignore=ignore)
     shutil.copytree(os.path.join(HERE, "evidence", "ckpt"), os.path.join(root, "evidence", "ckpt"))
-    configs = os.path.join("nerf_sampling_tpu", "experiments", "configs")
-    shutil.copytree(os.path.join(HERE, configs), os.path.join(root, configs))
     shutil.copy(os.path.join(HERE, "chip_smoke.py"), root)
     path = os.path.join(root, CSRC, source)
     with open(path) as fp:
@@ -158,7 +161,7 @@ def run_checks(cwd: str, gates: list[str]) -> list[str]:
     through, and the gates they failed come back."""
     proc = subprocess.run([sys.executable, "-c", RUN, *gates], cwd=cwd, capture_output=True, text=True)
     for line in proc.stdout.splitlines():
-        if line.startswith(("[k10]", "[core]", "[K6]", "[k4]", "[k5]", "[K2]", "[K3]", "[slice]", "[k9]", "[fp32]",
+        if line.startswith(("[k10]", "[core]", "[K1]", "[K6]", "[k4]", "[k5]", "[K2]", "[K3]", "[slice]", "[k9]", "[fp32]",
                             "[modes]", "[build]", "[fault_check]")):
             print(line, flush=True)
     if proc.returncode != 0 or not proc.stdout.rstrip().splitlines()[-1].startswith("FAILED "):

@@ -101,7 +101,7 @@ def load_library() -> ctypes.CDLL:
     )
     lib.nst_depth_net_forward.argtypes = [ptrs, i32, i64, i32, i32, f32, f32, i32, i32, vp]
     lib.nst_depth_net_forward.restype = i32
-    lib.nst_depth_net_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.nst_depth_net_occupancy.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
     lib.nst_depth_net_occupancy.restype = i32
     # the vp before the stream of the render entries: the int8 plan, a host
     # int32 array (quant.quant_plan), or null for bf16 and fp32 (a bf16 or

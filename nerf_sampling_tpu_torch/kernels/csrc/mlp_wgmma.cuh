@@ -1,11 +1,12 @@
-// The Hopper MLP core: dense layers over 128-row tiles on wgmma, with the
-// weights streamed through a ring of shared-memory slices by a producer
-// warp. Used by K6/K7 in bf16 and int8 and K7 in fp32 (render_hier.cu),
-// K2/K3/K8/K9 in bf16 and K8/K9 in fp32 (render_around_depth.cu), K1 in fp32
-// (depth_net.cu), K4 (nerf_points.cu), K5's row pass (nerf_points_bwd.cu)
-// and the [core] check (wg_dense.cu); K1 in bf16 and K2/K3/K8/K9 in int8
-// keep mlp_tile.cuh's cores. The fp32 path (3xTF32 products, 64-row tiles,
-// one consumer warpgroup) is described at its section below.
+// The Hopper MLP core: dense layers over 64-row warpgroup tiles on wgmma,
+// with the weights streamed through a ring of shared-memory slices by a
+// producer warp. Every MLP of the port runs on it: K6/K7 in bf16, int8 and
+// fp32 (render_hier.cu), K2/K3/K8/K9 in bf16, int8 and fp32
+// (render_around_depth.cu), K1 in bf16 and fp32 (depth_net.cu), K4
+// (nerf_points.cu), K5's row pass (nerf_points_bwd.cu) and the [core] check
+// (wg_dense.cu). The fp32 path (3xTF32 products, 64-row tiles, one consumer
+// warpgroup) and the DepthNet's bf16 program are described at their
+// sections below.
 //
 //   acc[64 rows of a warpgroup, NH * 128] = sum_op A_op @ B_op
 //
@@ -14,13 +15,13 @@
 // bias, activate() (NaN kept), a bf16 round, written straight into the
 // activation tile the next layer reads; int8 (K10, kernels/quant.py), the
 // requants of nerf_mlp.cuh at JAX's rounding points. Rounding points are
-// mlp_tile.cuh's: only the order of the fp32 sums differs.
+// the TPU kernels': only the order of the fp32 sums differs.
 //
 // Block: two consumer warpgroups (threads 0-255) and one producer warp
 // (256-287) whose first lane issues the copies. Warpgroup g owns rows
 // [64g, 64g + 64) of every 128-row tile,
 // so each staged slice feeds 128 rows: half the L2 weight bytes per FLOP of
-// the 64-row wmma core, and no fp32 scratch round trip.
+// a 64-row tile, and no fp32 scratch round trip.
 //
 // Shared-memory layouts (all 128-byte swizzled, K-major, 1024-byte aligned;
 // what wgmma's descriptor with layout SWIZZLE_128B and SBO = 1024 reads):
@@ -69,10 +70,10 @@ constexpr int kPanelBytes = kRows * 128;      // one panel of a tile: 64 bf16 or
 constexpr int kHalfPanel = kPanelBytes / 2;   // warpgroup 1's rows in a panel
 constexpr int kBarConsumers = 1;              // named barrier of threads 0-255; warpgroup g: 2 + g
 
-// byte offset of element (row, col) of a swizzled 128-row tile
-__host__ __device__ constexpr uint32_t tile_offset(int row, int col) {
-  return (uint32_t)((col >> 6) * kPanelBytes + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4) +
-                    ((col & 7) << 1));
+// byte offset of element (row, col) of a swizzled bf16 tile whose 64-column
+// panels are `panel` bytes apart (128 rows: kPanelBytes)
+__host__ __device__ constexpr uint32_t tile_offset(int row, int col, uint32_t panel = kPanelBytes) {
+  return (uint32_t)((col >> 6) * panel + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4) + ((col & 7) << 1));
 }
 
 // byte offset of element (row, col) of a swizzled 128-row int8 tile
@@ -275,32 +276,36 @@ __device__ void produce(const Ring<S>& ring, const Segment* segs, int n_segs, in
       }
 }
 
-// An A operand: `panels` 16 KB panels of a 128-row tile at shared address
-// `tile` (64 bf16 or 128 int8 columns each); the product reads this
-// warpgroup's 64 rows.
+// An A operand: `panels` panels of a tile at shared address `tile` (64
+// bf16 or 128 int8 columns each), `panel` bytes apart: 16 KB in a 128-row
+// tile, whose warpgroup g reads rows [64g, 64g + 64); 8 KB in a 64-row
+// tile of one warpgroup (the DepthNet's, kDepthPanel).
 struct Src {
   uint32_t tile;
   int panels;
+  uint32_t panel = kPanelBytes;
 };
 
 // acc = sum over src of A @ B, B the next slices of the stream: bf16 with
 // float acc, int8 with int acc; every consumer thread of the warpgroup
-// calls it. Ends with every slice released.
+// calls it. With accumulate the sums continue from acc (bf16), else from
+// zero. Ends with every slice released.
 template <int NH, int S, typename Acc>
 __device__ __forceinline__ void gemm(Acc (&acc)[NH][64], const Src* src, int n_src, const Ring<S>& ring,
-                                     Cursor& cur) {
+                                     Cursor& cur, bool accumulate = false) {
   const uint32_t row_off = (threadIdx.x >> 7) * kHalfPanel;
   const bool lead = (threadIdx.x & 31) == 0;
 #pragma unroll
   for (int h = 0; h < NH; ++h) {
+    if (!accumulate)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[h][i] = 0;
+      for (int i = 0; i < 64; ++i) acc[h][i] = 0;
     fence_regs(acc[h]);
   }
   int prev = -1;
   for (int o = 0; o < n_src; ++o)
     for (int kp = 0; kp < src[o].panels; ++kp) {
-      const uint32_t a = src[o].tile + kp * kPanelBytes + row_off;
+      const uint32_t a = src[o].tile + kp * src[o].panel + row_off;
 #pragma unroll
       for (int h = 0; h < NH; ++h) {
         mbar_wait(ring.full(cur.stage), cur.phase);
@@ -373,21 +378,24 @@ struct PairAddr {
     sw = r & 7;
     c = 2 * (lane & 3);
   }
-  // pair (h, i = 4j + 2hh): column h * 128 + 8 j + c
+  // pair (h, i = 4j + 2hh): column h * 128 + 8 j + c, in a tile of panels kPanel bytes apart
+  template <uint32_t kPanel = kPanelBytes>
   __device__ __forceinline__ uint32_t at(int h, int i) const {
     const int j = i >> 2, col8 = h * 16 + j;  // the 8-column group
-    return (col8 >> 3) * kPanelBytes + row_base[(i >> 1) & 1] + (((col8 & 7) ^ sw) << 4) + (c << 1);
+    return (col8 >> 3) * kPanel + row_base[(i >> 1) & 1] + (((col8 & 7) ^ sw) << 4) + (c << 1);
   }
 };
 
-// acc (bf16 values) into a 128-row tile at this warpgroup's rows. The
-// caller has synced the warpgroup after its last product reading the tile;
-// this ends with the tile visible to the warpgroup's next wgmma.
-template <int NH>
+// acc (bf16 values) into a tile at this warpgroup's rows: a 128-row tile,
+// or with kPanel = kDepthPanel the 64-row tile of one warpgroup. The caller
+// has synced the warpgroup after its last product reading the tile; this
+// ends with the tile visible to the warpgroup's next wgmma.
+template <int NH, uint32_t kPanel = kPanelBytes>
 __device__ __forceinline__ void store_tile(const float (&acc)[NH][64], unsigned char* tile) {
   const PairAddr pa;
   for_pairs<NH>([&](int, int, int h, int i) {
-    *reinterpret_cast<__nv_bfloat162*>(tile + pa.at(h, i)) = __floats2bfloat162_rn(acc[h][i], acc[h][i + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(tile + pa.template at<kPanel>(h, i)) =
+        __floats2bfloat162_rn(acc[h][i], acc[h][i + 1]);
   });
   fence_async_smem();
   group_sync();
@@ -509,8 +517,8 @@ __device__ __forceinline__ void store_q2(unsigned char* tile, int row, int col, 
   *reinterpret_cast<uint16_t*>(tile + qtile_offset(row, col)) = (uint16_t)((a & 0xFF) | ((b & 0xFF) << 8));
 }
 
-// The int8 forward (K10: kernels/quant.py's chain, nerf_mlp.cuh's int8
-// mlp_chunk at its rounding points) over one 128-row tile whose bf16 PE
+// The int8 forward (K10: kernels/quant.py's chain at JAX's rounding
+// points, nerf_mlp.cuh's requants) over one 128-row tile whose bf16 PE
 // tile is filled; outputs as the bf16 nerf_forward. The activations are
 // int8 in two tiles of t.x (panels 0-1 and 2-3): a layer reads one and
 // writes the other. Consumes forward_qslices() of the stream:
@@ -1069,6 +1077,24 @@ __device__ __forceinline__ DepthTiles32<S> carve_depth32(unsigned char* base) {
   return t;
 }
 
+// The DepthNet's head over the last trunk layer's activations acc (64
+// rows of one warpgroup): depth = near (1 - sg) + far sg, sg the sigmoid
+// (accurate expf) of the fp32 dot with head_w plus head_b, into out[row]
+// for rows [0, valid).
+template <typename P>
+__device__ __forceinline__ void depth_head(const P& p, const float (&acc)[2][64], int valid, float* out) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows r0, r0 + 8
+  float s[2];
+  row_dots<2, 1>(acc, p.head_w, 0, s);
+  if ((lane & 3) == 0)
+    for (int hh = 0; hh < 2; ++hh)
+      if (r0 + 8 * hh < valid) {
+        const float sg = 1.f / (1.f + expf(-(s[hh] + p.head_b[0])));
+        out[r0 + 8 * hh] = p.near_ * (1.f - sg) + p.far_ * sg;
+      }
+}
+
 // The DepthNet over one 64-row tile: depth of rows [0, valid) into out[row].
 // a and b: the tile's embeddings in fragment order (16 groups each). P
 // holds n_layers, n_cat, the fp32 biases tb[3][l] and cb[l], head_w [256],
@@ -1077,8 +1103,6 @@ __device__ __forceinline__ DepthTiles32<S> carve_depth32(unsigned char* base) {
 template <int S, typename P>
 __device__ void depth_forward32(const P& p, const DepthTiles32<S>& t, Cursor& cur, const float4* a,
                                 const float4* b, int valid, float* out) {
-  const int lane = threadIdx.x & 31;
-  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows r0, r0 + 8
   const Src32 x = {t.x, kXGroups32};
   float acc[2][64];
   for (int tw = 0; tw < 3; ++tw) {
@@ -1102,55 +1126,147 @@ __device__ void depth_forward32(const P& p, const DepthTiles32<S>& t, Cursor& cu
     gemm_tf32(acc, &x, 1, t.ring, cur);
     bias_act32(acc, p.cb[l], kLeaky);
   }
-  float s[2];
-  row_dots<2, 1>(acc, p.head_w, 0, s);
-  if ((lane & 3) == 0)
-    for (int hh = 0; hh < 2; ++hh)
-      if (r0 + 8 * hh < valid) {
-        const float sg = 1.f / (1.f + expf(-(s[hh] + p.head_b[0])));
-        out[r0 + 8 * hh] = p.near_ * (1.f - sg) + p.far_ * sg;
-      }
+  depth_head(p, acc, valid, out);
 }
 
-// ---- the render kernels' choice of core (render_hier.cu, render_around_depth.cu)
+// ---- the DepthNet on the bf16 path (K1 in bf16, depth_net.cu)
+//
+// depth_forward32's program with bf16 products (m64n128k16, both operands
+// in shared memory) and the bf16 register epilogue (bias_act: the fp32
+// bias, activate, a bf16 round, as the TPU kernel rounds each layer): the
+// three towers layer by layer, each tower's share of trunk layer 0 summed
+// onto an fp32 partial as the tower ends (the tensor cores accumulate onto
+// it: gemm with accumulate), then A's and B's share and the bias, LeakyReLU
+// and the trunk, and depth_head. The same block as the fp32 path: one
+// consumer warpgroup on 64-row tiles and the producer warp (160 threads),
+// a block walking tiles_per_block tiles, a 6-stage ring.
+//
+// Shared memory (the layout a 128-row tile of two warpgroups cannot have:
+// its activations, A and B and the partial need 256 KB before any ring):
+// the activation tile, 64 rows x 256 bf16 as 4 panels of 8 KB (32 KB); A
+// and B, 64 x 128 bf16 each as 2 panels (32 KB), copied in from the rows
+// of [N, 128] in device memory, swizzled, at the start of each tile; the
+// fp32 partial in the fp32 path's thread-private store order (64 KB); the
+// ring (96 KB + its barriers): 229,472 bytes, 230,496 with the 1024-byte
+// alignment. Each staged slice feeds 64 rows: 440 slices (7.2 MB) a tile
+// of the committed 10x256 net, 18 GB of L2 reads a 160,064-ray frame. Why
+// one warpgroup and not two on one 64-row tile (each owning 128 output
+// columns, the partial in registers): it is the fp32 path's block and
+// stream as they are, with one release count per stage and no per-layer
+// handshake between warpgroups; both read the same L2 bytes a frame.
+//
+// The slice stream of one tile (fused_depth_net.wgmma_depth_program, bf16
+// slices 128 x 64): a 128-deep product 4 slices, a 256-deep one 8.
+constexpr uint32_t kDepthPanel = kRows32 * 128;  // one 64-column panel of a 64-row bf16 tile
+constexpr int kEmb = 8 * kEmbGroups32;           // the width of A and B
+__host__ __device__ inline int depth_slices16(int n_layers, int n_cat) {
+  return 3 * (4 + 12 * (n_layers - 1) + 8) + 8 + 8 * (n_cat - 1);
+}
 
-// A render kernel's element type T runs the NeRF on this core when OnCore:
-// bf16 and fp32 in both kernels, int8 in render_hier.cu only (Hier = true).
-// On the core: bf16 and int8 with 288 threads (two consumer warpgroups),
-// 128-row tiles and a ring of kRenderStages slices; fp32 with 160 threads
-// (one consumer warpgroup), 64-row tiles and a ring of kStages32. The tiles
-// start at the first 1024-byte boundary of shared memory. Otherwise (int8
-// in render_around_depth.cu) T keeps nerf_mlp.cuh's int8 core: 256 threads
-// and its tiles.
+// Shared memory of the bf16 DepthNet, from a 1024-byte aligned base: the
+// activation tile, A, B, the trunk-layer-0 partial and the ring.
+template <int S>
+struct DepthTiles {
+  unsigned char* x;
+  unsigned char* a;
+  unsigned char* b;
+  float4* part;
+  Ring<S> ring;
+  static constexpr int kBytes = 8 * kDepthPanel + kXGroups32 * kConsumers32 * 16 + Ring<S>::kBytes;
+};
+template <int S>
+__device__ __forceinline__ DepthTiles<S> carve_depth(unsigned char* base) {
+  DepthTiles<S> t;
+  t.x = base;
+  t.a = base + 4 * kDepthPanel;
+  t.b = base + 6 * kDepthPanel;
+  t.part = reinterpret_cast<float4*>(base + 8 * kDepthPanel);
+  t.ring.data = smem_u32(base + 8 * kDepthPanel + kXGroups32 * kConsumers32 * 16);
+  return t;
+}
+
+// Rows [0, valid) of a row-major [., 128] bf16 plane into a swizzled 64-row
+// tile, zero past them, 16 bytes a thread and step.
+__device__ __forceinline__ void load_emb(const bf16* __restrict__ src, int valid, unsigned char* tile) {
+  for (int e = threadIdx.x; e < kRows32 * (kEmb / 8); e += kConsumers32) {
+    const int r = e / (kEmb / 8), c = (e % (kEmb / 8)) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) v = __ldg(reinterpret_cast<const uint4*>(src + (long long)r * kEmb + c));
+    *reinterpret_cast<uint4*>(tile + tile_offset(r, c, kDepthPanel)) = v;
+  }
+}
+
+// The bf16 DepthNet over one 64-row tile: depth of rows [0, valid) into
+// out[row]. a and b: the tile's first rows of A and B ([N, 128] bf16). P:
+// depth_net.cu's DepthNetParams<bf16>. Consumes depth_slices16() of the
+// stream.
+template <int S, typename P>
+__device__ void depth_forward(const P& p, const DepthTiles<S>& t, Cursor& cur, const bf16* a, const bf16* b,
+                              int valid, float* out) {
+  group_sync();  // the previous tile's products read A and B no more
+  load_emb(a, valid, t.a);
+  load_emb(b, valid, t.b);
+  fence_async_smem();
+  group_sync();
+  const Src x = {smem_u32(t.x), 4, kDepthPanel};
+  const Src emb[2] = {{smem_u32(t.a), 2, kDepthPanel}, {smem_u32(t.b), 2, kDepthPanel}};
+  float acc[2][64];
+  for (int tw = 0; tw < 3; ++tw) {
+    const Src ops[2] = {emb[tw < 2 ? 0 : 1], x};
+    for (int l = 0; l < p.n_layers; ++l) {
+      gemm(acc, ops, l > 0 ? 2 : 1, t.ring, cur);
+      bias_act(acc, p.tb[tw][l], kNone);
+      group_sync();  // the warpgroup's products read x no more
+      store_tile<2, kDepthPanel>(acc, t.x);
+    }
+    // the tower's share of trunk layer 0, summed onto the partial
+    if (tw > 0) load32(acc, t.part);
+    gemm(acc, &x, 1, t.ring, cur, tw > 0);
+    store32(acc, t.part);
+  }
+  load32(acc, t.part);
+  gemm(acc, emb, 2, t.ring, cur, true);
+  bias_act(acc, p.cb[0], kLeaky);
+  for (int l = 1; l < p.n_cat; ++l) {
+    group_sync();
+    store_tile<2, kDepthPanel>(acc, t.x);
+    gemm(acc, &x, 1, t.ring, cur);
+    bias_act(acc, p.cb[l], kLeaky);
+  }
+  depth_head(p, acc, valid, out);
+}
+
+// ---- the render kernels' paths (render_hier.cu, render_around_depth.cu)
+
+// A render kernel's element type T picks its path of the core: bf16 and
+// int8 with 288 threads (two consumer warpgroups), 128-row tiles and a ring
+// of kRenderStages slices; fp32 with 160 threads (one consumer warpgroup),
+// 64-row tiles and a ring of kStages32. The tiles start at the first
+// 1024-byte boundary of shared memory.
 constexpr int kRenderStages = 5;
-template <typename T, bool Hier = false>
-constexpr bool kOnCore = std::is_same_v<T, bf16> || std::is_same_v<T, float> || (Hier && std::is_same_v<T, int8_t>);
-template <typename T, bool Hier = false>
+template <typename T>
 constexpr bool kCore32 = std::is_same_v<T, float>;
-// the threads that do the kernel's work (the consumers, on the core)
-template <typename T, bool Hier = false>
-constexpr int kWorkers = kCore32<T, Hier> ? kConsumers32 : kOnCore<T, Hier> ? kConsumers : nst::kThreads;
-template <typename T, bool Hier = false>
-constexpr int kBlockThreads = kCore32<T, Hier> ? kThreads32 : kOnCore<T, Hier> ? kThreads : nst::kThreads;
-template <typename T, bool Hier = false>
-constexpr int kTileRows = kCore32<T, Hier> ? kRows32 : kRows;
-template <typename T, bool Hier = false>
-using RenderTiles = std::conditional_t<kCore32<T, Hier>, Tiles32<kStages32>,
-                                       std::conditional_t<kOnCore<T, Hier>, Tiles<kRenderStages>, TilesQ>>;
-// the MLP's shared memory, ahead of the kernel's own planes
-template <typename T, bool Hier = false>
+// the threads that do the kernel's work: the consumers
+template <typename T>
+constexpr int kWorkers = kCore32<T> ? kConsumers32 : kConsumers;
+template <typename T>
+constexpr int kBlockThreads = kCore32<T> ? kThreads32 : kThreads;
+template <typename T>
+constexpr int kTileRows = kCore32<T> ? kRows32 : kRows;
+template <typename T>
+using RenderTiles = std::conditional_t<kCore32<T>, Tiles32<kStages32>, Tiles<kRenderStages>>;
+// the MLP's shared memory, ahead of the kernel's own planes (+ the 1024-byte alignment)
+template <typename T>
 __host__ __device__ constexpr size_t mlp_bytes() {
-  if constexpr (kCore32<T, Hier>) return 1024 + Tiles32<kStages32>::kBytes;  // + the 1024-byte alignment
-  else if constexpr (kOnCore<T, Hier>) return 1024 + Tiles<kRenderStages>::kBytes;
-  else return tile_bytes_q();
+  return 1024 + RenderTiles<T>::kBytes;
 }
 // The core's tiles from the first 1024-byte boundary of smem, the ring's
 // barriers initialized (by thread 0; the caller syncs the block)
-template <typename T, bool Hier = false>
-__device__ __forceinline__ RenderTiles<T, Hier> carve_render(unsigned char* smem) {
+template <typename T>
+__device__ __forceinline__ RenderTiles<T> carve_render(unsigned char* smem) {
   unsigned char* base = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
-  RenderTiles<T, Hier> t;
-  if constexpr (kCore32<T, Hier>) {
+  RenderTiles<T> t;
+  if constexpr (kCore32<T>) {
     t = carve32<kStages32>(base);
     if (threadIdx.x == 0) t.ring.init(kConsumers32 / 32);
   } else {

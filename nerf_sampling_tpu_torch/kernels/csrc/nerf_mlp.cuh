@@ -1,57 +1,52 @@
-// The NeRF MLP over a block's sample rows of K2/K3/K8/K9 in int8
-// (render_around_depth.cu); the bf16 and fp32 render kernels, K6/K7 in
-// every type, K4 and K5 run mlp_wgmma.cuh's core instead, which reads the
-// weights through NerfWeightsT and read_pack below, whose PE calls embed,
-// whose int8 epilogue calls quant_f32 and requant_int, and whose render
-// kernels sort with sort_rows.
+// What the MLP core (mlp_wgmma.cuh) and the render kernels share: the
+// element types and activations, the NeRF's packed weights (NerfWeightsT,
+// read_pack: bf16, fp32, and the W8A8 int8 pack of K10 with its requant
+// constants), the positional encoding (embed), the int8 requants, and the
+// per-ray sort.
 //
-// A block holds, in shared memory, the per-ray data of its R rays (o, d,
-// |d|, one spare float each, 8 floats a ray) and a plane of depths z[row]
-// whose ray is row / S. nerf_rows walks the rows in chunks of 64: the fp32
-// positional encoding of the chunk (accurate sinf/cosf: the argument
-// reaches 2^9*|x|, so __sinf is not acceptable), rounded to bf16, goes to a
-// PE tile [pts emb 63 | 0 | view emb 27 | 0 x5], the MLP runs layer by layer
-// between two activation tiles, and sigma and sigmoid(rgb) land in per-row
-// fp32 planes (mlp_chunk: one chunk, whatever filled its PE tile).
-// sigma_only runs the trunk and the alpha head alone (JAX heads="sigma").
+// The MLP is the W8A8 one in int8 (K10, kernels/quant.py): NerfWeightsQ
+// holds an int8 pack (qpack_nerf) and its requant constants. The rounding
+// points are JAX's: h*inv_sh + 0.5 in two rounded fp32 steps
+// (__fmul_rn/__fadd_rn: no FMA) and a truncating float -> int8 cast
+// (quant_f32; a NaN activation quantizes to 0, the plain version's
+// choice), and the integer requant of the int layers (requant_int).
 //
-// The MLP is the W8A8 one (K10, kernels/quant.py): NerfWeightsQ holds an
-// int8 pack (qpack_nerf) and its requant constants, the activation tiles
-// hold int8 (stride kLdq), the PE tile bf16, and mlp_chunk runs layer 0 in
-// bf16 with an fp32 -> int8 requant, the int layers as int8 x int8 ->
-// int32 products with an integer requant, the skip layer and the views
-// layer as the int32 product dequantized plus a bf16 product of the PE
-// tile, and the alpha head on the int8 activations. The rounding points are
-// JAX's: h*inv_sh + 0.5 in two rounded fp32 steps (__fmul_rn/__fadd_rn: no
-// FMA) and a truncating float -> int8 cast; a NaN activation quantizes to 0
-// (the plain version's choice).
+// The positional encoding is fp32 with accurate sinf/cosf: the argument
+// reaches 2^9*|x|, so __sinf is not acceptable.
 //
 // sort_rows is the stable per-ray sort of a plane, by rank, that K3 and K6
 // run before shading: ties keep index order and NaN goes last, compared
 // explicitly (fminf/fmaxf and plain < would drop or misplace NaN).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <cstring>
 #include <type_traits>
 
-#include "mlp_tile.cuh"
-
 namespace nst {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kW = 256;          // NeRF width the kernels are built for
 constexpr int kWv = kW / 2;      // views-layer width
-constexpr int kChunk = 64;       // sample rows per MLP pass
 constexpr int kPeCols = 96;      // [pts emb 63 | 0 | view emb 27 | 0 x5]
 constexpr int kPeViews = 64;     // first column of the view embedding
-constexpr int kLdpe = kPeCols + 8;
 constexpr int kPtsCh = 63;       // 3 * (1 + 2 * 10)
 constexpr int kViewCh = 27;      // 3 * (1 + 2 * 4)
 constexpr int kMaxD = 16;
-constexpr int kLdq = kW + 32;    // int8 activation stride: gemm_rows_q's 8-byte loads hit 32 banks
-constexpr int kLdv = kWv + 8;    // bf16 stride of the int8 MLP's views-layer output
+
+enum Act { kNone = 0, kRelu = 1, kLeaky = 2 };
+
+// Comparisons keep a NaN where fmaxf would drop it: a ray that misses the
+// bounding sphere must stay NaN end to end, as in the reference.
+__device__ __forceinline__ float activate(float v, int act) {
+  if (act == kRelu) return v < 0.f ? 0.f : v;
+  if (act == kLeaky) return v > 0.f ? v : 0.01f * v;
+  return v;
+}
 
 template <typename T>
 struct NerfWeightsT {
@@ -202,29 +197,6 @@ inline int read_pack(const void* const* ptrs, int D, unsigned skip_mask, bool si
   }
 }
 
-// Shared memory of the int8 MLP: two int8 activation tiles, the bf16 PE
-// tile and the per-warp fp32 epilogue scratch of wmma. Every offset is a
-// multiple of 32 bytes (wmma).
-__host__ __device__ constexpr size_t tile_bytes_q() {
-  return 2 * kChunk * kLdq + kChunk * kLdpe * sizeof(bf16) + kWarps * kScratchPerWarp * sizeof(float);
-}
-
-struct TilesQ {
-  int8_t* x[2];    // [64, kLdq] int8 activations; x[cur] also holds the views output, bf16 [64, kLdv]
-  bf16* pe;
-  float* scratch;  // kWarps fp32 16x16 tiles
-};
-static_assert(kChunk * kLdv * sizeof(bf16) <= kChunk * kLdq, "the views output must fit an int8 tile");
-
-__device__ __forceinline__ TilesQ carve_tiles(unsigned char* smem) {
-  TilesQ t;
-  t.x[0] = reinterpret_cast<int8_t*>(smem);
-  t.x[1] = t.x[0] + kChunk * kLdq;
-  t.pe = reinterpret_cast<bf16*>(t.x[1] + kChunk * kLdq);
-  t.scratch = reinterpret_cast<float*>(t.pe + kChunk * kLdpe);
-  return t;
-}
-
 // Column col of the reference embedding [x, sin(x f0), cos(x f0), ...]
 // of a 3-vector x (x = v[0..2]).
 __device__ __forceinline__ float embed(const float* v, int col) {
@@ -251,129 +223,6 @@ __device__ __forceinline__ int requant_int(int a, int p, int q, int m, int lo) {
   return min(max(a, lo), 127);
 }
 
-// The int8 MLP (K10) over the 64 rows of one chunk whose (bf16) PE tile is
-// filled; rows [0, valid) are written: sigma[r] and, unless sigma_only,
-// sigmoid(rgb logits) to rgb[ch][r]. Every thread of the block calls it; it
-// ends on a barrier.
-__device__ __forceinline__ void mlp_chunk(const NerfWeightsQ& w, const TilesQ& t, int valid,
-                                          bool sigma_only, float* sigma, float* const* rgb) {
-  constexpr int MT = kChunk / 16, NT = kW / (16 * kWarps), NTv = kWv / (16 * kWarps);
-  const int tid = threadIdx.x;
-  {  // layer 0: bf16 PE @ w0 + b0, relu, fp32 -> int8
-    const Operand op0 = {t.pe, kLdpe, w.w0, 64};
-    int8_t* out = t.x[0];
-    gemm_rows<MT, NT>(&op0, 1, t.scratch, [&](int r, int col, float v, int) {
-      out[r * kLdq + col] = quant_f32(activate(v + w.b0[col], kRelu), w.inv_sh0);
-    });
-  }
-  __syncthreads();
-  int cur = 0;
-  for (int i = 1; i < w.D; ++i) {
-    int8_t* out = t.x[cur ^ 1];
-    const QOperand qa = {t.x[cur], kLdq, w.tw[i], kW};
-    if ((w.skip_mask >> i) & 1u) {
-      // (hq @ Wq) * sw + pe @ skip_w + b, relu, fp32 -> int8; in two row
-      // halves, so the int32 and fp32 accumulators fit the registers together
-      const float* sw = static_cast<const float*>(w.trow[i]);
-      const float* b = w.skip_b[i];
-      const float inv = w.inv_sh[i];
-      const Operand fa = {t.pe, kLdpe, w.skip_w[i], 64};
-      for (int r0 = 0; r0 < kChunk; r0 += kChunk / 2)
-        gemm_rows_q<MT / 2, NT, true>(qa, fa, r0, t.scratch, [&](int r, int col, int zi, float zf) {
-          const float v = __fadd_rn(__fadd_rn(__fmul_rn((float)zi, sw[col]), zf), b[col]);
-          out[r * kLdq + col] = quant_f32(activate(v, kRelu), inv);
-        });
-    } else {
-      const int* bz = static_cast<const int*>(w.trow[i]);
-      const int p = w.p[i], q = w.q[i], m = w.m[i];
-      gemm_rows_q<MT, NT, false>(qa, Operand{}, 0, t.scratch, [&](int r, int col, int zi, float) {
-        const int a = zi + bz[col];
-        out[r * kLdq + col] = (int8_t)requant_int(a < 0 ? 0 : a, p, q, m, 0);
-      });
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-
-  {  // sigma = hq @ alpha_w + alpha_b (exact products): four threads per row
-    const int rr = tid >> 2, part = tid & 3;
-    const int8_t* h = t.x[cur] + rr * kLdq;
-    float s = 0.f;
-    for (int c = part * (kW / 4); c < (part + 1) * (kW / 4); ++c) s += (float)h[c] * to_f(w.alpha_w[c]);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (part == 0 && rr < valid) sigma[rr] = s + w.alpha_b[0];
-  }
-  if (sigma_only) {
-    __syncthreads();  // the next chunk's first layer overwrites x[0]
-    return;
-  }
-  {  // feature: signed integer requant
-    int8_t* out = t.x[cur ^ 1];
-    const QOperand qf = {t.x[cur], kLdq, w.feat_w, kW};
-    gemm_rows_q<MT, NT, false>(qf, Operand{}, 0, t.scratch, [&](int r, int col, int zi, float) {
-      out[r * kLdq + col] = (int8_t)requant_int(zi + w.feat_b[col], w.fp, w.fq, w.fm, -127);
-    });
-  }
-  __syncthreads();
-  // views: (fq @ views_q) * views_sw + pe_views @ views_ws + views_b, relu,
-  // to bf16 in x[cur] (the last trunk activation is read no more)
-  bf16* hv = reinterpret_cast<bf16*>(t.x[cur]);
-  {
-    const QOperand qv = {t.x[cur ^ 1], kLdq, w.views_wf, kW};
-    const Operand fv = {t.pe + kPeViews, kLdpe, w.views_ws, 32};
-    gemm_rows_q<MT, NTv, true>(qv, fv, 0, t.scratch, [&](int r, int col, int zi, float zf) {
-      const float v = __fadd_rn(__fadd_rn(__fmul_rn((float)zi, w.views_sw[col]), zf), w.views_b[col]);
-      hv[r * kLdv + col] = __float2bfloat16(activate(v, kRelu));
-    });
-  }
-  __syncthreads();
-
-  for (int e = tid; e < kChunk * 3; e += kThreads) {
-    const int rr = e / 3, ch = e % 3;
-    const bf16* h = hv + rr * kLdv;
-    float s = 0.f;
-    for (int c = 0; c < kWv; ++c) s += to_f(h[c]) * to_f(w.rgb_w[ch * kWv + c]);
-    if (rr < valid) rgb[ch][rr] = 1.f / (1.f + expf(-(s + w.rgb_b[ch])));
-  }
-  __syncthreads();
-}
-
-// The MLP over rows [0, rows) of the plane z (row's ray: row / S); writes
-// sigma[row] and, unless sigma_only, sigmoid(rgb) to rgb[0..2][row].
-// Every thread of the block calls it; it ends on a barrier.
-__device__ __forceinline__ void nerf_rows(const NerfWeightsQ& w, const TilesQ& t, const float* ray,
-                                          const float* z, int rows, int S, bool sigma_only,
-                                          float* sigma, float* const* rgb) {
-  const int tid = threadIdx.x;
-  for (int c0 = 0; c0 < rows; c0 += kChunk) {
-    // positional encoding of the chunk; rows past the block's rays are zero
-    for (int e = tid; e < kChunk * kPeCols; e += kThreads) {
-      const int rr = e / kPeCols, col = e % kPeCols, row = c0 + rr;
-      float v = 0.f;
-      if (row < rows && (col < kPtsCh || (col >= kPeViews && col < kPeViews + kViewCh))) {
-        const float* q = ray + 8 * (row / S);
-        float u[3];
-        if (col < kPtsCh) {
-          const float zr = z[row];
-          // o + d*z rounded like the plain version: no fused multiply-add
-          for (int k = 0; k < 3; ++k) u[k] = __fadd_rn(q[k], __fmul_rn(q[3 + k], zr));
-          v = embed(u, col);
-        } else {
-          for (int k = 0; k < 3; ++k) u[k] = __fdiv_rn(q[3 + k], q[6]);
-          v = embed(u, col - kPeViews);
-        }
-      }
-      t.pe[rr * kLdpe + col] = __float2bfloat16(v);
-    }
-    __syncthreads();
-    float* rgb_c[3] = {nullptr, nullptr, nullptr};
-    if (!sigma_only)
-      for (int k = 0; k < 3; ++k) rgb_c[k] = rgb[k] + c0;
-    mlp_chunk(w, t, rows - c0, sigma_only, sigma + c0, rgb_c);
-  }
-}
-
 // a before b in the stable order: ascending, NaN last, ties by index
 __device__ __forceinline__ bool sorts_before(float a, int i, float b, int j) {
   const bool na = isnan(a), nb = isnan(b);
@@ -382,9 +231,9 @@ __device__ __forceinline__ bool sorts_before(float a, int i, float b, int j) {
 }
 
 // Stable sort of each of nr rays' S values src[r*S ..] into dst[r*S ..]:
-// every element finds its rank in its ray (S compares, all `threads`
-// threads busy).
-__device__ __forceinline__ void sort_rows(const float* src, float* dst, int nr, int S, int threads = kThreads) {
+// every element finds its rank in its ray (S compares), by the caller's
+// first `threads` threads.
+__device__ __forceinline__ void sort_rows(const float* src, float* dst, int nr, int S, int threads) {
   for (int e = threadIdx.x; e < nr * S; e += threads) {
     const int base = (e / S) * S, i = e - base;
     const float v = src[e];

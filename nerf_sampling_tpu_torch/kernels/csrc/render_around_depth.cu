@@ -26,15 +26,15 @@
 //     (z, index) that the TPU kernel's order-free compositor reproduces
 //     (ops.unsorted_weights), NaN last.
 // Then, for all: fp32 positional encoding of o + z*d and of the unit view
-// direction; the 8x256 NeRF MLP (mlp_wgmma.cuh in bf16 and fp32,
-// nerf_mlp.cuh in int8); compositing in sample
+// direction; the 8x256 NeRF MLP on the wgmma core (mlp_wgmma.cuh);
+// compositing in sample
 // order with dists z[s+1]-z[s] and a 1e10 tail, both scaled by |d|, alpha =
 // 1-exp(-relu(sigma)*dist), the exclusive product of 1-alpha+1e-10, and a
 // white background. Element type T: bf16 (bf16 PE, weights and
 // activations, fp32 accumulation), fp32 throughout (K8 and K9 in the
 // COMPARE mode), or int8 for all four modes: the W8A8 MLP of
-// kernels/quant.py (K10, nerf_mlp.cuh's int8 chunk), selected by an int8
-// plan; the z sources and the compositing are the same in every type.
+// kernels/quant.py (K10, the core's s8 forward), selected by an int8 plan;
+// the z sources and the compositing are the same in every type.
 //
 // What bounds it on the H100: about 1.2 MFLOP per sample, 12 TFLOP per
 // 400x400 frame at 64 samples, against 1.2 MB of bf16 weights (2.4 MB
@@ -46,20 +46,20 @@
 // frame at 64 samples, against 181 ms on the FMA units' 67 TFLOP/s).
 //
 // Design: one block per group of R rays (R*S <= kMaxRows sample rows, at
-// most 64 rays). bf16 and fp32 run the MLP on the wgmma core
-// (mlp_wgmma.cuh), as K6/K7 do, a producer warp streaming the NeRF's
-// full-forward weight slices (cp.async.bulk into an mbarrier ring) once per
-// tile while the consumers do everything else (the ray loads, the
-// population, the sort, the PE, the products' epilogues and the
-// compositing), one block per SM:
-//   bf16: 288 threads, two consumer warpgroups on 128-row tiles, a 5-stage
-//     ring; rows = 1536, so 24 rays a block at S = 64 and 3 at S = 512;
+// most 64 rays). Every type runs the MLP on the wgmma core (mlp_wgmma.cuh),
+// as K6/K7 do, a producer warp streaming the NeRF's full-forward weight
+// slices (cp.async.bulk into an mbarrier ring) once per tile while the
+// consumers do everything else (the ray loads, the population, the sort,
+// the PE, the products' epilogues and the compositing), one block per SM:
+//   bf16 and int8: 288 threads, two consumer warpgroups on 128-row tiles, a
+//     5-stage ring; rows = 1536, so 24 rays a block at S = 64 and 3 at S =
+//     512; int8 runs the s8 forward (nerf_forward on NerfWeightsQ: s8
+//     products, nerf_mlp.cuh's requants) on the same tiles and ring, so
+//     its shared memory is bf16's 214,096 bytes;
 //   fp32 (K8/K9 in COMPARE): 160 threads, one consumer warpgroup on 64-row
 //     tiles with 3xTF32 products and its activations in a thread-private
 //     store, a 6-stage ring (the fp32 path of mlp_wgmma.cuh, as K7 fp32);
 //     rows = 1024, so 16 rays a block at S = 64 and 2 at S = 512.
-// int8 keeps nerf_mlp.cuh's core (256 threads, rows = 1024, 64-row chunks
-// of mma.sync fragments), two blocks per SM.
 // Compositing walks each ray's samples in order, one thread per ray. None
 // of the TPU kernel's Mosaic devices (affine-in-z S matrix, rotation PE,
 // ones-row reductions, order-free compositor) is needed here.
@@ -75,11 +75,10 @@ namespace {
 
 constexpr int kMaxRays = 64;  // rays per block
 
-// bf16 and fp32 run the wgmma core (wg::kOnCore), int8 keeps nerf_mlp.cuh's
 template <typename T>
-constexpr int kMaxRows = std::is_same_v<T, bf16> ? 1536 : 1024;  // sample rows per block
+constexpr int kMaxRows = std::is_same_v<T, float> ? 1024 : 1536;  // sample rows per block
 template <typename T>
-constexpr int kWorkers = wg::kWorkers<T>;  // the threads that do the kernel's work
+constexpr int kWorkers = wg::kWorkers<T>;  // the consumers: they do the kernel's work
 
 enum ZSource { kAroundCenter = 0, kGaussian = 1, kLinspace = 2, kInput = 3, kInputUnsorted = 4 };
 
@@ -100,7 +99,7 @@ struct RenderParams {
   unsigned seed;         // gaussian, when the noise is null
   int white_bkgd;
   NerfWeightsT<T> w;
-  const bf16* slices;    // on the core: the NeRF's full-forward weight slices (mlp_wgmma.cuh; fp32: hi and lo)
+  const bf16* slices;    // the NeRF's full-forward weight slices (mlp_wgmma.cuh; int8: bf16 and s8; fp32: hi and lo)
   int n_slices;
 };
 
@@ -116,7 +115,7 @@ constexpr int rays_per_block(int S) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> ? 1 : 2)
+__global__ void __launch_bounds__(wg::kBlockThreads<T>, 1)
     render_around_depth_kernel(const __grid_constant__ RenderParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* zp = reinterpret_cast<float*>(smem + wg::mlp_bytes<T>());
@@ -131,25 +130,19 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> ? 1 : 2)
   const int rows = nr * S;
   const bool centered = p.source == kAroundCenter || p.source == kGaussian;
 
-  wg::RenderTiles<T> t;
+  const wg::RenderTiles<T> t = wg::carve_render<T>(smem);
   wg::Cursor cur;
-  if constexpr (wg::kOnCore<T>) {
-    t = wg::carve_render<T>(smem);
-    __syncthreads();
-    if (tid >= kWorkers<T>) {  // the producer: the full forward's slices, tile by tile
-      constexpr int tile = wg::kTileRows<T>;
-      const wg::Segment seg = {p.slices, p.n_slices, (rows + tile - 1) / tile};
-      wg::produce(t.ring, &seg, 1, kWorkers<T>);
-      return;
-    }
-  } else {
-    t = carve_tiles(smem);
+  __syncthreads();
+  if (tid >= kWorkers<T>) {  // the producer: the full forward's slices, tile by tile
+    constexpr int tile = wg::kTileRows<T>;
+    const wg::Segment seg = {p.slices, p.n_slices, (rows + tile - 1) / tile};
+    wg::produce(t.ring, &seg, 1, kWorkers<T>);
+    return;
   }
-  // the workers' barrier (on the core the producer warp never joins)
+  // the consumers' barrier (the producer warp never joins)
   auto sync = [] {
     if constexpr (wg::kCore32<T>) wg::group_sync();
-    else if constexpr (wg::kOnCore<T>) wg::consumers_sync();
-    else __syncthreads();
+    else wg::consumers_sync();
   };
 
   for (int r = tid; r < nr; r += kWorkers<T>) {
@@ -198,12 +191,8 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> ? 1 : 2)
   }
   sync();
 
-  if constexpr (wg::kOnCore<T>) {
-    wg::nerf_rows(p.w, t, cur, ray, zp, rows, S, false, sigma, plane);
-    sync();
-  } else {
-    nerf_rows(p.w, t, ray, zp, rows, S, false, sigma, plane);
-  }
+  wg::nerf_rows(p.w, t, cur, ray, zp, rows, S, false, sigma, plane);
+  sync();
 
   // compositing in sample order, one thread per ray
   for (int r = tid; r < nr; r += kWorkers<T>) {
@@ -232,8 +221,8 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, wg::kOnCore<T> ? 1 : 2)
 
 // ptrs, in order: rays_o, rays_d, depth (may be null), z_arg (may be
 // null), out; then the NeRF's weights (nerf_mlp.cuh::read_pack; plan: the
-// int8 constants, null for bf16 and fp32); for bf16 and fp32 then the
-// NeRF's full-forward weight slices (mlp_wgmma.cuh: forward_slices,
+// int8 constants, null for bf16 and fp32); then the NeRF's full-forward
+// weight slices (mlp_wgmma.cuh: forward_slices, forward_qslices,
 // forward_slices32); a launch without them is refused.
 template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
@@ -247,12 +236,11 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsig
   int k = read_pack(ptrs + 5, D, skip_mask, false, plan, &p.w);
   if (k < 0) return (int)cudaErrorInvalidValue;
   k += 5;
-  if constexpr (wg::kOnCore<T>) {
-    if (n_ptrs <= k || !ptrs[k]) return (int)cudaErrorInvalidValue;
-    p.slices = static_cast<const bf16*>(ptrs[k++]);
-    p.n_slices = wg::kCore32<T> ? wg::forward_slices32(D, skip_mask, false) : wg::forward_slices(D, skip_mask, false);
-  }
-  if (n_ptrs != k) return (int)cudaErrorInvalidValue;
+  if (n_ptrs != k + 1 || !ptrs[k]) return (int)cudaErrorInvalidValue;
+  p.slices = static_cast<const bf16*>(ptrs[k]);
+  p.n_slices = wg::kCore32<T>                  ? wg::forward_slices32(D, skip_mask, false)
+               : std::is_same_v<T, int8_t>     ? wg::forward_qslices(D, skip_mask, false)
+                                               : wg::forward_slices(D, skip_mask, false);
   p.n = n;
   p.S = S;
   p.R = rays_per_block<T>(S);
@@ -302,7 +290,7 @@ int launch_mode(const void* const* ptrs, int n_ptrs, long long n, int S, int D, 
 
 // Every entry: plan is the int8 pack's constants (kernels/quant.py::
 // quant_plan, a host array read at launch) for the int8 kernel, null for
-// bf16 (and fp32); a bf16 or fp32 call ends ptrs with the weight slices.
+// bf16 (and fp32); every call ends ptrs with the weight slices.
 // Each returns a cudaError_t (0 on success).
 
 // K2.
@@ -344,9 +332,10 @@ extern "C" int nst_shade(const void* const* ptrs, int n_ptrs, long long n, int S
                           plan, stream);
 }
 
-// The launch shape at S samples of the bf16 kernel (K2, K3, K8, K9) or,
-// with fp32, of the fp32 one (K8/K9 in COMPARE): resident blocks per SM,
-// rays per block, threads per block and dynamic shared memory.
+// The launch shape at S samples of the bf16 kernel (K2, K3, K8, K9; kind
+// 0), the int8 one (kind 1) or the fp32 one (K8/K9 in COMPARE; kind 2):
+// resident blocks per SM, rays per block, threads per block and dynamic
+// shared memory.
 namespace nst {
 namespace {
 template <typename T>
@@ -363,7 +352,8 @@ int occupancy(int S, int* out) {
 }  // namespace
 }  // namespace nst
 
-extern "C" int nst_render_around_depth_occupancy(int S, int fp32, int* out) {
+extern "C" int nst_render_around_depth_occupancy(int S, int kind, int* out) {
   if (S < 1 || S > 512) return (int)cudaErrorInvalidValue;
-  return fp32 ? nst::occupancy<float>(S, out) : nst::occupancy<nst::bf16>(S, out);
+  if (kind == 2) return nst::occupancy<float>(S, out);
+  return kind == 1 ? nst::occupancy<int8_t>(S, out) : nst::occupancy<nst::bf16>(S, out);
 }

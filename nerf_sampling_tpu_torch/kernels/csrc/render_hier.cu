@@ -83,13 +83,13 @@ constexpr int kMaxRays = 16;  // rays per block
 // every type runs the wgmma core: bf16 and int8 on two consumer warpgroups,
 // fp32 on one (mlp_wgmma.cuh)
 template <typename T>
-constexpr int kBlockThreads = wg::kBlockThreads<T, true>;
+constexpr int kBlockThreads = wg::kBlockThreads<T>;
 template <typename T>
-constexpr int kWorkers = wg::kWorkers<T, true>;  // the consumer threads
+constexpr int kWorkers = wg::kWorkers<T>;  // the consumer threads
 template <typename T>
-constexpr int kTileRows = wg::kTileRows<T, true>;
+constexpr int kTileRows = wg::kTileRows<T>;
 template <typename T>
-constexpr size_t kMlpBytes = wg::mlp_bytes<T, true>();
+constexpr size_t kMlpBytes = wg::mlp_bytes<T>();
 template <typename T>
 constexpr int kMaxRows = std::is_same_v<T, float> ? 1024 : 1536;  // union rows per block
 
@@ -143,7 +143,7 @@ __global__ void __launch_bounds__(kBlockThreads<T>, 1)
   const long long ray0 = (long long)blockIdx.x * p.R;
   const int nr = (int)min((long long)p.R, p.n - ray0);
 
-  const wg::RenderTiles<T, true> t = wg::carve_render<T, true>(smem);
+  const wg::RenderTiles<T> t = wg::carve_render<T>(smem);
   wg::Cursor cur;
   __syncthreads();
   if ((int)threadIdx.x >= kWorkers<T>) {  // the producer: both passes' slices, tile by tile

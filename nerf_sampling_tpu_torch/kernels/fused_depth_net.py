@@ -15,13 +15,15 @@ does, so the kernel can be held to it tightly on the card. The kernel runs
 bf16 or, for the COMPARE mode, fp32 (fp32 buffers and weights, no
 rounding), chosen by the buffers' dtype.
 
-In fp32 the kernel runs the fp32 path of the wgmma MLP core
-(``csrc/mlp_wgmma.cuh``: 3xTF32 products on the tensor cores, fp32 sums):
-``wgmma_depth_program`` lists the DepthNet's matrices in the order a 64-row
-tile consumes them, ``depth_slices`` writes their hi and lo slice image
-once per pack (``fused_render.wgmma_slices32``) and keeps it there, and
-``fragment_tiles`` copies A and B into the order in which each thread of
-the tile reads its share of them.
+Both run on the wgmma MLP core (``csrc/mlp_wgmma.cuh``), one consumer
+warpgroup on 64-row tiles: in bf16 on its bf16 products, in fp32 on its
+fp32 path (3xTF32 products on the tensor cores, fp32 sums).
+``wgmma_depth_program`` lists the DepthNet's matrices in the order a tile
+consumes them, and ``depth_slices`` writes their slice image once per pack
+(``fused_render.wgmma_slices``, or the hi and lo images of
+``fused_render.wgmma_slices32``) and keeps it there. The bf16 kernel reads
+A and B as they are; for the fp32 one ``fragment_tiles`` copies them into
+the order in which each thread of the tile reads its share of them.
 """
 
 from __future__ import annotations
@@ -32,13 +34,13 @@ from torch import nn
 from nerf_sampling_tpu_torch.core.encoding import positional_encoding
 from nerf_sampling_tpu_torch.core.geometry import find_intersection_points_with_sphere
 from nerf_sampling_tpu_torch.kernels import build
-from nerf_sampling_tpu_torch.kernels.fused_render import dtype_name, wgmma_slices32
+from nerf_sampling_tpu_torch.kernels.fused_render import dtype_name, wgmma_slices, wgmma_slices32
 from nerf_sampling_tpu_torch.models.depth_net import DepthNet, DepthNetConfig
 from nerf_sampling_tpu_torch.utils.precision import strict_fp32
 
 PAD = 128
 KERNEL_HIDDEN = 256  # hidden width the CUDA kernel is built for
-TILE_ROWS32 = 64  # rows of a tile of the fp32 kernel (csrc/mlp_wgmma.cuh's kRows32)
+TILE_ROWS = 64  # rows of a tile of the kernel (csrc/mlp_wgmma.cuh's kRows32)
 
 # kernel launches since the last reset (see chip_smoke.py), bf16 and fp32
 launches = fp32_launches = 0
@@ -155,14 +157,15 @@ def depth_net_plain(
 
 
 def wgmma_depth_program(packed: dict) -> list[tuple[torch.Tensor, bool]]:
-    """The matrices of a ``pack_depth_net(model, torch.float32)`` pack in the
-    order a 64-row tile of the fp32 kernel multiplies by them, as
+    """The matrices of a ``pack_depth_net`` pack (bf16 or fp32) in the
+    order a 64-row tile of the kernel multiplies by them, as
     ``fused_render.wgmma_program``'s (W, transposed) pairs (all x @ W): per
     tower (origin, direction, intersection), layer by layer, its embedding
     matrix then, past layer 0, its hidden one, then the tower's rows of
     trunk layer 0 (added to the trunk's partial sum as the tower ends);
-    trunk layer 0's A and B rows; trunk layers 1..C-1. Count:
-    ``mlp_wgmma.cuh::depth_slices32`` (``depth_slices32``)."""
+    trunk layer 0's A and B rows; trunk layers 1..C-1. Counts:
+    ``mlp_wgmma.cuh::depth_slices16`` and ``depth_slices32`` (the functions
+    of the same names here)."""
     prog = []
     for k, name in enumerate(("o", "d", "i")):
         tower = packed[name]
@@ -182,26 +185,40 @@ def depth_slices32(n_layers: int, n_cat: int) -> int:
     return 3 * (16 + 48 * (n_layers - 1) + 32) + 32 + 32 * (n_cat - 1)
 
 
+def depth_slices16(n_layers: int, n_cat: int) -> int:
+    """The bf16 kernel's slices of a 256-wide DepthNet (``mlp_wgmma.cuh::
+    depth_slices16``): one per 64-deep panel and 128-column half, 4 for a
+    128-deep product, 8 for a 256-deep one."""
+    return 3 * (4 + 12 * (n_layers - 1) + 8) + 8 + 8 * (n_cat - 1)
+
+
+def _fp32(packed: dict) -> bool:
+    return packed["head_w"].dtype == torch.float32
+
+
 def depth_slices(packed: dict) -> torch.Tensor:
-    """The fp32 kernel's weight slices of an fp32 pack,
-    ``wgmma_slices32(wgmma_depth_program(packed))`` [n, 4096] fp32, made on
+    """The kernel's weight slices of a pack: for a bf16 pack
+    ``wgmma_slices(wgmma_depth_program(packed))`` [n, 8192] bf16, for an
+    fp32 one ``wgmma_slices32`` of that program [n, 4096] fp32; made on
     first use and kept in the pack (a pack is made anew for new weights)."""
     cache = packed.setdefault("wg_slices", {})
     if "depth" not in cache:
-        cache["depth"] = wgmma_slices32(wgmma_depth_program(packed))
+        image = wgmma_slices32 if _fp32(packed) else wgmma_slices
+        cache["depth"] = image(wgmma_depth_program(packed))
     return cache["depth"]
 
 
 def check_depth_slices(slices: torch.Tensor, packed: dict) -> None:
     """Raise ValueError unless ``slices`` is the image ``depth_slices``
-    makes of ``packed``: fp32, as many 16 KB slices as the kernel reads
-    blind (``depth_slices32``)."""
-    shape = (depth_slices32(len(packed["o"]["b"]), len(packed["cat_b"])), 4096)
-    if slices is None or slices.dtype != torch.float32 or tuple(slices.shape) != shape \
-            or not slices.is_contiguous():
+    makes of ``packed``: its element type and as many 16 KB slices as the
+    kernel reads blind (``depth_slices16`` or ``depth_slices32``)."""
+    count = depth_slices32 if _fp32(packed) else depth_slices16
+    dtype = torch.float32 if _fp32(packed) else torch.bfloat16
+    shape = (count(len(packed["o"]["b"]), len(packed["cat_b"])), 16384 // dtype.itemsize)
+    if slices is None or slices.dtype != dtype or tuple(slices.shape) != shape or not slices.is_contiguous():
         got = None if slices is None else (slices.dtype, tuple(slices.shape))
         raise ValueError(f"the weight slices must be the pack's (fused_depth_net.depth_slices): "
-                         f"torch.float32 {shape}, got {got}")
+                         f"{dtype} {shape}, got {got}")
 
 
 def fragment_tiles(x: torch.Tensor) -> torch.Tensor:
@@ -211,8 +228,8 @@ def fragment_tiles(x: torch.Tensor) -> torch.Tensor:
     group g: rows r = 16 w + l // 4 and r + 8 of tile t at columns c = 8 g +
     2 (l % 4) and c + 1, as (r, c), (r, c + 1), (r + 8, c), (r + 8, c + 1)."""
     n = x.shape[0]
-    t = -(-n // TILE_ROWS32)
-    padded = x.new_zeros((t * TILE_ROWS32, PAD))
+    t = -(-n // TILE_ROWS)
+    padded = x.new_zeros((t * TILE_ROWS, PAD))
     padded[:n] = x
     # rows as (tile, warp, r // 8 % 2, r % 8), columns as (group, lane % 4, pair)
     v = padded.view(t, 4, 2, 8, PAD // 8, 4, 2)
@@ -220,24 +237,25 @@ def fragment_tiles(x: torch.Tensor) -> torch.Tensor:
 
 
 def tiles_per_block(n: int, sms: int) -> int:
-    """The 64-row tiles one fp32 block walks for n rays on a card of ``sms``
+    """The 64-row tiles one block walks for n rays on a card of ``sms``
     SMs: the fewest that keep the grid within one wave at one block per SM
     (19 at 160,064 rays on 132 SMs)."""
-    return max(1, -(-(-(-n // TILE_ROWS32)) // sms))
+    return max(1, -(-(-(-n // TILE_ROWS)) // sms))
 
 
-def kernel_occupancy(n: int) -> dict[str, int]:
-    """The fp32 kernel's launch shape for n rays (K1 in COMPARE): resident
-    blocks per SM, threads per block, dynamic shared memory (bytes), tiles
-    per block, blocks, and the card's SM count."""
+def kernel_occupancy(n: int, fp32: bool = False) -> dict[str, int]:
+    """The bf16 kernel's launch shape for n rays, or with ``fp32`` the fp32
+    one's (K1 in COMPARE): resident blocks per SM, threads per block,
+    dynamic shared memory (bytes), tiles per block, blocks, and the card's
+    SM count."""
     import ctypes
 
     out = (ctypes.c_int * 3)()
-    build.check(build.load_library().nst_depth_net_occupancy(out), "nst_depth_net_occupancy")
+    build.check(build.load_library().nst_depth_net_occupancy(int(fp32), out), "nst_depth_net_occupancy")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     tpb = tiles_per_block(n, sms)
     return {"blocks_per_sm": out[0], "threads": out[1], "smem_bytes": out[2], "tiles_per_block": tpb,
-            "blocks": -(-(-(-n // TILE_ROWS32)) // tpb), "sms": sms}
+            "blocks": -(-(-(-n // TILE_ROWS)) // tpb), "sms": sms}
 
 
 def _flat_weights(packed: dict, dtype=torch.bfloat16) -> list[torch.Tensor]:
@@ -280,9 +298,9 @@ def depth_net_kernel(
 
     On a CPU tensor this runs ``depth_net_plain`` at that dtype; on a CUDA
     tensor it launches the kernel, or raises on what the kernel does not take.
-    An fp32 launch hands the kernel A and B in fragment order
-    (``fragment_tiles``) and, after the weights, the pack's slices
-    (``depth_slices``), checked first.
+    A launch hands the kernel, after the weights, the pack's slices
+    (``depth_slices``), checked first, and the tiles a block walks; an fp32
+    launch hands it A and B in fragment order (``fragment_tiles``).
     """
     global launches, fp32_launches
     n = A.shape[0]
@@ -299,16 +317,15 @@ def depth_net_kernel(
     _check_cuda(cfg, A, B, weights)
     fp32 = dtype == torch.float32
     out = torch.empty(n, dtype=torch.float32, device=A.device)
+    slices = depth_slices(packed)
+    check_depth_slices(slices, packed)
     if fp32:
-        slices = depth_slices(packed)
-        check_depth_slices(slices, packed)
         A, B = fragment_tiles(A), fragment_tiles(B)
-        weights = weights + [slices]
     lib = build.load_library()
-    arr, count = build.pointer_array([A, B, out] + weights)
+    arr, count = build.pointer_array([A, B, out] + weights + [slices])
     rc = lib.nst_depth_net_forward(
         arr, count, n, len(cfg.hidden_sizes), len(cfg.cat_hidden_sizes), float(cfg.near), float(cfg.far),
-        int(fp32), tiles_per_block(n, build.sm_count(A.device)) if fp32 else 0, build.current_stream(A.device),
+        int(fp32), tiles_per_block(n, build.sm_count(A.device)), build.current_stream(A.device),
     )
     build.check(rc, "depth_net_kernel")
     if fp32:

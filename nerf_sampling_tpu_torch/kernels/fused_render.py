@@ -35,13 +35,12 @@ plain PyTorch: fp32 is the reference, bf16 rounds where the kernel rounds.
 run in bf16 (``csrc/mlp_wgmma.cuh``): the byte image of the shared-memory
 weight slices, in the order a tile consumes them (``wgmma_program``);
 ``wgmma_qslices`` does the same for an int8 pack's forward
-(``wgmma_qprogram``: bf16 and int8 slices in one stream), which K6 and K7
-run in int8, and ``wgmma_slices32`` for an fp32 pack's (the hi and lo
-tf32 images of every slice, ``tf32_split``, each 8-deep k group permuted),
-which K7, K8 and K9 run in fp32 with 3xTF32 products. ``pack_slices``
-makes a pack's slices once and keeps them in it; a bf16 or fp32 render
-launch of this module hands them to the kernel after the weights, and its
-int8 launches, whose kernel keeps ``nerf_mlp.cuh``'s int8 core, hand none
+(``wgmma_qprogram``: bf16 and int8 slices in one stream), which K2, K3 and
+K6-K9 run in int8, and ``wgmma_slices32`` for an fp32 pack's (the hi and
+lo tf32 images of every slice, ``tf32_split``, each 8-deep k group
+permuted), which K7, K8 and K9 run in fp32 with 3xTF32 products.
+``pack_slices`` makes a pack's slices once and keeps them in it; every
+render launch of this module hands them to the kernel after the weights
 (``_core_slices``).
 ``wgmma_dense``, ``wgmma_dense_q`` and ``wgmma_dense32`` are one dense
 layer on that core, bf16, s8 and fp32, the first check of
@@ -350,13 +349,10 @@ def check_slices(slices: torch.Tensor, packed: dict, sigma_only: bool = False) -
 
 
 def _core_slices(packed: dict) -> list[torch.Tensor]:
-    """The render entries' last pointer, after the weights: a bf16 or fp32
-    pack's full-forward slices (its kernel runs the wgmma core), checked
-    against the pack (``check_slices``), or nothing for an int8 pack (its
-    kernel keeps nerf_mlp.cuh's int8 core). A bf16 or fp32 launch without
-    them is refused by the kernel's pointer count."""
-    if quant.is_int8(packed):
-        return []
+    """The render entries' last pointer, after the weights: the pack's
+    full-forward slices (bf16, int8 or fp32; every render kernel runs the
+    wgmma core), checked against the pack (``check_slices``). A launch
+    without them is refused by the kernel's pointer count."""
     slices = pack_slices(packed)
     check_slices(slices, packed)
     return [slices]
@@ -732,12 +728,14 @@ def render_around_depth_kernel(
     return maps
 
 
-def kernel_occupancy(n_samples: int = 64, fp32: bool = False) -> dict[str, int]:
-    """The bf16 kernel's launch shape (K2, K3, K8, K9), or with ``fp32``
-    the fp32 one's (K8/K9 in COMPARE), at ``n_samples``: resident blocks per
-    SM, rays per block, threads per block, dynamic shared memory (bytes),
-    and the card's SM count."""
-    return build.occupancy("nst_render_around_depth_occupancy", n_samples, int(fp32))
+def kernel_occupancy(n_samples: int = 64, fp32: bool = False, int8: bool = False) -> dict[str, int]:
+    """The bf16 kernel's launch shape (K2, K3, K8, K9), with ``int8`` the
+    int8 one's (K10) or with ``fp32`` the fp32 one's (K8/K9 in COMPARE), at
+    ``n_samples``: resident blocks per SM, rays per block, threads per
+    block, dynamic shared memory (bytes), and the card's SM count."""
+    if int8 and fp32:
+        raise ValueError("one kernel: int8 or fp32")
+    return build.occupancy("nst_render_around_depth_occupancy", n_samples, 1 if int8 else 2 if fp32 else 0)
 
 
 def fused_render_around_depth(
@@ -904,8 +902,8 @@ def _launch(entry: str, packed: dict, cfg: NeRFConfig, rays_o: torch.Tensor, ray
     """One launch of K2 (``nst_render_around_depth``), K3
     (``nst_render_gaussian``), K8 (``nst_render_linspace``) or K9
     (``nst_shade``): pointers rays_o, rays_d, depth (or none), the z
-    argument (or none), out, the weights and, for a bf16 or fp32 pack, its
-    slices (``_core_slices``); then n, S, D, the skip mask, ``args``, the
+    argument (or none), out, the weights and the pack's slices
+    (``_core_slices``); then n, S, D, the skip mask, ``args``, the
     int8 plan (or null) and the stream."""
     n = rays_o.shape[0]
     plan = _plan(packed, cfg)

@@ -3,13 +3,12 @@
 Replaces nerf_sampling_tpu/kernels/quant.py (``mlp_forward_affine_q``, the
 int8 body that the Pallas kernels ``fused_render._call`` and
 ``fused_hier._call`` run when they are given a ``QuantCalib``). Here the
-int8 body is a mode of the kernels' MLP cores: in K2/K3/K8/K9
-(``csrc/render_around_depth.cu``) ``csrc/mlp_tile.cuh``'s int8 tensor-core
-layer and ``csrc/nerf_mlp.cuh``'s int8 chunk; in K6/K7
-(``csrc/render_hier.cu``) the wgmma core's s8 forward
-(``csrc/mlp_wgmma.cuh``, fed ``fused_render.wgmma_qslices``), with the same
-requants (``nerf_mlp.cuh``'s ``quant_f32`` and ``requant_int``). This
-module holds what the host does around it:
+int8 body is a mode of the kernels' MLP core: in K2/K3/K8/K9
+(``csrc/render_around_depth.cu``) and K6/K7 (``csrc/render_hier.cu``) the
+wgmma core's s8 forward (``csrc/mlp_wgmma.cuh``, fed
+``fused_render.wgmma_qslices``), with ``nerf_mlp.cuh``'s requants
+(``quant_f32`` and ``requant_int``). This module holds what the host does
+around it:
 
 - ``calibrate_nerf_quant``: a host fp32 forward (numpy) over 512 rays x 17
   linspace z records the per-channel activation amaxes and walks the scale

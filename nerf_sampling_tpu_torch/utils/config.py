@@ -3,8 +3,8 @@
 ``TrainerConfig`` keeps every field of the JAX dataclass, so the same YAML
 configs load into it; ``nerf_config``, ``depth_net_config`` and ``pipeline``
 build the port's configs. ``load_trainer_config`` reads the reference's
-YAML layout {model_key: {module, kwargs}}, e.g. the JAX package's
-``experiments/configs/lego.yaml`` (``definitions.REFERENCE_CONFIG``).
+YAML layout {model_key: {module, kwargs}}, e.g. the port's copy of the JAX
+package's ``experiments/configs/lego.yaml`` (``definitions.REFERENCE_CONFIG``).
 """
 
 from __future__ import annotations

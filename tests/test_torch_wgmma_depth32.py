@@ -26,7 +26,8 @@ reads blind. These tests hold what the card cannot show here:
 - against a mocked library: an fp32 K1 launch and an fp32 K8/K9 launch hand
   their pack's fp32 slices after the weights; a launch whose pack holds
   another program's slices is refused before the call; bf16 and int8
-  launches are as before.
+  launches hand their pack's own images (bf16 K1 its bf16 slices, int8
+  K8/K9 the int8 program's).
 
 The kernels run only on the card: ``chip_smoke.py`` holds them there.
 """
@@ -212,8 +213,9 @@ def meta(*shape):
 @pytest.mark.parametrize("dtype", [F32, torch.bfloat16])
 def test_k1_launch_hands_the_fp32_slices_after_the_weights(monkeypatch, dtype):
     """fp32: A and B in fragment order, out, the weights, then the pack's
-    slices; the fp32 flag and the tiles a block walks. bf16 as before: A,
-    B, out and the weights, no slices, no tiles."""
+    fp32 slices; the fp32 flag and the tiles a block walks. bf16 (on the
+    core's bf16 products since the bf16 DepthNet program): A and B as they
+    are, out, the weights, then the pack's bf16 slices; the tiles too."""
     model = depth_model(2)[2]
     packed = k1.pack_depth_net(model, dtype)
     seen = mocked_library(monkeypatch, k1, "nst_depth_net_forward")
@@ -225,17 +227,19 @@ def test_k1_launch_hands_the_fp32_slices_after_the_weights(monkeypatch, dtype):
     weights = k1._flat_weights(packed, dtype)
     ptrs, args = seen["ptrs"], seen["args"]
     fp32 = dtype == F32
-    assert seen["count"] == len(ptrs) == 3 + len(weights) + fp32
+    assert seen["count"] == len(ptrs) == 3 + len(weights) + 1
     assert all(a is b for a, b in zip(ptrs[3:3 + len(weights)], weights))
+    assert ptrs[-1] is k1.depth_slices(packed)
+    assert args[-2] == k1.tiles_per_block(n, 132) == 1
     if fp32:
         assert (k1.launches, k1.fp32_launches) == (before[0], before[1] + 1)
         assert ptrs[0].shape == ptrs[1].shape == (4, 16, 128, 4)
-        assert ptrs[-1] is k1.depth_slices(packed) and ptrs[-1].shape == (header_depth_slices32(2, 2), 4096)
-        assert args[-3:-1] == (1, k1.tiles_per_block(n, 132)) == (1, 1)
+        assert ptrs[-1].shape == (header_depth_slices32(2, 2), 4096) and args[-3] == 1
     else:
         assert (k1.launches, k1.fp32_launches) == (before[0] + 1, before[1])
-        assert ptrs[0] is A and ptrs[1] is B and "wg_slices" not in packed
-        assert args[-3:-1] == (0, 0)
+        assert ptrs[0] is A and ptrs[1] is B
+        assert ptrs[-1].dtype == torch.bfloat16 and ptrs[-1].shape == (k1.depth_slices16(2, 2), 8192)
+        assert args[-3] == 0
     assert k1.tiles_per_block(160_064, 132) == 19
 
 
@@ -262,8 +266,8 @@ def int8_pack(model):
 def test_k8_k9_launch_hands_the_packs_slices(monkeypatch, kind, entry):
     """K9 (fused_shade) and K8 (fused_render) hand the kernel the pack's
     full-forward slices after the weights: the fp32 path's hi and lo image
-    for an fp32 pack, the bf16 image for a bf16 one; an int8 pack's launch
-    hands none."""
+    for an fp32 pack, the bf16 image for a bf16 one, the int8 program's
+    byte image (bf16 and s8 slices) for an int8 one."""
     model = small_nerf(D=4, skips=(1,))
     dtype = F32 if kind == "fp32" else torch.bfloat16
     packed = int8_pack(model) if kind == "int8" else k89.pack_nerf(model, dtype)
@@ -278,12 +282,12 @@ def test_k8_k9_launch_hands_the_packs_slices(monkeypatch, kind, entry):
     weights = k89._flat_weights(packed, dtype=dtype)
     ptrs = seen["ptrs"]
     assert all(a is b for a, b in zip(ptrs[5:5 + len(weights)], weights))
-    if kind == "int8":
-        assert seen["count"] == len(ptrs) == 5 + len(weights) and "wg_slices" not in packed
-        return
     assert seen["count"] == len(ptrs) == 5 + len(weights) + 1
-    program = k89.wgmma_program(packed)
-    want = k89.wgmma_slices32(program) if kind == "fp32" else k89.wgmma_slices(program)
+    if kind == "int8":
+        want = k89.wgmma_qslices(k89.wgmma_qprogram(packed))
+    else:
+        program = k89.wgmma_program(packed)
+        want = k89.wgmma_slices32(program) if kind == "fp32" else k89.wgmma_slices(program)
     assert ptrs[-1] is k89.pack_slices(packed) and torch.equal(ptrs[-1], want)
     assert seen["args"][-3] == (kind == "fp32")  # the fp32 flag, before the plan and the stream
 

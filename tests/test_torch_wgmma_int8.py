@@ -22,7 +22,9 @@ tests hold it here:
   its measurement reads equal);
 - an int8 hierarchical launch, against a mocked library, hands the kernel
   both int8 packs' slices after the weights: the coarse net's sigma-only
-  image, then the fine net's full one;
+  image, then the fine net's full one; an int8 K2, K3, K8 or K9 launch
+  hands its pack's full image, and one whose pack holds another program's
+  slices is refused before the call;
 - the [core] check's s8 layer (``wgmma_dense_q``) on CPU is the int64
   product.
 
@@ -151,7 +153,7 @@ def test_int8_pack_slices_are_cached_per_program():
     assert torch.equal(full, fr.wgmma_qslices(fr.wgmma_qprogram(packed)))
     assert torch.equal(so, fr.wgmma_qslices(fr.wgmma_qprogram(packed, sigma_only=True)))
     assert torch.equal(full[:so.shape[0]], so)  # the sigma-only program is the full one's head
-    assert fr._core_slices(packed) == []  # the int8 render kernels keep nerf_mlp.cuh's core
+    assert fr._core_slices(packed)[0] is full  # the int8 render kernels take the full forward's image
 
 
 def emulated_qforward(packed: dict, slices: torch.Tensor, x_pts: torch.Tensor, x_v: torch.Tensor | None,
@@ -312,6 +314,62 @@ def test_hier_launch_passes_both_packs_slices(monkeypatch, kind, seeded):
         assert seen["args"][-3] is None and seen["args"][-2] is None
     bumped = {c for c in counters if getattr(k67, c) != before[c]}
     assert bumped == {("" if seeded else "det_") + ("int8_launches" if kind == "int8" else "launches")}
+
+
+def _render(entry: str, packed: dict, cfg, n: int, S: int = 16):
+    """One int8 render launch of ``entry`` on meta tensors (K2, K3, K8, K9)."""
+    ro, rd = torch.zeros(n, 3, device="meta"), torch.zeros(n, 3, device="meta")
+    if entry == "nst_render_around_depth":
+        return fr.render_around_depth_kernel(packed, cfg, ro, rd, torch.zeros(n, device="meta"),
+                                             torch.zeros(S, device="meta"))
+    if entry == "nst_render_gaussian":
+        return fr.render_gaussian_kernel(packed, cfg, ro, rd, torch.zeros(n, device="meta"), n_samples=S, std=1.0, seed=1)
+    if entry == "nst_render_linspace":
+        return fr.fused_render(packed, cfg, ro, rd, n_samples=S)
+    return fr.fused_shade(packed, cfg, ro, rd, torch.zeros(n, S, device="meta"))
+
+
+RENDER_ENTRIES = ["nst_render_around_depth", "nst_render_gaussian", "nst_render_linspace", "nst_shade"]
+
+
+@pytest.mark.parametrize("entry", RENDER_ENTRIES, ids=["K2", "K3", "K8", "K9"])
+def test_int8_render_launch_hands_the_qslices(monkeypatch, entry):
+    """An int8 render launch hands the kernel, after the weights, its pack's
+    full-forward image (bf16 and s8 slices, as many as the header's
+    forward_qslices reads), and the int8 plan."""
+    from test_torch_wgmma_tf32 import mocked_library
+
+    model = small_nerf(D=8, skips=(4,))
+    packed = qpack(model)
+    seen = mocked_library(monkeypatch, fr, entry)
+    out = _render(entry, packed, model.cfg, 40)
+    assert out["rgb_map"].shape == (40, 3)
+    weights = fr._flat_weights(packed)
+    ptrs = seen["ptrs"]
+    assert seen["count"] == len(ptrs) == 5 + len(weights) + 1
+    assert all(a is b for a, b in zip(ptrs[5:-1], weights))
+    assert ptrs[-1] is fr.pack_slices(packed) and ptrs[-1].dtype == torch.uint8
+    assert ptrs[-1].shape[0] == _header_formula("forward_qslices")(8, 0b10000, False)
+    assert seen["args"][-2] is not None  # the plan
+
+
+@pytest.mark.parametrize("entry", RENDER_ENTRIES, ids=["K2", "K3", "K8", "K9"])
+def test_int8_render_launch_with_another_programs_slices_is_refused(monkeypatch, entry):
+    """An int8 pack whose cached full-forward slices are another program's
+    (its own sigma-only image, or the bf16 image of the same NeRF) is
+    refused before any launch."""
+    from test_torch_wgmma_tf32 import mocked_library
+
+    model = small_nerf(D=4, skips=(1,))
+    for other in ("sigma_only", "bf16"):
+        packed = qpack(model)
+        image = fr.pack_slices(packed, sigma_only=True) if other == "sigma_only" else \
+            fr.pack_slices(fr.pack_nerf(model))
+        packed["wg_slices"] = {"full": image}
+        seen = mocked_library(monkeypatch, fr, entry)
+        with pytest.raises(ValueError, match="slices"):
+            _render(entry, packed, model.cfg, 8)
+        assert "count" not in seen
 
 
 def test_wgmma_dense_q_plain_version_on_cpu():

@@ -12,9 +12,10 @@ unchanged.
 
 The bf16 render kernels (K2, K3, K8, K9) take a pack's full-forward slices
 as their last pointer: the slices cached in the pack (``pack_slices``) are
-kept apart per program, follow a re-pack of new weights, reach only bf16
-launches, and, run through the emulated forward and composited as K2 and
-K3 composite, give the plain versions' maps.
+kept apart per program, follow a re-pack of new weights, reach every
+launch (bf16, fp32 and int8 packs, each its own image), and, run through
+the emulated forward and composited as K2 and K3 composite, give the plain
+versions' maps.
 """
 
 from __future__ import annotations
@@ -233,10 +234,10 @@ def test_slices_follow_a_repack_of_new_weights():
 
 @pytest.mark.parametrize("kind", ["bf16", "fp32", "int8"])
 def test_only_bf16_launches_take_slices(kind):
-    """The bf16 and fp32 (COMPARE) kernels run the wgmma core and take their
-    pack's slices (bf16 images, or the fp32 path's hi and lo); the int8
-    (K10) kernel keeps nerf_mlp.cuh's core and takes none, and making its
-    arguments adds nothing to its pack."""
+    """Every render kernel runs the wgmma core and takes its pack's slices:
+    bf16 images, the fp32 path's hi and lo (COMPARE), or for the int8 (K10)
+    kernel the int8 program's byte image (bf16 and s8 slices), kept in the
+    pack."""
     model = small_nerf(D=4, skips=(1,))
     if kind == "int8":
         rng = np.random.default_rng(2)
@@ -252,7 +253,8 @@ def test_only_bf16_launches_take_slices(kind):
     elif kind == "fp32":
         assert len(args) == 1 and torch.equal(args[0], fr.wgmma_slices32(fr.wgmma_program(packed)))
     else:
-        assert args == [] and "wg_slices" not in packed
+        assert len(args) == 1 and torch.equal(args[0], fr.wgmma_qslices(fr.wgmma_qprogram(packed)))
+        assert args[0] is packed["wg_slices"]["full"]
 
 
 def composite_in_order(raw: torch.Tensor, z: torch.Tensor, rays_d: torch.Tensor) -> dict[str, torch.Tensor]:
