@@ -121,6 +121,22 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    loss must fall); its best DepthNet evaluated under the bf16 protocol
    within INT8_EVAL_TOL dB of the bf16 run's eval; --mode nerf with int8
    must raise.
+9. [tar], last: the reference's .tar format on the main path. The
+   committed checkpoint written as a reference-format .tar by the port's
+   export and read back by its import, every tensor bit for bit; view 0
+   rendered through the render CLI's loader from the .tar and from the
+   .npz (K1 and K2 must launch), the two images bit-identical and view 0
+   within PSNR_TOL of REFERENCE_PSNR_VIEW0; experiments/run.py's main
+   with --ft_path a NeRF-only .tar, --mlp_impl cuda and --profile_dir for
+   TAR_ITERS depth-net steps (K6 and K1 must launch; the trace of steps
+   20-40 must exist and hold K6's kernel; the device's idle share over
+   those steps and the ten host functions with the most self time are
+   printed from it; the step-TAR_ITERS .tar export must read back to the
+   run's DepthNet and NeRFs, with the DepthNet's Adam moments); one plain
+   nerf step at --precision high against highest (the loss difference
+   printed), torch's matmul precision back at strict fp32 after it. The
+   kernels' record carries each kernel's launches in this phase as
+   "tar_launches".
 
 Every kernel runs its MLP on the wgmma core (csrc/mlp_wgmma.cuh): K1 in
 bf16 and fp32 (depth_net.cu), K2, K3, K8 and K9 in bf16, int8 and fp32
@@ -167,6 +183,8 @@ JOINT_ITERS, JOINT_WARMUP = 300, 100  # --mode joint: eval at the last step
 NERF_PRINT = 100  # i_print of the nerf and joint runs
 RENDER_DIR = os.path.join(HERE, "logs", "chip_smoke_render")  # the render CLI's runs (gitignored)
 INT8_TRAIN_DIR = os.path.join(HERE, "logs", "chip_smoke_int8_train")  # the int8 training run (gitignored)
+TAR_DIR = os.path.join(HERE, "logs", "chip_smoke_tar")  # the [tar] phase's files (gitignored)
+TAR_ITERS = 60  # [tar]: depth-net steps from the .tar; the profiler traces steps 20-40, eval and .tar at 60
 
 # kernel vs its plain version at bf16 rounding (same inputs, same weights):
 # the two differ only in fp32 summation order and the few bf16 roundings
@@ -2250,6 +2268,164 @@ def run_joint_cli(device, scene, K) -> dict[str, int]:
     return counts
 
 
+def run_tar(device, scene, K) -> dict[str, int]:
+    """[tar]: the reference's .tar format through the port's entry points
+    on the kernels; returns the phase's launches by kernel."""
+    import copy
+    import dataclasses
+    import shutil
+
+    import yaml
+
+    from nerf_sampling_tpu_torch.data.example import generate_example_dataset
+    from nerf_sampling_tpu_torch.definitions import REFERENCE_CONFIG
+    from nerf_sampling_tpu_torch.experiments import render as rcli
+    from nerf_sampling_tpu_torch.experiments import run
+    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
+    from nerf_sampling_tpu_torch.kernels import fused_render as k23
+    from nerf_sampling_tpu_torch.train import checkpoint as ck
+    from nerf_sampling_tpu_torch.train.sampler import RaySampler, SamplerConfig
+    from nerf_sampling_tpu_torch.train.state import init_nerf_state, nerf_modules
+    from nerf_sampling_tpu_torch.train.steps import StepDraws, make_nerf_train_step
+    from nerf_sampling_tpu_torch.utils.precision import strict_fp32
+    from nerf_sampling_tpu_torch.utils.profiling import TRACE_FILE, read_trace
+
+    t0 = time.perf_counter()
+    shutil.rmtree(TAR_DIR, ignore_errors=True)
+    os.makedirs(TAR_DIR)
+    tree, step = ck.read_npz_tree(CKPT)
+    sds = ck.params_from_jax(tree["params"])
+    tar, nerf_tar = os.path.join(TAR_DIR, "example_depth.tar"), os.path.join(TAR_DIR, "nerf_only.tar")
+    ck.export_torch_checkpoint(tar, step, sds["coarse"], sds["fine"], sds["depth"])
+    ck.export_torch_checkpoint(nerf_tar, 0, sds["coarse"], sds["fine"])
+    back = ck.import_torch_checkpoint(tar)
+    n_tensors = sum(len(sd) for sd in sds.values())
+    require(back["global_step"] == step and all(
+        back[net].keys() == sd.keys() and all(back[net][k].dtype == v.dtype and torch.equal(back[net][k], v)
+                                              for k, v in sd.items()) for net, sd in sds.items()),
+            "the .tar did not read back to the checkpoint bit for bit")
+    log(f"[tar] {os.path.basename(CKPT)} -> {tar} ({os.path.getsize(tar)} bytes) -> {n_tensors} tensors "
+        f"back bit for bit, global_step {step}")
+
+    # view 0 through the render CLI's loader (the Trainer), from the .tar and the .npz, on a
+    # copy of the example scene with its test views and one train view
+    datadir = os.path.join(TAR_DIR, "scene")
+    generate_example_dataset(datadir, H=800, W=800, n_train=1, n_val=1, n_test=4)
+    common = ["-dp", datadir, "-m", "recommended_depth_net_module", "--n_samples", "64", "--distance", "1.0",
+              "--testskip", "1", "--device", torch.device(device).type]
+    k1.launches = k23.launches = 0
+    tr_tar = rcli.main(common + ["--ft_path", tar, "--basedir", os.path.join(TAR_DIR, "render_tar")])
+    torch.cuda.synchronize()
+    counts = {"depth_net_kernel": k1.launches, "render_around_depth_kernel": k23.launches}
+    log(f"[tar] render CLI from the .tar over {len(tr_tar.scene.i_test)} test views: launches {counts}")
+    for name, count in counts.items():
+        require(count > 0, f"{name} was not launched by the .tar render")
+    tr_npz = rcli.main(common + ["--ft_path", CKPT, "--basedir", os.path.join(TAR_DIR, "render_npz")])
+    views = []
+    for tr in (tr_tar, tr_npz):
+        i0 = tr.scene.i_test[:1]
+        rgbs, _, psnr = tr._render(tr.scene.poses[i0], gt_imgs=tr.scene.images[i0], verbose=False)
+        views.append((rgbs[0], psnr))
+    (img_tar, psnr_tar), (img_npz, psnr_npz) = views
+    log(f"[tar] view 0 from the .tar {psnr_tar:.4f} dB, from the .npz {psnr_npz:.4f} dB, images bit-identical: "
+        f"{np.array_equal(img_tar, img_npz)} (JAX fp32 reference {REFERENCE_PSNR_VIEW0} +- {PSNR_TOL})")
+    require(np.array_equal(img_tar, img_npz), "the .tar render of view 0 differs from the .npz render")
+    require(abs(psnr_tar - REFERENCE_PSNR_VIEW0) <= PSNR_TOL, "the .tar render's view 0 PSNR is off the reference")
+    del tr_tar, tr_npz
+
+    # the DepthNet trained from the NeRF-only .tar through run.py, the profiler on
+    with open(REFERENCE_CONFIG) as fp:
+        entry = yaml.safe_load(fp)["recommended_depth_net_module"]
+    entry["kwargs"].update(i_weights=TAR_ITERS, i_testset=TAR_ITERS)  # the .tar export and the eval at the end
+    cfg_path = os.path.join(TAR_DIR, "tar.yaml")
+    with open(cfg_path, "w") as fp:
+        yaml.safe_dump({"tar_module": entry}, fp)
+    prof_dir = os.path.join(TAR_DIR, "profile")
+    argv = ["-d", "example", "-c", cfg_path, "-m", "tar_module", "--mlp_impl", "cuda", "--ft_path", nerf_tar,
+            "--n_iters", str(TAR_ITERS), "-ip", "20", "--seed", "42", "--basedir", os.path.join(TAR_DIR, "train"),
+            "--testskip", "1", "--profile_dir", prof_dir, "--device", torch.device(device).type]
+    log(f"[tar] python3 -m nerf_sampling_tpu_torch.experiments.run {' '.join(argv)}")
+    k1.launches = k23.gaussian_launches = k6.launches = 0
+    t1 = time.perf_counter()
+    trainer = run.main(argv)
+    torch.cuda.synchronize()
+    train_counts = {"render_hier_kernel": k6.launches, "depth_net_kernel": k1.launches,
+                    "render_gaussian_kernel": k23.gaussian_launches}
+    log(f"[tar] {trainer.global_step} steps from the .tar in {time.perf_counter() - t1:.1f} s (the eval, the "
+        f"profiled steps and the checkpoint included); launches {train_counts}")
+    for name in ("render_hier_kernel", "depth_net_kernel"):
+        require(train_counts[name] > 0, f"{name} was not launched by the training run from the .tar")
+    counts["depth_net_kernel"] += train_counts.pop("depth_net_kernel")
+    counts.update(train_counts)
+    trace_path = os.path.join(prof_dir, TRACE_FILE)
+    require(os.path.exists(trace_path), f"{trace_path} was not written")
+    summary = read_trace(trace_path)
+    k6_names = [n for n in summary["kernels"] if "render_hier_kernel" in n]
+    require(summary["steps"] == 20 and k6_names, "the trace does not hold 20 steps with K6's kernel")
+    log(f"[tar] trace {trace_path} ({os.path.getsize(trace_path)} bytes): {summary['steps']} steps in "
+        f"{summary['window_ms']:.2f} ms ({summary['window_ms'] / summary['steps']:.3f} ms a step, the profiler's "
+        f"Python tracing on), kernels {summary['kernel_ms']:.2f} ms, device idle {100 * summary['device_idle']:.1f}%")
+    for name, ms in sorted(summary["kernels"].items(), key=lambda kv: -kv[1])[:5]:
+        log(f"[tar] kernel {ms:9.3f} ms  {name[:100]}")
+    for name, ms in summary["host"]:
+        log(f"[tar] host self {ms:9.3f} ms  {name[:100]}")
+    # the sampler's host time without the profiler: a fresh one replays the run's draws, whose
+    # steps 21-40 visit images whose rays it has not cached yet; then the same steps warm
+    cfg = trainer.cfg
+    sampler = RaySampler(trainer.scene, SamplerConfig(N_rand=cfg.N_rand, use_batching=not cfg.no_batching,
+                                                      precrop_iters=cfg.precrop_iters), seed=cfg.seed)
+    per_step = {}
+    for label in ("first visits", "warm"):
+        times = []
+        for i in range(1, 41):
+            t2 = time.perf_counter()
+            sampler.sample(i)
+            times.append(time.perf_counter() - t2)
+        per_step[label] = 1e3 * float(np.mean(times[20:]))
+        sampler.rng = np.random.default_rng(cfg.seed)  # the same draws again, on a filled cache
+    log(f"[tar] RaySampler.sample alone, host clock, no profiler: steps 21-40 of the run's draws "
+        f"{per_step['first visits']:.3f} ms a step ({len(sampler._ray_cache)} of {len(trainer.scene.i_train)} "
+        f"train views' rays cached by step 40), the same steps on the filled cache {per_step['warm']:.3f} ms")
+    exported = os.path.join(trainer.expdir, f"{TAR_ITERS:06d}.tar")
+    require(os.path.exists(exported), f"{exported} was not written")
+    got = ck.import_torch_checkpoint(exported)
+    raw = torch.load(exported, map_location="cpu", weights_only=False)
+    live = {"coarse": trainer.params.coarse, "fine": trainer.params.fine, "depth": trainer.params.depth}
+    same = all(torch.equal(got[net][k], v.detach().cpu()) for net, m in live.items()
+               for k, v in m.state_dict().items())
+    n_depth = len(got["depth"])
+    require(got["global_step"] == TAR_ITERS and same
+            and len(raw["sampling_optimizer_state_dict"]["state"]) == n_depth
+            and raw["optimizer_state_dict"]["state"] == {},
+            "the exported .tar does not hold the run's models and the DepthNet's Adam moments")
+    log(f"[tar] {exported}: the run's NeRFs and DepthNet bit for bit, the DepthNet's Adam moments for its "
+        f"{n_depth} tensors, the frozen NeRFs' optimizer fresh")
+    del trainer
+
+    # --precision: one plain nerf step at high against highest, same state, batch and draws
+    pipe = dataclasses.replace(production_pipeline("plain"), depth=None)
+    params = ck.load_render_params(CKPT, pipe, device)
+    batch = train_batches(scene, device, 1)[0]
+    g = torch.Generator(device="cpu").manual_seed(0)
+    draws = StepDraws(torch.rand(1024, pipe.N_samples, generator=g).to(device),
+                      torch.rand(1024, pipe.N_importance, generator=g).to(device))
+    strict_fp32()
+    losses = {}
+    for prec in ("highest", "high"):
+        state = init_nerf_state(nerf_modules(copy.deepcopy(params.coarse), copy.deepcopy(params.fine)).train()
+                                .requires_grad_(True), 5e-4, 500)
+        _, m = make_nerf_train_step(dataclasses.replace(pipe, matmul_precision=prec))(state, batch, 0, draws)
+        losses[prec] = float(m["loss"])
+        after = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+        require(after == ("highest", False), f"the matmul precision after the {prec} step is {after}")
+    log(f"[tar] one plain nerf step: loss at --precision highest {losses['highest']:.9f}, high (TF32) "
+        f"{losses['high']:.9f}, difference {losses['high'] - losses['highest']:+.3e}; torch's matmul "
+        f"precision after each: highest, allow_tf32 False")
+    log(f"[tar] phase {time.perf_counter() - t0:.1f} s; launches {counts}")
+    return counts
+
+
 def ptxas_usage(path: str, entry: str) -> str:
     """The registers and spills that ptxas -v reported for the first entry
     function whose mangled name contains ``entry``, from a build log."""
@@ -2336,6 +2512,7 @@ def main() -> int:
     check_nerf_steps(scene, device)
     nerf_counts = run_nerf_cli(device)
     joint_counts = run_joint_cli(device, scene, K)
+    tar_counts = run_tar(device, scene, K)
     torch.cuda.synchronize()
     # the count of the path each kernel serves: K2 renders, K1/K3/K6 train the
     # DepthNet, K4/K5/K7 train and evaluate the NeRF, K8 renders FULL_NERF
@@ -2347,6 +2524,8 @@ def main() -> int:
         rec["launches"] = next(c[rec["name"]] for c in (nerf_counts, train_counts, render_counts, joint_counts,
                                                         k8_counts, cli_counts, int8_train_counts, k10_counts)
                                if rec["name"] in c)
+        if rec["name"] in tar_counts:
+            rec["tar_launches"] = tar_counts[rec["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 
 - ``stratified_z_vals``: coarse z, jittered within each stratum (:30-61);
 - ``sample_pdf``: inverse-CDF fine z from coarse weights (:64-113);
-- ``sample_points_around_mean``: the DepthNet's depth population (:137-173).
+- ``sample_points_around_mean``: the DepthNet's depth population (:137-173);
+- ``scale_points_with_weights`` and ``scale_to_near_far`` (:116-134), the
+  reference's depth_nets/utils.py helpers, kept for capability parity.
 
 Random draws come from an explicit ``torch.Generator`` or are injected
 (``t_rand=``, ``u=``, ``noise=``), as the JAX functions take a key or the
@@ -111,6 +113,22 @@ def sample_pdf(
     denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
     t = (u - cdf_below) / denom
     return bins_below + t * (bins_above - bins_below)
+
+
+def scale_points_with_weights(
+    z_vals: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tensor
+) -> torch.Tensor:
+    """Points o + d * z (reference depth_nets/utils.py:5-11)."""
+    return z_to_points(rays_o, rays_d, z_vals)
+
+
+def scale_to_near_far(
+    outputs: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tensor, near: float, far: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """[0, 1] outputs as sorted z in [near, far], and their points
+    (reference depth_nets/utils.py:14-19)."""
+    z_vals = torch.sort(near * (1 - outputs) + far * outputs, dim=-1).values
+    return scale_points_with_weights(z_vals, rays_o, rays_d), z_vals
 
 
 def sample_points_around_mean(

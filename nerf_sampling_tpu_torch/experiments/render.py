@@ -13,7 +13,10 @@ The JAX CLI's flags and defaults, with argparse in place of click (-c -dp
 --testskip --ft_path --depth_net_path --n_samples --distance
 --sampling_mode; the manual defaults n_samples 2, distance 0.01, uniform,
 reference render.py:208-212), and ``--device`` (the card unless ``cpu``).
-It renders the test views through the Trainer's ``render_only`` path.
+It renders the test views through the Trainer's ``render_only`` path, so
+a checkpoint may be the JAX package's ``.npz`` or the reference's ``.tar``
+(``pretrained/nerf/<ds>/200000.tar`` and ``pretrained/depth_net/<ds>/
+files/sampler_experiment/200000.tar`` under the package, where they exist).
 ``--mlp_impl`` defaults to ``cuda``, the hand-written kernels, as the JAX
 CLI defaults to its Pallas kernels; ``cuda_int8`` (or ``pallas_int8``) runs
 DEPTH_NET, FULL_NERF and NERF_MAX through their int8 (W8A8) kernels,
@@ -62,8 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda: the hand-written kernels; plain: the fp32 PyTorch path; " + INT8_HELP
                          + " The JAX names xla, pallas and pallas_int8 map onto them.")
     ap.add_argument("--testskip", type=int, default=None, help="Load every Nth test/val image.")
-    ap.add_argument("--ft_path", default=None, help="Explicit NeRF checkpoint to load.")
-    ap.add_argument("--depth_net_path", default=None, help="Explicit DepthNet checkpoint to load.")
+    ap.add_argument("--ft_path", default=None, help="Explicit NeRF checkpoint (.tar or .npz) to load.")
+    ap.add_argument("--depth_net_path", default=None, help="Explicit DepthNet checkpoint (.tar or .npz) to load.")
     ap.add_argument("--n_samples", type=int, default=2)
     ap.add_argument("--distance", type=float, default=0.01)
     ap.add_argument("--sampling_mode", default="uniform", choices=["uniform", "gaussian", "depth_only"])

@@ -6,6 +6,8 @@
         --mlp_impl cuda --n_iters 500 --i_testset 500
     python3 -m nerf_sampling_tpu_torch.experiments.run -d example --mode joint \\
         -m recommended_depth_net_module --mlp_impl cuda --ft_path NERF.npz --joint_depth_warmup 100
+    python3 -m nerf_sampling_tpu_torch.experiments.run -d example -m recommended_depth_net_module \\
+        --mlp_impl cuda --ft_path pretrained/nerf/example/200000.tar --profile_dir logs/profile
 
 The JAX CLI's flag surface and hard overrides (reference run.py:101-109:
 depth_net_lr 1e-4, a 10x256 DepthNet, train_depth_net_only, sphere_radius
@@ -14,10 +16,17 @@ depth_net_lr 1e-4, a 10x256 DepthNet, train_depth_net_only, sphere_radius
 or when the YAML entry does not set the field. ``-d example`` generates
 the procedural example scene (800x800) on first use. ``--mode nerf`` trains
 the first 500 steps on a center crop when the entry leaves
-``precrop_iters`` at 0, as the JAX CLI does. Flags whose options are not
-ported (--n_devices, --multihost, -w online, ...) reach the Trainer, which
-raises naming their ROADMAP item. The Trainer runs on the card, and raises
-when there is none, unless ``--device cpu`` asks for the CPU.
+``precrop_iters`` at 0, as the JAX CLI does. ``--ft_path`` takes the
+JAX package's ``.npz`` or the reference's ``.tar``; with ``-d`` and no
+``--ft_path``, depth_net mode reads ``nerf_sampling_tpu_torch/pretrained/
+nerf/<dataset>/200000.tar`` where it exists (the reference's convention).
+``--precision`` sets the plain path's fp32 matmuls (highest: strict fp32,
+high: TF32, default: torch's "medium"); the kernels ignore it.
+``--profile_dir`` traces steps 20-40 after the start with torch.profiler
+(the Trainer's option; no JAX CLI flag). Flags whose options are not ported (--n_devices,
+--multihost, ...) reach the Trainer, which raises naming their ROADMAP
+item. The Trainer runs on the card, and raises when there is none, unless
+``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import os
 
 from nerf_sampling_tpu_torch.definitions import DATASET_DIR, REFERENCE_CONFIG, ROOT_DIR
 from nerf_sampling_tpu_torch.utils.config import INT8_HELP, load_trainer_config, override_config
+from nerf_sampling_tpu_torch.utils.precision import PRECISION_HELP
 
 # extension flags: (config field, default); None on the command line means "not typed"
 _EXTENSION_DEFAULTS = {
@@ -40,6 +50,7 @@ _EXTENSION_DEFAULTS = {
     "n_devices": 1,
     "steps_per_dispatch": 0,
     "multihost": False,
+    "profile_dir": None,
 }
 
 
@@ -58,7 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mode", dest="train_mode", choices=["depth_net", "nerf", "joint"], default=None)
     ap.add_argument("--basedir", default=None)
     ap.add_argument("--precision", dest="matmul_precision", choices=["highest", "high", "default"],
-                    default=None)
+                    default=None, help=PRECISION_HELP)
     ap.add_argument("--mlp_impl", choices=["plain", "cuda", "cuda_int8", "xla", "pallas", "pallas_int8"],
                     default=None,
                     help="plain: fp32 PyTorch; cuda: the hand-written kernels (K4/K5 NeRF queries, "
@@ -69,9 +80,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n_devices", type=int, default=None)
     ap.add_argument("--steps_per_dispatch", type=int, default=None)
     ap.add_argument("--multihost", action="store_true", default=None)
-    ap.add_argument("--ft_path", default=None, help="Explicit NeRF checkpoint (.npz) to load.")
+    ap.add_argument("--ft_path", default=None, help="Explicit NeRF checkpoint (.tar or .npz) to load.")
     ap.add_argument("--testskip", type=int, default=None, help="Load every Nth test/val image.")
     ap.add_argument("--seed", type=int, default=None, help="Init and sampling seed.")
+    ap.add_argument("--profile_dir", default=None,
+                    help="Trace steps 20-40 after the start with torch.profiler into PROFILE_DIR/trace.json.")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="Where the Trainer runs: the card (default) or the CPU.")
     return ap

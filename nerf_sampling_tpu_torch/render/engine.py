@@ -57,7 +57,7 @@ from nerf_sampling_tpu_torch.core.sampling import (
 from nerf_sampling_tpu_torch.kernels import fused_depth_net, fused_hier, fused_nerf_vjp, fused_render, quant
 from nerf_sampling_tpu_torch.models.depth_net import DepthNet, DepthNetConfig
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
-from nerf_sampling_tpu_torch.utils.precision import strict_fp32
+from nerf_sampling_tpu_torch.utils.precision import check_precision, matmul_precision
 
 PLAIN, CUDA, CUDA_INT8 = "plain", "cuda", "cuda_int8"
 KERNEL_IMPLS = (CUDA, CUDA_INT8)  # the impls that run the hand-written kernels
@@ -228,12 +228,18 @@ class Pipeline:
     # "cuda_int8": the (coarse, fine) kernels.quant.QuantCalibs
     # (render.quantize.calibrate_pipeline); tied to the calibrated checkpoint
     quant_calib: tuple[quant.QuantCalib, quant.QuantCalib] | None = None
+    # the plain path's fp32 matmul precision (the JAX NeRF/DepthNet configs'
+    # ``precision``): "highest", "high" (TF32) or "default" (torch's
+    # "medium"), applied in a scope around each plain render and train step
+    # (utils/precision.py); the kernels ignore it
+    matmul_precision: str = "highest"
 
     def __post_init__(self):
         impl = _JAX_IMPL_NAMES.get(self.mlp_impl, self.mlp_impl)
         if impl not in (PLAIN,) + KERNEL_IMPLS:
             raise ValueError(f"mlp_impl must be '{PLAIN}', '{CUDA}' or '{CUDA_INT8}', got {self.mlp_impl!r}")
         object.__setattr__(self, "mlp_impl", impl)
+        check_precision(self.matmul_precision)
 
     def embed_pts(self, pts: torch.Tensor) -> torch.Tensor:
         return pts if self.i_embed == -1 else positional_encoding(pts, self.multires)
@@ -650,14 +656,14 @@ def render_flat_rays(
         pipeline = dataclasses.replace(pipeline, mlp_impl=PLAIN)
     if pipeline.mlp_impl in KERNEL_IMPLS:
         return _fused_fast_paths(pipeline, params, rays_o, rays_d, mode, generator)
-    strict_fp32()
     rays = make_ray_batch(pipeline, rays_o, rays_d)
     n = rays.rays_o.shape[0]
     pieces: dict[str, list[torch.Tensor]] = {}
-    for s in range(0, n, chunk):
-        tile = RayBatch(*(x[s : s + chunk] for x in rays))
-        for name, v in render_rays_eval(pipeline, params, tile, mode, generator).items():
-            pieces.setdefault(name, []).append(v)
+    with matmul_precision(pipeline.matmul_precision):
+        for s in range(0, n, chunk):
+            tile = RayBatch(*(x[s : s + chunk] for x in rays))
+            for name, v in render_rays_eval(pipeline, params, tile, mode, generator).items():
+                pieces.setdefault(name, []).append(v)
     return {name: torch.cat(v, 0) for name, v in pieces.items()}
 
 

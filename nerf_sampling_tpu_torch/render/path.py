@@ -3,20 +3,22 @@
 The rendering entry point of the port: one render_image per pose (the
 "requests"), per-view PSNR against ground truth, ``{i:03d}.png`` and a
 ``psnr.txt`` with per-image and average lines (and the compare MSE in
-COMPARE_NERF), ``render_factor`` downscaling and the ``scene_data.npz``
-point cloud. Multi-device rendering waits for ROADMAP S7.
+COMPARE_NERF), ``render_factor`` downscaling, the ``scene_data.npz``
+point cloud, and each pose through a logger's ``log_render`` (its image
+and ray plots). Multi-device rendering waits for ROADMAP S7.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
 from nerf_sampling_tpu_torch.core.metrics import psnr_np, to8b
+from nerf_sampling_tpu_torch.core.rays import get_rays_np
 from nerf_sampling_tpu_torch.data.blender import write_png
 from nerf_sampling_tpu_torch.render.engine import EvalMode, NeRFParams, Pipeline, render_image
 
@@ -43,6 +45,8 @@ def render_path(
     savedir: str | None = None,
     render_factor: int = 0,
     save_scene_data: bool = False,
+    step: int = 0,
+    logger: Any = None,
     verbose: bool = True,
     generator: torch.Generator | None = None,
 ) -> tuple[np.ndarray, np.ndarray, float]:
@@ -50,7 +54,9 @@ def render_path(
 
     ``render_factor`` divides H, W and the focal length (no PSNR then);
     ``save_scene_data`` renders with per-sample outputs (the plain path)
-    and writes their points and weights to ``scene_data.npz``.
+    and writes their points and weights to ``scene_data.npz``. ``logger``
+    (utils.logging.MetricsLogger) gets each pose's maps and rays, under
+    ``step``.
     """
     H, W, focal = hwf
     if render_factor != 0:
@@ -100,6 +106,10 @@ def render_path(
             if save_scene_data:
                 all_pts.append(maps["depth_net_pts"].cpu().numpy().reshape(-1, 3))
                 all_weights.append(maps["depth_net_weights"].cpu().numpy().reshape(-1))
+
+        if logger is not None:  # the ray geometry of the reference's ray plots, on the host
+            ro, rd = get_rays_np(H, W, np.asarray(K), np.asarray(c2w[:3, :4]))
+            logger.log_render(maps, i, step, rays_o=ro, rays_d=rd)
 
     if save_scene_data and savedir is not None:
         np.savez(os.path.join(savedir, "scene_data.npz"), all_pts=np.concatenate(all_pts),

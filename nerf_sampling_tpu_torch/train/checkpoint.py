@@ -20,6 +20,17 @@ JAX package's ``load_checkpoint`` reads every leaf:
   schedule over NeRFParams(coarse, fine, None) (``[0].mu.coarse[...]``,
   ..., and the schedule's ``[1].count``); joint mode adds
   ``depth_opt_state``, the DepthNet's Adam.
+
+The reference's own format, a ``torch.save`` of ``{"global_step",
+"network_fn_state_dict", "network_fine_state_dict", "depth_network",
+"optimizer_state_dict", "sampling_optimizer_state_dict"}`` (reference
+utils.py:79-88; nerf_sampling_tpu/train/checkpoint.py:94-411), is read by
+``import_torch_checkpoint`` and written by ``export_torch_checkpoint``. The
+port's modules carry the reference's parameter names, so its state dicts
+are the file's. The two optimizers are torch Adam state dicts keyed by
+the position of each parameter in the reference modules' ``parameters()``
+order (``nerf_param_order``, ``depth_param_order``), whatever order the
+port's modules register them in.
 """
 
 from __future__ import annotations
@@ -344,3 +355,165 @@ def load_render_params(path: str, pipeline, device: torch.device | str):
     if pipeline.mlp_impl == CUDA and params.depth is not None:
         params = pack_kernel_weights(params)
     return params
+
+
+# --------------------------------------------------------------------------
+# The reference's .tar format
+# --------------------------------------------------------------------------
+
+
+def _fp32_state(sd: dict) -> dict:
+    """A state dict as contiguous fp32 CPU tensors (an .npz restore's dtype)."""
+    return {k: v.detach().to("cpu", torch.float32).contiguous().clone() for k, v in sd.items()}
+
+
+def import_torch_checkpoint(path: str) -> dict:
+    """Read a reference ``.tar`` checkpoint: {"global_step", "coarse",
+    "fine", "depth"}, the last three the port's state dicts (fp32, the
+    reference's key names) or None where the file has none. Optimizer
+    moments are not read (the JAX package reads none either). The file
+    comes from outside the program, so it is unpickled with
+    ``weights_only``: tensors and plain containers only."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+
+    def sd(key: str) -> dict | None:
+        return _fp32_state(ckpt[key]) if ckpt.get(key) else None
+
+    return {"global_step": int(ckpt.get("global_step", 0)), "coarse": sd("network_fn_state_dict"),
+            "fine": sd("network_fine_state_dict"), "depth": sd("depth_network")}
+
+
+def nerf_params_from_keras(weights: list, D: int = 8) -> dict:
+    """Original-TF-NeRF Keras weight lists (reference
+    NeRF.load_weights_from_keras, run_nerf_helpers.py:136-183) as a NeRF
+    state dict: ``[W0, b0, W1, b1, ...]`` for pts_linears, then
+    feature_linear, views_linears[0], rgb_linear, alpha_linear; Keras
+    kernels are [in, out], so each is transposed."""
+    def lin(i: int, prefix: str, sd: dict) -> None:
+        sd[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(np.asarray(weights[i], np.float32).T))
+        sd[f"{prefix}.bias"] = torch.from_numpy(np.asarray(weights[i + 1], np.float32).reshape(-1).copy())
+
+    sd: dict = {}
+    for i in range(D):
+        lin(2 * i, f"pts_linears.{i}", sd)
+    for i, prefix in enumerate(("feature_linear", "views_linears.0", "rgb_linear", "alpha_linear")):
+        lin(2 * D + 2 * i, prefix, sd)
+    return sd
+
+
+def nerf_param_order(sd: dict) -> list[str]:
+    """The reference NeRF's ``parameters()`` order (run_nerf_helpers.py:87-106:
+    pts_linears, views_linears, feature_linear, alpha_linear, rgb_linear),
+    by state-dict name; torch Adam keys its state by position in it."""
+    names = [f"pts_linears.{i}" for i in range(_count(sd, "pts_linears."))]
+    names += [f"views_linears.{i}" for i in range(_count(sd, "views_linears."))]
+    names += ["feature_linear", "alpha_linear", "rgb_linear"]
+    return [f"{n}.{wb}" for n in names for wb in ("weight", "bias")]
+
+
+def depth_param_order(sd: dict) -> list[str]:
+    """The reference DepthNet's ``parameters()`` order (depth_net.py:103-107:
+    the three towers, cat_layers at its even indices, to_depth)."""
+    names = [f"{t}.{i}" for t in ("origin_layers", "direction_layers", "intersection_layers")
+             for i in range(_count(sd, f"{t}."))]
+    names += [f"cat_layers.{2 * i}" for i in range(_count(sd, "cat_layers."))]
+    names += ["to_depth.0"]
+    return [f"{n}.{wb}" for n in names for wb in ("weight", "bias")]
+
+
+def _adam_state_dict(n_params: int, lr: float, state: dict | None = None) -> dict:
+    """A torch-Adam state dict of ``n_params`` parameters (the JAX export's
+    layout, nerf_sampling_tpu/train/checkpoint.py:196-226); ``state`` maps
+    position -> {"step", "exp_avg", "exp_avg_sq"}, empty for a fresh one."""
+    return {
+        "state": state or {},
+        "param_groups": [{
+            "lr": lr, "betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": 0, "amsgrad": False,
+            "maximize": False, "foreach": None, "capturable": False, "differentiable": False,
+            "fused": None, "params": list(range(n_params)),
+        }],
+    }
+
+
+def adam_state_to_torch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                        names: list[str]) -> dict:
+    """``optimizer``'s per-parameter state of ``model``, keyed by the
+    position of each parameter name in ``names`` (a reference order);
+    parameters it has not stepped are left out, as a fresh torch Adam has
+    none."""
+    params = dict(model.named_parameters())
+    state = {}
+    for idx, name in enumerate(names):
+        st = optimizer.state.get(params[name])
+        if st:
+            state[idx] = {k: st[k].detach().cpu().clone() for k in ("step", "exp_avg", "exp_avg_sq")}
+    return state
+
+
+def adam_state_from_torch(opt_sd: dict, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                          names: list[str]) -> None:
+    """Load a reference-layout torch Adam state dict's moments (keyed by
+    position in ``names``) into ``optimizer``'s state for ``model``."""
+    params = dict(model.named_parameters())
+    for idx, st in opt_sd["state"].items():
+        p = params[names[idx]]
+        optimizer.state[p] = {"step": st["step"].detach().to(torch.float32).clone(),
+                              "exp_avg": st["exp_avg"].to(p.device, p.dtype).clone(),
+                              "exp_avg_sq": st["exp_avg_sq"].to(p.device, p.dtype).clone()}
+
+
+def nerf_state_order(coarse_sd: dict, fine_sd: dict | None) -> list[str]:
+    """The names of ``state.nerf_modules``' parameters in the reference's
+    joint NeRF optimizer's order (coarse, then fine: its grad_vars,
+    nerf_utils.py:417-430)."""
+    order = [f"coarse.{n}" for n in nerf_param_order(coarse_sd)]
+    if fine_sd is not None:
+        order += [f"fine.{n}" for n in nerf_param_order(fine_sd)]
+    return order
+
+
+def export_torch_checkpoint(
+    path: str,
+    step: int,
+    coarse: dict,
+    fine: dict | None = None,
+    depth: dict | None = None,
+    lrate: float = 5e-4,
+    depth_net_lr: float = 1e-4,
+    nerf_opt: tuple | None = None,
+    depth_opt: tuple | None = None,
+    lrate_decay: int = 250,
+) -> None:
+    """Write a reference-format ``.tar`` of the state dicts ``coarse``,
+    ``fine`` and ``depth`` (the JAX ``export_torch_checkpoint``).
+
+    ``nerf_opt`` and ``depth_opt`` are the live (module, torch Adam) pairs
+    whose moments go into ``optimizer_state_dict`` (the NeRFs'
+    ``nerf_modules``) and ``sampling_optimizer_state_dict`` (the
+    DepthNet's), in the reference's parameter order; None writes a fresh
+    optimizer (depth_net mode's frozen NeRF, as the reference's, Trainer.py:
+    538-543). A NeRF without viewdirs always gets a fresh one: the
+    reference module registers views_linears whatever use_viewdirs says
+    (run_nerf_helpers.py:96), so its positions are not the port's. The
+    NeRF's lr is the reference's decayed value at ``step`` (Trainer.py:
+    546-551).
+    """
+    coarse = _fp32_state(coarse)
+    data: dict = {"global_step": step, "network_fn_state_dict": coarse}
+    n_nerf = len(coarse)
+    if fine is not None:
+        data["network_fine_state_dict"] = fine = _fp32_state(fine)
+        n_nerf += len(fine)
+    nerf_state = None
+    if nerf_opt is not None and "feature_linear.weight" in coarse:
+        nerf_state = adam_state_to_torch(*nerf_opt, nerf_state_order(coarse, fine))
+    decayed_lr = lrate * 0.1 ** (step / (lrate_decay * 1000))
+    data["optimizer_state_dict"] = _adam_state_dict(n_nerf, decayed_lr, nerf_state)
+    depth = _fp32_state(depth) if depth is not None else {}
+    data["depth_network"] = depth
+    depth_state = None
+    if depth_opt is not None and depth:
+        depth_state = adam_state_to_torch(*depth_opt, depth_param_order(depth))
+    data["sampling_optimizer_state_dict"] = _adam_state_dict(len(depth), depth_net_lr, depth_state)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(data, path)

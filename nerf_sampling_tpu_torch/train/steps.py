@@ -6,7 +6,8 @@
   DepthNet gets the sum of both gradients and the frozen NeRF none. Here the
   NeRF modules are frozen (``requires_grad_(False)``), gradients still flow
   through the query points to the DepthNet, and the differentiable part
-  runs in strict fp32 (no TF32), as the JAX package pins Precision.HIGHEST.
+  runs at the Pipeline's ``matmul_precision`` (strict fp32 by default, as
+  the JAX package's "highest"; every step applies it in a scope).
   Under ``"cuda"`` the frozen-NeRF target pass (about 98% of the step's
   FLOPs) is K6, ``fused_render_hier`` with the step's seed, under no_grad;
   then the DepthNet and the single depth-point fine-NeRF query in plain
@@ -33,6 +34,7 @@ feed both packages the same numbers.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -57,7 +59,7 @@ from nerf_sampling_tpu_torch.render.engine import (
     render_rays_vanilla,
 )
 from nerf_sampling_tpu_torch.train.state import TrainState, apply_update
-from nerf_sampling_tpu_torch.utils.precision import strict_fp32
+from nerf_sampling_tpu_torch.utils.precision import matmul_precision
 
 
 class StepDraws(NamedTuple):
@@ -65,6 +67,18 @@ class StepDraws(NamedTuple):
 
     t_rand: torch.Tensor  # [N, N_samples]
     u: torch.Tensor  # [N, N_importance]
+
+
+def _in_precision(p: Pipeline, step: Callable) -> Callable:
+    """``step`` run at the pipeline's matmul precision (forward, backward and
+    update), the global setting restored after it (utils/precision.py)."""
+
+    @functools.wraps(step)
+    def run(*args, **kwargs):
+        with matmul_precision(p.matmul_precision):
+            return step(*args, **kwargs)
+
+    return run
 
 
 def check_hier_oracle(p: Pipeline) -> bool:
@@ -121,7 +135,6 @@ def depth_net_loss(
     """(img_loss + depth_loss, detached metrics) of one batch; backward()
     on the loss leaves the DepthNet's gradients in its parameters."""
     p = pipeline
-    strict_fp32()
     if check_hier_oracle(p):
         hier = frozen.kernels.hier if frozen.kernels is not None else None
         if hier is None or quant.is_int8(hier["fine"]) != (p.mlp_impl == CUDA_INT8):
@@ -195,7 +208,7 @@ def make_depth_net_train_step(pipeline: Pipeline, frozen: NeRFParams) -> Callabl
         state.step += 1
         return state, metrics
 
-    return step
+    return _in_precision(pipeline, step)
 
 
 def _step_generator(rays: RayBatch, seed: int, draws: StepDraws | None) -> dict:
@@ -225,7 +238,6 @@ def make_nerf_train_step(pipeline: Pipeline) -> Callable:
 
     def step(state: TrainState, batch, seed: int, draws: StepDraws | None = None):
         rays_o, rays_d, target = batch
-        strict_fp32()
         rays = make_ray_batch(p, rays_o, rays_d)
         with record_function("nerf_forward"):
             out = render_rays_vanilla(p, nerf_pair(state.model), rays, **_step_generator(rays, seed, draws))
@@ -243,7 +255,7 @@ def make_nerf_train_step(pipeline: Pipeline) -> Callable:
                        "psnr": mse2psnr(img_loss.detach()), "psnr0": mse2psnr(img_loss0.detach())}
         return state, metrics
 
-    return step
+    return _in_precision(p, step)
 
 
 def make_joint_train_step(pipeline: Pipeline) -> Callable:
@@ -267,7 +279,6 @@ def make_joint_train_step(pipeline: Pipeline) -> Callable:
     def step(nerf_state: TrainState, depth_state: TrainState, batch, seed: int,
              draws: StepDraws | None = None):
         rays_o, rays_d, target = batch
-        strict_fp32()
         rays = make_ray_batch(p, rays_o, rays_d)
         live = nerf_state.step >= p.joint_depth_warmup
         with record_function("joint_forward"):
@@ -306,4 +317,4 @@ def make_joint_train_step(pipeline: Pipeline) -> Callable:
                 metrics["depth_live"] = torch.tensor(float(live))
         return nerf_state, depth_state, metrics
 
-    return step
+    return _in_precision(p, step)

@@ -4,8 +4,8 @@
 
 - ``"depth_net"``: the DepthNet against a frozen NeRF (``ft_path`` or the
   newest NeRF checkpoint of the experiment); the DepthNet from
-  ``depth_net_path``, the newest ``depth_*.npz``, a DepthNet inside an
-  ``.npz`` ``ft_path``, or a fresh one from ``seed``. Checkpoints
+  ``depth_net_path``, the newest ``depth_*.npz``, a DepthNet inside the
+  ``ft_path`` checkpoint, or a fresh one from ``seed``. Checkpoints
   ``depth_{i:06d}.npz``; evals DEPTH_NET (FULL_NERF with ``use_full_nerf``).
 - ``"nerf"``: coarse and fine NeRFs from ``seed`` or restored (``ft_path``
   or the newest ``{i:06d}.npz``, whose Adam moments and step come back
@@ -21,7 +21,22 @@ train-set render and the spiral video of the JAX Trainer (:719-831,
 :922-945); ``render_only`` renders the test views or the spiral path
 instead of training (:951-993). Checkpoints are the JAX package's ``.npz``
 layout, readable by both packages, with the Adam moments, so a resume is
-exact. The Trainer runs on the card unless it is given ``device="cpu"``.
+exact; with ``export_torch_ckpt`` (the default, as in JAX) each one also
+gets a reference-format ``{i:06d}.tar`` beside it (train/checkpoint.py),
+and ``ft_path``, ``depth_net_path`` and the resume scan read such a
+``.tar`` as the JAX Trainer does: its NeRFs, its DepthNet and its step,
+never its optimizer moments. The Trainer runs on the card unless it is
+given ``device="cpu"``.
+
+Around the steps, as the JAX Trainer (:490-568, :830-850): ``profile_dir``
+traces steps [start+20, start+40) with torch.profiler into
+``profile_dir/trace.json`` (utils/profiling.py); ``debug_nans`` raises at
+the first module output that holds a NaN and runs autograd's anomaly mode
+(rays that miss the DepthNet's sphere give NaN by design: see
+``nan_checks``); ``wandb_mode`` logs to wandb where it is installed, else
+to ``metrics.jsonl``; a ``trial`` (optuna's, or any object with
+``report`` and ``should_prune``) gets the PSNR at every ``i_print`` and
+may prune the run (``TrialPruned``).
 
 The seed of step i is a pure function of (``cfg.seed``, i), as JAX's
 ``fold_in(base_key, i)``, so a resumed run draws what an unbroken run
@@ -36,17 +51,19 @@ DepthNet's pack stays bf16): the depth-net step's K6 oracle and the evals
 then run the int8 kernels. It needs a frozen NeRF: nerf and joint training raise, as the JAX
 Trainer does, unless they only render (``render_only``).
 
-Options this slice does not port raise NotImplementedError naming their
-ROADMAP item; nothing falls back quietly.
+Options not ported yet (other loaders, scale-out) raise NotImplementedError
+naming their ROADMAP item; nothing falls back quietly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from nerf_sampling_tpu_torch.core.metrics import to8b
 from nerf_sampling_tpu_torch.data.types import SceneData
@@ -74,10 +91,16 @@ from nerf_sampling_tpu_torch.train.steps import (
 )
 from nerf_sampling_tpu_torch.utils.config import TrainerConfig
 from nerf_sampling_tpu_torch.utils.logging import MetricsLogger
-from nerf_sampling_tpu_torch.utils.profiling import StepTimer
+from nerf_sampling_tpu_torch.utils.profiling import StepTimer, nan_checks, trace
 from nerf_sampling_tpu_torch.utils.video import write_video
 
 TRAIN_MODES = ("depth_net", "nerf", "joint")
+PROFILE_START, PROFILE_STOP = 20, 40  # the traced steps, after start (the JAX Trainer's window)
+
+
+class TrialPruned(Exception):
+    """Raised by the pruning hook when optuna is not installed (optuna's own
+    TrialPruned is raised when it is)."""
 
 
 def step_seed(seed: int, i: int) -> int:
@@ -94,10 +117,6 @@ def _unported(cfg: TrainerConfig) -> list[str]:
         found.append("n_devices != 1, multihost and steps_per_dispatch > 1 (scale-out: ROADMAP S7)")
     if cfg.dataset_type != "blender":
         found.append(f"dataset_type={cfg.dataset_type!r} (other loaders: ROADMAP S6)")
-    if cfg.export_torch_ckpt:
-        found.append("export_torch_ckpt (the reference-format .tar: ROADMAP S5)")
-    if cfg.profile_dir is not None or cfg.debug_nans:
-        found.append("profile_dir and debug_nans (ROADMAP S5)")
     return found
 
 
@@ -111,9 +130,10 @@ def _seeded(module_cls, cfg, seed: int):
 class Trainer:
     """Trains the DepthNet, the NeRFs or both (``cfg.train_mode``) on one
     device: the card (``device=None``: "cuda", and a RuntimeError when no
-    card is found), or the device given, such as "cpu"."""
+    card is found), or the device given, such as "cpu". ``trial`` is an
+    optuna trial (optional, for pruning)."""
 
-    def __init__(self, cfg: TrainerConfig, device: torch.device | str | None = None):
+    def __init__(self, cfg: TrainerConfig, device: torch.device | str | None = None, trial=None):
         unported = _unported(cfg)
         if unported:
             raise NotImplementedError("not ported: " + "; ".join(unported))
@@ -127,6 +147,7 @@ class Trainer:
                 "for nerf/joint training; int8 is for depth_net training and render-only evaluation."
             )
         self.cfg = cfg
+        self.trial = trial
         pipe = cfg.pipeline(with_depth=False)  # the envelope reads the NeRF side
         if pipe.mlp_impl in KERNEL_IMPLS:
             # the kernels' eval envelope, checked now: the first eval would
@@ -206,19 +227,21 @@ class Trainer:
         nerf_start = 0
         if nerf_ckpts and not cfg.no_reload:
             path = nerf_ckpts[-1]
-            if path.endswith(".tar"):
-                raise NotImplementedError(f"{path}: .tar checkpoints are not ported (ROADMAP S5)")
             print(f"Reloading NeRF from {path}")
-            tree, nerf_start = ckpt_lib.load_checkpoint(path)
-            sds = ckpt_lib.params_from_jax(tree["params"])
+            if path.endswith(".tar"):  # the reference format: no optimizer state is read
+                sds = ckpt_lib.import_torch_checkpoint(path)
+                nerf_start = sds["global_step"]
+            else:
+                tree, nerf_start = ckpt_lib.load_checkpoint(path)
+                sds = ckpt_lib.params_from_jax(tree["params"])
+                if cfg.train_mode in ("nerf", "joint"):
+                    self._resume_tree = tree
             coarse.load_state_dict(sds["coarse"], strict=True)
-            if fine is not None:
+            if fine is not None and sds.get("fine") is not None:
                 fine.load_state_dict(sds["fine"], strict=True)
-            if depth is not None and "depth" in sds and not explicit_depth:  # a joint checkpoint
-                depth.load_state_dict(sds["depth"], strict=True)
-                print(f"Reloading DepthNet from {path} (joint checkpoint)")
-            if cfg.train_mode in ("nerf", "joint"):
-                self._resume_tree = tree
+            if depth is not None and sds.get("depth") is not None and not explicit_depth:
+                depth.load_state_dict(sds["depth"], strict=True)  # a joint checkpoint, or a .tar's
+                print(f"Reloading DepthNet from {path}")
 
         depth_start = 0
         if with_depth:
@@ -231,9 +254,15 @@ class Trainer:
             if depth_ckpts and not cfg.no_reload:
                 path = depth_ckpts[-1]
                 print(f"Reloading DepthNet from {path}")
-                tree, depth_start = ckpt_lib.load_checkpoint(path)
-                depth.load_state_dict(ckpt_lib.params_from_jax(tree["params"])["depth"], strict=True)
-                self._resume_tree = tree
+                if path.endswith(".tar"):
+                    sds = ckpt_lib.import_torch_checkpoint(path)
+                    depth_start = sds["global_step"]
+                    if sds["depth"] is not None:
+                        depth.load_state_dict(sds["depth"], strict=True)
+                else:
+                    tree, depth_start = ckpt_lib.load_checkpoint(path)
+                    depth.load_state_dict(ckpt_lib.params_from_jax(tree["params"])["depth"], strict=True)
+                    self._resume_tree = tree
         self.start = depth_start if cfg.train_mode == "depth_net" else nerf_start
         self.global_step = self.start
 
@@ -287,7 +316,7 @@ class Trainer:
         self.scene = self.load_data()
         self.create_log_dir_and_dump_config()
         self.setup_models()
-        self.logger = MetricsLogger(self.expdir, cfg.wandb_mode)
+        self.logger = MetricsLogger(self.expdir, cfg.wandb_mode, cfg)
         if cfg.render_only:
             try:
                 return self.render_only_path()
@@ -307,22 +336,35 @@ class Trainer:
             self._nerf_state, self._depth_state = state, depth_state
         timer = StepTimer(rays_per_step=cfg.N_rand, device=self.device)
         metrics: dict = {}
-        try:
+        with contextlib.ExitStack() as stack:
+            stack.callback(self.logger.close)
+            p = self.params
+            if cfg.debug_nans:
+                stack.enter_context(nan_checks(m for m in (p.coarse, p.fine, p.depth) if m is not None))
+            # the profiler's window: closed before step start+PROFILE_STOP, or when the loop ends
+            profile = stack.enter_context(contextlib.ExitStack())
             for i in range(self.start + 1, N_iters):
-                batch = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-                              for x in sampler.sample(i))
-                seed = step_seed(cfg.seed, i)
-                if cfg.train_mode == "joint":
-                    state, depth_state, metrics = step_fn(state, depth_state, batch, seed)
-                else:
-                    state, metrics = step_fn(state, batch, seed)
-                timer.tick()
+                if cfg.profile_dir is not None:
+                    if i == self.start + PROFILE_START:
+                        profile.enter_context(trace(cfg.profile_dir, self.device))
+                    elif i == self.start + PROFILE_STOP:
+                        profile.close()
+                        print(f"profiler trace written to {cfg.profile_dir}")
+                with record_function("train_step"):
+                    batch = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+                                  for x in sampler.sample(i))
+                    seed = step_seed(cfg.seed, i)
+                    if cfg.train_mode == "joint":
+                        state, depth_state, metrics = step_fn(state, depth_state, batch, seed)
+                    else:
+                        state, metrics = step_fn(state, batch, seed)
+                    timer.tick()
+                if cfg.debug_nans and not torch.isfinite(metrics["loss"]):  # a NaN no module output showed
+                    raise FloatingPointError(f"step {i}: the loss is {float(metrics['loss'])}")
                 self.global_step = i
                 self.log(i, metrics, timer)
                 if self._stop_early:
                     break
-        finally:
-            self.logger.close()
         return float(metrics["psnr"]) if metrics else 0.0
 
     def _eval_mode(self) -> EvalMode:
@@ -358,11 +400,12 @@ class Trainer:
             generator=torch.Generator(device=self.device).manual_seed(seed), **kw,
         )
 
-    def eval_testset(self, savedir: str | None) -> float:
-        """Render the test views with the models as they are now; average PSNR."""
+    def eval_testset(self, savedir: str | None, step: int = 0) -> float:
+        """Render the test views with the models as they are now, each
+        through the logger's ``log_render``; average PSNR."""
         scene = self.scene
         _, _, avg = self._render(scene.poses[scene.i_test], gt_imgs=scene.images[scene.i_test],
-                                 savedir=savedir, verbose=False)
+                                 savedir=savedir, verbose=False, logger=self.logger, step=step)
         return avg
 
     def save_spiral_video(self, i: int) -> None:
@@ -400,7 +443,7 @@ class Trainer:
         if i % cfg.i_testset == 0 and i > 0 and len(scene.i_test) > 0:
             testsavedir = os.path.join(self.expdir, f"testset_{i:06d}")
             os.makedirs(testsavedir, exist_ok=True)
-            avg_psnr = self.eval_testset(testsavedir)
+            avg_psnr = self.eval_testset(testsavedir, i)
             self._avg_eval_psnr = avg_psnr
             self.logger.log({"test_psnr": avg_psnr}, i)
             print(f"Saved test set (avg PSNR {avg_psnr:.3f})")
@@ -437,12 +480,33 @@ class Trainer:
                 scalars.update(timer.metrics())
             self.logger.log(scalars, i)
             self.logger.print_line(info)
+            if self.trial is not None:
+                self._report_trial(m["psnr"], i)
+
+    def _report_trial(self, psnr: float, step: int) -> None:
+        """The pruning hook (reference Trainer.py:393-398): report to the
+        trial, and raise optuna's TrialPruned (this module's stand-in when
+        optuna is not installed) when it says to prune."""
+        self.trial.report(psnr, step)
+        if self.trial.should_prune():
+            try:
+                import optuna
+
+                exc = optuna.exceptions.TrialPruned
+            except ImportError:
+                exc = TrialPruned
+            raise exc()
 
     def save_checkpoint(self, i: int, subdir: str = "") -> None:
         """The models and their Adam moments in the JAX layout:
         ``depth_{i:06d}.npz`` in depth-net mode, ``{i:06d}.npz`` in nerf and
         joint mode (joint adds the DepthNet's moments); subdir="best" keeps
-        the keep_best snapshot out of the resume scan's way."""
+        the keep_best snapshot out of the resume scan's way. With
+        ``export_torch_ckpt`` (not under ``subdir``) a reference-format
+        ``{i:06d}.tar`` goes beside it, each live Adam routed to its torch
+        optimizer as the JAX Trainer routes them: the DepthNet's in
+        depth_net mode (the frozen NeRF's optimizer written fresh), the
+        NeRFs' in nerf mode, both in joint mode."""
         p = self.params
         sds = {"coarse": p.coarse.state_dict()}
         if p.fine is not None:
@@ -462,4 +526,26 @@ class Trainer:
                                                                      self._depth_state.optimizer)
             path = os.path.join(outdir, f"{i:06d}.npz")
         ckpt_lib.save_checkpoint(path, tree, i)
+        if self.cfg.export_torch_ckpt and not subdir:
+            cfg, nerf, depth = self.cfg, self._nerf_state, self._depth_state
+            ckpt_lib.export_torch_checkpoint(
+                os.path.join(self.expdir, f"{i:06d}.tar"), i, sds["coarse"], sds.get("fine"), sds.get("depth"),
+                lrate=cfg.lrate, depth_net_lr=cfg.depth_net_lr, lrate_decay=cfg.lrate_decay,
+                nerf_opt=(nerf.model, nerf.optimizer) if nerf is not None else None,
+                depth_opt=(depth.model, depth.optimizer) if depth is not None else None,
+            )
         print("Saved checkpoints at", path)
+
+    def save_rays_data(self, rays_o, pts, alpha) -> str:
+        """Ray data for later visualization, as safetensors (reference
+        sampling_trainer.py:124-138); ``{expname}_{global_step}.safetensors``
+        in the experiment directory."""
+        from safetensors.numpy import save_file
+
+        def f32(x) -> np.ndarray:
+            x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+            return np.ascontiguousarray(x, dtype=np.float32)
+
+        filename = os.path.join(self.expdir, f"{self.cfg.expname}_{self.global_step}.safetensors")
+        save_file({"origins": f32(rays_o), "pts": f32(pts), "alpha": f32(alpha)}, filename)
+        return filename

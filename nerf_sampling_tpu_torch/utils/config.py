@@ -4,12 +4,17 @@
 configs load into it; ``nerf_config``, ``depth_net_config`` and ``pipeline``
 build the port's configs. ``load_trainer_config`` reads the reference's
 YAML layout {model_key: {module, kwargs}}, e.g. the port's copy of the JAX
-package's ``experiments/configs/lego.yaml`` (``definitions.REFERENCE_CONFIG``).
+package's ``experiments/configs/lego.yaml`` (``definitions.REFERENCE_CONFIG``);
+``load_legacy_txt_config`` the reference's legacy ``key = value`` files
+(the port's copies in ``experiments/configs/legacy/``), and
+``load_obj_from_config`` instantiates a {module, kwargs} entry.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
+from typing import Any
 
 from nerf_sampling_tpu_torch.core.encoding import Embedder
 from nerf_sampling_tpu_torch.models.depth_net import DepthNetConfig
@@ -20,9 +25,7 @@ from nerf_sampling_tpu_torch.render.engine import Pipeline
 @dataclasses.dataclass
 class TrainerConfig:
     """Every trainer knob of the JAX TrainerConfig, with the same defaults
-    except ``mlp_impl`` (the port's "plain" is the JAX "xla") and
-    ``export_torch_ckpt`` (off: the ``.tar`` export is ROADMAP S5, and the
-    Trainer raises when it is asked for).
+    except ``mlp_impl`` (the port's "plain" is the JAX "xla").
 
     A config file loads to the same fields in both packages. ``pipeline()``
     passes on what the ported eval renders and train steps read; the knobs
@@ -99,7 +102,7 @@ class TrainerConfig:
     # checkpoints
     ft_path: str | None = None
     no_reload: bool = False
-    export_torch_ckpt: bool = False
+    export_torch_ckpt: bool = True
 
     # logging / eval cadence
     i_print: int = 100
@@ -129,7 +132,9 @@ class TrainerConfig:
     # (their W8A8 int8 MLP for a frozen NeRF); the JAX names map onto them
     mlp_impl: str = "plain"
     steps_per_dispatch: int = 0
-    matmul_precision: str = "highest"  # accepted for compatibility; the plain path is fp32
+    # the plain path's fp32 matmuls: "highest" (strict fp32) | "high" (TF32) |
+    # "default" (torch's "medium"); the kernels ignore it (utils/precision.py)
+    matmul_precision: str = "highest"
 
     profile_dir: str | None = None
     debug_nans: bool = False
@@ -192,6 +197,7 @@ class TrainerConfig:
             joint_depth_warmup=self.joint_depth_warmup,
             mlp_impl=self.mlp_impl,
             netchunk=self.netchunk,
+            matmul_precision=self.matmul_precision,
         )
 
 
@@ -210,6 +216,13 @@ def override_config(config: dict, update: dict) -> None:
         if key not in config:
             raise KeyError(f"Key {key} does not exist in config")
         config[key] = value
+
+
+def load_obj_from_config(cfg: dict) -> Any:
+    """Dynamic {"module", "kwargs"} instantiation (reference utils.py:12-21)."""
+    module_name, class_name = cfg["module"].rsplit(".", maxsplit=1)
+    cls = getattr(importlib.import_module(module_name), class_name)
+    return cls(**cfg["kwargs"])
 
 
 def _coerce(kwargs: dict) -> dict:
@@ -233,5 +246,39 @@ def load_trainer_config(path: str, model_key: str | None = None) -> TrainerConfi
     coerced = _coerce(doc.get("kwargs", doc))
     cfg = TrainerConfig(**coerced)
     cfg.config_path = path
+    cfg.explicit_keys = frozenset(coerced)
+    return cfg
+
+
+# the legacy configs' store_true flags (reference config_parser)
+_LEGACY_FLAGS = {
+    "no_batching", "no_reload", "use_viewdirs", "white_bkgd", "half_res",
+    "no_ndc", "lindisp", "spherify", "render_only", "render_test",
+}
+
+
+def load_legacy_txt_config(path: str) -> TrainerConfig:
+    """Parse a legacy configargparse .txt config (reference
+    nerf_pytorch/configs/*.txt: 'key = value' lines, '#' comments)."""
+    kwargs: dict[str, Any] = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            key, _, value = line.partition("=")
+            key, value = key.strip(), value.strip()
+            if key in _LEGACY_FLAGS:
+                kwargs[key] = value.lower() in ("true", "1", "yes", "")
+                continue
+            for cast in (int, float):
+                try:
+                    value = cast(value)
+                    break
+                except (TypeError, ValueError):
+                    continue
+            kwargs[key] = value
+    coerced = _coerce(kwargs)
+    cfg = TrainerConfig(**coerced)
     cfg.explicit_keys = frozenset(coerced)
     return cfg

@@ -381,8 +381,8 @@ def engine_setup(**kw):
     for m, k in ((coarse, "coarse"), (fine, "fine"), (depth, "depth")):
         m.load_state_dict(sds[k], strict=True)
     tparams = tengine.NeRFParams(coarse, fine, depth.eval())
-    fields = {f.name: getattr(jpipe, f.name) for f in dataclasses.fields(tengine.Pipeline)
-              if f.name not in ("nerf", "fine", "depth", "quant_calib")}
+    fields = {f.name: getattr(jpipe, f.name) for f in dataclasses.fields(tengine.Pipeline)  # the JAX Pipeline
+              if f.name not in ("nerf", "fine", "depth", "quant_calib", "matmul_precision")}  # keeps it per net
     tpipe = tengine.Pipeline(nerf=coarse.cfg, fine=fine.cfg, depth=depth.cfg, **fields)
     rays = sphere_hitting_rays(jpipe, n=40)
     ro, rd = np.asarray(rays.rays_o), np.asarray(rays.rays_d)

@@ -237,8 +237,8 @@ def test_trainer_config_matches_jax():
     tcfg = tconfig.load_trainer_config(REFERENCE_CONFIG, "recommended_depth_net_module")
     jd, td = dataclasses.asdict(jcfg), dataclasses.asdict(tcfg)
     assert set(jd) == set(td)
-    # "xla" is the port's "plain"; the .tar export (ROADMAP S5) is off in the port
-    assert {k for k in jd if jd[k] != td[k]} == {"mlp_impl", "export_torch_ckpt"}
+    # "xla" is the port's "plain"
+    assert {k for k in jd if jd[k] != td[k]} == {"mlp_impl"}
     for cfg in (jcfg, tcfg):  # run.py's hard overrides (reference run.py:101-109)
         cfg.n_layers, cfg.layer_width, cfg.sphere_radius = 10, 256, 2
     tp, jp = tcfg.pipeline(), jcfg.pipeline()
@@ -257,8 +257,9 @@ def test_trainer_config_matches_jax():
 
 def test_port_imports_no_jax():
     """Every module of the port imports without jax or the JAX package,
-    the training slices (train/*, experiments/run.py, K4/K5) and the render
-    CLI and video writer included."""
+    the training slices (train/*, experiments/run.py, K4/K5), the render
+    CLI and video writer, and the legacy, study and plot entry points, the
+    plots and the losses included."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import nerf_sampling_tpu_torch as p\n"
@@ -268,7 +269,8 @@ def test_port_imports_no_jax():
         "need = ['train.trainer', 'train.steps', 'train.sampler', 'train.state', 'train.checkpoint',\n"
         "        'experiments.run', 'kernels.fused_hier', 'kernels.philox', 'utils.logging',\n"
         "        'utils.profiling', 'kernels.fused_nerf', 'kernels.fused_nerf_vjp', 'experiments.render',\n"
-        "        'utils.video', 'kernels.quant', 'render.quantize']\n"
+        "        'utils.video', 'kernels.quant', 'render.quantize', 'utils.precision', 'viz.visualize',\n"
+        "        'experiments.legacy_run', 'experiments.study', 'experiments.plot', 'core.losses']\n"
         "missing = [m for m in need if 'nerf_sampling_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'nerf_sampling_tpu.')) or k == 'nerf_sampling_tpu')\n"
