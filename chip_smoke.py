@@ -121,7 +121,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    loss must fall); its best DepthNet evaluated under the bf16 protocol
    within INT8_EVAL_TOL dB of the bf16 run's eval; --mode nerf with int8
    must raise.
-9. [tar], last: the reference's .tar format on the main path. The
+9. [tar], after [joint]: the reference's .tar format on the main path. The
    committed checkpoint written as a reference-format .tar by the port's
    export and read back by its import, every tensor bit for bit; view 0
    rendered through the render CLI's loader from the .tar and from the
@@ -137,6 +137,27 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    printed), torch's matmul precision back at strict fp32 after it. The
    kernels' record carries each kernel's launches in this phase as
    "tar_launches".
+10. [llff], after [tar]: the forward-facing path through NDC at the llff
+   recipe's full width (llff_depth_net_module with run.py's overrides) on
+   the procedural example_llff scene (400x400, 24 views, llffhold 8),
+   generated on first use. run.py --mode nerf from scratch for
+   LLFF_NERF_ITERS steps on the kernels and on the plain path (only K4 and
+   K5 may launch; the loss must fall over the center-crop phase; the
+   kernel run's FULL_NERF eval, K4 on the composable route, within
+   NERF_EVAL_TOL dB of the plain run's); one NDC nerf step and one NDC
+   depth step on both paths from one state, batch and draws ([step]'s
+   gates) and their median times; run.py --mode depth_net from the kernel
+   run's NeRF for LLFF_DEPTH_ITERS steps (only K4, the target pass's
+   queries, and K1, the eval, may launch: no K6; the loss must fall); the
+   render CLI -rt gaussian/64/0.25 over the test views on both paths
+   (only K1 and K4 may launch; the average PSNR within FULL_PSNR_TOL of
+   plain fp32); one view's DEPTH_NET and FULL_NERF frame times on both
+   paths and a profiled kernel-path DEPTH_NET frame. [formats]:
+   example_linemod (per-frame K) and example_deepvoxels through run.py
+   --mlp_impl cuda for FORMATS_ITERS depth steps against a NeRF from seed
+   and one eval (K6, K1 and K3 must launch, the eval finite). The record
+   carries each kernel's launches in these phases as "llff_launches" and
+   "formats_launches".
 
 Every kernel runs its MLP on the wgmma core (csrc/mlp_wgmma.cuh): K1 in
 bf16 and fp32 (depth_net.cu), K2, K3, K8 and K9 in bf16, int8 and fp32
@@ -185,6 +206,11 @@ RENDER_DIR = os.path.join(HERE, "logs", "chip_smoke_render")  # the render CLI's
 INT8_TRAIN_DIR = os.path.join(HERE, "logs", "chip_smoke_int8_train")  # the int8 training run (gitignored)
 TAR_DIR = os.path.join(HERE, "logs", "chip_smoke_tar")  # the [tar] phase's files (gitignored)
 TAR_ITERS = 60  # [tar]: depth-net steps from the .tar; the profiler traces steps 20-40, eval and .tar at 60
+LLFF_DIR = os.path.join(HERE, "logs", "chip_smoke_llff")  # the [llff] phase's runs (gitignored)
+LLFF_NERF_ITERS = 500  # [llff] --mode nerf from scratch: the center-crop phase, then the eval
+LLFF_DEPTH_ITERS = 300  # [llff] --mode depth_net from that NeRF: eval and best checkpoint at the last step
+FORMATS_DIR = os.path.join(HERE, "logs", "chip_smoke_formats")  # the [formats] phase's runs (gitignored)
+FORMATS_ITERS = 20  # [formats] depth-net steps per format: eval and best checkpoint at the last step
 
 # kernel vs its plain version at bf16 rounding (same inputs, same weights):
 # the two differ only in fp32 summation order and the few bf16 roundings
@@ -2426,6 +2452,289 @@ def run_tar(device, scene, K) -> dict[str, int]:
     return counts
 
 
+def llff_pipeline_and_scene(device, impl: str):
+    """The llff recipe (lego.yaml's llff_depth_net_module with run.py's
+    overrides) on example_llff: its pipeline on ``impl`` with the scene's
+    NDC geometry, and the scene."""
+    import dataclasses
+
+    from nerf_sampling_tpu_torch.data.llff import load_llff_scene
+    from nerf_sampling_tpu_torch.definitions import DATASET_DIR, REFERENCE_CONFIG
+    from nerf_sampling_tpu_torch.utils.config import load_trainer_config
+
+    cfg = load_trainer_config(REFERENCE_CONFIG, "llff_depth_net_module")
+    cfg.n_layers, cfg.layer_width, cfg.sphere_radius, cfg.depth_net_lr = 10, 256, 2, 1e-4
+    cfg.datadir = os.path.join(DATASET_DIR, "example_llff")
+    scene = load_llff_scene(cfg)  # writes near/far 0, 1 into cfg first, as the Trainer's order does
+    H, W, focal = scene.hwf
+    pipe = dataclasses.replace(cfg.pipeline(), mlp_impl=impl, H=H, W=W, focal=focal)
+    return pipe, scene
+
+
+def check_llff_steps(device, nerf_ckpt: str) -> None:
+    """One NDC nerf step and one NDC depth step on both paths from one
+    state, batch and draws (the NeRF of the kernel run, a DepthNet from
+    seed 2): the nerf step at [step]'s gates (img_loss NSTEP_IMG_TOL, each
+    net's gradient cosine NSTEP_COS_TOL), the depth step at STEP_*_TOL;
+    then the median ms of a step of each on both paths."""
+    import copy
+
+    from nerf_sampling_tpu_torch.models import DepthNet
+    from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
+    from nerf_sampling_tpu_torch.train.state import init_nerf_state, init_state, nerf_modules
+    from nerf_sampling_tpu_torch.train.steps import (
+        StepDraws,
+        make_depth_net_train_step,
+        make_nerf_train_step,
+    )
+
+    pipes = {}
+    for impl in ("cuda", "plain"):
+        pipes[impl], scene = llff_pipeline_and_scene(device, impl)
+    base = load_render_params(nerf_ckpt, pipes["plain"], device)
+    torch.manual_seed(2)
+    depth0 = DepthNet(pipes["plain"].depth).to(device)
+    batches = train_batches(scene, device, 12, seed=125)
+    n = batches[0][0].shape[0]
+    g = torch.Generator(device=device).manual_seed(11)
+    draws = StepDraws(torch.rand((n, 64), generator=g, device=device), torch.rand((n, 128), generator=g, device=device))
+
+    def nerf_state():
+        return init_nerf_state(nerf_modules(copy.deepcopy(base.coarse), copy.deepcopy(base.fine)), 5e-4, 500)
+
+    res = {}
+    for impl, pipe in pipes.items():
+        nst = nerf_state()
+        _, m = make_nerf_train_step(pipe)(nst, batches[0], 0, draws)
+        frozen = base._replace(depth=None, kernels=None)
+        dst = init_state(copy.deepcopy(depth0), 1e-4)
+        _, dm = make_depth_net_train_step(pipe, frozen)(dst, batches[0], 0, draws)
+        grads = {net: torch.cat([q.grad.flatten() for name, q in nst.model.named_parameters()
+                                 if name.startswith(net + ".")]) for net in ("coarse", "fine")}
+        grads["depth"] = torch.cat([q.grad.flatten() for q in dst.model.parameters()])
+        res[impl] = ({k: float(v) for k, v in m.items()}, {k: float(v) for k, v in dm.items()}, grads)
+        for model in (base.coarse, base.fine):  # the depth step froze them in place
+            model.requires_grad_(True)
+    (mk, dmk, gk), (mp, dmp, gp) = res["cuda"], res["plain"]
+    rel = abs(mk["img_loss"] - mp["img_loss"]) / mp["img_loss"]
+    log(f"[llff] NDC nerf step, cuda vs plain from one state, batch and draws: img_loss {mk['img_loss']:.6e} vs "
+        f"{mp['img_loss']:.6e} (rel {rel:.2e}, tol {NSTEP_IMG_TOL:g})")
+    require(rel <= NSTEP_IMG_TOL, "the NDC nerf steps' img_loss disagree")
+    for net in ("coarse", "fine"):
+        cos = float(torch.nn.functional.cosine_similarity(gk[net], gp[net], dim=0))
+        log(f"[llff] NDC nerf step {net}: gradient cosine cuda vs plain {cos:.6f} (tol {NSTEP_COS_TOL})")
+        require(cos >= NSTEP_COS_TOL, f"NDC nerf step, {net}: the kernel and plain gradients disagree")
+    img_rel = abs(dmk["loss"] - dmp["loss"]) / abs(dmp["loss"])
+    dep_rel = abs(dmk["depth_net_loss"] - dmp["depth_net_loss"]) / max(abs(dmp["depth_net_loss"]), 1e-12)
+    cos = float(torch.nn.functional.cosine_similarity(gk["depth"], gp["depth"], dim=0))
+    log(f"[llff] NDC depth step (the composable target pass: K4 queries, no K6), cuda vs plain: img_loss "
+        f"{dmk['loss']:.6e} vs {dmp['loss']:.6e} (rel {img_rel:.2e}, tol {STEP_IMG_TOL:g}); depth_net_loss "
+        f"{dmk['depth_net_loss']:.6e} vs {dmp['depth_net_loss']:.6e} (rel {dep_rel:.2e}, tol {STEP_DEPTH_TOL:g}); "
+        f"DepthNet gradient cosine {cos:.6f} (tol {STEP_COS_TOL:g})")
+    require(img_rel <= STEP_IMG_TOL and dep_rel <= STEP_DEPTH_TOL and cos >= STEP_COS_TOL,
+            "the kernel and plain NDC depth steps disagree")
+    times = {}
+    for impl, reps in (("cuda", 10), ("plain", 3)):
+        nst, nstep = nerf_state(), make_nerf_train_step(pipes[impl])
+        it = iter(range(100))
+        times[impl, "nerf"] = frame_ms(lambda: nstep(nst, batches[next(it) % 12], 1000), reps)
+        dst = init_state(copy.deepcopy(depth0), 1e-4)
+        dstep = make_depth_net_train_step(pipes[impl], base._replace(depth=None, kernels=None))
+        it2 = iter(range(100))
+        times[impl, "depth"] = frame_ms(lambda: dstep(dst, batches[next(it2) % 12], 1000), reps)
+        for model in (base.coarse, base.fine):
+            model.requires_grad_(True)
+    log(f"[llff] median ms per NDC step (1024 rays, 64+128 samples): nerf {times['cuda', 'nerf']:.3f} on the "
+        f"kernels, {times['plain', 'nerf']:.3f} plain fp32; depth {times['cuda', 'depth']:.3f} on the kernels, "
+        f"{times['plain', 'depth']:.3f} plain fp32")
+
+
+def run_llff(device) -> dict[str, int]:
+    """[llff]: the forward-facing (NDC) path at the llff recipe's full width
+    on the procedural example_llff scene (400x400, 24 views, llffhold 8),
+    through the CLIs; returns the phase's launches by kernel."""
+    import shutil
+
+    from nerf_sampling_tpu_torch.data.example import maybe_generate_example_dataset
+    from nerf_sampling_tpu_torch.definitions import DATASET_DIR
+    from nerf_sampling_tpu_torch.experiments import render as rcli
+    from nerf_sampling_tpu_torch.experiments import run
+    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k67
+    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
+    from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
+    from nerf_sampling_tpu_torch.kernels import fused_render as k23
+    from nerf_sampling_tpu_torch.render import EvalMode, render_image
+
+    def reset():
+        k1.launches = k4.launches = k5.launches = k67.launches = k67.det_launches = 0
+        k23.launches = k23.gaussian_launches = k23.linspace_launches = k23.shade_launches = 0
+
+    def read():
+        return {"depth_net_kernel": k1.launches, "nerf_points_kernel": k4.launches,
+                "nerf_points_bwd_kernel": k5.launches, "render_hier_kernel": k67.launches,
+                "render_hier_kernel_det": k67.det_launches, "render_around_depth_kernel": k23.launches,
+                "render_gaussian_kernel": k23.gaussian_launches}
+
+    def require_only(counts: dict, want: set, what: str) -> None:
+        launched = {name for name, c in counts.items() if c}
+        log(f"[llff] {what}: launches {counts}")
+        require(launched == want, f"{what} launched {sorted(launched)}, not {sorted(want)}")
+
+    t0 = time.perf_counter()
+    shutil.rmtree(LLFF_DIR, ignore_errors=True)
+    datadir = os.path.join(DATASET_DIR, "example_llff")
+    maybe_generate_example_dataset("example_llff", datadir)
+    log(f"[llff] example_llff at {datadir} in {time.perf_counter() - t0:.1f} s")
+    common = ["-d", "example_llff", "-m", "llff_depth_net_module", "--device", torch.device(device).type]
+    total = dict.fromkeys(read(), 0)
+
+    # --mode nerf from scratch on both paths: K4 and K5 in every step, K4 in the FULL_NERF eval
+    evals, nerf_ckpt = {}, None
+    for impl in ("cuda", "plain"):
+        argv = common + ["--mode", "nerf", "--mlp_impl", impl, "--seed", "0", "--n_iters", str(LLFF_NERF_ITERS),
+                         "--i_testset",
+                         str(LLFF_NERF_ITERS), "-ip", str(NERF_PRINT), "--basedir", os.path.join(LLFF_DIR, impl)]
+        log(f"[llff] python3 -m nerf_sampling_tpu_torch.experiments.run {' '.join(argv)}")
+        reset()
+        t1 = time.perf_counter()
+        trainer = run.main(argv)
+        torch.cuda.synchronize()
+        counts = read()
+        p = trainer.pipeline
+        require(p.ndc and (p.near, p.far) == (0.0, 1.0) and (p.H, p.W, p.focal) == trainer.scene.hwf,
+                "the llff run's pipeline is not the NDC one of its scene")
+        losses = [(i, v) for i, v in nerf_losses(trainer.expdir) if i < trainer.cfg.precrop_iters]
+        evals[impl] = trainer._avg_eval_psnr
+        log(f"[llff] {impl}: {trainer.global_step} NDC nerf steps in {time.perf_counter() - t1:.1f} s (the eval "
+            f"included); loss at step {losses[0][0]} {losses[0][1]:.6f}, at step {losses[-1][0]} "
+            f"{losses[-1][1]:.6f}; FULL_NERF eval over {len(trainer.scene.i_test)} test views {evals[impl]:.4f} dB")
+        require(losses[-1][1] < losses[0][1], f"the {impl} NDC nerf-mode loss did not fall")
+        if impl == "cuda":
+            require_only(counts, {"nerf_points_kernel", "nerf_points_bwd_kernel"}, "the NDC nerf-mode run")
+            total = {k: total[k] + v for k, v in counts.items()}
+            trainer.save_checkpoint(trainer.global_step)
+            nerf_ckpt = os.path.join(trainer.expdir, f"{trainer.global_step:06d}.npz")
+        del trainer
+    log(f"[llff] NDC nerf eval: kernels {evals['cuda']:.4f} dB, plain {evals['plain']:.4f} dB, |delta| "
+        f"{abs(evals['cuda'] - evals['plain']):.4f} (tol {NERF_EVAL_TOL})")
+    require(abs(evals["cuda"] - evals["plain"]) <= NERF_EVAL_TOL, "the kernel and plain NDC nerf runs disagree")
+
+    check_llff_steps(device, nerf_ckpt)
+
+    # --mode depth_net from the kernel run's NeRF: K4 as the oracle's queries (K6 does not serve NDC), K1 at the eval
+    argv = common + ["--mode", "depth_net", "--mlp_impl", "cuda", "--seed", "0", "--ft_path", nerf_ckpt, "--n_iters",
+                     str(LLFF_DEPTH_ITERS), "--i_testset", str(LLFF_DEPTH_ITERS), "-ip", str(NERF_PRINT),
+                     "--basedir", os.path.join(LLFF_DIR, "depth")]
+    log(f"[llff] python3 -m nerf_sampling_tpu_torch.experiments.run {' '.join(argv)}")
+    reset()
+    t1 = time.perf_counter()
+    trainer = run.main(argv)
+    torch.cuda.synchronize()
+    counts = read()
+    with open(os.path.join(trainer.expdir, "psnr.txt")) as fp:
+        lines = [ln for ln in fp if ln.startswith("Iter:")]
+    losses = [float(ln.split("Depth Net Loss: ")[1].split(",")[0]) for ln in lines]
+    log(f"[llff] {trainer.global_step} NDC depth steps in {time.perf_counter() - t1:.1f} s; Depth Net Loss at step "
+        f"{lines[0].split()[1]} {losses[0]:.6f}, at step {lines[-1].split()[1]} {losses[-1]:.6f}; DEPTH_NET eval "
+        f"(gaussian/64/0.25) {trainer._avg_eval_psnr:.4f} dB")
+    require(losses[-1] < losses[0], "the NDC depth-net loss did not fall")
+    require_only(counts, {"nerf_points_kernel", "depth_net_kernel"}, "the NDC depth-net run")
+    total = {k: total[k] + v for k, v in counts.items()}
+    depth_ckpt = os.path.join(trainer.expdir, "best", f"depth_{LLFF_DEPTH_ITERS:06d}.npz")
+    require(os.path.exists(depth_ckpt), f"{depth_ckpt} was not written")
+    del trainer
+
+    # the render CLI over the test views, gaussian/64/0.25, on the kernels and the plain path, one generator seed
+    psnrs, trainers = {}, {}
+    for impl in ("cuda", "plain"):
+        argv = common + ["-rt", "--ft_path", nerf_ckpt, "--depth_net_path", depth_ckpt, "--n_samples", "64",
+                         "--distance", "0.25", "--sampling_mode", "gaussian", "--mlp_impl", impl,
+                         "--basedir", os.path.join(LLFF_DIR, f"render_{impl}")]
+        log(f"[llff] python3 -m nerf_sampling_tpu_torch.experiments.render {' '.join(argv)}")
+        reset()
+        tr = rcli.main(argv)
+        torch.cuda.synchronize()
+        counts = read()
+        trainers[impl] = tr
+        with open(os.path.join(tr.expdir, f"renderonly_test_{tr.global_step:06d}", "psnr.txt")) as fp:
+            psnrs[impl] = float(fp.read().split("Avg of")[1].split("PSNR: ")[1].split()[0])
+        if impl == "cuda":
+            require_only(counts, {"nerf_points_kernel", "depth_net_kernel"}, "the NDC render CLI")
+            total = {k: total[k] + v for k, v in counts.items()}
+    log(f"[llff] render CLI over {len(trainers['cuda'].scene.i_test)} test views: kernels {psnrs['cuda']:.4f} dB, "
+        f"plain fp32 {psnrs['plain']:.4f} dB, |delta| {abs(psnrs['cuda'] - psnrs['plain']):.4f} "
+        f"(tol {FULL_PSNR_TOL})")
+    require(abs(psnrs["cuda"] - psnrs["plain"]) <= FULL_PSNR_TOL, "the kernel and plain NDC renders disagree")
+
+    # one test view's NDC frame on both paths: DEPTH_NET (K1, K4 on 64 samples) and FULL_NERF (K4 on 64 + 192)
+    tr = trainers["cuda"]
+    scene = tr.scene
+    H, W, _ = scene.hwf
+    c2w = scene.poses[scene.i_test[0]][:3, :4]
+    params = tr.eval_params
+    for mode, reps in ((EvalMode.DEPTH_NET, (7, 3)), (EvalMode.FULL_NERF, (3, 2))):
+        ms = {}
+        for impl, n in zip(("cuda", "plain"), reps):
+            pipe = trainers[impl].pipeline
+
+            def frame(pipe=pipe):
+                return render_image(pipe, params, H, W, scene.intrinsics(), c2w, device=device, mode=mode,
+                                    chunk=tr.cfg.chunk, generator=torch.Generator(device=device).manual_seed(0))
+
+            ms[impl] = frame_ms(frame, n)
+        log(f"[llff] median per {H}x{W} NDC frame, {mode.name}: kernels (the composable route) {ms['cuda']:.2f} ms "
+            f"({H * W / ms['cuda'] * 1e3:.0f} rays/s), plain fp32 {ms['plain']:.2f} ms")
+    pipe = trainers["cuda"].pipeline
+    profile_frame(lambda: render_image(pipe, params, H, W, scene.intrinsics(), c2w, device=device,
+                                       chunk=tr.cfg.chunk, generator=torch.Generator(device=device).manual_seed(0)),
+                  "one NDC DEPTH_NET frame on the kernels")
+    del trainers, tr, params
+    log(f"[llff] phase {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
+
+
+def run_formats(device) -> dict[str, int]:
+    """[formats]: example_linemod (per-frame K) and example_deepvoxels
+    through run.py on the kernels, FORMATS_ITERS depth-net steps against a
+    NeRF from seed and one eval: K6 (the oracle), K1 and K3 (the gaussian
+    eval) must launch. Returns the phase's launches by kernel."""
+    import shutil
+
+    from nerf_sampling_tpu_torch.experiments import run
+    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
+    from nerf_sampling_tpu_torch.kernels import fused_render as k3
+
+    t0 = time.perf_counter()
+    shutil.rmtree(FORMATS_DIR, ignore_errors=True)
+    total: dict[str, int] = {}
+    for name, model in (("example_linemod", "linemod_depth_net_module"),
+                        ("example_deepvoxels", "deepvoxels_depth_net_module")):
+        argv = ["-d", name, "-m", model, "--mlp_impl", "cuda", "--n_iters", str(FORMATS_ITERS), "--i_testset",
+                str(FORMATS_ITERS), "-ip", "5", "--seed", "42", "--basedir", FORMATS_DIR, "--device",
+                torch.device(device).type]
+        log(f"[formats] python3 -m nerf_sampling_tpu_torch.experiments.run {' '.join(argv)}")
+        k1.launches = k3.gaussian_launches = k6.launches = 0
+        t1 = time.perf_counter()
+        trainer = run.main(argv)
+        torch.cuda.synchronize()
+        counts = {"render_hier_kernel": k6.launches, "depth_net_kernel": k1.launches,
+                  "render_gaussian_kernel": k3.gaussian_launches}
+        scene = trainer.scene
+        log(f"[formats] {name}: {trainer.global_step} steps and the eval in {time.perf_counter() - t1:.1f} s, "
+            f"hwf {tuple(round(float(v), 3) for v in scene.hwf)}, near/far {trainer.pipeline.near}/"
+            f"{trainer.pipeline.far}, K from the frames: {scene.K is not None}; DEPTH_NET eval over "
+            f"{len(scene.i_test)} test views {trainer._avg_eval_psnr:.4f} dB; launches {counts}")
+        require(all(c > 0 for c in counts.values()), f"{name}: K6, K1 and K3 must all launch")
+        require(np.isfinite(trainer._avg_eval_psnr) and trainer._avg_eval_psnr > 0, f"{name}: no finite eval")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del trainer
+    log(f"[formats] phase {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
+
+
 def ptxas_usage(path: str, entry: str) -> str:
     """The registers and spills that ptxas -v reported for the first entry
     function whose mangled name contains ``entry``, from a build log."""
@@ -2513,6 +2822,8 @@ def main() -> int:
     nerf_counts = run_nerf_cli(device)
     joint_counts = run_joint_cli(device, scene, K)
     tar_counts = run_tar(device, scene, K)
+    llff_counts = run_llff(device)
+    formats_counts = run_formats(device)
     torch.cuda.synchronize()
     # the count of the path each kernel serves: K2 renders, K1/K3/K6 train the
     # DepthNet, K4/K5/K7 train and evaluate the NeRF, K8 renders FULL_NERF
@@ -2524,8 +2835,10 @@ def main() -> int:
         rec["launches"] = next(c[rec["name"]] for c in (nerf_counts, train_counts, render_counts, joint_counts,
                                                         k8_counts, cli_counts, int8_train_counts, k10_counts)
                                if rec["name"] in c)
-        if rec["name"] in tar_counts:
-            rec["tar_launches"] = tar_counts[rec["name"]]
+        for key, counts in (("tar_launches", tar_counts), ("llff_launches", llff_counts),
+                            ("formats_launches", formats_counts)):
+            if rec["name"] in counts:
+                rec[key] = counts[rec["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

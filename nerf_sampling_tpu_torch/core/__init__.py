@@ -7,7 +7,7 @@ from nerf_sampling_tpu_torch.core.geometry import (
     solve_quadratic_equation,
 )
 from nerf_sampling_tpu_torch.core.metrics import img2mse, mse2psnr, psnr_np, to8b
-from nerf_sampling_tpu_torch.core.rays import get_rays, get_rays_np
+from nerf_sampling_tpu_torch.core.rays import get_rays, get_rays_np, ndc_rays
 from nerf_sampling_tpu_torch.core.sampling import (
     sample_pdf,
     sample_points_around_mean,
@@ -23,6 +23,7 @@ __all__ = [
     "get_rays_np",
     "img2mse",
     "mse2psnr",
+    "ndc_rays",
     "positional_encoding",
     "psnr_np",
     "raw2alpha",

@@ -1,7 +1,4 @@
-"""Camera-ray generation (nerf_sampling_tpu/core/rays.py:14-55).
-
-NDC reprojection is not ported yet (ROADMAP S6).
-"""
+"""Camera-ray generation and NDC reprojection (nerf_sampling_tpu/core/rays.py)."""
 
 from __future__ import annotations
 
@@ -46,3 +43,23 @@ def get_rays_np(
     rays_d = np.sum(dirs[..., np.newaxis, :] * c2w[:3, :3], -1)
     rays_o = np.broadcast_to(c2w[:3, -1], np.shape(rays_d))
     return rays_o, rays_d
+
+
+def ndc_rays(
+    H: int, W: int, focal: float, near: float, rays_o: torch.Tensor, rays_d: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shift rays to the near plane and project them to NDC space, in fp32
+    and in the reference's operation order (run_nerf_helpers.py:221-246),
+    for forward-facing (LLFF) scenes."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = -1.0 / (W / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (H / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (W / (2.0 * focal)) * (rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2])
+    d1 = -1.0 / (H / (2.0 * focal)) * (rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2])
+    d2 = -2.0 * near / rays_o[..., 2]
+
+    return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)

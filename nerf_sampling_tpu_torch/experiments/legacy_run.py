@@ -11,9 +11,10 @@ legacy/``): a flag given on the command line wins over the file, a flag
 left at its default keeps the file's value. The run is vanilla NeRF
 training (``train_mode="nerf"``), as in the JAX package. Two flags of the
 port's own: ``--mlp_impl`` (plain, the default, or cuda: K4/K5 for the
-NeRF queries, K7 for the evals) and ``--device`` (the card unless
-``cpu``). Blender scenes are ported; the llff, LINEMOD and deepvoxels
-configs raise NotImplementedError naming ROADMAP S6.
+NeRF queries, K7 for the evals, K4 under NDC) and ``--device`` (the card unless
+``cpu``). Every dataset type runs: blender, llff (NDC unless
+``--no_ndc``: the nerf steps run K4/K5 on NDC points), LINEMOD and
+deepvoxels.
 """
 
 from __future__ import annotations

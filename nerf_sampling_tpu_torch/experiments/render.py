@@ -7,12 +7,16 @@
     ... -nf                                  # FULL_NERF: K7 (K8 when N_importance is 0)
     ... -e --testskip 4                      # the sweep grid -> experiments/experiments_results.txt
     ... --device cpu --mlp_impl plain        # on the CPU
+    python3 -m nerf_sampling_tpu_torch.experiments.render -d example_llff -m llff_depth_net_module -rt \\
+        --ft_path NERF.npz --depth_net_path DEPTH.npz --n_samples 64 --distance 0.25 \\
+        --sampling_mode gaussian             # NDC: K1, then K4 on the population (the composable route)
 
 The JAX CLI's flags and defaults, with argparse in place of click (-c -dp
 -d -m -w -si -sr -rt -ssd -nc -nm -nf -e -tmp -ip --basedir --mlp_impl
 --testskip --ft_path --depth_net_path --n_samples --distance
 --sampling_mode; the manual defaults n_samples 2, distance 0.01, uniform,
 reference render.py:208-212), and ``--device`` (the card unless ``cpu``).
+``-d <name>`` generates a built-in scene on first use (run.py's list).
 It renders the test views through the Trainer's ``render_only`` path, so
 a checkpoint may be the JAX package's ``.npz`` or the reference's ``.tar``
 (``pretrained/nerf/<ds>/200000.tar`` and ``pretrained/depth_net/<ds>/
@@ -31,6 +35,7 @@ from __future__ import annotations
 import argparse
 import os
 
+from nerf_sampling_tpu_torch.data.example import maybe_generate_example_dataset
 from nerf_sampling_tpu_torch.definitions import DATASET_DIR, REFERENCE_CONFIG, ROOT_DIR
 from nerf_sampling_tpu_torch.utils.config import INT8_HELP, load_trainer_config, override_config
 
@@ -101,14 +106,7 @@ def main(argv: list[str] | None = None):
     name = kw["dataset"]
     if name is not None:
         datadir = os.path.join(DATASET_DIR, name)
-        if not os.path.exists(datadir):
-            if name != "example":
-                raise NotImplementedError(
-                    f"-d {name}: only the 'example' scene is ported (the others: ROADMAP S6)")
-            from nerf_sampling_tpu_torch.data.example import generate_example_dataset
-
-            print(f"Generating example dataset at {datadir}")
-            generate_example_dataset(datadir, H=800, W=800)
+        maybe_generate_example_dataset(name, datadir)
         ft_path = os.path.join(ROOT_DIR, "pretrained", "nerf", name, "200000.tar")
         depth_net_path = os.path.join(ROOT_DIR, "pretrained", "depth_net", name, "files",
                                       "sampler_experiment", "200000.tar")

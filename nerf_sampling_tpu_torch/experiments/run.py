@@ -8,13 +8,18 @@
         -m recommended_depth_net_module --mlp_impl cuda --ft_path NERF.npz --joint_depth_warmup 100
     python3 -m nerf_sampling_tpu_torch.experiments.run -d example -m recommended_depth_net_module \\
         --mlp_impl cuda --ft_path pretrained/nerf/example/200000.tar --profile_dir logs/profile
+    python3 -m nerf_sampling_tpu_torch.experiments.run -d example_llff -m llff_depth_net_module \\
+        --mode nerf --mlp_impl cuda          # forward-facing, NDC: K4/K5 steps, K4 evals
 
 The JAX CLI's flag surface and hard overrides (reference run.py:101-109:
 depth_net_lr 1e-4, a 10x256 DepthNet, train_depth_net_only, sphere_radius
 2), with argparse in place of click. The reference-parity flags (-si, -sr,
 -ip, -w) always set the config; the extension flags set it only when typed
-or when the YAML entry does not set the field. ``-d example`` generates
-the procedural example scene (800x800) on first use. ``--mode nerf`` trains
+or when the YAML entry does not set the field. ``-d <name>`` generates a
+built-in procedural scene on first use (``example`` and ``example_hard``
+at 800x800 in blender format, ``example_llff`` at 400x400 in LLFF's,
+``example_linemod`` and ``example_deepvoxels``:
+``data/example.py::maybe_generate_example_dataset``). ``--mode nerf`` trains
 the first 500 steps on a center crop when the entry leaves
 ``precrop_iters`` at 0, as the JAX CLI does. ``--ft_path`` takes the
 JAX package's ``.npz`` or the reference's ``.tar``; with ``-d`` and no
@@ -24,8 +29,8 @@ nerf/<dataset>/200000.tar`` where it exists (the reference's convention).
 high: TF32, default: torch's "medium"); the kernels ignore it.
 ``--profile_dir`` traces steps 20-40 after the start with torch.profiler
 (the Trainer's option; no JAX CLI flag). Flags whose options are not ported (--n_devices,
---multihost, ...) reach the Trainer, which raises naming their ROADMAP
-item. The Trainer runs on the card, and raises when there is none, unless
+--multihost, --steps_per_dispatch) reach the Trainer, which raises naming
+their ROADMAP item. The Trainer runs on the card, and raises when there is none, unless
 ``--device cpu`` asks for the CPU.
 """
 
@@ -34,6 +39,7 @@ from __future__ import annotations
 import argparse
 import os
 
+from nerf_sampling_tpu_torch.data.example import maybe_generate_example_dataset
 from nerf_sampling_tpu_torch.definitions import DATASET_DIR, REFERENCE_CONFIG, ROOT_DIR
 from nerf_sampling_tpu_torch.utils.config import INT8_HELP, load_trainer_config, override_config
 from nerf_sampling_tpu_torch.utils.precision import PRECISION_HELP
@@ -117,14 +123,7 @@ def main(argv: list[str] | None = None):
     name = kw["dataset"]
     if name is not None:
         datadir = os.path.join(DATASET_DIR, name)
-        if not os.path.exists(datadir):
-            if name != "example":
-                raise NotImplementedError(
-                    f"-d {name}: only the 'example' scene is ported (the others: ROADMAP S6)")
-            from nerf_sampling_tpu_torch.data.example import generate_example_dataset
-
-            print(f"Generating example dataset at {datadir}")
-            generate_example_dataset(datadir, H=800, W=800)
+        maybe_generate_example_dataset(name, datadir)
         candidate = os.path.join(ROOT_DIR, "pretrained", "nerf", name, "200000.tar")
         if cfg.train_mode == "depth_net" and os.path.exists(candidate):
             ft_path = candidate

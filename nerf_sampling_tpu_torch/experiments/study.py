@@ -9,9 +9,9 @@ trials by default), each trial a depth-net run at run.py's hard overrides
 with a log-uniform depth_net_lr in [1e-6, 1e-2], pruned from the PSNR the
 Trainer reports every ``-ip`` steps. optuna is imported where it is used;
 without it a seeded log-uniform random search runs instead, with the same
-objective, and ranks its trials in ``study_results.txt``. ``-d`` takes the
-generated ``example`` scene (the others: ROADMAP S6); ``--device cpu``
-runs on the CPU.
+objective, and ranks its trials in ``study_results.txt``. ``-d`` names a
+directory under the dataset root; ``example`` is generated there on first
+use at 100x100, as in the JAX study; ``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ def main(argv: list[str] | None = None) -> tuple[float, float]:
     datadir = os.path.join(DATASET_DIR, kw["dataset"])
     if not os.path.exists(datadir):
         if kw["dataset"] != "example":
-            raise NotImplementedError(f"-d {kw['dataset']}: only the 'example' scene is ported (ROADMAP S6)")
+            raise FileNotFoundError(f"-d {kw['dataset']}: no dataset at {datadir} (a study generates only 'example')")
         from nerf_sampling_tpu_torch.data.example import generate_example_dataset
 
         generate_example_dataset(datadir)

@@ -17,14 +17,20 @@ Two implementations of each eval render, chosen by ``Pipeline.mlp_impl``:
   plain side), all in fp32. On CPU tensors their wrappers run the kernels'
   plain versions at the kernels' dtype. Outside the kernels' envelope the
   JAX package drops to its composable path; the port raises ValueError
-  naming the envelope.
+  naming the envelope. Under NDC (forward-facing scenes) the kernels' fast
+  path does not apply, as in the JAX package, and "cuda" takes the chunked
+  composable route, every MLP on a kernel: DEPTH_NET runs K1 for the depth
+  mean, the population in PyTorch, and K4 for its queries; FULL_NERF and
+  NERF_MAX the hierarchical pass with K4 queries. COMPARE_NERF under NDC
+  raises (the JAX package swaps in its fp32 XLA path there).
 - ``"cuda_int8"``: the same kernels with the W8A8 int8 MLP (K10) in the
   NeRF passes of DEPTH_NET (K1 bf16, then K2/K3 int8), FULL_NERF (K7
   int8, or K8 int8 on the coarse NeRF) and NERF_MAX (K7 int8), under the
   per-checkpoint calibration in ``Pipeline.quant_calib``
   (``render/quantize.py``). COMPARE_NERF stays exactly the fp32 path of
   "cuda", and the train queries stay on K4/K5 in bf16 (JAX
-  ``render/engine.py:209-232, 662-667``).
+  ``render/engine.py:209-232, 662-667``). It raises under NDC, where the
+  JAX package has no int8 route and renders bf16 under the int8 flag.
 
 The train renderers (``sample_as_in_nerf``, ``render_rays_train``,
 ``render_rays_vanilla``, ``render_rays_joint``) are autograd PyTorch; under
@@ -47,7 +53,7 @@ import torch
 
 from nerf_sampling_tpu_torch.core.compositing import RenderOutputs, raw2outputs
 from nerf_sampling_tpu_torch.core.encoding import positional_encoding
-from nerf_sampling_tpu_torch.core.rays import get_rays
+from nerf_sampling_tpu_torch.core.rays import get_rays, ndc_rays
 from nerf_sampling_tpu_torch.core.sampling import (
     sample_pdf,
     sample_points_around_mean,
@@ -157,6 +163,8 @@ def eval_packs(pipeline: Pipeline, mode: EvalMode, params: NeRFParams | None = N
     """The ``pack_kernel_weights`` arguments of what the kernel path of
     ``mode`` reads; under "cuda_int8" (COMPARE_NERF aside) also the
     ``quant_pair`` of ``params``."""
+    if pipeline.ndc:  # the composable route: K1 reads the DepthNet's pack; K4 packs the live NeRF weights
+        return {"with_hier": False, "with_coarse": False, "with_fp32": False}
     hier = pipeline.N_importance > 0
     packs: dict[str, Any] = {
         "with_hier": mode in (EvalMode.FULL_NERF, EvalMode.NERF_MAX) and hier,
@@ -191,9 +199,10 @@ class RayBatch(NamedTuple):
 class Pipeline:
     """Static rendering configuration (field names as in the JAX Pipeline).
 
-    The fields that the ported eval renders and train steps read; the JAX
-    Pipeline's NDC geometry (H, W, focal) comes with the slice that reads
-    it (S6).
+    ``H``, ``W`` and ``focal`` are the image geometry of the NDC
+    reprojection: the Trainer sets them from the scene under ``ndc``, since
+    the train steps see only flat ray batches; arguments to
+    ``make_ray_batch`` win over them (a full-image render passes its own).
     """
 
     nerf: NeRFConfig
@@ -212,6 +221,9 @@ class Pipeline:
     ndc: bool = False
     near: float = 2.0
     far: float = 6.0
+    H: int | None = None
+    W: int | None = None
+    focal: float | None = None
     n_depth_samples: int = 2
     sampling_mode: str = "uniform"
     distance: float = 0.01
@@ -248,13 +260,31 @@ class Pipeline:
         return dirs if self.i_embed == -1 else positional_encoding(dirs, self.multires_views)
 
 
-def make_ray_batch(pipeline: Pipeline, rays_o: torch.Tensor, rays_d: torch.Tensor) -> RayBatch:
-    """Unit viewdirs and per-ray bounds (reference prepare_rays)."""
-    if pipeline.ndc:
-        raise NotImplementedError("NDC rays are not ported yet: ROADMAP S6")
+def make_ray_batch(
+    pipeline: Pipeline,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    H: int | None = None,
+    W: int | None = None,
+    focal: float | None = None,
+) -> RayBatch:
+    """Unit viewdirs, the NDC reprojection under ``pipeline.ndc`` and
+    per-ray bounds (reference prepare_rays, nerf_utils.py:156-188).
+
+    The viewdirs are the directions before the reprojection; H, W and focal
+    come from the arguments, else from the pipeline.
+    """
     viewdirs = None
     if pipeline.use_viewdirs:
         viewdirs = (rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)).reshape(-1, 3)
+    if pipeline.ndc:
+        H = H if H is not None else pipeline.H
+        W = W if W is not None else pipeline.W
+        focal = focal if focal is not None else pipeline.focal
+        if focal is None or H is None or W is None:
+            raise ValueError("NDC reprojection needs H/W/focal: pass them to make_ray_batch or set them on "
+                             "the Pipeline")
+        rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
     rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
     near = torch.full_like(rays_d[..., :1], pipeline.near)
     far = torch.full_like(rays_d[..., :1], pipeline.far)
@@ -264,9 +294,8 @@ def make_ray_batch(pipeline: Pipeline, rays_o: torch.Tensor, rays_d: torch.Tenso
 def check_kernel_queries(p: Pipeline) -> None:
     """What K4/K5 (and K6/K7) take of a "cuda" or "cuda_int8" pipeline; raises, naming
     what is missing (the JAX package drops to XLA outside its kernels'
-    envelope; the port does not fall back)."""
-    if p.ndc:
-        raise NotImplementedError("NDC rays are not ported yet: ROADMAP S6")
+    envelope; the port does not fall back). NDC points are queried as any
+    others."""
     if not p.use_viewdirs or p.i_embed == -1:
         raise ValueError("mlp_impl='cuda' needs use_viewdirs and positional encoding")
 
@@ -489,9 +518,11 @@ def render_rays_eval(
     mode: EvalMode = EvalMode.DEPTH_NET,
     generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Test-time render of one ray batch on the plain path, 4 modes
-    (reference render_rays_test, nerf_utils.py:736-876; JAX
-    ``render_rays_eval``), at perturb 0 and no raw noise."""
+    """Test-time render of one ray batch, 4 modes (reference
+    render_rays_test, nerf_utils.py:736-876; JAX ``render_rays_eval``), at
+    perturb 0 and no raw noise: the plain path, and the composable route of
+    "cuda" under NDC (K1 for the depth mean from ``params.kernels.depth``,
+    K4 for every NeRF query)."""
     ret: dict[str, torch.Tensor] = {}
     if mode in (EvalMode.COMPARE_NERF, EvalMode.NERF_MAX, EvalMode.FULL_NERF):
         hier = sample_as_in_nerf(pipeline, params, rays, generator, perturb=0.0, raw_noise_std=0.0)
@@ -512,7 +543,11 @@ def render_rays_eval(
                    depth_net_z_vals=hier.fine_z_vals)
         return ret
     # DEPTH_NET, and the depth-net half of COMPARE_NERF (:837-865)
-    depth_mean = params.depth(rays.rays_o, rays.rays_d)
+    if pipeline.mlp_impl in KERNEL_IMPLS:  # the composable route under NDC: K1 in bf16, as JAX (:540-552)
+        depth_mean = fused_depth_net.fused_depth_net_apply(
+            params.kernels.depth, params.depth.cfg, rays.rays_o, rays.rays_d, torch.bfloat16).reshape(-1, 1)
+    else:
+        depth_mean = params.depth(rays.rays_o, rays.rays_d)
     depth_pts, depth_z = sample_points_around_mean(
         rays.rays_o, rays.rays_d, depth_mean,
         n_samples=pipeline.n_depth_samples, mode=pipeline.sampling_mode,
@@ -529,8 +564,18 @@ def render_rays_eval(
 def check_eval_envelope(p: Pipeline, mode: EvalMode) -> None:
     """What the kernel path of ``mode`` takes of a "cuda" pipeline; raises
     ValueError naming the envelope where the JAX package drops to its
-    composable path (nerf_sampling_tpu/render/engine.py:631-650)."""
+    composable path (nerf_sampling_tpu/render/engine.py:631-650). Under NDC
+    the route is the composable one on K1 and K4, which takes every mode but
+    COMPARE_NERF, and no int8."""
     check_kernel_queries(p)
+    if p.ndc:
+        if mode == EvalMode.COMPARE_NERF:
+            raise ValueError("mlp_impl='cuda' renders COMPARE_NERF through its fp32 kernels (K7, K1, K9), which "
+                             "take no NDC rays; the NDC route (K1 and K4) serves DEPTH_NET, FULL_NERF and NERF_MAX")
+        if p.mlp_impl == CUDA_INT8:
+            raise ValueError("mlp_impl='cuda_int8' has no NDC route: under NDC the renders run K1 and K4 in bf16 "
+                             "(mlp_impl='cuda')")
+        return
     S_max = fused_render.MAX_SAMPLES
     if mode in (EvalMode.COMPARE_NERF, EvalMode.NERF_MAX) and p.N_importance <= 0:
         raise ValueError(f"mlp_impl='cuda' renders {mode.name} through K7's argmax, which needs "
@@ -642,21 +687,29 @@ def render_flat_rays(
     chunk: int = 1024 * 32,
     generator: torch.Generator | None = None,
     full_outputs: bool = False,
+    H: int | None = None,
+    W: int | None = None,
+    focal: float | None = None,
 ) -> dict[str, torch.Tensor]:
     """Render flat [N, 3] rays -> dict of flat [N, ...] maps.
 
     ``mlp_impl="cuda"`` (and "cuda_int8") takes the kernels over all rays at once, with
     map-level outputs; ``"plain"`` renders ``chunk`` rays at a time, with
-    per-sample ones. ``full_outputs`` is the caller's request for the
-    per-sample points and weights (the scene-data export): it renders on
-    the plain path whatever ``mlp_impl`` says, as the JAX package's
-    composable path does.
+    per-sample ones, and so does "cuda" under NDC, on K1 and K4 (the
+    composable route; H, W and focal are the reprojection's). ``full_outputs``
+    is the caller's request for the per-sample points and weights (the
+    scene-data export): it renders on the plain path whatever ``mlp_impl``
+    says, as the JAX package's composable path does.
     """
     if full_outputs:
         pipeline = dataclasses.replace(pipeline, mlp_impl=PLAIN)
     if pipeline.mlp_impl in KERNEL_IMPLS:
-        return _fused_fast_paths(pipeline, params, rays_o, rays_d, mode, generator)
-    rays = make_ray_batch(pipeline, rays_o, rays_d)
+        if not pipeline.ndc:
+            return _fused_fast_paths(pipeline, params, rays_o, rays_d, mode, generator)
+        check_eval_envelope(pipeline, mode)
+        if mode == EvalMode.DEPTH_NET and (params.kernels is None or params.kernels.depth is None):
+            params = pack_kernel_weights(params, **eval_packs(pipeline, mode))
+    rays = make_ray_batch(pipeline, rays_o, rays_d, H=H, W=W, focal=focal)
     n = rays.rays_o.shape[0]
     pieces: dict[str, list[torch.Tensor]] = {}
     with matmul_precision(pipeline.matmul_precision):
@@ -681,10 +734,12 @@ def render_image(
     generator: torch.Generator | None = None,
     full_outputs: bool = False,
 ) -> dict[str, torch.Tensor]:
-    """Render a full image on ``device``: rays -> render_flat_rays -> [H, W, ...] maps."""
+    """Render a full image on ``device``: rays -> render_flat_rays -> [H, W, ...] maps
+    (an NDC reprojection takes H, W and K's focal)."""
     rays_o, rays_d = get_rays(H, W, K, c2w, device)
     flat = render_flat_rays(
         pipeline, params, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
         mode=mode, chunk=chunk, generator=generator, full_outputs=full_outputs,
+        H=H, W=W, focal=float(K[0][0]),
     )
     return {name: v.reshape(H, W, *v.shape[1:]) for name, v in flat.items()}

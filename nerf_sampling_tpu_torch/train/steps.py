@@ -9,7 +9,8 @@
   runs at the Pipeline's ``matmul_precision`` (strict fp32 by default, as
   the JAX package's "highest"; every step applies it in a scope).
   Under ``"cuda"`` the frozen-NeRF target pass (about 98% of the step's
-  FLOPs) is K6, ``fused_render_hier`` with the step's seed, under no_grad;
+  FLOPs) is K6, ``fused_render_hier`` with the step's seed, under no_grad
+  (under NDC, as in JAX, the composable hierarchical pass with K4 queries);
   then the DepthNet and the single depth-point fine-NeRF query in plain
   autograd (the JAX step's oracle branch with ``force_xla=True``). Under
   ``"cuda_int8"`` that pass is K6 in int8 (W8A8), on the frozen NeRFs'
@@ -87,11 +88,19 @@ def check_hier_oracle(p: Pipeline) -> bool:
 
     The JAX step checks the same envelope (``_can_use_hier_oracle``) and
     drops to its XLA path outside it; here a "cuda" config outside it
-    raises, naming what is missing.
+    raises, naming what is missing. Under NDC it is False, as JAX's
+    ``not p.ndc``: the target pass is then the composable hierarchical
+    render with K4 queries (``render_rays_train``), and "cuda_int8" raises,
+    having no int8 route there.
     """
     if p.mlp_impl not in KERNEL_IMPLS:
         return False
     check_kernel_queries(p)
+    if p.ndc:
+        if p.mlp_impl == CUDA_INT8:
+            raise ValueError("mlp_impl='cuda_int8' has no NDC route: under NDC the target pass runs K4 in bf16 "
+                             "(mlp_impl='cuda')")
+        return False
     if p.raw_noise_std != 0.0:
         raise ValueError("mlp_impl='cuda' (K6) takes raw_noise_std=0 only")
     if p.N_samples < 4 or p.N_importance < 1 or p.N_samples + p.N_importance > 512:

@@ -14,7 +14,10 @@
   mode (a joint ``.npz`` carries the DepthNet and its Adam state), with
   ``joint_depth_warmup``. Evals DEPTH_NET.
 
-Around the loop: the blender scene, ``args.txt``, the periodic
+Around the loop: the scene (``dataset_type`` blender, llff, LINEMOD or
+deepvoxels; the llff, LINEMOD and deepvoxels loaders set ``cfg.near`` and
+``cfg.far``, and an NDC pipeline takes the scene's H, W and focal),
+``args.txt``, the periodic
 checkpoint, test-set eval (in the eval mode the config names: DEPTH_NET,
 FULL_NERF, COMPARE_NERF or NERF_MAX), ``keep_best``, early stop, the
 train-set render and the spiral video of the JAX Trainer (:719-831,
@@ -51,8 +54,8 @@ DepthNet's pack stays bf16): the depth-net step's K6 oracle and the evals
 then run the int8 kernels. It needs a frozen NeRF: nerf and joint training raise, as the JAX
 Trainer does, unless they only render (``render_only``).
 
-Options not ported yet (other loaders, scale-out) raise NotImplementedError
-naming their ROADMAP item; nothing falls back quietly.
+Options not ported yet (scale-out) raise NotImplementedError naming their
+ROADMAP item; nothing falls back quietly.
 """
 
 from __future__ import annotations
@@ -115,8 +118,6 @@ def _unported(cfg: TrainerConfig) -> list[str]:
         raise ValueError(f"train_mode must be one of {TRAIN_MODES}, got {cfg.train_mode!r}")
     if cfg.n_devices != 1 or cfg.multihost or cfg.steps_per_dispatch > 1:
         found.append("n_devices != 1, multihost and steps_per_dispatch > 1 (scale-out: ROADMAP S7)")
-    if cfg.dataset_type != "blender":
-        found.append(f"dataset_type={cfg.dataset_type!r} (other loaders: ROADMAP S6)")
     return found
 
 
@@ -184,16 +185,31 @@ class Trainer:
         return os.path.join(self.cfg.basedir, self.cfg.expname)
 
     def load_data(self) -> SceneData:
-        from nerf_sampling_tpu_torch.data.blender import load_blender_data
-
+        """The scene of ``dataset_type`` (the reference's per-dataset trainers)."""
         cfg = self.cfg
-        scene = load_blender_data(cfg.datadir, cfg.half_res, cfg.testskip)
-        if cfg.white_bkgd:
-            scene.composite_white_background()
-        else:
-            scene.drop_alpha()
-        scene.near, scene.far = cfg.near, cfg.far
-        return scene
+        if cfg.dataset_type == "blender":
+            from nerf_sampling_tpu_torch.data.blender import load_blender_data
+
+            scene = load_blender_data(cfg.datadir, cfg.half_res, cfg.testskip)
+            if cfg.white_bkgd:
+                scene.composite_white_background()
+            else:
+                scene.drop_alpha()
+            scene.near, scene.far = cfg.near, cfg.far
+            return scene
+        if cfg.dataset_type == "llff":
+            from nerf_sampling_tpu_torch.data.llff import load_llff_scene
+
+            return load_llff_scene(cfg)
+        if cfg.dataset_type == "LINEMOD":
+            from nerf_sampling_tpu_torch.data.linemod import load_linemod_scene
+
+            return load_linemod_scene(cfg)
+        if cfg.dataset_type == "deepvoxels":
+            from nerf_sampling_tpu_torch.data.deepvoxels import load_deepvoxels_scene
+
+            return load_deepvoxels_scene(cfg)
+        raise ValueError(f"unknown dataset_type {cfg.dataset_type}")
 
     def create_log_dir_and_dump_config(self) -> None:
         """args.txt and a copy of the config file (reference Trainer.py:148-160)."""
@@ -213,6 +229,9 @@ class Trainer:
         cfg = self.cfg
         with_depth = cfg.train_mode in ("depth_net", "joint")
         p = self.pipeline = cfg.pipeline(with_depth=with_depth)
+        if p.ndc and self.scene is not None:  # the steps see flat ray batches: the reprojection's geometry rides here
+            H, W, focal = self.scene.hwf
+            p = self.pipeline = dataclasses.replace(p, H=int(H), W=int(W), focal=float(focal))
         coarse = _seeded(NeRF, p.nerf, cfg.seed)
         fine = _seeded(NeRF, p.fine, cfg.seed + 1) if p.fine is not None else None
         depth = _seeded(DepthNet, p.depth, cfg.seed + 2) if with_depth else None
@@ -276,9 +295,9 @@ class Trainer:
         # int8: the static calibration of the NeRFs restored here (a no-op otherwise)
         p = self.pipeline = calibrate_pipeline(p, params, self.scene)
         if p.mlp_impl in KERNEL_IMPLS and cfg.train_mode == "depth_net":  # the frozen NeRF's packs, once
-            # the oracle (K6) reads the hier packs, int8 ones under cuda_int8 whatever the eval mode
-            params = pack_kernel_weights(params, **{**eval_packs(p, self._eval_mode(), params), "with_hier": True,
-                                                    "quant_pair": quant_pair(p, params)})
+            # the oracle (K6, not under NDC) reads the hier packs, int8 ones under cuda_int8 whatever the eval mode
+            params = pack_kernel_weights(params, **{**eval_packs(p, self._eval_mode(), params),
+                                                    "with_hier": not p.ndc, "quant_pair": quant_pair(p, params)})
         self.params = params
 
     def _restored_opt(self, key: str) -> dict | None:

@@ -5,8 +5,8 @@ CPU, against the JAX package.
   copies, byte for byte the JAX package's) to the JAX TrainerConfig, field
   by field: only ``mlp_impl`` differs (the port's "plain" is "xla").
 - ``legacy_run.build_config``: the file and the flags merged as the JAX
-  CLI merges them; ``legacy_run.main`` trains a tiny blender scene and
-  raises for an llff config (ROADMAP S6).
+  CLI merges them; ``legacy_run.main`` trains a tiny blender scene and,
+  from the llff config ``fern.txt``, a generated forward-facing one (NDC).
 - ``study``: optuna's branch with a stub module (tests/test_study_optuna.py's
   pattern), one trial pruned through the Trainer's hook, and the seeded
   random search without optuna.
@@ -26,7 +26,7 @@ from test_study_optuna import TINY_YAML, _make_optuna_stub
 
 from nerf_sampling_tpu.experiments import legacy_run as jlegacy
 from nerf_sampling_tpu.utils import config as jconfig
-from nerf_sampling_tpu_torch.data.example import generate_example_dataset
+from nerf_sampling_tpu_torch.data.example import generate_example_dataset, generate_example_llff_dataset
 from nerf_sampling_tpu_torch.definitions import ROOT_DIR
 from nerf_sampling_tpu_torch.experiments import legacy_run, plot, study
 from nerf_sampling_tpu_torch.train.trainer import TrialPruned
@@ -85,9 +85,12 @@ def test_legacy_run_trains_a_blender_scene(tmp_path):
     assert np.isfinite(psnr)
     lines = (tmp_path / "logs" / "lego" / "psnr.txt").read_text().splitlines()
     assert [ln.split()[1] for ln in lines] == ["1", "2"]
+    # an llff config (NDC) on a generated forward-facing scene
+    llff = generate_example_llff_dataset(str(tmp_path / "llff"), H=16, W=24, n_images=9)
     fern = os.path.join(ROOT_DIR, "experiments", "configs", "legacy", "fern.txt")
-    with pytest.raises(NotImplementedError, match="S6"):
-        legacy_run.main(["--config_path", fern, "--datadir", datadir] + tiny)
+    psnr = legacy_run.main(["--config_path", fern, "--datadir", llff, "--expname", "fern", "--factor", "1"] + tiny)
+    assert np.isfinite(psnr)
+    assert len((tmp_path / "logs" / "fern" / "psnr.txt").read_text().splitlines()) == 2
 
 
 @pytest.fixture

@@ -698,8 +698,7 @@ def test_nerf_and_joint_raise_outside_the_kernels():
             make(dataclasses.replace(cp, use_viewdirs=False))
         with pytest.raises(ValueError, match="positional encoding"):
             make(dataclasses.replace(cp, i_embed=-1))
-        with pytest.raises(NotImplementedError, match="S6"):
-            make(dataclasses.replace(cp, ndc=True))
+        make(dataclasses.replace(cp, ndc=True, near=0.0, far=1.0, H=8, W=8, focal=9.0))  # NDC: K4/K5 take it
     _, model = nerf_pair("noskip")
     pts = torch.zeros(10, 3)
     with pytest.raises(ValueError, match="do not split"):

@@ -44,7 +44,7 @@ from nerf_sampling_tpu_torch.render import engine as tengine
 from nerf_sampling_tpu_torch.train import checkpoint as tckpt
 from nerf_sampling_tpu_torch.train.sampler import RaySampler, SamplerConfig
 from nerf_sampling_tpu_torch.train.state import init_state
-from nerf_sampling_tpu_torch.train.steps import StepDraws, depth_net_loss, make_depth_net_train_step
+from nerf_sampling_tpu_torch.train.steps import StepDraws, check_hier_oracle, depth_net_loss, make_depth_net_train_step
 from nerf_sampling_tpu_torch.train.trainer import Trainer
 from nerf_sampling_tpu_torch.utils.config import TrainerConfig, load_trainer_config
 from nerf_sampling_tpu_torch.utils.logging import MetricsLogger
@@ -200,8 +200,10 @@ def test_k6_branch_raises_outside_its_envelope():
                        (dict(N_importance=0), "N_importance"), (dict(use_viewdirs=False), "use_viewdirs")):
         with pytest.raises(ValueError, match=match):
             make_depth_net_train_step(dataclasses.replace(cp, **bad), tparams._replace(depth=None))
-    with pytest.raises(NotImplementedError, match="S6"):
-        make_depth_net_train_step(dataclasses.replace(cp, ndc=True), tparams._replace(depth=None))
+    # NDC is no envelope miss: the target pass is the composable one with K4 queries, as in JAX
+    ndc = dataclasses.replace(cp, ndc=True, near=0.0, far=1.0, H=8, W=8, focal=9.0)
+    assert not check_hier_oracle(ndc)
+    make_depth_net_train_step(ndc, tparams._replace(depth=None))
 
 
 def port_scene(jscene):
@@ -371,11 +373,22 @@ def test_trainer_end_to_end_and_repack(tmp_path):
 
 @pytest.mark.parametrize("field,value,match", [
     ("n_devices", 2, "S7"), ("multihost", True, "S7"), ("steps_per_dispatch", 4, "S7"),
-    ("dataset_type", "llff", "S6"), ("dataset_type", "deepvoxels", "S6"),
 ])
 def test_trainer_unported_options_raise(field, value, match):
     with pytest.raises(NotImplementedError, match=match):
         Trainer(dataclasses.replace(TrainerConfig(), **{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("dataset_type", ["blender", "llff", "LINEMOD", "deepvoxels", "bogus"])
+def test_trainer_takes_every_dataset_type(tmp_path, dataset_type):
+    """The four formats construct a Trainer whose load_data reaches its
+    loader (here on a directory that does not exist); an unknown type
+    raises ValueError there, as in JAX. tests/test_torch_ndc.py trains on
+    each."""
+    tr = Trainer(dataclasses.replace(TrainerConfig(), dataset_type=dataset_type, datadir=str(tmp_path / "none")),
+                 device="cpu")
+    with pytest.raises(ValueError if dataset_type == "bogus" else FileNotFoundError):
+        tr.load_data()
 
 
 def test_wandb_and_missing_ft_path_raise(tmp_path, capsys, monkeypatch):
