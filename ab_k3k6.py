@@ -1,0 +1,73 @@
+"""Time K3 and K6 on two checkouts in turns on one GPU: the other tree, this one, this one, the other.
+
+    python3 ab_k3k6.py OTHER_TREE
+
+OTHER_TREE is another checkout of the repository (for example the parent
+commit unpacked with ``git archive`` into a directory ``.gitignore``
+lists). Each turn is a process of its own that builds the tree's kernels
+and times, with CUDA events after a warm-up, K6 (the seeded hierarchical
+pass, 1024 rays of test view 0, 64 + 128 samples, 50 launches) and K3
+(the gaussian population over view 0's 160,000 rays at 64 samples, 10
+launches) on the committed checkpoint, through the wrappers both trees
+have. Prints one ``TIMES`` JSON line per turn, then the card's name and
+power limit, and exits non-zero when a turn fails.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def time_tree(root: str) -> dict:
+    """K6 and K3 times (ms per launch) of the tree at ``root``, in this process."""
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    import chip_smoke as cs
+    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
+    from nerf_sampling_tpu_torch.kernels import fused_render as k3
+    from nerf_sampling_tpu_torch.render import pack_kernel_weights
+    from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
+
+    device = torch.device("cuda", 0)
+    params = pack_kernel_weights(load_render_params(cs.CKPT, cs.production_pipeline("cuda"), device),
+                                 with_hier=True)
+    ro, rd = cs.view0_rays(device)
+    depth = k1.fused_depth_net_apply(params.kernels.depth, params.depth.cfg, ro, rd)
+    hier, cfg_c, cfg_f = params.kernels.hier, params.coarse.cfg, params.fine.cfg
+    b_o, b_d = ro[::156][:1024].contiguous(), rd[::156][:1024].contiguous()
+    k6_ms = cs.cuda_ms(lambda: k6.render_hier_kernel(hier, cfg_c, cfg_f, b_o, b_d, n_coarse=64, n_importance=128,
+                                                      seed=1), 50)
+    k3_ms = cs.cuda_ms(lambda: k3.render_gaussian_kernel(params.kernels.nerf, params.fine.cfg, ro, rd, depth,
+                                                          n_samples=64, std=1.0, seed=7), 10)
+    return {"k6_ms": k6_ms, "k3_ms": k3_ms}
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--time":
+        print("TIMES " + json.dumps({"tree": sys.argv[2], **time_tree(os.path.abspath(sys.argv[2]))}), flush=True)
+        return 0
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    other = os.path.abspath(sys.argv[1])
+    for tree in (other, HERE, HERE, other):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time", tree], capture_output=True,
+                              text=True, timeout=600)
+        print("\n".join(ln for ln in proc.stdout.splitlines() if ln.startswith("TIMES")), flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

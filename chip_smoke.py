@@ -158,6 +158,39 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    and one eval (K6, K1 and K3 must launch, the eval finite). The record
    carries each kernel's launches in these phases as "llff_launches" and
    "formats_launches".
+11. [scaleout], last: data parallelism (nerf_sampling_tpu_torch/parallel/)
+   at the production widths (the committed checkpoint, 1024 rays a step,
+   64 + 128 samples, view 0 at 400x400). (a) K6 on rows 512:1024 of a
+   1024-ray batch with ray_base 512 and K3 on rows 80,000:160,000 of view
+   0 with ray_base 80,000 equal the matching rows of the whole launch bit
+   for bit, and their plain versions with the host twins' ray0 at [K6]'s
+   and [K3]'s tolerances (both records gain "ray_base_check"). Then the
+   one-rank references here, and SCALEOUT_RANKS ranks spawned on cuda:0
+   under gloo (NCCL refuses two ranks on one card; a file:// rendezvous
+   under logs/, collective and join timeouts, every rank killed when one
+   fails): (b) SCALEOUT_STEPS depth-net steps (K6 oracle, DepthNet
+   autograd, the gradient all-reduce) and (c) as many nerf steps (K4/K5)
+   on NeRFs from seed 42, from the same state, batches and seeds as one
+   rank: the first loss within 1e-5, the all-reduced gradients equal bit
+   for bit to the mean of the two halves' own gradients made here, that
+   mean within 1e-3 (b) or 2^-8 (c) of the largest 1024-row gradient, the
+   params after step 1 within one Adam step (the fraction outside rtol
+   1e-4 / atol 1e-6 printed), the ranks' params bit-identical after the
+   last step. The 1-rank step is deterministic, but on the card its fp32
+   GEMMs round a row differently at another batch size and K5's weight
+   grads are bf16 sums over the rows a launch sees, so the halves differ
+   from the whole in rounding, which Adam's first steps and the
+   single-sample composite amplify. (d) view 0 through
+   render_image_sharded, DEPTH_NET uniform (K1 + K2) and gaussian (K1 +
+   K3), bit-identical to one rank's render, the PSNR printed; (e) a 2-rank
+   Trainer (n_devices=2 on cuda:0, each rank joining the group spawn
+   formed) for SCALEOUT_ITERS depth-net steps from the committed NeRF and
+   its eval: the first logged loss within 1e-4 of one rank's Trainer, the
+   eval within SCALEOUT_EVAL_TOL dB of it and equal to the 1-rank eval of
+   rank 0's step-60 DepthNet, rank 1 wrote no file. Each rank's launches
+   and the 2-rank step and frame times (two ranks sharing one card:
+   correctness, not scaling) are printed; the record carries each
+   kernel's launches on the ranks as "scaleout_launches".
 
 Every kernel runs its MLP on the wgmma core (csrc/mlp_wgmma.cuh): K1 in
 bf16 and fp32 (depth_net.cu), K2, K3, K8 and K9 in bf16, int8 and fp32
@@ -1142,7 +1175,8 @@ def check_fp32(params, device) -> list[dict]:
                                      + k289._flat_weights(hier["fine"], dtype=torch.float32))
     rc = build.load_library().nst_render_hier(
         arr, count, n, 64, 128, cfg_c.D, sum(1 << i for i in hier["coarse"]["skip_w"]), cfg_f.D,
-        sum(1 << i for i in hier["fine"]["skip_w"]), 2.0, 6.0, 0, 1, 0, 1, 1, None, None, build.current_stream(device))
+        sum(1 << i for i in hier["fine"]["skip_w"]), 2.0, 6.0, 0, 1, 0, 0, 1, 1, None, None,
+        build.current_stream(device))
     log(f"[fp32] an fp32 hierarchical launch without the weight slices: cudaError_t {rc} (refused)")
     require(rc != 0, "K7 fp32: a launch without the weight slices was not refused")
     recs.append(kernel_record("render_hier_kernel_det_fp32", "render_hier.cu",
@@ -1401,7 +1435,7 @@ def check_k10(params, scene, K, device, batches) -> tuple[list[dict], dict[str, 
                                      + k289._flat_weights(q.hier["coarse"], sigma_only=True)
                                      + k289._flat_weights(q.hier["fine"]))
     rc = build.load_library().nst_render_hier(
-        arr, count, m, Nc, Nf, cfg_c.D, mask_c, cfg.D, mask_f, 2.0, 6.0, 0, 1, 1, 0, 0,
+        arr, count, m, Nc, Nf, cfg_c.D, mask_c, cfg.D, mask_f, 2.0, 6.0, 0, 1, 1, 0, 0, 0,
         build.host_pointer(plan_c), build.host_pointer(plan_f), build.current_stream(device))
     log(f"[k10] an int8 hierarchical launch without the weight slices: cudaError_t {rc} (refused)")
     require(rc != 0, "K6-int8: a launch without the weight slices was not refused")
@@ -2735,6 +2769,363 @@ def run_formats(device) -> dict[str, int]:
     return total
 
 
+SCALEOUT_DIR = os.path.join(HERE, "logs", "chip_smoke_scaleout")  # [scaleout]'s rendezvous, inputs, runs (gitignored)
+SCALEOUT_RANKS = 2  # the ranks of [scaleout], all on cuda:0 under gloo
+SCALEOUT_STEPS = 5  # [scaleout] (b) and (c): steps on one rank and on two
+SCALEOUT_ITERS = 60  # [scaleout] (e): Trainer steps, the eval at the last
+SCALEOUT_TIMEOUT = 300.0  # s a rank's collective waits for its peer; the parent waits as long for the ranks
+SCALEOUT_EVAL_TOL = 0.5  # dB between the 2-rank and 1-rank Trainers' evals after SCALEOUT_ITERS steps
+
+
+def scaleout_counts(reset: bool = False) -> dict[str, int]:
+    """The launch counters of the kernels [scaleout] drives (set to 0 with ``reset``)."""
+    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
+    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
+    from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
+    from nerf_sampling_tpu_torch.kernels import fused_render as k23
+
+    if reset:
+        k1.launches = k23.launches = k23.gaussian_launches = k6.launches = k4.launches = k5.launches = 0
+    return {"depth_net_kernel": k1.launches, "render_around_depth_kernel": k23.launches,
+            "render_gaussian_kernel": k23.gaussian_launches, "render_hier_kernel": k6.launches,
+            "nerf_points_kernel": k4.launches, "nerf_points_bwd_kernel": k5.launches}
+
+
+def scaleout_params(device):
+    """The committed checkpoint (NeRFs 8x256, DepthNet 10x256) with its kernel packs."""
+    from nerf_sampling_tpu_torch.render import pack_kernel_weights
+    from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
+
+    return pack_kernel_weights(load_render_params(CKPT, production_pipeline("cuda"), device), with_hier=True)
+
+
+def flat(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().reshape(-1).float().cpu() for t in tensors])
+
+
+def scaleout_steps(kind: str, batches, device, mesh=None, shard=None) -> dict:
+    """SCALEOUT_STEPS depth-net (``kind`` "depth": K6 oracle, DepthNet
+    autograd) or nerf ("nerf": K4/K5, NeRFs from seed 42) steps from the
+    same state, batches and seeds: one rank on the whole batch (``mesh``
+    None), the rank's rows, or with ``shard=(r, world)`` and no mesh the
+    one-device step on block r alone (its own gradients, not reduced);
+    losses, the parameters after the first and
+    the last step, the gradients of the first, and the median host time of
+    the steps after the first (synchronized)."""
+    from nerf_sampling_tpu_torch.models import NeRF
+    from nerf_sampling_tpu_torch.parallel import ops, replicate, shard_ray_batch
+    from nerf_sampling_tpu_torch.train import steps
+    from nerf_sampling_tpu_torch.train.state import init_nerf_state, init_state, nerf_modules
+    from nerf_sampling_tpu_torch.train.trainer import _seeded
+
+    pipe = production_pipeline("cuda")
+    if kind == "depth":
+        params = scaleout_params(device)
+        state = init_state(params.depth, 1e-4)
+        frozen = params._replace(depth=None)
+        step = ops.make_sharded_depth_train_step(pipe, frozen, mesh) if mesh else \
+            steps.make_depth_net_train_step(pipe, frozen, shard=shard or (0, 1))
+        model = params.depth
+    else:
+        nerfs = nerf_modules(_seeded(NeRF, pipe.nerf, 42).to(device), _seeded(NeRF, pipe.fine, 43).to(device))
+        state = init_nerf_state(nerfs, 5e-4, 250)
+        step = ops.make_sharded_nerf_train_step(pipe, mesh) if mesh else \
+            steps.make_nerf_train_step(pipe, shard=shard or (0, 1))
+        model = nerfs
+    if mesh is not None:
+        replicate(mesh, model)
+    out = {"losses": [], "ms": []}
+    for i, batch in enumerate(batches):
+        batch = tuple(t.to(device) for t in batch)
+        if shard is not None:
+            n = batch[0].shape[0] // shard[1]
+            batch = tuple(t[shard[0] * n:(shard[0] + 1) * n] for t in batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, shard_ray_batch(mesh, batch) if mesh else batch, 1000 + i)
+        out["losses"].append(float(m["loss"]))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out["p1"] = flat(model.parameters())
+            out["g1"] = flat(p.grad for p in model.parameters())
+    torch.cuda.synchronize()
+    out["p_last"] = flat(model.parameters())
+    out["ms"] = float(np.median(out["ms"][1:])) if len(out["ms"]) > 1 else out["ms"][0]
+    return out
+
+
+def scaleout_render(population: str, device, mesh=None) -> dict[str, torch.Tensor]:
+    """View 0 at 400x400 through DEPTH_NET at ``population``/64/1.0 (K1, then
+    K2 or K3): ``render_image``, or ``render_image_sharded`` over ``mesh``;
+    the maps on the host and the host time of a second frame (synchronized,
+    the gather included)."""
+    import dataclasses
+
+    from nerf_sampling_tpu_torch.parallel import render_image_sharded
+    from nerf_sampling_tpu_torch.render import render_image
+
+    pipe = dataclasses.replace(production_pipeline("cuda"), sampling_mode=population)
+    H, W, K, c2w = view0_camera()
+    params = scaleout_params(device)
+    times = []
+    for _ in range(2):
+        kw = dict(device=device, generator=torch.Generator(device=device).manual_seed(0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps = render_image_sharded(pipe, params, H, W, K, c2w, mesh=mesh, **kw) if mesh else \
+            render_image(pipe, params, H, W, K, c2w, **kw)
+        maps = {k: maps[k].cpu() for k in ("depth_net_rgb_map", "depth_net_disp_map")}
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {**maps, "ms": times[-1]}
+
+
+def scaleout_trainer(cfg, device) -> dict:
+    """(e): the Trainer for SCALEOUT_ITERS depth-net steps and the eval at the last."""
+    from nerf_sampling_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, device=device)
+    final = tr.train(N_iters=SCALEOUT_ITERS + 1)
+    return {"final": final, "eval": tr._avg_eval_psnr, "primary": tr.primary,
+            "checksum": flat(tr.params.depth.parameters()), "expdir": tr.expdir}
+
+
+def scaleout_rank(rank: int, world: int, spec_path: str) -> None:
+    """One rank of [scaleout] on cuda:0: (b)-(e) on its rows, each phase's
+    launches counted from 0; its results to ``rank{rank}.pt``."""
+    import dataclasses
+
+    from nerf_sampling_tpu_torch.parallel import make_mesh
+
+    spec = torch.load(spec_path, weights_only=False)
+    device = torch.device(spec["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    mesh = make_mesh(world)
+    t0 = time.perf_counter()
+    rec: dict = {"counts": {}}
+    for phase, fn in (("b", lambda: scaleout_steps("depth", spec["batches"], device, mesh)),
+                      ("c", lambda: scaleout_steps("nerf", spec["batches"], device, mesh)),
+                      ("d", lambda: {p: scaleout_render(p, device, mesh) for p in ("uniform", "gaussian")}),
+                      ("e", lambda: scaleout_trainer(dataclasses.replace(
+                          spec["cfg"], n_devices=world, basedir=os.path.join(SCALEOUT_DIR, f"rank{rank}")),
+                          device))):
+        scaleout_counts(reset=True)
+        rec[phase] = fn()
+        torch.cuda.synchronize()
+        rec["counts"][phase] = scaleout_counts()
+    rec["seconds"] = time.perf_counter() - t0
+    torch.save(rec, os.path.join(SCALEOUT_DIR, f"rank{rank}.pt"))
+
+
+def check_ray_base(params, scene, device, recs: dict) -> None:
+    """(a): K6 on rows 512:1024 of a 1024-ray batch with ray_base 512, and K3
+    on rows 80,000:160,000 of view 0 with ray_base 80,000, against the
+    matching rows of the whole launch (bits) and against their plain
+    versions with the host twins' ray0 ([K6]'s and [K3]'s tolerances)."""
+    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
+    from nerf_sampling_tpu_torch.kernels import fused_render as k3
+
+    Nc, Nf = 64, 128
+    ro, rd = train_batches(scene, device, 1, seed=3)[0][:2]
+    lo = ro.shape[0] // 2
+    cfg_c, cfg_f, hier = params.coarse.cfg, params.fine.cfg, params.kernels.hier
+    kw = dict(n_coarse=Nc, n_importance=Nf, seed=21)
+    full = k6.render_hier_kernel(hier, cfg_c, cfg_f, ro, rd, **kw)
+    part = k6.render_hier_kernel(hier, cfg_c, cfg_f, ro[lo:].contiguous(), rd[lo:].contiguous(), ray_base=lo, **kw)
+    plain = k6.render_hier_plain(hier, cfg_c, cfg_f, ro[lo:], rd[lo:], ray_base=lo, **kw)
+    torch.cuda.synchronize()
+    bits = all(torch.equal(part[k], full[k][lo:]) for k in full)
+    errs = {}
+    for name in ("rgb_map", "acc_map"):
+        d = (part[name] - plain[name]).abs()
+        errs[name] = (float(d.mean()), quantile(d, 0.999))
+    log(f"[scaleout] (a) K6 rows {lo}:{2 * lo} with ray_base {lo}: bit-identical to rows {lo}:{2 * lo} of the whole "
+        f"launch: {bits}; vs its plain version (philox.hier_draws ray0={lo}) mean/p99.9 "
+        + ", ".join(f"{k} {m:.3e}/{p:.3e}" for k, (m, p) in errs.items()) + f" (tol {K6_MEAN_TOL:g}/{K6_P999_TOL:g})")
+    require(bits, "K6: a launch at ray_base is not the slice of the whole launch")
+    require(all(m <= K6_MEAN_TOL and p <= K6_P999_TOL for m, p in errs.values()),
+            "K6 at ray_base disagrees with its plain version")
+    recs["render_hier_kernel"]["ray_base_check"] = {"rows": f"{lo}:{2 * lo}", "bits_equal": bits,
+                                                    "plain_mean_p999": errs}
+
+    ro, rd = view0_rays(device)
+    depth = k1.fused_depth_net_apply(params.kernels.depth, params.depth.cfg, ro, rd)
+    n, S, std = ro.shape[0], 64, 1.0
+    lo = n // 2
+    packed, cfg = params.kernels.nerf, params.fine.cfg
+    kw = dict(n_samples=S, std=std, seed=23)
+    full = k3.render_gaussian_kernel(packed, cfg, ro, rd, depth, **kw)
+    part = k3.render_gaussian_kernel(packed, cfg, ro[lo:].contiguous(), rd[lo:].contiguous(), depth[lo:].contiguous(),
+                                     ray_base=lo, **kw)
+    chunk = 16384
+    parts = [k3.render_gaussian_plain(packed, cfg, ro[s:s + chunk], rd[s:s + chunk], depth[s:s + chunk], std=std,
+                                      n_samples=S, seed=23, ray_base=s) for s in range(lo, n, chunk)]
+    plain = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    torch.cuda.synchronize()
+    bits = all(torch.equal(part[k], full[k][lo:]) for k in full)
+    errs = {}
+    for name, scale in (("rgb_map", 1.0), ("acc_map", 1.0), ("depth_map", 6.0)):
+        mean, mx = errors(part[name], plain[name])
+        errs[name] = (mean, mx)
+        require(mean <= K2_MEAN_TOL * scale and mx <= K2_MAX_TOL * scale,
+                f"K3 {name} at ray_base disagrees with its plain version")
+    log(f"[scaleout] (a) K3 rows {lo}:{n} with ray_base {lo}: bit-identical to rows {lo}:{n} of the {n}-ray launch: "
+        f"{bits}; vs its plain version (philox.gaussian_noise ray0={lo}) mean/max "
+        + ", ".join(f"{k} {m:.3e}/{x:.3e}" for k, (m, x) in errs.items())
+        + f" (tol {K2_MEAN_TOL:g}/{K2_MAX_TOL:g}, depth x6)")
+    require(bits, "K3: a launch at ray_base is not the slice of the whole launch")
+    recs["render_gaussian_kernel"]["ray_base_check"] = {"rows": f"{lo}:{n}", "bits_equal": bits,
+                                                        "plain_mean_max": errs}
+
+
+def iter_losses(expdir: str) -> list[tuple[int, float]]:
+    """(step, Loss) of every Iter line of an experiment's psnr.txt."""
+    with open(os.path.join(expdir, "psnr.txt")) as fp:
+        return [(int(ln.split()[1]), float(ln.split("Loss: ")[1].split(",")[0])) for ln in fp if ln.startswith("Iter:")]
+
+
+def run_scaleout(device, scene, recs: dict) -> dict[str, list[int]]:
+    """[scaleout]: (a) K6 and K3 at ray_base; then the one-rank references
+    here and SCALEOUT_RANKS ranks spawned on cuda:0 under gloo ((b) the
+    depth-net step, (c) the nerf step, (d) the sharded render of view 0,
+    (e) the Trainer), each held to the one rank. Returns each kernel's
+    launches on the ranks over (b)-(e)."""
+    import dataclasses
+    import shutil
+
+    from nerf_sampling_tpu_torch.core.metrics import psnr_np
+    from nerf_sampling_tpu_torch.experiments import run
+    from nerf_sampling_tpu_torch.parallel import ops
+    from nerf_sampling_tpu_torch.utils.precision import matmul_precision
+
+    t0 = time.perf_counter()
+    shutil.rmtree(SCALEOUT_DIR, ignore_errors=True)
+    os.makedirs(SCALEOUT_DIR)
+    check_ray_base(scaleout_params(device), scene, device, recs)
+    batches = [tuple(t.cpu() for t in b) for b in train_batches(scene, device, SCALEOUT_STEPS, seed=9)]
+    ft_path = os.path.join(SCALEOUT_DIR, "nerf_only.npz")
+    write_nerf_only_checkpoint(ft_path)
+    argv = ["-d", "example", "-m", "recommended_depth_net_module", "--mlp_impl", "cuda", "--ft_path", ft_path,
+            "--n_iters", str(SCALEOUT_ITERS), "--i_testset", str(SCALEOUT_ITERS), "-ip", "10", "--seed", "42",
+            "--testskip", "1"]
+    cfg = run.trainer_config(vars(run.build_parser().parse_args(argv)))
+    t1 = time.perf_counter()
+    # what the comparisons below rest on: one rank's step gives the same bits twice, and a batch of
+    # 512 rows rounds the DepthNet's fp32 forward differently from the same rows in 1024
+    again = [scaleout_steps("depth", batches[:1], device)["g1"] for _ in range(2)]
+    params = scaleout_params(device)
+    ro, rd = batches[0][0].to(device), batches[0][1].to(device)
+    with matmul_precision(production_pipeline("cuda").matmul_precision), torch.no_grad():
+        z_whole, z_half = params.depth(ro, rd)[512:], params.depth(ro[512:].contiguous(), rd[512:].contiguous())
+    log(f"[scaleout] one rank's depth step twice from one state: grads bit-identical: "
+        f"{torch.equal(again[0], again[1])}; the DepthNet's fp32 forward of rows 512:1024 in the 1024-row batch "
+        f"against the 512 rows alone: max |diff| {float((z_whole - z_half).abs().max()):.3e} (cuBLAS picks its "
+        "kernels by shape)")
+    require(torch.equal(again[0], again[1]), "one rank's depth step is not deterministic")
+    # the mean of each half's own first-step gradients, made here: what the all-reduce must give
+    halves = {p: sum(scaleout_steps(k, batches[:1], device, shard=(r, SCALEOUT_RANKS))["g1"]
+                     for r in range(SCALEOUT_RANKS)) / SCALEOUT_RANKS for p, k in (("b", "depth"), ("c", "nerf"))}
+    want = {"b": scaleout_steps("depth", batches, device), "c": scaleout_steps("nerf", batches, device),
+            "d": {p: scaleout_render(p, device) for p in ("uniform", "gaussian")},
+            "e": scaleout_trainer(dataclasses.replace(cfg, basedir=os.path.join(SCALEOUT_DIR, "single")), device)}
+    log(f"[scaleout] one-rank references on {torch.cuda.get_device_name(0)} in {time.perf_counter() - t1:.1f} s")
+    spec = os.path.join(SCALEOUT_DIR, "inputs.pt")
+    torch.save({"batches": batches, "cfg": cfg, "device": str(device)}, spec)
+    t1 = time.perf_counter()
+    ops.spawn(scaleout_rank, SCALEOUT_RANKS, (spec,), rendezvous=os.path.join(SCALEOUT_DIR, "rendezvous"),
+              backend="gloo", timeout=SCALEOUT_TIMEOUT, join_timeout=SCALEOUT_TIMEOUT)
+    ranks = [torch.load(os.path.join(SCALEOUT_DIR, f"rank{r}.pt"), weights_only=False) for r in range(SCALEOUT_RANKS)]
+    log(f"[scaleout] {SCALEOUT_RANKS} gloo ranks sharing cuda:0 (a correctness check, not a scaling one) in "
+        f"{time.perf_counter() - t1:.1f} s (spawn and setup included; (b)-(e) took "
+        + ", ".join(f"{r['seconds']:.1f}" for r in ranks) + " s on the ranks)")
+    r0, r1 = ranks
+
+    # (b) and (c): the steps. One rank's step is deterministic on the card, but its fp32 GEMMs round a
+    # row differently at another batch size (cuBLAS picks its kernels by shape), K5's weight grads are
+    # bf16 sums over the rows a launch sees, and a single-sample composite is a step in the density:
+    # so the 2-rank step equals the 1-rank step exactly in what the all-reduce does (the mean of the
+    # two halves' own gradients, bit for bit) and to the halves' rounding in the rest
+    for phase, name, lr, grad_tol in (("b", "depth-net step (K6 oracle, DepthNet autograd)", 1e-4, 1e-3),
+                                      ("c", "nerf step (K4/K5)", 5e-4, 2.0**-8)):
+        got, ref = r0[phase], want[phase]
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"])]
+        dp1 = (got["p1"] - ref["p1"]).abs()
+        outside = float((dp1 > 1e-6 + 1e-4 * ref["p1"].abs()).float().mean())
+        exact = torch.equal(got["g1"], halves[phase])
+        dg = float((halves[phase] - ref["g1"]).abs().max()) / float(ref["g1"].abs().max())
+        same = torch.equal(r0[phase]["p_last"], r1[phase]["p_last"])
+        log(f"[scaleout] ({phase}) {name}, 2 ranks x 512 rays against 1 rank x 1024: loss rel diff per step "
+            + ", ".join(f"{v:.2e}" for v in rel) + f"; the all-reduced grads equal the mean of the halves' own "
+            f"grads bit for bit: {exact}; that mean against the 1024-row grads max |diff| / max |grad| {dg:.2e} "
+            f"(tol {grad_tol:.2e}); after step 1 params max |diff| {float(dp1.max()):.3e} (one Adam step "
+            f"{2 * lr:g}), {outside:.2e} of them outside rtol 1e-4/atol 1e-6; after step {SCALEOUT_STEPS} params "
+            f"max |diff| {float((got['p_last'] - ref['p_last']).abs().max()):.3e}, the ranks' params "
+            f"bit-identical: {same}; a step {got['ms']:.3f} / {r1[phase]['ms']:.3f} ms on the ranks, "
+            f"{ref['ms']:.3f} ms on 1 rank (median host time of steps 2-{SCALEOUT_STEPS}); rank launches "
+            f"{r0['counts'][phase]} / {r1['counts'][phase]}")
+        require(r0[phase]["losses"] == r1[phase]["losses"] and same, f"({phase}): the ranks disagree")
+        require(rel[0] <= 1e-5, f"({phase}): the 2-rank loss differs from the 1-rank one")
+        require(exact, f"({phase}): the all-reduced grads are not the mean of the halves' grads")
+        require(dg <= grad_tol, f"({phase}): the halves' grads differ from the 1-rank grads beyond rounding")
+        require(float(dp1.max()) <= 2 * lr, f"({phase}): the params after step 1 differ by more than an Adam step")
+
+    # (d): the sharded render
+    gt = scene.images[int(scene.i_test[0])]
+    for pop in ("uniform", "gaussian"):
+        got, ref = r0["d"][pop], want["d"][pop]
+        maps = ("depth_net_rgb_map", "depth_net_disp_map")
+        bits = all(torch.equal(got[k], ref[k]) and torch.equal(got[k], r1["d"][pop][k]) for k in maps)
+        psnr = psnr_np(got["depth_net_rgb_map"].numpy(), gt)
+        log(f"[scaleout] (d) view 0 DEPTH_NET {pop}/64/1.0 over 2 ranks: bit-identical to the 1-rank render: {bits}; "
+            f"PSNR {psnr:.4f} dB (1 rank {psnr_np(ref['depth_net_rgb_map'].numpy(), gt):.4f}); a frame "
+            f"{got['ms']:.2f} / {r1['d'][pop]['ms']:.2f} ms on the ranks, {ref['ms']:.2f} ms on 1 rank (host "
+            "clock, synchronized, gather included)")
+        require(bits, f"(d): the 2-rank {pop} render differs from the 1-rank one")
+    require(all(r["counts"]["d"][k] > 0 for r in ranks for k in
+                ("depth_net_kernel", "render_around_depth_kernel", "render_gaussian_kernel")),
+            "(d): K1, K2 and K3 must launch on every rank")
+
+    # (e): the Trainer
+    got, ref = r0["e"], want["e"]
+    got_l, ref_l = iter_losses(got["expdir"]), iter_losses(ref["expdir"])
+    log(f"[scaleout] (e) Trainer(n_devices=2, device='cuda:0'), {SCALEOUT_ITERS} depth-net steps from the committed "
+        f"NeRF: losses at steps {[s for s, _ in got_l]} rel diff from 1 rank "
+        + ", ".join(f"{abs(a[1] - b[1]) / abs(b[1]):.2e}" for a, b in zip(got_l, ref_l)) + "; eval at step "
+        f"{SCALEOUT_ITERS} {got['eval']:.4f} dB (1 rank {ref['eval']:.4f}); rank launches {r0['counts']['e']} / "
+        f"{r1['counts']['e']}")
+    require([s for s, _ in got_l] == [s for s, _ in ref_l], "(e): the logged steps differ from 1 rank")
+    require(abs(got_l[0][1] - ref_l[0][1]) <= 1e-4 * abs(ref_l[0][1]), "(e): the first logged loss differs")
+    require(abs(got["eval"] - ref["eval"]) <= SCALEOUT_EVAL_TOL, "(e): the eval is too far from 1 rank's")
+    # the sharded eval is the 1-rank eval of the same DepthNet: rank 0's step-60 best, evaluated here
+    from nerf_sampling_tpu_torch.train.trainer import Trainer
+
+    best = os.path.join(got["expdir"], "best", f"depth_{SCALEOUT_ITERS:06d}.npz")
+    tr = Trainer(dataclasses.replace(cfg, basedir=os.path.join(SCALEOUT_DIR, "reeval"), depth_net_path=best),
+                 device=device)
+    tr.scene = tr.load_data()
+    tr.setup_models()
+    reeval = tr.eval_testset(None)
+    log(f"[scaleout] (e) rank 0's step-{SCALEOUT_ITERS} DepthNet evaluated on 1 rank: {reeval:.6f} dB, the 2-rank "
+        f"eval {got['eval']:.6f} dB")
+    require(reeval == got["eval"], "(e): the 2-rank eval differs from the 1-rank eval of the same DepthNet")
+    require(got["eval"] == r1["e"]["eval"] and torch.equal(got["checksum"], r1["e"]["checksum"]),
+            "(e): the ranks disagree")
+    require(r0["e"]["primary"] and not r1["e"]["primary"], "(e): rank 0 must be the primary")
+    require(not os.path.exists(os.path.join(SCALEOUT_DIR, "rank1")), "(e): rank 1 wrote files")
+    require(os.path.exists(os.path.join(got["expdir"], "best", f"depth_{SCALEOUT_ITERS:06d}.npz")),
+            "(e): rank 0 wrote no best checkpoint")
+    for phase, kernels in (("b", ("render_hier_kernel",)), ("c", ("nerf_points_kernel", "nerf_points_bwd_kernel")),
+                           ("e", ("render_hier_kernel", "depth_net_kernel", "render_gaussian_kernel"))):
+        require(all(r["counts"][phase][k] > 0 for r in ranks for k in kernels),
+                f"({phase}): {', '.join(kernels)} must launch on every rank")
+    launches = {k: [sum(r["counts"][p][k] for p in "bcde") for r in ranks] for k in r0["counts"]["b"]}
+    log(f"[scaleout] launches per rank over (b)-(e): {launches}; phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def ptxas_usage(path: str, entry: str) -> str:
     """The registers and spills that ptxas -v reported for the first entry
     function whose mangled name contains ``entry``, from a build log."""
@@ -2824,6 +3215,7 @@ def main() -> int:
     tar_counts = run_tar(device, scene, K)
     llff_counts = run_llff(device)
     formats_counts = run_formats(device)
+    scaleout_launches = run_scaleout(device, scene, {rec["name"]: rec for rec in kernels})
     torch.cuda.synchronize()
     # the count of the path each kernel serves: K2 renders, K1/K3/K6 train the
     # DepthNet, K4/K5/K7 train and evaluate the NeRF, K8 renders FULL_NERF
@@ -2836,7 +3228,7 @@ def main() -> int:
                                                         k8_counts, cli_counts, int8_train_counts, k10_counts)
                                if rec["name"] in c)
         for key, counts in (("tar_launches", tar_counts), ("llff_launches", llff_counts),
-                            ("formats_launches", formats_counts)):
+                            ("formats_launches", formats_counts), ("scaleout_launches", scaleout_launches)):
             if rec["name"] in counts:
                 rec[key] = counts[rec["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from nerf_sampling_tpu_torch.core.sampling import Rows, rand
+
 
 def raw2alpha(raw: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
     """alpha_i = 1 - exp(-relu(sigma_i) * delta_i)."""
@@ -36,8 +38,11 @@ def raw2outputs(
     *,
     generator: torch.Generator | None = None,
     noise: torch.Tensor | None = None,
+    rows: Rows | None = None,
 ) -> RenderOutputs:
-    """Raw [N, S, 4] network output + z [N, S] -> composited per-ray maps."""
+    """Raw [N, S, 4] network output + z [N, S] -> composited per-ray maps;
+    ``rows`` is the rank's window of the global density noise
+    (core/sampling.py)."""
     dists = z_vals[..., 1:] - z_vals[..., :-1]
     dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], -1)
     dists = dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
@@ -48,9 +53,7 @@ def raw2outputs(
         if noise is None:
             if generator is None:
                 raise ValueError("raw_noise_std > 0 requires a torch.Generator or noise")
-            noise = torch.randn(
-                density.shape, generator=generator, device=density.device
-            ) * raw_noise_std
+            noise = rand(density.shape, generator, density.device, rows=rows, normal=True) * raw_noise_std
         density_for_alpha = density + noise
     else:
         density_for_alpha = density

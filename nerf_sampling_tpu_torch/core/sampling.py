@@ -8,12 +8,30 @@
 
 Random draws come from an explicit ``torch.Generator`` or are injected
 (``t_rand=``, ``u=``, ``noise=``), as the JAX functions take a key or the
-same injection parameters.
+same injection parameters. Under data parallelism a rank holds rows
+``lo .. lo + N - 1`` of a global batch of ``n_global`` rays: with
+``rows=(lo, n_global)`` the draws are made at the global shape from the
+shared generator and the rank's rows kept (``rand``), so every rank draws
+for its rays what one process draws for them on the whole batch.
 """
 
 from __future__ import annotations
 
 import torch
+
+Rows = tuple[int, int]  # (the rank's first global row, the global row count)
+
+
+def rand(shape: tuple[int, ...], generator: torch.Generator, device, *, rows: Rows | None = None,
+         normal: bool = False) -> torch.Tensor:
+    """torch.rand (``normal``: torch.randn) of ``shape`` from ``generator``;
+    with ``rows=(lo, n_global)``, drawn as [n_global, *shape[1:]] and rows
+    lo:lo + shape[0] kept."""
+    fn = torch.randn if normal else torch.rand
+    if rows is None:
+        return fn(shape, generator=generator, device=device)
+    lo, n_global = rows
+    return fn((n_global, *shape[1:]), generator=generator, device=device)[lo:lo + shape[0]]
 
 
 def z_to_points(
@@ -44,9 +62,11 @@ def stratified_z_vals(
     perturb: float = 0.0,
     lindisp: bool = False,
     t_rand: torch.Tensor | None = None,
+    rows: Rows | None = None,
 ) -> torch.Tensor:
     """Coarse z [N, N_samples] between near and far [N, 1], jittered within
-    each stratum when ``perturb > 0`` (reference Trainer.py:604-626)."""
+    each stratum when ``perturb > 0`` (reference Trainer.py:604-626);
+    ``rows`` is the rank's window of the global draws."""
     t_vals = linspace01(N_samples, near.device)
     if not lindisp:
         z_vals = near * (1.0 - t_vals) + far * t_vals
@@ -60,7 +80,7 @@ def stratified_z_vals(
         if t_rand is None:
             if generator is None:
                 raise ValueError("perturb > 0 requires a torch.Generator or t_rand")
-            t_rand = torch.rand(z_vals.shape, generator=generator, device=near.device)
+            t_rand = rand(z_vals.shape, generator, near.device, rows=rows)
         z_vals = lower + (upper - lower) * t_rand
     return z_vals
 
@@ -86,9 +106,11 @@ def sample_pdf(
     generator: torch.Generator | None = None,
     det: bool = False,
     u: torch.Tensor | None = None,
+    rows: Rows | None = None,
 ) -> torch.Tensor:
     """Fine z [N, N_samples] by inverting the CDF of ``weights`` [N, B-1]
-    over the bin edges ``bins`` [N, B] (reference run_nerf_helpers.py:250-293)."""
+    over the bin edges ``bins`` [N, B] (reference run_nerf_helpers.py:250-293);
+    ``rows`` is the rank's window of the global draws."""
     weights = weights + 1e-5  # prevent nans
     pdf = weights / _sequential_cumsum(weights)[..., -1:]
     cdf = _sequential_cumsum(pdf)
@@ -100,7 +122,7 @@ def sample_pdf(
         else:
             if generator is None:
                 raise ValueError("stochastic sample_pdf requires a torch.Generator or u")
-            u = torch.rand(shape, generator=generator, device=cdf.device)
+            u = rand(shape, generator, cdf.device, rows=rows)
     u = u.contiguous()
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)
     below = torch.clamp(inds - 1, min=0)

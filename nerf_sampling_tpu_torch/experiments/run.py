@@ -28,16 +28,27 @@ nerf/<dataset>/200000.tar`` where it exists (the reference's convention).
 ``--precision`` sets the plain path's fp32 matmuls (highest: strict fp32,
 high: TF32, default: torch's "medium"); the kernels ignore it.
 ``--profile_dir`` traces steps 20-40 after the start with torch.profiler
-(the Trainer's option; no JAX CLI flag). Flags whose options are not ported (--n_devices,
---multihost, --steps_per_dispatch) reach the Trainer, which raises naming
-their ROADMAP item. The Trainer runs on the card, and raises when there is none, unless
-``--device cpu`` asks for the CPU.
+(the Trainer's option; no JAX CLI flag). ``--steps_per_dispatch`` > 1 is not
+ported (ROADMAP S7b): the Trainer raises. The Trainer runs on the card, and
+raises when there is none, unless ``--device cpu`` asks for the CPU.
+
+Data parallelism (JAX run.py:85-141): ``--n_devices N`` (N > 1, or 0 for
+every card) trains on N ranks, one process per card. Started alone, this
+CLI spawns them itself (rank r on ``cuda:r``, this process being rank 0;
+nccl, or gloo ranks on the CPU with ``--device cpu``), joined through a
+``file://`` rendezvous, and returns rank 0's Trainer. Under a launcher
+(torchrun: ``WORLD_SIZE`` set) or with ``--multihost`` (which needs one)
+each process joins the launcher's group instead:
+
+    torchrun --nnodes 2 --nproc_per_node 8 --rdzv_endpoint HOST:PORT \
+        -m nerf_sampling_tpu_torch.experiments.run -d example --multihost ...
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import tempfile
 
 from nerf_sampling_tpu_torch.data.example import maybe_generate_example_dataset
 from nerf_sampling_tpu_torch.definitions import DATASET_DIR, REFERENCE_CONFIG, ROOT_DIR
@@ -97,10 +108,56 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None):
-    """Parse ``argv``, train, print the final PSNR; returns the Trainer."""
+    """Parse ``argv``, train, print the final PSNR; returns the Trainer (rank
+    0's when this process spawns the ranks of ``--n_devices``)."""
+    kw = vars(build_parser().parse_args(argv))
+    cfg = trainer_config(kw)
+    if cfg is None:
+        return None
+    n = cfg.n_devices
+    if n == 1 or cfg.multihost or os.environ.get("WORLD_SIZE"):
+        return _train(cfg, kw["n_iters"], None if kw["device"] == "cuda" else kw["device"])
+    import torch
+
+    from nerf_sampling_tpu_torch.parallel import ops
+
+    on_cpu = kw["device"] == "cpu"
+    if n == 0:
+        if on_cpu:
+            raise ValueError("--n_devices 0 counts the cards: give the number of CPU ranks with --device cpu")
+        n = torch.cuda.device_count()
+    if n < 1:
+        raise ValueError(f"--n_devices must be 0 (every card) or at least 1, got {cfg.n_devices}")
+    with tempfile.TemporaryDirectory() as tmp:
+        return ops.spawn(_rank, n, (cfg, kw["n_iters"], on_cpu), rendezvous=os.path.join(tmp, "rendezvous"),
+                         backend="gloo" if on_cpu else "nccl", join_timeout=ops.DEFAULT_TIMEOUT,
+                         threads=max(1, torch.get_num_threads() // n) if on_cpu else None, rank0_here=True)
+
+
+def _rank(rank: int, world: int, cfg, n_iters: int, on_cpu: bool):
+    """One spawned rank of ``main``: its card (``cuda:rank``) or the CPU."""
+    if on_cpu:
+        return _train(cfg, n_iters, "cpu")
+    import torch
+
+    torch.cuda.set_device(rank)
+    return _train(cfg, n_iters, f"cuda:{rank}")
+
+
+def _train(cfg, n_iters: int, device: str | None):
+    """The CLI's run on ``device`` (None: the Trainer's default card)."""
     from nerf_sampling_tpu_torch.train.trainer import Trainer
 
-    kw = vars(build_parser().parse_args(argv))
+    trainer = Trainer(cfg, device=device)
+    psnr = trainer.train(N_iters=n_iters + 1)
+    if trainer.primary:
+        print(f"Final psnr: {psnr}")
+    return trainer
+
+
+def trainer_config(kw: dict):
+    """The TrainerConfig of the parsed flags ``kw`` (generating a ``-d``
+    scene on first use), or None without a dataset."""
     cfg = load_trainer_config(kw["config"], kw["model"])
     cfg.single_image = kw["single_image"]
     cfg.single_ray = kw["single_ray"]
@@ -146,11 +203,7 @@ def main(argv: list[str] | None = None):
     # a model entry that sets sampling_mode keeps its eval population
     if "sampling_mode" not in cfg.explicit_keys:
         cfg.sampling_mode = "depth_only"
-
-    trainer = Trainer(cfg, device=kw["device"])
-    psnr = trainer.train(N_iters=kw["n_iters"] + 1)
-    print(f"Final psnr: {psnr}")
-    return trainer
+    return cfg
 
 
 if __name__ == "__main__":

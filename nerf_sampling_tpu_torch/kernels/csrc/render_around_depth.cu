@@ -7,8 +7,8 @@
 //     linspace(-1, 1, S-1) U {0}); a NaN depth stays NaN; already sorted.
 //   K3, z_source="gaussian" (fused_render_gaussian, :558-610):
 //     z_s = depth + std * noise_s for s < S-1 and z_{S-1} = depth, with no
-//     clip; noise is Box-Muller over Philox keyed by (seed, ray)
-//     (philox.cuh), or injected. Each ray's z is sorted (stable, NaN last)
+//     clip; noise is Box-Muller over Philox keyed by (seed, global ray
+//     index = ray_base + row) (philox.cuh), or injected. Each ray's z is sorted (stable, NaN last)
 //     before shading, so the in-order compositing below is the reference's
 //     sort-then-composite. The TPU kernel composited in storage order with
 //     an order-free O(S^2) product instead; here the sort is one rank pass.
@@ -97,6 +97,7 @@ struct RenderParams {
   int lindisp;           // linspace: z = 1/v
   float std_;            // gaussian
   unsigned seed;         // gaussian, when the noise is null
+  long long ray_base;    // gaussian: the global index of ray 0; Philox is keyed by ray_base + g
   int white_bkgd;
   NerfWeightsT<T> w;
   const bf16* slices;    // the NeRF's full-forward weight slices (mlp_wgmma.cuh; int8: bf16 and s8; fp32: hi and lo)
@@ -180,7 +181,7 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, 1)
         if (s < S - 1) {
           const long long g = ray0 + r;
           const float nz = p.z_arg ? p.z_arg[g * (S - 1) + s]
-                                   : gaussian_normal(p.seed, (uint32_t)g, (uint32_t)s);
+                                   : gaussian_normal(p.seed, (uint32_t)(p.ray_base + g), (uint32_t)s);
           v = __fadd_rn(v, __fmul_rn(p.std_, nz));  // as the plain version: no FMA
         }
       }
@@ -258,7 +259,7 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsig
 template <typename T>
 int launch_typed(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
                  int source, float a, float b, int lindisp, int white_bkgd, float std_, unsigned seed,
-                 const int* plan, void* stream) {
+                 long long ray_base, const int* plan, void* stream) {
   RenderParams<T> p = {};
   p.source = source;
   p.near_ = a;
@@ -267,22 +268,23 @@ int launch_typed(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
   p.white_bkgd = white_bkgd;
   p.std_ = std_;
   p.seed = seed;
+  p.ray_base = ray_base;
   return launch(ptrs, n_ptrs, n, S, D, skip_mask, p, plan, stream);
 }
 
 // The bf16 kernel, or the int8 one when an int8 plan is given (fp32 takes none).
 int launch_mode(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
-                int source, float a, float b, int lindisp, int white_bkgd, float std_, unsigned seed, int fp32,
-                const int* plan, void* stream) {
+                int source, float a, float b, int lindisp, int white_bkgd, float std_, unsigned seed,
+                long long ray_base, int fp32, const int* plan, void* stream) {
   if (fp32 && plan) return (int)cudaErrorInvalidValue;
   if (fp32)
     return launch_typed<float>(ptrs, n_ptrs, n, S, D, skip_mask, source, a, b, lindisp, white_bkgd, std_, seed,
-                               nullptr, stream);
+                               ray_base, nullptr, stream);
   if (plan)
     return launch_typed<int8_t>(ptrs, n_ptrs, n, S, D, skip_mask, source, a, b, lindisp, white_bkgd, std_,
-                                seed, plan, stream);
+                                seed, ray_base, plan, stream);
   return launch_typed<bf16>(ptrs, n_ptrs, n, S, D, skip_mask, source, a, b, lindisp, white_bkgd, std_, seed,
-                            nullptr, stream);
+                            ray_base, nullptr, stream);
 }
 
 }  // namespace
@@ -298,17 +300,18 @@ extern "C" int nst_render_around_depth(const void* const* ptrs, int n_ptrs, long
                                        unsigned skip_mask, float near_, float far_, int white_bkgd,
                                        const int* plan, void* stream) {
   return nst::launch_mode(ptrs, n_ptrs, n, S, D, skip_mask, nst::kAroundCenter, near_, far_, 0, white_bkgd,
-                          0.f, 0u, 0, plan, stream);
+                          0.f, 0u, 0, 0, plan, stream);
 }
 
-// K3: ptrs[3] is the injected noise [n, S-1] or null (Philox draws keyed by
-// (seed, ray)).
+// K3: ptrs[3] is the injected noise [n, S-1] (by local row) or null (Philox
+// draws keyed by (seed, ray_base + row): ray_base is the global index of the
+// launch's ray 0, a rank's first row under data parallelism, 0 otherwise).
 extern "C" int nst_render_gaussian(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
-                                   unsigned skip_mask, float std_, unsigned seed, int white_bkgd,
-                                   const int* plan, void* stream) {
+                                   unsigned skip_mask, float std_, unsigned seed, long long ray_base,
+                                   int white_bkgd, const int* plan, void* stream) {
   if (S < 2) return (int)cudaErrorInvalidValue;
   return nst::launch_mode(ptrs, n_ptrs, n, S, D, skip_mask, nst::kGaussian, 0.f, 0.f, 0, white_bkgd, std_,
-                          seed, 0, plan, stream);
+                          seed, ray_base, 0, plan, stream);
 }
 
 // K8: the grid ends (a, b) are (near, far), or (1/near, 1/far) rounded to
@@ -319,7 +322,7 @@ extern "C" int nst_render_linspace(const void* const* ptrs, int n_ptrs, long lon
                                    int fp32, const int* plan, void* stream) {
   if (ptrs[2] || ptrs[3]) return (int)cudaErrorInvalidValue;
   return nst::launch_mode(ptrs, n_ptrs, n, S, D, skip_mask, nst::kLinspace, a, b, lindisp, white_bkgd, 0.f,
-                          0u, fp32, plan, stream);
+                          0u, 0, fp32, plan, stream);
 }
 
 // K9: ptrs[3] is the caller's z [n, S] (ptrs[2] null); sorted: z is taken
@@ -328,7 +331,7 @@ extern "C" int nst_shade(const void* const* ptrs, int n_ptrs, long long n, int S
                          int sorted, int white_bkgd, int fp32, const int* plan, void* stream) {
   if (ptrs[2] || !ptrs[3]) return (int)cudaErrorInvalidValue;
   const int source = sorted ? nst::kInput : nst::kInputUnsorted;
-  return nst::launch_mode(ptrs, n_ptrs, n, S, D, skip_mask, source, 0.f, 0.f, 0, white_bkgd, 0.f, 0u, fp32,
+  return nst::launch_mode(ptrs, n_ptrs, n, S, D, skip_mask, source, 0.f, 0.f, 0, white_bkgd, 0.f, 0u, 0, fp32,
                           plan, stream);
 }
 

@@ -25,7 +25,8 @@
 //      sorted order, as the XLA path's argmax (the TPU kernel took the
 //      first in storage order, fused_hier.py:211-213).
 // The draws t_rand (Nc) and u (Nf) of a ray are Philox uniforms keyed by
-// (seed, global ray index) (philox.cuh), or read from injected draws; det
+// (seed, global ray index = ray_base + the ray's row in this launch)
+// (philox.cuh), or read from injected draws (by local row); det
 // mode draws nothing. Element type T: bf16 (K6, and K7 in FULL_NERF and
 // NERF_MAX), fp32 throughout (K7 in the COMPARE mode: fp32 sums and
 // activations, the products as 3xTF32 on the tensor cores), or int8 (K6 and K7 under cuda_int8: the
@@ -104,6 +105,7 @@ struct HierParams {
   float near_, far_;
   int lindisp, white_bkgd, det;
   unsigned seed;
+  long long ray_base;   // the global index of ray 0: Philox is keyed by ray_base + g
   NerfWeightsT<T> wc, wf;
   const bf16* slices_c;  // the coarse net's forward slices (sigma_only), then the fine net's
   const bf16* slices_f;  // (int8: wgmma_qslices' images of bf16 and int8 slices; fp32: wgmma_slices32's)
@@ -117,7 +119,7 @@ constexpr size_t smem_bytes() {
 
 template <typename T>
 __device__ __forceinline__ float draw(const HierParams<T>& p, long long g, int k) {
-  return p.draws ? p.draws[g * (p.Nc + p.Nf) + k] : hier_uniform(p.seed, (uint32_t)g, (uint32_t)k);
+  return p.draws ? p.draws[g * (p.Nc + p.Nf) + k] : hier_uniform(p.seed, (uint32_t)(p.ray_base + g), (uint32_t)k);
 }
 
 template <typename T>
@@ -289,7 +291,7 @@ constexpr int rays_per_block(int Su) {
 template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int Dc, unsigned skip_c,
            int Df, unsigned skip_f, float near_, float far_, int lindisp, int white_bkgd, unsigned seed,
-           int det, const int* plan_c, const int* plan_f, void* stream) {
+           long long ray_base, int det, const int* plan_c, const int* plan_f, void* stream) {
   if (Nc < 4 || Nf < 1 || Nc + Nf > 512) return (int)cudaErrorInvalidValue;
   HierParams<T> p = {};
   p.rays_o = static_cast<const float*>(ptrs[0]);
@@ -321,6 +323,7 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int
   p.lindisp = lindisp;
   p.white_bkgd = white_bkgd;
   p.seed = seed;
+  p.ray_base = ray_base;
   p.det = det;
   if (det && p.draws) return (int)cudaErrorInvalidValue;
 
@@ -351,24 +354,25 @@ int occupancy(int Nc, int Nf, int* out) {
 }  // namespace
 }  // namespace nst
 
-// det: no draws (K7). fp32: the weights of pack_hier(..., torch.float32)
+// det: no draws (K7). ray_base: the global index of the launch's ray 0 (a
+// rank's first row under data parallelism; 0 otherwise). fp32: the weights of pack_hier(..., torch.float32)
 // and their wgmma_slices32.
 // plan_c, plan_f: both int8 packs' constants (kernels/quant.py::quant_plan,
 // host arrays read at launch) for the int8 kernel, or both null. Returns a
 // cudaError_t (0 on success).
 extern "C" int nst_render_hier(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf,
                                int Dc, unsigned skip_c, int Df, unsigned skip_f, float near_,
-                               float far_, int lindisp, int white_bkgd, unsigned seed, int det,
+                               float far_, int lindisp, int white_bkgd, unsigned seed, long long ray_base, int det,
                                int fp32, const int* plan_c, const int* plan_f, void* stream) {
   if ((plan_c == nullptr) != (plan_f == nullptr) || (fp32 && plan_c)) return (int)cudaErrorInvalidValue;
   if (fp32)
     return nst::launch<float>(ptrs, n_ptrs, n, Nc, Nf, Dc, skip_c, Df, skip_f, near_, far_, lindisp, white_bkgd,
-                              seed, det, nullptr, nullptr, stream);
+                              seed, ray_base, det, nullptr, nullptr, stream);
   if (plan_c)
     return nst::launch<int8_t>(ptrs, n_ptrs, n, Nc, Nf, Dc, skip_c, Df, skip_f, near_, far_, lindisp,
-                               white_bkgd, seed, det, plan_c, plan_f, stream);
+                               white_bkgd, seed, ray_base, det, plan_c, plan_f, stream);
   return nst::launch<nst::bf16>(ptrs, n_ptrs, n, Nc, Nf, Dc, skip_c, Df, skip_f, near_, far_, lindisp,
-                                white_bkgd, seed, det, nullptr, nullptr, stream);
+                                white_bkgd, seed, ray_base, det, nullptr, nullptr, stream);
 }
 
 // The kernel's launch shape at Nc + Nf samples, kind 0 bf16 (K6, K7), 1

@@ -17,8 +17,10 @@ render. The kernel source is ``csrc/render_hier.cu``. Per ray:
    path's rule, ``render/engine.py::_argmax_depth``): max_z, max_w, max_rgb.
 
 In det mode (K7) the coarse z is the grid itself and u is the det
-linspace; otherwise the draws come from Philox keyed by (seed, ray)
-(``philox.hier_draws``) or are injected. ``render_hier_plain`` computes the
+linspace; otherwise the draws come from Philox keyed by (seed, global ray
+index) (``philox.hier_draws``), the global index of a launch's row r being
+``ray_base + r`` (a rank's first row under data parallelism, 0 on one
+device), or are injected. ``render_hier_plain`` computes the
 same in plain PyTorch: fp32 is the reference, bf16 rounds where the kernel
 rounds; with draws of ``None`` it runs det mode, which the tests hold
 against the Pallas kernel. K7 also runs fp32 (the COMPARE mode's kernels,
@@ -111,13 +113,22 @@ def render_hier_plain(
     lindisp: bool = False,
     t_rand: torch.Tensor | None = None,
     u: torch.Tensor | None = None,
+    seed: int | None = None,
+    ray_base: int = 0,
     multires: int = 10,
     multires_views: int = 4,
     dtype=torch.bfloat16,
 ) -> dict[str, torch.Tensor]:
     """K6's computation in plain PyTorch; ``t_rand`` [N, Nc] and ``u`` [N, Nf]
-    are the draws (None: det mode). Returns the maps and argmax diagnostics."""
+    are the draws, or with ``seed`` they are K6's Philox draws of the global
+    rays ``ray_base .. ray_base + N - 1`` (neither: det mode). Returns the
+    maps and argmax diagnostics."""
     _check_envelope(n_coarse, n_importance)
+    if seed is not None:
+        if t_rand is not None or u is not None:
+            raise ValueError("give a seed or the draws, not both")
+        draws = philox.hier_draws(seed, rays_o.shape[0], n_coarse + n_importance, ray0=ray_base).to(rays_o.device)
+        t_rand, u = draws[:, :n_coarse], draws[:, n_coarse:]
     if (t_rand is None) != (u is None):
         raise ValueError("give both draws (t_rand and u) or neither (det mode)")
     kw = dict(multires=multires, multires_views=multires_views, dtype=dtype)
@@ -162,13 +173,15 @@ def render_hier_kernel(
     white_bkgd: bool = True,
     lindisp: bool = False,
     seed: int | None = None,
+    ray_base: int = 0,
     draws: torch.Tensor | None = None,
     multires: int = 10,
     multires_views: int = 4,
     dtype=torch.bfloat16,
 ) -> dict[str, torch.Tensor]:
-    """K6 over N rays [N, 3]: draws from Philox keyed by (``seed``, ray), or
-    the injected ``draws`` [N, Nc + Nf] (t_rand, then u); K7 (det mode)
+    """K6 over N rays [N, 3]: draws from Philox keyed by (``seed``, global
+    ray index), the launch's row r being global ray ``ray_base + r``, or the
+    injected ``draws`` [N, Nc + Nf] (t_rand, then u, by local row); K7 (det mode)
     when both are None, at ``dtype`` (``packed`` is ``pack_hier`` at it), or
     in int8 when ``packed`` is ``qpack_hier``'s (with the default dtype).
 
@@ -192,12 +205,11 @@ def render_hier_kernel(
     w_c = _flat_weights(packed["coarse"], sigma_only=True, dtype=dtype)
     w_f = _flat_weights(packed["fine"], dtype=dtype)
     if rays_o.device.type == "cpu":
-        if draws is None and not det:
-            draws = philox.hier_draws(seed, n, n_draws)
         return render_hier_plain(
             packed, cfg_c, cfg_f, rays_o, rays_d, n_coarse=n_coarse, n_importance=n_importance,
             near=near, far=far, white_bkgd=white_bkgd, lindisp=lindisp,
-            t_rand=None if det else draws[:, :n_coarse], u=None if det else draws[:, n_coarse:],
+            t_rand=None if draws is None else draws[:, :n_coarse], u=None if draws is None else draws[:, n_coarse:],
+            seed=seed if draws is None else None, ray_base=ray_base,
             multires=multires, multires_views=multires_views, dtype=dtype,
         )
     inputs = (rays_o, rays_d) + ((draws,) if draws is not None else ())
@@ -215,7 +227,7 @@ def render_hier_kernel(
         cfg_c.D, sum(1 << i for i in packed["coarse"]["skip_w"]),
         cfg_f.D, sum(1 << i for i in packed["fine"]["skip_w"]),
         float(near), float(far), int(bool(lindisp)), int(bool(white_bkgd)),
-        0 if seed is None else int(seed) & 0xFFFFFFFF, int(det), int(fp32),
+        0 if seed is None else int(seed) & 0xFFFFFFFF, int(ray_base), int(det), int(fp32),
         build.host_pointer(plan_c), build.host_pointer(plan_f), build.current_stream(rays_o.device),
     )
     build.check(rc, "render_hier_kernel")
@@ -256,6 +268,7 @@ def fused_render_hier(
     rays_d: torch.Tensor,
     *,
     seed: int | None,
+    ray_base: int = 0,
     n_coarse: int = 64,
     n_importance: int = 128,
     near: float = 2.0,
@@ -269,11 +282,12 @@ def fused_render_hier(
 ) -> dict[str, torch.Tensor]:
     """The hierarchical pass of [N, 3] rays
     (nerf_sampling_tpu/kernels/fused_hier.py::fused_render_hier): seeded
-    through K6, or deterministic through K7 with ``seed=None``; ``packed``
+    through K6 (its rows being the global rays from ``ray_base`` on), or
+    deterministic through K7 with ``seed=None``; ``packed``
     is ``pack_hier(coarse, fine, dtype)`` of the NeRFs as they are now, or
     ``qpack_hier`` for int8."""
     return render_hier_kernel(
         packed, cfg_c, cfg_f, rays_o.contiguous(), rays_d.contiguous(), n_coarse=n_coarse,
         n_importance=n_importance, near=near, far=far, white_bkgd=white_bkgd, lindisp=lindisp,
-        seed=seed, draws=draws, multires=multires, multires_views=multires_views, dtype=dtype,
+        seed=seed, ray_base=ray_base, draws=draws, multires=multires, multires_views=multires_views, dtype=dtype,
     )

@@ -9,8 +9,9 @@ composites the samples in order over a white background:
   near, far), already sorted;
 - gaussian (K3, ``fused_render_gaussian``): depth + std * N(0, 1) for S-1
   samples plus the depth itself, no clip, sorted per ray before shading.
-  The draws come from Philox keyed by (seed, ray)
-  (``philox.gaussian_noise``) or are injected;
+  The draws come from Philox keyed by (seed, global ray index: a launch's
+  row r is global ray ``ray_base + r``) (``philox.gaussian_noise``) or are
+  injected;
 - linspace (K8, ``fused_render``): the eval grid at perturb 0 between near
   and far (or linear in disparity), the same for every ray, with the TPU
   kernel's rounding (``linspace_grid``); FULL_NERF without fine samples;
@@ -574,16 +575,25 @@ def render_gaussian_plain(
     rays_o: torch.Tensor,
     rays_d: torch.Tensor,
     depth: torch.Tensor,
-    noise: torch.Tensor,
+    noise: torch.Tensor | None = None,
     *,
     std: float = 0.5,
+    n_samples: int | None = None,
+    seed: int | None = None,
+    ray_base: int = 0,
     white_bkgd: bool = True,
     multires: int = 10,
     multires_views: int = 4,
     dtype=torch.bfloat16,
 ) -> dict[str, torch.Tensor]:
     """K3's computation in plain PyTorch: the gaussian population around
-    depth [N] from ``noise`` [N, S-1], sorted, shaded and composited."""
+    depth [N] from ``noise`` [N, S-1], or from K3's Philox draws of
+    ``seed`` for the global rays ``ray_base .. ray_base + N - 1`` at
+    ``n_samples``, sorted, shaded and composited."""
+    if (noise is None) == (seed is None):
+        raise ValueError("give the noise or a seed (with n_samples)")
+    if noise is None:
+        noise = philox.gaussian_noise(seed, rays_o.shape[0], n_samples - 1, ray0=ray_base).to(rays_o.device)
     z = gaussian_population(depth, noise, std)
     raw = nerf_raw_plain(packed, cfg, rays_o, rays_d, z, multires=multires,
                          multires_views=multires_views, dtype=dtype)
@@ -774,6 +784,7 @@ def render_gaussian_kernel(
     n_samples: int,
     std: float,
     seed: int = 0,
+    ray_base: int = 0,
     noise: torch.Tensor | None = None,
     white_bkgd: bool = True,
     multires: int = 10,
@@ -782,8 +793,10 @@ def render_gaussian_kernel(
     """K3: maps of N rays [N, 3] over the gaussian population around depth [N];
     int8 with a ``quant.qpack_nerf`` pack.
 
-    The kernel draws its noise from Philox keyed by (``seed``, ray index);
-    ``noise`` [N, S-1] replaces the draws (the kernel check on the card).
+    The kernel draws its noise from Philox keyed by (``seed``, global ray
+    index), row r of the launch being global ray ``ray_base + r`` (a rank's
+    first row under data parallelism); ``noise`` [N, S-1] replaces the
+    draws (the kernel check on the card).
     On a CPU tensor this runs ``render_gaussian_plain`` at bf16 with the
     same draws (``philox.gaussian_noise``) unless ``noise`` is given; on a
     CUDA tensor it launches the kernel, or raises on what it does not take.
@@ -799,15 +812,14 @@ def render_gaussian_kernel(
         raise ValueError(f"n_samples must be in [2, {MAX_SAMPLES}], got {S}")
     weights = _flat_weights(packed)
     if rays_o.device.type == "cpu":
-        if noise is None:
-            noise = philox.gaussian_noise(seed, n, S - 1)
-        return render_gaussian_plain(packed, cfg, rays_o, rays_d, depth, noise, std=std,
+        return render_gaussian_plain(packed, cfg, rays_o, rays_d, depth, noise, std=std, n_samples=S,
+                                     seed=seed if noise is None else None, ray_base=ray_base,
                                      white_bkgd=white_bkgd, multires=multires,
                                      multires_views=multires_views, dtype=torch.bfloat16)
     inputs = (rays_o, rays_d, depth) + ((noise,) if noise is not None else ())
     _check_cuda(cfg, multires, multires_views, inputs, weights)
     maps = _launch("nst_render_gaussian", packed, cfg, rays_o, rays_d, depth, noise, weights, S,
-                   float(std), int(seed) & 0xFFFFFFFF, int(bool(white_bkgd)))
+                   float(std), int(seed) & 0xFFFFFFFF, int(ray_base), int(bool(white_bkgd)))
     if quant.is_int8(packed):
         gaussian_int8_launches += 1
     else:
@@ -823,6 +835,7 @@ def fused_render_gaussian(
     depth: torch.Tensor,
     *,
     seed: int,
+    ray_base: int = 0,
     n_samples: int = 64,
     std: float = 0.5,
     white_bkgd: bool = True,
@@ -830,10 +843,11 @@ def fused_render_gaussian(
     multires_views: int = 4,
 ) -> dict[str, torch.Tensor]:
     """Gaussian populate-and-shade of [N, 3] rays around depth [N] through K3
-    (nerf_sampling_tpu/kernels/fused_render.py::fused_render_gaussian)."""
+    (nerf_sampling_tpu/kernels/fused_render.py::fused_render_gaussian), the
+    rays being the global rays from ``ray_base`` on."""
     return render_gaussian_kernel(
         packed, cfg, rays_o, rays_d, depth.reshape(-1), n_samples=n_samples, std=std,
-        seed=seed, white_bkgd=white_bkgd, multires=multires, multires_views=multires_views,
+        seed=seed, ray_base=ray_base, white_bkgd=white_bkgd, multires=multires, multires_views=multires_views,
     )
 
 

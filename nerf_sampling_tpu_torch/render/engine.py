@@ -55,6 +55,7 @@ from nerf_sampling_tpu_torch.core.compositing import RenderOutputs, raw2outputs
 from nerf_sampling_tpu_torch.core.encoding import positional_encoding
 from nerf_sampling_tpu_torch.core.rays import get_rays, ndc_rays
 from nerf_sampling_tpu_torch.core.sampling import (
+    Rows,
     sample_pdf,
     sample_points_around_mean,
     stratified_z_vals,
@@ -368,31 +369,33 @@ def sample_as_in_nerf(
     raw_noise_std: float | None = None,
     t_rand: torch.Tensor | None = None,
     u: torch.Tensor | None = None,
+    rows: Rows | None = None,
 ) -> HierarchicalResult:
     """Hierarchical coarse + fine sampling (reference nerf_utils.py:497-611).
 
     perturb / raw_noise_std default to the pipeline's values. The draws come
     from ``generator`` or are injected: ``t_rand`` [N, Nc] (stratified
-    jitter) and ``u`` [N, Nf] (the inverse-CDF uniforms).
+    jitter) and ``u`` [N, Nf] (the inverse-CDF uniforms). ``rows`` is a
+    rank's window of the global draws (core/sampling.py).
     """
     perturb = pipeline.perturb if perturb is None else perturb
     raw_noise_std = pipeline.raw_noise_std if raw_noise_std is None else raw_noise_std
     z_vals = stratified_z_vals(
         rays.near, rays.far, pipeline.N_samples, generator=generator,
-        perturb=perturb, lindisp=pipeline.lindisp, t_rand=t_rand,
+        perturb=perturb, lindisp=pipeline.lindisp, t_rand=t_rand, rows=rows,
     )
     pts = z_to_points(rays.rays_o, rays.rays_d, z_vals)
     # the hierarchical losses never differentiate through the sample points
     # (z is detached, the rays are data): K5 drops its dL/dx chain
     raw = query_nerf(pipeline, params.coarse, pts, rays.viewdirs, input_grads=False)
     coarse = raw2outputs(raw, z_vals, rays.rays_d, raw_noise_std, pipeline.white_bkgd,
-                         generator=generator)
+                         generator=generator, rows=rows)
     if pipeline.N_importance <= 0:
         return HierarchicalResult(coarse, z_vals, coarse, z_vals, pts, raw)
     z_mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     z_samples = sample_pdf(
         z_mids, coarse.weights[..., 1:-1], pipeline.N_importance,
-        generator=generator, det=(perturb == 0.0), u=u,
+        generator=generator, det=(perturb == 0.0), u=u, rows=rows,
     ).detach()  # reference detaches (Trainer.py:572)
     # stable: ties keep coarse samples first, as jnp.sort does
     fine_z = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1, stable=True).values
@@ -400,7 +403,7 @@ def sample_as_in_nerf(
     fine_model = params.fine if params.fine is not None else params.coarse
     fine_raw = query_nerf(pipeline, fine_model, fine_pts, rays.viewdirs, input_grads=False)
     fine = raw2outputs(fine_raw, fine_z, rays.rays_d, raw_noise_std, pipeline.white_bkgd,
-                       generator=generator)
+                       generator=generator, rows=rows)
     return HierarchicalResult(coarse, z_vals, fine, fine_z, fine_pts, fine_raw)
 
 
@@ -433,6 +436,7 @@ def render_rays_train(
     *,
     t_rand: torch.Tensor | None = None,
     u: torch.Tensor | None = None,
+    rows: Rows | None = None,
 ) -> dict[str, torch.Tensor]:
     """Train-time renderer (reference render_rays, nerf_utils.py:614-733).
 
@@ -441,13 +445,13 @@ def render_rays_train(
     hierarchical pass carries no gradient; the depth point's query does.
     """
     with torch.no_grad():
-        hier = sample_as_in_nerf(pipeline, params, rays, generator, t_rand=t_rand, u=u)
+        hier = sample_as_in_nerf(pipeline, params, rays, generator, t_rand=t_rand, u=u, rows=rows)
         max_z, max_pts, _ = _argmax_depth(hier.fine, hier.fine_z_vals, rays)
     depth_z = params.depth(rays.rays_o, rays.rays_d)
     depth_pts = z_to_points(rays.rays_o, rays.rays_d, depth_z)
     depth_raw = _query_fine_or_coarse(pipeline, params, depth_pts, rays)
     out = raw2outputs(depth_raw, depth_z, rays.rays_d, pipeline.raw_noise_std,
-                      pipeline.white_bkgd, generator=generator)
+                      pipeline.white_bkgd, generator=generator, rows=rows)
     return {
         "depth_net_rgb_map": out.rgb_map,
         "depth_net_disp_map": out.disp_map,
@@ -468,17 +472,18 @@ def render_rays_joint(
     *,
     t_rand: torch.Tensor | None = None,
     u: torch.Tensor | None = None,
+    rows: Rows | None = None,
 ) -> dict[str, torch.Tensor]:
     """Joint renderer: one hierarchical pass feeding both objectives (the
     vanilla NeRF maps, fine rgb and coarse rgb0, and the DepthNet's maps
     and argmax target from the same pass)."""
-    hier = sample_as_in_nerf(pipeline, params, rays, generator, t_rand=t_rand, u=u)
+    hier = sample_as_in_nerf(pipeline, params, rays, generator, t_rand=t_rand, u=u, rows=rows)
     max_z, _, _ = _argmax_depth(hier.fine, hier.fine_z_vals, rays)
     depth_z = params.depth(rays.rays_o, rays.rays_d)
     depth_pts = z_to_points(rays.rays_o, rays.rays_d, depth_z)
     depth_raw = _query_fine_or_coarse(pipeline, params, depth_pts, rays)
     out = raw2outputs(depth_raw, depth_z, rays.rays_d, pipeline.raw_noise_std,
-                      pipeline.white_bkgd, generator=generator)
+                      pipeline.white_bkgd, generator=generator, rows=rows)
     return {
         "rgb_map": hier.fine.rgb_map,
         "rgb0": hier.coarse.rgb_map,
@@ -497,10 +502,11 @@ def render_rays_vanilla(
     *,
     t_rand: torch.Tensor | None = None,
     u: torch.Tensor | None = None,
+    rows: Rows | None = None,
 ) -> dict[str, torch.Tensor]:
     """The vanilla hierarchical NeRF train renderer (no DepthNet): fine
     maps and the coarse ones (rgb0, disp0, acc0)."""
-    hier = sample_as_in_nerf(pipeline, params, rays, generator, t_rand=t_rand, u=u)
+    hier = sample_as_in_nerf(pipeline, params, rays, generator, t_rand=t_rand, u=u, rows=rows)
     return {
         "rgb_map": hier.fine.rgb_map,
         "disp_map": hier.fine.disp_map,
@@ -602,11 +608,13 @@ def _fused_fast_paths(
     rays_d: torch.Tensor,
     mode: EvalMode,
     generator: torch.Generator | None = None,
+    ray_base: int = 0,
 ) -> dict[str, torch.Tensor]:
     """The four eval modes on the kernels, routed as the JAX package routes
     them (nerf_sampling_tpu/render/engine.py:607-814); flat [N, ...]
     map-level outputs. The gaussian population (K3's seed, COMPARE's
-    draws) comes from ``generator``. Packs the ``mode`` reads that
+    draws) comes from ``generator``; K3 keys its draws by the global ray
+    index, ``ray_base`` being that of ``rays_o[0]``. Packs the ``mode`` reads that
     ``params`` lacks are made for this call. Under "cuda_int8" the NeRF
     passes of every mode but COMPARE_NERF run the int8 kernels."""
     p = pipeline
@@ -673,7 +681,8 @@ def _fused_fast_paths(
         maps = fused_render.fused_render_around_depth(packs.nerf, model.cfg, ro, rd, depth, **pop)
     else:
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device))
-        maps = fused_render.fused_render_gaussian(packs.nerf, model.cfg, ro, rd, depth, seed=seed, **pop)
+        maps = fused_render.fused_render_gaussian(packs.nerf, model.cfg, ro, rd, depth, seed=seed,
+                                                   ray_base=ray_base, **pop)
     return map_outputs(maps)
 
 
@@ -690,6 +699,7 @@ def render_flat_rays(
     H: int | None = None,
     W: int | None = None,
     focal: float | None = None,
+    ray_base: int = 0,
 ) -> dict[str, torch.Tensor]:
     """Render flat [N, 3] rays -> dict of flat [N, ...] maps.
 
@@ -699,13 +709,15 @@ def render_flat_rays(
     composable route; H, W and focal are the reprojection's). ``full_outputs``
     is the caller's request for the per-sample points and weights (the
     scene-data export): it renders on the plain path whatever ``mlp_impl``
-    says, as the JAX package's composable path does.
+    says, as the JAX package's composable path does. ``ray_base`` is the
+    global index of the first ray, which keys K3's draws (a rank's rows of
+    an image: parallel/render.py); the plain path draws from ``generator``.
     """
     if full_outputs:
         pipeline = dataclasses.replace(pipeline, mlp_impl=PLAIN)
     if pipeline.mlp_impl in KERNEL_IMPLS:
         if not pipeline.ndc:
-            return _fused_fast_paths(pipeline, params, rays_o, rays_d, mode, generator)
+            return _fused_fast_paths(pipeline, params, rays_o, rays_d, mode, generator, ray_base)
         check_eval_envelope(pipeline, mode)
         if mode == EvalMode.DEPTH_NET and (params.kernels is None or params.kernels.depth is None):
             params = pack_kernel_weights(params, **eval_packs(pipeline, mode))

@@ -5,11 +5,14 @@ The rendering entry point of the port: one render_image per pose (the
 ``psnr.txt`` with per-image and average lines (and the compare MSE in
 COMPARE_NERF), ``render_factor`` downscaling, the ``scene_data.npz``
 point cloud, and each pose through a logger's ``log_render`` (its image
-and ray plots). Multi-device rendering waits for ROADMAP S7.
+and ray plots). With a ``mesh`` (parallel/) each pose renders through
+``render_image_sharded``, and every rank gets the whole image; files are
+written where ``savedir`` is given, which the Trainer gives on rank 0 only.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Any, Sequence
@@ -49,6 +52,7 @@ def render_path(
     logger: Any = None,
     verbose: bool = True,
     generator: torch.Generator | None = None,
+    mesh: Any = None,
 ) -> tuple[np.ndarray, np.ndarray, float]:
     """Render every pose; return (rgbs [P,H,W,3], disps [P,H,W], avg_psnr).
 
@@ -58,6 +62,11 @@ def render_path(
     (utils.logging.MetricsLogger) gets each pose's maps and rays, under
     ``step``.
     """
+    render = render_image
+    if mesh is not None:  # imported here: parallel/ imports the train steps, which import this package
+        from nerf_sampling_tpu_torch.parallel.render import render_image_sharded
+
+        render = functools.partial(render_image_sharded, mesh=mesh)
     H, W, focal = hwf
     if render_factor != 0:
         H, W, focal = H // render_factor, W // render_factor, focal / render_factor
@@ -72,7 +81,7 @@ def render_path(
         if verbose:
             print(i, time.time() - t)
         t = time.time()
-        maps = render_image(
+        maps = render(
             pipeline, params, H, W,
             np.asarray(K, np.float32), np.asarray(c2w[:3, :4], np.float32),
             device=device, mode=mode, chunk=chunk, generator=generator, full_outputs=save_scene_data,

@@ -31,6 +31,17 @@ depth-point query stays plain fp32. A "cuda" config outside a kernel's
 envelope raises; it does not drop to the plain path. The draws of a step
 come from its seed, or are injected (``StepDraws``), which is how the tests
 feed both packages the same numbers.
+
+Data parallelism (parallel/ops.py) runs these steps on each rank's rows of
+the global batch with three keywords of the step makers: ``shard=(rank,
+world)``, under which a step of n rows holds global rows ``rank * n ..``
+of ``world * n`` and takes their draws (the generator's draws made at the
+global shape and windowed, injected draws given at the global shape and
+sliced, K6 keyed by the global ray index through ``ray_base``);
+``reduce_grads``, called on the trained modules between ``backward()`` and
+the update; and ``reduce_metrics``, which turns the rank's means and sums
+into the whole batch's before the PSNRs and the fg/bg ratios are formed.
+Left at their defaults, the steps are the one-device steps.
 """
 
 from __future__ import annotations
@@ -43,7 +54,7 @@ from torch.profiler import record_function
 
 from nerf_sampling_tpu_torch.core.compositing import raw2outputs
 from nerf_sampling_tpu_torch.core.metrics import img2mse, mse2psnr
-from nerf_sampling_tpu_torch.core.sampling import z_to_points
+from nerf_sampling_tpu_torch.core.sampling import Rows, z_to_points
 from nerf_sampling_tpu_torch.kernels import fused_hier, quant
 from nerf_sampling_tpu_torch.models.depth_net import DepthNet
 from nerf_sampling_tpu_torch.render.engine import (
@@ -118,18 +129,43 @@ def _weighted_depth_loss(depth_z, max_z, acc, bg_weight: float) -> torch.Tensor:
     return torch.mean(w * (depth_z - max_z) ** 2)
 
 
-def _fg_bg_depth_diagnostics(depth_z, max_z, acc, thresh: float = 0.5) -> dict[str, torch.Tensor]:
-    """The depth loss split into foreground and background rays (metrics only)."""
+def _fg_bg_sums(depth_z, max_z, acc, thresh: float = 0.5) -> dict[str, torch.Tensor]:
+    """The sums and counts of the fg/bg split of the depth loss."""
     acc = acc.reshape(-1, 1)
     se = (depth_z - max_z) ** 2
     fg = (acc > thresh).to(se.dtype)
-    n_fg = torch.sum(fg)
-    n = torch.tensor(float(se.shape[0]), dtype=se.dtype, device=se.device)
+    return {"se_fg": torch.sum(se * fg), "se_bg": torch.sum(se * (1.0 - fg)), "n_fg": torch.sum(fg),
+            "n": torch.tensor(float(se.shape[0]), dtype=se.dtype, device=se.device)}
+
+
+def _fg_bg_depth_diagnostics(sums: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The depth loss split into foreground and background rays (metrics only)."""
+    n_fg, n = sums["n_fg"], sums["n"]
     return {
-        "depth_loss_fg": torch.sum(se * fg) / torch.clamp(n_fg, min=1.0),
-        "depth_loss_bg": torch.sum(se * (1.0 - fg)) / torch.clamp(n - n_fg, min=1.0),
+        "depth_loss_fg": sums["se_fg"] / torch.clamp(n_fg, min=1.0),
+        "depth_loss_bg": sums["se_bg"] / torch.clamp(n - n_fg, min=1.0),
         "fg_frac": n_fg / n,
     }
+
+
+def _reduced(means: dict, sums: dict, reduce_metrics: Callable | None) -> tuple[dict, dict]:
+    """The batch's means and sums: the rank's, reduced over the ranks under
+    data parallelism."""
+    return (means, sums) if reduce_metrics is None else reduce_metrics(means, sums)
+
+
+def _rows(shard: tuple[int, int], n: int) -> Rows | None:
+    """The row window of a rank's n rows: None on one device."""
+    rank, world = shard
+    return None if world == 1 else (rank * n, world * n)
+
+
+def _window(draws: StepDraws | None, rows: Rows | None, n: int) -> StepDraws | None:
+    """The rank's rows of the global batch's injected draws."""
+    if draws is None or rows is None:
+        return draws
+    lo = rows[0]
+    return StepDraws(draws.t_rand[lo:lo + n], draws.u[lo:lo + n])
 
 
 def depth_net_loss(
@@ -140,9 +176,14 @@ def depth_net_loss(
     target: torch.Tensor,
     seed: int,
     draws: StepDraws | None = None,
+    *,
+    rows: Rows | None = None,
+    reduce_metrics: Callable | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(img_loss + depth_loss, detached metrics) of one batch; backward()
-    on the loss leaves the DepthNet's gradients in its parameters."""
+    on the loss leaves the DepthNet's gradients in its parameters. ``rows``
+    places the batch in a global one (its draws), ``reduce_metrics`` makes
+    the metrics the global batch's (module docstring)."""
     p = pipeline
     if check_hier_oracle(p):
         hier = frozen.kernels.hier if frozen.kernels is not None else None
@@ -154,7 +195,7 @@ def depth_net_loss(
             hm = fused_hier.fused_render_hier(
                 hier, frozen.coarse.cfg, fine.cfg, rays.rays_o, rays.rays_d,
                 n_coarse=p.N_samples, n_importance=p.N_importance, near=p.near, far=p.far,
-                white_bkgd=p.white_bkgd, lindisp=p.lindisp, seed=seed,
+                white_bkgd=p.white_bkgd, lindisp=p.lindisp, seed=seed, ray_base=0 if rows is None else rows[0],
                 draws=None if draws is None else torch.cat([draws.t_rand, draws.u], -1).contiguous(),
                 multires=p.multires, multires_views=p.multires_views,
             )
@@ -173,7 +214,7 @@ def depth_net_loss(
             out = render_rays_train(
                 p, frozen._replace(depth=depth), rays, generator,
                 t_rand=None if draws is None else draws.t_rand,
-                u=None if draws is None else draws.u,
+                u=None if draws is None else draws.u, rows=rows,
             )
         depth_z, rgb = out["depth_net_z_vals"], out["depth_net_rgb_map"]
         max_z, acc = out["max_z_vals"].detach(), out["acc_map"].detach()
@@ -183,22 +224,22 @@ def depth_net_loss(
     else:  # reference objective (Trainer.py:537-543)
         depth_loss = img2mse(depth_z, max_z)
     with torch.no_grad():
-        metrics = {
-            "loss": img_loss.detach(),
-            "depth_net_loss": depth_loss.detach(),
-            "psnr": mse2psnr(img_loss.detach()),
-            **_fg_bg_depth_diagnostics(depth_z.detach(), max_z, acc),
-        }
+        means, sums = _reduced({"loss": img_loss.detach(), "depth_net_loss": depth_loss.detach()},
+                               _fg_bg_sums(depth_z.detach(), max_z, acc), reduce_metrics)
+        metrics = {**means, "psnr": mse2psnr(means["loss"]), **_fg_bg_depth_diagnostics(sums)}
     return img_loss + depth_loss, metrics
 
 
-def make_depth_net_train_step(pipeline: Pipeline, frozen: NeRFParams) -> Callable:
+def make_depth_net_train_step(pipeline: Pipeline, frozen: NeRFParams, *, reduce_grads: Callable | None = None,
+                              reduce_metrics: Callable | None = None,
+                              shard: tuple[int, int] = (0, 1)) -> Callable:
     """The depth-net-only train step against the frozen NeRF ``frozen``.
 
     Freezes the NeRF modules in place. The returned
     ``step(state, (rays_o, rays_d, target), seed, draws=None)`` updates
     ``state.model`` with ``state.optimizer`` and returns (state with the
-    step count advanced, detached metrics).
+    step count advanced, detached metrics). ``reduce_grads``,
+    ``reduce_metrics`` and ``shard``: data parallelism (module docstring).
     """
     for model in (frozen.coarse, frozen.fine):
         if model is not None:
@@ -207,11 +248,17 @@ def make_depth_net_train_step(pipeline: Pipeline, frozen: NeRFParams) -> Callabl
 
     def step(state: TrainState, batch, seed: int, draws: StepDraws | None = None):
         rays_o, rays_d, target = batch
+        rows = _rows(shard, rays_o.shape[0])
         rays = make_ray_batch(pipeline, rays_o, rays_d)
-        loss, metrics = depth_net_loss(pipeline, frozen, state.model, rays, target, seed, draws)
+        loss, metrics = depth_net_loss(pipeline, frozen, state.model, rays, target, seed,
+                                       _window(draws, rows, rays_o.shape[0]), rows=rows,
+                                       reduce_metrics=reduce_metrics)
         state.optimizer.zero_grad(set_to_none=True)
         with record_function("backward"):
             loss.backward()
+        if reduce_grads is not None:
+            with record_function("all_reduce_grads"):
+                reduce_grads([state.model])
         with record_function("adam"):
             state.optimizer.step()
         state.step += 1
@@ -220,11 +267,15 @@ def make_depth_net_train_step(pipeline: Pipeline, frozen: NeRFParams) -> Callabl
     return _in_precision(pipeline, step)
 
 
-def _step_generator(rays: RayBatch, seed: int, draws: StepDraws | None) -> dict:
-    """The sampling arguments of a step: its seeded generator, or the draws."""
+def _step_generator(rays: RayBatch, seed: int, draws: StepDraws | None, shard: tuple[int, int] = (0, 1)) -> dict:
+    """The sampling arguments of a step: its seeded generator (with the
+    rank's row window), or the draws (the rank's rows of them)."""
+    n = rays.rays_o.shape[0]
+    rows = _rows(shard, n)
     if draws is not None:
+        draws = _window(draws, rows, n)
         return {"generator": None, "t_rand": draws.t_rand, "u": draws.u}
-    return {"generator": torch.Generator(device=rays.rays_o.device).manual_seed(seed)}
+    return {"generator": torch.Generator(device=rays.rays_o.device).manual_seed(seed), "rows": rows}
 
 
 def nerf_pair(model: torch.nn.Module) -> NeRFParams:
@@ -232,14 +283,16 @@ def nerf_pair(model: torch.nn.Module) -> NeRFParams:
     return NeRFParams(model["coarse"], model["fine"] if "fine" in model else None)
 
 
-def make_nerf_train_step(pipeline: Pipeline) -> Callable:
+def make_nerf_train_step(pipeline: Pipeline, *, reduce_grads: Callable | None = None,
+                         reduce_metrics: Callable | None = None, shard: tuple[int, int] = (0, 1)) -> Callable:
     """The vanilla hierarchical NeRF train step: coarse and fine optimized
     together on img2mse(fine rgb) + img2mse(coarse rgb).
 
     The returned ``step(state, (rays_o, rays_d, target), seed, draws=None)``
     updates ``state.model`` (``state.nerf_modules``) with its decayed Adam
     and returns (state with the step count advanced, detached metrics
-    ``loss``, ``img_loss``, ``psnr``, ``psnr0``).
+    ``loss``, ``img_loss``, ``psnr``, ``psnr0``). ``reduce_grads``,
+    ``reduce_metrics`` and ``shard``: data parallelism (module docstring).
     """
     p = pipeline
     if p.mlp_impl in KERNEL_IMPLS:
@@ -249,25 +302,31 @@ def make_nerf_train_step(pipeline: Pipeline) -> Callable:
         rays_o, rays_d, target = batch
         rays = make_ray_batch(p, rays_o, rays_d)
         with record_function("nerf_forward"):
-            out = render_rays_vanilla(p, nerf_pair(state.model), rays, **_step_generator(rays, seed, draws))
+            out = render_rays_vanilla(p, nerf_pair(state.model), rays, **_step_generator(rays, seed, draws, shard))
             img_loss = img2mse(out["rgb_map"], target)
             img_loss0 = img2mse(out["rgb0"], target)
             loss = img_loss + img_loss0
         state.optimizer.zero_grad(set_to_none=True)
         with record_function("backward"):
             loss.backward()
+        if reduce_grads is not None:
+            with record_function("all_reduce_grads"):
+                reduce_grads([state.model])
         with record_function("adam"):
             apply_update(state)
         state.step += 1
         with torch.no_grad():
-            metrics = {"loss": loss.detach(), "img_loss": img_loss.detach(),
-                       "psnr": mse2psnr(img_loss.detach()), "psnr0": mse2psnr(img_loss0.detach())}
+            m, _ = _reduced({"loss": loss.detach(), "img_loss": img_loss.detach(), "img_loss0": img_loss0.detach()},
+                            {}, reduce_metrics)
+            metrics = {"loss": m["loss"], "img_loss": m["img_loss"],
+                       "psnr": mse2psnr(m["img_loss"]), "psnr0": mse2psnr(m["img_loss0"])}
         return state, metrics
 
     return _in_precision(p, step)
 
 
-def make_joint_train_step(pipeline: Pipeline) -> Callable:
+def make_joint_train_step(pipeline: Pipeline, *, reduce_grads: Callable | None = None,
+                          reduce_metrics: Callable | None = None, shard: tuple[int, int] = (0, 1)) -> Callable:
     """The joint train step: NeRFs and DepthNet from one hierarchical pass.
 
     Losses (the JAX step's): the NeRFs take img2mse(fine) + img2mse(coarse)
@@ -280,6 +339,9 @@ def make_joint_train_step(pipeline: Pipeline) -> Callable:
     seed, draws=None)`` returns (nerf_state, depth_state, detached metrics:
     ``loss`` = img_loss + depth rgb loss, ``img_loss``, ``depth_net_loss``,
     ``psnr``, the fg/bg depth diagnostics and, with a warmup, ``depth_live``).
+    ``reduce_grads``, ``reduce_metrics`` and ``shard``: data parallelism
+    (module docstring); the warmup flag comes from the NeRF state's step,
+    the same on every rank.
     """
     p = pipeline
     if p.mlp_impl in KERNEL_IMPLS:
@@ -292,7 +354,7 @@ def make_joint_train_step(pipeline: Pipeline) -> Callable:
         live = nerf_state.step >= p.joint_depth_warmup
         with record_function("joint_forward"):
             params = nerf_pair(nerf_state.model)._replace(depth=depth_state.model)
-            out = render_rays_joint(p, params, rays, **_step_generator(rays, seed, draws))
+            out = render_rays_joint(p, params, rays, **_step_generator(rays, seed, draws, shard))
             img_loss = img2mse(out["rgb_map"], target)
             img_loss0 = img2mse(out["rgb0"], target)
             depth_img_loss = img2mse(out["depth_net_rgb_map"], target)
@@ -308,6 +370,9 @@ def make_joint_train_step(pipeline: Pipeline) -> Callable:
         depth_state.optimizer.zero_grad(set_to_none=True)
         with record_function("backward"):
             total.backward()
+        if reduce_grads is not None:
+            with record_function("all_reduce_grads"):
+                reduce_grads([nerf_state.model, depth_state.model])
         with record_function("adam"):
             apply_update(nerf_state)
             if live:
@@ -315,13 +380,10 @@ def make_joint_train_step(pipeline: Pipeline) -> Callable:
         nerf_state.step += 1
         depth_state.step += 1
         with torch.no_grad():
-            metrics = {
-                "loss": (img_loss + depth_img_loss).detach(),
-                "img_loss": img_loss.detach(),
-                "depth_net_loss": depth_loss.detach(),
-                "psnr": mse2psnr(img_loss.detach()),
-                **_fg_bg_depth_diagnostics(depth_z.detach(), max_z, acc),
-            }
+            means, sums = _reduced({"loss": (img_loss + depth_img_loss).detach(), "img_loss": img_loss.detach(),
+                                    "depth_net_loss": depth_loss.detach()},
+                                   _fg_bg_sums(depth_z.detach(), max_z, acc), reduce_metrics)
+            metrics = {**means, "psnr": mse2psnr(means["img_loss"]), **_fg_bg_depth_diagnostics(sums)}
             if p.joint_depth_warmup:
                 metrics["depth_live"] = torch.tensor(float(live))
         return nerf_state, depth_state, metrics

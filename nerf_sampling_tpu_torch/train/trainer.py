@@ -1,4 +1,4 @@
-"""Training on one device (nerf_sampling_tpu/train/trainer.py).
+"""Training on one device or data-parallel over ranks (nerf_sampling_tpu/train/trainer.py).
 
 ``Trainer`` runs the three train modes of the JAX Trainer:
 
@@ -54,18 +54,35 @@ DepthNet's pack stays bf16): the depth-net step's K6 oracle and the evals
 then run the int8 kernels. It needs a frozen NeRF: nerf and joint training raise, as the JAX
 Trainer does, unless they only render (``render_only``).
 
-Options not ported yet (scale-out) raise NotImplementedError naming their
-ROADMAP item; nothing falls back quietly.
+Data parallelism (JAX :103-114, :287-375, :500-560, :736-800): with
+``n_devices`` > 1 (0: every rank) or ``multihost`` the Trainer is one rank
+of a torch.distributed process group, one process per card: the group
+its caller formed (``experiments/run.py --n_devices N`` spawns the ranks),
+or the one a launcher describes (torchrun's ``env://`` variables;
+``multihost`` needs them and takes every rank, on the hybrid mesh). Each
+rank derives the same global batch from the shared sampler stream and
+keeps its rows (``N_rand`` must divide by the world size), the models
+are broadcast from rank 0 at setup, the steps average the gradients and
+metrics over the ranks (parallel/ops.py), and the evals render through
+``render_image_sharded``, so every rank sees the same PSNR and makes the
+same keep_best and early-stop decisions. Only rank 0 (``primary``) writes:
+args.txt, checkpoints, psnr.txt, PNGs, videos, the trace and the metrics
+logger. The device is ``cuda:LOCAL_RANK`` unless one is given.
+
+``steps_per_dispatch`` > 1 is not ported yet (ROADMAP S7b) and raises
+NotImplementedError; nothing falls back quietly.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from nerf_sampling_tpu_torch.core.metrics import to8b
@@ -116,8 +133,8 @@ def _unported(cfg: TrainerConfig) -> list[str]:
     found = []
     if cfg.train_mode not in TRAIN_MODES:
         raise ValueError(f"train_mode must be one of {TRAIN_MODES}, got {cfg.train_mode!r}")
-    if cfg.n_devices != 1 or cfg.multihost or cfg.steps_per_dispatch > 1:
-        found.append("n_devices != 1, multihost and steps_per_dispatch > 1 (scale-out: ROADMAP S7)")
+    if cfg.steps_per_dispatch > 1:
+        found.append("steps_per_dispatch > 1 (CUDA-graph capture of K steps: ROADMAP S7b)")
     return found
 
 
@@ -130,9 +147,9 @@ def _seeded(module_cls, cfg, seed: int):
 
 class Trainer:
     """Trains the DepthNet, the NeRFs or both (``cfg.train_mode``) on one
-    device: the card (``device=None``: "cuda", and a RuntimeError when no
-    card is found), or the device given, such as "cpu". ``trial`` is an
-    optuna trial (optional, for pruning)."""
+    device: the card (``device=None``: "cuda", ``cuda:LOCAL_RANK`` on a
+    rank, and a RuntimeError when no card is found), or the device given,
+    such as "cpu". ``trial`` is an optuna trial (optional, for pruning)."""
 
     def __init__(self, cfg: TrainerConfig, device: torch.device | str | None = None, trial=None):
         unported = _unported(cfg)
@@ -162,9 +179,14 @@ class Trainer:
                     "or --mlp_impl plain"
                 ) from err
         self.device = torch.device("cuda" if device is None else device)
+        self.mesh = self._setup_mesh()
+        if device is None and self.mesh is not None:
+            self.device = torch.device("cuda", self.mesh.local_rank)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device found: the Trainer runs on the card unless it is "
                                "given device='cpu' (--device cpu on the command line)")
+        if self.mesh is not None and self.device.type == "cuda":
+            torch.cuda.set_device(self.device)  # nccl's collectives run on the current device
         self.global_step = 0
         self.start = 0
         self.scene: SceneData | None = None
@@ -183,6 +205,53 @@ class Trainer:
     @property
     def expdir(self) -> str:
         return os.path.join(self.cfg.basedir, self.cfg.expname)
+
+    @property
+    def primary(self) -> bool:
+        """True on the rank that writes every file (rank 0, or the only
+        process). Every rank runs the evals and makes the same decisions
+        from their gathered, identical maps."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _setup_mesh(self):
+        """The rank mesh of ``n_devices`` / ``multihost``, or None for one
+        device (JAX :287-331). Joins the launcher's process group where
+        there is one and no group exists yet."""
+        cfg = self.cfg
+        if cfg.n_devices == 1 and not cfg.multihost:
+            return None
+        from nerf_sampling_tpu_torch.parallel import make_hybrid_mesh, make_mesh, maybe_initialize_distributed
+
+        joined = maybe_initialize_distributed(cfg, device=self.device)
+        world = dist.get_world_size() if joined else 1
+        if cfg.multihost:
+            if cfg.n_devices not in (0, world):
+                raise ValueError(f"multi-process training uses ALL ranks: n_devices={cfg.n_devices} but the "
+                                 f"process group has {world} (set n_devices=0)")
+            mesh = make_hybrid_mesh()
+            if mesh.rank == 0:
+                print(f"[trainer] multi-host data-parallel: {mesh.shape[0]} hosts x {mesh.shape[1]} ranks "
+                      "(hybrid [dcn, rays] mesh)")
+            return mesh
+        n = world if cfg.n_devices == 0 else cfg.n_devices
+        if n > 1 and not joined:
+            raise ValueError(
+                f"n_devices={n} needs {n} ranks, one process per card: run `python3 -m "
+                f"nerf_sampling_tpu_torch.experiments.run --n_devices {n} ...`, which starts them, or start "
+                f"them with `torchrun --nproc_per_node {n}`")
+        if n != world:
+            raise ValueError(f"n_devices={n} but the process group has {world} ranks (one per card)")
+        if n == 1:
+            return None
+        mesh = make_mesh(n)
+        if mesh.rank == 0:
+            print(f"[trainer] data-parallel over {n} ranks")
+        return mesh
+
+    def _barrier(self) -> None:
+        """Wait for every rank (where a read depends on rank 0's writes)."""
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.group)
 
     def load_data(self) -> SceneData:
         """The scene of ``dataset_type`` (the reference's per-dataset trainers)."""
@@ -212,7 +281,10 @@ class Trainer:
         raise ValueError(f"unknown dataset_type {cfg.dataset_type}")
 
     def create_log_dir_and_dump_config(self) -> None:
-        """args.txt and a copy of the config file (reference Trainer.py:148-160)."""
+        """args.txt and a copy of the config file (reference Trainer.py:148-160);
+        rank 0 only."""
+        if not self.primary:
+            return
         os.makedirs(self.expdir, exist_ok=True)
         with open(os.path.join(self.expdir, "args.txt"), "w") as f:
             for k, v in dataclasses.asdict(self.cfg).items():
@@ -292,6 +364,13 @@ class Trainer:
                 fine.eval()
         params = NeRFParams(coarse.to(dev), fine.to(dev) if fine is not None else None,
                             depth.to(dev) if depth is not None else None)
+        if self.mesh is not None:  # every rank starts from rank 0's models
+            from nerf_sampling_tpu_torch.parallel import replicate
+
+            for m in params[:3]:
+                if m is not None:
+                    replicate(self.mesh, m)
+        # (under cuda_int8 every rank then calibrates the same models on the same view: the same scales)
         # int8: the static calibration of the NeRFs restored here (a no-op otherwise)
         p = self.pipeline = calibrate_pipeline(p, params, self.scene)
         if p.mlp_impl in KERNEL_IMPLS and cfg.train_mode == "depth_net":  # the frozen NeRF's packs, once
@@ -314,19 +393,31 @@ class Trainer:
             if opt is not None:
                 ckpt_lib.adam_state_from_jax(opt, state.model, state.optimizer)
                 print("Restored optimizer state")
-            return state, None, make_depth_net_train_step(self.pipeline, p)
+            return state, None, self._step_maker("depth")(self.pipeline, p)
         nerf = init_nerf_state(nerf_modules(p.coarse, p.fine), cfg.lrate, cfg.lrate_decay, self.start)
         opt = self._restored_opt("opt_state")
         if opt is not None and ckpt_lib.nerf_adam_state_from_jax(opt, nerf.model, nerf.optimizer) is not None:
             print("Restored optimizer state")
         if cfg.train_mode == "nerf":
-            return nerf, None, make_nerf_train_step(self.pipeline)
+            return nerf, None, self._step_maker("nerf")(self.pipeline)
         depth = init_state(p.depth, cfg.depth_net_lr, self.start)
         opt = self._restored_opt("depth_opt_state")
         if opt is not None:
             ckpt_lib.adam_state_from_jax(opt, depth.model, depth.optimizer)
             print("Restored depth optimizer state")
-        return nerf, depth, make_joint_train_step(self.pipeline)
+        return nerf, depth, self._step_maker("joint")(self.pipeline)
+
+    def _step_maker(self, kind: str):
+        """The step maker of ``kind``: the one-device step, or on a mesh the
+        data-parallel one of the rank's rows (parallel/ops.py)."""
+        if self.mesh is None:
+            return {"depth": make_depth_net_train_step, "nerf": make_nerf_train_step,
+                    "joint": make_joint_train_step}[kind]
+        from nerf_sampling_tpu_torch.parallel import ops
+
+        maker = {"depth": ops.make_sharded_depth_train_step, "nerf": ops.make_sharded_nerf_train_step,
+                 "joint": ops.make_sharded_joint_train_step}[kind]
+        return functools.partial(maker, mesh=self.mesh)
 
     def train(self, N_iters: int = 200001) -> float:
         """Train to step N_iters - 1 and return the last step's PSNR; with
@@ -335,12 +426,13 @@ class Trainer:
         self.scene = self.load_data()
         self.create_log_dir_and_dump_config()
         self.setup_models()
-        self.logger = MetricsLogger(self.expdir, cfg.wandb_mode, cfg)
+        self.logger = MetricsLogger(self.expdir, cfg.wandb_mode, cfg, enabled=self.primary)
         if cfg.render_only:
             try:
                 return self.render_only_path()
             finally:
                 self.logger.close()
+                self._barrier()
         sampler = RaySampler(
             self.scene,
             SamplerConfig(N_rand=cfg.N_rand, use_batching=not cfg.no_batching,
@@ -348,6 +440,10 @@ class Trainer:
                           single_image=cfg.single_image, single_ray=cfg.single_ray),
             seed=cfg.seed,
         )
+        if self.mesh is not None:
+            from nerf_sampling_tpu_torch.parallel import ray_rows, shard_ray_batch
+
+            ray_rows(self.mesh, cfg.N_rand)  # raises when the batch does not split
         state, depth_state, step_fn = self._make_states()
         if cfg.train_mode == "depth_net":
             self._depth_state = state
@@ -356,6 +452,7 @@ class Trainer:
         timer = StepTimer(rays_per_step=cfg.N_rand, device=self.device)
         metrics: dict = {}
         with contextlib.ExitStack() as stack:
+            stack.callback(self._barrier)  # a rank returns once rank 0's files are written
             stack.callback(self.logger.close)
             p = self.params
             if cfg.debug_nans:
@@ -363,15 +460,17 @@ class Trainer:
             # the profiler's window: closed before step start+PROFILE_STOP, or when the loop ends
             profile = stack.enter_context(contextlib.ExitStack())
             for i in range(self.start + 1, N_iters):
-                if cfg.profile_dir is not None:
+                if cfg.profile_dir is not None and self.primary:
                     if i == self.start + PROFILE_START:
                         profile.enter_context(trace(cfg.profile_dir, self.device))
                     elif i == self.start + PROFILE_STOP:
                         profile.close()
                         print(f"profiler trace written to {cfg.profile_dir}")
                 with record_function("train_step"):
-                    batch = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-                                  for x in sampler.sample(i))
+                    batch = sampler.sample(i)
+                    if self.mesh is not None:  # the rank's rows of the shared global batch
+                        batch = shard_ray_batch(self.mesh, batch)
+                    batch = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device) for x in batch)
                     seed = step_seed(cfg.seed, i)
                     if cfg.train_mode == "joint":
                         state, depth_state, metrics = step_fn(state, depth_state, batch, seed)
@@ -412,11 +511,12 @@ class Trainer:
         return params
 
     def _render(self, poses, seed: int = 0, **kw):
-        """render_path of ``poses`` with the eval mode and fresh packs."""
+        """render_path of ``poses`` with the eval mode and fresh packs (sharded
+        over the ranks on a mesh; ``savedir`` is the caller's, None off rank 0)."""
         return render_path(
             self.pipeline, self._eval_params(), poses, self.scene.hwf, self.scene.intrinsics(),
             device=self.device, mode=self._eval_mode(), chunk=self.cfg.chunk,
-            generator=torch.Generator(device=self.device).manual_seed(seed), **kw,
+            generator=torch.Generator(device=self.device).manual_seed(seed), mesh=self.mesh, **kw,
         )
 
     def eval_testset(self, savedir: str | None, step: int = 0) -> float:
@@ -431,6 +531,8 @@ class Trainer:
         """The spiral path rendered in the eval mode, as rgb and disparity
         videos ``{expname}_spiral_{i:06d}_{rgb,disp}`` (utils/video.py)."""
         rgbs, disps, _ = self._render(self.scene.render_poses, verbose=False)
+        if not self.primary:
+            return
         moviebase = os.path.join(self.expdir, f"{self.cfg.expname}_spiral_{i:06d}_")
         print("video:", write_video(moviebase + "rgb", to8b(rgbs)))
         if disps.ndim == 3:  # NERF_MAX's disparity is already [P, H, W, 3] (its zeros)
@@ -448,11 +550,13 @@ class Trainer:
             poses, gt = scene.render_poses, None
         savedir = os.path.join(
             self.expdir, f"renderonly_{'test' if cfg.render_test else 'path'}_{self.global_step:06d}")
-        os.makedirs(savedir, exist_ok=True)
-        rgbs, _, avg = self._render(poses, seed=cfg.seed, gt_imgs=gt, savedir=savedir,
+        if self.primary:
+            os.makedirs(savedir, exist_ok=True)
+        rgbs, _, avg = self._render(poses, seed=cfg.seed, gt_imgs=gt, savedir=savedir if self.primary else None,
                                     render_factor=cfg.render_factor, save_scene_data=cfg.save_scene_data)
-        print("Done rendering", savedir)
-        print("video:", write_video(os.path.join(savedir, "video"), to8b(rgbs)))
+        if self.primary:
+            print("Done rendering", savedir)
+            print("video:", write_video(os.path.join(savedir, "video"), to8b(rgbs)))
         return avg
 
     def log(self, i: int, metrics: dict, timer: StepTimer | None = None) -> None:
@@ -460,12 +564,13 @@ class Trainer:
         if i % cfg.i_weights == 0:
             self.save_checkpoint(i)
         if i % cfg.i_testset == 0 and i > 0 and len(scene.i_test) > 0:
-            testsavedir = os.path.join(self.expdir, f"testset_{i:06d}")
-            os.makedirs(testsavedir, exist_ok=True)
+            # every rank renders (the sharded render) and decides; rank 0 writes
+            testsavedir = self._savedir(f"testset_{i:06d}")
             avg_psnr = self.eval_testset(testsavedir, i)
             self._avg_eval_psnr = avg_psnr
             self.logger.log({"test_psnr": avg_psnr}, i)
-            print(f"Saved test set (avg PSNR {avg_psnr:.3f})")
+            if self.primary:
+                print(f"Saved test set (avg PSNR {avg_psnr:.3f})")
             if avg_psnr > self._best_psnr + 1e-6:
                 self._best_psnr = avg_psnr
                 self._evals_since_best = 0
@@ -474,13 +579,13 @@ class Trainer:
             else:
                 self._evals_since_best += 1
                 if 0 < cfg.early_stop_patience <= self._evals_since_best:
-                    print(f"Early stop at iter {i}: eval PSNR has not improved for "
-                          f"{self._evals_since_best} evals (best {self._best_psnr:.3f})")
+                    if self.primary:
+                        print(f"Early stop at iter {i}: eval PSNR has not improved for "
+                              f"{self._evals_since_best} evals (best {self._best_psnr:.3f})")
                     self._stop_early = True
             if cfg.save_train_set_render:
-                trainsavedir = os.path.join(self.expdir, f"trainset_{i:06d}")
-                os.makedirs(trainsavedir, exist_ok=True)
-                self._render(scene.poses[scene.i_train[:10]], savedir=trainsavedir, verbose=False)
+                self._render(scene.poses[scene.i_train[:10]], savedir=self._savedir(f"trainset_{i:06d}"),
+                             verbose=False)
         if i % cfg.i_video == 0 and i > 0:
             self.save_spiral_video(i)
         if i % cfg.i_print == 0:
@@ -501,6 +606,14 @@ class Trainer:
             self.logger.print_line(info)
             if self.trial is not None:
                 self._report_trial(m["psnr"], i)
+
+    def _savedir(self, name: str) -> str | None:
+        """``expdir/name``, made, on rank 0; None on the other ranks."""
+        if not self.primary:
+            return None
+        path = os.path.join(self.expdir, name)
+        os.makedirs(path, exist_ok=True)
+        return path
 
     def _report_trial(self, psnr: float, step: int) -> None:
         """The pruning hook (reference Trainer.py:393-398): report to the
@@ -525,7 +638,9 @@ class Trainer:
         ``{i:06d}.tar`` goes beside it, each live Adam routed to its torch
         optimizer as the JAX Trainer routes them: the DepthNet's in
         depth_net mode (the frozen NeRF's optimizer written fresh), the
-        NeRFs' in nerf mode, both in joint mode."""
+        NeRFs' in nerf mode, both in joint mode. Rank 0 only."""
+        if not self.primary:
+            return
         p = self.params
         sds = {"coarse": p.coarse.state_dict()}
         if p.fine is not None:
@@ -558,7 +673,7 @@ class Trainer:
     def save_rays_data(self, rays_o, pts, alpha) -> str:
         """Ray data for later visualization, as safetensors (reference
         sampling_trainer.py:124-138); ``{expname}_{global_step}.safetensors``
-        in the experiment directory."""
+        in the experiment directory; rank 0 writes it (every rank returns its name)."""
         from safetensors.numpy import save_file
 
         def f32(x) -> np.ndarray:
@@ -566,5 +681,6 @@ class Trainer:
             return np.ascontiguousarray(x, dtype=np.float32)
 
         filename = os.path.join(self.expdir, f"{self.cfg.expname}_{self.global_step}.safetensors")
-        save_file({"origins": f32(rays_o), "pts": f32(pts), "alpha": f32(alpha)}, filename)
+        if self.primary:
+            save_file({"origins": f32(rays_o), "pts": f32(pts), "alpha": f32(alpha)}, filename)
         return filename

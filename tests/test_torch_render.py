@@ -259,7 +259,8 @@ def test_port_imports_no_jax():
     """Every module of the port imports without jax or the JAX package,
     the training slices (train/*, experiments/run.py, K4/K5), the render
     CLI and video writer, and the legacy, study and plot entry points, the
-    plots, the losses, the pose math and the four loaders included."""
+    plots, the losses, the pose math, the four loaders and the data-parallel
+    package (parallel/) included."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import nerf_sampling_tpu_torch as p\n"
@@ -271,7 +272,8 @@ def test_port_imports_no_jax():
         "        'utils.profiling', 'kernels.fused_nerf', 'kernels.fused_nerf_vjp', 'experiments.render',\n"
         "        'utils.video', 'kernels.quant', 'render.quantize', 'utils.precision', 'viz.visualize',\n"
         "        'experiments.legacy_run', 'experiments.study', 'experiments.plot', 'core.losses',\n"
-        "        'core.poses', 'data.llff', 'data.linemod', 'data.deepvoxels', 'data.example']\n"
+        "        'core.poses', 'data.llff', 'data.linemod', 'data.deepvoxels', 'data.example',\n"
+        "        'parallel.mesh', 'parallel.ops', 'parallel.render']\n"
         "missing = [m for m in need if 'nerf_sampling_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'nerf_sampling_tpu.')) or k == 'nerf_sampling_tpu')\n"

@@ -10,7 +10,8 @@
 - ``RaySampler`` batches bit-identical to the JAX sampler's.
 - Checkpoints both ways, and an exact resume.
 - The Trainer and the CLI end to end on a tiny scene, the DepthNet repack
-  before each eval, the unported options that raise and the wandb
+  before each eval, the options that raise (data parallelism without its
+  ranks, steps_per_dispatch > 1) and the wandb
   fallback (nerf and joint training: tests/test_torch_nerf_train.py).
 """
 
@@ -371,11 +372,22 @@ def test_trainer_end_to_end_and_repack(tmp_path):
     assert tr2.start == 2 and tr2.global_step == 3
 
 
-@pytest.mark.parametrize("field,value,match", [
-    ("n_devices", 2, "S7"), ("multihost", True, "S7"), ("steps_per_dispatch", 4, "S7"),
+@pytest.mark.parametrize("field,value,exc,match", [
+    ("n_devices", 2, ValueError, r"run --n_devices 2 .*torchrun --nproc_per_node 2"),
+    ("multihost", True, ValueError, r"\['RANK'\] set but \['MASTER_ADDR', 'MASTER_PORT', 'WORLD_SIZE', 'LOCAL_RANK'\] "
+                                    "missing"),
+    ("steps_per_dispatch", 4, NotImplementedError, "S7b"),
 ])
-def test_trainer_unported_options_raise(field, value, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_trainer_unported_options_raise(monkeypatch, field, value, exc, match):
+    """Data parallelism without its ranks raises before any work: n_devices=2
+    with no process group names the ways to start them, multihost with a
+    partial launcher environment names what is missing; steps_per_dispatch
+    > 1 is not ported (ROADMAP S7b)."""
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    if field == "multihost":
+        monkeypatch.setenv("RANK", "0")
+    with pytest.raises(exc, match=match):
         Trainer(dataclasses.replace(TrainerConfig(), **{field: value}), device="cpu")
 
 
@@ -421,8 +433,8 @@ def test_cli_trains_the_recipe(tmp_path):
     assert (cfg.sampling_mode, cfg.n_depth_samples, cfg.i_testset, cfg.seed) == ("gaussian", 64, 2500, 3)
     assert cfg.expname == "custom_depth_net" and tr.global_step == 2
     assert len(open(os.path.join(tr.expdir, "psnr.txt")).read().splitlines()) == 2
-    with pytest.raises(NotImplementedError, match="S7"):
-        run.main(["-dp", datadir, "--mode", "nerf", "--n_devices", "2", "--basedir", str(tmp_path / "logs")])
+    with pytest.raises(NotImplementedError, match="S7b"):
+        run.main(["-dp", datadir, "--mode", "nerf", "--steps_per_dispatch", "4", "--basedir", str(tmp_path / "logs")])
 
 
 def test_cli_default_recipe_on_kernels_raises_before_step_1(tmp_path):
