@@ -158,7 +158,31 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    and one eval (K6, K1 and K3 must launch, the eval finite). The record
    carries each kernel's launches in these phases as "llff_launches" and
    "formats_launches".
-11. [scaleout], last: data parallelism (nerf_sampling_tpu_torch/parallel/)
+11. [dispatch], after [formats]: K train steps per host sync
+   (train/dispatch.py) at the same widths. (a) K6 with its seed read from
+   device memory: DISPATCH_SEEDS by pointer equal to the same seeds by
+   value bit for bit in bf16 and int8, a CUDA graph of one K6 launch
+   replayed after each rewrite of its seed word equal to direct launches,
+   the two timed in turns within DISPATCH_SEED_TIME_TOL (the K6 records
+   gain "seed_value_ms" and "seed_ptr_ms"); (b)-(d) the depth step (bf16
+   and int8), the nerf step and the joint step (warmup DISPATCH_WARMUP,
+   ending inside a chunk) in captured chunks (DISPATCH_CHUNKS) against as
+   many eager steps from one state, sampler stream and seeds: every step's
+   metrics, the parameters and the Adam state bit for bit, K6 counted once
+   per captured step, K4/K5 counted, the DepthNet unchanged through the
+   warmup and depth_live 0 then 1; (e) the capturable Adam against torch's
+   default Adam, one update within rtol 1e-6 plus ADAM_MOVE_TOL lr (the
+   fp32 bias corrections move each parameter up to 6.4e-6 of its move
+   differently) and the largest difference after 50 steps printed; (f) run.py's depth-net recipe for DISPATCH_ITERS
+   steps with --steps_per_dispatch 0 (auto, captured) and 1: psnr.txt and
+   every checkpoint array bit for bit, K6 launches equal to the steps in
+   both (the K6 record's "dispatch_launches"). The median ms a step of both
+   loops in turns, and the device idle share of one profiled captured
+   chunk, are printed with the card's name and power limit. Every training
+   phase above runs run.py with the auto default, so on the card its steps
+   are CUDA-graph replays ([tar], which traces, and [scaleout], which has a
+   mesh, run one step per dispatch).
+12. [scaleout], last: data parallelism (nerf_sampling_tpu_torch/parallel/)
    at the production widths (the committed checkpoint, 1024 rays a step,
    64 + 128 samples, view 0 at 400x400). (a) K6 on rows 512:1024 of a
    1024-ray batch with ray_base 512 and K3 on rows 80,000:160,000 of view
@@ -1175,7 +1199,7 @@ def check_fp32(params, device) -> list[dict]:
                                      + k289._flat_weights(hier["fine"], dtype=torch.float32))
     rc = build.load_library().nst_render_hier(
         arr, count, n, 64, 128, cfg_c.D, sum(1 << i for i in hier["coarse"]["skip_w"]), cfg_f.D,
-        sum(1 << i for i in hier["fine"]["skip_w"]), 2.0, 6.0, 0, 1, 0, 0, 1, 1, None, None,
+        sum(1 << i for i in hier["fine"]["skip_w"]), 2.0, 6.0, 0, 1, None, 0, 0, 1, 1, None, None,
         build.current_stream(device))
     log(f"[fp32] an fp32 hierarchical launch without the weight slices: cudaError_t {rc} (refused)")
     require(rc != 0, "K7 fp32: a launch without the weight slices was not refused")
@@ -1435,7 +1459,7 @@ def check_k10(params, scene, K, device, batches) -> tuple[list[dict], dict[str, 
                                      + k289._flat_weights(q.hier["coarse"], sigma_only=True)
                                      + k289._flat_weights(q.hier["fine"]))
     rc = build.load_library().nst_render_hier(
-        arr, count, m, Nc, Nf, cfg_c.D, mask_c, cfg.D, mask_f, 2.0, 6.0, 0, 1, 1, 0, 0, 0,
+        arr, count, m, Nc, Nf, cfg_c.D, mask_c, cfg.D, mask_f, 2.0, 6.0, 0, 1, None, 1, 0, 0, 0,
         build.host_pointer(plan_c), build.host_pointer(plan_f), build.current_stream(device))
     log(f"[k10] an int8 hierarchical launch without the weight slices: cudaError_t {rc} (refused)")
     require(rc != 0, "K6-int8: a launch without the weight slices was not refused")
@@ -2769,6 +2793,340 @@ def run_formats(device) -> dict[str, int]:
     return total
 
 
+DISPATCH_DIR = os.path.join(HERE, "logs", "chip_smoke_dispatch")  # [dispatch]'s Trainer runs (gitignored)
+DISPATCH_SEEDS = (1, 2**31 - 5, 123_456_789)  # (a): K6 by value and by pointer
+DISPATCH_SEED_TIME_TOL = 0.01  # (a): K6 by pointer within 1% of K6 by value, timed in turns
+# (b)-(d): (chunk size K, chunks) of each step, captured against as many eager steps
+DISPATCH_CHUNKS = {"depth": (25, 2), "depth_int8": (25, 2), "nerf": (10, 2), "joint": (10, 3)}
+DISPATCH_WARMUP = 15  # (d): the joint step's joint_depth_warmup, inside the second chunk
+DISPATCH_ITERS = 200  # (f): Trainer steps through run.main, auto against steps_per_dispatch 1
+ADAM_MOVE_TOL = 1e-5  # (e): the moves' difference, in lr, beside rtol 1e-6 (check_capturable_adam)
+DISPATCH_TURNS = 3  # the timing: chunks of each loop, in turns (eager, captured, captured, eager, ...)
+
+
+def dispatch_case(kind: str, params, pipes: dict, seed: int = 42):
+    """A fresh train state from the committed checkpoint and the step of
+    ``kind`` (depth, depth_int8, nerf, joint) as ``step(batch, seed) ->
+    metrics``: (step, states, graph_key)."""
+    import copy
+    import dataclasses
+
+    from nerf_sampling_tpu_torch.render import pack_kernel_weights
+    from nerf_sampling_tpu_torch.train.state import init_nerf_state, init_state, nerf_modules
+    from nerf_sampling_tpu_torch.train.steps import (
+        make_depth_net_train_step,
+        make_joint_train_step,
+        make_nerf_train_step,
+    )
+
+    if kind.startswith("depth"):
+        pipe = pipes["cuda_int8" if kind == "depth_int8" else "cuda"]
+        frozen = params if kind == "depth" else pack_kernel_weights(params, with_hier=True,
+                                                                    quant_pair=pipe.quant_calib)
+        state = init_state(copy.deepcopy(params.depth), 1e-4)
+        step = make_depth_net_train_step(pipe, frozen._replace(depth=None))
+        return (lambda batch, s: step(state, batch, s)[1]), [state], lambda: None
+    coarse, fine = (copy.deepcopy(m).requires_grad_(True) for m in (params.coarse, params.fine))
+    nerf = init_nerf_state(nerf_modules(coarse, fine), 5e-4, 250)
+    if kind == "nerf":
+        step = make_nerf_train_step(pipes["cuda"])
+        return (lambda batch, s: step(nerf, batch, s)[1]), [nerf], lambda: None
+    depth = init_state(copy.deepcopy(params.depth), 1e-4)
+    pipe = dataclasses.replace(pipes["cuda"], joint_depth_warmup=DISPATCH_WARMUP, bg_depth_loss_weight=0.5)
+    step = make_joint_train_step(pipe)
+    return (lambda batch, s: step(nerf, depth, batch, s)[2]), [nerf, depth], lambda: nerf.step >= DISPATCH_WARMUP
+
+
+def state_tensors(states) -> list[torch.Tensor]:
+    """Every parameter and Adam moment and count of ``states``, in order."""
+    out = []
+    for st in states:
+        for p in st.model.parameters():
+            out.append(p.detach())
+            out += [v for _, v in sorted(st.optimizer.state.get(p, {}).items())]
+    return out
+
+
+def eager_chunk(step, stack: np.ndarray, seeds, device) -> np.ndarray:
+    """``step`` run once per row of ``stack`` with the int seeds (the
+    per-step loop); the metrics [K, M] on the host."""
+    rows = torch.from_numpy(stack).to(device)
+    out = []
+    for j, s in enumerate(seeds):
+        batch = tuple(rows[j, :, c:c + 3].contiguous() for c in (0, 3, 6))
+        m = step(batch, s)
+        out.append(torch.stack([v.reshape(()).float() for v in m.values()]))
+    return torch.stack(out).cpu().numpy()
+
+
+def check_dispatch_steps(kind: str, params, pipes: dict, sampler, device) -> dict:
+    """(b)-(d) for one step: DISPATCH_CHUNKS[kind] chunks captured and
+    replayed (train/dispatch.py) against as many eager steps, from one state,
+    sampler stream and seeds: every step's metrics, the final parameters
+    and Adam state bit for bit; then the median ms a step of both loops in
+    turns, and one captured chunk profiled. Returns the times."""
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
+    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
+    from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
+    from nerf_sampling_tpu_torch.train.dispatch import StepDispatcher
+    from nerf_sampling_tpu_torch.train.trainer import step_seed
+
+    k, n_chunks = DISPATCH_CHUNKS[kind]
+    t0 = time.perf_counter()
+    chunks = []
+    for c in range(n_chunks):
+        i0 = 1 + c * k
+        chunks.append((np.stack([np.concatenate(sampler.sample(i), -1) for i in range(i0, i0 + k)]),
+                       [step_seed(42, i) for i in range(i0, i0 + k)]))
+    eager_step, eager_states, _ = dispatch_case(kind, params, pipes)
+    want = np.concatenate([eager_chunk(eager_step, st, sd, device) for st, sd in chunks])
+    cap_step, cap_states, key = dispatch_case(kind, params, pipes)
+    disp = StepDispatcher(cap_step, cap_states, device, graph_key=key)
+    counters = [(m, c) for m in (k4, k5, k6) for c in ("launches", "int8_launches") if hasattr(m, c)]
+    before = [getattr(m, c) for m, c in counters]
+    got, held = [], True
+    for st, sd in chunks:
+        got.append(disp.run(st, sd).cpu().numpy())
+        if kind == "joint" and cap_states[0].step <= DISPATCH_WARMUP:  # the DepthNet held through the warmup
+            held &= all(torch.equal(a, b) for a, b in zip(cap_states[1].model.parameters(), params.depth.parameters()))
+    got = np.concatenate(got)
+    launched = {f"{m.__name__.split('.')[-1]}.{c}": getattr(m, c) - b for (m, c), b in zip(counters, before)
+                if getattr(m, c) != b}
+    same_metrics = got.shape == want.shape and np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    a, b = state_tensors(eager_states), state_tensors(cap_states)
+    same_state = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    n_steps = k * n_chunks
+    log(f"[dispatch] ({kind}) {n_chunks} captured chunks of {k} steps against {n_steps} eager steps: metrics "
+        f"{disp.names} bit for bit {same_metrics}, parameters and Adam state ({len(a)} tensors) bit for bit "
+        f"{same_state}; graphs captured {len(disp._graphs)}; launches counted in the captured run {launched}")
+    if not same_metrics:
+        rows = np.nonzero(np.any(got != want, 1))[0] if got.shape == want.shape else []
+        log(f"[dispatch] ({kind}) first differing steps {list(rows[:5])}: captured {got[rows[:1]]}, eager "
+            f"{want[rows[:1]]}")
+    require(same_metrics and same_state, f"[dispatch] the captured {kind} steps differ from the eager ones")
+    per_step_launches = {"depth": ("render_hier_kernel", "fused_hier.launches"),
+                         "depth_int8": ("render_hier_kernel_int8", "fused_hier.int8_launches")}
+    if kind in per_step_launches:
+        require(launched.get(per_step_launches[kind][1]) == n_steps,
+                f"[dispatch] ({kind}) K6 counted {launched} over {n_steps} captured steps")
+    else:
+        require(launched.get("fused_nerf.launches", 0) > 0 and launched.get("fused_nerf_vjp.launches", 0) > 0,
+                f"[dispatch] ({kind}) K4/K5 not counted over the captured steps: {launched}")
+    if kind == "joint":
+        live = got[:, disp.names.index("depth_live")]
+        require(np.array_equal(live, (np.arange(1, n_steps + 1) > DISPATCH_WARMUP).astype(np.float32)),
+                f"[dispatch] (joint) depth_live {live} does not turn on after step {DISPATCH_WARMUP}")
+        log(f"[dispatch] (joint) depth_live 0 through step {DISPATCH_WARMUP}, then 1; the DepthNet bit for bit "
+            f"unchanged at the chunk ends of the warmup {held}")
+        require(held, "[dispatch] (joint) the DepthNet moved during the warmup")
+
+    # the two loops' time a step, chunk by chunk in turns, from where the runs stopped
+    times = {"eager": [], "captured": []}
+    for turn in range(DISPATCH_TURNS):
+        i0 = 1 + (n_chunks + turn) * k
+        stack = np.stack([np.concatenate(sampler.sample(i), -1) for i in range(i0, i0 + k)])
+        seeds = [step_seed(42, i) for i in range(i0, i0 + k)]
+        order = ("eager", "captured") if turn % 2 == 0 else ("captured", "eager")
+        for loop in order:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if loop == "eager":
+                eager_chunk(eager_step, stack, seeds, device)
+            else:
+                disp.read(disp.run(stack, seeds))
+            times[loop].append((time.perf_counter() - t1) * 1e3 / k)
+    eager_ms, cap_ms = (float(np.median(times[n])) for n in ("eager", "captured"))
+    log(f"[dispatch] ({kind}) median ms a step, chunks of {k} with one sync each, in turns: per-step loop "
+        f"{eager_ms:.3f} ms, captured chunks {cap_ms:.3f} ms ({eager_ms / cap_ms:.2f}x)")
+    i0 = 1 + (n_chunks + DISPATCH_TURNS) * k
+    stack = np.stack([np.concatenate(sampler.sample(i), -1) for i in range(i0, i0 + k)])
+    seeds = [step_seed(42, i) for i in range(i0, i0 + k)]
+    wall, rows = profile_frame(lambda: disp.read(disp.run(stack, seeds)), f"one captured chunk of {k} {kind} steps",
+                               top=6)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    log(f"[dispatch] ({kind}) phase {time.perf_counter() - t0:.1f} s")
+    return {"eager_ms": eager_ms, "captured_ms": cap_ms, "idle": 1 - busy / wall}
+
+
+def check_k6_seed_word(params, pipes: dict, batches, device) -> dict[str, dict[str, float]]:
+    """(a): K6 with its seed in device memory, in bf16 and int8, on 1024-ray
+    train batches: DISPATCH_SEEDS by pointer bit for bit equal to the same
+    seeds by value; a CUDA graph holding one K6 launch, replayed after each
+    rewrite of its seed word, equal to direct launches with those seeds;
+    the two launches timed in turns (value, pointer, pointer, value) within
+    DISPATCH_SEED_TIME_TOL. Returns the times by kernel record name."""
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
+    from nerf_sampling_tpu_torch.render import pack_kernel_weights
+
+    cfg_c, cfg_f = params.coarse.cfg, params.fine.cfg
+    q = pack_kernel_weights(params, with_hier=True, quant_pair=pipes["cuda_int8"].quant_calib).kernels
+    out = {}
+    for name, packed in (("render_hier_kernel", params.kernels.hier), ("render_hier_kernel_int8", q.hier)):
+        ro, rd = batches[0]
+
+        def launch(seed, ro=ro, rd=rd, packed=packed):
+            return k6.render_hier_kernel(packed, cfg_c, cfg_f, ro, rd, n_coarse=64, n_importance=128, seed=seed)
+
+        word = torch.zeros((), dtype=torch.int32, device=device)
+        same = []
+        for s in DISPATCH_SEEDS:
+            word.fill_(s)
+            same.append(same_bits(launch(s), launch(word)))
+        other = not torch.equal(launch(DISPATCH_SEEDS[0])["max_z"], launch(DISPATCH_SEEDS[1])["max_z"])
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            launch(word)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = launch(word)
+        replayed = []
+        for s in DISPATCH_SEEDS:
+            word.fill_(s)
+            graph.replay()
+            replayed.append(same_bits({k: v.clone() for k, v in captured.items()}, launch(s)))
+        word.fill_(DISPATCH_SEEDS[2])
+        t = {"value": [], "pointer": []}
+        for mode in ("value", "pointer", "pointer", "value"):
+            t[mode].append(cuda_ms(lambda mode=mode: launch(DISPATCH_SEEDS[2] if mode == "value" else word), 200))
+        val, ptr = (float(np.mean(t[m])) for m in ("value", "pointer"))
+        log(f"[dispatch] (a) {name}: seeds {DISPATCH_SEEDS} by pointer equal by value bit for bit {same}, "
+            f"another seed other draws {other}; one captured K6 launch replayed after each rewrite of its seed "
+            f"word equals direct launches {replayed}; ms by value {val:.4f}, by pointer {ptr:.4f} "
+            f"({100 * (ptr / val - 1):+.2f}%, tol {100 * DISPATCH_SEED_TIME_TOL:g}%), in turns, 200 launches each")
+        require(all(same) and other and all(replayed), f"[dispatch] {name}: K6's seed word disagrees")
+        require(abs(ptr / val - 1) <= DISPATCH_SEED_TIME_TOL, f"[dispatch] {name}: by pointer off by value's time")
+        out[name] = {"seed_value_ms": val, "seed_ptr_ms": ptr}
+    return out
+
+
+def check_capturable_adam(params, pipes: dict, sampler, device) -> None:
+    """(e): one depth step's update by the capturable Adam (the port's on
+    the card) against torch's default Adam from one state and gradient:
+    each parameter within rtol 1e-6 plus ADAM_MOVE_TOL lr. The capturable
+    rule forms its bias corrections on the device in fp32 (1 - 0.999f is
+    1.3e-5 above 1 - 0.999, its square root 6.4e-6), the default one on the
+    host in double, so every move differs by up to about 6.4e-6 of itself
+    (at most lr), more than 1e-6 of a parameter near zero. The largest
+    difference after 50 steps of each on the same batches and seeds is
+    printed."""
+    import copy
+
+    from nerf_sampling_tpu_torch.train.state import TrainState, init_state
+    from nerf_sampling_tpu_torch.train.steps import make_depth_net_train_step
+    from nerf_sampling_tpu_torch.train.trainer import step_seed
+
+    step = make_depth_net_train_step(pipes["cuda"], params._replace(depth=None))
+    lr = 1e-4
+    states = {True: init_state(copy.deepcopy(params.depth), lr)}  # the port's Adam on the card
+    model = copy.deepcopy(params.depth)
+    states[False] = TrainState(0, model, torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8))
+    require(all(g["capturable"] for g in states[True].optimizer.param_groups)
+            and not any(g["capturable"] for g in states[False].optimizer.param_groups), "capturable flags")
+    diffs = []
+    start = [p.detach().clone() for p in params.depth.parameters()]
+    for i in range(1, 51):
+        batch = tuple(torch.from_numpy(x).to(device) for x in sampler.sample(i))
+        for st in states.values():
+            step(st, batch, step_seed(42, i))
+        a, b = ([p.detach() for p in states[c].model.parameters()] for c in (True, False))
+        diffs.append(max(float((x - y).abs().max()) for x, y in zip(a, b)))
+        if i == 1:
+            close = all(torch.all((x - y).abs() <= 1e-6 * y.abs() + ADAM_MOVE_TOL * lr) for x, y in zip(a, b))
+            n_out = sum(int(((x - y).abs() > 1e-6 * y.abs()).sum()) for x, y in zip(a, b))
+            moves = max(float(((x - p0) - (y - p0)).abs().max()) for x, y, p0 in zip(a, b, start)) / lr
+            log(f"[dispatch] (e) one update, capturable Adam against torch's default Adam from one state and "
+                f"gradient: every parameter within rtol 1e-6 plus {ADAM_MOVE_TOL:g} lr {close}; "
+                f"{n_out} of {sum(x.numel() for x in a)} outside rtol 1e-6 alone; the moves differ by up to "
+                f"{moves:.3e} lr")
+            require(close, "[dispatch] the capturable Adam's update is off the default Adam's")
+    log(f"[dispatch] (e) after 50 steps of each on the same batches and seeds: largest parameter difference "
+        f"{diffs[-1]:.3e} (after 10: {diffs[9]:.3e})")
+
+
+def run_dispatch_trainer(device) -> int:
+    """(f): the depth-net recipe through run.main for DISPATCH_ITERS steps with
+    --steps_per_dispatch 0 (auto: captured chunks) and 1, evals at every
+    100: psnr.txt identical, every checkpoint array bit for bit (the keep_best
+    ones and one written after each run), K6 launches equal to the steps in
+    both. Returns the auto run's K6 launches."""
+    import shutil
+
+    from nerf_sampling_tpu_torch.experiments import run
+    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
+    from nerf_sampling_tpu_torch.train.trainer import resolve_steps_per_dispatch
+
+    shutil.rmtree(DISPATCH_DIR, ignore_errors=True)
+    os.makedirs(DISPATCH_DIR)
+    ft_path = os.path.join(DISPATCH_DIR, "nerf_only.npz")
+    write_nerf_only_checkpoint(ft_path)
+    runs = {}
+    for k in ("0", "1"):
+        argv = ["-d", "example", "-m", "recommended_depth_net_module", "--mlp_impl", "cuda", "--ft_path", ft_path,
+                "--n_iters", str(DISPATCH_ITERS), "-ip", "100", "--i_testset", "100", "--seed", "42",
+                "--basedir", os.path.join(DISPATCH_DIR, f"k{k}"), "--testskip", "1", "--steps_per_dispatch", k]
+        k6.launches = 0
+        t1 = time.perf_counter()
+        trainer = run.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        trainer.save_checkpoint(trainer.global_step, subdir="final")
+        chunk = resolve_steps_per_dispatch(trainer.cfg, DISPATCH_ITERS + 1, 0, "cuda")
+        with open(os.path.join(trainer.expdir, "psnr.txt")) as fp:
+            text = fp.read()
+        arrays = {}
+        for root, _, files in os.walk(trainer.expdir):
+            for f in files:
+                if f.endswith(".npz"):
+                    with np.load(os.path.join(root, f)) as z:
+                        arrays.update({(os.path.relpath(os.path.join(root, f), trainer.expdir), key): z[key]
+                                       for key in z.files})
+        runs[k] = (text, arrays, k6.launches, chunk)
+        log(f"[dispatch] (f) --steps_per_dispatch {k} (resolved {chunk}): {trainer.global_step} steps in {wall:.1f} s "
+            f"(evals and checkpoints included), K6 launches {k6.launches}, eval {trainer._avg_eval_psnr:.4f} dB, "
+            f"{len({n for n, _ in arrays})} checkpoints")
+        del trainer
+    (t0, a0, n0, c0), (t1, a1, n1, c1) = runs["0"], runs["1"]
+    same = sorted(a0) == sorted(a1) and all(np.array_equal(a0[key], a1[key]) for key in a0)
+    log(f"[dispatch] (f) psnr.txt identical {t0 == t1}; checkpoint arrays ({len(a0)}) bit for bit {same}")
+    require(c0 > 1 and c1 == 1, f"[dispatch] (f) resolved chunks {c0} and {c1}")
+    require(t0 == t1 and same, "[dispatch] (f) the captured Trainer run differs from the per-step one")
+    require(n0 == n1 == DISPATCH_ITERS, f"[dispatch] (f) K6 launches {n0} and {n1}, not {DISPATCH_ITERS}")
+    return n0
+
+
+def run_dispatch(params, scene, device) -> dict:
+    """[dispatch]: K train steps per host sync through CUDA-graph replay
+    (train/dispatch.py), gates (a)-(f), the step times of both loops and the
+    idle share of a captured chunk. Returns the times for the kernels' record."""
+    from nerf_sampling_tpu_torch.render import pack_kernel_weights
+    from nerf_sampling_tpu_torch.render.quantize import calibrate_pipeline
+    from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
+    from nerf_sampling_tpu_torch.train.sampler import RaySampler, SamplerConfig
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    fresh = pack_kernel_weights(load_render_params(CKPT, production_pipeline("cuda"), device), with_hier=True)
+    pipes = {"cuda": production_pipeline("cuda"),
+             "cuda_int8": calibrate_pipeline(production_pipeline("cuda_int8"), fresh, scene)}
+    batches = [b[:2] for b in train_batches(scene, device, 1, seed=77)]
+    seed_times = check_k6_seed_word(fresh, pipes, batches, device)
+    times = {}
+    for kind in DISPATCH_CHUNKS:
+        sampler = RaySampler(scene, SamplerConfig(N_rand=1024), seed=42)
+        times[kind] = check_dispatch_steps(kind, fresh, pipes, sampler, device)
+    check_capturable_adam(fresh, pipes, RaySampler(scene, SamplerConfig(N_rand=1024), seed=43), device)
+    launches = run_dispatch_trainer(device)
+    log(f"[dispatch] {smi}: median ms a step, per-step loop / captured chunks: "
+        + "; ".join(f"{k} {v['eager_ms']:.3f} / {v['captured_ms']:.3f}" for k, v in times.items())
+        + "; device idle in one profiled captured chunk: "
+        + ", ".join(f"{k} {100 * v['idle']:.1f}%" for k, v in times.items()))
+    log(f"[dispatch] phase {time.perf_counter() - t0:.1f} s")
+    return {"seed": seed_times, "steps": times, "launches": launches}
+
+
 SCALEOUT_DIR = os.path.join(HERE, "logs", "chip_smoke_scaleout")  # [scaleout]'s rendezvous, inputs, runs (gitignored)
 SCALEOUT_RANKS = 2  # the ranks of [scaleout], all on cuda:0 under gloo
 SCALEOUT_STEPS = 5  # [scaleout] (b) and (c): steps on one rank and on two
@@ -3215,6 +3573,7 @@ def main() -> int:
     tar_counts = run_tar(device, scene, K)
     llff_counts = run_llff(device)
     formats_counts = run_formats(device)
+    dispatch = run_dispatch(params, scene, device)
     scaleout_launches = run_scaleout(device, scene, {rec["name"]: rec for rec in kernels})
     torch.cuda.synchronize()
     # the count of the path each kernel serves: K2 renders, K1/K3/K6 train the
@@ -3231,6 +3590,8 @@ def main() -> int:
                             ("formats_launches", formats_counts), ("scaleout_launches", scaleout_launches)):
             if rec["name"] in counts:
                 rec[key] = counts[rec["name"]]
+        rec.update(dispatch["seed"].get(rec["name"], {}))  # K6 by value and by pointer, timed in turns
+    next(rec for rec in kernels if rec["name"] == "render_hier_kernel")["dispatch_launches"] = dispatch["launches"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

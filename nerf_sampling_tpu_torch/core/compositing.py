@@ -14,6 +14,26 @@ import torch
 from nerf_sampling_tpu_torch.core.sampling import Rows, rand
 
 
+class _Cumprod(torch.autograd.Function):
+    """torch.cumprod along the last axis, with the backward torch takes for
+    an input without zeros, reversed_cumsum(output * grad) / input, bit for
+    bit. torch's own backward first reads from the device whether the input
+    holds a zero, which a CUDA graph cannot hold (train/dispatch.py); the
+    transmittance's factors are 1 and 1 - alpha + 1e-10 >= 1e-10, never
+    zero, so that branch is never the one taken."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, -1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return torch.flip(torch.cumsum(torch.flip(out * grad, [-1]), -1), [-1]) / x
+
+
 def raw2alpha(raw: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
     """alpha_i = 1 - exp(-relu(sigma_i) * delta_i)."""
     return 1.0 - torch.exp(-torch.relu(raw) * dists)
@@ -59,8 +79,8 @@ def raw2outputs(
         density_for_alpha = density
 
     alphas = raw2alpha(density_for_alpha, dists)
-    transmittance = torch.cumprod(
-        torch.cat([torch.ones_like(alphas[..., :1]), 1.0 - alphas + 1e-10], -1), -1
+    transmittance = _Cumprod.apply(
+        torch.cat([torch.ones_like(alphas[..., :1]), 1.0 - alphas + 1e-10], -1)
     )[..., :-1]
     weights = alphas * transmittance
 

@@ -47,10 +47,9 @@ def linspace01(n: int, device: torch.device | str = "cpu") -> torch.Tensor:
     some entries the other way)."""
     if n == 1:
         return torch.zeros(1, device=device)
-    t = torch.arange(n, dtype=torch.float32, device=device) * torch.tensor(
-        1.0 / (n - 1), dtype=torch.float32, device=device)
-    t[-1] = 1.0
-    return t
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    t = i * torch.full((), 1.0 / (n - 1), dtype=torch.float32, device=device)
+    return torch.where(i == n - 1, 1.0, t)  # device work only: a CUDA graph can hold it
 
 
 def stratified_z_vals(

@@ -28,9 +28,14 @@ nerf/<dataset>/200000.tar`` where it exists (the reference's convention).
 ``--precision`` sets the plain path's fp32 matmuls (highest: strict fp32,
 high: TF32, default: torch's "medium"); the kernels ignore it.
 ``--profile_dir`` traces steps 20-40 after the start with torch.profiler
-(the Trainer's option; no JAX CLI flag). ``--steps_per_dispatch`` > 1 is not
-ported (ROADMAP S7b): the Trainer raises. The Trainer runs on the card, and
-raises when there is none, unless ``--device cpu`` asks for the CPU.
+(the Trainer's option; no JAX CLI flag). ``--steps_per_dispatch K`` runs K
+steps per host sync (0, the default, is auto: on the card the largest
+divisor of the logging cadences up to 100, each step after the first a
+replay of a captured CUDA graph; on the CPU 1, while an explicit K runs
+chunks of K eager steps there); it equals the per-step loop bit for bit
+(train/trainer.py::resolve_steps_per_dispatch). The Trainer runs on the
+card, and raises when there is none, unless ``--device cpu`` asks for the
+CPU.
 
 Data parallelism (JAX run.py:85-141): ``--n_devices N`` (N > 1, or 0 for
 every card) trains on N ranks, one process per card. Started alone, this
@@ -95,7 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--joint_depth_warmup", type=int, default=None)
     ap.add_argument("--i_testset", type=int, default=None, help="Frequency of test-set evals.")
     ap.add_argument("--n_devices", type=int, default=None)
-    ap.add_argument("--steps_per_dispatch", type=int, default=None)
+    ap.add_argument("--steps_per_dispatch", type=int, default=None, help="train steps per host sync (0: auto).")
     ap.add_argument("--multihost", action="store_true", default=None)
     ap.add_argument("--ft_path", default=None, help="Explicit NeRF checkpoint (.tar or .npz) to load.")
     ap.add_argument("--testskip", type=int, default=None, help="Load every Nth test/val image.")

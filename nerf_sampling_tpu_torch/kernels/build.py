@@ -116,9 +116,10 @@ def load_library() -> ctypes.CDLL:
     lib.nst_shade.argtypes = [ptrs, i32, i64, i32, i32, u32, i32, i32, i32, vp, vp]
     lib.nst_shade.restype = i32
     # the i64 after the seed of nst_render_gaussian and nst_render_hier:
-    # ray_base, the global index of the launch's ray 0 that keys Philox
+    # ray_base, the global index of the launch's ray 0 that keys Philox;
+    # the vp before nst_render_hier's seed: the seed as a device word, or null
     lib.nst_render_hier.argtypes = [ptrs, i32, i64, i32, i32, i32, u32, i32, u32, f32, f32,
-                                    i32, i32, u32, i64, i32, i32, vp, vp, vp]
+                                    i32, i32, vp, u32, i64, i32, i32, vp, vp, vp]
     lib.nst_render_hier.restype = i32
     lib.nst_nerf_points.argtypes = [ptrs, i32, i64, i64, i32, u32, i32, vp]
     lib.nst_nerf_points.restype = i32

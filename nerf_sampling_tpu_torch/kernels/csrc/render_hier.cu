@@ -27,8 +27,11 @@
 // The draws t_rand (Nc) and u (Nf) of a ray are Philox uniforms keyed by
 // (seed, global ray index = ray_base + the ray's row in this launch)
 // (philox.cuh), or read from injected draws (by local row); det
-// mode draws nothing. Element type T: bf16 (K6, and K7 in FULL_NERF and
-// NERF_MAX), fp32 throughout (K7 in the COMPARE mode: fp32 sums and
+// mode draws nothing. The seed comes by value, or from device memory
+// (seed_ptr, read once by each consumer thread at its start): a CUDA graph
+// that holds a K6 launch then draws the seed its replay finds there, where
+// a seed given by value would be frozen into the graph. Element type T:
+// bf16 (K6, and K7 in FULL_NERF and NERF_MAX), fp32 throughout (K7 in the COMPARE mode: fp32 sums and
 // activations, the products as 3xTF32 on the tensor cores), or int8 (K6 and K7 under cuda_int8: the
 // W8A8 MLP of kernels/quant.py, K10; the coarse pass on the coarse NeRF's
 // int8 pack and plan, the fine pass on the fine NeRF's).
@@ -105,6 +108,7 @@ struct HierParams {
   float near_, far_;
   int lindisp, white_bkgd, det;
   unsigned seed;
+  const unsigned* seed_ptr;  // the seed in device memory, or null: seed
   long long ray_base;   // the global index of ray 0: Philox is keyed by ray_base + g
   NerfWeightsT<T> wc, wf;
   const bf16* slices_c;  // the coarse net's forward slices (sigma_only), then the fine net's
@@ -118,8 +122,8 @@ constexpr size_t smem_bytes() {
 }
 
 template <typename T>
-__device__ __forceinline__ float draw(const HierParams<T>& p, long long g, int k) {
-  return p.draws ? p.draws[g * (p.Nc + p.Nf) + k] : hier_uniform(p.seed, (uint32_t)(p.ray_base + g), (uint32_t)k);
+__device__ __forceinline__ float draw(const HierParams<T>& p, unsigned seed, long long g, int k) {
+  return p.draws ? p.draws[g * (p.Nc + p.Nf) + k] : hier_uniform(seed, (uint32_t)(p.ray_base + g), (uint32_t)k);
 }
 
 template <typename T>
@@ -166,6 +170,7 @@ __global__ void __launch_bounds__(kBlockThreads<T>, 1)
 
   const int tid = threadIdx.x;
   const int Nc = p.Nc, Nf = p.Nf, Su = Nc + Nf, B = Nc - 1;
+  const unsigned seed = p.seed_ptr ? *p.seed_ptr : p.seed;
 
   for (int r = tid; r < nr; r += kWorkers<T>) {
     float* q = ray + 8 * r;
@@ -184,7 +189,7 @@ __global__ void __launch_bounds__(kBlockThreads<T>, 1)
     const float lower = s == 0 ? zc : 0.5f * (zc + grid_z(p, s - 1));
     const float upper = s == Nc - 1 ? zc : 0.5f * (grid_z(p, s + 1) + zc);
     const float z = p.det ? zc
-                          : __fadd_rn(lower, __fmul_rn(__fsub_rn(upper, lower), draw(p, ray0 + r, s)));
+                          : __fadd_rn(lower, __fmul_rn(__fsub_rn(upper, lower), draw(p, seed, ray0 + r, s)));
     zs[e] = z;
     U[r * Su + s] = z;
   }
@@ -218,7 +223,7 @@ __global__ void __launch_bounds__(kBlockThreads<T>, 1)
   // 3. fine z by inverse CDF, after the coarse z of each ray's union
   for (int e = tid; e < nr * Nf; e += kWorkers<T>) {
     const int r = e / Nf, j = e - r * Nf;
-    const float u = !p.det ? draw(p, ray0 + r, Nc + j)
+    const float u = !p.det ? draw(p, seed, ray0 + r, Nc + j)
                     : (j == Nf - 1 ? 1.f : (float)j * (1.f / (float)(Nf - 1)));
     const float* c = cdf + r * B;
     const float* m = mids + r * B;
@@ -290,8 +295,8 @@ constexpr int rays_per_block(int Su) {
 // is refused.
 template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int Dc, unsigned skip_c,
-           int Df, unsigned skip_f, float near_, float far_, int lindisp, int white_bkgd, unsigned seed,
-           long long ray_base, int det, const int* plan_c, const int* plan_f, void* stream) {
+           int Df, unsigned skip_f, float near_, float far_, int lindisp, int white_bkgd, const unsigned* seed_ptr,
+           unsigned seed, long long ray_base, int det, const int* plan_c, const int* plan_f, void* stream) {
   if (Nc < 4 || Nf < 1 || Nc + Nf > 512) return (int)cudaErrorInvalidValue;
   HierParams<T> p = {};
   p.rays_o = static_cast<const float*>(ptrs[0]);
@@ -323,9 +328,10 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int
   p.lindisp = lindisp;
   p.white_bkgd = white_bkgd;
   p.seed = seed;
+  p.seed_ptr = seed_ptr;
   p.ray_base = ray_base;
   p.det = det;
-  if (det && p.draws) return (int)cudaErrorInvalidValue;
+  if (det && (p.draws || seed_ptr)) return (int)cudaErrorInvalidValue;
 
   constexpr size_t smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(render_hier_kernel<T>,
@@ -354,25 +360,28 @@ int occupancy(int Nc, int Nf, int* out) {
 }  // namespace
 }  // namespace nst
 
-// det: no draws (K7). ray_base: the global index of the launch's ray 0 (a
-// rank's first row under data parallelism; 0 otherwise). fp32: the weights of pack_hier(..., torch.float32)
+// det: no draws (K7). seed_ptr: the seed as a device word (a captured
+// step's), or null for the seed given by value. ray_base: the global index
+// of the launch's ray 0 (a rank's first row under data parallelism; 0
+// otherwise). fp32: the weights of pack_hier(..., torch.float32)
 // and their wgmma_slices32.
 // plan_c, plan_f: both int8 packs' constants (kernels/quant.py::quant_plan,
 // host arrays read at launch) for the int8 kernel, or both null. Returns a
 // cudaError_t (0 on success).
 extern "C" int nst_render_hier(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf,
                                int Dc, unsigned skip_c, int Df, unsigned skip_f, float near_,
-                               float far_, int lindisp, int white_bkgd, unsigned seed, long long ray_base, int det,
-                               int fp32, const int* plan_c, const int* plan_f, void* stream) {
+                               float far_, int lindisp, int white_bkgd, const unsigned* seed_ptr, unsigned seed,
+                               long long ray_base, int det, int fp32, const int* plan_c, const int* plan_f,
+                               void* stream) {
   if ((plan_c == nullptr) != (plan_f == nullptr) || (fp32 && plan_c)) return (int)cudaErrorInvalidValue;
   if (fp32)
     return nst::launch<float>(ptrs, n_ptrs, n, Nc, Nf, Dc, skip_c, Df, skip_f, near_, far_, lindisp, white_bkgd,
-                              seed, ray_base, det, nullptr, nullptr, stream);
+                              seed_ptr, seed, ray_base, det, nullptr, nullptr, stream);
   if (plan_c)
     return nst::launch<int8_t>(ptrs, n_ptrs, n, Nc, Nf, Dc, skip_c, Df, skip_f, near_, far_, lindisp,
-                               white_bkgd, seed, ray_base, det, plan_c, plan_f, stream);
+                               white_bkgd, seed_ptr, seed, ray_base, det, plan_c, plan_f, stream);
   return nst::launch<nst::bf16>(ptrs, n_ptrs, n, Nc, Nf, Dc, skip_c, Df, skip_f, near_, far_, lindisp,
-                                white_bkgd, seed, ray_base, det, nullptr, nullptr, stream);
+                                white_bkgd, seed_ptr, seed, ray_base, det, nullptr, nullptr, stream);
 }
 
 // The kernel's launch shape at Nc + Nf samples, kind 0 bf16 (K6, K7), 1

@@ -20,7 +20,11 @@ In det mode (K7) the coarse z is the grid itself and u is the det
 linspace; otherwise the draws come from Philox keyed by (seed, global ray
 index) (``philox.hier_draws``), the global index of a launch's row r being
 ``ray_base + r`` (a rank's first row under data parallelism, 0 on one
-device), or are injected. ``render_hier_plain`` computes the
+device), or are injected. The seed is an int, or a 0-d integer tensor
+on the rays' device: K6 then reads it from device memory at launch
+(``seed_ptr`` of ``nst_render_hier``), so that a CUDA graph holding the
+launch draws, at each replay, the seed written there before it
+(train/dispatch.py); both give the same draws. ``render_hier_plain`` computes the
 same in plain PyTorch: fp32 is the reference, bf16 rounds where the kernel
 rounds; with draws of ``None`` it runs det mode, which the tests hold
 against the Pallas kernel. K7 also runs fp32 (the COMPARE mode's kernels,
@@ -91,6 +95,18 @@ def qpack_hier(coarse: NeRF, fine: NeRF | None, calib: tuple) -> dict:
     }
 
 
+def _seed_word(seed: int | torch.Tensor | None, device: torch.device) -> torch.Tensor | None:
+    """``seed`` when it is a device seed (a 0-d int32 or int64 tensor on
+    ``device``; the kernel reads its low 32 bits), None for an int or
+    None; raises on any other tensor."""
+    if not isinstance(seed, torch.Tensor):
+        return None
+    if seed.dim() != 0 or seed.dtype not in (torch.int32, torch.int64) or seed.device != device:
+        raise ValueError(f"a device seed is a 0-d int32 or int64 tensor on {device}, got a {seed.dtype} "
+                         f"{tuple(seed.shape)} on {seed.device}")
+    return seed
+
+
 def _check_envelope(n_coarse: int, n_importance: int) -> None:
     if n_coarse < 4:
         raise ValueError("the hierarchical pass needs n_coarse >= 4")
@@ -113,21 +129,24 @@ def render_hier_plain(
     lindisp: bool = False,
     t_rand: torch.Tensor | None = None,
     u: torch.Tensor | None = None,
-    seed: int | None = None,
+    seed: int | torch.Tensor | None = None,
     ray_base: int = 0,
     multires: int = 10,
     multires_views: int = 4,
     dtype=torch.bfloat16,
 ) -> dict[str, torch.Tensor]:
     """K6's computation in plain PyTorch; ``t_rand`` [N, Nc] and ``u`` [N, Nf]
-    are the draws, or with ``seed`` they are K6's Philox draws of the global
-    rays ``ray_base .. ray_base + N - 1`` (neither: det mode). Returns the
-    maps and argmax diagnostics."""
+    are the draws, or with ``seed`` (an int or a 0-d integer tensor, read
+    here) they are K6's Philox draws of the global rays ``ray_base ..
+    ray_base + N - 1`` (neither: det mode). Returns the maps and argmax
+    diagnostics."""
     _check_envelope(n_coarse, n_importance)
     if seed is not None:
         if t_rand is not None or u is not None:
             raise ValueError("give a seed or the draws, not both")
-        draws = philox.hier_draws(seed, rays_o.shape[0], n_coarse + n_importance, ray0=ray_base).to(rays_o.device)
+        _seed_word(seed, rays_o.device)
+        draws = philox.hier_draws(int(seed), rays_o.shape[0], n_coarse + n_importance,
+                                  ray0=ray_base).to(rays_o.device)
         t_rand, u = draws[:, :n_coarse], draws[:, n_coarse:]
     if (t_rand is None) != (u is None):
         raise ValueError("give both draws (t_rand and u) or neither (det mode)")
@@ -172,7 +191,7 @@ def render_hier_kernel(
     far: float = 6.0,
     white_bkgd: bool = True,
     lindisp: bool = False,
-    seed: int | None = None,
+    seed: int | torch.Tensor | None = None,
     ray_base: int = 0,
     draws: torch.Tensor | None = None,
     multires: int = 10,
@@ -180,7 +199,9 @@ def render_hier_kernel(
     dtype=torch.bfloat16,
 ) -> dict[str, torch.Tensor]:
     """K6 over N rays [N, 3]: draws from Philox keyed by (``seed``, global
-    ray index), the launch's row r being global ray ``ray_base + r``, or the
+    ray index), the launch's row r being global ray ``ray_base + r``, the
+    seed an int or a device seed (a 0-d int32 or int64 tensor on the rays'
+    device, which the kernel reads at launch), or the
     injected ``draws`` [N, Nc + Nf] (t_rand, then u, by local row); K7 (det mode)
     when both are None, at ``dtype`` (``packed`` is ``pack_hier`` at it), or
     in int8 when ``packed`` is ``qpack_hier``'s (with the default dtype).
@@ -198,6 +219,7 @@ def render_hier_kernel(
         raise TypeError("the coarse and fine packs must both be int8 (qpack_hier) or neither")
     if fp32 and not det:
         raise ValueError("the seeded hierarchical pass (K6) runs bf16 only; fp32 is K7's det mode")
+    seed_ptr = _seed_word(seed, rays_o.device) if draws is None else None
     n = rays_o.shape[0]
     n_draws = n_coarse + n_importance
     per_ray = {} if draws is None else {"draws": (draws, (n, n_draws))}
@@ -227,7 +249,9 @@ def render_hier_kernel(
         cfg_c.D, sum(1 << i for i in packed["coarse"]["skip_w"]),
         cfg_f.D, sum(1 << i for i in packed["fine"]["skip_w"]),
         float(near), float(far), int(bool(lindisp)), int(bool(white_bkgd)),
-        0 if seed is None else int(seed) & 0xFFFFFFFF, int(ray_base), int(det), int(fp32),
+        None if seed_ptr is None else seed_ptr.data_ptr(),
+        0 if seed is None or isinstance(seed, torch.Tensor) else int(seed) & 0xFFFFFFFF,
+        int(ray_base), int(det), int(fp32),
         build.host_pointer(plan_c), build.host_pointer(plan_f), build.current_stream(rays_o.device),
     )
     build.check(rc, "render_hier_kernel")
@@ -267,7 +291,7 @@ def fused_render_hier(
     rays_o: torch.Tensor,
     rays_d: torch.Tensor,
     *,
-    seed: int | None,
+    seed: int | torch.Tensor | None,
     ray_base: int = 0,
     n_coarse: int = 64,
     n_importance: int = 128,
@@ -282,7 +306,8 @@ def fused_render_hier(
 ) -> dict[str, torch.Tensor]:
     """The hierarchical pass of [N, 3] rays
     (nerf_sampling_tpu/kernels/fused_hier.py::fused_render_hier): seeded
-    through K6 (its rows being the global rays from ``ray_base`` on), or
+    through K6 (its rows being the global rays from ``ray_base`` on; the
+    seed an int or a 0-d integer tensor on the rays' device), or
     deterministic through K7 with ``seed=None``; ``packed``
     is ``pack_hier(coarse, fine, dtype)`` of the NeRFs as they are now, or
     ``qpack_hier`` for int8."""

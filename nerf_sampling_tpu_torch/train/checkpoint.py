@@ -31,6 +31,10 @@ are the file's. The two optimizers are torch Adam state dicts keyed by
 the position of each parameter in the reference modules' ``parameters()``
 order (``nerf_param_order``, ``depth_param_order``), whatever order the
 port's modules register them in.
+
+A restored Adam's ``step`` count lies on its parameter's device, where the
+card's capturable Adam keeps it (train/state.py); a save or an export reads
+it once.
 """
 
 from __future__ import annotations
@@ -228,7 +232,7 @@ def adam_state_from_jax(opt_tree, model: torch.nn.Module, optimizer: torch.optim
     mu, nu = depth_net_state_dict(adam["mu"]), depth_net_state_dict(adam["nu"])
     for name, p in model.named_parameters():
         optimizer.state[p] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
+            "step": torch.tensor(float(count), dtype=torch.float32, device=p.device),
             "exp_avg": mu[name].to(p.device).reshape(p.shape).clone(),
             "exp_avg_sq": nu[name].to(p.device).reshape(p.shape).clone(),
         }
@@ -275,7 +279,7 @@ def nerf_adam_state_from_jax(opt_tree, model: torch.nn.Module, optimizer: torch.
     for name, p in model.named_parameters():
         net, key = name.split(".", 1)
         optimizer.state[p] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
+            "step": torch.tensor(float(count), dtype=torch.float32, device=p.device),
             "exp_avg": mu[net][key].to(p.device).reshape(p.shape).clone(),
             "exp_avg_sq": nu[net][key].to(p.device).reshape(p.shape).clone(),
         }
@@ -457,7 +461,7 @@ def adam_state_from_torch(opt_sd: dict, model: torch.nn.Module, optimizer: torch
     params = dict(model.named_parameters())
     for idx, st in opt_sd["state"].items():
         p = params[names[idx]]
-        optimizer.state[p] = {"step": st["step"].detach().to(torch.float32).clone(),
+        optimizer.state[p] = {"step": st["step"].detach().to(p.device, torch.float32).clone(),
                               "exp_avg": st["exp_avg"].to(p.device, p.dtype).clone(),
                               "exp_avg_sq": st["exp_avg_sq"].to(p.device, p.dtype).clone()}
 

@@ -42,6 +42,15 @@ sliced, K6 keyed by the global ray index through ``ray_base``);
 the update; and ``reduce_metrics``, which turns the rank's means and sums
 into the whole batch's before the PSNRs and the fg/bg ratios are formed.
 Left at their defaults, the steps are the one-device steps.
+
+A step's ``seed`` is an int, or a ``StepSeed``: K6's seed as a 0-d device
+tensor and one generator for the torch draws, which is how a step captured
+in a CUDA graph takes a new seed at every replay (train/dispatch.py, the
+counterpart of the JAX ``make_multi_step``). Both give the draws of the
+same int seed. The step bodies launch only device work, with no host read
+of a device value and no host-to-device copy, so a graph can hold them;
+their host bookkeeping (the step counts, the update counts) is the
+dispatcher's to repeat at each replay.
 """
 
 from __future__ import annotations
@@ -79,6 +88,23 @@ class StepDraws(NamedTuple):
 
     t_rand: torch.Tensor  # [N, N_samples]
     u: torch.Tensor  # [N, N_importance]
+
+
+class StepSeed(NamedTuple):
+    """A step's seed as a captured step reads it: K6's from device memory,
+    the torch draws from a generator registered with the graph, both set
+    to the step's int seed before each replay."""
+
+    k6: torch.Tensor  # 0-d int32 on the device
+    generator: torch.Generator
+
+
+def _generator(seed: int | StepSeed, device: torch.device) -> torch.Generator:
+    """The step's generator: a ``StepSeed``'s, or a fresh one seeded with
+    the int seed."""
+    if isinstance(seed, StepSeed):
+        return seed.generator
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _in_precision(p: Pipeline, step: Callable) -> Callable:
@@ -135,7 +161,7 @@ def _fg_bg_sums(depth_z, max_z, acc, thresh: float = 0.5) -> dict[str, torch.Ten
     se = (depth_z - max_z) ** 2
     fg = (acc > thresh).to(se.dtype)
     return {"se_fg": torch.sum(se * fg), "se_bg": torch.sum(se * (1.0 - fg)), "n_fg": torch.sum(fg),
-            "n": torch.tensor(float(se.shape[0]), dtype=se.dtype, device=se.device)}
+            "n": torch.full((), float(se.shape[0]), dtype=se.dtype, device=se.device)}
 
 
 def _fg_bg_depth_diagnostics(sums: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -174,7 +200,7 @@ def depth_net_loss(
     depth: DepthNet,
     rays: RayBatch,
     target: torch.Tensor,
-    seed: int,
+    seed: int | StepSeed,
     draws: StepDraws | None = None,
     *,
     rows: Rows | None = None,
@@ -195,7 +221,8 @@ def depth_net_loss(
             hm = fused_hier.fused_render_hier(
                 hier, frozen.coarse.cfg, fine.cfg, rays.rays_o, rays.rays_d,
                 n_coarse=p.N_samples, n_importance=p.N_importance, near=p.near, far=p.far,
-                white_bkgd=p.white_bkgd, lindisp=p.lindisp, seed=seed, ray_base=0 if rows is None else rows[0],
+                white_bkgd=p.white_bkgd, lindisp=p.lindisp, seed=seed.k6 if isinstance(seed, StepSeed) else seed,
+                ray_base=0 if rows is None else rows[0],
                 draws=None if draws is None else torch.cat([draws.t_rand, draws.u], -1).contiguous(),
                 multires=p.multires, multires_views=p.multires_views,
             )
@@ -207,9 +234,7 @@ def depth_net_loss(
             depth_raw = _query_fine_or_coarse(p, frozen, depth_pts, rays)
             rgb = raw2outputs(depth_raw, depth_z, rays.rays_d, 0.0, p.white_bkgd).rgb_map
     else:
-        generator = None
-        if draws is None:
-            generator = torch.Generator(device=rays.rays_o.device).manual_seed(seed)
+        generator = None if draws is not None else _generator(seed, rays.rays_o.device)
         with record_function("depth_net_forward"):
             out = render_rays_train(
                 p, frozen._replace(depth=depth), rays, generator,
@@ -246,7 +271,7 @@ def make_depth_net_train_step(pipeline: Pipeline, frozen: NeRFParams, *, reduce_
             model.requires_grad_(False)
     check_hier_oracle(pipeline)
 
-    def step(state: TrainState, batch, seed: int, draws: StepDraws | None = None):
+    def step(state: TrainState, batch, seed: int | StepSeed, draws: StepDraws | None = None):
         rays_o, rays_d, target = batch
         rows = _rows(shard, rays_o.shape[0])
         rays = make_ray_batch(pipeline, rays_o, rays_d)
@@ -260,14 +285,15 @@ def make_depth_net_train_step(pipeline: Pipeline, frozen: NeRFParams, *, reduce_
             with record_function("all_reduce_grads"):
                 reduce_grads([state.model])
         with record_function("adam"):
-            state.optimizer.step()
+            apply_update(state)
         state.step += 1
         return state, metrics
 
     return _in_precision(pipeline, step)
 
 
-def _step_generator(rays: RayBatch, seed: int, draws: StepDraws | None, shard: tuple[int, int] = (0, 1)) -> dict:
+def _step_generator(rays: RayBatch, seed: int | StepSeed, draws: StepDraws | None,
+                    shard: tuple[int, int] = (0, 1)) -> dict:
     """The sampling arguments of a step: its seeded generator (with the
     rank's row window), or the draws (the rank's rows of them)."""
     n = rays.rays_o.shape[0]
@@ -275,7 +301,7 @@ def _step_generator(rays: RayBatch, seed: int, draws: StepDraws | None, shard: t
     if draws is not None:
         draws = _window(draws, rows, n)
         return {"generator": None, "t_rand": draws.t_rand, "u": draws.u}
-    return {"generator": torch.Generator(device=rays.rays_o.device).manual_seed(seed), "rows": rows}
+    return {"generator": _generator(seed, rays.rays_o.device), "rows": rows}
 
 
 def nerf_pair(model: torch.nn.Module) -> NeRFParams:
@@ -298,7 +324,7 @@ def make_nerf_train_step(pipeline: Pipeline, *, reduce_grads: Callable | None = 
     if p.mlp_impl in KERNEL_IMPLS:
         check_kernel_queries(p)
 
-    def step(state: TrainState, batch, seed: int, draws: StepDraws | None = None):
+    def step(state: TrainState, batch, seed: int | StepSeed, draws: StepDraws | None = None):
         rays_o, rays_d, target = batch
         rays = make_ray_batch(p, rays_o, rays_d)
         with record_function("nerf_forward"):
@@ -347,7 +373,7 @@ def make_joint_train_step(pipeline: Pipeline, *, reduce_grads: Callable | None =
     if p.mlp_impl in KERNEL_IMPLS:
         check_kernel_queries(p)
 
-    def step(nerf_state: TrainState, depth_state: TrainState, batch, seed: int,
+    def step(nerf_state: TrainState, depth_state: TrainState, batch, seed: int | StepSeed,
              draws: StepDraws | None = None):
         rays_o, rays_d, target = batch
         rays = make_ray_batch(p, rays_o, rays_d)
@@ -385,7 +411,7 @@ def make_joint_train_step(pipeline: Pipeline, *, reduce_grads: Callable | None =
                                    _fg_bg_sums(depth_z.detach(), max_z, acc), reduce_metrics)
             metrics = {**means, "psnr": mse2psnr(means["img_loss"]), **_fg_bg_depth_diagnostics(sums)}
             if p.joint_depth_warmup:
-                metrics["depth_live"] = torch.tensor(float(live))
+                metrics["depth_live"] = torch.full((), float(live), device=rays_o.device)
         return nerf_state, depth_state, metrics
 
     return _in_precision(p, step)

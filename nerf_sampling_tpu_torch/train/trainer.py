@@ -69,8 +69,16 @@ same keep_best and early-stop decisions. Only rank 0 (``primary``) writes:
 args.txt, checkpoints, psnr.txt, PNGs, videos, the trace and the metrics
 logger. The device is ``cuda:LOCAL_RANK`` unless one is given.
 
-``steps_per_dispatch`` > 1 is not ported yet (ROADMAP S7b) and raises
-NotImplementedError; nothing falls back quietly.
+``steps_per_dispatch`` (JAX :577-712): K steps per host sync, the
+counterpart of the JAX Trainer's scanned loop (``resolve_steps_per_dispatch``
+gives K; 0 is auto). The loop then runs chunks of K steps through
+``train/dispatch.py``: on the card each step after the first of its graph
+replays a captured CUDA graph, on the CPU the steps run eagerly; either way
+the run equals the per-step loop bit for bit (same sampler stream, same
+per-step seeds). The chunk's metrics are read once, each step is logged
+from them, and the next chunk's batches are sampled before that read, so
+the sampler's host work overlaps the device. K divides the logging
+cadences, so checkpoints, evals and early stops fall on chunk ends.
 """
 
 from __future__ import annotations
@@ -78,6 +86,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 import os
 
 import numpy as np
@@ -102,6 +111,7 @@ from nerf_sampling_tpu_torch.render.engine import (
 from nerf_sampling_tpu_torch.render.path import render_path
 from nerf_sampling_tpu_torch.render.quantize import calibrate_pipeline
 from nerf_sampling_tpu_torch.train import checkpoint as ckpt_lib
+from nerf_sampling_tpu_torch.train.dispatch import StepDispatcher
 from nerf_sampling_tpu_torch.train.sampler import RaySampler, SamplerConfig
 from nerf_sampling_tpu_torch.train.state import TrainState, init_nerf_state, init_state, nerf_modules
 from nerf_sampling_tpu_torch.train.steps import (
@@ -128,14 +138,47 @@ def step_seed(seed: int, i: int) -> int:
     return int(np.random.SeedSequence([seed, i]).generate_state(1)[0] >> 1)
 
 
-def _unported(cfg: TrainerConfig) -> list[str]:
-    """What ``cfg`` asks for that this port does not do, with its ROADMAP item."""
-    found = []
-    if cfg.train_mode not in TRAIN_MODES:
-        raise ValueError(f"train_mode must be one of {TRAIN_MODES}, got {cfg.train_mode!r}")
-    if cfg.steps_per_dispatch > 1:
-        found.append("steps_per_dispatch > 1 (CUDA-graph capture of K steps: ROADMAP S7b)")
-    return found
+def resolve_steps_per_dispatch(cfg: TrainerConfig, N_iters: int, start: int, device_type: str,
+                               mesh=None) -> int:
+    """Steps per host sync (``cfg.steps_per_dispatch``; 0 is auto), the JAX
+    ``Trainer._resolve_scan_steps`` (:577-630) as a pure function.
+
+    ``profile_dir`` (a per-step trace) or a run of at most 2 steps gives 1.
+    An explicit K >= 1 is rounded down to a divisor of the gcd of
+    ``i_print``, ``i_weights``, ``i_testset`` and ``i_video``, so that
+    chunk ends fall on every checkpoint, eval and log step. Auto gives 1 on
+    the CPU (no launch latency to amortize), elsewhere the largest divisor
+    of that gcd up to 100. Two rules on the card: a mesh (capture across
+    ranks is ROADMAP S7c) and ``debug_nans`` (its checks read every module
+    output on the host, which a captured step cannot) make auto 1 and an
+    explicit K > 1 an error.
+    """
+    if cfg.profile_dir is not None or N_iters - start <= 2:
+        return 1
+    g = math.gcd(math.gcd(cfg.i_print, cfg.i_weights), math.gcd(cfg.i_testset, cfg.i_video))
+    if cfg.steps_per_dispatch >= 1:
+        n = cfg.steps_per_dispatch
+        while g % n != 0:
+            n -= 1
+        if n != cfg.steps_per_dispatch:
+            print(f"[trainer] steps_per_dispatch={cfg.steps_per_dispatch} does not divide the logging cadences "
+                  f"(gcd {g}); using {n} so checkpoints/logs stay step-exact")
+        if n > 1 and device_type == "cuda":
+            if mesh is not None:
+                raise NotImplementedError(f"steps_per_dispatch={n} on a mesh of ranks: capturing steps across "
+                                          "ranks is not ported (ROADMAP S7c); use steps_per_dispatch 0 or 1")
+            if cfg.debug_nans:
+                raise ValueError(f"steps_per_dispatch={n} with debug_nans: the NaN checks read every module "
+                                 "output on the host, which a captured step cannot; use steps_per_dispatch 0 or 1")
+        return n
+    if device_type != "cuda":
+        return 1
+    if mesh is not None or cfg.debug_nans:
+        print("[trainer] steps_per_dispatch auto: 1 step per dispatch ("
+              + ("a mesh of ranks: ROADMAP S7c" if mesh is not None else "debug_nans reads every module output")
+              + ")")
+        return 1
+    return max(k for k in range(1, min(g, 100) + 1) if g % k == 0)
 
 
 def _seeded(module_cls, cfg, seed: int):
@@ -152,9 +195,8 @@ class Trainer:
     such as "cpu". ``trial`` is an optuna trial (optional, for pruning)."""
 
     def __init__(self, cfg: TrainerConfig, device: torch.device | str | None = None, trial=None):
-        unported = _unported(cfg)
-        if unported:
-            raise NotImplementedError("not ported: " + "; ".join(unported))
+        if cfg.train_mode not in TRAIN_MODES:
+            raise ValueError(f"train_mode must be one of {TRAIN_MODES}, got {cfg.train_mode!r}")
         if cfg.mlp_impl in (CUDA_INT8, "pallas_int8") and cfg.train_mode in ("nerf", "joint") \
                 and not cfg.render_only:
             # the calibration is made once, on the restored NeRF: modes that then
@@ -450,6 +492,7 @@ class Trainer:
         else:
             self._nerf_state, self._depth_state = state, depth_state
         timer = StepTimer(rays_per_step=cfg.N_rand, device=self.device)
+        n_chunk = resolve_steps_per_dispatch(cfg, N_iters, self.start, self.device.type, self.mesh)
         metrics: dict = {}
         with contextlib.ExitStack() as stack:
             stack.callback(self._barrier)  # a rank returns once rank 0's files are written
@@ -457,6 +500,8 @@ class Trainer:
             p = self.params
             if cfg.debug_nans:
                 stack.enter_context(nan_checks(m for m in (p.coarse, p.fine, p.depth) if m is not None))
+            if n_chunk > 1:
+                return self._train_chunked(step_fn, state, depth_state, sampler, N_iters, timer, n_chunk)
             # the profiler's window: closed before step start+PROFILE_STOP, or when the loop ends
             profile = stack.enter_context(contextlib.ExitStack())
             for i in range(self.start + 1, N_iters):
@@ -483,6 +528,54 @@ class Trainer:
                 self.log(i, metrics, timer)
                 if self._stop_early:
                     break
+        return float(metrics["psnr"]) if metrics else 0.0
+
+    def _train_chunked(self, step_fn, state, depth_state, sampler, N_iters: int, timer: StepTimer,
+                       n_chunk: int) -> float:
+        """The train loop with ``n_chunk`` steps per host sync (JAX
+        ``_train_scanned``, :632-712): bit-identical to the per-step loop."""
+        cfg = self.cfg
+        if cfg.train_mode == "joint":
+            warmup = self.pipeline.joint_depth_warmup
+            dispatcher = StepDispatcher(lambda batch, seed: step_fn(state, depth_state, batch, seed)[2],
+                                        [state, depth_state], self.device,
+                                        graph_key=lambda: state.step >= warmup)
+        else:
+            dispatcher = StepDispatcher(lambda batch, seed: step_fn(state, batch, seed)[1], [state], self.device)
+
+        def sample(i0: int, k: int) -> np.ndarray:
+            """The [k, N, 9] batches of steps i0 .. i0 + k - 1 (the rank's rows on a mesh)."""
+            batches = [sampler.sample(i) for i in range(i0, i0 + k)]
+            if self.mesh is not None:
+                from nerf_sampling_tpu_torch.parallel import shard_ray_batch
+
+                batches = [shard_ray_batch(self.mesh, b) for b in batches]
+            return np.stack([np.concatenate(b, -1) for b in batches])
+
+        metrics: dict = {}
+        i = self.start + 1
+        k = min(n_chunk, N_iters - i)
+        chunk = sample(i, k)
+        while i < N_iters and not self._stop_early:
+            with record_function("train_chunk"):
+                ms = dispatcher.run(chunk, [step_seed(cfg.seed, i + j) for j in range(k)])
+            # the next chunk's batches before the metrics read: the sampler's
+            # host work overlaps the device's run of this chunk
+            k_next = min(n_chunk, N_iters - (i + k))
+            if k_next > 0:
+                chunk = sample(i + k, k_next)
+            host = dispatcher.read(ms)
+            for j in range(k):
+                timer.tick()
+                metrics = {name: v[j] for name, v in host.items()}
+                if cfg.debug_nans and not np.isfinite(metrics["loss"]):
+                    raise FloatingPointError(f"step {i + j}: the loss is {float(metrics['loss'])}")
+                self.global_step = i + j
+                self.log(i + j, metrics, timer)
+                if self._stop_early:
+                    break
+            i += k
+            k = k_next
         return float(metrics["psnr"]) if metrics else 0.0
 
     def _eval_mode(self) -> EvalMode:

@@ -317,6 +317,26 @@ def trainer_worker(rank: int, world: int, out: str, datadir: str, ft_path: str) 
     torch.save(rec, os.path.join(out, f"rank{rank}.pt"))
 
 
+def chunked_trainer_worker(rank: int, world: int, out: str, datadir: str, ft_path: str) -> None:
+    """tests/test_torch_dispatch.py's ranks: depth_net and nerf mode for 8
+    steps, per step and in chunks of 4 (train/dispatch.py)."""
+    from nerf_sampling_tpu_torch.train.trainer import Trainer
+
+    rec = {}
+    for mode in ("depth_net", "nerf"):
+        rec[mode] = {}
+        for k in (1, 4):
+            cfg = trainer_cfg(datadir, os.path.join(out, f"rank{rank}_k{k}"), mode, world,
+                              ft_path if mode == "depth_net" else None)
+            tr = Trainer(dataclasses.replace(cfg, i_print=4, i_weights=4, i_testset=8, steps_per_dispatch=k),
+                         device="cpu")
+            tr.train(N_iters=9)
+            trained = [tr.params.depth] if mode == "depth_net" else [tr.params.coarse, tr.params.fine]
+            rec[mode][k] = {"lines": psnr_lines(tr.expdir) if tr.primary else None,
+                            "checksum": flat_params(trained)}
+    torch.save(rec, os.path.join(out, f"rank{rank}.pt"))
+
+
 def write_nerf_ckpt(path: str) -> str:
     """A NeRF-only checkpoint of the tiny NeRFs in the JAX layout (the port writes it)."""
     from nerf_sampling_tpu_torch.train import checkpoint as ckpt_lib

@@ -11,8 +11,10 @@
 - Checkpoints both ways, and an exact resume.
 - The Trainer and the CLI end to end on a tiny scene, the DepthNet repack
   before each eval, the options that raise (data parallelism without its
-  ranks, steps_per_dispatch > 1) and the wandb
-  fallback (nerf and joint training: tests/test_torch_nerf_train.py).
+  ranks), steps_per_dispatch > 1 on the CPU (chunks of eager steps, equal
+  to the per-step run; tests/test_torch_dispatch.py holds the rest) and
+  the wandb fallback (nerf and joint training:
+  tests/test_torch_nerf_train.py).
 """
 
 import dataclasses
@@ -376,19 +378,33 @@ def test_trainer_end_to_end_and_repack(tmp_path):
     ("n_devices", 2, ValueError, r"run --n_devices 2 .*torchrun --nproc_per_node 2"),
     ("multihost", True, ValueError, r"\['RANK'\] set but \['MASTER_ADDR', 'MASTER_PORT', 'WORLD_SIZE', 'LOCAL_RANK'\] "
                                     "missing"),
-    ("steps_per_dispatch", 4, NotImplementedError, "S7b"),
 ])
 def test_trainer_unported_options_raise(monkeypatch, field, value, exc, match):
     """Data parallelism without its ranks raises before any work: n_devices=2
     with no process group names the ways to start them, multihost with a
-    partial launcher environment names what is missing; steps_per_dispatch
-    > 1 is not ported (ROADMAP S7b)."""
+    partial launcher environment names what is missing."""
     for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
         monkeypatch.delenv(name, raising=False)
     if field == "multihost":
         monkeypatch.setenv("RANK", "0")
     with pytest.raises(exc, match=match):
         Trainer(dataclasses.replace(TrainerConfig(), **{field: value}), device="cpu")
+
+
+def test_trainer_steps_per_dispatch_trains_on_cpu(tmp_path):
+    """steps_per_dispatch=4 on the CPU runs one chunk of 4 eager steps
+    (train/dispatch.py) whose log and checkpoint equal the per-step run's."""
+    cfg = tiny_trainer_cfg(tmp_path, i_print=4, i_weights=4, i_testset=8)
+    runs = []
+    for k in (4, 1):
+        tr = Trainer(dataclasses.replace(cfg, basedir=str(tmp_path / f"k{k}"), steps_per_dispatch=k), device="cpu")
+        tr.train(N_iters=5)
+        assert tr.global_step == 4
+        with np.load(os.path.join(tr.expdir, "depth_000004.npz")) as z:
+            runs.append((open(os.path.join(tr.expdir, "psnr.txt")).read(), {k: z[k] for k in z.files}))
+    (log4, ck4), (log1, ck1) = runs
+    assert log4 == log1 and log4.startswith("Iter: 4")
+    assert sorted(ck4) == sorted(ck1) and all(np.array_equal(ck4[k], ck1[k]) for k in ck1)
 
 
 @pytest.mark.parametrize("dataset_type", ["blender", "llff", "LINEMOD", "deepvoxels", "bogus"])
@@ -433,8 +449,20 @@ def test_cli_trains_the_recipe(tmp_path):
     assert (cfg.sampling_mode, cfg.n_depth_samples, cfg.i_testset, cfg.seed) == ("gaussian", 64, 2500, 3)
     assert cfg.expname == "custom_depth_net" and tr.global_step == 2
     assert len(open(os.path.join(tr.expdir, "psnr.txt")).read().splitlines()) == 2
-    with pytest.raises(NotImplementedError, match="S7b"):
-        run.main(["-dp", datadir, "--mode", "nerf", "--steps_per_dispatch", "4", "--basedir", str(tmp_path / "logs")])
+    # --steps_per_dispatch 4 on the CPU: chunks of 4 eager steps, equal to --steps_per_dispatch 1
+    config = tmp_path / "small.yaml"
+    config.write_text("small:\n  kwargs:\n    N_rand: 64\n    netdepth: 2\n    netwidth: 32\n    netdepth_fine: 2\n"
+                      "    netwidth_fine: 32\n    N_samples: 8\n    N_importance: 16\n    i_weights: 100\n")
+    logs = {}
+    for k in ("4", "1"):
+        tr = run.main(["-c", str(config), "-m", "small", "-dp", datadir, "--mode", "nerf", "--steps_per_dispatch", k,
+                       "--n_iters", "8", "-ip", "4", "--basedir", str(tmp_path / f"spd{k}"), "--testskip", "1",
+                       "--device", "cpu"])
+        assert tr.cfg.steps_per_dispatch == int(k) and tr.global_step == 8
+        logs[k] = (open(os.path.join(tr.expdir, "psnr.txt")).read(),
+                   torch.cat([p.detach().flatten() for p in tr.params.fine.parameters()]))
+    assert logs["4"][0] == logs["1"][0] and len(logs["4"][0].splitlines()) == 2
+    assert torch.equal(logs["4"][1], logs["1"][1])
 
 
 def test_cli_default_recipe_on_kernels_raises_before_step_1(tmp_path):
