@@ -173,15 +173,35 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    warmup and depth_live 0 then 1; (e) the capturable Adam against torch's
    default Adam, one update within rtol 1e-6 plus ADAM_MOVE_TOL lr (the
    fp32 bias corrections move each parameter up to 6.4e-6 of its move
-   differently) and the largest difference after 50 steps printed; (f) run.py's depth-net recipe for DISPATCH_ITERS
+   differently) and the largest difference after 50 steps printed, and
+   both against optax.adam's rule in numpy fp32 (optax_adam_np), one
+   update from optax's state at each of the 50 steps: which is closer is
+   printed, and the capturable one must stay within rtol 1e-6 plus
+   ADAM_MOVE_TOL lr; (f) run.py's depth-net recipe for DISPATCH_ITERS
    steps with --steps_per_dispatch 0 (auto, captured) and 1: psnr.txt and
    every checkpoint array bit for bit, K6 launches equal to the steps in
    both (the K6 record's "dispatch_launches"). The median ms a step of both
    loops in turns, and the device idle share of one profiled captured
-   chunk, are printed with the card's name and power limit. Every training
-   phase above runs run.py with the auto default, so on the card its steps
-   are CUDA-graph replays ([tar], which traces, and [scaleout], which has a
-   mesh, run one step per dispatch).
+   chunk, are printed with the card's name and power limit. Then on a
+   one-rank NCCL mesh (this process, its group formed by
+   parallel.ops.spawn): (g) an all-reduce on a group formed under
+   TORCH_NCCL_BLOCKING_WAIT=1 captured and replayed to the right values
+   (the resolver has no rule for that setting); the sharded steps (make_sharded_*_train_step,
+   their gradient and metric all-reduces inside each captured graph) of
+   (b)-(d) in captured chunks against the per-step sharded loop, bit for
+   bit as there, that loop bit for bit the one-rank loop of (b)-(d), the
+   times of both loops, the idle share and the NCCL kernels a step of a
+   profiled captured chunk (the K4, K5 and K6 records gain
+   "mesh_dispatch_launches"); (h) run.py --multihost in a subprocess with
+   the launcher's variables for one rank (MASTER_ADDR, MASTER_PORT,
+   WORLD_SIZE=1, RANK=0, LOCAL_RANK=0), DISPATCH_ITERS depth-net steps with
+   --steps_per_dispatch 0 against 1: auto above 1 with a graph captured,
+   psnr.txt and every
+   checkpoint array bit for bit, K6 launches equal to the steps in both
+   (the K6 record's "mesh_cli_launches"). Every training phase above runs
+   run.py with the auto default, so on the card its steps are CUDA-graph
+   replays ([tar], which traces, and [scaleout], whose gloo mesh copies
+   through the host, run one step per dispatch).
 12. [scaleout], last: data parallelism (nerf_sampling_tpu_torch/parallel/)
    at the production widths (the committed checkpoint, 1024 rays a step,
    64 + 128 samples, view 0 at 400x400). (a) K6 on rows 512:1024 of a
@@ -214,7 +234,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    rank 0's step-60 DepthNet, rank 1 wrote no file. Each rank's launches
    and the 2-rank step and frame times (two ranks sharing one card:
    correctness, not scaling) are printed; the record carries each
-   kernel's launches on the ranks as "scaleout_launches".
+   kernel's launches on the ranks as "scaleout_launches". (i) the Trainer
+   with steps_per_dispatch 4 on the two gloo ranks raises ValueError
+   naming gloo before step 1, no kernel launched.
 
 Every kernel runs its MLP on the wgmma core (csrc/mlp_wgmma.cuh): K1 in
 bf16 and fp32 (depth_net.cu), K2, K3, K8 and K9 in bf16, int8 and fp32
@@ -2802,14 +2824,17 @@ DISPATCH_WARMUP = 15  # (d): the joint step's joint_depth_warmup, inside the sec
 DISPATCH_ITERS = 200  # (f): Trainer steps through run.main, auto against steps_per_dispatch 1
 ADAM_MOVE_TOL = 1e-5  # (e): the moves' difference, in lr, beside rtol 1e-6 (check_capturable_adam)
 DISPATCH_TURNS = 3  # the timing: chunks of each loop, in turns (eager, captured, captured, eager, ...)
+MESH_DIR = os.path.join(HERE, "logs", "chip_smoke_mesh")  # (g)'s rendezvous, (h)'s runs (gitignored)
 
 
-def dispatch_case(kind: str, params, pipes: dict, seed: int = 42):
+def dispatch_case(kind: str, params, pipes: dict, seed: int = 42, mesh=None):
     """A fresh train state from the committed checkpoint and the step of
     ``kind`` (depth, depth_int8, nerf, joint) as ``step(batch, seed) ->
-    metrics``: (step, states, graph_key)."""
+    metrics``: (step, states, graph_key). With ``mesh`` the step is the
+    sharded one of the rank's rows (parallel/ops.py), its all-reduces inside."""
     import copy
     import dataclasses
+    import functools
 
     from nerf_sampling_tpu_torch.render import pack_kernel_weights
     from nerf_sampling_tpu_torch.train.state import init_nerf_state, init_state, nerf_modules
@@ -2819,6 +2844,12 @@ def dispatch_case(kind: str, params, pipes: dict, seed: int = 42):
         make_nerf_train_step,
     )
 
+    if mesh is not None:
+        from nerf_sampling_tpu_torch.parallel import ops
+
+        make_depth_net_train_step = functools.partial(ops.make_sharded_depth_train_step, mesh=mesh)
+        make_nerf_train_step = functools.partial(ops.make_sharded_nerf_train_step, mesh=mesh)
+        make_joint_train_step = functools.partial(ops.make_sharded_joint_train_step, mesh=mesh)
     if kind.startswith("depth"):
         pipe = pipes["cuda_int8" if kind == "depth_int8" else "cuda"]
         frozen = params if kind == "depth" else pack_kernel_weights(params, with_hier=True,
@@ -2859,28 +2890,36 @@ def eager_chunk(step, stack: np.ndarray, seeds, device) -> np.ndarray:
     return torch.stack(out).cpu().numpy()
 
 
-def check_dispatch_steps(kind: str, params, pipes: dict, sampler, device) -> dict:
-    """(b)-(d) for one step: DISPATCH_CHUNKS[kind] chunks captured and
-    replayed (train/dispatch.py) against as many eager steps, from one state,
-    sampler stream and seeds: every step's metrics, the final parameters
-    and Adam state bit for bit; then the median ms a step of both loops in
-    turns, and one captured chunk profiled. Returns the times."""
+def check_dispatch_steps(kind: str, params, pipes: dict, sampler, device, mesh=None) -> dict:
+    """(b)-(d) for one step, and (g) with ``mesh``, the sharded step of the
+    rank's rows: DISPATCH_CHUNKS[kind] chunks captured and replayed
+    (train/dispatch.py) against as many eager steps, from one state, sampler
+    stream and seeds: every step's metrics, the final parameters and Adam
+    state bit for bit; then the median ms a step of both loops in turns,
+    and one captured chunk profiled (with ``mesh``, its NCCL kernels a
+    step). Returns the times, the eager metrics, the launches counted in the
+    captured run and the NCCL kernels a step."""
     from nerf_sampling_tpu_torch.kernels import fused_hier as k6
     from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
     from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
+    from nerf_sampling_tpu_torch.parallel import shard_ray_batch
     from nerf_sampling_tpu_torch.train.dispatch import StepDispatcher
     from nerf_sampling_tpu_torch.train.trainer import step_seed
 
     k, n_chunks = DISPATCH_CHUNKS[kind]
+    tag = f"[dispatch] ({kind})" if mesh is None else f"[dispatch] (g) ({kind}, {mesh.world} {mesh.backend} rank)"
     t0 = time.perf_counter()
-    chunks = []
-    for c in range(n_chunks):
-        i0 = 1 + c * k
-        chunks.append((np.stack([np.concatenate(sampler.sample(i), -1) for i in range(i0, i0 + k)]),
-                       [step_seed(42, i) for i in range(i0, i0 + k)]))
-    eager_step, eager_states, _ = dispatch_case(kind, params, pipes)
+
+    def stack_of(i0: int) -> tuple[np.ndarray, list[int]]:
+        rows = [sampler.sample(i) for i in range(i0, i0 + k)]
+        if mesh is not None:
+            rows = [shard_ray_batch(mesh, b) for b in rows]
+        return np.stack([np.concatenate(b, -1) for b in rows]), [step_seed(42, i) for i in range(i0, i0 + k)]
+
+    chunks = [stack_of(1 + c * k) for c in range(n_chunks)]
+    eager_step, eager_states, _ = dispatch_case(kind, params, pipes, mesh=mesh)
     want = np.concatenate([eager_chunk(eager_step, st, sd, device) for st, sd in chunks])
-    cap_step, cap_states, key = dispatch_case(kind, params, pipes)
+    cap_step, cap_states, key = dispatch_case(kind, params, pipes, mesh=mesh)
     disp = StepDispatcher(cap_step, cap_states, device, graph_key=key)
     counters = [(m, c) for m in (k4, k5, k6) for c in ("launches", "int8_launches") if hasattr(m, c)]
     before = [getattr(m, c) for m, c in counters]
@@ -2896,36 +2935,34 @@ def check_dispatch_steps(kind: str, params, pipes: dict, sampler, device) -> dic
     a, b = state_tensors(eager_states), state_tensors(cap_states)
     same_state = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
     n_steps = k * n_chunks
-    log(f"[dispatch] ({kind}) {n_chunks} captured chunks of {k} steps against {n_steps} eager steps: metrics "
+    log(f"{tag} {n_chunks} captured chunks of {k} steps against {n_steps} eager steps: metrics "
         f"{disp.names} bit for bit {same_metrics}, parameters and Adam state ({len(a)} tensors) bit for bit "
         f"{same_state}; graphs captured {len(disp._graphs)}; launches counted in the captured run {launched}")
     if not same_metrics:
         rows = np.nonzero(np.any(got != want, 1))[0] if got.shape == want.shape else []
-        log(f"[dispatch] ({kind}) first differing steps {list(rows[:5])}: captured {got[rows[:1]]}, eager "
+        log(f"{tag} first differing steps {list(rows[:5])}: captured {got[rows[:1]]}, eager "
             f"{want[rows[:1]]}")
-    require(same_metrics and same_state, f"[dispatch] the captured {kind} steps differ from the eager ones")
+    require(same_metrics and same_state, f"{tag} the captured steps differ from the eager ones")
     per_step_launches = {"depth": ("render_hier_kernel", "fused_hier.launches"),
                          "depth_int8": ("render_hier_kernel_int8", "fused_hier.int8_launches")}
     if kind in per_step_launches:
         require(launched.get(per_step_launches[kind][1]) == n_steps,
-                f"[dispatch] ({kind}) K6 counted {launched} over {n_steps} captured steps")
+                f"{tag} K6 counted {launched} over {n_steps} captured steps")
     else:
         require(launched.get("fused_nerf.launches", 0) > 0 and launched.get("fused_nerf_vjp.launches", 0) > 0,
-                f"[dispatch] ({kind}) K4/K5 not counted over the captured steps: {launched}")
+                f"{tag} K4/K5 not counted over the captured steps: {launched}")
     if kind == "joint":
         live = got[:, disp.names.index("depth_live")]
         require(np.array_equal(live, (np.arange(1, n_steps + 1) > DISPATCH_WARMUP).astype(np.float32)),
-                f"[dispatch] (joint) depth_live {live} does not turn on after step {DISPATCH_WARMUP}")
-        log(f"[dispatch] (joint) depth_live 0 through step {DISPATCH_WARMUP}, then 1; the DepthNet bit for bit "
+                f"{tag} depth_live {live} does not turn on after step {DISPATCH_WARMUP}")
+        log(f"{tag} depth_live 0 through step {DISPATCH_WARMUP}, then 1; the DepthNet bit for bit "
             f"unchanged at the chunk ends of the warmup {held}")
-        require(held, "[dispatch] (joint) the DepthNet moved during the warmup")
+        require(held, f"{tag} the DepthNet moved during the warmup")
 
     # the two loops' time a step, chunk by chunk in turns, from where the runs stopped
     times = {"eager": [], "captured": []}
     for turn in range(DISPATCH_TURNS):
-        i0 = 1 + (n_chunks + turn) * k
-        stack = np.stack([np.concatenate(sampler.sample(i), -1) for i in range(i0, i0 + k)])
-        seeds = [step_seed(42, i) for i in range(i0, i0 + k)]
+        stack, seeds = stack_of(1 + (n_chunks + turn) * k)
         order = ("eager", "captured") if turn % 2 == 0 else ("captured", "eager")
         for loop in order:
             torch.cuda.synchronize()
@@ -2936,16 +2973,19 @@ def check_dispatch_steps(kind: str, params, pipes: dict, sampler, device) -> dic
                 disp.read(disp.run(stack, seeds))
             times[loop].append((time.perf_counter() - t1) * 1e3 / k)
     eager_ms, cap_ms = (float(np.median(times[n])) for n in ("eager", "captured"))
-    log(f"[dispatch] ({kind}) median ms a step, chunks of {k} with one sync each, in turns: per-step loop "
+    log(f"{tag} median ms a step, chunks of {k} with one sync each, in turns: per-step loop "
         f"{eager_ms:.3f} ms, captured chunks {cap_ms:.3f} ms ({eager_ms / cap_ms:.2f}x)")
-    i0 = 1 + (n_chunks + DISPATCH_TURNS) * k
-    stack = np.stack([np.concatenate(sampler.sample(i), -1) for i in range(i0, i0 + k)])
-    seeds = [step_seed(42, i) for i in range(i0, i0 + k)]
-    wall, rows = profile_frame(lambda: disp.read(disp.run(stack, seeds)), f"one captured chunk of {k} {kind} steps",
-                               top=6)
+    stack, seeds = stack_of(1 + (n_chunks + DISPATCH_TURNS) * k)
+    wall, rows = profile_frame(lambda: disp.read(disp.run(stack, seeds)), f"one captured chunk of {k} {kind} steps"
+                               + ("" if mesh is None else f" on {mesh.world} {mesh.backend} rank"), top=6)
     busy = sum(e.self_device_time_total for e in rows) / 1e3
-    log(f"[dispatch] ({kind}) phase {time.perf_counter() - t0:.1f} s")
-    return {"eager_ms": eager_ms, "captured_ms": cap_ms, "idle": 1 - busy / wall}
+    nccl = {e.key[:60]: e.count / k for e in rows if "nccl" in e.key.lower()}
+    if mesh is not None:
+        log(f"{tag} NCCL kernels a step in the profiled captured chunk: "
+            + (", ".join(f"{n} x{c:g}" for n, c in nccl.items()) or "none"))
+    log(f"{tag} phase {time.perf_counter() - t0:.1f} s")
+    return {"eager_ms": eager_ms, "captured_ms": cap_ms, "idle": 1 - busy / wall, "metrics": want,
+            "launched": launched, "nccl": nccl}
 
 
 def check_k6_seed_word(params, pipes: dict, batches, device) -> dict[str, dict[str, float]]:
@@ -3001,6 +3041,22 @@ def check_k6_seed_word(params, pipes: dict, batches, device) -> dict[str, dict[s
     return out
 
 
+def optax_adam_np(p: np.ndarray, g: np.ndarray, mu: np.ndarray, nu: np.ndarray, count: int, lr: float,
+                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """optax.adam's update of one fp32 array, in numpy fp32 (no JAX):
+    scale_by_adam (the moments as (1 - b) * g^k + b * m, the bias
+    corrections 1 - b**count in fp32, as
+    optax.tree_utils.tree_bias_correction forms them from its int32 count),
+    then scale_by_learning_rate (-lr * u) and apply_updates (p + u).
+    ``count`` is the update's own (1 for the first). Returns (p, mu, nu)."""
+    f = np.float32
+    mu = f(1 - b1) * g + f(b1) * mu
+    nu = f(1 - b2) * (g * g) + f(b2) * nu
+    c = f(count)
+    u = (mu / (f(1) - f(b1) ** c)) / (np.sqrt(nu / (f(1) - f(b2) ** c)) + f(eps))
+    return p + f(-lr) * u, mu, nu
+
+
 def check_capturable_adam(params, pipes: dict, sampler, device) -> None:
     """(e): one depth step's update by the capturable Adam (the port's on
     the card) against torch's default Adam from one state and gradient:
@@ -3010,7 +3066,11 @@ def check_capturable_adam(params, pipes: dict, sampler, device) -> None:
     host in double, so every move differs by up to about 6.4e-6 of itself
     (at most lr), more than 1e-6 of a parameter near zero. The largest
     difference after 50 steps of each on the same batches and seeds is
-    printed."""
+    printed. C1: at each of the 50 steps, both rules and optax.adam's
+    (``optax_adam_np``) make one update from one shared state (optax's
+    parameters, moments and count) with that step's gradient; which rule
+    is closer to optax's is printed, and the capturable one must stay within
+    rtol 1e-6 plus ADAM_MOVE_TOL lr of it."""
     import copy
 
     from nerf_sampling_tpu_torch.train.state import TrainState, init_state
@@ -3026,6 +3086,14 @@ def check_capturable_adam(params, pipes: dict, sampler, device) -> None:
             and not any(g["capturable"] for g in states[False].optimizer.param_groups), "capturable flags")
     diffs = []
     start = [p.detach().clone() for p in params.depth.parameters()]
+    # C1: the shared state (optax's) and each torch rule's own parameters
+    ref = [(p.cpu().numpy(), np.zeros(p.shape, np.float32), np.zeros(p.shape, np.float32)) for p in start]
+    leaves = {c: [torch.nn.Parameter(p.clone()) for p in start] for c in (True, False)}
+    rules = {True: torch.optim.Adam(leaves[True], lr=torch.full((), lr, device=device), betas=(0.9, 0.999),
+                                    eps=1e-8, capturable=True),
+             False: torch.optim.Adam(leaves[False], lr=lr, betas=(0.9, 0.999), eps=1e-8)}
+    off = {c: {"max": 0.0, "first": 0.0, "unequal": 0, "outside": 0} for c in (True, False)}
+    n_params = sum(p.numel() for p in start)
     for i in range(1, 51):
         batch = tuple(torch.from_numpy(x).to(device) for x in sampler.sample(i))
         for st in states.values():
@@ -3041,8 +3109,57 @@ def check_capturable_adam(params, pipes: dict, sampler, device) -> None:
                 f"{n_out} of {sum(x.numel() for x in a)} outside rtol 1e-6 alone; the moves differ by up to "
                 f"{moves:.3e} lr")
             require(close, "[dispatch] the capturable Adam's update is off the default Adam's")
+        grads = [p.grad.detach() for p in states[True].model.parameters()]
+        for c, opt in rules.items():
+            for q, (p0, m0, v0), g in zip(leaves[c], ref, grads):
+                with torch.no_grad():
+                    q.copy_(torch.from_numpy(p0))
+                q.grad = g.clone()
+                st = opt.state.get(q)
+                if st:  # after the first update: optax's moments and count
+                    st["exp_avg"].copy_(torch.from_numpy(m0))
+                    st["exp_avg_sq"].copy_(torch.from_numpy(v0))
+                    st["step"].fill_(i - 1)
+            opt.step()
+        ref = [optax_adam_np(p0, g.cpu().numpy(), m0, v0, i, lr) for (p0, m0, v0), g in zip(ref, grads)]
+        for c in rules:
+            worst, unequal, outside = 0.0, 0, 0
+            for q, (p1, _, _) in zip(leaves[c], ref):
+                got = q.detach().cpu().numpy()
+                d = np.abs(got - p1)
+                worst = max(worst, float(d.max()) / lr)
+                unequal += int((got != p1).sum())
+                outside += int((d > 1e-6 * np.abs(p1) + ADAM_MOVE_TOL * lr).sum())
+            o = off[c]
+            o["max"], o["unequal"], o["outside"] = max(o["max"], worst), o["unequal"] + unequal, o["outside"] + outside
+            if i == 1:
+                o["first"], o["first_unequal"] = worst, unequal
     log(f"[dispatch] (e) after 50 steps of each on the same batches and seeds: largest parameter difference "
         f"{diffs[-1]:.3e} (after 10: {diffs[9]:.3e})")
+    names = {True: "capturable Adam (the card's)", False: "torch's default Adam (the CPU's)"}
+    for c, o in off.items():
+        log(f"[dispatch] (e) C1 {names[c]} against optax.adam's rule in numpy fp32, one update from optax's state "
+            f"and each of 50 steps' gradients: update 1 {o['first_unequal']} of {n_params} parameters not bit for "
+            f"bit, up to {o['first']:.3e} lr apart; over the 50 updates {o['unequal']} of {50 * n_params} not bit "
+            f"for bit, up to {o['max']:.3e} lr apart, {o['outside']} outside rtol 1e-6 plus {ADAM_MOVE_TOL:g} lr")
+    closer = min(off, key=lambda c: (off[c]["unequal"], off[c]["max"]))
+    log(f"[dispatch] (e) C1: the {names[closer]} is the closer to optax's rule: "
+        f"{off[not closer]['unequal']} against {off[closer]['unequal']} parameters off its bits over the 50 updates, "
+        f"at most {off[not closer]['max']:.3e} against {off[closer]['max']:.3e} lr apart")
+    require(off[True]["outside"] == 0, "[dispatch] (e) C1: the capturable Adam's update is off optax's rule")
+
+
+def run_outputs(expdir: str) -> tuple[str, dict]:
+    """An experiment's psnr.txt and every array of its checkpoints, by (file, key)."""
+    with open(os.path.join(expdir, "psnr.txt")) as fp:
+        text = fp.read()
+    arrays = {}
+    for root, _, files in os.walk(expdir):
+        for f in files:
+            if f.endswith(".npz"):
+                with np.load(os.path.join(root, f)) as z:
+                    arrays.update({(os.path.relpath(os.path.join(root, f), expdir), key): z[key] for key in z.files})
+    return text, arrays
 
 
 def run_dispatch_trainer(device) -> int:
@@ -3050,12 +3167,12 @@ def run_dispatch_trainer(device) -> int:
     --steps_per_dispatch 0 (auto: captured chunks) and 1, evals at every
     100: psnr.txt identical, every checkpoint array bit for bit (the keep_best
     ones and one written after each run), K6 launches equal to the steps in
-    both. Returns the auto run's K6 launches."""
+    both, the chunk and the graphs each run used read from its Trainer.
+    Returns the auto run's K6 launches."""
     import shutil
 
     from nerf_sampling_tpu_torch.experiments import run
     from nerf_sampling_tpu_torch.kernels import fused_hier as k6
-    from nerf_sampling_tpu_torch.train.trainer import resolve_steps_per_dispatch
 
     shutil.rmtree(DISPATCH_DIR, ignore_errors=True)
     os.makedirs(DISPATCH_DIR)
@@ -3072,34 +3189,163 @@ def run_dispatch_trainer(device) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         trainer.save_checkpoint(trainer.global_step, subdir="final")
-        chunk = resolve_steps_per_dispatch(trainer.cfg, DISPATCH_ITERS + 1, 0, "cuda")
-        with open(os.path.join(trainer.expdir, "psnr.txt")) as fp:
-            text = fp.read()
-        arrays = {}
-        for root, _, files in os.walk(trainer.expdir):
-            for f in files:
-                if f.endswith(".npz"):
-                    with np.load(os.path.join(root, f)) as z:
-                        arrays.update({(os.path.relpath(os.path.join(root, f), trainer.expdir), key): z[key]
-                                       for key in z.files})
+        chunk = (trainer.steps_per_dispatch, trainer.captured_graphs)
+        text, arrays = run_outputs(trainer.expdir)
         runs[k] = (text, arrays, k6.launches, chunk)
-        log(f"[dispatch] (f) --steps_per_dispatch {k} (resolved {chunk}): {trainer.global_step} steps in {wall:.1f} s "
+        log(f"[dispatch] (f) --steps_per_dispatch {k} (resolved {chunk[0]}, {chunk[1]} graphs captured): "
+            f"{trainer.global_step} steps in {wall:.1f} s "
             f"(evals and checkpoints included), K6 launches {k6.launches}, eval {trainer._avg_eval_psnr:.4f} dB, "
             f"{len({n for n, _ in arrays})} checkpoints")
         del trainer
     (t0, a0, n0, c0), (t1, a1, n1, c1) = runs["0"], runs["1"]
     same = sorted(a0) == sorted(a1) and all(np.array_equal(a0[key], a1[key]) for key in a0)
     log(f"[dispatch] (f) psnr.txt identical {t0 == t1}; checkpoint arrays ({len(a0)}) bit for bit {same}")
-    require(c0 > 1 and c1 == 1, f"[dispatch] (f) resolved chunks {c0} and {c1}")
+    require(c0[0] > 1 and c0[1] >= 1 and c1 == (1, 0), f"[dispatch] (f) (chunk, graphs) {c0} and {c1}")
     require(t0 == t1 and same, "[dispatch] (f) the captured Trainer run differs from the per-step one")
     require(n0 == n1 == DISPATCH_ITERS, f"[dispatch] (f) K6 launches {n0} and {n1}, not {DISPATCH_ITERS}")
     return n0
 
 
+def check_blocking_wait_capture(device) -> None:
+    """(g): an all-reduce on a group formed under TORCH_NCCL_BLOCKING_WAIT=1
+    (which makes a wait block the host) is captured in a CUDA graph and
+    replayed to the right values. The resolver has no rule for that
+    setting, so a torch or NCCL that refuses this capture, or replays it
+    wrongly, fails here."""
+    import torch.distributed as dist
+
+    os.environ["TORCH_NCCL_BLOCKING_WAIT"] = "1"
+    try:
+        group = dist.new_group(backend="nccl")
+    finally:
+        del os.environ["TORCH_NCCL_BLOCKING_WAIT"]
+    x = torch.ones(1024, device=device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        dist.all_reduce(x, group=group)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            y = x * 2
+            dist.all_reduce(y, group=group)
+            z = y + 1
+        graph.replay()
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        raise AssertionError("(g) an all-reduce on a group formed under TORCH_NCCL_BLOCKING_WAIT=1 could not be "
+                             "captured and replayed: resolve_steps_per_dispatch needs a rule for that setting") from err
+    right = bool((z == 3).all())
+    dist.destroy_process_group(group)
+    log(f"[dispatch] (g) an all-reduce on a group formed under TORCH_NCCL_BLOCKING_WAIT=1: captured, replayed to the "
+        f"right values {right}")
+    require(right, "(g) a captured all-reduce under TORCH_NCCL_BLOCKING_WAIT=1 replays to wrong values")
+
+
+def mesh_rank(rank: int, world: int, params, pipes: dict, scene, device, one_rank: dict) -> dict:
+    """(g) in this process, rank 0 of a one-rank nccl group: the sharded
+    steps (make_sharded_*_train_step, their gradient and metric all-reduces
+    inside each captured graph) in captured chunks against the per-step
+    sharded loop, as (b)-(d); their eager metrics bit for bit those of the
+    one-rank steps of (b)-(d) (at world 1 the collectives are the identity).
+    Returns check_dispatch_steps' records by step."""
+    from nerf_sampling_tpu_torch.parallel import make_mesh
+    from nerf_sampling_tpu_torch.train.sampler import RaySampler, SamplerConfig
+
+    mesh = make_mesh(world)
+    require(mesh.world == 1 and mesh.backend == "nccl", f"(g) a mesh of {mesh.world} {mesh.backend} ranks")
+    out = {}
+    check_blocking_wait_capture(device)
+    for kind in DISPATCH_CHUNKS:
+        sampler = RaySampler(scene, SamplerConfig(N_rand=1024), seed=42)
+        out[kind] = check_dispatch_steps(kind, params, pipes, sampler, device, mesh=mesh)
+        want = one_rank[kind]["metrics"]
+        same = np.array_equal(out[kind]["metrics"].view(np.uint32), want.view(np.uint32))
+        log(f"[dispatch] (g) ({kind}) the sharded per-step loop on 1 nccl rank equals the one-rank steps of (b)-(d) "
+            f"bit for bit: {same}")
+        require(same, f"(g) the sharded {kind} steps on 1 nccl rank differ from the one-rank steps")
+    torch.cuda.synchronize()
+    return out
+
+
+# (h): run.py's main in a subprocess, one rank of a launcher's nccl group (--multihost)
+MESH_CLI = """
+import json, sys
+from nerf_sampling_tpu_torch.experiments import run
+from nerf_sampling_tpu_torch.kernels import fused_hier as k6
+trainer = run.main(sys.argv[1:])
+trainer.save_checkpoint(trainer.global_step, subdir="final")
+print("MESH_CLI " + json.dumps({
+    "launches": k6.launches, "steps": trainer.global_step, "world": trainer.mesh.world,
+    "backend": trainer.mesh.backend, "eval": trainer._avg_eval_psnr, "expdir": trainer.expdir,
+    "chunk": trainer.steps_per_dispatch, "graphs": trainer.captured_graphs}))
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_mesh_cli() -> int:
+    """(h): the depth-net recipe through run.py's main with --multihost, as
+    rank 0 of a one-rank nccl group that the launcher's five variables
+    describe, for DISPATCH_ITERS steps with --steps_per_dispatch 0 (auto)
+    and 1, each in its own process: auto resolves above 1, psnr.txt
+    identical, every checkpoint array bit for bit, K6 launches equal to the
+    steps in both; the chunk and the graphs each run used are read from its
+    Trainer. Returns the auto run's K6 launches."""
+    ft_path = os.path.join(MESH_DIR, "nerf_only.npz")
+    write_nerf_only_checkpoint(ft_path)
+    runs = {}
+    for k in ("0", "1"):
+        argv = ["-d", "example", "-m", "recommended_depth_net_module", "--mlp_impl", "cuda", "--ft_path", ft_path,
+                "--n_iters", str(DISPATCH_ITERS), "-ip", "100", "--i_testset", "100", "--seed", "42",
+                "--basedir", os.path.join(MESH_DIR, f"k{k}"), "--testskip", "1", "--steps_per_dispatch", k,
+                "--multihost"]
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), WORLD_SIZE="1", RANK="0",
+                   LOCAL_RANK="0", PYTHONPATH=HERE)
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", MESH_CLI, *argv], cwd=HERE, env=env, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - t1
+        with open(os.path.join(MESH_DIR, f"k{k}.log"), "w") as fp:
+            fp.write(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            log(proc.stdout[-3000:] + proc.stderr[-3000:])
+        require(proc.returncode == 0, f"(h) run.py --multihost --steps_per_dispatch {k} exited {proc.returncode}")
+        rec = json.loads(next(ln for ln in proc.stdout.splitlines() if ln.startswith("MESH_CLI "))[9:])
+        text, arrays = run_outputs(rec["expdir"])
+        runs[k] = (text, arrays, rec)
+        log(f"[dispatch] (h) run.py --multihost --steps_per_dispatch {k} on {rec['world']} {rec['backend']} rank "
+            f"(resolved {rec['chunk']}, {rec['graphs']} graphs captured): {rec['steps']} steps in {wall:.1f} s (its process, evals and checkpoints "
+            f"included), K6 launches {rec['launches']}, eval {rec['eval']:.4f} dB, "
+            f"{len({n for n, _ in arrays})} checkpoints")
+    (t0, a0, r0), (t1, a1, r1) = runs["0"], runs["1"]
+    same = sorted(a0) == sorted(a1) and all(np.array_equal(a0[key], a1[key]) for key in a0)
+    log(f"[dispatch] (h) psnr.txt identical {t0 == t1}; checkpoint arrays ({len(a0)}) bit for bit {same}")
+    require(r0["world"] == r1["world"] == 1 and r0["backend"] == r1["backend"] == "nccl", "(h) not a 1-rank nccl mesh")
+    require(r0["chunk"] > 1 and r0["graphs"] >= 1 and (r1["chunk"], r1["graphs"]) == (1, 0),
+            f"(h) (chunk, graphs) ({r0['chunk']}, {r0['graphs']}) and ({r1['chunk']}, {r1['graphs']})")
+    require(t0 == t1 and same, "(h) the captured run on the nccl mesh differs from the per-step one")
+    require(r0["launches"] == r1["launches"] == DISPATCH_ITERS,
+            f"(h) K6 launches {r0['launches']} and {r1['launches']}, not {DISPATCH_ITERS}")
+    return r0["launches"]
+
+
 def run_dispatch(params, scene, device) -> dict:
     """[dispatch]: K train steps per host sync through CUDA-graph replay
-    (train/dispatch.py), gates (a)-(f), the step times of both loops and the
-    idle share of a captured chunk. Returns the times for the kernels' record."""
+    (train/dispatch.py), gates (a)-(f); on a one-rank nccl mesh (g) the
+    sharded steps and (h) run.py --multihost; the step times of both loops
+    and the idle share of a captured chunk. Returns the times and launches
+    for the kernels' record."""
+    import shutil
+
+    from nerf_sampling_tpu_torch.parallel import ops
     from nerf_sampling_tpu_torch.render import pack_kernel_weights
     from nerf_sampling_tpu_torch.render.quantize import calibrate_pipeline
     from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
@@ -3119,12 +3365,27 @@ def run_dispatch(params, scene, device) -> dict:
         times[kind] = check_dispatch_steps(kind, fresh, pipes, sampler, device)
     check_capturable_adam(fresh, pipes, RaySampler(scene, SamplerConfig(N_rand=1024), seed=43), device)
     launches = run_dispatch_trainer(device)
-    log(f"[dispatch] {smi}: median ms a step, per-step loop / captured chunks: "
-        + "; ".join(f"{k} {v['eager_ms']:.3f} / {v['captured_ms']:.3f}" for k, v in times.items())
-        + "; device idle in one profiled captured chunk: "
-        + ", ".join(f"{k} {100 * v['idle']:.1f}%" for k, v in times.items()))
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    t1 = time.perf_counter()
+    mesh = ops.spawn(mesh_rank, 1, (fresh, pipes, scene, device, times), rendezvous=os.path.join(MESH_DIR, "rendezvous"),
+                     backend="nccl", timeout=SCALEOUT_TIMEOUT, rank0_here=True)
+    log(f"[dispatch] (g) phase {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    mesh_launches = run_mesh_cli()
+    log(f"[dispatch] (h) phase {time.perf_counter() - t1:.1f} s")
+    for tag, recs in (("1 rank", times), ("1 nccl rank, sharded", mesh)):
+        log(f"[dispatch] {smi}, {tag}: median ms a step, per-step loop / captured chunks: "
+            + "; ".join(f"{k} {v['eager_ms']:.3f} / {v['captured_ms']:.3f}" for k, v in recs.items())
+            + "; device idle in one profiled captured chunk: "
+            + ", ".join(f"{k} {100 * v['idle']:.1f}%" for k, v in recs.items()))
     log(f"[dispatch] phase {time.perf_counter() - t0:.1f} s")
-    return {"seed": seed_times, "steps": times, "launches": launches}
+    mesh_counts: dict[str, int] = {}
+    for rec in mesh.values():
+        for counter, n in rec["launched"].items():
+            mesh_counts[counter] = mesh_counts.get(counter, 0) + n
+    return {"seed": seed_times, "steps": times, "launches": launches, "mesh_launches": mesh_launches,
+            "mesh_counts": mesh_counts}
 
 
 SCALEOUT_DIR = os.path.join(HERE, "logs", "chip_smoke_scaleout")  # [scaleout]'s rendezvous, inputs, runs (gitignored)
@@ -3249,9 +3510,22 @@ def scaleout_trainer(cfg, device) -> dict:
             "checksum": flat(tr.params.depth.parameters()), "expdir": tr.expdir}
 
 
+def scaleout_gloo_rule(cfg, device) -> dict:
+    """(i): the Trainer with an explicit steps_per_dispatch 4 on this gloo
+    mesh on the card: the error it raises and the steps it ran."""
+    from nerf_sampling_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, device=device)
+    try:
+        tr.train(N_iters=SCALEOUT_ITERS + 1)
+    except ValueError as err:
+        return {"error": str(err), "steps": tr.global_step}
+    return {"error": None, "steps": tr.global_step}
+
+
 def scaleout_rank(rank: int, world: int, spec_path: str) -> None:
-    """One rank of [scaleout] on cuda:0: (b)-(e) on its rows, each phase's
-    launches counted from 0; its results to ``rank{rank}.pt``."""
+    """One rank of [scaleout] on cuda:0: (b)-(e) and (i) on its rows, each
+    phase's launches counted from 0; its results to ``rank{rank}.pt``."""
     import dataclasses
 
     from nerf_sampling_tpu_torch.parallel import make_mesh
@@ -3268,7 +3542,10 @@ def scaleout_rank(rank: int, world: int, spec_path: str) -> None:
                       ("d", lambda: {p: scaleout_render(p, device, mesh) for p in ("uniform", "gaussian")}),
                       ("e", lambda: scaleout_trainer(dataclasses.replace(
                           spec["cfg"], n_devices=world, basedir=os.path.join(SCALEOUT_DIR, f"rank{rank}")),
-                          device))):
+                          device)),
+                      ("i", lambda: scaleout_gloo_rule(dataclasses.replace(
+                          spec["cfg"], n_devices=world, steps_per_dispatch=4, i_print=20,
+                          basedir=os.path.join(SCALEOUT_DIR, f"gloo_rule_rank{rank}")), device))):
         scaleout_counts(reset=True)
         rec[phase] = fn()
         torch.cuda.synchronize()
@@ -3479,6 +3756,13 @@ def run_scaleout(device, scene, recs: dict) -> dict[str, list[int]]:
                            ("e", ("render_hier_kernel", "depth_net_kernel", "render_gaussian_kernel"))):
         require(all(r["counts"][phase][k] > 0 for r in ranks for k in kernels),
                 f"({phase}): {', '.join(kernels)} must launch on every rank")
+    # (i): an explicit steps_per_dispatch 4 on this gloo mesh raises before step 1 on both ranks
+    for r in ranks:
+        log(f"[scaleout] (i) rank: steps_per_dispatch 4 on the gloo mesh raised {r['i']['error']!r} after "
+            f"{r['i']['steps']} steps; launches {r['counts']['i']}")
+    require(all(r["i"]["error"] is not None and "gloo" in r["i"]["error"] and r["i"]["steps"] == 0
+                and not any(r["counts"]["i"].values()) for r in ranks),
+            "(i): steps_per_dispatch 4 on a gloo mesh must raise before step 1, naming gloo")
     launches = {k: [sum(r["counts"][p][k] for p in "bcde") for r in ranks] for k in r0["counts"]["b"]}
     log(f"[scaleout] launches per rank over (b)-(e): {launches}; phase {time.perf_counter() - t0:.1f} s")
     return launches
@@ -3592,6 +3876,14 @@ def main() -> int:
                 rec[key] = counts[rec["name"]]
         rec.update(dispatch["seed"].get(rec["name"], {}))  # K6 by value and by pointer, timed in turns
     next(rec for rec in kernels if rec["name"] == "render_hier_kernel")["dispatch_launches"] = dispatch["launches"]
+    # the captured sharded steps on a one-rank nccl mesh ((g)) and run.py --multihost ((h))
+    for name, counter in (("render_hier_kernel", "fused_hier.launches"),
+                          ("render_hier_kernel_int8", "fused_hier.int8_launches"),
+                          ("nerf_points_kernel", "fused_nerf.launches"),
+                          ("nerf_points_bwd_kernel", "fused_nerf_vjp.launches")):
+        next(rec for rec in kernels if rec["name"] == name)["mesh_dispatch_launches"] = \
+            dispatch["mesh_counts"].get(counter, 0)
+    next(rec for rec in kernels if rec["name"] == "render_hier_kernel")["mesh_cli_launches"] = dispatch["mesh_launches"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -68,6 +68,11 @@ def maybe_initialize_distributed(cfg, backend: str | None = None, *, device: tor
 
 
 def _all_reduce_sum(mesh: Mesh, flat: torch.Tensor) -> torch.Tensor:
+    """``flat`` summed over the ranks. Under nccl the collective stays on
+    the card: ``dist.all_reduce``'s wait makes the current stream wait on
+    the NCCL stream's end event, with no host copy and no host read, so it
+    is captured into a CUDA graph with the step around it. Under gloo it
+    goes through a host copy, which no graph can hold."""
     buf = flat.cpu() if host_side(mesh, flat) else flat
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
     return buf.to(flat.device)
@@ -78,9 +83,9 @@ def all_reduce_grads(modules, mesh: Mesh) -> None:
     """Average the gradients of ``modules`` over the ranks: one flat fp32
     buffer summed by one all-reduce, then divided by the world size.
     Parameters without a gradient (a DepthNet in its warmup) take no part;
-    every rank has the same ones."""
-    if mesh.world == 1:
-        return
+    every rank has the same ones. One rank runs the same collective (the
+    sum is the identity and the division by 1 exact), so a one-rank mesh
+    captures what a wider one does."""
     grads = [p.grad for m in modules for p in m.parameters() if p.grad is not None]
     if not grads:
         return

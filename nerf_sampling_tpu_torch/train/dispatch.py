@@ -29,6 +29,20 @@ back once per chunk.
 Either way a chunk equals its K steps run one by one, bit for bit, as the
 scan does in JAX.
 
+On a mesh of ranks (JAX ``make_multi_step(mesh=)``) the step is the rank's
+sharded one (parallel/ops.py), its gradient and metric all-reduces inside
+it. Under nccl they are captured with the rest of the step: torch's NCCL
+process group joins its stream to the capture through an event and the
+step's stream waits on the collective's end event, so the host neither
+copies nor waits, and a replay runs the step and its collectives. Every
+rank captures the same graphs in the same order (the graph key is a
+function of the step count, which every rank shares), the first, eager
+step of each graph brings the communicator up before any capture, and the
+replays and the eager collectives between chunks (the evals' gathers, the
+barriers) are issued in one order on one communicator by every rank.
+gloo's collectives copy through the host, which no graph can hold, so on
+the card a gloo mesh runs per step (train/trainer.py).
+
 A replay runs no Python, so the host side of a step is repeated here: the
 capture records how far the step moved each state's step and update counts
 and each kernel's launch counter (the ``*launches`` integers of
@@ -93,6 +107,11 @@ class StepDispatcher:
             self._row: torch.Tensor | None = None  # the static [N, 9] input
             self._seed = StepSeed(torch.zeros((), dtype=torch.int32, device=self.device),
                                   torch.Generator(device=self.device))
+
+    @property
+    def graphs(self) -> int:
+        """How many CUDA graphs the steps have captured (0 off the card)."""
+        return len(self._graphs)
 
     def _upload(self, stack: np.ndarray, seeds: Sequence[int]) -> tuple[torch.Tensor, torch.Tensor]:
         """The [K, N, 9] fp32 stack and the K seeds on the device, in one copy."""

@@ -78,7 +78,10 @@ the run equals the per-step loop bit for bit (same sampler stream, same
 per-step seeds). The chunk's metrics are read once, each step is logged
 from them, and the next chunk's batches are sampled before that read, so
 the sampler's host work overlaps the device. K divides the logging
-cadences, so checkpoints, evals and early stops fall on chunk ends.
+cadences, so checkpoints, evals and early stops fall on chunk ends. On an
+nccl mesh the chunks capture the sharded steps with their all-reduces (as
+the JAX scan is jitted with the batch stack sharded on rays); a gloo mesh
+on the card runs per step, since its collectives copy through the host.
 """
 
 from __future__ import annotations
@@ -138,6 +141,16 @@ def step_seed(seed: int, i: int) -> int:
     return int(np.random.SeedSequence([seed, i]).generate_state(1)[0] >> 1)
 
 
+def _host_copy_reason(mesh) -> str | None:
+    """Why the collectives of ``mesh`` cannot be captured on the card, or
+    None: only NCCL's run on the device, gloo's go through a host copy
+    (parallel/mesh.py::host_side), and a CUDA graph holds no host copy."""
+    if mesh is None or mesh.backend == "nccl":
+        return None
+    return (f"a {mesh.backend} mesh of ranks: {mesh.backend}'s collectives go through host copies, which a "
+            "captured CUDA graph cannot hold (NCCL is the backend whose collectives are captured)")
+
+
 def resolve_steps_per_dispatch(cfg: TrainerConfig, N_iters: int, start: int, device_type: str,
                                mesh=None) -> int:
     """Steps per host sync (``cfg.steps_per_dispatch``; 0 is auto), the JAX
@@ -148,14 +161,17 @@ def resolve_steps_per_dispatch(cfg: TrainerConfig, N_iters: int, start: int, dev
     ``i_print``, ``i_weights``, ``i_testset`` and ``i_video``, so that
     chunk ends fall on every checkpoint, eval and log step. Auto gives 1 on
     the CPU (no launch latency to amortize), elsewhere the largest divisor
-    of that gcd up to 100. Two rules on the card: a mesh (capture across
-    ranks is ROADMAP S7c) and ``debug_nans`` (its checks read every module
-    output on the host, which a captured step cannot) make auto 1 and an
-    explicit K > 1 an error.
+    of that gcd up to 100, on one rank and on an NCCL mesh alike (a
+    captured step holds its all-reduces). Two rules on the card: a mesh of
+    another backend (gloo's collectives go through host copies) and
+    ``debug_nans`` (its checks read every module output on the host) make
+    auto 1 and an explicit K > 1 an error, since a captured step can do
+    neither.
     """
     if cfg.profile_dir is not None or N_iters - start <= 2:
         return 1
     g = math.gcd(math.gcd(cfg.i_print, cfg.i_weights), math.gcd(cfg.i_testset, cfg.i_video))
+    host_copy = _host_copy_reason(mesh)
     if cfg.steps_per_dispatch >= 1:
         n = cfg.steps_per_dispatch
         while g % n != 0:
@@ -164,19 +180,17 @@ def resolve_steps_per_dispatch(cfg: TrainerConfig, N_iters: int, start: int, dev
             print(f"[trainer] steps_per_dispatch={cfg.steps_per_dispatch} does not divide the logging cadences "
                   f"(gcd {g}); using {n} so checkpoints/logs stay step-exact")
         if n > 1 and device_type == "cuda":
-            if mesh is not None:
-                raise NotImplementedError(f"steps_per_dispatch={n} on a mesh of ranks: capturing steps across "
-                                          "ranks is not ported (ROADMAP S7c); use steps_per_dispatch 0 or 1")
+            if host_copy is not None:
+                raise ValueError(f"steps_per_dispatch={n} on {host_copy}; use steps_per_dispatch 0 or 1")
             if cfg.debug_nans:
                 raise ValueError(f"steps_per_dispatch={n} with debug_nans: the NaN checks read every module "
                                  "output on the host, which a captured step cannot; use steps_per_dispatch 0 or 1")
         return n
     if device_type != "cuda":
         return 1
-    if mesh is not None or cfg.debug_nans:
+    if host_copy is not None or cfg.debug_nans:
         print("[trainer] steps_per_dispatch auto: 1 step per dispatch ("
-              + ("a mesh of ranks: ROADMAP S7c" if mesh is not None else "debug_nans reads every module output")
-              + ")")
+              + (host_copy if host_copy is not None else "debug_nans reads every module output") + ")")
         return 1
     return max(k for k in range(1, min(g, 100) + 1) if g % k == 0)
 
@@ -231,6 +245,8 @@ class Trainer:
             torch.cuda.set_device(self.device)  # nccl's collectives run on the current device
         self.global_step = 0
         self.start = 0
+        self.steps_per_dispatch = 1  # what train() resolved cfg.steps_per_dispatch to
+        self.captured_graphs = 0  # the CUDA graphs its chunks captured (0 per step and off the card)
         self.scene: SceneData | None = None
         self.pipeline = None
         self.params: NeRFParams | None = None
@@ -493,6 +509,7 @@ class Trainer:
             self._nerf_state, self._depth_state = state, depth_state
         timer = StepTimer(rays_per_step=cfg.N_rand, device=self.device)
         n_chunk = resolve_steps_per_dispatch(cfg, N_iters, self.start, self.device.type, self.mesh)
+        self.steps_per_dispatch, self.captured_graphs = n_chunk, 0
         metrics: dict = {}
         with contextlib.ExitStack() as stack:
             stack.callback(self._barrier)  # a rank returns once rank 0's files are written
@@ -576,6 +593,7 @@ class Trainer:
                     break
             i += k
             k = k_next
+        self.captured_graphs = dispatcher.graphs
         return float(metrics["psnr"]) if metrics else 0.0
 
     def _eval_mode(self) -> EvalMode:

@@ -4,21 +4,29 @@
   ``_resolve_scan_steps`` (called on a stub ``self`` with
   ``jax.default_backend`` set to "gpu" and to "cpu") over a grid of
   cadences, explicit K, ``profile_dir`` and run lengths, the printed
-  rounding message included; the two rules the port adds on the card (a
-  mesh, ``debug_nans``).
+  rounding message included; the rules on the card (an NCCL mesh takes
+  one rank's, a gloo mesh and ``debug_nans`` run per step), the mesh's
+  backend stubbed.
+- ``all_reduce_grads`` on a one-rank gloo group: one collective, the
+  gradients bit for bit unchanged.
 - A chunked Trainer (K=4) against the per-step one in depth_net, nerf and
   joint mode (the joint warmup ending inside the first chunk): psnr.txt,
   the logged metrics, every checkpoint array (the Adam moments included)
   bit for bit; a run resumed from the checkpoint at a chunk end, chunked
-  and per step; the same chunked against per-step on 2 gloo ranks.
+  and per step; the same chunked against per-step on 2 gloo ranks in the
+  three modes.
 - One chunk of the plain depth step with the draws of
   ``fold_in(base_key, i0 + j)`` against JAX's ``make_multi_step``, at
-  tests/test_torch_train.py's depth-step tolerances.
+  tests/test_torch_train.py's depth-step tolerances; the same chunk on 2
+  gloo ranks against ``make_multi_step(mesh=)`` on 2 virtual CPU devices
+  (the ranks, which import no JAX, share one spawn with the Trainers).
+- chip_smoke.py's numpy copy of optax.adam's rule against optax.adam.
 - K6's seed as a 0-d tensor: the plain version gives the int seed's draws,
   and the launch hands the kernel its address (a mocked library).
 
 The captured path runs only on the card: chip_smoke.py's [dispatch] holds
-it to the per-step loop bit for bit.
+it to the per-step loop bit for bit, on one rank and on a one-rank NCCL
+mesh.
 """
 
 import dataclasses
@@ -53,8 +61,10 @@ from nerf_sampling_tpu.train import state as jstate
 from nerf_sampling_tpu.train import trainer as jtrainer
 from nerf_sampling_tpu.train.steps import make_depth_net_train_step as jax_depth_step
 from nerf_sampling_tpu.train.steps import make_multi_step
+from nerf_sampling_tpu.parallel import make_mesh as jax_make_mesh
 from nerf_sampling_tpu_torch.kernels import fused_hier as k6
 from nerf_sampling_tpu_torch.models import NeRF, NeRFConfig
+from nerf_sampling_tpu_torch.parallel import mesh as pmesh
 from nerf_sampling_tpu_torch.render import engine as tengine
 from nerf_sampling_tpu_torch.train import checkpoint as tckpt
 from nerf_sampling_tpu_torch.train.dispatch import StepDispatcher
@@ -91,22 +101,64 @@ def test_resolve_matches_jax(monkeypatch, capsys, cadence, k, device):
             resolve_jax(traced, n_iters, start, backend, monkeypatch) == 1
 
 
-@pytest.mark.parametrize("rule", ["mesh", "debug_nans"])
-def test_cuda_rules(capsys, rule):
-    """On the card a mesh or debug_nans makes auto 1 (with the reason
-    printed) and an explicit K > 1 an error naming it; an explicit K that
-    rounds down to 1 runs, and on the CPU both rules are moot."""
-    mesh = object() if rule == "mesh" else None
-    cfg = TrainerConfig(i_print=100, i_weights=100, i_testset=100, i_video=100, debug_nans=rule == "debug_nans")
-    assert resolve_steps_per_dispatch(cfg, 1000, 0, "cuda", mesh) == 1
-    assert ("S7c" if rule == "mesh" else "debug_nans") in capsys.readouterr().out
-    exc, match = (NotImplementedError, "ROADMAP S7c") if rule == "mesh" else (ValueError, "debug_nans")
-    with pytest.raises(exc, match=match):
-        resolve_steps_per_dispatch(dataclasses.replace(cfg, steps_per_dispatch=4), 1000, 0, "cuda", mesh)
+@pytest.mark.parametrize("rule", ["nccl_mesh", "gloo_mesh", "debug_nans"])
+def test_cuda_rules(monkeypatch, capsys, rule):
+    """On the card an NCCL mesh takes one rank's rule (auto the largest
+    divisor of the cadences up to 100, an explicit K honoured), while a gloo
+    mesh (its collectives copy through the host) or debug_nans makes auto 1
+    (with the reason printed) and an explicit K > 1 an error naming it; an
+    explicit K that rounds down to 1 runs, and on the CPU none of the rules
+    applies. The mesh's backend is stubbed: no process group is formed."""
+    monkeypatch.setattr(pmesh.Mesh, "backend", property(lambda self: rule.split("_")[0]))
+    mesh = None if rule == "debug_nans" else pmesh.Mesh(2, 0, 0, (2,), ("rays",))
+    cfg = TrainerConfig(debug_nans=rule == "debug_nans")
+    explicit = dataclasses.replace(cfg, steps_per_dispatch=4)
+    if rule == "nccl_mesh":
+        assert resolve_steps_per_dispatch(cfg, 1000, 0, "cuda", mesh) == 100
+        assert resolve_steps_per_dispatch(explicit, 1000, 0, "cuda", mesh) == 4
+        assert capsys.readouterr().out == ""
+    else:
+        assert resolve_steps_per_dispatch(cfg, 1000, 0, "cuda", mesh) == 1
+        assert ("gloo" if rule == "gloo_mesh" else "debug_nans") in capsys.readouterr().out
+        with pytest.raises(ValueError, match="gloo's collectives go through host copies.*NCCL" if rule == "gloo_mesh"
+                           else "debug_nans"):
+            resolve_steps_per_dispatch(explicit, 1000, 0, "cuda", mesh)
     assert resolve_steps_per_dispatch(dataclasses.replace(cfg, steps_per_dispatch=3, i_print=7), 1000, 0,
                                       "cuda", mesh) == 1
-    assert resolve_steps_per_dispatch(dataclasses.replace(cfg, steps_per_dispatch=4), 1000, 0, "cpu", mesh) == 4
+    assert resolve_steps_per_dispatch(explicit, 1000, 0, "cpu", mesh) == 4
     assert resolve_steps_per_dispatch(cfg, 1000, 0, "cpu", mesh) == 1
+
+
+def test_all_reduce_grads_on_one_rank(tmp_path, monkeypatch):
+    """A one-rank mesh (gloo, this process) runs the gradient all-reduce: one
+    dist.all_reduce, the gradients bit for bit those before it (the sum of
+    one rank is the identity, the division by 1 exact); the metric
+    reduction likewise."""
+    import torch.distributed as dist
+
+    from nerf_sampling_tpu_torch.models import DepthNet, DepthNetConfig
+    from nerf_sampling_tpu_torch.parallel import ops
+
+    calls = []
+    all_reduce = dist.all_reduce
+    monkeypatch.setattr(ops.dist, "all_reduce", lambda *a, **k: (calls.append(a[0].shape), all_reduce(*a, **k))[1])
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1, rank=0)
+    try:
+        mesh = pmesh.make_mesh(1)
+        torch.manual_seed(0)
+        net = DepthNet(DepthNetConfig(hidden_sizes=(32, 32, 32), cat_hidden_sizes=(32, 32, 32)))
+        for q in net.parameters():
+            q.grad = torch.randn_like(q) * 10.0 ** torch.randint(-8, 2, q.shape)
+        before = [q.grad.clone() for q in net.parameters()]
+        ops.all_reduce_grads([net], mesh)
+        assert calls == [(sum(q.numel() for q in net.parameters()),)]
+        assert all(torch.equal(q.grad, b) for q, b in zip(net.parameters(), before))
+        means, sums = {"loss": torch.tensor(0.1234567)}, {"n": torch.tensor(7.0)}
+        got_means, got_sums = ops.reduce_metrics(mesh)(means, sums)
+        assert len(calls) == 2
+        assert torch.equal(got_means["loss"], means["loss"]) and torch.equal(got_sums["n"], sums["n"])
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------- the chunked Trainer
@@ -171,6 +223,8 @@ def test_chunked_trainer_equals_per_step(tmp_path, mode):
     cfg = mode_cfg(tmp_path, mode)
     per_step, chunked = train(cfg, "per_step", 1), train(cfg, "chunked", CHUNK)
     assert resolve_steps_per_dispatch(chunked.cfg, N_ITERS, 0, "cpu") == CHUNK
+    assert (per_step.steps_per_dispatch, chunked.steps_per_dispatch) == (1, CHUNK)
+    assert per_step.captured_graphs == chunked.captured_graphs == 0  # the CPU runs the steps eagerly
     assert per_step.global_step == chunked.global_step == N_ITERS - 1
     assert_same_run(per_step.expdir, chunked.expdir)
     if mode == "joint":
@@ -196,47 +250,97 @@ def test_resume_at_a_chunk_end(tmp_path):
     assert_same_run(runs[1].expdir, runs[CHUNK].expdir)
 
 
-def test_chunked_trainer_on_two_ranks(tmp_path):
-    """2 gloo ranks, depth_net and nerf mode, K=4 chunks against the
-    per-step loop: the Iter lines and the ranks' parameter checksums bit
-    for bit (data parallelism composes with the chunked loop on the CPU)."""
+LR, K_CHUNK, I0 = 1e-3, 3, 5  # the chunks held to make_multi_step: K_CHUNK depth steps from step I0
+
+
+def chunk_inputs(seed: int = 1):
+    """The [K, N, 9] stack (rays_o, rays_d, target) of one chunk and the
+    JAX base key of its steps."""
+    rng = np.random.default_rng(seed)
+    stack = np.stack([np.concatenate([*rays_np(N, rng), rng.random((N, 3), dtype=np.float32)], -1)
+                      for _ in range(K_CHUNK)]).astype(np.float32)
+    return stack, jax.random.PRNGKey(7)
+
+
+@pytest.fixture(scope="module")
+def two_rank_runs(tmp_path_factory):
+    """One spawn of 2 gloo ranks (tests/test_torch_multiproc.py's
+    chunked_trainer_worker): the Trainer per step and in chunks in three
+    modes, and one chunk of the sharded plain depth step from the models,
+    stack and JAX draws of ``chunk_inputs``."""
     from nerf_sampling_tpu_torch.data.example import generate_example_dataset
 
-    datadir = str(tmp_path / "scene")
+    tmp = tmp_path_factory.mktemp("two_ranks")
+    datadir = str(tmp / "scene")
     generate_example_dataset(datadir, H=16, W=16, n_train=2, n_val=1, n_test=1)
-    ft_path = write_nerf_ckpt(str(tmp_path / "nerf.npz"))
-    r0, r1 = run_ranks(chunked_trainer_worker, 2, tmp_path, datadir, ft_path)
-    for mode in ("depth_net", "nerf"):
-        assert r0[mode][1]["lines"] == r0[mode][CHUNK]["lines"] and len(r0[mode][1]["lines"]) == 2
+    ft_path = write_nerf_ckpt(str(tmp / "nerf.npz"))
+    _, tparams = small_models()
+    stack, base_key = chunk_inputs()
+    draws = {i: tuple(jax_step_draws(jax.random.fold_in(base_key, i), N)) for i in range(I0, I0 + K_CHUNK)}
+    spec = {"models": {k: getattr(tparams, k).state_dict() for k in ("coarse", "fine", "depth")},
+            "pipeline": pipelines(1.0)[1], "stack": stack, "seeds": list(range(I0, I0 + K_CHUNK)), "draws": draws,
+            "lr": LR}
+    torch.save(spec, tmp / "chunk.pt")
+    return run_ranks(chunked_trainer_worker, 2, tmp, datadir, ft_path, str(tmp / "chunk.pt"))
+
+
+def test_chunked_trainer_on_two_ranks(two_rank_runs):
+    """2 gloo ranks, depth_net, nerf and joint mode (its warmup of 3 steps
+    ending inside the first chunk), K=4 chunks against the per-step loop:
+    the Iter lines and the ranks' parameter checksums bit for bit (data
+    parallelism composes with the chunked loop on the CPU)."""
+    r0, r1 = two_rank_runs
+    for mode in ("depth_net", "nerf", "joint"):
+        assert r0[mode][1]["lines"] == r0[mode][CHUNK]["lines"] and len(r0[mode][1]["lines"]) == 2, mode
         for k in (1, CHUNK):
-            assert torch.equal(r0[mode][k]["checksum"], r1[mode][k]["checksum"])
-        assert torch.equal(r0[mode][1]["checksum"], r0[mode][CHUNK]["checksum"])
+            assert torch.equal(r0[mode][k]["checksum"], r1[mode][k]["checksum"]), mode
+        assert torch.equal(r0[mode][1]["checksum"], r0[mode][CHUNK]["checksum"]), mode
 
 
 # ---------------------------------------------------------------- against JAX's make_multi_step
+
+def assert_chunk_matches(got: dict, step_grads: list, got_params: dict, js, jms) -> None:
+    """A chunk's metrics at 1e-5 relative, the last gradients at 1e-5, and
+    the parameters as test_torch_train.test_depth_step_matches_jax holds
+    them: 1e-5 relative where every step's gradient is well above its own
+    tolerance (Adam normalizes a near-zero gradient to a step of up to lr
+    whatever its last digits), within one step a step elsewhere."""
+    assert set(got) == set(jms)
+    for name in got:
+        np.testing.assert_allclose(got[name], np.asarray(jms[name]), rtol=1e-5, atol=1e-7, err_msg=name)
+    assert_tree_close(step_grads[-1], js.opt_state[0], 1e-5, 1e-5)
+    got_p = jax.tree.leaves(got_params)
+    per_step = [jax.tree.leaves(g) for g in step_grads]
+    gmax = [max(float(np.abs(np.asarray(x)).max()) for x in leaves) for leaves in per_step]
+    for i, (g, w) in enumerate(zip(got_p, jax.tree.leaves(js.params))):
+        g, w = np.asarray(g), np.asarray(w)
+        sharp = np.all([np.abs(np.asarray(leaves[i])) > 1e-3 * m for leaves, m in zip(per_step, gmax)], 0)
+        np.testing.assert_allclose(g[sharp], w[sharp], rtol=1e-5, atol=1e-7)
+        assert np.abs(g - w).max() <= 2 * LR * K_CHUNK
+
+
+def jax_chunk(mesh=None):
+    """JAX's make_multi_step over ``chunk_inputs``' chunk of depth steps
+    (on ``mesh``: the stack sharded on its rays)."""
+    jparams, _ = small_models()
+    jp, _ = pipelines(1.0)
+    opt = optax.chain(stash_grads(), jstate.make_depth_optimizer(LR))
+    stack, base_key = chunk_inputs()
+    return make_multi_step(jax_depth_step(jp, opt), with_const=True, mesh=mesh)(
+        jparams, jstate.init_state(jparams.depth, opt), jnp.asarray(stack), base_key, I0)
+
 
 def test_plain_depth_chunk_matches_jax_multi_step():
     """One chunk of K=3 plain depth steps from step i0=5, each with the
     draws of fold_in(base_key, i0 + j) as the JAX step derives them, through
     ``StepDispatcher`` (the draws looked up by the step's seed, here its
-    index) against ``make_multi_step``: every step's metrics at 1e-5
-    relative, the last gradients at 1e-5, and the parameters as
-    test_torch_train.test_depth_step_matches_jax holds them: 1e-5 relative
-    where every step's gradient is well above its own tolerance (Adam
-    normalizes a near-zero gradient to a step of up to lr whatever its last
-    digits), within one step a step elsewhere."""
-    jparams, tparams = small_models()
-    jp, tp = pipelines(1.0)
-    lr, k, i0 = 1e-3, 3, 5
-    opt = optax.chain(stash_grads(), jstate.make_depth_optimizer(lr))
-    rng = np.random.default_rng(1)
-    stack = np.stack([np.concatenate([*rays_np(N, rng), rng.random((N, 3), dtype=np.float32)], -1)
-                      for _ in range(k)]).astype(np.float32)
-    base_key = jax.random.PRNGKey(7)
-    js, jms = make_multi_step(jax_depth_step(jp, opt), with_const=True)(
-        jparams, jstate.init_state(jparams.depth, opt), jnp.asarray(stack), base_key, i0)
-    draws = {i: jax_step_draws(jax.random.fold_in(base_key, i), N) for i in range(i0, i0 + k)}
-    tstate = init_state(tparams.depth, lr)
+    index) against ``make_multi_step`` (``assert_chunk_matches``)."""
+    _, tparams = small_models()
+    _, tp = pipelines(1.0)
+    stack, base_key = chunk_inputs()
+    js, jms = jax_chunk()
+    draws = {i: jax_step_draws(jax.random.fold_in(base_key, i), N) for i in range(I0, I0 + K_CHUNK)}
+    tstate = init_state(tparams.depth, LR)
     tstep = make_depth_net_train_step(tp, tparams._replace(depth=None))
     step_grads = []
 
@@ -247,19 +351,46 @@ def test_plain_depth_chunk_matches_jax_multi_step():
         return m
 
     disp = StepDispatcher(step, [tstate], "cpu")
-    got = disp.read(disp.run(stack, list(range(i0, i0 + k))))
-    assert set(got) == set(jms) and tstate.step == k
-    for name in got:
-        np.testing.assert_allclose(got[name], np.asarray(jms[name]), rtol=1e-5, atol=1e-7, err_msg=name)
-    assert_tree_close(step_grads[-1], js.opt_state[0], 1e-5, 1e-5)
-    got_p = jax.tree.leaves(tckpt.depth_net_params_to_jax(tstate.model.state_dict()))
-    per_step = [jax.tree.leaves(g) for g in step_grads]
-    gmax = [max(float(np.abs(np.asarray(x)).max()) for x in leaves) for leaves in per_step]
-    for i, (g, w) in enumerate(zip(got_p, jax.tree.leaves(js.params))):
-        g, w = np.asarray(g), np.asarray(w)
-        sharp = np.all([np.abs(np.asarray(leaves[i])) > 1e-3 * m for leaves, m in zip(per_step, gmax)], 0)
-        np.testing.assert_allclose(g[sharp], w[sharp], rtol=1e-5, atol=1e-7)
-        assert np.abs(g - w).max() <= 2 * lr * k
+    got = disp.read(disp.run(stack, list(range(I0, I0 + K_CHUNK))))
+    assert tstate.step == K_CHUNK
+    assert_chunk_matches(got, step_grads, tckpt.depth_net_params_to_jax(tstate.model.state_dict()), js, jms)
+
+
+def test_sharded_depth_chunk_matches_jax_multi_step(two_rank_runs):
+    """The same chunk on 2 gloo ranks (each its rows of the stack and the
+    draws of the whole batch, the gradients all-reduced) against
+    ``make_multi_step(mesh=)`` on 2 of the 8 virtual CPU devices, the stack
+    sharded on its rays, at the one-process chunk's tolerances; the two
+    ranks' metrics and parameters bit for bit alike."""
+    js, jms = jax_chunk(jax_make_mesh(jax.devices()[:2]))
+    r0, r1 = (r["chunk"] for r in two_rank_runs)
+    for r in (r0, r1):
+        assert_chunk_matches(r["metrics"], [tckpt.depth_net_params_to_jax(g) for g in r["grads"]],
+                             tckpt.depth_net_params_to_jax(r["params"]), js, jms)
+    assert all(np.array_equal(r0["metrics"][k], r1["metrics"][k]) for k in r0["metrics"])
+    assert all(torch.equal(r0["params"][k], r1["params"][k]) for k in r0["params"])
+
+
+def test_chip_smoke_adam_rule_is_optax():
+    """chip_smoke.py's numpy fp32 optax.adam (``optax_adam_np``, the rule
+    [dispatch] (e) holds both torch Adams to on the card, without JAX)
+    against optax.adam itself: the parameters and both moments bit for bit
+    over 8 updates of gradients spread over eight decades."""
+    import chip_smoke
+
+    rng = np.random.default_rng(5)
+    p = (rng.standard_normal(50_000) * 0.1).astype(np.float32)
+    opt = optax.adam(1e-4, b1=0.9, b2=0.999, eps=1e-8)
+    jp, jst = jnp.asarray(p), opt.init(jnp.asarray(p))
+    mu, nu = np.zeros_like(p), np.zeros_like(p)
+    for count in range(1, 9):
+        g = (rng.standard_normal(p.shape) * 10.0 ** rng.uniform(-8, 0, p.shape)).astype(np.float32)
+        u, jst = opt.update(jnp.asarray(g), jst, jp)
+        jp = optax.apply_updates(jp, u)
+        p, mu, nu = chip_smoke.optax_adam_np(p, g, mu, nu, count, 1e-4)
+        np.testing.assert_array_equal(p, np.asarray(jp))
+        np.testing.assert_array_equal(mu, np.asarray(jst[0].mu))
+        np.testing.assert_array_equal(nu, np.asarray(jst[0].nu))
 
 
 # ---------------------------------------------------------------- K6's device seed

@@ -21,6 +21,9 @@ which imports no JAX. Each spawn serves several checks:
   render against one process;
 - ``run.py --n_devices 2 --device cpu`` (this process is rank 0).
 
+tests/test_torch_dispatch.py's 2-rank checks (the chunked Trainer in three
+modes and a chunk of the sharded depth step) run ``chunked_trainer_worker``.
+
 tests/test_torch_parallel.py holds the same sharded steps and render to the
 JAX package's, and the mesh helpers and K3/K6's ``ray_base`` on one process.
 """
@@ -317,23 +320,60 @@ def trainer_worker(rank: int, world: int, out: str, datadir: str, ft_path: str) 
     torch.save(rec, os.path.join(out, f"rank{rank}.pt"))
 
 
-def chunked_trainer_worker(rank: int, world: int, out: str, datadir: str, ft_path: str) -> None:
-    """tests/test_torch_dispatch.py's ranks: depth_net and nerf mode for 8
-    steps, per step and in chunks of 4 (train/dispatch.py)."""
+def sharded_depth_chunk(rank: int, world: int, spec: dict) -> dict:
+    """One chunk of the plain sharded depth step (``spec["pipeline"]``)
+    through ``StepDispatcher``: the rank's rows of ``spec["stack"]`` ([K, N,
+    9], global), each step with
+    the draws of the whole batch for its seed (the step's index); the
+    metrics [K, M], each step's all-reduced gradients and the final
+    parameters, by name."""
+    from nerf_sampling_tpu_torch.parallel.ops import make_sharded_depth_train_step
+    from nerf_sampling_tpu_torch.train.dispatch import StepDispatcher
+    from nerf_sampling_tpu_torch.train.state import init_state
+    from nerf_sampling_tpu_torch.train.steps import StepDraws
+
+    mesh = pmesh.make_mesh()
+    params = tiny_params()
+    for k in ("coarse", "fine", "depth"):
+        getattr(params, k).load_state_dict(spec["models"][k])
+    state = init_state(params.depth, spec["lr"])
+    step = make_sharded_depth_train_step(spec["pipeline"], params._replace(depth=None), mesh)
+    grads = []
+
+    def run(batch, seed):
+        metrics = step(state, batch, seed, StepDraws(*spec["draws"][seed]))[1]
+        grads.append({n: q.grad.clone() for n, q in state.model.named_parameters()})
+        return metrics
+
+    lo, hi = pmesh.ray_rows(mesh, spec["stack"].shape[1])
+    disp = StepDispatcher(run, [state], "cpu")
+    got = disp.read(disp.run(spec["stack"][:, lo:hi], spec["seeds"]))
+    return {"metrics": got, "grads": grads,
+            "params": {n: q.detach().clone() for n, q in state.model.named_parameters()}}
+
+
+def chunked_trainer_worker(rank: int, world: int, out: str, datadir: str, ft_path: str, chunk_spec: str) -> None:
+    """tests/test_torch_dispatch.py's ranks: depth_net, nerf and joint mode
+    (its warmup ending inside the first chunk) for 8 steps, per step and in
+    chunks of 4 (train/dispatch.py); and ``sharded_depth_chunk`` of the
+    inputs in ``chunk_spec``."""
     from nerf_sampling_tpu_torch.train.trainer import Trainer
 
     rec = {}
-    for mode in ("depth_net", "nerf"):
+    for mode in ("depth_net", "nerf", "joint"):
         rec[mode] = {}
         for k in (1, 4):
             cfg = trainer_cfg(datadir, os.path.join(out, f"rank{rank}_k{k}"), mode, world,
-                              ft_path if mode == "depth_net" else None)
-            tr = Trainer(dataclasses.replace(cfg, i_print=4, i_weights=4, i_testset=8, steps_per_dispatch=k),
-                         device="cpu")
+                              None if mode == "nerf" else ft_path)
+            tr = Trainer(dataclasses.replace(cfg, i_print=4, i_weights=4, i_testset=8, steps_per_dispatch=k,
+                                             joint_depth_warmup=3), device="cpu")
             tr.train(N_iters=9)
             trained = [tr.params.depth] if mode == "depth_net" else [tr.params.coarse, tr.params.fine]
+            if mode == "joint":
+                trained.append(tr.params.depth)
             rec[mode][k] = {"lines": psnr_lines(tr.expdir) if tr.primary else None,
                             "checksum": flat_params(trained)}
+    rec["chunk"] = sharded_depth_chunk(rank, world, torch.load(chunk_spec, weights_only=False))
     torch.save(rec, os.path.join(out, f"rank{rank}.pt"))
 
 
