@@ -679,9 +679,20 @@ class Trainer:
             testsavedir = self._savedir(f"testset_{i:06d}")
             avg_psnr = self.eval_testset(testsavedir, i)
             self._avg_eval_psnr = avg_psnr
-            self.logger.log({"test_psnr": avg_psnr}, i)
+            record = {"test_psnr": avg_psnr}
+            line = f"Saved test set (avg PSNR {avg_psnr:.3f}"
+            if self.device.type == "cuda":
+                # live: what the run holds after the eval; max: the peak since the process
+                # (or its caller) last reset it
+                record["memory_allocated_mib"] = torch.cuda.memory_allocated(self.device) / 2**20
+                record["max_memory_allocated_mib"] = torch.cuda.max_memory_allocated(self.device) / 2**20
+                record["memory_reserved_mib"] = torch.cuda.memory_reserved(self.device) / 2**20
+                line += (f", memory allocated {record['memory_allocated_mib']:.1f} MiB, "
+                         f"max {record['max_memory_allocated_mib']:.1f} MiB, "
+                         f"reserved {record['memory_reserved_mib']:.1f} MiB")
+            self.logger.log(record, i)
             if self.primary:
-                print(f"Saved test set (avg PSNR {avg_psnr:.3f})")
+                print(line + ")")
             if avg_psnr > self._best_psnr + 1e-6:
                 self._best_psnr = avg_psnr
                 self._evals_since_best = 0
