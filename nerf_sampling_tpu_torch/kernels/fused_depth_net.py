@@ -200,11 +200,13 @@ def depth_slices(packed: dict) -> torch.Tensor:
     """The kernel's weight slices of a pack: for a bf16 pack
     ``wgmma_slices(wgmma_depth_program(packed))`` [n, 8192] bf16, for an
     fp32 one ``wgmma_slices32`` of that program [n, 4096] fp32; made on
-    first use and kept in the pack (a pack is made anew for new weights)."""
+    first use and kept in the pack (a pack is made anew for new weights).
+    The gather index is not kept on the device: a pack is made once an
+    eval, never inside a captured step."""
     cache = packed.setdefault("wg_slices", {})
     if "depth" not in cache:
         image = wgmma_slices32 if _fp32(packed) else wgmma_slices
-        cache["depth"] = image(wgmma_depth_program(packed))
+        cache["depth"] = image(wgmma_depth_program(packed), keep_index=False)
     return cache["depth"]
 
 

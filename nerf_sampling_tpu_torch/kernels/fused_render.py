@@ -133,7 +133,12 @@ def pack_nerf(model: NeRF, dtype=torch.bfloat16) -> dict:
 
 WG_SLICE_N, WG_SLICE_K = 128, 64  # a weight slice of the wgmma core: 128 output columns x 64 of depth
 WG_SLICE_BYTES = WG_SLICE_N * WG_SLICE_K * 2  # 16 KB; an int8 slice: 128 output columns x 128 of depth
+# the byte gather index of each slice program (``_program_index``): int32 on
+# the host for every program made so far, and on the device for those whose
+# slices are made again with every new pack of live weights (the nerf steps'
+# K4/K5 packs, inside captured steps too, so the index must outlive the graphs)
 _wg_index_cache: dict = {}
+_wg_device_index: dict = {}
 
 
 def wgmma_program(packed: dict, *, sigma_only: bool = False, backward: bool = False,
@@ -225,32 +230,43 @@ def _slice_index(rows: int, cols: int, transposed: bool, half: int | None, size:
     return np.concatenate(parts)
 
 
-def _program_index(key: tuple, device: torch.device) -> torch.Tensor:
-    """Byte gather index of a program's slices: for each byte of the image,
-    in order, its position in the bytes of the matrices laid end to end (one
-    past them, a zero byte, where a slice pads). ``key`` holds (rows, cols,
-    transposed, half, element size) of each product."""
-    if (key, str(device)) not in _wg_index_cache:
+def _program_index(key: tuple, device: torch.device, keep: bool = True) -> torch.Tensor:
+    """Byte gather index of a program's slices (int32): for each byte of the
+    image, in order, its position in the bytes of the matrices laid end to
+    end (one past them, a zero byte, where a slice pads). ``key`` holds
+    (rows, cols, transposed, half, element size) of each product. Built
+    once on the host; kept on ``device`` too unless ``keep`` is False, when
+    the caller's gather takes a copy that goes with it (the DepthNet's
+    programs: one image a pack, made once an eval, whose 27.5 MiB index
+    would otherwise sit on the card for the whole run)."""
+    if key not in _wg_index_cache:
         zero = sum(r * c * size for r, c, _, _, size in key)
+        if zero >= 2**31:
+            raise ValueError(f"a slice program of {zero} bytes overflows the int32 gather index")
         parts, off = [], 0
         for rows, cols, transposed, half, size in key:
             idx = _slice_index(rows, cols, transposed, half, size)[:, None]
             parts.append(np.where(idx == rows * cols, zero, off + idx * size + np.arange(size)).reshape(-1))
             off += rows * cols * size
-        _wg_index_cache[(key, str(device))] = torch.from_numpy(np.concatenate(parts)).to(device)
-    return _wg_index_cache[(key, str(device))]
+        _wg_index_cache[key] = np.concatenate(parts).astype(np.int32)
+    if not keep:
+        return torch.from_numpy(_wg_index_cache[key]).to(device)
+    if (key, str(device)) not in _wg_device_index:
+        _wg_device_index[(key, str(device))] = torch.from_numpy(_wg_index_cache[key]).to(device)
+    return _wg_device_index[(key, str(device))]
 
 
-def _slice_image(program: list[tuple[torch.Tensor, bool, int | None]]) -> torch.Tensor:
+def _slice_image(program: list[tuple[torch.Tensor, bool, int | None]], keep_index: bool = True) -> torch.Tensor:
     """The byte image [n_slices, 16384] uint8 of a program's slices (see
-    ``wgmma_qslices``), any element size."""
+    ``wgmma_qslices``), any element size; ``keep_index``: ``_program_index``'s
+    ``keep``."""
     key = tuple((w.shape[0], w.shape[1], bool(t), h, w.element_size()) for w, t, h in program)
     flat = torch.cat([w.reshape(-1).view(torch.uint8) for w, _, _ in program]
                      + [program[0][0].new_zeros(1, dtype=torch.uint8)])
-    return flat[_program_index(key, flat.device)].view(-1, WG_SLICE_BYTES)
+    return flat[_program_index(key, flat.device, keep_index)].view(-1, WG_SLICE_BYTES)
 
 
-def wgmma_qslices(program: list[tuple[torch.Tensor, bool, int | None]]) -> torch.Tensor:
+def wgmma_qslices(program: list[tuple[torch.Tensor, bool, int | None]], keep_index: bool = True) -> torch.Tensor:
     """The byte image of a program's weight slices, [n_slices, 16384] uint8,
     for a product x @ B of each (W, transposed, half) (B = W, or W^T when
     transposed; [K, N]), slice after slice in the order a tile consumes
@@ -260,20 +276,21 @@ def wgmma_qslices(program: list[tuple[torch.Tensor, bool, int | None]]) -> torch
     slice B[128 kp + k, 128 h + n] at byte n * 128 + ((k // 16) ^ (n % 8)) *
     16 + k % 16, zero past K or N: the 128-byte swizzled K-major tile that
     wgmma's shared-memory descriptor reads. The kernels' producer warp moves
-    each slice as one bulk copy."""
+    each slice as one bulk copy. ``keep_index`` False lets the gather index
+    go once the image is made (``_program_index``)."""
     for w, _, _ in program:
         if w.dim() != 2 or w.dtype not in (torch.bfloat16, torch.int8):
             raise TypeError("the wgmma core takes bf16 and int8 matrices")
-    return _slice_image(program)
+    return _slice_image(program, keep_index)
 
 
-def wgmma_slices(program: list[tuple[torch.Tensor, bool]]) -> torch.Tensor:
+def wgmma_slices(program: list[tuple[torch.Tensor, bool]], keep_index: bool = True) -> torch.Tensor:
     """``wgmma_qslices`` of a bf16 program (``wgmma_program``: every product
     whole) as [n_slices, 128 * 64] bf16."""
     for w, _ in program:
         if w.dtype != torch.bfloat16:
             raise TypeError("the wgmma core takes bf16 matrices")
-    return wgmma_qslices([(w, t, None) for w, t in program]).view(torch.bfloat16)
+    return wgmma_qslices([(w, t, None) for w, t in program], keep_index).view(torch.bfloat16)
 
 
 def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -287,7 +304,7 @@ def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, rna(w.float() - hi)
 
 
-def wgmma_slices32(program: list[tuple[torch.Tensor, bool]]) -> torch.Tensor:
+def wgmma_slices32(program: list[tuple[torch.Tensor, bool]], keep_index: bool = True) -> torch.Tensor:
     """The fp32 path's slices of a program of fp32 matrices
     (``wgmma_program`` of a ``pack_nerf(..., torch.float32)`` pack), as
     [n_slices, 128 * 32] fp32: for each 32-deep k panel and 128-column half
@@ -299,8 +316,8 @@ def wgmma_slices32(program: list[tuple[torch.Tensor, bool]]) -> torch.Tensor:
         if w.dim() != 2 or w.dtype != torch.float32:
             raise TypeError("the fp32 path takes fp32 matrices")
     splits = [tf32_split(w) for w, _ in program]
-    hi = _slice_image([(h, t, None) for (h, _), (_, t) in zip(splits, program)])
-    lo = _slice_image([(lo, t, None) for (_, lo), (_, t) in zip(splits, program)])
+    hi = _slice_image([(h, t, None) for (h, _), (_, t) in zip(splits, program)], keep_index)
+    lo = _slice_image([(lo, t, None) for (_, lo), (_, t) in zip(splits, program)], keep_index)
     return torch.stack([hi, lo], 1).reshape(-1, WG_SLICE_BYTES).view(torch.float32)
 
 

@@ -16,6 +16,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from nerf_sampling_tpu_torch.core import prng
 from nerf_sampling_tpu_torch.core.encoding import Embedder
 from nerf_sampling_tpu_torch.core.geometry import find_intersection_points_with_sphere
 
@@ -102,3 +103,14 @@ class DepthNet(nn.Module):
         )
         depth = self.to_depth(self.cat_layers(h))
         return self.cfg.near * (1 - depth) + self.cfg.far * depth
+
+
+def init_like_jax(model: DepthNet, key) -> DepthNet:
+    """``model``'s weights as the JAX package's ``depth_net_init(key, cfg)``
+    draws them (core/prng.py): one key of ``split(key, n)`` per dense
+    layer, in the order origin tower, direction tower, intersection tower,
+    trunk, depth head."""
+    linears = [*model.origin_layers, *model.direction_layers, *model.intersection_layers,
+               *(m for m in model.cat_layers if isinstance(m, nn.Linear)), model.to_depth[0]]
+    prng.init_linears(zip(linears, prng.split(key, len(linears))))
+    return model

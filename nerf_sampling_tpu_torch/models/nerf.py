@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nerf_sampling_tpu_torch.core import prng
+
 
 @dataclasses.dataclass(frozen=True)
 class NeRFConfig:
@@ -61,3 +63,20 @@ class NeRF(nn.Module):
         for layer in self.views_linears:
             h = F.relu(layer(h))
         return torch.cat([self.rgb_linear(h), alpha], -1)
+
+
+def init_like_jax(model: NeRF, key) -> NeRF:
+    """``model``'s weights as the JAX package's ``nerf_init(key, cfg)`` draws
+    them (core/prng.py): key i of ``split(key, D + 4)`` for trunk layer i,
+    then the feature, alpha, views and rgb layers (D .. D + 3), or the
+    output layer (D) without view directions."""
+    D = model.cfg.D
+    keys = prng.split(key, D + 4)
+    layers = list(zip(model.pts_linears, keys[:D]))
+    if model.cfg.use_viewdirs:
+        layers += [(model.feature_linear, keys[D]), (model.alpha_linear, keys[D + 1]),
+                   (model.views_linears[0], keys[D + 2]), (model.rgb_linear, keys[D + 3])]
+    else:
+        layers.append((model.output_linear, keys[D]))
+    prng.init_linears(layers)
+    return model

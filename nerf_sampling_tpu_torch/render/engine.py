@@ -177,6 +177,23 @@ def eval_packs(pipeline: Pipeline, mode: EvalMode, params: NeRFParams | None = N
     return packs
 
 
+def make_nerf_slices(kernels: KernelWeights) -> None:
+    """Make the forward weight slices of every NeRF pack in ``kernels`` now
+    (``fused_render.pack_slices``, kept in each pack): the full forward of
+    the nerf and coarse packs and of the hier pack's fine net, the trunk
+    and alpha head of its coarse net. The Trainer makes a frozen NeRF's at
+    setup, so that they do not first appear, and stay, at the first eval."""
+    for k in (kernels, kernels.fp32):
+        if k is None:
+            continue
+        for pack in (k.nerf, k.coarse):
+            if pack is not None:
+                fused_render.pack_slices(pack)
+        if k.hier is not None:
+            fused_render.pack_slices(k.hier["coarse"], sigma_only=True)
+            fused_render.pack_slices(k.hier["fine"])
+
+
 def repack_depth(params: NeRFParams) -> NeRFParams:
     """``params`` with the DepthNet's packs (bf16, and fp32 where there are
     fp32 packs) made anew and the NeRF's packs kept."""

@@ -41,9 +41,11 @@ to ``metrics.jsonl``; a ``trial`` (optuna's, or any object with
 ``report`` and ``should_prune``) gets the PSNR at every ``i_print`` and
 may prune the run (``TrialPruned``).
 
-The seed of step i is a pure function of (``cfg.seed``, i), as JAX's
-``fold_in(base_key, i)``, so a resumed run draws what an unbroken run
-draws at the same step. With ``mlp_impl="cuda"`` every kernel pack an eval
+The models a run starts from are the JAX Trainer's for ``cfg.seed``,
+bit for bit (``_initial_models``, core/prng.py), so a seed starts the same
+run in both packages. The seed of step i is a pure function of
+(``cfg.seed``, i), as JAX's ``fold_in(base_key, i)``, so a resumed run
+draws what an unbroken run draws at the same step. With ``mlp_impl="cuda"`` every kernel pack an eval
 reads is made anew before the eval, fp32 ones included (the DepthNet's in
 depth-net mode, where the NeRF is frozen and its packs are made once; all
 of them in nerf and joint mode); the nerf and joint steps pack the live
@@ -97,9 +99,12 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from nerf_sampling_tpu_torch.core import prng
 from nerf_sampling_tpu_torch.core.metrics import to8b
 from nerf_sampling_tpu_torch.data.types import SceneData
 from nerf_sampling_tpu_torch.models import DepthNet, NeRF
+from nerf_sampling_tpu_torch.models.depth_net import init_like_jax as depth_init_like_jax
+from nerf_sampling_tpu_torch.models.nerf import init_like_jax as nerf_init_like_jax
 from nerf_sampling_tpu_torch.render.engine import (
     CUDA_INT8,
     KERNEL_IMPLS,
@@ -107,6 +112,7 @@ from nerf_sampling_tpu_torch.render.engine import (
     NeRFParams,
     check_eval_envelope,
     eval_packs,
+    make_nerf_slices,
     pack_kernel_weights,
     quant_pair,
     repack_depth,
@@ -195,11 +201,17 @@ def resolve_steps_per_dispatch(cfg: TrainerConfig, N_iters: int, start: int, dev
     return max(k for k in range(1, min(g, 100) + 1) if g % k == 0)
 
 
-def _seeded(module_cls, cfg, seed: int):
-    """A module initialized from ``seed`` without touching the global RNG."""
+def _initial_models(p, seed: int, with_depth: bool) -> tuple:
+    """The coarse and fine NeRFs and the DepthNet (None where the pipeline
+    has none) with the JAX Trainer's initial weights for ``seed``
+    (``_init_params``: keys 0, 1 and 2 of ``split(PRNGKey(seed), 3)``),
+    made without touching the global RNG."""
+    k_coarse, k_fine, k_depth = prng.split(prng.prng_key(seed), 3)
     with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        return module_cls(cfg)
+        coarse = nerf_init_like_jax(NeRF(p.nerf), k_coarse)
+        fine = nerf_init_like_jax(NeRF(p.fine), k_fine) if p.fine is not None else None
+        depth = depth_init_like_jax(DepthNet(p.depth), k_depth) if with_depth else None
+    return coarse, fine, depth
 
 
 class Trainer:
@@ -362,9 +374,7 @@ class Trainer:
         if p.ndc and self.scene is not None:  # the steps see flat ray batches: the reprojection's geometry rides here
             H, W, focal = self.scene.hwf
             p = self.pipeline = dataclasses.replace(p, H=int(H), W=int(W), focal=float(focal))
-        coarse = _seeded(NeRF, p.nerf, cfg.seed)
-        fine = _seeded(NeRF, p.fine, cfg.seed + 1) if p.fine is not None else None
-        depth = _seeded(DepthNet, p.depth, cfg.seed + 2) if with_depth else None
+        coarse, fine, depth = _initial_models(p, cfg.seed, with_depth)
         explicit_depth = cfg.depth_net_path not in (None, "None")
 
         if cfg.ft_path not in (None, "None"):
@@ -435,6 +445,7 @@ class Trainer:
             # the oracle (K6, not under NDC) reads the hier packs, int8 ones under cuda_int8 whatever the eval mode
             params = pack_kernel_weights(params, **{**eval_packs(p, self._eval_mode(), params),
                                                     "with_hier": not p.ndc, "quant_pair": quant_pair(p, params)})
+            make_nerf_slices(params.kernels)
         self.params = params
 
     def _restored_opt(self, key: str) -> dict | None:
@@ -610,7 +621,9 @@ class Trainer:
         """The models with every kernel pack the eval mode reads made from
         their weights as they are now (the steps changed what the packs
         copied): the DepthNet's packs in depth-net mode, where the frozen
-        NeRF's were made at setup; all of them in nerf and joint mode."""
+        NeRF's were made at setup; all of them in nerf and joint mode. The
+        last eval's packs are let go first, so that two sets never coexist."""
+        self.eval_params = None
         params = self.params
         if self.pipeline.mlp_impl in KERNEL_IMPLS:
             if self.cfg.train_mode == "depth_net":
