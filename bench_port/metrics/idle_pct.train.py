@@ -1,0 +1,7 @@
+"""The share of the traced slice of a training window in which no device operation ran (%)."""
+
+from bench_port.metrics_common import idle_pct
+
+
+def read(run: dict) -> float | None:
+    return idle_pct(run)
