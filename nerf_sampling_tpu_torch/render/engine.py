@@ -64,6 +64,7 @@ from nerf_sampling_tpu_torch.core.sampling import (
 from nerf_sampling_tpu_torch.kernels import fused_depth_net, fused_hier, fused_nerf_vjp, fused_render, quant
 from nerf_sampling_tpu_torch.models.depth_net import DepthNet, DepthNetConfig
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
+from nerf_sampling_tpu_torch.utils import profiling
 from nerf_sampling_tpu_torch.utils.precision import check_precision, matmul_precision
 
 PLAIN, CUDA, CUDA_INT8 = "plain", "cuda", "cuda_int8"
@@ -764,11 +765,13 @@ def render_image(
     full_outputs: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Render a full image on ``device``: rays -> render_flat_rays -> [H, W, ...] maps
-    (an NDC reprojection takes H, W and K's focal)."""
-    rays_o, rays_d = get_rays(H, W, K, c2w, device)
-    flat = render_flat_rays(
-        pipeline, params, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
-        mode=mode, chunk=chunk, generator=generator, full_outputs=full_outputs,
-        H=H, W=W, focal=float(K[0][0]),
-    )
-    return {name: v.reshape(H, W, *v.shape[1:]) for name, v in flat.items()}
+    (an NDC reprojection takes H, W and K's focal); the recorder's
+    ``nst.render.image`` span."""
+    with profiling.span("nst.render.image"):
+        rays_o, rays_d = get_rays(H, W, K, c2w, device)
+        flat = render_flat_rays(
+            pipeline, params, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
+            mode=mode, chunk=chunk, generator=generator, full_outputs=full_outputs,
+            H=H, W=W, focal=float(K[0][0]),
+        )
+        return {name: v.reshape(H, W, *v.shape[1:]) for name, v in flat.items()}

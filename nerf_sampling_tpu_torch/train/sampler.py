@@ -18,6 +18,7 @@ import numpy as np
 
 from nerf_sampling_tpu_torch.core.rays import get_rays_np
 from nerf_sampling_tpu_torch.data.types import SceneData
+from nerf_sampling_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -63,10 +64,11 @@ class RaySampler:
         self._i_batch = 0
 
     def sample(self, i: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Ray batch for train iteration ``i``."""
-        if self.cfg.use_batching:
-            return self._sample_batched()
-        return self._sample_per_image(i)
+        """Ray batch for train iteration ``i`` (the recorder's ``nst.sampler.sample`` span)."""
+        with profiling.span("nst.sampler.sample"):
+            if self.cfg.use_batching:
+                return self._sample_batched()
+            return self._sample_per_image(i)
 
     def _sample_batched(self):
         n = self.cfg.N_rand

@@ -51,6 +51,17 @@ same int seed. The step bodies launch only device work, with no host read
 of a device value and no host-to-device copy, so a graph can hold them;
 their host bookkeeping (the step counts, the update counts) is the
 dispatcher's to repeat at each replay.
+
+Each step marks its phases with ``utils.profiling.phase``: ``oracle`` (the
+depth step's K6 target pass), ``forward`` (the rest of the forward and the
+loss), ``backward``, ``all_reduce`` (data parallelism) and ``adam``. On
+the card, inside ``profiling.step_phases`` where the step is timed, a
+marker is a CUDA event that a captured graph keeps as a node, so the
+phases' device times survive a replay. A phase runs to the next marker,
+and the last to the step's return, so the phases tile the step from its
+first marker on: ``adam`` holds what follows the update too (the NeRF
+step's PSNR), and the batch's preparation before the first marker
+(``make_ray_batch``) is in none.
 """
 
 from __future__ import annotations
@@ -59,7 +70,6 @@ import functools
 from typing import Callable, NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from nerf_sampling_tpu_torch.core.compositing import raw2outputs
 from nerf_sampling_tpu_torch.core.metrics import img2mse, mse2psnr
@@ -80,6 +90,7 @@ from nerf_sampling_tpu_torch.render.engine import (
     render_rays_vanilla,
 )
 from nerf_sampling_tpu_torch.train.state import TrainState, apply_update
+from nerf_sampling_tpu_torch.utils import profiling
 from nerf_sampling_tpu_torch.utils.precision import matmul_precision
 
 
@@ -217,7 +228,7 @@ def depth_net_loss(
             raise ValueError(f"the K6 branch of mlp_impl={p.mlp_impl!r} needs the frozen NeRFs' hier packs "
                              "(pack_kernel_weights(with_hier=True), with the quant_pair under cuda_int8)")
         fine = frozen.fine if frozen.fine is not None else frozen.coarse
-        with torch.no_grad(), record_function("oracle_k6"):
+        with torch.no_grad(), profiling.phase("oracle"):
             hm = fused_hier.fused_render_hier(
                 hier, frozen.coarse.cfg, fine.cfg, rays.rays_o, rays.rays_d,
                 n_coarse=p.N_samples, n_importance=p.N_importance, near=p.near, far=p.far,
@@ -228,14 +239,14 @@ def depth_net_loss(
             )
         max_z = hm["max_z"].reshape(-1, 1)
         acc = hm["acc_map"].reshape(-1, 1)
-        with record_function("depth_net_forward"):
+        with profiling.phase("forward"):
             depth_z = depth(rays.rays_o, rays.rays_d)
             depth_pts = z_to_points(rays.rays_o, rays.rays_d, depth_z)
             depth_raw = _query_fine_or_coarse(p, frozen, depth_pts, rays)
             rgb = raw2outputs(depth_raw, depth_z, rays.rays_d, 0.0, p.white_bkgd).rgb_map
     else:
         generator = None if draws is not None else _generator(seed, rays.rays_o.device)
-        with record_function("depth_net_forward"):
+        with profiling.phase("forward"):
             out = render_rays_train(
                 p, frozen._replace(depth=depth), rays, generator,
                 t_rand=None if draws is None else draws.t_rand,
@@ -279,12 +290,12 @@ def make_depth_net_train_step(pipeline: Pipeline, frozen: NeRFParams, *, reduce_
                                        _window(draws, rows, rays_o.shape[0]), rows=rows,
                                        reduce_metrics=reduce_metrics)
         state.optimizer.zero_grad(set_to_none=True)
-        with record_function("backward"):
+        with profiling.phase("backward"):
             loss.backward()
         if reduce_grads is not None:
-            with record_function("all_reduce_grads"):
+            with profiling.phase("all_reduce"):
                 reduce_grads([state.model])
-        with record_function("adam"):
+        with profiling.phase("adam"):
             apply_update(state)
         state.step += 1
         return state, metrics
@@ -327,18 +338,18 @@ def make_nerf_train_step(pipeline: Pipeline, *, reduce_grads: Callable | None = 
     def step(state: TrainState, batch, seed: int | StepSeed, draws: StepDraws | None = None):
         rays_o, rays_d, target = batch
         rays = make_ray_batch(p, rays_o, rays_d)
-        with record_function("nerf_forward"):
+        with profiling.phase("forward"):
             out = render_rays_vanilla(p, nerf_pair(state.model), rays, **_step_generator(rays, seed, draws, shard))
             img_loss = img2mse(out["rgb_map"], target)
             img_loss0 = img2mse(out["rgb0"], target)
             loss = img_loss + img_loss0
         state.optimizer.zero_grad(set_to_none=True)
-        with record_function("backward"):
+        with profiling.phase("backward"):
             loss.backward()
         if reduce_grads is not None:
-            with record_function("all_reduce_grads"):
+            with profiling.phase("all_reduce"):
                 reduce_grads([state.model])
-        with record_function("adam"):
+        with profiling.phase("adam"):
             apply_update(state)
         state.step += 1
         with torch.no_grad():
@@ -378,7 +389,7 @@ def make_joint_train_step(pipeline: Pipeline, *, reduce_grads: Callable | None =
         rays_o, rays_d, target = batch
         rays = make_ray_batch(p, rays_o, rays_d)
         live = nerf_state.step >= p.joint_depth_warmup
-        with record_function("joint_forward"):
+        with profiling.phase("forward"):
             params = nerf_pair(nerf_state.model)._replace(depth=depth_state.model)
             out = render_rays_joint(p, params, rays, **_step_generator(rays, seed, draws, shard))
             img_loss = img2mse(out["rgb_map"], target)
@@ -394,12 +405,12 @@ def make_joint_train_step(pipeline: Pipeline, *, reduce_grads: Callable | None =
                 total = total + (depth_img_loss + depth_loss)
         nerf_state.optimizer.zero_grad(set_to_none=True)
         depth_state.optimizer.zero_grad(set_to_none=True)
-        with record_function("backward"):
+        with profiling.phase("backward"):
             total.backward()
         if reduce_grads is not None:
-            with record_function("all_reduce_grads"):
+            with profiling.phase("all_reduce"):
                 reduce_grads([nerf_state.model, depth_state.model])
-        with record_function("adam"):
+        with profiling.phase("adam"):
             apply_update(nerf_state)
             if live:
                 apply_update(depth_state)

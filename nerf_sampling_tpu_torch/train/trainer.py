@@ -33,7 +33,8 @@ given ``device="cpu"``.
 
 Around the steps, as the JAX Trainer (:490-568, :830-850): ``profile_dir``
 traces steps [start+20, start+40) with torch.profiler into
-``profile_dir/trace.json`` (utils/profiling.py); ``debug_nans`` raises at
+``profile_dir/trace.json``, with the recorder's spans, counts and each
+step's phase times beside it in ``spans.json`` (utils/profiling.py); ``debug_nans`` raises at
 the first module output that holds a NaN and runs autograd's anomaly mode
 (rays that miss the DepthNet's sphere give NaN by design: see
 ``nan_checks``); ``wandb_mode`` logs to wandb where it is installed, else
@@ -130,7 +131,7 @@ from nerf_sampling_tpu_torch.train.steps import (
 )
 from nerf_sampling_tpu_torch.utils.config import TrainerConfig
 from nerf_sampling_tpu_torch.utils.logging import MetricsLogger
-from nerf_sampling_tpu_torch.utils.profiling import StepTimer, nan_checks, trace
+from nerf_sampling_tpu_torch.utils.profiling import StepTimer, nan_checks, step_phases, trace
 from nerf_sampling_tpu_torch.utils.video import write_video
 
 TRAIN_MODES = ("depth_net", "nerf", "joint")
@@ -545,10 +546,11 @@ class Trainer:
                         batch = shard_ray_batch(self.mesh, batch)
                     batch = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device) for x in batch)
                     seed = step_seed(cfg.seed, i)
-                    if cfg.train_mode == "joint":
-                        state, depth_state, metrics = step_fn(state, depth_state, batch, seed)
-                    else:
-                        state, metrics = step_fn(state, batch, seed)
+                    with step_phases(self.device):
+                        if cfg.train_mode == "joint":
+                            state, depth_state, metrics = step_fn(state, depth_state, batch, seed)
+                        else:
+                            state, metrics = step_fn(state, batch, seed)
                     timer.tick()
                 if cfg.debug_nans and not torch.isfinite(metrics["loss"]):  # a NaN no module output showed
                     raise FloatingPointError(f"step {i}: the loss is {float(metrics['loss'])}")
