@@ -1,16 +1,19 @@
-"""Time K3 and K6 on two checkouts in turns on one GPU: the other tree, this one, this one, the other.
+"""Time the render kernels on two checkouts in turns on one GPU: the other tree, this one, this one, the other.
 
-    python3 ab_k3k6.py OTHER_TREE
+    python3 ab_render_times.py OTHER_TREE
 
 OTHER_TREE is another checkout of the repository (for example the parent
 commit unpacked with ``git archive`` into a directory ``.gitignore``
 lists). Each turn is a process of its own that builds the tree's kernels
 and times, with CUDA events after a warm-up, K6 (the seeded hierarchical
-pass, 1024 rays of test view 0, 64 + 128 samples, 50 launches) and K3
-(the gaussian population over view 0's 160,000 rays at 64 samples, 10
-launches) on the committed checkpoint, through the wrappers both trees
-have. Prints one ``TIMES`` JSON line per turn, then the card's name and
-power limit, and exits non-zero when a turn fails.
+pass, 1024 rays of test view 0, 64 + 128 samples, 50 launches), K3 (the
+gaussian population over view 0's 160,000 rays at 64 samples, 10
+launches), K2 (the same rays around the DepthNet's depths, uniform at 64
+samples, std 1, 10 launches) and K7 (the deterministic hierarchical pass
+over the 160,000 rays, 64 + 128, 5 launches) on the committed
+checkpoint, through the wrappers both trees have. Prints one ``TIMES``
+JSON line per turn, then the card's name and power limit, and exits
+non-zero when a turn fails.
 """
 
 import json
@@ -22,7 +25,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def time_tree(root: str) -> dict:
-    """K6 and K3 times (ms per launch) of the tree at ``root``, in this process."""
+    """K6, K3, K2 and K7 times (ms per launch) of the tree at ``root``, in this process."""
     sys.path.insert(0, root)
     os.chdir(root)
     import torch
@@ -45,7 +48,11 @@ def time_tree(root: str) -> dict:
                                                       seed=1), 50)
     k3_ms = cs.cuda_ms(lambda: k3.render_gaussian_kernel(params.kernels.nerf, params.fine.cfg, ro, rd, depth,
                                                           n_samples=64, std=1.0, seed=7), 10)
-    return {"k6_ms": k6_ms, "k3_ms": k3_ms}
+    offsets = torch.from_numpy(k3.uniform_population_offsets(64, 1.0)).to(device)
+    k2_ms = cs.cuda_ms(lambda: k3.render_around_depth_kernel(params.kernels.nerf, params.fine.cfg, ro, rd, depth,
+                                                              offsets), 10)
+    k7_ms = cs.cuda_ms(lambda: k6.render_hier_kernel(hier, cfg_c, cfg_f, ro, rd, n_coarse=64, n_importance=128), 5)
+    return {"k6_ms": k6_ms, "k3_ms": k3_ms, "k2_ms": k2_ms, "k7_ms": k7_ms}
 
 
 def main() -> int:

@@ -14,7 +14,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    products) whose int32 sums must equal an fp64 matmul of the int8 values
    exactly; then one fp32 layer (3xTF32 products, those of K1, K7 and K9
    in fp32) whose largest error from an fp64 matmul must be at most
-   CORE32_TOL times strict-fp32 torch.matmul's; it fails before any NeRF
+   CORE32_TOL times strict-fp32 torch.matmul's; then the render kernels'
+   PE fill (csrc/mlp_wgmma.cuh's stage_views and pe_fill, through
+   wg_dense.cu's nst_pe_fill_check) against the per-column formula it
+   replaced, on 1,048,576 rows and ragged launches at S 2, 64, 192 and
+   512 with NaN depths, z inside and beyond [2, 6] and arguments past
+   sinf's fast range: 0 bytes may differ; it fails before any NeRF
    kernel runs.
 3. Kernel vs plain, on the committed checkpoint's weights, each held to
    its plain version at bf16 rounding with the tolerances below:
@@ -481,7 +486,9 @@ def check_core(device) -> None:
     mode, whose int32 sums must equal an fp64 matmul of the int8 values
     (exact: every sum is below 2^53); then its fp32 mode (3xTF32 products),
     whose largest error from an fp64 matmul must be at most CORE32_TOL
-    times strict-fp32 torch.matmul's; every launch counted."""
+    times strict-fp32 torch.matmul's; then the render kernels' PE fill,
+    whose tiles must equal the per-column formula's byte for byte; every
+    launch counted."""
     from nerf_sampling_tpu_torch.kernels import fused_render as fr
 
     t0 = time.perf_counter()
@@ -544,6 +551,30 @@ def check_core(device) -> None:
         require(bool(torch.isfinite(got).all()) and e_got <= CORE32_TOL * e_f32,
                 f"[core] the 3xTF32 layer is further from fp64 than {CORE32_TOL:g}x fp32 at {M} x {K} x {N}")
     require(fr.wgmma_dense32_launches == len(fcases), "[core] wgmma_dense32 did not launch its kernel")
+    # the render kernels' PE fill against the per-column formula it replaced,
+    # byte for byte: (S, rays a block, rays, sigma_only); 16384 x 64 is
+    # 1,048,576 rows, the others end on a ragged tile or a short last block
+    fr.pe_fill_check_launches = 0
+    pcases = ((64, 24, 16384, False), (2, 64, 4099, False), (192, 5, 1001, False), (512, 3, 301, False),
+              (64, 8, 1001, True))
+    for S, R, n, sigma_only in pcases:
+        ro = torch.randn(n, 3, generator=g, device=device) * 2.0
+        far_off = torch.rand(n, generator=g, device=device) < 0.01  # |u| 2^9 past sinf's fast range
+        ro[far_off] *= 100.0
+        rd = torch.randn(n, 3, generator=g, device=device)
+        z = torch.rand(n, S, generator=g, device=device) * 8.0  # inside and beyond [2, 6]
+        z[torch.rand(n, generator=g, device=device) < 0.01] = float("nan")  # sphere misses: a NaN depth
+        z[torch.rand(n, S, generator=g, device=device) < 0.001] = float("nan")
+        got, ref = fr.pe_fill_check(ro, rd, z, R, sigma_only=sigma_only)
+        torch.cuda.synchronize()
+        cols = 64 if sigma_only else 128
+        bad = int((got[:, :cols].contiguous().view(torch.uint8) != ref[:, :cols].contiguous().view(torch.uint8)).sum())
+        nan_rows = int(torch.isnan(ref[:, 0].float()).sum())
+        log(f"[core] PE fill, S {S}, {R} rays a block, {n} rays ({n * S} rows, {nan_rows} NaN"
+            f"{', sigma only: the point panel' if sigma_only else ''}): {bad} of {got.shape[0] * cols * 2} bytes "
+            f"differ from the per-column formula (must be 0)")
+        require(bad == 0 and nan_rows > 0, f"[core] the PE fill differs from the per-column formula at S {S}")
+    require(fr.pe_fill_check_launches == len(pcases), "[core] pe_fill_check did not launch its kernel")
     log(f"[core] phase {time.perf_counter() - t0:.1f} s")
 
 

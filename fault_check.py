@@ -11,7 +11,8 @@ Four sets of gates must pass on the sound source and fail on a wrong one:
   K6/K7 in int8);
 - "core", the wgmma core's first check ([core]: one bf16 layer at
   CORE_ULP_TOL, one s8 layer exact, one fp32 (3xTF32) layer within
-  CORE32_TOL of strict fp32's error);
+  CORE32_TOL of strict fp32's error, the render kernels' PE fill equal
+  to the per-column formula byte for byte);
 - "wgmma", the bf16 kernels on the core ([K1], [K6], [k4], [k5], [K2], [K3]
   and the render path: K1 against its plain version, the K6 map, max_z and
   draw gates, K4 against its plain version, K5_REL_TOL, K5_COS_TOL and the
@@ -28,7 +29,8 @@ int8 tile swizzle, which [core]'s s8 layer and every int8 kernel (K2/K3/
 K8/K9 and K6/K7) share, and in its 3xTF32 product, which [core]'s fp32
 layer and K1, K7 and K9 in fp32 share: its two corrections dropped, or its
 sums in one chain (the run says which of [k9], [fp32] and [modes] see
-each).
+each); and in the render kernels' PE fill, which [core] holds to the
+per-column formula: its sines and cosines on the fast hardware path.
 This runs the gates first on the checkout as it is, then on one copy per
 fault below (the port with its experiment configs, chip_smoke.py and the
 checkpoint, under logs/fault_check/, with one edit to the copy's source), with
@@ -91,6 +93,11 @@ FAULTS = {
                    "        auto join = [](float sum, float p) { return __fadd_rn(sum, p); };",
                    "for (int i = 0; i < 64; ++i) part[i] = acc[h][i];\n"
                    "        auto join = [](float, float p) { return p; };", ("core", "fp32")),
+    # the render kernels' PE fill on the fast hardware sine and cosine
+    # (__sincosf), which the argument's 2^9 |u| defeats: [core]'s PE fill
+    # gate must see its bytes differ from the per-column formula's
+    "pe_fast_trig": ("mlp_wgmma.cuh", "for (int k = 0; k < 3; ++k) sincosf(u[k]",
+                     "for (int k = 0; k < 3; ++k) __sincosf(u[k]", ("core",)),
 }
 
 # run in the checkout or copy: chip_smoke's checks of the named gate sets, gates recorded

@@ -44,6 +44,12 @@
 // rows and columns add exact zeros to the sums. Each k step of a product is
 // 32 bytes of depth (k16 bf16, k32 int8), so one descriptor walk serves both.
 //
+// Each 128-row tile of a render pass begins with its PE tile, which the
+// consumers fill while the tensor cores wait: per row one sincosf per
+// (frequency, axis) of the point's embedding and a copy of its ray's view
+// embedding, staged once per pass (stage_views, pe_fill; bit for bit the
+// per-column embed it replaced: the section "the render kernels' PE fill").
+//
 // The weight sequence of a pass does not depend on the activations, so the
 // producer runs ahead across layers and tiles, bounded by free ring stages
 // (full/empty mbarrier pairs; each consumer warp releases a stage after its
@@ -650,37 +656,148 @@ __device__ void nerf_forward(const NerfWeightsQ& w, const Tiles<S>& t, Cursor& c
         if (r0 + 8 * hh < valid) rgb[ch][r0 + 8 * hh] = 1.f / (1.f + expf(-(s[2 * ch + hh] + w.rgb_b[ch])));
 }
 
+// ---- the render kernels' PE fill (K2/K3/K8/K9 and K6/K7, bf16 and int8)
+//
+// The rows of a render pass are samples of the block's rays: row r is the
+// point o + d z[r] of ray r / S, seen from the ray's unit direction d / |d|
+// (ray: o[3], d[3], |d| per ray, 8 floats). Its PE row is
+//   [u, sin(u 2^0), cos(u 2^0), ..., sin(u 2^9), cos(u 2^9) | 0]  (63 + 1)
+//   [v, sin(v 2^0), cos(v 2^0), ..., sin(v 2^3), cos(v 2^3) | 0]  (27 + 37)
+// with u = o + d z and v = d / |d|, each value nerf_mlp.cuh::embed's,
+// rounded to bf16. Each distinct value is computed once:
+// - per pass that reads the view panel (not a sigma-only one): the view
+//   panel's columns 96-127, zero in every row and written by no tile, and
+//   each ray's view embedding, staged as 32 bf16 (27 and 5 zeros, 64 bytes)
+//   a ray (stage_views);
+// - per row: the row's ray (one division), u (the three rounded
+//   __fadd_rn(o, __fmul_rn(d, z)) of the plain version: no FMA), then one
+//   sincosf(u_k 2^f) per frequency f and axis k, which gives both column
+//   3 + 6f + k (sine) and column 6 + 6f + k (cosine); the view panel's
+//   first 64 bytes are a copy of the ray's staged embedding (pe_fill).
+// Bit for bit the per-column fill it replaced (every element embed(u, col)
+// or embed(v, col), __float2bfloat16): the same fp32 operations in the same
+// order, sincosf giving sinf's and cosf's bits (no __sinf/__cosf, fast math
+// or recurrence: the argument reaches 2^9 |u|), NaN depths NaN in the same
+// columns, rows past the pass zero; chip_smoke.py [core] holds the two
+// fills' bytes equal on the card (wg_dense.cu's nst_pe_fill_check).
+//
+// Two threads a row: thread h = 0 the frequencies 0-4 and point columns
+// 0-31, h = 1 the frequencies 5-9 and columns 32-63 (column 32, the last
+// cosine of frequency 4, by a shuffle from its partner lane), each 15
+// sincosf and four 16-byte stores; the view panel's chunks 2h and 2h + 1.
+// A store instruction's quarter warp (4 rows x 2 halves) hits 8 distinct
+// 16-byte chunks of the swizzle in the point panel (chunk (4h + q) ^ (row %
+// 8)), so the point stores are free of bank conflicts; the view stores are
+// 2-way (chunks 0-3 of 4 rows whose swizzles share their high bit).
+
+// The view embedding of rays [0, nr) into view[32 r .. 32 r + 32) and the
+// view panel's columns 96-127 zero, before the first tile of a pass that
+// reads the view panel; all consumer threads. Ends with both visible to
+// every consumer and to the tensor cores.
+__device__ __forceinline__ void stage_views(const float* ray, int nr, bf16* view, unsigned char* pe) {
+  for (int e = threadIdx.x; e < nr * 32; e += kConsumers) {
+    const int r = e >> 5, col = e & 31;
+    float v = 0.f;
+    if (col < kViewCh) {
+      const float* q = ray + 8 * r;
+      float u[3];
+      for (int k = 0; k < 3; ++k) u[k] = __fdiv_rn(q[3 + k], q[6]);
+      v = embed(u, col);
+    }
+    view[e] = __float2bfloat16(v);
+  }
+  for (int e = threadIdx.x; e < kRows * 4; e += kConsumers)
+    *reinterpret_cast<uint4*>(pe + tile_offset(e >> 2, kPeViews + 32 + 8 * (e & 3))) = make_uint4(0u, 0u, 0u, 0u);
+  fence_async_smem();
+  consumers_sync();
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The PE tile of rows [c0, c0 + 128) of a pass of `rows` rows, S a ray,
+// this warpgroup's 64: the point panel from z and the rays, the view panel
+// (unless sigma_only) from stage_views' embeddings; rows from `rows` on
+// zero. Begins by waiting for the warpgroup's products of the previous
+// tile; ends with the PE tile visible to its next wgmma.
+__device__ __forceinline__ void pe_fill(unsigned char* pe, const float* ray, const bf16* view, const float* z,
+                                        int c0, int rows, int S, bool sigma_only) {
+  const int lt = threadIdx.x & 127, h = lt & 1;
+  const int rr = 64 * (threadIdx.x >> 7) + (lt >> 1), row = c0 + rr;
+  const bool live = row < rows;
+  const int r = live ? row / S : 0;
+  float u[3] = {0.f, 0.f, 0.f};
+  if (live) {
+    const float* q = ray + 8 * r;
+    const float zr = z[row];
+    // o + d*z rounded like the plain version: no fused multiply-add
+    for (int k = 0; k < 3; ++k) u[k] = __fadd_rn(q[k], __fmul_rn(q[3 + k], zr));
+  }
+  // sine and cosine of u_k 2^f for this half's frequencies f = 5h + j
+  float sn[5][3], cs[5][3];
+#pragma unroll
+  for (int j = 0; j < 5; ++j)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) sincosf(u[k] * (float)(1 << (5 * h + j)), &sn[j][k], &cs[j][k]);
+  const float c32 = __shfl_xor_sync(0xffffffffu, cs[4][2], 1);  // column 32, from the first half
+  // the half's columns 32h + i: h = 0: u, then frequency j's sines at 3 +
+  // 6j + k and cosines at 6 + 6j + k; h = 1: column 32, then frequency 5 +
+  // j's at 1 + 6j + k and 4 + 6j + k, and column 63 zero
+  float v[32];
+#pragma unroll
+  for (int j = 0; j < 5; ++j)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (h == 0) {
+        v[3 + 6 * j + k] = sn[j][k];
+        if (6 + 6 * j + k < 32) v[6 + 6 * j + k] = cs[j][k];
+      } else {
+        v[1 + 6 * j + k] = sn[j][k];
+        v[4 + 6 * j + k] = cs[j][k];
+      }
+    }
+  if (h == 0) {
+    v[0] = u[0];
+    v[1] = u[1];
+    v[2] = u[2];
+  } else {
+    v[0] = c32;
+    v[31] = 0.f;
+  }
+  group_sync();  // the previous tile's products read the PE tile no more
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (live)
+      w = make_uint4(bf16x2_bits(v[8 * q], v[8 * q + 1]), bf16x2_bits(v[8 * q + 2], v[8 * q + 3]),
+                     bf16x2_bits(v[8 * q + 4], v[8 * q + 5]), bf16x2_bits(v[8 * q + 6], v[8 * q + 7]));
+    *reinterpret_cast<uint4*>(pe + tile_offset(rr, 32 * h + 8 * q)) = w;
+  }
+  if (!sigma_only) {
+    const uint4* src = reinterpret_cast<const uint4*>(view + 32 * r) + 2 * h;
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      *reinterpret_cast<uint4*>(pe + tile_offset(rr, kPeViews + 16 * h + 8 * q)) =
+          live ? src[q] : make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_async_smem();
+  group_sync();
+}
+
 // The MLP over rows [0, rows) of the plane z (row's ray: row / S), on the
 // core, as nerf_mlp.cuh::nerf_rows: sigma[row] and, unless sigma_only,
 // sigmoid(rgb) into rgb[0..2][row]; bf16 or int8 by the weights' type.
-// Consumer threads only; ends without a block-wide barrier (the caller
-// syncs the consumers).
+// view: room for the view embeddings of the pass's rays (32 bf16 a ray,
+// 16-byte aligned; stage_views). Consumer threads only; ends without a
+// block-wide barrier (the caller syncs the consumers).
 template <int S, typename Weights>
-__device__ void nerf_rows(const Weights& w, const Tiles<S>& t, Cursor& cur, const float* ray, const float* z,
-                          int rows, int Sr, bool sigma_only, float* sigma, float* const* rgb) {
-  const int g = threadIdx.x >> 7, lt = threadIdx.x & 127;
+__device__ void nerf_rows(const Weights& w, const Tiles<S>& t, Cursor& cur, const float* ray, bf16* view,
+                          const float* z, int rows, int Sr, bool sigma_only, float* sigma, float* const* rgb) {
+  if (!sigma_only) stage_views(ray, (rows + Sr - 1) / Sr, view, t.pe);
   for (int c0 = 0; c0 < rows; c0 += kRows) {
-    group_sync();  // the previous tile's products read the PE tile no more
-    for (int e = lt; e < 64 * 128; e += 128) {
-      const int rr = 64 * g + (e >> 7), col = e & 127, row = c0 + rr;
-      float v = 0.f;
-      if (row < rows && (col < kPtsCh || (col >= kPeViews && col < kPeViews + kViewCh))) {
-        const float* q = ray + 8 * (row / Sr);
-        float u[3];
-        if (col < kPtsCh) {
-          const float zr = z[row];
-          // o + d*z rounded like the plain version: no fused multiply-add
-          for (int k = 0; k < 3; ++k) u[k] = __fadd_rn(q[k], __fmul_rn(q[3 + k], zr));
-          v = embed(u, col);
-        } else {
-          for (int k = 0; k < 3; ++k) u[k] = __fdiv_rn(q[3 + k], q[6]);
-          v = embed(u, col - kPeViews);
-        }
-      }
-      *reinterpret_cast<bf16*>(t.pe + tile_offset(rr, col)) = __float2bfloat16(v);
-    }
-    fence_async_smem();
-    group_sync();
+    pe_fill(t.pe, ray, view, z, c0, rows, Sr, sigma_only);
     float* rgb_c[3] = {nullptr, nullptr, nullptr};
     if (!sigma_only)
       for (int k = 0; k < 3; ++k) rgb_c[k] = rgb[k] + c0;

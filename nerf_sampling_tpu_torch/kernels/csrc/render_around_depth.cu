@@ -55,7 +55,8 @@
 //     5-stage ring; rows = 1536, so 24 rays a block at S = 64 and 3 at S =
 //     512; int8 runs the s8 forward (nerf_forward on NerfWeightsQ: s8
 //     products, nerf_mlp.cuh's requants) on the same tiles and ring, so
-//     its shared memory is bf16's 214,096 bytes;
+//     its shared memory is bf16's 218,192 bytes (4,096 of them the rays'
+//     staged view embeddings: mlp_wgmma.cuh's PE fill);
 //   fp32 (K8/K9 in COMPARE): 160 threads, one consumer warpgroup on 64-row
 //     tiles with 3xTF32 products and its activations in a thread-private
 //     store, a 6-stage ring (the fp32 path of mlp_wgmma.cuh, as K7 fp32);
@@ -104,9 +105,11 @@ struct RenderParams {
   int n_slices;
 };
 
+// bf16 and int8 also stage each ray's view embedding (mlp_wgmma.cuh::stage_views, 64 bytes a ray)
 template <typename T>
 constexpr size_t smem_bytes() {
-  return wg::mlp_bytes<T>() + (5 * kMaxRows<T> + 8 * kMaxRays) * sizeof(float);
+  return wg::mlp_bytes<T>() + (5 * kMaxRows<T> + 8 * kMaxRays) * sizeof(float) +
+         (wg::kCore32<T> ? 0 : kMaxRays * 32 * sizeof(bf16));
 }
 
 // Rays per block at S samples (>= 2 at 512).
@@ -123,6 +126,7 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, 1)
   float* sigma = zp + kMaxRows<T>;
   float* plane[3] = {sigma + kMaxRows<T>, sigma + 2 * kMaxRows<T>, sigma + 3 * kMaxRows<T>};
   float* ray = sigma + 4 * kMaxRows<T>;  // per ray: o[3], d[3], |d|, depth
+  bf16* view = reinterpret_cast<bf16*>(ray + 8 * kMaxRays);  // bf16, int8: per ray, the view embedding
 
   const int tid = threadIdx.x;
   const int S = p.S;
@@ -192,7 +196,8 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, 1)
   }
   sync();
 
-  wg::nerf_rows(p.w, t, cur, ray, zp, rows, S, false, sigma, plane);
+  if constexpr (wg::kCore32<T>) wg::nerf_rows(p.w, t, cur, ray, zp, rows, S, false, sigma, plane);
+  else wg::nerf_rows(p.w, t, cur, ray, view, zp, rows, S, false, sigma, plane);
   sync();
 
   // compositing in sample order, one thread per ray

@@ -116,9 +116,11 @@ struct HierParams {
   int n_slices_c, n_slices_f;
 };
 
+// bf16 and int8 also stage each ray's view embedding (mlp_wgmma.cuh::stage_views, 64 bytes a ray)
 template <typename T>
 constexpr size_t smem_bytes() {
-  return kMlpBytes<T> + (6 * kMaxRows<T> + 8 * kMaxRays) * sizeof(float);
+  return kMlpBytes<T> + (6 * kMaxRows<T> + 8 * kMaxRays) * sizeof(float) +
+         (wg::kCore32<T> ? 0 : kMaxRays * 32 * sizeof(bf16));
 }
 
 template <typename T>
@@ -143,6 +145,7 @@ __global__ void __launch_bounds__(kBlockThreads<T>, 1)
   float* sg = zs + kMaxRows<T>;
   float* plane[3] = {sg + kMaxRows<T>, sg + 2 * kMaxRows<T>, sg + 3 * kMaxRows<T>};
   float* ray = sg + 4 * kMaxRows<T>;  // per ray: o[3], d[3], |d|, spare
+  bf16* view = reinterpret_cast<bf16*>(ray + 8 * kMaxRays);  // bf16, int8: per ray, the view embedding
   float* wts = plane[0];              // coarse weights [r*Nc + s]
   float* cdf = plane[1];              // [r*(Nc-1) + k]
   float* mids = plane[2];             // [r*(Nc-1) + k]
@@ -164,7 +167,8 @@ __global__ void __launch_bounds__(kBlockThreads<T>, 1)
     else wg::consumers_sync();
   };
   auto mlp = [&](const NerfWeightsT<T>& w, int rows, int S, bool sigma_only) {
-    wg::nerf_rows(w, t, cur, ray, zs, rows, S, sigma_only, sg, plane);
+    if constexpr (wg::kCore32<T>) wg::nerf_rows(w, t, cur, ray, zs, rows, S, sigma_only, sg, plane);
+    else wg::nerf_rows(w, t, cur, ray, view, zs, rows, S, sigma_only, sg, plane);
     sync();
   };
 

@@ -8,7 +8,10 @@
 // matmul: the swizzled activation tiles (bf16 and int8), the fp32 path's
 // thread-private A fragments and permuted hi/lo slices, the ring of
 // bulk-copied weight slices, the consumer warpgroups, a second operand
-// accumulated into the same sums, and the register epilogue.
+// accumulated into the same sums, and the register epilogue. Beside them,
+// nst_pe_fill_check fills PE tiles with the render kernels' fill
+// (mlp_wgmma.cuh::stage_views and pe_fill) and with the per-column formula
+// it replaced, for [core] to hold the two to the same bytes.
 
 #include <cuda_runtime.h>
 
@@ -181,8 +184,117 @@ __global__ void __launch_bounds__(wg::kThreads32, 1) wg_dense32_kernel(const __g
   else dense_tile32<1>(p, t, row0);
 }
 
+// ---- the render kernels' PE fill against the per-column formula it replaced
+
+constexpr int kPeMaxRays = 64;    // rays a block, as K2's
+constexpr int kPeMaxRows = 1536;  // sample rows a block, as the render kernels'
+
+struct PeCheckParams {
+  const float* rays_o;  // [n, 3]
+  const float* rays_d;  // [n, 3]
+  const float* z;       // [n * S]
+  bf16* out;            // [2, grid * tiles * 128, 128]: the fill's rows, then the per-column formula's
+  long long n;
+  int S, R, tiles, sigma_only;
+};
+
+constexpr size_t kPeCheckSmem = 1024 + 4 * wg::kPanelBytes + kPeMaxRays * (8 * sizeof(float) + 32 * sizeof(bf16));
+
+// The PE tile of rows [c0, c0 + 128) as the render kernels filled it before
+// stage_views and pe_fill: every element by nerf_mlp.cuh::embed, at one
+// 2-byte store each; this warpgroup's rows.
+__device__ void pe_fill_per_column(unsigned char* pe, const float* ray, const float* z, int c0, int rows, int Sr) {
+  const int g = threadIdx.x >> 7, lt = threadIdx.x & 127;
+  for (int e = lt; e < 64 * 128; e += 128) {
+    const int rr = 64 * g + (e >> 7), col = e & 127, row = c0 + rr;
+    float v = 0.f;
+    if (row < rows && (col < kPtsCh || (col >= kPeViews && col < kPeViews + kViewCh))) {
+      const float* q = ray + 8 * (row / Sr);
+      float u[3];
+      if (col < kPtsCh) {
+        const float zr = z[row];
+        for (int k = 0; k < 3; ++k) u[k] = __fadd_rn(q[k], __fmul_rn(q[3 + k], zr));
+        v = embed(u, col);
+      } else {
+        for (int k = 0; k < 3; ++k) u[k] = __fdiv_rn(q[3 + k], q[6]);
+        v = embed(u, col - kPeViews);
+      }
+    }
+    *reinterpret_cast<bf16*>(pe + wg::tile_offset(rr, col)) = __float2bfloat16(v);
+  }
+}
+
+// One block per R rays (R S sample rows in `tiles` 128-row tiles), two
+// consumer warpgroups and no producer: the rays staged as the render
+// kernels stage them, then per tile both fills and both tiles' rows out.
+__global__ void __launch_bounds__(wg::kConsumers, 1) pe_check_kernel(const __grid_constant__ PeCheckParams p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* pe_new = base;
+  unsigned char* pe_ref = base + 2 * wg::kPanelBytes;
+  float* ray = reinterpret_cast<float*>(base + 4 * wg::kPanelBytes);
+  bf16* view = reinterpret_cast<bf16*>(ray + 8 * kPeMaxRays);
+  const long long ray0 = (long long)blockIdx.x * p.R;
+  const int nr = (int)min((long long)p.R, p.n - ray0), rows = nr * p.S;
+  // the fill's tile starts as 0xFF bytes: a column it leaves unwritten shows
+  for (int e = threadIdx.x; e < 2 * wg::kPanelBytes / 16; e += wg::kConsumers)
+    reinterpret_cast<uint4*>(pe_new)[e] = make_uint4(~0u, ~0u, ~0u, ~0u);
+  for (int r = threadIdx.x; r < nr; r += wg::kConsumers) {
+    float* q = ray + 8 * r;
+    for (int c = 0; c < 3; ++c) {
+      q[c] = p.rays_o[(ray0 + r) * 3 + c];
+      q[3 + c] = p.rays_d[(ray0 + r) * 3 + c];
+    }
+    q[6] = sqrtf(q[3] * q[3] + q[4] * q[4] + q[5] * q[5]);
+    q[7] = 0.f;
+  }
+  __syncthreads();
+  const float* z = p.z + ray0 * p.S;
+  const long long total = (long long)gridDim.x * p.tiles * wg::kRows;
+  if (!p.sigma_only) wg::stage_views(ray, nr, view, pe_new);
+  for (int t = 0; t < p.tiles; ++t) {
+    wg::pe_fill(pe_new, ray, view, z, t * wg::kRows, rows, p.S, p.sigma_only);
+    pe_fill_per_column(pe_ref, ray, z, t * wg::kRows, rows, p.S);
+    wg::group_sync();
+    const long long row0 = ((long long)blockIdx.x * p.tiles + t) * wg::kRows;
+    wg::copy_rows(pe_new, 128, p.out, row0);
+    wg::copy_rows(pe_ref, 128, p.out + total * 128, row0);
+    wg::group_sync();
+  }
+}
+
 }  // namespace
 }  // namespace nst
+
+// The PE fill check. ptrs: rays_o [n, 3], rays_d [n, 3], z [n * S] (row
+// s of ray i at i * S + s), out [2, grid * tiles * 128, 128] bf16 with grid
+// = ceil(n / R) and tiles = ceil(R * S / 128): block b's rays [b R, b R +
+// R), its tile t's rows at (b tiles + t) * 128, the render kernels' fill
+// first, the per-column formula's second (rows past a block's R S, and past
+// its last ray, zero). sigma_only: the fill leaves the view panel (columns
+// 64-127) as it found it, 0xFF bytes. R S <= 1536, R <= 64. Returns a
+// cudaError_t.
+extern "C" int nst_pe_fill_check(const void* const* ptrs, int n_ptrs, long long n, int S, int R, int sigma_only,
+                                 void* stream) {
+  using namespace nst;
+  if (n_ptrs != 4 || S < 1 || R < 1 || R > kPeMaxRays || R * S > kPeMaxRows) return (int)cudaErrorInvalidValue;
+  PeCheckParams p = {};
+  p.rays_o = static_cast<const float*>(ptrs[0]);
+  p.rays_d = static_cast<const float*>(ptrs[1]);
+  p.z = static_cast<const float*>(ptrs[2]);
+  p.out = static_cast<bf16*>(const_cast<void*>(ptrs[3]));
+  p.n = n;
+  p.S = S;
+  p.R = R;
+  p.tiles = (R * S + wg::kRows - 1) / wg::kRows;
+  p.sigma_only = sigma_only;
+  cudaError_t err = cudaFuncSetAttribute(pe_check_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kPeCheckSmem);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return 0;
+  pe_check_kernel<<<(unsigned)((n + R - 1) / R), wg::kConsumers, kPeCheckSmem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
 
 // ptrs: a [M, K], a2 [M, 64] or null, the slices of w [K, N] then (with
 // a2) of w2 [64, N] (fused_render.wgmma_slices), bias [N], out [M, N].

@@ -45,7 +45,8 @@ render launch of this module hands them to the kernel after the weights
 (``_core_slices``).
 ``wgmma_dense``, ``wgmma_dense_q`` and ``wgmma_dense32`` are one dense
 layer on that core, bf16, s8 and fp32, the first check of
-``chip_smoke.py``.
+``chip_smoke.py``; ``pe_fill_check`` holds the render kernels' PE fill to
+the per-column formula it replaced, in the same check.
 """
 
 from __future__ import annotations
@@ -460,6 +461,57 @@ def wgmma_dense32(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, act: 
     build.check(rc, "wgmma_dense32")
     wgmma_dense32_launches += 1
     return out
+
+
+pe_fill_check_launches = 0  # the [core] check's PE fill launches
+
+
+def pe_fill_check(rays_o: torch.Tensor, rays_d: torch.Tensor, z: torch.Tensor, R: int, *,
+                  sigma_only: bool = False, multires: int = 10,
+                  multires_views: int = 4) -> tuple[torch.Tensor, torch.Tensor]:
+    """The render kernels' PE tiles (``csrc/wg_dense.cu::nst_pe_fill_check``)
+    of N rays [N, 3] at depths z [N, S], R rays a block as a render launch
+    lays them out: (the fill of ``csrc/mlp_wgmma.cuh``, the per-column
+    formula it replaced), each bf16 [ceil(N / R) * tiles * 128, 128] with
+    tiles = ceil(R S / 128): block b's tile t at rows (b tiles + t) * 128,
+    row s of ray i (i = b R + j) at j S + s within its block, columns
+    [point embedding 63 | 0 | view embedding 27 | 0 x 37], rows past a
+    block's rays zero. With ``sigma_only`` the fill leaves the view panel
+    (columns 64-127) as 0xFF bytes. On CPU tensors both are the plain
+    embedding (``positional_encoding`` in fp32, rounded to bf16)."""
+    global pe_fill_check_launches
+    n, S = z.shape
+    _check_rays(rays_o, rays_d, z=(z, (n, S)))
+    if not (1 <= R <= 64 and R * S <= 1536):
+        raise ValueError(f"R must be in [1, 64] with R * S <= 1536, got R {R} at S {S}")
+    tiles = -(-R * S // 128)
+    blocks = -(-n // R)
+    if rays_o.device.type == "cpu":
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+        vd = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        Cp, Cv = 3 * (1 + 2 * multires), 3 * (1 + 2 * multires_views)
+        rows = torch.zeros((n * S, 128))
+        rows[:, :Cp] = positional_encoding(pts, multires).reshape(n * S, Cp)
+        rows[:, PTS_ROWS:PTS_ROWS + Cv] = positional_encoding(vd, multires_views)[:, None, :].expand(
+            n, S, Cv).reshape(n * S, Cv)
+        # ray i's rows into its block's tiles, the rest zero
+        out = torch.zeros((blocks, tiles * 128, 128))
+        per_block = torch.nn.functional.pad(rows, (0, 0, 0, (blocks * R - n) * S)).reshape(blocks, R * S, 128)
+        out[:, :R * S] = per_block
+        fill = out.reshape(-1, 128).to(torch.bfloat16)
+        if sigma_only:
+            fill[:, PTS_ROWS:] = torch.tensor(-1, dtype=torch.int16).view(torch.bfloat16)
+        return fill, out.reshape(-1, 128).to(torch.bfloat16)
+    if (multires, multires_views) != (10, 4):
+        raise ValueError("the CUDA kernels are built for multires 10 and multires_views 4")
+    rays_o, rays_d, z = rays_o.contiguous(), rays_d.contiguous(), z.contiguous()
+    out = torch.empty((2, blocks * tiles * 128, 128), dtype=torch.bfloat16, device=z.device)
+    arr, count = build.pointer_array([rays_o, rays_d, z, out])
+    rc = build.load_library().nst_pe_fill_check(arr, count, n, S, R, int(bool(sigma_only)),
+                                                build.current_stream(z.device))
+    build.check(rc, "pe_fill_check")
+    pe_fill_check_launches += 1
+    return out[0], out[1]
 
 
 class MlpActs(NamedTuple):
