@@ -60,7 +60,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    to fp32 autograd of each NeRF; [k7] K7 (the deterministic hierarchical
    pass) over the 160,000 rays of test view 0 in one launch against its
    plain version, the FULL_NERF PSNR of view 0 within FULL_PSNR_TOL of the
-   plain fp32 path, all 4 views and the frame time on both paths; [step]
+   plain fp32 path, all 4 views and the frame time on both paths; [mip]
+   K11 (mip-NeRF's two levels, render_mip.cu) on glorot weights from
+   MIP_SEED: an 800x800 frame through render_image on a mip-NeRF Pipeline
+   in one launch, bit for bit the direct launch on the same rays; the
+   640,000 rays against its plain version in chunks, and ragged launches
+   of MIP_RAGGED rays (not multiples of its 12 rays a block); rgb, depth
+   (acc > 0.5) and acc within MIP_*_TOL, which K11 with mip-NeRF's
+   disable_integration (the variances left out) must exceed; [step]
    one nerf step and one joint step from one state, batch and draws, cuda
    against plain, their median times and a profiled kernel-path nerf step;
    [nerf] the CLI from scratch, --mode nerf for NERF_ITERS steps on both
@@ -344,6 +351,12 @@ CORE32_TOL = 2.0
 K5_COS_TOL = 0.999  # K5's grads against fp32 autograd of each NeRF
 K7_MEAN_TOL, K7_P999_TOL = 1e-3, 2e-2  # |rgb| against the plain bf16 version (K6's bounds)
 FULL_PSNR_TOL = 0.05  # FULL_NERF view 0: kernels against the plain fp32 path
+# [mip]: K11 against its plain version (bf16 products and encodings in both):
+# |rgb| mean and p99.9, |depth| mean over rays the plain version finds
+# opaque (acc > 0.5), |acc| mean; K11 without the integration must exceed one
+MIP_RGB_MEAN_TOL, MIP_RGB_P999_TOL, MIP_DEPTH_TOL, MIP_ACC_TOL = 5e-5, 5e-4, 4e-4, 2e-4
+MIP_SEED = 2**31 + 12_345  # [mip]'s glorot weights
+MIP_RAGGED = (1, 13, 95, 1001)  # [mip]'s ragged launches, in rays
 # the fp32 kernels (the COMPARE mode's) against their plain fp32 versions: the
 # two differ in fp32 summation order only; K7's max_z at ROADMAP's COMPARE budget
 FP32_RGB_TOL, K1_FP32_TOL, K7_FP32_Z_TOL = 3e-4, 1e-4, 1e-3
@@ -2210,6 +2223,101 @@ def check_k7(params, scene, K, device) -> dict:
                          mx, ms, plain_ms, flop, nbytes(ro, rd, packed, got), core=CORE)
 
 
+def mip_gaps(got: dict, want: dict) -> dict[str, float]:
+    """[mip]'s numbers: |rgb| mean, p99.9 and max, |depth| mean over the rays
+    ``want`` finds opaque (acc > 0.5), |acc| mean."""
+    d = (got["rgb_map"] - want["rgb_map"]).abs()
+    fg = want["acc_map"] > 0.5
+    return {"rgb_mean": float(d.mean()), "rgb_p999": quantile(d, 0.999), "rgb_max": float(d.max()),
+            "depth": float((got["depth_map"][fg] - want["depth_map"][fg]).abs().mean()),
+            "acc": float((got["acc_map"] - want["acc_map"]).abs().mean())}
+
+
+def mip_within(g: dict) -> bool:
+    return (g["rgb_mean"] <= MIP_RGB_MEAN_TOL and g["rgb_p999"] <= MIP_RGB_P999_TOL and g["depth"] <= MIP_DEPTH_TOL
+            and g["acc"] <= MIP_ACC_TOL)
+
+
+def check_mip(device) -> tuple[dict, dict[str, int]]:
+    """K11 on mip-NeRF's published widths with glorot weights from MIP_SEED:
+    an 800x800 frame (test view 0's pose) through render_image in one launch,
+    equal to the direct launch; every ray of it and MIP_RAGGED ragged
+    launches against the plain version in chunks; K11 without the
+    integration must fail the same tolerances. Returns K11's record (640,000
+    rays, 128 + 128 intervals) and its launches on the render path."""
+    import dataclasses
+
+    from nerf_sampling_tpu_torch.core.rays import get_rays_mip
+    from nerf_sampling_tpu_torch.data.example import _CAMERA_ANGLE_X
+    from nerf_sampling_tpu_torch.kernels import fused_mip as k11
+    from nerf_sampling_tpu_torch.models.mipnerf import MipNeRF, MipNeRFConfig, init_glorot
+    from nerf_sampling_tpu_torch.render import EvalMode, render_image
+    from nerf_sampling_tpu_torch.render.engine import NeRFParams, Pipeline, make_nerf_slices, pack_kernel_weights
+
+    cfg = MipNeRFConfig()
+    model = init_glorot(MipNeRF(cfg), torch.Generator().manual_seed(MIP_SEED)).to(device)
+    H = W = 800
+    focal = 0.5 * W / np.tan(0.5 * _CAMERA_ANGLE_X)
+    K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1.0]], np.float32)
+    c2w = view0_camera()[3]
+    pipe = Pipeline(nerf=cfg, near=2.0, far=6.0, white_bkgd=True, mlp_impl="cuda")
+    params = pack_kernel_weights(NeRFParams(coarse=model))
+    make_nerf_slices(params.kernels)
+    packed = params.kernels.mip
+    ro, rd, rr = (t.reshape(-1, t.shape[-1]).contiguous() for t in get_rays_mip(H, W, K, c2w, device))
+    n = ro.shape[0]
+
+    k11.launches = 0
+    frame = render_image(pipe, params, H, W, K, c2w, device=device, mode=EvalMode.FULL_NERF)
+    torch.cuda.synchronize()
+    require(k11.launches == 1, f"render_image of an {H}x{W} mip-NeRF frame made {k11.launches} K11 launches, not 1")
+    got = k11.render_mip_kernel(packed, cfg, ro, rd, rr)
+    require(all(torch.equal(frame[a].reshape(-1), got[b].reshape(-1)) for a, b in (
+        ("depth_net_rgb_map", "rgb_map"), ("depth_net_z_vals", "depth_map"), ("depth_net_weights", "acc_map"))),
+        "[mip] render_image's maps differ from the direct K11 launch on the same rays")
+
+    chunk = 4096
+
+    def plain(o, d, r):
+        parts = [k11.render_mip_plain(packed, cfg, o[s:s + chunk], d[s:s + chunk], r[s:s + chunk])
+                 for s in range(0, o.shape[0], chunk)]
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+    want = plain(ro, rd, rr)
+    frame_gaps = mip_gaps(got, want)
+    rows = [torch.linspace(0, n - 1, m, device=device).long() for m in MIP_RAGGED]
+    k11.launches = 0
+    ragged = [k11.render_mip_kernel(packed, cfg, ro[r], rd[r], rr[r]) for r in rows]
+    require(k11.launches == len(MIP_RAGGED), "[mip] a ragged call did not launch K11 once")
+    cat = torch.cat(rows)
+    ragged_gaps = mip_gaps({k: torch.cat([g[k] for g in ragged]) for k in got},
+                           {k: v[cat] for k, v in want.items()})
+    fault = k11.render_mip_kernel(packed, dataclasses.replace(cfg, disable_integration=True), ro, rd, rr)
+    fault_gaps = mip_gaps(fault, want)
+    tols = (f"tol rgb mean {MIP_RGB_MEAN_TOL:g}, p99.9 {MIP_RGB_P999_TOL:g}, depth {MIP_DEPTH_TOL:g}, "
+            f"acc {MIP_ACC_TOL:g}")
+    for tag, g in ((f"{H}x{W} frame, {n} rays", frame_gaps), (f"ragged {MIP_RAGGED}", ragged_gaps),
+                   ("without the integration (a fault)", fault_gaps)):
+        log(f"[mip] K11 vs plain, {tag}: |rgb| mean {g['rgb_mean']:.3e} p99.9 {g['rgb_p999']:.3e} "
+            f"max {g['rgb_max']:.3e}, |depth| {g['depth']:.3e}, |acc| {g['acc']:.3e} ({tols})")
+    require(mip_within(frame_gaps), "[mip] K11 disagrees with its plain version over the frame")
+    require(mip_within(ragged_gaps), "[mip] K11 disagrees with its plain version on ragged launches")
+    require(not mip_within(fault_gaps), "[mip] K11 without the integration passes the tolerances")
+
+    ms = cuda_ms(lambda: k11.render_mip_kernel(packed, cfg, ro, rd, rr), 3)
+    plain_ms = cuda_ms(lambda: plain(ro, rd, rr), 1)
+    occ = k11.kernel_occupancy(cfg.num_samples)
+    log(f"[mip] {ms:.3f} ms per launch ({n} rays, {cfg.num_samples} + {cfg.num_samples} intervals; {occ}); "
+        f"plain version {plain_ms:.3f} ms (chunks of {chunk} rays)")
+    macs = module_macs(model, sigma_only=False)
+    coarse_macs = sum(lin.weight.numel() for lin in model.pts_linears) + model.density_linear.weight.numel()
+    flop = 2 * n * cfg.num_samples * (coarse_macs + macs)
+    rec = kernel_record("render_mip_kernel", "render_mip.cu", "none: the JAX package has no mip-NeRF",
+                        frame_gaps["rgb_max"], ms, plain_ms, flop, nbytes(ro, rd, rr, packed, got), core=CORE)
+    log(f"[mip] bound {rec['bound_ms']:.2f} ms ({rec['bound_by']}): {100 * rec['bound_ms'] / ms:.1f}% of it")
+    return rec, {"render_mip_kernel": 1}
+
+
 def check_nerf_steps(scene, device) -> None:
     """One nerf step and one joint step from one state, batch and draws,
     cuda against plain; the median step time of both paths; one profiled
@@ -3917,6 +4025,8 @@ def main() -> int:
     queries = step_queries(params, scene, device)
     kernels += [check_k4(params, queries), check_k5(params, queries), check_k7(params, scene, K, device)]
     del queries
+    mip_rec, mip_counts = check_mip(device)
+    kernels.append(mip_rec)
     torch.cuda.synchronize()
     k8_rec, k8_counts = check_k8(params, scene, K, device)
     kernels += [k8_rec, check_k9(params, device)] + check_fp32(params, device)
@@ -3946,7 +4056,7 @@ def main() -> int:
     # CLI's other counts are gated above)
     for rec in kernels:
         rec["launches"] = next(c[rec["name"]] for c in (nerf_counts, train_counts, render_counts, joint_counts,
-                                                        k8_counts, cli_counts, int8_train_counts, k10_counts)
+                                                        k8_counts, cli_counts, int8_train_counts, k10_counts, mip_counts)
                                if rec["name"] in c)
         for key, counts in (("tar_launches", tar_counts), ("llff_launches", llff_counts),
                             ("formats_launches", formats_counts), ("scaleout_launches", scaleout_launches)):

@@ -2,7 +2,8 @@
 
 Keeps the reference's constants: the 1e10 last interval, the +1e-10 inside
 the exclusive transmittance product, the disparity formula and the S==0
-fallback rgb_map = sum(rgb).
+fallback rgb_map = sum(rgb). ``composite_intervals`` is mip-NeRF's compositing
+of intervals, with its own constants.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from nerf_sampling_tpu_torch.core.sampling import Rows, rand
+from nerf_sampling_tpu_torch.core.sampling import Rows, _sequential_cumsum, rand
 
 
 class _Cumprod(torch.autograd.Function):
@@ -95,3 +96,28 @@ def raw2outputs(
     if weights.shape[-1] == 0:
         rgb_map = torch.sum(rgb, -2)
     return RenderOutputs(rgb_map, disp_map, acc_map, depth_map, density, alphas, weights)
+
+
+def composite_intervals(
+    rgb: torch.Tensor, density: torch.Tensor, t_vals: torch.Tensor, rays_d: torch.Tensor, white_bkgd: bool = True
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """mip-NeRF's compositing of S intervals (``mip.volumetric_rendering``):
+    rgb [N, S, 3] and density [N, S] between t-values [N, S + 1] -> (rgb [N,
+    3], distance [N], acc [N], weights [N, S]). delta = (t1 - t0) |d| (no
+    1e10 tail), transmittance exp(-cumsum) (no 1e-10), the distance the
+    weights' mean interval midpoint with NaN (no weight) taken as 0, as the
+    published ``nan_to_num`` call does, then clipped to [t_0, t_S]; the white
+    background. Sums run left to right, as the kernel's per-ray loop."""
+    t_mids = 0.5 * (t_vals[..., :-1] + t_vals[..., 1:])
+    delta = (t_vals[..., 1:] - t_vals[..., :-1]) * torch.linalg.norm(rays_d[..., None, :], dim=-1)
+    dd = density * delta
+    cum = _sequential_cumsum(dd)
+    trans = torch.exp(-torch.cat([torch.zeros_like(dd[..., :1]), cum[..., :-1]], -1))
+    weights = (1 - torch.exp(-dd)) * trans
+    rgb_map = _sequential_cumsum((weights[..., None] * rgb).movedim(-1, -2))[..., -1]
+    acc = _sequential_cumsum(weights)[..., -1]
+    distance = _sequential_cumsum(weights * t_mids)[..., -1] / acc
+    distance = torch.clamp(torch.nan_to_num(distance, nan=0.0), t_vals[..., 0], t_vals[..., -1])
+    if white_bkgd:
+        rgb_map = rgb_map + (1.0 - acc[..., None])
+    return rgb_map, distance, acc, weights

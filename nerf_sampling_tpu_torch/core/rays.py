@@ -1,6 +1,8 @@
-"""Camera-ray generation and NDC reprojection (nerf_sampling_tpu/core/rays.py)."""
+"""Camera-ray generation and NDC reprojection (nerf_sampling_tpu/core/rays.py), and mip-NeRF's rays with radii."""
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -63,3 +65,31 @@ def ndc_rays(
     d2 = -2.0 * near / rays_o[..., 2]
 
     return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)
+
+
+def get_rays_mip(
+    H: int, W: int, K, c2w, device: torch.device | str = "cpu"
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """mip-NeRF's rays (google/mipnerf ``datasets.py``, ``_generate_rays``):
+    through pixel centres, ``(x - cx + 0.5) / fx``, with each ray's base
+    radius ``dx * 2 / sqrt(12)``, dx the distance between the directions of
+    vertically adjacent pixels (the last row takes the row above's), which
+    for a pinhole camera is 1 / focal up to rounding. Returns (rays_o,
+    rays_d, radii), [H, W, 3], [H, W, 3] and [H, W, 1] fp32 on ``device``
+    (H >= 2)."""
+    K = torch.as_tensor(np.asarray(K, np.float32), device=device)
+    c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=device)
+    j, i = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=device),
+        torch.arange(W, dtype=torch.float32, device=device),
+        indexing="ij",
+    )
+    dirs = torch.stack(
+        [(i - K[0][2] + 0.5) / K[0][0], -(j - K[1][2] + 0.5) / K[1][1], -torch.ones_like(i)],
+        dim=-1,
+    )
+    rays_d = torch.sum(dirs[..., None, :] * c2w[:3, :3], -1)
+    rays_o = c2w[:3, -1].expand(rays_d.shape)
+    dx = torch.sqrt(((rays_d[:-1] - rays_d[1:]) ** 2).sum(-1))
+    dx = torch.cat([dx, dx[-2:-1]], 0)
+    return rays_o, rays_d, dx[..., None] * 2 / math.sqrt(12)

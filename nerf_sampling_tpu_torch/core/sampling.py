@@ -4,7 +4,10 @@
 - ``sample_pdf``: inverse-CDF fine z from coarse weights (:64-113);
 - ``sample_points_around_mean``: the DepthNet's depth population (:137-173);
 - ``scale_points_with_weights`` and ``scale_to_near_far`` (:116-134), the
-  reference's depth_nets/utils.py helpers, kept for capability parity.
+  reference's depth_nets/utils.py helpers, kept for capability parity;
+- ``interval_t_vals``, ``blurpool_weights``, ``sorted_piecewise_constant_pdf``
+  and ``resample_intervals``: mip-NeRF's deterministic intervals and its
+  blurred, padded resampling pdf.
 
 Random draws come from an explicit ``torch.Generator`` or are injected
 (``t_rand=``, ``u=``, ``noise=``), as the JAX functions take a key or the
@@ -188,3 +191,59 @@ def sample_points_around_mean(
     else:
         raise ValueError(f"unknown sampling mode: {mode}")
     return z_to_points(rays_o, rays_d, z_vals), z_vals
+
+
+# ------------------------------------------------------------------ mip-NeRF
+
+EPS_F32 = float(torch.finfo(torch.float32).eps)
+
+
+def interval_t_vals(near: torch.Tensor, far: torch.Tensor, n_intervals: int) -> torch.Tensor:
+    """The n + 1 t-values [N, n + 1] of mip-NeRF's deterministic first level,
+    near (1 - t) + far t at t = linspace(0, 1, n + 1) (``mip.sample_along_rays``,
+    randomized and lindisp off); near, far [N, 1]."""
+    t = linspace01(n_intervals + 1, near.device)
+    return near * (1.0 - t) + far * t
+
+
+def blurpool_weights(weights: torch.Tensor, padding: float) -> torch.Tensor:
+    """mip-NeRF's resampling weights of an interval's weights [N, S]: the max
+    of each pair of neighbours (the ends repeated), the mean of neighbouring
+    maxima, plus ``padding`` (``mip.resample_along_rays``)."""
+    pad = torch.cat([weights[..., :1], weights, weights[..., -1:]], -1)
+    wmax = torch.maximum(pad[..., :-1], pad[..., 1:])
+    return 0.5 * (wmax[..., :-1] + wmax[..., 1:]) + padding
+
+
+def sorted_piecewise_constant_pdf(bins: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tensor:
+    """n deterministic samples [N, n] of the piecewise-constant pdf of
+    ``weights`` [N, B - 1] over the sorted edges ``bins`` [N, B] (mip-NeRF
+    ``math.sorted_piecewise_constant_pdf``, randomized off): the weights
+    padded to sum to at least 1e-5, the CDF pinned to 0 and 1, u =
+    linspace(0, 1 - eps, n), each u in the last interval whose CDF entry it
+    reaches (the published mask max/min form, equal to this search on a
+    sorted CDF), the interpolant clipped to [0, 1] with NaN taken as 0. Sums
+    run left to right, as the kernel's per-ray loop."""
+    eps = 1e-5
+    weight_sum = _sequential_cumsum(weights)[..., -1:]
+    padding = torch.clamp(eps - weight_sum, min=0)
+    weights = weights + padding / weights.shape[-1]
+    weight_sum = weight_sum + padding
+    pdf = weights / weight_sum
+    cdf = torch.clamp(_sequential_cumsum(pdf[..., :-1]), max=1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf, torch.ones_like(cdf[..., :1])], -1)
+    u = ((1.0 - EPS_F32) * linspace01(n, cdf.device)).expand(*cdf.shape[:-1], n).contiguous()
+    j0 = torch.searchsorted(cdf.contiguous(), u, right=True) - 1  # the last entry <= u
+    j1 = torch.clamp(j0 + 1, max=cdf.shape[-1] - 1)
+    c0, c1 = cdf.gather(-1, j0), cdf.gather(-1, j1)
+    b0, b1 = bins.gather(-1, j0), bins.gather(-1, j1)
+    t = torch.clamp(torch.nan_to_num((u - c0) / (c1 - c0), nan=0.0), 0, 1)
+    return b0 + t * (b1 - b0)
+
+
+def resample_intervals(t_vals: torch.Tensor, weights: torch.Tensor, padding: float) -> torch.Tensor:
+    """The next level's t-values [N, S + 1] from a level's t-values [N, S + 1]
+    and interval weights [N, S] (mip-NeRF ``mip.resample_along_rays`` at test
+    time): the blurpool pdf sampled at S + 1 points, not merged with the
+    level's own."""
+    return sorted_piecewise_constant_pdf(t_vals, blurpool_weights(weights, padding), t_vals.shape[-1])

@@ -121,6 +121,10 @@ def load_library() -> ctypes.CDLL:
     lib.nst_render_hier.argtypes = [ptrs, i32, i64, i32, i32, i32, u32, i32, u32, f32, f32,
                                     i32, i32, vp, u32, i64, i32, i32, vp, vp, vp]
     lib.nst_render_hier.restype = i32
+    lib.nst_render_mip.argtypes = [ptrs, i32, i64, i32, i32, u32, f32, f32, i32, i32, f32, f32, f32, f32, vp]
+    lib.nst_render_mip.restype = i32
+    lib.nst_render_mip_occupancy.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+    lib.nst_render_mip_occupancy.restype = i32
     lib.nst_nerf_points.argtypes = [ptrs, i32, i64, i64, i32, u32, i32, vp]
     lib.nst_nerf_points.restype = i32
     lib.nst_nerf_points_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]

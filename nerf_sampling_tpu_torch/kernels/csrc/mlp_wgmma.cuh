@@ -99,6 +99,11 @@ __host__ __device__ inline int popcount_u(unsigned v) {
 __host__ __device__ inline int forward_slices(int D, unsigned skip_mask, bool sigma_only) {
   return 2 + 8 * (D - 1) + 2 * popcount_u(skip_mask) + (sigma_only ? 0 : 8 + 4 + 1);
 }
+// mip-NeRF's forward (nerf_forward<S, 2>): layer 0 and each skip matrix
+// read both PE panels, 4 slices each; the heads as forward_slices'.
+__host__ __device__ inline int mip_forward_slices(int D, unsigned skip_mask, bool sigma_only) {
+  return 4 + 8 * (D - 1) + 4 * popcount_u(skip_mask) + (sigma_only ? 0 : 8 + 4 + 1);
+}
 __host__ __device__ inline int backward_slices(int D, unsigned skip_mask, bool want_dx) {
   return 4 + 8 * D + (want_dx ? 2 + 4 * popcount_u(skip_mask) + 4 : 0);
 }
@@ -472,9 +477,12 @@ __device__ __forceinline__ Tiles<S> carve(unsigned char* base) {
 // The forward over one 128-row tile whose PE tile is filled: the per-row
 // sigma (alpha head) and, unless sigma_only, the sigmoid(rgb) (the logits
 // with raw) of this warpgroup's valid rows, into sigma[row * stride] and
-// rgb[ch][row * stride] (row within the 128). Consumes forward_slices() of
-// the stream.
-template <int S>
+// rgb[ch][row * stride] (row within the 128). kPts: the PE panels that layer
+// 0 and the skip layers read (1: the NeRF's point panel, forward_slices();
+// 2: both panels, mip-NeRF's IPE and view columns, mip_forward_slices()),
+// fixed at compile time; the views layer reads the second panel. Consumes
+// that count of the stream.
+template <int S, int kPts = 1>
 __device__ void nerf_forward(const NerfWeights& w, const Tiles<S>& t, Cursor& cur, int valid, bool sigma_only,
                              float* sigma, float* const* rgb, bool raw = false, int stride = 1) {
   const uint32_t x = smem_u32(t.x), pe = smem_u32(t.pe);
@@ -482,7 +490,7 @@ __device__ void nerf_forward(const NerfWeights& w, const Tiles<S>& t, Cursor& cu
   const int r0 = 64 * (threadIdx.x >> 7) + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows r0, r0 + 8
   float acc[2][64];
   for (int i = 0; i < w.D; ++i) {
-    const Src ops[2] = {{i == 0 ? pe : x, i == 0 ? 1 : 4}, {pe, 1}};
+    const Src ops[2] = {{i == 0 ? pe : x, i == 0 ? kPts : 4}, {pe, kPts}};
     gemm(acc, ops, (i > 0 && ((w.skip_mask >> i) & 1u)) ? 2 : 1, t.ring, cur);
     bias_act(acc, w.tb[i], kRelu);
     if (i == w.D - 1) {  // sigma = h @ alpha_w + alpha_b
@@ -803,6 +811,148 @@ __device__ void nerf_rows(const Weights& w, const Tiles<S>& t, Cursor& cur, cons
       for (int k = 0; k < 3; ++k) rgb_c[k] = rgb[k] + c0;
     nerf_forward(w, t, cur, rows - c0, sigma_only, sigma + c0, rgb_c);
   }
+}
+
+// ---- mip-NeRF's PE fill (K11, render_mip.cu)
+//
+// The rows of a pass are intervals of the block's rays: row r is interval s
+// = r % S, [t[s], t[s + 1]], of ray r / S, t the pass's plane of S + 1
+// t-values a ray (ray: o[3], d[3], |d|, base radius, 8 floats). Its PE row
+// fills both panels of the PE tile:
+//   [w sin(y) x 48 | w sin(y + pi/2) x 48 | view 27 | 0 x 5]
+// at column 3 l + k for scale 2^l (l = 0..15) and axis k: y = 2^l mean_k,
+// var = 4^l cov_k, w = exp(-var / 2), (mean, cov) the Gaussian of the
+// interval's conical frustum (mip-NeRF's stable form, diagonal covariance:
+// frustum_gaussian); an argument of magnitude 100 pi or more is taken modulo
+// 100 pi first (mip-NeRF's safe_sin: safe_wrap, fmodf's exact remainder);
+// each value rounded to bf16. One sincosf of the wrapped y gives both
+// columns: the cosine stands for mip-NeRF's sin(y + pi/2), a rounding of y +
+// pi/2 apart. Without `integrate` every variance is 0 (mip-NeRF's
+// disable_integration). The view columns are the ray's pos_enc of d / |d|,
+// staged once per launch (stage_mip_views). Every operation in fp32 in the
+// order of kernels/fused_mip.py's plain version (no FMA), sincosf and expf
+// accurate.
+// Two threads a row: h = 0 the scales 0-7, h = 1 the scales 8-15 (24
+// (scale, axis) pairs: 24 sine and 24 cosine columns, six 16-byte stores),
+// and the view chunks 2h and 2h + 1.
+
+constexpr float kSafeWrap = 314.159271240234375f;          // fl(100 pi)
+constexpr float kHalfPi = 1.57079637050628662109375f;      // fl(pi / 2)
+
+// mip-NeRF's safe_sin argument: x where |x| < 100 pi, else x % 100 pi
+// (Python's modulus, the divisor's sign: a negative remainder plus 100 pi).
+// The remainder is fmodf's, exact: |x| - n 100 pi in one fused rounding of
+// a representable value, n the quotient truncated, corrected where the
+// product by the rounded reciprocal put it one off. NaN and infinities give
+// NaN.
+__device__ __forceinline__ float safe_wrap(float x) {
+  const float ax = fabsf(x);
+  if (ax < kSafeWrap) return x;
+  const float n = truncf(__fmul_rn(ax, 1.f / kSafeWrap));
+  float r = fmaf(-n, kSafeWrap, ax);
+  if (r < 0.f) r = fmaf(-(n - 1.f), kSafeWrap, ax);
+  else if (r >= kSafeWrap) r = fmaf(-(n + 1.f), kSafeWrap, ax);
+  return x < 0.f ? (r != 0.f ? __fsub_rn(kSafeWrap, r) : -r) : r;
+}
+
+// The Gaussian of the conical frustum [t0, t1] of ray q (o, d, |d|, base
+// radius): mean[3] = o + d t_mean, cov[3] = t_var d^2 + r_var (1 - d^2 /
+// max(|d|^2, 1e-10))
+__device__ __forceinline__ void frustum_gaussian(const float* q, float t0, float t1, float* mean, float* cov) {
+  const float mu = __fmul_rn(__fadd_rn(t0, t1), 0.5f), hw = __fmul_rn(__fsub_rn(t1, t0), 0.5f);
+  const float mu2 = __fmul_rn(mu, mu), hw2 = __fmul_rn(hw, hw), hw4 = __fmul_rn(hw2, hw2);
+  const float den = __fadd_rn(__fmul_rn(3.f, mu2), hw2);
+  const float t_mean = __fadd_rn(mu, __fdiv_rn(__fmul_rn(__fmul_rn(2.f, mu), hw2), den));
+  const float t_var = __fsub_rn(
+      __fdiv_rn(hw2, 3.f),
+      __fmul_rn(4.f / 15.f, __fdiv_rn(__fmul_rn(hw4, __fsub_rn(__fmul_rn(12.f, mu2), hw2)), __fmul_rn(den, den))));
+  const float r_var = __fmul_rn(__fmul_rn(q[7], q[7]),
+                                __fsub_rn(__fadd_rn(__fdiv_rn(mu2, 4.f), __fmul_rn(5.f / 12.f, hw2)),
+                                          __fdiv_rn(__fmul_rn(4.f / 15.f, hw4), den)));
+  float d2[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) d2[k] = __fmul_rn(q[3 + k], q[3 + k]);
+  const float mag = fmaxf(__fadd_rn(__fadd_rn(d2[0], d2[1]), d2[2]), 1e-10f);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    mean[k] = __fadd_rn(__fmul_rn(q[3 + k], t_mean), q[k]);
+    cov[k] = __fadd_rn(__fmul_rn(t_var, d2[k]), __fmul_rn(r_var, __fsub_rn(1.f, __fdiv_rn(d2[k], mag))));
+  }
+}
+
+// Each ray's pos_enc of d / |d| with its identity, [v, sin(2^l v) (l = 0..3,
+// scale-major), sin(2^l v + pi/2), 0 x 5], as 32 bf16 into view[32 r ..];
+// all consumer threads; ends with a consumers' barrier.
+__device__ __forceinline__ void stage_mip_views(const float* ray, int nr, bf16* view) {
+  for (int e = threadIdx.x; e < nr * 32; e += kConsumers) {
+    const int r = e >> 5, col = e & 31;
+    float v = 0.f;
+    if (col < kViewCh) {
+      const float* q = ray + 8 * r;
+      const int c = col < 3 ? col : (col - 3) % 3;
+      v = __fdiv_rn(q[3 + c], q[6]);
+      if (col >= 3) {
+        const int l = ((col - 3) % 12) / 3;
+        const float x = __fmul_rn(v, (float)(1 << l));
+        v = sinf(col >= 15 ? __fadd_rn(x, kHalfPi) : x);
+      }
+    }
+    view[e] = __float2bfloat16(v);
+  }
+  consumers_sync();
+}
+
+// The PE tile of rows [c0, c0 + 128) of a pass of `rows` interval rows, S a
+// ray, t-values tv (S + 1 a ray), this warpgroup's 64; rows from `rows` on
+// zero. Begins by waiting for the warpgroup's products of the previous
+// tile; ends with the PE tile visible to its next wgmma.
+__device__ __forceinline__ void ipe_fill(unsigned char* pe, const float* ray, const bf16* view, const float* tv,
+                                         int c0, int rows, int S, bool integrate) {
+  const int lt = threadIdx.x & 127, h = lt & 1;
+  const int rr = 64 * (threadIdx.x >> 7) + (lt >> 1), row = c0 + rr;
+  const bool live = row < rows;
+  const int r = live ? row / S : 0;
+  float mean[3] = {0.f, 0.f, 0.f}, cov[3] = {0.f, 0.f, 0.f};
+  if (live) {
+    const float* tt = tv + r * (S + 1) + (row - r * S);
+    frustum_gaussian(ray + 8 * r, tt[0], tt[1], mean, cov);
+    if (!integrate) cov[0] = cov[1] = cov[2] = 0.f;
+  }
+  uint32_t sn[3][4], cs[3][4];
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      float a[2], b[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * q + j + e, k = c % 3;   // pair 24 h + c: scale 8 h + c / 3, axis k
+        const float sc = __int_as_float((127 + 8 * h + c / 3) << 23);  // 2^l, exact
+        const float y = __fmul_rn(mean[k], sc), var = __fmul_rn(cov[k], __fmul_rn(sc, sc));
+        const float w = expf(__fmul_rn(-0.5f, var));
+        float sv, cv;
+        sincosf(safe_wrap(y), &sv, &cv);
+        a[e] = __fmul_rn(w, sv);
+        b[e] = __fmul_rn(w, cv);
+      }
+      sn[q][j >> 1] = bf16x2_bits(a[0], a[1]);
+      cs[q][j >> 1] = bf16x2_bits(b[0], b[1]);
+    }
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  group_sync();  // the previous tile's products read the PE tile no more
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    *reinterpret_cast<uint4*>(pe + tile_offset(rr, 24 * h + 8 * q)) =
+        live ? make_uint4(sn[q][0], sn[q][1], sn[q][2], sn[q][3]) : zero;
+    *reinterpret_cast<uint4*>(pe + tile_offset(rr, 48 + 24 * h + 8 * q)) =
+        live ? make_uint4(cs[q][0], cs[q][1], cs[q][2], cs[q][3]) : zero;
+  }
+  const uint4* src = reinterpret_cast<const uint4*>(view + 32 * r) + 2 * h;
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    *reinterpret_cast<uint4*>(pe + tile_offset(rr, 96 + 16 * h + 8 * q)) = live ? src[q] : zero;
+  fence_async_smem();
+  group_sync();
 }
 
 // The PE tile of one 128-row tile of point queries (K4, K5), this

@@ -32,6 +32,14 @@ Two implementations of each eval render, chosen by ``Pipeline.mlp_impl``:
   ``render/engine.py:209-232, 662-667``). It raises under NDC, where the
   JAX package has no int8 route and renders bf16 under the int8 flag.
 
+A Pipeline whose ``nerf`` is a ``MipNeRFConfig`` renders mip-NeRF (its
+MLP the ``MipNeRF`` module in ``NeRFParams.coarse``, ``fine`` None): in
+FULL_NERF, on rays through pixel centres with radii (``render_image``), the
+two deterministic levels of its configuration. ``"plain"`` runs the
+published math on the module in fp32 (``render_rays_mip``, ray chunks);
+``"cuda"`` runs K11 (``kernels/fused_mip.py``), one launch for all rays of
+a call, from the pack in ``KernelWeights.mip``. No int8, NDC or other mode.
+
 The train renderers (``sample_as_in_nerf``, ``render_rays_train``,
 ``render_rays_vanilla``, ``render_rays_joint``) are autograd PyTorch; under
 ``"cuda"`` every NeRF query of the hierarchical pass goes through K4 with
@@ -52,8 +60,8 @@ from typing import Any, NamedTuple
 import torch
 
 from nerf_sampling_tpu_torch.core.compositing import RenderOutputs, raw2outputs
-from nerf_sampling_tpu_torch.core.encoding import positional_encoding
-from nerf_sampling_tpu_torch.core.rays import get_rays, ndc_rays
+from nerf_sampling_tpu_torch.core.encoding import integrated_pos_enc, mip_pos_enc, positional_encoding
+from nerf_sampling_tpu_torch.core.rays import get_rays, get_rays_mip, ndc_rays
 from nerf_sampling_tpu_torch.core.sampling import (
     Rows,
     sample_pdf,
@@ -61,8 +69,9 @@ from nerf_sampling_tpu_torch.core.sampling import (
     stratified_z_vals,
     z_to_points,
 )
-from nerf_sampling_tpu_torch.kernels import fused_depth_net, fused_hier, fused_nerf_vjp, fused_render, quant
+from nerf_sampling_tpu_torch.kernels import fused_depth_net, fused_hier, fused_mip, fused_nerf_vjp, fused_render, quant
 from nerf_sampling_tpu_torch.models.depth_net import DepthNet, DepthNetConfig
+from nerf_sampling_tpu_torch.models.mipnerf import MipNeRF, MipNeRFConfig, render_levels
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
 from nerf_sampling_tpu_torch.utils import profiling
 from nerf_sampling_tpu_torch.utils.precision import check_precision, matmul_precision
@@ -89,10 +98,11 @@ class KernelWeights(NamedTuple):
     fp32 packs in ``fp32``."""
 
     depth: dict | None  # fused_depth_net.pack_depth_net of the DepthNet (K1, bf16 under cuda_int8 too)
-    nerf: dict  # fused_render.pack_nerf of the NeRF that renders: fine, else coarse (K2, K3, K9)
+    nerf: dict | None  # fused_render.pack_nerf of the NeRF that renders: fine, else coarse (K2, K3, K9)
     hier: dict | None = None  # fused_hier.pack_hier of coarse and fine (K6, K7)
     coarse: dict | None = None  # fused_render.pack_nerf of the coarse NeRF (K8)
     fp32: KernelWeights | None = None  # depth, nerf and hier at fp32 (COMPARE_NERF: K1, K9, K7)
+    mip: dict | None = None  # fused_mip.pack_mip of a mip-NeRF (K11; nerf is None then)
 
 
 class NeRFParams(NamedTuple):
@@ -102,7 +112,7 @@ class NeRFParams(NamedTuple):
     it the kernel path packs them again on every call.
     """
 
-    coarse: NeRF
+    coarse: NeRF | MipNeRF
     fine: NeRF | None = None
     depth: DepthNet | None = None
     kernels: KernelWeights | None = None
@@ -110,6 +120,8 @@ class NeRFParams(NamedTuple):
 
 def _packs(params: NeRFParams, dtype: torch.dtype, with_hier: bool, with_coarse: bool = False,
            quant_pair: tuple[quant.QuantCalib, quant.QuantCalib] | None = None) -> KernelWeights:
+    if isinstance(params.coarse, MipNeRF):  # K11 runs bf16 alone
+        return KernelWeights(depth=None, nerf=None, mip=fused_mip.pack_mip(params.coarse))
     model = params.fine if params.fine is not None else params.coarse
     depth = params.depth
     if quant_pair is not None:
@@ -138,7 +150,8 @@ def pack_kernel_weights(params: NeRFParams, with_hier: bool = False, with_coarse
     depth-net mode; every pack in nerf and joint mode); a frozen NeRF's
     packs are made once. ``with_hier`` adds the pack of K6 and K7,
     ``with_coarse`` the coarse NeRF's for K8 and ``with_fp32`` the fp32
-    packs of COMPARE_NERF (``eval_packs`` names what an eval mode reads).
+    packs of COMPARE_NERF (``eval_packs`` names what an eval mode reads). A
+    mip-NeRF's is its K11 pack alone.
     ``quant_pair``, the (coarse, fine) QuantCalibs, makes the NeRFs' packs
     int8 under them (the DepthNet's stays bf16).
     """
@@ -161,12 +174,17 @@ def quant_pair(pipeline: Pipeline, params: NeRFParams) -> tuple[quant.QuantCalib
     return (qc, qc) if params.fine is None else (qc, qf)
 
 
+def is_mip(pipeline: Pipeline) -> bool:
+    """Whether the pipeline renders mip-NeRF (its ``nerf`` a ``MipNeRFConfig``)."""
+    return isinstance(pipeline.nerf, MipNeRFConfig)
+
+
 def eval_packs(pipeline: Pipeline, mode: EvalMode, params: NeRFParams | None = None) -> dict[str, Any]:
     """The ``pack_kernel_weights`` arguments of what the kernel path of
     ``mode`` reads; under "cuda_int8" (COMPARE_NERF aside) also the
     ``quant_pair`` of ``params``."""
-    if pipeline.ndc:  # the composable route: K1 reads the DepthNet's pack; K4 packs the live NeRF weights
-        return {"with_hier": False, "with_coarse": False, "with_fp32": False}
+    if pipeline.ndc or is_mip(pipeline):  # NDC's composable route: K1 reads the DepthNet's pack; K4 packs the
+        return {"with_hier": False, "with_coarse": False, "with_fp32": False}  # live NeRF weights; mip: K11's
     hier = pipeline.N_importance > 0
     packs: dict[str, Any] = {
         "with_hier": mode in (EvalMode.FULL_NERF, EvalMode.NERF_MAX) and hier,
@@ -184,6 +202,8 @@ def make_nerf_slices(kernels: KernelWeights) -> None:
     the nerf and coarse packs and of the hier pack's fine net, the trunk
     and alpha head of its coarse net. The Trainer makes a frozen NeRF's at
     setup, so that they do not first appear, and stay, at the first eval."""
+    if kernels.mip is not None:
+        fused_mip.mip_slices(kernels.mip)
     for k in (kernels, kernels.fp32):
         if k is None:
             continue
@@ -224,7 +244,7 @@ class Pipeline:
     ``make_ray_batch`` win over them (a full-image render passes its own).
     """
 
-    nerf: NeRFConfig
+    nerf: NeRFConfig | MipNeRFConfig  # a MipNeRFConfig renders mip-NeRF (module docstring)
     fine: NeRFConfig | None = None
     depth: DepthNetConfig | None = None
     multires: int = 10
@@ -271,6 +291,8 @@ class Pipeline:
             raise ValueError(f"mlp_impl must be '{PLAIN}', '{CUDA}' or '{CUDA_INT8}', got {self.mlp_impl!r}")
         object.__setattr__(self, "mlp_impl", impl)
         check_precision(self.matmul_precision)
+        if is_mip(self) and (impl == CUDA_INT8 or self.ndc):
+            raise ValueError("a mip-NeRF pipeline renders with mlp_impl 'plain' or 'cuda', without NDC")
 
     def embed_pts(self, pts: torch.Tensor) -> torch.Tensor:
         return pts if self.i_embed == -1 else positional_encoding(pts, self.multires)
@@ -585,6 +607,55 @@ def render_rays_eval(
     return ret
 
 
+def _mip_maps(rgb: torch.Tensor, distance: torch.Tensor, acc: torch.Tensor) -> dict[str, torch.Tensor]:
+    """A mip-NeRF render's flat maps under the eval modes' names: the
+    distance as depth and, for the callers that show one, 1 / distance as
+    disparity."""
+    return {"depth_net_rgb_map": rgb, "depth_net_disp_map": 1.0 / torch.clamp(distance, min=1e-10),
+            "depth_net_weights": acc, "depth_net_z_vals": distance,
+            "depth_net_pts": rgb.new_zeros((rgb.shape[0], 0, 3))}
+
+
+def _check_mip(pipeline: Pipeline, mode: EvalMode, full_outputs: bool = False) -> None:
+    if mode != EvalMode.FULL_NERF:
+        raise ValueError(f"a mip-NeRF pipeline renders FULL_NERF (its last level), not {mode.name}")
+    if full_outputs:
+        raise ValueError("a mip-NeRF render has no per-sample outputs to export")
+
+
+def render_rays_mip(pipeline: Pipeline, model: MipNeRF, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                    radii: torch.Tensor) -> dict[str, torch.Tensor]:
+    """mip-NeRF at test time over rays [N, 3] with radii [N, 1] in plain
+    PyTorch: ``models.mipnerf.render_levels`` querying the module over each
+    interval's IPE and the ray's view encoding; the last level's maps
+    (``_mip_maps``)."""
+    cfg = model.cfg
+    view = mip_pos_enc(rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True), cfg.deg_view)
+
+    def query(mean, cov, last):
+        enc = integrated_pos_enc(mean, cov, cfg.min_deg_point, cfg.max_deg_point)
+        raw_rgb, raw_density = model(enc, view[:, None, :].expand(*enc.shape[:2], view.shape[-1]))
+        return raw_rgb, raw_density[..., 0]
+
+    return _mip_maps(*render_levels(cfg, rays_o, rays_d, radii, pipeline.near, pipeline.far, pipeline.white_bkgd,
+                                    query))
+
+
+def _mip_fast_path(pipeline: Pipeline, params: NeRFParams, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                   radii: torch.Tensor) -> dict[str, torch.Tensor]:
+    """mip-NeRF on K11: one launch over all rays; the recorder's
+    ``nst.render.mip`` span around it."""
+    k = params.kernels
+    if k is None or k.mip is None:
+        params = pack_kernel_weights(params)
+    with profiling.span("nst.render.mip"):
+        maps = fused_mip.render_mip_kernel(
+            params.kernels.mip, params.coarse.cfg, rays_o.reshape(-1, 3).contiguous(),
+            rays_d.reshape(-1, 3).contiguous(), radii.reshape(-1).contiguous(), near=pipeline.near,
+            far=pipeline.far, white_bkgd=pipeline.white_bkgd)
+    return _mip_maps(maps["rgb_map"], maps["depth_map"], maps["acc_map"])
+
+
 def check_eval_envelope(p: Pipeline, mode: EvalMode) -> None:
     """What the kernel path of ``mode`` takes of a "cuda" pipeline; raises
     ValueError naming the envelope where the JAX package drops to its
@@ -627,6 +698,7 @@ def _fused_fast_paths(
     mode: EvalMode,
     generator: torch.Generator | None = None,
     ray_base: int = 0,
+    radii: torch.Tensor | None = None,
 ) -> dict[str, torch.Tensor]:
     """The four eval modes on the kernels, routed as the JAX package routes
     them (nerf_sampling_tpu/render/engine.py:607-814); flat [N, ...]
@@ -634,8 +706,11 @@ def _fused_fast_paths(
     draws) comes from ``generator``; K3 keys its draws by the global ray
     index, ``ray_base`` being that of ``rays_o[0]``. Packs the ``mode`` reads that
     ``params`` lacks are made for this call. Under "cuda_int8" the NeRF
-    passes of every mode but COMPARE_NERF run the int8 kernels."""
+    passes of every mode but COMPARE_NERF run the int8 kernels. A mip-NeRF
+    pipeline renders FULL_NERF on K11, over rays with ``radii``."""
     p = pipeline
+    if is_mip(p):  # render_flat_rays checked the mode and the radii
+        return _mip_fast_path(p, params, rays_o, rays_d, radii)
     check_eval_envelope(p, mode)
     int8 = p.mlp_impl == CUDA_INT8 and mode != EvalMode.COMPARE_NERF
     population = mode in (EvalMode.DEPTH_NET, EvalMode.COMPARE_NERF)
@@ -718,6 +793,7 @@ def render_flat_rays(
     W: int | None = None,
     focal: float | None = None,
     ray_base: int = 0,
+    radii: torch.Tensor | None = None,
 ) -> dict[str, torch.Tensor]:
     """Render flat [N, 3] rays -> dict of flat [N, ...] maps.
 
@@ -730,7 +806,23 @@ def render_flat_rays(
     says, as the JAX package's composable path does. ``ray_base`` is the
     global index of the first ray, which keys K3's draws (a rank's rows of
     an image: parallel/render.py); the plain path draws from ``generator``.
+    A mip-NeRF pipeline takes each ray's base radius, ``radii`` [N] or [N,
+    1]: K11 over all rays, or ``render_rays_mip`` over chunks.
     """
+    if is_mip(pipeline):
+        _check_mip(pipeline, mode, full_outputs)
+        if radii is None:
+            raise ValueError("a mip-NeRF render needs each ray's radius (render_image makes them)")
+        if pipeline.mlp_impl == CUDA:
+            return _fused_fast_paths(pipeline, params, rays_o, rays_d, mode, generator, ray_base, radii)
+        ro, rd, rr = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), radii.reshape(-1, 1)
+        pieces: dict[str, list[torch.Tensor]] = {}
+        with matmul_precision(pipeline.matmul_precision):
+            for s in range(0, ro.shape[0], chunk):
+                got = render_rays_mip(pipeline, params.coarse, ro[s:s + chunk], rd[s:s + chunk], rr[s:s + chunk])
+                for name, v in got.items():
+                    pieces.setdefault(name, []).append(v)
+        return {name: torch.cat(v, 0) for name, v in pieces.items()}
     if full_outputs:
         pipeline = dataclasses.replace(pipeline, mlp_impl=PLAIN)
     if pipeline.mlp_impl in KERNEL_IMPLS:
@@ -765,13 +857,19 @@ def render_image(
     full_outputs: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Render a full image on ``device``: rays -> render_flat_rays -> [H, W, ...] maps
-    (an NDC reprojection takes H, W and K's focal); the recorder's
-    ``nst.render.image`` span."""
+    (an NDC reprojection takes H, W and K's focal; mip-NeRF's rays go
+    through pixel centres, with radii); the recorder's ``nst.render.image``
+    span."""
     with profiling.span("nst.render.image"):
-        rays_o, rays_d = get_rays(H, W, K, c2w, device)
+        radii = None
+        if is_mip(pipeline):
+            rays_o, rays_d, radii = get_rays_mip(H, W, K, c2w, device)
+            radii = radii.reshape(-1)
+        else:
+            rays_o, rays_d = get_rays(H, W, K, c2w, device)
         flat = render_flat_rays(
             pipeline, params, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
             mode=mode, chunk=chunk, generator=generator, full_outputs=full_outputs,
-            H=H, W=W, focal=float(K[0][0]),
+            H=H, W=W, focal=float(K[0][0]), radii=radii,
         )
         return {name: v.reshape(H, W, *v.shape[1:]) for name, v in flat.items()}

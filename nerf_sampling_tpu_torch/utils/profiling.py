@@ -19,8 +19,10 @@
   no ``record_function`` range. On, a span is a ``record_function`` range
   (so the device trace can put an idle gap down to it) and adds its host
   seconds, its calls and its children's seconds to an in-memory table that
-  ``recorded()`` returns; ``count`` adds to the same table. Only
-  ``reset()`` clears the table; ``trace`` calls it as its window opens.
+  ``recorded()`` returns; ``count`` adds to the same table, and so does
+  ``device_ms`` (a block's device ms between two CUDA events, added by the
+  next ``recorded()``). Only ``reset()`` clears the table; ``trace`` calls
+  it as its window opens.
 - ``phase`` marks the phases of a train step (``oracle``, ``forward``,
   ``backward``, ``all_reduce``, ``adam``). Inside ``step_phases`` on the
   card, where the step is timed, a marker records a timing CUDA event on
@@ -96,6 +98,7 @@ class _Recorder:
         self.open: list[_Span] = []  # the spans entered and not yet left, innermost last
         self.clock: PhaseClock | _Untimed | None = None  # the step on the card being run
         self.pending: list[PhaseClock] = []  # eager steps timed while on, not yet added
+        self.timers: list[tuple] = []  # (name, start, end) of device_ms blocks, not yet added
 
 
 _REC = _Recorder()
@@ -108,15 +111,24 @@ def recording() -> bool:
 
 
 def reset() -> None:
-    """Clears the table (and the eager steps not yet added); nothing else does."""
+    """Clears the table (and the eager steps and device blocks not yet added); nothing else does."""
     _REC.table.clear()
     _REC.pending.clear()
+    _REC.timers.clear()
 
 
 def recorded() -> dict[str, dict]:
     """A copy of the table: a span's ``calls``, ``seconds``,
     ``child_seconds`` and ``self_seconds`` (its duration less its
-    children's); a count's ``calls`` and ``total`` (the sum of its n)."""
+    children's); a count's ``calls`` and ``total`` (the sum of its n).
+    The ``device_ms`` blocks not yet added are added first, each once its
+    end event has completed (this waits for it)."""
+    timers, _REC.timers = _REC.timers, []
+    for name, start, end in timers:
+        end.synchronize()
+        e = _REC.table.setdefault(name, {"calls": 0, "total": 0})
+        e["calls"] += 1
+        e["total"] += start.elapsed_time(end)
     out = {}
     for name, e in _REC.table.items():
         e = dict(e)
@@ -168,6 +180,24 @@ def count(name: str, n: float = 1) -> None:
         e = _REC.table.setdefault(name, {"calls": 0, "total": 0})
         e["calls"] += 1
         e["total"] += n
+
+
+@contextlib.contextmanager
+def device_ms(name: str, device: torch.device | str) -> Iterator[None]:
+    """While the recorder is on and ``device`` is a CUDA card: the device ms
+    of the enclosed launches, between two timing events on the current
+    stream, as one call of the count ``name``, added by the next
+    ``recorded()`` (no host sync here). Otherwise nothing."""
+    device = torch.device(device)
+    if device.type != "cuda" or not recording():
+        yield
+        return
+    stream = torch.cuda.current_stream(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    yield
+    end.record(stream)
+    _REC.timers.append((name, start, end))
 
 
 class PhaseClock:
