@@ -1,4 +1,4 @@
-"""Compare the render kernels' outputs on two checkouts bit for bit on one GPU.
+"""Compare the render and point-query kernels' outputs on two checkouts bit for bit on one GPU.
 
     python3 ab_render_bits.py OTHER_TREE
 
@@ -11,10 +11,14 @@ a depth, NaN depths among them), K3 (gaussian, Philox draws), K8 (the
 linspace grid at 64 and 192 samples), K9 (the caller's z, sorted and
 unsorted), K6 (seeded, 1024 rays) and K7 (deterministic, 64 + 128). The
 NeRFs are two random 8x256 nets with a skip at layer 5, made from a seed
-and calibrated on the seeded rays; 16,384 rays. Prints, for each output,
-how many of its fp32 words differ between the trees (NaN compared by its
-bits), the card's name and power limit, and exits non-zero when any
-differs or a run fails.
+and calibrated on the seeded rays; 16,384 rays. Then the point-query
+kernels on the fine net: K4's raw on a NeRF step's coarse (1024 rays x 64
+points) and fine (x 192) queries and on 20,001 points with a direction
+each (S = 1), and K5's weight and bias grads with want_dx off and on (and
+then its dL/dx) on both step queries with a seeded cotangent. Prints, for
+each output, how many of its fp32 words differ between the trees (NaN
+compared by its bits), the card's name and power limit, and exits
+non-zero when any differs or a run fails.
 """
 
 import os
@@ -29,6 +33,8 @@ import sys
 import numpy as np
 import torch
 from nerf_sampling_tpu_torch.kernels import fused_hier as fh
+from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
+from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
 from nerf_sampling_tpu_torch.kernels import fused_render as fr
 from nerf_sampling_tpu_torch.kernels import quant
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
@@ -60,6 +66,24 @@ offsets = torch.from_numpy(fr.uniform_population_offsets(64, 1.0)).to(dev)
 packs = {"bf16": (fr.pack_nerf(fine), fh.pack_hier(coarse, fine)),
          "int8": (quant.qpack_nerf(fine, calib[1]), fh.qpack_hier(coarse, fine, calib))}
 out = {}
+rays_k4 = torch.from_numpy(rng.uniform(2.0, 6.0, (1024, 192)).astype(np.float32)).to(dev).sort(dim=-1).values
+dirs_k4 = torch.nn.functional.normalize(rd[:1024], dim=-1).contiguous()
+queries = {"coarse": (ro[:1024, None] + rd[:1024, None] * rays_k4[:, ::3, None]).reshape(-1, 3).contiguous(),
+           "fine": (ro[:1024, None] + rd[:1024, None] * rays_k4[..., None]).reshape(-1, 3).contiguous()}
+pts_s1 = torch.from_numpy(rng.uniform(-6.0, 6.0, (20001, 3)).astype(np.float32)).to(dev)
+dirs_s1 = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(20001, 3)).astype(np.float32)), dim=-1).to(dev)
+pk, sl = fr.pack_nerf(fine), fr.pack_slices(fr.pack_nerf(fine))
+for q, pts in queries.items():
+    out[f"K4_{q}.raw"] = k4.nerf_points_kernel(pk, fine.cfg, pts, dirs_k4, slices=sl).float().cpu()
+    g = torch.from_numpy(rng.normal(0, 1e-3, (pts.shape[0], 4)).astype(np.float32)).to(dev)
+    for want_dx in (False, True):
+        d, dpts, ddirs = k5.nerf_points_bwd_kernel(pk, fine.cfg, pts, dirs_k4, g, want_dx=want_dx, fwd_slices=sl)
+        tag = f"K5_{q}_dx{int(want_dx)}"
+        for i, t in enumerate(k5.grads_to_params(fine, d)):
+            out[f"{tag}.grad{i:02d}"] = t.detach().float().cpu().contiguous()
+        if want_dx:
+            out[f"{tag}.dpts"], out[f"{tag}.ddirs"] = dpts.float().cpu(), ddirs.float().cpu()
+out["K4_s1.raw"] = k4.nerf_points_kernel(pk, fine.cfg, pts_s1, dirs_s1, slices=sl).float().cpu()
 for name, (pk, hpk) in packs.items():
     runs = {
         "K2": lambda: fr.render_around_depth_kernel(pk, fine.cfg, ro, rd, depth, offsets),

@@ -1,4 +1,4 @@
-"""Time the render kernels on two checkouts in turns on one GPU: the other tree, this one, this one, the other.
+"""Time the render and point-query kernels on two checkouts in turns on one GPU: the other tree, this one, this one, the other.
 
     python3 ab_render_times.py OTHER_TREE
 
@@ -11,9 +11,13 @@ gaussian population over view 0's 160,000 rays at 64 samples, 10
 launches), K2 (the same rays around the DepthNet's depths, uniform at 64
 samples, std 1, 10 launches) and K7 (the deterministic hierarchical pass
 over the 160,000 rays, 64 + 128, 5 launches) on the committed
-checkpoint, through the wrappers both trees have. Prints one ``TIMES``
-JSON line per turn, then the card's name and power limit, and exits
-non-zero when a turn fails.
+checkpoint, then, on its fine NeRF, K4 on a NeRF step's coarse (1024 rays
+of view 0 x 64 points) and fine (x 192) queries (20 launches each) and
+K5's three passes on each with a seeded cotangent (want_dx off; CUDA
+events around each pass, mean of 10 launches), through the wrappers both
+trees have. Prints one ``TIMES`` JSON line per turn, then the card's name
+and power limit, and exits non-zero when a turn fails. ``python3
+ab_render_times.py --time TREE`` times one tree alone.
 """
 
 import json
@@ -25,7 +29,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def time_tree(root: str) -> dict:
-    """K6, K3, K2 and K7 times (ms per launch) of the tree at ``root``, in this process."""
+    """K6, K3, K2, K7 and K4 times and K5's pass times (ms per launch) of the tree at ``root``, in this process."""
     sys.path.insert(0, root)
     os.chdir(root)
     import torch
@@ -33,6 +37,8 @@ def time_tree(root: str) -> dict:
     import chip_smoke as cs
     from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
     from nerf_sampling_tpu_torch.kernels import fused_hier as k6
+    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
+    from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
     from nerf_sampling_tpu_torch.kernels import fused_render as k3
     from nerf_sampling_tpu_torch.render import pack_kernel_weights
     from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
@@ -52,7 +58,27 @@ def time_tree(root: str) -> dict:
     k2_ms = cs.cuda_ms(lambda: k3.render_around_depth_kernel(params.kernels.nerf, params.fine.cfg, ro, rd, depth,
                                                               offsets), 10)
     k7_ms = cs.cuda_ms(lambda: k6.render_hier_kernel(hier, cfg_c, cfg_f, ro, rd, n_coarse=64, n_importance=128), 5)
-    return {"k6_ms": k6_ms, "k3_ms": k3_ms, "k2_ms": k2_ms, "k7_ms": k7_ms}
+    times = {"k6_ms": k6_ms, "k3_ms": k3_ms, "k2_ms": k2_ms, "k7_ms": k7_ms}
+    g = torch.Generator(device=device).manual_seed(3)
+    z = (2.0 + 4.0 * torch.rand((1024, 192), generator=g, device=device)).sort(dim=-1).values
+    dirs = torch.nn.functional.normalize(b_d, dim=-1).contiguous()
+    packed = k3.pack_nerf(params.fine)
+    sl = k3.pack_slices(packed)
+    for name, zz in (("coarse", z[:, ::3]), ("fine", z)):
+        pts = (b_o[:, None] + b_d[:, None] * zz[..., None]).reshape(-1, 3).contiguous()
+        times[f"k4_{name}_ms"] = cs.cuda_ms(lambda: k4.nerf_points_kernel(packed, cfg_f, pts, dirs, slices=sl), 20)
+        cot = torch.randn(pts.shape[0], 4, generator=g, device=device) * 1e-3
+        k5.nerf_points_bwd_kernel(packed, cfg_f, pts, dirs, cot, want_dx=False, fwd_slices=sl)  # warm-up
+        passes = [0.0, 0.0, 0.0]
+        for _ in range(10):
+            events = []
+            k5.nerf_points_bwd_kernel(packed, cfg_f, pts, dirs, cot, want_dx=False, fwd_slices=sl, events=events)
+            torch.cuda.synchronize()
+            for k in range(3):
+                passes[k] += events[k].elapsed_time(events[k + 1]) / 10
+        for k, part in enumerate(("rows", "wgrad", "reduce")):
+            times[f"k5_{name}_{part}_ms"] = passes[k]
+    return times
 
 
 def main() -> int:

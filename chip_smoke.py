@@ -19,8 +19,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    wg_dense.cu's nst_pe_fill_check) against the per-column formula it
    replaced, on 1,048,576 rows and ragged launches at S 2, 64, 192 and
    512 with NaN depths, z inside and beyond [2, 6] and arguments past
-   sinf's fast range: 0 bytes may differ; it fails before any NeRF
-   kernel runs.
+   sinf's fast range: 0 bytes may differ; then the point-query kernels'
+   PE fill (csrc/mlp_wgmma.cuh's point_fill, K4's and K5's, through
+   wg_dense.cu's nst_point_fill_check) against the per-column formula it
+   replaced, tiles and their inputs, in K4's form and K5's (rolled), on
+   the train step's coarse (S 64) and fine (S 192) queries and ragged
+   ones at S 1, 7 and 192 whose tiles start mid-ray, points up to 6 and
+   past sinf's fast range, NaN points and directions: 0 bytes may
+   differ; it fails before any NeRF kernel runs.
 3. Kernel vs plain, on the committed checkpoint's weights, each held to
    its plain version at bf16 rounding with the tolerances below:
    K1 (DepthNet) on the 160,000 rays of test view 0 plus 64 rays that miss
@@ -499,9 +505,9 @@ def check_core(device) -> None:
     mode, whose int32 sums must equal an fp64 matmul of the int8 values
     (exact: every sum is below 2^53); then its fp32 mode (3xTF32 products),
     whose largest error from an fp64 matmul must be at most CORE32_TOL
-    times strict-fp32 torch.matmul's; then the render kernels' PE fill,
-    whose tiles must equal the per-column formula's byte for byte; every
-    launch counted."""
+    times strict-fp32 torch.matmul's; then the render kernels' PE fill and
+    the point-query kernels' (K4, K5), whose tiles must equal the
+    per-column formula's byte for byte; every launch counted."""
     from nerf_sampling_tpu_torch.kernels import fused_render as fr
 
     t0 = time.perf_counter()
@@ -588,6 +594,36 @@ def check_core(device) -> None:
             f"differ from the per-column formula (must be 0)")
         require(bad == 0 and nan_rows > 0, f"[core] the PE fill differs from the per-column formula at S {S}")
     require(fr.pe_fill_check_launches == len(pcases), "[core] pe_fill_check did not launch its kernel")
+    # K4's and K5's PE fill against the per-column formula it replaced, byte
+    # for byte, tiles and their inputs: (S, rays, tiles a block); the train
+    # step's coarse and fine queries, then ragged ones whose tiles start
+    # mid-ray and whose last tile is short
+    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
+
+    k4.point_fill_check_launches = 0
+    qcases = [(S, n, tpb, rolled) for S, n, tpb in ((64, 1024, 4), (192, 1024, 12), (1, 20001, 3), (7, 1001, 2),
+                                                    (192, 5, 1)) for rolled in (False, True)]
+    for S, n, tpb, rolled in qcases:
+        pts = (torch.rand(n * S, 3, generator=g, device=device) * 2.0 - 1.0) * 6.0  # |x| up to 6
+        far_off = torch.rand(n * S, generator=g, device=device) < 0.01  # |x| 2^9 past sinf's fast range
+        pts[far_off] *= 100.0
+        pts[torch.rand(n * S, generator=g, device=device) < 0.005] = float("nan")
+        dirs = torch.nn.functional.normalize(torch.randn(n, 3, generator=g, device=device), dim=-1)
+        dirs[torch.rand(n, generator=g, device=device) < 0.01, 1] = float("nan")
+        pts[1], dirs[-1, 1] = float("nan"), float("nan")  # at least one of each, in the last tile too
+        got, ref, q_got, q_ref = k4.point_fill_check(pts, dirs, tiles_per_block=tpb, rolled=rolled)
+        torch.cuda.synchronize()
+        bad = int((got.contiguous().view(torch.uint8) != ref.contiguous().view(torch.uint8)).sum())
+        bad_q = int((q_got.view(torch.int32) != q_ref.view(torch.int32)).sum())
+        nan_rows = int(torch.isnan(ref[:, 0].float()).sum())
+        nan_views = int(torch.isnan(ref[:, 65].float()).sum())
+        log(f"[core] point fill{' (rolled, K5)' if rolled else ' (K4)'}, S {S}, {n * S} rows "
+            f"({n * S % 128 or 128} in the last tile), {tpb} tiles a block, "
+            f"{nan_rows} NaN points, {nan_views} rows of NaN directions: {bad} of {got.numel() * 2} bytes and "
+            f"{bad_q} of {q_got.numel()} input words differ from the per-column formula (must be 0)")
+        require(bad == 0 and bad_q == 0 and nan_rows > 0 and nan_views > 0,
+                f"[core] the point fill differs from the per-column formula at S {S}")
+    require(k4.point_fill_check_launches == len(qcases), "[core] point_fill_check did not launch its kernel")
     log(f"[core] phase {time.perf_counter() - t0:.1f} s")
 
 

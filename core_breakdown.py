@@ -25,11 +25,10 @@ object {variant: times in ms}.
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 
-from fault_check import CSRC, HERE, make_copy
+from fault_check import HERE, make_copy
 
 # name: (the text of mlp_wgmma.cuh it replaces, what replaces it), or several such pairs
 CUTS = {
@@ -54,7 +53,8 @@ CUTS = {
     # so it would time that and not the fill.
     "no_pe": (("for (int k = 0; k < 3; ++k) sincosf(u[k] * (float)(1 << (5 * h + j)), &sn[j][k], &cs[j][k]);",
                "for (int k = 0; k < 3; ++k) sn[j][k] = cs[j][k] = u[k] * (float)(1 << (5 * h + j));"),
-              ("    if (col < kViewCh) {", "    if (col < 0) {")),
+              ("    if (col < kViewCh) {\n      const float* q = ray + 8 * r;\n      float u[3];",
+               "    if (col < 0) {\n      const float* q = ray + 8 * r;\n      float u[3];")),
 }
 
 RUN = r"""
@@ -139,15 +139,7 @@ def main() -> int:
     print(f"[core_breakdown] checkout: {json.dumps(result['checkout'])}", flush=True)
     for name in cuts:
         edits = CUTS[name] if isinstance(CUTS[name][0], tuple) else (CUTS[name],)
-        root = make_copy(f"breakdown_{name}", "mlp_wgmma.cuh", *edits[0])
-        path = os.path.join(root, CSRC, "mlp_wgmma.cuh")
-        for old, new in edits[1:]:
-            with open(path) as fp:
-                text = fp.read()
-            if text.count(old) != 1:
-                raise RuntimeError(f"cut {name}: the line to replace is not in mlp_wgmma.cuh exactly once")
-            with open(path, "w") as fp:
-                fp.write(text.replace(old, new))
+        root = make_copy(f"breakdown_{name}", "mlp_wgmma.cuh", *(tuple(e) for e in zip(*edits)))
         result[name] = times(root)
         cost = {k: result["checkout"][k] - v for k, v in result[name].items()}
         print(f"[core_breakdown] {name}: {json.dumps(result[name])}; the piece costs {json.dumps(cost)} ms",

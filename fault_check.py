@@ -1,6 +1,6 @@
 """Plant faults in copies of the MLP cores and run chip_smoke.py's gates on each.
 
-    python3 fault_check.py        # on a machine with a CUDA card, from the repo root
+    python3 fault_check.py [FAULT ...]   # on a machine with a CUDA card, from the repo root
 
 Four sets of gates must pass on the sound source and fail on a wrong one:
 - "k10", the int8 kernels' (chip_smoke.py [k10]: K10_MEAN_TOL / K10_P999_TOL
@@ -11,8 +11,9 @@ Four sets of gates must pass on the sound source and fail on a wrong one:
   K6/K7 in int8);
 - "core", the wgmma core's first check ([core]: one bf16 layer at
   CORE_ULP_TOL, one s8 layer exact, one fp32 (3xTF32) layer within
-  CORE32_TOL of strict fp32's error, the render kernels' PE fill equal
-  to the per-column formula byte for byte);
+  CORE32_TOL of strict fp32's error, the render kernels' PE fill and the
+  point-query kernels' (K4, K5) equal to the per-column formula byte for
+  byte);
 - "wgmma", the bf16 kernels on the core ([K1], [K6], [k4], [k5], [K2], [K3]
   and the render path: K1 against its plain version, the K6 map, max_z and
   draw gates, K4 against its plain version, K5_REL_TOL, K5_COS_TOL and the
@@ -29,15 +30,17 @@ int8 tile swizzle, which [core]'s s8 layer and every int8 kernel (K2/K3/
 K8/K9 and K6/K7) share, and in its 3xTF32 product, which [core]'s fp32
 layer and K1, K7 and K9 in fp32 share: its two corrections dropped, or its
 sums in one chain (the run says which of [k9], [fp32] and [modes] see
-each); and in the render kernels' PE fill, which [core] holds to the
-per-column formula: its sines and cosines on the fast hardware path.
+each); and in the PE fills of the render and point-query kernels, which
+[core] holds to the per-column formula: their sines and cosines on the
+fast hardware path.
 This runs the gates first on the checkout as it is, then on one copy per
 fault below (the port with its experiment configs, chip_smoke.py and the
-checkpoint, under logs/fault_check/, with one edit to the copy's source), with
-the gates logged instead of raised, and prints each run's readings and the
-gates it failed. The last line is a JSON object {variant: [failed gates]}.
-Exits 0 when the sound source fails no gate and every fault fails at least
-one.
+checkpoint, under logs/fault_check/, with the fault's edits to the copy's
+source); faults named on the command line run alone, the checkout with
+only their gate sets. The gates are logged instead of raised; it prints
+each run's readings and the gates it failed. The last line is a JSON
+object {variant: [failed gates]}. Exits 0 when the sound source fails no
+gate and every fault fails at least one.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "logs", "fault_check")
 CSRC = os.path.join("nerf_sampling_tpu_torch", "kernels", "csrc")
 
-# name: (source in CSRC, its text, the faulty replacement, the gate sets that must catch it)
+# name: (source in CSRC, its text, the faulty replacement, the gate sets that
+# must catch it); a fault of several edits gives tuples of texts and replacements
 FAULTS = {
     # the integer requant's round bit dropped: every shift truncates
     "round_bit": ("nerf_mlp.cuh", "if (p > 0) a = (a >> p) + ((a >> (p - 1)) & 1);", "if (p > 0) a = a >> p;",
@@ -93,11 +97,16 @@ FAULTS = {
                    "        auto join = [](float sum, float p) { return __fadd_rn(sum, p); };",
                    "for (int i = 0; i < 64; ++i) part[i] = acc[h][i];\n"
                    "        auto join = [](float, float p) { return p; };", ("core", "fp32")),
-    # the render kernels' PE fill on the fast hardware sine and cosine
-    # (__sincosf), which the argument's 2^9 |u| defeats: [core]'s PE fill
-    # gate must see its bytes differ from the per-column formula's
-    "pe_fast_trig": ("mlp_wgmma.cuh", "for (int k = 0; k < 3; ++k) sincosf(u[k]",
-                     "for (int k = 0; k < 3; ++k) __sincosf(u[k]", ("core",)),
+    # the PE fills of the render kernels and of the point-query kernels (K4,
+    # K5) on the fast hardware sine and cosine (__sincosf), which the
+    # argument's 2^9 |u| defeats: [core]'s PE fill gates must see their
+    # bytes differ from the per-column formula's
+    "pe_fast_trig": ("mlp_wgmma.cuh",
+                     ("for (int k = 0; k < 3; ++k) sincosf(u[k]", "for (int k = 0; k < 3; ++k) sincosf(x[k]",
+                      "      sincosf(xk * "),
+                     ("for (int k = 0; k < 3; ++k) __sincosf(u[k]", "for (int k = 0; k < 3; ++k) __sincosf(x[k]",
+                      "      __sincosf(xk * "),
+                     ("core",)),
 }
 
 # run in the checkout or copy: chip_smoke's checks of the named gate sets, gates recorded
@@ -144,8 +153,9 @@ print("FAILED " + json.dumps(failed), flush=True)
 """
 
 
-def make_copy(name: str, source: str, old: str, new: str) -> str:
-    """The files the checks read, copied under OUT/name, with old -> new in CSRC/source."""
+def make_copy(name: str, source: str, old: str | tuple, new: str | tuple) -> str:
+    """The files the checks read, copied under OUT/name, with old -> new in
+    CSRC/source (each text of a tuple to its replacement)."""
     root = os.path.join(OUT, name)
     shutil.rmtree(root, ignore_errors=True)
     ignore = shutil.ignore_patterns("_build", "__pycache__")
@@ -156,10 +166,12 @@ def make_copy(name: str, source: str, old: str, new: str) -> str:
     path = os.path.join(root, CSRC, source)
     with open(path) as fp:
         text = fp.read()
-    if text.count(old) != 1:
-        raise RuntimeError(f"fault {name}: the line to replace is not in {source} exactly once")
+    for a, b in zip(*((old, new) if isinstance(old, tuple) else ((old,), (new,)))):
+        if text.count(a) != 1:
+            raise RuntimeError(f"fault {name}: the line to replace is not in {source} exactly once")
+        text = text.replace(a, b)
     with open(path, "w") as fp:
-        fp.write(text.replace(old, new))
+        fp.write(text)
     return root
 
 
@@ -183,17 +195,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("fault_check: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 2
+    faults = {n: FAULTS[n] for n in sys.argv[1:]} or FAULTS
     os.makedirs(OUT, exist_ok=True)
     result = {}
     print("[fault_check] sound source", flush=True)
     # generates the example scene the copies take along
-    result["sound"] = run_checks(HERE, sorted({g for *_, gates in FAULTS.values() for g in gates}))
-    for name, (source, old, new, gates) in FAULTS.items():
+    result["sound"] = run_checks(HERE, sorted({g for *_, gates in faults.values() for g in gates}))
+    for name, (source, old, new, gates) in faults.items():
         print(f"[fault_check] fault {name} in {source}: {old!r} -> {new!r}, gates {', '.join(gates)}", flush=True)
         result[name] = run_checks(make_copy(name, source, old, new), list(gates))
         print(f"[fault_check] fault {name}: {len(result[name])} gates failed", flush=True)
     print(json.dumps(result))
-    return 0 if not result["sound"] and all(result[n] for n in FAULTS) else 1
+    return 0 if not result["sound"] and all(result[n] for n in faults) else 1
 
 
 if __name__ == "__main__":

@@ -145,6 +145,8 @@ def load_library() -> ctypes.CDLL:
     lib.nst_wg_dense32.restype = i32
     lib.nst_pe_fill_check.argtypes = [ptrs, i32, i64, i32, i32, i32, vp]
     lib.nst_pe_fill_check.restype = i32
+    lib.nst_point_fill_check.argtypes = [ptrs, i32, i64, i64, i32, i32, vp]
+    lib.nst_point_fill_check.restype = i32
     build_info.update(
         path=so_path, log=log_path, built=built, seconds=time.perf_counter() - t0
     )

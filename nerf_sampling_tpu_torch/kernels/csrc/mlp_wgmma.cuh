@@ -49,6 +49,8 @@
 // (frequency, axis) of the point's embedding and a copy of its ray's view
 // embedding, staged once per pass (stage_views, pe_fill; bit for bit the
 // per-column embed it replaced: the section "the render kernels' PE fill").
+// A tile of point queries (K4, K5) fills its PE tile alike, the view
+// embeddings staged once per tile for the rays it touches (point_fill).
 //
 // The weight sequence of a pass does not depend on the activations, so the
 // producer runs ahead across layers and tiles, bounded by free ring stages
@@ -955,34 +957,144 @@ __device__ __forceinline__ void ipe_fill(unsigned char* pe, const float* ray, co
   group_sync();
 }
 
-// The PE tile of one 128-row tile of point queries (K4, K5), this
-// warpgroup's 64 rows: row r is the point pts[row0 + r] and the unit view
-// direction dirs[(row0 + r) / S] (given, not normalized here); rows [valid,
-// 128) are zero. q holds the tile's inputs, 8 floats a row (pts[3],
-// dirs[3], 0, 0). Begins by waiting for the warpgroup's products of the
-// previous tile; ends with the PE tile visible to its next wgmma.
-__device__ __forceinline__ void point_pe(const float* __restrict__ pts, const float* __restrict__ dirs,
-                                         long long row0, int valid, long long S, float* q, unsigned char* pe) {
-  const int g = threadIdx.x >> 7, lt = threadIdx.x & 127;
-  group_sync();
-  for (int e = lt; e < 64 * 8; e += 128) {
-    const int rr = 64 * g + (e >> 3), c = e & 7;
-    float v = 0.f;
-    if (rr < valid && c < 6) {
-      const long long row = row0 + rr;
-      v = c < 3 ? pts[row * 3 + c] : dirs[(row / S) * 3 + (c - 3)];
+// ---- the point-query kernels' PE fill (K4, K5's row pass)
+//
+// The rows of a launch are points: row r is the point x = pts[r] seen from
+// the unit direction v = dirs[r / S] (given, not normalized here). Its PE
+// row is the render kernels' (the section above) of x and v, each value
+// nerf_mlp.cuh::embed's, rounded to bf16. Each distinct value is computed
+// once:
+// - per tile, the view embedding of each ray the tile's rows touch (rays
+//   row0 / S to (row0 + valid - 1) / S: at most 2 at S >= 64, 128 at S =
+//   1), one sincosf per (frequency, axis) giving both the sine and the
+//   cosine column, staged as 32 bf16 (27 and 5 zeros) a ray
+//   (stage_point_views);
+// - per row, the point read once and one sincosf(x_k 2^f) per frequency f
+//   and axis k, two threads a row as pe_fill's (column 32 by a shuffle,
+//   four 16-byte stores); the view panel's first 64 bytes a copy of the
+//   ray's staged embedding, its columns 96-127 zero (point_fill).
+// Bit for bit the per-column fill it replaced (every element embed(x, col)
+// or embed(v, col), __float2bfloat16): the same fp32 operations in the
+// same order, sincosf giving sinf's and cosf's bits (no __sinf/__cosf,
+// fast math or recurrence: the argument reaches 2^9 |x|), NaN inputs NaN
+// in the same columns, rows from `valid` on zero; chip_smoke.py [core]
+// holds the two fills' bytes equal on the card (wg_dense.cu's
+// nst_point_fill_check).
+
+// The view embeddings of rays [ra, ra + nr) of dirs into view[32 (r - ra)
+// ..]: one sincosf per (frequency, axis) of a ray; all consumer threads, no
+// barrier.
+__device__ __forceinline__ void stage_point_views(const float* __restrict__ dirs, long long ra, int nr, bf16* view) {
+#pragma unroll 1
+  for (int e = threadIdx.x; e < nr * 16; e += kConsumers) {
+    const int r = e >> 4, p = e & 15;
+    const float* d = dirs + (ra + r) * 3;
+    bf16* out = view + 32 * r;
+    if (p < 12) {  // frequency f = p / 3, axis k: the sine at column 3 + 6f + k, the cosine at 6 + 6f + k
+      const int f = p / 3, k = p - 3 * f;
+      float sv, cv;
+      sincosf(d[k] * (float)(1 << f), &sv, &cv);
+      out[3 + 6 * f + k] = __float2bfloat16(sv);
+      out[6 + 6 * f + k] = __float2bfloat16(cv);
+    } else if (p < 15) {
+      out[p - 12] = __float2bfloat16(d[p - 12]);
+    } else {
+      for (int c = kViewCh; c < 32; ++c) out[c] = __float2bfloat16(0.f);
     }
-    q[rr * 8 + c] = v;
   }
-  group_sync();
-  for (int e = lt; e < 64 * 128; e += 128) {
-    const int rr = 64 * g + (e >> 7), col = e & 127;
-    float v = 0.f;
-    if (rr < valid) {
-      if (col < kPtsCh) v = embed(q + rr * 8, col);
-      else if (col >= kPeViews && col < kPeViews + kViewCh) v = embed(q + rr * 8 + 3, col - kPeViews);
+}
+
+// The PE tile of one 128-row tile of point queries (K4, K5): rows [row0,
+// row0 + valid) of pts [M, 3] with directions dirs [M / S, 3], rows [valid,
+// 128) zero. view: room for the tile's staged rays (128 x 32 bf16, 16-byte
+// aligned) that no consumer reads before this call's barrier: a kernel
+// that walks several tiles alternates two. q, unless null: the tile's
+// inputs, 8 floats a row (pts[3], dirs[3], 0, 0), which K5's dx reads. All
+// consumer threads: one barrier of the consumers (the staged rays
+// visible, every consumer's products of the previous tile done), then the
+// stores; ends with the PE tile visible to its next wgmma. kRolled: the
+// row's 15 sincosf in a loop of one copy, for a kernel that fills one tile
+// a block (K5's row pass), whose every block fetches the fill's code cold;
+// unrolled (K4, several tiles a block) they overlap, the code warm after
+// the first tile. Both give the same bits.
+template <bool kRolled = false>
+__device__ __forceinline__ void point_fill(const float* __restrict__ pts, const float* __restrict__ dirs,
+                                           long long row0, int valid, long long S, bf16* view, float* q,
+                                           unsigned char* pe) {
+  const int lt = threadIdx.x & 127, h = lt & 1;
+  const int rr = 64 * (threadIdx.x >> 7) + (lt >> 1);
+  const bool live = rr < valid;
+  const long long row = row0 + rr, ra = row0 / S;
+  const int r = live ? (int)(row / S - ra) : 0;  // the row's ray among the staged
+  float x[3] = {0.f, 0.f, 0.f};
+  if (live)
+    for (int k = 0; k < 3; ++k) x[k] = pts[row * 3 + k];
+  // sine and cosine of x_k 2^f for this half's frequencies f = 5h + j
+  float sn[5][3], cs[5][3];
+  if constexpr (kRolled) {
+#pragma unroll 1
+    for (int i = 0; i < 15; ++i) {
+      const int j = i / 3, k = i - 3 * j;
+      const float xk = k == 0 ? x[0] : k == 1 ? x[1] : x[2];
+      float sv, cv;
+      sincosf(xk * (float)(1 << (5 * h + j)), &sv, &cv);
+#pragma unroll
+      for (int t = 0; t < 15; ++t)
+        if (t == i) {
+          sn[t / 3][t % 3] = sv;
+          cs[t / 3][t % 3] = cv;
+        }
     }
-    *reinterpret_cast<bf16*>(pe + tile_offset(rr, col)) = __float2bfloat16(v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) sincosf(x[k] * (float)(1 << (5 * h + j)), &sn[j][k], &cs[j][k]);
+  }
+  const float c32 = __shfl_xor_sync(0xffffffffu, cs[4][2], 1);  // column 32, from the first half
+  // the half's columns 32h + i, as pe_fill's
+  float v[32];
+#pragma unroll
+  for (int j = 0; j < 5; ++j)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (h == 0) {
+        v[3 + 6 * j + k] = sn[j][k];
+        if (6 + 6 * j + k < 32) v[6 + 6 * j + k] = cs[j][k];
+      } else {
+        v[1 + 6 * j + k] = sn[j][k];
+        v[4 + 6 * j + k] = cs[j][k];
+      }
+    }
+  if (h == 0) {
+    v[0] = x[0];
+    v[1] = x[1];
+    v[2] = x[2];
+  } else {
+    v[0] = c32;
+    v[31] = 0.f;
+  }
+  stage_point_views(dirs, ra, (int)((row0 + valid - 1) / S - ra) + 1, view);
+  consumers_sync();  // the staged rays visible; the previous tile's products read the PE tile no more
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    uint4 w = zero;
+    if (live)
+      w = make_uint4(bf16x2_bits(v[8 * c], v[8 * c + 1]), bf16x2_bits(v[8 * c + 2], v[8 * c + 3]),
+                     bf16x2_bits(v[8 * c + 4], v[8 * c + 5]), bf16x2_bits(v[8 * c + 6], v[8 * c + 7]));
+    *reinterpret_cast<uint4*>(pe + tile_offset(rr, 32 * h + 8 * c)) = w;
+  }
+  const uint4* src = reinterpret_cast<const uint4*>(view + 32 * r) + 2 * h;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    *reinterpret_cast<uint4*>(pe + tile_offset(rr, kPeViews + 16 * h + 8 * c)) = live ? src[c] : zero;
+    *reinterpret_cast<uint4*>(pe + tile_offset(rr, kPeViews + 32 + 16 * h + 8 * c)) = zero;
+  }
+  if (q) {  // h = 0 the point, h = 1 the direction
+    float* qr = q + rr * 8 + 3 * h;
+    for (int k = 0; k < 3; ++k) qr[k] = !live ? 0.f : h == 0 ? x[k] : dirs[(row / S) * 3 + k];
+    q[rr * 8 + 6 + h] = 0.f;
   }
   fence_async_smem();
   group_sync();

@@ -9,7 +9,8 @@
 // activations, fp32 accumulation); the raw logits written out, no sigmoid
 // (fused_nerf.py:281-285). The TPU kernel's frequency-selector matmul and
 // cos-as-shifted-sin are Mosaic devices and are not ported: the embedding
-// is computed column by column.
+// takes one accurate sincosf per (row, frequency, axis), and the view
+// embedding one per (ray, frequency, axis) in each tile the ray touches.
 //
 // Input: pts [M, 3] and dirs [M / S, 3], row r's direction dirs[r / S]
 // (S = 1: one direction per row; S = samples per ray: the train step's
@@ -23,8 +24,9 @@
 // runs it: 288 threads, a producer warp streaming the NeRF's full-forward
 // slices (fused_render.pack_slices, made once per step by the caller and
 // shared with K5's recompute) into a 5-stage ring, two consumer warpgroups
-// on 128-row tiles filling their PE tile from the points (wg::point_pe)
-// and running nerf_forward with raw logits. One block per SM walks
+// on 128-row tiles filling their PE tile from the points (wg::point_fill,
+// the view embeddings staged in two buffers a tile in turn) and running
+// nerf_forward with raw logits. One block per SM walks
 // tiles_per_block consecutive tiles (the caller sizes it from M and the SM
 // count: 4 tiles for the coarse query's 512, 12 for the fine query's 1536,
 // 128 blocks on 132 SMs), so the small query fills the card as the large
@@ -50,13 +52,14 @@ struct PointParams {
   int n_slices;
 };
 
-constexpr size_t kSmemBytes = 1024 + wg::Tiles<kStages>::kBytes + wg::kRows * 8 * sizeof(float);
+constexpr int kViewBytes = wg::kRows * 32 * sizeof(bf16);  // a tile's staged view embeddings
+constexpr size_t kSmemBytes = 1024 + wg::Tiles<kStages>::kBytes + 2 * kViewBytes;
 
 __global__ void __launch_bounds__(wg::kThreads, 1) nerf_points_kernel(const __grid_constant__ PointParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* base = smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023);
   const wg::Tiles<kStages> t = wg::carve<kStages>(base);
-  float* q = reinterpret_cast<float*>(base + wg::Tiles<kStages>::kBytes);  // [128, 8] inputs
+  bf16* view = reinterpret_cast<bf16*>(base + wg::Tiles<kStages>::kBytes);  // two [128 rays, 32] stagings
   const long long tiles = (p.M + wg::kRows - 1) / wg::kRows, tile0 = (long long)blockIdx.x * p.tiles_per_block;
   const int n_tiles = (int)min((long long)p.tiles_per_block, tiles - tile0);
   if (threadIdx.x == 0) t.ring.init();
@@ -70,7 +73,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1) nerf_points_kernel(const __gr
   for (int k = 0; k < n_tiles; ++k) {
     const long long row0 = (tile0 + k) * wg::kRows;
     const int valid = (int)min((long long)wg::kRows, p.M - row0);
-    wg::point_pe(p.pts, p.dirs, row0, valid, p.S, q, t.pe);
+    wg::point_fill(p.pts, p.dirs, row0, valid, p.S, view + (k & 1) * (kViewBytes / 2), nullptr, t.pe);
     float* out = p.out + row0 * 4;
     float* rgb[3] = {out, out + 1, out + 2};
     wg::nerf_forward(p.w, t, cur, valid, false, out + 3, rgb, true, 4);

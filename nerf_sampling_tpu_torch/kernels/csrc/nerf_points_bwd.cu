@@ -91,8 +91,8 @@ struct RowParams {
   Workspace ws;
 };
 
-constexpr size_t kRowSmem = 1024 + wg::Tiles<kStages>::kBytes +
-                            (kTile * 8 + kTile * 4 + 8 * kW) * sizeof(float);  // + q, gt, column-sum partials
+constexpr size_t kRowSmem = 1024 + wg::Tiles<kStages>::kBytes + (kTile * 8 + kTile * 4 + 8 * kW) * sizeof(float) +
+                            kTile * 32 * sizeof(bf16);  // + q, gt, column-sum partials, staged view embeddings
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16(v)); }
@@ -141,6 +141,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1) nerf_bwd_rows_kernel(const __
   float* q = reinterpret_cast<float*>(base + wg::Tiles<kStages>::kBytes);  // [128, 8] inputs
   float* gt = q + kTile * 8;                                               // [128, 4] fp32 cotangent
   float* red = gt + kTile * 4;                                             // [8 warps, 256]
+  bf16* view = reinterpret_cast<bf16*>(red + 8 * kW);                      // [128 rays, 32]
   if (threadIdx.x == 0) t.ring.init();
   __syncthreads();
   if (threadIdx.x >= wg::kConsumers) {  // the producer warp
@@ -169,7 +170,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1) nerf_bwd_rows_kernel(const __
     gt[e] = (e >> 2) < valid ? p.g[(row0 + (e >> 2)) * 4 + (e & 3)] : 0.f;
   if (p.dP)
     for (int e = tid; e < kTile * kPeCols; e += wg::kConsumers) p.dP[row0 * kPeCols + e] = 0.f;
-  wg::point_pe(p.pts, p.dirs, row0, valid, p.S, q, t.pe);
+  wg::point_fill<true>(p.pts, p.dirs, row0, valid, p.S, view, q, t.pe);  // one tile a block: the rolled fill
   wg::consumers_sync();
   wg::copy_rows(t.pe, kPeCols, p.ws.pe, row0);
 

@@ -11,7 +11,9 @@
 // accumulated into the same sums, and the register epilogue. Beside them,
 // nst_pe_fill_check fills PE tiles with the render kernels' fill
 // (mlp_wgmma.cuh::stage_views and pe_fill) and with the per-column formula
-// it replaced, for [core] to hold the two to the same bytes.
+// it replaced, for [core] to hold the two to the same bytes;
+// nst_point_fill_check does the same for the point-query kernels' fill
+// (mlp_wgmma.cuh::point_fill).
 
 #include <cuda_runtime.h>
 
@@ -263,6 +265,87 @@ __global__ void __launch_bounds__(wg::kConsumers, 1) pe_check_kernel(const __gri
   }
 }
 
+struct PointCheckParams {
+  const float* pts;   // [M, 3]
+  const float* dirs;  // [M / S, 3]
+  bf16* out;          // [2, Mp, 128]: point_fill's tiles, then the per-column formula's
+  float* q_out;       // [2, Mp, 8]: the tiles' inputs q, likewise
+  long long M, S;
+  int tiles_per_block, rolled;
+};
+
+constexpr int kPointViewBytes = wg::kRows * 32 * sizeof(bf16);
+constexpr size_t kPointCheckSmem = 1024 + 4 * wg::kPanelBytes + 2 * wg::kRows * 8 * sizeof(float) + 2 * kPointViewBytes;
+
+// The PE tile of one 128-row tile of point queries as K4 and K5 filled it
+// before point_fill: the tile's inputs into q (8 floats a row), then every
+// element by nerf_mlp.cuh::embed from q, at one 2-byte store each; this
+// warpgroup's rows, rows [valid, 128) zero.
+__device__ void point_pe_per_column(const float* __restrict__ pts, const float* __restrict__ dirs, long long row0,
+                                    int valid, long long S, float* q, unsigned char* pe) {
+  const int g = threadIdx.x >> 7, lt = threadIdx.x & 127;
+  wg::group_sync();
+  for (int e = lt; e < 64 * 8; e += 128) {
+    const int rr = 64 * g + (e >> 3), c = e & 7;
+    float v = 0.f;
+    if (rr < valid && c < 6) {
+      const long long row = row0 + rr;
+      v = c < 3 ? pts[row * 3 + c] : dirs[(row / S) * 3 + (c - 3)];
+    }
+    q[rr * 8 + c] = v;
+  }
+  wg::group_sync();
+  for (int e = lt; e < 64 * 128; e += 128) {
+    const int rr = 64 * g + (e >> 7), col = e & 127;
+    float v = 0.f;
+    if (rr < valid) {
+      if (col < kPtsCh) v = embed(q + rr * 8, col);
+      else if (col >= kPeViews && col < kPeViews + kViewCh) v = embed(q + rr * 8 + 3, col - kPeViews);
+    }
+    *reinterpret_cast<bf16*>(pe + wg::tile_offset(rr, col)) = __float2bfloat16(v);
+  }
+  wg::fence_async_smem();
+  wg::group_sync();
+}
+
+// K4's walk of the tiles (tiles_per_block consecutive 128-row tiles a
+// block, its two view stagings in turn), two consumer warpgroups and no
+// producer: per tile both fills (point_fill unrolled as K4's, or rolled as
+// K5's) and both tiles' rows and inputs out.
+__global__ void __launch_bounds__(wg::kConsumers, 1) point_check_kernel(const __grid_constant__ PointCheckParams p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* pe_new = base;
+  unsigned char* pe_ref = base + 2 * wg::kPanelBytes;
+  float* q_new = reinterpret_cast<float*>(base + 4 * wg::kPanelBytes);
+  float* q_ref = q_new + wg::kRows * 8;
+  bf16* view = reinterpret_cast<bf16*>(q_ref + wg::kRows * 8);
+  const long long tiles = (p.M + wg::kRows - 1) / wg::kRows, tile0 = (long long)blockIdx.x * p.tiles_per_block;
+  const int n_tiles = (int)min((long long)p.tiles_per_block, tiles - tile0);
+  const long long Mp = tiles * wg::kRows;
+  // the fill's tile and inputs start as 0xFF bytes: a column it leaves unwritten shows
+  for (int e = threadIdx.x; e < 2 * wg::kPanelBytes / 16; e += wg::kConsumers)
+    reinterpret_cast<uint4*>(pe_new)[e] = make_uint4(~0u, ~0u, ~0u, ~0u);
+  for (int e = threadIdx.x; e < wg::kRows * 8; e += wg::kConsumers) q_new[e] = __int_as_float(~0);
+  __syncthreads();
+  for (int k = 0; k < n_tiles; ++k) {
+    const long long row0 = (tile0 + k) * wg::kRows;
+    const int valid = (int)min((long long)wg::kRows, p.M - row0);
+    bf16* v = view + (k & 1) * (kPointViewBytes / 2);
+    if (p.rolled) wg::point_fill<true>(p.pts, p.dirs, row0, valid, p.S, v, q_new, pe_new);
+    else wg::point_fill(p.pts, p.dirs, row0, valid, p.S, v, q_new, pe_new);
+    point_pe_per_column(p.pts, p.dirs, row0, valid, p.S, q_ref, pe_ref);
+    wg::copy_rows(pe_new, 128, p.out, row0);
+    wg::copy_rows(pe_ref, 128, p.out + Mp * 128, row0);
+    for (int e = threadIdx.x & 127; e < 64 * 8; e += 128) {
+      const int rr = 64 * (threadIdx.x >> 7) + (e >> 3), c = e & 7;
+      p.q_out[(row0 + rr) * 8 + c] = q_new[rr * 8 + c];
+      p.q_out[(Mp + row0 + rr) * 8 + c] = q_ref[rr * 8 + c];
+    }
+    wg::group_sync();
+  }
+}
+
 }  // namespace
 }  // namespace nst
 
@@ -293,6 +376,34 @@ extern "C" int nst_pe_fill_check(const void* const* ptrs, int n_ptrs, long long 
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
   pe_check_kernel<<<(unsigned)((n + R - 1) / R), wg::kConsumers, kPeCheckSmem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The point-query PE fill check. ptrs: pts [M, 3], dirs [M / S, 3], out [2,
+// Mp, 128] bf16 and q_out [2, Mp, 8] fp32 with Mp = M rounded up to 128:
+// tile t's rows at t * 128, K4's and K5's fill (point_fill; rolled: K5's
+// form) first, the per-column formula it replaced second (rows from M on
+// zero); blocks walk tiles_per_block tiles, as K4's. Returns a cudaError_t.
+extern "C" int nst_point_fill_check(const void* const* ptrs, int n_ptrs, long long M, long long S,
+                                    int tiles_per_block, int rolled, void* stream) {
+  using namespace nst;
+  if (n_ptrs != 4 || S < 1 || M % S != 0 || tiles_per_block < 1) return (int)cudaErrorInvalidValue;
+  PointCheckParams p = {};
+  p.pts = static_cast<const float*>(ptrs[0]);
+  p.dirs = static_cast<const float*>(ptrs[1]);
+  p.out = static_cast<bf16*>(const_cast<void*>(ptrs[2]));
+  p.q_out = static_cast<float*>(const_cast<void*>(ptrs[3]));
+  p.M = M;
+  p.S = S;
+  p.tiles_per_block = tiles_per_block;
+  p.rolled = rolled;
+  cudaError_t err = cudaFuncSetAttribute(point_check_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kPointCheckSmem);
+  if (err != cudaSuccess) return (int)err;
+  if (M == 0) return 0;
+  const long long tiles = (M + wg::kRows - 1) / wg::kRows;
+  point_check_kernel<<<(unsigned)((tiles + tiles_per_block - 1) / tiles_per_block), wg::kConsumers, kPointCheckSmem,
+                       static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

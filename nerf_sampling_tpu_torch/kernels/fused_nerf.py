@@ -20,7 +20,13 @@ per ray, never expanded. They are given unit vectors and are not
 normalized here.
 
 ``nerf_points_plain`` computes the same in plain PyTorch: fp32 is the
-reference, bf16 rounds where the kernel rounds.
+reference, bf16 rounds where the kernel rounds. The kernel fills each
+128-row tile's embeddings with one sine and cosine per (row, frequency,
+axis), and the view embedding of each ray the tile touches once
+(``staged_view_rays``; ``point_fill_check`` holds that fill to the
+per-column formula it replaced, byte for byte, on the card). While the
+recorder is on, a launch counts its rows and staged rays (``nst.k4.rows``,
+``nst.k4.view_rays``).
 """
 
 from __future__ import annotations
@@ -29,8 +35,15 @@ import torch
 
 from nerf_sampling_tpu_torch.core.encoding import positional_encoding
 from nerf_sampling_tpu_torch.kernels import build
-from nerf_sampling_tpu_torch.kernels.fused_render import _check_cuda, _flat_weights, check_slices, mlp_plain
+from nerf_sampling_tpu_torch.kernels.fused_render import (
+    PTS_ROWS,
+    _check_cuda,
+    _flat_weights,
+    check_slices,
+    mlp_plain,
+)
 from nerf_sampling_tpu_torch.models.nerf import NeRFConfig
+from nerf_sampling_tpu_torch.utils import profiling
 
 launches = 0  # kernel launches since the last reset (see chip_smoke.py)
 TILE_ROWS = 128  # rows of a tile of the wgmma core
@@ -43,6 +56,21 @@ def tiles_per_block(m: int, sms: int) -> int:
     196,608 on 132 SMs: 128 blocks each)."""
     tiles = -(-m // TILE_ROWS)
     return max(1, -(-tiles // sms))
+
+
+def staged_view_rays(m: int, S: int) -> int:
+    """The view embeddings K4's and K5's PE fill stages for m rows at S rows
+    a ray: each ray once in every 128-row tile it touches (m / 64 at S =
+    64, m / 96 at S = 192, m at S = 1)."""
+    return sum((min(t + TILE_ROWS, m) - 1) // S - t // S + 1 for t in range(0, m, TILE_ROWS))
+
+
+def count_fill(kernel: str, m: int, S: int) -> None:
+    """While the recorder is on: a launch's rows and staged view rays, as the
+    counts ``nst.<kernel>.rows`` and ``nst.<kernel>.view_rays``."""
+    if profiling.recording():
+        profiling.count(f"nst.{kernel}.rows", m)
+        profiling.count(f"nst.{kernel}.view_rays", staged_view_rays(m, S))
 
 
 def _rows_per_dir(pts: torch.Tensor, dirs: torch.Tensor) -> int:
@@ -124,7 +152,51 @@ def nerf_points_kernel(
                              tiles_per_block(m, build.sm_count(pts.device)), build.current_stream(pts.device))
     build.check(rc, "nerf_points_kernel")
     launches += 1
+    count_fill("k4", m, S)
     return out
+
+
+point_fill_check_launches = 0  # the [core] check's point-fill launches
+
+
+def point_fill_check(pts: torch.Tensor, dirs: torch.Tensor, *, tiles_per_block: int = 1, rolled: bool = False,
+                     multires: int = 10, multires_views: int = 4) -> tuple[torch.Tensor, ...]:
+    """The PE tiles of K4 and K5 (``csrc/wg_dense.cu::nst_point_fill_check``)
+    of points [M, 3] with directions [M / S, 3], blocks walking
+    ``tiles_per_block`` 128-row tiles as K4's do: (the fill of
+    ``csrc/mlp_wgmma.cuh::point_fill``, unrolled as K4's or ``rolled`` as
+    K5's, the per-column formula it replaced), each bf16 [Mp, 128] with
+    Mp = M rounded up to 128, columns [point embedding 63 | 0 | view
+    embedding 27 | 0 x 37], rows from M on zero; then the tiles' inputs
+    as each fill wrote them, fp32 [Mp, 8] (pts, dirs, 0, 0). On CPU
+    tensors both are the plain embedding (``point_embeddings`` in fp32,
+    rounded to bf16)."""
+    global point_fill_check_launches
+    S = _rows_per_dir(pts, dirs)
+    if tiles_per_block < 1:
+        raise ValueError(f"tiles_per_block must be at least 1, got {tiles_per_block}")
+    m = pts.shape[0]
+    mp = -(-m // TILE_ROWS) * TILE_ROWS
+    if pts.device.type == "cpu":
+        x_pts, x_v = point_embeddings(pts, dirs, multires, multires_views, torch.float32)
+        rows = torch.zeros((mp, 128))
+        rows[:m, :x_pts.shape[1]] = x_pts
+        rows[:m, PTS_ROWS:PTS_ROWS + x_v.shape[1]] = x_v
+        q = torch.zeros((mp, 8))
+        q[:m, :3] = pts
+        q[:m, 3:6] = torch.repeat_interleave(dirs, S, dim=0)
+        return rows.to(torch.bfloat16), rows.to(torch.bfloat16), q, q.clone()
+    if (multires, multires_views) != (10, 4):
+        raise ValueError("the CUDA kernels are built for multires 10 and multires_views 4")
+    pts, dirs = pts.contiguous(), dirs.contiguous()
+    out = torch.empty((2, mp, 128), dtype=torch.bfloat16, device=pts.device)
+    q = torch.empty((2, mp, 8), dtype=torch.float32, device=pts.device)
+    arr, count = build.pointer_array([pts, dirs, out, q])
+    rc = build.load_library().nst_point_fill_check(arr, count, m, S, tiles_per_block, int(bool(rolled)),
+                                                   build.current_stream(pts.device))
+    build.check(rc, "point_fill_check")
+    point_fill_check_launches += 1
+    return out[0], out[1], q[0], q[1]
 
 
 def kernel_occupancy(m: int) -> dict[str, int]:

@@ -16,7 +16,9 @@ dL/d(points, view directions) through the fp32 positional encoding:
 
 The kernel's sums are deterministic (two launches give the same bits, and
 ``want_dx`` does not change the weight grads). Its row pass runs on the
-wgmma core (``csrc/mlp_wgmma.cuh``), fed the pack's forward slices (the
+wgmma core (``csrc/mlp_wgmma.cuh``), fills its PE tile as K4 does (and
+counts, while the recorder is on, ``nst.k5.rows`` and
+``nst.k5.view_rays``), and is fed the pack's forward slices (the
 ones K4 ran the forward from: ``fused_render.pack_slices``) and its
 backward slices (``fused_render.wgmma_slices`` of the backward part of
 ``wgmma_program``), made on every step since the weights change every
@@ -39,6 +41,7 @@ import torch
 from nerf_sampling_tpu_torch.kernels import build
 from nerf_sampling_tpu_torch.kernels.fused_nerf import (
     _rows_per_dir,
+    count_fill,
     flat_queries,
     nerf_points_kernel,
     point_embeddings,
@@ -256,6 +259,7 @@ def nerf_points_bwd_kernel(
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
     launches += 1
+    count_fill("k5", m, S)
     d = _unflatten_grads(packed, dw, db)
     if not want_dx:
         return d, None, None
