@@ -9,13 +9,17 @@ through the wrappers both trees have, every kernel of the two render
 sources in bf16 and in int8 on the same seeded inputs: K2 (uniform around
 a depth, NaN depths among them), K3 (gaussian, Philox draws), K8 (the
 linspace grid at 64 and 192 samples), K9 (the caller's z, sorted and
-unsorted), K6 (seeded, 1024 rays) and K7 (deterministic, 64 + 128). The
-NeRFs are two random 8x256 nets with a skip at layer 5, made from a seed
-and calibrated on the seeded rays; 16,384 rays. Then the point-query
-kernels on the fine net: K4's raw on a NeRF step's coarse (1024 rays x 64
-points) and fine (x 192) queries and on 20,001 points with a direction
-each (S = 1), and K5's weight and bias grads with want_dx off and on (and
-then its dL/dx) on both step queries with a seeded cotangent. Prints, for
+unsorted), K6 (seeded, 1024 rays) and K7 (deterministic, 64 + 128); and
+K8, K9 and K7 in fp32 (the COMPARE mode's kernels). The NeRFs are two
+random 8x256 nets with a skip at layer 5, made from a seed and calibrated
+on the seeded rays; 16,384 rays. Then the point-query kernels on the fine
+net: K4's raw on a NeRF step's coarse (1024 rays x 64 points) and fine (x
+192) queries and on 20,001 points with a direction each (S = 1), and K5's
+weight and bias grads with want_dx off and on (and then its dL/dx) on both
+step queries with a seeded cotangent. Then K1's depths in bf16 and fp32
+from a random 10x256 DepthNet over the same rays (sphere misses among
+them), and K11's maps from a random mip-NeRF (8x256, 128 + 128 intervals)
+over them with seeded radii. Prints, for
 each output, how many of its fp32 words differ between the trees (NaN
 compared by its bits), the card's name and power limit, and exits
 non-zero when any differs or a run fails.
@@ -32,22 +36,28 @@ RUN = r"""
 import sys
 import numpy as np
 import torch
+from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
 from nerf_sampling_tpu_torch.kernels import fused_hier as fh
+from nerf_sampling_tpu_torch.kernels import fused_mip as k11
 from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
 from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
 from nerf_sampling_tpu_torch.kernels import fused_render as fr
 from nerf_sampling_tpu_torch.kernels import quant
+from nerf_sampling_tpu_torch.models.depth_net import DepthNet, DepthNetConfig
+from nerf_sampling_tpu_torch.models.mipnerf import MipNeRF, MipNeRFConfig
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
 
 dev = torch.device("cuda", 0)
 
-def nerf(seed):
-    m = NeRF(NeRFConfig(D=8, W=256, input_ch=63, input_ch_views=27, skips=(4,), use_viewdirs=True))
+def seeded(m, seed, std=0.08):
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for p in m.parameters():
-            p.copy_(torch.from_numpy(rng.normal(0, 0.08, tuple(p.shape)).astype(np.float32)))
+            p.copy_(torch.from_numpy(rng.normal(0, std, tuple(p.shape)).astype(np.float32)))
     return m
+
+def nerf(seed):
+    return seeded(NeRF(NeRFConfig(D=8, W=256, input_ch=63, input_ch_views=27, skips=(4,), use_viewdirs=True)), seed)
 
 n = 16384
 rng = np.random.default_rng(0)
@@ -64,7 +74,8 @@ ro, rd, depth, z_in = ro.to(dev), rd.to(dev), depth.to(dev), z_in.to(dev)
 z_sorted = z_in.sort(dim=-1).values
 offsets = torch.from_numpy(fr.uniform_population_offsets(64, 1.0)).to(dev)
 packs = {"bf16": (fr.pack_nerf(fine), fh.pack_hier(coarse, fine)),
-         "int8": (quant.qpack_nerf(fine, calib[1]), fh.qpack_hier(coarse, fine, calib))}
+         "int8": (quant.qpack_nerf(fine, calib[1]), fh.qpack_hier(coarse, fine, calib)),
+         "fp32": (fr.pack_nerf(fine, torch.float32), fh.pack_hier(coarse, fine, torch.float32))}
 out = {}
 rays_k4 = torch.from_numpy(rng.uniform(2.0, 6.0, (1024, 192)).astype(np.float32)).to(dev).sort(dim=-1).values
 dirs_k4 = torch.nn.functional.normalize(rd[:1024], dim=-1).contiguous()
@@ -85,19 +96,32 @@ for q, pts in queries.items():
             out[f"{tag}.dpts"], out[f"{tag}.ddirs"] = dpts.float().cpu(), ddirs.float().cpu()
 out["K4_s1.raw"] = k4.nerf_points_kernel(pk, fine.cfg, pts_s1, dirs_s1, slices=sl).float().cpu()
 for name, (pk, hpk) in packs.items():
+    dt = torch.float32 if name == "fp32" else torch.bfloat16
     runs = {
         "K2": lambda: fr.render_around_depth_kernel(pk, fine.cfg, ro, rd, depth, offsets),
         "K3": lambda: fr.render_gaussian_kernel(pk, fine.cfg, ro, rd, depth, n_samples=64, std=1.0, seed=7),
-        "K8_64": lambda: fr.fused_render(pk, fine.cfg, ro, rd, n_samples=64),
-        "K8_192": lambda: fr.fused_render(pk, fine.cfg, ro, rd, n_samples=192),
-        "K9_sorted": lambda: fr.fused_shade(pk, fine.cfg, ro, rd, z_sorted),
-        "K9_unsorted": lambda: fr.fused_shade(pk, fine.cfg, ro, rd, z_in, assume_sorted=False),
+        "K8_64": lambda: fr.fused_render(pk, fine.cfg, ro, rd, n_samples=64, dtype=dt),
+        "K8_192": lambda: fr.fused_render(pk, fine.cfg, ro, rd, n_samples=192, dtype=dt),
+        "K9_sorted": lambda: fr.fused_shade(pk, fine.cfg, ro, rd, z_sorted, dtype=dt),
+        "K9_unsorted": lambda: fr.fused_shade(pk, fine.cfg, ro, rd, z_in, assume_sorted=False, dtype=dt),
         "K6": lambda: fh.render_hier_kernel(hpk, coarse.cfg, fine.cfg, ro[:1024], rd[:1024], seed=5),
-        "K7": lambda: fh.render_hier_kernel(hpk, coarse.cfg, fine.cfg, ro, rd),
+        "K7": lambda: fh.render_hier_kernel(hpk, coarse.cfg, fine.cfg, ro, rd, dtype=dt),
     }
+    if name == "fp32":  # K2, K3 and K6 run bf16 and int8 only
+        runs = {k: v for k, v in runs.items() if k.startswith(("K7", "K8", "K9"))}
     for kernel, run in runs.items():
         for key, t in run().items():
             out[f"{kernel}_{name}.{key}"] = t.detach().float().cpu().contiguous()
+sizes = (256,) * 10
+depth_net = seeded(DepthNet(DepthNetConfig(hidden_sizes=sizes, cat_hidden_sizes=sizes)), 3, 0.05).to(dev)
+for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+    pk = k1.pack_depth_net(depth_net, dt)
+    out[f"K1_{name}.depth"] = k1.fused_depth_net_apply(pk, depth_net.cfg, ro, rd, dt).float().cpu()
+mip_cfg = MipNeRFConfig()
+mip = seeded(MipNeRF(mip_cfg), 4, 0.05).to(dev)
+radii = torch.from_numpy(rng.uniform(1e-3, 3e-3, n).astype(np.float32)).to(dev)
+for key, t in k11.render_mip_kernel(k11.pack_mip(mip), mip_cfg, ro, rd, radii).items():
+    out[f"K11_bf16.{key}"] = t.detach().float().cpu().contiguous()
 torch.cuda.synchronize()
 torch.save(out, sys.argv[1])
 """

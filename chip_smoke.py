@@ -291,6 +291,8 @@ import time
 import numpy as np
 import torch
 
+from nerf_sampling_tpu_torch.kernels import build
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 EXPECTED = os.path.join(HERE, "evidence", "ckpt", "expected.json")
 CKPT = os.path.join(HERE, "evidence", "ckpt", "example_depth.npz")
@@ -404,6 +406,36 @@ def require(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+# each kernel record's (kernel, precision) key in build.launches
+LAUNCH_KEYS = {
+    "depth_net_kernel": ("K1", "bf16"), "depth_net_kernel_fp32": ("K1", "fp32"),
+    "render_around_depth_kernel": ("K2", "bf16"), "render_around_depth_kernel_int8": ("K2", "int8"),
+    "render_gaussian_kernel": ("K3", "bf16"), "render_gaussian_kernel_int8": ("K3", "int8"),
+    "nerf_points_kernel": ("K4", "bf16"), "nerf_points_bwd_kernel": ("K5", "bf16"),
+    "render_hier_kernel": ("K6", "bf16"), "render_hier_kernel_int8": ("K6", "int8"),
+    "render_hier_kernel_det": ("K7", "bf16"), "render_hier_kernel_det_fp32": ("K7", "fp32"),
+    "render_hier_kernel_det_int8": ("K7", "int8"),
+    "render_linspace_kernel": ("K8", "bf16"), "render_linspace_kernel_int8": ("K8", "int8"),
+    "shade_kernel": ("K9", "bf16"), "shade_kernel_fp32": ("K9", "fp32"),
+    "render_mip_kernel": ("K11", "bf16"),
+}
+
+
+def reset_launches(*names: str) -> None:
+    """Zero the named kernels' counts in build.launches."""
+    for name in names:
+        build.launches[LAUNCH_KEYS[name]] = 0
+
+
+def launched(*names: str) -> dict[str, int]:
+    """The named kernels' counts in build.launches (K5: one a pass)."""
+    return {name: n_launches(name) for name in names}
+
+
+def n_launches(name: str) -> int:
+    return build.launches[LAUNCH_KEYS[name]]
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` in ms over ``reps`` runs (CUDA events, after a warm-up)."""
     fn()
@@ -512,7 +544,7 @@ def check_core(device) -> None:
 
     t0 = time.perf_counter()
     g = torch.Generator(device=device).manual_seed(9)
-    fr.wgmma_dense_launches = 0
+    build.launches["nst_wg_dense", "bf16"] = 0
     cases = ((64, 64, 256, False), (128, 256, 256, True), (300, 192, 128, True), (1000, 256, 256, False),
              (4133, 256, 256, True))
     for M, K, N, skip in cases:
@@ -539,8 +571,8 @@ def check_core(device) -> None:
             f"(tol {CORE_ULP_TOL:g}); {flips:.2e} of the elements differ (tol {CORE_FLIP_TOL:g})")
         require(bool(torch.isfinite(got).all()) and steps <= CORE_ULP_TOL and flips <= CORE_FLIP_TOL,
                 f"[core] the wgmma layer disagrees with torch.matmul at {M} x {K} x {N}")
-    require(fr.wgmma_dense_launches == len(cases), "[core] wgmma_dense did not launch its kernel")
-    fr.wgmma_dense_q_launches = 0
+    require(build.launches["nst_wg_dense", "bf16"] == len(cases), "[core] wgmma_dense did not launch its kernel")
+    build.launches["nst_wg_dense_q", "int8"] = 0
     qcases = ((64, 256, 256), (300, 128, 128), (1000, 256, 128), (4133, 256, 256))
     for M, K, N in qcases:
         a = torch.randint(-128, 128, (M, K), generator=g, device=device).to(torch.int8)
@@ -552,9 +584,9 @@ def check_core(device) -> None:
         log(f"[core] s8 {M} x {K} @ ({N} x {K})^T: {bad} of {M * N} int32 sums differ from the fp64 matmul "
             f"(max |sum| {float(ref.abs().max()):.0f}; must be 0)")
         require(bad == 0, f"[core] the s8 wgmma layer's int32 sums are not exact at {M} x {K} x {N}")
-    require(fr.wgmma_dense_q_launches == len(qcases), "[core] wgmma_dense_q did not launch its kernel")
+    require(build.launches["nst_wg_dense_q", "int8"] == len(qcases), "[core] wgmma_dense_q did not launch its kernel")
     torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick: torch.matmul in strict fp32
-    fr.wgmma_dense32_launches = 0
+    build.launches["nst_wg_dense32", "fp32"] = 0
     fcases = ((64, 256, 256), (128, 64, 128), (300, 192, 128), (4133, 256, 256), (100, 32, 256))
     for M, K, N in fcases:
         a = torch.randn(M, K, generator=g, device=device) * 0.5
@@ -569,11 +601,11 @@ def check_core(device) -> None:
             f"{e_f32:.3e} ({e_got / e_f32:.2f}x, tol {CORE32_TOL:g}x)")
         require(bool(torch.isfinite(got).all()) and e_got <= CORE32_TOL * e_f32,
                 f"[core] the 3xTF32 layer is further from fp64 than {CORE32_TOL:g}x fp32 at {M} x {K} x {N}")
-    require(fr.wgmma_dense32_launches == len(fcases), "[core] wgmma_dense32 did not launch its kernel")
+    require(build.launches["nst_wg_dense32", "fp32"] == len(fcases), "[core] wgmma_dense32 did not launch its kernel")
     # the render kernels' PE fill against the per-column formula it replaced,
     # byte for byte: (S, rays a block, rays, sigma_only); 16384 x 64 is
     # 1,048,576 rows, the others end on a ragged tile or a short last block
-    fr.pe_fill_check_launches = 0
+    build.launches["nst_pe_fill_check", "bf16"] = 0
     pcases = ((64, 24, 16384, False), (2, 64, 4099, False), (192, 5, 1001, False), (512, 3, 301, False),
               (64, 8, 1001, True))
     for S, R, n, sigma_only in pcases:
@@ -593,14 +625,14 @@ def check_core(device) -> None:
             f"{', sigma only: the point panel' if sigma_only else ''}): {bad} of {got.shape[0] * cols * 2} bytes "
             f"differ from the per-column formula (must be 0)")
         require(bad == 0 and nan_rows > 0, f"[core] the PE fill differs from the per-column formula at S {S}")
-    require(fr.pe_fill_check_launches == len(pcases), "[core] pe_fill_check did not launch its kernel")
+    require(build.launches["nst_pe_fill_check", "bf16"] == len(pcases), "[core] pe_fill_check did not launch its kernel")
     # K4's and K5's PE fill against the per-column formula it replaced, byte
     # for byte, tiles and their inputs: (S, rays, tiles a block); the train
     # step's coarse and fine queries, then ragged ones whose tiles start
     # mid-ray and whose last tile is short
     from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
 
-    k4.point_fill_check_launches = 0
+    build.launches["nst_point_fill_check", "bf16"] = 0
     qcases = [(S, n, tpb, rolled) for S, n, tpb in ((64, 1024, 4), (192, 1024, 12), (1, 20001, 3), (7, 1001, 2),
                                                     (192, 5, 1)) for rolled in (False, True)]
     for S, n, tpb, rolled in qcases:
@@ -623,7 +655,7 @@ def check_core(device) -> None:
             f"{bad_q} of {q_got.numel()} input words differ from the per-column formula (must be 0)")
         require(bad == 0 and bad_q == 0 and nan_rows > 0 and nan_views > 0,
                 f"[core] the point fill differs from the per-column formula at S {S}")
-    require(k4.point_fill_check_launches == len(qcases), "[core] point_fill_check did not launch its kernel")
+    require(build.launches["nst_point_fill_check", "bf16"] == len(qcases), "[core] point_fill_check did not launch its kernel")
     log(f"[core] phase {time.perf_counter() - t0:.1f} s")
 
 
@@ -699,7 +731,6 @@ def check_k1_launch(tag: str, packed: dict, cfg, A: torch.Tensor, B: torch.Tenso
     (160 threads, one block per SM), one block of one tile alone against
     the launch's time per tile of a block (``ms``), its registers, and a
     launch without the weight slices refused."""
-    from nerf_sampling_tpu_torch.kernels import build
     from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
 
     fp32 = A.dtype == torch.float32
@@ -717,7 +748,7 @@ def check_k1_launch(tag: str, packed: dict, cfg, A: torch.Tensor, B: torch.Tenso
     require(occ["threads"] == 160 and occ["blocks_per_sm"] == 1,
             f"K1 {name} does not launch as the wgmma core's DepthNet (160 threads, one block per SM)")
     a, b = (k1.fragment_tiles(A), k1.fragment_tiles(B)) if fp32 else (A, B)
-    arr, count = build.pointer_array([a, b, torch.empty(n, device=device)] + k1._flat_weights(packed, A.dtype))
+    arr, count = build.pointer_array([a, b, torch.empty(n, device=device)] + k1.epilogue_vectors(packed, A.dtype))
     rc = build.load_library().nst_depth_net_forward(
         arr, count, n, len(cfg.hidden_sizes), len(cfg.cat_hidden_sizes), float(cfg.near), float(cfg.far), int(fp32),
         occ["tiles_per_block"], build.current_stream(device))
@@ -763,7 +794,6 @@ def check_k2(params, device) -> dict:
     it, against its plain versions run over the same rays in chunks; a bf16
     launch without the weight slices must be refused; its launch shape."""
     from nerf_sampling_tpu_torch.core.rays import get_rays
-    from nerf_sampling_tpu_torch.kernels import build
     from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
     from nerf_sampling_tpu_torch.kernels import fused_render as k2
 
@@ -810,8 +840,8 @@ def check_k2(params, device) -> dict:
             worst = mx
     # the bf16 kernel runs the wgmma core only: a launch without the weight
     # slices is refused, not run on another core
-    weights = k2._flat_weights(packed)
-    arr, count = build.pointer_array([ro, rd, depth, offsets, torch.empty((6, n), device=device)] + weights)
+    vectors = k2.epilogue_vectors(packed)
+    arr, count = build.pointer_array([ro, rd, depth, offsets, torch.empty((6, n), device=device)] + vectors)
     rc = build.load_library().nst_render_around_depth(
         arr, count, n, 64, cfg.D, sum(1 << i for i in packed["skip_w"]), 2.0, 6.0, 1, None,
         build.current_stream(device))
@@ -1021,8 +1051,6 @@ def run_slice(device, scene, K) -> tuple[dict[str, int], list[float]]:
     per-view PSNRs."""
     import dataclasses
 
-    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
-    from nerf_sampling_tpu_torch.kernels import fused_render as k2
     from nerf_sampling_tpu_torch.render import render_image, render_path
     from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
 
@@ -1035,11 +1063,11 @@ def run_slice(device, scene, K) -> tuple[dict[str, int], list[float]]:
     os.makedirs(OUT_DIR, exist_ok=True)
     if os.path.exists(os.path.join(OUT_DIR, "psnr.txt")):  # render_path appends
         os.remove(os.path.join(OUT_DIR, "psnr.txt"))
-    k1.launches = k2.launches = 0
+    reset_launches("depth_net_kernel", "render_around_depth_kernel")
     rgbs, _, avg = render_path(pipe, params, test_poses, (H, W, focal), K, device=device,
                                gt_imgs=gts, savedir=OUT_DIR, verbose=False)
     torch.cuda.synchronize()
-    counts = {"depth_net_kernel": k1.launches, "render_around_depth_kernel": k2.launches}
+    counts = launched("depth_net_kernel", "render_around_depth_kernel")
     log(f"[slice] launches during render_path: {counts}")
     for name, count in counts.items():
         require(count > 0, f"{name} was not launched by the render path")
@@ -1132,10 +1160,10 @@ def check_k8(params, scene, K, device) -> tuple[dict, dict[str, int]]:
     pipe = dataclasses.replace(production_pipeline("cuda"), depth=None, N_importance=0)
     Hs, Ws, _ = scene.hwf
     pose0, gt0 = scene.poses[int(scene.i_test[0])][:3, :4], scene.images[int(scene.i_test[0])]
-    k89.linspace_launches = 0
+    reset_launches("render_linspace_kernel")
     img = render_image(pipe, params, Hs, Ws, K, pose0, device=device, mode=EvalMode.FULL_NERF)
     torch.cuda.synchronize()
-    counts = {"render_linspace_kernel": k89.linspace_launches}
+    counts = launched("render_linspace_kernel")
     img_p = render_image(dataclasses.replace(pipe, mlp_impl="plain"), params, Hs, Ws, K, pose0, device=device,
                          mode=EvalMode.FULL_NERF)
     psnrs = [float(-10 * np.log10(np.mean((m["depth_net_rgb_map"].float().cpu().numpy() - gt0) ** 2)))
@@ -1160,7 +1188,6 @@ def check_k9(params, device) -> dict:
     against both bounds, launch shape, one block alone, registers, and a
     launch without its slices must be refused. Returns the fp32 mode's
     record (COMPARE's)."""
-    from nerf_sampling_tpu_torch.kernels import build
     from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
     from nerf_sampling_tpu_torch.kernels import fused_render as k89
 
@@ -1220,7 +1247,7 @@ def check_k9(params, device) -> dict:
             require(occ["threads"] == 160 and occ["blocks_per_sm"] == 1,
                     "K9 fp32 does not launch as the fp32 path of the wgmma core (160 threads, one block per SM)")
             arr, count = build.pointer_array([ro, rd, None, pops["uniform"], torch.empty((6, n), device=device)]
-                                             + k89._flat_weights(packed, dtype=dtype))
+                                             + k89.epilogue_vectors(packed, dtype=dtype))
             rc = build.load_library().nst_shade(arr, count, n, S, cfg.D, sum(1 << i for i in packed["skip_w"]), 1, 1,
                                                 1, None, build.current_stream(device))
             log(f"[k9] an fp32 shading launch without the weight slices: cudaError_t {rc} (refused)")
@@ -1250,7 +1277,6 @@ def check_fp32(params, device) -> list[dict]:
     core's fp32 path (3xTF32): each one's time against both bounds (the FMA
     units' and 3xTF32's, its record's), launch shape, one block alone,
     registers, and a launch without its slices must be refused."""
-    from nerf_sampling_tpu_torch.kernels import build
     from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
     from nerf_sampling_tpu_torch.kernels import fused_hier as k7
     from nerf_sampling_tpu_torch.kernels import fused_render as k289
@@ -1314,8 +1340,8 @@ def check_fp32(params, device) -> list[dict]:
     require(occ["threads"] == 160 and occ["blocks_per_sm"] == 1,
             "K7 fp32 does not launch as the fp32 path of the wgmma core (160 threads, one block per SM)")
     arr, count = build.pointer_array([ro, rd, None, torch.empty((11, n), device=device)]
-                                     + k289._flat_weights(hier["coarse"], sigma_only=True, dtype=torch.float32)
-                                     + k289._flat_weights(hier["fine"], dtype=torch.float32))
+                                     + k289.epilogue_vectors(hier["coarse"], sigma_only=True, dtype=torch.float32)
+                                     + k289.epilogue_vectors(hier["fine"], dtype=torch.float32))
     rc = build.load_library().nst_render_hier(
         arr, count, n, 64, 128, cfg_c.D, sum(1 << i for i in hier["coarse"]["skip_w"]), cfg_f.D,
         sum(1 << i for i in hier["fine"]["skip_w"]), 2.0, 6.0, 0, 1, None, 0, 0, 1, 1, None, None,
@@ -1420,7 +1446,6 @@ def check_k10(params, scene, K, device, batches) -> tuple[list[dict], dict[str, 
     int8's launches in the engine render."""
     import dataclasses
 
-    from nerf_sampling_tpu_torch.kernels import build
     from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
     from nerf_sampling_tpu_torch.kernels import fused_hier as k67
     from nerf_sampling_tpu_torch.kernels import fused_render as k289
@@ -1497,11 +1522,10 @@ def check_k10(params, scene, K, device, batches) -> tuple[list[dict], dict[str, 
         f"ms in the same call")
     require(occ["threads"] == 288 and occ["blocks_per_sm"] == 1,
             "K10 in K2 does not launch as the wgmma core's kernel (288 threads, one block per SM)")
-    arr, count = build.pointer_array([ro, rd, depth, offsets, torch.empty((6, n), device=device)]
-                                     + k289._flat_weights(q.nerf))
+    pa = k289.pack_args(q.nerf, cfg)
+    arr, count = build.pointer_array([ro, rd, depth, offsets, torch.empty((6, n), device=device)] + pa.vectors)
     rc = build.load_library().nst_render_around_depth(
-        arr, count, n, S, cfg.D, sum(1 << i for i in q.nerf["skip_w"]), 2.0, 6.0, 1,
-        build.host_pointer(k289._plan(q.nerf, cfg)), build.current_stream(device))
+        arr, count, n, S, cfg.D, pa.skip_mask, 2.0, 6.0, 1, build.host_pointer(pa.plan), build.current_stream(device))
     log(f"[k10] an int8 render launch without the weight slices: cudaError_t {rc} (refused)")
     require(rc != 0, "K10 in K2: an int8 launch without the weight slices was not refused")
 
@@ -1572,14 +1596,11 @@ def check_k10(params, scene, K, device, batches) -> tuple[list[dict], dict[str, 
         f"{ms_one:.3f} ms")
     require(occ["threads"] == 288 and occ["blocks_per_sm"] == 1 and blocks == 128,
             "K6-int8 does not launch as the wgmma core's kernel (288 threads, one block per SM, 128 blocks)")
-    mask_c, mask_f = (sum(1 << i for i in q.hier[k]["skip_w"]) for k in ("coarse", "fine"))
-    plan_c, plan_f = k289._plan(q.hier["coarse"], cfg_c), k289._plan(q.hier["fine"], cfg)
-    arr, count = build.pointer_array([bro, brd, None, torch.empty((11, m), device=device)]
-                                     + k289._flat_weights(q.hier["coarse"], sigma_only=True)
-                                     + k289._flat_weights(q.hier["fine"]))
+    c, f = k289.pack_args(q.hier["coarse"], cfg_c, sigma_only=True), k289.pack_args(q.hier["fine"], cfg)
+    arr, count = build.pointer_array([bro, brd, None, torch.empty((11, m), device=device)] + c.vectors + f.vectors)
     rc = build.load_library().nst_render_hier(
-        arr, count, m, Nc, Nf, cfg_c.D, mask_c, cfg.D, mask_f, 2.0, 6.0, 0, 1, None, 1, 0, 0, 0,
-        build.host_pointer(plan_c), build.host_pointer(plan_f), build.current_stream(device))
+        arr, count, m, Nc, Nf, cfg_c.D, c.skip_mask, cfg.D, f.skip_mask, 2.0, 6.0, 0, 1, None, 1, 0, 0, 0,
+        build.host_pointer(c.plan), build.host_pointer(f.plan), build.current_stream(device))
     log(f"[k10] an int8 hierarchical launch without the weight slices: cudaError_t {rc} (refused)")
     require(rc != 0, "K6-int8: a launch without the weight slices was not refused")
 
@@ -1590,11 +1611,11 @@ def check_k10(params, scene, K, device, batches) -> tuple[list[dict], dict[str, 
     def psnr(m_):
         return float(-10 * np.log10(np.mean((m_["depth_net_rgb_map"].float().cpu().numpy() - gt0) ** 2)))
 
-    k289.linspace_int8_launches = 0
+    reset_launches("render_linspace_kernel_int8")
     img = render_image(dataclasses.replace(pipe, depth=None, N_importance=0), params, Hs, Ws, K, pose0,
                        device=device, mode=EvalMode.FULL_NERF)
     torch.cuda.synchronize()
-    counts = {"render_linspace_kernel_int8": k289.linspace_int8_launches}
+    counts = launched("render_linspace_kernel_int8")
     log(f"[k10] FULL_NERF at N_importance 0 in int8 (K8 on the coarse NeRF), view 0: {psnr(img):.4f} dB; "
         f"launches {counts}")
     require(counts["render_linspace_kernel_int8"] == 1, "FULL_NERF at N_importance 0 did not launch K8-int8 once")
@@ -1630,9 +1651,6 @@ def run_render_cli(device, slice_psnrs: list[float]) -> dict[str, int]:
     from nerf_sampling_tpu_torch.data.example import generate_example_dataset
     from nerf_sampling_tpu_torch.definitions import REFERENCE_CONFIG
     from nerf_sampling_tpu_torch.experiments import render as rcli
-    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
-    from nerf_sampling_tpu_torch.kernels import fused_hier as k7
-    from nerf_sampling_tpu_torch.kernels import fused_render as k89
     from nerf_sampling_tpu_torch.train.trainer import Trainer
     from nerf_sampling_tpu_torch.utils.config import load_trainer_config
 
@@ -1643,11 +1661,9 @@ def run_render_cli(device, slice_psnrs: list[float]) -> dict[str, int]:
     common = ["-dp", datadir, "-m", "recommended_depth_net_module", "--ft_path", CKPT, "--n_samples", "64",
               "--distance", "1.0", "--device", torch.device(device).type]
     base = common + ["--testskip", "1", "--basedir", RENDER_DIR]
-    counters = {"depth_net_kernel": (k1, "launches"), "depth_net_kernel_fp32": (k1, "fp32_launches"),
-                "render_around_depth_kernel": (k89, "launches"), "shade_kernel_fp32": (k89, "shade_fp32_launches"),
-                "render_hier_kernel_det": (k7, "det_launches"), "render_hier_kernel_det_fp32": (k7, "det_fp32_launches"),
-                "render_around_depth_kernel_int8": (k89, "int8_launches"),
-                "render_hier_kernel_det_int8": (k7, "det_int8_launches")}
+    counters = ("depth_net_kernel", "depth_net_kernel_fp32", "render_around_depth_kernel", "shade_kernel_fp32",
+                "render_hier_kernel_det", "render_hier_kernel_det_fp32", "render_around_depth_kernel_int8",
+                "render_hier_kernel_det_int8")
     int8 = ["--mlp_impl", "pallas_int8", "--basedir", os.path.join(RENDER_DIR, "int8")]
     runs = {"": ([], ("depth_net_kernel", "render_around_depth_kernel")),
             "-nc": (["-nc"], ("depth_net_kernel_fp32", "shade_kernel_fp32", "render_hier_kernel_det_fp32")),
@@ -1657,15 +1673,14 @@ def run_render_cli(device, slice_psnrs: list[float]) -> dict[str, int]:
     counts: dict[str, int] = {}
     psnrs_of: dict[str, list[float]] = {}
     for flag, (extra, names) in runs.items():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        reset_launches(*counters)
         argv = base + extra
         log(f"[render] python3 -m nerf_sampling_tpu_torch.experiments.render {' '.join(argv)}")
         t1 = time.perf_counter()
         tr = rcli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        run_counts = {k: getattr(*counters[k]) for k in names}
+        run_counts = launched(*names)
         d = os.path.join(tr.expdir, "renderonly_test_000000")
         lines = open(os.path.join(d, "psnr.txt")).read().splitlines()
         psnrs = [float(ln.split("PSNR: ")[1].split(",")[0]) for ln in lines[:4]]
@@ -1775,9 +1790,6 @@ def run_training(device, scene, K) -> tuple[dict[str, int], object]:
     import shutil
 
     from nerf_sampling_tpu_torch.experiments import run
-    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
-    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
-    from nerf_sampling_tpu_torch.kernels import fused_render as k3
     from nerf_sampling_tpu_torch.render import pack_kernel_weights, render_path
     from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
 
@@ -1789,13 +1801,12 @@ def run_training(device, scene, K) -> tuple[dict[str, int], object]:
             "--ft_path", ft_path, "--n_iters", str(TRAIN_ITERS), "-ip", str(TRAIN_PRINT), "--seed", "42",
             "--basedir", TRAIN_DIR, "--testskip", "1"]
     log(f"[train] python3 -m nerf_sampling_tpu_torch.experiments.run {' '.join(argv)}")
-    k1.launches = k3.gaussian_launches = k6.launches = 0
+    reset_launches("depth_net_kernel", "render_gaussian_kernel", "render_hier_kernel")
     t0 = time.perf_counter()
     trainer = run.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"depth_net_kernel": k1.launches, "render_gaussian_kernel": k3.gaussian_launches,
-              "render_hier_kernel": k6.launches}
+    counts = launched("depth_net_kernel", "render_gaussian_kernel", "render_hier_kernel")
     log(f"[train] {trainer.global_step} steps in {wall:.1f} s (evals and checkpoints included); "
         f"launches during the run: {counts}")
     for name, count in counts.items():
@@ -1848,8 +1859,6 @@ def run_int8_training(device, scene, K, bf16_eval: float) -> dict[str, int]:
     import shutil
 
     from nerf_sampling_tpu_torch.experiments import run
-    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
-    from nerf_sampling_tpu_torch.kernels import fused_render as k3
     from nerf_sampling_tpu_torch.render import pack_kernel_weights, render_path
     from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
 
@@ -1862,16 +1871,18 @@ def run_int8_training(device, scene, K, bf16_eval: float) -> dict[str, int]:
             "--ft_path", ft_path, "--n_iters", str(TRAIN_ITERS), "-ip", str(TRAIN_PRINT), "--seed", "42",
             "--basedir", INT8_TRAIN_DIR, "--testskip", "1"]
     log(f"[int8-train] python3 -m nerf_sampling_tpu_torch.experiments.run {' '.join(argv)}")
-    k3.gaussian_launches = k3.gaussian_int8_launches = k6.launches = k6.int8_launches = 0
+    reset_launches("render_gaussian_kernel", "render_gaussian_kernel_int8", "render_hier_kernel",
+                   "render_hier_kernel_int8")
     trainer = run.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"render_hier_kernel_int8": k6.int8_launches, "render_gaussian_kernel_int8": k3.gaussian_int8_launches}
+    counts = launched("render_hier_kernel_int8", "render_gaussian_kernel_int8")
     log(f"[int8-train] {trainer.global_step} steps in {wall:.1f} s (evals and checkpoints included); launches: "
-        f"{counts}, bf16 K6 {k6.launches}, bf16 K3 {k3.gaussian_launches}; calib {trainer.pipeline.quant_calib}")
+        f"{counts}, bf16 K6 {n_launches('render_hier_kernel')}, bf16 K3 {n_launches('render_gaussian_kernel')}; "
+        f"calib {trainer.pipeline.quant_calib}")
     for name, count in counts.items():
         require(count > 0, f"{name} was not launched by the int8 training run")
-    require(k6.launches == 0, "the int8 training run launched bf16 K6")
+    require(n_launches("render_hier_kernel") == 0, "the int8 training run launched bf16 K6")
     with open(os.path.join(trainer.expdir, "psnr.txt")) as fp:
         lines = [ln for ln in fp if ln.startswith("Iter:")]
     losses = [float(ln.split("Depth Net Loss: ")[1].split(",")[0]) for ln in lines]
@@ -1970,7 +1981,7 @@ def phase_times(state, frozen, pipe, batch) -> None:
     from nerf_sampling_tpu_torch.core.sampling import z_to_points
     from nerf_sampling_tpu_torch.kernels import fused_hier as k6
     from nerf_sampling_tpu_torch.render import make_ray_batch
-    from nerf_sampling_tpu_torch.render.engine import _query_fine_or_coarse
+    from nerf_sampling_tpu_torch.render.engine import query_fine_or_coarse
 
     ro, rd, target = batch
     rays = make_ray_batch(pipe, ro, rd)
@@ -1986,7 +1997,7 @@ def phase_times(state, frozen, pipe, batch) -> None:
                                        n_coarse=pipe.N_samples, n_importance=pipe.N_importance, seed=rep)
         ev[1].record()
         depth_z = state.model(ro, rd)
-        raw = _query_fine_or_coarse(pipe, frozen, z_to_points(ro, rd, depth_z), rays)
+        raw = query_fine_or_coarse(pipe, frozen, z_to_points(ro, rd, depth_z), rays)
         rgb = raw2outputs(raw, depth_z, rd, 0.0, pipe.white_bkgd).rgb_map
         loss = img2mse(rgb, target) + img2mse(depth_z, hm["max_z"][:, None])
         ev[2].record()
@@ -2029,7 +2040,6 @@ def check_k4(params, queries) -> dict:
     against its plain bf16 version, which is held against fp32; K4 runs
     the wgmma core: its launch shape, one block alone and its registers at
     both sizes."""
-    from nerf_sampling_tpu_torch.kernels import build
     from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
     from nerf_sampling_tpu_torch.kernels.fused_render import pack_nerf, pack_slices
 
@@ -2240,9 +2250,10 @@ def check_k7(params, scene, K, device) -> dict:
     def psnr(img, gt):
         return float(-10 * np.log10(np.mean((img["depth_net_rgb_map"].float().cpu().numpy() - gt) ** 2)))
 
-    k67.det_launches = 0
+    reset_launches("render_hier_kernel_det")
     psnrs = [psnr(render(pipe, c), gt) for c, gt in zip(poses, gts)]
-    require(k67.det_launches == len(poses), "the FULL_NERF kernel path did not launch K7 once per view")
+    require(n_launches("render_hier_kernel_det") == len(poses),
+            "the FULL_NERF kernel path did not launch K7 once per view")
     psnr_plain = psnr(render(plain_pipe, poses[0]), gts[0])
     log(f"[k7] FULL_NERF on the kernels, per test view {['%.4f' % p for p in psnrs]}; view 0 on the plain fp32 "
         f"path {psnr_plain:.4f} dB (|delta| {abs(psnrs[0] - psnr_plain):.4f}, tol {FULL_PSNR_TOL})")
@@ -2303,10 +2314,11 @@ def check_mip(device) -> tuple[dict, dict[str, int]]:
     ro, rd, rr = (t.reshape(-1, t.shape[-1]).contiguous() for t in get_rays_mip(H, W, K, c2w, device))
     n = ro.shape[0]
 
-    k11.launches = 0
+    reset_launches("render_mip_kernel")
     frame = render_image(pipe, params, H, W, K, c2w, device=device, mode=EvalMode.FULL_NERF)
     torch.cuda.synchronize()
-    require(k11.launches == 1, f"render_image of an {H}x{W} mip-NeRF frame made {k11.launches} K11 launches, not 1")
+    require(n_launches("render_mip_kernel") == 1,
+            f"render_image of an {H}x{W} mip-NeRF frame made {n_launches('render_mip_kernel')} K11 launches, not 1")
     got = k11.render_mip_kernel(packed, cfg, ro, rd, rr)
     require(all(torch.equal(frame[a].reshape(-1), got[b].reshape(-1)) for a, b in (
         ("depth_net_rgb_map", "rgb_map"), ("depth_net_z_vals", "depth_map"), ("depth_net_weights", "acc_map"))),
@@ -2322,9 +2334,9 @@ def check_mip(device) -> tuple[dict, dict[str, int]]:
     want = plain(ro, rd, rr)
     frame_gaps = mip_gaps(got, want)
     rows = [torch.linspace(0, n - 1, m, device=device).long() for m in MIP_RAGGED]
-    k11.launches = 0
+    reset_launches("render_mip_kernel")
     ragged = [k11.render_mip_kernel(packed, cfg, ro[r], rd[r], rr[r]) for r in rows]
-    require(k11.launches == len(MIP_RAGGED), "[mip] a ragged call did not launch K11 once")
+    require(n_launches("render_mip_kernel") == len(MIP_RAGGED), "[mip] a ragged call did not launch K11 once")
     cat = torch.cat(rows)
     ragged_gaps = mip_gaps({k: torch.cat([g[k] for g in ragged]) for k in got},
                            {k: v[cat] for k, v in want.items()})
@@ -2443,9 +2455,6 @@ def run_nerf_cli(device) -> dict[str, int]:
     import shutil
 
     from nerf_sampling_tpu_torch.experiments import run
-    from nerf_sampling_tpu_torch.kernels import fused_hier as k67
-    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
-    from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
 
     shutil.rmtree(NERF_DIR, ignore_errors=True)
     evals, counts = {}, {}
@@ -2454,7 +2463,7 @@ def run_nerf_cli(device) -> dict[str, int]:
                 "--n_iters", str(NERF_ITERS), "--i_testset", str(NERF_ITERS), "-ip", str(NERF_PRINT),
                 "--basedir", os.path.join(NERF_DIR, impl)]
         log(f"[nerf] python3 -m nerf_sampling_tpu_torch.experiments.run {' '.join(argv)}")
-        k4.launches = k5.launches = k67.det_launches = 0
+        reset_launches("nerf_points_kernel", "nerf_points_bwd_kernel", "render_hier_kernel_det")
         t0 = time.perf_counter()
         trainer = run.main(argv)
         torch.cuda.synchronize()
@@ -2469,8 +2478,7 @@ def run_nerf_cli(device) -> dict[str, int]:
             f"{len(trainer.scene.i_test)} test views {evals[impl]:.4f} dB")
         require(losses[-1][1] < losses[0][1], f"the {impl} nerf-mode loss did not fall")
         if impl == "cuda":
-            counts = {"nerf_points_kernel": k4.launches, "nerf_points_bwd_kernel": k5.launches,
-                      "render_hier_kernel_det": k67.det_launches}
+            counts = launched("nerf_points_kernel", "nerf_points_bwd_kernel", "render_hier_kernel_det")
             log(f"[nerf] launches during the kernel run: {counts}")
             for name, count in counts.items():
                 require(count > 0, f"{name} was not launched by the nerf-mode run")
@@ -2499,10 +2507,6 @@ def run_joint_cli(device, scene, K) -> dict[str, int]:
 
     from nerf_sampling_tpu_torch.definitions import REFERENCE_CONFIG
     from nerf_sampling_tpu_torch.experiments import run
-    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
-    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
-    from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
-    from nerf_sampling_tpu_torch.kernels import fused_render as k3
     from nerf_sampling_tpu_torch.render import pack_kernel_weights, render_path
     from nerf_sampling_tpu_torch.train import checkpoint as ck
     from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
@@ -2534,7 +2538,7 @@ def run_joint_cli(device, scene, K) -> dict[str, int]:
                 "--i_testset", str(JOINT_ITERS), "-ip", str(NERF_PRINT), "--ft_path", ft_path, "--seed", "0",
                 "--testskip", "1", "--basedir", os.path.join(JOINT_DIR, impl)]
         log(f"[joint] python3 -m nerf_sampling_tpu_torch.experiments.run {' '.join(argv)}")
-        k1.launches = k3.gaussian_launches = k4.launches = k5.launches = 0
+        reset_launches("depth_net_kernel", "render_gaussian_kernel", "nerf_points_kernel", "nerf_points_bwd_kernel")
         t0 = time.perf_counter()
         trainer = run.main(argv)
         torch.cuda.synchronize()
@@ -2554,8 +2558,8 @@ def run_joint_cli(device, scene, K) -> dict[str, int]:
         require(frozen and moved, f"{impl}: the DepthNet was not held through the warmup and trained after it")
         require(live[0][1] == 0.0 and live[-1][1] == 1.0, f"{impl}: depth_live did not go from 0 to 1")
         if impl == "cuda":
-            counts = {"nerf_points_kernel": k4.launches, "nerf_points_bwd_kernel": k5.launches,
-                      "depth_net_kernel": k1.launches, "render_gaussian_kernel": k3.gaussian_launches}
+            counts = launched("nerf_points_kernel", "nerf_points_bwd_kernel", "depth_net_kernel",
+                              "render_gaussian_kernel")
             log(f"[joint] launches during the kernel run: {counts}")
             for name, count in counts.items():
                 require(count > 0, f"{name} was not launched by the joint run")
@@ -2585,9 +2589,6 @@ def run_tar(device, scene, K) -> dict[str, int]:
     from nerf_sampling_tpu_torch.definitions import REFERENCE_CONFIG
     from nerf_sampling_tpu_torch.experiments import render as rcli
     from nerf_sampling_tpu_torch.experiments import run
-    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
-    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
-    from nerf_sampling_tpu_torch.kernels import fused_render as k23
     from nerf_sampling_tpu_torch.train import checkpoint as ck
     from nerf_sampling_tpu_torch.train.sampler import RaySampler, SamplerConfig
     from nerf_sampling_tpu_torch.train.state import init_nerf_state, nerf_modules
@@ -2618,10 +2619,10 @@ def run_tar(device, scene, K) -> dict[str, int]:
     generate_example_dataset(datadir, H=800, W=800, n_train=1, n_val=1, n_test=4)
     common = ["-dp", datadir, "-m", "recommended_depth_net_module", "--n_samples", "64", "--distance", "1.0",
               "--testskip", "1", "--device", torch.device(device).type]
-    k1.launches = k23.launches = 0
+    reset_launches("depth_net_kernel", "render_around_depth_kernel")
     tr_tar = rcli.main(common + ["--ft_path", tar, "--basedir", os.path.join(TAR_DIR, "render_tar")])
     torch.cuda.synchronize()
-    counts = {"depth_net_kernel": k1.launches, "render_around_depth_kernel": k23.launches}
+    counts = launched("depth_net_kernel", "render_around_depth_kernel")
     log(f"[tar] render CLI from the .tar over {len(tr_tar.scene.i_test)} test views: launches {counts}")
     for name, count in counts.items():
         require(count > 0, f"{name} was not launched by the .tar render")
@@ -2650,12 +2651,11 @@ def run_tar(device, scene, K) -> dict[str, int]:
             "--n_iters", str(TAR_ITERS), "-ip", "20", "--seed", "42", "--basedir", os.path.join(TAR_DIR, "train"),
             "--testskip", "1", "--profile_dir", prof_dir, "--device", torch.device(device).type]
     log(f"[tar] python3 -m nerf_sampling_tpu_torch.experiments.run {' '.join(argv)}")
-    k1.launches = k23.gaussian_launches = k6.launches = 0
+    reset_launches("depth_net_kernel", "render_gaussian_kernel", "render_hier_kernel")
     t1 = time.perf_counter()
     trainer = run.main(argv)
     torch.cuda.synchronize()
-    train_counts = {"render_hier_kernel": k6.launches, "depth_net_kernel": k1.launches,
-                    "render_gaussian_kernel": k23.gaussian_launches}
+    train_counts = launched("render_hier_kernel", "depth_net_kernel", "render_gaussian_kernel")
     log(f"[tar] {trainer.global_step} steps from the .tar in {time.perf_counter() - t1:.1f} s (the eval, the "
         f"profiled steps and the checkpoint included); launches {train_counts}")
     for name in ("render_hier_kernel", "depth_net_kernel"):
@@ -2837,22 +2837,16 @@ def run_llff(device) -> dict[str, int]:
     from nerf_sampling_tpu_torch.definitions import DATASET_DIR
     from nerf_sampling_tpu_torch.experiments import render as rcli
     from nerf_sampling_tpu_torch.experiments import run
-    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
-    from nerf_sampling_tpu_torch.kernels import fused_hier as k67
-    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
-    from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
-    from nerf_sampling_tpu_torch.kernels import fused_render as k23
     from nerf_sampling_tpu_torch.render import EvalMode, render_image
 
     def reset():
-        k1.launches = k4.launches = k5.launches = k67.launches = k67.det_launches = 0
-        k23.launches = k23.gaussian_launches = k23.linspace_launches = k23.shade_launches = 0
+        reset_launches("depth_net_kernel", "nerf_points_kernel", "nerf_points_bwd_kernel", "render_hier_kernel",
+                       "render_hier_kernel_det", "render_around_depth_kernel", "render_gaussian_kernel",
+                       "render_linspace_kernel", "shade_kernel")
 
     def read():
-        return {"depth_net_kernel": k1.launches, "nerf_points_kernel": k4.launches,
-                "nerf_points_bwd_kernel": k5.launches, "render_hier_kernel": k67.launches,
-                "render_hier_kernel_det": k67.det_launches, "render_around_depth_kernel": k23.launches,
-                "render_gaussian_kernel": k23.gaussian_launches}
+        return launched("depth_net_kernel", "nerf_points_kernel", "nerf_points_bwd_kernel", "render_hier_kernel",
+                        "render_hier_kernel_det", "render_around_depth_kernel", "render_gaussian_kernel")
 
     def require_only(counts: dict, want: set, what: str) -> None:
         launched = {name for name, c in counts.items() if c}
@@ -2982,9 +2976,6 @@ def run_formats(device) -> dict[str, int]:
     import shutil
 
     from nerf_sampling_tpu_torch.experiments import run
-    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
-    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
-    from nerf_sampling_tpu_torch.kernels import fused_render as k3
 
     t0 = time.perf_counter()
     shutil.rmtree(FORMATS_DIR, ignore_errors=True)
@@ -2997,7 +2988,7 @@ def run_formats(device) -> dict[str, int]:
         if name == "example_linemod":  # two evals of its one test view for the [memory] check
             argv[argv.index("--i_testset") + 1] = str(FORMATS_ITERS // 2)
         log(f"[formats] python3 -m nerf_sampling_tpu_torch.experiments.run {' '.join(argv)}")
-        k1.launches = k3.gaussian_launches = k6.launches = 0
+        reset_launches("depth_net_kernel", "render_gaussian_kernel", "render_hier_kernel")
         t1 = time.perf_counter()
         if torch.cuda.is_available():
             torch.cuda.reset_peak_memory_stats(device)
@@ -3005,8 +2996,7 @@ def run_formats(device) -> dict[str, int]:
         torch.cuda.synchronize()
         if name == "example_linemod":
             check_eval_memory(trainer.expdir)
-        counts = {"render_hier_kernel": k6.launches, "depth_net_kernel": k1.launches,
-                  "render_gaussian_kernel": k3.gaussian_launches}
+        counts = launched("render_hier_kernel", "depth_net_kernel", "render_gaussian_kernel")
         scene = trainer.scene
         log(f"[formats] {name}: {trainer.global_step} steps and the eval in {time.perf_counter() - t1:.1f} s, "
             f"hwf {tuple(round(float(v), 3) for v in scene.hwf)}, near/far {trainer.pipeline.near}/"
@@ -3121,9 +3111,6 @@ def check_dispatch_steps(kind: str, params, pipes: dict, sampler, device, mesh=N
     and one captured chunk profiled (with ``mesh``, its NCCL kernels a
     step). Returns the times, the eager metrics, the launches counted in the
     captured run and the NCCL kernels a step."""
-    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
-    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
-    from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
     from nerf_sampling_tpu_torch.parallel import shard_ray_batch
     from nerf_sampling_tpu_torch.train.dispatch import StepDispatcher
     from nerf_sampling_tpu_torch.train.trainer import step_seed
@@ -3143,36 +3130,34 @@ def check_dispatch_steps(kind: str, params, pipes: dict, sampler, device, mesh=N
     want = np.concatenate([eager_chunk(eager_step, st, sd, device) for st, sd in chunks])
     cap_step, cap_states, key = dispatch_case(kind, params, pipes, mesh=mesh)
     disp = StepDispatcher(cap_step, cap_states, device, graph_key=key)
-    counters = [(m, c) for m in (k4, k5, k6) for c in ("launches", "int8_launches") if hasattr(m, c)]
-    before = [getattr(m, c) for m, c in counters]
+    before = build.launches.copy()
     got, held = [], True
     for st, sd in chunks:
         got.append(disp.run(st, sd).cpu().numpy())
         if kind == "joint" and cap_states[0].step <= DISPATCH_WARMUP:  # the DepthNet held through the warmup
             held &= all(torch.equal(a, b) for a, b in zip(cap_states[1].model.parameters(), params.depth.parameters()))
     got = np.concatenate(got)
-    launched = {f"{m.__name__.split('.')[-1]}.{c}": getattr(m, c) - b for (m, c), b in zip(counters, before)
-                if getattr(m, c) != b}
+    counted = {name: build.launches[key] - before[key] for name, key in LAUNCH_KEYS.items()
+               if build.launches[key] != before[key]}
     same_metrics = got.shape == want.shape and np.array_equal(got.view(np.uint32), want.view(np.uint32))
     a, b = state_tensors(eager_states), state_tensors(cap_states)
     same_state = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
     n_steps = k * n_chunks
     log(f"{tag} {n_chunks} captured chunks of {k} steps against {n_steps} eager steps: metrics "
         f"{disp.names} bit for bit {same_metrics}, parameters and Adam state ({len(a)} tensors) bit for bit "
-        f"{same_state}; graphs captured {len(disp._graphs)}; launches counted in the captured run {launched}")
+        f"{same_state}; graphs captured {len(disp._graphs)}; launches counted in the captured run {counted}")
     if not same_metrics:
         rows = np.nonzero(np.any(got != want, 1))[0] if got.shape == want.shape else []
         log(f"{tag} first differing steps {list(rows[:5])}: captured {got[rows[:1]]}, eager "
             f"{want[rows[:1]]}")
     require(same_metrics and same_state, f"{tag} the captured steps differ from the eager ones")
-    per_step_launches = {"depth": ("render_hier_kernel", "fused_hier.launches"),
-                         "depth_int8": ("render_hier_kernel_int8", "fused_hier.int8_launches")}
+    per_step_launches = {"depth": "render_hier_kernel", "depth_int8": "render_hier_kernel_int8"}
     if kind in per_step_launches:
-        require(launched.get(per_step_launches[kind][1]) == n_steps,
-                f"{tag} K6 counted {launched} over {n_steps} captured steps")
+        require(counted.get(per_step_launches[kind]) == n_steps,
+                f"{tag} K6 counted {counted} over {n_steps} captured steps")
     else:
-        require(launched.get("fused_nerf.launches", 0) > 0 and launched.get("fused_nerf_vjp.launches", 0) > 0,
-                f"{tag} K4/K5 not counted over the captured steps: {launched}")
+        require(counted.get("nerf_points_kernel", 0) > 0 and counted.get("nerf_points_bwd_kernel", 0) > 0,
+                f"{tag} K4/K5 not counted over the captured steps: {counted}")
     if kind == "joint":
         live = got[:, disp.names.index("depth_live")]
         require(np.array_equal(live, (np.arange(1, n_steps + 1) > DISPATCH_WARMUP).astype(np.float32)),
@@ -3207,7 +3192,7 @@ def check_dispatch_steps(kind: str, params, pipes: dict, sampler, device, mesh=N
             + (", ".join(f"{n} x{c:g}" for n, c in nccl.items()) or "none"))
     log(f"{tag} phase {time.perf_counter() - t0:.1f} s")
     return {"eager_ms": eager_ms, "captured_ms": cap_ms, "idle": 1 - busy / wall, "metrics": want,
-            "launched": launched, "nccl": nccl}
+            "launched": counted, "nccl": nccl}
 
 
 def check_k6_seed_word(params, pipes: dict, batches, device) -> dict[str, dict[str, float]]:
@@ -3394,7 +3379,6 @@ def run_dispatch_trainer(device) -> int:
     import shutil
 
     from nerf_sampling_tpu_torch.experiments import run
-    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
 
     shutil.rmtree(DISPATCH_DIR, ignore_errors=True)
     os.makedirs(DISPATCH_DIR)
@@ -3405,7 +3389,7 @@ def run_dispatch_trainer(device) -> int:
         argv = ["-d", "example", "-m", "recommended_depth_net_module", "--mlp_impl", "cuda", "--ft_path", ft_path,
                 "--n_iters", str(DISPATCH_ITERS), "-ip", "100", "--i_testset", "100", "--seed", "42",
                 "--basedir", os.path.join(DISPATCH_DIR, f"k{k}"), "--testskip", "1", "--steps_per_dispatch", k]
-        k6.launches = 0
+        reset_launches("render_hier_kernel")
         t1 = time.perf_counter()
         trainer = run.main(argv)
         torch.cuda.synchronize()
@@ -3413,10 +3397,11 @@ def run_dispatch_trainer(device) -> int:
         trainer.save_checkpoint(trainer.global_step, subdir="final")
         chunk = (trainer.steps_per_dispatch, trainer.captured_graphs)
         text, arrays = run_outputs(trainer.expdir)
-        runs[k] = (text, arrays, k6.launches, chunk)
+        runs[k] = (text, arrays, n_launches("render_hier_kernel"), chunk)
         log(f"[dispatch] (f) --steps_per_dispatch {k} (resolved {chunk[0]}, {chunk[1]} graphs captured): "
             f"{trainer.global_step} steps in {wall:.1f} s "
-            f"(evals and checkpoints included), K6 launches {k6.launches}, eval {trainer._avg_eval_psnr:.4f} dB, "
+            f"(evals and checkpoints included), K6 launches {n_launches('render_hier_kernel')}, "
+            f"eval {trainer._avg_eval_psnr:.4f} dB, "
             f"{len({n for n, _ in arrays})} checkpoints")
         del trainer
     (t0, a0, n0, c0), (t1, a1, n1, c1) = runs["0"], runs["1"]
@@ -3495,11 +3480,11 @@ def mesh_rank(rank: int, world: int, params, pipes: dict, scene, device, one_ran
 MESH_CLI = """
 import json, sys
 from nerf_sampling_tpu_torch.experiments import run
-from nerf_sampling_tpu_torch.kernels import fused_hier as k6
+from nerf_sampling_tpu_torch.kernels import build
 trainer = run.main(sys.argv[1:])
 trainer.save_checkpoint(trainer.global_step, subdir="final")
 print("MESH_CLI " + json.dumps({
-    "launches": k6.launches, "steps": trainer.global_step, "world": trainer.mesh.world,
+    "launches": build.launches["K6", "bf16"], "steps": trainer.global_step, "world": trainer.mesh.world,
     "backend": trainer.mesh.backend, "eval": trainer._avg_eval_psnr, "expdir": trainer.expdir,
     "chunk": trainer.steps_per_dispatch, "graphs": trainer.captured_graphs}))
 """
@@ -3619,18 +3604,12 @@ SCALEOUT_EVAL_TOL = 0.5  # dB between the 2-rank and 1-rank Trainers' evals afte
 
 
 def scaleout_counts(reset: bool = False) -> dict[str, int]:
-    """The launch counters of the kernels [scaleout] drives (set to 0 with ``reset``)."""
-    from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
-    from nerf_sampling_tpu_torch.kernels import fused_hier as k6
-    from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
-    from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
-    from nerf_sampling_tpu_torch.kernels import fused_render as k23
-
+    """The launch counts of the kernels [scaleout] drives (set to 0 with ``reset``)."""
+    names = ("depth_net_kernel", "render_around_depth_kernel", "render_gaussian_kernel", "render_hier_kernel",
+             "nerf_points_kernel", "nerf_points_bwd_kernel")
     if reset:
-        k1.launches = k23.launches = k23.gaussian_launches = k6.launches = k4.launches = k5.launches = 0
-    return {"depth_net_kernel": k1.launches, "render_around_depth_kernel": k23.launches,
-            "render_gaussian_kernel": k23.gaussian_launches, "render_hier_kernel": k6.launches,
-            "nerf_points_kernel": k4.launches, "nerf_points_bwd_kernel": k5.launches}
+        reset_launches(*names)
+    return launched(*names)
 
 
 def scaleout_params(device):
@@ -4013,7 +3992,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from nerf_sampling_tpu_torch.kernels import build
     from nerf_sampling_tpu_torch.render import pack_kernel_weights
     from nerf_sampling_tpu_torch.train.checkpoint import load_render_params
 
@@ -4101,12 +4079,9 @@ def main() -> int:
         rec.update(dispatch["seed"].get(rec["name"], {}))  # K6 by value and by pointer, timed in turns
     next(rec for rec in kernels if rec["name"] == "render_hier_kernel")["dispatch_launches"] = dispatch["launches"]
     # the captured sharded steps on a one-rank nccl mesh ((g)) and run.py --multihost ((h))
-    for name, counter in (("render_hier_kernel", "fused_hier.launches"),
-                          ("render_hier_kernel_int8", "fused_hier.int8_launches"),
-                          ("nerf_points_kernel", "fused_nerf.launches"),
-                          ("nerf_points_bwd_kernel", "fused_nerf_vjp.launches")):
+    for name in ("render_hier_kernel", "render_hier_kernel_int8", "nerf_points_kernel", "nerf_points_bwd_kernel"):
         next(rec for rec in kernels if rec["name"] == name)["mesh_dispatch_launches"] = \
-            dispatch["mesh_counts"].get(counter, 0)
+            dispatch["mesh_counts"].get(name, 0)
     next(rec for rec in kernels if rec["name"] == "render_hier_kernel")["mesh_cli_launches"] = dispatch["mesh_launches"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -6,11 +6,13 @@ shared library with a plain C interface (no PyTorch headers: seconds, not
 minutes). The library goes to ``kernels/_build/<hash of the sources and
 flags>/``, so an edit to a source rebuilds it and an unchanged tree reuses
 it. Every C entry point returns a cudaError_t; ``check`` raises on anything
-but 0.
+but 0. Every kernel launch goes through ``launch``, which counts it in
+``launches``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import hashlib
@@ -29,6 +31,10 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
+# launches by (kernel, precision): kernels named "K1" .. "K11" (K10 is the
+# int8 MLP of K2/K3/K6-K9, counted as theirs), the core checks of
+# wg_dense.cu by their C entry; precision "bf16", "fp32" or "int8"
+launches: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -176,14 +182,25 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def occupancy(entry: str, *args: int) -> dict[str, int]:
-    """A kernel's launch shape from its C entry ``entry(*args, out)``:
-    resident blocks per SM, rays per block, threads per block, dynamic
-    shared memory (bytes), and the card's SM count (for the wave count)."""
-    out = (ctypes.c_int * 4)()
+def launch(kernel: str, precision: str, entry: str, tensors: list[torch.Tensor | None], *args) -> None:
+    """One launch of the C entry ``entry(ptrs, n_ptrs, *args, stream)``: the
+    tensors' pointers (None a null one), the current stream of the first
+    tensor's device; raises on a nonzero return, then adds one to
+    ``launches[kernel, precision]``."""
+    device = next(t.device for t in tensors if t is not None)
+    arr, count = pointer_array(tensors)
+    check(getattr(load_library(), entry)(arr, count, *args, current_stream(device)), entry)
+    launches[kernel, precision] += 1
+
+
+def occupancy(entry: str, *args: int,
+              fields: tuple[str, ...] = ("blocks_per_sm", "rays_per_block", "threads", "smem_bytes")) -> dict[str, int]:
+    """A kernel's launch shape from its C entry ``entry(*args, out)``, whose
+    ``out`` holds ``fields`` in order (resident blocks per SM first), and
+    the SM count of the card in use (for the wave count), as "sms"."""
+    out = (ctypes.c_int * len(fields))()
     check(getattr(load_library(), entry)(*args, out), entry)
-    return {"blocks_per_sm": out[0], "rays_per_block": out[1], "threads": out[2], "smem_bytes": out[3],
-            "sms": torch.cuda.get_device_properties(0).multi_processor_count}
+    return {**dict(zip(fields, out)), "sms": sm_count(torch.device("cuda", torch.cuda.current_device()))}
 
 
 def check(rc: int, name: str) -> None:

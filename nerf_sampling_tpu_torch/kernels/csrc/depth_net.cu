@@ -63,11 +63,7 @@ struct DepthNetParams {
   int n_layers;  // per tower
   int n_cat;     // trunk layers
   float near_, far_;
-  const T* te[3][kMaxLayers];      // [128, H]: embedding part (layer 0: folded W[:e]+W[e:])
-  const T* th[3][kMaxLayers];      // [H, H]: hidden part of layers >= 1
   const float* tb[3][kMaxLayers];  // [H]
-  const T* cat0[5];                // o, d, i: [H, H]; A, B: [128, H]
-  const T* cw[kMaxLayers];         // trunk layers >= 1: [H, H]
   const float* cb[kMaxLayers];     // [H]
   const T* head_w;                 // [H]
   const float* head_b;             // [1]
@@ -111,39 +107,32 @@ __global__ void __launch_bounds__(wg::kThreads32, 1) depth_net_kernel(const __gr
   }
 }
 
-// ptrs, in order: A, B, out; per tower (origin, direction, intersection):
-// te[0..L-1], th[1..L-1], tb[0..L-1]; cat0 o, d, i, A, B; cw[1..C-1];
-// cb[0..C-1]; head_w; head_b; then the weight slices (refused without
-// them).
+// ptrs, in order: A, B, out; the weight slices (refused without them);
+// the epilogue vectors: per tower (origin, direction, intersection)
+// tb[0..L-1]; cb[0..C-1]; head_w; head_b.
 template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int n_layers, int n_cat, float near_,
            float far_, int tiles_per_block, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || n_cat < 1 || n_cat > kMaxLayers || tiles_per_block < 1)
     return (int)cudaErrorInvalidValue;
-  const int n_weights = 3 * (3 * n_layers - 1) + 5 + (n_cat - 1) + n_cat + 2;
-  if (n_ptrs != 3 + n_weights + 1) return (int)cudaErrorInvalidValue;
+  if (n_ptrs != 4 + 3 * n_layers + n_cat + 2) return (int)cudaErrorInvalidValue;
   DepthNetParams<T> p = {};
   int k = 0;
   p.a = static_cast<const T*>(ptrs[k++]);
   p.b = static_cast<const T*>(ptrs[k++]);
   p.out = static_cast<float*>(const_cast<void*>(ptrs[k++]));
+  p.slices = static_cast<const bf16*>(ptrs[k++]);
+  if (!p.slices) return (int)cudaErrorInvalidValue;
   p.n = n;
   p.n_layers = n_layers;
   p.n_cat = n_cat;
   p.near_ = near_;
   p.far_ = far_;
-  for (int t = 0; t < 3; ++t) {
-    for (int l = 0; l < n_layers; ++l) p.te[t][l] = static_cast<const T*>(ptrs[k++]);
-    for (int l = 1; l < n_layers; ++l) p.th[t][l] = static_cast<const T*>(ptrs[k++]);
+  for (int t = 0; t < 3; ++t)
     for (int l = 0; l < n_layers; ++l) p.tb[t][l] = static_cast<const float*>(ptrs[k++]);
-  }
-  for (int i = 0; i < 5; ++i) p.cat0[i] = static_cast<const T*>(ptrs[k++]);
-  for (int l = 1; l < n_cat; ++l) p.cw[l] = static_cast<const T*>(ptrs[k++]);
   for (int l = 0; l < n_cat; ++l) p.cb[l] = static_cast<const float*>(ptrs[k++]);
   p.head_w = static_cast<const T*>(ptrs[k++]);
   p.head_b = static_cast<const float*>(ptrs[k++]);
-  p.slices = static_cast<const bf16*>(ptrs[k++]);
-  if (!p.slices) return (int)cudaErrorInvalidValue;
   p.n_slices = std::is_same_v<T, float> ? wg::depth_slices32(n_layers, n_cat) : wg::depth_slices16(n_layers, n_cat);
   p.tiles_per_block = tiles_per_block;
   const long long tiles = (n + wg::kRows32 - 1) / wg::kRows32;
@@ -172,9 +161,9 @@ int occupancy(int* out) {
 }  // namespace
 }  // namespace nst
 
-// bf16: A and B [n, 128], the weights of pack_depth_net(model) and their
-// slices; fp32: A and B in fragment order (fused_depth_net.fragment_tiles),
-// the weights of pack_depth_net(model, torch.float32) and their slices.
+// bf16: A and B [n, 128], the slices and vectors of pack_depth_net(model);
+// fp32: A and B in fragment order (fused_depth_net.fragment_tiles), the
+// slices and vectors of pack_depth_net(model, torch.float32).
 // tiles_per_block: the 64-row tiles a block walks
 // (fused_depth_net.tiles_per_block). Returns a cudaError_t (0 on success).
 extern "C" int nst_depth_net_forward(const void* const* ptrs, int n_ptrs, long long n, int n_layers,

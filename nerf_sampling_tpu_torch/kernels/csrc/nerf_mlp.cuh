@@ -1,11 +1,11 @@
 // What the MLP core (mlp_wgmma.cuh) and the render kernels share: the
-// element types and activations, the NeRF's packed weights (NerfWeightsT,
-// read_pack: bf16, fp32, and the W8A8 int8 pack of K10 with its requant
-// constants), the positional encoding (embed), the int8 requants, and the
-// per-ray sort.
+// element types and activations, the epilogue vectors of the NeRF's packs
+// (NerfWeightsT, read_pack: bf16, fp32, and the W8A8 int8 pack of K10 with
+// its requant constants), the positional encoding (embed), the int8
+// requants, and the per-ray sort.
 //
 // The MLP is the W8A8 one in int8 (K10, kernels/quant.py): NerfWeightsQ
-// holds an int8 pack (qpack_nerf) and its requant constants. The rounding
+// holds an int8 pack's (qpack_nerf) vectors and its requant constants. The rounding
 // points are JAX's: h*inv_sh + 0.5 in two rounded fp32 steps
 // (__fmul_rn/__fadd_rn: no FMA) and a truncating float -> int8 cast
 // (quant_f32; a NaN activation quantizes to 0, the plain version's
@@ -48,30 +48,27 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
+// The vectors the epilogues of a NeRF pack read. The matrices reach the
+// device once, as the pack's weight slices (mlp_wgmma.cuh), which the launch
+// hands over before these vectors.
 template <typename T>
 struct NerfWeightsT {
   int D;
   unsigned skip_mask;           // bit i: layer i also reads the point embedding
-  const T* w0;                  // [64, W] point-embedding rows, zero-padded
-  const T* tw[kMaxD];           // layers >= 1: [W, W]
   const float* tb[kMaxD];       // [W]
-  const T* skip_w[kMaxD];       // [64, W] for the layers in skip_mask
-  const T* feat_w;              // [W, W]
   const float* feat_b;          // [W]
   const T* alpha_w;             // [W]
   const float* alpha_b;         // [1]
-  const T* views_wf;            // [W, W/2]
-  const T* views_ws;            // [32, W/2] view-embedding rows, zero-padded
   const float* views_b;         // [W/2]
   const T* rgb_w;               // [3, W/2]
   const float* rgb_b;           // [3]
 };
 using NerfWeights = NerfWeightsT<bf16>;
 
-// Reads a pack_nerf layout from ptrs[k...] (see fused_render._flat_weights):
-// w0, tw[1..D-1], tb[0..D-1], skip_w[i] for each set bit of skip_mask,
-// then the alpha head alone (sigma_only) or all the heads. Returns the
-// number of pointers read, or -1 on a bad D / skip_mask.
+// Reads a bf16 or fp32 pack's epilogue vectors from ptrs[k...] (see
+// fused_render.epilogue_vectors): tb[0..D-1], then alpha_w and alpha_b
+// alone (sigma_only) or feat_b, alpha_w, alpha_b, views_b, rgb_w, rgb_b.
+// Returns the number of pointers read, or -1 on a bad D / skip_mask.
 template <typename T>
 inline int read_weights(const void* const* ptrs, int D, unsigned skip_mask, bool sigma_only,
                         NerfWeightsT<T>* w) {
@@ -80,46 +77,30 @@ inline int read_weights(const void* const* ptrs, int D, unsigned skip_mask, bool
   w->D = D;
   w->skip_mask = skip_mask;
   int k = 0;
-  w->w0 = static_cast<const T*>(ptrs[k++]);
-  for (int i = 1; i < D; ++i) w->tw[i] = static_cast<const T*>(ptrs[k++]);
   for (int i = 0; i < D; ++i) w->tb[i] = static_cast<const float*>(ptrs[k++]);
-  for (int i = 1; i < D; ++i)
-    if ((skip_mask >> i) & 1u) w->skip_w[i] = static_cast<const T*>(ptrs[k++]);
-  if (sigma_only) {
-    w->alpha_w = static_cast<const T*>(ptrs[k++]);
-    w->alpha_b = static_cast<const float*>(ptrs[k++]);
-    return k;
-  }
-  w->feat_w = static_cast<const T*>(ptrs[k++]);
-  w->feat_b = static_cast<const float*>(ptrs[k++]);
+  if (!sigma_only) w->feat_b = static_cast<const float*>(ptrs[k++]);
   w->alpha_w = static_cast<const T*>(ptrs[k++]);
   w->alpha_b = static_cast<const float*>(ptrs[k++]);
-  w->views_wf = static_cast<const T*>(ptrs[k++]);
-  w->views_ws = static_cast<const T*>(ptrs[k++]);
+  if (sigma_only) return k;
   w->views_b = static_cast<const float*>(ptrs[k++]);
   w->rgb_w = static_cast<const T*>(ptrs[k++]);
   w->rgb_b = static_cast<const float*>(ptrs[k++]);
   return k;
 }
 
-// The int8 pack (kernels/quant.py::qpack_nerf) and its requant constants.
+// The int8 pack's (kernels/quant.py::qpack_nerf) epilogue vectors and its
+// requant constants.
 template <>
 struct NerfWeightsT<int8_t> {
   int D;
   unsigned skip_mask;
-  const bf16* w0;               // [64, W]
   const float* b0;              // [W]
-  const int8_t* tw[kMaxD];      // layers >= 1: [W, W], [out, in] as every int8 matrix here
   const void* trow[kMaxD];      // int32 bias [W], or the fp32 dequant row [W] at a skip layer
-  const bf16* skip_w[kMaxD];    // [64, W] for the layers in skip_mask
   const float* skip_b[kMaxD];   // [W]
-  const int8_t* feat_w;         // [W, W]
   const int* feat_b;            // [W] int32
   const bf16* alpha_w;          // [W], the last trunk scales folded in
   const float* alpha_b;         // [1]
-  const int8_t* views_wf;       // [W/2, W]
   const float* views_sw;        // [W/2] dequant row
-  const bf16* views_ws;         // [32, W/2]
   const float* views_b;         // [W/2]
   const bf16* rgb_w;            // [3, W/2]
   const float* rgb_b;           // [3]
@@ -130,13 +111,13 @@ struct NerfWeightsT<int8_t> {
 };
 using NerfWeightsQ = NerfWeightsT<int8_t>;
 
-// Reads an int8 pack from ptrs[k...] (fused_render._flat_qweights): w0, b0,
-// tw[1..D-1], trow[1..D-1], (skip_w[i], skip_b[i]) for each set bit of
-// skip_mask, then the alpha head alone (sigma_only) or feat_w, feat_b,
-// alpha_w, alpha_b, views_wf, views_sw, views_ws, views_b, rgb_w, rgb_b;
-// the constants from plan (quant.quant_plan: bits of inv_sh0, then (p, q,
-// m, bits of inv_sh) per layer 1..D-1, then the feature layer's (p, q, m)).
-// Returns the number of pointers read, or -1 on a bad D / skip_mask / plan.
+// Reads an int8 pack's epilogue vectors from ptrs[k...]
+// (fused_render.epilogue_vectors): b0, trow[1..D-1], skip_b[i] for each set
+// bit of skip_mask, then alpha_w and alpha_b alone (sigma_only) or feat_b,
+// alpha_w, alpha_b, views_sw, views_b, rgb_w, rgb_b; the constants from
+// plan (quant.quant_plan: bits of inv_sh0, then (p, q, m, bits of inv_sh)
+// per layer 1..D-1, then the feature layer's (p, q, m)). Returns the number
+// of pointers read, or -1 on a bad D / skip_mask / plan.
 inline int read_weights_q(const void* const* ptrs, int D, unsigned skip_mask, bool sigma_only,
                           const int* plan, NerfWeightsQ* w) {
   if (D < 1 || D > kMaxD || (skip_mask & 1u) || (skip_mask >> D) || plan == nullptr) return -1;
@@ -144,25 +125,15 @@ inline int read_weights_q(const void* const* ptrs, int D, unsigned skip_mask, bo
   w->D = D;
   w->skip_mask = skip_mask;
   int k = 0;
-  w->w0 = static_cast<const bf16*>(ptrs[k++]);
   w->b0 = static_cast<const float*>(ptrs[k++]);
-  for (int i = 1; i < D; ++i) w->tw[i] = static_cast<const int8_t*>(ptrs[k++]);
   for (int i = 1; i < D; ++i) w->trow[i] = ptrs[k++];
   for (int i = 1; i < D; ++i)
-    if ((skip_mask >> i) & 1u) {
-      w->skip_w[i] = static_cast<const bf16*>(ptrs[k++]);
-      w->skip_b[i] = static_cast<const float*>(ptrs[k++]);
-    }
-  if (!sigma_only) {
-    w->feat_w = static_cast<const int8_t*>(ptrs[k++]);
-    w->feat_b = static_cast<const int*>(ptrs[k++]);
-  }
+    if ((skip_mask >> i) & 1u) w->skip_b[i] = static_cast<const float*>(ptrs[k++]);
+  if (!sigma_only) w->feat_b = static_cast<const int*>(ptrs[k++]);
   w->alpha_w = static_cast<const bf16*>(ptrs[k++]);
   w->alpha_b = static_cast<const float*>(ptrs[k++]);
   if (!sigma_only) {
-    w->views_wf = static_cast<const int8_t*>(ptrs[k++]);
     w->views_sw = static_cast<const float*>(ptrs[k++]);
-    w->views_ws = static_cast<const bf16*>(ptrs[k++]);
     w->views_b = static_cast<const float*>(ptrs[k++]);
     w->rgb_w = static_cast<const bf16*>(ptrs[k++]);
     w->rgb_b = static_cast<const float*>(ptrs[k++]);

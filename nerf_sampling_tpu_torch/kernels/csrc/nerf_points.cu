@@ -83,10 +83,10 @@ __global__ void __launch_bounds__(wg::kThreads, 1) nerf_points_kernel(const __gr
 }  // namespace
 }  // namespace nst
 
-// ptrs, in order: pts, dirs, out, then the NeRF's weights
-// (nerf_mlp.cuh::read_weights, all heads), then its full-forward weight
-// slices; a launch without them is refused. tiles_per_block: 128-row tiles
-// a block walks (fused_nerf.tiles_per_block). Returns a cudaError_t.
+// ptrs, in order: pts, dirs, out, then the NeRF's full-forward weight
+// slices, then its epilogue vectors (nerf_mlp.cuh::read_weights, all
+// heads); a launch without the slices is refused. tiles_per_block: 128-row
+// tiles a block walks (fused_nerf.tiles_per_block). Returns a cudaError_t.
 extern "C" int nst_nerf_points(const void* const* ptrs, int n_ptrs, long long M, long long S, int D,
                                unsigned skip_mask, int tiles_per_block, void* stream) {
   using namespace nst;
@@ -95,10 +95,9 @@ extern "C" int nst_nerf_points(const void* const* ptrs, int n_ptrs, long long M,
   p.pts = static_cast<const float*>(ptrs[0]);
   p.dirs = static_cast<const float*>(ptrs[1]);
   p.out = static_cast<float*>(const_cast<void*>(ptrs[2]));
-  const int k = read_weights(ptrs + 3, D, skip_mask, false, &p.w);
-  if (k < 0 || n_ptrs != 3 + k + 1) return (int)cudaErrorInvalidValue;
-  p.slices = static_cast<const bf16*>(ptrs[3 + k]);
-  if (!p.slices) return (int)cudaErrorInvalidValue;
+  p.slices = static_cast<const bf16*>(ptrs[3]);
+  const int k = read_weights(ptrs + 4, D, skip_mask, false, &p.w);
+  if (k < 0 || n_ptrs != 4 + k || !p.slices) return (int)cudaErrorInvalidValue;
   p.n_slices = wg::forward_slices(D, skip_mask, false);
   p.M = M;
   p.S = S;

@@ -435,8 +435,7 @@ extern "C" int nst_nerf_points_bwd_sizes(long long M, int D, unsigned skip_mask,
 // ReLU masks, dL/dPE (or null with dx), the weight slices of one tile:
 // the forward's (fused_render.pack_slices, K4's) and the backward's (the
 // tail of fused_render.wgmma_program(..., backward=True) past the forward);
-// then the NeRF's weights (nerf_mlp.cuh::read_weights, all heads: the biases and
-// heads the epilogues read).
+// then the NeRF's epilogue vectors (nerf_mlp.cuh::read_weights, all heads).
 // The jobs of dw, each [K, N] row-major: w0 [64, W], tw[i] [W, W] for
 // i = 1..D-1, skip_w[i] [64, W] for each skip layer, feature_w [W, W],
 // views_wf [W, W/2], views_ws [32, W/2], then h_{D-1}^T g16 [W, 16] (the

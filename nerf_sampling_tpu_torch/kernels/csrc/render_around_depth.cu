@@ -226,10 +226,10 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T>, 1)
 }
 
 // ptrs, in order: rays_o, rays_d, depth (may be null), z_arg (may be
-// null), out; then the NeRF's weights (nerf_mlp.cuh::read_pack; plan: the
-// int8 constants, null for bf16 and fp32); then the NeRF's full-forward
-// weight slices (mlp_wgmma.cuh: forward_slices, forward_qslices,
-// forward_slices32); a launch without them is refused.
+// null), out; then the NeRF's full-forward weight slices (mlp_wgmma.cuh:
+// forward_slices, forward_qslices, forward_slices32); then its epilogue
+// vectors (nerf_mlp.cuh::read_pack; plan: the int8 constants, null for bf16
+// and fp32). A launch without the slices is refused.
 template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip_mask,
            RenderParams<T> p, const int* plan, void* stream) {
@@ -239,11 +239,9 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsig
   p.depth = static_cast<const float*>(ptrs[2]);
   p.z_arg = static_cast<const float*>(ptrs[3]);
   p.out = static_cast<float*>(const_cast<void*>(ptrs[4]));
-  int k = read_pack(ptrs + 5, D, skip_mask, false, plan, &p.w);
-  if (k < 0) return (int)cudaErrorInvalidValue;
-  k += 5;
-  if (n_ptrs != k + 1 || !ptrs[k]) return (int)cudaErrorInvalidValue;
-  p.slices = static_cast<const bf16*>(ptrs[k]);
+  p.slices = static_cast<const bf16*>(ptrs[5]);
+  const int k = read_pack(ptrs + 6, D, skip_mask, false, plan, &p.w);
+  if (k < 0 || n_ptrs != 6 + k || !p.slices) return (int)cudaErrorInvalidValue;
   p.n_slices = wg::kCore32<T>                  ? wg::forward_slices32(D, skip_mask, false)
                : std::is_same_v<T, int8_t>     ? wg::forward_qslices(D, skip_mask, false)
                                                : wg::forward_slices(D, skip_mask, false);
@@ -297,7 +295,7 @@ int launch_mode(const void* const* ptrs, int n_ptrs, long long n, int S, int D, 
 
 // Every entry: plan is the int8 pack's constants (kernels/quant.py::
 // quant_plan, a host array read at launch) for the int8 kernel, null for
-// bf16 (and fp32); every call ends ptrs with the weight slices.
+// bf16 (and fp32); every call hands the weight slices after out.
 // Each returns a cudaError_t (0 on success).
 
 // K2.
@@ -320,8 +318,8 @@ extern "C" int nst_render_gaussian(const void* const* ptrs, int n_ptrs, long lon
 }
 
 // K8: the grid ends (a, b) are (near, far), or (1/near, 1/far) rounded to
-// fp32 with lindisp; ptrs[2] and ptrs[3] are null. fp32: weights of
-// pack_nerf(model, torch.float32) and their wgmma_slices32.
+// fp32 with lindisp; ptrs[2] and ptrs[3] are null. fp32: the wgmma_slices32
+// and vectors of pack_nerf(model, torch.float32).
 extern "C" int nst_render_linspace(const void* const* ptrs, int n_ptrs, long long n, int S, int D,
                                    unsigned skip_mask, float a, float b, int lindisp, int white_bkgd,
                                    int fp32, const int* plan, void* stream) {

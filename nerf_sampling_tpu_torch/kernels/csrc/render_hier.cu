@@ -291,12 +291,12 @@ constexpr int rays_per_block(int Su) {
   return kMaxRows<T> / Su < kMaxRays ? kMaxRows<T> / Su : kMaxRays;
 }
 
-// ptrs, in order: rays_o, rays_d, draws (or null), out; the coarse NeRF's
-// trunk and alpha head; the fine NeRF's weights (nerf_mlp.cuh::read_pack,
-// with the int8 plans plan_c and plan_f, null for bf16 and fp32); then the
-// coarse and the fine net's weight slices (mlp_wgmma.cuh: forward_slices,
-// forward_qslices in int8, forward_slices32 in fp32). A launch without them
-// is refused.
+// ptrs, in order: rays_o, rays_d, draws (or null), out; the coarse and the
+// fine net's weight slices (mlp_wgmma.cuh: forward_slices, forward_qslices
+// in int8, forward_slices32 in fp32); then the epilogue vectors of the
+// coarse NeRF's trunk and alpha head and of the whole fine NeRF
+// (nerf_mlp.cuh::read_pack, with the int8 plans plan_c and plan_f, null for
+// bf16 and fp32). A launch without the slices is refused.
 template <typename T>
 int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int Dc, unsigned skip_c,
            int Df, unsigned skip_f, float near_, float far_, int lindisp, int white_bkgd, const unsigned* seed_ptr,
@@ -307,15 +307,12 @@ int launch(const void* const* ptrs, int n_ptrs, long long n, int Nc, int Nf, int
   p.rays_d = static_cast<const float*>(ptrs[1]);
   p.draws = static_cast<const float*>(ptrs[2]);
   p.out = static_cast<float*>(const_cast<void*>(ptrs[3]));
-  const int kc = read_pack(ptrs + 4, Dc, skip_c, true, plan_c, &p.wc);
+  p.slices_c = static_cast<const bf16*>(ptrs[4]);
+  p.slices_f = static_cast<const bf16*>(ptrs[5]);
+  const int kc = read_pack(ptrs + 6, Dc, skip_c, true, plan_c, &p.wc);
   if (kc < 0) return (int)cudaErrorInvalidValue;
-  const int kf = read_pack(ptrs + 4 + kc, Df, skip_f, false, plan_f, &p.wf);
-  if (kf < 0) return (int)cudaErrorInvalidValue;
-  int k = 4 + kc + kf;
-  if (n_ptrs != k + 2) return (int)cudaErrorInvalidValue;
-  p.slices_c = static_cast<const bf16*>(ptrs[k++]);
-  p.slices_f = static_cast<const bf16*>(ptrs[k++]);
-  if (!p.slices_c || !p.slices_f) return (int)cudaErrorInvalidValue;
+  const int kf = read_pack(ptrs + 6 + kc, Df, skip_f, false, plan_f, &p.wf);
+  if (kf < 0 || n_ptrs != 6 + kc + kf || !p.slices_c || !p.slices_f) return (int)cudaErrorInvalidValue;
   auto count = [](int D, unsigned skip, bool sigma_only) {
     if constexpr (std::is_same_v<T, int8_t>) return wg::forward_qslices(D, skip, sigma_only);
     else if constexpr (std::is_same_v<T, float>) return wg::forward_slices32(D, skip, sigma_only);
@@ -367,8 +364,8 @@ int occupancy(int Nc, int Nf, int* out) {
 // det: no draws (K7). seed_ptr: the seed as a device word (a captured
 // step's), or null for the seed given by value. ray_base: the global index
 // of the launch's ray 0 (a rank's first row under data parallelism; 0
-// otherwise). fp32: the weights of pack_hier(..., torch.float32)
-// and their wgmma_slices32.
+// otherwise). fp32: the wgmma_slices32 and vectors of
+// pack_hier(..., torch.float32).
 // plan_c, plan_f: both int8 packs' constants (kernels/quant.py::quant_plan,
 // host arrays read at launch) for the int8 kernel, or both null. Returns a
 // cudaError_t (0 on success).

@@ -225,10 +225,10 @@ constexpr int rays_per_block(int S) { return kMaxRows / S < kMaxRays ? kMaxRows 
 }  // namespace
 }  // namespace nst
 
-// ptrs, in order: rays_o, rays_d, radii, out; the MLP's weights
-// (nerf_mlp.cuh::read_weights, the full forward of a fused_mip.pack_mip
-// pack); its weight slices (fused_render.pack_slices of the pack: the full
-// forward, whose prefix the first level reads). A launch without them is
+// ptrs, in order: rays_o, rays_d, radii, out; the MLP's weight slices
+// (fused_render.pack_slices of a fused_mip.pack_mip pack: the full forward,
+// whose prefix the first level reads); its epilogue vectors
+// (nerf_mlp.cuh::read_weights, all heads). A launch without the slices is
 // refused. integrate 0: every variance of the IPE 0 (mip-NeRF's
 // disable_integration). Returns a cudaError_t (0 on success).
 extern "C" int nst_render_mip(const void* const* ptrs, int n_ptrs, long long n, int S, int D, unsigned skip,
@@ -241,10 +241,9 @@ extern "C" int nst_render_mip(const void* const* ptrs, int n_ptrs, long long n, 
   p.rays_d = static_cast<const float*>(ptrs[1]);
   p.radii = static_cast<const float*>(ptrs[2]);
   p.out = static_cast<float*>(const_cast<void*>(ptrs[3]));
-  const int k = read_weights(ptrs + 4, D, skip, false, &p.w);
-  if (k < 0 || n_ptrs != 4 + k + 1) return (int)cudaErrorInvalidValue;
-  p.slices = static_cast<const bf16*>(ptrs[4 + k]);
-  if (!p.slices) return (int)cudaErrorInvalidValue;
+  p.slices = static_cast<const bf16*>(ptrs[4]);
+  const int k = read_weights(ptrs + 5, D, skip, false, &p.w);
+  if (k < 0 || n_ptrs != 5 + k || !p.slices) return (int)cudaErrorInvalidValue;
   p.n_sigma = wg::mip_forward_slices(D, skip, true);
   p.n_full = wg::mip_forward_slices(D, skip, false);
   p.n = n;

@@ -21,9 +21,11 @@ fp32 path (3xTF32 products on the tensor cores, fp32 sums).
 ``wgmma_depth_program`` lists the DepthNet's matrices in the order a tile
 consumes them, and ``depth_slices`` writes their slice image once per pack
 (``fused_render.wgmma_slices``, or the hi and lo images of
-``fused_render.wgmma_slices32``) and keeps it there. The bf16 kernel reads
-A and B as they are; for the fp32 one ``fragment_tiles`` copies them into
-the order in which each thread of the tile reads its share of them.
+``fused_render.wgmma_slices32``) and keeps it there: the only device copy
+of the matrices. A launch passes A, B, out, the slices, then the vectors
+its epilogues read (``epilogue_vectors``). The bf16 kernel reads A and B
+as they are; for the fp32 one ``fragment_tiles`` copies them into the
+order in which each thread of the tile reads its share of them.
 """
 
 from __future__ import annotations
@@ -41,9 +43,6 @@ from nerf_sampling_tpu_torch.utils.precision import strict_fp32
 PAD = 128
 KERNEL_HIDDEN = 256  # hidden width the CUDA kernel is built for
 TILE_ROWS = 64  # rows of a tile of the kernel (csrc/mlp_wgmma.cuh's kRows32)
-
-# kernel launches since the last reset (see chip_smoke.py), bf16 and fp32
-launches = fp32_launches = 0
 
 
 def _in_out(lin: nn.Linear) -> torch.Tensor:
@@ -250,37 +249,31 @@ def kernel_occupancy(n: int, fp32: bool = False) -> dict[str, int]:
     one's (K1 in COMPARE): resident blocks per SM, threads per block,
     dynamic shared memory (bytes), tiles per block, blocks, and the card's
     SM count."""
-    import ctypes
-
-    out = (ctypes.c_int * 3)()
-    build.check(build.load_library().nst_depth_net_occupancy(int(fp32), out), "nst_depth_net_occupancy")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    tpb = tiles_per_block(n, sms)
-    return {"blocks_per_sm": out[0], "threads": out[1], "smem_bytes": out[2], "tiles_per_block": tpb,
-            "blocks": -(-(-(-n // TILE_ROWS)) // tpb), "sms": sms}
+    occ = build.occupancy("nst_depth_net_occupancy", int(fp32), fields=("blocks_per_sm", "threads", "smem_bytes"))
+    tpb = tiles_per_block(n, occ["sms"])
+    return {**occ, "tiles_per_block": tpb, "blocks": -(-(-(-n // TILE_ROWS)) // tpb)}
 
 
-def _flat_weights(packed: dict, dtype=torch.bfloat16) -> list[torch.Tensor]:
-    """Weights in the order nst_depth_net_forward reads them, after checking
-    that they are the kernel's layout: ``dtype`` matrices and fp32 biases."""
+def epilogue_vectors(packed: dict, dtype=torch.bfloat16) -> list[torch.Tensor]:
+    """The vectors of a pack that the kernel's epilogues read, in the order
+    nst_depth_net_forward takes them after the slices (each tower's biases,
+    the trunk's, head_w, head_b), after checking that the pack is the
+    kernel's layout: ``dtype`` matrices and fp32 biases (on CPU tensors
+    too, so that the plain version refuses what the kernel refuses)."""
     f32 = torch.float32
-    flat = []
-    for t in ("o", "d", "i"):
-        flat += [(w, dtype) for w in packed[t]["e"] + packed[t]["h"]]
-        flat += [(b, f32) for b in packed[t]["b"]]
-    flat += [(w, dtype) for w in packed["cat0"] + packed["cat_w"]]
-    flat += [(b, f32) for b in packed["cat_b"]] + [(packed["head_w"], dtype), (packed["head_b"], f32)]
-    for w, want in flat:
-        if w.dtype != want:
+    vec = [(b, f32) for t in ("o", "d", "i") for b in packed[t]["b"]]
+    vec += [(b, f32) for b in packed["cat_b"]] + [(packed["head_w"], dtype), (packed["head_b"], f32)]
+    for v, want in vec:
+        if v.dtype != want:
             raise TypeError(f"packed weights must be pack_depth_net(model, {dtype}): {dtype_name(dtype)} "
-                            f"matrices and fp32 biases, got a {w.dtype} {want} slot")
-    return [w for w, _ in flat]
+                            f"matrices and fp32 biases, got a {v.dtype} {want} slot")
+    return [v for v, _ in vec]
 
 
-def _check_cuda(cfg: DepthNetConfig, A: torch.Tensor, B: torch.Tensor, weights: list[torch.Tensor]) -> None:
+def check_cuda(cfg: DepthNetConfig, A: torch.Tensor, B: torch.Tensor, weights: list[torch.Tensor]) -> None:
     """What the CUDA kernel takes beyond the plain version: contiguous
-    buffers on the card, the 256-wide DepthNet, weights on the buffers'
-    device."""
+    buffers on the card, the 256-wide DepthNet, the slices and vectors
+    (``weights``) on the buffers' device."""
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
     if not (A.is_contiguous() and B.is_contiguous()):
@@ -300,11 +293,10 @@ def depth_net_kernel(
 
     On a CPU tensor this runs ``depth_net_plain`` at that dtype; on a CUDA
     tensor it launches the kernel, or raises on what the kernel does not take.
-    A launch hands the kernel, after the weights, the pack's slices
-    (``depth_slices``), checked first, and the tiles a block walks; an fp32
-    launch hands it A and B in fragment order (``fragment_tiles``).
+    A launch hands the kernel the pack's slices (``depth_slices``), checked
+    first, then its ``epilogue_vectors``, and the tiles a block walks; an
+    fp32 launch hands it A and B in fragment order (``fragment_tiles``).
     """
-    global launches, fp32_launches
     n = A.shape[0]
     dtype = A.dtype
     if dtype not in (torch.bfloat16, torch.float32) or B.dtype != dtype:
@@ -313,27 +305,19 @@ def depth_net_kernel(
         raise ValueError(f"A and B must be [N, {PAD}], got {tuple(A.shape)} and {tuple(B.shape)}")
     if A.device != B.device:
         raise ValueError("A and B must be on one device")
-    weights = _flat_weights(packed, dtype)
+    vectors = epilogue_vectors(packed, dtype)
     if A.device.type == "cpu":
         return depth_net_plain(packed, cfg, A, B, dtype)
-    _check_cuda(cfg, A, B, weights)
-    fp32 = dtype == torch.float32
-    out = torch.empty(n, dtype=torch.float32, device=A.device)
     slices = depth_slices(packed)
     check_depth_slices(slices, packed)
+    check_cuda(cfg, A, B, [slices, *vectors])
+    fp32 = dtype == torch.float32
+    out = torch.empty(n, dtype=torch.float32, device=A.device)
     if fp32:
         A, B = fragment_tiles(A), fragment_tiles(B)
-    lib = build.load_library()
-    arr, count = build.pointer_array([A, B, out] + weights + [slices])
-    rc = lib.nst_depth_net_forward(
-        arr, count, n, len(cfg.hidden_sizes), len(cfg.cat_hidden_sizes), float(cfg.near), float(cfg.far),
-        int(fp32), tiles_per_block(n, build.sm_count(A.device)), build.current_stream(A.device),
-    )
-    build.check(rc, "depth_net_kernel")
-    if fp32:
-        fp32_launches += 1
-    else:
-        launches += 1
+    build.launch("K1", dtype_name(dtype), "nst_depth_net_forward", [A, B, out, slices, *vectors], n,
+                 len(cfg.hidden_sizes), len(cfg.cat_hidden_sizes), float(cfg.near), float(cfg.far), int(fp32),
+                 tiles_per_block(n, build.sm_count(A.device)))
     return out
 
 

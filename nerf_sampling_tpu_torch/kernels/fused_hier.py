@@ -38,7 +38,8 @@ on one consumer warpgroup), fed each net's weight slices
 (``fused_render.pack_slices``: sigma-only for the coarse net, the full
 forward for the fine one; an int8 pack's are ``wgmma_qslices``' images, an
 fp32 pack's ``wgmma_slices32``' hi and lo images), made once per pack and
-kept in it. A launch without them is refused.
+kept in it; a launch hands them over before both packs' epilogue vectors
+(``fused_render.pack_args``). A launch without them is refused.
 """
 
 from __future__ import annotations
@@ -50,22 +51,16 @@ from nerf_sampling_tpu_torch.core.sampling import sample_pdf, stratified_z_vals
 from nerf_sampling_tpu_torch.kernels import build, philox, quant
 from nerf_sampling_tpu_torch.kernels.fused_render import (
     MAX_SAMPLES,
-    _check_cuda,
-    _check_rays,
-    _flat_weights,
-    _plan,
-    check_slices,
+    check_cuda,
+    check_rays,
     dtype_name,
+    epilogue_vectors,
     nerf_raw_plain,
+    pack_args,
     pack_nerf,
-    pack_slices,
+    precision,
 )
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
-
-# kernel launches since the last reset (see chip_smoke.py): K6 at bf16 and
-# int8, and K7 at bf16, fp32 and int8
-launches = int8_launches = 0
-det_launches = det_fp32_launches = det_int8_launches = 0
 
 _SIGMA_KEYS = ("w0", "trunk_w", "trunk_b", "skip_w", "alpha_w", "alpha_b")
 _SIGMA_KEYS_Q = ("w0", "b0", "trunk_wq", "trunk_row", "skip_w", "skip_b", "alpha_w", "alpha_b", "calib")
@@ -210,12 +205,10 @@ def render_hier_kernel(
     same draws; on a CUDA tensor it launches the kernel, or raises on what
     it does not take.
     """
-    global launches, int8_launches, det_launches, det_fp32_launches, det_int8_launches
     _check_envelope(n_coarse, n_importance)
     det = seed is None and draws is None
     fp32 = dtype_name(dtype) == "fp32"
-    int8 = quant.is_int8(packed["fine"])
-    if int8 != quant.is_int8(packed["coarse"]):
+    if quant.is_int8(packed["fine"]) != quant.is_int8(packed["coarse"]):
         raise TypeError("the coarse and fine packs must both be int8 (qpack_hier) or neither")
     if fp32 and not det:
         raise ValueError("the seeded hierarchical pass (K6) runs bf16 only; fp32 is K7's det mode")
@@ -223,10 +216,10 @@ def render_hier_kernel(
     n = rays_o.shape[0]
     n_draws = n_coarse + n_importance
     per_ray = {} if draws is None else {"draws": (draws, (n, n_draws))}
-    _check_rays(rays_o, rays_d, **per_ray)
-    w_c = _flat_weights(packed["coarse"], sigma_only=True, dtype=dtype)
-    w_f = _flat_weights(packed["fine"], dtype=dtype)
+    check_rays(rays_o, rays_d, **per_ray)
     if rays_o.device.type == "cpu":
+        epilogue_vectors(packed["coarse"], sigma_only=True, dtype=dtype)
+        epilogue_vectors(packed["fine"], dtype=dtype)
         return render_hier_plain(
             packed, cfg_c, cfg_f, rays_o, rays_d, n_coarse=n_coarse, n_importance=n_importance,
             near=near, far=far, white_bkgd=white_bkgd, lindisp=lindisp,
@@ -234,38 +227,20 @@ def render_hier_kernel(
             seed=seed if draws is None else None, ray_base=ray_base,
             multires=multires, multires_views=multires_views, dtype=dtype,
         )
-    inputs = (rays_o, rays_d) + ((draws,) if draws is not None else ())
-    _check_cuda(cfg_c, multires, multires_views, inputs, w_c)
-    _check_cuda(cfg_f, multires, multires_views, inputs, w_f)
-    plan_c, plan_f = _plan(packed["coarse"], cfg_c), _plan(packed["fine"], cfg_f)
-    slices = [pack_slices(packed["coarse"], True), pack_slices(packed["fine"], False)]
-    check_slices(slices[0], packed["coarse"], True)
-    check_slices(slices[1], packed["fine"], False)
-    lib = build.load_library()
+    c = pack_args(packed["coarse"], cfg_c, sigma_only=True, dtype=dtype)
+    f = pack_args(packed["fine"], cfg_f, dtype=dtype)
+    inputs = [rays_o, rays_d] + ([draws] if draws is not None else [])
+    check_cuda(cfg_c, multires, multires_views, inputs, [c.slices, *c.vectors])
+    check_cuda(cfg_f, multires, multires_views, inputs, [f.slices, *f.vectors])
     out = torch.empty((11, n), dtype=torch.float32, device=rays_o.device)
-    arr, count = build.pointer_array([rays_o, rays_d, draws, out] + w_c + w_f + slices)
-    rc = lib.nst_render_hier(
-        arr, count, n, n_coarse, n_importance,
-        cfg_c.D, sum(1 << i for i in packed["coarse"]["skip_w"]),
-        cfg_f.D, sum(1 << i for i in packed["fine"]["skip_w"]),
-        float(near), float(far), int(bool(lindisp)), int(bool(white_bkgd)),
-        None if seed_ptr is None else seed_ptr.data_ptr(),
+    build.launch(
+        "K7" if det else "K6", precision(packed["fine"], dtype), "nst_render_hier",
+        [rays_o, rays_d, draws, out, c.slices, f.slices, *c.vectors, *f.vectors], n, n_coarse, n_importance,
+        cfg_c.D, c.skip_mask, cfg_f.D, f.skip_mask, float(near), float(far), int(bool(lindisp)),
+        int(bool(white_bkgd)), None if seed_ptr is None else seed_ptr.data_ptr(),
         0 if seed is None or isinstance(seed, torch.Tensor) else int(seed) & 0xFFFFFFFF,
-        int(ray_base), int(det), int(fp32),
-        build.host_pointer(plan_c), build.host_pointer(plan_f), build.current_stream(rays_o.device),
+        int(ray_base), int(det), int(fp32), build.host_pointer(c.plan), build.host_pointer(f.plan),
     )
-    build.check(rc, "render_hier_kernel")
-    if fp32:
-        det_fp32_launches += 1
-    elif det:
-        if int8:
-            det_int8_launches += 1
-        else:
-            det_launches += 1
-    elif int8:
-        int8_launches += 1
-    else:
-        launches += 1
     return {
         "rgb_map": out[0:3].T, "disp_map": out[3], "acc_map": out[4], "depth_map": out[5],
         "max_z": out[6], "max_w": out[7], "max_rgb": out[8:11].T,

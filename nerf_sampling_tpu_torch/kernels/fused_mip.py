@@ -46,13 +46,7 @@ import torch
 
 from nerf_sampling_tpu_torch.core.encoding import mip_pos_enc, safe_wrap
 from nerf_sampling_tpu_torch.kernels import build
-from nerf_sampling_tpu_torch.kernels.fused_render import (
-    KERNEL_WIDTH,
-    _flat_weights,
-    check_slices,
-    mlp_plain,
-    pack_slices,
-)
+from nerf_sampling_tpu_torch.kernels.fused_render import KERNEL_WIDTH, mlp_plain, pack_args
 from nerf_sampling_tpu_torch.models.mipnerf import MipNeRF, MipNeRFConfig, render_levels
 from nerf_sampling_tpu_torch.models.nerf import NeRFConfig
 from nerf_sampling_tpu_torch.utils import profiling
@@ -61,8 +55,6 @@ PE_COLS = 128  # the PE tile: the IPE's 96 columns, the view encoding's 27, 5 ze
 VIEW_COL = 96  # first column of the view encoding
 VIEW_PANEL = 64  # the second panel, which the views layer reads alone
 MAX_INTERVALS = 512
-
-launches = 0  # K11 launches since the last reset
 
 
 def _pe_config(cfg: MipNeRFConfig) -> NeRFConfig:
@@ -118,14 +110,6 @@ def pack_mip(model: MipNeRF, dtype=torch.bfloat16) -> dict:
         "rgb_w": model.rgb_linear.weight.detach().float().to(dtype).contiguous(),  # [3, Wc]
         "rgb_b": b(model.rgb_linear),
     }
-
-
-def mip_slices(packed: dict) -> torch.Tensor:
-    """The pack's one slice image (its full forward, ``fused_render.pack_slices``),
-    made once and kept in the pack; the first level streams its prefix."""
-    slices = pack_slices(packed)
-    check_slices(slices, packed)
-    return slices
 
 
 def kernel_ipe(mean: torch.Tensor, cov: torch.Tensor, min_deg: int, max_deg: int) -> torch.Tensor:
@@ -209,7 +193,6 @@ def render_mip_kernel(
     on CPU tensors its plain version. While the recorder is on: the
     intervals queried at each level (``nst.mip.coarse_rows``,
     ``nst.mip.fine_rows``) and the launch's device ms (``nst.mip.kernel_ms``)."""
-    global launches
     n = rays_o.shape[0]
     radii = radii.reshape(-1)
     for name, t, shape in (("rays_o", rays_o, (n, 3)), ("rays_d", rays_d, (n, 3)), ("radii", radii, (n,))):
@@ -218,22 +201,18 @@ def render_mip_kernel(
     if rays_o.device.type == "cpu":
         return render_mip_plain(packed, cfg, rays_o, rays_d, radii, near=near, far=far, white_bkgd=white_bkgd)
     check_mip_kernel(cfg)
-    weights = _flat_weights(packed)
-    inputs = [rays_o.contiguous(), rays_d.contiguous(), radii.contiguous()]
+    pa = pack_args(packed, _pe_config(cfg))
+    weights = [pa.slices, *pa.vectors]
     if any(w.device != rays_o.device for w in weights):
         raise ValueError("packed weights must be on the rays' device")
-    slices = mip_slices(packed)
+    inputs = [rays_o.contiguous(), rays_d.contiguous(), radii.contiguous()]
     out = torch.empty((5, n), dtype=torch.float32, device=rays_o.device)
-    arr, count = build.pointer_array(inputs + [out] + weights + [slices])
-    lib = build.load_library()
     S = cfg.num_samples
     with profiling.device_ms("nst.mip.kernel_ms", rays_o.device):
-        rc = lib.nst_render_mip(
-            arr, count, n, S, cfg.net_depth, sum(1 << i for i in packed["skip_w"]), float(near), float(far),
-            int(bool(white_bkgd)), int(not cfg.disable_integration), float(cfg.density_bias), 1 + 2 * cfg.rgb_padding,
-            float(cfg.rgb_padding), float(cfg.resample_padding), build.current_stream(rays_o.device))
-    build.check(rc, "render_mip_kernel")
-    launches += 1
+        build.launch("K11", "bf16", "nst_render_mip", [*inputs, out, *weights], n, S, cfg.net_depth, pa.skip_mask,
+                     float(near), float(far), int(bool(white_bkgd)), int(not cfg.disable_integration),
+                     float(cfg.density_bias), 1 + 2 * cfg.rgb_padding, float(cfg.rgb_padding),
+                     float(cfg.resample_padding))
     profiling.count("nst.mip.coarse_rows", n * S)
     profiling.count("nst.mip.fine_rows", n * S)
     return {"rgb_map": out[0:3].T, "depth_map": out[3], "acc_map": out[4]}

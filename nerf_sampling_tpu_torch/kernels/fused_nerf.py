@@ -7,10 +7,11 @@ direction, rounded to bf16, then the viewdirs NeRF MLP (bf16 operands and
 activations, fp32 sums), returning the raw logits [M, 4] (rgb, sigma) with
 no sigmoid. The kernel source is ``csrc/nerf_points.cu``, on the wgmma core
 (``csrc/mlp_wgmma.cuh``); the weights are ``fused_render.pack_nerf``'s
-layout, shared with K2, K3, K6 and K7, and their full-forward slices
-(``fused_render.pack_slices``), which the caller makes once per set of
-weights and hands to every launch (the train step's Function hands K5 the
-same ones); a launch without them is refused. A block walks
+layout, shared with K2, K3, K6 and K7: a launch passes their full-forward
+slices (``fused_render.pack_slices``), which the caller makes once per set
+of weights (the train step's Function hands K5 the same ones), and the
+pack's epilogue vectors (``fused_render.pack_args``); a launch without
+the slices is refused. A block walks
 ``tiles_per_block`` 128-row tiles, sized from the rows and the card's SM
 count so that both of a step's queries fill the card.
 
@@ -35,17 +36,10 @@ import torch
 
 from nerf_sampling_tpu_torch.core.encoding import positional_encoding
 from nerf_sampling_tpu_torch.kernels import build
-from nerf_sampling_tpu_torch.kernels.fused_render import (
-    PTS_ROWS,
-    _check_cuda,
-    _flat_weights,
-    check_slices,
-    mlp_plain,
-)
+from nerf_sampling_tpu_torch.kernels.fused_render import PTS_ROWS, check_cuda, epilogue_vectors, mlp_plain, pack_args
 from nerf_sampling_tpu_torch.models.nerf import NeRFConfig
 from nerf_sampling_tpu_torch.utils import profiling
 
-launches = 0  # kernel launches since the last reset (see chip_smoke.py)
 TILE_ROWS = 128  # rows of a tile of the wgmma core
 
 
@@ -73,7 +67,7 @@ def count_fill(kernel: str, m: int, S: int) -> None:
         profiling.count(f"nst.{kernel}.view_rays", staged_view_rays(m, S))
 
 
-def _rows_per_dir(pts: torch.Tensor, dirs: torch.Tensor) -> int:
+def rows_per_dir(pts: torch.Tensor, dirs: torch.Tensor) -> int:
     """S of points [M, 3] and directions [M / S, 3], after checking both."""
     for name, t in (("pts", pts), ("viewdirs", dirs)):
         if t.dtype != torch.float32:
@@ -93,7 +87,7 @@ def point_embeddings(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's PE rows, rounded to ``dtype``: points [M, Cp] and the
     view embedding of each row's direction [M, Cv]."""
-    S = _rows_per_dir(pts, dirs)
+    S = rows_per_dir(pts, dirs)
 
     def rnd(x: torch.Tensor) -> torch.Tensor:
         return x.to(dtype).to(torch.float32)
@@ -136,27 +130,22 @@ def nerf_points_kernel(
     take, a launch without the slices included. A block walks
     ``tiles_per_block`` of M and the card's SM count 128-row tiles.
     """
-    global launches
-    S = _rows_per_dir(pts, viewdirs)
-    weights = _flat_weights(packed)
+    S = rows_per_dir(pts, viewdirs)
     if pts.device.type == "cpu":
+        epilogue_vectors(packed)
         return nerf_points_plain(packed, cfg, pts, viewdirs, multires=multires,
                                  multires_views=multires_views, dtype=torch.bfloat16)
-    _check_cuda(cfg, multires, multires_views, (pts, viewdirs), weights)
-    check_slices(slices, packed)
+    if slices is None:
+        raise ValueError("K4 takes the pack's full-forward slices (fused_render.pack_slices)")
+    pa = pack_args(packed, cfg, slices=slices)
+    weights = [pa.slices, *pa.vectors]
+    check_cuda(cfg, multires, multires_views, (pts, viewdirs), weights)
     m = pts.shape[0]
-    lib = build.load_library()
     out = torch.empty((m, 4), dtype=torch.float32, device=pts.device)
-    arr, count = build.pointer_array([pts, viewdirs, out] + weights + [slices])
-    rc = lib.nst_nerf_points(arr, count, m, S, cfg.D, sum(1 << i for i in packed["skip_w"]),
-                             tiles_per_block(m, build.sm_count(pts.device)), build.current_stream(pts.device))
-    build.check(rc, "nerf_points_kernel")
-    launches += 1
+    build.launch("K4", "bf16", "nst_nerf_points", [pts, viewdirs, out, *weights], m, S, cfg.D, pa.skip_mask,
+                 tiles_per_block(m, build.sm_count(pts.device)))
     count_fill("k4", m, S)
     return out
-
-
-point_fill_check_launches = 0  # the [core] check's point-fill launches
 
 
 def point_fill_check(pts: torch.Tensor, dirs: torch.Tensor, *, tiles_per_block: int = 1, rolled: bool = False,
@@ -171,8 +160,7 @@ def point_fill_check(pts: torch.Tensor, dirs: torch.Tensor, *, tiles_per_block: 
     as each fill wrote them, fp32 [Mp, 8] (pts, dirs, 0, 0). On CPU
     tensors both are the plain embedding (``point_embeddings`` in fp32,
     rounded to bf16)."""
-    global point_fill_check_launches
-    S = _rows_per_dir(pts, dirs)
+    S = rows_per_dir(pts, dirs)
     if tiles_per_block < 1:
         raise ValueError(f"tiles_per_block must be at least 1, got {tiles_per_block}")
     m = pts.shape[0]
@@ -191,11 +179,8 @@ def point_fill_check(pts: torch.Tensor, dirs: torch.Tensor, *, tiles_per_block: 
     pts, dirs = pts.contiguous(), dirs.contiguous()
     out = torch.empty((2, mp, 128), dtype=torch.bfloat16, device=pts.device)
     q = torch.empty((2, mp, 8), dtype=torch.float32, device=pts.device)
-    arr, count = build.pointer_array([pts, dirs, out, q])
-    rc = build.load_library().nst_point_fill_check(arr, count, m, S, tiles_per_block, int(bool(rolled)),
-                                                   build.current_stream(pts.device))
-    build.check(rc, "point_fill_check")
-    point_fill_check_launches += 1
+    build.launch("nst_point_fill_check", "bf16", "nst_point_fill_check", [pts, dirs, out, q], m, S, tiles_per_block,
+                 int(bool(rolled)))
     return out[0], out[1], q[0], q[1]
 
 
@@ -203,14 +188,9 @@ def kernel_occupancy(m: int) -> dict[str, int]:
     """K4's launch shape for m rows: resident blocks per SM, threads per
     block, dynamic shared memory (bytes), tiles per block, blocks, and the
     card's SM count."""
-    import ctypes
-
-    out = (ctypes.c_int * 3)()
-    build.check(build.load_library().nst_nerf_points_occupancy(out), "nst_nerf_points_occupancy")
-    sms = build.sm_count(torch.device("cuda", torch.cuda.current_device()))
-    tpb = tiles_per_block(m, sms)
-    return {"blocks_per_sm": out[0], "threads": out[1], "smem_bytes": out[2], "tiles_per_block": tpb,
-            "blocks": -(-(-(-m // TILE_ROWS)) // tpb), "sms": sms}
+    occ = build.occupancy("nst_nerf_points_occupancy", fields=("blocks_per_sm", "threads", "smem_bytes"))
+    tpb = tiles_per_block(m, occ["sms"])
+    return {**occ, "tiles_per_block": tpb, "blocks": -(-(-(-m // TILE_ROWS)) // tpb)}
 
 
 def flat_queries(pts: torch.Tensor, viewdirs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -40,19 +40,19 @@ import torch
 
 from nerf_sampling_tpu_torch.kernels import build
 from nerf_sampling_tpu_torch.kernels.fused_nerf import (
-    _rows_per_dir,
     count_fill,
     flat_queries,
     nerf_points_kernel,
     point_embeddings,
+    rows_per_dir,
 )
 from nerf_sampling_tpu_torch.kernels.fused_render import (
     PTS_ROWS,
     VIEW_ROWS,
-    _check_cuda,
-    _flat_weights,
-    check_slices,
+    check_cuda,
+    epilogue_vectors,
     mlp_plain,
+    pack_args,
     pack_nerf,
     pack_slices,
     wgmma_program,
@@ -60,7 +60,6 @@ from nerf_sampling_tpu_torch.kernels.fused_render import (
 )
 from nerf_sampling_tpu_torch.models.nerf import NeRF, NeRFConfig
 
-launches = 0  # backward launches since the last reset (see chip_smoke.py)
 SLICE_ROWS = 4096  # rows per slice of the weight-grad GEMMs (fp32 partials per slice)
 _HEAD_COLS = 16  # the g16 plane: r, g, b, sigma, then zeros
 
@@ -104,7 +103,7 @@ def nerf_points_bwd_plain(
     layout, dL/dpts [M, 3], dL/dviewdirs [M / S, 3]); the input grads are
     None without ``want_dx``."""
     f32 = torch.float32
-    S = _rows_per_dir(pts, viewdirs)
+    S = rows_per_dir(pts, viewdirs)
     Cp, Cv = cfg.input_ch, cfg.input_ch_views
 
     def rnd(x: torch.Tensor) -> torch.Tensor:
@@ -214,29 +213,24 @@ def nerf_points_bwd_kernel(
     ``events``, a list, receives four recorded CUDA events: before each
     pass and after the last (the per-pass times of chip_smoke.py).
     """
-    global launches
-    S = _rows_per_dir(pts, viewdirs)
+    S = rows_per_dir(pts, viewdirs)
     m = pts.shape[0]
     if g.dtype != torch.float32 or tuple(g.shape) != (m, 4) or g.device != pts.device:
         raise ValueError(f"g must be fp32 [{m}, 4] on the points' device")
-    weights = _flat_weights(packed)
     if pts.device.type == "cpu":
+        epilogue_vectors(packed)
         return nerf_points_bwd_plain(packed, cfg, pts, viewdirs, g, want_dx=want_dx, multires=multires,
                                      multires_views=multires_views, dtype=torch.bfloat16)
-    _check_cuda(cfg, multires, multires_views, (pts, viewdirs, g), weights)
-    dev = pts.device
-    skip_mask = sum(1 << i for i in packed["skip_w"])
-    total = sum(K * N for _, _, K, N in grad_jobs(packed))
-    lib = build.load_library()
-    sizes = (ctypes.c_longlong * 9)()
-    build.check(lib.nst_nerf_points_bwd_sizes(m, cfg.D, skip_mask, total, SLICE_ROWS, sizes),
-                "nst_nerf_points_bwd_sizes")
-    if fwd_slices is None:
-        fwd_slices = pack_slices(packed)
-    check_slices(fwd_slices, packed)
+    pa = pack_args(packed, cfg, slices=fwd_slices)
     program = wgmma_program(packed, backward=True, want_dx=want_dx)
     bwd_slices = wgmma_slices(program[len(wgmma_program(packed)):])
-    if fwd_slices.shape[0] != sizes[8] or bwd_slices.shape[0] != sizes[7 if want_dx else 6]:
+    check_cuda(cfg, multires, multires_views, (pts, viewdirs, g), [pa.slices, bwd_slices, *pa.vectors])
+    dev = pts.device
+    total = sum(K * N for _, _, K, N in grad_jobs(packed))
+    sizes = (ctypes.c_longlong * 9)()
+    build.check(build.load_library().nst_nerf_points_bwd_sizes(m, cfg.D, pa.skip_mask, total, SLICE_ROWS, sizes),
+                "nst_nerf_points_bwd_sizes")
+    if pa.slices.shape[0] != sizes[8] or bwd_slices.shape[0] != sizes[7 if want_dx else 6]:
         raise ValueError("the weight slices do not match the kernel's program")
     ws = torch.empty(sizes[0], dtype=torch.bfloat16, device=dev)
     bias_part = torch.empty(sizes[1], dtype=torch.float32, device=dev)
@@ -246,19 +240,15 @@ def nerf_points_bwd_kernel(
     masks = torch.empty(sizes[4], dtype=torch.int32, device=dev)
     dP = torch.empty(sizes[5], dtype=torch.float32, device=dev) if want_dx else None
     dx = torch.empty((m, 6), dtype=torch.float32, device=dev) if want_dx else None
-    arr, count = build.pointer_array([pts, viewdirs, g, dx, ws, bias_part, wpart, dw, db, masks, dP, fwd_slices,
-                                      bwd_slices] + weights)
-    stream = build.current_stream(dev)
+    ptrs = [pts, viewdirs, g, dx, ws, bias_part, wpart, dw, db, masks, dP, pa.slices, bwd_slices, *pa.vectors]
     for k in range(3):  # the row pass, the weight-grad GEMMs, the reductions
         if events is not None:
             events.append(torch.cuda.Event(enable_timing=True))
             events[-1].record()
-        rc = lib.nst_nerf_points_bwd(arr, count, m, S, cfg.D, skip_mask, total, SLICE_ROWS, k, stream)
-        build.check(rc, "nerf_points_bwd_kernel")
+        build.launch("K5", "bf16", "nst_nerf_points_bwd", ptrs, m, S, cfg.D, pa.skip_mask, total, SLICE_ROWS, k)
     if events is not None:
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
-    launches += 1
     count_fill("k5", m, S)
     d = _unflatten_grads(packed, dw, db)
     if not want_dx:

@@ -40,9 +40,11 @@ weight slices, in the order a tile consumes them (``wgmma_program``);
 K6-K9 run in int8, and ``wgmma_slices32`` for an fp32 pack's (the hi and
 lo tf32 images of every slice, ``tf32_split``, each 8-deep k group
 permuted), which K7, K8 and K9 run in fp32 with 3xTF32 products.
-``pack_slices`` makes a pack's slices once and keeps them in it; every
-render launch of this module hands them to the kernel after the weights
-(``_core_slices``).
+``pack_slices`` makes a pack's slices once and keeps them in it. The
+slice image is the only device copy of a pack's matrices: ``pack_args``
+turns a pack into what every NeRF launch passes (K2-K9, K11), its checked
+slices, the vectors the epilogues read (``epilogue_vectors``), the int8
+plan and the skip mask.
 ``wgmma_dense``, ``wgmma_dense_q`` and ``wgmma_dense32`` are one dense
 layer on that core, bf16, s8 and fp32, the first check of
 ``chip_smoke.py``; ``pe_fill_check`` holds the render kernels' PE fill to
@@ -65,13 +67,6 @@ from nerf_sampling_tpu_torch.utils.precision import strict_fp32
 MAX_SAMPLES = 512
 PTS_ROWS, VIEW_ROWS = 64, 32  # padded embedding widths of the kernel's PE row
 KERNEL_WIDTH = 256  # NeRF width the CUDA kernel is built for
-
-# kernel launches since the last reset (see chip_smoke.py): K2, K3, K8 and
-# K9 at bf16, fp32 and int8
-launches = int8_launches = 0
-gaussian_launches = gaussian_int8_launches = 0
-linspace_launches = linspace_fp32_launches = linspace_int8_launches = 0
-shade_launches = shade_fp32_launches = shade_int8_launches = 0
 
 
 def uniform_population_offsets(n_samples: int, std: float) -> np.ndarray:
@@ -367,19 +362,6 @@ def check_slices(slices: torch.Tensor, packed: dict, sigma_only: bool = False) -
                          f"(fused_render.pack_slices): {dtype} {shape}, got {got}")
 
 
-def _core_slices(packed: dict) -> list[torch.Tensor]:
-    """The render entries' last pointer, after the weights: the pack's
-    full-forward slices (bf16, int8 or fp32; every render kernel runs the
-    wgmma core), checked against the pack (``check_slices``). A launch
-    without them is refused by the kernel's pointer count."""
-    slices = pack_slices(packed)
-    check_slices(slices, packed)
-    return [slices]
-
-
-wgmma_dense_launches = wgmma_dense_q_launches = wgmma_dense32_launches = 0  # the [core] check's launches
-
-
 def wgmma_dense(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, a2: torch.Tensor | None = None,
                 w2: torch.Tensor | None = None, act: int = 1) -> torch.Tensor:
     """One dense layer on the wgmma core (``csrc/wg_dense.cu``):
@@ -387,7 +369,6 @@ def wgmma_dense(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, a2: tor
     bf16 with K in {64, 128, 192, 256} and N in {128, 256}, a2 [M, 64] and
     w2 [64, N] optional, act 0 none, 1 relu, 2 leaky. On a CPU tensor this
     runs the plain version (fp32 products of the bf16 operands)."""
-    global wgmma_dense_launches
     if (a2 is None) != (w2 is None):
         raise ValueError("give a2 and w2 together")
     if a.device.type == "cpu":
@@ -405,10 +386,7 @@ def wgmma_dense(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, a2: tor
     a, bias = a.contiguous(), bias.contiguous()
     a2 = None if a2 is None else a2.contiguous()
     out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
-    arr, count = build.pointer_array([a, a2, slices, bias, out])
-    rc = build.load_library().nst_wg_dense(arr, count, M, K, N, int(act), build.current_stream(a.device))
-    build.check(rc, "wgmma_dense")
-    wgmma_dense_launches += 1
+    build.launch("nst_wg_dense", "bf16", "nst_wg_dense", [a, a2, slices, bias, out], M, K, N, int(act))
     return out
 
 
@@ -417,7 +395,6 @@ def wgmma_dense_q(a: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     sums a @ wq^T of a [M, K] and wq [N, K] int8 ([out, in], as
     ``quant.qpack_nerf``'s matrices), K and N in {128, 256}. On a CPU tensor
     this runs the plain version (an int64 matmul)."""
-    global wgmma_dense_q_launches
     if a.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError("wgmma_dense_q takes int8 operands")
     if a.device.type == "cpu":
@@ -429,10 +406,7 @@ def wgmma_dense_q(a: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     slices = wgmma_qslices([(wq, True, None)])
     a = a.contiguous()
     out = torch.empty((M, N), dtype=torch.int32, device=a.device)
-    arr, count = build.pointer_array([a, slices, out])
-    rc = build.load_library().nst_wg_dense_q(arr, count, M, K, N, build.current_stream(a.device))
-    build.check(rc, "wgmma_dense_q")
-    wgmma_dense_q_launches += 1
+    build.launch("nst_wg_dense_q", "int8", "nst_wg_dense_q", [a, slices, out], M, K, N)
     return out
 
 
@@ -442,7 +416,6 @@ def wgmma_dense32(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, act: 
     a [M, K] and w [K, N] fp32 with K in {32, 64, ..., 256} and N in {128,
     256}, act 0 none, 1 relu, 2 leaky. On a CPU tensor this runs the plain
     version (an fp32 matmul)."""
-    global wgmma_dense32_launches
     if a.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError("wgmma_dense32 takes fp32 operands")
     if a.device.type == "cpu":
@@ -456,14 +429,8 @@ def wgmma_dense32(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, act: 
     slices = wgmma_slices32([(w, False)])
     a, bias = a.contiguous(), bias.contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    arr, count = build.pointer_array([a, slices, bias, out])
-    rc = build.load_library().nst_wg_dense32(arr, count, M, K, N, int(act), build.current_stream(a.device))
-    build.check(rc, "wgmma_dense32")
-    wgmma_dense32_launches += 1
+    build.launch("nst_wg_dense32", "fp32", "nst_wg_dense32", [a, slices, bias, out], M, K, N, int(act))
     return out
-
-
-pe_fill_check_launches = 0  # the [core] check's PE fill launches
 
 
 def pe_fill_check(rays_o: torch.Tensor, rays_d: torch.Tensor, z: torch.Tensor, R: int, *,
@@ -479,9 +446,8 @@ def pe_fill_check(rays_o: torch.Tensor, rays_d: torch.Tensor, z: torch.Tensor, R
     block's rays zero. With ``sigma_only`` the fill leaves the view panel
     (columns 64-127) as 0xFF bytes. On CPU tensors both are the plain
     embedding (``positional_encoding`` in fp32, rounded to bf16)."""
-    global pe_fill_check_launches
     n, S = z.shape
-    _check_rays(rays_o, rays_d, z=(z, (n, S)))
+    check_rays(rays_o, rays_d, z=(z, (n, S)))
     if not (1 <= R <= 64 and R * S <= 1536):
         raise ValueError(f"R must be in [1, 64] with R * S <= 1536, got R {R} at S {S}")
     tiles = -(-R * S // 128)
@@ -506,11 +472,8 @@ def pe_fill_check(rays_o: torch.Tensor, rays_d: torch.Tensor, z: torch.Tensor, R
         raise ValueError("the CUDA kernels are built for multires 10 and multires_views 4")
     rays_o, rays_d, z = rays_o.contiguous(), rays_d.contiguous(), z.contiguous()
     out = torch.empty((2, blocks * tiles * 128, 128), dtype=torch.bfloat16, device=z.device)
-    arr, count = build.pointer_array([rays_o, rays_d, z, out])
-    rc = build.load_library().nst_pe_fill_check(arr, count, n, S, R, int(bool(sigma_only)),
-                                                build.current_stream(z.device))
-    build.check(rc, "pe_fill_check")
-    pe_fill_check_launches += 1
+    build.launch("nst_pe_fill_check", "bf16", "nst_pe_fill_check", [rays_o, rays_d, z, out], n, S, R,
+                 int(bool(sigma_only)))
     return out[0], out[1]
 
 
@@ -677,51 +640,71 @@ def dtype_name(dtype: torch.dtype) -> str:
     return names[dtype]
 
 
-def _flat_qweights(packed: dict, sigma_only: bool = False) -> list[torch.Tensor]:
-    """An int8 pack's tensors in the order the C entry points read them
-    (nerf_mlp.cuh::read_weights_q), after checking their types."""
-    f32, bf16, i8, i32 = torch.float32, torch.bfloat16, torch.int8, torch.int32
-    calib = packed["calib"]
-    flat = [(packed["w0"], bf16), (packed["b0"], f32)] + [(w, i8) for w in packed["trunk_wq"]]
-    flat += [(r, f32 if s[0] == "skip" else i32) for r, s in zip(packed["trunk_row"], calib.steps)]
-    for i in sorted(packed["skip_w"]):
-        flat += [(packed["skip_w"][i], bf16), (packed["skip_b"][i], f32)]
-    flat += [(packed["alpha_w"], bf16), (packed["alpha_b"], f32)]
-    if not sigma_only:
-        flat = flat[:-2] + [(packed["feature_wq"], i8), (packed["feature_bz"], i32)] + flat[-2:]
-        flat += [(packed["views_wq"], i8), (packed["views_sw"], f32), (packed["views_ws"], bf16),
-                 (packed["views_b"], f32), (packed["rgb_w"], bf16), (packed["rgb_b"], f32)]
-    for w, want in flat:
-        if w.dtype != want:
-            raise TypeError(f"int8 weights must be quant.qpack_nerf(model, calib): got a {w.dtype} {want} slot")
-    return [w for w, _ in flat]
-
-
-def _flat_weights(packed: dict, sigma_only: bool = False, dtype=torch.bfloat16) -> list[torch.Tensor]:
-    """Weights in the order the C entry points read them, after checking
-    that they are the kernels' layout: ``dtype`` matrices and fp32 biases.
-    ``sigma_only``: the trunk and alpha head (K6's coarse net). An int8 pack
-    (``quant.qpack_nerf``) goes with the default ``dtype`` only."""
+def epilogue_vectors(packed: dict, sigma_only: bool = False, dtype=torch.bfloat16) -> list[torch.Tensor]:
+    """The vectors of a pack that the kernels' epilogues read, in the order
+    the C entries take them after the slices (``nerf_mlp.cuh::read_pack``),
+    after checking their types. A ``pack_nerf`` pack at ``dtype``: the
+    trunk's biases, then the alpha head alone (``sigma_only``: K6's coarse
+    net) or feature_b, alpha_w, alpha_b, views_b, rgb_w, rgb_b. An int8
+    pack (``quant.qpack_nerf``, with the default ``dtype`` only): b0, the
+    trunk rows, the skip layers' biases, then the alpha head alone or
+    feature_bz, alpha_w, alpha_b, views_sw, views_b, rgb_w, rgb_b. The
+    wrappers check CPU tensors' packs with it too, so that the plain
+    versions refuse what the kernels refuse."""
+    f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
     if quant.is_int8(packed):
-        if dtype != torch.bfloat16:
+        if dtype != bf16:
             raise TypeError(f"an int8 pack runs with the default dtype, not {dtype}")
-        return _flat_qweights(packed, sigma_only)
-    f32 = torch.float32
-    flat = [(packed["w0"], dtype)] + [(w, dtype) for w in packed["trunk_w"]]
-    flat += [(b, f32) for b in packed["trunk_b"]]
-    flat += [(packed["skip_w"][i], dtype) for i in sorted(packed["skip_w"])]
-    heads = ("alpha_w", "alpha_b") if sigma_only else (
-        "feature_w", "feature_b", "alpha_w", "alpha_b",
-        "views_wf", "views_ws", "views_b", "rgb_w", "rgb_b")
-    flat += [(packed[k], f32 if k.endswith("_b") else dtype) for k in heads]
-    for w, want in flat:
-        if w.dtype != want:
-            raise TypeError(f"packed weights must be pack_nerf(model, {dtype}): {dtype_name(dtype)} "
-                            f"matrices and fp32 biases, got a {w.dtype} {want} slot")
-    return [w for w, _ in flat]
+        vec = [(packed["b0"], f32)]
+        vec += [(r, f32 if s[0] == "skip" else i32) for r, s in zip(packed["trunk_row"], packed["calib"].steps)]
+        vec += [(packed["skip_b"][i], f32) for i in sorted(packed["skip_w"])]
+        heads = [("alpha_w", bf16), ("alpha_b", f32)] if sigma_only else [
+            ("feature_bz", i32), ("alpha_w", bf16), ("alpha_b", f32), ("views_sw", f32), ("views_b", f32),
+            ("rgb_w", bf16), ("rgb_b", f32)]
+        what = "int8 weights must be quant.qpack_nerf(model, calib)"
+    else:
+        vec = [(b, f32) for b in packed["trunk_b"]]
+        names = ("alpha_w", "alpha_b") if sigma_only else (
+            "feature_b", "alpha_w", "alpha_b", "views_b", "rgb_w", "rgb_b")
+        heads = [(k, f32 if k.endswith("_b") else dtype) for k in names]
+        what = (f"packed weights must be pack_nerf(model, {dtype}): {dtype_name(dtype)} matrices and fp32 "
+                f"biases")
+    vec += [(packed[k], want) for k, want in heads]
+    for v, want in vec:
+        if v.dtype != want:
+            raise TypeError(f"{what}: got a {v.dtype} {want} slot")
+    return [v for v, _ in vec]
 
 
-def _check_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, **per_ray) -> int:
+class PackArgs(NamedTuple):
+    """What a launch passes of a NeRF pack (``pack_args``)."""
+
+    slices: torch.Tensor  # the wgmma core's forward slices, checked against the pack
+    vectors: list[torch.Tensor]  # epilogue_vectors
+    plan: np.ndarray | None  # the int8 constants (quant.quant_plan); None for bf16 and fp32
+    skip_mask: int  # bit i: layer i also reads the point embedding
+
+
+def pack_args(packed: dict, cfg: NeRFConfig, *, sigma_only: bool = False, dtype=torch.bfloat16,
+              slices: torch.Tensor | None = None) -> PackArgs:
+    """What a launch passes of a ``pack_nerf`` pack at ``dtype`` or a
+    ``quant.qpack_nerf`` one: the forward's slices (``slices``, or the
+    pack's own from ``pack_slices``) after ``check_slices``, the
+    ``epilogue_vectors``, the int8 plan (after checking the pack's calib
+    against ``cfg``) and the skip mask. Each C entry takes the slices after
+    its inputs and outputs and the vectors after the slices."""
+    vectors = epilogue_vectors(packed, sigma_only, dtype)
+    if slices is None:
+        slices = pack_slices(packed, sigma_only)
+    check_slices(slices, packed, sigma_only)
+    plan = None
+    if quant.is_int8(packed):
+        quant.check_calib(packed["calib"], cfg)
+        plan = quant.quant_plan(packed, cfg.D)
+    return PackArgs(slices, vectors, plan, sum(1 << i for i in packed["skip_w"]))
+
+
+def check_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, **per_ray) -> int:
     """Shapes, types and device of N rays [N, 3] and per-ray fp32 tensors
     {name: (tensor, expected shape)}; returns N."""
     n = rays_o.shape[0]
@@ -736,10 +719,10 @@ def _check_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, **per_ray) -> int:
     return n
 
 
-def _check_cuda(cfg: NeRFConfig, multires: int, multires_views: int, tensors, weights) -> None:
+def check_cuda(cfg: NeRFConfig, multires: int, multires_views: int, tensors, weights) -> None:
     """What the CUDA kernels take beyond the plain version: contiguous
-    inputs, the 8x256-class NeRF with the production encodings, and packed
-    weights on the rays' device."""
+    inputs, the 8x256-class NeRF with the production encodings, and the
+    pack's slices and vectors (``weights``) contiguous on the rays' device."""
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
@@ -754,15 +737,6 @@ def _check_cuda(cfg: NeRFConfig, multires: int, multires_views: int, tensors, we
     for w in weights:
         if w.device != device or not w.is_contiguous():
             raise ValueError("packed weights must be contiguous and on the rays' device")
-
-
-def _plan(packed: dict, cfg: NeRFConfig) -> np.ndarray | None:
-    """The int8 kernels' scalar constants of an int8 pack (``quant.quant_plan``),
-    after checking its calib against ``cfg``; None for a bf16 or fp32 pack."""
-    if not quant.is_int8(packed):
-        return None
-    quant.check_calib(packed["calib"], cfg)
-    return quant.quant_plan(packed, cfg.D)
 
 
 def render_around_depth_kernel(
@@ -786,25 +760,17 @@ def render_around_depth_kernel(
     int8 chain); on a CUDA tensor it launches the kernel, or raises on what
     it does not take.
     """
-    global launches, int8_launches
     S = offsets.shape[0]
-    n = _check_rays(rays_o, rays_d, depth=(depth, (rays_o.shape[0],)), offsets=(offsets, (S,)))
+    check_rays(rays_o, rays_d, depth=(depth, (rays_o.shape[0],)), offsets=(offsets, (S,)))
     if not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"n_samples must be in [1, {MAX_SAMPLES}], got {S}")
-    weights = _flat_weights(packed)
-    kw = dict(near=near, far=far, white_bkgd=white_bkgd, multires=multires,
-              multires_views=multires_views)
     if rays_o.device.type == "cpu":
-        return render_around_depth_plain(packed, cfg, rays_o, rays_d, depth, offsets,
-                                         dtype=torch.bfloat16, **kw)
-    _check_cuda(cfg, multires, multires_views, (rays_o, rays_d, depth, offsets), weights)
-    maps = _launch("nst_render_around_depth", packed, cfg, rays_o, rays_d, depth, offsets, weights, S,
-                   float(near), float(far), int(bool(white_bkgd)))
-    if quant.is_int8(packed):
-        int8_launches += 1
-    else:
-        launches += 1
-    return maps
+        epilogue_vectors(packed)
+        return render_around_depth_plain(packed, cfg, rays_o, rays_d, depth, offsets, near=near, far=far,
+                                         white_bkgd=white_bkgd, multires=multires, multires_views=multires_views,
+                                         dtype=torch.bfloat16)
+    return _launch("K2", "nst_render_around_depth", packed, cfg, (rays_o, rays_d, depth, offsets),
+                   (multires, multires_views), torch.bfloat16, S, float(near), float(far), int(bool(white_bkgd)))
 
 
 def kernel_occupancy(n_samples: int = 64, fp32: bool = False, int8: bool = False) -> dict[str, int]:
@@ -870,30 +836,23 @@ def render_gaussian_kernel(
     same draws (``philox.gaussian_noise``) unless ``noise`` is given; on a
     CUDA tensor it launches the kernel, or raises on what it does not take.
     """
-    global gaussian_launches, gaussian_int8_launches
     S = n_samples
     n = rays_o.shape[0]
     per_ray = {"depth": (depth, (n,))}
     if noise is not None:
         per_ray["noise"] = (noise, (n, S - 1))
-    _check_rays(rays_o, rays_d, **per_ray)
+    check_rays(rays_o, rays_d, **per_ray)
     if not 2 <= S <= MAX_SAMPLES:
         raise ValueError(f"n_samples must be in [2, {MAX_SAMPLES}], got {S}")
-    weights = _flat_weights(packed)
     if rays_o.device.type == "cpu":
+        epilogue_vectors(packed)
         return render_gaussian_plain(packed, cfg, rays_o, rays_d, depth, noise, std=std, n_samples=S,
                                      seed=seed if noise is None else None, ray_base=ray_base,
                                      white_bkgd=white_bkgd, multires=multires,
                                      multires_views=multires_views, dtype=torch.bfloat16)
-    inputs = (rays_o, rays_d, depth) + ((noise,) if noise is not None else ())
-    _check_cuda(cfg, multires, multires_views, inputs, weights)
-    maps = _launch("nst_render_gaussian", packed, cfg, rays_o, rays_d, depth, noise, weights, S,
-                   float(std), int(seed) & 0xFFFFFFFF, int(ray_base), int(bool(white_bkgd)))
-    if quant.is_int8(packed):
-        gaussian_int8_launches += 1
-    else:
-        gaussian_launches += 1
-    return maps
+    return _launch("K3", "nst_render_gaussian", packed, cfg, (rays_o, rays_d, depth, noise),
+                   (multires, multires_views), torch.bfloat16, S, float(std), int(seed) & 0xFFFFFFFF,
+                   int(ray_base), int(bool(white_bkgd)))
 
 
 def fused_render_gaussian(
@@ -979,24 +938,28 @@ def shade_plain(
     return _maps(raw2outputs(raw, z, rays_d, 0.0, white_bkgd))
 
 
-def _launch(entry: str, packed: dict, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tensor,
-            depth: torch.Tensor | None, z: torch.Tensor | None, weights: list[torch.Tensor], S: int,
-            *args) -> dict[str, torch.Tensor]:
+def precision(packed: dict, dtype=torch.bfloat16) -> str:
+    """The precision a launch runs a pack in: "int8" for a ``quant.qpack_nerf``
+    pack, else ``dtype_name(dtype)``."""
+    return "int8" if quant.is_int8(packed) else dtype_name(dtype)
+
+
+def _launch(kernel: str, entry: str, packed: dict, cfg: NeRFConfig, inputs: tuple, encodings: tuple[int, int],
+            dtype: torch.dtype, S: int, *args) -> dict[str, torch.Tensor]:
     """One launch of K2 (``nst_render_around_depth``), K3
     (``nst_render_gaussian``), K8 (``nst_render_linspace``) or K9
-    (``nst_shade``): pointers rays_o, rays_d, depth (or none), the z
-    argument (or none), out, the weights and the pack's slices
-    (``_core_slices``); then n, S, D, the skip mask, ``args``, the
-    int8 plan (or null) and the stream."""
+    (``nst_shade``): pointers ``inputs`` (rays_o, rays_d, the depth or
+    None, the z argument or None), out, then the pack's slices and
+    epilogue vectors (``pack_args``); then n, S, D, the skip mask,
+    ``args`` and the int8 plan (or null)."""
+    rays_o = inputs[0]
     n = rays_o.shape[0]
-    plan = _plan(packed, cfg)
+    pa = pack_args(packed, cfg, dtype=dtype)
+    weights = [pa.slices, *pa.vectors]
+    check_cuda(cfg, *encodings, [t for t in inputs if t is not None], weights)
     out = torch.empty((6, n), dtype=torch.float32, device=rays_o.device)
-    arr, count = build.pointer_array([rays_o, rays_d, depth, z, out] + weights + _core_slices(packed))
-    rc = getattr(build.load_library(), entry)(
-        arr, count, n, S, cfg.D, sum(1 << i for i in packed["skip_w"]), *args,
-        build.host_pointer(plan), build.current_stream(rays_o.device),
-    )
-    build.check(rc, entry)
+    build.launch(kernel, precision(packed, dtype), entry, [*inputs, out, *weights], n, S, cfg.D, pa.skip_mask,
+                 *args, build.host_pointer(pa.plan))
     return {"rgb_map": out[0:3].T, "disp_map": out[3], "acc_map": out[4], "depth_map": out[5]}
 
 
@@ -1025,27 +988,18 @@ def fused_render(
     On a CPU tensor this runs ``render_linspace_plain`` at ``dtype``; on a
     CUDA tensor it launches the kernel, or raises on what it does not take.
     """
-    global linspace_launches, linspace_fp32_launches, linspace_int8_launches
-    n = _check_rays(rays_o, rays_d)
+    check_rays(rays_o, rays_d)
     if not 2 <= n_samples <= MAX_SAMPLES:  # at 1, raw2outputs' reference quirk (no interval) differs
         raise ValueError(f"n_samples must be in [2, {MAX_SAMPLES}], got {n_samples}")
-    weights = _flat_weights(packed, dtype=dtype)
-    kw = dict(white_bkgd=white_bkgd, multires=multires, multires_views=multires_views)
     if rays_o.device.type == "cpu":
+        epilogue_vectors(packed, dtype=dtype)
         return render_linspace_plain(packed, cfg, rays_o, rays_d, n_samples=n_samples, near=near, far=far,
-                                     lindisp=lindisp, dtype=dtype, **kw)
-    _check_cuda(cfg, multires, multires_views, (rays_o, rays_d), weights)
+                                     lindisp=lindisp, white_bkgd=white_bkgd, multires=multires,
+                                     multires_views=multires_views, dtype=dtype)
     a, b = (1.0 / near, 1.0 / far) if lindisp else (near, far)
-    fp32 = dtype == torch.float32
-    maps = _launch("nst_render_linspace", packed, cfg, rays_o, rays_d, None, None, weights, n_samples,
-                   float(a), float(b), int(bool(lindisp)), int(bool(white_bkgd)), int(fp32))
-    if fp32:
-        linspace_fp32_launches += 1
-    elif quant.is_int8(packed):
-        linspace_int8_launches += 1
-    else:
-        linspace_launches += 1
-    return maps
+    return _launch("K8", "nst_render_linspace", packed, cfg, (rays_o, rays_d, None, None), (multires, multires_views),
+                   dtype, n_samples, float(a), float(b), int(bool(lindisp)), int(bool(white_bkgd)),
+                   int(dtype == torch.float32))
 
 
 def fused_shade(
@@ -1071,24 +1025,14 @@ def fused_shade(
     On a CPU tensor this runs ``shade_plain`` at ``dtype``; on a CUDA tensor
     it launches the kernel, or raises on what it does not take.
     """
-    global shade_launches, shade_fp32_launches, shade_int8_launches
     n = rays_o.shape[0]
     S = z_vals.shape[-1] if z_vals.dim() == 2 else 0
-    _check_rays(rays_o, rays_d, z_vals=(z_vals, (n, S)))
+    check_rays(rays_o, rays_d, z_vals=(z_vals, (n, S)))
     if not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"z_vals must be [N, S] with S in [1, {MAX_SAMPLES}], got {tuple(z_vals.shape)}")
-    weights = _flat_weights(packed, dtype=dtype)
-    kw = dict(white_bkgd=white_bkgd, multires=multires, multires_views=multires_views)
     if rays_o.device.type == "cpu":
-        return shade_plain(packed, cfg, rays_o, rays_d, z_vals, assume_sorted=assume_sorted, dtype=dtype, **kw)
-    _check_cuda(cfg, multires, multires_views, (rays_o, rays_d, z_vals), weights)
-    fp32 = dtype == torch.float32
-    maps = _launch("nst_shade", packed, cfg, rays_o, rays_d, None, z_vals, weights, S, int(bool(assume_sorted)),
-                   int(bool(white_bkgd)), int(fp32))
-    if fp32:
-        shade_fp32_launches += 1
-    elif quant.is_int8(packed):
-        shade_int8_launches += 1
-    else:
-        shade_launches += 1
-    return maps
+        epilogue_vectors(packed, dtype=dtype)
+        return shade_plain(packed, cfg, rays_o, rays_d, z_vals, assume_sorted=assume_sorted, white_bkgd=white_bkgd,
+                           multires=multires, multires_views=multires_views, dtype=dtype)
+    return _launch("K9", "nst_shade", packed, cfg, (rays_o, rays_d, None, z_vals), (multires, multires_views), dtype,
+                   S, int(bool(assume_sorted)), int(bool(white_bkgd)), int(dtype == torch.float32))

@@ -203,7 +203,7 @@ def make_nerf_slices(kernels: KernelWeights) -> None:
     and alpha head of its coarse net. The Trainer makes a frozen NeRF's at
     setup, so that they do not first appear, and stay, at the first eval."""
     if kernels.mip is not None:
-        fused_mip.mip_slices(kernels.mip)
+        fused_render.pack_slices(kernels.mip)
     for k in (kernels, kernels.fp32):
         if k is None:
             continue
@@ -458,7 +458,7 @@ def _argmax_depth(
     return max_z, z_to_points(rays.rays_o, rays.rays_d, max_z), max_w
 
 
-def _query_fine_or_coarse(
+def query_fine_or_coarse(
     pipeline: Pipeline, params: NeRFParams, pts: torch.Tensor, rays: RayBatch
 ) -> torch.Tensor:
     """NeRF query preferring the fine network (reference nerf_utils.py:696-699),
@@ -489,7 +489,7 @@ def render_rays_train(
         max_z, max_pts, _ = _argmax_depth(hier.fine, hier.fine_z_vals, rays)
     depth_z = params.depth(rays.rays_o, rays.rays_d)
     depth_pts = z_to_points(rays.rays_o, rays.rays_d, depth_z)
-    depth_raw = _query_fine_or_coarse(pipeline, params, depth_pts, rays)
+    depth_raw = query_fine_or_coarse(pipeline, params, depth_pts, rays)
     out = raw2outputs(depth_raw, depth_z, rays.rays_d, pipeline.raw_noise_std,
                       pipeline.white_bkgd, generator=generator, rows=rows)
     return {
@@ -521,7 +521,7 @@ def render_rays_joint(
     max_z, _, _ = _argmax_depth(hier.fine, hier.fine_z_vals, rays)
     depth_z = params.depth(rays.rays_o, rays.rays_d)
     depth_pts = z_to_points(rays.rays_o, rays.rays_d, depth_z)
-    depth_raw = _query_fine_or_coarse(pipeline, params, depth_pts, rays)
+    depth_raw = query_fine_or_coarse(pipeline, params, depth_pts, rays)
     out = raw2outputs(depth_raw, depth_z, rays.rays_d, pipeline.raw_noise_std,
                       pipeline.white_bkgd, generator=generator, rows=rows)
     return {

@@ -46,9 +46,9 @@ the card a gloo mesh runs per step (train/trainer.py).
 
 A replay runs no Python, so the host side of a step is repeated here: the
 capture records how far the step moved each state's step and update counts
-and each kernel's launch counter (the ``*launches`` integers of
-``kernels.fused_*``), puts them back (capturing ran nothing), and adds the
-same at every replay, so the counters count the launches on the card. A
+and the kernels' launch counts (``kernels.build.launches``), puts them
+back (capturing ran nothing), and adds the same at every replay, so the
+counts count the launches on the card. A
 failed capture or replay raises; nothing falls back to eager steps on the
 card.
 
@@ -72,28 +72,17 @@ as they are without one only under a profiler of the host alone
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Hashable, Sequence
 
 import numpy as np
 import torch
 
-from nerf_sampling_tpu_torch.kernels import fused_depth_net, fused_hier, fused_nerf, fused_nerf_vjp, fused_render
+from nerf_sampling_tpu_torch.kernels import build
 from nerf_sampling_tpu_torch.train.state import TrainState, schedule_lr
 from nerf_sampling_tpu_torch.train.steps import StepSeed
 from nerf_sampling_tpu_torch.utils import profiling
-
-_COUNTED = (fused_depth_net, fused_hier, fused_nerf, fused_nerf_vjp, fused_render)
-
-
-def _host_counters(states: Sequence[TrainState]) -> list[tuple[object, str]]:
-    """The host counters a step moves: each state's step and update counts
-    and every kernel wrapper's launch counter."""
-    pairs = [(s, attr) for s in states for attr in ("step", "updates")]
-    pairs += [(m, name) for m in _COUNTED for name, v in vars(m).items()
-              if name.endswith("launches") and isinstance(v, int)]
-    return pairs
-
 
 @dataclasses.dataclass
 class _StepGraph:
@@ -107,12 +96,14 @@ class _StepGraph:
     timed_metrics: torch.Tensor  # [M], in the timed graph's memory
     phases: profiling.PhaseClock  # the timed graph's phase markers
     advances: list[tuple[object, str, int]]  # (owner, counter, what one step adds)
+    launches: collections.Counter  # what one step adds to build.launches
 
     def replay(self, timed: bool) -> torch.Tensor:
         with profiling.span("nst.dispatch.launch"):
             (self.timed if timed else self.graph).replay()
         for owner, name, d in self.advances:
             setattr(owner, name, getattr(owner, name) + d)
+        build.launches.update(self.launches)
         return self.timed_metrics if timed else self.metrics
 
 
@@ -236,8 +227,9 @@ class StepDispatcher:
         with torch.cuda.stream(self._stream):
             metrics, _ = self._body(self._row, self._seed)
         current.wait_stream(self._stream)
-        pairs = _host_counters(self.states)
+        pairs = [(s, attr) for s in self.states for attr in ("step", "updates")]
         before = [getattr(o, n) for o, n in pairs]
+        launched = build.launches.copy()
         captured = []
         for timed in (False, True):
             graph = torch.cuda.CUDAGraph()
@@ -251,5 +243,8 @@ class StepDispatcher:
                 setattr(owner, name, b)
                 if a is not None and b is not None and a != b:
                     advances.append((owner, name, a - b))
-        self._graphs[key] = _StepGraph(*captured, phases, advances)
+            launches = build.launches - launched
+            build.launches.clear()
+            build.launches.update(launched)
+        self._graphs[key] = _StepGraph(*captured, phases, advances, launches)
         return metrics

@@ -82,9 +82,9 @@ from nerf_sampling_tpu_torch.render.engine import (
     NeRFParams,
     Pipeline,
     RayBatch,
-    _query_fine_or_coarse,
     check_kernel_queries,
     make_ray_batch,
+    query_fine_or_coarse,
     render_rays_joint,
     render_rays_train,
     render_rays_vanilla,
@@ -242,7 +242,7 @@ def depth_net_loss(
         with profiling.phase("forward"):
             depth_z = depth(rays.rays_o, rays.rays_d)
             depth_pts = z_to_points(rays.rays_o, rays.rays_d, depth_z)
-            depth_raw = _query_fine_or_coarse(p, frozen, depth_pts, rays)
+            depth_raw = query_fine_or_coarse(p, frozen, depth_pts, rays)
             rgb = raw2outputs(depth_raw, depth_z, rays.rays_d, 0.0, p.white_bkgd).rgb_map
     else:
         generator = None if draws is not None else _generator(seed, rays.rays_o.device)

@@ -473,7 +473,7 @@ def nerf_haze(ckpt: str, batches: int = 4, device: str = "cpu") -> dict:
             rows["max_w"].append(float(max_w[fg].median()))
             for key, dz in (("mse_at", 0.0), ("mse_before", -0.05), ("mse_behind", 0.05)):
                 z = max_z + dz
-                raw = engine._query_fine_or_coarse(p, params, z_to_points(ro, rd, z), rays)
+                raw = engine.query_fine_or_coarse(p, params, z_to_points(ro, rd, z), rays)
                 rgb = raw2outputs(raw, z, rd, 0.0, p.white_bkgd).rgb_map
                 rows[key].append(float(((rgb - target) ** 2)[fg].mean()))
             acc_fg.append(float(fg.float().mean()))

@@ -369,14 +369,11 @@ def watch_steps():
 
 
 def launch_counts() -> dict[str, int]:
-    """Every kernel wrapper's launch counter (``kernels/*.py``'s ``*launches``)."""
-    import importlib
+    """The kernels' launch counts (``kernels.build.launches``), keyed
+    "<kernel>.<precision>"."""
+    from nerf_sampling_tpu_torch.kernels import build
 
-    out = {}
-    for name in ("fused_depth_net", "fused_render", "fused_hier", "fused_nerf", "fused_nerf_vjp"):
-        mod = importlib.import_module(f"nerf_sampling_tpu_torch.kernels.{name}")
-        out.update({f"{name}.{k}": v for k, v in vars(mod).items() if k.endswith("launches") and isinstance(v, int)})
-    return out
+    return {f"{k}.{p}": v for (k, p), v in build.launches.items()}
 
 
 def execute(cli: str, argv: list[str]) -> dict:
@@ -402,7 +399,7 @@ def execute(cli: str, argv: list[str]) -> dict:
            "captured_graphs": trainer.captured_graphs, "early_stop": trainer._stop_early,
            "max_memory_allocated_mib": torch.cuda.max_memory_allocated() / 2**20 if on_card else None,
            "expdir": os.path.relpath(trainer.expdir),
-           "launches": {k: v - counts[k] for k, v in launch_counts().items() if v != counts[k]}}
+           "launches": {k: v - counts.get(k, 0) for k, v in launch_counts().items() if v != counts.get(k, 0)}}
     if cli == "run":
         rec["n_iters"] = int(flag(argv, "--n_iters"))
         rec["mode"] = flag(argv, "--mode")

@@ -62,6 +62,7 @@ from nerf_sampling_tpu.train import trainer as jtrainer
 from nerf_sampling_tpu.train.steps import make_depth_net_train_step as jax_depth_step
 from nerf_sampling_tpu.train.steps import make_multi_step
 from nerf_sampling_tpu.parallel import make_mesh as jax_make_mesh
+from nerf_sampling_tpu_torch.kernels import build
 from nerf_sampling_tpu_torch.kernels import fused_hier as k6
 from nerf_sampling_tpu_torch.models import NeRF, NeRFConfig
 from nerf_sampling_tpu_torch.parallel import mesh as pmesh
@@ -428,27 +429,19 @@ def test_k6_launch_hands_the_seed_word(monkeypatch, by_pointer):
     """Against a mocked library: a device seed goes to nst_render_hier as
     its address (seed_ptr, before the seed) with 0 by value; an int goes
     by value with a null address."""
-    seen = {}
+    from test_torch_wgmma_tf32 import mocked_library
 
-    class Lib:
-        def nst_render_hier(self, arr, count, *args):
-            seen["args"] = args
-            return 0
-
-    fake = types.SimpleNamespace(load_library=Lib, pointer_array=lambda t: (None, len(t)),
-                                 host_pointer=lambda a: None, current_stream=lambda device: 0, check=lambda rc, n: None)
-    monkeypatch.setattr(k6, "build", fake)
-    monkeypatch.setattr(k6, "_check_cuda", lambda *a: None)  # the meta tensors below stand for the card's
+    seen = mocked_library(monkeypatch, k6, "nst_render_hier")
     coarse, fine, _, _ = hier_case()
     ro, rd = torch.zeros(8, 3, device="meta"), torch.zeros(8, 3, device="meta")
     seed = torch.zeros((), dtype=torch.int32, device="meta") if by_pointer else 99
     monkeypatch.setattr(torch.Tensor, "data_ptr", lambda t: 4096 if t.dim() == 0 else 0)
-    before = k6.launches
+    before = build.launches["K6", "bf16"]
     k6.render_hier_kernel(k6.pack_hier(coarse, fine), coarse.cfg, fine.cfg, ro, rd, n_coarse=8, n_importance=16,
                           seed=seed)
     # (..., seed_ptr, seed, ray_base, det, fp32, plan_c, plan_f, stream)
     assert seen["args"][-8:-4] == ((4096, 0, 0, 0) if by_pointer else (None, 99, 0, 0))
-    assert k6.launches == before + 1
+    assert build.launches["K6", "bf16"] == before + 1
     with pytest.raises(ValueError, match="device seed"):
         k6.render_hier_kernel(k6.pack_hier(coarse, fine), coarse.cfg, fine.cfg, ro, rd, n_coarse=8,
                               n_importance=16, seed=torch.zeros((), dtype=torch.int32))

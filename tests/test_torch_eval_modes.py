@@ -45,6 +45,7 @@ from nerf_sampling_tpu.models import NeRFConfig as JNeRFConfig
 from nerf_sampling_tpu.render import engine as jengine
 from nerf_sampling_tpu.render import path as jpath
 from nerf_sampling_tpu_torch.experiments import render as render_cli
+from nerf_sampling_tpu_torch.kernels import build
 from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
 from nerf_sampling_tpu_torch.kernels import fused_hier as k7
 from nerf_sampling_tpu_torch.kernels import fused_render as k89
@@ -135,7 +136,7 @@ def test_fp32_wrappers_on_cpu_match_pallas(rng):
     miss the sphere, as the JAX kernel."""
     params, jcfg, model = depth_pair(0)
     ro, rd = rays_np_narrow(96, rng, miss=3)
-    before = (k1.launches, k1.fp32_launches, k7.det_launches, k7.det_fp32_launches)
+    before = build.launches.copy()
     want = np.asarray(jax_fused_depth_net(params, jcfg, jnp.asarray(ro), jnp.asarray(rd), dtype=jnp.float32,
                                           interpret=True))[:, 0]
     got = k1.fused_depth_net_apply(k1.pack_depth_net(model, torch.float32), model.cfg, torch.from_numpy(ro),
@@ -154,7 +155,7 @@ def test_fp32_wrappers_on_cpu_match_pallas(rng):
                                n_importance=NF, dtype=torch.float32)
     for name in ("rgb_map", "max_z", "max_w", "max_rgb"):
         np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]), rtol=3e-4, atol=3e-4, err_msg=name)
-    assert (k1.launches, k1.fp32_launches, k7.det_launches, k7.det_fp32_launches) == before
+    assert build.launches == before
 
 
 def test_fp32_wrappers_check_their_packs():
@@ -525,7 +526,7 @@ def test_render_cli_modes(tmp_path):
     datadir, config, ckpt = cli_scene(tmp_path)
     base = ["-c", config, "-m", "small", "-dp", datadir, "--ft_path", ckpt, "--basedir", str(tmp_path / "logs"),
             "--device", "cpu", "--n_samples", "16", "--distance", "1.0", "--testskip", "1"]
-    counts = (k1.launches, k1.fp32_launches, k89.launches, k89.shade_fp32_launches, k7.det_launches)
+    counts = build.launches.copy()
     for flag, expname in (([], "None_depth_net_render_n_samples_16_distance_1.0_sampling_mode_uniform"),
                           (["-nc"], "None_depth_net_render_mse"), (["-nm"], "None_nerf_max_render"),
                           (["-nf"], "None_nerf_full_render")):
@@ -536,7 +537,7 @@ def test_render_cli_modes(tmp_path):
         assert lines[0].startswith("000.png, PSNR: ") and lines[2] == "Avg of 2 images:"
         assert (", MSE: " in lines[0]) == (flag == ["-nc"])
         assert {"000.png", "001.png", "video.gif"} <= set(os.listdir(d))
-    assert (k1.launches, k1.fp32_launches, k89.launches, k89.shade_fp32_launches, k7.det_launches) == counts
+    assert build.launches == counts
     # the int8 mode (K10): calibrated on the loaded NeRFs, the int8 kernels' plain versions on CPU
     tr = render_cli.main(base + ["--mlp_impl", "pallas_int8"])
     assert tr.pipeline.mlp_impl == "cuda_int8" and len(tr.pipeline.quant_calib) == 2

@@ -29,6 +29,7 @@ from nerf_sampling_tpu.models import nerf_init_active
 from nerf_sampling_tpu.render import engine as jengine
 from nerf_sampling_tpu_torch.core.compositing import RenderOutputs
 from nerf_sampling_tpu_torch.core.sampling import sample_pdf, stratified_z_vals
+from nerf_sampling_tpu_torch.kernels import build
 from nerf_sampling_tpu_torch.kernels import fused_hier as k6
 from nerf_sampling_tpu_torch.kernels import fused_render as k3
 from nerf_sampling_tpu_torch.kernels import philox
@@ -215,9 +216,9 @@ def test_hier_wrapper_on_cpu_is_plain_bf16_with_philox_draws(rng):
     _, _, _, coarse, fine, ro, rd = hier_setup(rng)
     packed = k6.pack_hier(coarse, fine)
     args = (packed, coarse.cfg, fine.cfg, torch.from_numpy(ro), torch.from_numpy(rd))
-    before = k6.launches
+    before = build.launches.copy()
     got = k6.render_hier_kernel(*args, n_coarse=NC, n_importance=NF, seed=9)
-    assert k6.launches == before
+    assert build.launches == before
     draws = philox.hier_draws(9, N_RAYS, NC + NF)
     want = k6.render_hier_plain(*args, n_coarse=NC, n_importance=NF, t_rand=draws[:, :NC],
                                 u=draws[:, NC:], dtype=torch.bfloat16)
@@ -232,10 +233,10 @@ def test_gaussian_wrapper_on_cpu_is_plain_bf16_with_philox_draws(rng):
     n, S = 64, 16
     ro, rd = (torch.from_numpy(a) for a in rays_np(n, rng))
     depth = torch.linspace(2.5, 5.5, n)
-    before = k3.gaussian_launches
+    before = build.launches.copy()
     got = k3.fused_render_gaussian(k3.pack_nerf(model), model.cfg, ro, rd, depth, seed=4,
                                    n_samples=S, std=0.5)
-    assert k3.gaussian_launches == before
+    assert build.launches == before
     want = k3.render_gaussian_plain(k3.pack_nerf(model), model.cfg, ro, rd, depth,
                                     philox.gaussian_noise(4, n, S - 1), std=0.5)
     for name in got:

@@ -27,6 +27,7 @@ from nerf_sampling_tpu.models import (
 from nerf_sampling_tpu_torch.core.compositing import raw2outputs
 from nerf_sampling_tpu_torch.core.encoding import positional_encoding
 from nerf_sampling_tpu_torch.core.sampling import sample_points_around_mean
+from nerf_sampling_tpu_torch.kernels import build
 from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
 from nerf_sampling_tpu_torch.kernels import fused_render as k2
 from nerf_sampling_tpu_torch.models import DepthNet, DepthNetConfig, NeRF, NeRFConfig
@@ -83,10 +84,10 @@ def test_depth_net_plain_matches_pallas_f32(rng, n):
 def test_depth_net_wrapper_on_cpu_is_plain_bf16(rng):
     params, jcfg, model = depth_pair(1)
     ro, rd = rays_np(96, rng, miss=2)
-    before = k1.launches
+    before = build.launches.copy()
     got = k1.fused_depth_net_apply(k1.pack_depth_net(model), model.cfg, torch.from_numpy(ro),
                                    torch.from_numpy(rd))
-    assert k1.launches == before  # a CPU tensor launches nothing
+    assert build.launches == before  # a CPU tensor launches nothing
     A, B = k1.depth_net_inputs(model.cfg, torch.from_numpy(ro), torch.from_numpy(rd))
     plain = k1.depth_net_plain(k1.pack_depth_net(model), model.cfg, A, B, torch.bfloat16)
     np.testing.assert_array_equal(got.numpy(), plain.numpy())
@@ -173,9 +174,9 @@ def test_render_around_depth_wrapper_on_cpu_is_plain_bf16(rng):
     ro, rd = rays_np(n, rng)
     depth = np.linspace(2.5, 5.5, n, dtype=np.float32)
     args = (torch.from_numpy(ro), torch.from_numpy(rd), torch.from_numpy(depth))
-    before = k2.launches
+    before = build.launches.copy()
     got = k2.fused_render_around_depth(k2.pack_nerf(model), model.cfg, *args, n_samples=S, std=1.0)
-    assert k2.launches == before
+    assert build.launches == before
     plain = k2.render_around_depth_plain(
         k2.pack_nerf(model), model.cfg, *args,
         torch.from_numpy(k2.uniform_population_offsets(S, 1.0)), dtype=torch.bfloat16,

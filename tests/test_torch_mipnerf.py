@@ -31,7 +31,7 @@ from nerf_sampling_tpu_torch.core.sampling import (
     resample_intervals,
     sorted_piecewise_constant_pdf,
 )
-from nerf_sampling_tpu_torch.kernels import fused_mip, fused_render
+from nerf_sampling_tpu_torch.kernels import build, fused_mip, fused_render
 from nerf_sampling_tpu_torch.models.mipnerf import MipNeRF, MipNeRFConfig, init_glorot, load_raw
 from nerf_sampling_tpu_torch.render.engine import (
     EvalMode,
@@ -194,9 +194,9 @@ def test_two_level_render_matches_the_reference(mlp_impl):
     if mlp_impl == "cuda":
         params = pack_kernel_weights(params)
         make_nerf_slices(params.kernels)
-    launches = fused_mip.launches
+    launches = build.launches.copy()
     maps = render_image(pipe, params, SIZE, SIZE, K, pose()[:3, :4], device="cpu", mode=EvalMode.FULL_NERF)
-    assert fused_mip.launches == launches
+    assert build.launches == launches
     got = {"rgb": maps["depth_net_rgb_map"].reshape(-1, 3), "depth": maps["depth_net_z_vals"].reshape(-1),
            "acc": maps["depth_net_weights"].reshape(-1)}
     g = gaps(got, want)
@@ -250,7 +250,7 @@ def test_pack_layout_puts_ipe_and_view_columns_in_the_pe_panels():
     assert pack["views_ws"].shape == (64, 128) and torch.equal(pack["views_ws"][32:59], bf(L[10]["weight"][256:]))
     assert not pack["views_ws"][:32].any() and not pack["views_ws"][59:].any()
     assert torch.equal(pack["feature_w"], bf(L[9]["weight"])) and torch.equal(pack["alpha_w"], bf(L[8]["weight"][:, 0]))
-    full, sigma = fused_mip.mip_slices(pack), fused_render.pack_slices(pack, sigma_only=True)
+    full, sigma = fused_render.pack_slices(pack), fused_render.pack_slices(pack, sigma_only=True)
     count = _mip_slice_formula()
     assert full.shape[0] == count(8, 1 << 5, False) == 77 and sigma.shape[0] == count(8, 1 << 5, True) == 64
     assert torch.equal(full[:64], sigma)  # one image serves both levels: the first streams its prefix

@@ -5,14 +5,16 @@ which the nerf step's Function makes once, in its forward, and hands K5's
 recompute too. These tests hold, against a mocked library (the kernels
 run only on the card, where ``chip_smoke.py`` [k4] holds them):
 
-- what a K4 launch hands ``nst_nerf_points``: pts, dirs, out, the weights,
-  then the slices (as many as the header's ``forward_slices`` reads), and
+- what a K4 launch hands ``nst_nerf_points``: pts, dirs, out, the slices
+  (as many as the header's ``forward_slices`` reads), then the pack's
+  epilogue vectors, and
   the 128-row tiles a block walks at the train step's two query sizes (4
   at 65,536 rows and 12 at 196,608 on 132 SMs: 128 blocks each);
 - a K4 launch without the slices, or with another program's, is refused
   before any launch;
 - a K5 launch hands ``nst_nerf_points_bwd`` the forward slices it is given
-  and the backward's own (the program's tail past the forward);
+  and the backward's own (the program's tail past the forward), then the
+  pack's epilogue vectors;
 - one forward and backward of ``fused_nerf_train_apply`` builds the
   forward slices once (``wgmma_slices`` on the forward program) and hands
   the same image to K4 and K5.
@@ -20,12 +22,11 @@ run only on the card, where ``chip_smoke.py`` [k4] holds them):
 
 from __future__ import annotations
 
-import types
-
 import numpy as np
 import pytest
 import torch
 from test_torch_wgmma_pack import _header_formula, small_nerf
+from test_torch_wgmma_tf32 import mocked_library
 
 from nerf_sampling_tpu_torch.kernels import build
 from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
@@ -33,45 +34,21 @@ from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
 from nerf_sampling_tpu_torch.kernels import fused_render as fr
 
 
-def mock_library(monkeypatch, module, **entries):
-    """Replace ``module``'s build with a 132-SM card whose library records
-    each call of the named entries (and runs the entry's function, if
-    given, on its arguments); returns the records."""
-    seen = {"calls": []}
-
-    class Lib:
-        def __getattr__(self, name):
-            def call(*args):
-                seen["calls"].append((name, args))
-                return entries[name](*args) if entries.get(name) else 0
-            return call
-
-    def pointer_array(tensors):
-        seen["ptrs"] = tensors
-        return None, len(tensors)
-
-    fake = types.SimpleNamespace(load_library=Lib, pointer_array=pointer_array, host_pointer=build.host_pointer,
-                                 current_stream=lambda device: 0, check=build.check, sm_count=lambda device: 132)
-    monkeypatch.setattr(module, "build", fake)
-    monkeypatch.setattr(module, "_check_cuda", lambda *a: None)  # the meta tensors below stand for the card's
-    return seen
-
-
 @pytest.mark.parametrize("M,S,tiles", [(65536, 64, 4), (196608, 192, 12)], ids=["coarse", "fine"])
 def test_k4_launch_takes_the_forward_slices_and_sizes_its_blocks(monkeypatch, M, S, tiles):
     model = small_nerf(D=8, skips=(4,))
     packed = fr.pack_nerf(model)
     slices = fr.pack_slices(packed)
-    seen = mock_library(monkeypatch, k4, nst_nerf_points=None)
+    seen = mocked_library(monkeypatch, k4, "nst_nerf_points")
     pts, dirs = torch.zeros(M, 3, device="meta"), torch.zeros(M // S, 3, device="meta")
-    before = k4.launches
+    before = build.launches["K4", "bf16"]
     out = k4.nerf_points_kernel(packed, model.cfg, pts, dirs, slices=slices)
-    assert tuple(out.shape) == (M, 4) and k4.launches == before + 1
+    assert tuple(out.shape) == (M, 4) and build.launches["K4", "bf16"] == before + 1
     ptrs = seen["ptrs"]
-    weights = fr._flat_weights(packed)
-    assert len(ptrs) == 3 + len(weights) + 1
+    vectors = fr.epilogue_vectors(packed)
+    assert len(ptrs) == 3 + 1 + len(vectors)
     assert ptrs[0] is pts and ptrs[1] is dirs and ptrs[2] is out
-    assert all(a is b for a, b in zip(ptrs[3:-1], weights)) and ptrs[-1] is slices
+    assert ptrs[3] is slices and all(a is b for a, b in zip(ptrs[4:], vectors))
     assert slices.shape[0] == _header_formula("forward_slices")(8, 0b100000, False)
     ((name, args),) = seen["calls"]
     assert name == "nst_nerf_points" and args[1] == len(ptrs)
@@ -82,7 +59,7 @@ def test_k4_launch_takes_the_forward_slices_and_sizes_its_blocks(monkeypatch, M,
 def test_k4_launch_without_its_slices_is_refused(monkeypatch):
     model = small_nerf(D=4, skips=(1,))
     packed = fr.pack_nerf(model)
-    seen = mock_library(monkeypatch, k4, nst_nerf_points=None)
+    seen = mocked_library(monkeypatch, k4, "nst_nerf_points")
     pts, dirs = torch.zeros(256, 3, device="meta"), torch.zeros(4, 3, device="meta")
     for bad in (None, fr.pack_slices(packed, sigma_only=True), fr.pack_slices(packed).float()):
         with pytest.raises(ValueError, match="slices"):
@@ -102,7 +79,7 @@ def test_k5_launch_takes_the_forward_and_the_backward_slices(monkeypatch):
             out[i] = v
         return 0
 
-    seen = mock_library(monkeypatch, k5, nst_nerf_points_bwd_sizes=sizes, nst_nerf_points_bwd=None)
+    seen = mocked_library(monkeypatch, k5, "nst_nerf_points_bwd", nst_nerf_points_bwd_sizes=sizes)
     m, S = 512, 8
     pts, dirs, g = (torch.zeros(*shape, device="meta") for shape in ((m, 3), (m // S, 3), (m, 4)))
     monkeypatch.setattr(k5, "_unflatten_grads", lambda packed, dw, db: {})
@@ -113,7 +90,8 @@ def test_k5_launch_takes_the_forward_and_the_backward_slices(monkeypatch):
         assert ptrs[11] is fwd
         assert torch.equal(ptrs[12], fr.wgmma_slices(program[len(fr.wgmma_program(packed)):]))
         assert ptrs[12].shape[0] == header_bwd(4, 0b10, want_dx)
-        assert all(a is b for a, b in zip(ptrs[13:], fr._flat_weights(packed)))
+        assert len(ptrs) == 13 + len(fr.epilogue_vectors(packed))
+        assert all(a is b for a, b in zip(ptrs[13:], fr.epilogue_vectors(packed)))
         assert (ptrs[3] is None) == (not want_dx)
     with pytest.raises(ValueError, match="slices"):
         k5.nerf_points_bwd_kernel(packed, model.cfg, pts, dirs, g, want_dx=False,

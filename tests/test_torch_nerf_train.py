@@ -57,6 +57,7 @@ from nerf_sampling_tpu.train import state as jstate
 from nerf_sampling_tpu.train.steps import make_joint_train_step as jax_joint_step
 from nerf_sampling_tpu.train.steps import make_nerf_train_step as jax_nerf_step
 from nerf_sampling_tpu_torch.experiments import run
+from nerf_sampling_tpu_torch.kernels import build
 from nerf_sampling_tpu_torch.kernels import fused_hier as k67
 from nerf_sampling_tpu_torch.kernels import fused_nerf as k4
 from nerf_sampling_tpu_torch.kernels import fused_nerf_vjp as k5
@@ -195,10 +196,10 @@ def test_fused_nerf_train_apply_matches_module_autograd(rng):
     pts, vd = point_inputs(rng)
     w = torch.from_numpy(rng.standard_normal(pts.shape[:2] + (4,)).astype(np.float32))
     x1 = torch.from_numpy(pts).requires_grad_(True)
-    before = (k4.launches, k5.launches)
+    before = build.launches.copy()
     raw = k5.fused_nerf_train_apply(model, model.cfg, x1, torch.from_numpy(vd)[:, None, :])
     (raw * w).sum().backward()
-    assert (k4.launches, k5.launches) == before
+    assert build.launches == before
     x2 = torch.from_numpy(pts).requires_grad_(True)
     pipe = tengine.Pipeline(nerf=model.cfg)
     want = tengine.query_nerf(pipe, ref, x2, torch.from_numpy(vd))
@@ -486,11 +487,11 @@ def test_k7_wrapper_matches_pallas_det():
     want = jax_fused_hier(jparams.coarse, JNeRFConfig(**NERF_KW), jparams.fine, JNeRFConfig(**NERF_KW),
                           jnp.asarray(ro), jnp.asarray(rd), n_coarse=NC, n_importance=NF,
                           dtype=jnp.bfloat16, interpret=True)
-    before = (k67.launches, k67.det_launches)
+    before = build.launches.copy()
     got = k67.render_hier_kernel(k67.pack_hier(tparams.coarse, tparams.fine), tparams.coarse.cfg,
                                  tparams.fine.cfg, torch.from_numpy(ro), torch.from_numpy(rd),
                                  n_coarse=NC, n_importance=NF)
-    assert (k67.launches, k67.det_launches) == before
+    assert build.launches == before
     for name in ("rgb_map", "acc_map"):
         d = np.abs(got[name].numpy() - np.asarray(want[name]))
         assert d.max() <= 5e-2 and d.mean() <= 2e-3, name

@@ -59,6 +59,7 @@ from nerf_sampling_tpu.models import nerf_init_active
 from nerf_sampling_tpu.render import engine as jengine
 from nerf_sampling_tpu_torch.core.encoding import positional_encoding
 from nerf_sampling_tpu_torch.experiments import run
+from nerf_sampling_tpu_torch.kernels import build
 from nerf_sampling_tpu_torch.kernels import fused_hier as k67
 from nerf_sampling_tpu_torch.kernels import fused_render as k289
 from nerf_sampling_tpu_torch.kernels import philox, quant
@@ -288,14 +289,14 @@ def test_k3_int8_plain_with_injected_noise_matches_pallas(rng):
                                      std=std)
     assert_maps(got, want, ("rgb_map", "acc_map", "depth_map"))
     # the CPU wrapper with a seed is the plain version on the Philox draws
-    before = (k289.gaussian_launches, k289.gaussian_int8_launches)
+    before = build.launches.copy()
     wrapped = k289.fused_render_gaussian(qp, model.cfg, torch.from_numpy(ro), torch.from_numpy(rd), depth, seed=4,
                                          n_samples=S, std=std)
     plain = k289.render_gaussian_plain(qp, model.cfg, torch.from_numpy(ro), torch.from_numpy(rd), depth,
                                        philox.gaussian_noise(4, n, S - 1), std=std)
     for name in wrapped:
         torch.testing.assert_close(wrapped[name], plain[name], rtol=0, atol=0)
-    assert (k289.gaussian_launches, k289.gaussian_int8_launches) == before
+    assert build.launches == before
 
 
 def hier_setup(rng):
@@ -309,10 +310,10 @@ def test_k7_int8_plain_matches_pallas(rng):
     jc, jf, jcfg, coarse, fine, ro, rd, calib = hier_setup(rng)
     want = jax_fused_hier(jc, jcfg, jf, jcfg, jnp.asarray(ro), jnp.asarray(rd), n_coarse=8, n_importance=16,
                           interpret=True, quant=tuple(map(to_jax, calib)))
-    before = (k67.det_launches, k67.det_int8_launches)
+    before = build.launches.copy()
     got = k67.fused_render_hier(k67.qpack_hier(coarse, fine, calib), coarse.cfg, fine.cfg, torch.from_numpy(ro),
                                 torch.from_numpy(rd), seed=None, n_coarse=8, n_importance=16)
-    assert (k67.det_launches, k67.det_int8_launches) == before  # CPU tensors launch nothing
+    assert build.launches == before  # CPU tensors launch nothing
     # the depth and the argmax not: a flip that moves a fine sample moves them by its spacing
     assert_maps(got, want, ("rgb_map", "acc_map"), HIER_MEAN_TOL)
     assert float(np.median(np.abs(got["max_z"].numpy() - np.asarray(want["max_z"])))) < (6.0 - 2.0) / 8

@@ -24,7 +24,8 @@ reads blind. These tests hold what the card cannot show here:
 - the emulated fp32 K9 (``emulated_raw`` in ``shade_plain``) matches the JAX
   ``fused_shade`` at fp32 in interpret mode;
 - against a mocked library: an fp32 K1 launch and an fp32 K8/K9 launch hand
-  their pack's fp32 slices after the weights; a launch whose pack holds
+  their pack's fp32 slices after their outputs, then the pack's epilogue
+  vectors; a launch whose pack holds
   another program's slices is refused before the call; bf16 and int8
   launches hand their pack's own images (bf16 K1 its bf16 slices, int8
   K8/K9 the int8 program's).
@@ -48,6 +49,7 @@ from test_torch_wgmma_tf32 import emulated_raw, mm3, mocked_library, unpack32
 
 from nerf_sampling_tpu.kernels.fused_depth_net import fused_depth_net_apply as jax_fused_depth_net
 from nerf_sampling_tpu.kernels.fused_render import fused_shade as jax_fused_shade
+from nerf_sampling_tpu_torch.kernels import build
 from nerf_sampling_tpu_torch.kernels import fused_depth_net as k1
 from nerf_sampling_tpu_torch.kernels import fused_render as k89
 from nerf_sampling_tpu_torch.kernels import quant
@@ -212,33 +214,33 @@ def meta(*shape):
 
 @pytest.mark.parametrize("dtype", [F32, torch.bfloat16])
 def test_k1_launch_hands_the_fp32_slices_after_the_weights(monkeypatch, dtype):
-    """fp32: A and B in fragment order, out, the weights, then the pack's
-    fp32 slices; the fp32 flag and the tiles a block walks. bf16 (on the
-    core's bf16 products since the bf16 DepthNet program): A and B as they
-    are, out, the weights, then the pack's bf16 slices; the tiles too."""
+    """fp32: A and B in fragment order, out, the pack's fp32 slices, then
+    its epilogue vectors; the fp32 flag and the tiles a block walks. bf16
+    (on the core's bf16 products since the bf16 DepthNet program): A and B
+    as they are, out, the pack's bf16 slices, then its vectors; the tiles
+    too."""
     model = depth_model(2)[2]
     packed = k1.pack_depth_net(model, dtype)
     seen = mocked_library(monkeypatch, k1, "nst_depth_net_forward")
     n = 200
     A, B = meta(n, 128).to(dtype), meta(n, 128).to(dtype)
-    before = (k1.launches, k1.fp32_launches)
+    before = build.launches.copy()
     out = k1.depth_net_kernel(packed, model.cfg, A, B)
     assert out.shape == (n,)
-    weights = k1._flat_weights(packed, dtype)
+    vectors = k1.epilogue_vectors(packed, dtype)
     ptrs, args = seen["ptrs"], seen["args"]
     fp32 = dtype == F32
-    assert seen["count"] == len(ptrs) == 3 + len(weights) + 1
-    assert all(a is b for a, b in zip(ptrs[3:3 + len(weights)], weights))
-    assert ptrs[-1] is k1.depth_slices(packed)
+    assert seen["count"] == len(ptrs) == 3 + 1 + len(vectors)
+    assert all(a is b for a, b in zip(ptrs[4:], vectors))
+    assert ptrs[3] is k1.depth_slices(packed)
     assert args[-2] == k1.tiles_per_block(n, 132) == 1
+    assert build.launches - before == {("K1", "fp32" if fp32 else "bf16"): 1}
     if fp32:
-        assert (k1.launches, k1.fp32_launches) == (before[0], before[1] + 1)
         assert ptrs[0].shape == ptrs[1].shape == (4, 16, 128, 4)
-        assert ptrs[-1].shape == (header_depth_slices32(2, 2), 4096) and args[-3] == 1
+        assert ptrs[3].shape == (header_depth_slices32(2, 2), 4096) and args[-3] == 1
     else:
-        assert (k1.launches, k1.fp32_launches) == (before[0] + 1, before[1])
         assert ptrs[0] is A and ptrs[1] is B
-        assert ptrs[-1].dtype == torch.bfloat16 and ptrs[-1].shape == (k1.depth_slices16(2, 2), 8192)
+        assert ptrs[3].dtype == torch.bfloat16 and ptrs[3].shape == (k1.depth_slices16(2, 2), 8192)
         assert args[-3] == 0
     assert k1.tiles_per_block(160_064, 132) == 19
 
@@ -265,9 +267,10 @@ def int8_pack(model):
 @pytest.mark.parametrize("entry", ["nst_shade", "nst_render_linspace"])
 def test_k8_k9_launch_hands_the_packs_slices(monkeypatch, kind, entry):
     """K9 (fused_shade) and K8 (fused_render) hand the kernel the pack's
-    full-forward slices after the weights: the fp32 path's hi and lo image
-    for an fp32 pack, the bf16 image for a bf16 one, the int8 program's
-    byte image (bf16 and s8 slices) for an int8 one."""
+    full-forward slices after its outputs, then the pack's epilogue vectors:
+    the fp32 path's hi and lo image for an fp32 pack, the bf16 image for a
+    bf16 one, the int8 program's byte image (bf16 and s8 slices) for an int8
+    one."""
     model = small_nerf(D=4, skips=(1,))
     dtype = F32 if kind == "fp32" else torch.bfloat16
     packed = int8_pack(model) if kind == "int8" else k89.pack_nerf(model, dtype)
@@ -279,16 +282,16 @@ def test_k8_k9_launch_hands_the_packs_slices(monkeypatch, kind, entry):
     else:
         out = k89.fused_render(packed, model.cfg, ro, rd, n_samples=S, dtype=dtype)
     assert out["rgb_map"].shape == (n, 3)
-    weights = k89._flat_weights(packed, dtype=dtype)
+    vectors = k89.epilogue_vectors(packed, dtype=dtype)
     ptrs = seen["ptrs"]
-    assert all(a is b for a, b in zip(ptrs[5:5 + len(weights)], weights))
-    assert seen["count"] == len(ptrs) == 5 + len(weights) + 1
+    assert all(a is b for a, b in zip(ptrs[6:], vectors))
+    assert seen["count"] == len(ptrs) == 5 + 1 + len(vectors)
     if kind == "int8":
         want = k89.wgmma_qslices(k89.wgmma_qprogram(packed))
     else:
         program = k89.wgmma_program(packed)
         want = k89.wgmma_slices32(program) if kind == "fp32" else k89.wgmma_slices(program)
-    assert ptrs[-1] is k89.pack_slices(packed) and torch.equal(ptrs[-1], want)
+    assert ptrs[5] is k89.pack_slices(packed) and torch.equal(ptrs[5], want)
     assert seen["args"][-3] == (kind == "fp32")  # the fp32 flag, before the plan and the stream
 
 

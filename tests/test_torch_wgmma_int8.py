@@ -21,10 +21,10 @@ tests hold it here:
   1e-5 of the largest |raw| (``tests/test_torch_quant.py``'s bound, where
   its measurement reads equal);
 - an int8 hierarchical launch, against a mocked library, hands the kernel
-  both int8 packs' slices after the weights: the coarse net's sigma-only
-  image, then the fine net's full one; an int8 K2, K3, K8 or K9 launch
-  hands its pack's full image, and one whose pack holds another program's
-  slices is refused before the call;
+  both int8 packs' slices after its outputs: the coarse net's sigma-only
+  image, then the fine net's full one, then both packs' epilogue vectors;
+  an int8 K2, K3, K8 or K9 launch hands its pack's full image, and one
+  whose pack holds another program's slices is refused before the call;
 - the [core] check's s8 layer (``wgmma_dense_q``) on CPU is the int64
   product.
 
@@ -32,8 +32,6 @@ The kernel runs only on the card: ``chip_smoke.py`` holds it there.
 """
 
 from __future__ import annotations
-
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -147,13 +145,14 @@ def test_qslice_counts_match_the_kernel_header(D, skips):
 
 
 def test_int8_pack_slices_are_cached_per_program():
-    packed = qpack(small_nerf(D=8, skips=(4,)))
+    model = small_nerf(D=8, skips=(4,))
+    packed = qpack(model)
     so, full = fr.pack_slices(packed, sigma_only=True), fr.pack_slices(packed)
     assert fr.pack_slices(packed, sigma_only=True) is so and fr.pack_slices(packed) is full
     assert torch.equal(full, fr.wgmma_qslices(fr.wgmma_qprogram(packed)))
     assert torch.equal(so, fr.wgmma_qslices(fr.wgmma_qprogram(packed, sigma_only=True)))
     assert torch.equal(full[:so.shape[0]], so)  # the sigma-only program is the full one's head
-    assert fr._core_slices(packed)[0] is full  # the int8 render kernels take the full forward's image
+    assert fr.pack_args(packed, model.cfg).slices is full  # the int8 render kernels take the full forward's image
 
 
 def emulated_qforward(packed: dict, slices: torch.Tensor, x_pts: torch.Tensor, x_v: torch.Tensor | None,
@@ -263,43 +262,30 @@ def test_int8_forward_and_plain_version_match_jax(heads):
 def test_hier_launch_passes_both_packs_slices(monkeypatch, kind, seeded):
     """What render_hier_kernel hands nst_render_hier, against a mocked
     library: rays_o, rays_d, draws (null), out, the coarse net's sigma-only
-    weights, the fine net's weights, then the coarse net's sigma-only
     slices and the fine net's full ones (int8: wgmma_qslices' images, as
-    many as the header's forward_qslices reads), and the int8 plans."""
+    many as the header's forward_qslices reads), then the coarse net's
+    sigma-only epilogue vectors and the fine net's, and the int8 plans."""
     coarse, fine = small_nerf(D=4, skips=(1,), seed=3), small_nerf(D=8, skips=(4,), seed=4)
     if kind == "int8":
         packed = k67.qpack_hier(coarse, fine, (qpack(coarse)["calib"], qpack(fine, seed=1)["calib"]))
     else:
         packed = k67.pack_hier(coarse, fine)
-    seen = {}
+    from test_torch_wgmma_tf32 import mocked_library
 
-    class Lib:
-        def nst_render_hier(self, arr, count, *args):
-            seen["count"], seen["args"] = count, args
-            return 0
-
-    def pointer_array(tensors):
-        seen["ptrs"] = tensors
-        return None, len(tensors)
-
-    fake = types.SimpleNamespace(load_library=Lib, pointer_array=pointer_array, host_pointer=build.host_pointer,
-                                 current_stream=lambda device: 0, check=build.check)
-    monkeypatch.setattr(k67, "build", fake)
-    monkeypatch.setattr(k67, "_check_cuda", lambda *a: None)  # the meta tensors below stand for the card's
+    seen = mocked_library(monkeypatch, k67, "nst_render_hier")
     n = 40
     ro, rd = torch.zeros(n, 3, device="meta"), torch.zeros(n, 3, device="meta")
-    counters = ("launches", "int8_launches", "det_launches", "det_int8_launches")
-    before = {c: getattr(k67, c) for c in counters}
+    before = build.launches.copy()
     out = k67.render_hier_kernel(packed, coarse.cfg, fine.cfg, ro, rd, n_coarse=8, n_importance=16,
                                  seed=5 if seeded else None)
     assert out["rgb_map"].shape == (n, 3)
-    w_c = fr._flat_weights(packed["coarse"], sigma_only=True)
-    w_f = fr._flat_weights(packed["fine"])
+    v_c = fr.epilogue_vectors(packed["coarse"], sigma_only=True)
+    v_f = fr.epilogue_vectors(packed["fine"])
     ptrs = seen["ptrs"]
-    assert seen["count"] == len(ptrs) == 4 + len(w_c) + len(w_f) + 2
+    assert seen["count"] == len(ptrs) == 4 + 2 + len(v_c) + len(v_f)
     assert ptrs[0] is ro and ptrs[1] is rd and ptrs[2] is None and tuple(ptrs[3].shape) == (11, n)
-    assert all(a is b for a, b in zip(ptrs[4:-2], w_c + w_f))
-    s_c, s_f = ptrs[-2:]
+    assert all(a is b for a, b in zip(ptrs[6:], v_c + v_f))
+    s_c, s_f = ptrs[4:6]
     assert s_c is fr.pack_slices(packed["coarse"], sigma_only=True) and s_f is fr.pack_slices(packed["fine"])
     if kind == "int8":
         fwd = _header_formula("forward_qslices")
@@ -312,8 +298,7 @@ def test_hier_launch_passes_both_packs_slices(monkeypatch, kind, seeded):
         assert s_c.dtype == s_f.dtype == torch.bfloat16
         assert s_c.shape[0] == fwd(4, 0b10, True) and s_f.shape[0] == fwd(8, 0b100000, False)
         assert seen["args"][-3] is None and seen["args"][-2] is None
-    bumped = {c for c in counters if getattr(k67, c) != before[c]}
-    assert bumped == {("" if seeded else "det_") + ("int8_launches" if kind == "int8" else "launches")}
+    assert build.launches - before == {("K6" if seeded else "K7", kind): 1}
 
 
 def _render(entry: str, packed: dict, cfg, n: int, S: int = 16):
@@ -334,9 +319,10 @@ RENDER_ENTRIES = ["nst_render_around_depth", "nst_render_gaussian", "nst_render_
 
 @pytest.mark.parametrize("entry", RENDER_ENTRIES, ids=["K2", "K3", "K8", "K9"])
 def test_int8_render_launch_hands_the_qslices(monkeypatch, entry):
-    """An int8 render launch hands the kernel, after the weights, its pack's
+    """An int8 render launch hands the kernel, after its outputs, its pack's
     full-forward image (bf16 and s8 slices, as many as the header's
-    forward_qslices reads), and the int8 plan."""
+    forward_qslices reads), then the pack's epilogue vectors, and the int8
+    plan."""
     from test_torch_wgmma_tf32 import mocked_library
 
     model = small_nerf(D=8, skips=(4,))
@@ -344,12 +330,12 @@ def test_int8_render_launch_hands_the_qslices(monkeypatch, entry):
     seen = mocked_library(monkeypatch, fr, entry)
     out = _render(entry, packed, model.cfg, 40)
     assert out["rgb_map"].shape == (40, 3)
-    weights = fr._flat_weights(packed)
+    vectors = fr.epilogue_vectors(packed)
     ptrs = seen["ptrs"]
-    assert seen["count"] == len(ptrs) == 5 + len(weights) + 1
-    assert all(a is b for a, b in zip(ptrs[5:-1], weights))
-    assert ptrs[-1] is fr.pack_slices(packed) and ptrs[-1].dtype == torch.uint8
-    assert ptrs[-1].shape[0] == _header_formula("forward_qslices")(8, 0b10000, False)
+    assert seen["count"] == len(ptrs) == 5 + 1 + len(vectors)
+    assert all(a is b for a, b in zip(ptrs[6:], vectors))
+    assert ptrs[5] is fr.pack_slices(packed) and ptrs[5].dtype == torch.uint8
+    assert ptrs[5].shape[0] == _header_formula("forward_qslices")(8, 0b10000, False)
     assert seen["args"][-2] is not None  # the plan
 
 

@@ -11,7 +11,7 @@ plain MLP; and ``pack_nerf``'s layout, which the other kernels read, is
 unchanged.
 
 The bf16 render kernels (K2, K3, K8, K9) take a pack's full-forward slices
-as their last pointer: the slices cached in the pack (``pack_slices``) are
+after their outputs (``pack_args``): the slices cached in the pack (``pack_slices``) are
 kept apart per program, follow a re-pack of new weights, reach every
 launch (bf16, fp32 and int8 packs, each its own image), and, run through
 the emulated forward and composited as K2 and K3 composite, give the plain
@@ -181,17 +181,18 @@ def header_count(D: int, skips, sigma_only: bool = False) -> int:
 
 @pytest.mark.parametrize("D,skips", [(8, (4,)), (4, (1,))], ids=["production", "small"])
 def test_render_launch_takes_the_full_forward_slices(D, skips):
-    """What a bf16 render launch hands the kernel after the weights: one
+    """What a bf16 render launch hands the kernel after its outputs: one
     image of the full forward, as many slices as the header's
     forward_slices(D, skip_mask, false) reads, unpacking to every matrix,
     made once and kept in the pack."""
-    packed = fr.pack_nerf(small_nerf(D=D, skips=skips))
-    (image,) = fr._core_slices(packed)
+    model = small_nerf(D=D, skips=skips)
+    packed = fr.pack_nerf(model)
+    image = fr.pack_args(packed, model.cfg).slices
     assert image.shape == (header_count(D, skips), fr.WG_SLICE_N * fr.WG_SLICE_K)
     program = fr.wgmma_program(packed)
     for (w, _), B in zip(program, unpack(image, program)):
         assert torch.equal(B, w.float())
-    assert fr._core_slices(packed)[0] is image
+    assert fr.pack_args(packed, model.cfg).slices is image
 
 
 @pytest.mark.parametrize("first", ["sigma_only", "full"])
@@ -215,7 +216,7 @@ def test_slices_follow_a_repack_of_new_weights():
     render pack and in both nets of the hier pack."""
     coarse, fine = small_nerf(D=4, skips=(1,), seed=3), small_nerf(D=4, skips=(1,), seed=4)
     params = pack_kernel_weights(NeRFParams(coarse, fine), with_hier=True)
-    old = fr._core_slices(params.kernels.nerf)[0].clone()
+    old = fr.pack_args(params.kernels.nerf, fine.cfg).slices.clone()
     fr.pack_slices(params.kernels.hier["coarse"], sigma_only=True)
     fr.pack_slices(params.kernels.hier["fine"])
     with torch.no_grad():
@@ -223,7 +224,7 @@ def test_slices_follow_a_repack_of_new_weights():
             for p in m.parameters():
                 p.mul_(-0.5)
     params = pack_kernel_weights(params._replace(kernels=None), with_hier=True)
-    new = fr._core_slices(params.kernels.nerf)[0]
+    new = fr.pack_args(params.kernels.nerf, fine.cfg).slices
     assert torch.equal(new, fr.wgmma_slices(fr.wgmma_program(fr.pack_nerf(fine))))
     assert not torch.equal(new, old)
     hier = params.kernels.hier
@@ -247,14 +248,14 @@ def test_only_bf16_launches_take_slices(kind):
         packed = quant.qpack_nerf(model, quant.calibrate_nerf_quant(model, ro, rd, n_rays=64, n_z=9))
     else:
         packed = fr.pack_nerf(model, torch.float32 if kind == "fp32" else torch.bfloat16)
-    args = fr._core_slices(packed)
+    image = fr.pack_args(packed, model.cfg, dtype=torch.float32 if kind == "fp32" else torch.bfloat16).slices
     if kind == "bf16":
-        assert len(args) == 1 and torch.equal(args[0], fr.wgmma_slices(fr.wgmma_program(packed)))
+        assert torch.equal(image, fr.wgmma_slices(fr.wgmma_program(packed)))
     elif kind == "fp32":
-        assert len(args) == 1 and torch.equal(args[0], fr.wgmma_slices32(fr.wgmma_program(packed)))
+        assert torch.equal(image, fr.wgmma_slices32(fr.wgmma_program(packed)))
     else:
-        assert len(args) == 1 and torch.equal(args[0], fr.wgmma_qslices(fr.wgmma_qprogram(packed)))
-        assert args[0] is packed["wg_slices"]["full"]
+        assert torch.equal(image, fr.wgmma_qslices(fr.wgmma_qprogram(packed)))
+        assert image is packed["wg_slices"]["full"]
 
 
 def composite_in_order(raw: torch.Tensor, z: torch.Tensor, rays_d: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -319,7 +320,7 @@ def test_emulated_render_over_the_slices_matches_the_plain_version(population):
     pts = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(-1, 3)
     dirs = rd / torch.sqrt((rd * rd).sum(-1, keepdim=True))
     x_pts, x_v = point_embeddings(pts, dirs, 10, 4, torch.bfloat16)
-    raw = emulated_forward(packed, fr._core_slices(packed)[0], x_pts, x_v).reshape(n, S, 4)
+    raw = emulated_forward(packed, fr.pack_args(packed, model.cfg).slices, x_pts, x_v).reshape(n, S, 4)
     got = composite_in_order(raw, z, rd)
     ok = ~torch.isnan(depth)
     assert float(want["acc_map"][ok].mean()) > 0.1  # a field with density: the maps say something

@@ -23,7 +23,8 @@ of the weights' hi and lo slices blind, so these tests hold it here:
   of test view 0 at ``chip_smoke.py``'s gates (max_z within 1e-3 on the
   rays that hit the sphere, rgb within 3e-4): 3xTF32 can hold them;
 - an fp32 K7 launch, against a mocked library, hands the kernel both fp32
-  packs' slices after the weights, and a launch whose pack holds slices of
+  packs' slices after its outputs, then their epilogue vectors, and a
+  launch whose pack holds slices of
   another program is refused;
 - the [core] check's fp32 layer (``wgmma_dense32``) on CPU is the fp32
   matmul.
@@ -33,7 +34,6 @@ The kernel runs only on the card: ``chip_smoke.py`` holds it there.
 
 from __future__ import annotations
 
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -217,17 +217,25 @@ def test_emulated_3xtf32_k7_holds_the_chip_gates_on_the_committed_nerfs(rng, mon
     assert float(drgb.max()) > 0  # the emulation ran
 
 
-def mocked_library(monkeypatch, module, entry: str):
-    """Replace ``module``'s build with one whose library records the call to
-    ``entry``; returns the record."""
-    seen = {}
+def mocked_library(monkeypatch, module, entry: str, **run):
+    """Replace the kernel library on a 132-SM card (``build``'s loader,
+    pointer array, stream and SM count) with one whose C entries record
+    their calls: ``entry``, and each entry of ``run`` (which runs its
+    function on the call's arguments); ``module``'s ``check_cuda``, if a
+    module is given, passes the meta tensors that stand for the card's. Returns the record: the
+    last call of ``entry``'s pointers, count and arguments (the stream,
+    0, last), and every call as (entry, arguments)."""
+    seen = {"calls": []}
 
     class Lib:
         def __getattr__(self, name):
-            assert name == entry
+            assert name == entry or name in run
 
-            def call(arr, count, *args):
-                seen["count"], seen["args"] = count, args
+            def call(*args):
+                seen["calls"].append((name, args))
+                if name in run:
+                    return run[name](*args)
+                seen["count"], seen["args"] = args[1], args[2:]
                 return 0
             return call
 
@@ -235,34 +243,37 @@ def mocked_library(monkeypatch, module, entry: str):
         seen["ptrs"] = tensors
         return None, len(tensors)
 
-    fake = types.SimpleNamespace(load_library=Lib, pointer_array=pointer_array, host_pointer=build.host_pointer,
-                                 current_stream=lambda device: 0, check=build.check, sm_count=lambda device: 132)
-    monkeypatch.setattr(module, "build", fake)
-    monkeypatch.setattr(module, "_check_cuda", lambda *a: None)  # the meta tensors below stand for the card's
+    monkeypatch.setattr(build, "load_library", Lib)
+    monkeypatch.setattr(build, "pointer_array", pointer_array)
+    monkeypatch.setattr(build, "current_stream", lambda device: 0)
+    monkeypatch.setattr(build, "sm_count", lambda device: 132)
+    if module is not None:
+        monkeypatch.setattr(module, "check_cuda", lambda *a: None)  # the meta tensors below stand for the card's
     return seen
 
 
 def test_fp32_k7_launch_passes_both_packs_slices(monkeypatch):
     """What an fp32 K7 launch hands nst_render_hier: rays_o, rays_d, no
-    draws, out, the coarse net's sigma-only fp32 weights, the fine net's,
-    then both nets' fp32 slices (wgmma_slices32's hi and lo images, as many
-    as the header's forward_slices32 reads), no int8 plans, fp32 set."""
+    draws, out, both nets' fp32 slices (wgmma_slices32's hi and lo images,
+    as many as the header's forward_slices32 reads), then the epilogue
+    vectors of the coarse net's sigma-only pass and of the fine net, no int8
+    plans, fp32 set."""
     coarse, fine = small_nerf(D=4, skips=(1,), seed=3), small_nerf(D=8, skips=(4,), seed=4)
     packed = k67.pack_hier(coarse, fine, torch.float32)
     seen = mocked_library(monkeypatch, k67, "nst_render_hier")
     n = 40
     ro, rd = torch.zeros(n, 3, device="meta"), torch.zeros(n, 3, device="meta")
-    before = k67.det_fp32_launches
+    before = build.launches["K7", "fp32"]
     out = k67.render_hier_kernel(packed, coarse.cfg, fine.cfg, ro, rd, n_coarse=8, n_importance=16,
                                  dtype=torch.float32)
-    assert out["rgb_map"].shape == (n, 3) and k67.det_fp32_launches == before + 1
-    w_c = fr._flat_weights(packed["coarse"], sigma_only=True, dtype=torch.float32)
-    w_f = fr._flat_weights(packed["fine"], dtype=torch.float32)
+    assert out["rgb_map"].shape == (n, 3) and build.launches["K7", "fp32"] == before + 1
+    v_c = fr.epilogue_vectors(packed["coarse"], sigma_only=True, dtype=torch.float32)
+    v_f = fr.epilogue_vectors(packed["fine"], dtype=torch.float32)
     ptrs = seen["ptrs"]
-    assert seen["count"] == len(ptrs) == 4 + len(w_c) + len(w_f) + 2
+    assert seen["count"] == len(ptrs) == 4 + 2 + len(v_c) + len(v_f)
     assert ptrs[0] is ro and ptrs[1] is rd and ptrs[2] is None and tuple(ptrs[3].shape) == (11, n)
-    assert all(a is b for a, b in zip(ptrs[4:-2], w_c + w_f))
-    s_c, s_f = ptrs[-2:]
+    assert all(a is b for a, b in zip(ptrs[6:], v_c + v_f))
+    s_c, s_f = ptrs[4:6]
     fwd = _header_formula("forward_slices32")
     assert s_c.dtype == s_f.dtype == torch.float32
     assert s_c.shape == (fwd(4, 0b10, True), 4096) and s_f.shape == (fwd(8, 0b100000, False), 4096)
